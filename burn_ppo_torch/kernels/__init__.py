@@ -1,0 +1,163 @@
+"""Build and bind the hand-written CUDA kernels (``burn_ppo_torch/csrc``).
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library
+with a plain C interface, loaded through ``ctypes``. The build runs at
+first use, on the machine with the card, and is cached by a hash of the
+sources and flags under ``<repo>/.cache/burn_ppo_torch/kernels/`` (a temp
+file, then an atomic rename, so concurrent builds never see a torn
+library). There is no fallback: a failed build raises with nvcc's output.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception, because a refused launch never runs and a later
+``torch.cuda.synchronize()`` would not report it.
+
+The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
+``ops/categorical.py``, ``ops/gae.py``) and use the helpers below.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[2]
+BUILD_DIR = REPO_ROOT / ".cache" / "burn_ppo_torch" / "kernels"
+
+# Accurate sinf/cosf/logf/expf: no --use_fast_math (the env physics and
+# the Gumbel transform are compared with their plain versions at 1e-5).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signature of every entry point: (name, argtypes). Pointers and the
+# stream are c_void_p (ctypes would otherwise pass a 32-bit int and cut
+# the pointer); scalars are c_int / c_float.
+SIGNATURES = {
+    # 9 inputs, 12 outputs, num_envs, stream
+    "cartpole_step_autoreset": [_VP] * 21 + [_I, _VP],
+    # logits, mask (nullable), uniforms, actions, log_probs, rows, A, stream
+    "masked_gumbel_sample": [_VP] * 5 + [_I, _I, _VP],
+    # rewards, values, dones, last_values, advantages, returns, T, E,
+    # gamma, gamma*lambda, stream
+    "gae_reverse_scan": [_VP] * 6 + [_I, _I, _F, _F, _VP],
+}
+
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("NVCC"),
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set NVCC or CUDA_HOME); the CUDA kernels of "
+        "burn_ppo_torch are built from csrc/ at first use"
+    )
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Content-addressed path of the shared library for these sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libburn_ppo_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the cached library (no-op when present).
+
+    nvcc's output (``-Xptxas -v``: registers, shared memory and spills of
+    each kernel) is kept beside the library as ``.log``."""
+    so_path = library_path()
+    if so_path.exists():
+        return so_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_name(f"{so_path.stem}.tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    so_path.with_suffix(".log").write_text(res.stdout + res.stderr)
+    tmp.replace(so_path)
+    return so_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """Dispatch rule of every wrapper: all-CPU -> plain version, all on
+    one CUDA device -> kernel, anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return False
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Validate a kernel argument before its pointer crosses into C."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel arguments must be contiguous")

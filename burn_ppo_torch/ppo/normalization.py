@@ -1,0 +1,154 @@
+"""Running normalizers (burn_ppo_tpu/ppo/normalization.py:36-209).
+
+* ``ObsNormState`` — per-dimension Welford mean/var, applied LAGGED (the
+  rollout uses the previous stats; the raw batch merges in after it),
+  clipped, identity while count < 2.
+* ``ReturnNormState`` — per-env rolling discounted returns; rewards are
+  divided by the running std of those returns (variance only), clipped.
+  ``return_norm_roll`` is the elementwise per-step half;
+  ``return_norm_finalize`` is one inclusive prefix pass over the whole
+  [T, E] rollout in the reference's visitation order (step-major, env
+  index), in shifted coordinates.
+
+PopArt arrives with the CTDE path (ROADMAP A14): CartPole does not use it.
+Stats are device tensors, so nothing here waits for the device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Tuple
+
+import torch
+
+
+def _welford_merge(mean_a, m2_a, count_a, mean_b, m2_b, count_b):
+    """Merge two Welford accumulators (Chan et al.)."""
+    total = count_a + count_b
+    safe_total = torch.clamp(total, min=1.0)
+    delta = mean_b - mean_a
+    mean = mean_a + delta * (count_b / safe_total)
+    m2 = m2_a + m2_b + torch.square(delta) * (count_a * count_b / safe_total)
+    keep = count_b > 0
+    return (
+        torch.where(keep, mean, mean_a),
+        torch.where(keep, m2, m2_a),
+        torch.where(keep, total, count_a),
+    )
+
+
+@dataclass
+class ObsNormState:
+    mean: torch.Tensor  # [D]
+    m2: torch.Tensor  # [D]
+    count: torch.Tensor  # scalar
+
+    @staticmethod
+    def create(obs_dim: int, device: torch.device) -> "ObsNormState":
+        z = torch.zeros(obs_dim, dtype=torch.float32, device=device)
+        return ObsNormState(
+            mean=z, m2=z.clone(), count=torch.zeros((), dtype=torch.float32, device=device)
+        )
+
+
+def obs_norm_update(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
+    """Merge a raw obs batch [..., D] into the running stats."""
+    flat = batch.reshape(-1, batch.shape[-1])
+    n = torch.tensor(float(flat.shape[0]), dtype=torch.float32, device=flat.device)
+    mean_b = torch.mean(flat, dim=0)
+    m2_b = torch.sum(torch.square(flat - mean_b), dim=0)
+    mean, m2, count = _welford_merge(state.mean, state.m2, state.count, mean_b, m2_b, n)
+    return ObsNormState(mean=mean, m2=m2, count=count)
+
+
+def obs_norm_apply(state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
+    """Normalize obs [..., D]; identity until count >= 2."""
+    var = state.m2 / torch.clamp(state.count, min=1.0)
+    std = torch.clamp(torch.sqrt(var), min=1e-8)
+    normalized = torch.clamp((obs - state.mean) / std, -clip, clip)
+    return torch.where(state.count < 2.0, obs, normalized)
+
+
+@dataclass
+class ReturnNormState:
+    returns: torch.Tensor  # [E, P] rolling discounted returns per player
+    mean: torch.Tensor  # scalar Welford mean of observed rolling returns
+    m2: torch.Tensor  # scalar
+    count: torch.Tensor  # scalar
+
+    @staticmethod
+    def create(num_envs: int, num_players: int, device: torch.device) -> "ReturnNormState":
+        def z():
+            return torch.zeros((), dtype=torch.float32, device=device)
+
+        return ReturnNormState(
+            returns=torch.zeros(num_envs, num_players, dtype=torch.float32, device=device),
+            mean=z(),
+            m2=z(),
+            count=z(),
+        )
+
+
+def return_norm_roll(
+    returns: torch.Tensor,  # [E, 1] rolling discounted returns
+    rewards: torch.Tensor,  # [E] raw rewards this step
+    dones: torch.Tensor,  # [E] 1.0 / True where the episode ended
+    gamma: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-step half for a single player (the acting player is always 0):
+    update the rolling return, capture the post-update sample, reset it on
+    done (normalization.rs:163-215). Returns (new_returns [E, 1],
+    samples [E])."""
+    updated = returns * gamma + rewards[:, None]
+    samples = updated[:, 0]
+    updated = torch.where(dones[:, None] != 0, torch.zeros_like(updated), updated)
+    return updated, samples
+
+
+def return_norm_finalize(
+    state: ReturnNormState,
+    samples: torch.Tensor,  # [..., E] post-update rolling-return samples
+    rewards: torch.Tensor,  # [..., E] raw rewards
+    clip: float = 10.0,
+) -> Tuple[ReturnNormState, torch.Tensor]:
+    """Prefix-Welford stats + normalization for a whole rollout.
+
+    Every position is normalized with the running stats INCLUDING its own
+    sample, in row-major [T, E] order — the reference's global per-env
+    sequential update — computed from inclusive prefix sums in
+    coordinates shifted by the batch mean. ``state.returns`` passes
+    through (``return_norm_roll`` advanced it). The learner-turn mask of
+    the pool path arrives with ROADMAP A12.
+
+    The closed form subtracts two prefix sums (``q_e - count_e * mean^2``)
+    that nearly cancel while the count is small, so the prefix pass runs in
+    float64, as the reference keeps its Welford accumulators in f64; the
+    state stays f32 and the rewards are normalized in f32."""
+    shape = rewards.shape
+    f64 = torch.float64
+    x = samples.reshape(-1).to(f64)
+    r = rewards.reshape(-1)
+    n = x.shape[0]
+    count0, mean0, m20 = state.count.to(f64), state.mean.to(f64), state.m2.to(f64)
+    count_e = count0 + torch.arange(1, n + 1, dtype=f64, device=x.device)
+    shift = torch.sum(x) / float(n)
+    u = x - shift
+    s_e = torch.cumsum(u, dim=0)
+    q_e = torch.cumsum(torch.square(u), dim=0)
+    safe_c = torch.clamp(count_e, min=1.0)
+    base_u = mean0 - shift
+    mean_u_e = (count0 * base_u + s_e) / safe_c
+    m2_e = m20 + count0 * torch.square(base_u) + q_e - count_e * torch.square(mean_u_e)
+    m2_e = torch.clamp(m2_e, min=0.0)  # tiny negatives from rounding
+
+    std = torch.sqrt(m2_e / safe_c + 1e-8).to(r.dtype)
+    normalized = torch.clamp(r / std, -clip, clip)
+    normalized = torch.where(count_e < 2.0, r, normalized)
+    f32 = state.mean.dtype
+    new_state = replace(
+        state,
+        mean=(mean_u_e[-1] + shift).to(f32),
+        m2=m2_e[-1].to(f32),
+        count=count_e[-1].to(f32),
+    )
+    return new_state, normalized.reshape(shape)

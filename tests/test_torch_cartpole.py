@@ -1,0 +1,137 @@
+"""CartPole step + auto-reset of the port (plain path of kernel K1)
+against ``jax.vmap(autoreset_step)`` of the JAX package."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+from burn_ppo_tpu.envs.base import EpisodeAccumulator as JaxAcc  # noqa: E402
+from burn_ppo_tpu.envs.base import autoreset_step as jax_autoreset_step  # noqa: E402
+from burn_ppo_tpu.envs.cartpole import CartPole as JaxCartPole  # noqa: E402
+from burn_ppo_tpu.envs.cartpole import CartPoleState as JaxState  # noqa: E402
+from burn_ppo_torch.envs.base import EpisodeAccumulator  # noqa: E402
+from burn_ppo_torch.envs.cartpole import CartPole, CartPoleState  # noqa: E402
+
+JENV = JaxCartPole()
+ENV = CartPole()
+
+
+@jax.jit
+def _jax_step(state, acc, action, keys):
+    return jax.vmap(lambda s, a, act, k: jax_autoreset_step(JENV, s, a, act, k))(
+        state, acc, action, keys
+    )
+
+
+@jax.jit
+def _jax_reset_values(keys):
+    """The [E, 4] values env.reset(key) draws — what the port is handed."""
+    fresh = jax.vmap(JENV.reset)(keys)
+    return jnp.stack([fresh.x, fresh.x_dot, fresh.theta, fresh.theta_dot], axis=1)
+
+
+def _jax_state(x, x_dot, theta, theta_dot, step_idx):
+    E = x.shape[0]
+    return JaxState(
+        x=jnp.asarray(x), x_dot=jnp.asarray(x_dot), theta=jnp.asarray(theta),
+        theta_dot=jnp.asarray(theta_dot), step_idx=jnp.asarray(step_idx, jnp.int32),
+        rewards=jnp.zeros((E, 1), jnp.float32), done=jnp.zeros((E,), bool),
+        key=jax.random.split(jax.random.PRNGKey(0), E),
+    )
+
+
+def _torch_state(js) -> CartPoleState:
+    return CartPoleState(*(torch.from_numpy(np.array(getattr(js, f))) for f in
+                           ("x", "x_dot", "theta", "theta_dot", "step_idx")))
+
+
+def _compare_step(j_out, t_out, atol):
+    j_next, j_acc, j_term, j_log = j_out
+    # Tolerance: f32 physics in both; sin/cos and FMA contraction may
+    # differ by an ulp between XLA:CPU and PyTorch's CPU kernels.
+    for f in ("x", "x_dot", "theta", "theta_dot"):
+        np.testing.assert_allclose(
+            getattr(t_out.state, f).numpy(), np.asarray(getattr(j_next, f)), rtol=0, atol=atol
+        )
+    # Discrete outputs must agree exactly.
+    np.testing.assert_array_equal(t_out.state.step_idx.numpy(), np.asarray(j_next.step_idx))
+    np.testing.assert_array_equal(t_out.done.numpy(), np.asarray(j_term.done, np.float32))
+    np.testing.assert_array_equal(t_out.reward.numpy(), np.asarray(j_term.rewards[:, 0]))
+    np.testing.assert_array_equal(t_out.log.completed.numpy(), np.asarray(j_log.completed, np.float32))
+    np.testing.assert_array_equal(t_out.log.total_rewards.numpy(), np.asarray(j_log.total_rewards[:, 0]))
+    np.testing.assert_array_equal(t_out.log.length.numpy(), np.asarray(j_log.length))
+    np.testing.assert_array_equal(t_out.acc.reward_sum.numpy(), np.asarray(j_acc.reward_sum[:, 0]))
+    np.testing.assert_array_equal(t_out.acc.length.numpy(), np.asarray(j_acc.length))
+    j_obs = jax.vmap(JENV.obs)(j_next)
+    np.testing.assert_allclose(t_out.obs.numpy(), np.asarray(j_obs), rtol=0, atol=atol)
+
+
+def test_step_autoreset_matches_jax_from_identical_states():
+    rng = np.random.default_rng(1)
+    E = 256
+    f32 = np.float32
+    # States on both sides of the failure thresholds and step counts at the
+    # 500-step cap, so every branch (continue, failure, timeout) is hit.
+    x = rng.uniform(-2.45, 2.45, E).astype(f32)
+    x_dot = rng.uniform(-2, 2, E).astype(f32)
+    theta = rng.uniform(-0.215, 0.215, E).astype(f32)
+    theta_dot = rng.uniform(-2, 2, E).astype(f32)
+    step_idx = rng.choice([0, 1, 17, 250, 498, 499], E).astype(np.int32)
+    reward_sum = rng.integers(0, 400, E).astype(f32)
+    length = rng.integers(0, 499, E).astype(np.int32)
+    actions = rng.integers(0, 2, E).astype(np.int32)
+    keys = jax.random.split(jax.random.PRNGKey(7), E)
+
+    js = _jax_state(x, x_dot, theta, theta_dot, step_idx)
+    j_acc = JaxAcc(reward_sum=jnp.asarray(reward_sum)[:, None], length=jnp.asarray(length))
+    j_out = _jax_step(js, j_acc, jnp.asarray(actions), keys)
+
+    t_out = ENV.step_autoreset(
+        _torch_state(js),
+        EpisodeAccumulator(torch.from_numpy(reward_sum), torch.from_numpy(length)),
+        torch.from_numpy(actions),
+        torch.from_numpy(np.array(_jax_reset_values(keys))),
+    )
+    _compare_step(j_out, t_out, atol=1e-6)
+    done = np.asarray(j_out[2].done)
+    reward = np.asarray(j_out[2].rewards[:, 0])
+    assert (done & (reward == 0)).any() and (done & (reward == 1)).any() and (~done).any()
+
+
+def test_500_step_rollout_with_fixed_actions():
+    E, T = 8, 500
+    # Start some envs late in their episode so the 500-step timeout (pays 1)
+    # is reached as well as pole/cart failures (pay 0).
+    start_steps = np.array([0, 100, 200, 300, 400, 450, 480, 495], np.int32)
+    key = jax.random.PRNGKey(3)
+    key, sub = jax.random.split(key)
+    init = np.asarray(_jax_reset_values(jax.random.split(sub, E)))
+    js = _jax_state(*(init[:, i] for i in range(4)), start_steps)
+    j_acc = JaxAcc(reward_sum=jnp.zeros((E, 1)), length=jnp.asarray(start_steps))
+    ts = _torch_state(js)
+    t_acc = EpisodeAccumulator(torch.zeros(E), torch.from_numpy(start_steps.copy()))
+
+    timeouts = failures = 0
+    for t in range(T):
+        actions = ((np.arange(E) + t // 3) % 2).astype(np.int32)  # a fixed schedule
+        key, sub = jax.random.split(key)
+        keys = jax.random.split(sub, E)
+        j_out = _jax_step(js, j_acc, jnp.asarray(actions), keys)
+        t_out = ENV.step_autoreset(
+            ts, t_acc, torch.from_numpy(actions),
+            torch.from_numpy(np.array(_jax_reset_values(keys))),
+        )
+        # Free-running over 500 steps: per-step ulp differences compound
+        # inside an episode (resets re-synchronise both sides), so the
+        # tolerance is 1e-5 rather than the single-step 1e-6.
+        _compare_step(j_out, t_out, atol=1e-5)
+        done = np.asarray(j_out[2].done)
+        reward = np.asarray(j_out[2].rewards[:, 0])
+        timeouts += int((done & (reward == 1)).sum())
+        failures += int((done & (reward == 0)).sum())
+        js, j_acc = j_out[0], j_out[1]
+        ts, t_acc = t_out.state, t_out.acc
+    assert timeouts > 0 and failures > 0
