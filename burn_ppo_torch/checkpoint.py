@@ -1,7 +1,7 @@
-"""Checkpoint saving in the JAX package's layout (save only).
+"""Checkpoints in the JAX package's layout: save, and load for inference.
 
-Same on-disk format as burn_ppo_tpu/checkpoint.py:42-47, 264-316, 373-443,
-so the JAX package can load what the port writes:
+Same on-disk format as burn_ppo_tpu/checkpoint.py:42-47, 232-316, 373-511,
+so each package loads what the other writes:
 
     <run>/checkpoints/step_00012345/
         model.npz          parameter leaves, JAX tree_leaves order and layout
@@ -15,7 +15,9 @@ so the JAX package can load what the port writes:
 Writes are atomic (temp dir + rename, temp symlink + rename). The
 generator state of the port has no JAX form, so no ``rng_state.npz`` is
 written; the JAX loader derives a fresh shuffle key when it is absent.
-Loading, resume and fork come later (ROADMAP A9 follow-up).
+``load_model`` and ``load_obs_normalizer`` read a network and its obs
+normalizer for inference; the optimizer state, resume and fork come later
+(ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from burn_ppo_torch.convert import params_to_jax, tree_leaves
+from burn_ppo_torch.convert import params_from_jax, params_to_jax, tree_fill, tree_leaves
+from burn_ppo_torch.models.network import ActorCriticNetwork
+from burn_ppo_torch.ppo.normalization import ObsNormState
 
 CHECKPOINT_DIR_PREFIX = "step_"
 
@@ -45,6 +49,12 @@ def save_leaves(path: Path, leaves: List[Any]) -> None:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     path.write_bytes(buf.getvalue())
+
+
+def load_leaves(path: Path) -> List[np.ndarray]:
+    """The ``leaf_NNNNN`` arrays of an npz file, in order."""
+    with np.load(io.BytesIO(path.read_bytes())) as data:
+        return [data[f"leaf_{i:05d}"] for i in range(len(data.files))]
 
 
 def _atomic_symlink(link: Path, target: str) -> None:
@@ -115,6 +125,60 @@ def build_metadata(
             None if exploitability_vs_pool is None else float(exploitability_vs_pool)
         ),
     }
+
+
+def network_from_metadata(meta: Dict[str, Any], device: str | torch.device = "cpu"):
+    """The network ``metadata.json`` describes (checkpoint.py:317-336), with
+    placeholder weights."""
+    network_type = meta.get("network_type", "mlp")
+    if network_type not in ("mlp", "cnn"):
+        raise NotImplementedError(f"network_type {network_type!r}: ROADMAP A14")
+    return ActorCriticNetwork(
+        meta["obs_dim"],
+        meta["action_count"],
+        network_type=network_type,
+        hidden_size=meta["hidden_size"],
+        num_hidden=meta["num_hidden"],
+        activation=meta["activation"],
+        split_networks=meta.get("split_networks", False),
+        obs_shape=tuple(meta["obs_shape"]) if meta.get("obs_shape") else None,
+        num_conv_layers=meta.get("num_conv_layers", 2),
+        conv_channels=tuple(meta.get("conv_channels", (8, 8))),
+        kernel_size=meta.get("kernel_size", 3),
+        cnn_fc_hidden_size=meta.get("cnn_fc_hidden_size", 32),
+        cnn_num_fc_layers=meta.get("cnn_num_fc_layers", 1),
+        generator=torch.Generator().manual_seed(0),
+    ).to(device)
+
+
+def load_model(ckpt_dir: str | Path, device: str | torch.device = "cpu"):
+    """(network, metadata) of a checkpoint written by either package: the
+    network rebuilt from ``metadata.json``, its weights filled from
+    ``model.npz`` in ``tree_leaves`` order."""
+    ckpt_dir = Path(ckpt_dir)
+    meta = json.loads((ckpt_dir / "metadata.json").read_text())
+    network = network_from_metadata(meta, device)
+    template = params_to_jax(network.state_dict())
+    params = tree_fill(template, load_leaves(ckpt_dir / "model.npz"))
+    network.load_state_dict(params_from_jax(params))
+    return network, meta
+
+
+def load_obs_normalizer(ckpt_dir: str | Path,
+                        device: str | torch.device = "cpu") -> Optional[ObsNormState]:
+    """The obs normalizer of a checkpoint, or None when it trained without
+    one. The leaves follow ``ObsNormState``'s field order (mean, m2,
+    count), not sorted keys."""
+    ckpt_dir = Path(ckpt_dir)
+    meta = json.loads((ckpt_dir / "metadata.json").read_text())
+    if not meta.get("normalize_obs"):
+        return None
+    mean, m2, count = (torch.as_tensor(np.asarray(a, np.float32), device=device)
+                       for a in load_leaves(ckpt_dir / "obs_norm.npz"))
+    D = meta["obs_dim"]
+    if mean.shape != (D,) or m2.shape != (D,) or count.shape != ():
+        raise ValueError(f"{ckpt_dir}/obs_norm.npz does not hold an obs_dim {D} normalizer")
+    return ObsNormState(mean=mean, m2=m2, count=count)
 
 
 class CheckpointManager:

@@ -24,7 +24,9 @@
 //     replaces it; on done the state becomes the reset values with step 0
 //     and the accumulators restart at 0;
 //   * obs = (x, x_dot, theta, theta_dot, step_idx / 500) of the post-reset
-//     state.
+//     state;
+//   * one player: the outcome is place 1, one active player, and the
+//     action mask of the post-reset state is all ones.
 // Compiled without --use_fast_math: sinf/cosf are the accurate ones.
 
 #include <cuda_runtime.h>
@@ -54,8 +56,10 @@ __global__ void cartpole_step_autoreset_kernel(
     int* __restrict__ step_out, float* __restrict__ reward_sum_out,
     int* __restrict__ length_out, float* __restrict__ reward_out,
     float* __restrict__ done_out, float* __restrict__ ep_return_out,
-    int* __restrict__ ep_length_out,
-    float* __restrict__ obs_out,  // [E, 5]
+    int* __restrict__ ep_length_out, int* __restrict__ outcome_out,
+    int* __restrict__ active_out,
+    float* __restrict__ obs_out,   // [E, 5]
+    float* __restrict__ mask_out,  // [E, 2]
     int num_envs) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= num_envs) return;
@@ -90,6 +94,8 @@ __global__ void cartpole_step_autoreset_kernel(
   done_out[e] = done ? 1.0f : 0.0f;
   ep_return_out[e] = new_sum;
   ep_length_out[e] = new_len;
+  outcome_out[e] = 1;
+  active_out[e] = 1;
 
   float nx = x, nx_dot = x_dot, ntheta = theta, ntheta_dot = theta_dot;
   int nstep = steps;
@@ -115,6 +121,8 @@ __global__ void cartpole_step_autoreset_kernel(
   o[2] = ntheta;
   o[3] = ntheta_dot;
   o[4] = static_cast<float>(nstep) / static_cast<float>(MAX_STEPS);
+  mask_out[2 * e] = 1.0f;
+  mask_out[2 * e + 1] = 1.0f;
 }
 
 }  // namespace
@@ -125,7 +133,8 @@ extern "C" int cartpole_step_autoreset(
     const void* action, const void* reset_vals, void* x_out, void* x_dot_out,
     void* theta_out, void* theta_dot_out, void* step_out, void* reward_sum_out,
     void* length_out, void* reward_out, void* done_out, void* ep_return_out,
-    void* ep_length_out, void* obs_out, int num_envs, void* stream) {
+    void* ep_length_out, void* outcome_out, void* active_out, void* obs_out,
+    void* mask_out, int num_envs, void* stream) {
   if (num_envs <= 0) return 0;
   const int threads = 256;
   const int blocks = (num_envs + threads - 1) / threads;
@@ -141,6 +150,7 @@ extern "C" int cartpole_step_autoreset(
       static_cast<float*>(reward_sum_out), static_cast<int*>(length_out),
       static_cast<float*>(reward_out), static_cast<float*>(done_out),
       static_cast<float*>(ep_return_out), static_cast<int*>(ep_length_out),
-      static_cast<float*>(obs_out), num_envs);
+      static_cast<int*>(outcome_out), static_cast<int*>(active_out),
+      static_cast<float*>(obs_out), static_cast<float*>(mask_out), num_envs);
   return static_cast<int>(cudaGetLastError());
 }

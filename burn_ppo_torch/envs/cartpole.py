@@ -3,6 +3,8 @@
 Counterpart of burn_ppo_tpu/envs/cartpole.py: Gym physics with
 semi-implicit Euler, a 5-wide obs with the normalised episode time, a 500
 step cap, and reward 1 per step except a failure terminal, which pays 0.
+One player: rewards and episode returns are ``[E, 1]``, every action is
+legal and every finished episode places first.
 
 ``step_autoreset`` is the rollout's env step. For CPU tensors it runs the
 plain PyTorch composition (``envs/base.py autoreset_step`` over ``step``,
@@ -101,7 +103,7 @@ class CartPole(Environment):
         done = failed | (steps >= MAX_STEPS)
         reward = torch.where(failed & (steps < MAX_STEPS), 0.0, 1.0).to(torch.float32)
         stepped = CartPoleState(x, x_dot, theta, theta_dot, steps)
-        return stepped, reward, done
+        return stepped, reward[:, None], done
 
     def obs(self, state: CartPoleState) -> torch.Tensor:
         return torch.stack(
@@ -151,7 +153,7 @@ def _launch(state, acc, action, reset_values) -> StepOutput:
         ("theta", state.theta, f32, (E,)),
         ("theta_dot", state.theta_dot, f32, (E,)),
         ("step_idx", state.step_idx, i32, (E,)),
-        ("reward_sum", acc.reward_sum, f32, (E,)),
+        ("reward_sum", acc.reward_sum, f32, (E, 1)),
         ("length", acc.length, i32, (E,)),
         ("action", action, i32, (E,)),
         ("reset_values", reset_values, f32, (E, 4)),
@@ -161,14 +163,17 @@ def _launch(state, acc, action, reset_values) -> StepOutput:
     nxt = CartPoleState(*(torch.empty(E, dtype=f32, device=dev) for _ in range(4)),
                         step_idx=torch.empty(E, dtype=i32, device=dev))
     nacc = EpisodeAccumulator(
-        reward_sum=torch.empty(E, dtype=f32, device=dev),
+        reward_sum=torch.empty(E, 1, dtype=f32, device=dev),
         length=torch.empty(E, dtype=i32, device=dev),
     )
-    reward = torch.empty(E, dtype=f32, device=dev)
+    reward = torch.empty(E, 1, dtype=f32, device=dev)
     done = torch.empty(E, dtype=f32, device=dev)
-    ep_return = torch.empty(E, dtype=f32, device=dev)
+    ep_return = torch.empty(E, 1, dtype=f32, device=dev)
     ep_length = torch.empty(E, dtype=i32, device=dev)
+    outcome = torch.empty(E, 1, dtype=i32, device=dev)
+    active = torch.empty(E, dtype=i32, device=dev)
     obs = torch.empty(E, 5, dtype=f32, device=dev)
+    mask = torch.empty(E, 2, dtype=f32, device=dev)
     p = kernels.ptr
     err = kernels.library().cartpole_step_autoreset(
         p(state.x), p(state.x_dot), p(state.theta), p(state.theta_dot),
@@ -176,9 +181,10 @@ def _launch(state, acc, action, reset_values) -> StepOutput:
         p(reset_values),
         p(nxt.x), p(nxt.x_dot), p(nxt.theta), p(nxt.theta_dot), p(nxt.step_idx),
         p(nacc.reward_sum), p(nacc.length), p(reward), p(done), p(ep_return),
-        p(ep_length), p(obs), E, kernels.stream(dev),
+        p(ep_length), p(outcome), p(active), p(obs), p(mask), E, kernels.stream(dev),
     )
     kernels.check(err, "cartpole_step_autoreset")
     cartpole_step_autoreset.launches += 1
-    log = EpisodeLog(completed=done, total_rewards=ep_return, length=ep_length)
-    return StepOutput(nxt, nacc, reward, done, log, obs)
+    log = EpisodeLog(completed=done, total_rewards=ep_return, length=ep_length,
+                     outcome=outcome, active_players=active)
+    return StepOutput(nxt, nacc, reward, done, log, obs, mask)

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels (``burn_ppo_torch/csrc``).
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library
-with a plain C interface, loaded through ``ctypes``. The build runs at
-first use, on the machine with the card, and is cached by a hash of the
-sources and flags under ``<repo>/.cache/burn_ppo_torch/kernels/`` (a temp
-file, then an atomic rename, so concurrent builds never see a torn
-library). There is no fallback: a failed build raises with nvcc's output.
+Every ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into ONE shared library with a plain C
+interface, loaded through ``ctypes``. The build runs at first use, on the
+machine with the card, and is cached by a hash of the sources and flags
+under ``<repo>/.cache/burn_ppo_torch/kernels/`` (a temp file, then an
+atomic rename, so concurrent builds never see a torn library). There is
+no fallback: a failed build raises with nvcc's output.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
@@ -13,7 +14,8 @@ exception, because a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it.
 
 The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
-``ops/categorical.py``, ``ops/gae.py``) and use the helpers below.
+``envs/connect_four.py``, ``ops/categorical.py``, ``ops/gae.py``,
+``ppo/normalization.py``) and use the helpers below.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
@@ -35,26 +38,34 @@ BUILD_DIR = REPO_ROOT / ".cache" / "burn_ppo_torch" / "kernels"
 
 # Accurate sinf/cosf/logf/expf: no --use_fast_math (the env physics and
 # the Gumbel transform are compared with their plain versions at 1e-5).
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
 _F = ctypes.c_float
 
 # C signature of every entry point: (name, argtypes). Pointers and the
 # stream are c_void_p (ctypes would otherwise pass a 32-bit int and cut
 # the pointer); scalars are c_int / c_float.
 SIGNATURES = {
-    # 9 inputs, 12 outputs, num_envs, stream
-    "cartpole_step_autoreset": [_VP] * 21 + [_I, _VP],
+    # 9 inputs, 15 outputs, num_envs, stream
+    "cartpole_step_autoreset": [_VP] * 24 + [_I, _VP],
+    # 8 inputs, 15 outputs, num_envs, stream
+    "connect_four_step_autoreset": [_VP] * 23 + [_I, _VP],
     # logits, mask (nullable), uniforms, actions, log_probs, rows, A, stream
     "masked_gumbel_sample": [_VP] * 5 + [_I, _I, _VP],
     # rewards, values, dones, last_values, advantages, returns, T, E,
     # gamma, gamma*lambda, stream
     "gae_reverse_scan": [_VP] * 6 + [_I, _I, _F, _F, _VP],
+    # all_rewards, values, dones, acting, last_vpp, advantages, returns,
+    # T, E, P, gamma, gamma*lambda, stream
+    "gae_multiplayer_reverse_scan": [_VP] * 7 + [_I, _I, _I, _F, _F, _VP],
+    # obs, mean, m2, count, out, N, D, clip, stream
+    "obs_norm_apply": [_VP] * 5 + [_L, _I, _F, _VP],
+    # batch, mean, m2, count, scratch, mean', m2', count', N, D, lanes, stream
+    "obs_norm_update": [_VP] * 8 + [_L, _I, _L, _VP],
 }
 
 _LOCK = threading.Lock()
@@ -88,8 +99,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libburn_ppo_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> list:
+    """Run the commands concurrently; (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        return [(p.returncode, out) for p, out in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the cached library (no-op when present).
+    """Compile ``csrc/*.cu`` into the cached library (no-op when present):
+    one ``nvcc -c`` per source, all at once, then one link.
 
     nvcc's output (``-Xptxas -v``: registers, shared memory and spills of
     each kernel) is kept beside the library as ``.log``."""
@@ -97,18 +123,25 @@ def build() -> Path:
     if so_path.exists():
         return so_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so_path.with_name(f"{so_path.stem}.tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    so_path.with_suffix(".log").write_text(res.stdout + res.stderr)
-    tmp.replace(so_path)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(prefix=f".{so_path.stem}.", dir=BUILD_DIR))
+    try:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [work / f"{src.stem}.o" for src in srcs]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(srcs, objs)]
+        tmp = work / so_path.name
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        logs = []
+        for cmds in (compiles, [link]):
+            for cmd, (rc, out) in zip(cmds, _run_all(cmds)):
+                logs.append(f"$ {' '.join(cmd)}\n{out}")
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{logs[-1]}")
+        so_path.with_suffix(".log").write_text("\n".join(logs))
+        tmp.replace(so_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so_path
 
 

@@ -1,8 +1,10 @@
-"""Dense layers and MLP stacks (burn_ppo_tpu/models/core.py:29-43, 83-96).
+"""Dense and conv layers, MLP stacks (burn_ppo_tpu/models/core.py:29-96).
 
-The reference keeps parameters as pytrees with ``[in, out]`` kernels; the
-port uses ``nn.Linear`` (``weight`` is ``[out, in]``). ``convert.py``
-maps between the two layouts.
+The reference keeps parameters as pytrees with ``[in, out]`` dense
+kernels and HWIO conv kernels over NHWC activations; the port uses
+``nn.Linear`` (``weight`` is ``[out, in]``) and ``nn.Conv2d`` (OIHW over
+NCHW, computed by cuDNN on the card). ``convert.py`` maps between the two
+layouts.
 """
 
 from __future__ import annotations
@@ -21,6 +23,21 @@ def dense_init(in_dim: int, out_dim: int, gain: float, generator: torch.Generato
         layer.weight.copy_(orthogonal((in_dim, out_dim), gain, generator).T)
         layer.bias.zero_()
     return layer
+
+
+def conv_init(
+    in_ch: int, out_ch: int, kernel_size: int, gain: float, generator: torch.Generator
+) -> nn.Conv2d:
+    """Stride-1, SAME-padded conv (models/core.py:46-72): an orthogonal
+    kernel drawn in the reference's HWIO shape, stored OIHW, zero bias.
+    PyTorch's ``padding="same"`` pads as XLA's SAME does, the odd pixel of
+    an even kernel on the high side."""
+    conv = nn.Conv2d(in_ch, out_ch, kernel_size, padding="same", device=generator.device)
+    k = kernel_size
+    with torch.no_grad():
+        conv.weight.copy_(orthogonal((k, k, in_ch, out_ch), gain, generator).permute(3, 2, 0, 1))
+        conv.bias.zero_()
+    return conv
 
 
 def activation_fn(name: str):

@@ -17,28 +17,36 @@ import torch
 from burn_ppo_torch.envs.base import EpisodeLog
 
 
-def summarize_episode_logs(logs: EpisodeLog, num_players: int = 1) -> Dict[str, torch.Tensor]:
-    """Reduce stacked single-player logs ([T, E] leaves) to window scalars.
+def summarize_episode_logs(logs: EpisodeLog, num_players: int) -> Dict[str, torch.Tensor]:
+    """Reduce stacked logs ([T, E] / [T, E, P] leaves) to window scalars
+    on the device (episode_stats.py:25-61).
 
-    Single-player outcomes are all first place, so the Swiss points are 0
-    and every completed episode counts in ``draws``, as in the reference
-    reduction; the per-player placement logic arrives with the
-    multiplayer envs (ROADMAP A10)."""
-    if num_players != 1:
-        raise NotImplementedError("multiplayer episode stats: ROADMAP A10")
+    Swiss points use the reference's fractional-tie formula
+    ``points = P - (place + (tied - 1) / 2)``. A completed episode with a
+    zero placement (the no-outcome sentinel of an invalid move) counts in
+    ``count`` but not in the points or ``draws``. Single-player outcomes
+    are all first place, so their points are 0 and every episode counts
+    in ``draws``, as in the reference reduction."""
     donef = logs.completed
     done = donef > 0
     count = torch.sum(donef)
-    ret0 = logs.total_rewards
-    inf = torch.tensor(float("inf"), device=ret0.device)
+    totals = logs.total_rewards
+    mask3 = donef[..., None]
+    ret0 = totals[..., 0]
+    inf = torch.tensor(float("inf"), device=totals.device)
+
+    place = logs.outcome
+    has_outcome = torch.all(place >= 1, dim=-1).to(torch.float32)
+    tied = torch.sum((place[..., :, None] == place[..., None, :]).to(torch.float32), dim=-1)
+    pts = float(num_players) - (place.to(torch.float32) + (tied - 1.0) / 2.0)
     return {
         "count": count,
-        "ret_sum": torch.sum(ret0 * donef).reshape(1),
+        "ret_sum": torch.sum(totals * mask3, dim=(0, 1)),
         "ret0_max": torch.max(torch.where(done, ret0, -inf)),
         "ret0_min": torch.min(torch.where(done, ret0, inf)),
         "len_sum": torch.sum(logs.length.to(torch.float32) * donef),
-        "pts_sum": torch.zeros(1, device=ret0.device),
-        "draws": count,
+        "pts_sum": torch.sum(pts * mask3 * has_outcome[..., None], dim=(0, 1)),
+        "draws": torch.sum(donef * torch.all(place == 1, dim=-1).to(torch.float32)),
     }
 
 

@@ -2,15 +2,19 @@
 
 * ``ObsNormState`` — per-dimension Welford mean/var, applied LAGGED (the
   rollout uses the previous stats; the raw batch merges in after it),
-  clipped, identity while count < 2.
-* ``ReturnNormState`` — per-env rolling discounted returns; rewards are
-  divided by the running std of those returns (variance only), clipped.
-  ``return_norm_roll`` is the elementwise per-step half;
+  clipped, identity while count < 2. ``obs_norm_apply`` and
+  ``obs_norm_update`` run their plain PyTorch versions for CPU tensors
+  and launch the hand-written kernel K6 (``csrc/obs_norm.cu``, ROADMAP
+  B3) for CUDA tensors, or raise.
+* ``ReturnNormState`` — per-env, per-player rolling discounted returns;
+  rewards are divided by the running std of those returns (variance
+  only), clipped. ``return_norm_roll`` is the elementwise per-step half,
+  on the acting player's slot;
   ``return_norm_finalize`` is one inclusive prefix pass over the whole
   [T, E] rollout in the reference's visitation order (step-major, env
   index), in shifted coordinates.
 
-PopArt arrives with the CTDE path (ROADMAP A14): CartPole does not use it.
+PopArt arrives with the CTDE path (ROADMAP A14): no ported env uses it.
 Stats are device tensors, so nothing here waits for the device.
 """
 
@@ -20,6 +24,8 @@ from dataclasses import dataclass, replace
 from typing import Tuple
 
 import torch
+
+from burn_ppo_torch import kernels
 
 
 def _welford_merge(mean_a, m2_a, count_a, mean_b, m2_b, count_b):
@@ -51,8 +57,9 @@ class ObsNormState:
         )
 
 
-def obs_norm_update(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
-    """Merge a raw obs batch [..., D] into the running stats."""
+def obs_norm_update_plain(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
+    """Plain PyTorch K6 update: merge a raw obs batch [..., D] into the
+    running stats (normalization.py:68-75)."""
     flat = batch.reshape(-1, batch.shape[-1])
     n = torch.tensor(float(flat.shape[0]), dtype=torch.float32, device=flat.device)
     mean_b = torch.mean(flat, dim=0)
@@ -61,12 +68,72 @@ def obs_norm_update(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
     return ObsNormState(mean=mean, m2=m2, count=count)
 
 
-def obs_norm_apply(state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
-    """Normalize obs [..., D]; identity until count >= 2."""
+def obs_norm_apply_plain(state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
+    """Plain PyTorch K6 apply: normalize obs [..., D]; identity until
+    count >= 2 (normalization.py:78-83)."""
     var = state.m2 / torch.clamp(state.count, min=1.0)
     std = torch.clamp(torch.sqrt(var), min=1e-8)
     normalized = torch.clamp((obs - state.mean) / std, -clip, clip)
     return torch.where(state.count < 2.0, obs, normalized)
+
+
+def _expect_state(state: ObsNormState, D: int) -> None:
+    kernels.expect(state.mean, "mean", torch.float32, (D,))
+    kernels.expect(state.m2, "m2", torch.float32, (D,))
+    kernels.expect(state.count, "count", torch.float32, ())
+
+
+def obs_norm_apply(state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
+    """Normalize obs [..., D] with the running stats; identity until
+    count >= 2. The count stays on the device."""
+    if kernels.on_cpu(obs, state.mean, state.m2, state.count):
+        return obs_norm_apply_plain(state, obs, clip)
+    D = obs.shape[-1]
+    kernels.expect(obs, "obs", torch.float32, obs.shape)
+    _expect_state(state, D)
+    out = torch.empty_like(obs)
+    err = kernels.library().obs_norm_apply(
+        kernels.ptr(obs), kernels.ptr(state.mean), kernels.ptr(state.m2),
+        kernels.ptr(state.count), kernels.ptr(out), obs.numel() // max(D, 1), D,
+        float(clip), kernels.stream(obs.device),
+    )
+    kernels.check(err, "obs_norm_apply")
+    obs_norm_apply.launches += 1
+    return out
+
+
+obs_norm_apply.launches = 0
+
+# Threads of the update's first pass: enough to stream the batch, at
+# least 16 elements each.
+_UPDATE_MAX_THREADS = 1056 * 256
+
+
+def obs_norm_update(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
+    """Merge a raw obs batch [..., D] into the running stats."""
+    if kernels.on_cpu(batch, state.mean, state.m2, state.count):
+        return obs_norm_update_plain(state, batch)
+    D = batch.shape[-1]
+    N = batch.numel() // max(D, 1)
+    kernels.expect(batch, "batch", torch.float32, batch.shape)
+    _expect_state(state, D)
+    if N == 0:
+        return state
+    lanes = max(1, min(_UPDATE_MAX_THREADS, -(-N * D // 16)) // D)
+    scratch = torch.empty(2 * lanes * D, dtype=torch.float64, device=batch.device)
+    new = ObsNormState(mean=torch.empty_like(state.mean), m2=torch.empty_like(state.m2),
+                       count=torch.empty_like(state.count))
+    p = kernels.ptr
+    err = kernels.library().obs_norm_update(
+        p(batch), p(state.mean), p(state.m2), p(state.count), p(scratch),
+        p(new.mean), p(new.m2), p(new.count), N, D, lanes, kernels.stream(batch.device),
+    )
+    kernels.check(err, "obs_norm_update")
+    obs_norm_update.launches += 1
+    return new
+
+
+obs_norm_update.launches = 0
 
 
 @dataclass
@@ -90,19 +157,20 @@ class ReturnNormState:
 
 
 def return_norm_roll(
-    returns: torch.Tensor,  # [E, 1] rolling discounted returns
-    rewards: torch.Tensor,  # [E] raw rewards this step
+    returns: torch.Tensor,  # [E, P] rolling discounted returns
+    rewards: torch.Tensor,  # [E] acting player's raw rewards this step
+    acting: torch.Tensor,  # [E] int player indices
     dones: torch.Tensor,  # [E] 1.0 / True where the episode ended
     gamma: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-step half for a single player (the acting player is always 0):
-    update the rolling return, capture the post-update sample, reset it on
-    done (normalization.rs:163-215). Returns (new_returns [E, 1],
-    samples [E])."""
-    updated = returns * gamma + rewards[:, None]
-    samples = updated[:, 0]
-    updated = torch.where(dones[:, None] != 0, torch.zeros_like(updated), updated)
-    return updated, samples
+    """Per-step half on the acting player's slot (normalization.py:105-133):
+    update its rolling return, capture the post-update sample, reset the
+    slot on done. Returns (new_returns [E, P], samples [E])."""
+    slot = acting.long()[:, None]
+    updated = returns.scatter(1, slot, torch.gather(returns, 1, slot) * gamma + rewards[:, None])
+    samples = torch.gather(updated, 1, slot)[:, 0]
+    reset = updated.scatter(1, slot, 0.0)
+    return torch.where(dones[:, None] != 0, reset, updated), samples
 
 
 def return_norm_finalize(

@@ -1,18 +1,24 @@
 """Rollout collection as a Python loop over T steps.
 
-Counterpart of burn_ppo_tpu/ppo/rollout.py:177-363 (single-player path;
-the TPU-only ``blocked_scan`` is not carried over). Per step, in the
-reference's order:
+Counterpart of burn_ppo_tpu/ppo/rollout.py:150-363 (single-player and
+pure self-play; the TPU-only ``blocked_scan`` is not carried over). Per
+step, in the reference's order:
 
-  1. normalize the obs with the LAGGED obs-normalizer stats;
-  2. network forward -> logits, value;
-  3. action mask, Gumbel-max sample and log pi(a) (kernel K2 on CUDA);
-  4. env step with auto-reset, episode log captured before the reset
-     (kernel K1 on CUDA);
-  5. the rolling-return update of the return normalizer.
+  1. the acting player and the action mask, read from the env states
+     (the mask comes out of the previous env step);
+  2. normalize the obs with the LAGGED obs-normalizer stats (kernel K6 on
+     CUDA);
+  3. network forward -> logits, value;
+  4. masked Gumbel-max sample and log pi(a) (kernel K2 on CUDA);
+  5. env step with auto-reset, episode log captured before the reset
+     (kernel K1 or K4 on CUDA);
+  6. the rolling-return update of the acting player's return.
 
-After the loop the return normalizer's prefix pass normalizes the
-rewards of the whole rollout at once.
+After the loop the acting player's rewards are read out of the
+``[T, E, P]`` rewards, the return normalizer's prefix pass normalizes
+them at once, and the per-player last values advance: each player's slot
+takes the value of the last step that player acted in (what the
+reference's per-step one-hot update leaves after T steps).
 
 Randomness comes from a ``RandomSource``: on the main path one
 ``torch.Generator`` on the device (``TorchRandomSource``); in the parity
@@ -39,6 +45,8 @@ from burn_ppo_torch.ppo.normalization import (
 
 class RandomSource:
     """Where the rollout and the update take their random numbers."""
+
+    device = torch.device("cpu")
 
     def uniform(self, shape: Tuple[int, ...], low: float, high: float) -> torch.Tensor:
         """f32 uniforms in [low, high)."""
@@ -71,36 +79,62 @@ class RolloutBatch:
 
     obs: torch.Tensor  # [T, E, D]
     actions: torch.Tensor  # [T, E] i32
-    rewards: torch.Tensor  # [T, E] (return-normalized when enabled)
+    rewards: torch.Tensor  # [T, E] acting player's (return-normalized) reward
+    all_rewards: torch.Tensor  # [T, E, P] (acting slot return-normalized)
     dones: torch.Tensor  # [T, E] f32
     values: torch.Tensor  # [T, E]
     log_probs: torch.Tensor  # [T, E]
+    acting_players: torch.Tensor  # [T, E] i32
     action_masks: torch.Tensor  # [T, E, A] f32
-    valid_mask: torch.Tensor  # [T, E] f32, all 1.0 in single-player runs
+    valid_mask: torch.Tensor  # [T, E] f32, all 1.0: the learner plays every seat
 
 
 @dataclass
 class RolloutCarry:
-    """State threaded between rollouts. ``obs`` is always
-    ``env.obs(env_states)``; the env step writes it, so the next rollout
-    step and the bootstrap read it without recomputing."""
+    """State threaded between rollouts. ``obs`` and ``mask`` are always
+    ``env.obs(env_states)`` and ``env.action_mask(env_states)``; the env
+    step writes them, so the next rollout step and the bootstrap read them
+    without recomputing. ``last_value_per_player`` persists across
+    rollouts and episodes (rollout.py:173,283-285)."""
 
     env_states: object
     episode_acc: EpisodeAccumulator
     return_norm: ReturnNormState
+    last_value_per_player: torch.Tensor  # [E, P]
     obs: torch.Tensor  # [E, D]
+    mask: torch.Tensor  # [E, A]
 
 
 def init_rollout_carry(
     env: Environment, num_envs: int, rng: RandomSource, device: torch.device
 ) -> RolloutCarry:
     states = env.reset(env.draw_reset(rng, num_envs).to(device))
+    P = env.spec.num_players
     return RolloutCarry(
         env_states=states,
-        episode_acc=EpisodeAccumulator.zero(num_envs, device),
-        return_norm=ReturnNormState.create(num_envs, env.spec.num_players, device),
+        episode_acc=EpisodeAccumulator.zero(num_envs, P, device),
+        return_norm=ReturnNormState.create(num_envs, P, device),
+        last_value_per_player=torch.zeros(num_envs, P, dtype=torch.float32, device=device),
         obs=env.obs(states),
+        mask=env.action_mask(states),
     )
+
+
+def advance_last_values(
+    last_vpp: torch.Tensor,  # [E, P]
+    values: torch.Tensor,  # [T, E]
+    acting: torch.Tensor,  # [T, E] int
+) -> torch.Tensor:
+    """The per-player last values after T steps of the reference's update
+    ``vpp = vpp * (1 - onehot(acting)) + values * onehot(acting)``: each
+    slot holds the value of the last step its player acted in, or its old
+    value where the player never acted."""
+    T, P = values.shape[0], last_vpp.shape[1]
+    seats = torch.arange(P, device=values.device)
+    steps = torch.arange(1, T + 1, device=values.device)[:, None, None]
+    last_t = torch.amax((acting[..., None] == seats) * steps, dim=0)  # [E, P], 0 = never
+    picked = torch.gather(values, 0, torch.clamp(last_t - 1, min=0).T).T
+    return torch.where(last_t > 0, picked, last_vpp)
 
 
 def collect_rollouts(
@@ -116,72 +150,83 @@ def collect_rollouts(
     return_clip: float = 10.0,
     obs_clip: float = 10.0,
 ) -> Tuple[RolloutCarry, RolloutBatch, EpisodeLog]:
-    """Single-player rollout. Returns (carry', batch, episode logs [T, E])."""
-    if env.spec.num_players != 1:
-        raise NotImplementedError("multiplayer rollouts: ROADMAP A10")
+    """Single-player or pure self-play rollout (the learner acts every
+    turn). Returns (carry', batch, episode logs [T, E])."""
     E = carry.obs.shape[0]
     A = env.spec.num_actions
     device = carry.obs.device
-    mask = env.action_mask(E, device)
-    cols: dict = {k: [] for k in ("obs", "actions", "rewards", "dones", "values",
-                                  "log_probs", "samples", "completed",
-                                  "total_rewards", "length")}
+    cols: dict = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs",
+                                  "acting", "masks", "samples")}
+    log_cols: dict = {k: [] for k in ("completed", "total_rewards", "length", "outcome",
+                                      "active_players")}
     states, acc, ret_norm = carry.env_states, carry.episode_acc, carry.return_norm
-    obs_raw = carry.obs
+    obs_raw, mask = carry.obs, carry.mask
     with torch.no_grad():
         for _ in range(num_steps):
+            players = env.current_player(states)
             obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
             logits, values = network(obs)
             actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
             out = env.step_autoreset(states, acc, actions, env.draw_reset(rng, E))
-            cols["obs"].append(obs_raw)
-            cols["actions"].append(actions)
-            cols["rewards"].append(out.reward)
-            cols["dones"].append(out.done)
-            cols["values"].append(values)
-            cols["log_probs"].append(log_probs)
-            cols["completed"].append(out.log.completed)
-            cols["total_rewards"].append(out.log.total_rewards)
-            cols["length"].append(out.log.length)
+            for k, v in (("obs", obs_raw), ("actions", actions), ("rewards", out.rewards),
+                         ("dones", out.done), ("values", values), ("log_probs", log_probs),
+                         ("acting", players), ("masks", mask)):
+                cols[k].append(v)
+            for k in log_cols:
+                log_cols[k].append(getattr(out.log, k))
             if normalize_returns:
+                acting_reward = torch.gather(out.rewards, 1, players.long()[:, None])[:, 0]
                 new_returns, samples = return_norm_roll(
-                    ret_norm.returns, out.reward, out.done, gamma
+                    ret_norm.returns, acting_reward, players, out.done, gamma
                 )
                 ret_norm = ReturnNormState(new_returns, ret_norm.mean, ret_norm.m2, ret_norm.count)
                 cols["samples"].append(samples)
-            states, acc, obs_raw = out.state, out.acc, out.obs
+            states, acc, obs_raw, mask = out.state, out.acc, out.obs, out.mask
 
     s = {k: torch.stack(v) for k, v in cols.items() if v}
-    rewards = s["rewards"]
+    all_rewards, acting = s["rewards"], s["acting"]
+    slot = acting.long()[..., None]
+    rewards = torch.gather(all_rewards, 2, slot)[..., 0]
     if normalize_returns:
         ret_norm, rewards = return_norm_finalize(ret_norm, s["samples"], rewards, return_clip)
-    T = num_steps
+        all_rewards = all_rewards.scatter(2, slot, rewards[..., None])
     batch = RolloutBatch(
         obs=s["obs"],
         actions=s["actions"],
         rewards=rewards,
+        all_rewards=all_rewards,
         dones=s["dones"],
         values=s["values"],
         log_probs=s["log_probs"],
-        action_masks=mask.expand(T, E, A),
-        valid_mask=torch.ones(T, E, dtype=torch.float32, device=device),
+        acting_players=acting,
+        action_masks=s["masks"],
+        valid_mask=torch.ones(num_steps, E, dtype=torch.float32, device=device),
     )
-    logs = EpisodeLog(
-        completed=s["completed"], total_rewards=s["total_rewards"], length=s["length"]
+    logs = EpisodeLog(**{k: torch.stack(v) for k, v in log_cols.items()})
+    new_carry = RolloutCarry(
+        env_states=states, episode_acc=acc, return_norm=ret_norm,
+        last_value_per_player=advance_last_values(
+            carry.last_value_per_player, batch.values, acting),
+        obs=obs_raw, mask=mask,
     )
-    new_carry = RolloutCarry(env_states=states, episode_acc=acc, return_norm=ret_norm, obs=obs_raw)
     return new_carry, batch, logs
 
 
 def bootstrap_values(
     network,
+    env: Environment,
     carry: RolloutCarry,
     obs_norm: Optional[ObsNormState],
     obs_clip: float = 10.0,
-) -> torch.Tensor:
-    """Value of the final env states for the GAE bootstrap, [E]."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Value of the final env states for the GAE bootstrap.
+
+    Returns (last_values [E], last_value_per_player [E, P]), the acting
+    players' slots refreshed with this forward (rollout.py:331-363)."""
     obs = carry.obs
     if obs_norm is not None:
         obs = obs_norm_apply(obs_norm, obs, obs_clip)
     with torch.no_grad():
-        return network(obs)[1]
+        values = network(obs)[1]
+    players = env.current_player(carry.env_states).long()[:, None]
+    return values, carry.last_value_per_player.scatter(1, players, values[:, None])

@@ -1,15 +1,17 @@
-"""Training: the fused PPO train step and a single-player ``Trainer``.
+"""Training: the fused PPO train step and the ``Trainer``.
 
 Counterpart of burn_ppo_tpu/train.py:110-288 (``make_train_step``) and
 549-704, 1303+ (``Trainer``). One update runs the rollout, the
-obs-normalizer merge, the bootstrap value, GAE, the return-normalizer
+obs-normalizer merge, the bootstrap value, GAE (multiplayer GAE with the
+per-player last values for ``num_players > 1``), the return-normalizer
 prefix pass and the PPO epochs; the host loop evaluates the schedules,
 logs ``metrics.jsonl`` at ``log_freq`` boundaries and writes checkpoints.
 The device work of an update is enqueued without waiting for the device;
 the host reads the metrics once per update, in one transfer.
 
-The ``Trainer`` supports fresh single-player runs. Everything else raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The ``Trainer`` supports fresh single-player runs and pure self-play (one
+learner in every seat, ``opponent_pool_fraction = 0``). Everything else
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from burn_ppo_torch.device import resolve_device
 from burn_ppo_torch.envs import make_env
 from burn_ppo_torch.envs.base import Environment
 from burn_ppo_torch.models.network import ActorCriticNetwork, make_network
-from burn_ppo_torch.ops.gae import compute_gae
+from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
 from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker, summarize_episode_logs
 from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, obs_norm_update
 from burn_ppo_torch.ppo.rollout import (
@@ -66,6 +68,11 @@ def build_network_for_env(env: Environment, cfg: Config, generator: torch.Genera
         num_hidden=cfg.num_hidden,
         activation=cfg.activation,
         split_networks=cfg.split_networks,
+        num_conv_layers=cfg.num_conv_layers,
+        conv_channels=cfg.conv_channels,
+        kernel_size=cfg.kernel_size,
+        cnn_fc_hidden_size=cfg.cnn_fc_hidden_size,
+        cnn_num_fc_layers=cfg.cnn_num_fc_layers,
         generator=generator,
     )
 
@@ -120,6 +127,7 @@ METRIC_SERIES = (
 def make_train_step(env: Environment, cfg: Config):
     """Fused rollout -> GAE -> PPO update. ``train_step(state, lr, ent_coef,
     rng)`` returns (state, metrics, episode logs [T, E])."""
+    multiplayer = env.spec.num_players > 1
     normalize_returns = cfg.effective_normalize_returns(env.spec.num_players)
     ucfg = update_config(cfg)
 
@@ -136,10 +144,16 @@ def make_train_step(env: Environment, cfg: Config):
         obs_norm_new = (
             obs_norm_update(state.obs_norm, batch.obs) if state.obs_norm is not None else None
         )
-        last_values = bootstrap_values(net, carry, obs_norm_new)
-        advantages, returns = compute_gae(
-            batch.rewards, batch.values, batch.dones, last_values, cfg.gamma, cfg.gae_lambda
-        )
+        last_values, last_vpp = bootstrap_values(net, env, carry, obs_norm_new)
+        if multiplayer:
+            advantages, returns = compute_gae_multiplayer(
+                batch.all_rewards, batch.values, batch.dones, batch.acting_players, last_vpp,
+                cfg.gamma, cfg.gae_lambda,
+            )
+        else:
+            advantages, returns = compute_gae(
+                batch.rewards, batch.values, batch.dones, last_values, cfg.gamma, cfg.gae_lambda
+            )
         T, E = batch.actions.shape
         N = T * E
         obs_u = obs_norm_apply(state.obs_norm, batch.obs) if state.obs_norm is not None else batch.obs
@@ -167,12 +181,17 @@ def make_train_step(env: Environment, cfg: Config):
 def unsupported_config(cfg: Config) -> Optional[str]:
     """Why this config cannot run on the port yet, naming the ROADMAP item;
     None when it can."""
-    if cfg.env != "cartpole":
-        return f"env {cfg.env!r}: ROADMAP A10 (connect_four), A13 (liars_dice, skull)"
-    if cfg.network_type != "mlp":
-        return f"network_type {cfg.network_type!r}: ROADMAP A10 (cnn), A14 (ctde)"
+    if cfg.env in ("liars_dice", "skull"):
+        return f"env {cfg.env!r}: ROADMAP A13"
+    if cfg.env not in ("cartpole", "connect_four"):
+        return f"env {cfg.env!r}: not an env of the JAX package either"
+    if cfg.env == "connect_four" and cfg.opponent_pool_fraction > 0.0:
+        return (f"opponent_pool_fraction {cfg.opponent_pool_fraction} (the opponent pool): "
+                "ROADMAP A12; pass --opponent-pool-fraction 0 for pure self-play")
+    if cfg.network_type == "ctde":
+        return "network_type 'ctde': ROADMAP A14"
     if cfg.normalize_values:
-        return "normalize_values (PopArt): ROADMAP A5/A14"
+        return "normalize_values (PopArt): ROADMAP A14"
     if cfg.adaptive_entropy is not None:
         return "adaptive_entropy: ROADMAP A11"
     if cfg.compute_dtype is not None:
@@ -201,6 +220,12 @@ def validate_config(cfg: Config) -> None:
         errors.append("clip_epsilon must be in (0, 1)")
     if cfg.activation not in ("relu", "tanh"):
         errors.append(f"activation must be relu|tanh, got '{cfg.activation}'")
+    if cfg.network_type not in ("mlp", "cnn"):
+        errors.append(f"network_type must be mlp|cnn|ctde, got '{cfg.network_type}'")
+    if cfg.network_type == "cnn" and make_env(cfg.env).spec.obs_shape is None:
+        errors.append(f"network_type cnn needs an env with an obs_shape, not '{cfg.env}'")
+    if cfg.network_type == "cnn" and cfg.num_conv_layers < 1:
+        errors.append("num_conv_layers must be >= 1 for network_type=cnn")
     if cfg.num_epochs <= 0 or cfg.num_minibatches <= 0:
         errors.append("num_epochs and num_minibatches must be > 0")
     if cfg.learning_rate.initial_value() <= 0:
@@ -219,8 +244,8 @@ def validate_config(cfg: Config) -> None:
 
 
 class Trainer:
-    """Owns the device state and the host bookkeeping of one fresh,
-    single-player training run.
+    """Owns the device state and the host bookkeeping of one fresh training
+    run, single-player or pure self-play.
 
     ``device`` defaults to ``"cuda"``; the CPU tests pass ``"cpu"``, where
     every kernel wrapper runs its plain PyTorch version."""
@@ -297,7 +322,9 @@ class Trainer:
             },
             meta,
         )
-        if tr.avg_return > self.best_avg_return:
+        # Single-player best follows the average return (train.py:994-998);
+        # the multiplayer best is rating-driven and arrives with the pool (A12).
+        if self.num_players == 1 and tr.avg_return > self.best_avg_return:
             self.best_avg_return = tr.avg_return
             self.ckpt.set_best(self.global_step)
         return path
@@ -371,7 +398,8 @@ class Trainer:
                 ent_coef = cfg.entropy_coef.get(self.global_step)
                 t0 = time.time()
                 self.state, metrics_t, logs = self.train_step(self.state, lr, ent_coef, self.rng)
-                metrics, stats = self._fetch(metrics_t, summarize_episode_logs(logs))
+                metrics, stats = self._fetch(metrics_t,
+                                             summarize_episode_logs(logs, self.num_players))
                 self.tracker.ingest(stats)
                 self._enforce_guards(metrics)
                 step_time = time.time() - t0
@@ -381,11 +409,7 @@ class Trainer:
                     next_log = self.global_step + cfg.log_freq
                     sps = steps_per_update / max(step_time, 1e-9)
                     self._log_metrics(metrics, lr, ent_coef, sps)
-                    progress.update(
-                        self.global_step, sps, self.tracker.avg_return,
-                        extra=(f"kl {metrics['approx_kl']:.4f} ent {metrics['entropy']:.3f} "
-                               f"ev {metrics['explained_variance']:.2f}"),
-                    )
+                    self._print_progress(progress, metrics, sps)
                 if self.global_step >= next_ckpt:
                     next_ckpt = self.global_step + cfg.checkpoint_freq
                     self.save_checkpoint()
@@ -435,4 +459,21 @@ class Trainer:
             log("episode/return_min", tr.return_min, step)
             log("episode/length_mean", tr.mean_length, step)
             log("episode/count", float(tr.total_episodes), step)
+        if self.num_players > 1 and tr.has_data:
+            avg_points = tr.avg_points()
+            per_player = tr.per_player_returns()
+            for p in range(self.num_players):
+                log(f"episode/player_{p}_points", float(avg_points[p]), step)
+                log(f"episode/player_{p}_return_mean", float(per_player[p]), step)
+            log("episode/draw_rate", tr.draw_rate, step)
         self.metrics.flush()
+
+    def _print_progress(self, progress, m, sps) -> None:
+        extra = (f"kl {m['approx_kl']:.4f} ent {m['entropy']:.3f} "
+                 f"ev {m['explained_variance']:.2f}")
+        tr = self.tracker
+        if self.num_players > 1 and tr.has_data:
+            progress.update_multiplayer(self.global_step, sps, list(tr.avg_points()),
+                                        tr.draw_rate, extra=extra)
+        else:
+            progress.update(self.global_step, sps, tr.avg_return, extra=extra)

@@ -59,14 +59,17 @@ def _compare_step(j_out, t_out, atol):
     # Discrete outputs must agree exactly.
     np.testing.assert_array_equal(t_out.state.step_idx.numpy(), np.asarray(j_next.step_idx))
     np.testing.assert_array_equal(t_out.done.numpy(), np.asarray(j_term.done, np.float32))
-    np.testing.assert_array_equal(t_out.reward.numpy(), np.asarray(j_term.rewards[:, 0]))
+    np.testing.assert_array_equal(t_out.rewards.numpy(), np.asarray(j_term.rewards))
     np.testing.assert_array_equal(t_out.log.completed.numpy(), np.asarray(j_log.completed, np.float32))
-    np.testing.assert_array_equal(t_out.log.total_rewards.numpy(), np.asarray(j_log.total_rewards[:, 0]))
+    np.testing.assert_array_equal(t_out.log.total_rewards.numpy(), np.asarray(j_log.total_rewards))
     np.testing.assert_array_equal(t_out.log.length.numpy(), np.asarray(j_log.length))
-    np.testing.assert_array_equal(t_out.acc.reward_sum.numpy(), np.asarray(j_acc.reward_sum[:, 0]))
+    np.testing.assert_array_equal(t_out.log.outcome.numpy(), np.asarray(j_log.outcome))
+    np.testing.assert_array_equal(t_out.log.active_players.numpy(), np.asarray(j_log.active_players))
+    np.testing.assert_array_equal(t_out.acc.reward_sum.numpy(), np.asarray(j_acc.reward_sum))
     np.testing.assert_array_equal(t_out.acc.length.numpy(), np.asarray(j_acc.length))
     j_obs = jax.vmap(JENV.obs)(j_next)
     np.testing.assert_allclose(t_out.obs.numpy(), np.asarray(j_obs), rtol=0, atol=atol)
+    np.testing.assert_array_equal(t_out.mask.numpy(), np.asarray(jax.vmap(JENV.action_mask)(j_next), np.float32))
 
 
 def test_step_autoreset_matches_jax_from_identical_states():
@@ -91,7 +94,7 @@ def test_step_autoreset_matches_jax_from_identical_states():
 
     t_out = ENV.step_autoreset(
         _torch_state(js),
-        EpisodeAccumulator(torch.from_numpy(reward_sum), torch.from_numpy(length)),
+        EpisodeAccumulator(torch.from_numpy(reward_sum)[:, None], torch.from_numpy(length)),
         torch.from_numpy(actions),
         torch.from_numpy(np.array(_jax_reset_values(keys))),
     )
@@ -112,7 +115,7 @@ def test_500_step_rollout_with_fixed_actions():
     js = _jax_state(*(init[:, i] for i in range(4)), start_steps)
     j_acc = JaxAcc(reward_sum=jnp.zeros((E, 1)), length=jnp.asarray(start_steps))
     ts = _torch_state(js)
-    t_acc = EpisodeAccumulator(torch.zeros(E), torch.from_numpy(start_steps.copy()))
+    t_acc = EpisodeAccumulator(torch.zeros(E, 1), torch.from_numpy(start_steps.copy()))
 
     timeouts = failures = 0
     for t in range(T):

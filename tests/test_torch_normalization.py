@@ -52,7 +52,8 @@ def test_return_norm_roll_and_finalize_match_jax():
         for t in range(T):
             j_ret, js = jn.return_norm_roll(j_ret, jnp.asarray(rewards[t]),
                                             jnp.zeros(E, jnp.int32), jnp.asarray(dones[t]), gamma)
-            t_ret, ts = tn.return_norm_roll(t_ret, _t(rewards[t]), _t(dones[t]), gamma)
+            t_ret, ts = tn.return_norm_roll(t_ret, _t(rewards[t]), torch.zeros(E, dtype=torch.int32),
+                                            _t(dones[t]), gamma)
             j_samples.append(js)
             t_samples.append(ts)
         np.testing.assert_allclose(t_ret.numpy(), np.asarray(j_ret), rtol=1e-6, atol=1e-6)
@@ -105,3 +106,50 @@ def test_return_norm_is_identity_until_two_samples():
     state, norm = tn.return_norm_finalize(state, rewards * 3, rewards)
     assert float(norm[0, 0]) == 5.0  # count 1 at its own position
     assert float(norm[0, 1]) != -2.0
+
+
+def test_obs_norm_plain_versions_match_jax_at_kernel_edges():
+    """The plain versions of kernel K6: apply at count 0 and 1 (the
+    identity) and after merges; update into an empty and a filled state,
+    on Connect-Four-like 0/1 columns and constant columns."""
+    rng = np.random.default_rng(3)
+    D = 86
+    batch = (rng.random((4, 16, D)) < 0.3).astype(np.float32)
+    batch[..., 5] = 1.0  # a constant column: M2 stays 0, std floors at 1e-8
+    obs = (rng.normal(size=(16, D)) * 2).astype(np.float32)
+    j_state, t_state = jn.ObsNormState.create(D), tn.ObsNormState.create(D, CPU)
+    for step in range(3):
+        if step == 1:  # count 1: a single-row merge
+            one = batch[:1, :1]
+            j_state = jn.obs_norm_update(j_state, jnp.asarray(one))
+            t_state = tn.obs_norm_update_plain(t_state, _t(one))
+        j_out = np.asarray(jn.obs_norm_apply(j_state, jnp.asarray(obs)))
+        t_out = tn.obs_norm_apply_plain(t_state, _t(obs)).numpy()
+        np.testing.assert_allclose(t_out, j_out, rtol=0, atol=1e-6)
+        if float(t_state.count) < 2:
+            np.testing.assert_array_equal(t_out, obs)
+        j_state = jn.obs_norm_update(j_state, jnp.asarray(batch))
+        t_state = tn.obs_norm_update_plain(t_state, _t(batch))
+        np.testing.assert_allclose(t_state.mean.numpy(), np.asarray(j_state.mean), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(t_state.m2.numpy(), np.asarray(j_state.m2), rtol=1e-5, atol=1e-6)
+        assert float(t_state.count) == float(j_state.count)
+    assert float(t_state.count) == 1 + 3 * 64
+
+
+def test_return_norm_roll_on_the_acting_players_slot_matches_jax():
+    rng = np.random.default_rng(4)
+    E, P, gamma = 16, 3, 0.99
+    j_ret = jnp.zeros((E, P))
+    t_ret = torch.zeros(E, P)
+    for _ in range(12):
+        acting = rng.integers(0, P, E).astype(np.int32)
+        rewards = rng.normal(size=E).astype(np.float32)
+        dones = (rng.random(E) < 0.2).astype(np.float32)
+        j_ret, js = jn.return_norm_roll(j_ret, jnp.asarray(rewards), jnp.asarray(acting),
+                                        jnp.asarray(dones), gamma)
+        t_ret, ts = tn.return_norm_roll(t_ret, _t(rewards), torch.from_numpy(acting), _t(dones),
+                                        gamma)
+        # One multiply-add per slot on both sides.
+        np.testing.assert_allclose(t_ret.numpy(), np.asarray(j_ret), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-6)
+    assert (t_ret.numpy() != 0).sum(axis=0).min() > 0  # every seat holds a return

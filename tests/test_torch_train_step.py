@@ -211,7 +211,7 @@ def test_train_command_end_to_end_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--resume", "runs/x"], ["--env", "connect_four"],
-                                   ["--network-type", "cnn"], ["--platform", "cpu"],
+                                   ["--network-type", "ctde"], ["--platform", "cpu"],
                                    ["--profile-dir", "p"], ["--checkify"],
                                    ["--compute-dtype", "bfloat16"]])
 def test_train_command_refuses_unported_flags(flags, tmp_path, capsys):
