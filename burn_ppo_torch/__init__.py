@@ -3,9 +3,10 @@
 The JAX package (``burn_ppo_tpu``) stays the reference; every module here
 mirrors its counterpart's layout and is held against it by the
 ``tests/test_torch_*.py`` parity tests. The port imports ``torch`` and
-never ``jax``: the host-only modules it shares (config, schedules, the
-metrics logger, the progress bar, the CLI parser) have no JAX import at
-module level and are imported from ``burn_ppo_tpu`` as they are.
+never ``jax``, and nothing of ``burn_ppo_tpu``: it carries its own copies
+of the host-only modules (``config``, ``schedule``, ``metrics``,
+``progress``, the CLI parser in ``cli``, and ``selfplay/``: the opponent
+pool, the rating history and the Plackett-Luce solver).
 
 What XLA fused into one device program per env step on the TPU becomes
 hand-written CUDA kernels for Hopper (``csrc/``), each behind a wrapper

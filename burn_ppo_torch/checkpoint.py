@@ -10,7 +10,10 @@ so each package loads what the other writes:
         return_norm.npz    (returns, mean, m2, count)
         metadata.json
     <run>/checkpoints/latest -> step_00012345
-    <run>/checkpoints/best   -> step_...
+    <run>/checkpoints/best   -> step_...  (best average return for one
+                                           player, best rating otherwise)
+    <run>/opponent_stats.json, rating_games.jsonl, rating_metadata.json
+                                          (the vs-pool path, selfplay/)
 
 Writes are atomic (temp dir + rename, temp symlink + rename). The
 generator state of the port has no JAX form, so no ``rng_state.npz`` is
@@ -223,4 +226,6 @@ class CheckpointManager:
         _atomic_symlink(self.dir / "latest", self.step_dir(step).name)
 
     def set_best(self, step: int) -> None:
+        """Point ``best`` at a step (best average return with one player,
+        best rating on the vs-pool path)."""
         _atomic_symlink(self.dir / "best", self.step_dir(step).name)

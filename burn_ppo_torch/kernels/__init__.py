@@ -15,7 +15,8 @@ exception, because a refused launch never runs and a later
 
 The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
 ``envs/connect_four.py``, ``ops/categorical.py``, ``ops/gae.py``,
-``ppo/normalization.py``) and use the helpers below.
+``ppo/normalization.py``, ``ppo/pool_rollout.py``, ``ppo/update.py``,
+``ppo/episode_stats.py``) and use the helpers below.
 """
 
 from __future__ import annotations
@@ -66,6 +67,20 @@ SIGNATURES = {
     "obs_norm_apply": [_VP] * 5 + [_L, _I, _F, _VP],
     # batch, mean, m2, count, scratch, mean', m2', count', N, D, lanes, stream
     "obs_norm_update": [_VP] * 8 + [_L, _I, _L, _VP],
+    # slot, rows, K, perm, offsets, stream
+    "opp_slot_sort": [_VP, _I, _I, _VP, _VP, _VP],
+    # x, gather, norm mean, m2, count, clip, w, b, y, scatter, offsets,
+    # rows, K, n_in, n_out, act, stream
+    "opp_grouped_dense": [_VP] * 5 + [_F] + [_VP] * 5 + [_I] * 5 + [_VP],
+    # logits, values, mask, actions, old_lp, adv, returns, old_values, valid,
+    # M, A, G, eps, lo, hi, clip_value, value_coef, ent_coef,
+    # stats, sums, out, dlogits, dvalues, stream
+    "ppo_loss_forward": [_VP] * 9 + [_I] * 3 + [_F] * 3 + [_I] + [_F] * 2 + [_VP] * 6,
+    # params, grads, mu, nu, partial, n, G, lr, max_norm, eps, b1, b2,
+    # 1 - b1, 1 - b2, bc1, bc2, stream
+    "clip_adam": [_VP] * 5 + [_L, _I] + [_F] * 9 + [_VP],
+    # completed, totals, length, outcome, T, E, L, P, G, sums, extrema, out, stream
+    "episode_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 4,
 }
 
 _LOCK = threading.Lock()

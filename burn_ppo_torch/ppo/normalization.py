@@ -21,7 +21,7 @@ Stats are device tensors, so nothing here waits for the device.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -178,6 +178,7 @@ def return_norm_finalize(
     samples: torch.Tensor,  # [..., E] post-update rolling-return samples
     rewards: torch.Tensor,  # [..., E] raw rewards
     clip: float = 10.0,
+    valid: Optional[torch.Tensor] = None,  # [..., E] learner-turn stats mask
 ) -> Tuple[ReturnNormState, torch.Tensor]:
     """Prefix-Welford stats + normalization for a whole rollout.
 
@@ -185,8 +186,10 @@ def return_norm_finalize(
     sample, in row-major [T, E] order — the reference's global per-env
     sequential update — computed from inclusive prefix sums in
     coordinates shifted by the batch mean. ``state.returns`` passes
-    through (``return_norm_roll`` advanced it). The learner-turn mask of
-    the pool path arrives with ROADMAP A12.
+    through (``return_norm_roll`` advanced it). With ``valid`` (the vs-pool
+    rollout's learner turns) only those samples fold into the stats, and
+    every reward is normalized with the prefix stats at its position
+    (normalization.py:166-181).
 
     The closed form subtracts two prefix sums (``q_e - count_e * mean^2``)
     that nearly cancel while the count is small, so the prefix pass runs in
@@ -198,11 +201,19 @@ def return_norm_finalize(
     r = rewards.reshape(-1)
     n = x.shape[0]
     count0, mean0, m20 = state.count.to(f64), state.mean.to(f64), state.m2.to(f64)
-    count_e = count0 + torch.arange(1, n + 1, dtype=f64, device=x.device)
-    shift = torch.sum(x) / float(n)
-    u = x - shift
-    s_e = torch.cumsum(u, dim=0)
-    q_e = torch.cumsum(torch.square(u), dim=0)
+    if valid is None:
+        count_e = count0 + torch.arange(1, n + 1, dtype=f64, device=x.device)
+        shift = torch.sum(x) / float(n)
+        u = x - shift
+        s_e = torch.cumsum(u, dim=0)
+        q_e = torch.cumsum(torch.square(u), dim=0)
+    else:
+        w = valid.reshape(-1).to(f64)
+        count_e = count0 + torch.cumsum(w, dim=0)
+        shift = torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+        u = x - shift
+        s_e = torch.cumsum(w * u, dim=0)
+        q_e = torch.cumsum(w * torch.square(u), dim=0)
     safe_c = torch.clamp(count_e, min=1.0)
     base_u = mean0 - shift
     mean_u_e = (count0 * base_u + s_e) / safe_c

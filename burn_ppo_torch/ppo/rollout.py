@@ -56,6 +56,10 @@ class RandomSource:
         """A random permutation of range(n), int64."""
         raise NotImplementedError
 
+    def integers(self, shape: Tuple[int, ...], low: int, high: int) -> torch.Tensor:
+        """i32 integers in [low, high) (``jax.random.randint``)."""
+        raise NotImplementedError
+
 
 class TorchRandomSource(RandomSource):
     """All draws from one explicit generator, on the generator's device."""
@@ -70,6 +74,10 @@ class TorchRandomSource(RandomSource):
 
     def permutation(self, n):
         return torch.randperm(n, generator=self.generator, device=self.device)
+
+    def integers(self, shape, low, high):
+        return torch.randint(low, high, shape, generator=self.generator, device=self.device,
+                             dtype=torch.int32)
 
 
 @dataclass
@@ -124,15 +132,21 @@ def advance_last_values(
     last_vpp: torch.Tensor,  # [E, P]
     values: torch.Tensor,  # [T, E]
     acting: torch.Tensor,  # [T, E] int
+    valid: Optional[torch.Tensor] = None,  # [T, E], the steps that update a slot
 ) -> torch.Tensor:
     """The per-player last values after T steps of the reference's update
     ``vpp = vpp * (1 - onehot(acting)) + values * onehot(acting)``: each
     slot holds the value of the last step its player acted in, or its old
-    value where the player never acted."""
+    value where the player never acted. With ``valid`` (the vs-pool
+    rollout's learner turns, pool_rollout.py:216-220) only those steps
+    count."""
     T, P = values.shape[0], last_vpp.shape[1]
     seats = torch.arange(P, device=values.device)
     steps = torch.arange(1, T + 1, device=values.device)[:, None, None]
-    last_t = torch.amax((acting[..., None] == seats) * steps, dim=0)  # [E, P], 0 = never
+    hit = acting[..., None] == seats
+    if valid is not None:
+        hit = hit & (valid[..., None] > 0)
+    last_t = torch.amax(hit * steps, dim=0)  # [E, P], 0 = never
     picked = torch.gather(values, 0, torch.clamp(last_t - 1, min=0).T).T
     return torch.where(last_t > 0, picked, last_vpp)
 

@@ -1,17 +1,24 @@
-"""Training: the fused PPO train step and the ``Trainer``.
+"""Training: the fused PPO train steps and the ``Trainer``.
 
-Counterpart of burn_ppo_tpu/train.py:110-288 (``make_train_step``) and
-549-704, 1303+ (``Trainer``). One update runs the rollout, the
+Counterpart of burn_ppo_tpu/train.py:110-288 (``make_train_step``),
+363-431 and 519-546 (``make_pool_train_step``, ``extract_pool_records``)
+and 549-1302+ (``Trainer``). One update runs the rollout, the
 obs-normalizer merge, the bootstrap value, GAE (multiplayer GAE with the
 per-player last values for ``num_players > 1``), the return-normalizer
 prefix pass and the PPO epochs; the host loop evaluates the schedules,
 logs ``metrics.jsonl`` at ``log_freq`` boundaries and writes checkpoints.
 The device work of an update is enqueued without waiting for the device;
-the host reads the metrics once per update, in one transfer.
+the host reads the metrics (and on the vs-pool path the pool block's game
+records) once per update, in one transfer.
 
-The ``Trainer`` supports fresh single-player runs and pure self-play (one
-learner in every seat, ``opponent_pool_fraction = 0``). Everything else
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+The ``Trainer`` supports fresh single-player runs, pure self-play, and
+self-play against the opponent pool (``opponent_pool_fraction > 0``,
+the MLP, one opponent rotation per update): the pool and the rating
+history start with the run, every update samples a rotation and folds
+its game records into the win rates and the rating log, and every
+checkpoint joins the pool, recomputes the Plackett-Luce ratings and moves
+the rating-driven ``best`` link. Everything else raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -21,19 +28,21 @@ import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
-from burn_ppo_tpu.config import Config
-from burn_ppo_tpu.metrics import MetricsLogger
-from burn_ppo_tpu.progress import TrainingProgress
 from burn_ppo_torch.checkpoint import (
     CheckpointManager,
+    _atomic_symlink,
     build_metadata,
     model_leaves,
     optimizer_leaves,
 )
+from burn_ppo_torch.config import Config
+from burn_ppo_torch.metrics import MetricsLogger
+from burn_ppo_torch.progress import TrainingProgress
 from burn_ppo_torch.device import resolve_device
 from burn_ppo_torch.envs import make_env
 from burn_ppo_torch.envs.base import Environment
@@ -41,6 +50,11 @@ from burn_ppo_torch.models.network import ActorCriticNetwork, make_network
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
 from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker, summarize_episode_logs
 from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, obs_norm_update
+from burn_ppo_torch.ppo.pool_rollout import (
+    OpponentStack,
+    PoolSeating,
+    collect_rollouts_with_opponents,
+)
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
     RolloutCarry,
@@ -50,6 +64,8 @@ from burn_ppo_torch.ppo.rollout import (
     init_rollout_carry,
 )
 from burn_ppo_torch.ppo.update import AdamState, PPOUpdateConfig, ppo_update, resolve_shuffle_block
+from burn_ppo_torch.selfplay.opponent_pool import OpponentPool
+from burn_ppo_torch.selfplay.rating_history import RatingHistory
 
 
 @dataclass
@@ -124,58 +140,131 @@ METRIC_SERIES = (
 )
 
 
+def _finish_step(env: Environment, cfg: Config, state: TrainState, carry: RolloutCarry,
+                 batch, rng: RandomSource, lr: float, ent_coef: float,
+                 may_have_invalid: bool = False):
+    """Obs-normalizer merge, bootstrap, GAE, flatten and the PPO update
+    after a rollout (train.py:110-249). Returns (state', metrics)."""
+    net = state.network
+    # Lagged obs normalization: the stats absorb this rollout's raw
+    # batch AFTER it; the bootstrap uses the new stats, the update
+    # re-normalizes the batch with the stats the rollout used.
+    obs_norm_new = (
+        obs_norm_update(state.obs_norm, batch.obs) if state.obs_norm is not None else None
+    )
+    last_values, last_vpp = bootstrap_values(net, env, carry, obs_norm_new)
+    if env.spec.num_players > 1:
+        advantages, returns = compute_gae_multiplayer(
+            batch.all_rewards, batch.values, batch.dones, batch.acting_players, last_vpp,
+            cfg.gamma, cfg.gae_lambda,
+        )
+    else:
+        advantages, returns = compute_gae(
+            batch.rewards, batch.values, batch.dones, last_values, cfg.gamma, cfg.gae_lambda
+        )
+    T, E = batch.actions.shape
+    N = T * E
+    obs_u = obs_norm_apply(state.obs_norm, batch.obs) if state.obs_norm is not None else batch.obs
+    data = {
+        "obs": obs_u.reshape(N, -1),
+        "actions": batch.actions.reshape(N),
+        "old_log_probs": batch.log_probs.reshape(N),
+        "advantages": advantages.reshape(N),
+        "returns": returns.reshape(N),
+        "old_values": batch.values.reshape(N),
+        "valid": batch.valid_mask.reshape(N),
+        "action_masks": batch.action_masks.reshape(N, env.spec.num_actions),
+    }
+    metrics = ppo_update(net, state.opt_state, data, rng, lr, ent_coef, update_config(cfg),
+                         may_have_invalid=may_have_invalid)
+    if cfg.runtime_guards != "off":
+        metrics.update(guard_counts(batch))
+    return TrainState(network=net, opt_state=state.opt_state, carry=carry,
+                      obs_norm=obs_norm_new), metrics
+
+
 def make_train_step(env: Environment, cfg: Config):
     """Fused rollout -> GAE -> PPO update. ``train_step(state, lr, ent_coef,
     rng)`` returns (state, metrics, episode logs [T, E])."""
-    multiplayer = env.spec.num_players > 1
     normalize_returns = cfg.effective_normalize_returns(env.spec.num_players)
-    ucfg = update_config(cfg)
 
     def train_step(state: TrainState, lr: float, ent_coef: float, rng: RandomSource):
-        net = state.network
         carry, batch, logs = collect_rollouts(
-            net, env, state.carry, state.obs_norm, rng,
+            state.network, env, state.carry, state.obs_norm, rng,
             num_steps=cfg.num_steps, gamma=cfg.gamma,
             normalize_returns=normalize_returns, return_clip=cfg.return_clip,
         )
-        # Lagged obs normalization: the stats absorb this rollout's raw
-        # batch AFTER it; the bootstrap uses the new stats, the update
-        # re-normalizes the batch with the stats the rollout used.
-        obs_norm_new = (
-            obs_norm_update(state.obs_norm, batch.obs) if state.obs_norm is not None else None
-        )
-        last_values, last_vpp = bootstrap_values(net, env, carry, obs_norm_new)
-        if multiplayer:
-            advantages, returns = compute_gae_multiplayer(
-                batch.all_rewards, batch.values, batch.dones, batch.acting_players, last_vpp,
-                cfg.gamma, cfg.gae_lambda,
-            )
-        else:
-            advantages, returns = compute_gae(
-                batch.rewards, batch.values, batch.dones, last_values, cfg.gamma, cfg.gae_lambda
-            )
-        T, E = batch.actions.shape
-        N = T * E
-        obs_u = obs_norm_apply(state.obs_norm, batch.obs) if state.obs_norm is not None else batch.obs
-        data = {
-            "obs": obs_u.reshape(N, -1),
-            "actions": batch.actions.reshape(N),
-            "old_log_probs": batch.log_probs.reshape(N),
-            "advantages": advantages.reshape(N),
-            "returns": returns.reshape(N),
-            "old_values": batch.values.reshape(N),
-            "valid": batch.valid_mask.reshape(N),
-            "action_masks": batch.action_masks.reshape(N, env.spec.num_actions),
-        }
-        metrics = ppo_update(net, state.opt_state, data, rng, lr, ent_coef, ucfg)
-        if cfg.runtime_guards != "off":
-            metrics.update(guard_counts(batch))
-        new_state = TrainState(
-            network=net, opt_state=state.opt_state, carry=carry, obs_norm=obs_norm_new
-        )
+        new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef)
         return new_state, metrics, logs
 
     return train_step
+
+
+@dataclass
+class PoolRecordLog:
+    """The pool-env columns of the per-step logs that the win-rate and
+    rating bookkeeping reads (train.py:363-374), [T, Ep(, P)]."""
+
+    completed: torch.Tensor  # f32 1.0 where an episode ended
+    outcome: torch.Tensor  # i32 placements (1-indexed)
+    learner_seat: torch.Tensor  # i32 seat BEFORE the reseat (-1 = self-play)
+    seat_opp: torch.Tensor  # i32 rotation slots BEFORE the resample
+
+
+def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
+    """Vs-pool variant (train.py:377-431): the stacked opponents act on
+    the pool-env block. ``train_step(state, seating, opponents, num_active,
+    lr, ent_coef, rng)`` returns (state, seating, metrics, the learner
+    block's episode summaries, the pool block's ``PoolRecordLog``)."""
+    normalize_returns = cfg.effective_normalize_returns(env.spec.num_players)
+    L = num_learner_envs
+
+    def train_step(state: TrainState, seating: PoolSeating, opponents: OpponentStack,
+                   num_active: int, lr: float, ent_coef: float, rng: RandomSource):
+        carry, seating, batch, pool_logs = collect_rollouts_with_opponents(
+            state.network, env, opponents, state.carry, seating, state.obs_norm, rng,
+            num_steps=cfg.num_steps, num_learner_envs=L, num_active=num_active,
+            gamma=cfg.gamma, normalize_returns=normalize_returns, return_clip=cfg.return_clip,
+        )
+        # Only learner turns are valid: a minibatch can be all-invalid.
+        new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef,
+                                          may_have_invalid=True)
+        metrics["learner_valid_fraction"] = torch.mean(batch.valid_mask)
+        learner_stats = summarize_episode_logs(pool_logs.episode, env.spec.num_players,
+                                               num_envs=L)
+        ep = pool_logs.episode
+        records = PoolRecordLog(completed=ep.completed[:, L:], outcome=ep.outcome[:, L:],
+                                learner_seat=pool_logs.learner_seat[:, L:],
+                                seat_opp=pool_logs.seat_opp[:, L:])
+        return new_state, seating, metrics, learner_stats, records
+
+    return train_step
+
+
+def extract_pool_records(pool_records, num_players: int) -> np.ndarray:
+    """Completed pool-env episodes -> record rows [learner_place | opp_slot
+    x (P-1) | opp_place x (P-1)], int32 (train.py:519-546); the fields are
+    host arrays [T, Ep(, P)]."""
+    P = num_players
+    width = 2 * P - 1
+    completed = np.asarray(pool_records.completed) > 0
+    seats = np.asarray(pool_records.learner_seat, dtype=np.int32)
+    sel = completed & (seats >= 0)
+    if completed.size == 0 or not sel.any():
+        return np.zeros((0, width), np.int32)
+    outcomes = np.asarray(pool_records.outcome, dtype=np.int32)
+    slots = np.asarray(pool_records.seat_opp, dtype=np.int32)
+    t_idx, e_idx = np.nonzero(sel)
+    place = outcomes[t_idx, e_idx]
+    seat = seats[t_idx, e_idx]
+    slot = slots[t_idx, e_idx]
+    opp_mask = np.arange(P)[None, :] != seat[:, None]
+    opp_slots = slot[opp_mask].reshape(-1, P - 1)
+    opp_places = place[opp_mask].reshape(-1, P - 1)
+    learner_place = place[np.arange(len(seat)), seat]
+    return np.concatenate(
+        [learner_place[:, None], opp_slots, opp_places], axis=1
+    ).astype(np.int32)
 
 
 def unsupported_config(cfg: Config) -> Optional[str]:
@@ -186,8 +275,13 @@ def unsupported_config(cfg: Config) -> Optional[str]:
     if cfg.env not in ("cartpole", "connect_four"):
         return f"env {cfg.env!r}: not an env of the JAX package either"
     if cfg.env == "connect_four" and cfg.opponent_pool_fraction > 0.0:
-        return (f"opponent_pool_fraction {cfg.opponent_pool_fraction} (the opponent pool): "
-                "ROADMAP A12; pass --opponent-pool-fraction 0 for pure self-play")
+        if cfg.network_type == "cnn":
+            return ("network_type 'cnn' with the opponent pool (opponent_pool_fraction "
+                    f"{cfg.opponent_pool_fraction}): ROADMAP A12b; pass "
+                    "--opponent-pool-fraction 0 for pure self-play with the CNN")
+        if cfg.pool_rotation_interval > 1:
+            return (f"pool_rotation_interval {cfg.pool_rotation_interval} (several vs-pool "
+                    "updates per rotation): ROADMAP A12c; the port rotates every update")
     if cfg.network_type == "ctde":
         return "network_type 'ctde': ROADMAP A14"
     if cfg.normalize_values:
@@ -202,50 +296,21 @@ def unsupported_config(cfg: Config) -> Optional[str]:
 
 
 def validate_config(cfg: Config) -> None:
-    """The reference's config checks that apply to the slice.
-
-    ``Config.validate`` also checks the env name against the JAX env
-    registry, which imports JAX; the port checks its own env instead."""
+    """Refuse what the port cannot run yet, then the reference's checks
+    (``Config.validate``, on the port's env registry), then the network's
+    own: a CNN needs an env with an obs shape."""
     reason = unsupported_config(cfg)
     if reason is not None:
         raise NotImplementedError(f"not supported by burn_ppo_torch yet: {reason}")
-    errors = []
-    if cfg.num_steps <= 0:
-        errors.append("num_steps must be > 0")
-    if not 0.0 < cfg.gamma <= 1.0:
-        errors.append("gamma must be in (0, 1]")
-    if not 0.0 <= cfg.gae_lambda <= 1.0:
-        errors.append("gae_lambda must be in [0, 1]")
-    if not 0.0 < cfg.clip_epsilon < 1.0:
-        errors.append("clip_epsilon must be in (0, 1)")
-    if cfg.activation not in ("relu", "tanh"):
-        errors.append(f"activation must be relu|tanh, got '{cfg.activation}'")
-    if cfg.network_type not in ("mlp", "cnn"):
-        errors.append(f"network_type must be mlp|cnn|ctde, got '{cfg.network_type}'")
+    Config.validate(cfg)
     if cfg.network_type == "cnn" and make_env(cfg.env).spec.obs_shape is None:
-        errors.append(f"network_type cnn needs an env with an obs_shape, not '{cfg.env}'")
-    if cfg.network_type == "cnn" and cfg.num_conv_layers < 1:
-        errors.append("num_conv_layers must be >= 1 for network_type=cnn")
-    if cfg.num_epochs <= 0 or cfg.num_minibatches <= 0:
-        errors.append("num_epochs and num_minibatches must be > 0")
-    if cfg.learning_rate.initial_value() <= 0:
-        errors.append("learning_rate must be > 0")
-    if cfg.entropy_coef.initial_value() < 0:
-        errors.append("entropy_coef must be >= 0")
-    if cfg.runtime_guards not in ("raise", "warn", "off"):
-        errors.append("runtime_guards must be raise|warn|off")
-    if cfg.max_training_time is not None:
-        try:
-            cfg.max_training_seconds()
-        except ValueError as e:
-            errors.append(str(e))
-    if errors:
-        raise ValueError("Invalid config:\n  " + "\n  ".join(errors))
+        raise ValueError("Invalid config:\n  network_type cnn needs an env with an obs_shape, "
+                         f"not '{cfg.env}'")
 
 
 class Trainer:
     """Owns the device state and the host bookkeeping of one fresh training
-    run, single-player or pure self-play.
+    run: single-player, pure self-play, or self-play against the pool.
 
     ``device`` defaults to ``"cuda"``; the CPU tests pass ``"cpu"``, where
     every kernel wrapper runs its plain PyTorch version."""
@@ -287,6 +352,27 @@ class Trainer:
         self.metrics = MetricsLogger(self.run_dir)
         self.tracker = WindowedEpisodeTracker(self.num_players)
 
+        # ---- opponent pool (multiplayer only, train.py:774-842) ----------
+        self.pool: Optional[OpponentPool] = None
+        self.rating_history: Optional[RatingHistory] = None
+        self.seating: Optional[PoolSeating] = None
+        self._last_num_slots: Optional[int] = None
+        self._last_elo: Dict[str, float] = {}
+        self.num_learner_envs = self.num_envs
+        if cfg.opponent_pool_fraction > 0.0 and self.num_players > 1:
+            pool_envs = int(round(self.num_envs * cfg.opponent_pool_fraction))
+            pool_envs = (min(max(pool_envs, 1), self.num_envs - 1) if self.num_envs > 1 else 0)
+            self.num_learner_envs = self.num_envs - pool_envs
+            self.pool = OpponentPool(
+                self.run_dir, select_alpha=cfg.opponent_select_alpha,
+                select_exponent=cfg.opponent_select_exponent,
+                max_active=cfg.max_active_opponents, seed=self.seed, device=self.device,
+            )
+            self.rating_history = RatingHistory.load(self.run_dir)
+            self.seating = PoolSeating.create(self.num_envs, self.num_learner_envs,
+                                              self.num_players, 1, self.rng)
+            self.pool_step = make_pool_train_step(self.env, cfg, self.num_learner_envs)
+
         n = cfg.num_steps * self.num_envs
         block = resolve_shuffle_block(n, -(-n // cfg.num_minibatches), cfg.shuffle_block_rows)
         if block > 1 and not self.quiet:
@@ -300,6 +386,10 @@ class Trainer:
         state = self.state
         tr = self.tracker
         rn = state.carry.return_norm
+        exploitability = None
+        if self.pool is not None:
+            perf = self.pool.get_pool_performance(self._best_ckpt_name())
+            exploitability = None if perf is None else 1.0 - perf
         meta = build_metadata(
             step=self.global_step,
             env_name=self.cfg.env,
@@ -310,6 +400,7 @@ class Trainer:
             recent_returns=[tr.avg_return] * min(100, int(tr.window_count)),
             rng_seed=self.seed,
             normalize_obs=self.cfg.normalize_obs,
+            exploitability_vs_pool=exploitability,
         )
         on = state.obs_norm
         path = self.ckpt.save(
@@ -323,11 +414,55 @@ class Trainer:
             meta,
         )
         # Single-player best follows the average return (train.py:994-998);
-        # the multiplayer best is rating-driven and arrives with the pool (A12).
+        # the multiplayer best is rating-driven (vs-pool runs only).
         if self.num_players == 1 and tr.avg_return > self.best_avg_return:
             self.best_avg_return = tr.avg_return
             self.ckpt.set_best(self.global_step)
+        if self.pool is not None:
+            self._pool_checkpoint(path)
         return path
+
+    def _pool_checkpoint(self, path: Path) -> None:
+        """The new checkpoint joins the pool (its device entry snapshotted
+        from the live state), the ratings are recomputed, and the best
+        rating moves the ``best`` link (train.py:999-1043)."""
+        name = path.name
+        self.pool.add_checkpoint(name, self.global_step)
+        self.pool.seed_device_cache(name, self.state.network, self.state.obs_norm)
+        t0 = time.time()
+        self.rating_history.on_checkpoint_saved(name, self.global_step)
+        snap = self.rating_history.compute()
+        self._last_elo = {
+            "train/current_elo": snap.current_elo,
+            "train/best_elo": snap.best_elo,
+            "train/best_step": float(snap.best_step),
+            "train/rating_games": float(snap.total_games),
+            "train/elo_compute_ms": snap.computation_time_ms,
+            "perf/checkpoint_rating_time": time.time() - t0,
+        }
+        if snap.total_games > 0 and self.ckpt.step_dir(snap.best_step).exists():
+            self.ckpt.set_best(snap.best_step)
+        self.rating_history.generate_graph(self.run_dir / "elo_graph.png")
+        if self.pool.generate_selection_graph(path / "selection_probability.png"):
+            _atomic_symlink(self.run_dir / "selection_probability.png",
+                            str(Path("checkpoints") / name / "selection_probability.png"))
+
+    def _best_ckpt_name(self) -> Optional[str]:
+        best = self.ckpt.dir / "best"
+        return best.resolve().name if best.exists() else None
+
+    def _apply_pool_records(self, rows: np.ndarray, active_names: Sequence[str]) -> None:
+        """Fold a rotation's game records into the win-rate queues and the
+        rating log (train.py:1239-1260)."""
+        if rows.shape[0] == 0:
+            return
+        P = self.num_players
+        learner_place, opp_slots, opp_places = rows[:, 0], rows[:, 1:P], rows[:, P:2 * P - 1]
+        self.pool.queue_game_results_batch(active_names, learner_place, opp_slots, opp_places)
+        current = self.rating_history.current_checkpoint
+        if current is not None:
+            self.rating_history.record_games_arrays(current, active_names, learner_place,
+                                                    opp_slots, opp_places)
 
     # ------------------------------------------------------------------
     def _enforce_guards(self, metrics: Dict[str, float]) -> None:
@@ -351,16 +486,47 @@ class Trainer:
             raise RuntimeError(msg + "\n(set runtime_guards = 'warn' to continue anyway)")
         print(f"WARNING: {msg}", file=sys.stderr)
 
-    def _fetch(self, metrics: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor]):
-        """Metrics and episode summaries to the host in one transfer."""
-        items = list(metrics.items()) + list(stats.items())
-        flat = torch.cat([v.reshape(-1).to(torch.float32) for _, v in items]).cpu().numpy()
-        out, off = {}, 0
-        for k, v in items:
+    @staticmethod
+    def _fetch(groups: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, dict]:
+        """Every tensor of ``groups`` to the host in one transfer: 0-dim
+        tensors come back as floats, the others as arrays of their shape."""
+        items = [(g, k, v) for g, d in groups.items() for k, v in d.items()]
+        flat = torch.cat([v.reshape(-1).to(torch.float32) for _, _, v in items]).cpu().numpy()
+        out: Dict[str, dict] = {g: {} for g in groups}
+        off = 0
+        for g, k, v in items:
             n = v.numel()
-            out[k] = flat[off:off + n].copy() if v.dim() else float(flat[off])
+            out[g][k] = flat[off:off + n].reshape(v.shape).copy() if v.dim() else float(flat[off])
             off += n
-        return {k: out[k] for k in metrics}, {k: out[k] for k in stats}
+        return out
+
+    def _pool_update(self, lr: float, ent_coef: float):
+        """One vs-pool update (train.py:1425-1536): sample the rotation,
+        run the pool step, fold its game records. None while the pool is
+        empty (the update is then plain self-play on every env)."""
+        if self.pool is None or not len(self.pool):
+            return None
+        stack, names = self.pool.refresh_rotation(pad_to=max(self.cfg.max_active_opponents, 1))
+        if self.cfg.debug_opponents and not self.quiet:
+            weights = self.pool.selection_weights()
+            total_w = sum(weights.values()) or 1.0
+            print(f"[opponents @ step {self.global_step}] " + " ".join(
+                f"{n}(wr={self.pool.stats[n].win_rate:.2f}, p={weights[n] / total_w:.2f})"
+                for n in names))
+        K = len(names)
+        if self._last_num_slots is not None and K < self._last_num_slots:
+            # Remap stale slots into range after K shrank.
+            self.seating = PoolSeating(self.seating.learner_seat, self.seating.seat_opp % K)
+        self._last_num_slots = K
+        self.state, self.seating, metrics_t, stats_t, records = self.pool_step(
+            self.state, self.seating, stack, K, lr, ent_coef, self.rng)
+        fetched = self._fetch({"metrics": metrics_t, "stats": stats_t,
+                               "rec": records.__dict__})
+        rec = fetched["rec"]
+        rows = extract_pool_records(PoolRecordLog(**rec), self.num_players)
+        self._apply_pool_records(rows, names)
+        self.pool.apply_pending_updates()
+        return fetched["metrics"], fetched["stats"]
 
     # ------------------------------------------------------------------
     def train(self) -> Dict[str, float]:
@@ -397,9 +563,16 @@ class Trainer:
                 lr = cfg.learning_rate.get(self.global_step)
                 ent_coef = cfg.entropy_coef.get(self.global_step)
                 t0 = time.time()
-                self.state, metrics_t, logs = self.train_step(self.state, lr, ent_coef, self.rng)
-                metrics, stats = self._fetch(metrics_t,
-                                             summarize_episode_logs(logs, self.num_players))
+                fetched = self._pool_update(lr, ent_coef)
+                if fetched is None:
+                    self.state, metrics_t, logs = self.train_step(self.state, lr, ent_coef,
+                                                                  self.rng)
+                    fetched = self._fetch({
+                        "metrics": metrics_t,
+                        "stats": summarize_episode_logs(logs, self.num_players),
+                    })
+                    fetched = fetched["metrics"], fetched["stats"]
+                metrics, stats = fetched
                 self.tracker.ingest(stats)
                 self._enforce_guards(metrics)
                 step_time = time.time() - t0
@@ -448,6 +621,8 @@ class Trainer:
         for gk in GUARD_METRIC_KEYS:
             if gk in m:
                 log(f"train/{gk}", m[gk], step)
+        if "learner_valid_fraction" in m:
+            log("train/learner_valid_fraction", m["learner_valid_fraction"], step)
         log("perf/sps", sps, step)
         if self.device.type == "cuda":
             log("perf/device_mb_in_use", torch.cuda.memory_allocated(self.device) / 2**20, step)
@@ -466,6 +641,12 @@ class Trainer:
                 log(f"episode/player_{p}_points", float(avg_points[p]), step)
                 log(f"episode/player_{p}_return_mean", float(per_player[p]), step)
             log("episode/draw_rate", tr.draw_rate, step)
+        for name, value in self._last_elo.items():
+            log(name, value, step)
+        if self.pool is not None:
+            perf = self.pool.get_pool_performance(self._best_ckpt_name())
+            if perf is not None:
+                log("eval/pool_performance", perf, step)
         self.metrics.flush()
 
     def _print_progress(self, progress, m, sps) -> None:
@@ -474,6 +655,7 @@ class Trainer:
         tr = self.tracker
         if self.num_players > 1 and tr.has_data:
             progress.update_multiplayer(self.global_step, sps, list(tr.avg_points()),
-                                        tr.draw_rate, extra=extra)
+                                        tr.draw_rate, elo=self._last_elo.get("train/current_elo"),
+                                        extra=extra)
         else:
             progress.update(self.global_step, sps, tr.avg_return, extra=extra)

@@ -13,13 +13,26 @@ exits non-zero without the final result line:
      GAE [128, 4096], K4 Connect Four step (E = 4096, exact), K5
      multiplayer GAE ([64, 4096, 2] and P = 4), K6 obs-norm apply
      ([4096, 86], count 0, 1 and large) and update ([262144, 86],
-     [524288, 5]);
+     [524288, 5]), K7 slot-grouped opponent forward (Ep = 1024 rows, MLP
+     86 -> 512 -> 512 -> 7, K = 8 and K = 3, relu and tanh), K8 PPO loss
+     ([65536, 7] and [131072, 2] minibatches, valid zeros, value clip on
+     and off), K9 clip + Adam (CartPole's 4,739 and Connect Four's 311,304
+     parameters, below and above the max norm), K10 episode statistics
+     ([64, 4096] with the learner block [:, :3072], and [128, 4096]);
+     each kernel's least time on the card (bytes or operations) and,
+     where one PyTorch call computes the same function, that call's time;
   3. the CartPole bench-shape train path through the CLI entry point
      (MLP 64x2, 4096 envs x 128 steps, obs norm on, 5 updates);
   3b. Connect Four self-play through the CLI (configs/connect_four.toml,
      MLP 512x2, no opponent pool, 4096 envs x 64 steps, obs norm on,
      5 updates): finite losses, Swiss points summing to 1;
   3c. the same with the CNN (relu), 2 updates;
+  3d. Connect Four against the opponent pool through the CLI
+     (configs/connect_four.toml as users run it: MLP 512x2, pool fraction
+     0.25, 8 opponents at most, 4096 x 64, obs norm on), a checkpoint
+     after every update, 10 updates, so that the rotation reaches K = 8:
+     finite losses, the pool and rating files, the learner's valid share
+     near (L + Ep/2) / E;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps.
 
@@ -72,6 +85,11 @@ from burn_ppo_torch.ops.gae import (  # noqa: E402
     compute_gae_multiplayer_plain,
     compute_gae_plain,
 )
+from burn_ppo_torch.envs.base import EpisodeLog  # noqa: E402
+from burn_ppo_torch.ppo.episode_stats import (  # noqa: E402
+    summarize_episode_logs,
+    summarize_episode_logs_plain,
+)
 from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     ObsNormState,
     obs_norm_apply,
@@ -79,11 +97,30 @@ from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     obs_norm_update,
     obs_norm_update_plain,
 )
+from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
+    OpponentStack,
+    opponent_actor_forward,
+    opponent_actor_forward_plain,
+)
+from burn_ppo_torch.ppo.update import (  # noqa: E402
+    PPOUpdateConfig,
+    clip_adam,
+    clip_adam_plain,
+    ppo_loss,
+    ppo_loss_forward,
+    ppo_loss_plain,
+)
 
 E, T = 4096, 128  # CartPole bench shape
 T_C4 = 64  # Connect Four self-play shape: 4096 envs x 64 steps
 BENCH_UPDATES = 5
 CNN_UPDATES = 2
+POOL_UPDATES = 10
+EP = 1024  # pool envs at 4096 envs and pool fraction 0.25
+# Published H100 SXM peaks (NVIDIA data sheet): HBM and f32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+TIMES = ("ms", "plain_ms", "device_ms", "plain_device_ms")
+F32_FLOP_PER_S = 67e12
 WRAPPERS = {
     "cartpole_step_autoreset": cartpole_step_autoreset,
     "masked_gumbel_sample": masked_sample,
@@ -92,6 +129,10 @@ WRAPPERS = {
     "gae_multiplayer_reverse_scan": compute_gae_multiplayer,
     "obs_norm_apply": obs_norm_apply,
     "obs_norm_update": obs_norm_update,
+    "opponent_actor_forward": opponent_actor_forward,
+    "ppo_loss": ppo_loss,
+    "clip_adam": clip_adam,
+    "episode_stats": summarize_episode_logs,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -107,6 +148,12 @@ SOURCES = {
                        "burn_ppo_tpu/ppo/normalization.py:78"),
     "obs_norm_update": ("burn_ppo_torch/csrc/obs_norm.cu",
                         "burn_ppo_tpu/ppo/normalization.py:68"),
+    "opponent_actor_forward": ("burn_ppo_torch/csrc/opponent_actor.cu",
+                               "burn_ppo_tpu/ppo/pool_rollout.py:126"),
+    "ppo_loss": ("burn_ppo_torch/csrc/ppo_loss.cu", "burn_ppo_tpu/ppo/update.py:125"),
+    "clip_adam": ("burn_ppo_torch/csrc/clip_adam.cu", "burn_ppo_tpu/ppo/update.py:82"),
+    "episode_stats": ("burn_ppo_torch/csrc/episode_stats.cu",
+                      "burn_ppo_tpu/ppo/episode_stats.py:25"),
 }
 
 
@@ -141,8 +188,54 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Kernel time per call on the card, from the profiler: the CUDA-typed
+    events only (a CPU op's device column counts the same kernels again)."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    return kernels_us / 1e3 / reps
+
+
+def timed(kernel, plain) -> dict:
+    """Events time (the wrapper's host work included) and profiler device
+    time of one call, for the kernel's wrapper and its plain version."""
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "device_ms": device_ms(kernel), "plain_device_ms": device_ms(plain)}
+
+
 def max_err(pairs) -> float:
     return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (nested lists, dataclasses and None allowed)."""
+    total = 0
+    for t in tensors:
+        if t is None:
+            continue
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+        else:
+            total += nbytes(*vars(t).values())
+    return total
+
+
+def bound(bytes_moved: float, flops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the f32 operations over the f32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bytes": bytes_moved, "flops": flops}
 
 
 def check_cartpole(dev, g) -> dict:
@@ -179,8 +272,11 @@ def check_cartpole(dev, g) -> dict:
         raise AssertionError(f"cartpole_step_autoreset: max abs err {err} > 1e-5")
     return {
         "max_abs_err": err, "tol": 1e-5, "dones": int(p.done.sum()),
-        "ms": time_ms(lambda: env.step_autoreset(state, acc, action, reset)),
-        "plain_ms": time_ms(lambda: autoreset_step(env, state, acc, action, reset)),
+        **timed(lambda: env.step_autoreset(state, acc, action, reset),
+                lambda: autoreset_step(env, state, acc, action, reset)),
+        "library_ms": None,
+        # ~30 f32 operations of Euler physics per env
+        **bound(nbytes(state, acc, action, reset, k), 30.0 * E),
     }
 
 
@@ -211,8 +307,11 @@ def check_sample(dev, g, A: int) -> dict:
     return {
         "max_abs_err": err, "tol": 1e-5, "rows_compared": int(decided.sum()),
         "masked_per_row": [int((mask.sum(1) == A - k).sum()) for k in range(A)],
-        "ms": time_ms(lambda: masked_sample(logits, mask, uni)),
-        "plain_ms": time_ms(lambda: masked_sample_plain(logits, mask, uni)),
+        **timed(lambda: masked_sample(logits, mask, uni),
+                lambda: masked_sample_plain(logits, mask, uni)),
+        "library_ms": None,
+        # per (row, action): mask add, two logs, add, compare, exp, add
+        **bound(nbytes(logits, mask, uni, a_k, lp_k), 8.0 * E * A),
     }
 
 
@@ -229,8 +328,10 @@ def check_gae(dev, g) -> dict:
         raise AssertionError(f"gae_reverse_scan: max abs err {err} > 1e-5")
     return {
         "max_abs_err": err, "tol": 1e-5,
-        "ms": time_ms(lambda: compute_gae(r, v, d, last, 0.99, 0.95)),
-        "plain_ms": time_ms(lambda: compute_gae_plain(r, v, d, last, 0.99, 0.95)),
+        **timed(lambda: compute_gae(r, v, d, last, 0.99, 0.95),
+                lambda: compute_gae_plain(r, v, d, last, 0.99, 0.95)),
+        "library_ms": None,
+        **bound(nbytes(r, v, d, last, adv_k, ret_k), 8.0 * T * E),
     }
 
 
@@ -356,10 +457,14 @@ def check_connect_four(dev, g) -> dict:
     if min(stats["wins_h_v_d1_d2"]) == 0 or stats["draws"] == 0 or stats["no_outcome"] == 0:
         raise AssertionError(f"connect_four_step_autoreset: a branch was not reached: {stats}")
     s, a, act = last
+    k = env.step_autoreset(s, a, act, empty)
     return {
         "max_abs_err": 0.0, "tol": "exact", **stats,
-        "ms": time_ms(lambda: env.step_autoreset(s, a, act, empty)),
-        "plain_ms": time_ms(lambda: autoreset_step(env, s, a, act, empty)),
+        **timed(lambda: env.step_autoreset(s, a, act, empty),
+                lambda: autoreset_step(env, s, a, act, empty)),
+        "library_ms": None,
+        # the 69 four-in-a-row windows of the mover, a few operations each
+        **bound(nbytes(s, a, act, k), 300.0 * E),
     }
 
 
@@ -394,11 +499,13 @@ def check_gae_multiplayer(dev, g) -> dict:
             raise AssertionError(f"gae_multiplayer_reverse_scan P={P}: max abs err {err} > 1e-5")
         out[f"P{P}"] = {
             "max_abs_err": err,
-            "ms": time_ms(lambda: compute_gae_multiplayer(*args, 0.99, 0.95)),
-            "plain_ms": time_ms(lambda: compute_gae_multiplayer_plain(*args, 0.99, 0.95)),
+            **timed(lambda: compute_gae_multiplayer(*args, 0.99, 0.95),
+                    lambda: compute_gae_multiplayer_plain(*args, 0.99, 0.95)),
         }
+        if P == 2:
+            out.update(library_ms=None, **bound(nbytes(*args, adv_k, ret_k), 12.0 * T_C4 * E * P))
     out.update(max_abs_err=max(out["P2"]["max_abs_err"], out["P4"]["max_abs_err"]),
-               ms=out["P2"]["ms"], plain_ms=out["P2"]["plain_ms"])
+               **{k: out["P2"][k] for k in TIMES})
     return out
 
 
@@ -432,8 +539,8 @@ def check_obs_norm_apply(dev, g) -> dict:
         out[name] = err
         out["max_abs_err"] = max(out["max_abs_err"], err)
     st = states["merged"]
-    out["ms"] = time_ms(lambda: obs_norm_apply(st, obs))
-    out["plain_ms"] = time_ms(lambda: obs_norm_apply_plain(st, obs))
+    out.update(timed(lambda: obs_norm_apply(st, obs), lambda: obs_norm_apply_plain(st, obs)))
+    out.update(library_ms=None, **bound(nbytes(obs, st) + nbytes(obs), 6.0 * obs.numel()))
     batch = connect_four_like(dev, g, E * T_C4)
     out["update_batch_ms"] = time_ms(lambda: obs_norm_apply(st, batch))
     out["update_batch_plain_ms"] = time_ms(lambda: obs_norm_apply_plain(st, batch))
@@ -473,10 +580,218 @@ def check_obs_norm_update(dev, g) -> dict:
             st = p
         out[name] = {
             "into_empty": errs[0], "into_filled": errs[1],
-            "ms": time_ms(lambda: obs_norm_update(st, x1)),
-            "plain_ms": time_ms(lambda: obs_norm_update_plain(st, x1)),
+            **timed(lambda: obs_norm_update(st, x1), lambda: obs_norm_update_plain(st, x1)),
         }
-    out.update(ms=out["c4_262144x86"]["ms"], plain_ms=out["c4_262144x86"]["plain_ms"])
+    x = connect_four_like(dev, g, E * T_C4)
+    out.update(**{k: out["c4_262144x86"][k] for k in TIMES},
+               library_ms=time_ms(lambda: torch.var_mean(x, dim=0)),
+               library_call="torch.var_mean(batch, dim=0) (the batch moments, no merge)",
+               **bound(nbytes(x) + 3 * 86 * 4 * 2, 4.0 * x.numel()))
+    return out
+
+
+def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int = 7) -> OpponentStack:
+    """K random actor towers 86 -> 512 -> 512 -> 7 (fan-in scaled) and
+    obs normalisers: slot 0 at count 0 (the identity), slot 1 at count 1,
+    the others merged."""
+    sizes = [D, H, H, A]
+    weights = [torch.randn(K, i, o, generator=g, device=dev) / i ** 0.5
+               for i, o in zip(sizes, sizes[1:])]
+    biases = [torch.randn(K, o, generator=g, device=dev) * 0.1 for o in sizes[1:]]
+    count = torch.full((K,), 5000.0, device=dev)
+    count[0] = 0.0
+    count[1] = 1.0
+    norm = ObsNormState(mean=torch.rand(K, D, generator=g, device=dev),
+                        m2=torch.rand(K, D, generator=g, device=dev) * 1000.0, count=count)
+    return OpponentStack(weights=weights, biases=biases, activation=act, norm=norm)
+
+
+def check_opponent_actor(dev, g) -> dict:
+    """K7 at the pool block of the bench shape (Ep = 1024 rows), K = 8 and
+    K = 3, relu and tanh: |kernel - plain| <= 1e-4 + 1e-4 |plain|."""
+    out = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": 0.0}
+    for K, act in ((8, "relu"), (8, "tanh"), (3, "relu"), (3, "tanh")):
+        stack = random_opponents(dev, g, K, act)
+        obs = connect_four_like(dev, g, EP)
+        slot = torch.randint(0, K, (EP,), generator=g, device=dev, dtype=torch.int32)
+        k = opponent_actor_forward(obs, slot, stack)
+        p = opponent_actor_forward_plain(obs, slot, stack)
+        torch.cuda.synchronize()
+        if not bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())):
+            raise AssertionError(f"opponent_actor_forward K={K} {act}: max abs err "
+                                 f"{max_err([(k, p)])}")
+        out[f"K{K}_{act}"] = max_err([(k, p)])
+        out["max_abs_err"] = max(out["max_abs_err"], out[f"K{K}_{act}"])
+    stack = random_opponents(dev, g, 8, "relu")
+    obs = connect_four_like(dev, g, EP)
+    slot = torch.randint(0, 8, (EP,), generator=g, device=dev, dtype=torch.int32)
+    xs = [torch.rand(8, EP, w.shape[1], generator=g, device=dev) for w in stack.weights]
+    # Every row through its own slot only: 309,760 multiply-adds per row.
+    macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
+    out.update(
+        **timed(lambda: opponent_actor_forward(obs, slot, stack),
+                lambda: opponent_actor_forward_plain(obs, slot, stack)),
+        library_ms=time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+        library_call="torch.bmm over the K x Ep stacked rows, one per layer (K times the work)",
+        **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + EP * 7 * 4,
+                2.0 * EP * macs),
+    )
+    return out
+
+
+def loss_batch(dev, g, M: int, A: int):
+    """A minibatch as the update gives it: 0 to A-1 masked actions per row,
+    a fifth of the rows invalid."""
+    logits = torch.randn(M, A, generator=g, device=dev) * 2
+    n_masked = torch.randint(0, A, (M, 1), generator=g, device=dev)
+    mask = (torch.rand(M, A, generator=g, device=dev).argsort(1).argsort(1) >= n_masked).float()
+    logp = torch.log_softmax(apply_action_mask(logits, mask), -1)
+    actions = torch.multinomial(mask, 1, generator=g)[:, 0].to(torch.int32)
+    old_lp = logp.gather(1, actions.long()[:, None])[:, 0] + torch.randn(
+        M, generator=g, device=dev) * 0.2
+    values = torch.randn(M, generator=g, device=dev)
+    mb = {
+        "actions": actions, "old_log_probs": old_lp,
+        "advantages": torch.randn(M, generator=g, device=dev) * 2 + 0.3,
+        "returns": torch.randn(M, generator=g, device=dev),
+        "old_values": values + torch.randn(M, generator=g, device=dev) * 0.3,
+        "valid": (torch.rand(M, generator=g, device=dev) < 0.8).float(),
+        "action_masks": mask,
+    }
+    return logits, values, mb
+
+
+def check_ppo_loss(dev, g) -> dict:
+    """K8 at the minibatch shapes: Connect Four [65536, 7] (value clip off
+    and on), CartPole [131072, 2]. Loss and metrics to 1e-5 relative,
+    gradients to 1e-4 relative + 1e-6 of their largest entry."""
+    out = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
+    for M, A, clip_value in ((65536, 7, False), (65536, 7, True), (131072, 2, False)):
+        logits, values, mb = loss_batch(dev, g, M, A)
+        cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
+        k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+        p = ppo_loss_plain(logits, values, mb, 0.05, cfg)
+        torch.cuda.synchronize()
+        name = f"M{M}_A{A}" + ("_clip" if clip_value else "")
+        for a, b, rel, what in ((k[0], p[0], 1e-5, "loss"), (k[1], p[1], 1e-5, "metrics"),
+                                (k[2], p[2], 1e-4, "dlogits"), (k[3], p[3], 1e-4, "dvalues")):
+            atol = 1e-6 * max(float(b.abs().max()), 1.0 if what in ("loss", "metrics") else 0.0)
+            if not bool(torch.all((a - b).abs() <= atol + rel * b.abs())):
+                raise AssertionError(f"ppo_loss {name}: {what} max abs err {max_err([(a, b)])}")
+        out[name] = max_err(list(zip(k, p)))
+        out["max_abs_err"] = max(out["max_abs_err"], out[name])
+    logits, values, mb = loss_batch(dev, g, 65536, 7)
+    cfg = PPOUpdateConfig(clip_epsilon=0.1)
+    dl = torch.empty_like(logits)
+    # logits, mask, dL/dlogits [M, 7]; values, the columns read, dL/dvalues
+    # [M] (old_values is read only with the value clip on)
+    read = [t for k, t in mb.items() if k != "old_values" or cfg.clip_value]
+    moved = nbytes(logits, values, read, dl, values) + 15 * 4
+    out.update(
+        **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
+                lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
+        library_ms=None,
+        # per row: the masked log-softmax and its gradient (~12 per
+        # action), ratio, clip, value and metric terms (~60)
+        **bound(moved, 65536 * (12.0 * 7 + 60.0)),
+    )
+    return out
+
+
+def check_clip_adam(dev, g) -> dict:
+    """K9 over flat buffers of CartPole's MLP 64x2 (4,739 parameters) and
+    Connect Four's MLP 512x2 (311,304), three steps below and three above
+    the max norm: to 1e-5 relative + 1e-7 of the largest entry."""
+    out = {"tol": "1e-5 * |plain| + 1e-7 * max|plain|", "max_abs_err": 0.0}
+    for n in (4739, 311304):
+        for scale in (1e-3, 10.0):
+            p_k = torch.randn(n, generator=g, device=dev)
+            mu_k, nu_k = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+            p_p, mu_p, nu_p = p_k.clone(), mu_k.clone(), nu_k.clone()
+            for count in (1, 2, 3):
+                grads = torch.randn(n, generator=g, device=dev) * scale / n ** 0.5
+                kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
+                          bc2=1 - 0.999 ** count)
+                clip_adam(p_k, grads, mu_k, nu_k, **kw)
+                clip_adam_plain(p_p, grads, mu_p, nu_p, **kw)
+            torch.cuda.synchronize()
+            for a, b in ((p_k, p_p), (mu_k, mu_p), (nu_k, nu_p)):
+                if not bool(torch.all((a - b).abs() <= 1e-7 * float(b.abs().max())
+                                      + 1e-5 * b.abs())):
+                    raise AssertionError(f"clip_adam n={n} scale={scale}: max abs err "
+                                         f"{max_err([(a, b)])}")
+            name = f"n{n}_{'above' if scale > 1 else 'below'}"
+            out[name] = max_err([(p_k, p_p), (mu_k, mu_p), (nu_k, nu_p)])
+            out["max_abs_err"] = max(out["max_abs_err"], out[name])
+    n = 311304
+    prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
+    mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    kw = dict(lr=1e-6, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
+    lib = torch.nn.Parameter(prm.clone())
+    lib.grad = grads.clone()
+    adam = torch.optim.Adam([lib], lr=1e-6, eps=1e-5, fused=True)
+    out.update(
+        **timed(lambda: clip_adam(prm, grads, mu, nu, **kw),
+                lambda: clip_adam_plain(prm, grads, mu, nu, **kw)),
+        library_ms=time_ms(adam.step),
+        library_call="torch.optim.Adam(fused=True).step() (Adam only: no global-norm clip)",
+        # read params, grads, mu, nu; write params, mu, nu
+        **bound(7 * 4 * n, 20.0 * n),
+    )
+    return out
+
+
+def episode_logs(dev, g, T: int, P: int, rate: float = 0.05) -> EpisodeLog:
+    """[T, 4096] logs: wins, all-tied draws and the [0, ..] sentinel."""
+    kinds = torch.randint(0, 4, (T, E), generator=g, device=dev)
+    places = torch.randint(1, P + 1, (T, E, P), generator=g, device=dev, dtype=torch.int32)
+    places[kinds == 1] = 1
+    places[kinds == 2] = 0
+    return EpisodeLog(
+        completed=(torch.rand(T, E, generator=g, device=dev) < rate).float(),
+        total_rewards=torch.randn(T, E, P, generator=g, device=dev),
+        length=torch.randint(1, 43, (T, E), generator=g, device=dev, dtype=torch.int32),
+        outcome=places, active_players=torch.full((T, E), P, dtype=torch.int32, device=dev),
+    )
+
+
+def check_episode_stats(dev, g) -> dict:
+    """K10 at the learner block of the pool path ([64, 4096], first 3072
+    columns), all of Connect Four's [64, 4096] and CartPole's [128, 4096]:
+    counts, extrema and lengths exact, sums to 1e-6 relative + 1e-3."""
+    out = {"tol": {"count_len_draws_max_min": "exact", "sums": "1e-6 rel + 1e-3"},
+           "max_abs_err": 0.0}
+    L = E - EP
+    for T_, P, cols in ((T_C4, 2, L), (T_C4, 2, None), (T, 1, None)):
+        logs = episode_logs(dev, g, T_, P)
+        k = summarize_episode_logs(logs, P, num_envs=cols)
+        cut = EpisodeLog(**{f: getattr(logs, f)[:, :cols] for f in vars(logs)})
+        p = summarize_episode_logs_plain(logs if cols is None else cut, P)
+        torch.cuda.synchronize()
+        name = f"T{T_}_P{P}_" + ("all" if cols is None else f"first{cols}")
+        for key in ("count", "len_sum", "draws", "ret0_max", "ret0_min"):
+            if not torch.equal(k[key], p[key]):
+                raise AssertionError(f"episode_stats {name}: {key} {k[key]} != {p[key]}")
+        for key in ("ret_sum", "pts_sum"):
+            if not bool(torch.all((k[key] - p[key]).abs() <= 1e-3 + 1e-6 * p[key].abs())):
+                raise AssertionError(f"episode_stats {name}: {key} {k[key]} != {p[key]}")
+        out[name] = max_err([(k[f], p[f]) for f in p])
+        out["max_abs_err"] = max(out["max_abs_err"], out[name])
+    logs = episode_logs(dev, g, T_C4, 2)
+    block = EpisodeLog(**{f: getattr(logs, f)[:, :L] for f in vars(logs)})
+    # The learner block's completed column is read whole; length, rewards
+    # and placements only on the rows of completed episodes, as many as
+    # this run's logs hold. Out: 5 + 2P floats. Ops: one test per entry,
+    # ~30 per completed episode.
+    done = int((block.completed > 0).sum())
+    row = (block.length.element_size() + block.total_rewards[0, 0].numel() * 4
+           + block.outcome[0, 0].numel() * 4)
+    out.update(
+        **timed(lambda: summarize_episode_logs(logs, 2, num_envs=L),
+                lambda: summarize_episode_logs_plain(block, 2)),
+        library_ms=None, completed_rows=done,
+        **bound(nbytes(block.completed) + done * row + 9 * 4, T_C4 * L + 30.0 * done),
+    )
     return out
 
 
@@ -491,31 +806,37 @@ def scalars(run: Path) -> dict:
 
 
 def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
-                expect: dict, card_line: str) -> tuple:
+                expect: dict, card_line: str, checkpoint_freq: int = 10**12) -> tuple:
     """One training run through the CLI, with every launch counter at 0
     just before it and read just after; checks the counts against
-    ``expect`` (kernels not named there: 0) and the losses for finiteness."""
+    ``expect`` (kernels not named there: 0) and the losses for finiteness.
+    Every update launches K10 once, and K8 and K9 once per minibatch it
+    runs (``train/minibatch_updates``: KL early stop and skipped
+    all-invalid minibatches make that count the run's own)."""
     from burn_ppo_torch import cli
 
     for w in WRAPPERS.values():
         w.launches = 0
     t0 = time.time()
     rc = cli.main(["train", *args, "--total-steps", str(updates * steps_per_update),
-                   "--checkpoint-freq", str(10**12), "--seed", "0",
+                   "--checkpoint-freq", str(checkpoint_freq), "--seed", "0",
                    "--run-dir", str(run), "--quiet"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: w.launches for name, w in WRAPPERS.items()}
     if rc != 0:
         raise RuntimeError(f"train command exited {rc}")
-    want = {name: expect.get(name, 0) for name in WRAPPERS}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
     series = scalars(run)
-    for name in ("train/policy_loss", "train/value_loss", "train/total_loss", "train/entropy"):
+    for name in ("train/policy_loss", "train/value_loss", "train/total_loss", "train/entropy",
+                 "train/minibatch_updates"):
         vals = series.get(name, [])
         if len(vals) != updates or not all(v is not None and math.isfinite(v) for v in vals):
             raise AssertionError(f"{name}: expected {updates} finite values, got {vals}")
+    minibatches = int(sum(series["train/minibatch_updates"]))
+    want = {name: expect.get(name, 0) for name in WRAPPERS}
+    want.update(ppo_loss=minibatches, clip_adam=minibatches, episode_stats=updates)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want}")
     sps = series["perf/sps"]
     steady = sorted(sps[1:])
     return {
@@ -569,6 +890,49 @@ def selfplay_train(tmp: Path, card_line: str, network: str, updates: int) -> dic
     return out
 
 
+def selfplay_pool_train(tmp: Path, card_line: str) -> dict:
+    """Connect Four against the opponent pool, configs/connect_four.toml as
+    users run it (pool fraction 0.25, 8 opponents at most), a checkpoint
+    after every update. Update u runs against min(u - 1, 8) opponents (the
+    first, with an empty pool, is pure self-play), so updates 9 and 10 run
+    K = 8. Per pool update: K2 twice a step (learner, opponents), K7 once."""
+    n = POOL_UPDATES
+    pool_updates = n - 1
+    run = tmp / "c4_pool"
+    out, series = train_phase(
+        run,
+        ["--config", str(ROOT / "configs" / "connect_four.toml"), "--num-envs", str(E),
+         "--num-steps", str(T_C4), "--normalize-obs"],
+        n, E * T_C4,
+        {"connect_four_step_autoreset": n * T_C4,
+         "masked_gumbel_sample": n * T_C4 + pool_updates * T_C4,
+         "opponent_actor_forward": pool_updates * T_C4,
+         "gae_multiplayer_reverse_scan": n,
+         "obs_norm_apply": n * (T_C4 + 2), "obs_norm_update": n},
+        card_line, checkpoint_freq=E * T_C4,
+    )
+    stats = json.loads((run / "opponent_stats.json").read_text())["opponents"]
+    rotation_sizes = [min(u - 1, 8) for u in range(1, n + 1)]
+    # The stats file is written at each rotation's fold: after update 10 it
+    # lists the 9 checkpoints that were in the pool, so updates 9 and 10 ran K = 8.
+    if len(stats) != n - 1 or max(rotation_sizes) != 8:
+        raise AssertionError(f"the pool did not reach 8 opponents: {len(stats)} in the stats file")
+    for f in ("rating_games.jsonl", "rating_metadata.json", "checkpoints/best"):
+        if not (run / f).exists():
+            raise AssertionError(f"vs-pool run wrote no {f}")
+    share = series["train/learner_valid_fraction"]
+    want = (E - EP + EP / 2) / E
+    if len(share) != pool_updates or not all(abs(s - want) <= 0.02 for s in share):
+        raise AssertionError(f"learner valid share {share} not within 0.02 of {want}")
+    sps = series["perf/sps"]
+    out.update(rotation_sizes=rotation_sizes, opponents_in_pool=len(stats),
+               games_played=sum(x["games_played"] for x in stats),
+               learner_valid_share=share, learner_valid_share_expected=want,
+               current_elo=series["train/current_elo"], best_elo=series["train/best_elo"],
+               env_steps_per_s_at_k8=sps[8:], policy_loss=series["train/policy_loss"])
+    return out
+
+
 def learning_bar(tmp: Path) -> dict:
     """scripts/validate_cartpole.py's run, through the port's CLI."""
     from burn_ppo_torch import cli
@@ -617,13 +981,18 @@ def main() -> int:
         "masked_gumbel_sample": {
             "A2": sample_a2, "A7": sample_a7,
             "max_abs_err": max(sample_a2["max_abs_err"], sample_a7["max_abs_err"]),
-            "ms": sample_a7["ms"], "plain_ms": sample_a7["plain_ms"],
+            # A = 7's: Connect Four's, the pool path's
+            **{k: sample_a7[k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
         "gae_reverse_scan": check_gae(dev, g),
         "connect_four_step_autoreset": check_connect_four(dev, g),
         "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g),
         "obs_norm_apply": check_obs_norm_apply(dev, g),
         "obs_norm_update": check_obs_norm_update(dev, g),
+        "opponent_actor_forward": check_opponent_actor(dev, g),
+        "ppo_loss": check_ppo_loss(dev, g),
+        "clip_adam": check_clip_adam(dev, g),
+        "episode_stats": check_episode_stats(dev, g),
     }
     emit("kernels_vs_plain", card=card_line, **checks)
 
@@ -632,19 +1001,20 @@ def main() -> int:
             "bench_train": bench_train(Path(d), card_line),
             "selfplay_train": selfplay_train(Path(d), card_line, "mlp", BENCH_UPDATES),
             "selfplay_train_cnn": selfplay_train(Path(d), card_line, "cnn", CNN_UPDATES),
+            "selfplay_pool": selfplay_pool_train(Path(d), card_line),
         }
         for phase, out in runs.items():
             emit(phase, **out)
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
 
-    # Launches: the sum over the three train phases, each counted from 0.
+    # Launches: the sum over the four train phases, each counted from 0.
     table = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
             "launches": sum(r["launches"][name] for r in runs.values()),
-            "max_abs_err": checks[name]["max_abs_err"], "ms": checks[name]["ms"],
-            "plain_ms": checks[name]["plain_ms"],
+            **{k: checks[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
         }
         for name in WRAPPERS
     ]

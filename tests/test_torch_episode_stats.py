@@ -11,7 +11,11 @@ torch.set_num_threads(1)
 
 from burn_ppo_tpu.ppo.episode_stats import summarize_episode_logs as jax_summarize  # noqa: E402
 from burn_ppo_torch.envs.base import EpisodeLog  # noqa: E402
-from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker, summarize_episode_logs  # noqa: E402
+from burn_ppo_torch.ppo.episode_stats import (  # noqa: E402
+    WindowedEpisodeTracker,
+    summarize_episode_logs,
+    summarize_episode_logs_plain,
+)
 
 
 class _JaxLog:
@@ -64,3 +68,34 @@ def test_sentinel_counts_but_scores_nothing():
     tr.ingest({k: v.numpy() for k, v in s.items()})
     np.testing.assert_allclose(tr.avg_points(), [0.5, 1 / 6])
     assert tr.draw_rate == pytest.approx(1 / 3)
+
+
+@pytest.mark.parametrize("L", [1, 5, 8])
+def test_learner_block_summary_matches_jax_on_the_sliced_logs(L):
+    """The vs-pool path summarizes the learner block [:, :L] only
+    (burn_ppo_tpu/train.py:416-421)."""
+    raw = _logs(2, seed=10 + L)
+    j = jax_summarize(_JaxLog(**{k: jnp.asarray(v[:, :L]) for k, v in raw.items()}), 2)
+    t = summarize_episode_logs(EpisodeLog(**{
+        k: torch.from_numpy(v.astype(np.float32) if k == "completed" else v)
+        for k, v in raw.items()}), 2, num_envs=L)
+    for k in j:
+        np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=1e-6, atol=1e-5, err_msg=k)
+
+
+def test_four_player_ties_use_the_1224_rule_like_jax():
+    """Placements with shared ranks (1, 2, 2, 4), (1, 1, 3, 4), all tied
+    and the sentinel, plus rows that did not complete."""
+    outcome = np.array([[[1, 2, 2, 4], [1, 1, 3, 4], [1, 1, 1, 1], [0, 0, 0, 0],
+                         [4, 3, 2, 1], [2, 2, 1, 4]]], np.int32)
+    raw = dict(completed=np.array([[1, 1, 1, 1, 0, 1]], bool),
+               total_rewards=np.arange(24, dtype=np.float32).reshape(1, 6, 4) - 10.0,
+               length=np.array([[5, 6, 7, 8, 9, 10]], np.int32), outcome=outcome,
+               active_players=np.full((1, 6), 4, np.int32))
+    j = jax_summarize(_JaxLog(**{k: jnp.asarray(v) for k, v in raw.items()}), 4)
+    t = summarize_episode_logs_plain(EpisodeLog(**{
+        k: torch.from_numpy(v.astype(np.float32) if k == "completed" else v)
+        for k, v in raw.items()}), 4)
+    for k in j:
+        np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=1e-6, atol=1e-6, err_msg=k)
+    assert float(t["count"]) == 5 and float(t["draws"]) == 1

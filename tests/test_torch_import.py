@@ -1,6 +1,7 @@
 """The port's package boundary: no JAX, no silent CPU, CPU tensors take
 the plain path of every kernel wrapper."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -19,10 +20,15 @@ from burn_ppo_torch.envs.cartpole import CartPole, cartpole_step_autoreset  # no
 from burn_ppo_torch.envs.connect_four import ConnectFour, connect_four_step_autoreset  # noqa: E402
 from burn_ppo_torch.ops.categorical import masked_sample  # noqa: E402
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer  # noqa: E402
+from burn_ppo_torch.envs.base import EpisodeLog  # noqa: E402
+from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs  # noqa: E402
 from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, obs_norm_update  # noqa: E402
+from burn_ppo_torch.ppo.pool_rollout import OpponentStack, opponent_actor_forward  # noqa: E402
+from burn_ppo_torch.ppo.update import PPOUpdateConfig, clip_adam, ppo_loss  # noqa: E402
 
 WRAPPERS = (cartpole_step_autoreset, connect_four_step_autoreset, masked_sample, compute_gae,
-            compute_gae_multiplayer, obs_norm_apply, obs_norm_update)
+            compute_gae_multiplayer, obs_norm_apply, obs_norm_update, opponent_actor_forward,
+            ppo_loss, clip_adam, summarize_episode_logs)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -32,7 +38,7 @@ def test_every_module_imports_with_jax_blocked():
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "flax", "optax"):
+        for name in ("jax", "jaxlib", "flax", "optax", "burn_ppo_tpu"):
             sys.modules[name] = None
         import burn_ppo_torch
         names = ["burn_ppo_torch"]
@@ -42,7 +48,7 @@ def test_every_module_imports_with_jax_blocked():
         for n in names:
             importlib.import_module(n)
         leaked = sorted(k for k in sys.modules
-                        if k.split(".")[0] in ("jax", "flax", "optax")
+                        if k.split(".")[0] in ("jax", "flax", "optax", "burn_ppo_tpu")
                         and sys.modules[k] is not None)
         assert not leaked, leaked
         print(len(names))
@@ -52,7 +58,27 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20  # every module was walked
+    assert int(res.stdout.strip()) >= 30  # every module was walked
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_source_of_the_port_or_chip_smoke_imports_jax_or_the_jax_package():
+    """Every import statement, also those inside functions, that the
+    subprocess above would not reach."""
+    files = sorted((REPO / "burn_ppo_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 30
+    for path in files:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "optax", "burn_ppo_tpu"}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
 def test_resolve_device_refuses_missing_cuda(monkeypatch):
@@ -95,6 +121,24 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert adv.shape == ret.shape == (4, E)
     norm = obs_norm_update(ObsNormState.create(5, cpu), torch.ones(4, E, 5))
     assert obs_norm_apply(norm, torch.ones(E, 5)).shape == (E, 5)
+    stack = OpponentStack(weights=[torch.ones(3, 5, 4), torch.ones(3, 4, 2)],
+                          biases=[torch.zeros(3, 4), torch.zeros(3, 2)], activation="tanh")
+    assert opponent_actor_forward(torch.ones(E, 5), torch.zeros(E, dtype=torch.int32),
+                                  stack).shape == (E, 2)
+    mb = {"actions": torch.zeros(E, dtype=torch.int32), "old_log_probs": torch.zeros(E),
+          "advantages": torch.arange(E, dtype=torch.float32), "returns": torch.zeros(E),
+          "old_values": torch.zeros(E), "valid": torch.ones(E)}
+    loss, metrics = ppo_loss(torch.zeros(E, 2), torch.zeros(E), mb, 0.01, PPOUpdateConfig())
+    assert loss.shape == () and metrics.shape == (14,)
+    params = torch.ones(6)
+    clip_adam(params, torch.ones(6), torch.zeros(6), torch.zeros(6), lr=0.1, max_grad_norm=0.5,
+              eps=1e-5, bc1=0.1, bc2=0.001)
+    assert bool(torch.all(params < 1.0))
+    logs = EpisodeLog(completed=torch.ones(2, E), total_rewards=torch.zeros(2, E, 2),
+                      length=torch.ones(2, E, dtype=torch.int32),
+                      outcome=torch.ones(2, E, 2, dtype=torch.int32),
+                      active_players=torch.full((2, E), 2, dtype=torch.int32))
+    assert float(summarize_episode_logs(logs, 2, num_envs=3)["count"]) == 6
     after = [w.launches for w in WRAPPERS]
     assert before == after == [0] * len(WRAPPERS)
 
@@ -111,7 +155,10 @@ def test_kernel_library_is_content_addressed_under_the_repo_cache():
     assert path.parent == REPO / ".cache" / "burn_ppo_torch" / "kernels"
     assert {p.name for p in kernels.sources()} >= {
         "cartpole_step.cu", "masked_gumbel_sample.cu", "gae.cu", "connect_four_step.cu",
-        "gae_multiplayer.cu", "obs_norm.cu",
+        "gae_multiplayer.cu", "obs_norm.cu", "opponent_actor.cu", "ppo_loss.cu", "clip_adam.cu",
+        "episode_stats.cu",
     }
+    assert {name for name in kernels.SIGNATURES} >= {
+        "opp_slot_sort", "opp_grouped_dense", "ppo_loss_forward", "clip_adam", "episode_stats"}
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
     assert "--use_fast_math" not in kernels.NVCC_FLAGS

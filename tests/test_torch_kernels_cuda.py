@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K10 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -19,12 +19,27 @@ from burn_ppo_torch.ops.gae import (
     compute_gae_multiplayer_plain,
     compute_gae_plain,
 )
+from burn_ppo_torch.envs.base import EpisodeLog
+from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs, summarize_episode_logs_plain
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
     obs_norm_apply,
     obs_norm_apply_plain,
     obs_norm_update,
     obs_norm_update_plain,
+)
+from burn_ppo_torch.ppo.pool_rollout import (
+    OpponentStack,
+    opponent_actor_forward,
+    opponent_actor_forward_plain,
+)
+from burn_ppo_torch.ppo.update import (
+    PPOUpdateConfig,
+    clip_adam,
+    clip_adam_plain,
+    ppo_loss,
+    ppo_loss_forward,
+    ppo_loss_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -256,3 +271,125 @@ def test_obs_norm_update_kernel_matches_plain(dev, N, D):
         assert bool(torch.all((k.m2 - p.m2).abs() <= 1e-5 * p.m2.abs()))
         assert torch.equal(k.count, p.count)
         state = p
+
+
+def make_opponents(g, dev, K, act, D=86, H=512, A=7, depth=2):
+    """K random actor towers (orthogonal-like scale) and obs normalisers:
+    slot 0 at count 0 (identity), slot 1 at count 1, the rest merged."""
+    sizes = [D] + [H] * depth + [A]
+    weights = [torch.randn(K, i, o, generator=g, device=dev) / i ** 0.5
+               for i, o in zip(sizes, sizes[1:])]
+    biases = [torch.randn(K, o, generator=g, device=dev) * 0.1 for o in sizes[1:]]
+    count = torch.full((K,), 5000.0, device=dev)
+    count[0] = 0.0
+    if K > 1:
+        count[1] = 1.0
+    norm = ObsNormState(mean=torch.rand(K, D, generator=g, device=dev),
+                        m2=torch.rand(K, D, generator=g, device=dev) * 1000.0, count=count)
+    return OpponentStack(weights=weights, biases=biases, activation=act, norm=norm)
+
+
+@pytest.mark.parametrize("K,act,Ep", [(8, "relu", 1024), (8, "tanh", 1024), (3, "tanh", 37),
+                                      (3, "relu", 1500)])
+def test_opponent_actor_kernel_matches_plain(dev, K, act, Ep):
+    g = torch.Generator(device=dev).manual_seed(K * Ep)
+    stack = make_opponents(g, dev, K, act)
+    obs = (torch.rand(Ep, 86, generator=g, device=dev) < 0.3).float()
+    slot = torch.randint(0, K, (Ep,), generator=g, device=dev, dtype=torch.int32)
+    slot[:5] = torch.tensor([K, -1, K + 3, 0, K - 1], device=dev, dtype=torch.int32)
+    before = opponent_actor_forward.launches
+    k = opponent_actor_forward(obs, slot, stack)
+    torch.cuda.synchronize()
+    assert opponent_actor_forward.launches == before + 1
+    p = opponent_actor_forward_plain(obs, slot, stack)
+    assert torch.equal(k[:3], torch.zeros_like(k[:3]))  # out-of-range slots: zeros
+    torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-4)
+
+
+def loss_batch(g, dev, M, A):
+    logits = torch.randn(M, A, generator=g, device=dev) * 2
+    n_masked = torch.randint(0, A, (M, 1), generator=g, device=dev)
+    mask = (torch.rand(M, A, generator=g, device=dev).argsort(1).argsort(1) >= n_masked).float()
+    logp = torch.log_softmax(logits + torch.where(mask > 0, 0.0, -1e9), -1)
+    actions = torch.multinomial(mask, 1, generator=g)[:, 0].to(torch.int32)
+    old_lp = logp.gather(1, actions.long()[:, None])[:, 0] + torch.randn(M, generator=g,
+                                                                        device=dev) * 0.2
+    values = torch.randn(M, generator=g, device=dev)
+    mb = {
+        "actions": actions, "old_log_probs": old_lp,
+        "advantages": torch.randn(M, generator=g, device=dev) * 2 + 0.3,
+        "returns": torch.randn(M, generator=g, device=dev),
+        "old_values": values + torch.randn(M, generator=g, device=dev) * 0.3,
+        "valid": (torch.rand(M, generator=g, device=dev) < 0.8).float(),
+        "action_masks": mask,
+    }
+    return logits, values, mb
+
+
+@pytest.mark.parametrize("M,A,clip_value", [(65536, 7, False), (65536, 7, True),
+                                            (131072, 2, False), (1000, 7, True)])
+def test_ppo_loss_kernel_matches_plain(dev, M, A, clip_value):
+    g = torch.Generator(device=dev).manual_seed(M + A)
+    logits, values, mb = loss_batch(g, dev, M, A)
+    cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
+    before = ppo_loss.launches
+    k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+    torch.cuda.synchronize()
+    assert ppo_loss.launches == before + 1
+    p = ppo_loss_plain(logits, values, mb, 0.05, cfg)
+    torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-6)
+    for a, b in zip(k[2:], p[2:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n", [4739, 311304])
+@pytest.mark.parametrize("scale", [1e-3, 10.0])
+def test_clip_adam_kernel_matches_plain(dev, n, scale):
+    """Three steps below and above the max norm."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    p_k = torch.randn(n, generator=g, device=dev)
+    mu_k, nu_k = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    p_p, mu_p, nu_p = p_k.clone(), mu_k.clone(), nu_k.clone()
+    for count in (1, 2, 3):
+        grads = torch.randn(n, generator=g, device=dev) * scale / n ** 0.5
+        kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
+                  bc2=1 - 0.999 ** count)
+        before = clip_adam.launches
+        clip_adam(p_k, grads, mu_k, nu_k, **kw)
+        torch.cuda.synchronize()
+        assert clip_adam.launches == before + 1
+        clip_adam_plain(p_p, grads, mu_p, nu_p, **kw)
+    for a, b in ((p_k, p_p), (mu_k, mu_p), (nu_k, nu_p)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()))
+
+
+def episode_logs(g, dev, T, E, P, rate=0.05):
+    kinds = torch.randint(0, 4, (T, E), generator=g, device=dev)
+    places = torch.randint(1, P + 1, (T, E, P), generator=g, device=dev, dtype=torch.int32)
+    places[kinds == 1] = 1  # all tied first: a draw
+    places[kinds == 2] = 0  # the no-outcome sentinel
+    return EpisodeLog(
+        completed=(torch.rand(T, E, generator=g, device=dev) < rate).float(),
+        total_rewards=torch.randn(T, E, P, generator=g, device=dev),
+        length=torch.randint(1, 43, (T, E), generator=g, device=dev, dtype=torch.int32),
+        outcome=places, active_players=torch.full((T, E), P, dtype=torch.int32, device=dev),
+    )
+
+
+@pytest.mark.parametrize("T,E,P,L", [(64, 4096, 2, 3072), (64, 4096, 2, None),
+                                     (128, 4096, 1, None), (5, 33, 4, 20), (3, 7, 2, 1)])
+def test_episode_stats_kernel_matches_plain(dev, T, E, P, L):
+    g = torch.Generator(device=dev).manual_seed(T * P)
+    logs = episode_logs(g, dev, T, E, P)
+    before = summarize_episode_logs.launches
+    k = summarize_episode_logs(logs, P, num_envs=L)
+    torch.cuda.synchronize()
+    assert summarize_episode_logs.launches == before + 1
+    cut = EpisodeLog(**{f: getattr(logs, f)[:, :L] for f in logs.__dataclass_fields__})
+    p = summarize_episode_logs_plain(logs if L is None else cut, P)
+    assert set(k) == set(p)
+    for key in ("count", "len_sum", "draws", "ret0_max", "ret0_min"):
+        assert torch.equal(k[key], p[key]), key
+    for key in ("ret_sum", "pts_sum"):
+        torch.testing.assert_close(k[key], p[key], rtol=1e-6, atol=1e-3)

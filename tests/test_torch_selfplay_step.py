@@ -252,21 +252,25 @@ def test_train_command_trains_selfplay_on_cpu(network, tmp_path):
 
 
 def test_plain_connect_four_config_is_refused_with_the_flag_to_pass(tmp_path, capsys):
-    rc = cli.main(["train", "--config", "configs/connect_four.toml",
+    """connect_four.toml runs against the opponent pool (0.25); with the CNN
+    that is not ported yet, and the refusal names the flag that runs the
+    CNN in pure self-play."""
+    rc = cli.main(["train", "--config", "configs/connect_four.toml", "--network-type", "cnn",
                    "--run-dir", str(tmp_path / "r")], device="cpu")
     assert rc == 2
     err = capsys.readouterr().err
-    assert "ROADMAP A12" in err and "--opponent-pool-fraction 0" in err
+    assert "ROADMAP A12b" in err and "--opponent-pool-fraction 0" in err
     assert not (tmp_path / "r").exists()
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"opponent_pool_fraction": 0.25}, "A12"),
+    ({"opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12"),
     ({"env": "liars_dice"}, "A13"),
     ({"env": "skull"}, "A13"),
     ({"network_type": "ctde"}, "A14"),
     ({"normalize_values": True}, "A14"),
     ({"adaptive_entropy": 1.0}, "A11"),
+    ({"opponent_pool_fraction": 0.25, "pool_rotation_interval": 2}, "A12c"),
 ])
 def test_unsupported_config_names_the_roadmap_item(overrides, item):
     base = dict(env="connect_four", opponent_pool_fraction=0.0)
@@ -274,8 +278,10 @@ def test_unsupported_config_names_the_roadmap_item(overrides, item):
     assert reason is not None and f"ROADMAP {item}" in reason
     assert unsupported_config(Config(**base)) is None
     assert unsupported_config(Config(**base, network_type="cnn")) is None
-    # CartPole has one seat: the pool fraction does not apply to it.
+    # CartPole has one seat: the pool fraction does not apply to it; the
+    # MLP against the pool is the port's vs-pool path.
     assert unsupported_config(Config(env="cartpole", opponent_pool_fraction=0.25)) is None
+    assert unsupported_config(Config(env="connect_four", opponent_pool_fraction=0.25)) is None
 
 
 def test_trainer_rejects_cnn_without_an_obs_shape(tmp_path):

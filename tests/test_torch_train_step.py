@@ -210,7 +210,7 @@ def test_train_command_end_to_end_on_cpu(tmp_path):
     assert float(norm.count) == 2 * 8 * 16
 
 
-@pytest.mark.parametrize("flags", [["--resume", "runs/x"], ["--env", "connect_four"],
+@pytest.mark.parametrize("flags", [["--resume", "runs/x"], ["--env", "liars_dice"],
                                    ["--network-type", "ctde"], ["--platform", "cpu"],
                                    ["--profile-dir", "p"], ["--checkify"],
                                    ["--compute-dtype", "bfloat16"]])
