@@ -134,8 +134,6 @@ def network_from_metadata(meta: Dict[str, Any], device: str | torch.device = "cp
     """The network ``metadata.json`` describes (checkpoint.py:317-336), with
     placeholder weights."""
     network_type = meta.get("network_type", "mlp")
-    if network_type not in ("mlp", "cnn"):
-        raise NotImplementedError(f"network_type {network_type!r}: ROADMAP A14")
     return ActorCriticNetwork(
         meta["obs_dim"],
         meta["action_count"],
@@ -144,6 +142,9 @@ def network_from_metadata(meta: Dict[str, Any], device: str | torch.device = "cp
         num_hidden=meta["num_hidden"],
         activation=meta["activation"],
         split_networks=meta.get("split_networks", False),
+        privileged_obs_dim=meta.get("privileged_obs_dim"),
+        critic_hidden_size=meta.get("critic_hidden_size"),
+        critic_num_hidden=meta.get("critic_num_hidden"),
         obs_shape=tuple(meta["obs_shape"]) if meta.get("obs_shape") else None,
         num_conv_layers=meta.get("num_conv_layers", 2),
         conv_channels=tuple(meta.get("conv_channels", (8, 8))),

@@ -2,9 +2,11 @@
 
 The JAX parameters are a pytree of ``{"kernel", "bias"}`` layers:
 ``{"layers": [...], "critic_layers": [...], "policy_head": {...},
-"value_head": {...}}`` for the MLP, and ``"conv_layers"``, ``"fc_layers"``,
+"value_head": {...}}`` for the MLP, ``"conv_layers"``, ``"fc_layers"``,
 ``"critic_conv_layers"``, ``"critic_fc_layers"`` plus the heads for the
-CNN. Dense kernels are ``[in, out]``, conv kernels HWIO. The port's
+CNN, and ``"actor_layers"``, ``"critic_layers"`` plus the heads for CTDE
+(sorted-key leaf order: actor layers, critic layers, policy head, value
+head, each bias before its kernel). Dense kernels are ``[in, out]``, conv kernels HWIO. The port's
 ``ActorCriticNetwork`` state dict has ``nn.Linear`` weights ``[out, in]``
 and ``nn.Conv2d`` weights OIHW under ``layers.0.weight`` and so on. Both
 directions work on numpy arrays, so neither side needs the other's
@@ -19,8 +21,8 @@ import numpy as np
 import torch
 
 _HEADS = ("policy_head", "value_head")
-_STACKS = ("layers", "critic_layers", "conv_layers", "fc_layers", "critic_conv_layers",
-           "critic_fc_layers")
+_STACKS = ("layers", "actor_layers", "critic_layers", "conv_layers", "fc_layers",
+           "critic_conv_layers", "critic_fc_layers")
 
 
 def _kernel_to_torch(k: np.ndarray) -> np.ndarray:
@@ -44,7 +46,7 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     unknown = set(tree) - set(_STACKS) - set(_HEADS)
     if unknown:
-        raise ValueError(f"not an MLP/CNN param tree: unexpected keys {sorted(unknown)}")
+        raise ValueError(f"not an MLP/CNN/CTDE param tree: unexpected keys {sorted(unknown)}")
     for stack in _STACKS:
         for i, layer in enumerate(tree.get(stack, ())):
             put(f"{stack}.{i}", layer)
@@ -67,7 +69,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         elif parts[0] in _HEADS:
             tree.setdefault(parts[0], {})[leaf] = value
         else:
-            raise ValueError(f"not an MLP/CNN parameter: {name}")
+            raise ValueError(f"not an MLP/CNN/CTDE parameter: {name}")
     for stack, layers in stacks.items():
         tree[stack] = [layers[i] for i in sorted(layers)]
     return tree

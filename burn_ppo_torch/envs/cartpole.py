@@ -123,6 +123,7 @@ class CartPole(Environment):
         acc: EpisodeAccumulator,
         action: torch.Tensor,
         reset_values: torch.Tensor,
+        step_values=None,
     ) -> StepOutput:
         return cartpole_step_autoreset(self, state, acc, action, reset_values)
 

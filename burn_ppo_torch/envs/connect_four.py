@@ -130,7 +130,7 @@ class ConnectFour(Environment):
                             torch.where(state.winner == 1, 1, torch.where(full, 2, 3)))
         return placements[which]
 
-    def step_autoreset(self, state, acc, action, reset_values) -> StepOutput:
+    def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
         return connect_four_step_autoreset(self, state, acc, action, reset_values)
 
 

@@ -14,9 +14,9 @@ exception, because a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it.
 
 The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
-``envs/connect_four.py``, ``ops/categorical.py``, ``ops/gae.py``,
-``ppo/normalization.py``, ``ppo/pool_rollout.py``, ``ppo/update.py``,
-``ppo/episode_stats.py``) and use the helpers below.
+``envs/connect_four.py``, ``envs/skull.py``, ``ops/categorical.py``,
+``ops/gae.py``, ``ppo/normalization.py``, ``ppo/pool_rollout.py``,
+``ppo/update.py``, ``ppo/episode_stats.py``) and use the helpers below.
 """
 
 from __future__ import annotations
@@ -81,6 +81,15 @@ SIGNATURES = {
     "clip_adam": [_VP] * 5 + [_L, _I] + [_F] * 9 + [_VP],
     # completed, totals, length, outcome, T, E, L, P, G, sums, extrema, out, stream
     "episode_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 4,
+    # host arrays of the 29 input and 36 output pointers (the SkullState
+    # fields in order, then the rest, csrc/skull_step.cu), num_envs,
+    # num_players, stream
+    "skull_step_autoreset": [_VP, _VP, _I, _I, _VP],
+    # returns, rewards, acting, dones, new_returns, samples, E, P, gamma, stream
+    "return_norm_roll": [_VP] * 6 + [_I, _I, _F, _VP],
+    # samples, rewards, valid (nullable), mean, m2, count, scratch,
+    # normalized, stats (f64 [3]), N, G, clip, stream
+    "return_norm_finalize": [_VP] * 9 + [_L, _I, _F, _VP],
 }
 
 _LOCK = threading.Lock()

@@ -1,11 +1,12 @@
-"""Actor-critic network (burn_ppo_tpu/models/network.py), MLP and CNN.
+"""Actor-critic network (burn_ppo_tpu/models/network.py): MLP, CNN and CTDE.
 
 Shared backbone or split actor/critic towers, with the reference's
 orthogonal gains. The CNN runs a stride-1 SAME conv stack over the
 spatial slice of the obs (always relu, relu gain), flattens it in the
 reference's NHWC order, appends the remaining obs features and runs an FC
-stack on the configured activation. The CTDE critic arrives with Skull
-(ROADMAP A14).
+stack on the configured activation. CTDE (network.py:165-182, 230-256) is
+an actor MLP on the obs and a critic MLP of its own width and depth on
+``concat(privileged_obs, obs)``, privileged obs first.
 """
 
 from __future__ import annotations
@@ -26,15 +27,14 @@ from burn_ppo_torch.ops.initializers import POLICY_HEAD_GAIN, VALUE_HEAD_GAIN, h
 
 
 class ActorCriticNetwork(nn.Module):
-    """obs [B, obs_dim] -> (logits [B, A], values [B]).
+    """obs [B, obs_dim] (and privileged obs [B, Dp] for CTDE) -> (logits
+    [B, A], values [B]).
 
     The description attributes (``network_type``, ``hidden_size``, ...)
     mirror the reference's static network object, so checkpoint metadata
-    is written from the same fields."""
-
-    privileged_obs_dim = None
-    critic_hidden_size = None
-    critic_num_hidden = None
+    is written from the same fields; like the reference, every network
+    records the env's ``privileged_obs_dim`` and the configured critic
+    sizes, which only CTDE reads."""
 
     def __init__(
         self,
@@ -46,6 +46,9 @@ class ActorCriticNetwork(nn.Module):
         num_hidden: int = 2,
         activation: str = "tanh",
         split_networks: bool = False,
+        privileged_obs_dim: Optional[int] = None,
+        critic_hidden_size: Optional[int] = None,
+        critic_num_hidden: Optional[int] = None,
         obs_shape: Optional[Tuple[int, int, int]] = None,
         num_conv_layers: int = 2,
         conv_channels: Sequence[int] = (8, 8),
@@ -55,7 +58,7 @@ class ActorCriticNetwork(nn.Module):
         generator: torch.Generator,
     ):
         super().__init__()
-        if network_type not in ("mlp", "cnn"):
+        if network_type not in ("mlp", "cnn", "ctde"):
             raise ValueError(f"Unknown network_type '{network_type}'")
         self.network_type = network_type
         self.obs_dim = obs_dim
@@ -64,6 +67,9 @@ class ActorCriticNetwork(nn.Module):
         self.num_hidden = num_hidden
         self.activation = activation
         self.split_networks = split_networks
+        self.privileged_obs_dim = privileged_obs_dim
+        self.critic_hidden_size = critic_hidden_size
+        self.critic_num_hidden = critic_num_hidden
         self.obs_shape = tuple(obs_shape) if obs_shape else None
         self.num_conv_layers = num_conv_layers
         self.conv_channels = tuple(conv_channels)
@@ -79,6 +85,16 @@ class ActorCriticNetwork(nn.Module):
                 mlp_stack_init(obs_dim, hidden_size, num_hidden, gain, g) if split_networks else None
             )
             head_in = hidden_size
+        elif network_type == "ctde":
+            if privileged_obs_dim is None:
+                raise ValueError("CTDE requires privileged_obs_dim")
+            ch = critic_hidden_size or hidden_size
+            cn = critic_num_hidden or num_hidden
+            self.actor_layers = mlp_stack_init(obs_dim, hidden_size, num_hidden, gain, g)
+            self.critic_layers = mlp_stack_init(privileged_obs_dim + obs_dim, ch, cn, gain, g)
+            self.policy_head = dense_init(hidden_size, action_count, POLICY_HEAD_GAIN, g)
+            self.value_head = dense_init(ch, 1, VALUE_HEAD_GAIN, g)
+            return
         else:
             if self.obs_shape is None:
                 raise ValueError("CNN requires obs_shape (H, W, C)")
@@ -124,7 +140,25 @@ class ActorCriticNetwork(nn.Module):
             x = torch.cat([x, obs[:, n:]], dim=1)
         return mlp_stack_apply(fcs, x, self._act)
 
-    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    @property
+    def is_ctde(self) -> bool:
+        return self.network_type == "ctde"
+
+    def forward_actor(self, obs: torch.Tensor) -> torch.Tensor:
+        """Policy logits [B, A] from the obs alone."""
+        if self.is_ctde:
+            return self.policy_head(mlp_stack_apply(self.actor_layers, obs, self._act))
+        return self.forward(obs)[0]
+
+    def forward(self, obs: torch.Tensor,
+                privileged_obs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits, values); CTDE needs ``privileged_obs``, the others ignore it."""
+        if self.is_ctde:
+            if privileged_obs is None:
+                raise ValueError("the CTDE critic needs privileged_obs")
+            cx = mlp_stack_apply(self.critic_layers, torch.cat([privileged_obs, obs], dim=1),
+                                 self._act)
+            return self.forward_actor(obs), self.value_head(cx)[:, 0]
         if self.network_type == "mlp":
             ax = mlp_stack_apply(self.layers, obs, self._act)
             cx = (mlp_stack_apply(self.critic_layers, obs, self._act)
@@ -144,6 +178,8 @@ def make_network(
     num_hidden: int = 2,
     activation: str = "tanh",
     split_networks: bool = False,
+    critic_hidden_size: Optional[int] = None,
+    critic_num_hidden: Optional[int] = None,
     num_conv_layers: int = 2,
     conv_channels: Sequence[int] = (8, 8),
     kernel_size: int = 3,
@@ -153,8 +189,6 @@ def make_network(
 ) -> ActorCriticNetwork:
     """Build the network for an env; ``generator`` draws the orthogonal
     init on its device."""
-    if network_type == "ctde":
-        raise NotImplementedError("CTDE network is not ported yet (ROADMAP A14)")
     return ActorCriticNetwork(
         env_spec.obs_dim,
         env_spec.num_actions,
@@ -163,6 +197,9 @@ def make_network(
         num_hidden=num_hidden,
         activation=activation,
         split_networks=split_networks,
+        privileged_obs_dim=env_spec.privileged_obs_dim,
+        critic_hidden_size=critic_hidden_size,
+        critic_num_hidden=critic_num_hidden,
         obs_shape=env_spec.obs_shape,
         num_conv_layers=num_conv_layers,
         conv_channels=conv_channels,

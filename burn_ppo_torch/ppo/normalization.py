@@ -12,10 +12,13 @@
   on the acting player's slot;
   ``return_norm_finalize`` is one inclusive prefix pass over the whole
   [T, E] rollout in the reference's visitation order (step-major, env
-  index), in shifted coordinates.
+  index), in shifted coordinates. Both run their plain PyTorch versions
+  for CPU tensors and launch the hand-written kernel K12
+  (``csrc/return_norm.cu``, ROADMAP B5) for CUDA tensors, or raise.
 
-PopArt arrives with the CTDE path (ROADMAP A14): no ported env uses it.
-Stats are device tensors, so nothing here waits for the device.
+PopArt (``normalize_values``) is not ported (ROADMAP A14): no ported
+config or checkpoint uses it. Stats are device tensors, so nothing here
+waits for the device.
 """
 
 from __future__ import annotations
@@ -156,15 +159,15 @@ class ReturnNormState:
         )
 
 
-def return_norm_roll(
+def return_norm_roll_plain(
     returns: torch.Tensor,  # [E, P] rolling discounted returns
     rewards: torch.Tensor,  # [E] acting player's raw rewards this step
     acting: torch.Tensor,  # [E] int player indices
     dones: torch.Tensor,  # [E] 1.0 / True where the episode ended
     gamma: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-step half on the acting player's slot (normalization.py:105-133):
-    update its rolling return, capture the post-update sample, reset the
+    """Plain PyTorch K12 roll (normalization.py:105-133): update the acting
+    player's rolling return, capture the post-update sample, reset the
     slot on done. Returns (new_returns [E, P], samples [E])."""
     slot = acting.long()[:, None]
     updated = returns.scatter(1, slot, torch.gather(returns, 1, slot) * gamma + rewards[:, None])
@@ -173,23 +176,54 @@ def return_norm_roll(
     return torch.where(dones[:, None] != 0, reset, updated), samples
 
 
-def return_norm_finalize(
+def return_norm_roll(
+    returns: torch.Tensor,
+    rewards: torch.Tensor,
+    acting: torch.Tensor,
+    dones: torch.Tensor,
+    gamma: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-step half on the acting player's slot. CPU tensors take the
+    plain version; CUDA tensors launch K12's roll (one thread per env),
+    or raise."""
+    if kernels.on_cpu(returns, rewards, acting, dones):
+        return return_norm_roll_plain(returns, rewards, acting, dones, gamma)
+    E, P = returns.shape
+    kernels.expect(returns, "returns", torch.float32, (E, P))
+    kernels.expect(rewards, "rewards", torch.float32, (E,))
+    kernels.expect(acting, "acting", torch.int32, (E,))
+    kernels.expect(dones, "dones", torch.float32, (E,))
+    new_returns, samples = torch.empty_like(returns), torch.empty_like(rewards)
+    p = kernels.ptr
+    err = kernels.library().return_norm_roll(
+        p(returns), p(rewards), p(acting), p(dones), p(new_returns), p(samples), E, P,
+        float(gamma), kernels.stream(returns.device))
+    kernels.check(err, "return_norm_roll")
+    return_norm_roll.launches += 1
+    return new_returns, samples
+
+
+return_norm_roll.launches = 0
+
+
+def return_norm_finalize_f64_plain(
     state: ReturnNormState,
-    samples: torch.Tensor,  # [..., E] post-update rolling-return samples
-    rewards: torch.Tensor,  # [..., E] raw rewards
+    samples: torch.Tensor,
+    rewards: torch.Tensor,
     clip: float = 10.0,
-    valid: Optional[torch.Tensor] = None,  # [..., E] learner-turn stats mask
-) -> Tuple[ReturnNormState, torch.Tensor]:
-    """Prefix-Welford stats + normalization for a whole rollout.
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K12 finalize: (the new mean, m2 and count in f64 [3],
+    the normalized rewards like ``rewards``).
 
     Every position is normalized with the running stats INCLUDING its own
     sample, in row-major [T, E] order — the reference's global per-env
     sequential update — computed from inclusive prefix sums in
-    coordinates shifted by the batch mean. ``state.returns`` passes
-    through (``return_norm_roll`` advanced it). With ``valid`` (the vs-pool
+    coordinates shifted by the batch mean. With ``valid`` (the vs-pool
     rollout's learner turns) only those samples fold into the stats, and
     every reward is normalized with the prefix stats at its position
-    (normalization.py:166-181).
+    (normalization.py:162-209); a batch with no valid sample leaves the
+    stats exactly as they were.
 
     The closed form subtracts two prefix sums (``q_e - count_e * mean^2``)
     that nearly cancel while the count is small, so the prefix pass runs in
@@ -202,6 +236,7 @@ def return_norm_finalize(
     n = x.shape[0]
     count0, mean0, m20 = state.count.to(f64), state.mean.to(f64), state.m2.to(f64)
     if valid is None:
+        n_valid = torch.tensor(float(n), dtype=f64, device=x.device)
         count_e = count0 + torch.arange(1, n + 1, dtype=f64, device=x.device)
         shift = torch.sum(x) / float(n)
         u = x - shift
@@ -209,8 +244,9 @@ def return_norm_finalize(
         q_e = torch.cumsum(torch.square(u), dim=0)
     else:
         w = valid.reshape(-1).to(f64)
+        n_valid = torch.sum(w)
         count_e = count0 + torch.cumsum(w, dim=0)
-        shift = torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
+        shift = torch.sum(x * w) / torch.clamp(n_valid, min=1.0)
         u = x - shift
         s_e = torch.cumsum(w * u, dim=0)
         q_e = torch.cumsum(w * torch.square(u), dim=0)
@@ -223,11 +259,74 @@ def return_norm_finalize(
     std = torch.sqrt(m2_e / safe_c + 1e-8).to(r.dtype)
     normalized = torch.clamp(r / std, -clip, clip)
     normalized = torch.where(count_e < 2.0, r, normalized)
-    f32 = state.mean.dtype
-    new_state = replace(
-        state,
-        mean=(mean_u_e[-1] + shift).to(f32),
-        m2=m2_e[-1].to(f32),
-        count=count_e[-1].to(f32),
-    )
-    return new_state, normalized.reshape(shape)
+    stats = torch.where(n_valid > 0, torch.stack([mean_u_e[-1] + shift, m2_e[-1], count_e[-1]]),
+                        torch.stack([mean0, m20, count0]))
+    return stats, normalized.reshape(shape)
+
+
+# Threads of a K12 finalize block, and the most blocks it uses.
+_FINALIZE_THREADS = 256
+_FINALIZE_MAX_BLOCKS = 1024
+
+
+def return_norm_finalize_f64(
+    state: ReturnNormState,
+    samples: torch.Tensor,
+    rewards: torch.Tensor,
+    clip: float = 10.0,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the new stats in f64 [3], normalized rewards). CPU tensors take the
+    plain version; CUDA tensors launch K12's finalize (three passes: block
+    moments for the shift, block sums in shifted coordinates, then each
+    block's prefix from the earlier blocks' sums and a scan of its own
+    elements, all in f64), or raise."""
+    ts = [samples, rewards, state.mean, state.m2, state.count] + ([] if valid is None else [valid])
+    if kernels.on_cpu(*ts):
+        return return_norm_finalize_f64_plain(state, samples, rewards, clip, valid)
+    shape = rewards.shape
+    N = rewards.numel()
+    x, r = samples.reshape(-1), rewards.reshape(-1)
+    kernels.expect(x, "samples", torch.float32, (N,))
+    kernels.expect(r, "rewards", torch.float32, (N,))
+    w = None if valid is None else valid.reshape(-1)
+    if w is not None:
+        kernels.expect(w, "valid", torch.float32, (N,))
+    for t, name in ((state.mean, "mean"), (state.m2, "m2"), (state.count, "count")):
+        kernels.expect(t, name, torch.float32, ())
+    dev = x.device
+    T = _FINALIZE_THREADS
+    G = max(1, min(_FINALIZE_MAX_BLOCKS, -(-N // (8 * T))))
+    scratch = torch.empty(5 * G, dtype=torch.float64, device=dev)
+    stats = torch.empty(3, dtype=torch.float64, device=dev)
+    normalized = torch.empty_like(r)
+    p = kernels.ptr
+    err = kernels.library().return_norm_finalize(
+        p(x), p(r), p(w), p(state.mean), p(state.m2), p(state.count), p(scratch), p(normalized),
+        p(stats), N, G, float(clip), kernels.stream(dev))
+    kernels.check(err, "return_norm_finalize")
+    return_norm_finalize.launches += 1
+    return stats, normalized.reshape(shape)
+
+
+def _with_stats(state: ReturnNormState, stats: torch.Tensor) -> ReturnNormState:
+    s32 = stats.to(state.mean.dtype)
+    return replace(state, mean=s32[0], m2=s32[1], count=s32[2])
+
+
+def return_norm_finalize(
+    state: ReturnNormState,
+    samples: torch.Tensor,  # [..., E] post-update rolling-return samples
+    rewards: torch.Tensor,  # [..., E] raw rewards
+    clip: float = 10.0,
+    valid: Optional[torch.Tensor] = None,  # [..., E] learner-turn stats mask
+) -> Tuple[ReturnNormState, torch.Tensor]:
+    """Prefix-Welford stats + normalization for a whole rollout: (the state
+    with the new f32 mean, m2 and count, normalized rewards like
+    ``rewards``). ``state.returns`` passes through (``return_norm_roll``
+    advanced it)."""
+    stats, normalized = return_norm_finalize_f64(state, samples, rewards, clip, valid)
+    return _with_stats(state, stats), normalized
+
+
+return_norm_finalize.launches = 0

@@ -7,12 +7,13 @@ self-play (the learner plays every seat), envs ``[L, E)`` are pool envs
 opponent in rotation slot ``seat_opp[e, seat]``). Per step, in the
 reference's order:
 
-  1. the learner forward on ALL E envs (its values are used everywhere)
-     and its sample (K2);
+  1. the learner forward on ALL E envs (its values are used everywhere;
+     a CTDE learner's critic reads the raw privileged obs,
+     pool_rollout.py:154-157) and its sample (K2);
   2. the opponents' actor forward on the pool block, only for each row's
      acting slot (``opponent_actor_forward``, kernel K7 on CUDA), and
      their sample (K2, with uniforms of their own);
-  3. the env step with auto-reset (K4); ``valid = learner_turn``;
+  3. the env step with auto-reset (K4 or K11); ``valid = learner_turn``;
   4. the episode log and the seating are captured BEFORE the reseat; then
      envs whose episode ended get a new learner seat and new opponent
      slots, bounded by the rotation's active count.
@@ -49,6 +50,7 @@ from burn_ppo_torch.ppo.rollout import (
     RolloutBatch,
     RolloutCarry,
     advance_last_values,
+    apply_env_context,
 )
 
 ACTIVATIONS = {"relu": 1, "tanh": 2}
@@ -65,12 +67,17 @@ class ActorParams:
 
 
 def actor_params(network) -> ActorParams:
-    """A copy of an MLP network's actor tower (its shared or actor layers
-    and the policy head), detached from the live parameters."""
-    if network.network_type != "mlp":
+    """A copy of a network's actor tower (the MLP's shared layers, or the
+    CTDE actor's layers, and the policy head), detached from the live
+    parameters. K7 runs either unchanged: an opponent never reads the
+    critic."""
+    if network.network_type == "mlp":
+        layers = list(network.layers) + [network.policy_head]
+    elif network.network_type == "ctde":
+        layers = list(network.actor_layers) + [network.policy_head]
+    else:
         raise NotImplementedError(
             f"opponents of network_type {network.network_type!r}: ROADMAP A12b")
-    layers = list(network.layers) + [network.policy_head]
     return ActorParams(
         weights=[layer.weight.detach().T.contiguous() for layer in layers],
         biases=[layer.bias.detach().clone() for layer in layers],
@@ -236,11 +243,14 @@ def collect_rollouts_with_opponents(
     normalize_returns: bool = False,
     return_clip: float = 10.0,
     obs_clip: float = 10.0,
+    env_context: Optional[dict] = None,
 ) -> Tuple[RolloutCarry, PoolSeating, RolloutBatch, PoolStepLog]:
     """The vs-pool rollout. ``num_active`` (<= the stacked slot count)
     bounds the slots drawn at a reseat. Per step the randoms are drawn in
     the reference's key order: learner uniforms [E, A], opponent uniforms
-    [Ep, A], the env reset, new seats [E], new slots [E, P]."""
+    [Ep, A], the env reset, the env step's own draw, new seats [E], new
+    slots [E, P]."""
+    carry = apply_env_context(carry, env_context)
     E = carry.obs.shape[0]
     A, P = env.spec.num_actions, env.spec.num_players
     L = num_learner_envs
@@ -249,17 +259,17 @@ def collect_rollouts_with_opponents(
     is_selfplay = torch.arange(E, device=device) < L
     slot_hi = max(num_active, 1)
     cols: dict = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs",
-                                  "acting", "masks", "valid", "samples", "seat", "slots")}
+                                  "acting", "masks", "valid", "samples", "seat", "slots", "priv")}
     log_cols: dict = {k: [] for k in ("completed", "total_rewards", "length", "outcome",
                                       "active_players")}
     states, acc, ret_norm = carry.env_states, carry.episode_acc, carry.return_norm
-    obs_raw, mask = carry.obs, carry.mask
+    obs_raw, mask, priv = carry.obs, carry.mask, carry.priv
     seat = seating
     with torch.no_grad():
         for _ in range(num_steps):
             players = env.current_player(states)
             obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
-            logits, values = network(obs)
+            logits, values = network(obs, priv)
             actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
             learner_turn = (seat.learner_seat < 0) | (players == seat.learner_seat)
             if Ep > 0:
@@ -270,13 +280,16 @@ def collect_rollouts_with_opponents(
                                                rng.uniform((Ep, A), TINY, 1.0))
                 actions = torch.cat(
                     [actions[:L], torch.where(learner_turn[L:], actions[L:], opp_actions)])
-            out = env.step_autoreset(states, acc, actions, env.draw_reset(rng, E))
+            out = env.step_autoreset(states, acc, actions, env.draw_reset(rng, E),
+                                     env.draw_step(rng, E))
             for k, v in (("obs", obs_raw), ("actions", actions), ("rewards", out.rewards),
                          ("dones", out.done), ("values", values), ("log_probs", log_probs),
                          ("acting", players), ("masks", mask),
                          ("valid", learner_turn.to(torch.float32)),
                          ("seat", seat.learner_seat), ("slots", seat.seat_opp)):
                 cols[k].append(v)
+            if network.is_ctde:
+                cols["priv"].append(priv)
             for k in log_cols:
                 log_cols[k].append(getattr(out.log, k))
             if normalize_returns:
@@ -297,7 +310,7 @@ def collect_rollouts_with_opponents(
                 learner_seat=torch.where(done & ~is_selfplay, new_seats, seat.learner_seat),
                 seat_opp=torch.where(done[:, None], new_slots, seat.seat_opp),
             )
-            states, acc, obs_raw, mask = out.state, out.acc, out.obs, out.mask
+            states, acc, obs_raw, mask, priv = out.state, out.acc, out.obs, out.mask, out.priv
 
     s = {k: torch.stack(v) for k, v in cols.items() if v}
     all_rewards, acting = s["rewards"], s["acting"]
@@ -310,7 +323,7 @@ def collect_rollouts_with_opponents(
     batch = RolloutBatch(
         obs=s["obs"], actions=s["actions"], rewards=rewards, all_rewards=all_rewards,
         dones=s["dones"], values=s["values"], log_probs=s["log_probs"], acting_players=acting,
-        action_masks=s["masks"], valid_mask=s["valid"],
+        action_masks=s["masks"], valid_mask=s["valid"], privileged_obs=s.get("priv"),
     )
     logs = PoolStepLog(
         episode=EpisodeLog(**{k: torch.stack(v) for k, v in log_cols.items()}),
@@ -320,6 +333,6 @@ def collect_rollouts_with_opponents(
         env_states=states, episode_acc=acc, return_norm=ret_norm,
         last_value_per_player=advance_last_values(
             carry.last_value_per_player, batch.values, acting, batch.valid_mask),
-        obs=obs_raw, mask=mask,
+        obs=obs_raw, mask=mask, priv=priv,
     )
     return new_carry, seat, batch, logs

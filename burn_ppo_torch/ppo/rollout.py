@@ -8,15 +8,21 @@ step, in the reference's order:
      (the mask comes out of the previous env step);
   2. normalize the obs with the LAGGED obs-normalizer stats (kernel K6 on
      CUDA);
-  3. network forward -> logits, value;
+  3. network forward -> logits, value (the CTDE critic reads the
+     normalized obs and the RAW privileged obs, rollout.py:228-249);
   4. masked Gumbel-max sample and log pi(a) (kernel K2 on CUDA);
   5. env step with auto-reset, episode log captured before the reset
-     (kernel K1 or K4 on CUDA);
-  6. the rolling-return update of the acting player's return.
+     (kernel K1, K4 or K11 on CUDA);
+  6. the rolling-return update of the acting player's return (K12's roll
+     on CUDA).
+
+Before the loop the trainer's ``env_context`` (the scheduled
+reward-shaping coefficient) is written into every env state
+(rollout.py:218-226).
 
 After the loop the acting player's rewards are read out of the
-``[T, E, P]`` rewards, the return normalizer's prefix pass normalizes
-them at once, and the per-player last values advance: each player's slot
+``[T, E, P]`` rewards, the return normalizer's prefix pass (K12's
+finalize on CUDA) normalizes them at once, and the per-player last values advance: each player's slot
 takes the value of the last step that player acted in (what the
 reference's per-step one-hot update leaves after T steps).
 
@@ -29,6 +35,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+import dataclasses
 
 import torch
 
@@ -95,13 +103,15 @@ class RolloutBatch:
     acting_players: torch.Tensor  # [T, E] i32
     action_masks: torch.Tensor  # [T, E, A] f32
     valid_mask: torch.Tensor  # [T, E] f32, all 1.0: the learner plays every seat
+    privileged_obs: Optional[torch.Tensor] = None  # [T, E, Dp] raw, for the CTDE critic
 
 
 @dataclass
 class RolloutCarry:
     """State threaded between rollouts. ``obs`` and ``mask`` are always
-    ``env.obs(env_states)`` and ``env.action_mask(env_states)``; the env
-    step writes them, so the next rollout step and the bootstrap read them
+    ``env.obs(env_states)`` and ``env.action_mask(env_states)`` (and
+    ``priv`` its privileged obs, for an env that has one); the env step
+    writes them, so the next rollout step and the bootstrap read them
     without recomputing. ``last_value_per_player`` persists across
     rollouts and episodes (rollout.py:173,283-285)."""
 
@@ -111,6 +121,7 @@ class RolloutCarry:
     last_value_per_player: torch.Tensor  # [E, P]
     obs: torch.Tensor  # [E, D]
     mask: torch.Tensor  # [E, A]
+    priv: Optional[torch.Tensor] = None  # [E, Dp]
 
 
 def init_rollout_carry(
@@ -125,7 +136,18 @@ def init_rollout_carry(
         last_value_per_player=torch.zeros(num_envs, P, dtype=torch.float32, device=device),
         obs=env.obs(states),
         mask=env.action_mask(states),
+        priv=env.privileged_obs(states) if env.spec.privileged_obs_dim else None,
     )
+
+
+def apply_env_context(carry: RolloutCarry, env_context: Optional[dict]) -> RolloutCarry:
+    """Broadcast scalar context values (the scheduled reward-shaping
+    coefficient) into the env states' context fields."""
+    if not env_context:
+        return carry
+    states = dataclasses.replace(carry.env_states, **{
+        f: torch.full_like(getattr(carry.env_states, f), v) for f, v in env_context.items()})
+    return dataclasses.replace(carry, env_states=states)
 
 
 def advance_last_values(
@@ -163,29 +185,34 @@ def collect_rollouts(
     normalize_returns: bool,
     return_clip: float = 10.0,
     obs_clip: float = 10.0,
+    env_context: Optional[dict] = None,
 ) -> Tuple[RolloutCarry, RolloutBatch, EpisodeLog]:
     """Single-player or pure self-play rollout (the learner acts every
     turn). Returns (carry', batch, episode logs [T, E])."""
+    carry = apply_env_context(carry, env_context)
     E = carry.obs.shape[0]
     A = env.spec.num_actions
     device = carry.obs.device
     cols: dict = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs",
-                                  "acting", "masks", "samples")}
+                                  "acting", "masks", "samples", "priv")}
     log_cols: dict = {k: [] for k in ("completed", "total_rewards", "length", "outcome",
                                       "active_players")}
     states, acc, ret_norm = carry.env_states, carry.episode_acc, carry.return_norm
-    obs_raw, mask = carry.obs, carry.mask
+    obs_raw, mask, priv = carry.obs, carry.mask, carry.priv
     with torch.no_grad():
         for _ in range(num_steps):
             players = env.current_player(states)
             obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
-            logits, values = network(obs)
+            logits, values = network(obs, priv)
             actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
-            out = env.step_autoreset(states, acc, actions, env.draw_reset(rng, E))
+            out = env.step_autoreset(states, acc, actions, env.draw_reset(rng, E),
+                                     env.draw_step(rng, E))
             for k, v in (("obs", obs_raw), ("actions", actions), ("rewards", out.rewards),
                          ("dones", out.done), ("values", values), ("log_probs", log_probs),
                          ("acting", players), ("masks", mask)):
                 cols[k].append(v)
+            if network.is_ctde:
+                cols["priv"].append(priv)
             for k in log_cols:
                 log_cols[k].append(getattr(out.log, k))
             if normalize_returns:
@@ -195,7 +222,7 @@ def collect_rollouts(
                 )
                 ret_norm = ReturnNormState(new_returns, ret_norm.mean, ret_norm.m2, ret_norm.count)
                 cols["samples"].append(samples)
-            states, acc, obs_raw, mask = out.state, out.acc, out.obs, out.mask
+            states, acc, obs_raw, mask, priv = out.state, out.acc, out.obs, out.mask, out.priv
 
     s = {k: torch.stack(v) for k, v in cols.items() if v}
     all_rewards, acting = s["rewards"], s["acting"]
@@ -215,13 +242,14 @@ def collect_rollouts(
         acting_players=acting,
         action_masks=s["masks"],
         valid_mask=torch.ones(num_steps, E, dtype=torch.float32, device=device),
+        privileged_obs=s.get("priv"),
     )
     logs = EpisodeLog(**{k: torch.stack(v) for k, v in log_cols.items()})
     new_carry = RolloutCarry(
         env_states=states, episode_acc=acc, return_norm=ret_norm,
         last_value_per_player=advance_last_values(
             carry.last_value_per_player, batch.values, acting),
-        obs=obs_raw, mask=mask,
+        obs=obs_raw, mask=mask, priv=priv,
     )
     return new_carry, batch, logs
 
@@ -236,11 +264,12 @@ def bootstrap_values(
     """Value of the final env states for the GAE bootstrap.
 
     Returns (last_values [E], last_value_per_player [E, P]), the acting
-    players' slots refreshed with this forward (rollout.py:331-363)."""
+    players' slots refreshed with this forward (rollout.py:331-363); CTDE
+    values come from the critic on the raw privileged obs (350-352)."""
     obs = carry.obs
     if obs_norm is not None:
         obs = obs_norm_apply(obs_norm, obs, obs_clip)
     with torch.no_grad():
-        values = network(obs)[1]
+        values = network(obs, carry.priv)[1]
     players = env.current_player(carry.env_states).long()[:, None]
     return values, carry.last_value_per_player.scatter(1, players, values[:, None])

@@ -379,8 +379,9 @@ def minibatch_loss(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scalar loss (with autograd graph) + the detached metrics [14] in
     ``METRIC_KEYS`` order for one minibatch
-    (burn_ppo_tpu/ppo/update.py:125-212)."""
-    logits, values = network(mb["obs"])
+    (burn_ppo_tpu/ppo/update.py:125-212); a CTDE network's values are its
+    critic's on the minibatch's privileged obs."""
+    logits, values = network(mb["obs"], mb.get("privileged_obs"))
     return ppo_loss(logits, values, mb, ent_coef, cfg)
 
 
@@ -396,7 +397,8 @@ def ppo_update(
 ) -> Dict[str, torch.Tensor]:
     """num_epochs x num_minibatches PPO steps on flattened [N, ...] data
     (obs already normalized, actions, old_log_probs, advantages, returns,
-    old_values, valid, optional action_masks). Updates ``network`` and
+    old_values, valid, optional action_masks and privileged_obs, which the
+    shuffle carries like every other column). Updates ``network`` and
     ``opt`` in place; returns the metrics as device scalars.
 
     ``may_have_invalid``: the valid column carries real zeros (vs-pool

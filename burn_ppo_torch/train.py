@@ -13,7 +13,10 @@ records) once per update, in one transfer.
 
 The ``Trainer`` supports fresh single-player runs, pure self-play, and
 self-play against the opponent pool (``opponent_pool_fraction > 0``,
-the MLP, one opponent rotation per update): the pool and the rating
+the MLP or CTDE, one opponent rotation per update), on CartPole, Connect
+Four and Skull (a fixed player count, ``player_count``; the scheduled
+``reward_shaping_coef`` is written into the env states before every
+rollout): the pool and the rating
 history start with the run, every update samples a rotation and folds
 its game records into the win rates and the rating log, and every
 checkpoint joins the pool, recomputes the Plackett-Luce ratings and moves
@@ -84,6 +87,8 @@ def build_network_for_env(env: Environment, cfg: Config, generator: torch.Genera
         num_hidden=cfg.num_hidden,
         activation=cfg.activation,
         split_networks=cfg.split_networks,
+        critic_hidden_size=cfg.critic_hidden_size,
+        critic_num_hidden=cfg.critic_num_hidden,
         num_conv_layers=cfg.num_conv_layers,
         conv_channels=cfg.conv_channels,
         kernel_size=cfg.kernel_size,
@@ -175,6 +180,8 @@ def _finish_step(env: Environment, cfg: Config, state: TrainState, carry: Rollou
         "valid": batch.valid_mask.reshape(N),
         "action_masks": batch.action_masks.reshape(N, env.spec.num_actions),
     }
+    if batch.privileged_obs is not None:
+        data["privileged_obs"] = batch.privileged_obs.reshape(N, -1)
     metrics = ppo_update(net, state.opt_state, data, rng, lr, ent_coef, update_config(cfg),
                          may_have_invalid=may_have_invalid)
     if cfg.runtime_guards != "off":
@@ -183,16 +190,24 @@ def _finish_step(env: Environment, cfg: Config, state: TrainState, carry: Rollou
                       obs_norm=obs_norm_new), metrics
 
 
+def _env_context(env: Environment, shaping_coef: float) -> Optional[dict]:
+    """The scheduled shaping coefficient for envs that read one
+    (train.py:266-275)."""
+    return {"shaping_coef": shaping_coef} if "shaping_coef" in env.context_fields else None
+
+
 def make_train_step(env: Environment, cfg: Config):
     """Fused rollout -> GAE -> PPO update. ``train_step(state, lr, ent_coef,
-    rng)`` returns (state, metrics, episode logs [T, E])."""
+    rng, shaping_coef=0.0)`` returns (state, metrics, episode logs [T, E])."""
     normalize_returns = cfg.effective_normalize_returns(env.spec.num_players)
 
-    def train_step(state: TrainState, lr: float, ent_coef: float, rng: RandomSource):
+    def train_step(state: TrainState, lr: float, ent_coef: float, rng: RandomSource,
+                   shaping_coef: float = 0.0):
         carry, batch, logs = collect_rollouts(
             state.network, env, state.carry, state.obs_norm, rng,
             num_steps=cfg.num_steps, gamma=cfg.gamma,
             normalize_returns=normalize_returns, return_clip=cfg.return_clip,
+            env_context=_env_context(env, shaping_coef),
         )
         new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef)
         return new_state, metrics, logs
@@ -214,17 +229,20 @@ class PoolRecordLog:
 def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
     """Vs-pool variant (train.py:377-431): the stacked opponents act on
     the pool-env block. ``train_step(state, seating, opponents, num_active,
-    lr, ent_coef, rng)`` returns (state, seating, metrics, the learner
-    block's episode summaries, the pool block's ``PoolRecordLog``)."""
+    lr, ent_coef, rng, shaping_coef=0.0)`` returns (state, seating,
+    metrics, the learner block's episode summaries, the pool block's
+    ``PoolRecordLog``)."""
     normalize_returns = cfg.effective_normalize_returns(env.spec.num_players)
     L = num_learner_envs
 
     def train_step(state: TrainState, seating: PoolSeating, opponents: OpponentStack,
-                   num_active: int, lr: float, ent_coef: float, rng: RandomSource):
+                   num_active: int, lr: float, ent_coef: float, rng: RandomSource,
+                   shaping_coef: float = 0.0):
         carry, seating, batch, pool_logs = collect_rollouts_with_opponents(
             state.network, env, opponents, state.carry, seating, state.obs_norm, rng,
             num_steps=cfg.num_steps, num_learner_envs=L, num_active=num_active,
             gamma=cfg.gamma, normalize_returns=normalize_returns, return_clip=cfg.return_clip,
+            env_context=_env_context(env, shaping_coef),
         )
         # Only learner turns are valid: a minibatch can be all-invalid.
         new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef,
@@ -270,11 +288,11 @@ def extract_pool_records(pool_records, num_players: int) -> np.ndarray:
 def unsupported_config(cfg: Config) -> Optional[str]:
     """Why this config cannot run on the port yet, naming the ROADMAP item;
     None when it can."""
-    if cfg.env in ("liars_dice", "skull"):
-        return f"env {cfg.env!r}: ROADMAP A13"
-    if cfg.env not in ("cartpole", "connect_four"):
+    if cfg.env == "liars_dice":
+        return f"env {cfg.env!r}: ROADMAP A13/B12"
+    if cfg.env not in ("cartpole", "connect_four", "skull"):
         return f"env {cfg.env!r}: not an env of the JAX package either"
-    if cfg.env == "connect_four" and cfg.opponent_pool_fraction > 0.0:
+    if cfg.env != "cartpole" and cfg.opponent_pool_fraction > 0.0:
         if cfg.network_type == "cnn":
             return ("network_type 'cnn' with the opponent pool (opponent_pool_fraction "
                     f"{cfg.opponent_pool_fraction}): ROADMAP A12b; pass "
@@ -282,8 +300,9 @@ def unsupported_config(cfg: Config) -> Optional[str]:
         if cfg.pool_rotation_interval > 1:
             return (f"pool_rotation_interval {cfg.pool_rotation_interval} (several vs-pool "
                     "updates per rotation): ROADMAP A12c; the port rotates every update")
-    if cfg.network_type == "ctde":
-        return "network_type 'ctde': ROADMAP A14"
+    if cfg.network_type == "ctde" and cfg.env != "skull":
+        return (f"network_type 'ctde' needs an env with privileged observations (skull), "
+                f"not {cfg.env!r}; the JAX package cannot build it either")
     if cfg.normalize_values:
         return "normalize_values (PopArt): ROADMAP A14"
     if cfg.adaptive_entropy is not None:
@@ -325,6 +344,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.num_envs = cfg.resolve_num_envs(1)
         self.env = make_env(cfg.env)
+        if self.env.spec.variable_player_count:
+            self.env = self.env.with_num_players(cfg.player_count.get_fixed_count())
         self.num_players = self.env.spec.num_players
         self.seed = cfg.seed if cfg.seed is not None else int(time.time()) % (2**31)
         # Two explicit generators: the parameter init draws on the CPU (the
@@ -500,7 +521,7 @@ class Trainer:
             off += n
         return out
 
-    def _pool_update(self, lr: float, ent_coef: float):
+    def _pool_update(self, lr: float, ent_coef: float, shaping: float):
         """One vs-pool update (train.py:1425-1536): sample the rotation,
         run the pool step, fold its game records. None while the pool is
         empty (the update is then plain self-play on every env)."""
@@ -519,7 +540,7 @@ class Trainer:
             self.seating = PoolSeating(self.seating.learner_seat, self.seating.seat_opp % K)
         self._last_num_slots = K
         self.state, self.seating, metrics_t, stats_t, records = self.pool_step(
-            self.state, self.seating, stack, K, lr, ent_coef, self.rng)
+            self.state, self.seating, stack, K, lr, ent_coef, self.rng, shaping)
         fetched = self._fetch({"metrics": metrics_t, "stats": stats_t,
                                "rec": records.__dict__})
         rec = fetched["rec"]
@@ -562,11 +583,12 @@ class Trainer:
                     break
                 lr = cfg.learning_rate.get(self.global_step)
                 ent_coef = cfg.entropy_coef.get(self.global_step)
+                shaping = cfg.reward_shaping_coef.get(self.global_step)
                 t0 = time.time()
-                fetched = self._pool_update(lr, ent_coef)
+                fetched = self._pool_update(lr, ent_coef, shaping)
                 if fetched is None:
                     self.state, metrics_t, logs = self.train_step(self.state, lr, ent_coef,
-                                                                  self.rng)
+                                                                  self.rng, shaping)
                     fetched = self._fetch({
                         "metrics": metrics_t,
                         "stats": summarize_episode_logs(logs, self.num_players),

@@ -14,11 +14,18 @@ exits non-zero without the final result line:
      multiplayer GAE ([64, 4096, 2] and P = 4), K6 obs-norm apply
      ([4096, 86], count 0, 1 and large) and update ([262144, 86],
      [524288, 5]), K7 slot-grouped opponent forward (Ep = 1024 rows, MLP
-     86 -> 512 -> 512 -> 7, K = 8 and K = 3, relu and tanh), K8 PPO loss
-     ([65536, 7] and [131072, 2] minibatches, valid zeros, value clip on
-     and off), K9 clip + Adam (CartPole's 4,739 and Connect Four's 311,304
-     parameters, below and above the max norm), K10 episode statistics
-     ([64, 4096] with the learner block [:, :3072], and [128, 4096]);
+     86 -> 512 -> 512 -> 7, K = 8 and K = 3, relu and tanh; and the Skull
+     pool block, Ep = 1229, K = 8, 135 -> 256 -> 256 -> 256 -> 33), K8 PPO
+     loss ([65536, 7], [65536, 33] and [131072, 2] minibatches, valid
+     zeros, value clip on and off), K9 clip + Adam (CartPole's 4,739,
+     Connect Four's 311,304 and Skull CTDE 512x2's 784,418 parameters,
+     below and above the max norm), K10 episode statistics ([64, 4096]
+     with the learner block [:, :3072], [128, 4096], and four players with
+     tied places [:, :2867]), K11 Skull step (E = 4096, exact, along
+     random-legal walks at 4, 2 and 6 players with invalid actions,
+     finished games and forced discards), K12 return normaliser (roll at
+     [4096, 1] and [4096, 4]; finalize at [524288] with and without a
+     valid mask), K2 at [4096, 33] on Skull's own masks;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
   3. the CartPole bench-shape train path through the CLI entry point
@@ -33,6 +40,16 @@ exits non-zero without the final result line:
      after every update, 10 updates, so that the rotation reaches K = 8:
      finite losses, the pool and rating files, the learner's valid share
      near (L + Ep/2) / E;
+  3e. Skull, four players, CTDE self-play at the bench_skull_ctde shape
+     (configs/skull_ctde.toml with CTDE 512x2 actor and critic, tanh,
+     4096 x 64, 4 epochs x 4 minibatches, no pool), 5 updates: finite
+     losses, Swiss points summing to P (P - 1) / 2 = 6;
+  3f. Skull CTDE against the pool (configs/skull_ctde.toml as users run
+     it: CTDE 256x3 relu, pool fraction 0.3, 4096 x 128), a checkpoint
+     after every update, 10 updates: the rotation reaches K = 8, the pool
+     and rating files, the learner's valid share strictly between L / E
+     and (L + Ep/2) / E (three of four seats of a pool env are the
+     opponents');
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps.
 
@@ -73,6 +90,8 @@ from burn_ppo_torch.envs.connect_four import (  # noqa: E402
     connect_four_step_autoreset,
     has_win,
 )
+from burn_ppo_torch.envs.skull import FIELDS as SKULL_FIELDS  # noqa: E402
+from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset, walk_actions  # noqa: E402
 from burn_ppo_torch.ops.categorical import (  # noqa: E402
     TINY,
     apply_action_mask,
@@ -92,10 +111,16 @@ from burn_ppo_torch.ppo.episode_stats import (  # noqa: E402
 )
 from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     ObsNormState,
+    ReturnNormState,
     obs_norm_apply,
     obs_norm_apply_plain,
     obs_norm_update,
     obs_norm_update_plain,
+    return_norm_finalize,
+    return_norm_finalize_f64,
+    return_norm_finalize_f64_plain,
+    return_norm_roll,
+    return_norm_roll_plain,
 )
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
     OpponentStack,
@@ -117,10 +142,15 @@ BENCH_UPDATES = 5
 CNN_UPDATES = 2
 POOL_UPDATES = 10
 EP = 1024  # pool envs at 4096 envs and pool fraction 0.25
-# Published H100 SXM peaks (NVIDIA data sheet): HBM and f32 outside the tensor cores.
+T_SKULL_POOL = 128  # configs/skull_ctde.toml's steps per update
+EP_SKULL = 1229  # pool envs at 4096 envs and pool fraction 0.3
+SKULL_CTDE_PARAMS = 784418  # CTDE actor and critic 512x2 on Skull's 135 + 200 inputs
+# Published H100 SXM peaks (NVIDIA data sheet): HBM, and f32 and f64
+# outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 TIMES = ("ms", "plain_ms", "device_ms", "plain_device_ms")
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12
 WRAPPERS = {
     "cartpole_step_autoreset": cartpole_step_autoreset,
     "masked_gumbel_sample": masked_sample,
@@ -133,6 +163,9 @@ WRAPPERS = {
     "ppo_loss": ppo_loss,
     "clip_adam": clip_adam,
     "episode_stats": summarize_episode_logs,
+    "skull_step_autoreset": skull_step_autoreset,
+    "return_norm_roll": return_norm_roll,
+    "return_norm_finalize": return_norm_finalize,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -154,6 +187,12 @@ SOURCES = {
     "clip_adam": ("burn_ppo_torch/csrc/clip_adam.cu", "burn_ppo_tpu/ppo/update.py:82"),
     "episode_stats": ("burn_ppo_torch/csrc/episode_stats.cu",
                       "burn_ppo_tpu/ppo/episode_stats.py:25"),
+    "skull_step_autoreset": ("burn_ppo_torch/csrc/skull_step.cu",
+                             "burn_ppo_tpu/envs/skull.py:280"),
+    "return_norm_roll": ("burn_ppo_torch/csrc/return_norm.cu",
+                         "burn_ppo_tpu/ppo/normalization.py:105"),
+    "return_norm_finalize": ("burn_ppo_torch/csrc/return_norm.cu",
+                             "burn_ppo_tpu/ppo/normalization.py:136"),
 }
 
 
@@ -215,27 +254,33 @@ def max_err(pairs) -> float:
 
 
 def nbytes(*tensors) -> int:
-    """Bytes of the tensors (nested lists, dataclasses and None allowed)."""
-    total = 0
-    for t in tensors:
-        if t is None:
-            continue
+    """Bytes of the distinct buffers among the tensors (nested lists,
+    dataclasses and None allowed). A buffer that two fields share, as a
+    step's done and its log's completed, counts once; a buffer read and
+    then written counts twice only from two calls."""
+    seen = {}
+
+    def walk(t):
         if isinstance(t, torch.Tensor):
-            total += t.numel() * t.element_size()
+            seen[(t.data_ptr(), t.numel() * t.element_size())] = t.numel() * t.element_size()
         elif isinstance(t, (list, tuple)):
-            total += nbytes(*t)
-        else:
-            total += nbytes(*vars(t).values())
-    return total
+            for x in t:
+                walk(x)
+        elif t is not None:
+            walk(list(vars(t).values()))
+
+    walk(tensors)
+    return sum(seen.values())
 
 
-def bound(bytes_moved: float, flops: float = 0.0) -> dict:
+def bound(bytes_moved: float, flops: float = 0.0, flops64: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the f32 operations over the f32 peak."""
+    the HBM rate and the operations over the peak of their type (f32, and
+    f64 for ``flops64``)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = (flops / F32_FLOP_PER_S + flops64 / F64_FLOP_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
-            else "operations", "bytes": bytes_moved, "flops": flops}
+            else "operations", "bytes": bytes_moved, "flops": flops, "flops64": flops64}
 
 
 def check_cartpole(dev, g) -> dict:
@@ -280,13 +325,13 @@ def check_cartpole(dev, g) -> dict:
     }
 
 
-def check_sample(dev, g, A: int) -> dict:
+def check_sample(dev, g, A: int, mask=None) -> dict:
     """A = 2: CartPole, every action legal. A = 7: Connect Four, 0-6
-    masked columns per row."""
+    masked columns per row. A = 33: the given Skull masks."""
     logits = torch.randn(E, A, generator=g, device=dev) * 2
-    if A == 2:
+    if mask is None and A == 2:
         mask = torch.ones(E, A, device=dev)
-    else:
+    elif mask is None:
         n_masked = torch.randint(0, A, (E, 1), generator=g, device=dev)
         rank = torch.rand(E, A, generator=g, device=dev).argsort(1).argsort(1)
         mask = (rank >= n_masked).float()
@@ -306,7 +351,8 @@ def check_sample(dev, g, A: int) -> dict:
         raise AssertionError(f"masked_gumbel_sample A={A}: log-prob max abs err {err} > 1e-5")
     return {
         "max_abs_err": err, "tol": 1e-5, "rows_compared": int(decided.sum()),
-        "masked_per_row": [int((mask.sum(1) == A - k).sum()) for k in range(A)],
+        "legal_per_row_min_mean_max": [float(mask.sum(1).min()), float(mask.sum(1).mean()),
+                                       float(mask.sum(1).max())],
         **timed(lambda: masked_sample(logits, mask, uni),
                 lambda: masked_sample_plain(logits, mask, uni)),
         "library_ms": None,
@@ -468,6 +514,154 @@ def check_connect_four(dev, g) -> dict:
     }
 
 
+def skull_walk(dev, g, n: int, steps: int) -> tuple:
+    """K11 against the plain step at every step of a random-legal walk of
+    4096 envs of ``Skull(n)``: every output equal, bit for bit. Before each
+    step 15% of the envs get a forced discard and 0.3% are marked finished;
+    half play with a shaping coefficient of 0.05. Returns (env, the last
+    step's inputs and K11 output, event counts)."""
+    env = Skull(n)
+    empty = torch.empty(E, 0, device=dev)
+    state = env.reset(empty)
+    state.shaping_coef = (torch.arange(E, device=dev) % 2) * 0.05
+    acc = EpisodeAccumulator.zero(E, n, dev)
+    ev = {"steps": steps, "phase_placing_bidding_revealing": [0, 0, 0], "game_ends": 0,
+          "skull_hits": 0, "rose_wins": 0, "eliminations": 0, "invalid_actions": 0,
+          "finished_games_in": 0, "forced_discards_revealing": 0, "full_histories": 0}
+    for _ in range(steps):
+        fd = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
+        state.forced_discard = torch.where(torch.rand(E, generator=g, device=dev) < 0.15, fd, -1)
+        over = torch.rand(E, generator=g, device=dev) < 0.003
+        state.game_over = state.game_over | over
+        mask = env.action_mask(state)
+        action = walk_actions(mask, g)
+        u = torch.rand(E, generator=g, device=dev)
+        k = env.step_autoreset(state, acc, action, empty, u)
+        p = autoreset_step(env, state, acc, action, empty, u)
+        torch.cuda.synchronize()
+        pairs = {f"state.{f}": (getattr(k.state, f), getattr(p.state, f)) for f in SKULL_FIELDS}
+        pairs.update({f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
+                      for f in ("completed", "total_rewards", "length", "outcome",
+                                "active_players")})
+        pairs.update({"acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
+                      "acc.length": (k.acc.length, p.acc.length), "rewards": (k.rewards, p.rewards),
+                      "done": (k.done, p.done), "obs": (k.obs, p.obs), "mask": (k.mask, p.mask),
+                      "priv": (k.priv, p.priv)})
+        for name, (a, b) in pairs.items():
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"skull_step_autoreset P={n}: {name} differs from plain")
+        legal = torch.gather(mask, 1, action.long().clamp(0, 32)[:, None])[:, 0] > 0
+        valid = (action >= 0) & (action < 33) & legal & ~state.game_over
+        done = k.done > 0
+        for ph in range(3):
+            ev["phase_placing_bidding_revealing"][ph] += int((state.phase == ph).sum())
+        ev["game_ends"] += int((done & valid).sum())
+        ev["skull_hits"] += int(((k.rewards < 0).any(1) & ~done).sum())
+        ev["rose_wins"] += int(((k.rewards > 0).any(1) & ~done).sum())
+        ev["eliminations"] += int(((k.state.num_eliminated > state.num_eliminated) & ~done).sum())
+        ev["invalid_actions"] += int((~valid & ~state.game_over).sum())
+        ev["finished_games_in"] += int(state.game_over.sum())
+        ev["forced_discards_revealing"] += int(((state.forced_discard >= 0) & (state.phase == 2)
+                                                & valid).sum())
+        ev["full_histories"] += int((state.hist_len == 8).sum())
+        last = (state, acc, action, u, k)
+        state, acc = k.state, k.acc
+    return env, last, ev
+
+
+def check_skull(dev, g) -> tuple:
+    """K11 along walks at 4 (300 steps), 2 and 6 players (80 steps each);
+    every branch must occur. Returns (the check, the last P = 4 mask and
+    obs for K2 and K7)."""
+    out = {"max_abs_err": 0.0, "tol": "exact"}
+    walks = {}
+    for n, steps in ((4, 300), (2, 80), (6, 80)):
+        walks[n] = skull_walk(dev, g, n, steps)
+        out[f"P{n}"] = walks[n][2]
+    for key in ("game_ends", "skull_hits", "rose_wins", "eliminations", "invalid_actions",
+                "finished_games_in", "forced_discards_revealing"):
+        if out["P4"][key] == 0:
+            raise AssertionError(f"skull_step_autoreset: no {key} in the P=4 walk: {out['P4']}")
+    if min(out["P4"]["phase_placing_bidding_revealing"]) == 0 or out["P6"]["full_histories"] == 0:
+        raise AssertionError(f"skull_step_autoreset: a branch was not reached: {out}")
+    env, (s, a, act, u, k), _ = walks[4]
+    empty = torch.empty(E, 0, device=dev)
+    out.update(
+        **timed(lambda: env.step_autoreset(s, a, act, empty, u),
+                lambda: autoreset_step(env, s, a, act, empty, u)),
+        library_ms=None,
+        # the mask, the phase machine, placements, obs and privileged obs:
+        # ~2,000 integer and f32 operations per env
+        **bound(nbytes(s, a, act, u, k), 2000.0 * E),
+    )
+    return out, k.mask, k.obs
+
+
+def check_return_norm_roll(dev, g) -> dict:
+    """K12's roll at CartPole's [4096, 1] and at [4096, 4]: exact."""
+    out = {"max_abs_err": 0.0, "tol": "exact"}
+    for P in (1, 4):
+        args = (torch.randn(E, P, generator=g, device=dev) * 3,
+                torch.randn(E, generator=g, device=dev),
+                torch.randint(0, P, (E,), generator=g, device=dev, dtype=torch.int32),
+                (torch.rand(E, generator=g, device=dev) < 0.02).float(), 0.99)
+        k = return_norm_roll(*args)
+        p = return_norm_roll_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+            raise AssertionError(f"return_norm_roll P={P}: differs from plain")
+        if P == 1:
+            out.update(**timed(lambda: return_norm_roll(*args), lambda: return_norm_roll_plain(*args)),
+                       library_ms=None,
+                       **bound(nbytes(*args[:4], k), 3.0 * E))
+    return out
+
+
+def check_return_norm_finalize(dev, g) -> dict:
+    """K12's finalize over CartPole's [524288] (128 x 4096): into an empty
+    and into a filled state, with and without a valid mask, and a mask
+    with no valid sample. f64 stats to 1e-12 relative, normalized rewards
+    to 2 f32 ulp; the empty mask leaves the state exactly as it was."""
+    N = E * T
+    tol = {"stats64_rel": 1e-12, "normalized_rel": 2.4e-7}
+    out = {"tol": tol, "max_abs_err": 0.0}
+    z = torch.zeros((), device=dev)
+    states = {"empty": ReturnNormState(torch.zeros(E, 1, device=dev), z, z.clone(), z.clone()),
+              "filled": ReturnNormState(torch.zeros(E, 1, device=dev), z + 0.37, z + 4.1e6,
+                                        z + 2.6e6)}
+    samples = torch.randn(N, generator=g, device=dev) * 2 + 0.5
+    rewards = torch.randn(N, generator=g, device=dev)
+    valid = (torch.rand(N, generator=g, device=dev) < 0.75).float()
+    for sname, st in states.items():
+        for vname, w in (("all", None), ("masked", valid)):
+            ks, kn = return_norm_finalize_f64(st, samples, rewards, 10.0, w)
+            ps, pn = return_norm_finalize_f64_plain(st, samples, rewards, 10.0, w)
+            torch.cuda.synchronize()
+            rel_s = float(((ks - ps).abs() / ps.abs().clamp_min(1e-300)).max())
+            rel_n = float(((kn - pn).abs() / pn.abs().clamp_min(1e-30)).max())
+            if not (rel_s <= tol["stats64_rel"] and rel_n <= tol["normalized_rel"]):
+                raise AssertionError(f"return_norm_finalize {sname}/{vname}: stats rel {rel_s}, "
+                                     f"normalized rel {rel_n}")
+            out[f"{sname}_{vname}"] = {"stats64_rel": rel_s, "normalized_rel": rel_n}
+            out["max_abs_err"] = max(out["max_abs_err"], max_err([(kn, pn)]))
+    new, _ = return_norm_finalize(states["filled"], samples, rewards, 10.0, torch.zeros_like(valid))
+    torch.cuda.synchronize()
+    if not all(torch.equal(getattr(new, f), getattr(states["filled"], f)) for f in ("mean", "m2", "count")):
+        raise AssertionError("return_norm_finalize: a batch without valid samples moved the stats")
+    st = states["empty"]
+    x64 = samples.double()
+    out.update(
+        **timed(lambda: return_norm_finalize_f64(st, samples, rewards),
+                lambda: return_norm_finalize_f64_plain(st, samples, rewards)),
+        library_ms=time_ms(lambda: torch.cumsum(x64, 0)),
+        library_call="torch.cumsum of the f64 samples (one of the three prefix sums, no stats)",
+        # read samples and rewards, write the normalized rewards; ~25 f64
+        # operations per element
+        **bound(nbytes(samples, rewards) + nbytes(rewards), flops64=25.0 * N),
+    )
+    return out
+
+
 def turn_based_rollout(dev, g, P: int):
     """[64, 4096, P] rewards, dones ~5%, acting players in turn order
     with a random first player after every episode end."""
@@ -590,11 +784,12 @@ def check_obs_norm_update(dev, g) -> dict:
     return out
 
 
-def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int = 7) -> OpponentStack:
-    """K random actor towers 86 -> 512 -> 512 -> 7 (fan-in scaled) and
-    obs normalisers: slot 0 at count 0 (the identity), slot 1 at count 1,
-    the others merged."""
-    sizes = [D, H, H, A]
+def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int = 7,
+                     depth: int = 2) -> OpponentStack:
+    """K random actor towers D -> H (x depth) -> A, Connect Four's 86 -> 512
+    -> 512 -> 7 by default (fan-in scaled) and obs normalisers: slot 0 at
+    count 0 (the identity), slot 1 at count 1, the others merged."""
+    sizes = [D] + [H] * depth + [A]
     weights = [torch.randn(K, i, o, generator=g, device=dev) / i ** 0.5
                for i, o in zip(sizes, sizes[1:])]
     biases = [torch.randn(K, o, generator=g, device=dev) * 0.1 for o in sizes[1:]]
@@ -606,9 +801,12 @@ def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int
     return OpponentStack(weights=weights, biases=biases, activation=act, norm=norm)
 
 
-def check_opponent_actor(dev, g) -> dict:
+def check_opponent_actor(dev, g, skull_obs: torch.Tensor) -> dict:
     """K7 at the pool block of the bench shape (Ep = 1024 rows), K = 8 and
-    K = 3, relu and tanh: |kernel - plain| <= 1e-4 + 1e-4 |plain|."""
+    K = 3, relu and tanh, and at Skull's (Ep = 1229 rows of Skull obs, K =
+    8, CTDE actor 135 -> 256 -> 256 -> 256 -> 33, relu, no obs
+    normalisation, as configs/skull_ctde.toml trains):
+    |kernel - plain| <= 1e-4 + 1e-4 |plain|."""
     out = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": 0.0}
     for K, act in ((8, "relu"), (8, "tanh"), (3, "relu"), (3, "tanh")):
         stack = random_opponents(dev, g, K, act)
@@ -636,6 +834,26 @@ def check_opponent_actor(dev, g) -> dict:
         **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + EP * 7 * 4,
                 2.0 * EP * macs),
     )
+    stack = random_opponents(dev, g, 8, "relu", D=135, H=256, A=33, depth=3)
+    stack.norm = None
+    obs = skull_obs[:EP_SKULL].contiguous()
+    slot = torch.randint(0, 8, (EP_SKULL,), generator=g, device=dev, dtype=torch.int32)
+    k = opponent_actor_forward(obs, slot, stack)
+    p = opponent_actor_forward_plain(obs, slot, stack)
+    torch.cuda.synchronize()
+    if not bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())):
+        raise AssertionError(f"opponent_actor_forward Skull: max abs err {max_err([(k, p)])}")
+    xs = [torch.rand(8, EP_SKULL, w.shape[1], generator=g, device=dev) for w in stack.weights]
+    macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
+    out["skull_Ep1229_K8_ctde256x3"] = {
+        "max_abs_err": max_err([(k, p)]),
+        **timed(lambda: opponent_actor_forward(obs, slot, stack),
+                lambda: opponent_actor_forward_plain(obs, slot, stack)),
+        "library_ms": time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+        **bound(nbytes(obs, slot, stack.weights, stack.biases) + EP_SKULL * 33 * 4,
+                2.0 * EP_SKULL * macs),
+    }
+    out["max_abs_err"] = max(out["max_abs_err"], out["skull_Ep1229_K8_ctde256x3"]["max_abs_err"])
     return out
 
 
@@ -663,10 +881,12 @@ def loss_batch(dev, g, M: int, A: int):
 
 def check_ppo_loss(dev, g) -> dict:
     """K8 at the minibatch shapes: Connect Four [65536, 7] (value clip off
-    and on), CartPole [131072, 2]. Loss and metrics to 1e-5 relative,
-    gradients to 1e-4 relative + 1e-6 of their largest entry."""
+    and on), Skull [65536, 33], CartPole [131072, 2]. Loss and metrics to
+    1e-5 relative, gradients to 1e-4 relative + 1e-6 of their largest
+    entry."""
     out = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
-    for M, A, clip_value in ((65536, 7, False), (65536, 7, True), (131072, 2, False)):
+    for M, A, clip_value in ((65536, 7, False), (65536, 7, True), (65536, 33, False),
+                             (131072, 2, False)):
         logits, values, mb = loss_batch(dev, g, M, A)
         cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
         k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
@@ -686,7 +906,7 @@ def check_ppo_loss(dev, g) -> dict:
     # logits, mask, dL/dlogits [M, 7]; values, the columns read, dL/dvalues
     # [M] (old_values is read only with the value clip on)
     read = [t for k, t in mb.items() if k != "old_values" or cfg.clip_value]
-    moved = nbytes(logits, values, read, dl, values) + 15 * 4
+    moved = nbytes(logits, values, read) + nbytes(dl, values) + 15 * 4
     out.update(
         **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
                 lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
@@ -695,15 +915,25 @@ def check_ppo_loss(dev, g) -> dict:
         # action), ratio, clip, value and metric terms (~60)
         **bound(moved, 65536 * (12.0 * 7 + 60.0)),
     )
+    logits, values, mb = loss_batch(dev, g, 65536, 33)
+    read = [t for k, t in mb.items() if k != "old_values"]
+    out["M65536_A33"] = {
+        **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
+                lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
+        "library_ms": None,
+        **bound(nbytes(logits, values, read) + nbytes(logits, values) + 15 * 4,
+                65536 * (12.0 * 33 + 60.0)),
+    }
     return out
 
 
 def check_clip_adam(dev, g) -> dict:
-    """K9 over flat buffers of CartPole's MLP 64x2 (4,739 parameters) and
-    Connect Four's MLP 512x2 (311,304), three steps below and three above
-    the max norm: to 1e-5 relative + 1e-7 of the largest entry."""
+    """K9 over flat buffers of CartPole's MLP 64x2 (4,739 parameters),
+    Connect Four's MLP 512x2 (311,304) and Skull's CTDE 512x2 (784,418),
+    three steps below and three above the max norm: to 1e-5 relative +
+    1e-7 of the largest entry."""
     out = {"tol": "1e-5 * |plain| + 1e-7 * max|plain|", "max_abs_err": 0.0}
-    for n in (4739, 311304):
+    for n in (4739, 311304, SKULL_CTDE_PARAMS):
         for scale in (1e-3, 10.0):
             p_k = torch.randn(n, generator=g, device=dev)
             mu_k, nu_k = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
@@ -738,6 +968,14 @@ def check_clip_adam(dev, g) -> dict:
         # read params, grads, mu, nu; write params, mu, nu
         **bound(7 * 4 * n, 20.0 * n),
     )
+    n = SKULL_CTDE_PARAMS
+    prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
+    mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    out[f"n{n}"] = {
+        **timed(lambda: clip_adam(prm, grads, mu, nu, **kw),
+                lambda: clip_adam_plain(prm, grads, mu, nu, **kw)),
+        "library_ms": None, **bound(7 * 4 * n, 20.0 * n),
+    }
     return out
 
 
@@ -757,12 +995,13 @@ def episode_logs(dev, g, T: int, P: int, rate: float = 0.05) -> EpisodeLog:
 
 def check_episode_stats(dev, g) -> dict:
     """K10 at the learner block of the pool path ([64, 4096], first 3072
-    columns), all of Connect Four's [64, 4096] and CartPole's [128, 4096]:
+    columns), all of Connect Four's [64, 4096], CartPole's [128, 4096] and
+    four players with tied places in Skull's learner block (first 2867):
     counts, extrema and lengths exact, sums to 1e-6 relative + 1e-3."""
     out = {"tol": {"count_len_draws_max_min": "exact", "sums": "1e-6 rel + 1e-3"},
            "max_abs_err": 0.0}
     L = E - EP
-    for T_, P, cols in ((T_C4, 2, L), (T_C4, 2, None), (T, 1, None)):
+    for T_, P, cols in ((T_C4, 2, L), (T_C4, 2, None), (T, 1, None), (T_C4, 4, E - EP_SKULL)):
         logs = episode_logs(dev, g, T_, P)
         k = summarize_episode_logs(logs, P, num_envs=cols)
         cut = EpisodeLog(**{f: getattr(logs, f)[:, :cols] for f in vars(logs)})
@@ -777,21 +1016,28 @@ def check_episode_stats(dev, g) -> dict:
                 raise AssertionError(f"episode_stats {name}: {key} {k[key]} != {p[key]}")
         out[name] = max_err([(k[f], p[f]) for f in p])
         out["max_abs_err"] = max(out["max_abs_err"], out[name])
-    logs = episode_logs(dev, g, T_C4, 2)
-    block = EpisodeLog(**{f: getattr(logs, f)[:, :L] for f in vars(logs)})
-    # The learner block's completed column is read whole; length, rewards
-    # and placements only on the rows of completed episodes, as many as
-    # this run's logs hold. Out: 5 + 2P floats. Ops: one test per entry,
-    # ~30 per completed episode.
-    done = int((block.completed > 0).sum())
-    row = (block.length.element_size() + block.total_rewards[0, 0].numel() * 4
-           + block.outcome[0, 0].numel() * 4)
-    out.update(
-        **timed(lambda: summarize_episode_logs(logs, 2, num_envs=L),
-                lambda: summarize_episode_logs_plain(block, 2)),
-        library_ms=None, completed_rows=done,
-        **bound(nbytes(block.completed) + done * row + 9 * 4, T_C4 * L + 30.0 * done),
-    )
+
+    def timing(P: int, cols: int) -> dict:
+        logs = episode_logs(dev, g, T_C4, P)
+        block = EpisodeLog(**{f: getattr(logs, f)[:, :cols] for f in vars(logs)})
+        # The learner block's completed column is read whole; length, rewards
+        # and placements only on the rows of completed episodes, as many as
+        # this run's logs hold. Out: 5 + 2P floats. Ops: one test per entry,
+        # ~30 per completed episode.
+        done = int((block.completed > 0).sum())
+        row = (block.length.element_size() + block.total_rewards[0, 0].numel() * 4
+               + block.outcome[0, 0].numel() * 4)
+        return {
+            **timed(lambda: summarize_episode_logs(logs, P, num_envs=cols),
+                    lambda: summarize_episode_logs_plain(block, P)),
+            "library_ms": None, "completed_rows": done,
+            **bound(nbytes(block.completed) + done * row + (5 + 2 * P) * 4,
+                    T_C4 * cols + 30.0 * done),
+        }
+
+    out.update(timing(2, L))
+    name = f"T{T_C4}_P4_first{E - EP_SKULL}"
+    out[name] = {"max_abs_err": out.pop(name), **timing(4, E - EP_SKULL)}
     return out
 
 
@@ -854,7 +1100,8 @@ def bench_train(tmp: Path, card_line: str) -> dict:
                         "--num-envs", str(E), "--num-steps", str(T)],
         n, E * T,
         {"cartpole_step_autoreset": n * T, "masked_gumbel_sample": n * T,
-         "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2), "obs_norm_update": n},
+         "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2), "obs_norm_update": n,
+         "return_norm_roll": n * T, "return_norm_finalize": n},
         card_line,
     )
     return out
@@ -933,6 +1180,74 @@ def selfplay_pool_train(tmp: Path, card_line: str) -> dict:
     return out
 
 
+def skull_points(series: dict, updates: int) -> list:
+    """Per update, the four players' Swiss points summed: P (P - 1) / 2 =
+    6 a game, so 6 on average over any set of finished games."""
+    points = [sum(v) for v in zip(*(series[f"episode/player_{p}_points"] for p in range(4)))]
+    if len(points) < updates - 1 or not all(abs(s - 6.0) <= 1e-4 for s in points):
+        raise AssertionError(f"Swiss points per update do not sum to 6: {points}")
+    return points
+
+
+def skull_selfplay_train(tmp: Path, card_line: str) -> dict:
+    """The bench_skull_ctde shape: Skull, four players, CTDE actor and
+    critic 512x2 (tanh), 4096 envs x 64 steps, 4 epochs x 4 minibatches,
+    no pool (configs/skull_ctde.toml's other settings)."""
+    n = BENCH_UPDATES
+    out, series = train_phase(
+        tmp / "skull_selfplay",
+        ["--config", str(ROOT / "configs" / "skull_ctde.toml"), "--opponent-pool-fraction", "0",
+         "--num-envs", str(E), "--num-steps", str(T_C4), "--hidden-size", "512",
+         "--num-hidden", "2", "--activation", "tanh", "--critic-hidden-size", "512",
+         "--critic-num-hidden", "2", "--num-epochs", "4", "--num-minibatches", "4"],
+        n, E * T_C4,
+        {"skull_step_autoreset": n * T_C4, "masked_gumbel_sample": n * T_C4,
+         "gae_multiplayer_reverse_scan": n},
+        card_line,
+    )
+    out.update(points_sum=skull_points(series, n),
+               player_points=[series[f"episode/player_{p}_points"] for p in range(4)],
+               length_mean=series["episode/length_mean"], policy_loss=series["train/policy_loss"])
+    return out
+
+
+def skull_pool_train(tmp: Path, card_line: str) -> dict:
+    """configs/skull_ctde.toml as users run it (CTDE 256x3 relu, pool
+    fraction 0.3: L = 2867 learner envs, Ep = 1229 pool envs, three of the
+    four seats of a pool env the opponents'), 4096 x 128, a checkpoint
+    after every update, 10 updates: the rotation reaches K = 8."""
+    n = POOL_UPDATES
+    pool_updates = n - 1
+    run = tmp / "skull_pool"
+    out, series = train_phase(
+        run, ["--config", str(ROOT / "configs" / "skull_ctde.toml"), "--num-envs", str(E)],
+        n, E * T_SKULL_POOL,
+        {"skull_step_autoreset": n * T_SKULL_POOL,
+         "masked_gumbel_sample": (n + pool_updates) * T_SKULL_POOL,
+         "opponent_actor_forward": pool_updates * T_SKULL_POOL,
+         "gae_multiplayer_reverse_scan": n},
+        card_line, checkpoint_freq=E * T_SKULL_POOL,
+    )
+    stats = json.loads((run / "opponent_stats.json").read_text())["opponents"]
+    if len(stats) != n - 1:
+        raise AssertionError(f"the pool did not reach 8 opponents: {len(stats)} in the stats file")
+    for f in ("rating_games.jsonl", "rating_metadata.json", "checkpoints/best"):
+        if not (run / f).exists():
+            raise AssertionError(f"Skull vs-pool run wrote no {f}")
+    share = series["train/learner_valid_fraction"]
+    L = E - EP_SKULL
+    lo, hi = L / E, (L + EP_SKULL / 2) / E
+    if len(share) != pool_updates or not all(lo < s < hi for s in share):
+        raise AssertionError(f"learner valid share {share} not strictly inside ({lo}, {hi})")
+    sps = series["perf/sps"]
+    out.update(rotation_sizes=[min(u - 1, 8) for u in range(1, n + 1)], opponents_in_pool=len(stats),
+               games_played=sum(x["games_played"] for x in stats), learner_valid_share=share,
+               learner_valid_share_bounds=[lo, hi], points_sum=skull_points(series, n),
+               current_elo=series["train/current_elo"], env_steps_per_s_at_k8=sps[8:],
+               policy_loss=series["train/policy_loss"])
+    return out
+
+
 def learning_bar(tmp: Path) -> dict:
     """scripts/validate_cartpole.py's run, through the port's CLI."""
     from burn_ppo_torch import cli
@@ -974,13 +1289,15 @@ def main() -> int:
     emit("build", seconds=time.time() - t0, library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
 
     g = torch.Generator(device=dev).manual_seed(0)
+    skull, skull_mask, skull_obs = check_skull(dev, g)
     sample_a2 = check_sample(dev, g, 2)
     sample_a7 = check_sample(dev, g, 7)
+    sample_a33 = check_sample(dev, g, 33, skull_mask)
     checks = {
         "cartpole_step_autoreset": check_cartpole(dev, g),
         "masked_gumbel_sample": {
-            "A2": sample_a2, "A7": sample_a7,
-            "max_abs_err": max(sample_a2["max_abs_err"], sample_a7["max_abs_err"]),
+            "A2": sample_a2, "A7": sample_a7, "A33_skull": sample_a33,
+            "max_abs_err": max(s["max_abs_err"] for s in (sample_a2, sample_a7, sample_a33)),
             # A = 7's: Connect Four's, the pool path's
             **{k: sample_a7[k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
@@ -989,10 +1306,13 @@ def main() -> int:
         "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g),
         "obs_norm_apply": check_obs_norm_apply(dev, g),
         "obs_norm_update": check_obs_norm_update(dev, g),
-        "opponent_actor_forward": check_opponent_actor(dev, g),
+        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs),
         "ppo_loss": check_ppo_loss(dev, g),
         "clip_adam": check_clip_adam(dev, g),
         "episode_stats": check_episode_stats(dev, g),
+        "skull_step_autoreset": skull,
+        "return_norm_roll": check_return_norm_roll(dev, g),
+        "return_norm_finalize": check_return_norm_finalize(dev, g),
     }
     emit("kernels_vs_plain", card=card_line, **checks)
 
@@ -1002,12 +1322,14 @@ def main() -> int:
             "selfplay_train": selfplay_train(Path(d), card_line, "mlp", BENCH_UPDATES),
             "selfplay_train_cnn": selfplay_train(Path(d), card_line, "cnn", CNN_UPDATES),
             "selfplay_pool": selfplay_pool_train(Path(d), card_line),
+            "skull_ctde_selfplay": skull_selfplay_train(Path(d), card_line),
+            "skull_ctde_pool": skull_pool_train(Path(d), card_line),
         }
         for phase, out in runs.items():
             emit(phase, **out)
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
 
-    # Launches: the sum over the four train phases, each counted from 0.
+    # Launches: the sum over the six train phases, each counted from 0.
     table = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name][0],

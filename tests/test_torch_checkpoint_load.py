@@ -1,6 +1,7 @@
 """Loading a checkpoint into the port without JAX, for inference: the
-shipped Connect Four gauntlet checkpoint against the JAX package's own
-loader, and the port's save -> load round trip for the CNN."""
+shipped Connect Four gauntlet checkpoint and the two Skull CTDE ones
+against the JAX package's own loader, and the port's save -> load round
+trip for the CNN."""
 
 from pathlib import Path
 
@@ -80,3 +81,59 @@ def test_cnn_checkpoint_round_trip(split, tmp_path):
     template = jnet.init(jax.random.PRNGKey(0))
     for a, b in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(template)):
         assert a.shape == b.shape
+
+
+SKULL = Path(__file__).resolve().parent.parent / "gauntlet" / "skull"
+
+
+def _skull_states(n: int, seed: int = 0):
+    """Obs and privileged obs of n JAX Skull states (four players) reached
+    by random legal play."""
+    from burn_ppo_tpu.envs.base import EpisodeAccumulator as JaxAcc
+    from burn_ppo_tpu.envs.base import autoreset_step
+    from burn_ppo_tpu.envs.skull import Skull as JaxSkull
+
+    env = JaxSkull(4)
+    E = 8
+    key = jax.random.PRNGKey(seed)
+    state = jax.vmap(env.reset)(jax.random.split(key, E))
+    acc = JaxAcc(reward_sum=jax.numpy.zeros((E, 4)), length=jax.numpy.zeros(E, jax.numpy.int32))
+    step = jax.jit(jax.vmap(lambda s, a, act, k: autoreset_step(env, s, a, act, k)[:2]))
+    views = jax.jit(lambda s: (jax.vmap(env.obs)(s), jax.vmap(env.privileged_obs)(s),
+                               jax.vmap(env.action_mask)(s)))
+    rng = np.random.default_rng(seed)
+    obs, priv = [], []
+    while sum(len(o) for o in obs) < n:
+        o, p, m = (np.asarray(x) for x in views(state))
+        obs.append(o)
+        priv.append(p)
+        actions = np.array([rng.choice(np.flatnonzero(r)) for r in m], np.int32)
+        key, sub = jax.random.split(key)
+        state, acc = step(state, acc, jax.numpy.asarray(actions), jax.random.split(sub, E))
+    return np.concatenate(obs)[:n], np.concatenate(priv)[:n]
+
+
+@pytest.mark.parametrize("name", ["r4", "r4_flagship"])
+def test_skull_gauntlet_ctde_forward_matches_jax(name):
+    """Both committed Skull checkpoints: CTDE 512x2 tanh with obs
+    normalisation (r4), CTDE 256x3 relu (r4_flagship)."""
+    path = SKULL / name
+    net, meta = load_model(path)
+    norm = load_obs_normalizer(path)
+    assert meta["network_type"] == "ctde" and net.is_ctde
+    assert (norm is not None) == (name == "r4")
+    jnet, jparams, _ = JaxCheckpoints.load_model(path)
+    jnorm = JaxCheckpoints.load_obs_normalizer(path)
+    obs, priv = _skull_states(192, seed=len(name))
+    assert len({o.tobytes() for o in obs}) > 80
+    nobs = obs if jnorm is None else np.asarray(jax_obs_norm_apply(jnorm, obs))
+    j_logits = jnet.forward_actor(jparams, nobs)
+    j_values = jnet.forward_critic(jparams, priv, nobs)
+    t_obs = torch.from_numpy(obs)
+    with torch.no_grad():
+        t_logits, t_values = net(t_obs if norm is None else obs_norm_apply(norm, t_obs),
+                                 torch.from_numpy(priv))
+    # f32 on both sides at full matmul precision; the logits reach |20|,
+    # where another summation order moves the last bits: rtol 1e-5 + atol 1e-5.
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t_values.numpy(), np.asarray(j_values), rtol=1e-5, atol=1e-5)

@@ -99,3 +99,30 @@ def test_four_player_ties_use_the_1224_rule_like_jax():
     for k in j:
         np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=1e-6, atol=1e-6, err_msg=k)
     assert float(t["count"]) == 5 and float(t["draws"]) == 1
+
+
+def test_skull_placements_award_six_points_a_game_like_jax():
+    """Four-player Skull outcomes, ties included, from the port's own
+    ``game_outcome``: every game hands out P (P - 1) / 2 = 6 Swiss points."""
+    from burn_ppo_torch.envs.skull import Skull
+
+    rng = np.random.default_rng(4)
+    env = Skull(4)
+    E = 64
+    s = env.reset(torch.empty(E, 0))
+    s.wins[:, :4] = torch.from_numpy(rng.integers(0, 2, (E, 4)).astype(np.int32))
+    s.rose_count[:, :4] = torch.from_numpy(rng.integers(0, 2, (E, 4)).astype(np.int32))
+    s.winner[:] = torch.from_numpy(rng.integers(-1, 4, E).astype(np.int32))
+    outcome = env.game_outcome(s).numpy()[None]
+    tied = np.array([len(set(row)) < 4 for row in outcome[0]])
+    assert tied.sum() > 10 and (~tied).sum() > 0
+    raw = dict(completed=np.ones((1, E), bool), total_rewards=np.zeros((1, E, 4), np.float32),
+               length=np.full((1, E), 30, np.int32), outcome=outcome,
+               active_players=np.full((1, E), 4, np.int32))
+    j = jax_summarize(_JaxLog(**{k: jnp.asarray(v) for k, v in raw.items()}), 4)
+    t = summarize_episode_logs(EpisodeLog(**{
+        k: torch.from_numpy(v.astype(np.float32) if k == "completed" else v)
+        for k, v in raw.items()}), 4)
+    for k in j:
+        np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=1e-6, atol=1e-5, err_msg=k)
+    assert float(t["pts_sum"].sum()) == pytest.approx(6.0 * E)

@@ -18,17 +18,26 @@ from burn_ppo_torch.device import resolve_device  # noqa: E402
 from burn_ppo_torch.envs.base import EpisodeAccumulator  # noqa: E402
 from burn_ppo_torch.envs.cartpole import CartPole, cartpole_step_autoreset  # noqa: E402
 from burn_ppo_torch.envs.connect_four import ConnectFour, connect_four_step_autoreset  # noqa: E402
+from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset  # noqa: E402
 from burn_ppo_torch.ops.categorical import masked_sample  # noqa: E402
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer  # noqa: E402
 from burn_ppo_torch.envs.base import EpisodeLog  # noqa: E402
 from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs  # noqa: E402
-from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, obs_norm_update  # noqa: E402
+from burn_ppo_torch.ppo.normalization import (  # noqa: E402
+    ObsNormState,
+    ReturnNormState,
+    obs_norm_apply,
+    obs_norm_update,
+    return_norm_finalize,
+    return_norm_roll,
+)
 from burn_ppo_torch.ppo.pool_rollout import OpponentStack, opponent_actor_forward  # noqa: E402
 from burn_ppo_torch.ppo.update import PPOUpdateConfig, clip_adam, ppo_loss  # noqa: E402
 
 WRAPPERS = (cartpole_step_autoreset, connect_four_step_autoreset, masked_sample, compute_gae,
             compute_gae_multiplayer, obs_norm_apply, obs_norm_update, opponent_actor_forward,
-            ppo_loss, clip_adam, summarize_episode_logs)
+            ppo_loss, clip_adam, summarize_episode_logs, skull_step_autoreset, return_norm_roll,
+            return_norm_finalize)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -139,6 +148,17 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                       outcome=torch.ones(2, E, 2, dtype=torch.int32),
                       active_players=torch.full((2, E), 2, dtype=torch.int32))
     assert float(summarize_episode_logs(logs, 2, num_envs=3)["count"]) == 6
+    sk = Skull(4)
+    out = sk.step_autoreset(sk.reset(torch.empty(E, 0)), EpisodeAccumulator.zero(E, 4, cpu),
+                            torch.full((E,), 1, dtype=torch.int32), torch.empty(E, 0),
+                            torch.full((E,), 0.5))
+    assert out.obs.shape == (E, 135) and out.mask.shape == (E, 33) and out.priv.shape == (E, 200)
+    ret, samples = return_norm_roll(torch.zeros(E, 4), torch.ones(E),
+                                    torch.zeros(E, dtype=torch.int32), torch.zeros(E), 0.99)
+    assert ret.shape == (E, 4) and samples.shape == (E,)
+    rn, norm_r = return_norm_finalize(ReturnNormState.create(E, 4, cpu), torch.ones(3, E),
+                                      torch.ones(3, E))
+    assert norm_r.shape == (3, E) and float(rn.count) == 3 * E
     after = [w.launches for w in WRAPPERS]
     assert before == after == [0] * len(WRAPPERS)
 
@@ -156,9 +176,10 @@ def test_kernel_library_is_content_addressed_under_the_repo_cache():
     assert {p.name for p in kernels.sources()} >= {
         "cartpole_step.cu", "masked_gumbel_sample.cu", "gae.cu", "connect_four_step.cu",
         "gae_multiplayer.cu", "obs_norm.cu", "opponent_actor.cu", "ppo_loss.cu", "clip_adam.cu",
-        "episode_stats.cu",
+        "episode_stats.cu", "skull_step.cu", "return_norm.cu",
     }
     assert {name for name in kernels.SIGNATURES} >= {
-        "opp_slot_sort", "opp_grouped_dense", "ppo_loss_forward", "clip_adam", "episode_stats"}
+        "opp_slot_sort", "opp_grouped_dense", "ppo_loss_forward", "clip_adam", "episode_stats",
+        "skull_step_autoreset", "return_norm_roll", "return_norm_finalize"}
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
     assert "--use_fast_math" not in kernels.NVCC_FLAGS

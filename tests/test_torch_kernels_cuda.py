@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K10 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K12 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -21,12 +21,20 @@ from burn_ppo_torch.ops.gae import (
 )
 from burn_ppo_torch.envs.base import EpisodeLog
 from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs, summarize_episode_logs_plain
+from burn_ppo_torch.envs.skull import FIELDS as SKULL_FIELDS
+from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset, walk_actions
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
+    ReturnNormState,
     obs_norm_apply,
     obs_norm_apply_plain,
     obs_norm_update,
     obs_norm_update_plain,
+    return_norm_finalize,
+    return_norm_finalize_f64,
+    return_norm_finalize_f64_plain,
+    return_norm_roll,
+    return_norm_roll_plain,
 )
 from burn_ppo_torch.ppo.pool_rollout import (
     OpponentStack,
@@ -393,3 +401,91 @@ def test_episode_stats_kernel_matches_plain(dev, T, E, P, L):
         assert torch.equal(k[key], p[key]), key
     for key in ("ret_sum", "pts_sum"):
         torch.testing.assert_close(k[key], p[key], rtol=1e-6, atol=1e-3)
+
+
+@pytest.mark.parametrize("E,n", [(1, 4), (257, 2), (4096, 4), (512, 6)])
+def test_skull_kernel_matches_plain_exactly(dev, E, n):
+    """K11 against the plain step along a walk of 150 steps, every output
+    equal bit for bit; forced discards, finished games fed back in and a
+    shaping coefficient on half the envs."""
+    import dataclasses
+
+    g = torch.Generator(device=dev).manual_seed(E + n)
+    env = Skull(n)
+    empty = torch.empty(E, 0, device=dev)
+    state = env.reset(empty)
+    state = dataclasses.replace(state, shaping_coef=(torch.arange(E, device=dev) % 2) * 0.05)
+    acc = EpisodeAccumulator.zero(E, n, dev)
+    dones = 0
+    for _ in range(150):
+        fd = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
+        fd = torch.where(torch.rand(E, generator=g, device=dev) < 0.15, fd, -1)
+        over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
+        state = dataclasses.replace(state, forced_discard=fd, game_over=over)
+        action = walk_actions(env.action_mask(state), g)
+        u = torch.rand(E, generator=g, device=dev)
+        before = skull_step_autoreset.launches
+        k = env.step_autoreset(state, acc, action, empty, u)
+        torch.cuda.synchronize()
+        assert skull_step_autoreset.launches == before + 1
+        p = autoreset_step(env, state, acc, action, empty, u)
+        pairs = [(getattr(k.state, f), getattr(p.state, f)) for f in SKULL_FIELDS]
+        pairs += [(getattr(k.log, f), getattr(p.log, f))
+                  for f in ("completed", "total_rewards", "length", "outcome", "active_players")]
+        pairs += [(k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
+                  (k.rewards, p.rewards), (k.done, p.done), (k.obs, p.obs), (k.mask, p.mask),
+                  (k.priv, p.priv)]
+        for a, b in pairs:
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        dones += int(p.done.sum())
+        state, acc = p.state, p.acc
+    assert dones > 0
+
+
+@pytest.mark.parametrize("E,P", [(4096, 1), (4096, 4), (5, 3)])
+def test_return_norm_roll_kernel_matches_plain_exactly(dev, E, P):
+    g = torch.Generator(device=dev).manual_seed(E + P)
+    returns = torch.randn(E, P, generator=g, device=dev)
+    rewards = torch.randn(E, generator=g, device=dev)
+    acting = torch.randint(0, P, (E,), generator=g, device=dev, dtype=torch.int32)
+    dones = (torch.rand(E, generator=g, device=dev) < 0.1).float()
+    before = return_norm_roll.launches
+    k = return_norm_roll(returns, rewards, acting, dones, 0.99)
+    torch.cuda.synchronize()
+    assert return_norm_roll.launches == before + 1
+    p = return_norm_roll_plain(returns, rewards, acting, dones, 0.99)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("N,weighted,filled", [(524288, False, False), (524288, True, True),
+                                               (1, False, False), (7, True, False),
+                                               (100003, False, True)])
+def test_return_norm_finalize_kernel_matches_plain(dev, N, weighted, filled):
+    """The f64 stats to 1e-12 relative, the normalized rewards to f32
+    rounding (2 ulp), the pass-through below a count of 2 exact."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    samples = torch.randn(N, generator=g, device=dev) * 3 + 1
+    rewards = torch.randn(N, generator=g, device=dev)
+    valid = (torch.rand(N, generator=g, device=dev) < 0.7).float() if weighted else None
+    z = torch.zeros((), device=dev)
+    state = ReturnNormState(returns=torch.zeros(1, 1, device=dev), mean=z + (0.4 if filled else 0),
+                            m2=z + (9e5 if filled else 0), count=z + (1e5 if filled else 0))
+    before = return_norm_finalize.launches
+    ks, kn = return_norm_finalize_f64(state, samples, rewards, 10.0, valid)
+    torch.cuda.synchronize()
+    assert return_norm_finalize.launches == before + 1
+    ps, pn = return_norm_finalize_f64_plain(state, samples, rewards, 10.0, valid)
+    assert torch.all((ks - ps).abs() <= 1e-12 * ps.abs())
+    assert torch.all((kn - pn).abs() <= 2.4e-7 * pn.abs())
+
+
+def test_return_norm_finalize_kernel_leaves_the_state_without_valid_samples(dev):
+    N = 1000
+    z = torch.zeros((), device=dev)
+    state = ReturnNormState(returns=torch.zeros(1, 1, device=dev), mean=z + 0.1234567,
+                            m2=z + 7.654321, count=z + 77.0)
+    new, _ = return_norm_finalize(state, torch.randn(N, device=dev), torch.randn(N, device=dev),
+                                     10.0, torch.zeros(N, device=dev))
+    torch.cuda.synchronize()
+    for f in ("mean", "m2", "count"):
+        assert torch.equal(getattr(new, f), getattr(state, f))

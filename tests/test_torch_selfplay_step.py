@@ -266,8 +266,8 @@ def test_plain_connect_four_config_is_refused_with_the_flag_to_pass(tmp_path, ca
 @pytest.mark.parametrize("overrides,item", [
     ({"opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12"),
     ({"env": "liars_dice"}, "A13"),
-    ({"env": "skull"}, "A13"),
-    ({"network_type": "ctde"}, "A14"),
+    ({"env": "liars_dice", "network_type": "ctde"}, "A13"),
+    ({"env": "skull", "network_type": "ctde", "normalize_values": True}, "A14"),
     ({"normalize_values": True}, "A14"),
     ({"adaptive_entropy": 1.0}, "A11"),
     ({"opponent_pool_fraction": 0.25, "pool_rotation_interval": 2}, "A12c"),
