@@ -14,7 +14,8 @@ exception, because a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it.
 
 The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
-``envs/connect_four.py``, ``envs/skull.py``, ``ops/categorical.py``,
+``envs/connect_four.py``, ``envs/skull.py``, ``envs/liars_dice.py``,
+``ops/categorical.py``,
 ``ops/gae.py``, ``ppo/normalization.py``, ``ppo/pool_rollout.py``,
 ``ppo/update.py``, ``ppo/episode_stats.py``) and use the helpers below.
 """
@@ -90,6 +91,9 @@ SIGNATURES = {
     # samples, rewards, valid (nullable), mean, m2, count, scratch,
     # normalized, stats (f64 [3]), N, G, clip, stream
     "return_norm_finalize": [_VP] * 9 + [_L, _I, _F, _VP],
+    # packed state, shaping, reward_sum, length, action, reset and step
+    # uniforms, the i32 and the f32 output buffer, num_envs, stream
+    "liars_dice_step_autoreset": [_VP] * 9 + [_I, _VP],
 }
 
 _LOCK = threading.Lock()

@@ -14,9 +14,9 @@ records) once per update, in one transfer.
 The ``Trainer`` supports fresh single-player runs, pure self-play, and
 self-play against the opponent pool (``opponent_pool_fraction > 0``,
 the MLP or CTDE, one opponent rotation per update), on CartPole, Connect
-Four and Skull (a fixed player count, ``player_count``; the scheduled
-``reward_shaping_coef`` is written into the env states before every
-rollout): the pool and the rating
+Four, Liar's Dice and Skull (a fixed player count, ``player_count``; the
+scheduled ``reward_shaping_coef`` is written into the env states before
+every rollout): the pool and the rating
 history start with the run, every update samples a rotation and folds
 its game records into the win rates and the rating log, and every
 checkpoint joins the pool, recomputes the Plackett-Luce ratings and moves
@@ -47,7 +47,7 @@ from burn_ppo_torch.config import Config
 from burn_ppo_torch.metrics import MetricsLogger
 from burn_ppo_torch.progress import TrainingProgress
 from burn_ppo_torch.device import resolve_device
-from burn_ppo_torch.envs import make_env
+from burn_ppo_torch.envs import make_env, registered_envs
 from burn_ppo_torch.envs.base import Environment
 from burn_ppo_torch.models.network import ActorCriticNetwork, make_network
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
@@ -288,9 +288,7 @@ def extract_pool_records(pool_records, num_players: int) -> np.ndarray:
 def unsupported_config(cfg: Config) -> Optional[str]:
     """Why this config cannot run on the port yet, naming the ROADMAP item;
     None when it can."""
-    if cfg.env == "liars_dice":
-        return f"env {cfg.env!r}: ROADMAP A13/B12"
-    if cfg.env not in ("cartpole", "connect_four", "skull"):
+    if cfg.env not in registered_envs():
         return f"env {cfg.env!r}: not an env of the JAX package either"
     if cfg.env != "cartpole" and cfg.opponent_pool_fraction > 0.0:
         if cfg.network_type == "cnn":
@@ -300,9 +298,9 @@ def unsupported_config(cfg: Config) -> Optional[str]:
         if cfg.pool_rotation_interval > 1:
             return (f"pool_rotation_interval {cfg.pool_rotation_interval} (several vs-pool "
                     "updates per rotation): ROADMAP A12c; the port rotates every update")
-    if cfg.network_type == "ctde" and cfg.env != "skull":
-        return (f"network_type 'ctde' needs an env with privileged observations (skull), "
-                f"not {cfg.env!r}; the JAX package cannot build it either")
+    if cfg.network_type == "ctde" and make_env(cfg.env).spec.privileged_obs_dim is None:
+        return (f"network_type 'ctde' needs an env with privileged observations (liars_dice, "
+                f"skull), not {cfg.env!r}; the JAX package cannot build it either")
     if cfg.normalize_values:
         return "normalize_values (PopArt): ROADMAP A14"
     if cfg.adaptive_entropy is not None:

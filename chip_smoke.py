@@ -25,9 +25,21 @@ exits non-zero without the final result line:
      random-legal walks at 4, 2 and 6 players with invalid actions,
      finished games and forced discards), K12 return normaliser (roll at
      [4096, 1] and [4096, 4]; finalize at [524288] with and without a
-     valid mask), K2 at [4096, 33] on Skull's own masks;
+     valid mask), K2 at [4096, 33] on Skull's own masks; K13 Liar's Dice
+     step (E = 4096, exact, along a random-legal walk with calls,
+     eliminations, finished games, invalid and out-of-range actions and
+     full 16-row histories, each counted and required), and the older
+     kernels at the Liar's Dice shapes: K2 at [4096, 49] on its masks, K5
+     at [128, 4096, 4], K6 apply at [4096, 270] and update at
+     [524288, 270], K7 at the pool block Ep = 1024, K = 8 for the CTDE
+     actor 270 -> 256 -> 256 -> 49 and the MLP 270 -> 512 x3 -> 49 with
+     per-slot obs norm, K8 at [65536, 49], K9 at the CTDE's 873,778 and
+     the MLP's 689,714 parameters, K10 at [128, 3072] of [128, 4096],
+     P = 4;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
+     a kernel time the profiler does not see (no CUDA kernel recorded in
+     two tries) is reported as null, never as 0;
   3. the CartPole bench-shape train path through the CLI entry point
      (MLP 64x2, 4096 envs x 128 steps, obs norm on, 5 updates);
   3b. Connect Four self-play through the CLI (configs/connect_four.toml,
@@ -50,6 +62,16 @@ exits non-zero without the final result line:
      and rating files, the learner's valid share strictly between L / E
      and (L + Ep/2) / E (three of four seats of a pool env are the
      opponents');
+  3g. Liar's Dice, four players, CTDE against the pool
+     (configs/liars_dice_ctde.toml as users run it: CTDE actor 256x2 and
+     critic 512x3 relu, shaping 0.05, pool fraction 0.25, 4 epochs x 8
+     minibatches, 4096 x 128), a checkpoint after every update, 10
+     updates: the rotation reaches K = 8, the pool and rating files, the
+     learner's valid share strictly between L / E and (L + Ep/2) / E,
+     Swiss points 6 a game;
+  3h. Liar's Dice with the MLP 512x3 against the pool
+     (configs/liars_dice.toml --normalize-obs, 4096 x 128), 3 updates: K6
+     at width 270 and K7 with MLP towers and per-slot obs norm;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps.
 
@@ -90,6 +112,12 @@ from burn_ppo_torch.envs.connect_four import (  # noqa: E402
     connect_four_step_autoreset,
     has_win,
 )
+from burn_ppo_torch.envs.liars_dice import (  # noqa: E402
+    LiarsDice,
+    LiarsDiceState,
+    liars_dice_step_autoreset,
+)
+from burn_ppo_torch.envs.liars_dice import walk_actions as liars_dice_actions  # noqa: E402
 from burn_ppo_torch.envs.skull import FIELDS as SKULL_FIELDS  # noqa: E402
 from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset, walk_actions  # noqa: E402
 from burn_ppo_torch.ops.categorical import (  # noqa: E402
@@ -145,6 +173,12 @@ EP = 1024  # pool envs at 4096 envs and pool fraction 0.25
 T_SKULL_POOL = 128  # configs/skull_ctde.toml's steps per update
 EP_SKULL = 1229  # pool envs at 4096 envs and pool fraction 0.3
 SKULL_CTDE_PARAMS = 784418  # CTDE actor and critic 512x2 on Skull's 135 + 200 inputs
+T_LD = 128  # configs/liars_dice*.toml's steps per update
+EP_LD = 1024  # pool envs at 4096 envs and pool fraction 0.25
+LD_OBS = 270
+LD_CTDE_PARAMS = 873778  # CTDE actor 256x2 on 270, critic 512x3 on 120 + 270
+LD_MLP_PARAMS = 689714  # MLP 512x3 on 270 -> 49 + value head
+LD_UPDATES_MLP = 3
 # Published H100 SXM peaks (NVIDIA data sheet): HBM, and f32 and f64
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -166,6 +200,7 @@ WRAPPERS = {
     "skull_step_autoreset": skull_step_autoreset,
     "return_norm_roll": return_norm_roll,
     "return_norm_finalize": return_norm_finalize,
+    "liars_dice_step_autoreset": liars_dice_step_autoreset,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -193,6 +228,8 @@ SOURCES = {
                          "burn_ppo_tpu/ppo/normalization.py:105"),
     "return_norm_finalize": ("burn_ppo_torch/csrc/return_norm.cu",
                              "burn_ppo_tpu/ppo/normalization.py:136"),
+    "liars_dice_step_autoreset": ("burn_ppo_torch/csrc/liars_dice_step.cu",
+                                  "burn_ppo_tpu/envs/liars_dice.py:133"),
 }
 
 
@@ -227,26 +264,60 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, tries: int = 3) -> tuple:
     """Kernel time per call on the card, from the profiler: the CUDA-typed
-    events only (a CPU op's device column counts the same kernels again)."""
+    events only (a CPU op's device column counts the same kernels again).
+    The profiler loses a launch now and then, most often one at the start
+    of a profile, so a kernel's sum over ``reps`` calls reads low: each
+    kernel counts as the mean of its recorded launches times its launches
+    per call, ceil(recorded / reps), which holds while fewer than ``reps``
+    of a kernel's launches are lost. Returns (ms, launches lost), or (None,
+    None) when no profile of ``tries`` recorded a kernel: a reading of 0 is
+    no measurement."""
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    return kernels_us / 1e3 / reps
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            per_call = [math.ceil(e.count / reps) for e in kernels]
+            ms = sum(e.self_device_time_total / e.count * n for e, n in zip(kernels, per_call)) / 1e3
+            return ms, sum(n * reps - e.count for e, n in zip(kernels, per_call))
+    return None, None
 
 
 def timed(kernel, plain) -> dict:
     """Events time (the wrapper's host work included) and profiler device
-    time of one call, for the kernel's wrapper and its plain version."""
-    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "device_ms": device_ms(kernel), "plain_device_ms": device_ms(plain)}
+    time of one call, for the kernel's wrapper and its plain version, with
+    the launches the profiler lost in ten calls; a device time the profiler
+    did not see is null, with a note."""
+    out = {"ms": time_ms(kernel), "plain_ms": time_ms(plain)}
+    for key, fn in (("device_ms", kernel), ("plain_device_ms", plain)):
+        out[key], out[f"{key}_launches_lost"] = device_ms(fn)
+        if out[key] is None:
+            out["device_note"] = "; ".join(filter(None, (
+                out.get("device_note"), f"{key}: the profiler recorded no kernel in three "
+                "profiles; not measured")))
+    return out
+
+
+def screen_device_times(node) -> None:
+    """A device time under the bound beside it is no measurement (a launch
+    the profiler missed, or inputs left in L2 by the call before): null,
+    with the reading in a note. Walks every dict of the checks."""
+    if isinstance(node, dict):
+        b = node.get("bound_ms")
+        for k in ("device_ms", "plain_device_ms"):
+            if b is not None and node.get(k) is not None and node[k] < b:
+                note = f"{k} read {node[k]} ms, under the bound {b} ms: not measured"
+                node["device_note"] = "; ".join(filter(None, (node.get("device_note"), note)))
+                node[k] = None
+        for v in node.values():
+            screen_device_times(v)
 
 
 def max_err(pairs) -> float:
@@ -597,6 +668,87 @@ def check_skull(dev, g) -> tuple:
     return out, k.mask, k.obs
 
 
+def liars_dice_walk(dev, g, steps: int) -> tuple:
+    """K13 against the plain step at every step of a random-legal walk of
+    4096 envs (``walk_actions``: calls, patient rounds, 1% unmasked and
+    0.5% out-of-range actions): every output equal, bit for bit. Before
+    each step 0.3% of the envs are marked finished; half play with a
+    shaping coefficient of 0.05. Returns (env, the last step's inputs and
+    K13 output, event counts)."""
+    env = LiarsDice()
+    state = env.reset(torch.rand(E, 8, generator=g, device=dev))
+    state = LiarsDiceState(state.ints, (torch.arange(E, device=dev) % 2) * 0.05)
+    acc = EpisodeAccumulator.zero(E, 4, dev)
+    ev = dict.fromkeys(("calls", "dice_lost", "eliminations", "game_ends", "finished_games_in",
+                        "invalid_actions", "out_of_range_actions", "full_histories",
+                        "shaped_rounds"), 0)
+    for _ in range(steps):
+        over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
+        state = LiarsDiceState.of(state.shaping_coef, **{**state.fields(), "game_over": over})
+        mask = env.action_mask(state)
+        action = liars_dice_actions(mask, g)
+        u_reset = torch.rand(E, 8, generator=g, device=dev)
+        u_step = torch.rand(E, 8, generator=g, device=dev)
+        k = env.step_autoreset(state, acc, action, u_reset, u_step)
+        p = autoreset_step(env, state, acc, action, u_reset, u_step)
+        torch.cuda.synchronize()
+        pairs = {"state.ints": (k.state.ints, p.state.ints),
+                 "state.shaping_coef": (k.state.shaping_coef, p.state.shaping_coef)}
+        pairs.update({f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
+                      for f in ("completed", "total_rewards", "length", "outcome",
+                                "active_players")})
+        pairs.update({"acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
+                      "acc.length": (k.acc.length, p.acc.length), "rewards": (k.rewards, p.rewards),
+                      "done": (k.done, p.done), "obs": (k.obs, p.obs), "mask": (k.mask, p.mask),
+                      "priv": (k.priv, p.priv)})
+        for name, (a, b) in pairs.items():
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"liars_dice_step_autoreset: {name} differs from plain")
+        stepped, _, _ = env.step(state, action, u_step)
+        in_range = (action >= 0) & (action < 49)
+        legal = torch.gather(mask, 1, action.long().clamp(0, 48)[:, None])[:, 0] > 0
+        valid = in_range & legal & ~state.game_over
+        done = k.done > 0
+        ev["calls"] += int((valid & (action == 48)).sum())
+        ev["dice_lost"] += int((state.dice_count.sum(1) - stepped.dice_count.sum(1)).sum())
+        ev["eliminations"] += int((stepped.num_eliminated > state.num_eliminated).sum())
+        ev["game_ends"] += int((done & valid).sum())
+        ev["finished_games_in"] += int(state.game_over.sum())
+        ev["invalid_actions"] += int((~valid & ~state.game_over).sum())
+        ev["out_of_range_actions"] += int((~in_range).sum())
+        ev["full_histories"] += int((state.hist_len == 16).sum())
+        ev["shaped_rounds"] += int(((k.rewards != 0).any(1) & ~done).sum())
+        last = (state, acc, action, u_reset, u_step, k)
+        state, acc = k.state, k.acc
+    return env, last, ev
+
+
+def check_liars_dice(dev, g) -> tuple:
+    """K13 along a walk of 300 steps at E = 4096; every event must occur.
+    Returns (the check, the last mask and obs for K2, K6 and K7)."""
+    env, (s, a, act, ur, us, k), ev = liars_dice_walk(dev, g, 300)
+    missing = [name for name, n in ev.items() if n == 0]
+    if missing:
+        raise AssertionError(f"liars_dice_step_autoreset: no {missing} in the walk: {ev}")
+    # The kernel reads an env's reset uniforms only where the step is done
+    # and its step uniforms only where a call opens a new round: one
+    # 32-byte row (8 floats, one sector) each.
+    done = k.done > 0
+    new_round = (act == 48) & (s.bid_qty > 0) & ~s.game_over & ~done
+    uniform_rows = int(done.sum()) + int(new_round.sum())
+    out = {
+        "max_abs_err": 0.0, "tol": "exact", "steps": 300, "events": ev,
+        **timed(lambda: env.step_autoreset(s, a, act, ur, us),
+                lambda: autoreset_step(env, s, a, act, ur, us)),
+        "library_ms": None,
+        "uniform_rows_read": {"reset": int(done.sum()), "step": int(new_round.sum())},
+        # the mask, the step, the reset, obs and privileged obs: ~1,500
+        # integer and f32 operations per env
+        **bound(nbytes(s, a, act, k) + uniform_rows * 8 * 4, 1500.0 * E),
+    }
+    return out, k.mask, k.obs
+
+
 def check_return_norm_roll(dev, g) -> dict:
     """K12's roll at CartPole's [4096, 1] and at [4096, 4]: exact."""
     out = {"max_abs_err": 0.0, "tol": "exact"}
@@ -662,63 +814,67 @@ def check_return_norm_finalize(dev, g) -> dict:
     return out
 
 
-def turn_based_rollout(dev, g, P: int):
-    """[64, 4096, P] rewards, dones ~5%, acting players in turn order
+def turn_based_rollout(dev, g, P: int, steps: int = T_C4):
+    """[steps, 4096, P] rewards, dones ~5%, acting players in turn order
     with a random first player after every episode end."""
-    done = (torch.rand(T_C4, E, generator=g, device=dev) < 0.05).float()
-    acting = torch.empty(T_C4, E, dtype=torch.int32, device=dev)
+    done = (torch.rand(steps, E, generator=g, device=dev) < 0.05).float()
+    acting = torch.empty(steps, E, dtype=torch.int32, device=dev)
     cur = torch.randint(0, P, (E,), generator=g, device=dev, dtype=torch.int32)
-    for t in range(T_C4):
+    for t in range(steps):
         acting[t] = cur
         restart = torch.randint(0, P, (E,), generator=g, device=dev, dtype=torch.int32)
         cur = torch.where(done[t] > 0, restart, (cur + 1) % P)
-    outcome = torch.randn(T_C4, E, P, generator=g, device=dev).sign()
-    noise = torch.randn(T_C4, E, P, generator=g, device=dev) * 0.1
-    noise *= torch.rand(T_C4, E, P, generator=g, device=dev) < 0.1
+    outcome = torch.randn(steps, E, P, generator=g, device=dev).sign()
+    noise = torch.randn(steps, E, P, generator=g, device=dev) * 0.1
+    noise *= torch.rand(steps, E, P, generator=g, device=dev) < 0.1
     rewards = torch.where(done[..., None] > 0, outcome, 0.0) + noise
-    values = torch.randn(T_C4, E, generator=g, device=dev) * 0.5
+    values = torch.randn(steps, E, generator=g, device=dev) * 0.5
     last_vpp = torch.randn(E, P, generator=g, device=dev) * 0.5
     return rewards, values, done, acting, last_vpp
 
 
 def check_gae_multiplayer(dev, g) -> dict:
     out = {"tol": 1e-5}
-    for P in (2, 4):
-        args = turn_based_rollout(dev, g, P)
+    for P, steps in ((2, T_C4), (4, T_C4), (4, T_LD)):
+        args = turn_based_rollout(dev, g, P, steps)
         adv_k, ret_k = compute_gae_multiplayer(*args, 0.99, 0.95)
         adv_p, ret_p = compute_gae_multiplayer_plain(*args, 0.99, 0.95)
         torch.cuda.synchronize()
         err = max_err([(adv_k, adv_p), (ret_k, ret_p)])
         if not err <= 1e-5:
             raise AssertionError(f"gae_multiplayer_reverse_scan P={P}: max abs err {err} > 1e-5")
-        out[f"P{P}"] = {
+        name = f"P{P}" if steps == T_C4 else f"T{steps}_P{P}"
+        out[name] = {
             "max_abs_err": err,
             **timed(lambda: compute_gae_multiplayer(*args, 0.99, 0.95),
                     lambda: compute_gae_multiplayer_plain(*args, 0.99, 0.95)),
+            "library_ms": None, **bound(nbytes(*args, adv_k, ret_k), 12.0 * steps * E * P),
         }
-        if P == 2:
-            out.update(library_ms=None, **bound(nbytes(*args, adv_k, ret_k), 12.0 * T_C4 * E * P))
-    out.update(max_abs_err=max(out["P2"]["max_abs_err"], out["P4"]["max_abs_err"]),
-               **{k: out["P2"][k] for k in TIMES})
+    out.update(max_abs_err=max(v["max_abs_err"] for k, v in out.items() if k.startswith(("P", "T"))),
+               **{k: out["P2"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
 
 
-def connect_four_like(dev, g, n: int) -> torch.Tensor:
-    """[n, 86] 0/1 columns with per-column rates, two of them constant."""
-    rate = torch.rand(86, generator=g, device=dev)
+def connect_four_like(dev, g, n: int, D: int = 86) -> torch.Tensor:
+    """[n, D] 0/1 columns with per-column rates, two of them constant
+    (Connect Four's 86 by default; Liar's Dice's obs are 270 such columns
+    but for a few fractions)."""
+    rate = torch.rand(D, generator=g, device=dev)
     rate[5], rate[40] = 0.0, 1.0
-    return (torch.rand(n, 86, generator=g, device=dev) < rate).float()
+    return (torch.rand(n, D, generator=g, device=dev) < rate).float()
 
 
-def check_obs_norm_apply(dev, g) -> dict:
-    D = 86
-    obs = connect_four_like(dev, g, E)
+def check_obs_norm_apply(dev, g, obs: torch.Tensor, rows: int) -> dict:
+    """K6's apply on ``obs`` [4096, D] to 1e-6, from states at count 0 and
+    1 (the identity) and merged from ``rows`` x D; timed on the merged one,
+    and on that update batch."""
+    D = obs.shape[1]
     z = torch.zeros(D, device=dev)
     states = {
         "count0": ObsNormState(mean=z, m2=z.clone(), count=torch.zeros((), device=dev)),
         "count1": ObsNormState(mean=obs[0].clone(), m2=z.clone(), count=torch.ones((), device=dev)),
         "merged": obs_norm_update_plain(ObsNormState.create(D, dev),
-                                        connect_four_like(dev, g, E * T_C4)),
+                                        connect_four_like(dev, g, rows, D)),
     }
     out = {"tol": 1e-6, "max_abs_err": 0.0}
     for name, st in states.items():
@@ -727,15 +883,15 @@ def check_obs_norm_apply(dev, g) -> dict:
         torch.cuda.synchronize()
         err = max_err([(k, p)])
         if not err <= 1e-6:
-            raise AssertionError(f"obs_norm_apply {name}: max abs err {err} > 1e-6")
+            raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: max abs err {err} > 1e-6")
         if name != "merged" and not torch.equal(k, obs):
-            raise AssertionError(f"obs_norm_apply {name}: not the identity below count 2")
+            raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: not the identity below count 2")
         out[name] = err
         out["max_abs_err"] = max(out["max_abs_err"], err)
     st = states["merged"]
     out.update(timed(lambda: obs_norm_apply(st, obs), lambda: obs_norm_apply_plain(st, obs)))
     out.update(library_ms=None, **bound(nbytes(obs, st) + nbytes(obs), 6.0 * obs.numel()))
-    batch = connect_four_like(dev, g, E * T_C4)
+    batch = connect_four_like(dev, g, rows, D)
     out["update_batch_ms"] = time_ms(lambda: obs_norm_apply(st, batch))
     out["update_batch_plain_ms"] = time_ms(lambda: obs_norm_apply_plain(st, batch))
     return out
@@ -743,16 +899,19 @@ def check_obs_norm_apply(dev, g) -> dict:
 
 def check_obs_norm_update(dev, g) -> dict:
     """Into an empty and into a filled state, at the Connect Four update
-    batch [262144, 86] and the CartPole one [524288, 5]: mean to 1e-6
-    absolute, m2 to 1e-5 relative, count exact. ``max_abs_err`` is the
-    mean's."""
+    batch [262144, 86], the CartPole one [524288, 5] and Liar's Dice's
+    [524288, 270]: mean to 1e-6 absolute, m2 to 1e-5 relative, count
+    exact. ``max_abs_err`` is the mean's; the top level's times are
+    Connect Four's."""
     batches = {
         "c4_262144x86": lambda: connect_four_like(dev, g, E * T_C4),
         "cartpole_524288x5": lambda: torch.randn(E * T, 5, generator=g, device=dev)
         * torch.tensor([1.0, 0.5, 0.1, 0.8, 0.3], device=dev)
         + torch.tensor([0.0, 0.1, 0.0, -0.1, 0.5], device=dev),
+        "liars_dice_524288x270": lambda: connect_four_like(dev, g, E * T_LD, LD_OBS),
     }
-    out = {"tol": {"mean": 1e-6, "m2_rel": 1e-5, "count": "exact"}, "max_abs_err": 0.0}
+    out = {"tol": {"mean": 1e-6, "m2_rel": 1e-5, "count": "exact"}, "max_abs_err": 0.0,
+           "library_call": "torch.var_mean(batch, dim=0) (the batch moments, no merge)"}
     for name, make in batches.items():
         x1, x2 = make(), make()
         st = ObsNormState.create(x1.shape[1], dev)
@@ -775,12 +934,11 @@ def check_obs_norm_update(dev, g) -> dict:
         out[name] = {
             "into_empty": errs[0], "into_filled": errs[1],
             **timed(lambda: obs_norm_update(st, x1), lambda: obs_norm_update_plain(st, x1)),
+            "library_ms": time_ms(lambda: torch.var_mean(x1, dim=0)),
+            # read the batch and the state, write the state
+            **bound(nbytes(x1) + 3 * x1.shape[1] * 4 * 2, 4.0 * x1.numel()),
         }
-    x = connect_four_like(dev, g, E * T_C4)
-    out.update(**{k: out["c4_262144x86"][k] for k in TIMES},
-               library_ms=time_ms(lambda: torch.var_mean(x, dim=0)),
-               library_call="torch.var_mean(batch, dim=0) (the batch moments, no merge)",
-               **bound(nbytes(x) + 3 * 86 * 4 * 2, 4.0 * x.numel()))
+    out.update({k: out["c4_262144x86"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
 
 
@@ -801,7 +959,7 @@ def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int
     return OpponentStack(weights=weights, biases=biases, activation=act, norm=norm)
 
 
-def check_opponent_actor(dev, g, skull_obs: torch.Tensor) -> dict:
+def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor) -> dict:
     """K7 at the pool block of the bench shape (Ep = 1024 rows), K = 8 and
     K = 3, relu and tanh, and at Skull's (Ep = 1229 rows of Skull obs, K =
     8, CTDE actor 135 -> 256 -> 256 -> 256 -> 33, relu, no obs
@@ -854,6 +1012,33 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor) -> dict:
                 2.0 * EP_SKULL * macs),
     }
     out["max_abs_err"] = max(out["max_abs_err"], out["skull_Ep1229_K8_ctde256x3"]["max_abs_err"])
+    # Liar's Dice's pool block (Ep = 1024 rows of its obs, K = 8): the CTDE
+    # actor 270 -> 256 -> 256 -> 49 without obs norm (liars_dice_ctde.toml),
+    # the MLP 270 -> 512 x3 -> 49 with per-slot obs norm (liars_dice.toml
+    # --normalize-obs).
+    obs = ld_obs[:EP_LD].contiguous()
+    for name, H, depth, normed in (("liars_dice_Ep1024_K8_ctde256x2", 256, 2, False),
+                                   ("liars_dice_Ep1024_K8_mlp512x3", 512, 3, True)):
+        stack = random_opponents(dev, g, 8, "relu", D=LD_OBS, H=H, A=49, depth=depth)
+        if not normed:
+            stack.norm = None
+        slot = torch.randint(0, 8, (EP_LD,), generator=g, device=dev, dtype=torch.int32)
+        k = opponent_actor_forward(obs, slot, stack)
+        p = opponent_actor_forward_plain(obs, slot, stack)
+        torch.cuda.synchronize()
+        if not bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())):
+            raise AssertionError(f"opponent_actor_forward {name}: max abs err {max_err([(k, p)])}")
+        xs = [torch.rand(8, EP_LD, w.shape[1], generator=g, device=dev) for w in stack.weights]
+        macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
+        out[name] = {
+            "max_abs_err": max_err([(k, p)]),
+            **timed(lambda: opponent_actor_forward(obs, slot, stack),
+                    lambda: opponent_actor_forward_plain(obs, slot, stack)),
+            "library_ms": time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+            **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + EP_LD * 49 * 4,
+                    2.0 * EP_LD * macs),
+        }
+        out["max_abs_err"] = max(out["max_abs_err"], out[name]["max_abs_err"])
     return out
 
 
@@ -886,7 +1071,7 @@ def check_ppo_loss(dev, g) -> dict:
     entry."""
     out = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
     for M, A, clip_value in ((65536, 7, False), (65536, 7, True), (65536, 33, False),
-                             (131072, 2, False)):
+                             (65536, 49, False), (131072, 2, False)):
         logits, values, mb = loss_batch(dev, g, M, A)
         cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
         k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
@@ -915,15 +1100,17 @@ def check_ppo_loss(dev, g) -> dict:
         # action), ratio, clip, value and metric terms (~60)
         **bound(moved, 65536 * (12.0 * 7 + 60.0)),
     )
-    logits, values, mb = loss_batch(dev, g, 65536, 33)
-    read = [t for k, t in mb.items() if k != "old_values"]
-    out["M65536_A33"] = {
-        **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
-                lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
-        "library_ms": None,
-        **bound(nbytes(logits, values, read) + nbytes(logits, values) + 15 * 4,
-                65536 * (12.0 * 33 + 60.0)),
-    }
+    for A in (33, 49):
+        logits, values, mb = loss_batch(dev, g, 65536, A)
+        read = [t for k, t in mb.items() if k != "old_values"]
+        out[f"M65536_A{A}"] = {
+            "max_abs_err": out[f"M65536_A{A}"],
+            **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
+                    lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
+            "library_ms": None,
+            **bound(nbytes(logits, values, read) + nbytes(logits, values) + 15 * 4,
+                    65536 * (12.0 * A + 60.0)),
+        }
     return out
 
 
@@ -933,7 +1120,7 @@ def check_clip_adam(dev, g) -> dict:
     three steps below and three above the max norm: to 1e-5 relative +
     1e-7 of the largest entry."""
     out = {"tol": "1e-5 * |plain| + 1e-7 * max|plain|", "max_abs_err": 0.0}
-    for n in (4739, 311304, SKULL_CTDE_PARAMS):
+    for n in (4739, 311304, SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
         for scale in (1e-3, 10.0):
             p_k = torch.randn(n, generator=g, device=dev)
             mu_k, nu_k = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
@@ -968,14 +1155,14 @@ def check_clip_adam(dev, g) -> dict:
         # read params, grads, mu, nu; write params, mu, nu
         **bound(7 * 4 * n, 20.0 * n),
     )
-    n = SKULL_CTDE_PARAMS
-    prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
-    mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
-    out[f"n{n}"] = {
-        **timed(lambda: clip_adam(prm, grads, mu, nu, **kw),
-                lambda: clip_adam_plain(prm, grads, mu, nu, **kw)),
-        "library_ms": None, **bound(7 * 4 * n, 20.0 * n),
-    }
+    for n in (SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
+        prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
+        mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+        out[f"n{n}"] = {
+            **timed(lambda: clip_adam(prm, grads, mu, nu, **kw),
+                    lambda: clip_adam_plain(prm, grads, mu, nu, **kw)),
+            "library_ms": None, **bound(7 * 4 * n, 20.0 * n),
+        }
     return out
 
 
@@ -1001,7 +1188,8 @@ def check_episode_stats(dev, g) -> dict:
     out = {"tol": {"count_len_draws_max_min": "exact", "sums": "1e-6 rel + 1e-3"},
            "max_abs_err": 0.0}
     L = E - EP
-    for T_, P, cols in ((T_C4, 2, L), (T_C4, 2, None), (T, 1, None), (T_C4, 4, E - EP_SKULL)):
+    for T_, P, cols in ((T_C4, 2, L), (T_C4, 2, None), (T, 1, None), (T_C4, 4, E - EP_SKULL),
+                        (T_LD, 4, E - EP_LD)):
         logs = episode_logs(dev, g, T_, P)
         k = summarize_episode_logs(logs, P, num_envs=cols)
         cut = EpisodeLog(**{f: getattr(logs, f)[:, :cols] for f in vars(logs)})
@@ -1017,8 +1205,8 @@ def check_episode_stats(dev, g) -> dict:
         out[name] = max_err([(k[f], p[f]) for f in p])
         out["max_abs_err"] = max(out["max_abs_err"], out[name])
 
-    def timing(P: int, cols: int) -> dict:
-        logs = episode_logs(dev, g, T_C4, P)
+    def timing(P: int, cols: int, T_: int = T_C4) -> dict:
+        logs = episode_logs(dev, g, T_, P)
         block = EpisodeLog(**{f: getattr(logs, f)[:, :cols] for f in vars(logs)})
         # The learner block's completed column is read whole; length, rewards
         # and placements only on the rows of completed episodes, as many as
@@ -1032,12 +1220,14 @@ def check_episode_stats(dev, g) -> dict:
                     lambda: summarize_episode_logs_plain(block, P)),
             "library_ms": None, "completed_rows": done,
             **bound(nbytes(block.completed) + done * row + (5 + 2 * P) * 4,
-                    T_C4 * cols + 30.0 * done),
+                    T_ * cols + 30.0 * done),
         }
 
     out.update(timing(2, L))
     name = f"T{T_C4}_P4_first{E - EP_SKULL}"
     out[name] = {"max_abs_err": out.pop(name), **timing(4, E - EP_SKULL)}
+    name = f"T{T_LD}_P4_first{E - EP_LD}"
+    out[name] = {"max_abs_err": out.pop(name), **timing(4, E - EP_LD, T_LD)}
     return out
 
 
@@ -1180,13 +1370,26 @@ def selfplay_pool_train(tmp: Path, card_line: str) -> dict:
     return out
 
 
-def skull_points(series: dict, updates: int) -> list:
-    """Per update, the four players' Swiss points summed: P (P - 1) / 2 =
-    6 a game, so 6 on average over any set of finished games."""
+def four_player_points(series: dict, updates: int) -> list:
+    """Per update, the four players' Swiss points summed over the learner
+    block's finished games: P (P - 1) / 2 = 6 a game, so 6 on average over
+    any set of finished games."""
     points = [sum(v) for v in zip(*(series[f"episode/player_{p}_points"] for p in range(4)))]
     if len(points) < updates - 1 or not all(abs(s - 6.0) <= 1e-4 for s in points):
         raise AssertionError(f"Swiss points per update do not sum to 6: {points}")
     return points
+
+
+def four_player_valid_share(series: dict, pool_updates: int, pool_envs: int) -> tuple:
+    """The learner's share of valid (learner-turn) samples per vs-pool
+    update, strictly between L / E and (L + Ep/2) / E: three of the four
+    seats of a pool env are the opponents'. Returns (shares, bounds)."""
+    share = series["train/learner_valid_fraction"]
+    L = E - pool_envs
+    lo, hi = L / E, (L + pool_envs / 2) / E
+    if len(share) != pool_updates or not all(lo < s_ < hi for s_ in share):
+        raise AssertionError(f"learner valid share {share} not strictly inside ({lo}, {hi})")
+    return share, [lo, hi]
 
 
 def skull_selfplay_train(tmp: Path, card_line: str) -> dict:
@@ -1205,46 +1408,50 @@ def skull_selfplay_train(tmp: Path, card_line: str) -> dict:
          "gae_multiplayer_reverse_scan": n},
         card_line,
     )
-    out.update(points_sum=skull_points(series, n),
+    out.update(points_sum=four_player_points(series, n),
                player_points=[series[f"episode/player_{p}_points"] for p in range(4)],
                length_mean=series["episode/length_mean"], policy_loss=series["train/policy_loss"])
     return out
 
 
-def skull_pool_train(tmp: Path, card_line: str) -> dict:
-    """configs/skull_ctde.toml as users run it (CTDE 256x3 relu, pool
-    fraction 0.3: L = 2867 learner envs, Ep = 1229 pool envs, three of the
-    four seats of a pool env the opponents'), 4096 x 128, a checkpoint
-    after every update, 10 updates: the rotation reaches K = 8."""
-    n = POOL_UPDATES
-    pool_updates = n - 1
-    run = tmp / "skull_pool"
+def four_player_pool_train(tmp: Path, card_line: str, name: str, args: list, step_kernel: str,
+                           steps: int, pool_envs: int, updates: int, network: str, obs_dim: int,
+                           expect: dict | None = None) -> dict:
+    """A four-player config against the opponent pool as users run it, at
+    4096 x ``steps``, a checkpoint after every update: update u runs
+    against min(u - 1, 8) opponents (the first, with an empty pool, is
+    pure self-play), so 10 updates reach K = 8. Per pool update: K2 twice
+    a step (learner, opponents), K7 once. Checks the pool's stats, the
+    rating files, the learner's valid share, Swiss points 6 a game and the
+    checkpoint's metadata."""
+    pool_updates = updates - 1
+    run = tmp / name
     out, series = train_phase(
-        run, ["--config", str(ROOT / "configs" / "skull_ctde.toml"), "--num-envs", str(E)],
-        n, E * T_SKULL_POOL,
-        {"skull_step_autoreset": n * T_SKULL_POOL,
-         "masked_gumbel_sample": (n + pool_updates) * T_SKULL_POOL,
-         "opponent_actor_forward": pool_updates * T_SKULL_POOL,
-         "gae_multiplayer_reverse_scan": n},
-        card_line, checkpoint_freq=E * T_SKULL_POOL,
+        run, [*args, "--num-envs", str(E)], updates, E * steps,
+        {step_kernel: updates * steps, "masked_gumbel_sample": (updates + pool_updates) * steps,
+         "opponent_actor_forward": pool_updates * steps, "gae_multiplayer_reverse_scan": updates,
+         **(expect or {})},
+        card_line, checkpoint_freq=E * steps,
     )
     stats = json.loads((run / "opponent_stats.json").read_text())["opponents"]
-    if len(stats) != n - 1:
-        raise AssertionError(f"the pool did not reach 8 opponents: {len(stats)} in the stats file")
+    # The stats file is written at each rotation's fold: after update u it
+    # lists the u - 1 checkpoints that were in the pool.
+    if len(stats) != pool_updates:
+        raise AssertionError(f"{name}: {len(stats)} opponents in the stats file, not {pool_updates}")
     for f in ("rating_games.jsonl", "rating_metadata.json", "checkpoints/best"):
         if not (run / f).exists():
-            raise AssertionError(f"Skull vs-pool run wrote no {f}")
-    share = series["train/learner_valid_fraction"]
-    L = E - EP_SKULL
-    lo, hi = L / E, (L + EP_SKULL / 2) / E
-    if len(share) != pool_updates or not all(lo < s < hi for s in share):
-        raise AssertionError(f"learner valid share {share} not strictly inside ({lo}, {hi})")
+            raise AssertionError(f"{name}: the run wrote no {f}")
+    share, bounds = four_player_valid_share(series, pool_updates, pool_envs)
+    meta = json.loads((run / "checkpoints" / "latest" / "metadata.json").read_text())
+    if (meta["network_type"], meta["obs_dim"], meta["num_players"]) != (network, obs_dim, 4):
+        raise AssertionError(f"{name}: checkpoint metadata {meta}")
     sps = series["perf/sps"]
-    out.update(rotation_sizes=[min(u - 1, 8) for u in range(1, n + 1)], opponents_in_pool=len(stats),
-               games_played=sum(x["games_played"] for x in stats), learner_valid_share=share,
-               learner_valid_share_bounds=[lo, hi], points_sum=skull_points(series, n),
-               current_elo=series["train/current_elo"], env_steps_per_s_at_k8=sps[8:],
-               policy_loss=series["train/policy_loss"])
+    out.update(rotation_sizes=[min(u - 1, 8) for u in range(1, updates + 1)],
+               opponents_in_pool=len(stats), games_played=sum(x["games_played"] for x in stats),
+               learner_valid_share=share, learner_valid_share_bounds=bounds,
+               points_sum=four_player_points(series, updates),
+               length_mean=series["episode/length_mean"], current_elo=series["train/current_elo"],
+               env_steps_per_s_at_k8=sps[8:], policy_loss=series["train/policy_loss"])
     return out
 
 
@@ -1290,30 +1497,38 @@ def main() -> int:
 
     g = torch.Generator(device=dev).manual_seed(0)
     skull, skull_mask, skull_obs = check_skull(dev, g)
+    liars_dice, ld_mask, ld_obs = check_liars_dice(dev, g)
     sample_a2 = check_sample(dev, g, 2)
     sample_a7 = check_sample(dev, g, 7)
     sample_a33 = check_sample(dev, g, 33, skull_mask)
+    sample_a49 = check_sample(dev, g, 49, ld_mask)
+    samples = (sample_a2, sample_a7, sample_a33, sample_a49)
+    apply_c4 = check_obs_norm_apply(dev, g, connect_four_like(dev, g, E), E * T_C4)
+    apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD)
     checks = {
         "cartpole_step_autoreset": check_cartpole(dev, g),
         "masked_gumbel_sample": {
-            "A2": sample_a2, "A7": sample_a7, "A33_skull": sample_a33,
-            "max_abs_err": max(s["max_abs_err"] for s in (sample_a2, sample_a7, sample_a33)),
+            "A2": sample_a2, "A7": sample_a7, "A33_skull": sample_a33, "A49_liars_dice": sample_a49,
+            "max_abs_err": max(s["max_abs_err"] for s in samples),
             # A = 7's: Connect Four's, the pool path's
             **{k: sample_a7[k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
         "gae_reverse_scan": check_gae(dev, g),
         "connect_four_step_autoreset": check_connect_four(dev, g),
         "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g),
-        "obs_norm_apply": check_obs_norm_apply(dev, g),
+        "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld,
+                           "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"])},
         "obs_norm_update": check_obs_norm_update(dev, g),
-        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs),
+        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs),
         "ppo_loss": check_ppo_loss(dev, g),
         "clip_adam": check_clip_adam(dev, g),
         "episode_stats": check_episode_stats(dev, g),
         "skull_step_autoreset": skull,
         "return_norm_roll": check_return_norm_roll(dev, g),
         "return_norm_finalize": check_return_norm_finalize(dev, g),
+        "liars_dice_step_autoreset": liars_dice,
     }
+    screen_device_times(checks)
     emit("kernels_vs_plain", card=card_line, **checks)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
@@ -1323,13 +1538,31 @@ def main() -> int:
             "selfplay_train_cnn": selfplay_train(Path(d), card_line, "cnn", CNN_UPDATES),
             "selfplay_pool": selfplay_pool_train(Path(d), card_line),
             "skull_ctde_selfplay": skull_selfplay_train(Path(d), card_line),
-            "skull_ctde_pool": skull_pool_train(Path(d), card_line),
+            # CTDE 256x3 relu, pool fraction 0.3: L = 2867 learner envs,
+            # Ep = 1229 pool envs
+            "skull_ctde_pool": four_player_pool_train(
+                Path(d), card_line, "skull_pool", ["--config", str(ROOT / "configs" / "skull_ctde.toml")],
+                "skull_step_autoreset", T_SKULL_POOL, EP_SKULL, POOL_UPDATES, "ctde", 135),
+            # CTDE actor 256x2, critic 512x3, relu, shaping 0.05, pool
+            # fraction 0.25: L = 3072, Ep = 1024
+            "liars_dice_ctde_pool": four_player_pool_train(
+                Path(d), card_line, "liars_dice_pool",
+                ["--config", str(ROOT / "configs" / "liars_dice_ctde.toml")],
+                "liars_dice_step_autoreset", T_LD, EP_LD, POOL_UPDATES, "ctde", LD_OBS),
+            # the MLP 512x3 relu against the pool with obs norm: K6 at width
+            # 270 on the learner's obs, K7 with MLP towers and each slot's
+            # obs normaliser
+            "liars_dice_mlp_pool": four_player_pool_train(
+                Path(d), card_line, "liars_dice_mlp_pool",
+                ["--config", str(ROOT / "configs" / "liars_dice.toml"), "--normalize-obs"],
+                "liars_dice_step_autoreset", T_LD, EP_LD, LD_UPDATES_MLP, "mlp", LD_OBS,
+                {"obs_norm_apply": LD_UPDATES_MLP * (T_LD + 2), "obs_norm_update": LD_UPDATES_MLP}),
         }
         for phase, out in runs.items():
             emit(phase, **out)
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
 
-    # Launches: the sum over the six train phases, each counted from 0.
+    # Launches: the sum over the eight train phases, each counted from 0.
     table = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -1,7 +1,7 @@
 """Loading a checkpoint into the port without JAX, for inference: the
-shipped Connect Four gauntlet checkpoint and the two Skull CTDE ones
-against the JAX package's own loader, and the port's save -> load round
-trip for the CNN."""
+shipped Connect Four gauntlet checkpoint, the two Skull CTDE ones and the
+three Liar's Dice CTDE ones against the JAX package's own loader, and the
+port's save -> load round trip for the CNN."""
 
 from pathlib import Path
 
@@ -135,5 +135,57 @@ def test_skull_gauntlet_ctde_forward_matches_jax(name):
                                  torch.from_numpy(priv))
     # f32 on both sides at full matmul precision; the logits reach |20|,
     # where another summation order moves the last bits: rtol 1e-5 + atol 1e-5.
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t_values.numpy(), np.asarray(j_values), rtol=1e-5, atol=1e-5)
+
+
+LIARS_DICE = Path(__file__).resolve().parent.parent / "gauntlet" / "liars_dice"
+
+
+def _liars_dice_states(n: int, seed: int = 0):
+    """Obs and privileged obs of n JAX Liar's Dice states reached by random
+    legal play (one of the six lowest legal actions, so rounds run long)."""
+    from tests.test_torch_liars_dice import jax_fns
+
+    fns = jax_fns()
+    E = 8
+    key = jax.random.PRNGKey(seed)
+    state = fns["reset"](jax.random.split(key, E))
+    from burn_ppo_tpu.envs.base import EpisodeAccumulator as JaxAcc
+
+    acc = JaxAcc(reward_sum=jax.numpy.zeros((E, 4)), length=jax.numpy.zeros(E, jax.numpy.int32))
+    rng = np.random.default_rng(seed)
+    obs, priv = [], []
+    while sum(len(o) for o in obs) < n:
+        o, m, p = (np.asarray(x) for x in fns["views"](state))
+        obs.append(o)
+        priv.append(p)
+        actions = np.array([rng.choice(np.flatnonzero(r)[:6]) for r in m], np.int32)
+        key, sub = jax.random.split(key)
+        state, acc = fns["step"](state, acc, jax.numpy.asarray(actions), jax.random.split(sub, E))[:2]
+    return np.concatenate(obs)[:n], np.concatenate(priv)[:n]
+
+
+@pytest.mark.parametrize("name", ["r4", "r4_best", "r4_mid"])
+def test_liars_dice_gauntlet_ctde_forward_matches_jax(name):
+    """The three committed Liar's Dice checkpoints: CTDE 256x2 tanh on the
+    270-wide obs, the critic on concat(priv 120, obs), obs normalisation."""
+    path = LIARS_DICE / name
+    net, meta = load_model(path)
+    norm = load_obs_normalizer(path)
+    assert meta["network_type"] == "ctde" and net.is_ctde and norm is not None
+    assert (meta["obs_dim"], meta["privileged_obs_dim"], meta["action_count"]) == (270, 120, 49)
+    jnet, jparams, _ = JaxCheckpoints.load_model(path)
+    jnorm = JaxCheckpoints.load_obs_normalizer(path)
+    for f in ("mean", "m2", "count"):
+        np.testing.assert_array_equal(getattr(norm, f).numpy(), np.asarray(getattr(jnorm, f)))
+    obs, priv = _liars_dice_states(192, seed=len(name))
+    assert len({o.tobytes() for o in obs}) > 80
+    nobs = np.asarray(jax_obs_norm_apply(jnorm, obs))
+    j_logits = jnet.forward_actor(jparams, nobs)
+    j_values = jnet.forward_critic(jparams, priv, nobs)
+    with torch.no_grad():
+        t_logits, t_values = net(obs_norm_apply(norm, torch.from_numpy(obs)), torch.from_numpy(priv))
+    # f32 on both sides at full matmul precision: rtol 1e-5 + atol 1e-5, as for Skull.
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(t_values.numpy(), np.asarray(j_values), rtol=1e-5, atol=1e-5)

@@ -18,6 +18,7 @@ from burn_ppo_torch.device import resolve_device  # noqa: E402
 from burn_ppo_torch.envs.base import EpisodeAccumulator  # noqa: E402
 from burn_ppo_torch.envs.cartpole import CartPole, cartpole_step_autoreset  # noqa: E402
 from burn_ppo_torch.envs.connect_four import ConnectFour, connect_four_step_autoreset  # noqa: E402
+from burn_ppo_torch.envs.liars_dice import LiarsDice, liars_dice_step_autoreset  # noqa: E402
 from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset  # noqa: E402
 from burn_ppo_torch.ops.categorical import masked_sample  # noqa: E402
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer  # noqa: E402
@@ -183,3 +184,30 @@ def test_kernel_library_is_content_addressed_under_the_repo_cache():
         "skull_step_autoreset", "return_norm_roll", "return_norm_finalize"}
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
+
+
+def test_liars_dice_takes_the_plain_path_on_cpu_and_its_kernel_is_bound():
+    from burn_ppo_torch.envs.liars_dice import ALIGN, F32_OUT, I32_OUT, _arena_size, _carve
+
+    cpu = torch.device("cpu")
+    E = 8
+    env = LiarsDice()
+    half = torch.full((E, 8), 0.5)
+    out = env.step_autoreset(env.reset(half), EpisodeAccumulator.zero(E, 4, cpu),
+                             torch.full((E,), 3, dtype=torch.int32), half, half)
+    assert out.obs.shape == (E, 270) and out.mask.shape == (E, 49) and out.priv.shape == (E, 120)
+    assert liars_dice_step_autoreset.launches == 0
+    assert "liars_dice_step.cu" in {p.name for p in kernels.sources()}
+    assert "liars_dice_step_autoreset" in kernels.SIGNATURES
+    # The kernel's output buffers: every block inside its buffer, disjoint,
+    # starting on a 256-byte boundary, contiguous in its own shape.
+    for blocks, dtype in ((I32_OUT, torch.int32), (F32_OUT, torch.float32)):
+        for n in (1, 7, 4096):
+            buf = torch.zeros(_arena_size(n, blocks), dtype=dtype)
+            views = _carve(buf, n, blocks)
+            for name, cols in blocks:
+                v = views[name]
+                assert v.is_contiguous() and v.numel() == n * cols
+                assert (v.data_ptr() - buf.data_ptr()) % (ALIGN * 4) == 0
+                v.add_(1)
+            assert int(buf.sum()) == n * sum(c for _, c in blocks)  # no overlap

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K12 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K13 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -21,6 +21,8 @@ from burn_ppo_torch.ops.gae import (
 )
 from burn_ppo_torch.envs.base import EpisodeLog
 from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs, summarize_episode_logs_plain
+from burn_ppo_torch.envs.liars_dice import LiarsDice, LiarsDiceState, liars_dice_step_autoreset
+from burn_ppo_torch.envs.liars_dice import walk_actions as liars_dice_walk
 from burn_ppo_torch.envs.skull import FIELDS as SKULL_FIELDS
 from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset, walk_actions
 from burn_ppo_torch.ppo.normalization import (
@@ -489,3 +491,38 @@ def test_return_norm_finalize_kernel_leaves_the_state_without_valid_samples(dev)
     torch.cuda.synchronize()
     for f in ("mean", "m2", "count"):
         assert torch.equal(getattr(new, f), getattr(state, f))
+
+
+@pytest.mark.parametrize("E", [1, 257, 4096])
+def test_liars_dice_kernel_matches_plain_exactly(dev, E):
+    """K13 against the plain step along a walk of 200 steps, every output
+    equal bit for bit; unmasked and out-of-range actions, finished games fed
+    back in and a shaping coefficient on half the envs."""
+    g = torch.Generator(device=dev).manual_seed(E)
+    env = LiarsDice()
+    state = env.reset(torch.rand(E, 8, generator=g, device=dev))
+    state = LiarsDiceState(state.ints, (torch.arange(E, device=dev) % 2) * 0.05)
+    acc = EpisodeAccumulator.zero(E, 4, dev)
+    dones = 0
+    for _ in range(200):
+        over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
+        state = LiarsDiceState.of(state.shaping_coef, **{**state.fields(), "game_over": over})
+        action = liars_dice_walk(env.action_mask(state), g)
+        u_reset = torch.rand(E, 8, generator=g, device=dev)
+        u_step = torch.rand(E, 8, generator=g, device=dev)
+        before = liars_dice_step_autoreset.launches
+        k = env.step_autoreset(state, acc, action, u_reset, u_step)
+        torch.cuda.synchronize()
+        assert liars_dice_step_autoreset.launches == before + 1
+        p = autoreset_step(env, state, acc, action, u_reset, u_step)
+        pairs = [(k.state.ints, p.state.ints), (k.state.shaping_coef, p.state.shaping_coef)]
+        pairs += [(getattr(k.log, f), getattr(p.log, f))
+                  for f in ("completed", "total_rewards", "length", "outcome", "active_players")]
+        pairs += [(k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
+                  (k.rewards, p.rewards), (k.done, p.done), (k.obs, p.obs), (k.mask, p.mask),
+                  (k.priv, p.priv)]
+        for a, b in pairs:
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        dones += int(p.done.sum())
+        state, acc = p.state, p.acc
+    assert dones > 0

@@ -63,9 +63,10 @@ def replay_pool_rollout(src, key, num_active):
     return key, keys
 
 
-def ctde_opponents(network, env, cfg, n):
-    """n JAX-initialised CTDE nets and obs normalisers, stacked both ways
-    and padded to K by repeating the first (refresh_rotation)."""
+def ctde_opponents(network, env, cfg, n, obs_dim=135):
+    """n JAX-initialised CTDE nets and obs normalisers of ``obs_dim``
+    columns, stacked both ways and padded to K by repeating the first
+    (refresh_rotation)."""
     rng = np.random.default_rng(7)
     jparams, tparams, jnorms, tnorms = [], [], [], []
     from burn_ppo_tpu.ppo.normalization import ObsNormState as JaxObsNorm
@@ -76,7 +77,8 @@ def ctde_opponents(network, env, cfg, n):
         net.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, p)))
         jparams.append(p)
         tparams.append(actor_params(net))
-        mean, m2 = rng.random(135).astype(np.float32), (rng.random(135) * 40).astype(np.float32)
+        mean = rng.random(obs_dim).astype(np.float32)
+        m2 = (rng.random(obs_dim) * 40).astype(np.float32)
         count = np.float32([30.0, 1.0, 60.0][i % 3])
         jnorms.append(JaxObsNorm(mean=jnp.asarray(mean), m2=jnp.asarray(m2), count=jnp.asarray(count)))
         tnorms.append(ObsNormState(mean=torch.from_numpy(mean), m2=torch.from_numpy(m2),

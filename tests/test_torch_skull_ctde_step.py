@@ -165,7 +165,7 @@ def start(cfg, jenv, seed=0, walk=40):
     return network, tx, jstate, tstate, env
 
 
-def compare_states(tstate, jstate, metrics=None, j_metrics=None):
+def compare_states(tstate, jstate, metrics=None, j_metrics=None, fields=FIELDS):
     # Reductions over minibatches and Adam steps in another order:
     # parameters and metrics rtol 1e-4 / atol 1e-5.
     if j_metrics is not None:
@@ -180,7 +180,7 @@ def compare_states(tstate, jstate, metrics=None, j_metrics=None):
                                    np.asarray(getattr(jstate.obs_norm, f)), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tstate.carry.last_value_per_player.numpy(),
                                np.asarray(jstate.carry.last_value_per_player), rtol=1e-4, atol=1e-5)
-    for f in FIELDS:
+    for f in fields:
         np.testing.assert_array_equal(getattr(tstate.carry.env_states, f).numpy(),
                                       np.asarray(getattr(jstate.carry.env_states, f)), err_msg=f)
 
@@ -216,8 +216,8 @@ def test_two_ctde_train_steps_match_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--config", "configs/liars_dice.toml"], "A13/B12"),
-    (["--config", "configs/liars_dice_ctde.toml"], "A13/B12"),
+    (["--config", "configs/liars_dice.toml", "--normalize-values"], "A14"),
+    (["--config", "configs/liars_dice_ctde.toml", "--pool-rotation-interval", "2"], "A12c"),
     (["--config", "configs/skull_ctde.toml", "--normalize-values"], "A14"),
     (["--config", "configs/skull_ctde.toml", "--adaptive-entropy", "1.0"], "A11"),
     (["--config", "configs/skull_ctde.toml", "--network-type", "cnn"], "A12b"),
