@@ -207,6 +207,7 @@ class CheckpointManager:
         JAX order; an aux entry of None is skipped (feature off)."""
         final = self.step_dir(step)
         tmp = Path(tempfile.mkdtemp(prefix=f".tmp_{CHECKPOINT_DIR_PREFIX}{step}_", dir=self.dir))
+        parked = None
         try:
             save_leaves(tmp / "model.npz", model)
             save_leaves(tmp / "optimizer.npz", optimizer)
@@ -215,10 +216,30 @@ class CheckpointManager:
                     save_leaves(tmp / f"{name}.npz", leaves)
             (tmp / "metadata.json").write_text(json.dumps(metadata, indent=2))
             if final.exists():
-                shutil.rmtree(final)
-            tmp.rename(final)
+                # Overwrite (the last update on a checkpoint boundary saves
+                # its step twice): park the old dir with a rename first, so
+                # that a failure between the two renames leaves it
+                # restorable. "<step>.old" fails the pool's step-dir digit
+                # check, so scans ignore it.
+                old = final.with_name(final.name + ".old")
+                if old.exists():
+                    shutil.rmtree(old)
+                final.rename(old)
+                parked = old
+                tmp.rename(final)
+                parked = None
+                shutil.rmtree(old, ignore_errors=True)
+            else:
+                tmp.rename(final)
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
+            # The old dir was parked but the new one never landed: put the
+            # old one back, or the step is gone and ``latest`` dangles.
+            if parked is not None and not final.exists():
+                try:
+                    parked.rename(final)
+                except OSError:
+                    pass
             raise
         self.set_latest(step)
         return final

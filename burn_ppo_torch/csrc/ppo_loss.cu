@@ -8,21 +8,37 @@
 // jax.value_and_grad (ROADMAP queue B, item B6). Plain PyTorch twin:
 // burn_ppo_torch/ppo/update.py ppo_loss_plain.
 //
-// What bounds it on an H100: bytes, and launches. At M = 65,536 rows and
-// A = 7 it reads logits, mask and eight [M] columns and writes the
-// gradients, ~7.6 MB, ~2.3 us of HBM time; autograd ran it as ~60 small
-// kernels forward and backward.
+// What bounds it on an H100: bytes. At M = 65,536 rows and A = 49 it reads
+// logits and mask and writes dL/dlogits (12.8 MB each) besides eight [M]
+// columns: ~40 MB, ~12 us of HBM time.
 //
-// Three launches:
+// Two launches:
 //   1. ppo_loss_stats: per block, the valid-weighted sums of the advantages
-//      (w, w*a, w*a^2) in double, over a grid-stride of rows;
-//   2. ppo_loss_rows: every block adds the stats partials in a fixed order
-//      (the advantage mean and Bessel std, as the plain version forms them),
-//      then one thread per row computes the row's terms and its gradients,
-//      and the block reduces 12 metric sums in double in a fixed tree;
-//   3. ppo_loss_finalize: one block adds the partials in a fixed order and
-//      writes the loss and the 14 metrics. No float atomics: the result is
-//      the same from run to run.
+//      (w, w*a, w*a^2) in double over a grid-stride of rows, reduced with
+//      warp shuffles; block 0 also zeroes the done-counter of launch 2.
+//   2. ppo_loss_rows, a programmatic dependent launch of 1: its blocks
+//      start while 1 runs, issue their first copies, then wait for 1
+//      (griddepcontrol.wait) and one warp adds the stats partials in a
+//      fixed order (the advantage mean and Bessel std, as the plain
+//      version forms them). Each warp takes tiles of 32 rows on its own,
+//      with no block barrier between tiles: a tile's 32 x A logits and
+//      mask are one contiguous span, copied into the warp's part of
+//      shared memory with 16-byte cp.async, its columns beside it. Three
+//      phases per tile, with warp barriers between them:
+//        A. LPR lanes a row (2 for rows up to 8 wide, else 8), each lane
+//           every LPR-th entry: the row max and the sums are shuffles
+//           inside the row's lanes; every entry's expf runs once; its prob
+//           and log-prob replace the staged mask and logit;
+//        B. a lane a row: ratio, clips, value loss and the 12 metric
+//           terms, added in double;
+//        C. LPR lanes a row write dL/dlogits over the log-probs, and the
+//           span goes out with 16-byte stores.
+//      The block reduces its metric terms with warp shuffles and over its
+//      warps in a fixed order. The block that finishes last (an integer
+//      counter, no float atomics) adds the blocks' partials in a fixed
+//      order and writes the loss and the 14 metrics. Two calls on the
+//      same inputs give the same bits. The grid covers each warp tile
+//      once, up to what the card holds at once (occupancy times SMs).
 // Gradient rules at ties follow JAX: d max(a, b) splits 1/2 - 1/2 where
 // a == b, and jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)) passes 1/2
 // of the gradient at x == lo or x == hi. Masked actions (additive -1e9)
@@ -31,26 +47,55 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
 constexpr float MASK_NEG = -1.0e9f;
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int NSUM = 12;  // metric sums per block, see ppo_loss_rows
+constexpr int STATS_BLOCKS = 264;
+constexpr int ROW_BLOCKS = 1056;  // at most eight 256-thread blocks per SM
+constexpr int MAX_A = 64;
 
 struct AdvStats {
   double wsum;
   float wc, mean, std;
 };
 
-// The advantage statistics from the stats partials, added in block order.
+// Sum over the warp's 32 lanes; every lane ends with the same value, added
+// in the same order on every run.
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Reductions inside a row's LPR lanes (aligned groups of the warp).
+template <int LPR>
+__device__ __forceinline__ float row_max(float v) {
+  for (int o = LPR / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int LPR>
+__device__ __forceinline__ float row_sum(float v) {
+  for (int o = LPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The advantage statistics from the stats partials; called by a whole warp.
 __device__ AdvStats adv_stats(const double* __restrict__ stats, int G) {
+  const int lane = threadIdx.x & 31;
   double s0 = 0.0, s1 = 0.0, s2 = 0.0;
-  for (int g = 0; g < G; ++g) {
+  for (int g = lane; g < G; g += 32) {
     s0 += stats[3 * g];
     s1 += stats[3 * g + 1];
     s2 += stats[3 * g + 2];
   }
+  s0 = warp_sum(s0);
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
   AdvStats a;
   a.wsum = s0;
   a.wc = fmaxf(static_cast<float>(s0), 1e-8f);
@@ -85,24 +130,14 @@ __device__ __forceinline__ float jclip(float x, float lo, float hi, float* d) {
   return m2;
 }
 
-template <int N>
-__device__ void block_sum(double (*sm)[THREADS], double* v, double* out) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < N; ++j) sm[j][tid] = v[j];
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      for (int j = 0; j < N; ++j) sm[j][tid] += sm[j][tid + s];
-    }
-    __syncthreads();
-  }
-  if (tid < N) out[tid] = sm[tid][0];
-}
-
 __global__ void __launch_bounds__(THREADS) ppo_loss_stats_kernel(
     const float* __restrict__ adv, const float* __restrict__ valid, int M,
-    double* __restrict__ stats) {
-  __shared__ double sm[3][THREADS];
+    double* __restrict__ stats, unsigned* __restrict__ done_count) {
+  __shared__ double part[WARPS][3];
+  // The row pass may launch now; it waits for this grid's end before it
+  // reads the partials or the counter.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *done_count = 0u;
   double v[3] = {0.0, 0.0, 0.0};
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < M; i += gridDim.x * THREADS) {
     const double w = valid[i], a = adv[i];
@@ -110,126 +145,327 @@ __global__ void __launch_bounds__(THREADS) ppo_loss_stats_kernel(
     v[1] += w * a;
     v[2] += w * a * a;
   }
-  block_sum<3>(sm, v, stats + 3 * blockIdx.x);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = 0; j < 3; ++j) {
+    v[j] = warp_sum(v[j]);
+    if (lane == 0) part[warp][j] = v[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    double s = 0.0;
+    for (int w = 0; w < WARPS; ++w) s += part[w][threadIdx.x];
+    stats[3 * blockIdx.x + threadIdx.x] = s;
+  }
 }
 
-__global__ void __launch_bounds__(THREADS) ppo_loss_rows_kernel(
-    const float* __restrict__ logits, const float* __restrict__ values,
-    const float* __restrict__ mask, const int* __restrict__ actions,
-    const float* __restrict__ old_lp, const float* __restrict__ adv,
-    const float* __restrict__ returns, const float* __restrict__ old_values,
-    const float* __restrict__ valid, int M, int A, float eps, float lo, float hi,
-    int clip_value, float value_coef, float ent_coef, const double* __restrict__ stats,
-    float* __restrict__ dlogits, float* __restrict__ dvalues, double* __restrict__ sums) {
-  __shared__ double sm[NSUM][THREADS];
+struct RowArgs {
+  const float* logits;
+  const float* values;
+  const float* mask;  // nullable
+  const int* actions;
+  const float* old_lp;
+  const float* adv;
+  const float* returns;
+  const float* old_values;  // read only with the value clip on
+  const float* valid;
+  int M, A, G_stats, vec;
+  float eps, lo, hi;
+  int clip_value;
+  float value_coef, ent_coef;
+  const double* stats;
+  double* sums;  // [gridDim.x, NSUM]
+  unsigned* done_count;
+  float* out;  // [15]: the loss, then the 14 metrics in METRIC_KEYS order
+  float* dlogits;
+  float* dvalues;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The per-row columns staged beside a warp's rows (actions as their i32
+// bits), and the row results passed between the phases.
+enum Col { VAL, OLP, ADV, RET, OV, W, ACT, NCOL };
+enum RowOut { LP, ENT, CNT, DLP, DENT, NOUT };
+
+constexpr int WR = 32;  // rows per warp tile: one per lane in phase B
+
+// Floats of one warp's shared region for rows of A actions: the logits
+// span (then log-probs, then dL/dlogits), the mask span (then probs), the
+// columns and the row results; each span a multiple of 4 floats.
+__host__ __device__ __forceinline__ int warp_region(int A) {
+  const int span = (WR * A + 3) / 4 * 4;
+  return 2 * span + (NCOL + NOUT) * WR;
+}
+
+// Each warp takes tiles of WR rows on its own (no block barrier between
+// tiles); LPR lanes a row, EPL = ceil(A / LPR) entries a lane.
+template <int LPR, int EPL>
+__global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ AdvStats st;
-  if (threadIdx.x == 0) st = adv_stats(stats, gridDim.x);
+  __shared__ double red[WARPS][NSUM];
+  __shared__ double tot[NSUM];
+  __shared__ bool is_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane % LPR, rsub = lane / LPR;  // a pass takes 32 / LPR rows
+  const int A = g.A, M = g.M;
+  const bool has_mask = g.mask != nullptr;
+  const int span = (WR * A + 3) / 4 * 4;
+  float* z = smem + warp * warp_region(A);  // logits -> log-probs -> dL/dlogits
+  float* m = z + span;                      // mask -> probs
+  float* col = m + span;                    // [NCOL][WR]
+  float* row = col + NCOL * WR;             // [NOUT][WR]
+  const float* cols[NCOL] = {g.values, g.old_lp, g.adv, g.returns, g.old_values, g.valid,
+                             reinterpret_cast<const float*>(g.actions)};
+  auto issue = [&](int t) {
+    const int row0 = t * WR, nrows = min(WR, M - row0), n = nrows * A;
+    const long base = static_cast<long>(row0) * A;
+    int i0 = 0;
+    if (g.vec) {
+      for (int i = lane; i < (n >> 2); i += 32) {
+        cp_async16(z + 4 * i, g.logits + base + 4 * i);
+        if (has_mask) cp_async16(m + 4 * i, g.mask + base + 4 * i);
+      }
+      i0 = n & ~3;
+    }
+    for (int i = i0 + lane; i < n; i += 32) {
+      cp_async4(z + i, g.logits + base + i);
+      if (has_mask) cp_async4(m + i, g.mask + base + i);
+    }
+    if (lane < nrows) {
+      for (int c = 0; c < NCOL; ++c) {
+        if (c != OV || g.clip_value) cp_async4(col + c * WR + lane, cols[c] + row0 + lane);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int tiles = (M + WR - 1) / WR;
+  const int first = blockIdx.x * WARPS + warp, step = gridDim.x * WARPS;
+  if (first < tiles) issue(first);
+  // Launched before the stats pass ended (programmatic dependent launch):
+  // the first tile's copies are in flight; now wait for the stats.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (warp == 0) {
+    const AdvStats a = adv_stats(g.stats, g.G_stats);
+    if (lane == 0) st = a;
+  }
   __syncthreads();
   const AdvStats s = st;
   double v[NSUM] = {};
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < M; i += gridDim.x * THREADS) {
-    const float* z = logits + static_cast<long>(i) * A;
-    const float* mk = mask == nullptr ? nullptr : mask + static_cast<long>(i) * A;
-    float zmax = -INFINITY, cnt = 0.0f;
-    for (int j = 0; j < A; ++j) {
-      const float zj = z[j] + (mk == nullptr ? 0.0f : (mk[j] != 0.0f ? 0.0f : MASK_NEG));
-      zmax = fmaxf(zmax, zj);
-      if (mk != nullptr) cnt += mk[j];
-    }
-    float se = 0.0f;
-    for (int j = 0; j < A; ++j) {
-      const float zj = z[j] + (mk == nullptr ? 0.0f : (mk[j] != 0.0f ? 0.0f : MASK_NEG));
-      se += expf(zj - zmax);
-    }
-    const float lse = logf(se);
-    const int a = actions[i];
-    float lp = 0.0f, ent = 0.0f;
-    for (int j = 0; j < A; ++j) {
-      const float zj = z[j] + (mk == nullptr ? 0.0f : (mk[j] != 0.0f ? 0.0f : MASK_NEG));
-      const float lj = (zj - zmax) - lse;
-      const float pj = expf(lj);
-      if (pj > 0.0f) ent += pj * lj;
-      if (j == a) lp = lj;
-    }
-    ent = -ent;
-    const float w = valid[i];
-    const float log_ratio = lp - old_lp[i];
-    const float r = expf(log_ratio);
-    const float an = (adv[i] - s.mean) / (s.std + 1e-8f);
-    float dclip, g1, g2;
-    const float rc = jclip(r, lo, hi, &dclip);
-    const float pmax = jmax(-an * r, -an * rc, &g1, &g2);
-    const float dpmax_dr = g1 * -an + g2 * (-an * dclip);
+  for (int t = first; t < tiles; t += step) {
+    if (t != first) issue(t);
+    cp_async_wait<0>();
+    __syncwarp();
+    const int row0 = t * WR, nrows = min(WR, M - row0);
 
-    const float val = values[i], ret = returns[i];
-    float vl, dvl;
-    if (clip_value) {
-      const float ov = old_values[i];
-      float dd, h1, h2;
-      const float vcl = ov + jclip(val - ov, -eps, eps, &dd);
-      const float e1 = val - ret, e2 = vcl - ret;
-      vl = jmax(e1 * e1, e2 * e2, &h1, &h2);
-      dvl = h1 * (2.0f * e1) + h2 * (2.0f * e2 * dd);
-    } else {
-      const float e1 = val - ret;
-      vl = e1 * e1;
-      dvl = 2.0f * e1;
+    // A. LPR lanes a row: max, sum of exps, log-probs, entropy. Every
+    // entry's expf runs once; its prob replaces the mask, its log-prob
+    // the logit. Two passes unrolled, so that their shuffle chains overlap.
+#pragma unroll 2
+    for (int r0 = 0; r0 < WR; r0 += 32 / LPR) {
+      const int r = r0 + rsub;
+      const bool live = r < nrows;
+      float zz[EPL], ex[EPL];
+      float zmax = -INFINITY, cnt = 0.0f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        const int j = sub + e * LPR;
+        const bool in = live && j < A;
+        const float mk = in ? (has_mask ? m[r * A + j] : 1.0f) : 0.0f;
+        zz[e] = in ? z[r * A + j] + (mk != 0.0f ? 0.0f : MASK_NEG) : -INFINITY;
+        zmax = fmaxf(zmax, zz[e]);
+        cnt += mk;
+      }
+      zmax = row_max<LPR>(zmax);
+      cnt = row_sum<LPR>(cnt);
+      if (!live) zmax = 0.0f;
+      float se = 0.0f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        ex[e] = expf(zz[e] - zmax);  // 0 for masked and absent entries
+        se += ex[e];
+      }
+      se = row_sum<LPR>(se);
+      if (!live) se = 1.0f;
+      const float lse = logf(se);
+      const int a = live ? __float_as_int(col[ACT * WR + r]) : -1;
+      float lp = 0.0f, ent = 0.0f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) {
+        const int j = sub + e * LPR;
+        const float lj = (zz[e] - zmax) - lse, pj = ex[e] / se;
+        if (pj > 0.0f) ent += pj * lj;
+        if (j == a) lp = lj;
+        if (live && j < A) {
+          z[r * A + j] = lj;
+          m[r * A + j] = pj;
+        }
+      }
+      ent = -row_sum<LPR>(ent);
+      lp = row_sum<LPR>(lp);
+      if (live && sub == 0) {
+        row[LP * WR + r] = lp;
+        row[ENT * WR + r] = ent;
+        row[CNT * WR + r] = cnt;
+      }
     }
-    const float coef = w / s.wc;
-    dvalues[i] = value_coef * 0.5f * coef * dvl;
-    const float dlp = dpmax_dr * r * coef;
-    const float dent = ent_coef * coef;
-    float* dz = dlogits + static_cast<long>(i) * A;
-    for (int j = 0; j < A; ++j) {
-      const float zj = z[j] + (mk == nullptr ? 0.0f : (mk[j] != 0.0f ? 0.0f : MASK_NEG));
-      const float lj = (zj - zmax) - lse;
-      const float pj = expf(lj);
-      const float hj = pj > 0.0f ? pj * (lj + ent) : 0.0f;
-      dz[j] = dlp * ((j == a ? 1.0f : 0.0f) - pj) + dent * hj;
-    }
+    __syncwarp();
 
-    const double wd = w;
-    const float err = fabsf(val - ret);
-    v[0] += wd * pmax;
-    v[1] += wd * vl;
-    v[2] += wd * ent;
-    v[3] += wd * ((r - 1.0f) - log_ratio);
-    v[4] += wd * (fabsf(r - 1.0f) > eps ? 1.0 : 0.0);
-    v[5] += wd * val;
-    v[6] += wd * ret;
-    v[7] += wd * err;
-    v[8] += wd * static_cast<double>(err) * err;
-    v[9] += wd * cnt;
-    const float hc = (cnt > 1.0f ? 1.0f : 0.0f) * w;
-    const float max_ent = logf(fmaxf(cnt, 1.0f + 1e-8f));
-    v[10] += static_cast<double>(ent / fmaxf(max_ent, 1e-8f) * hc);
-    v[11] += hc;
+    // B. A lane a row: ratio, clips, value loss, the metric terms.
+    float dv = 0.0f;
+    if (lane < nrows) {
+      const int r = lane;
+      const float w = col[W * WR + r], lp = row[LP * WR + r], ent = row[ENT * WR + r];
+      const float cnt = row[CNT * WR + r];
+      const float log_ratio = lp - col[OLP * WR + r];
+      const float ratio = expf(log_ratio);
+      const float an = (col[ADV * WR + r] - s.mean) / (s.std + 1e-8f);
+      float dclip, g1, g2;
+      const float rc = jclip(ratio, g.lo, g.hi, &dclip);
+      const float pmax = jmax(-an * ratio, -an * rc, &g1, &g2);
+      const float dpmax_dr = g1 * -an + g2 * (-an * dclip);
+
+      const float val = col[VAL * WR + r], ret = col[RET * WR + r];
+      float vl, dvl;
+      if (g.clip_value) {
+        const float ov = col[OV * WR + r];
+        float dd, h1, h2;
+        const float vcl = ov + jclip(val - ov, -g.eps, g.eps, &dd);
+        const float e1 = val - ret, e2 = vcl - ret;
+        vl = jmax(e1 * e1, e2 * e2, &h1, &h2);
+        dvl = h1 * (2.0f * e1) + h2 * (2.0f * e2 * dd);
+      } else {
+        const float e1 = val - ret;
+        vl = e1 * e1;
+        dvl = 2.0f * e1;
+      }
+      const float coef = w / s.wc;
+      dv = g.value_coef * 0.5f * coef * dvl;
+      row[DLP * WR + r] = dpmax_dr * ratio * coef;
+      row[DENT * WR + r] = g.ent_coef * coef;
+
+      const double wd = w;
+      const float err = fabsf(val - ret);
+      v[0] += wd * pmax;
+      v[1] += wd * vl;
+      v[2] += wd * ent;
+      v[3] += wd * ((ratio - 1.0f) - log_ratio);
+      v[4] += wd * (fabsf(ratio - 1.0f) > g.eps ? 1.0 : 0.0);
+      v[5] += wd * val;
+      v[6] += wd * ret;
+      v[7] += wd * err;
+      v[8] += wd * static_cast<double>(err) * err;
+      v[9] += wd * cnt;
+      const float hc = (cnt > 1.0f ? 1.0f : 0.0f) * w;
+      const float max_ent = logf(fmaxf(cnt, 1.0f + 1e-8f));
+      v[10] += static_cast<double>(ent / fmaxf(max_ent, 1e-8f) * hc);
+      v[11] += hc;
+    }
+    __syncwarp();
+
+    // C. LPR lanes a row: dL/dlogits over the log-probs.
+#pragma unroll 2
+    for (int r0 = 0; r0 < WR; r0 += 32 / LPR) {
+      const int r = r0 + rsub;
+      if (r < nrows) {
+        const int a = __float_as_int(col[ACT * WR + r]);
+        const float dlp = row[DLP * WR + r], dent = row[DENT * WR + r], ent = row[ENT * WR + r];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          const int j = sub + e * LPR;
+          if (j < A) {
+            const float p = m[r * A + j];
+            const float hj = p > 0.0f ? p * (z[r * A + j] + ent) : 0.0f;
+            z[r * A + j] = dlp * ((j == a ? 1.0f : 0.0f) - p) + dent * hj;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    // The warp's dL/dlogits span out with 16-byte stores.
+    {
+      const int n = nrows * A;
+      float* dst = g.dlogits + static_cast<long>(row0) * A;
+      int i0 = 0;
+      if (g.vec) {
+        for (int i = lane; i < (n >> 2); i += 32) {
+          reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(z)[i];
+        }
+        i0 = n & ~3;
+      }
+      for (int i = i0 + lane; i < n; i += 32) dst[i] = z[i];
+    }
+    if (lane < nrows) g.dvalues[row0 + lane] = dv;
+    __syncwarp();
   }
-  block_sum<NSUM>(sm, v, sums + NSUM * blockIdx.x);
-}
 
-// out: [0] loss, then the 14 metrics in METRIC_KEYS order.
-__global__ void ppo_loss_finalize_kernel(const double* __restrict__ stats,
-                                         const double* __restrict__ sums, int G, int has_mask,
-                                         float value_coef, float ent_coef,
-                                         float* __restrict__ out) {
-  __shared__ double tot[NSUM];
-  const int tid = threadIdx.x;
+  // Block partials in a fixed order: lanes, then warps.
+#pragma unroll
+  for (int j = 0; j < NSUM; ++j) {
+    const double x = warp_sum(v[j]);
+    if (lane == 0) red[warp][j] = x;
+  }
+  __syncthreads();
   if (tid < NSUM) {
-    double acc = 0.0;
-    for (int g = 0; g < G; ++g) acc += sums[NSUM * g + tid];
-    tot[tid] = acc;
+    double x = 0.0;
+    for (int w = 0; w < WARPS; ++w) x += red[w][tid];
+    g.sums[NSUM * blockIdx.x + tid] = x;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(g.done_count, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+
+  // The last block: every block's partials, thread t adding blocks t,
+  // t + THREADS, ... (all its loads in flight at once), then lanes and
+  // warps in a fixed order.
+  __threadfence();
+  double part[NSUM] = {};
+  for (int blk = tid; blk < static_cast<int>(gridDim.x); blk += THREADS) {
+#pragma unroll
+    for (int j = 0; j < NSUM; ++j) part[j] += __ldcg(g.sums + NSUM * blk + j);
+  }
+#pragma unroll
+  for (int j = 0; j < NSUM; ++j) {
+    const double x = warp_sum(part[j]);
+    if (lane == 0) red[warp][j] = x;
+  }
+  __syncthreads();
+  if (tid < NSUM) {
+    double x = 0.0;
+    for (int w = 0; w < WARPS; ++w) x += red[w][tid];
+    tot[tid] = x;
   }
   __syncthreads();
   if (tid != 0) return;
-  const AdvStats s = adv_stats(stats, G);
   const double wc = s.wc;
   const float policy_loss = static_cast<float>(tot[0] / wc);
   const float value_loss = 0.5f * static_cast<float>(tot[1] / wc);
   const float entropy = static_cast<float>(tot[2] / wc);
   const double me = tot[7] / wc;
   const double ss_e = fmax(tot[8] - 2.0 * me * tot[7] + me * me * s.wsum, 0.0);
-  const float total = policy_loss + value_loss * value_coef - entropy * ent_coef;
+  const float total = policy_loss + value_loss * g.value_coef - entropy * g.ent_coef;
+  float* out = g.out;
   out[0] = total;
   out[1] = policy_loss;
   out[2] = value_loss;
@@ -247,35 +483,120 @@ __global__ void ppo_loss_finalize_kernel(const double* __restrict__ stats,
   out[14] = has_mask ? static_cast<float>(tot[10] / fmax(tot[11], 1e-8)) : 0.0f;
 }
 
+// The row pass as a programmatic dependent launch of the stats pass: its
+// blocks may start while the stats pass runs, and wait for it in the
+// kernel (griddepcontrol.wait) after their first copies are issued. The
+// grid covers every warp tile once, up to what the card holds at once
+// (this variant's occupancy at this shared memory times the SMs).
+template <int LPR, int EPL>
+cudaError_t launch_rows(const RowArgs& a, cudaStream_t s) {
+  auto kernel = ppo_loss_rows_kernel<LPR, EPL>;
+  const int smem = static_cast<int>(sizeof(float)) * WARPS * warp_region(a.A);
+  static int sms = 0, smem_set = 0, resident_smem = -1, resident = 0;
+  cudaError_t err = cudaSuccess;
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (smem != resident_smem) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (err != cudaSuccess) return err;
+    resident = sms * per_sm < ROW_BLOCKS ? sms * per_sm : ROW_BLOCKS;
+    resident_smem = smem;
+  }
+  const int tiles = (a.M + WR - 1) / WR, blocks = (tiles + WARPS - 1) / WARPS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks < resident ? blocks : resident);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
 }  // namespace
 
-// stats: [G, 3] and sums: [G, 12] double scratch; out: [15] f32.
+// Scratch doubles the caller provides (f64 [ppo_loss_scratch_len()]): the
+// stats partials, the row blocks' partials and the done-counter.
+extern "C" int ppo_loss_scratch_len() { return 3 * STATS_BLOCKS + NSUM * ROW_BLOCKS + 1; }
+
+// out: [15] f32; A in [1, 64].
 extern "C" int ppo_loss_forward(const void* logits, const void* values, const void* mask,
                                 const void* actions, const void* old_lp, const void* adv,
                                 const void* returns, const void* old_values,
-                                const void* valid, int M, int A, int G, float eps, float lo,
-                                float hi, int clip_value, float value_coef, float ent_coef,
-                                void* stats, void* sums, void* out, void* dlogits,
-                                void* dvalues, void* stream) {
-  if (M <= 0 || A < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                const void* valid, int M, int A, float eps, float lo, float hi,
+                                int clip_value, float value_coef, float ent_coef,
+                                void* scratch, void* out, void* dlogits, void* dvalues,
+                                void* stream) {
+  if (M <= 0 || A < 1 || A > MAX_A) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ppo_loss_stats_kernel<<<G, THREADS, 0, s>>>(static_cast<const float*>(adv),
-                                              static_cast<const float*>(valid), M,
-                                              static_cast<double*>(stats));
+  double* stats = static_cast<double*>(scratch);
+  double* sums = stats + 3 * STATS_BLOCKS;
+  unsigned* done_count = reinterpret_cast<unsigned*>(sums + NSUM * ROW_BLOCKS);
+  const int per_block = THREADS * 4;
+  int G_stats = (M + per_block - 1) / per_block;
+  if (G_stats > STATS_BLOCKS) G_stats = STATS_BLOCKS;
+  ppo_loss_stats_kernel<<<G_stats, THREADS, 0, s>>>(static_cast<const float*>(adv),
+                                                    static_cast<const float*>(valid), M, stats,
+                                                    done_count);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ppo_loss_rows_kernel<<<G, THREADS, 0, s>>>(
-      static_cast<const float*>(logits), static_cast<const float*>(values),
-      static_cast<const float*>(mask), static_cast<const int*>(actions),
-      static_cast<const float*>(old_lp), static_cast<const float*>(adv),
-      static_cast<const float*>(returns), static_cast<const float*>(old_values),
-      static_cast<const float*>(valid), M, A, eps, lo, hi, clip_value, value_coef, ent_coef,
-      static_cast<const double*>(stats), static_cast<float*>(dlogits),
-      static_cast<float*>(dvalues), static_cast<double*>(sums));
-  err = cudaGetLastError();
+  RowArgs a;
+  a.logits = static_cast<const float*>(logits);
+  a.values = static_cast<const float*>(values);
+  a.mask = static_cast<const float*>(mask);
+  a.actions = static_cast<const int*>(actions);
+  a.old_lp = static_cast<const float*>(old_lp);
+  a.adv = static_cast<const float*>(adv);
+  a.returns = static_cast<const float*>(returns);
+  a.old_values = static_cast<const float*>(old_values);
+  a.valid = static_cast<const float*>(valid);
+  a.M = M;
+  a.A = A;
+  a.G_stats = G_stats;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(logits) |
+                         reinterpret_cast<uintptr_t>(mask) | reinterpret_cast<uintptr_t>(dlogits);
+  a.vec = (bits & 15u) == 0 ? 1 : 0;
+  a.eps = eps;
+  a.lo = lo;
+  a.hi = hi;
+  a.clip_value = clip_value;
+  a.value_coef = value_coef;
+  a.ent_coef = ent_coef;
+  a.stats = stats;
+  a.sums = sums;
+  a.done_count = done_count;
+  a.out = static_cast<float*>(out);
+  a.dlogits = static_cast<float*>(dlogits);
+  a.dvalues = static_cast<float*>(dvalues);
+  // Lanes per row: 2 for rows up to 8 wide (16 rows a pass), else 8;
+  // entries per lane: the row's width over its lanes, rounded up.
+  switch (A <= 8 ? (A + 1) / 2 : 4 + (A + 7) / 8) {
+    case 1: err = launch_rows<2, 1>(a, s); break;
+    case 2: err = launch_rows<2, 2>(a, s); break;
+    case 3: err = launch_rows<2, 3>(a, s); break;
+    case 4: err = launch_rows<2, 4>(a, s); break;
+    case 6: err = launch_rows<8, 2>(a, s); break;
+    case 7: err = launch_rows<8, 3>(a, s); break;
+    case 8: err = launch_rows<8, 4>(a, s); break;
+    case 9: err = launch_rows<8, 5>(a, s); break;
+    case 10: err = launch_rows<8, 6>(a, s); break;
+    case 11: err = launch_rows<8, 7>(a, s); break;
+    default: err = launch_rows<8, 8>(a, s); break;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  ppo_loss_finalize_kernel<<<1, 32, 0, s>>>(
-      static_cast<const double*>(stats), static_cast<const double*>(sums), G,
-      mask != nullptr ? 1 : 0, value_coef, ent_coef, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+

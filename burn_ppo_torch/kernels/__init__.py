@@ -68,15 +68,17 @@ SIGNATURES = {
     "obs_norm_apply": [_VP] * 5 + [_L, _I, _F, _VP],
     # batch, mean, m2, count, scratch, mean', m2', count', N, D, lanes, stream
     "obs_norm_update": [_VP] * 8 + [_L, _I, _L, _VP],
-    # slot, rows, K, perm, offsets, stream
-    "opp_slot_sort": [_VP, _I, _I, _VP, _VP, _VP],
-    # x, gather, norm mean, m2, count, clip, w, b, y, scatter, offsets,
-    # rows, K, n_in, n_out, act, stream
-    "opp_grouped_dense": [_VP] * 5 + [_F] + [_VP] * 5 + [_I] * 5 + [_VP],
+    # x, slot, norm mean, m2, count (nullable), clip, host arrays of the
+    # layers' weight and bias pointers and of the widths, depth, act, out,
+    # rows, K, tiling, stream
+    "opp_mlp_forward": [_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 3 + [_VP],
+    # widths, depth, rows, K, out: resident 3-block clusters
+    "opp_mlp_default_tiling": [_VP, _I, _I, _I, _VP],
     # logits, values, mask, actions, old_lp, adv, returns, old_values, valid,
-    # M, A, G, eps, lo, hi, clip_value, value_coef, ent_coef,
-    # stats, sums, out, dlogits, dvalues, stream
-    "ppo_loss_forward": [_VP] * 9 + [_I] * 3 + [_F] * 3 + [_I] + [_F] * 2 + [_VP] * 6,
+    # M, A, eps, lo, hi, clip_value, value_coef, ent_coef,
+    # scratch (f64 [ppo_loss_scratch_len()]), out, dlogits, dvalues, stream
+    "ppo_loss_forward": [_VP] * 9 + [_I] * 2 + [_F] * 3 + [_I] + [_F] * 2 + [_VP] * 5,
+    "ppo_loss_scratch_len": [],
     # params, grads, mu, nu, partial, n, G, lr, max_norm, eps, b1, b2,
     # 1 - b1, 1 - b2, bc1, bc2, stream
     "clip_adam": [_VP] * 5 + [_L, _I] + [_F] * 9 + [_VP],

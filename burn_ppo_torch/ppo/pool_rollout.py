@@ -29,6 +29,7 @@ every row, then a selection by slot (pool_rollout.py:126-139, 171-178).
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -144,13 +145,44 @@ def opponent_actor_forward_plain(obs: torch.Tensor, slot: torch.Tensor, stack: O
     return torch.where(inside[:, None], picked, 0.0)
 
 
+# K7's tilings (csrc/opponent_actor.cu TILINGS): rows per cluster tile and
+# blocks per cluster, the blocks of a cluster splitting each layer's
+# columns. By default the kernel takes 32 x 3 when the expected clusters
+# fit on the card at once, a block an SM, else 32 x 2 (PERF.md, B11).
+OPPONENT_TILINGS = ((32, 2), (32, 3))
+# What K7 takes: widths of the obs, hidden layers and head; slots.
+_OPP_MAX_WIDTH, _OPP_MAX_HEAD, _OPP_MAX_LAYERS, _OPP_MAX_SLOTS = 512, 64, 4, 128
+
+
+def _check_opponent_tower(stack: OpponentStack, D: int) -> List[int]:
+    """The tower's widths [D, hidden..., A], or ValueError for a tower K7
+    does not take."""
+    widths = [D] + [w.shape[2] for w in stack.weights]
+    hidden = widths[1:-1]
+    problems = []
+    if not 1 <= len(stack.weights) <= _OPP_MAX_LAYERS:
+        problems.append(f"{len(stack.weights)} layers (1 to {_OPP_MAX_LAYERS})")
+    if not 1 <= D <= _OPP_MAX_WIDTH:
+        problems.append(f"obs width {D} (1 to {_OPP_MAX_WIDTH})")
+    if any(h % 32 or not 32 <= h <= _OPP_MAX_WIDTH for h in hidden):
+        problems.append(f"hidden widths {hidden} (multiples of 32 up to {_OPP_MAX_WIDTH})")
+    if not 1 <= widths[-1] <= _OPP_MAX_HEAD:
+        problems.append(f"head width {widths[-1]} (1 to {_OPP_MAX_HEAD})")
+    if not 1 <= stack.num_slots <= _OPP_MAX_SLOTS:
+        problems.append(f"{stack.num_slots} slots (1 to {_OPP_MAX_SLOTS})")
+    if problems:
+        raise ValueError("opponent_actor_forward: the kernel does not take " + ", ".join(problems))
+    return widths
+
+
 def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack,
-                           clip: float = 10.0) -> torch.Tensor:
+                           clip: float = 10.0, tiling: Optional[int] = None) -> torch.Tensor:
     """Each pool row's policy logits under its acting slot's opponent:
     raw obs [Ep, D], slot [Ep] i32 -> logits [Ep, A]. CPU tensors take the
-    plain version; CUDA tensors launch K7 (``csrc/opponent_actor.cu``:
-    one counting sort of the rows by slot, then one slot-grouped dense
-    launch per layer), or raise."""
+    plain version; CUDA tensors launch K7 (``csrc/opponent_actor.cu``: one
+    launch, every layer of a tile of one slot's rows on chip, 3xTF32 on the
+    tensor cores), or raise. ``tiling`` indexes ``OPPONENT_TILINGS``
+    (default: the kernel's choice)."""
     norm = stack.norm
     ts = [obs, slot, *stack.weights, *stack.biases]
     if norm is not None:
@@ -159,42 +191,36 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
         return opponent_actor_forward_plain(obs, slot, stack, clip)
     Ep, D = obs.shape
     K = stack.num_slots
+    widths = _check_opponent_tower(stack, D)
     kernels.expect(obs, "obs", torch.float32, (Ep, D))
     kernels.expect(slot, "slot", torch.int32, (Ep,))
     if norm is not None:
         kernels.expect(norm.mean, "norm.mean", torch.float32, (K, D))
         kernels.expect(norm.m2, "norm.m2", torch.float32, (K, D))
         kernels.expect(norm.count, "norm.count", torch.float32, (K,))
-    fan_in = D
     for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
-        kernels.expect(w, f"weights[{i}]", torch.float32, (K, fan_in, w.shape[2]))
-        kernels.expect(b, f"biases[{i}]", torch.float32, (K, w.shape[2]))
-        fan_in = w.shape[2]
+        kernels.expect(w, f"weights[{i}]", torch.float32, (K, widths[i], widths[i + 1]))
+        kernels.expect(b, f"biases[{i}]", torch.float32, (K, widths[i + 1]))
+        if w.data_ptr() % 16:
+            raise ValueError(f"weights[{i}]: the kernel's 16-byte copies need an aligned buffer")
+    tiling = -1 if tiling is None else tiling
+    if not -1 <= tiling < len(OPPONENT_TILINGS):
+        raise ValueError(f"tiling {tiling}: expected an index of {OPPONENT_TILINGS}")
     dev = obs.device
-    lib, p, st = kernels.library(), kernels.ptr, kernels.stream(dev)
-    perm = torch.empty(Ep, dtype=torch.int32, device=dev)
-    offsets = torch.empty(K + 1, dtype=torch.int32, device=dev)
-    kernels.check(lib.opp_slot_sort(p(slot), Ep, K, p(perm), p(offsets), st), "opp_slot_sort")
-    act = ACTIVATIONS[stack.activation]
-    x, depth = obs, len(stack.weights)
-    for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
-        first, last = i == 0, i == depth - 1
-        n_in, n_out = w.shape[1], w.shape[2]
-        # The last layer scatters back to row order; rows of an
-        # out-of-range slot are never computed and keep the zeros.
-        y = (torch.zeros if last else torch.empty)(Ep, n_out, dtype=torch.float32, device=dev)
-        err = lib.opp_grouped_dense(
-            p(x), p(perm) if first else None,
-            p(norm.mean) if first and norm is not None else None,
-            p(norm.m2) if first and norm is not None else None,
-            p(norm.count) if first and norm is not None else None, float(clip),
-            p(w), p(b), p(y), p(perm) if last else None, p(offsets),
-            Ep, K, n_in, n_out, 0 if last else act, st,
-        )
-        kernels.check(err, "opp_grouped_dense")
-        x = y
+    out = torch.empty(Ep, widths[-1], dtype=torch.float32, device=dev)
+    depth = len(stack.weights)
+    p = kernels.ptr
+    w_ptrs = (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights))
+    b_ptrs = (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases))
+    norm_ptrs = (None,) * 3 if norm is None else (p(norm.mean), p(norm.m2), p(norm.count))
+    err = kernels.library().opp_mlp_forward(
+        p(obs), p(slot), *norm_ptrs, float(clip), w_ptrs, b_ptrs,
+        (ctypes.c_int * (depth + 1))(*widths), depth, ACTIVATIONS[stack.activation], p(out), Ep,
+        K, tiling, kernels.stream(dev),
+    )
+    kernels.check(err, "opp_mlp_forward")
     opponent_actor_forward.launches += 1
-    return x
+    return out
 
 
 opponent_actor_forward.launches = 0

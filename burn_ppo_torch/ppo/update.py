@@ -292,8 +292,8 @@ def ppo_loss_plain(
     return loss, torch.stack(metrics), dlogits, dvalues
 
 
-# Blocks of K8's row pass: at most two per SM, at least one row per thread.
-_LOSS_MAX_BLOCKS = 264
+# K8's widest row (csrc/ppo_loss.cu: 8 lanes a row, 8 entries a lane).
+_LOSS_MAX_ACTIONS = 64
 
 
 def ppo_loss_forward(
@@ -304,13 +304,17 @@ def ppo_loss_forward(
     cfg: PPOUpdateConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, metrics [14], dL/dlogits, dL/dvalues) of one minibatch. CPU
-    tensors take the plain version; CUDA tensors launch K8, or raise."""
+    tensors take the plain version; CUDA tensors launch K8 (two launches:
+    the advantage statistics, then the rows with the last block's
+    finalize), or raise."""
     mask = mb.get("action_masks")
     cols = [mb[k] for k in LOSS_FIELDS]
     ts = [logits, values, *cols] + ([] if mask is None else [mask])
     if kernels.on_cpu(*ts):
         return ppo_loss_plain(logits, values, mb, ent_coef, cfg)
     M, A = logits.shape
+    if not 1 <= A <= _LOSS_MAX_ACTIONS:
+        raise ValueError(f"ppo_loss: the kernel takes 1 to {_LOSS_MAX_ACTIONS} actions, got {A}")
     kernels.expect(logits, "logits", torch.float32, (M, A))
     kernels.expect(values, "values", torch.float32, (M,))
     if mask is not None:
@@ -318,19 +322,17 @@ def ppo_loss_forward(
     for k, t in zip(LOSS_FIELDS, cols):
         kernels.expect(t, k, torch.int32 if k == "actions" else torch.float32, (M,))
     dev = logits.device
-    G = max(1, min(_LOSS_MAX_BLOCKS, -(-M // 256)))
-    stats = torch.empty(G, 3, dtype=torch.float64, device=dev)
-    sums = torch.empty(G, 12, dtype=torch.float64, device=dev)
+    lib = kernels.library()
+    scratch = torch.empty(lib.ppo_loss_scratch_len(), dtype=torch.float64, device=dev)
     out = torch.empty(15, dtype=torch.float32, device=dev)
     dlogits = torch.empty_like(logits)
     dvalues = torch.empty_like(values)
     eps = cfg.clip_epsilon
     p = kernels.ptr
-    err = kernels.library().ppo_loss_forward(
-        p(logits), p(values), p(mask), *(p(t) for t in cols), M, A, G, float(eps),
+    err = lib.ppo_loss_forward(
+        p(logits), p(values), p(mask), *(p(t) for t in cols), M, A, float(eps),
         float(1.0 - eps), float(1.0 + eps), int(cfg.clip_value), float(cfg.value_coef),
-        float(ent_coef), p(stats), p(sums), p(out), p(dlogits), p(dvalues),
-        kernels.stream(dev),
+        float(ent_coef), p(scratch), p(out), p(dlogits), p(dvalues), kernels.stream(dev),
     )
     kernels.check(err, "ppo_loss_forward")
     ppo_loss.launches += 1

@@ -377,6 +377,8 @@ class Trainer:
         self.seating: Optional[PoolSeating] = None
         self._last_num_slots: Optional[int] = None
         self._last_elo: Dict[str, float] = {}
+        # Host timings logged once, at the next log, then cleared.
+        self._perf_extra: Dict[str, float] = {}
         self.num_learner_envs = self.num_envs
         if cfg.opponent_pool_fraction > 0.0 and self.num_players > 1:
             pool_envs = int(round(self.num_envs * cfg.opponent_pool_fraction))
@@ -457,8 +459,8 @@ class Trainer:
             "train/best_step": float(snap.best_step),
             "train/rating_games": float(snap.total_games),
             "train/elo_compute_ms": snap.computation_time_ms,
-            "perf/checkpoint_rating_time": time.time() - t0,
         }
+        self._perf_extra["perf/checkpoint_rating_time"] = time.time() - t0
         if snap.total_games > 0 and self.ckpt.step_dir(snap.best_step).exists():
             self.ckpt.set_best(snap.best_step)
         self.rating_history.generate_graph(self.run_dir / "elo_graph.png")
@@ -644,6 +646,10 @@ class Trainer:
         if "learner_valid_fraction" in m:
             log("train/learner_valid_fraction", m["learner_valid_fraction"], step)
         log("perf/sps", sps, step)
+        # Once per event (a checkpoint's rating time), as JAX's _perf_extra.
+        for name, value in self._perf_extra.items():
+            log(name, value, step)
+        self._perf_extra = {}
         if self.device.type == "cuda":
             log("perf/device_mb_in_use", torch.cuda.memory_allocated(self.device) / 2**20, step)
             log("perf/device_mb_peak", torch.cuda.max_memory_allocated(self.device) / 2**20, step)

@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent DIR   # also time DIR's K7 and K8 in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -15,9 +16,11 @@ exits non-zero without the final result line:
      ([4096, 86], count 0, 1 and large) and update ([262144, 86],
      [524288, 5]), K7 slot-grouped opponent forward (Ep = 1024 rows, MLP
      86 -> 512 -> 512 -> 7, K = 8 and K = 3, relu and tanh; and the Skull
-     pool block, Ep = 1229, K = 8, 135 -> 256 -> 256 -> 256 -> 33), K8 PPO
-     loss ([65536, 7], [65536, 33] and [131072, 2] minibatches, valid
-     zeros, value clip on and off), K9 clip + Adam (CartPole's 4,739,
+     pool block, Ep = 1229, K = 8, 135 -> 256 -> 256 -> 256 -> 33; each of
+     its tilings checked and timed; its bound the 3xTF32 one on the tensor
+     cores, the f32 one beside it), K8 PPO loss ([65536, 7], [65536, 33]
+     and [131072, 2] minibatches, valid zeros, value clip on and off, two
+     calls bit for bit), K9 clip + Adam (CartPole's 4,739,
      Connect Four's 311,304 and Skull CTDE 512x2's 784,418 parameters,
      below and above the max norm), K10 episode statistics ([64, 4096]
      with the learner block [:, :3072], [128, 4096], and four players with
@@ -38,6 +41,8 @@ exits non-zero without the final result line:
      P = 4;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
+     with --parent, the parent commit's K7 and K8, built from DIR, in
+     turns with this tree's (parent, new, new, parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
   3. the CartPole bench-shape train path through the CLI entry point
@@ -84,9 +89,11 @@ The line before the last holds the kernel table, the last line
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -151,11 +158,14 @@ from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     return_norm_roll_plain,
 )
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
+    ACTIVATIONS,
+    OPPONENT_TILINGS,
     OpponentStack,
     opponent_actor_forward,
     opponent_actor_forward_plain,
 )
 from burn_ppo_torch.ppo.update import (  # noqa: E402
+    LOSS_FIELDS,
     PPOUpdateConfig,
     clip_adam,
     clip_adam_plain,
@@ -185,6 +195,9 @@ HBM_BYTES_PER_S = 3.35e12
 TIMES = ("ms", "plain_ms", "device_ms", "plain_device_ms")
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
+# Dense TF32 on the tensor cores; an f32-accurate product there is three
+# TF32 products (the 3xTF32 split of K7).
+TF32_FLOP_PER_S = 495e12
 WRAPPERS = {
     "cartpole_step_autoreset": cartpole_step_autoreset,
     "masked_gumbel_sample": masked_sample,
@@ -344,14 +357,114 @@ def nbytes(*tensors) -> int:
     return sum(seen.values())
 
 
-def bound(bytes_moved: float, flops: float = 0.0, flops64: float = 0.0) -> dict:
+def bound(bytes_moved: float, flops: float = 0.0, flops64: float = 0.0,
+          flops_3xtf32: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the peak of their type (f32, and
-    f64 for ``flops64``)."""
+    the HBM rate and the operations over the peak of their type (f32, f64
+    for ``flops64``, and for ``flops_3xtf32`` three TF32 products each on
+    the tensor cores)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / F32_FLOP_PER_S + flops64 / F64_FLOP_PER_S) * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
-            else "operations", "bytes": bytes_moved, "flops": flops, "flops64": flops64}
+    t_ops = (flops / F32_FLOP_PER_S + flops64 / F64_FLOP_PER_S
+             + 3.0 * flops_3xtf32 / TF32_FLOP_PER_S) * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+           else "operations", "bytes": bytes_moved, "flops": flops, "flops64": flops64}
+    if flops_3xtf32:
+        out["flops_3xtf32"] = flops_3xtf32
+        # the same products at the f32 rate outside the tensor cores
+        out["bound_ffma_ms"] = max(t_bytes, flops_3xtf32 / F32_FLOP_PER_S * 1e3)
+    return out
+
+
+def ptxas_summary(text: str) -> list:
+    """ptxas -v output as one line per kernel: its name and template
+    arguments (from the mangled name), then registers, shared memory and
+    spills."""
+    out, name, spill = [], None, ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            spill = ""
+            k = re.search(r"\d+([A-Za-z_]+kernel)((?:I(?:Li\d+E)+E)?)", m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                "<{}>".format(", ".join(re.findall(r"Li(\d+)E", k.group(2)))) if k.group(2) else "")
+        elif "spill" in ln and name is not None:
+            spill = ln.strip()
+        elif "Used" in ln and name is not None:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
+def turns(new, parent) -> dict:
+    """The new kernel and the parent commit's, in turns (parent, new, new,
+    parent): device and events ms of each reading."""
+    out: dict = {"device_ms_turns": [], "ms_turns": [], "parent_device_ms": [], "parent_ms": []}
+    for who, fn in (("parent_", parent), ("", new), ("", new), ("parent_", parent)):
+        out[f"{who}device_ms" if who else "device_ms_turns"].append(device_ms(fn)[0])
+        out[f"{who}ms" if who else "ms_turns"].append(time_ms(fn))
+    return out
+
+
+class ParentKernels:
+    """The parent commit's K7 and K8, built from a checkout of it into a
+    library of their own and called as its wrappers called them, so that
+    they are timed beside the new kernels in the same process."""
+
+    def __init__(self, parent_dir: Path):
+        csrc = parent_dir / "burn_ppo_torch" / "csrc"
+        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k7_k8.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
+               str(csrc / "opponent_actor.cu"), str(csrc / "ppo_loss.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
+        self.ptxas = ptxas_summary(res.stdout + res.stderr)
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib = ctypes.CDLL(str(out))
+        for name, argtypes in (
+                ("opp_slot_sort", [vp, i, i, vp, vp, vp]),
+                ("opp_grouped_dense", [vp] * 5 + [f] + [vp] * 5 + [i] * 5 + [vp]),
+                ("ppo_loss_forward", [vp] * 9 + [i] * 3 + [f] * 3 + [i] + [f] * 2 + [vp] * 6)):
+            fn = getattr(self.lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+
+    def k7(self, obs, slot, stack, clip: float = 10.0) -> torch.Tensor:
+        """One counting sort of the rows by slot, then one slot-grouped
+        dense launch per layer."""
+        Ep, K, dev, p = obs.shape[0], stack.num_slots, obs.device, kernels.ptr
+        st = kernels.stream(dev)
+        perm = torch.empty(Ep, dtype=torch.int32, device=dev)
+        offsets = torch.empty(K + 1, dtype=torch.int32, device=dev)
+        kernels.check(self.lib.opp_slot_sort(p(slot), Ep, K, p(perm), p(offsets), st), "sort")
+        norm, x, depth = stack.norm, obs, len(stack.weights)
+        for li, (w, b) in enumerate(zip(stack.weights, stack.biases)):
+            first, last = li == 0, li == depth - 1
+            y = (torch.zeros if last else torch.empty)(Ep, w.shape[2], device=dev)
+            nrm = (norm.mean, norm.m2, norm.count) if first and norm is not None else (None,) * 3
+            kernels.check(self.lib.opp_grouped_dense(
+                p(x), p(perm) if first else None, *map(p, nrm), float(clip), p(w), p(b), p(y),
+                p(perm) if last else None, p(offsets), Ep, K, w.shape[1], w.shape[2],
+                0 if last else ACTIVATIONS[stack.activation], st), "dense")
+            x = y
+        return x
+
+    def k8(self, logits, values, mb, ent_coef, cfg):
+        """A stats pass, the row pass and a one-block finalize."""
+        M, A = logits.shape
+        dev, p = logits.device, kernels.ptr
+        G = max(1, min(264, -(-M // 256)))
+        stats = torch.empty(G, 3, dtype=torch.float64, device=dev)
+        sums = torch.empty(G, 12, dtype=torch.float64, device=dev)
+        out = torch.empty(15, device=dev)
+        dlogits, dvalues = torch.empty_like(logits), torch.empty_like(values)
+        eps = cfg.clip_epsilon
+        kernels.check(self.lib.ppo_loss_forward(
+            p(logits), p(values), p(mb.get("action_masks")), *(p(mb[k]) for k in LOSS_FIELDS),
+            M, A, G, float(eps), float(1.0 - eps), float(1.0 + eps), int(cfg.clip_value),
+            float(cfg.value_coef), float(ent_coef), p(stats), p(sums), p(out), p(dlogits),
+            p(dvalues), kernels.stream(dev)), "loss")
+        return out[0], out[1:], dlogits, dvalues
 
 
 def check_cartpole(dev, g) -> dict:
@@ -959,86 +1072,76 @@ def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int
     return OpponentStack(weights=weights, biases=biases, activation=act, norm=norm)
 
 
-def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor) -> dict:
-    """K7 at the pool block of the bench shape (Ep = 1024 rows), K = 8 and
-    K = 3, relu and tanh, and at Skull's (Ep = 1229 rows of Skull obs, K =
-    8, CTDE actor 135 -> 256 -> 256 -> 256 -> 33, relu, no obs
-    normalisation, as configs/skull_ctde.toml trains):
+def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
+                         parent: "ParentKernels | None") -> dict:
+    """K7 at the pool blocks the main paths give it, K = 8: Connect Four's
+    (Ep = 1024, MLP 86 -> 512 -> 512 -> 7 with per-slot obs norm), Skull's
+    (Ep = 1229, CTDE actor 135 -> 256 x3 -> 33, as configs/skull_ctde.toml
+    trains), Liar's Dice's (Ep = 1024, CTDE actor 270 -> 256 x2 -> 49 and
+    the MLP 270 -> 512 x3 -> 49 with obs norm), all relu; and Connect
+    Four's at K = 3, relu and tanh. Every tiling is checked and timed at
+    the four shapes; with ``parent``, the parent commit's K7 in turns:
     |kernel - plain| <= 1e-4 + 1e-4 |plain|."""
-    out = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": 0.0}
-    for K, act in ((8, "relu"), (8, "tanh"), (3, "relu"), (3, "tanh")):
+    out = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": 0.0,
+           "tilings": [f"{r} rows x {c} blocks" for r, c in OPPONENT_TILINGS]}
+
+    def close(k, p, what):
+        if not bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())):
+            raise AssertionError(f"opponent_actor_forward {what}: max abs err {max_err([(k, p)])}")
+        out["max_abs_err"] = max(out["max_abs_err"], max_err([(k, p)]))
+        return max_err([(k, p)])
+
+    for K, act in ((3, "relu"), (3, "tanh"), (8, "tanh")):
         stack = random_opponents(dev, g, K, act)
         obs = connect_four_like(dev, g, EP)
         slot = torch.randint(0, K, (EP,), generator=g, device=dev, dtype=torch.int32)
-        k = opponent_actor_forward(obs, slot, stack)
-        p = opponent_actor_forward_plain(obs, slot, stack)
-        torch.cuda.synchronize()
-        if not bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())):
-            raise AssertionError(f"opponent_actor_forward K={K} {act}: max abs err "
-                                 f"{max_err([(k, p)])}")
-        out[f"K{K}_{act}"] = max_err([(k, p)])
-        out["max_abs_err"] = max(out["max_abs_err"], out[f"K{K}_{act}"])
-    stack = random_opponents(dev, g, 8, "relu")
-    obs = connect_four_like(dev, g, EP)
-    slot = torch.randint(0, 8, (EP,), generator=g, device=dev, dtype=torch.int32)
-    xs = [torch.rand(8, EP, w.shape[1], generator=g, device=dev) for w in stack.weights]
-    # Every row through its own slot only: 309,760 multiply-adds per row.
-    macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
-    out.update(
-        **timed(lambda: opponent_actor_forward(obs, slot, stack),
-                lambda: opponent_actor_forward_plain(obs, slot, stack)),
-        library_ms=time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
-        library_call="torch.bmm over the K x Ep stacked rows, one per layer (K times the work)",
-        **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + EP * 7 * 4,
-                2.0 * EP * macs),
-    )
-    stack = random_opponents(dev, g, 8, "relu", D=135, H=256, A=33, depth=3)
-    stack.norm = None
-    obs = skull_obs[:EP_SKULL].contiguous()
-    slot = torch.randint(0, 8, (EP_SKULL,), generator=g, device=dev, dtype=torch.int32)
-    k = opponent_actor_forward(obs, slot, stack)
-    p = opponent_actor_forward_plain(obs, slot, stack)
-    torch.cuda.synchronize()
-    if not bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())):
-        raise AssertionError(f"opponent_actor_forward Skull: max abs err {max_err([(k, p)])}")
-    xs = [torch.rand(8, EP_SKULL, w.shape[1], generator=g, device=dev) for w in stack.weights]
-    macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
-    out["skull_Ep1229_K8_ctde256x3"] = {
-        "max_abs_err": max_err([(k, p)]),
-        **timed(lambda: opponent_actor_forward(obs, slot, stack),
-                lambda: opponent_actor_forward_plain(obs, slot, stack)),
-        "library_ms": time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
-        **bound(nbytes(obs, slot, stack.weights, stack.biases) + EP_SKULL * 33 * 4,
-                2.0 * EP_SKULL * macs),
-    }
-    out["max_abs_err"] = max(out["max_abs_err"], out["skull_Ep1229_K8_ctde256x3"]["max_abs_err"])
-    # Liar's Dice's pool block (Ep = 1024 rows of its obs, K = 8): the CTDE
-    # actor 270 -> 256 -> 256 -> 49 without obs norm (liars_dice_ctde.toml),
-    # the MLP 270 -> 512 x3 -> 49 with per-slot obs norm (liars_dice.toml
-    # --normalize-obs).
-    obs = ld_obs[:EP_LD].contiguous()
-    for name, H, depth, normed in (("liars_dice_Ep1024_K8_ctde256x2", 256, 2, False),
-                                   ("liars_dice_Ep1024_K8_mlp512x3", 512, 3, True)):
-        stack = random_opponents(dev, g, 8, "relu", D=LD_OBS, H=H, A=49, depth=depth)
+        out[f"c4_K{K}_{act}"] = close(opponent_actor_forward(obs, slot, stack),
+                                      opponent_actor_forward_plain(obs, slot, stack), f"K={K} {act}")
+    shapes = (("c4_Ep1024_K8_mlp512x2", connect_four_like(dev, g, EP), 512, 2, 7, True),
+              ("skull_Ep1229_K8_ctde256x3", skull_obs[:EP_SKULL], 256, 3, 33, False),
+              ("liars_dice_Ep1024_K8_ctde256x2", ld_obs[:EP_LD], 256, 2, 49, False),
+              ("liars_dice_Ep1024_K8_mlp512x3", ld_obs[:EP_LD], 512, 3, 49, True))
+    for name, obs, H, depth, A, normed in shapes:
+        obs = obs.contiguous()
+        Ep, D = obs.shape
+        stack = random_opponents(dev, g, 8, "relu", D=D, H=H, A=A, depth=depth)
         if not normed:
             stack.norm = None
-        slot = torch.randint(0, 8, (EP_LD,), generator=g, device=dev, dtype=torch.int32)
-        k = opponent_actor_forward(obs, slot, stack)
-        p = opponent_actor_forward_plain(obs, slot, stack)
-        torch.cuda.synchronize()
-        if not bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())):
-            raise AssertionError(f"opponent_actor_forward {name}: max abs err {max_err([(k, p)])}")
-        xs = [torch.rand(8, EP_LD, w.shape[1], generator=g, device=dev) for w in stack.weights]
+        slot = torch.randint(0, 8, (Ep,), generator=g, device=dev, dtype=torch.int32)
+        plain = opponent_actor_forward_plain(obs, slot, stack)
+        entry = {"max_abs_err": close(opponent_actor_forward(obs, slot, stack), plain, name)}
+        widths = [D] + [w.shape[2] for w in stack.weights]
+        resident = ctypes.c_int(0)
+        chosen = kernels.library().opp_mlp_default_tiling(
+            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, Ep, 8, ctypes.byref(resident))
+        entry["default_tiling"] = "{}x{}".format(*OPPONENT_TILINGS[chosen])
+        entry["resident_3_block_clusters"] = resident.value
+        tilings = {}
+        for t, (r, c) in enumerate(OPPONENT_TILINGS):
+            run = (lambda t=t: opponent_actor_forward(obs, slot, stack, tiling=t))
+            tilings[f"{r}x{c}"] = {"max_abs_err": close(run(), plain, f"{name} tiling {t}"),
+                                   "device_ms": device_ms(run)[0], "ms": time_ms(run)}
+        xs = [torch.rand(8, Ep, w.shape[1], generator=g, device=dev) for w in stack.weights]
         macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
-        out[name] = {
-            "max_abs_err": max_err([(k, p)]),
+        entry.update(
             **timed(lambda: opponent_actor_forward(obs, slot, stack),
                     lambda: opponent_actor_forward_plain(obs, slot, stack)),
-            "library_ms": time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
-            **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + EP_LD * 49 * 4,
-                    2.0 * EP_LD * macs),
-        }
-        out["max_abs_err"] = max(out["max_abs_err"], out[name]["max_abs_err"])
+            tilings=tilings,
+            library_ms=time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+            # Every row through its own slot only; f32-accurate products on
+            # the tensor cores are three TF32 products (bound_ffma_ms: at
+            # the f32 rate outside them).
+            **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + Ep * A * 4,
+                    flops_3xtf32=2.0 * Ep * macs),
+        )
+        if parent is not None:
+            close(parent.k7(obs, slot, stack), plain, f"{name} (parent)")
+            entry.update(turns(lambda: opponent_actor_forward(obs, slot, stack),
+                               lambda: parent.k7(obs, slot, stack)))
+        out[name] = entry
+    out["library_call"] = "torch.bmm over the K x Ep stacked rows, one per layer (K times the work)"
+    out.update({k: out["c4_Ep1024_K8_mlp512x2"][k]
+                for k in TIMES + ("library_ms", "bound_ms", "bound_by", "bound_ffma_ms")})
     return out
 
 
@@ -1064,53 +1167,59 @@ def loss_batch(dev, g, M: int, A: int):
     return logits, values, mb
 
 
-def check_ppo_loss(dev, g) -> dict:
+def check_ppo_loss(dev, g, parent: "ParentKernels | None") -> dict:
     """K8 at the minibatch shapes: Connect Four [65536, 7] (value clip off
-    and on), Skull [65536, 33], CartPole [131072, 2]. Loss and metrics to
-    1e-5 relative, gradients to 1e-4 relative + 1e-6 of their largest
-    entry."""
+    and on), Skull [65536, 33], Liar's Dice [65536, 49], CartPole
+    [131072, 2]. Loss and metrics to 1e-5 relative, gradients to 1e-4
+    relative + 1e-6 of their largest entry; a second call on the same
+    inputs gives the same bits. With ``parent``, the parent commit's K8 in
+    turns at [65536, 7], [65536, 33] and [65536, 49]."""
     out = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
-    for M, A, clip_value in ((65536, 7, False), (65536, 7, True), (65536, 33, False),
-                             (65536, 49, False), (131072, 2, False)):
-        logits, values, mb = loss_batch(dev, g, M, A)
-        cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
-        k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
-        p = ppo_loss_plain(logits, values, mb, 0.05, cfg)
-        torch.cuda.synchronize()
-        name = f"M{M}_A{A}" + ("_clip" if clip_value else "")
+
+    def close(k, p, name) -> float:
         for a, b, rel, what in ((k[0], p[0], 1e-5, "loss"), (k[1], p[1], 1e-5, "metrics"),
                                 (k[2], p[2], 1e-4, "dlogits"), (k[3], p[3], 1e-4, "dvalues")):
             atol = 1e-6 * max(float(b.abs().max()), 1.0 if what in ("loss", "metrics") else 0.0)
             if not bool(torch.all((a - b).abs() <= atol + rel * b.abs())):
                 raise AssertionError(f"ppo_loss {name}: {what} max abs err {max_err([(a, b)])}")
+        return max_err(list(zip(k, p)))
+
+    for M, A, clip_value in ((65536, 7, False), (65536, 7, True), (65536, 33, False),
+                             (65536, 49, False), (131072, 2, False)):
+        logits, values, mb = loss_batch(dev, g, M, A)
+        cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
+        k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+        again = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+        p = ppo_loss_plain(logits, values, mb, 0.05, cfg)
+        torch.cuda.synchronize()
+        name = f"M{M}_A{A}" + ("_clip" if clip_value else "")
+        close(k, p, name)
+        if not all(torch.equal(a, b) for a, b in zip(k, again)):
+            raise AssertionError(f"ppo_loss {name}: two calls on the same inputs differ")
         out[name] = max_err(list(zip(k, p)))
         out["max_abs_err"] = max(out["max_abs_err"], out[name])
-    logits, values, mb = loss_batch(dev, g, 65536, 7)
+    out["bit_identical_across_calls"] = True
     cfg = PPOUpdateConfig(clip_epsilon=0.1)
-    dl = torch.empty_like(logits)
-    # logits, mask, dL/dlogits [M, 7]; values, the columns read, dL/dvalues
-    # [M] (old_values is read only with the value clip on)
-    read = [t for k, t in mb.items() if k != "old_values" or cfg.clip_value]
-    moved = nbytes(logits, values, read) + nbytes(dl, values) + 15 * 4
-    out.update(
-        **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
-                lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
-        library_ms=None,
-        # per row: the masked log-softmax and its gradient (~12 per
-        # action), ratio, clip, value and metric terms (~60)
-        **bound(moved, 65536 * (12.0 * 7 + 60.0)),
-    )
-    for A in (33, 49):
+    for A in (7, 33, 49):
         logits, values, mb = loss_batch(dev, g, 65536, A)
-        read = [t for k, t in mb.items() if k != "old_values"]
-        out[f"M65536_A{A}"] = {
+        # logits, mask, dL/dlogits [M, A]; values, the columns read,
+        # dL/dvalues [M] (old_values is read only with the value clip on)
+        read = [t for k, t in mb.items() if k != "old_values" or cfg.clip_value]
+        entry = {
             "max_abs_err": out[f"M65536_A{A}"],
             **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
                     lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
             "library_ms": None,
+            # per row: the masked log-softmax and its gradient (~12 per
+            # action), ratio, clip, value and metric terms (~60)
             **bound(nbytes(logits, values, read) + nbytes(logits, values) + 15 * 4,
                     65536 * (12.0 * A + 60.0)),
         }
+        if parent is not None:
+            entry.update(turns(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
+                               lambda: parent.k8(logits, values, mb, 0.05, cfg)))
+        out[f"M65536_A{A}"] = entry
+    out.update({k: out["M65536_A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
 
 
@@ -1482,7 +1591,14 @@ def learning_bar(tmp: Path) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit: its K7 and K8 are built from it "
+                         "and timed in turns with this tree's")
+    args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
     emit("device", nvidia_smi=card_line, torch=torch.__version__, cuda=torch.version.cuda,
@@ -1492,8 +1608,10 @@ def main() -> int:
     lib_path = kernels.build()
     kernels.library()
     log = lib_path.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines() if "Used" in ln] if log.exists() else []
-    emit("build", seconds=time.time() - t0, library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
+    ptxas = ptxas_summary(log.read_text()) if log.exists() else []
+    parent = None if args.parent is None else ParentKernels(args.parent.resolve())
+    emit("build", seconds=time.time() - t0, library=str(lib_path.relative_to(ROOT)), ptxas=ptxas,
+         parent_ptxas=None if parent is None else parent.ptxas)
 
     g = torch.Generator(device=dev).manual_seed(0)
     skull, skull_mask, skull_obs = check_skull(dev, g)
@@ -1519,8 +1637,8 @@ def main() -> int:
         "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld,
                            "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"])},
         "obs_norm_update": check_obs_norm_update(dev, g),
-        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs),
-        "ppo_loss": check_ppo_loss(dev, g),
+        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs, parent),
+        "ppo_loss": check_ppo_loss(dev, g, parent),
         "clip_adam": check_clip_adam(dev, g),
         "episode_stats": check_episode_stats(dev, g),
         "skull_step_autoreset": skull,
@@ -1583,4 +1701,4 @@ def main() -> int:
 
 if __name__ == "__main__":
     os.chdir(ROOT)
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

@@ -180,7 +180,7 @@ def test_kernel_library_is_content_addressed_under_the_repo_cache():
         "episode_stats.cu", "skull_step.cu", "return_norm.cu",
     }
     assert {name for name in kernels.SIGNATURES} >= {
-        "opp_slot_sort", "opp_grouped_dense", "ppo_loss_forward", "clip_adam", "episode_stats",
+        "opp_mlp_forward", "ppo_loss_forward", "clip_adam", "episode_stats",
         "skull_step_autoreset", "return_norm_roll", "return_norm_finalize"}
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
     assert "--use_fast_math" not in kernels.NVCC_FLAGS

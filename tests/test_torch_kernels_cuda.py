@@ -39,6 +39,7 @@ from burn_ppo_torch.ppo.normalization import (
     return_norm_roll_plain,
 )
 from burn_ppo_torch.ppo.pool_rollout import (
+    OPPONENT_TILINGS,
     OpponentStack,
     opponent_actor_forward,
     opponent_actor_forward_plain,
@@ -526,3 +527,162 @@ def test_liars_dice_kernel_matches_plain_exactly(dev, E):
         dones += int(p.done.sum())
         state, acc = p.state, p.acc
     assert dones > 0
+
+
+# K7 at every tower the pool runs: (obs, hidden width, hidden layers, head).
+OPPONENT_TOWERS = {
+    "c4_mlp512x2": (86, 512, 2, 7),
+    "ld_mlp512x3": (270, 512, 3, 49),
+    "skull_ctde256x3": (135, 256, 3, 33),
+    "ld_ctde256x2": (270, 256, 2, 49),
+    "skull_mlp256x3": (135, 256, 3, 33),
+}
+
+
+def opponent_case(g, dev, tower, act, normed, Ep, K=8):
+    D, H, depth, A = OPPONENT_TOWERS[tower]
+    stack = make_opponents(g, dev, K, act, D=D, H=H, A=A, depth=depth)
+    if not normed:
+        stack.norm = None
+    obs = torch.randn(Ep, D, generator=g, device=dev) * 2.0 + 0.5
+    slot = torch.randint(0, K, (Ep,), generator=g, device=dev, dtype=torch.int32)
+    return obs, slot, stack
+
+
+def assert_opponent_close(k, p):
+    assert bool(torch.all((k - p).abs() <= 1e-4 + 1e-4 * p.abs())), float((k - p).abs().max())
+
+
+@pytest.mark.parametrize("tower", sorted(OPPONENT_TOWERS))
+@pytest.mark.parametrize("act", ["relu", "tanh"])
+@pytest.mark.parametrize("normed", [True, False])
+def test_opponent_actor_kernel_takes_every_pool_tower(dev, tower, act, normed):
+    """|kernel - plain| <= 1e-4 + 1e-4 |plain| (3xTF32 keeps f32 accuracy)."""
+    g = torch.Generator(device=dev).manual_seed(len(tower) * 7 + normed)
+    obs, slot, stack = opponent_case(g, dev, tower, act, normed, Ep=1024)
+    before = opponent_actor_forward.launches
+    k = opponent_actor_forward(obs, slot, stack)
+    torch.cuda.synchronize()
+    assert opponent_actor_forward.launches == before + 1
+    assert_opponent_close(k, opponent_actor_forward_plain(obs, slot, stack))
+
+
+@pytest.mark.parametrize("tiling", range(len(OPPONENT_TILINGS)))
+@pytest.mark.parametrize("tower", ["c4_mlp512x2", "skull_ctde256x3"])
+def test_opponent_actor_kernel_matches_plain_at_every_tiling(dev, tiling, tower):
+    g = torch.Generator(device=dev).manual_seed(tiling)
+    obs, slot, stack = opponent_case(g, dev, tower, "relu", True, Ep=1229)
+    k = opponent_actor_forward(obs, slot, stack, tiling=tiling)
+    torch.cuda.synchronize()
+    assert_opponent_close(k, opponent_actor_forward_plain(obs, slot, stack))
+
+
+@pytest.mark.parametrize("Ep", [37, 1229])
+@pytest.mark.parametrize("tiling", range(len(OPPONENT_TILINGS)))
+def test_opponent_actor_kernel_with_empty_small_and_out_of_range_slots(dev, Ep, tiling):
+    """Slots 1, 4 and 6 empty, slot 2 with 3 rows (under a tile), rows of
+    slots -1, 8 and 40 (outside [0, 8)) read zeros; Ep not a multiple of
+    any tile."""
+    g = torch.Generator(device=dev).manual_seed(Ep + tiling)
+    obs, slot, stack = opponent_case(g, dev, "ld_ctde256x2", "tanh", False, Ep=Ep)
+    used = torch.tensor([0, 3, 5, 7], device=dev, dtype=torch.int32)
+    slot = used[torch.randint(0, 4, (Ep,), generator=g, device=dev)]
+    slot[:3] = 2
+    slot[5:8] = torch.tensor([-1, 8, 40], device=dev, dtype=torch.int32)
+    k = opponent_actor_forward(obs, slot, stack, tiling=tiling)
+    torch.cuda.synchronize()
+    p = opponent_actor_forward_plain(obs, slot, stack)
+    assert torch.equal(k[5:8], torch.zeros_like(k[5:8]))
+    assert_opponent_close(k, p)
+
+
+def test_opponent_actor_kernel_refuses_what_it_cannot_take(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    obs = torch.rand(16, 86, generator=g, device=dev)
+    slot = torch.zeros(16, dtype=torch.int32, device=dev)
+    for kwargs, what in (({"H": 100}, "hidden widths"), ({"A": 65}, "head width"),
+                         ({"depth": 4}, "layers")):
+        stack = make_opponents(g, dev, 2, "relu", **kwargs)
+        with pytest.raises(ValueError, match=what):
+            opponent_actor_forward(obs, slot, stack)
+    wide = make_opponents(g, dev, 2, "relu", D=600)
+    with pytest.raises(ValueError, match="obs width"):
+        opponent_actor_forward(torch.rand(16, 600, device=dev), slot, wide)
+
+
+def tie_batch(g, dev, M, A):
+    """A loss batch with exact ties in half its rows: two legal actions of
+    equal logits (log-prob -log 2), old log-probs that make the ratio
+    exactly 1 + eps or 1 - eps on the card, and values whose clipped and
+    unclipped errors square equally (e1 = -e2) or sit on the clip edge."""
+    logits, values, mb = loss_batch(g, dev, M, A)
+    n = M // 2
+    mask = mb["action_masks"]
+    mask[:n] = 0.0
+    mask[:n, :2] = 1.0
+    logits[:n, 1] = logits[:n, 0]
+    mb["actions"][:n] = 0
+    eps = 0.25
+    lp = torch.log_softmax(logits[:n] + torch.where(mask[:n] > 0, 0.0, -1e9), -1)[:, 0]
+    assert bool(torch.all(lp == lp[0]))
+    for rows, target in ((slice(0, n // 2), 1.0 + eps), (slice(n // 2, n), 1.0 - eps)):
+        want = torch.tensor(target, dtype=torch.float32, device=dev)
+        old = lp[0] - torch.log(want)
+        for _ in range(200):
+            r = torch.exp(lp[0] - old)
+            if r == want:
+                break
+            old = torch.nextafter(old, old + (1.0 if r > want else -1.0))
+        assert torch.exp(lp[0] - old) == want
+        mb["old_log_probs"][rows] = old
+    val = torch.randint(-16, 16, (n,), generator=g, device=dev).float() / 8.0
+    values[:n] = val
+    edge = torch.arange(n, device=dev) % 2 == 0
+    mb["old_values"][:n] = torch.where(edge, val - eps, val - 1.0)
+    mb["returns"][:n] = torch.where(edge, mb["returns"][:n], val - 0.375)
+    return logits, values, mb, PPOUpdateConfig(clip_epsilon=eps, clip_value=True)
+
+
+def assert_loss_close(k, p):
+    torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-6)
+    for a, b in zip(k[2:], p[2:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("A", [2, 33, 49])
+@pytest.mark.parametrize("M", [1000, 65537])
+@pytest.mark.parametrize("case", ["random", "ties", "all_invalid"])
+def test_ppo_loss_kernel_at_every_action_count(dev, A, M, case):
+    g = torch.Generator(device=dev).manual_seed(A * M)
+    if case == "ties":
+        logits, values, mb, cfg = tie_batch(g, dev, M, A)
+    else:
+        logits, values, mb = loss_batch(g, dev, M, A)
+        cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=True)
+        if case == "all_invalid":
+            mb["valid"].zero_()
+    k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+    torch.cuda.synchronize()
+    assert_loss_close(k, ppo_loss_plain(logits, values, mb, 0.05, cfg))
+    if case == "all_invalid":
+        assert not bool(k[2].any()) and not bool(k[3].any())
+
+
+@pytest.mark.parametrize("M,A", [(65536, 7), (65536, 49), (1000, 33)])
+def test_ppo_loss_kernel_is_bit_identical_across_calls(dev, M, A):
+    g = torch.Generator(device=dev).manual_seed(M - A)
+    logits, values, mb = loss_batch(g, dev, M, A)
+    cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=True)
+    first = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+    second = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ppo_loss_kernel_refuses_too_many_actions(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits, values, mb = loss_batch(g, dev, 64, 65)
+    with pytest.raises(ValueError, match="1 to 64 actions"):
+        ppo_loss_forward(logits, values, mb, 0.05, PPOUpdateConfig())
