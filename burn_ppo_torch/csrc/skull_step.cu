@@ -10,20 +10,46 @@
 // burn_ppo_torch/envs/base.py autoreset_step over
 // burn_ppo_torch/envs/skull.py Skull, used for CPU tensors.
 //
-// What bounds it on an H100: launch latency, then bytes. Per env it reads
-// ~420 B of state and writes the next state, the 135-wide obs, the 33-wide
-// mask, the 200-wide privileged obs, rewards, log and accumulators: ~2 KB
-// per env, ~8.5 MB per launch at E = 4096 (~2.5 us of HBM time). Eager
-// PyTorch runs the same step as a few thousand small kernels (every branch
-// computed and selected). The design: one thread per env, the state in
-// local memory, the branch that applies taken with real control flow (the
-// branches are pure, so taking one equals selecting it). Each thread's work
-// is a long dependent chain, so the grid is spread thin: one warp per
-// block, 128 blocks at E = 4096, one or two per SM. The obs, privileged
-// obs and mask rows of a block's 32 envs are contiguous in the outputs;
-// each thread writes its rows into shared memory and the warp then copies
-// the block's rows out with consecutive threads on consecutive addresses.
+// What bounds it on an H100: the phase machine's dependent chain, then
+// bytes. Per env it reads the packed state (108 i32), the shaping
+// coefficient, the accumulators, the action and one uniform, and writes the
+// next state, the 135-wide obs, the 33-wide mask, the 200-wide privileged
+// obs, rewards, log and accumulators: ~2.4 KB per env, ~9.7 MB per launch
+// at E = 4096 (~2.9 us of HBM time).
 //
+// The host crossing is a few pointers: the integer state is ONE packed
+// [E, 108] i32 buffer (envs/skull.py LAYOUT, bools as 0 / 1, a zero pad
+// column so that rows start 16-byte aligned), and the outputs are carved
+// from one i32 and one f32 buffer (_outputs there), each block
+// E x columns starting on a 64-element boundary.
+//
+// A block takes EB = 4 envs with NT = 128 threads (4 warps), in three
+// phases:
+//   1. every thread: the block's state rows, one contiguous span, come in
+//      with 16-byte loads (all of a thread's loads issued before its first
+//      shared-memory store) and go to shared memory at an odd row stride
+//      (109), so that threads reading the same field of their rows hit
+//      distinct banks; meanwhile each stepping thread loads its env's
+//      action, uniform, shaping coefficient and accumulators;
+//   2. one thread per env (its branches are serial): the step, in place on
+//      its staged row (validity is decided before anything changes, so one
+//      copy of the state serves), the placements of the stepped state, the
+//      rewards, accumulators and episode log; a finished env's row becomes
+//      the fresh game's; then a few derived words of the row (the current
+//      player's hand, the relative seat maps, the 33 mask bits). Seat
+//      searches are bit operations on a mask of the seats alive;
+//   3. every thread: the rows go out with 16-byte stores, and the obs,
+//      privileged obs and mask of the block's envs go straight to global
+//      memory. Each output segment (a run of columns of one kind) is a loop
+//      over its EB x width items, consecutive threads on consecutive
+//      columns, so every warp runs one segment's code and its stores fall
+//      on runs of consecutive addresses; the trip counts are compile-time,
+//      so the loops unroll and a thread's shared-memory reads overlap.
+// Latency, not bandwidth, bounds each phase: the envs per block and the
+// warps per block trade the step's parallelism (EB lanes a block) against
+// the output phase's (NT / EB threads an env); 4 x 4 was the fastest of the
+// tilings tried on an H100 (PERF.md).
+
 // Bit-exact with the plain version (integers, and f32 in the reference's
 // operation order; built without fast math). The traps:
 //   * floor-mod: (rel + cur) % n, (bidder + n - cur) % n and
@@ -62,599 +88,724 @@ constexpr int HIST = 8;
 constexpr int OBS_DIM = 135;
 constexpr int PRIV_DIM = 200;
 constexpr int PRIV_HIST = 10;
-constexpr int ROSE_C = 1;
 constexpr int SKULL_C = 2;
-constexpr int THREADS = 32;  // one warp per block
 constexpr float INV_MAX_BID = 1.0f / MAX_BID;
 constexpr float INV_MAXP = 1.0f / MAXP;
 constexpr float INV_ROSES = 1.0f / ROSES;
+constexpr long ALIGN = 64;
 
-// The fields of burn_ppo_torch/envs/skull.py SkullState, in its order.
-enum Field {
-  F_HAS_TRAP, F_ROSE_COUNT, F_WINS, F_STACK, F_SKULLS_IN, F_ROSES_IN, F_STACK_LEN,
-  F_PASSED, F_PHASE, F_CURRENT, F_ROUND_STARTER, F_CURRENT_BID, F_CURRENT_BIDDER,
-  F_HIST, F_HIST_LEN, F_REVEALED, F_ROSES_FOUND, F_MUST_REVEAL_OWN, F_ELIM_POS,
-  F_NUM_ELIMINATED, F_GAME_OVER, F_WINNER, F_STEP_IDX, F_SHAPING_COEF,
-  F_FORCED_DISCARD, NUM_FIELDS
-};
-// Inputs after the fields: reward_sum [E, n], length [E], action [E], u [E].
-constexpr int NUM_IN = NUM_FIELDS + 4;
-// Outputs after the fields: reward_sum, length, rewards, done, log total
-// rewards, log length, outcome, active players, obs, mask, privileged obs.
-constexpr int NUM_OUT = NUM_FIELDS + 11;
+// Column offsets of the packed row, in the order of envs/skull.py LAYOUT.
+constexpr int O_TRAP = 0;
+constexpr int O_ROSE = O_TRAP + MAXP;
+constexpr int O_WINS = O_ROSE + MAXP;
+constexpr int O_STACK = O_WINS + MAXP;
+constexpr int O_SKIN = O_STACK + MAXP * CARDS;
+constexpr int O_RSIN = O_SKIN + MAXP;
+constexpr int O_LEN = O_RSIN + MAXP;
+constexpr int O_PASSED = O_LEN + MAXP;
+constexpr int O_PHASE = O_PASSED + MAXP;
+constexpr int O_CUR = O_PHASE + 1;
+constexpr int O_STARTER = O_CUR + 1;
+constexpr int O_BID = O_STARTER + 1;
+constexpr int O_BIDDER = O_BID + 1;
+constexpr int O_HIST = O_BIDDER + 1;
+constexpr int O_HLEN = O_HIST + HIST * 2;
+constexpr int O_REV = O_HLEN + 1;
+constexpr int O_FOUND = O_REV + MAXP;
+constexpr int O_MUST = O_FOUND + 1;
+constexpr int O_ELIM = O_MUST + 1;
+constexpr int O_NELIM = O_ELIM + MAXP;
+constexpr int O_OVER = O_NELIM + 1;
+constexpr int O_WINNER = O_OVER + 1;
+constexpr int O_STEP = O_WINNER + 1;
+constexpr int O_FORCED = O_STEP + 1;
+constexpr int O_PAD = O_FORCED + 1;
+constexpr int W = O_PAD + 1;
+static_assert(W == 108, "LAYOUT of envs/skull.py");
+constexpr int W4 = W / 4;  // 16-byte groups per row
+constexpr int WS = W + 1;  // shared-memory row stride, odd
+constexpr int EB = 4;      // envs per block
+constexpr int NT = 128;    // threads per block
 
-struct InPtrs {
-  const void* p[NUM_IN];
-};
-struct OutPtrs {
-  void* p[NUM_OUT];
-};
-
-struct S {
-  bool has_trap[MAXP];
-  int rose_count[MAXP];
-  int wins[MAXP];
-  int stack[MAXP * CARDS];
-  int skulls_in[MAXP];
-  int roses_in[MAXP];
-  int stack_len[MAXP];
-  bool passed[MAXP];
-  int phase, current, round_starter, current_bid, current_bidder;
-  int hist[HIST * 2];
-  int hist_len;
-  int revealed[MAXP];
-  int roses_found;
-  bool must_reveal_own;
-  int elim_pos[MAXP];
-  int num_eliminated;
-  bool game_over;
-  int winner;
-  int step_idx;
-  float shaping_coef;
-  int forced_discard;
+// Derived words of a post-reset row (the end of phase 2), per env.
+enum Derived {
+  D_HAND,       // bit 0 trap in hand, bits 1-3 roses in hand, bits 4-7 own skulls shown
+  D_RELQ,       // 3 bits per relative seat r: the absolute seat (r + cur) mod n
+  D_HREL,       // 3 bits per history row: (player + n - cur) mod n
+  D_ALIVE,      // bit p: seat p alive
+  D_BIDDER_OH,  // bit r: the bidder's relative seat (0 without a bidder)
+  D_MASK_LO,    // mask bits 0-31
+  D_MASK_HI,    // mask bit 32
+  DW
 };
 
-__device__ __forceinline__ int fmod_n(int x, int n) { return ((x % n) + n) % n; }
+struct Args {
+  const int* ints;
+  const float* shaping;
+  const float* acc_sum;
+  const int* acc_len;
+  const int* action;
+  const float* u;
+  // i32 outputs
+  int* ints_out;
+  int* acc_len_out;
+  int* log_len;
+  int* outcome;
+  int* active;
+  // f32 outputs
+  float* shaping_out;
+  float* acc_sum_out;
+  float* rewards;
+  float* done;
+  float* log_total;
+  float* obs;
+  float* mask;
+  float* priv;
+  int num_envs;
+  int n;
+};
+
+__host__ __device__ long block_len(long num_envs, int cols) {
+  return (num_envs * cols + ALIGN - 1) / ALIGN * ALIGN;
+}
+
+// Floor-mod by the player count; the seat arithmetic's x lies in [0, 2n)
+// almost always, where a subtraction does.
+__device__ __forceinline__ int fmod_n(int x, int n) {
+  if (static_cast<unsigned>(x) < static_cast<unsigned>(2 * n)) return x >= n ? x - n : x;
+  const int r = x % n;
+  return r < 0 ? r + n : r;
+}
 __device__ __forceinline__ bool in_seats(int i) { return i >= 0 && i < MAXP; }
-__device__ __forceinline__ int rd(const int* a, int i) { return in_seats(i) ? a[i] : 0; }
-__device__ __forceinline__ bool rdb(const bool* a, int i) { return in_seats(i) && a[i]; }
+// A seat read that gives 0 out of range (JAX's one-hot reads).
+__device__ __forceinline__ int rd(const int* r, int off, int i) { return in_seats(i) ? r[off + i] : 0; }
 
-__device__ __forceinline__ bool alive(const S& s, int p, int n) {
-  return p < n && (s.has_trap[p] || s.rose_count[p] > 0);
+__device__ __forceinline__ bool alive(const int* r, int p, int n) {
+  return p < n && (r[O_TRAP + p] != 0 || r[O_ROSE + p] > 0);
 }
-__device__ __forceinline__ int coasters(const S& s, int p) {
-  return static_cast<int>(s.has_trap[p]) + s.rose_count[p];
-}
+__device__ __forceinline__ int coasters(const int* r, int p) { return r[O_TRAP + p] + r[O_ROSE + p]; }
 
-// First seat with ok[] clockwise after frm (frm itself last); (frm+1) mod n
-// when there is none (burn_ppo_tpu/envs/base.py:73-88).
-__device__ int first_clockwise(const bool* ok, int frm, int n) {
-  int best = -1, best_d = MAXP + 1;
-  for (int i = 0; i < MAXP; ++i) {
-    if (!ok[i]) continue;
-    const int d = fmod_n(i - frm - 1, n);
-    if (d < best_d) {
-      best_d = d;
-      best = i;
-    }
-  }
-  return best >= 0 ? best : fmod_n(frm + 1, n);
-}
-
-__device__ int next_alive(const S& s, int frm, int n) {
-  bool ok[MAXP];
-  for (int p = 0; p < MAXP; ++p) ok[p] = alive(s, p, n);
-  return first_clockwise(ok, frm, n);
-}
-
-__device__ int next_non_passed(const S& s, int frm, int n, bool* found) {
-  bool ok[MAXP];
-  bool any = false;
+// Bit p: seat p alive (and, with skip_passed, not passed). Seats >= n
+// are never alive.
+__device__ __forceinline__ int seat_mask(const int* r, int n, bool skip_passed) {
+  int m = 0;
+#pragma unroll
   for (int p = 0; p < MAXP; ++p) {
-    ok[p] = alive(s, p, n) && !s.passed[p];
-    any = any || ok[p];
+    if (alive(r, p, n) && !(skip_passed && r[O_PASSED + p] != 0)) m |= 1 << p;
   }
-  *found = any;
-  return first_clockwise(ok, frm, n);
+  return m;
 }
 
-__device__ void reset_state(S& s, int n, float shaping_coef) {
-  for (int p = 0; p < MAXP; ++p) {
-    s.has_trap[p] = p < n;
-    s.rose_count[p] = p < n ? ROSES : 0;
-    s.wins[p] = s.skulls_in[p] = s.roses_in[p] = s.stack_len[p] = s.revealed[p] = 0;
-    s.passed[p] = false;
-    s.elim_pos[p] = -1;
-  }
-  for (int i = 0; i < MAXP * CARDS; ++i) s.stack[i] = 0;
-  for (int i = 0; i < HIST * 2; ++i) s.hist[i] = 0;
-  s.phase = s.current = s.round_starter = s.current_bid = 0;
-  s.current_bidder = -1;
-  s.hist_len = s.roses_found = s.num_eliminated = s.step_idx = 0;
-  s.must_reveal_own = s.game_over = false;
-  s.winner = -1;
-  s.shaping_coef = shaping_coef;
-  s.forced_discard = -1;
+// First seat of the mask clockwise after frm (frm itself last); (frm + 1)
+// mod n when the mask is empty (burn_ppo_tpu/envs/base.py:73-88): the
+// lowest seat above f = frm mod n, else the lowest seat at all.
+__device__ __forceinline__ int next_seat(int mask, int frm, int n) {
+  const int f = fmod_n(frm, n);
+  const int above = mask >> (f + 1);
+  if (above != 0) return f + __ffs(above);
+  if (mask != 0) return __ffs(mask) - 1;
+  return f + 1 == n ? 0 : f + 1;
 }
 
-__device__ void start_new_round(S& s, int starter, int n) {
-  const bool starter_alive = in_seats(starter) && alive(s, starter, n);
-  const int cur = starter_alive ? starter : next_alive(s, starter, n);
-  for (int i = 0; i < MAXP * CARDS; ++i) s.stack[i] = 0;
+__device__ void start_new_round(int* r, int starter, int n) {
+  const int cur = (in_seats(starter) && alive(r, starter, n)) ? starter
+                                                              : next_seat(seat_mask(r, n, false), starter, n);
+#pragma unroll
+  for (int i = 0; i < MAXP * CARDS; ++i) r[O_STACK + i] = 0;
+#pragma unroll
   for (int p = 0; p < MAXP; ++p) {
-    s.skulls_in[p] = s.roses_in[p] = s.stack_len[p] = s.revealed[p] = 0;
-    s.passed[p] = false;
+    r[O_SKIN + p] = r[O_RSIN + p] = r[O_LEN + p] = r[O_REV + p] = r[O_PASSED + p] = 0;
   }
-  for (int i = 0; i < HIST * 2; ++i) s.hist[i] = 0;
-  s.phase = 0;
-  s.current_bid = 0;
-  s.current_bidder = -1;
-  s.hist_len = 0;
-  s.roses_found = 0;
-  s.must_reveal_own = false;
-  s.current = cur;
-  s.round_starter = cur;
+#pragma unroll
+  for (int i = 0; i < HIST * 2; ++i) r[O_HIST + i] = 0;
+  r[O_PHASE] = 0;
+  r[O_BID] = 0;
+  r[O_BIDDER] = -1;
+  r[O_HLEN] = 0;
+  r[O_FOUND] = 0;
+  r[O_MUST] = 0;
+  r[O_CUR] = cur;
+  r[O_STARTER] = cur;
 }
 
 // Shift-on-full ring append (burn_ppo_tpu/envs/base.py:91-105).
-__device__ void push_hist(S& s, int player, int bid) {
-  const bool full = s.hist_len >= HIST;
+__device__ void push_hist(int* r, int player, int bid) {
+  const int len = r[O_HLEN];
+  const bool full = len >= HIST;
   if (full) {
-    for (int i = 0; i < HIST - 1; ++i) {
-      s.hist[2 * i] = s.hist[2 * i + 2];
-      s.hist[2 * i + 1] = s.hist[2 * i + 3];
-    }
+#pragma unroll
+    for (int i = 0; i < 2 * (HIST - 1); ++i) r[O_HIST + i] = r[O_HIST + i + 2];
   }
-  const int at = full ? HIST - 1 : s.hist_len;
+  const int at = full ? HIST - 1 : len;
   if (at >= 0 && at < HIST) {
-    s.hist[2 * at] = player;
-    s.hist[2 * at + 1] = bid;
+    r[O_HIST + 2 * at] = player;
+    r[O_HIST + 2 * at + 1] = bid;
   }
-  s.hist_len = min(s.hist_len + 1, HIST);
+  r[O_HLEN] = min(len + 1, HIST);
 }
 
-__device__ void to_revealing(S& s) {
-  s.phase = 2;
-  s.current = s.current_bidder;
-  s.must_reveal_own = true;
-  s.roses_found = 0;
-  for (int p = 0; p < MAXP; ++p) s.revealed[p] = 0;
+__device__ void to_revealing(int* r) {
+  r[O_PHASE] = 2;
+  r[O_CUR] = r[O_BIDDER];
+  r[O_MUST] = 1;
+  r[O_FOUND] = 0;
+#pragma unroll
+  for (int p = 0; p < MAXP; ++p) r[O_REV + p] = 0;
 }
 
-__device__ void check_bidding_end(S& s, int n) {
-  int count = 0, last = -1;
-  for (int p = 0; p < MAXP; ++p) {
-    if (alive(s, p, n) && !s.passed[p]) {
-      ++count;
-      if (last < 0) last = p;  // argmax: the lowest seat
-    }
-  }
-  bool found;
-  const int nxt = next_non_passed(s, s.current, n, &found);
-  if (count == 1) {
-    s.current_bidder = last;
-    to_revealing(s);
-  } else if (found) {
-    s.current = nxt;
+__device__ void check_bidding_end(int* r, int n) {
+  const int left = seat_mask(r, n, true);
+  if (__popc(left) == 1) {
+    r[O_BIDDER] = __ffs(left) - 1;  // argmax: the lowest seat
+    to_revealing(r);
+  } else if (left != 0) {
+    r[O_CUR] = next_seat(left, r[O_CUR], n);
   }
 }
 
 // An opening bid from placing or a raise while bidding.
-__device__ void make_bid(S& s, int cur, int bid_value, int total_cards, int n) {
-  s.phase = 1;
-  s.current_bid = bid_value;
-  s.current_bidder = cur;
-  push_hist(s, cur, bid_value);
-  bool found;
-  const int nxt = next_non_passed(s, cur, n, &found);
+__device__ void make_bid(int* r, int cur, int bid_value, int total_cards, int n) {
+  r[O_PHASE] = 1;
+  r[O_BID] = bid_value;
+  r[O_BIDDER] = cur;
+  push_hist(r, cur, bid_value);
+  const int left = seat_mask(r, n, true);
   if (bid_value == total_cards) {
-    to_revealing(s);
-  } else if (found) {
-    s.current = nxt;
+    to_revealing(r);
+  } else if (left != 0) {
+    r[O_CUR] = next_seat(left, cur, n);
   } else {
-    check_bidding_end(s, n);
+    check_bidding_end(r, n);
   }
 }
 
-__device__ void action_mask(const S& s, int n, bool* m) {
-  const int cur = s.current;
+// The 33 mask bits of a row (skull.py:619-678): bits 0-31 in lo, 32 in hi.
+__device__ void mask_bits(const int* r, int n, unsigned* lo, unsigned* hi) {
+  const int cur = r[O_CUR];
+  const int phase = r[O_PHASE];
   int total_cards = 0;
-  for (int p = 0; p < MAXP; ++p) total_cards += s.stack_len[p];
-  const bool placing = s.phase == 0, bidding = s.phase == 1, revealing = s.phase == 2;
-  const bool trap_hand = rdb(s.has_trap, cur) && rd(s.skulls_in, cur) == 0;
-  const int roses_hand = rd(s.rose_count, cur) - rd(s.roses_in, cur);
-  m[0] = placing && trap_hand;
-  m[1] = placing && roses_hand > 0;
-  const bool can_open = placing && rd(s.stack_len, cur) > 0;
-  const int min_bid = max(s.current_bid + 1, 1);
-  for (int b = 1; b <= MAX_BID; ++b) {
-    m[BID_BASE + b - 1] = (can_open || bidding) && b >= min_bid && b <= total_cards;
+#pragma unroll
+  for (int p = 0; p < MAXP; ++p) total_cards += r[O_LEN + p];
+  const int non_passed = __popc(seat_mask(r, n, true));
+  const bool placing = phase == 0, bidding = phase == 1, revealing = phase == 2;
+  const bool trap_hand = rd(r, O_TRAP, cur) != 0 && rd(r, O_SKIN, cur) == 0;
+  const int roses_hand = rd(r, O_ROSE, cur) - rd(r, O_RSIN, cur);
+  unsigned long long m = 0;
+  if (placing && trap_hand) m |= 1ull;
+  if (placing && roses_hand > 0) m |= 2ull;
+  const bool can_open = placing && rd(r, O_LEN, cur) > 0;
+  if (can_open || bidding) {
+    // bids b in [max(current_bid + 1, 1), total_cards], bit BID_BASE + b - 1
+    const int b0 = max(r[O_BID] + 1, 1), b1 = min(total_cards, MAX_BID);
+    if (b1 >= b0) m |= ((1ull << (b1 - b0 + 1)) - 1ull) << (BID_BASE + b0 - 1);
   }
-  int non_passed = 0;
-  for (int p = 0; p < MAXP; ++p) non_passed += alive(s, p, n) && !s.passed[p];
-  m[PASS] = bidding && !rdb(s.passed, cur) && non_passed > 1;
-  const int bidder = s.current_bidder;
-  const bool is_bidder = revealing && cur == bidder;
-  const int own_unrevealed =
-      bidder >= 0 ? (in_seats(bidder) ? s.stack_len[bidder] - s.revealed[bidder] : 0) : 0;
-  const bool must_own = s.must_reveal_own && own_unrevealed > 0;
-  for (int p = 0; p < MAXP; ++p) {
-    const int unrevealed = s.stack_len[p] - s.revealed[p];
-    const bool pick = must_own ? p == bidder : (unrevealed > 0 && p < n);
-    m[REVEAL_BASE + p] = is_bidder && pick && unrevealed > 0;
+  if (bidding && rd(r, O_PASSED, cur) == 0 && non_passed > 1) m |= 1ull << PASS;
+  const int bidder = r[O_BIDDER];
+  if (revealing && cur == bidder) {
+    const int own_unrevealed = in_seats(bidder) ? r[O_LEN + bidder] - r[O_REV + bidder] : 0;
+    const bool must_own = r[O_MUST] != 0 && own_unrevealed > 0;
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) {
+      const int unrevealed = r[O_LEN + p] - r[O_REV + p];
+      const bool pick = must_own ? p == bidder : (unrevealed > 0 && p < n);
+      if (pick && unrevealed > 0) m |= 1ull << (REVEAL_BASE + p);
+    }
   }
-  if (s.game_over) {
-    for (int a = 0; a < A; ++a) m[a] = false;
-  }
+  if (r[O_OVER] != 0) m = 0;
+  *lo = static_cast<unsigned>(m);
+  *hi = static_cast<unsigned>(m >> 32);
 }
 
-// Competition-ranked placements (skull.py:200-215).
-__device__ void placements(const S& s, int n, int* place) {
-  int key[MAXP];
-  for (int p = 0; p < n; ++p) {
-    const int elim_rank = s.elim_pos[p] >= 0 ? s.elim_pos[p] : s.num_eliminated;
-    key[p] = static_cast<int>(s.winner == p) * (1 << 24) + s.wins[p] * (1 << 16) +
-             coasters(s, p) * (1 << 8) + elim_rank;
+// Bit a of mask_bits alone: whether action a is legal in row r.
+__device__ bool legal(const int* r, int n, int a) {
+  if (a < 0 || a >= A || r[O_OVER] != 0) return false;
+  const int cur = r[O_CUR], phase = r[O_PHASE];
+  if (a < BID_BASE) {
+    if (phase != 0) return false;
+    return a == 0 ? rd(r, O_TRAP, cur) != 0 && rd(r, O_SKIN, cur) == 0
+                  : rd(r, O_ROSE, cur) - rd(r, O_RSIN, cur) > 0;
   }
-  for (int p = 0; p < n; ++p) {
-    int better = 0;
-    for (int q = 0; q < n; ++q) better += key[q] > key[p];
-    place[p] = better + 1;
+  if (a < PASS) {
+    if (!(phase == 1 || (phase == 0 && rd(r, O_LEN, cur) > 0))) return false;
+    int total_cards = 0;
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) total_cards += r[O_LEN + p];
+    const int b = a - BID_BASE + 1;
+    return b >= max(r[O_BID] + 1, 1) && b <= total_cards;
   }
+  if (a == PASS) return phase == 1 && rd(r, O_PASSED, cur) == 0 && __popc(seat_mask(r, n, true)) > 1;
+  const int bidder = r[O_BIDDER];
+  if (phase != 2 || cur != bidder) return false;
+  const int p = a - REVEAL_BASE;
+  const int own_unrevealed = in_seats(bidder) ? r[O_LEN + bidder] - r[O_REV + bidder] : 0;
+  const bool must_own = r[O_MUST] != 0 && own_unrevealed > 0;
+  const int unrevealed = r[O_LEN + p] - r[O_REV + p];
+  return (must_own ? p == bidder : p < n) && unrevealed > 0;
 }
 
-__device__ void final_rewards(const S& s, int n, float* r) {
-  int place[MAXP];
-  placements(s, n, place);
-  const float inv = 1.0f / static_cast<float>(n - 1);
-  for (int p = 0; p < n; ++p) {
-    float ties = 0.0f;
-    for (int q = 0; q < n; ++q) ties += place[q] == place[p] ? 1.0f : 0.0f;
-    const float eff = (static_cast<float>(place[p]) - 1.0f) + (ties - 1.0f) * 0.5f;
-    r[p] = fmaf(-(2.0f * eff), inv, 1.0f);
-  }
-}
+// Reward events of a step: none, the bidder's shaping, or the final rewards.
+enum Event { EV_NONE, EV_SHAPED, EV_FINAL };
 
-// One step of one env (skull.py:280-526). rewards[0, n) and done out.
-__device__ void step(const S& in, int action, float u, int n, S& s, float* rewards, bool* done) {
-  bool m[A];
-  action_mask(in, n, m);
-  const bool valid = action >= 0 && action < A && m[action];
-  s = in;
-  for (int p = 0; p < MAXP; ++p) rewards[p] = 0.0f;
-  *done = false;
-  if (in.game_over || !valid) {
-    s.game_over = true;
-    *done = true;
-    s.step_idx = in.step_idx + 1;
-    return;
+// One step of one env in place (skull.py:280-526); returns done.
+__device__ bool step(int* r, int action, float u, float rsc, int n, int* event, int* who,
+                     float* shaped) {
+  *event = EV_NONE;
+  const bool valid = legal(r, n, action);
+  r[O_STEP] += 1;
+  if (r[O_OVER] != 0 || !valid) {
+    r[O_OVER] = 1;
+    return true;
   }
-  const int a = min(max(action, 0), A - 1);
-  const int cur = s.current;
+  const int a = action;
+  const int cur = r[O_CUR];
   int total_cards = 0;
-  for (int p = 0; p < MAXP; ++p) total_cards += s.stack_len[p];
+#pragma unroll
+  for (int p = 0; p < MAXP; ++p) total_cards += r[O_LEN + p];
   const int bid_value = min(max(a - BID_BASE + 1, 1), MAX_BID);
-  const int phase = min(max(s.phase, 0), 2);  // lax.switch clamps its index
+  const int phase = min(max(r[O_PHASE], 0), 2);  // lax.switch clamps its index
 
   if (phase == 0 && a < BID_BASE) {  // place a card
-    const int card = a == 0 ? SKULL_C : ROSE_C;
     if (in_seats(cur)) {
-      const int cell = cur * CARDS + s.stack_len[cur];
-      if (cell >= 0 && cell < MAXP * CARDS) s.stack[cell] = card;
-      s.stack_len[cur] += 1;
-      if (card == SKULL_C) {
-        s.skulls_in[cur] += 1;
-      } else {
-        s.roses_in[cur] += 1;
-      }
+      const int len = r[O_LEN + cur];
+      const int cell = cur * CARDS + len;
+      if (cell >= 0 && cell < MAXP * CARDS) r[O_STACK + cell] = a == 0 ? SKULL_C : 1;
+      r[O_LEN + cur] = len + 1;
+      r[(a == 0 ? O_SKIN : O_RSIN) + cur] += 1;
     }
-    s.current = next_alive(s, cur, n);
-  } else if (phase == 1 && a == PASS) {
-    if (in_seats(cur)) s.passed[cur] = true;
-    push_hist(s, cur, 0);
-    check_bidding_end(s, n);
-  } else if (phase < 2) {
-    make_bid(s, cur, bid_value, total_cards, n);
-  } else {  // reveal a card
-    const int bidder = s.current_bidder;
-    const int target = min(max(a - REVEAL_BASE, 0), MAXP - 1);
-    const int card_idx = s.stack_len[target] - 1 - s.revealed[target];
-    const int card = s.stack[target * CARDS + min(max(card_idx, 0), CARDS - 1)];
-    const bool is_skull = card == SKULL_C;
-    s.revealed[target] += 1;
-    s.roses_found += is_skull ? 0 : 1;
-    const bool own_done = target == bidder && rd(s.stack_len, bidder) - rd(s.revealed, bidder) <= 0;
-    s.must_reveal_own = s.must_reveal_own && !own_done;
-    const float rsc = s.shaping_coef;
-    const bool b_in = in_seats(bidder);
-    if (is_skull) {
-      const int coasters_b = b_in ? coasters(s, bidder) : 0;
-      const bool trap_b = rdb(s.has_trap, bidder);
-      const int roses_b = rd(s.rose_count, bidder);
-      const int c = max(coasters_b, 1);
-      const int choice = min(static_cast<int>(floorf(u * static_cast<float>(c))), c - 1);
-      bool lose_skull = trap_b && choice == 0;
-      if (s.forced_discard == 0) {
-        lose_skull = trap_b;
-      } else if (s.forced_discard == 1) {
-        lose_skull = trap_b && roses_b == 0;
-      }
-      if (b_in) {
-        s.has_trap[bidder] = s.has_trap[bidder] && !lose_skull;
-        s.rose_count[bidder] += (lose_skull || coasters_b == 0) ? 0 : -1;
-        if (coasters(s, bidder) == 0 && s.elim_pos[bidder] < 0) {
-          s.elim_pos[bidder] = s.num_eliminated;
-          s.num_eliminated += 1;
-        }
-      }
-      int alive_cnt = 0, first = -1;
-      for (int p = 0; p < MAXP; ++p) {
-        if (alive(s, p, n)) {
-          ++alive_cnt;
-          if (first < 0) first = p;
-        }
-      }
-      if (alive_cnt <= 1) {
-        s.game_over = true;
-        s.winner = alive_cnt >= 1 ? first : -1;
-        final_rewards(s, n, rewards);
-        *done = true;
-      } else {
-        if (b_in && bidder < n) rewards[bidder] = rsc > 0.0f ? -rsc / CARDS : 0.0f;
-        int starter;
-        if (b_in && alive(s, bidder, n)) {
-          starter = bidder;
-        } else if (alive(s, target, n)) {
-          starter = target;
-        } else {
-          starter = next_alive(s, target, n);
-        }
-        start_new_round(s, starter, n);
-      }
-    } else if (s.roses_found >= s.current_bid) {
-      if (b_in) s.wins[bidder] += 1;
-      int alive_cnt = 0;
-      for (int p = 0; p < MAXP; ++p) alive_cnt += alive(s, p, n);
-      if (rd(s.wins, bidder) >= WINS_TO_WIN || alive_cnt == 1) {
-        s.game_over = true;
-        s.winner = bidder;
-        final_rewards(s, n, rewards);
-        *done = true;
-      } else {
-        if (b_in && bidder < n) rewards[bidder] = rsc > 0.0f ? rsc : 0.0f;
-        start_new_round(s, bidder, n);
-      }
-    }
+    r[O_CUR] = next_seat(seat_mask(r, n, false), cur, n);
+    return false;
   }
-  s.step_idx = in.step_idx + 1;
+  if (phase == 1 && a == PASS) {
+    if (in_seats(cur)) r[O_PASSED + cur] = 1;
+    push_hist(r, cur, 0);
+    check_bidding_end(r, n);
+    return false;
+  }
+  if (phase < 2) {
+    make_bid(r, cur, bid_value, total_cards, n);
+    return false;
+  }
+  // Reveal a card.
+  const int bidder = r[O_BIDDER];
+  const int target = min(max(a - REVEAL_BASE, 0), MAXP - 1);
+  const int card_idx = r[O_LEN + target] - 1 - r[O_REV + target];
+  const bool is_skull = r[O_STACK + target * CARDS + min(max(card_idx, 0), CARDS - 1)] == SKULL_C;
+  r[O_REV + target] += 1;
+  r[O_FOUND] += is_skull ? 0 : 1;
+  const bool own_done = target == bidder && rd(r, O_LEN, bidder) - rd(r, O_REV, bidder) <= 0;
+  if (own_done) r[O_MUST] = 0;
+  const bool b_in = in_seats(bidder);
+  if (is_skull) {
+    const int coasters_b = b_in ? coasters(r, bidder) : 0;
+    const bool trap_b = rd(r, O_TRAP, bidder) != 0;
+    const int roses_b = rd(r, O_ROSE, bidder);
+    const int c = max(coasters_b, 1);
+    const int choice = min(static_cast<int>(floorf(u * static_cast<float>(c))), c - 1);
+    bool lose_skull = trap_b && choice == 0;
+    const int forced = r[O_FORCED];
+    if (forced == 0) {
+      lose_skull = trap_b;
+    } else if (forced == 1) {
+      lose_skull = trap_b && roses_b == 0;
+    }
+    if (b_in) {
+      if (lose_skull) r[O_TRAP + bidder] = 0;
+      r[O_ROSE + bidder] += (lose_skull || coasters_b == 0) ? 0 : -1;
+      if (coasters(r, bidder) == 0 && r[O_ELIM + bidder] < 0) {
+        r[O_ELIM + bidder] = r[O_NELIM];
+        r[O_NELIM] += 1;
+      }
+    }
+    const int alive_now = seat_mask(r, n, false);
+    if (__popc(alive_now) <= 1) {
+      r[O_OVER] = 1;
+      r[O_WINNER] = __ffs(alive_now) - 1;  // the lowest seat alive, -1 for none
+      *event = EV_FINAL;
+      return true;
+    }
+    if (b_in && bidder < n) {
+      *event = EV_SHAPED;
+      *who = bidder;
+      *shaped = rsc > 0.0f ? -rsc / CARDS : 0.0f;
+    }
+    int starter;
+    if (b_in && alive(r, bidder, n)) {
+      starter = bidder;
+    } else if (alive(r, target, n)) {
+      starter = target;
+    } else {
+      starter = next_seat(alive_now, target, n);
+    }
+    start_new_round(r, starter, n);
+    return false;
+  }
+  if (r[O_FOUND] >= r[O_BID]) {
+    if (b_in) r[O_WINS + bidder] += 1;
+    if (rd(r, O_WINS, bidder) >= WINS_TO_WIN || __popc(seat_mask(r, n, false)) == 1) {
+      r[O_OVER] = 1;
+      r[O_WINNER] = bidder;
+      *event = EV_FINAL;
+      return true;
+    }
+    if (b_in && bidder < n) {
+      *event = EV_SHAPED;
+      *who = bidder;
+      *shaped = rsc > 0.0f ? rsc : 0.0f;
+    }
+    start_new_round(r, bidder, n);
+  }
+  return false;
 }
 
-// Player-relative obs (skull.py:529-616).
-__device__ void write_obs(const S& s, int n, float* o) {
-  const int cur = s.current;
-  const bool trap_hand = rdb(s.has_trap, cur) && rd(s.skulls_in, cur) == 0;
-  const int roses_hand = min(max(rd(s.rose_count, cur) - rd(s.roses_in, cur), 0), ROSES);
-  o[0] = trap_hand ? 1.0f : 0.0f;
-  for (int i = 0; i < ROSES; ++i) o[1 + i] = i < roses_hand ? 1.0f : 0.0f;
-  const int len_cur = rd(s.stack_len, cur);
+// The fresh game's value of column c (Skull.reset).
+__device__ __forceinline__ int reset_value(int c, int n) {
+  if (c < O_TRAP + MAXP) return c - O_TRAP < n ? 1 : 0;
+  if (c < O_ROSE + MAXP) return c - O_ROSE < n ? ROSES : 0;
+  if ((c >= O_ELIM && c < O_ELIM + MAXP) || c == O_BIDDER || c == O_WINNER || c == O_FORCED) return -1;
+  return 0;
+}
+
+// The derived words of a post-reset row (phase 2's end).
+__device__ void derive(const int* r, int n, int* d) {
+  const int cur = r[O_CUR];
+  const bool in_cur = in_seats(cur);
+  const int roses = min(max(rd(r, O_ROSE, cur) - rd(r, O_RSIN, cur), 0), ROSES);
+  const int len_cur = rd(r, O_LEN, cur);
+  int hand = (rd(r, O_TRAP, cur) != 0 && rd(r, O_SKIN, cur) == 0) ? 1 : 0;
+#pragma unroll
+  for (int i = 0; i < ROSES; ++i) hand |= (i < roses ? 1 : 0) << (1 + i);
+#pragma unroll
   for (int i = 0; i < CARDS; ++i) {
-    const int cell = in_seats(cur) ? s.stack[cur * CARDS + i] : 0;
-    o[4 + i] = (cell == SKULL_C && i < len_cur) ? 1.0f : 0.0f;
+    const int cell = in_cur ? r[O_STACK + cur * CARDS + i] : 0;
+    hand |= (cell == SKULL_C && i < len_cur ? 1 : 0) << (4 + i);
   }
-  for (int r = 0; r < MAXP; ++r) {
-    const bool v = r < n;
-    const int q = fmod_n(r + cur, n);
-    o[8 + r] = v ? static_cast<float>(s.stack_len[q]) * (1.0f / CARDS) : 0.0f;
-    o[14 + r] = v ? static_cast<float>(coasters(s, q)) * (1.0f / CARDS) : 0.0f;
-    o[20 + r] = (v && alive(s, q, n)) ? 1.0f : 0.0f;
-    o[26 + r] = v ? 1.0f : 0.0f;
-    o[32 + r] = cur == r ? 1.0f : 0.0f;
-    o[48 + r] = (v && s.passed[q]) ? 1.0f : 0.0f;
-    o[54 + r] = v ? static_cast<float>(s.wins[q]) * (1.0f / WINS_TO_WIN) : 0.0f;
-    o[60 + r] = v ? static_cast<float>(s.revealed[q]) * (1.0f / CARDS) : 0.0f;
+  int relq = 0, hrel = 0;
+#pragma unroll
+  for (int s = 0; s < MAXP; ++s) relq |= fmod_n(s + cur, n) << (3 * s);
+#pragma unroll
+  for (int h = 0; h < HIST; ++h) hrel |= fmod_n(r[O_HIST + 2 * h] + n - cur, n) << (3 * h);
+  const int bidder = r[O_BIDDER];
+  unsigned lo, hi;
+  mask_bits(r, n, &lo, &hi);
+  d[D_HAND] = hand;
+  d[D_RELQ] = relq;
+  d[D_HREL] = hrel;
+  d[D_ALIVE] = seat_mask(r, n, false);
+  d[D_BIDDER_OH] = bidder >= 0 ? 1 << fmod_n(bidder + n - cur, n) : 0;
+  d[D_MASK_LO] = static_cast<int>(lo);
+  d[D_MASK_HI] = static_cast<int>(hi);
+}
+
+// Phase 3 helper: f(env, column) for the EB x WIDTH items of one output
+// segment, written to out[env * stride + column * STEP] (out at the
+// segment's first column of the block's first env). The trip count is a
+// compile-time constant, so the loop unrolls.
+template <int WIDTH, int STEP = 1, typename F>
+__device__ __forceinline__ void segment(float* out, int stride, int count, F f) {
+  constexpr int ITERS = (EB * WIDTH + NT - 1) / NT;
+#pragma unroll
+  for (int k = 0; k < ITERS; ++k) {
+    const int i = static_cast<int>(threadIdx.x) + k * NT;
+    if (i < count * WIDTH) {
+      const int e = i / WIDTH, c = i - e * WIDTH;
+      out[static_cast<long>(e) * stride + c * STEP] = f(e, c);
+    }
   }
-  for (int i = 0; i < 3; ++i) o[38 + i] = s.phase == i ? 1.0f : 0.0f;
-  o[41] = static_cast<float>(s.current_bid) * INV_MAX_BID;
-  const int bidder_rel = fmod_n(s.current_bidder + n - cur, n);
-  for (int r = 0; r < MAXP; ++r) o[42 + r] = (s.current_bidder >= 0 && bidder_rel == r) ? 1.0f : 0.0f;
-  for (int i = 0; i < MAXP - 1; ++i) o[66 + i] = n - 2 == i ? 1.0f : 0.0f;
-  for (int h = 0; h < HIST; ++h) {
-    float* row = o + 71 + h * (MAXP + 2);
-    const bool hv = h < s.hist_len;
-    const int rel = fmod_n(s.hist[2 * h] + n - cur, n);
-    const int bid = s.hist[2 * h + 1];
-    for (int r = 0; r < MAXP; ++r) row[r] = (hv && rel == r) ? 1.0f : 0.0f;
-    row[MAXP] = hv ? static_cast<float>(bid) * INV_MAX_BID : 0.0f;
-    row[MAXP + 1] = (hv && bid == 0) ? 1.0f : 0.0f;
+}
+
+__device__ __forceinline__ float f01(bool b) { return b ? 1.0f : 0.0f; }
+
+// Privileged obs column 43 + 10 p + K of every player p (skull.py:731-742):
+// the field at offset OFF, times SCALE (the reference's f32 reciprocal
+// product, or an exact power of two).
+template <int K, int OFF>
+__device__ __forceinline__ void per_player(float* priv, const int* rows, int count, float scale) {
+  segment<MAXP, 10>(priv + 43 + K, PRIV_DIM, count, [&](int e, int p) {
+    return static_cast<float>(rows[e * WS + OFF + p]) * scale;
+  });
+}
+
+__device__ void write_outputs(const Args& g, const int* rows, const int* der, long e0, int count) {
+  const int n = g.n;
+  auto row = [&](int e) { return rows + e * WS; };
+  auto dv = [&](int e, int k) { return der[e * DW + k]; };
+  // Absolute seat of relative seat c, or -1 past the n seats.
+  auto seat = [&](int e, int c) { return c < n ? (dv(e, D_RELQ) >> (3 * c)) & 7 : -1; };
+  float* obs = g.obs + e0 * OBS_DIM;
+  float* priv = g.priv + e0 * PRIV_DIM;
+
+  // -- obs (skull.py:529-616) ------------------------------------------------
+  segment<8>(obs, OBS_DIM, count, [&](int e, int c) { return f01((dv(e, D_HAND) >> c) & 1); });
+  segment<6>(obs + 8, OBS_DIM, count, [&](int e, int c) {
+    const int q = seat(e, c);
+    return q < 0 ? 0.0f : static_cast<float>(row(e)[O_LEN + q]) * (1.0f / CARDS);
+  });
+  segment<6>(obs + 14, OBS_DIM, count, [&](int e, int c) {
+    const int q = seat(e, c);
+    return q < 0 ? 0.0f : static_cast<float>(coasters(row(e), q)) * (1.0f / CARDS);
+  });
+  segment<6>(obs + 20, OBS_DIM, count, [&](int e, int c) {
+    const int q = seat(e, c);
+    return f01(q >= 0 && ((dv(e, D_ALIVE) >> q) & 1));
+  });
+  segment<6>(obs + 26, OBS_DIM, count, [&](int, int c) { return f01(c < n); });
+  segment<6>(obs + 32, OBS_DIM, count, [&](int e, int c) { return f01(row(e)[O_CUR] == c); });
+  segment<3>(obs + 38, OBS_DIM, count, [&](int e, int c) { return f01(row(e)[O_PHASE] == c); });
+  segment<1>(obs + 41, OBS_DIM, count, [&](int e, int) {
+    return static_cast<float>(row(e)[O_BID]) * INV_MAX_BID;
+  });
+  segment<6>(obs + 42, OBS_DIM, count, [&](int e, int c) {
+    return f01((dv(e, D_BIDDER_OH) >> c) & 1);
+  });
+  segment<6>(obs + 48, OBS_DIM, count, [&](int e, int c) {
+    const int q = seat(e, c);
+    return f01(q >= 0 && row(e)[O_PASSED + q] != 0);
+  });
+  segment<6>(obs + 54, OBS_DIM, count, [&](int e, int c) {
+    const int q = seat(e, c);
+    return q < 0 ? 0.0f : static_cast<float>(row(e)[O_WINS + q]) * (1.0f / WINS_TO_WIN);
+  });
+  segment<6>(obs + 60, OBS_DIM, count, [&](int e, int c) {
+    const int q = seat(e, c);
+    return q < 0 ? 0.0f : static_cast<float>(row(e)[O_REV + q]) * (1.0f / CARDS);
+  });
+  segment<MAXP - 1>(obs + 66, OBS_DIM, count, [&](int, int c) { return f01(n - 2 == c); });
+  segment<HIST*(MAXP + 2)>(obs + 71, OBS_DIM, count, [&](int e, int c) {
+    const int h = c >> 3, k = c & 7;
+    const int* r = row(e);
+    const bool hv = h < r[O_HLEN];
+    const int bid = r[O_HIST + 2 * h + 1];
+    if (k < MAXP) return f01(hv && ((dv(e, D_HREL) >> (3 * h)) & 7) == k);
+    if (k == MAXP) return hv ? static_cast<float>(bid) * INV_MAX_BID : 0.0f;
+    return f01(hv && bid == 0);
+  });
+
+  // -- mask (skull.py:619-678) -----------------------------------------------
+  segment<A>(g.mask + e0 * A, A, count, [&](int e, int c) {
+    return f01(((c < 32 ? dv(e, D_MASK_LO) >> c : dv(e, D_MASK_HI)) & 1) != 0);
+  });
+
+  // -- privileged obs (skull.py:690-746) ---------------------------------------
+  segment<7>(priv, PRIV_DIM, count, [&](int e, int c) {
+    const int* r = row(e);
+    if (c < 3) return f01(r[O_PHASE] == c);
+    if (c == 3) return static_cast<float>(r[O_CUR]) * INV_MAXP;
+    if (c == 4) return static_cast<float>(r[O_STARTER]) * INV_MAXP;
+    const bool bid_on = r[O_BID] > 0;
+    if (c == 5) return bid_on ? static_cast<float>(r[O_BID]) * INV_MAX_BID : 0.0f;
+    return (bid_on && r[O_BIDDER] >= 0) ? static_cast<float>(r[O_BIDDER]) * INV_MAXP : -1.0f;
+  });
+  segment<3 * PRIV_HIST>(priv + 7, PRIV_DIM, count, [&](int e, int c) {
+    const int* r = row(e);
+    const int h = c / 3, k = c - 3 * h;
+    const int src = r[O_HLEN] - 1 - h;
+    const int at = min(max(src, 0), HIST - 1);
+    const int player = r[O_HIST + 2 * at], bid = r[O_HIST + 2 * at + 1];
+    if (src < 0) return 0.0f;
+    if (k == 0) return static_cast<float>(player) * INV_MAXP;
+    if (k == 1) return static_cast<float>(bid) * INV_MAX_BID;
+    return f01(bid == 0);
+  });
+  segment<6>(priv + 37, PRIV_DIM, count, [&](int e, int c) {
+    return c == 0 ? f01(row(e)[O_OVER] != 0) : f01(n - 2 == c - 1);
+  });
+  // Per player, one uniform segment per column of its 10 (bools are 0 / 1).
+  segment<MAXP, 10>(priv + 43, PRIV_DIM, count, [&](int, int p) { return f01(p < n); });
+  per_player<1, O_WINS>(priv, rows, count, 1.0f / WINS_TO_WIN);
+  segment<MAXP, 10>(priv + 45, PRIV_DIM, count, [&](int e, int p) {
+    return f01((dv(e, D_ALIVE) >> p) & 1);
+  });
+  per_player<3, O_TRAP>(priv, rows, count, 1.0f);
+  per_player<4, O_ROSE>(priv, rows, count, INV_ROSES);
+  per_player<5, O_LEN>(priv, rows, count, 1.0f / CARDS);
+  per_player<6, O_SKIN>(priv, rows, count, 1.0f / CARDS);
+  per_player<7, O_RSIN>(priv, rows, count, 1.0f / CARDS);
+  per_player<8, O_PASSED>(priv, rows, count, 1.0f);
+  per_player<9, O_REV>(priv, rows, count, 1.0f / CARDS);
+  // The zero padding, columns 103-199: one float, then 24 float4 (a row is
+  // 800 bytes, so column 104 of every row is 16-byte aligned).
+  constexpr int Z4 = (PRIV_DIM - 104) / 4;
+  constexpr int ZITERS = (EB * (Z4 + 1) + NT - 1) / NT;
+#pragma unroll
+  for (int k = 0; k < ZITERS; ++k) {
+    const int i = static_cast<int>(threadIdx.x) + k * NT;
+    if (i < count * (Z4 + 1)) {
+      const int e = i / (Z4 + 1), c = i - e * (Z4 + 1);
+      float* rowp = priv + static_cast<long>(e) * PRIV_DIM;
+      if (c == 0) {
+        rowp[103] = 0.0f;
+      } else {
+        reinterpret_cast<float4*>(rowp + 104)[c - 1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
   }
 }
 
-// CTDE privileged obs (skull.py:690-746): 103 floats, zero padded to 200.
-__device__ void write_priv(const S& s, int n, float* o) {
-  for (int i = 0; i < 3; ++i) o[i] = s.phase == i ? 1.0f : 0.0f;
-  o[3] = static_cast<float>(s.current) * INV_MAXP;
-  o[4] = static_cast<float>(s.round_starter) * INV_MAXP;
-  const bool bid_on = s.current_bid > 0;
-  o[5] = bid_on ? static_cast<float>(s.current_bid) * INV_MAX_BID : 0.0f;
-  o[6] = (bid_on && s.current_bidder >= 0) ? static_cast<float>(s.current_bidder) * INV_MAXP : -1.0f;
-  for (int h = 0; h < PRIV_HIST; ++h) {
-    const int src = s.hist_len - 1 - h;
-    const bool hv = src >= 0;
-    const int row = min(max(src, 0), HIST - 1);
-    const int player = s.hist[2 * row], bid = s.hist[2 * row + 1];
-    o[7 + 3 * h] = hv ? static_cast<float>(player) * INV_MAXP : 0.0f;
-    o[8 + 3 * h] = hv ? static_cast<float>(bid) * INV_MAX_BID : 0.0f;
-    o[9 + 3 * h] = (hv && bid == 0) ? 1.0f : 0.0f;
+__global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
+  constexpr int LOAD_ITERS = (EB * W4 + NT - 1) / NT;
+  __shared__ int rows[EB * WS];
+  __shared__ int der[EB * DW];
+  const int n = g.n;
+  const long e0 = static_cast<long>(blockIdx.x) * EB;
+  const int count = static_cast<int>(min(static_cast<long>(EB), g.num_envs - e0));
+  const int t = threadIdx.x;
+  const long e = e0 + t;
+  const bool stepper = t < count;
+
+  // 1. The stepping threads' per-env inputs, then the rows: every load
+  // of a thread in flight before its first shared-memory store.
+  int action = 0, len = 0;
+  float u = 0.0f, rsc = 0.0f, sum_in[MAXP];
+  if (stepper) {
+    action = g.action[e];
+    u = g.u[e];
+    rsc = g.shaping[e];
+    len = g.acc_len[e] + 1;
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) sum_in[p] = p < n ? g.acc_sum[e * n + p] : 0.0f;
   }
-  o[37] = s.game_over ? 1.0f : 0.0f;
-  for (int i = 0; i < MAXP - 1; ++i) o[38 + i] = n - 2 == i ? 1.0f : 0.0f;
-  for (int p = 0; p < MAXP; ++p) {
-    float* q = o + 43 + 10 * p;
-    q[0] = p < n ? 1.0f : 0.0f;
-    q[1] = static_cast<float>(s.wins[p]) * (1.0f / WINS_TO_WIN);
-    q[2] = alive(s, p, n) ? 1.0f : 0.0f;
-    q[3] = s.has_trap[p] ? 1.0f : 0.0f;
-    q[4] = static_cast<float>(s.rose_count[p]) * INV_ROSES;
-    q[5] = static_cast<float>(s.stack_len[p]) * (1.0f / CARDS);
-    q[6] = static_cast<float>(s.skulls_in[p]) * (1.0f / CARDS);
-    q[7] = static_cast<float>(s.roses_in[p]) * (1.0f / CARDS);
-    q[8] = s.passed[p] ? 1.0f : 0.0f;
-    q[9] = static_cast<float>(s.revealed[p]) * (1.0f / CARDS);
+  {
+    const int4* src4 = reinterpret_cast<const int4*>(g.ints + e0 * W);
+    int4 v[LOAD_ITERS];
+#pragma unroll
+    for (int k = 0; k < LOAD_ITERS; ++k) {
+      const int i = t + k * NT;
+      if (i < count * W4) v[k] = src4[i];
+    }
+#pragma unroll
+    for (int k = 0; k < LOAD_ITERS; ++k) {
+      const int i = t + k * NT;
+      if (i < count * W4) {
+        const int ee = i / W4, c = 4 * (i - ee * W4);
+        int* r = rows + ee * WS + c;
+        r[0] = v[k].x;
+        r[1] = v[k].y;
+        r[2] = v[k].z;
+        r[3] = v[k].w;
+      }
+    }
   }
-  for (int i = 103; i < PRIV_DIM; ++i) o[i] = 0.0f;
-}
+  __syncthreads();
 
-template <typename T>
-__device__ __forceinline__ void load(const InPtrs& in, int f, long e, int width, T* dst) {
-  const T* src = static_cast<const T*>(in.p[f]) + e * width;
-  for (int i = 0; i < width; ++i) dst[i] = src[i];
-}
-
-template <typename T>
-__device__ __forceinline__ void store(const OutPtrs& out, int f, long e, int width, const T* src) {
-  T* dst = static_cast<T*>(out.p[f]) + e * width;
-  for (int i = 0; i < width; ++i) dst[i] = src[i];
-}
-
-__device__ void load_state(const InPtrs& in, long e, S& s) {
-  load(in, F_HAS_TRAP, e, MAXP, s.has_trap);
-  load(in, F_ROSE_COUNT, e, MAXP, s.rose_count);
-  load(in, F_WINS, e, MAXP, s.wins);
-  load(in, F_STACK, e, MAXP * CARDS, s.stack);
-  load(in, F_SKULLS_IN, e, MAXP, s.skulls_in);
-  load(in, F_ROSES_IN, e, MAXP, s.roses_in);
-  load(in, F_STACK_LEN, e, MAXP, s.stack_len);
-  load(in, F_PASSED, e, MAXP, s.passed);
-  load(in, F_PHASE, e, 1, &s.phase);
-  load(in, F_CURRENT, e, 1, &s.current);
-  load(in, F_ROUND_STARTER, e, 1, &s.round_starter);
-  load(in, F_CURRENT_BID, e, 1, &s.current_bid);
-  load(in, F_CURRENT_BIDDER, e, 1, &s.current_bidder);
-  load(in, F_HIST, e, HIST * 2, s.hist);
-  load(in, F_HIST_LEN, e, 1, &s.hist_len);
-  load(in, F_REVEALED, e, MAXP, s.revealed);
-  load(in, F_ROSES_FOUND, e, 1, &s.roses_found);
-  load(in, F_MUST_REVEAL_OWN, e, 1, &s.must_reveal_own);
-  load(in, F_ELIM_POS, e, MAXP, s.elim_pos);
-  load(in, F_NUM_ELIMINATED, e, 1, &s.num_eliminated);
-  load(in, F_GAME_OVER, e, 1, &s.game_over);
-  load(in, F_WINNER, e, 1, &s.winner);
-  load(in, F_STEP_IDX, e, 1, &s.step_idx);
-  load(in, F_SHAPING_COEF, e, 1, &s.shaping_coef);
-  load(in, F_FORCED_DISCARD, e, 1, &s.forced_discard);
-}
-
-__device__ void store_state(const OutPtrs& out, long e, const S& s) {
-  store(out, F_HAS_TRAP, e, MAXP, s.has_trap);
-  store(out, F_ROSE_COUNT, e, MAXP, s.rose_count);
-  store(out, F_WINS, e, MAXP, s.wins);
-  store(out, F_STACK, e, MAXP * CARDS, s.stack);
-  store(out, F_SKULLS_IN, e, MAXP, s.skulls_in);
-  store(out, F_ROSES_IN, e, MAXP, s.roses_in);
-  store(out, F_STACK_LEN, e, MAXP, s.stack_len);
-  store(out, F_PASSED, e, MAXP, s.passed);
-  store(out, F_PHASE, e, 1, &s.phase);
-  store(out, F_CURRENT, e, 1, &s.current);
-  store(out, F_ROUND_STARTER, e, 1, &s.round_starter);
-  store(out, F_CURRENT_BID, e, 1, &s.current_bid);
-  store(out, F_CURRENT_BIDDER, e, 1, &s.current_bidder);
-  store(out, F_HIST, e, HIST * 2, s.hist);
-  store(out, F_HIST_LEN, e, 1, &s.hist_len);
-  store(out, F_REVEALED, e, MAXP, s.revealed);
-  store(out, F_ROSES_FOUND, e, 1, &s.roses_found);
-  store(out, F_MUST_REVEAL_OWN, e, 1, &s.must_reveal_own);
-  store(out, F_ELIM_POS, e, MAXP, s.elim_pos);
-  store(out, F_NUM_ELIMINATED, e, 1, &s.num_eliminated);
-  store(out, F_GAME_OVER, e, 1, &s.game_over);
-  store(out, F_WINNER, e, 1, &s.winner);
-  store(out, F_STEP_IDX, e, 1, &s.step_idx);
-  store(out, F_SHAPING_COEF, e, 1, &s.shaping_coef);
-  store(out, F_FORCED_DISCARD, e, 1, &s.forced_discard);
-}
-
-// Everything of env e but the obs, privileged obs and mask rows, which go
-// to the given (shared-memory) rows.
-__device__ void step_env(const InPtrs& in, const OutPtrs& out, long e, int n, float* obs_row,
-                         float* priv_row, float* mask_row) {
-  S s, stepped;
-  load_state(in, e, s);
-  const int action = static_cast<const int*>(in.p[NUM_FIELDS + 2])[e];
-  const float u = static_cast<const float*>(in.p[NUM_FIELDS + 3])[e];
-  float rewards[MAXP];
-  bool done;
-  step(s, action, u, n, stepped, rewards, &done);
-
-  const float* sum_in = static_cast<const float*>(in.p[NUM_FIELDS]) + e * n;
-  const int len = static_cast<const int*>(in.p[NUM_FIELDS + 1])[e] + 1;
-  float* sum_out = static_cast<float*>(out.p[NUM_FIELDS]) + e * n;
-  float* rew_out = static_cast<float*>(out.p[NUM_FIELDS + 2]) + e * n;
-  float* ret_out = static_cast<float*>(out.p[NUM_FIELDS + 4]) + e * n;
-  int* outcome_out = static_cast<int*>(out.p[NUM_FIELDS + 6]) + e * n;
-  int place[MAXP];
-  placements(stepped, n, place);  // read from the stepped (terminal) state
-  for (int p = 0; p < n; ++p) {
-    const float total = sum_in[p] + rewards[p];
-    rew_out[p] = rewards[p];
-    ret_out[p] = total;
-    sum_out[p] = done ? 0.0f : total;
-    outcome_out[p] = place[p];
+  // 2. The step, the reset and the derived words, one thread per env.
+  if (stepper) {
+    int* r = rows + t * WS;
+    int event, who = -1;
+    float shaped = 0.0f;
+    const bool done = step(r, action, u, rsc, n, &event, &who, &shaped);
+    // Competition-ranked placements of the stepped state (skull.py:200-215).
+    int key[MAXP], place[MAXP];
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) {
+      const int ep = r[O_ELIM + p];
+      key[p] = static_cast<int>(r[O_WINNER] == p) * (1 << 24) + r[O_WINS + p] * (1 << 16) +
+               coasters(r, p) * (1 << 8) + (ep >= 0 ? ep : r[O_NELIM]);
+    }
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) {
+      int better = 0;
+#pragma unroll
+      for (int q = 0; q < MAXP; ++q) better += (q < n && key[q] > key[p]) ? 1 : 0;
+      place[p] = better + 1;
+    }
+    const float inv = 1.0f / static_cast<float>(n - 1);
+#pragma unroll
+    for (int p = 0; p < MAXP; ++p) {
+      if (p < n) {
+        float rew = 0.0f;
+        if (event == EV_FINAL) {
+          float ties = 0.0f;
+#pragma unroll
+          for (int q = 0; q < MAXP; ++q) ties += (q < n && place[q] == place[p]) ? 1.0f : 0.0f;
+          const float eff = (static_cast<float>(place[p]) - 1.0f) + (ties - 1.0f) * 0.5f;
+          rew = fmaf(-(2.0f * eff), inv, 1.0f);
+        } else if (event == EV_SHAPED && p == who) {
+          rew = shaped;
+        }
+        const long k = e * n + p;
+        const float total = sum_in[p] + rew;
+        g.rewards[k] = rew;
+        g.log_total[k] = total;
+        g.acc_sum_out[k] = done ? 0.0f : total;
+        g.outcome[k] = place[p];  // read from the stepped (terminal) state
+      }
+    }
+    g.acc_len_out[e] = done ? 0 : len;
+    g.log_len[e] = len;
+    g.active[e] = n;
+    g.done[e] = done ? 1.0f : 0.0f;
+    g.shaping_out[e] = rsc;  // the shaping coefficient survives the reset
+    if (done) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) r[c] = reset_value(c, n);
+    }
+    derive(r, n, der + t * DW);
   }
-  static_cast<int*>(out.p[NUM_FIELDS + 1])[e] = done ? 0 : len;
-  static_cast<float*>(out.p[NUM_FIELDS + 3])[e] = done ? 1.0f : 0.0f;
-  static_cast<int*>(out.p[NUM_FIELDS + 5])[e] = len;
-  static_cast<int*>(out.p[NUM_FIELDS + 7])[e] = n;
+  __syncthreads();
 
-  if (done) reset_state(s, n, stepped.shaping_coef);  // the shaping coefficient survives
-  const S& next = done ? s : stepped;
-  store_state(out, e, next);
-  write_obs(next, n, obs_row);
-  bool m[A];
-  action_mask(next, n, m);
-  for (int a = 0; a < A; ++a) mask_row[a] = m[a] ? 1.0f : 0.0f;
-  write_priv(next, n, priv_row);
-}
-
-
-// The block's rows, staged so that their stores coalesce (47,104 bytes).
-struct Rows {
-  float obs[THREADS * OBS_DIM];
-  float priv[THREADS * PRIV_DIM];
-  float mask[THREADS * A];
-};
-
-// Copy the first `count` rows of `width` floats from shared memory to
-// dst, consecutive threads on consecutive addresses.
-__device__ __forceinline__ void copy_rows(const float* src, float* dst, int count, int width) {
-  for (int i = threadIdx.x; i < count * width; i += THREADS) dst[i] = src[i];
-}
-
-__global__ void __launch_bounds__(THREADS) skull_step_autoreset_kernel(InPtrs in, OutPtrs out,
-                                                                      int num_envs, int n) {
-  __shared__ Rows rows;
-  const long e0 = static_cast<long>(blockIdx.x) * THREADS;
-  const long e = e0 + threadIdx.x;
-  if (e < num_envs) step_env(in, out, e, n, rows.obs + threadIdx.x * OBS_DIM,
-                             rows.priv + threadIdx.x * PRIV_DIM, rows.mask + threadIdx.x * A);
-  __syncwarp();
-  const int count = static_cast<int>(min(static_cast<long>(THREADS), num_envs - e0));
-  copy_rows(rows.obs, static_cast<float*>(out.p[NUM_FIELDS + 8]) + e0 * OBS_DIM, count, OBS_DIM);
-  copy_rows(rows.mask, static_cast<float*>(out.p[NUM_FIELDS + 9]) + e0 * A, count, A);
-  copy_rows(rows.priv, static_cast<float*>(out.p[NUM_FIELDS + 10]) + e0 * PRIV_DIM, count,
-            PRIV_DIM);
+  // 3. The next state, obs, mask and privileged obs.
+  int4* dst4 = reinterpret_cast<int4*>(g.ints_out + e0 * W);
+#pragma unroll
+  for (int k = 0; k < LOAD_ITERS; ++k) {
+    const int i = t + k * NT;
+    if (i < count * W4) {
+      const int ee = i / W4, c = 4 * (i - ee * W4);
+      const int* r = rows + ee * WS + c;
+      dst4[i] = make_int4(r[0], r[1], r[2], r[3]);
+    }
+  }
+  write_outputs(g, rows, der, e0, count);
 }
 
 }  // namespace
 
-extern "C" int skull_step_autoreset(const void* const* in, void* const* out, int num_envs,
-                                    int num_players, void* stream) {
-  if (num_envs <= 0) return 0;
+// in: the packed state [E, 108] i32, shaping [E], reward_sum [E, n],
+// length [E], action [E], u [E]; out: the i32 and the f32 buffer of
+// envs/skull.py _outputs.
+extern "C" int skull_step_autoreset(const int* ints, const float* shaping, const float* acc_sum,
+                                    const int* acc_len, const int* action, const float* u,
+                                    int* out_i32, float* out_f32, int num_envs, int num_players,
+                                    void* stream) {
   if (num_players < 2 || num_players > MAXP) return static_cast<int>(cudaErrorInvalidValue);
-  InPtrs ip;
-  OutPtrs op;
-  for (int i = 0; i < NUM_IN; ++i) ip.p[i] = in[i];
-  for (int i = 0; i < NUM_OUT; ++i) op.p[i] = out[i];
-  const int blocks = (num_envs + THREADS - 1) / THREADS;
-  skull_step_autoreset_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ip, op, num_envs, num_players);
+  if (num_envs <= 0) return 0;
+  const long E = num_envs;
+  const int n = num_players;
+  Args g;
+  g.ints = ints;
+  g.shaping = shaping;
+  g.acc_sum = acc_sum;
+  g.acc_len = acc_len;
+  g.action = action;
+  g.u = u;
+  int* i = out_i32;
+  g.ints_out = i;
+  i += block_len(E, W);
+  g.acc_len_out = i;
+  i += block_len(E, 1);
+  g.log_len = i;
+  i += block_len(E, 1);
+  g.outcome = i;
+  i += block_len(E, n);
+  g.active = i;
+  float* f = out_f32;
+  g.shaping_out = f;
+  f += block_len(E, 1);
+  g.acc_sum_out = f;
+  f += block_len(E, n);
+  g.rewards = f;
+  f += block_len(E, n);
+  g.done = f;
+  f += block_len(E, 1);
+  g.log_total = f;
+  f += block_len(E, n);
+  g.obs = f;
+  f += block_len(E, OBS_DIM);
+  g.mask = f;
+  f += block_len(E, A);
+  g.priv = f;
+  g.num_envs = num_envs;
+  g.n = n;
+  const int blocks = static_cast<int>((E + EB - 1) / EB);
+  skull_step_autoreset_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,8 +21,9 @@ package keeps a PRNG key in each env state instead.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, ClassVar, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -205,6 +206,82 @@ class Environment:
 
     def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
         return autoreset_step(self, state, acc, action, reset_values, step_values)
+
+
+@dataclass
+class PackedState:
+    """E envs of a state packed for its step kernel (K11, K13): ``ints``
+    [E, W] i32 holds the integer fields of the subclass's ``LAYOUT``
+    ((name, per-env shape) in column order, those of ``BOOL_FIELDS`` as
+    0 / 1), then zero pad columns up to ``W`` (None: no padding), beside
+    the f32 shaping coefficient. Each field of ``LAYOUT`` reads as a view
+    with its own name and shape, the bools as bool. ``fields()`` gives the
+    fields named in ``FIELDS`` (by default the layout's), and
+    ``of(**s.fields())`` rebuilds ``s``."""
+
+    ints: torch.Tensor  # [E, W] i32
+    shaping_coef: torch.Tensor  # [E] f32, kept across resets
+
+    LAYOUT: ClassVar[tuple] = ()
+    BOOL_FIELDS: ClassVar[frozenset] = frozenset()
+    W: ClassVar[Optional[int]] = None
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        cls.SLICES, col = {}, 0
+        for name, shape in cls.LAYOUT:
+            cls.SLICES[name] = (col, col + math.prod(shape), shape)
+            setattr(cls, name, _field_view(name, col, col + math.prod(shape), shape,
+                                           name in cls.BOOL_FIELDS))
+            col += math.prod(shape)
+        cls.PAD_COL = col  # the first pad column
+        cls.W = col if cls.W is None else cls.W
+        cls.INT_FIELDS = tuple(name for name, _ in cls.LAYOUT)
+        if "FIELDS" not in cls.__dict__:
+            cls.FIELDS = cls.INT_FIELDS
+
+    @classmethod
+    def of(cls, shaping_coef: torch.Tensor, **fields: torch.Tensor):
+        """Pack the fields (every name of ``LAYOUT``) into one state."""
+        E = shaping_coef.shape[0]
+        cols = [fields[name].reshape(E, -1).to(torch.int32) for name in cls.INT_FIELDS]
+        if cls.W > cls.PAD_COL:
+            cols.append(torch.zeros(E, cls.W - cls.PAD_COL, dtype=torch.int32,
+                                    device=shaping_coef.device))
+        return cls(torch.cat(cols, 1), shaping_coef.to(torch.float32))
+
+    def fields(self) -> dict:
+        return {name: getattr(self, name) for name in self.FIELDS}
+
+
+def _field_view(name: str, lo: int, hi: int, shape: tuple, is_bool: bool) -> property:
+    def view(self: PackedState) -> torch.Tensor:
+        x = self.ints[:, lo:hi]
+        x = x.reshape(x.shape[0], *shape) if shape else x[:, 0]
+        return x != 0 if is_bool else x
+
+    view.__name__ = name
+    return property(view)
+
+
+# A fused env-step kernel writes its outputs into one buffer per dtype:
+# (name, columns per env) blocks, each E x columns, starting on a
+# 64-element (256 byte) boundary (csrc/liars_dice_step.cu, skull_step.cu).
+ARENA_ALIGN = 64
+
+
+def arena_size(E: int, blocks) -> int:
+    return sum(-(-E * cols // ARENA_ALIGN) * ARENA_ALIGN for _, cols in blocks)
+
+
+def carve_arena(buf: torch.Tensor, E: int, blocks) -> dict:
+    """The blocks of ``buf`` by name, as [E, cols] views ([E] for one column)."""
+    out, at = {}, 0
+    for name, cols in blocks:
+        x = buf[at:at + E * cols]
+        out[name] = x.view(E, cols) if cols > 1 else x
+        at += -(-E * cols // ARENA_ALIGN) * ARENA_ALIGN
+    return out
 
 
 def autoreset_step(

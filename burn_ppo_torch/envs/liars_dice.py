@@ -30,9 +30,6 @@ plain composition (``envs/base.py autoreset_step`` over ``step``,
 
 from __future__ import annotations
 
-import math
-from dataclasses import dataclass
-
 import torch
 
 from burn_ppo_torch import kernels
@@ -41,8 +38,11 @@ from burn_ppo_torch.envs.base import (
     Environment,
     EpisodeAccumulator,
     EpisodeLog,
+    PackedState,
     StepOutput,
+    arena_size,
     autoreset_step,
+    carve_arena,
     first_true_clockwise,
     onehot_eq,
     push_ring_row,
@@ -83,48 +83,19 @@ LAYOUT = (
     ("game_over", ()),  # 0 / 1
     ("step_idx", ()),
 )
-FIELDS = tuple(name for name, _ in LAYOUT)
-_SLICES = {}
-_col = 0
-for _name, _shape in LAYOUT:
-    _SLICES[_name] = (_col, _col + math.prod(_shape), _shape)
-    _col += math.prod(_shape)
-W = _col  # 73 i32 columns per env
 
 
-@dataclass
-class LiarsDiceState:
-    """E envs: the packed integer fields and the shaping coefficient. Each
-    field of ``LAYOUT`` reads as a view, ``state.dice`` [E, 4, 2] and so on
-    (``game_over`` as bool)."""
+class LiarsDiceState(PackedState):
+    """E envs: ``ints`` [E, 73] i32 with the fields of ``LAYOUT`` as views,
+    ``state.dice`` [E, 4, 2] and so on (``game_over`` as bool), and the
+    shaping coefficient (envs/base.py PackedState)."""
 
-    ints: torch.Tensor  # [E, W] i32
-    shaping_coef: torch.Tensor  # [E] f32, kept across resets
-
-    @staticmethod
-    def of(shaping_coef: torch.Tensor, **fields: torch.Tensor) -> "LiarsDiceState":
-        """Pack the fields (every name of ``LAYOUT``) into one state."""
-        E = shaping_coef.shape[0]
-        ints = torch.cat([fields[name].reshape(E, -1).to(torch.int32) for name in FIELDS], 1)
-        return LiarsDiceState(ints=ints, shaping_coef=shaping_coef.to(torch.float32))
-
-    def fields(self) -> dict:
-        return {name: getattr(self, name) for name in FIELDS}
+    LAYOUT = LAYOUT
+    BOOL_FIELDS = frozenset(("game_over",))
 
 
-def _field_view(name: str):
-    lo, hi, shape = _SLICES[name]
-
-    def view(self: LiarsDiceState) -> torch.Tensor:
-        x = self.ints[:, lo:hi]
-        x = x.reshape(x.shape[0], *shape) if shape else x[:, 0]
-        return x != 0 if name == "game_over" else x
-
-    return property(view)
-
-
-for _name in FIELDS:
-    setattr(LiarsDiceState, _name, _field_view(_name))
+FIELDS = LiarsDiceState.FIELDS
+W = LiarsDiceState.W  # 73 i32 columns per env
 
 
 def faces(u: torch.Tensor) -> torch.Tensor:
@@ -353,30 +324,12 @@ def liars_dice_step_autoreset(
 
 liars_dice_step_autoreset.launches = 0
 
-# The kernel's outputs, carved from one i32 and one f32 buffer: (name,
-# columns per env), each block E x columns, starting on a 64-element (256
-# byte) boundary. csrc/liars_dice_step.cu computes the same offsets.
+# The kernel's outputs, carved from one i32 and one f32 buffer (envs/base.py
+# carve_arena); csrc/liars_dice_step.cu computes the same offsets.
 I32_OUT = (("ints", W), ("acc_length", 1), ("log_length", 1), ("outcome", P),
            ("active_players", 1))
 F32_OUT = (("shaping_coef", 1), ("acc_reward_sum", P), ("rewards", P), ("done", 1),
            ("log_total_rewards", P), ("obs", OBS_DIM), ("mask", A), ("priv", PRIV_DIM))
-ALIGN = 64
-
-
-def _carve(buf: torch.Tensor, E: int, blocks) -> dict:
-    out, at = {}, 0
-    for name, cols in blocks:
-        n = E * cols
-        x = buf[at:at + n]
-        out[name] = x.view(E, cols) if cols > 1 else x
-        at += -(-n // ALIGN) * ALIGN
-    return out
-
-
-def _arena_size(E: int, blocks) -> int:
-    return sum(-(-E * cols // ALIGN) * ALIGN for _, cols in blocks)
-
-
 def _launch(state: LiarsDiceState, acc: EpisodeAccumulator, action: torch.Tensor,
             reset_values: torch.Tensor, u: torch.Tensor) -> StepOutput:
     E, dev = state.ints.shape[0], state.ints.device
@@ -387,15 +340,15 @@ def _launch(state: LiarsDiceState, acc: EpisodeAccumulator, action: torch.Tensor
     kernels.expect(action, "action", torch.int32, (E,))
     kernels.expect(reset_values, "reset_values", torch.float32, (E, P * DICE))
     kernels.expect(u, "u", torch.float32, (E, P * DICE))
-    i32 = torch.empty(_arena_size(E, I32_OUT), dtype=torch.int32, device=dev)
-    f32 = torch.empty(_arena_size(E, F32_OUT), dtype=torch.float32, device=dev)
+    i32 = torch.empty(arena_size(E, I32_OUT), dtype=torch.int32, device=dev)
+    f32 = torch.empty(arena_size(E, F32_OUT), dtype=torch.float32, device=dev)
     err = kernels.library().liars_dice_step_autoreset(
         state.ints.data_ptr(), state.shaping_coef.data_ptr(), acc.reward_sum.data_ptr(),
         acc.length.data_ptr(), action.data_ptr(), reset_values.data_ptr(), u.data_ptr(),
         i32.data_ptr(), f32.data_ptr(), E, kernels.stream(dev))
     kernels.check(err, "liars_dice_step_autoreset")
     liars_dice_step_autoreset.launches += 1
-    oi, of = _carve(i32, E, I32_OUT), _carve(f32, E, F32_OUT)
+    oi, of = carve_arena(i32, E, I32_OUT), carve_arena(f32, E, F32_OUT)
     done = of["done"]
     log = EpisodeLog(completed=done, total_rewards=of["log_total_rewards"],
                      length=oi["log_length"], outcome=oi["outcome"],

@@ -9,6 +9,11 @@ placements ranked by winner > wins > coasters > later elimination. Seat
 arrays are padded to ``MAXP = 6``; ``num_players`` is fixed per env
 instance (``with_num_players``).
 
+The integer state is ONE packed ``[E, 108]`` i32 tensor (``LAYOUT``, the
+JAX state's fields in its order, bools as 0 / 1, a zero pad column) with
+the fields as views, beside the f32 shaping coefficient, so the kernel
+takes two state pointers in and writes one i32 and one f32 buffer out.
+
 ``step`` is the plain PyTorch version: every branch of the phase machine
 is computed for every env and selected, as ``vmap`` of ``lax.cond``
 computes it. The lost coaster is ``choice = min(floor(u * c), c - 1)``
@@ -26,9 +31,6 @@ plain composition (``envs/base.py autoreset_step`` over ``step``,
 
 from __future__ import annotations
 
-import ctypes
-import dataclasses
-from dataclasses import dataclass
 
 import torch
 
@@ -38,8 +40,11 @@ from burn_ppo_torch.envs.base import (
     Environment,
     EpisodeAccumulator,
     EpisodeLog,
+    PackedState,
     StepOutput,
+    arena_size,
     autoreset_step,
+    carve_arena,
     first_true_clockwise,
     onehot_eq,
     push_ring_row,
@@ -75,44 +80,63 @@ INV_MAXP = 1.0 / MAXP
 INV_ROSES = 1.0 / ROSES
 
 
-@dataclass
-class SkullState:
-    """Struct of arrays over E envs, the fields of the JAX ``SkullState``
-    without its key and its emitted rewards / done (the step returns
-    those)."""
-
-    has_trap: torch.Tensor  # [E, 6] bool
-    rose_count: torch.Tensor  # [E, 6] i32
-    wins: torch.Tensor  # [E, 6] i32
-    stack: torch.Tensor  # [E, 24] i32, seat * CARDS + position
-    skulls_in: torch.Tensor  # [E, 6] i32 skulls placed this round
-    roses_in: torch.Tensor  # [E, 6] i32 roses placed this round
-    stack_len: torch.Tensor  # [E, 6] i32
-    passed: torch.Tensor  # [E, 6] bool
-    phase: torch.Tensor  # [E] i32: 0 placing, 1 bidding, 2 revealing
-    current: torch.Tensor  # [E] i32
-    round_starter: torch.Tensor  # [E] i32
-    current_bid: torch.Tensor  # [E] i32 (0 = none)
-    current_bidder: torch.Tensor  # [E] i32 (-1 = none)
-    hist: torch.Tensor  # [E, 8, 2] i32 (player, bid; 0 = pass)
-    hist_len: torch.Tensor  # [E] i32
-    revealed: torch.Tensor  # [E, 6] i32
-    roses_found: torch.Tensor  # [E] i32
-    must_reveal_own: torch.Tensor  # [E] bool
-    elim_pos: torch.Tensor  # [E, 6] i32 (-1 = not eliminated)
-    num_eliminated: torch.Tensor  # [E] i32
-    game_over: torch.Tensor  # [E] bool
-    winner: torch.Tensor  # [E] i32 (-1)
-    step_idx: torch.Tensor  # [E] i32
-    shaping_coef: torch.Tensor  # [E] f32, kept across resets
-    forced_discard: torch.Tensor  # [E] i32: -1 random, 0 skull, 1 rose
+# The packed integer state: (field, per-env shape), in the order of the
+# JAX ``SkullState`` (bools as 0 / 1), then one padding column so that a
+# row is 108 i32 and every row starts on a 16-byte boundary.
+LAYOUT = (
+    ("has_trap", (MAXP,)),  # bool
+    ("rose_count", (MAXP,)),
+    ("wins", (MAXP,)),
+    ("stack", (MAXP * CARDS,)),  # seat * CARDS + position
+    ("skulls_in", (MAXP,)),  # skulls placed this round
+    ("roses_in", (MAXP,)),  # roses placed this round
+    ("stack_len", (MAXP,)),
+    ("passed", (MAXP,)),  # bool
+    ("phase", ()),  # 0 placing, 1 bidding, 2 revealing
+    ("current", ()),
+    ("round_starter", ()),
+    ("current_bid", ()),  # 0 = none
+    ("current_bidder", ()),  # -1 = none
+    ("hist", (HIST, 2)),  # (player, bid; 0 = pass)
+    ("hist_len", ()),
+    ("revealed", (MAXP,)),
+    ("roses_found", ()),
+    ("must_reveal_own", ()),  # bool
+    ("elim_pos", (MAXP,)),  # -1 = not eliminated
+    ("num_eliminated", ()),
+    ("game_over", ()),  # bool
+    ("winner", ()),  # -1
+    ("step_idx", ()),
+    ("forced_discard", ()),  # -1 random, 0 skull, 1 rose
+)
 
 
-FIELDS = tuple(f.name for f in dataclasses.fields(SkullState))
+class SkullState(PackedState):
+    """E envs: ``ints`` [E, 108] i32 with the fields of ``LAYOUT`` as views,
+    ``state.stack`` [E, 24], ``state.hist`` [E, 8, 2] and so on, the bools
+    of ``BOOL_FIELDS`` as bool, and the shaping coefficient (envs/base.py
+    PackedState)."""
+
+    LAYOUT = LAYOUT
+    BOOL_FIELDS = frozenset(("has_trap", "passed", "must_reveal_own", "game_over"))
+    W = 108  # one zero pad column: every row starts 16-byte aligned
+    # Every field of the JAX ``SkullState`` the port keeps (not its key nor
+    # its emitted rewards / done, which the step returns), in the JAX order.
+    FIELDS = tuple(name for name, _ in LAYOUT[:-1]) + ("shaping_coef", "forced_discard")
+
+
+FIELDS = SkullState.FIELDS
+W = SkullState.W
 
 
 def _rep(s: SkullState, **kw) -> SkullState:
-    return dataclasses.replace(s, **kw)
+    """``s`` with the named fields replaced: their columns written into a
+    copy of ``s.ints``."""
+    ints = s.ints.clone()
+    for name, v in kw.items():
+        lo, hi, _ = SkullState.SLICES[name]
+        ints[:, lo:hi] = v.reshape(v.shape[0], hi - lo)
+    return SkullState(ints, s.shaping_coef)
 
 
 class Skull(Environment):
@@ -163,22 +187,23 @@ class Skull(Environment):
 
     # -- lifecycle ----------------------------------------------------------
     def reset(self, reset_values: torch.Tensor) -> SkullState:
+        """A fresh game in every env: one packed row, repeated."""
         E, dev, i32 = reset_values.shape[0], reset_values.device, torch.int32
-        exists = self._exists(dev)[None, :].expand(E, MAXP)
+        exists = self._exists(dev)[None, :]
 
-        def z(*shape, dtype=i32, fill=0):
-            return torch.full((E, *shape), fill, dtype=dtype, device=dev)
+        def z(*shape, fill=0):
+            return torch.full((1, *shape), fill, dtype=i32, device=dev)
 
-        return SkullState(
-            has_trap=exists.clone(), rose_count=torch.where(exists, ROSES, 0).to(i32),
+        row = SkullState.of(
+            torch.zeros(1, device=dev), has_trap=exists, rose_count=torch.where(exists, ROSES, 0),
             wins=z(MAXP), stack=z(MAXP * CARDS), skulls_in=z(MAXP), roses_in=z(MAXP),
-            stack_len=z(MAXP), passed=z(MAXP, dtype=torch.bool), phase=z(), current=z(),
-            round_starter=z(), current_bid=z(), current_bidder=z(fill=-1), hist=z(HIST, 2),
-            hist_len=z(), revealed=z(MAXP), roses_found=z(), must_reveal_own=z(dtype=torch.bool),
-            elim_pos=z(MAXP, fill=-1), num_eliminated=z(), game_over=z(dtype=torch.bool),
-            winner=z(fill=-1), step_idx=z(), shaping_coef=z(dtype=torch.float32),
+            stack_len=z(MAXP), passed=z(MAXP), phase=z(), current=z(), round_starter=z(),
+            current_bid=z(), current_bidder=z(fill=-1), hist=z(HIST, 2), hist_len=z(),
+            revealed=z(MAXP), roses_found=z(), must_reveal_own=z(), elim_pos=z(MAXP, fill=-1),
+            num_eliminated=z(), game_over=z(), winner=z(fill=-1), step_idx=z(),
             forced_discard=z(fill=-1),
-        )
+        ).ints
+        return SkullState(row.expand(E, W).clone(), torch.zeros(E, device=dev))
 
     # -- placements and rewards (skull.py:200-226) --------------------------
     def game_outcome(self, s: SkullState) -> torch.Tensor:
@@ -442,7 +467,7 @@ class Skull(Environment):
         return (mask & ~s.game_over[:, None]).to(torch.float32)
 
     def current_player(self, s: SkullState) -> torch.Tensor:
-        return s.current
+        return s.current.contiguous()
 
     # -- privileged obs (skull.py:690-746) ----------------------------------
     def privileged_obs(self, s: SkullState) -> torch.Tensor:
@@ -487,7 +512,7 @@ def skull_step_autoreset(
 ) -> StepOutput:
     """One auto-reset step of every env: plain PyTorch on the CPU, kernel
     K11 on a CUDA device. ``u`` [E] are the step's uniforms (``draw_step``)."""
-    if kernels.on_cpu(state.phase, action, reset_values, u):
+    if kernels.on_cpu(state.ints, action, reset_values, u):
         return autoreset_step(env, state, acc, action, reset_values, u)
     return _launch(env, state, acc, action, u)
 
@@ -495,42 +520,45 @@ def skull_step_autoreset(
 skull_step_autoreset.launches = 0
 
 
-# (dtype, per-env shape) of every state field, as the kernel reads and writes them.
-_FIELD_SPECS = {f: (t.dtype, tuple(t.shape[1:]))
-                for f, t in vars(Skull().reset(torch.empty(1, 0))).items()}
+def _outputs(n: int) -> tuple:
+    """The kernel's outputs for n players, carved from one i32 and one f32
+    buffer (envs/base.py carve_arena); csrc/skull_step.cu computes the same
+    offsets."""
+    return ((("ints", W), ("acc_length", 1), ("log_length", 1), ("outcome", n),
+             ("active_players", 1)),
+            (("shaping_coef", 1), ("acc_reward_sum", n), ("rewards", n), ("done", 1),
+             ("log_total_rewards", n), ("obs", OBS_DIM), ("mask", A), ("priv", PRIV_DIM)))
 
 
 def _launch(env: Skull, state: SkullState, acc: EpisodeAccumulator, action: torch.Tensor,
             u: torch.Tensor) -> StepOutput:
-    E, n = state.phase.shape[0], env.n
-    dev = state.phase.device
-    for name, (dtype, shape) in _FIELD_SPECS.items():
-        kernels.expect(getattr(state, name), f"state.{name}", dtype, (E, *shape))
+    E, n, dev = state.ints.shape[0], env.n, state.ints.device
+    kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
+    if state.ints.data_ptr() % 16:
+        raise ValueError("state.ints: the kernel loads rows 16 bytes at a time; "
+                         "the buffer must start 16-byte aligned")
+    kernels.expect(state.shaping_coef, "state.shaping_coef", torch.float32, (E,))
     kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, n))
     kernels.expect(acc.length, "length", torch.int32, (E,))
     kernels.expect(action, "action", torch.int32, (E,))
     kernels.expect(u, "u", torch.float32, (E,))
-
-    def new(*shape, dtype=torch.float32):
-        return torch.empty(*shape, dtype=dtype, device=dev)
-
-    nxt = SkullState(**{f: torch.empty((E, *shape), dtype=dtype, device=dev)
-                        for f, (dtype, shape) in _FIELD_SPECS.items()})
-    nacc = EpisodeAccumulator(reward_sum=new(E, n), length=new(E, dtype=torch.int32))
-    rewards, done = new(E, n), new(E)
-    log = EpisodeLog(completed=done, total_rewards=new(E, n), length=new(E, dtype=torch.int32),
-                     outcome=new(E, n, dtype=torch.int32), active_players=new(E, dtype=torch.int32))
-    obs, mask, priv = new(E, OBS_DIM), new(E, A), new(E, PRIV_DIM)
-    ins = [getattr(state, f) for f in FIELDS] + [acc.reward_sum, acc.length, action, u]
-    outs = ([getattr(nxt, f) for f in FIELDS]
-            + [nacc.reward_sum, nacc.length, rewards, done, log.total_rewards, log.length,
-               log.outcome, log.active_players, obs, mask, priv])
-    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
-    out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
-    err = kernels.library().skull_step_autoreset(in_ptrs, out_ptrs, E, n, kernels.stream(dev))
+    i32_out, f32_out = _outputs(n)
+    i32 = torch.empty(arena_size(E, i32_out), dtype=torch.int32, device=dev)
+    f32 = torch.empty(arena_size(E, f32_out), dtype=torch.float32, device=dev)
+    err = kernels.library().skull_step_autoreset(
+        state.ints.data_ptr(), state.shaping_coef.data_ptr(), acc.reward_sum.data_ptr(),
+        acc.length.data_ptr(), action.data_ptr(), u.data_ptr(), i32.data_ptr(), f32.data_ptr(),
+        E, n, kernels.stream(dev))
     kernels.check(err, "skull_step_autoreset")
     skull_step_autoreset.launches += 1
-    return StepOutput(nxt, nacc, rewards, done, log, obs, mask, priv)
+    oi, of = carve_arena(i32, E, i32_out), carve_arena(f32, E, f32_out)
+    done = of["done"]
+    log = EpisodeLog(completed=done, total_rewards=of["log_total_rewards"],
+                     length=oi["log_length"], outcome=oi["outcome"],
+                     active_players=oi["active_players"])
+    return StepOutput(SkullState(oi["ints"], of["shaping_coef"]),
+                      EpisodeAccumulator(of["acc_reward_sum"], oi["acc_length"]),
+                      of["rewards"], done, log, of["obs"], of["mask"], of["priv"])
 
 
 def walk_actions(mask: torch.Tensor, g: torch.Generator) -> torch.Tensor:

@@ -84,10 +84,9 @@ SIGNATURES = {
     "clip_adam": [_VP] * 5 + [_L, _I] + [_F] * 9 + [_VP],
     # completed, totals, length, outcome, T, E, L, P, G, sums, extrema, out, stream
     "episode_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 4,
-    # host arrays of the 29 input and 36 output pointers (the SkullState
-    # fields in order, then the rest, csrc/skull_step.cu), num_envs,
-    # num_players, stream
-    "skull_step_autoreset": [_VP, _VP, _I, _I, _VP],
+    # packed state, shaping, reward_sum, length, action, u, the i32 and the
+    # f32 output buffer, num_envs, num_players, stream
+    "skull_step_autoreset": [_VP] * 8 + [_I, _I, _VP],
     # returns, rewards, acting, dones, new_returns, samples, E, P, gamma, stream
     "return_norm_roll": [_VP] * 6 + [_I, _I, _F, _VP],
     # samples, rewards, valid (nullable), mean, m2, count, scratch,

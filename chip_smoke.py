@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K7 and K8 in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K2 and K11 in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -24,15 +24,18 @@ exits non-zero without the final result line:
      Connect Four's 311,304 and Skull CTDE 512x2's 784,418 parameters,
      below and above the max norm), K10 episode statistics ([64, 4096]
      with the learner block [:, :3072], [128, 4096], and four players with
-     tied places [:, :2867]), K11 Skull step (E = 4096, exact, along
-     random-legal walks at 4, 2 and 6 players with invalid actions,
-     finished games and forced discards), K12 return normaliser (roll at
+     tied places [:, :2867]), K11 Skull step (E = 4096, the packed state,
+     exact, along random-legal walks at 4, 2 and 6 players with invalid
+     actions, finished games and forced discards), K12 return normaliser (roll at
      [4096, 1] and [4096, 4]; finalize at [524288] with and without a
-     valid mask), K2 at [4096, 33] on Skull's own masks; K13 Liar's Dice
+     valid mask), K2 at [4096, 33] on Skull's own masks and at the
+     opponents' [1229, 33] (the pool rows [2867:] of the same masks, a
+     view that does not start 16-byte aligned); K13 Liar's Dice
      step (E = 4096, exact, along a random-legal walk with calls,
      eliminations, finished games, invalid and out-of-range actions and
      full 16-row histories, each counted and required), and the older
-     kernels at the Liar's Dice shapes: K2 at [4096, 49] on its masks, K5
+     kernels at the Liar's Dice shapes: K2 at [4096, 49] on its masks and
+     at the opponents' [1024, 49] (rows [3072:]), K5
      at [128, 4096, 4], K6 apply at [4096, 270] and update at
      [524288, 270], K7 at the pool block Ep = 1024, K = 8 for the CTDE
      actor 270 -> 256 -> 256 -> 49 and the MLP 270 -> 512 x3 -> 49 with
@@ -41,8 +44,10 @@ exits non-zero without the final result line:
      P = 4;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
-     with --parent, the parent commit's K7 and K8, built from DIR, in
-     turns with this tree's (parent, new, new, parent);
+     with --parent, the parent commit's K2 (at all six shapes) and K11
+     (its 25 field tensors unpacked from the packed state outside the
+     timed calls), built from DIR, checked against the plain versions and
+     timed in turns with this tree's (parent, new, new, parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
   3. the CartPole bench-shape train path through the CLI entry point
@@ -126,7 +131,14 @@ from burn_ppo_torch.envs.liars_dice import (  # noqa: E402
 )
 from burn_ppo_torch.envs.liars_dice import walk_actions as liars_dice_actions  # noqa: E402
 from burn_ppo_torch.envs.skull import FIELDS as SKULL_FIELDS  # noqa: E402
-from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset, walk_actions  # noqa: E402
+from burn_ppo_torch.envs.skull import OBS_DIM as SKULL_OBS  # noqa: E402
+from burn_ppo_torch.envs.skull import PRIV_DIM as SKULL_PRIV  # noqa: E402
+from burn_ppo_torch.envs.skull import (  # noqa: E402
+    Skull,
+    SkullState,
+    skull_step_autoreset,
+    walk_actions,
+)
 from burn_ppo_torch.ops.categorical import (  # noqa: E402
     TINY,
     apply_action_mask,
@@ -406,65 +418,70 @@ def turns(new, parent) -> dict:
 
 
 class ParentKernels:
-    """The parent commit's K7 and K8, built from a checkout of it into a
-    library of their own and called as its wrappers called them, so that
-    they are timed beside the new kernels in the same process."""
+    """The parent commit's K2 and K11, built from a checkout of it into a
+    library of their own and called as its wrappers called them (the
+    argument checks, the allocations and, for K11, the host arrays of the
+    29 input and 36 output pointers of its unpacked state), so that they
+    are timed beside the new kernels in the same process."""
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
-        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k7_k8.so"
+        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k2_k11.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-               str(csrc / "opponent_actor.cu"), str(csrc / "ppo_loss.cu")]
+               str(csrc / "masked_gumbel_sample.cu"), str(csrc / "skull_step.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
         self.ptxas = ptxas_summary(res.stdout + res.stderr)
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, i = ctypes.c_void_p, ctypes.c_int
         self.lib = ctypes.CDLL(str(out))
-        for name, argtypes in (
-                ("opp_slot_sort", [vp, i, i, vp, vp, vp]),
-                ("opp_grouped_dense", [vp] * 5 + [f] + [vp] * 5 + [i] * 5 + [vp]),
-                ("ppo_loss_forward", [vp] * 9 + [i] * 3 + [f] * 3 + [i] + [f] * 2 + [vp] * 6)):
+        for name, argtypes in (("masked_gumbel_sample", [vp] * 5 + [i, i, vp]),
+                               ("skull_step_autoreset", [vp, vp, i, i, vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
-    def k7(self, obs, slot, stack, clip: float = 10.0) -> torch.Tensor:
-        """One counting sort of the rows by slot, then one slot-grouped
-        dense launch per layer."""
-        Ep, K, dev, p = obs.shape[0], stack.num_slots, obs.device, kernels.ptr
-        st = kernels.stream(dev)
-        perm = torch.empty(Ep, dtype=torch.int32, device=dev)
-        offsets = torch.empty(K + 1, dtype=torch.int32, device=dev)
-        kernels.check(self.lib.opp_slot_sort(p(slot), Ep, K, p(perm), p(offsets), st), "sort")
-        norm, x, depth = stack.norm, obs, len(stack.weights)
-        for li, (w, b) in enumerate(zip(stack.weights, stack.biases)):
-            first, last = li == 0, li == depth - 1
-            y = (torch.zeros if last else torch.empty)(Ep, w.shape[2], device=dev)
-            nrm = (norm.mean, norm.m2, norm.count) if first and norm is not None else (None,) * 3
-            kernels.check(self.lib.opp_grouped_dense(
-                p(x), p(perm) if first else None, *map(p, nrm), float(clip), p(w), p(b), p(y),
-                p(perm) if last else None, p(offsets), Ep, K, w.shape[1], w.shape[2],
-                0 if last else ACTIVATIONS[stack.activation], st), "dense")
-            x = y
-        return x
+    def k2(self, logits, mask, uniforms):
+        rows, A = logits.shape
+        kernels.expect(logits, "logits", torch.float32, (rows, A))
+        kernels.expect(uniforms, "uniforms", torch.float32, (rows, A))
+        if mask is not None:
+            kernels.expect(mask, "mask", torch.float32, (rows, A))
+        actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
+        log_probs = torch.empty(rows, dtype=torch.float32, device=logits.device)
+        kernels.check(self.lib.masked_gumbel_sample(
+            logits.data_ptr(), kernels.ptr(mask), uniforms.data_ptr(), actions.data_ptr(),
+            log_probs.data_ptr(), rows, A, kernels.stream(logits.device)), "parent K2")
+        return actions, log_probs
 
-    def k8(self, logits, values, mb, ent_coef, cfg):
-        """A stats pass, the row pass and a one-block finalize."""
-        M, A = logits.shape
-        dev, p = logits.device, kernels.ptr
-        G = max(1, min(264, -(-M // 256)))
-        stats = torch.empty(G, 3, dtype=torch.float64, device=dev)
-        sums = torch.empty(G, 12, dtype=torch.float64, device=dev)
-        out = torch.empty(15, device=dev)
-        dlogits, dvalues = torch.empty_like(logits), torch.empty_like(values)
-        eps = cfg.clip_epsilon
-        kernels.check(self.lib.ppo_loss_forward(
-            p(logits), p(values), p(mb.get("action_masks")), *(p(mb[k]) for k in LOSS_FIELDS),
-            M, A, G, float(eps), float(1.0 - eps), float(1.0 + eps), int(cfg.clip_value),
-            float(cfg.value_coef), float(ent_coef), p(stats), p(sums), p(out), p(dlogits),
-            p(dvalues), kernels.stream(dev)), "loss")
-        return out[0], out[1:], dlogits, dvalues
+    def k11(self, n: int, fields: dict, acc, action, u) -> dict:
+        """``fields``: the state as the parent held it, one contiguous
+        tensor per name of SKULL_FIELDS. Returns the next state's fields,
+        the obs, mask and privileged obs, rewards and done."""
+        E, dev = action.shape[0], action.device
+        for name, t in fields.items():
+            kernels.expect(t, f"state.{name}", t.dtype, tuple(t.shape))
+        kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, n))
+        kernels.expect(acc.length, "length", torch.int32, (E,))
+        kernels.expect(action, "action", torch.int32, (E,))
+        kernels.expect(u, "u", torch.float32, (E,))
+        nxt = {name: torch.empty_like(t) for name, t in fields.items()}
+
+        def new(*shape, dtype=torch.float32):
+            return torch.empty(*shape, dtype=dtype, device=dev)
+
+        i32 = torch.int32
+        rest = {"reward_sum": new(E, n), "length": new(E, dtype=i32), "rewards": new(E, n),
+                "done": new(E), "log_total": new(E, n), "log_length": new(E, dtype=i32),
+                "outcome": new(E, n, dtype=i32), "active": new(E, dtype=i32),
+                "obs": new(E, SKULL_OBS), "mask": new(E, 33), "priv": new(E, SKULL_PRIV)}
+        ins = list(fields.values()) + [acc.reward_sum, acc.length, action, u]
+        outs = list(nxt.values()) + list(rest.values())
+        in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+        out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
+        kernels.check(self.lib.skull_step_autoreset(in_ptrs, out_ptrs, E, n, kernels.stream(dev)),
+                      "parent K11")
+        return {"next": nxt, **rest}
 
 
 def check_cartpole(dev, g) -> dict:
@@ -509,40 +526,56 @@ def check_cartpole(dev, g) -> dict:
     }
 
 
-def check_sample(dev, g, A: int, mask=None) -> dict:
+def check_sample(dev, g, A: int, mask=None, parent: "ParentKernels | None" = None) -> dict:
     """A = 2: CartPole, every action legal. A = 7: Connect Four, 0-6
-    masked columns per row. A = 33: the given Skull masks."""
-    logits = torch.randn(E, A, generator=g, device=dev) * 2
+    masked columns per row. Otherwise the given masks (a walk's, or its
+    pool rows [L:], a view that need not start 16-byte aligned), one row
+    each. Every variant of lanes a row and staging that takes A checked
+    and timed; with ``parent``, the parent commit's K2 in turns."""
+    rows = E if mask is None else mask.shape[0]
+    logits = torch.randn(rows, A, generator=g, device=dev) * 2
     if mask is None and A == 2:
         mask = torch.ones(E, A, device=dev)
     elif mask is None:
         n_masked = torch.randint(0, A, (E, 1), generator=g, device=dev)
         rank = torch.rand(E, A, generator=g, device=dev).argsort(1).argsort(1)
         mask = (rank >= n_masked).float()
-    uni = torch.rand(E, A, generator=g, device=dev).clamp_min(TINY)
-    a_k, lp_k = masked_sample(logits, mask, uni)
-    a_p, lp_p = masked_sample_plain(logits, mask, uni)
-    torch.cuda.synchronize()
+    uni = torch.rand(rows, A, generator=g, device=dev).clamp_min(TINY)
     perturbed = apply_action_mask(logits, mask) - torch.log(-torch.log(uni))
     top2 = torch.topk(perturbed, 2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > 1e-5
-    if not torch.equal(a_k[decided], a_p[decided]):
-        raise AssertionError(f"masked_gumbel_sample A={A}: actions differ from plain")
-    if not bool(torch.all(torch.gather(mask, 1, a_k.long()[:, None]) > 0)):
-        raise AssertionError(f"masked_gumbel_sample A={A}: sampled a masked action")
-    err = max_err([(lp_k, lp_p)])
-    if not err <= 1e-5:
-        raise AssertionError(f"masked_gumbel_sample A={A}: log-prob max abs err {err} > 1e-5")
-    return {
-        "max_abs_err": err, "tol": 1e-5, "rows_compared": int(decided.sum()),
+    a_p, lp_p = masked_sample_plain(logits, mask, uni)
+
+    def close(fn, who) -> float:
+        a_k, lp_k = fn(logits, mask, uni)
+        torch.cuda.synchronize()
+        if not torch.equal(a_k[decided], a_p[decided]):
+            raise AssertionError(f"masked_gumbel_sample{who} [{rows}, {A}]: actions differ from plain")
+        if not bool(torch.all(torch.gather(mask, 1, a_k.long()[:, None]) > 0)):
+            raise AssertionError(f"masked_gumbel_sample{who} [{rows}, {A}]: sampled a masked action")
+        err = max_err([(lp_k, lp_p)])
+        if not err <= 1e-5:
+            raise AssertionError(f"masked_gumbel_sample{who} [{rows}, {A}]: log-prob max abs err "
+                                 f"{err} > 1e-5")
+        return err
+
+    out = {
+        "rows": rows, "max_abs_err": close(masked_sample, ""), "tol": 1e-5,
+        "rows_compared": int(decided.sum()),
+        "mask_start_16_byte_aligned": mask.data_ptr() % 16 == 0,
         "legal_per_row_min_mean_max": [float(mask.sum(1).min()), float(mask.sum(1).mean()),
                                        float(mask.sum(1).max())],
         **timed(lambda: masked_sample(logits, mask, uni),
                 lambda: masked_sample_plain(logits, mask, uni)),
         "library_ms": None,
         # per (row, action): mask add, two logs, add, compare, exp, add
-        **bound(nbytes(logits, mask, uni, a_k, lp_k), 8.0 * E * A),
+        **bound(nbytes(logits, mask, uni, a_p, lp_p), 8.0 * rows * A),
     }
+    if parent is not None:
+        out["parent_max_abs_err"] = close(parent.k2, " (parent)")
+        out.update(turns(lambda: masked_sample(logits, mask, uni),
+                         lambda: parent.k2(logits, mask, uni)))
+    return out
 
 
 def check_gae(dev, g) -> dict:
@@ -698,6 +731,20 @@ def check_connect_four(dev, g) -> dict:
     }
 
 
+def skull_differences(k, p) -> list:
+    """Names of the outputs of two auto-reset steps that differ (the packed
+    state by field)."""
+    pairs = {f"state.{f}": (getattr(k.state, f), getattr(p.state, f)) for f in SKULL_FIELDS}
+    pairs["state.ints"] = (k.state.ints, p.state.ints)
+    pairs.update({f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
+                  for f in ("completed", "total_rewards", "length", "outcome", "active_players")})
+    pairs.update({"acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
+                  "acc.length": (k.acc.length, p.acc.length), "rewards": (k.rewards, p.rewards),
+                  "done": (k.done, p.done), "obs": (k.obs, p.obs), "mask": (k.mask, p.mask),
+                  "priv": (k.priv, p.priv)})
+    return [name for name, (a, b) in pairs.items() if a.dtype != b.dtype or not torch.equal(a, b)]
+
+
 def skull_walk(dev, g, n: int, steps: int) -> tuple:
     """K11 against the plain step at every step of a random-legal walk of
     4096 envs of ``Skull(n)``: every output equal, bit for bit. Before each
@@ -714,26 +761,18 @@ def skull_walk(dev, g, n: int, steps: int) -> tuple:
           "finished_games_in": 0, "forced_discards_revealing": 0, "full_histories": 0}
     for _ in range(steps):
         fd = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
-        state.forced_discard = torch.where(torch.rand(E, generator=g, device=dev) < 0.15, fd, -1)
-        over = torch.rand(E, generator=g, device=dev) < 0.003
-        state.game_over = state.game_over | over
+        fd = torch.where(torch.rand(E, generator=g, device=dev) < 0.15, fd, -1)
+        over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
+        state = SkullState.of(**{**state.fields(), "forced_discard": fd, "game_over": over})
         mask = env.action_mask(state)
         action = walk_actions(mask, g)
         u = torch.rand(E, generator=g, device=dev)
         k = env.step_autoreset(state, acc, action, empty, u)
         p = autoreset_step(env, state, acc, action, empty, u)
         torch.cuda.synchronize()
-        pairs = {f"state.{f}": (getattr(k.state, f), getattr(p.state, f)) for f in SKULL_FIELDS}
-        pairs.update({f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
-                      for f in ("completed", "total_rewards", "length", "outcome",
-                                "active_players")})
-        pairs.update({"acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
-                      "acc.length": (k.acc.length, p.acc.length), "rewards": (k.rewards, p.rewards),
-                      "done": (k.done, p.done), "obs": (k.obs, p.obs), "mask": (k.mask, p.mask),
-                      "priv": (k.priv, p.priv)})
-        for name, (a, b) in pairs.items():
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                raise AssertionError(f"skull_step_autoreset P={n}: {name} differs from plain")
+        bad = skull_differences(k, p)
+        if bad:
+            raise AssertionError(f"skull_step_autoreset P={n}: {bad} differ from plain")
         legal = torch.gather(mask, 1, action.long().clamp(0, 32)[:, None])[:, 0] > 0
         valid = (action >= 0) & (action < 33) & legal & ~state.game_over
         done = k.done > 0
@@ -753,10 +792,12 @@ def skull_walk(dev, g, n: int, steps: int) -> tuple:
     return env, last, ev
 
 
-def check_skull(dev, g) -> tuple:
+def check_skull(dev, g, parent: "ParentKernels | None") -> tuple:
     """K11 along walks at 4 (300 steps), 2 and 6 players (80 steps each);
-    every branch must occur. Returns (the check, the last P = 4 mask and
-    obs for K2 and K7)."""
+    every branch must occur. Timed on the last P = 4 step; with ``parent``,
+    the parent commit's K11 on the same state, unpacked into its 25 field
+    tensors outside the timed calls, in turns. Returns (the check, the last P = 4 mask and obs
+    for K2 and K7)."""
     out = {"max_abs_err": 0.0, "tol": "exact"}
     walks = {}
     for n, steps in ((4, 300), (2, 80), (6, 80)):
@@ -778,6 +819,19 @@ def check_skull(dev, g) -> tuple:
         # ~2,000 integer and f32 operations per env
         **bound(nbytes(s, a, act, u, k), 2000.0 * E),
     )
+    if parent is not None:
+        fields = {f: t.contiguous() for f, t in s.fields().items()}
+        pk = parent.k11(4, fields, a, act, u)
+        torch.cuda.synchronize()
+        packed = SkullState.of(**pk["next"])
+        # k, this tree's step of the same state, equals the plain step (skull_walk)
+        for name, x, y in (("state", packed.ints, k.state.ints), ("obs", pk["obs"], k.obs),
+                           ("mask", pk["mask"], k.mask), ("priv", pk["priv"], k.priv),
+                           ("rewards", pk["rewards"], k.rewards), ("done", pk["done"], k.done)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"skull_step_autoreset (parent): {name} differs from plain")
+        out.update(turns(lambda: env.step_autoreset(s, a, act, empty, u),
+                         lambda: parent.k11(4, fields, a, act, u)))
     return out, k.mask, k.obs
 
 
@@ -1072,16 +1126,14 @@ def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int
     return OpponentStack(weights=weights, biases=biases, activation=act, norm=norm)
 
 
-def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
-                         parent: "ParentKernels | None") -> dict:
+def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor) -> dict:
     """K7 at the pool blocks the main paths give it, K = 8: Connect Four's
     (Ep = 1024, MLP 86 -> 512 -> 512 -> 7 with per-slot obs norm), Skull's
     (Ep = 1229, CTDE actor 135 -> 256 x3 -> 33, as configs/skull_ctde.toml
     trains), Liar's Dice's (Ep = 1024, CTDE actor 270 -> 256 x2 -> 49 and
     the MLP 270 -> 512 x3 -> 49 with obs norm), all relu; and Connect
     Four's at K = 3, relu and tanh. Every tiling is checked and timed at
-    the four shapes; with ``parent``, the parent commit's K7 in turns:
-    |kernel - plain| <= 1e-4 + 1e-4 |plain|."""
+    the four shapes: |kernel - plain| <= 1e-4 + 1e-4 |plain|."""
     out = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": 0.0,
            "tilings": [f"{r} rows x {c} blocks" for r, c in OPPONENT_TILINGS]}
 
@@ -1134,10 +1186,6 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
             **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + Ep * A * 4,
                     flops_3xtf32=2.0 * Ep * macs),
         )
-        if parent is not None:
-            close(parent.k7(obs, slot, stack), plain, f"{name} (parent)")
-            entry.update(turns(lambda: opponent_actor_forward(obs, slot, stack),
-                               lambda: parent.k7(obs, slot, stack)))
         out[name] = entry
     out["library_call"] = "torch.bmm over the K x Ep stacked rows, one per layer (K times the work)"
     out.update({k: out["c4_Ep1024_K8_mlp512x2"][k]
@@ -1167,13 +1215,12 @@ def loss_batch(dev, g, M: int, A: int):
     return logits, values, mb
 
 
-def check_ppo_loss(dev, g, parent: "ParentKernels | None") -> dict:
+def check_ppo_loss(dev, g) -> dict:
     """K8 at the minibatch shapes: Connect Four [65536, 7] (value clip off
     and on), Skull [65536, 33], Liar's Dice [65536, 49], CartPole
     [131072, 2]. Loss and metrics to 1e-5 relative, gradients to 1e-4
     relative + 1e-6 of their largest entry; a second call on the same
-    inputs gives the same bits. With ``parent``, the parent commit's K8 in
-    turns at [65536, 7], [65536, 33] and [65536, 49]."""
+    inputs gives the same bits."""
     out = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
 
     def close(k, p, name) -> float:
@@ -1215,9 +1262,6 @@ def check_ppo_loss(dev, g, parent: "ParentKernels | None") -> dict:
             **bound(nbytes(logits, values, read) + nbytes(logits, values) + 15 * 4,
                     65536 * (12.0 * A + 60.0)),
         }
-        if parent is not None:
-            entry.update(turns(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
-                               lambda: parent.k8(logits, values, mb, 0.05, cfg)))
         out[f"M65536_A{A}"] = entry
     out.update({k: out["M65536_A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
@@ -1596,7 +1640,7 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K7 and K8 are built from it "
+                    help="a checkout of the parent commit: its K2 and K11 are built from it "
                          "and timed in turns with this tree's")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
@@ -1614,22 +1658,25 @@ def main(argv: list) -> int:
          parent_ptxas=None if parent is None else parent.ptxas)
 
     g = torch.Generator(device=dev).manual_seed(0)
-    skull, skull_mask, skull_obs = check_skull(dev, g)
+    skull, skull_mask, skull_obs = check_skull(dev, g, parent)
     liars_dice, ld_mask, ld_obs = check_liars_dice(dev, g)
-    sample_a2 = check_sample(dev, g, 2)
-    sample_a7 = check_sample(dev, g, 7)
-    sample_a33 = check_sample(dev, g, 33, skull_mask)
-    sample_a49 = check_sample(dev, g, 49, ld_mask)
-    samples = (sample_a2, sample_a7, sample_a33, sample_a49)
+    samples = {
+        "A2": check_sample(dev, g, 2, parent=parent),
+        "A7": check_sample(dev, g, 7, parent=parent),
+        "A33_skull": check_sample(dev, g, 33, skull_mask, parent),
+        "A49_liars_dice": check_sample(dev, g, 49, ld_mask, parent),
+        # the opponents' rows of the pool envs, [L:] of the step's mask
+        "A49_liars_dice_opponents_Ep1024": check_sample(dev, g, 49, ld_mask[E - EP_LD:], parent),
+        "A33_skull_opponents_Ep1229": check_sample(dev, g, 33, skull_mask[E - EP_SKULL:], parent),
+    }
     apply_c4 = check_obs_norm_apply(dev, g, connect_four_like(dev, g, E), E * T_C4)
     apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD)
     checks = {
         "cartpole_step_autoreset": check_cartpole(dev, g),
         "masked_gumbel_sample": {
-            "A2": sample_a2, "A7": sample_a7, "A33_skull": sample_a33, "A49_liars_dice": sample_a49,
-            "max_abs_err": max(s["max_abs_err"] for s in samples),
+            **samples, "max_abs_err": max(x["max_abs_err"] for x in samples.values()),
             # A = 7's: Connect Four's, the pool path's
-            **{k: sample_a7[k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
+            **{k: samples["A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
         "gae_reverse_scan": check_gae(dev, g),
         "connect_four_step_autoreset": check_connect_four(dev, g),
@@ -1637,8 +1684,8 @@ def main(argv: list) -> int:
         "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld,
                            "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"])},
         "obs_norm_update": check_obs_norm_update(dev, g),
-        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs, parent),
-        "ppo_loss": check_ppo_loss(dev, g, parent),
+        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs),
+        "ppo_loss": check_ppo_loss(dev, g),
         "clip_adam": check_clip_adam(dev, g),
         "episode_stats": check_episode_stats(dev, g),
         "skull_step_autoreset": skull,

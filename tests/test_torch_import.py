@@ -187,7 +187,10 @@ def test_kernel_library_is_content_addressed_under_the_repo_cache():
 
 
 def test_liars_dice_takes_the_plain_path_on_cpu_and_its_kernel_is_bound():
-    from burn_ppo_torch.envs.liars_dice import ALIGN, F32_OUT, I32_OUT, _arena_size, _carve
+    from burn_ppo_torch.envs.base import ARENA_ALIGN as ALIGN
+    from burn_ppo_torch.envs.base import arena_size as _arena_size
+    from burn_ppo_torch.envs.base import carve_arena as _carve
+    from burn_ppo_torch.envs.liars_dice import F32_OUT, I32_OUT
 
     cpu = torch.device("cpu")
     E = 8

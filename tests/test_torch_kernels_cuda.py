@@ -12,7 +12,12 @@ import torch
 from burn_ppo_torch.envs.base import EpisodeAccumulator, autoreset_step
 from burn_ppo_torch.envs.cartpole import CartPole, CartPoleState, cartpole_step_autoreset
 from burn_ppo_torch.envs.connect_four import ConnectFour, connect_four_step_autoreset
-from burn_ppo_torch.ops.categorical import TINY, masked_sample, masked_sample_plain
+from burn_ppo_torch.ops.categorical import (
+    TINY,
+    apply_action_mask,
+    masked_sample,
+    masked_sample_plain,
+)
 from burn_ppo_torch.ops.gae import (
     compute_gae,
     compute_gae_multiplayer,
@@ -23,8 +28,7 @@ from burn_ppo_torch.envs.base import EpisodeLog
 from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs, summarize_episode_logs_plain
 from burn_ppo_torch.envs.liars_dice import LiarsDice, LiarsDiceState, liars_dice_step_autoreset
 from burn_ppo_torch.envs.liars_dice import walk_actions as liars_dice_walk
-from burn_ppo_torch.envs.skull import FIELDS as SKULL_FIELDS
-from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset, walk_actions
+from burn_ppo_torch.envs.skull import Skull, SkullState, skull_step_autoreset, walk_actions
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
     ReturnNormState,
@@ -119,6 +123,86 @@ def test_sample_kernel_refuses_too_many_actions(dev):
     x = torch.zeros(4, 65, device=dev)
     with pytest.raises(ValueError, match="at most 64"):
         masked_sample(x, None, x + 0.5)
+
+
+def sample_case(g, dev, rows, A, masked, offset=0):
+    """Logits, mask (or None) and uniforms of ``rows`` rows; with an
+    ``offset``, views that start ``offset`` rows into larger tensors, as
+    the opponents' rows [L:] of a step's mask do."""
+    logits = torch.randn(rows + offset, A, generator=g, device=dev)[offset:] * 2
+    mask = None
+    if masked:
+        mask = (torch.rand(rows + offset, A, generator=g, device=dev) < 0.6).float()[offset:]
+        mask[:, (torch.arange(rows, device=dev) % A)] = 1.0
+    u = torch.rand(rows + offset, A, generator=g, device=dev).clamp_min(TINY)[offset:]
+    return logits, mask, u
+
+
+def assert_sample_close(dev, logits, mask, u):
+    """Actions equal where the plain version decides them (top two noisy
+    values more than 1e-5 apart), log pi(a) within 1e-5."""
+    a_k, lp_k = masked_sample(logits, mask, u)
+    a_p, lp_p = masked_sample_plain(logits, mask, u)
+    torch.cuda.synchronize()
+    noisy = apply_action_mask(logits, mask) - torch.log(-torch.log(u))
+    if logits.shape[1] > 1:
+        top2 = torch.topk(noisy, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 1e-5
+    else:
+        decided = torch.ones_like(a_p, dtype=torch.bool)
+    assert torch.equal(a_k[decided], a_p[decided])
+    torch.testing.assert_close(lp_k, lp_p, rtol=0, atol=1e-5)
+    return a_k, a_p
+
+
+@pytest.mark.parametrize("rows,A,offset", [(1024, 49, 3072), (1229, 33, 2867), (1, 33, 0),
+                                           (257, 49, 1), (300, 1, 0), (300, 8, 3), (300, 9, 1),
+                                           (300, 64, 2), (4096, 49, 0), (4096, 33, 0),
+                                           (4096, 7, 0), (257, 2, 1), (33, 8, 0)])
+@pytest.mark.parametrize("masked", [True, False])
+def test_sample_kernel_at_the_opponent_and_edge_shapes(dev, rows, A, offset, masked):
+    """The opponents' [1024, 49] and [1229, 33] (views at rows 3072 and
+    2867: the latter does not start 16-byte aligned), one row, a ragged
+    last warp, and A = 1, 2, 7, 8, 9 and 64 on both sides of the 2 / 16
+    lanes split."""
+    g = torch.Generator(device=dev).manual_seed(rows * 100 + A)
+    before = masked_sample.launches
+    assert_sample_close(dev, *sample_case(g, dev, rows, A, masked, offset))
+    assert masked_sample.launches == before + 1
+
+
+@pytest.mark.parametrize("A,lo,hi", [(49, 13, 18), (49, 15, 16), (49, 1, 48), (33, 5, 20),
+                                     (33, 31, 32), (64, 9, 56), (17, 3, 16), (7, 1, 2), (7, 3, 6),
+                                     (8, 5, 6)])
+def test_sample_kernel_takes_the_first_of_exact_ties_across_lanes(dev, A, lo, hi):
+    """Two entries with the same noisy value, held by different lanes, the
+    lower index in the higher lane (lane = index mod 16 for A > 8, mod 2
+    for A <= 8): the lower index wins, as jnp.argmax's first maximum does.
+    The other entries sit at -30, below any noisy value of the pair (the
+    Gumbel noise of a u in [tiny, 1) lies in [-4.5, 16.7])."""
+    g = torch.Generator(device=dev).manual_seed(A + lo)
+    rows = 257
+    logits = torch.full((rows, A), -30.0, device=dev)
+    logits[:, lo] = logits[:, hi] = 5.0
+    u = torch.rand(rows, A, generator=g, device=dev).clamp_min(TINY)
+    u[:, hi] = u[:, lo]
+    for mask in (None, torch.ones(rows, A, device=dev)):
+        a_k, lp_k = masked_sample(logits, mask, u)
+        a_p, lp_p = masked_sample_plain(logits, mask, u)
+        assert bool((a_k == lo).all()) and torch.equal(a_k, a_p)
+        torch.testing.assert_close(lp_k, lp_p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("A", [2, 7, 33, 49])
+def test_sample_kernel_with_all_masked_rows_and_without_a_mask(dev, A):
+    """Rows with every action masked (the additive -1e9 keeps them finite,
+    so they sample as their logits would) beside legal rows; and no mask
+    at all (CartPole's call)."""
+    g = torch.Generator(device=dev).manual_seed(A)
+    logits, mask, u = sample_case(g, dev, 1229, A, True)
+    mask[::3] = 0.0
+    assert_sample_close(dev, logits, mask, u)
+    assert_sample_close(dev, logits, None, u)
 
 
 @pytest.mark.parametrize("T,E", [(1, 3), (128, 4096), (7, 1000)])
@@ -409,30 +493,18 @@ def test_episode_stats_kernel_matches_plain(dev, T, E, P, L):
 @pytest.mark.parametrize("E,n", [(1, 4), (257, 2), (4096, 4), (512, 6)])
 def test_skull_kernel_matches_plain_exactly(dev, E, n):
     """K11 against the plain step along a walk of 150 steps, every output
-    equal bit for bit; forced discards, finished games fed back in and a
-    shaping coefficient on half the envs."""
-    import dataclasses
-
+    equal bit for bit (the packed state whole); forced discards, finished
+    games fed back in and a shaping coefficient on half the envs."""
     g = torch.Generator(device=dev).manual_seed(E + n)
     env = Skull(n)
     empty = torch.empty(E, 0, device=dev)
     state = env.reset(empty)
-    state = dataclasses.replace(state, shaping_coef=(torch.arange(E, device=dev) % 2) * 0.05)
+    state = SkullState(state.ints, (torch.arange(E, device=dev) % 2) * 0.05)
     acc = EpisodeAccumulator.zero(E, n, dev)
     dones = 0
-    for _ in range(150):
-        fd = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
-        fd = torch.where(torch.rand(E, generator=g, device=dev) < 0.15, fd, -1)
-        over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
-        state = dataclasses.replace(state, forced_discard=fd, game_over=over)
-        action = walk_actions(env.action_mask(state), g)
-        u = torch.rand(E, generator=g, device=dev)
-        before = skull_step_autoreset.launches
-        k = env.step_autoreset(state, acc, action, empty, u)
-        torch.cuda.synchronize()
-        assert skull_step_autoreset.launches == before + 1
-        p = autoreset_step(env, state, acc, action, empty, u)
-        pairs = [(getattr(k.state, f), getattr(p.state, f)) for f in SKULL_FIELDS]
+
+    def assert_equal(k, p):
+        pairs = [(k.state.ints, p.state.ints), (k.state.shaping_coef, p.state.shaping_coef)]
         pairs += [(getattr(k.log, f), getattr(p.log, f))
                   for f in ("completed", "total_rewards", "length", "outcome", "active_players")]
         pairs += [(k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
@@ -440,9 +512,50 @@ def test_skull_kernel_matches_plain_exactly(dev, E, n):
                   (k.priv, p.priv)]
         for a, b in pairs:
             assert a.dtype == b.dtype and torch.equal(a, b)
+
+    for _ in range(150):
+        fd = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
+        fd = torch.where(torch.rand(E, generator=g, device=dev) < 0.15, fd, -1)
+        over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
+        state = SkullState.of(**{**state.fields(), "forced_discard": fd, "game_over": over})
+        action = walk_actions(env.action_mask(state), g)
+        u = torch.rand(E, generator=g, device=dev)
+        before = skull_step_autoreset.launches
+        k = env.step_autoreset(state, acc, action, empty, u)
+        torch.cuda.synchronize()
+        assert skull_step_autoreset.launches == before + 1
+        p = autoreset_step(env, state, acc, action, empty, u)
+        assert_equal(k, p)
         dones += int(p.done.sum())
         state, acc = p.state, p.acc
     assert dones > 0
+
+
+def test_skull_kernel_refuses_what_it_cannot_take(dev):
+    """A packed state of the wrong width or type, or not contiguous, or not
+    16-byte aligned, is refused before the launch."""
+    E = 64
+    env = Skull(4)
+    empty = torch.empty(E, 0, device=dev)
+    state = env.reset(empty)
+    acc = EpisodeAccumulator.zero(E, 4, dev)
+    action = torch.zeros(E, dtype=torch.int32, device=dev)
+    u = torch.rand(E, device=dev)
+    before = skull_step_autoreset.launches
+    wide = torch.zeros(E, state.ints.shape[1] + 4, dtype=torch.int32, device=dev)
+    wide[:, :state.ints.shape[1]] = state.ints
+    flat = torch.zeros(E * state.ints.shape[1] + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(E, -1)
+    shifted.copy_(state.ints)
+    for ints, err in ((state.ints[:, :-1].contiguous(), ValueError),
+                      (state.ints.to(torch.int64), TypeError),
+                      (wide[:, :state.ints.shape[1]], ValueError),
+                      (shifted, ValueError)):
+        with pytest.raises(err):
+            env.step_autoreset(SkullState(ints, state.shaping_coef), acc, action, empty, u)
+    with pytest.raises(TypeError):
+        env.step_autoreset(state, acc, action.to(torch.int64), empty, u)
+    assert skull_step_autoreset.launches == before
 
 
 @pytest.mark.parametrize("E,P", [(4096, 1), (4096, 4), (5, 3)])

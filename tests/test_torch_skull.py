@@ -133,8 +133,8 @@ def random_walk(n, E, T, seed, on_step=None):
     for t in range(T):
         fd = np.where(rng.random(E) < 0.15, rng.integers(0, 2, E), -1).astype(np.int32)
         over = ts.game_over.numpy() | (rng.random(E) < 0.003)
-        ts = dataclasses.replace(ts, forced_discard=torch.from_numpy(fd),
-                                 game_over=torch.from_numpy(over))
+        ts = SkullState.of(**{**ts.fields(), "forced_discard": torch.from_numpy(fd),
+                              "game_over": torch.from_numpy(over)})
         js = to_jax(ts, js, n)
         mask = env.action_mask(ts).numpy()
         actions = pick_actions(rng, mask)
@@ -206,7 +206,7 @@ def test_oracle_agrees_on_whole_games():
                     legal = (["skull"] if o.has_trap[b] else []) + (["rose"] if o.rose_count[b] else [])
                     discard[e] = legal[int(rng.integers(len(legal)))]
                     fd[e] = 0 if discard[e] == "skull" else 1
-            ts = dataclasses.replace(ts, forced_discard=torch.from_numpy(fd))
+            ts = SkullState.of(**{**ts.fields(), "forced_discard": torch.from_numpy(fd)})
             out = env.step_autoreset(ts, acc, torch.from_numpy(actions), torch.empty(E, 0),
                                      torch.rand(E))
             for e, o in enumerate(oracles):

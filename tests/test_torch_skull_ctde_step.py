@@ -29,7 +29,7 @@ from burn_ppo_tpu.train import _update_cfg, build_network_for_env  # noqa: E402
 from burn_ppo_tpu.train import make_train_step as jax_make_train_step  # noqa: E402
 from burn_ppo_torch import cli  # noqa: E402
 from burn_ppo_torch.convert import params_from_jax, params_to_jax, tree_leaves  # noqa: E402
-from burn_ppo_torch.envs.skull import FIELDS, Skull  # noqa: E402
+from burn_ppo_torch.envs.skull import FIELDS, Skull, SkullState  # noqa: E402
 from burn_ppo_torch.ppo.normalization import ObsNormState  # noqa: E402
 from burn_ppo_torch.ppo.rollout import RandomSource, init_rollout_carry  # noqa: E402
 from burn_ppo_torch.ppo.update import AdamState  # noqa: E402
@@ -138,8 +138,7 @@ def midgame(jstate, tstate, env, steps=40, seed=0):
         js, acc, _, _, _, mask, _ = jstep(js, acc, jnp.asarray(actions), jax.random.split(sub, E))
         mask = np.asarray(mask)
     jstate = jstate.replace(carry=jstate.carry.replace(env_states=js))
-    ts = env.reset(torch.empty(E, 0))
-    ts = dataclasses.replace(ts, **{f: torch.from_numpy(np.array(getattr(js, f))) for f in FIELDS})
+    ts = SkullState.of(**{f: torch.from_numpy(np.array(getattr(js, f))) for f in FIELDS})
     carry = dataclasses.replace(tstate.carry, env_states=ts, obs=env.obs(ts),
                                 mask=env.action_mask(ts), priv=env.privileged_obs(ts))
     return jstate, dataclasses.replace(tstate, carry=carry)
