@@ -28,7 +28,7 @@
 //   1. every thread: the block's state rows, one contiguous span, come in
 //      with 16-byte loads (all of a thread's loads issued before its first
 //      shared-memory store) and go to shared memory at an odd row stride
-//      (109), so that threads reading the same field of their rows hit
+//      (109; packed_rows.cuh), so that threads reading the same field of their rows hit
 //      distinct banks; meanwhile each stepping thread loads its env's
 //      action, uniform, shaping coefficient and accumulators;
 //   2. one thread per env (its branches are serial): the step, in place on
@@ -73,6 +73,8 @@
 
 #include <cstdint>
 
+#include "packed_rows.cuh"
+
 namespace {
 
 constexpr int MAXP = 6;
@@ -92,7 +94,6 @@ constexpr int SKULL_C = 2;
 constexpr float INV_MAX_BID = 1.0f / MAX_BID;
 constexpr float INV_MAXP = 1.0f / MAXP;
 constexpr float INV_ROSES = 1.0f / ROSES;
-constexpr long ALIGN = 64;
 
 // Column offsets of the packed row, in the order of envs/skull.py LAYOUT.
 constexpr int O_TRAP = 0;
@@ -122,10 +123,10 @@ constexpr int O_FORCED = O_STEP + 1;
 constexpr int O_PAD = O_FORCED + 1;
 constexpr int W = O_PAD + 1;
 static_assert(W == 108, "LAYOUT of envs/skull.py");
-constexpr int W4 = W / 4;  // 16-byte groups per row
-constexpr int WS = W + 1;  // shared-memory row stride, odd
 constexpr int EB = 4;      // envs per block
 constexpr int NT = 128;    // threads per block
+using Rows = packed_rows::Rows<W, EB, NT>;
+constexpr int WS = Rows::WS;  // shared-memory row stride, odd
 
 // Derived words of a post-reset row (the end of phase 2), per env.
 enum Derived {
@@ -165,9 +166,7 @@ struct Args {
   int n;
 };
 
-__host__ __device__ long block_len(long num_envs, int cols) {
-  return (num_envs * cols + ALIGN - 1) / ALIGN * ALIGN;
-}
+using packed_rows::block_len;
 
 // Floor-mod by the player count; the seat arithmetic's x lies in [0, 2n)
 // almost always, where a subtraction does.
@@ -642,7 +641,6 @@ __device__ void write_outputs(const Args& g, const int* rows, const int* der, lo
 }
 
 __global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
-  constexpr int LOAD_ITERS = (EB * W4 + NT - 1) / NT;
   __shared__ int rows[EB * WS];
   __shared__ int der[EB * DW];
   const int n = g.n;
@@ -664,27 +662,7 @@ __global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
 #pragma unroll
     for (int p = 0; p < MAXP; ++p) sum_in[p] = p < n ? g.acc_sum[e * n + p] : 0.0f;
   }
-  {
-    const int4* src4 = reinterpret_cast<const int4*>(g.ints + e0 * W);
-    int4 v[LOAD_ITERS];
-#pragma unroll
-    for (int k = 0; k < LOAD_ITERS; ++k) {
-      const int i = t + k * NT;
-      if (i < count * W4) v[k] = src4[i];
-    }
-#pragma unroll
-    for (int k = 0; k < LOAD_ITERS; ++k) {
-      const int i = t + k * NT;
-      if (i < count * W4) {
-        const int ee = i / W4, c = 4 * (i - ee * W4);
-        int* r = rows + ee * WS + c;
-        r[0] = v[k].x;
-        r[1] = v[k].y;
-        r[2] = v[k].z;
-        r[3] = v[k].w;
-      }
-    }
-  }
+  Rows::stage(rows, g.ints + e0 * W, count, t);
   __syncthreads();
 
   // 2. The step, the reset and the derived words, one thread per env.
@@ -744,16 +722,7 @@ __global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
   __syncthreads();
 
   // 3. The next state, obs, mask and privileged obs.
-  int4* dst4 = reinterpret_cast<int4*>(g.ints_out + e0 * W);
-#pragma unroll
-  for (int k = 0; k < LOAD_ITERS; ++k) {
-    const int i = t + k * NT;
-    if (i < count * W4) {
-      const int ee = i / W4, c = 4 * (i - ee * W4);
-      const int* r = rows + ee * WS + c;
-      dst4[i] = make_int4(r[0], r[1], r[2], r[3]);
-    }
-  }
+  Rows::store(g.ints_out + e0 * W, rows, count, t);
   write_outputs(g, rows, der, e0, count);
 }
 

@@ -210,17 +210,15 @@ class Environment:
 
 @dataclass
 class PackedState:
-    """E envs of a state packed for its step kernel (K11, K13): ``ints``
+    """E envs of a state packed for its step kernel (K4, K11, K13): ``ints``
     [E, W] i32 holds the integer fields of the subclass's ``LAYOUT``
     ((name, per-env shape) in column order, those of ``BOOL_FIELDS`` as
-    0 / 1), then zero pad columns up to ``W`` (None: no padding), beside
-    the f32 shaping coefficient. Each field of ``LAYOUT`` reads as a view
-    with its own name and shape, the bools as bool. ``fields()`` gives the
-    fields named in ``FIELDS`` (by default the layout's), and
-    ``of(**s.fields())`` rebuilds ``s``."""
+    0 / 1), then zero pad columns up to ``W`` (None: no padding). Each
+    field of ``LAYOUT`` reads as a view with its own name and shape, the
+    bools as bool. ``fields()`` gives the fields named in ``FIELDS`` (by
+    default the layout's), and ``of(**s.fields())`` rebuilds ``s``."""
 
     ints: torch.Tensor  # [E, W] i32
-    shaping_coef: torch.Tensor  # [E] f32, kept across resets
 
     LAYOUT: ClassVar[tuple] = ()
     BOOL_FIELDS: ClassVar[frozenset] = frozenset()
@@ -241,17 +239,34 @@ class PackedState:
             cls.FIELDS = cls.INT_FIELDS
 
     @classmethod
-    def of(cls, shaping_coef: torch.Tensor, **fields: torch.Tensor):
-        """Pack the fields (every name of ``LAYOUT``) into one state."""
-        E = shaping_coef.shape[0]
+    def pack(cls, **fields: torch.Tensor) -> torch.Tensor:
+        """The [E, W] i32 buffer of the fields (every name of ``LAYOUT``)."""
+        lead = fields[cls.INT_FIELDS[0]]
+        E = lead.shape[0]
         cols = [fields[name].reshape(E, -1).to(torch.int32) for name in cls.INT_FIELDS]
         if cls.W > cls.PAD_COL:
-            cols.append(torch.zeros(E, cls.W - cls.PAD_COL, dtype=torch.int32,
-                                    device=shaping_coef.device))
-        return cls(torch.cat(cols, 1), shaping_coef.to(torch.float32))
+            cols.append(torch.zeros(E, cls.W - cls.PAD_COL, dtype=torch.int32, device=lead.device))
+        return torch.cat(cols, 1)
+
+    @classmethod
+    def of(cls, **fields: torch.Tensor):
+        """Pack the fields into one state."""
+        return cls(cls.pack(**fields))
 
     def fields(self) -> dict:
         return {name: getattr(self, name) for name in self.FIELDS}
+
+
+@dataclass
+class ShapedPackedState(PackedState):
+    """A packed state with the f32 reward-shaping coefficient beside it
+    (Skull, Liar's Dice), kept across resets."""
+
+    shaping_coef: torch.Tensor  # [E] f32
+
+    @classmethod
+    def of(cls, shaping_coef: torch.Tensor, **fields: torch.Tensor):
+        return cls(cls.pack(**fields), shaping_coef.to(torch.float32))
 
 
 def _field_view(name: str, lo: int, hi: int, shape: tuple, is_bool: bool) -> property:
@@ -266,7 +281,8 @@ def _field_view(name: str, lo: int, hi: int, shape: tuple, is_bool: bool) -> pro
 
 # A fused env-step kernel writes its outputs into one buffer per dtype:
 # (name, columns per env) blocks, each E x columns, starting on a
-# 64-element (256 byte) boundary (csrc/liars_dice_step.cu, skull_step.cu).
+# 64-element (256 byte) boundary (csrc/connect_four_step.cu,
+# liars_dice_step.cu, skull_step.cu).
 ARENA_ALIGN = 64
 
 
@@ -275,11 +291,13 @@ def arena_size(E: int, blocks) -> int:
 
 
 def carve_arena(buf: torch.Tensor, E: int, blocks) -> dict:
-    """The blocks of ``buf`` by name, as [E, cols] views ([E] for one column)."""
-    out, at = {}, 0
+    """The blocks of ``buf`` by name, as [E, cols] views ([E] for one column).
+    One ``as_strided`` a block, where a slice and a view would be two tensor
+    constructions: a step wrapper carves about ten views per call."""
+    out, at = {}, buf.storage_offset()
     for name, cols in blocks:
-        x = buf[at:at + E * cols]
-        out[name] = x.view(E, cols) if cols > 1 else x
+        out[name] = (buf.as_strided((E, cols), (cols, 1), at) if cols > 1
+                     else buf.as_strided((E,), (1,), at))
         at += -(-E * cols // ARENA_ALIGN) * ARENA_ALIGN
     return out
 

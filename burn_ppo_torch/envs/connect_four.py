@@ -6,6 +6,11 @@ draw, an 86-wide obs of channels-last planes [row, col, player] and the
 one-hot of the player to move, a column mask, and placements [1,2] /
 [2,1] / [1,1], or the no-outcome sentinel [0,0] after an invalid move.
 
+The integer state is ONE packed ``[E, 48]`` i32 tensor (``LAYOUT``, the
+done flag as 0 / 1, two zero pad columns) with the fields as views, so the
+kernel takes one state pointer in and writes one i32 and one f32 buffer
+out.
+
 ``step_autoreset`` is the rollout's env step. For CPU tensors it runs the
 plain PyTorch composition (``envs/base.py autoreset_step`` over ``step``,
 ``reset``, ``obs``, ``action_mask`` and ``game_outcome`` below); for CUDA
@@ -15,8 +20,6 @@ tensors it launches the hand-written kernel ``csrc/connect_four_step.cu``
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from burn_ppo_torch import kernels
@@ -25,23 +28,39 @@ from burn_ppo_torch.envs.base import (
     Environment,
     EpisodeAccumulator,
     EpisodeLog,
+    PackedState,
     StepOutput,
+    arena_size,
     autoreset_step,
+    carve_arena,
 )
 
 ROWS, COLS = 6, 7
 OBS_DIM = ROWS * COLS * 2 + 2
 
+# The packed integer state: (field, per-env shape), in the order of the
+# JAX ``ConnectFourState`` (its rewards, which the step returns, and its
+# key, which nothing reads, left out), then two zero pad columns.
+LAYOUT = (
+    ("board", (ROWS, COLS)),  # 0 empty, 1 P0, 2 P1
+    ("current", ()),  # player to move
+    ("winner", ()),  # -1 none, 0/1 winner, 2 draw
+    ("done", ()),  # bool
+    ("step_idx", ()),
+)
 
-@dataclass
-class ConnectFourState:
-    """Struct of arrays over E envs."""
 
-    board: torch.Tensor  # [E, 6, 7] i32: 0 empty, 1 P0, 2 P1
-    current: torch.Tensor  # [E] i32 player to move
-    winner: torch.Tensor  # [E] i32: -1 none, 0/1 winner, 2 draw
-    done: torch.Tensor  # [E] bool
-    step_idx: torch.Tensor  # [E] i32
+class ConnectFourState(PackedState):
+    """E envs: ``ints`` [E, 48] i32 with the fields of ``LAYOUT`` as views,
+    ``state.board`` [E, 6, 7], ``state.done`` as bool (envs/base.py
+    PackedState)."""
+
+    LAYOUT = LAYOUT
+    BOOL_FIELDS = frozenset(("done",))
+    W = 48  # 46 columns, then 2 zero pad columns: every row starts 16-byte aligned
+
+
+W = ConnectFourState.W
 
 
 def has_win(plane: torch.Tensor) -> torch.Tensor:
@@ -71,14 +90,10 @@ class ConnectFour(Environment):
         return torch.empty(num_envs, 0, device=rng.device)
 
     def reset(self, reset_values: torch.Tensor) -> ConnectFourState:
-        E, dev, i32 = reset_values.shape[0], reset_values.device, torch.int32
-        return ConnectFourState(
-            board=torch.zeros(E, ROWS, COLS, dtype=i32, device=dev),
-            current=torch.zeros(E, dtype=i32, device=dev),
-            winner=torch.full((E,), -1, dtype=i32, device=dev),
-            done=torch.zeros(E, dtype=torch.bool, device=dev),
-            step_idx=torch.zeros(E, dtype=i32, device=dev),
-        )
+        E, dev = reset_values.shape[0], reset_values.device
+        ints = torch.zeros(E, W, dtype=torch.int32, device=dev)
+        ints[:, ConnectFourState.SLICES["winner"][0]] = -1
+        return ConnectFourState(ints)
 
     def step(self, state: ConnectFourState, action: torch.Tensor):
         board, cur = state.board, state.current
@@ -99,31 +114,31 @@ class ConnectFour(Environment):
         mover = torch.arange(2, device=dev)[None, :] == cur[:, None]
         rewards = torch.where(won[:, None], torch.where(mover, 1.0, -1.0), 0.0)
         winner = torch.where(won, cur, torch.where(full, 2, torch.where(invalid, state.winner, -1)))
-        stepped = ConnectFourState(
+        stepped = ConnectFourState.of(
             board=board,
             current=torch.where(done, cur, 1 - cur),
-            winner=winner.to(torch.int32),
+            winner=winner,
             done=done,
             step_idx=state.step_idx + 1,
         )
         return stepped, rewards.to(torch.float32), done
 
     def obs(self, state: ConnectFourState) -> torch.Tensor:
-        E = state.board.shape[0]
+        E = state.ints.shape[0]
         planes = torch.stack([state.board == 1, state.board == 2], dim=-1)  # [E, 6, 7, 2]
-        turn = state.current[:, None] == torch.arange(2, device=state.board.device)[None, :]
+        turn = state.current[:, None] == torch.arange(2, device=state.ints.device)[None, :]
         return torch.cat([planes.reshape(E, -1), turn], dim=1).to(torch.float32)
 
     def action_mask(self, state: ConnectFourState) -> torch.Tensor:
         return (state.board[:, 0, :] == 0).to(torch.float32)
 
     def current_player(self, state: ConnectFourState) -> torch.Tensor:
-        return state.current
+        return state.current.contiguous()
 
     def game_outcome(self, state: ConnectFourState) -> torch.Tensor:
         """[1,2] P0 won / [2,1] P1 won / [1,1] full board / [0,0] no result
         (connect_four.py:134-156)."""
-        dev = state.board.device
+        dev = state.ints.device
         full = (state.board[:, 0, :] != 0).all(1)
         placements = torch.tensor([[1, 2], [2, 1], [1, 1], [0, 0]], dtype=torch.int32, device=dev)
         which = torch.where(state.winner == 0, 0,
@@ -143,50 +158,40 @@ def connect_four_step_autoreset(
 ) -> StepOutput:
     """One auto-reset step of every env: plain PyTorch on the CPU, kernel
     K4 on a CUDA device."""
-    if kernels.on_cpu(state.board, action, reset_values):
+    if kernels.on_cpu(state.ints, action, reset_values):
         return autoreset_step(env, state, acc, action, reset_values)
     return _launch(state, acc, action)
 
 
 connect_four_step_autoreset.launches = 0
 
+# The kernel's outputs, carved from one i32 and one f32 buffer (envs/base.py
+# carve_arena); csrc/connect_four_step.cu computes the same offsets.
+I32_OUT = (("ints", W), ("acc_length", 1), ("log_length", 1), ("outcome", 2),
+           ("active_players", 1))
+F32_OUT = (("acc_reward_sum", 2), ("rewards", 2), ("done", 1), ("log_total_rewards", 2),
+           ("obs", OBS_DIM), ("mask", COLS))
+
 
 def _launch(state: ConnectFourState, acc: EpisodeAccumulator, action: torch.Tensor) -> StepOutput:
-    E = state.board.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    for name, t, dt, shape in (
-        ("board", state.board, i32, (E, ROWS, COLS)),
-        ("current", state.current, i32, (E,)),
-        ("winner", state.winner, i32, (E,)),
-        ("done", state.done, torch.bool, (E,)),
-        ("step_idx", state.step_idx, i32, (E,)),
-        ("reward_sum", acc.reward_sum, f32, (E, 2)),
-        ("length", acc.length, i32, (E,)),
-        ("action", action, i32, (E,)),
-    ):
-        kernels.expect(t, name, dt, shape)
-    dev = state.board.device
-
-    def new(*shape, dtype=f32):
-        return torch.empty(*shape, dtype=dtype, device=dev)
-
-    nxt = ConnectFourState(board=new(E, ROWS, COLS, dtype=i32), current=new(E, dtype=i32),
-                           winner=new(E, dtype=i32), done=new(E, dtype=torch.bool),
-                           step_idx=new(E, dtype=i32))
-    nacc = EpisodeAccumulator(reward_sum=new(E, 2), length=new(E, dtype=i32))
-    rewards, done = new(E, 2), new(E)
-    log = EpisodeLog(completed=done, total_rewards=new(E, 2), length=new(E, dtype=i32),
-                     outcome=new(E, 2, dtype=i32), active_players=new(E, dtype=i32))
-    obs, mask = new(E, OBS_DIM), new(E, COLS)
-    p = kernels.ptr
+    E, dev = state.ints.shape[0], state.ints.device
+    kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
+    kernels.expect_rows16(state.ints, "state.ints")
+    kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, 2))
+    kernels.expect(acc.length, "length", torch.int32, (E,))
+    kernels.expect(action, "action", torch.int32, (E,))
+    i32 = torch.empty(arena_size(E, I32_OUT), dtype=torch.int32, device=dev)
+    f32 = torch.empty(arena_size(E, F32_OUT), dtype=torch.float32, device=dev)
     err = kernels.library().connect_four_step_autoreset(
-        p(state.board), p(state.current), p(state.winner), p(state.done), p(state.step_idx),
-        p(acc.reward_sum), p(acc.length), p(action),
-        p(nxt.board), p(nxt.current), p(nxt.winner), p(nxt.done), p(nxt.step_idx),
-        p(nacc.reward_sum), p(nacc.length), p(rewards), p(done), p(log.total_rewards),
-        p(log.length), p(log.outcome), p(log.active_players), p(obs), p(mask),
-        E, kernels.stream(dev),
-    )
+        state.ints.data_ptr(), acc.reward_sum.data_ptr(), acc.length.data_ptr(),
+        action.data_ptr(), i32.data_ptr(), f32.data_ptr(), E, kernels.stream(dev))
     kernels.check(err, "connect_four_step_autoreset")
     connect_four_step_autoreset.launches += 1
-    return StepOutput(nxt, nacc, rewards, done, log, obs, mask)
+    oi, of = carve_arena(i32, E, I32_OUT), carve_arena(f32, E, F32_OUT)
+    done = of["done"]
+    log = EpisodeLog(completed=done, total_rewards=of["log_total_rewards"],
+                     length=oi["log_length"], outcome=oi["outcome"],
+                     active_players=oi["active_players"])
+    return StepOutput(ConnectFourState(oi["ints"]),
+                      EpisodeAccumulator(of["acc_reward_sum"], oi["acc_length"]),
+                      of["rewards"], done, log, of["obs"], of["mask"])

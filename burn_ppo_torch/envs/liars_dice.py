@@ -8,9 +8,9 @@ costs the loser a die, placements by elimination order with the rewards
 270-wide player-relative obs and a 120-wide privileged obs for the CTDE
 critic (110 exact, zero padded).
 
-The integer state is ONE packed ``[E, W]`` i32 tensor (``LAYOUT``) with
-the fields as views, beside the f32 shaping coefficient, so the kernel
-takes two state pointers in and writes two out.
+The integer state is ONE packed ``[E, 76]`` i32 tensor (``LAYOUT``, then
+three zero pad columns) with the fields as views, beside the f32 shaping
+coefficient, so the kernel takes two state pointers in and writes two out.
 
 ``step`` is the plain PyTorch version: the bid, call and invalid branches
 are computed for every env and selected, as ``lax.switch`` under ``vmap``
@@ -38,7 +38,7 @@ from burn_ppo_torch.envs.base import (
     Environment,
     EpisodeAccumulator,
     EpisodeLog,
-    PackedState,
+    ShapedPackedState,
     StepOutput,
     arena_size,
     autoreset_step,
@@ -85,17 +85,18 @@ LAYOUT = (
 )
 
 
-class LiarsDiceState(PackedState):
-    """E envs: ``ints`` [E, 73] i32 with the fields of ``LAYOUT`` as views,
+class LiarsDiceState(ShapedPackedState):
+    """E envs: ``ints`` [E, 76] i32 with the fields of ``LAYOUT`` as views,
     ``state.dice`` [E, 4, 2] and so on (``game_over`` as bool), and the
-    shaping coefficient (envs/base.py PackedState)."""
+    shaping coefficient (envs/base.py ShapedPackedState)."""
 
     LAYOUT = LAYOUT
     BOOL_FIELDS = frozenset(("game_over",))
+    W = 76  # 73 columns, then 3 zero pad columns: every row starts 16-byte aligned
 
 
 FIELDS = LiarsDiceState.FIELDS
-W = LiarsDiceState.W  # 73 i32 columns per env
+W = LiarsDiceState.W
 
 
 def faces(u: torch.Tensor) -> torch.Tensor:
@@ -330,10 +331,13 @@ I32_OUT = (("ints", W), ("acc_length", 1), ("log_length", 1), ("outcome", P),
            ("active_players", 1))
 F32_OUT = (("shaping_coef", 1), ("acc_reward_sum", P), ("rewards", P), ("done", 1),
            ("log_total_rewards", P), ("obs", OBS_DIM), ("mask", A), ("priv", PRIV_DIM))
+
+
 def _launch(state: LiarsDiceState, acc: EpisodeAccumulator, action: torch.Tensor,
             reset_values: torch.Tensor, u: torch.Tensor) -> StepOutput:
     E, dev = state.ints.shape[0], state.ints.device
     kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
+    kernels.expect_rows16(state.ints, "state.ints")
     kernels.expect(state.shaping_coef, "state.shaping_coef", torch.float32, (E,))
     kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, P))
     kernels.expect(acc.length, "length", torch.int32, (E,))

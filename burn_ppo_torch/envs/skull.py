@@ -40,7 +40,7 @@ from burn_ppo_torch.envs.base import (
     Environment,
     EpisodeAccumulator,
     EpisodeLog,
-    PackedState,
+    ShapedPackedState,
     StepOutput,
     arena_size,
     autoreset_step,
@@ -111,11 +111,11 @@ LAYOUT = (
 )
 
 
-class SkullState(PackedState):
+class SkullState(ShapedPackedState):
     """E envs: ``ints`` [E, 108] i32 with the fields of ``LAYOUT`` as views,
     ``state.stack`` [E, 24], ``state.hist`` [E, 8, 2] and so on, the bools
     of ``BOOL_FIELDS`` as bool, and the shaping coefficient (envs/base.py
-    PackedState)."""
+    ShapedPackedState)."""
 
     LAYOUT = LAYOUT
     BOOL_FIELDS = frozenset(("has_trap", "passed", "must_reveal_own", "game_over"))
@@ -534,9 +534,7 @@ def _launch(env: Skull, state: SkullState, acc: EpisodeAccumulator, action: torc
             u: torch.Tensor) -> StepOutput:
     E, n, dev = state.ints.shape[0], env.n, state.ints.device
     kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
-    if state.ints.data_ptr() % 16:
-        raise ValueError("state.ints: the kernel loads rows 16 bytes at a time; "
-                         "the buffer must start 16-byte aligned")
+    kernels.expect_rows16(state.ints, "state.ints")
     kernels.expect(state.shaping_coef, "state.shaping_coef", torch.float32, (E,))
     kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, n))
     kernels.expect(acc.length, "length", torch.int32, (E,))

@@ -54,8 +54,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # 9 inputs, 15 outputs, num_envs, stream
     "cartpole_step_autoreset": [_VP] * 24 + [_I, _VP],
-    # 8 inputs, 15 outputs, num_envs, stream
-    "connect_four_step_autoreset": [_VP] * 23 + [_I, _VP],
+    # packed state, reward_sum, length, action, the i32 and the f32 output
+    # buffer, num_envs, stream
+    "connect_four_step_autoreset": [_VP] * 6 + [_I, _VP],
     # logits, mask (nullable), uniforms, actions, log_probs, rows, A, stream
     "masked_gumbel_sample": [_VP] * 5 + [_I, _I, _VP],
     # rewards, values, dones, last_values, advantages, returns, T, E,
@@ -213,6 +214,14 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     return False
+
+
+def expect_rows16(t: torch.Tensor, name: str) -> None:
+    """A packed env state that a step kernel loads 16 bytes at a time
+    (``W * 4`` a multiple of 16) must start 16-byte aligned."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel loads rows 16 bytes at a time; "
+                         "the buffer must start 16-byte aligned")
 
 
 def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:

@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K2 and K11 in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K4 and K13 in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -11,7 +11,9 @@ exits non-zero without the final result line:
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, timed with CUDA events: K1 CartPole step (E = 4096), K2
      sample ([4096, 2] all legal; [4096, 7] with 0-6 masked columns), K3
-     GAE [128, 4096], K4 Connect Four step (E = 4096, exact), K5
+     GAE [128, 4096], K4 Connect Four step (E = 4096, the packed state,
+     exact, wins in all four directions, draws, invalid, out-of-range
+     and already-done moves each counted and required), K5
      multiplayer GAE ([64, 4096, 2] and P = 4), K6 obs-norm apply
      ([4096, 86], count 0, 1 and large) and update ([262144, 86],
      [524288, 5]), K7 slot-grouped opponent forward (Ep = 1024 rows, MLP
@@ -44,10 +46,12 @@ exits non-zero without the final result line:
      P = 4;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
-     with --parent, the parent commit's K2 (at all six shapes) and K11
-     (its 25 field tensors unpacked from the packed state outside the
-     timed calls), built from DIR, checked against the plain versions and
-     timed in turns with this tree's (parent, new, new, parent);
+     K4 and K13 print their ptxas lines (registers, stack frame, spills);
+     with --parent, the parent commit's K4 (its 8 field tensors unpacked
+     from the packed state outside the timed calls) and K13 (a contiguous
+     copy of the first 73 columns), built from DIR, checked against this
+     tree's outputs and timed in turns with this tree's (parent, new, new,
+     parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
   3. the CartPole bench-shape train path through the CLI entry point
@@ -115,15 +119,24 @@ sys.path.insert(0, str(ROOT))
 
 from burn_ppo_torch import kernels  # noqa: E402
 from burn_ppo_torch.device import resolve_device  # noqa: E402
-from burn_ppo_torch.envs.base import EpisodeAccumulator, autoreset_step  # noqa: E402
+from burn_ppo_torch.envs.base import (  # noqa: E402
+    EpisodeAccumulator,
+    arena_size,
+    autoreset_step,
+    carve_arena,
+)
 from burn_ppo_torch.envs.cartpole import CartPole, CartPoleState, cartpole_step_autoreset  # noqa: E402
+from burn_ppo_torch.envs.connect_four import OBS_DIM as C4_OBS  # noqa: E402
 from burn_ppo_torch.envs.connect_four import (  # noqa: E402
     COLS,
     ROWS,
     ConnectFour,
+    ConnectFourState,
     connect_four_step_autoreset,
     has_win,
 )
+from burn_ppo_torch.envs.liars_dice import F32_OUT as LD_F32_OUT  # noqa: E402
+from burn_ppo_torch.envs.liars_dice import I32_OUT as LD_I32_OUT  # noqa: E402
 from burn_ppo_torch.envs.liars_dice import (  # noqa: E402
     LiarsDice,
     LiarsDiceState,
@@ -131,8 +144,6 @@ from burn_ppo_torch.envs.liars_dice import (  # noqa: E402
 )
 from burn_ppo_torch.envs.liars_dice import walk_actions as liars_dice_actions  # noqa: E402
 from burn_ppo_torch.envs.skull import FIELDS as SKULL_FIELDS  # noqa: E402
-from burn_ppo_torch.envs.skull import OBS_DIM as SKULL_OBS  # noqa: E402
-from burn_ppo_torch.envs.skull import PRIV_DIM as SKULL_PRIV  # noqa: E402
 from burn_ppo_torch.envs.skull import (  # noqa: E402
     Skull,
     SkullState,
@@ -369,6 +380,13 @@ def nbytes(*tensors) -> int:
     return sum(seen.values())
 
 
+def pad_bytes(state) -> int:
+    """Bytes of a packed state's zero pad columns, read once and written
+    once: they align the rows for 16-byte loads, and the step itself does
+    not need them, so a bound leaves them out."""
+    return 2 * (state.W - state.PAD_COL) * 4 * state.ints.shape[0]
+
+
 def bound(bytes_moved: float, flops: float = 0.0, flops64: float = 0.0,
           flops_3xtf32: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
@@ -418,70 +436,78 @@ def turns(new, parent) -> dict:
 
 
 class ParentKernels:
-    """The parent commit's K2 and K11, built from a checkout of it into a
+    """The parent commit's K4 and K13, built from a checkout of it into a
     library of their own and called as its wrappers called them (the
-    argument checks, the allocations and, for K11, the host arrays of the
-    29 input and 36 output pointers of its unpacked state), so that they
-    are timed beside the new kernels in the same process."""
+    argument checks and the allocations; K4 with its 8 field tensors, K13
+    with its unpadded [E, 73] state and its own output arenas), so that
+    they are timed beside the new kernels in the same process."""
+
+    K13_W = 73  # the parent's packed Liar's Dice row, unpadded
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
-        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k2_k11.so"
+        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k4_k13.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-               str(csrc / "masked_gumbel_sample.cu"), str(csrc / "skull_step.cu")]
+               str(csrc / "connect_four_step.cu"), str(csrc / "liars_dice_step.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
         self.ptxas = ptxas_summary(res.stdout + res.stderr)
         vp, i = ctypes.c_void_p, ctypes.c_int
         self.lib = ctypes.CDLL(str(out))
-        for name, argtypes in (("masked_gumbel_sample", [vp] * 5 + [i, i, vp]),
-                               ("skull_step_autoreset", [vp, vp, i, i, vp])):
+        for name, argtypes in (("connect_four_step_autoreset", [vp] * 23 + [i, vp]),
+                               ("liars_dice_step_autoreset", [vp] * 9 + [i, vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
-    def k2(self, logits, mask, uniforms):
-        rows, A = logits.shape
-        kernels.expect(logits, "logits", torch.float32, (rows, A))
-        kernels.expect(uniforms, "uniforms", torch.float32, (rows, A))
-        if mask is not None:
-            kernels.expect(mask, "mask", torch.float32, (rows, A))
-        actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
-        log_probs = torch.empty(rows, dtype=torch.float32, device=logits.device)
-        kernels.check(self.lib.masked_gumbel_sample(
-            logits.data_ptr(), kernels.ptr(mask), uniforms.data_ptr(), actions.data_ptr(),
-            log_probs.data_ptr(), rows, A, kernels.stream(logits.device)), "parent K2")
-        return actions, log_probs
-
-    def k11(self, n: int, fields: dict, acc, action, u) -> dict:
+    def k4(self, fields: dict, acc, action) -> dict:
         """``fields``: the state as the parent held it, one contiguous
-        tensor per name of SKULL_FIELDS. Returns the next state's fields,
-        the obs, mask and privileged obs, rewards and done."""
+        tensor per field (board [E, 6, 7], current, winner, done bool,
+        step_idx). Returns the next state's fields, the obs, mask, rewards
+        and done."""
         E, dev = action.shape[0], action.device
         for name, t in fields.items():
             kernels.expect(t, f"state.{name}", t.dtype, tuple(t.shape))
-        kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, n))
+        kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, 2))
         kernels.expect(acc.length, "length", torch.int32, (E,))
         kernels.expect(action, "action", torch.int32, (E,))
-        kernels.expect(u, "u", torch.float32, (E,))
         nxt = {name: torch.empty_like(t) for name, t in fields.items()}
 
         def new(*shape, dtype=torch.float32):
             return torch.empty(*shape, dtype=dtype, device=dev)
 
         i32 = torch.int32
-        rest = {"reward_sum": new(E, n), "length": new(E, dtype=i32), "rewards": new(E, n),
-                "done": new(E), "log_total": new(E, n), "log_length": new(E, dtype=i32),
-                "outcome": new(E, n, dtype=i32), "active": new(E, dtype=i32),
-                "obs": new(E, SKULL_OBS), "mask": new(E, 33), "priv": new(E, SKULL_PRIV)}
-        ins = list(fields.values()) + [acc.reward_sum, acc.length, action, u]
-        outs = list(nxt.values()) + list(rest.values())
-        in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
-        out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
-        kernels.check(self.lib.skull_step_autoreset(in_ptrs, out_ptrs, E, n, kernels.stream(dev)),
-                      "parent K11")
+        rest = {"reward_sum": new(E, 2), "length": new(E, dtype=i32), "rewards": new(E, 2),
+                "done": new(E), "log_total": new(E, 2), "log_length": new(E, dtype=i32),
+                "outcome": new(E, 2, dtype=i32), "active": new(E, dtype=i32),
+                "obs": new(E, C4_OBS), "mask": new(E, COLS)}
+        ptrs = [t.data_ptr() for t in (*fields.values(), acc.reward_sum, acc.length, action,
+                                       *nxt.values(), *rest.values())]
+        kernels.check(self.lib.connect_four_step_autoreset(*ptrs, E, kernels.stream(dev)),
+                      "parent K4")
         return {"next": nxt, **rest}
+
+    def k13(self, ints73, shaping, acc, action, u_reset, u_step) -> dict:
+        """The parent's K13 on its [E, 73] state: its i32 and f32 output
+        arenas carved by name (the blocks of envs/liars_dice.py I32_OUT and
+        F32_OUT with a 73-column state)."""
+        E, dev = action.shape[0], action.device
+        kernels.expect(ints73, "state.ints", torch.int32, (E, self.K13_W))
+        kernels.expect(shaping, "state.shaping_coef", torch.float32, (E,))
+        kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, 4))
+        kernels.expect(acc.length, "length", torch.int32, (E,))
+        kernels.expect(action, "action", torch.int32, (E,))
+        kernels.expect(u_reset, "reset_values", torch.float32, (E, 8))
+        kernels.expect(u_step, "u", torch.float32, (E, 8))
+        i32_out = (("ints", self.K13_W),) + LD_I32_OUT[1:]
+        i32 = torch.empty(arena_size(E, i32_out), dtype=torch.int32, device=dev)
+        f32 = torch.empty(arena_size(E, LD_F32_OUT), dtype=torch.float32, device=dev)
+        kernels.check(self.lib.liars_dice_step_autoreset(
+            ints73.data_ptr(), shaping.data_ptr(), acc.reward_sum.data_ptr(), acc.length.data_ptr(),
+            action.data_ptr(), u_reset.data_ptr(), u_step.data_ptr(), i32.data_ptr(),
+            f32.data_ptr(), E, kernels.stream(dev)), "parent K13")
+        return {**carve_arena(i32, E, i32_out), **carve_arena(f32, E, LD_F32_OUT)}
 
 
 def check_cartpole(dev, g) -> dict:
@@ -526,12 +552,11 @@ def check_cartpole(dev, g) -> dict:
     }
 
 
-def check_sample(dev, g, A: int, mask=None, parent: "ParentKernels | None" = None) -> dict:
+def check_sample(dev, g, A: int, mask=None) -> dict:
     """A = 2: CartPole, every action legal. A = 7: Connect Four, 0-6
     masked columns per row. Otherwise the given masks (a walk's, or its
     pool rows [L:], a view that need not start 16-byte aligned), one row
-    each. Every variant of lanes a row and staging that takes A checked
-    and timed; with ``parent``, the parent commit's K2 in turns."""
+    each."""
     rows = E if mask is None else mask.shape[0]
     logits = torch.randn(rows, A, generator=g, device=dev) * 2
     if mask is None and A == 2:
@@ -571,10 +596,6 @@ def check_sample(dev, g, A: int, mask=None, parent: "ParentKernels | None" = Non
         # per (row, action): mask add, two logs, add, compare, exp, add
         **bound(nbytes(logits, mask, uni, a_p, lp_p), 8.0 * rows * A),
     }
-    if parent is not None:
-        out["parent_max_abs_err"] = close(parent.k2, " (parent)")
-        out.update(turns(lambda: masked_sample(logits, mask, uni),
-                         lambda: parent.k2(logits, mask, uni)))
     return out
 
 
@@ -651,18 +672,19 @@ def connect_four_states(dev, g):
         out = autoreset_step(env, state, acc, pick(g, env.action_mask(state) > 0).to(torch.int32),
                              empty)
         state, acc = out.state, out.acc
+    f = {name: x.clone() for name, x in state.fields().items()}
     full = nearly_full_boards(dev, g, 512)
-    state.board[-512:] = full
+    f["board"][-512:] = full
     n1, n2 = (full == 1).sum((1, 2)), (full == 2).sum((1, 2))
-    state.current[-512:] = (n1 != n2).to(torch.int32)
-    state.winner[-512:] = -1
-    state.step_idx[-512:] = (n1 + n2).to(torch.int32)
+    f["current"][-512:] = (n1 != n2).to(torch.int32)
+    f["winner"][-512:] = -1
+    f["step_idx"][-512:] = (n1 + n2).to(torch.int32)
     done_rows = torch.randperm(E - 512, generator=g, device=dev)[:64]
-    state.done[done_rows] = True
-    state.winner[done_rows] = torch.randint(-1, 3, (64,), generator=g, device=dev,
-                                            dtype=torch.int32)
+    f["done"][done_rows] = True
+    f["winner"][done_rows] = torch.randint(-1, 3, (64,), generator=g, device=dev,
+                                           dtype=torch.int32)
     acc.reward_sum += torch.randint(-2, 3, (E, 2), generator=g, device=dev).float()
-    return env, state, acc
+    return env, ConnectFourState.of(**f), acc
 
 
 def connect_four_actions(env, state, dev, g) -> torch.Tensor:
@@ -682,30 +704,29 @@ def connect_four_actions(env, state, dev, g) -> torch.Tensor:
     return torch.where(u > 0.97, wild, act).to(torch.int32)
 
 
-def check_connect_four(dev, g) -> dict:
+def kernel_ptxas(ptxas: list, name: str) -> list:
+    """The ptxas lines of one kernel (registers, shared memory, stack frame
+    and spills)."""
+    return [ln for ln in ptxas if ln.startswith(f"{name}_kernel")]
+
+
+def check_connect_four(dev, g, ptxas: list, parent: "ParentKernels | None") -> dict:
     """K4 against the plain step over four consecutive steps: every output
-    equal, bit for bit."""
+    equal, bit for bit. Timed on the last step; with ``parent``, the parent
+    commit's K4 on the same state (its 8 field tensors unpacked outside the
+    timed calls) checked and timed in turns."""
     env, state, acc = connect_four_states(dev, g)
     empty = torch.empty(E, 0, device=dev)
     stats = {"steps": 4, "dones": 0, "wins_h_v_d1_d2": [0, 0, 0, 0], "draws": 0,
-             "no_outcome": 0, "out_of_range": 0}
+             "no_outcome": 0, "out_of_range": 0, "done_in": 0}
     for _ in range(4):
         action = connect_four_actions(env, state, dev, g)
         k = env.step_autoreset(state, acc, action, empty)
         p = autoreset_step(env, state, acc, action, empty)
         torch.cuda.synchronize()
-        pairs = {f"state.{f}": (getattr(k.state, f), getattr(p.state, f))
-                 for f in ("board", "current", "winner", "done", "step_idx")}
-        pairs.update({f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
-                      for f in ("completed", "total_rewards", "length", "outcome",
-                                "active_players")})
-        pairs.update({"acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
-                      "acc.length": (k.acc.length, p.acc.length),
-                      "rewards": (k.rewards, p.rewards), "done": (k.done, p.done),
-                      "obs": (k.obs, p.obs), "mask": (k.mask, p.mask)})
-        for name, (a, b) in pairs.items():
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                raise AssertionError(f"connect_four_step_autoreset: {name} differs from plain")
+        bad = step_differences(k, p, ConnectFourState.INT_FIELDS)
+        if bad:
+            raise AssertionError(f"connect_four_step_autoreset: {bad} differ from plain")
         stepped, rewards, done = env.step(state, action)
         won = rewards.abs().sum(1) > 0
         dirs = win_directions(stepped.board == (state.current + 1)[:, None, None])[won]
@@ -715,33 +736,56 @@ def check_connect_four(dev, g) -> dict:
         stats["draws"] += int((done & (p.log.outcome == 1).all(1)).sum())
         stats["no_outcome"] += int((done & (p.log.outcome == 0).all(1)).sum())
         stats["out_of_range"] += int(((action < 0) | (action >= COLS)).sum())
+        stats["done_in"] += int(state.done.sum())
         last = (state, acc, action)
         state, acc = p.state, p.acc
-    if min(stats["wins_h_v_d1_d2"]) == 0 or stats["draws"] == 0 or stats["no_outcome"] == 0:
+    if (min(stats["wins_h_v_d1_d2"]) == 0 or min(stats["draws"], stats["no_outcome"],
+                                                   stats["out_of_range"], stats["done_in"]) == 0):
         raise AssertionError(f"connect_four_step_autoreset: a branch was not reached: {stats}")
     s, a, act = last
     k = env.step_autoreset(s, a, act, empty)
-    return {
+    out = {
         "max_abs_err": 0.0, "tol": "exact", **stats,
+        "ptxas": kernel_ptxas(ptxas, "connect_four_step_autoreset"),
         **timed(lambda: env.step_autoreset(s, a, act, empty),
                 lambda: autoreset_step(env, s, a, act, empty)),
         "library_ms": None,
         # the 69 four-in-a-row windows of the mover, a few operations each
-        **bound(nbytes(s, a, act, k), 300.0 * E),
+        **bound(nbytes(s, a, act, k) - pad_bytes(s), 300.0 * E),
     }
+    if parent is not None:
+        fields = {name: x.contiguous() for name, x in s.fields().items()}
+        pk = parent.k4(fields, a, act)
+        torch.cuda.synchronize()
+        pairs = {"state": (ConnectFourState.of(**pk["next"]).ints, k.state.ints),
+                 "obs": (pk["obs"], k.obs), "mask": (pk["mask"], k.mask),
+                 "rewards": (pk["rewards"], k.rewards), "done": (pk["done"], k.done),
+                 "outcome": (pk["outcome"], k.log.outcome),
+                 "reward_sum": (pk["reward_sum"], k.acc.reward_sum)}
+        bad = [name for name, (x, y) in pairs.items() if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"connect_four_step_autoreset (parent): {bad} differ")
+        out.update(turns(lambda: env.step_autoreset(s, a, act, empty),
+                         lambda: parent.k4(fields, a, act)))
+    return out
 
 
-def skull_differences(k, p) -> list:
-    """Names of the outputs of two auto-reset steps that differ (the packed
-    state by field)."""
-    pairs = {f"state.{f}": (getattr(k.state, f), getattr(p.state, f)) for f in SKULL_FIELDS}
+def step_differences(k, p, fields=()) -> list:
+    """Names of the outputs of two auto-reset steps that differ: the packed
+    state (and by field, each of ``fields``), the shaping coefficient where
+    the state has one, the log, accumulators, rewards, done, obs, mask and
+    privileged obs."""
+    pairs = {f"state.{f}": (getattr(k.state, f), getattr(p.state, f)) for f in fields}
     pairs["state.ints"] = (k.state.ints, p.state.ints)
+    if hasattr(p.state, "shaping_coef"):
+        pairs["state.shaping_coef"] = (k.state.shaping_coef, p.state.shaping_coef)
     pairs.update({f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
                   for f in ("completed", "total_rewards", "length", "outcome", "active_players")})
     pairs.update({"acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
                   "acc.length": (k.acc.length, p.acc.length), "rewards": (k.rewards, p.rewards),
-                  "done": (k.done, p.done), "obs": (k.obs, p.obs), "mask": (k.mask, p.mask),
-                  "priv": (k.priv, p.priv)})
+                  "done": (k.done, p.done), "obs": (k.obs, p.obs), "mask": (k.mask, p.mask)})
+    if p.priv is not None:
+        pairs["priv"] = (k.priv, p.priv)
     return [name for name, (a, b) in pairs.items() if a.dtype != b.dtype or not torch.equal(a, b)]
 
 
@@ -770,7 +814,7 @@ def skull_walk(dev, g, n: int, steps: int) -> tuple:
         k = env.step_autoreset(state, acc, action, empty, u)
         p = autoreset_step(env, state, acc, action, empty, u)
         torch.cuda.synchronize()
-        bad = skull_differences(k, p)
+        bad = step_differences(k, p, SKULL_FIELDS)
         if bad:
             raise AssertionError(f"skull_step_autoreset P={n}: {bad} differ from plain")
         legal = torch.gather(mask, 1, action.long().clamp(0, 32)[:, None])[:, 0] > 0
@@ -792,12 +836,10 @@ def skull_walk(dev, g, n: int, steps: int) -> tuple:
     return env, last, ev
 
 
-def check_skull(dev, g, parent: "ParentKernels | None") -> tuple:
+def check_skull(dev, g) -> tuple:
     """K11 along walks at 4 (300 steps), 2 and 6 players (80 steps each);
-    every branch must occur. Timed on the last P = 4 step; with ``parent``,
-    the parent commit's K11 on the same state, unpacked into its 25 field
-    tensors outside the timed calls, in turns. Returns (the check, the last P = 4 mask and obs
-    for K2 and K7)."""
+    every branch must occur. Timed on the last P = 4 step. Returns (the
+    check, the last P = 4 mask and obs for K2 and K7)."""
     out = {"max_abs_err": 0.0, "tol": "exact"}
     walks = {}
     for n, steps in ((4, 300), (2, 80), (6, 80)):
@@ -817,21 +859,8 @@ def check_skull(dev, g, parent: "ParentKernels | None") -> tuple:
         library_ms=None,
         # the mask, the phase machine, placements, obs and privileged obs:
         # ~2,000 integer and f32 operations per env
-        **bound(nbytes(s, a, act, u, k), 2000.0 * E),
+        **bound(nbytes(s, a, act, u, k) - pad_bytes(s), 2000.0 * E),
     )
-    if parent is not None:
-        fields = {f: t.contiguous() for f, t in s.fields().items()}
-        pk = parent.k11(4, fields, a, act, u)
-        torch.cuda.synchronize()
-        packed = SkullState.of(**pk["next"])
-        # k, this tree's step of the same state, equals the plain step (skull_walk)
-        for name, x, y in (("state", packed.ints, k.state.ints), ("obs", pk["obs"], k.obs),
-                           ("mask", pk["mask"], k.mask), ("priv", pk["priv"], k.priv),
-                           ("rewards", pk["rewards"], k.rewards), ("done", pk["done"], k.done)):
-            if not torch.equal(x, y):
-                raise AssertionError(f"skull_step_autoreset (parent): {name} differs from plain")
-        out.update(turns(lambda: env.step_autoreset(s, a, act, empty, u),
-                         lambda: parent.k11(4, fields, a, act, u)))
     return out, k.mask, k.obs
 
 
@@ -859,18 +888,9 @@ def liars_dice_walk(dev, g, steps: int) -> tuple:
         k = env.step_autoreset(state, acc, action, u_reset, u_step)
         p = autoreset_step(env, state, acc, action, u_reset, u_step)
         torch.cuda.synchronize()
-        pairs = {"state.ints": (k.state.ints, p.state.ints),
-                 "state.shaping_coef": (k.state.shaping_coef, p.state.shaping_coef)}
-        pairs.update({f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
-                      for f in ("completed", "total_rewards", "length", "outcome",
-                                "active_players")})
-        pairs.update({"acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
-                      "acc.length": (k.acc.length, p.acc.length), "rewards": (k.rewards, p.rewards),
-                      "done": (k.done, p.done), "obs": (k.obs, p.obs), "mask": (k.mask, p.mask),
-                      "priv": (k.priv, p.priv)})
-        for name, (a, b) in pairs.items():
-            if a.dtype != b.dtype or not torch.equal(a, b):
-                raise AssertionError(f"liars_dice_step_autoreset: {name} differs from plain")
+        bad = step_differences(k, p)
+        if bad:
+            raise AssertionError(f"liars_dice_step_autoreset: {bad} differ from plain")
         stepped, _, _ = env.step(state, action, u_step)
         in_range = (action >= 0) & (action < 49)
         legal = torch.gather(mask, 1, action.long().clamp(0, 48)[:, None])[:, 0] > 0
@@ -890,14 +910,16 @@ def liars_dice_walk(dev, g, steps: int) -> tuple:
     return env, last, ev
 
 
-def check_liars_dice(dev, g) -> tuple:
+def check_liars_dice(dev, g, ptxas: list, parent: "ParentKernels | None") -> tuple:
     """K13 along a walk of 300 steps at E = 4096; every event must occur.
+    With ``parent``, the parent commit's K13 on a contiguous copy of the
+    first 73 columns of the last step's state, checked and timed in turns.
     Returns (the check, the last mask and obs for K2, K6 and K7)."""
     env, (s, a, act, ur, us, k), ev = liars_dice_walk(dev, g, 300)
     missing = [name for name, n in ev.items() if n == 0]
     if missing:
         raise AssertionError(f"liars_dice_step_autoreset: no {missing} in the walk: {ev}")
-    # The kernel reads an env's reset uniforms only where the step is done
+    # The kernel needs an env's reset uniforms only where the step is done
     # and its step uniforms only where a call opens a new round: one
     # 32-byte row (8 floats, one sector) each.
     done = k.done > 0
@@ -905,14 +927,29 @@ def check_liars_dice(dev, g) -> tuple:
     uniform_rows = int(done.sum()) + int(new_round.sum())
     out = {
         "max_abs_err": 0.0, "tol": "exact", "steps": 300, "events": ev,
+        "ptxas": kernel_ptxas(ptxas, "liars_dice_step_autoreset"),
         **timed(lambda: env.step_autoreset(s, a, act, ur, us),
                 lambda: autoreset_step(env, s, a, act, ur, us)),
         "library_ms": None,
         "uniform_rows_read": {"reset": int(done.sum()), "step": int(new_round.sum())},
         # the mask, the step, the reset, obs and privileged obs: ~1,500
         # integer and f32 operations per env
-        **bound(nbytes(s, a, act, k) + uniform_rows * 8 * 4, 1500.0 * E),
+        **bound(nbytes(s, a, act, k) - pad_bytes(s) + uniform_rows * 8 * 4, 1500.0 * E),
     }
+    if parent is not None:
+        ints73 = s.ints[:, :ParentKernels.K13_W].contiguous()
+        pk = parent.k13(ints73, s.shaping_coef, a, act, ur, us)
+        torch.cuda.synchronize()
+        pairs = {"state": (pk["ints"], k.state.ints[:, :ParentKernels.K13_W]),
+                 "obs": (pk["obs"], k.obs), "mask": (pk["mask"], k.mask),
+                 "priv": (pk["priv"], k.priv), "rewards": (pk["rewards"], k.rewards),
+                 "done": (pk["done"], k.done), "outcome": (pk["outcome"], k.log.outcome),
+                 "reward_sum": (pk["acc_reward_sum"], k.acc.reward_sum)}
+        bad = [name for name, (x, y) in pairs.items() if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"liars_dice_step_autoreset (parent): {bad} differ")
+        out.update(turns(lambda: env.step_autoreset(s, a, act, ur, us),
+                         lambda: parent.k13(ints73, s.shaping_coef, a, act, ur, us)))
     return out, k.mask, k.obs
 
 
@@ -1640,7 +1677,7 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K2 and K11 are built from it "
+                    help="a checkout of the parent commit: its K4 and K13 are built from it "
                          "and timed in turns with this tree's")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
@@ -1658,16 +1695,16 @@ def main(argv: list) -> int:
          parent_ptxas=None if parent is None else parent.ptxas)
 
     g = torch.Generator(device=dev).manual_seed(0)
-    skull, skull_mask, skull_obs = check_skull(dev, g, parent)
-    liars_dice, ld_mask, ld_obs = check_liars_dice(dev, g)
+    skull, skull_mask, skull_obs = check_skull(dev, g)
+    liars_dice, ld_mask, ld_obs = check_liars_dice(dev, g, ptxas, parent)
     samples = {
-        "A2": check_sample(dev, g, 2, parent=parent),
-        "A7": check_sample(dev, g, 7, parent=parent),
-        "A33_skull": check_sample(dev, g, 33, skull_mask, parent),
-        "A49_liars_dice": check_sample(dev, g, 49, ld_mask, parent),
+        "A2": check_sample(dev, g, 2),
+        "A7": check_sample(dev, g, 7),
+        "A33_skull": check_sample(dev, g, 33, skull_mask),
+        "A49_liars_dice": check_sample(dev, g, 49, ld_mask),
         # the opponents' rows of the pool envs, [L:] of the step's mask
-        "A49_liars_dice_opponents_Ep1024": check_sample(dev, g, 49, ld_mask[E - EP_LD:], parent),
-        "A33_skull_opponents_Ep1229": check_sample(dev, g, 33, skull_mask[E - EP_SKULL:], parent),
+        "A49_liars_dice_opponents_Ep1024": check_sample(dev, g, 49, ld_mask[E - EP_LD:]),
+        "A33_skull_opponents_Ep1229": check_sample(dev, g, 33, skull_mask[E - EP_SKULL:]),
     }
     apply_c4 = check_obs_norm_apply(dev, g, connect_four_like(dev, g, E), E * T_C4)
     apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD)
@@ -1679,7 +1716,7 @@ def main(argv: list) -> int:
             **{k: samples["A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
         "gae_reverse_scan": check_gae(dev, g),
-        "connect_four_step_autoreset": check_connect_four(dev, g),
+        "connect_four_step_autoreset": check_connect_four(dev, g, ptxas, parent),
         "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g),
         "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld,
                            "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"])},

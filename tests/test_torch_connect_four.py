@@ -1,6 +1,11 @@
 """Connect Four of the port (plain path of kernel K4) against
 ``jax.vmap(autoreset_step)`` over the JAX package's ``ConnectFour`` and
-against the plain-Python rules oracle. Every output compares exactly."""
+against the plain-Python rules oracle. Every output compares exactly. The
+state is packed (``envs/base.py PackedState``): one [E, 48] i32 buffer
+with the fields as views."""
+
+import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -15,8 +20,11 @@ from burn_ppo_tpu.envs.base import autoreset_step as jax_autoreset_step  # noqa:
 from burn_ppo_tpu.envs.connect_four import ConnectFour as JaxConnectFour  # noqa: E402
 from burn_ppo_tpu.envs.connect_four import ConnectFourState as JaxState  # noqa: E402
 from burn_ppo_tpu.envs.connect_four import _has_win as _jax_has_win  # noqa: E402
+from burn_ppo_torch import kernels  # noqa: E402
 from burn_ppo_torch.envs.base import EpisodeAccumulator  # noqa: E402
 from burn_ppo_torch.envs.connect_four import ConnectFour, ConnectFourState, has_win  # noqa: E402
+from burn_ppo_torch.envs.liars_dice import LiarsDiceState  # noqa: E402
+from burn_ppo_torch.envs.skull import SkullState  # noqa: E402
 from burn_ppo_torch.ppo.rollout import RandomSource  # noqa: E402
 from tests.oracles.connect_four_oracle import ConnectFourOracle  # noqa: E402
 
@@ -45,8 +53,8 @@ def _jax_state(board, current, winner, done, step_idx):
 
 
 def _torch_state(js) -> ConnectFourState:
-    return ConnectFourState(**{f: torch.from_numpy(np.array(getattr(js, f)))
-                               for f in ("board", "current", "winner", "done", "step_idx")})
+    return ConnectFourState.of(**{f: torch.from_numpy(np.array(getattr(js, f)))
+                                  for f in ("board", "current", "winner", "done", "step_idx")})
 
 
 def _compare(j, t_out):
@@ -235,3 +243,52 @@ def test_reset_draws_nothing(E):
     assert vals.shape == (E, 0)
     s = ENV.reset(vals)
     assert s.board.shape == (E, 6, 7) and (s.winner == -1).all() and not s.done.any()
+
+
+def test_packed_state_round_trips_and_reads_its_fields_as_views():
+    """``ConnectFourState.of(**fields).fields()`` gives the fields back; the
+    views share ``ints``'s memory (``done`` reads as bool); the two pad
+    columns are zero; the state has no shaping coefficient."""
+    rng = np.random.default_rng(8)
+    E = 11
+    fields = {"board": torch.from_numpy(rng.integers(0, 3, (E, 6, 7)).astype(np.int32)),
+              "current": torch.from_numpy(rng.integers(0, 2, E).astype(np.int32)),
+              "winner": torch.from_numpy(rng.integers(-1, 3, E).astype(np.int32)),
+              "done": torch.from_numpy(rng.random(E) < 0.5),
+              "step_idx": torch.from_numpy(rng.integers(0, 42, E).astype(np.int32))}
+    state = ConnectFourState.of(**fields)
+    assert state.ints.shape == (E, 48) and state.ints.dtype == torch.int32
+    assert (ConnectFourState.PAD_COL, ConnectFourState.W) == (46, 48)
+    assert not state.ints[:, 46:].any()
+    assert [f.name for f in dataclasses.fields(state)] == ["ints"]
+    back = state.fields()
+    assert list(back) == list(fields)
+    for name, x in fields.items():
+        assert back[name].dtype == x.dtype and torch.equal(back[name], x), name
+        if name != "done":
+            lo = ConnectFourState.SLICES[name][0]
+            assert back[name].data_ptr() == state.ints[:, lo].data_ptr(), name
+    assert torch.equal(ConnectFourState.of(**back).ints, state.ints)
+    fresh = ENV.reset(torch.empty(E, 0))
+    assert not fresh.ints[:, :42].any() and (fresh.winner == -1).all() and not fresh.done.any()
+
+
+@pytest.mark.parametrize("cls", [ConnectFourState, SkullState, LiarsDiceState])
+def test_packed_rows_start_16_byte_aligned(cls):
+    """Every step kernel loads and stores whole rows 16 bytes at a time."""
+    assert cls.W * 4 % 16 == 0 and cls.W >= cls.PAD_COL
+    assert (cls.W, cls.PAD_COL) in {(48, 46), (108, 107), (76, 73)}
+
+
+@pytest.mark.parametrize("cls, src", [(ConnectFourState, "connect_four_step.cu"),
+                                      (SkullState, "skull_step.cu"),
+                                      (LiarsDiceState, "liars_dice_step.cu")])
+def test_step_kernels_stage_the_packed_rows_through_one_header(cls, src):
+    """Each step kernel's row width is its state's, and its rows come in
+    and go out through csrc/packed_rows.cuh alone."""
+    text = (kernels.CSRC / src).read_text()
+    width = re.search(r"(?:constexpr int W = |static_assert\(W == )(\d+)", text)
+    assert int(width.group(1)) == cls.W
+    assert '#include "packed_rows.cuh"' in text
+    assert "packed_rows::Rows<W, EB, NT>" in text
+    assert "int4" not in text.replace("float4", "")

@@ -2,6 +2,7 @@
 the plain path of every kernel wrapper."""
 
 import ast
+import ctypes
 import subprocess
 import sys
 import textwrap
@@ -214,3 +215,72 @@ def test_liars_dice_takes_the_plain_path_on_cpu_and_its_kernel_is_bound():
                 assert (v.data_ptr() - buf.data_ptr()) % (ALIGN * 4) == 0
                 v.add_(1)
             assert int(buf.sum()) == n * sum(c for _, c in blocks)  # no overlap
+
+
+def test_connect_four_kernel_wrapper_passes_one_state_and_two_output_buffers(monkeypatch):
+    """K4's CUDA path, run on CPU tensors with a stand-in library: the C
+    entry point takes the packed state, the accumulators, the action and
+    the i32 and f32 output buffers (8 arguments with E and the stream);
+    the wrapper makes four argument checks and an alignment check, two
+    allocations and one launch, and its outputs are views of the two
+    buffers at the offsets the kernel writes (64-element blocks)."""
+    from burn_ppo_torch.envs import connect_four as c4
+
+    assert kernels.SIGNATURES["connect_four_step_autoreset"] == [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_void_p]
+    E = 70
+    env = ConnectFour()
+    state = env.reset(torch.empty(E, 0))
+    acc = EpisodeAccumulator.zero(E, 2, torch.device("cpu"))
+    calls = {"expect": 0, "empty": 0, "launch": []}
+    expect, empty = kernels.expect, torch.empty
+
+    def counting_expect(*a, **k):
+        calls["expect"] += 1
+        return expect(*a, **k)
+
+    def counting_empty(*a, **k):
+        calls["empty"] += 1
+        return empty(*a, **k)
+
+    class Lib:
+        @staticmethod
+        def connect_four_step_autoreset(*args):
+            calls["launch"].append(args)
+            return 0
+
+    monkeypatch.setattr(kernels, "expect", counting_expect)
+    monkeypatch.setattr(kernels, "library", lambda: Lib)
+    monkeypatch.setattr(kernels, "stream", lambda dev: 0)
+    # the stand-in launch counts; the process's counter is restored after
+    monkeypatch.setattr(c4.connect_four_step_autoreset, "launches",
+                        c4.connect_four_step_autoreset.launches)
+    before = c4.connect_four_step_autoreset.launches
+    action = torch.zeros(E, dtype=torch.int32)
+    monkeypatch.setattr(torch, "empty", counting_empty)
+    out = c4._launch(state, acc, action)
+    monkeypatch.setattr(torch, "empty", empty)
+    assert calls["expect"] == 4 and calls["empty"] == 2
+    assert c4.connect_four_step_autoreset.launches == before + 1
+    (args,) = calls["launch"]
+    assert len(args) == 8 and args[:4] == (state.ints.data_ptr(), acc.reward_sum.data_ptr(),
+                                           acc.length.data_ptr(), action.data_ptr())
+    assert args[6:] == (E, 0)
+    i32_base, f32_base = args[4], args[5]
+    blk = lambda cols: -(-E * cols // 64) * 64 * 4  # noqa: E731
+    assert out.state.ints.shape == (E, c4.W) and out.state.ints.data_ptr() == i32_base
+    at = i32_base
+    for t, cols in ((out.state.ints, c4.W), (out.acc.length, 1), (out.log.length, 1),
+                    (out.log.outcome, 2), (out.log.active_players, 1)):
+        assert t.data_ptr() == at and t.numel() == E * cols
+        at += blk(cols)
+    at = f32_base
+    for t, cols in ((out.acc.reward_sum, 2), (out.rewards, 2), (out.done, 1),
+                    (out.log.total_rewards, 2), (out.obs, c4.OBS_DIM), (out.mask, c4.COLS)):
+        assert t.data_ptr() == at and t.numel() == E * cols
+        at += blk(cols)
+    assert out.log.completed is out.done and out.priv is None
+    assert out.obs.shape == (E, c4.OBS_DIM) and out.mask.shape == (E, c4.COLS)
+    with pytest.raises(ValueError, match="16-byte"):
+        shifted = torch.zeros(E * c4.W + 1, dtype=torch.int32)[1:].view(E, c4.W)
+        c4._launch(c4.ConnectFourState(shifted), acc, action)

@@ -11,7 +11,11 @@ import torch
 
 from burn_ppo_torch.envs.base import EpisodeAccumulator, autoreset_step
 from burn_ppo_torch.envs.cartpole import CartPole, CartPoleState, cartpole_step_autoreset
-from burn_ppo_torch.envs.connect_four import ConnectFour, connect_four_step_autoreset
+from burn_ppo_torch.envs.connect_four import (
+    ConnectFour,
+    ConnectFourState,
+    connect_four_step_autoreset,
+)
 from burn_ppo_torch.ops.categorical import (
     TINY,
     apply_action_mask,
@@ -231,10 +235,29 @@ def test_wrappers_check_arguments(dev):
         compute_gae(z.T, z.T, z.T, torch.zeros(3, device=dev), 0.99, 0.95)
 
 
-@pytest.mark.parametrize("E", [1, 257, 4096])
+def assert_steps_equal(k, p):
+    """Every output of two auto-reset steps equal, bit for bit, dtypes too
+    (the packed state whole, and its shaping coefficient where it has one)."""
+    pairs = [(k.state.ints, p.state.ints)]
+    if hasattr(p.state, "shaping_coef"):
+        pairs.append((k.state.shaping_coef, p.state.shaping_coef))
+    pairs += [(getattr(k.log, f), getattr(p.log, f))
+              for f in ("completed", "total_rewards", "length", "outcome", "active_players")]
+    pairs += [(k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
+              (k.rewards, p.rewards), (k.done, p.done), (k.obs, p.obs), (k.mask, p.mask)]
+    if p.priv is not None:
+        pairs.append((k.priv, p.priv))
+    for a, b in pairs:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    pad = type(p.state).PAD_COL
+    assert not k.state.ints[:, pad:].any()  # the pad columns read zero
+
+
+@pytest.mark.parametrize("E", [1, 3, 5, 257, 4096])
 def test_connect_four_kernel_matches_plain_exactly(dev, E):
     """Random play for 60 steps: mostly legal moves, some full columns and
-    out-of-range actions, some states already done; every output equal."""
+    out-of-range actions, some states already done; every output equal.
+    E = 1, 3, 5 and 257 end on a block with fewer envs than a full one."""
     g = torch.Generator(device=dev).manual_seed(E)
     env = ConnectFour()
     empty = torch.empty(E, 0, device=dev)
@@ -248,27 +271,74 @@ def test_connect_four_kernel_matches_plain_exactly(dev, E):
         action = action.to(torch.int32)
         if t % 9 == 4:
             done = torch.rand(E, generator=g, device=dev) < 0.1
-            state.done = done
-            state.winner = torch.where(done, torch.randint(-1, 3, (E,), generator=g, device=dev,
-                                                           dtype=torch.int32), state.winner)
+            winner = torch.where(done, torch.randint(-1, 3, (E,), generator=g, device=dev,
+                                                     dtype=torch.int32), state.winner)
+            state = ConnectFourState.of(**{**state.fields(), "done": done, "winner": winner})
         before = connect_four_step_autoreset.launches
         k = env.step_autoreset(state, acc, action, empty)
         torch.cuda.synchronize()
         assert connect_four_step_autoreset.launches == before + 1
         p = autoreset_step(env, state, acc, action, empty)
-        for f in ("board", "current", "winner", "done", "step_idx"):
-            a, b = getattr(k.state, f), getattr(p.state, f)
-            assert a.dtype == b.dtype and torch.equal(a, b), f
-        for f in ("completed", "total_rewards", "length", "outcome", "active_players"):
-            a, b = getattr(k.log, f), getattr(p.log, f)
-            assert a.dtype == b.dtype and torch.equal(a, b), f
-        for a, b in ((k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
-                     (k.rewards, p.rewards), (k.done, p.done), (k.obs, p.obs),
-                     (k.mask, p.mask)):
-            assert torch.equal(a, b)
+        assert_steps_equal(k, p)
         seen_done += int(p.done.sum())
         state, acc = p.state, p.acc
     assert seen_done > 0
+
+
+def connect_four_branch_rows(dev):
+    """(board, current, winner, done, action) rows for the branches a random
+    playout rarely reaches: a win that fills the board, a full-board draw,
+    out-of-range actions -2, 7 and 9, a full column, and a done input with
+    its winner carried."""
+    win_fill = [[1, 2, 1, 2, 1, 2, 0],
+                [1, 2, 1, 2, 1, 2, 1],
+                [2, 1, 2, 1, 2, 1, 1],
+                [2, 1, 2, 1, 2, 1, 1],
+                [1, 2, 1, 2, 1, 2, 2],
+                [1, 2, 1, 2, 1, 2, 2]]
+    draw = [row[:] for row in win_fill]
+    for r, v in ((1, 2), (2, 1), (3, 2)):
+        draw[r][6] = v
+    col3 = [[0, 0, 0, 1 + (5 - r) % 2, 0, 0, 0] for r in range(6)]
+    mid = [[0] * 7 for _ in range(4)] + [[0, 0, 2, 2, 0, 0, 0], [1, 1, 1, 2, 0, 0, 0]]
+    rows = [(win_fill, 0, -1, False, 6), (draw, 0, -1, False, 6),
+            (mid, 0, -1, False, -2), (mid, 0, -1, False, 7), (mid, 0, -1, False, 9),
+            (col3, 0, -1, False, 3), (mid, 1, 1, True, 4), (mid, 0, 2, True, 4),
+            (mid, 0, -1, False, 4)]
+    board = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+    i32 = lambda i: torch.tensor([r[i] for r in rows], dtype=torch.int32, device=dev)  # noqa: E731
+    state = ConnectFourState.of(board=board, current=i32(1), winner=i32(2),
+                                done=torch.tensor([r[3] for r in rows], device=dev),
+                                step_idx=torch.arange(len(rows), dtype=torch.int32, device=dev))
+    return state, i32(4)
+
+
+def test_connect_four_kernel_takes_every_branch_exactly(dev):
+    """The branch rows, each alone and all together, against the plain
+    step: the mover wins the move that fills the board ([1, 2]), the
+    full board without a four draws ([1, 1]), invalid moves end with
+    [0, 0], and a done input carries its winner (1: [2, 1]; 2 on a board
+    that is not full: [0, 0])."""
+    state, action = connect_four_branch_rows(dev)
+    E = action.shape[0]
+    env = ConnectFour()
+    g = torch.Generator(device=dev).manual_seed(5)
+    acc = EpisodeAccumulator(torch.randint(-2, 3, (E, 2), generator=g, device=dev).float(),
+                             torch.arange(E, dtype=torch.int32, device=dev))
+    empty = torch.empty(E, 0, device=dev)
+    k = env.step_autoreset(state, acc, action, empty)
+    p = autoreset_step(env, state, acc, action, empty)
+    torch.cuda.synchronize()
+    assert_steps_equal(k, p)
+    assert k.log.outcome.tolist() == [[1, 2], [1, 1], [0, 0], [0, 0], [0, 0], [0, 0], [2, 1],
+                                      [0, 0], [0, 0]]
+    assert k.rewards[0].tolist() == [1.0, -1.0] and not k.rewards[1:].any()
+    assert k.done.tolist() == [1.0] * 8 + [0.0]
+    for i in range(E):
+        one = ConnectFourState(state.ints[i:i + 1].clone())
+        sub = EpisodeAccumulator(acc.reward_sum[i:i + 1].clone(), acc.length[i:i + 1].clone())
+        k1 = env.step_autoreset(one, sub, action[i:i + 1].clone(), empty[:1])
+        assert_steps_equal(k1, autoreset_step(env, one, sub, action[i:i + 1], empty[:1]))
 
 
 def test_sample_kernel_matches_plain_with_connect_four_masks(dev):
@@ -607,7 +677,7 @@ def test_return_norm_finalize_kernel_leaves_the_state_without_valid_samples(dev)
         assert torch.equal(getattr(new, f), getattr(state, f))
 
 
-@pytest.mark.parametrize("E", [1, 257, 4096])
+@pytest.mark.parametrize("E", [1, 3, 5, 257, 4096])
 def test_liars_dice_kernel_matches_plain_exactly(dev, E):
     """K13 against the plain step along a walk of 200 steps, every output
     equal bit for bit; unmasked and out-of-range actions, finished games fed
@@ -629,14 +699,7 @@ def test_liars_dice_kernel_matches_plain_exactly(dev, E):
         torch.cuda.synchronize()
         assert liars_dice_step_autoreset.launches == before + 1
         p = autoreset_step(env, state, acc, action, u_reset, u_step)
-        pairs = [(k.state.ints, p.state.ints), (k.state.shaping_coef, p.state.shaping_coef)]
-        pairs += [(getattr(k.log, f), getattr(p.log, f))
-                  for f in ("completed", "total_rewards", "length", "outcome", "active_players")]
-        pairs += [(k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
-                  (k.rewards, p.rewards), (k.done, p.done), (k.obs, p.obs), (k.mask, p.mask),
-                  (k.priv, p.priv)]
-        for a, b in pairs:
-            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert_steps_equal(k, p)
         dones += int(p.done.sum())
         state, acc = p.state, p.acc
     assert dones > 0

@@ -119,7 +119,7 @@ def random_walk(E, T, seed):
     acc = EpisodeAccumulator.zero(E, P, torch.device("cpu"))
     j_acc = JaxAcc(reward_sum=jnp.zeros((E, P)), length=jnp.zeros(E, jnp.int32))
     seen = dict.fromkeys(("calls", "eliminations", "game_ends", "invalid", "finished_in",
-                          "shaped", "hist_full", "out_of_range"), 0)
+                          "shaped", "hist_full", "out_of_range", "rows_with_zero_pad"), 0)
     for t in range(T):
         over = ts.game_over | (torch.rand(E, generator=g) < 0.003)
         ts = LiarsDiceState.of(ts.shaping_coef, **{**ts.fields(), "game_over": over})
@@ -143,6 +143,8 @@ def random_walk(E, T, seed):
         seen["shaped"] += int(((np.abs(out.rewards.numpy()).sum(1) > 0) & ~done).sum())
         seen["hist_full"] += int((ts.hist_len.numpy() == 16).sum())
         seen["eliminations"] += int((out.state.num_eliminated > ts.num_eliminated).sum())
+        seen["rows_with_zero_pad"] += int((out.state.ints[:, LiarsDiceState.PAD_COL:] == 0)
+                                          .all(1).sum())
         js, j_acc = j[0], j[1]
         ts, acc = out.state, out.acc
     return seen
@@ -153,6 +155,17 @@ def test_random_walks_match_jax_exactly(seed):
     seen = random_walk(E=48, T=120, seed=seed)
     for k, v in seen.items():
         assert v > 0, (k, seen)
+
+
+def test_a_walk_through_the_padded_state_matches_jax_and_keeps_the_pad_at_zero():
+    """The state is 73 columns of LAYOUT and 3 zero pad columns (rows of
+    304 bytes, 16-byte aligned for K13); the plain step, reset and ``of``
+    leave the pad at zero at every step of a walk that matches JAX."""
+    assert (LiarsDiceState.PAD_COL, W) == (73, 76)
+    E, T = 16, 60
+    seen = random_walk(E=E, T=T, seed=2)
+    assert seen["rows_with_zero_pad"] == E * T
+    assert seen["calls"] > 0 and seen["game_ends"] > 0
 
 
 def test_oracle_agrees_on_whole_games():
@@ -342,7 +355,7 @@ def test_state_packs_every_field_and_the_draws_have_their_shapes():
     src = Counting()
     s = env.reset(env.draw_reset(src, 5))
     assert env.draw_step(src, 5).shape == (5, 8) and src.calls == [(5, 8), (5, 8)]
-    assert s.ints.shape == (5, W) and W == 73
+    assert s.ints.shape == (5, W) and W == 76
     assert (s.dice == 6).all() and (s.last_bidder == -1).all() and not s.game_over.any()
     assert faces(torch.tensor([[0.0, 1 / 6 - 1e-7, 1 / 6, 0.5, 5 / 6, 0.9999999, 0.25, 0.75]])).tolist() \
         == [[[1, 1], [2, 4], [6, 6], [2, 5]]]

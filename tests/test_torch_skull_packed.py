@@ -208,8 +208,8 @@ def test_the_kernel_wrapper_checks_few_arguments_and_allocates_two_buffers(monke
 def test_both_packed_states_share_one_layout(cls):
     """envs/base.py PackedState gives each state its columns, views that
     share ``ints``'s memory, and ``of`` / ``fields`` (Skull's padded to 108
-    columns, Liar's Dice's unpadded at 73)."""
-    assert (cls.PAD_COL, cls.W) == ((107, 108) if cls is sk.SkullState else (73, 73))
+    columns, Liar's Dice's 73 padded to 76)."""
+    assert (cls.PAD_COL, cls.W) == ((107, 108) if cls is sk.SkullState else (73, 76))
     rng = np.random.default_rng(7)
     E = 9
     fields = {name: torch.from_numpy(rng.random((E, *shape)) < 0.5) if name in cls.BOOL_FIELDS
