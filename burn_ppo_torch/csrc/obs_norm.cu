@@ -8,17 +8,25 @@
 // obs_norm_apply_plain and obs_norm_update_plain.
 //
 // What bounds them on an H100: bytes. Apply reads and writes the [N, D]
-// obs once (per rollout step [4096, 86], 2.8 MB; per update [262144, 86],
-// 180 MB, ~55 us of HBM time). Update reads the [N, D] batch once (90 MB
-// at [262144, 86]). The eager versions are ~10 kernels each, and the
-// update makes two passes over the batch (mean, then the squares around
-// it).
+// obs once (per rollout step [4096, 270], 4.4 MB; on the update batch
+// [524288, 270], 1.13 GB, ~0.34 ms of HBM time). Update reads the [N, D]
+// batch once (566 MB at [524288, 270]). The eager versions are ~10
+// kernels each, and the update makes two passes over the batch (mean,
+// then the squares around it).
 //
-// apply: one thread per element. It reads ``count`` from device memory, so
-// the rollout never waits on the device; while count < 2 it is the
-// identity. std = max(sqrt(m2 / max(count, 1)), 1e-8), then
-// clip((x - mean) / std, -clip, clip), with IEEE division and sqrt (no
-// --use_fast_math), the plain version's operation order.
+// apply: a grid sized to the card (at most 6 blocks an SM, all resident)
+// strides over the flat buffer 16 bytes a thread (float4 loads where the
+// input shares the output's alignment, four scalar loads where it does
+// not; a scalar head up to the output's 16-byte boundary and a scalar
+// tail). Each block reads ``count`` once (the rollout never waits on the
+// device; while count < 2 it is the identity) and puts every column's
+// mean and std = max(sqrt(m2 / max(count, 1)), 1e-8) into shared memory
+// once, the first three columns again after the last, so that a float4's
+// four columns d..d+3 need no wrap. A thread's column advances by a
+// constant each stride: no 64-bit modulo in the loop. Then
+// clip((x - mean) / std, -clip, clip) with IEEE division and sqrt (no
+// --use_fast_math): the plain version's operation order, and the same
+// bits as the one-thread-per-element kernel it replaced.
 //
 // update, two launches:
 //   1. every thread keeps one column (its index mod D) and strides down the
@@ -34,28 +42,90 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
+constexpr int APPLY_THREADS = 256;
+constexpr int APPLY_BLOCKS_PER_SM = 6;
+constexpr int MAX_APPLY_DIM = 6000;  // 2 x (D + 3) floats of shared memory, under 48 KB
 constexpr int MERGE_THREADS = 256;
 
-__global__ void obs_norm_apply_kernel(const float* __restrict__ x,
-                                      const float* __restrict__ mean,
-                                      const float* __restrict__ m2,
-                                      const float* __restrict__ count,
-                                      float* __restrict__ out, long total,
-                                      int D, float clip) {
-  const long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
-  if (i >= total) return;
-  const float c = count[0];
-  const float v = x[i];
-  if (c < 2.0f) {
-    out[i] = v;
-    return;
-  }
+__device__ __forceinline__ float column_std(float m2, float c) {
+  return fmaxf(sqrtf(m2 / fmaxf(c, 1.0f)), 1e-8f);
+}
+
+// NaN passes, as clamp lets it.
+__device__ __forceinline__ float normalize(float v, float mean, float std, float clip) {
+  const float z = (v - mean) / std;
+  return z < -clip ? -clip : (z > clip ? clip : z);
+}
+
+// One element by index (the head and the tail).
+__device__ __forceinline__ void apply_one(const float* x, float* out, long i, int D,
+                                          const float* mean_s, const float* std_s,
+                                          bool identity, float clip) {
   const int d = static_cast<int>(i % D);
-  const float std = fmaxf(sqrtf(m2[d] / fmaxf(c, 1.0f)), 1e-8f);
-  const float z = (v - mean[d]) / std;
-  out[i] = z < -clip ? -clip : (z > clip ? clip : z);  // NaN passes, as clamp
+  out[i] = identity ? x[i] : normalize(x[i], mean_s[d], std_s[d], clip);
+}
+
+template <bool X_VEC>
+__device__ __forceinline__ float4 load4(const float* p) {
+  if constexpr (X_VEC) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// X_VEC: x + head is 16-byte aligned as out + head is, so x loads as
+// float4 too. Shared memory: mean and std of columns 0..D-1, 0, 1, 2. A
+// thread's first float4 is loaded before the column table is built, so
+// that its latency and the state's overlap.
+template <bool X_VEC>
+__global__ void __launch_bounds__(APPLY_THREADS, APPLY_BLOCKS_PER_SM) obs_norm_apply_kernel(
+    const float* __restrict__ x, const float* __restrict__ mean, const float* __restrict__ m2,
+    const float* __restrict__ count, float* __restrict__ out, long total, int D, int head,
+    float clip) {
+  extern __shared__ float smem[];
+  float* mean_s = smem;
+  float* std_s = smem + D + 3;
+  const long nvec = (total - head) / 4;
+  const long stride = static_cast<long>(gridDim.x) * APPLY_THREADS;
+  long v = blockIdx.x * static_cast<long>(APPLY_THREADS) + threadIdx.x;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (v < nvec) a = load4<X_VEC>(x + head + 4 * v);
+  const float c = count[0];
+  const bool identity = c < 2.0f;
+  for (int j = threadIdx.x; j < D + 3; j += APPLY_THREADS) {
+    const int d = j % D;
+    mean_s[j] = mean[d];
+    std_s[j] = column_std(m2[d], c);
+  }
+  __syncthreads();
+  const long tail_at = head + 4 * nvec;
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const long i = threadIdx.x < 4 ? threadIdx.x : tail_at + threadIdx.x - 4;
+    if ((threadIdx.x < 4 && i < head) || (threadIdx.x >= 4 && i < total))
+      apply_one(x, out, i, D, mean_s, std_s, identity, clip);
+  }
+  if (v >= nvec) return;
+  const int step = static_cast<int>((4 * stride) % D);
+  int d = static_cast<int>((head + 4 * v) % D);
+  while (true) {
+    if (!identity) {
+      a.x = normalize(a.x, mean_s[d], std_s[d], clip);
+      a.y = normalize(a.y, mean_s[d + 1], std_s[d + 1], clip);
+      a.z = normalize(a.z, mean_s[d + 2], std_s[d + 2], clip);
+      a.w = normalize(a.w, mean_s[d + 3], std_s[d + 3], clip);
+    }
+    *reinterpret_cast<float4*>(out + head + 4 * v) = a;
+    v += stride;
+    if (v >= nvec) break;
+    a = load4<X_VEC>(x + head + 4 * v);
+    d += step;
+    if (d >= D) d -= D;
+  }
 }
 
 __global__ void obs_norm_partial_kernel(const float* __restrict__ x, long N,
@@ -119,20 +189,41 @@ __global__ void obs_norm_merge_kernel(
   if (d == 0) count_out[0] = total;
 }
 
+int multiprocessors() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms[dev];
+}
+
 }  // namespace
 
+// x: any 4-byte aligned start; D at most 6000.
 extern "C" int obs_norm_apply(const void* x, const void* mean, const void* m2,
                               const void* count, void* out, long N, int D,
                               float clip, void* stream) {
   const long total = N * D;
   if (total <= 0) return 0;
-  const int threads = 256;
-  const long blocks = (total + threads - 1) / threads;
-  obs_norm_apply_kernel<<<blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  if (D > MAX_APPLY_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = multiprocessors();
+  if (sms == 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const auto xa = reinterpret_cast<std::uintptr_t>(x), oa = reinterpret_cast<std::uintptr_t>(out);
+  long head = static_cast<long>(((16 - oa % 16) % 16) / 4);
+  if (head > total) head = total;
+  const long nvec = (total - head) / 4;
+  long blocks = (nvec + APPLY_THREADS - 1) / APPLY_THREADS;
+  if (blocks > static_cast<long>(sms) * APPLY_BLOCKS_PER_SM) blocks = sms * APPLY_BLOCKS_PER_SM;
+  if (blocks < 1) blocks = 1;
+  const size_t smem = 2 * (D + 3) * sizeof(float);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = (xa - oa) % 16 == 0 ? obs_norm_apply_kernel<true> : obs_norm_apply_kernel<false>;
+  kernel<<<static_cast<int>(blocks), APPLY_THREADS, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(mean),
       static_cast<const float*>(m2), static_cast<const float*>(count),
-      static_cast<float*>(out), total, D, clip);
+      static_cast<float*>(out), total, D, static_cast<int>(head), clip);
   return static_cast<int>(cudaGetLastError());
 }
 

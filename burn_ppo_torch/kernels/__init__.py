@@ -80,9 +80,10 @@ SIGNATURES = {
     # scratch (f64 [ppo_loss_scratch_len()]), out, dlogits, dvalues, stream
     "ppo_loss_forward": [_VP] * 9 + [_I] * 2 + [_F] * 3 + [_I] + [_F] * 2 + [_VP] * 5,
     "ppo_loss_scratch_len": [],
-    # params, grads, mu, nu, partial, n, G, lr, max_norm, eps, b1, b2,
-    # 1 - b1, 1 - b2, bc1, bc2, stream
+    # params, grads, mu, nu, partial, n, partial's length, lr, max_norm,
+    # eps, b1, b2, 1 - b1, 1 - b2, bc1, bc2, stream
     "clip_adam": [_VP] * 5 + [_L, _I] + [_F] * 9 + [_VP],
+    "clip_adam_scratch_len": [],
     # completed, totals, length, outcome, T, E, L, P, G, sums, extrema, out, stream
     "episode_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 4,
     # packed state, shaping, reward_sum, length, action, u, the i32 and the
@@ -217,8 +218,9 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def expect_rows16(t: torch.Tensor, name: str) -> None:
-    """A packed env state that a step kernel loads 16 bytes at a time
-    (``W * 4`` a multiple of 16) must start 16-byte aligned."""
+    """A buffer that a kernel loads 16 bytes at a time (a packed env
+    state whose ``W * 4`` is a multiple of 16, K9's flat buffers) must
+    start 16-byte aligned."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel loads rows 16 bytes at a time; "
                          "the buffer must start 16-byte aligned")

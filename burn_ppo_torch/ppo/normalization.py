@@ -88,7 +88,9 @@ def _expect_state(state: ObsNormState, D: int) -> None:
 
 def obs_norm_apply(state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
     """Normalize obs [..., D] with the running stats; identity until
-    count >= 2. The count stays on the device."""
+    count >= 2. The count stays on the device. The kernel takes any
+    4-byte aligned start; it refuses a D past its shared-memory column
+    table (``csrc/obs_norm.cu`` MAX_APPLY_DIM)."""
     if kernels.on_cpu(obs, state.mean, state.m2, state.count):
         return obs_norm_apply_plain(state, obs, clip)
     D = obs.shape[-1]

@@ -102,7 +102,9 @@ class AdamState:
     gradient buffers (``flat_parameters``, made once here). The moments
     are flat buffers of the same layout; ``mu`` and ``nu`` view them by
     parameter name. The count is a host integer: it changes only where
-    the host decides that a minibatch runs."""
+    the host decides that a minibatch runs. ``partial`` is K9's scratch
+    on a CUDA device (``clip_adam_scratch``), made once here so that no
+    step allocates; None on the CPU."""
 
     count: int
     flat_params: torch.Tensor
@@ -111,13 +113,27 @@ class AdamState:
     flat_nu: torch.Tensor
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
+    partial: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(network: torch.nn.Module) -> "AdamState":
         flat, grads = flat_parameters(network)
         mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
         return AdamState(count=0, flat_params=flat, flat_grads=grads, flat_mu=mu, flat_nu=nu,
-                         mu=_named_views(network, mu), nu=_named_views(network, nu))
+                         mu=_named_views(network, mu), nu=_named_views(network, nu),
+                         partial=clip_adam_scratch(flat.device))
+
+
+def clip_adam_scratch(device: torch.device) -> Optional[torch.Tensor]:
+    """K9's f64 scratch on a CUDA ``device``, one partial per block of the
+    largest grid it launches there; None on the CPU."""
+    if device.type == "cpu":
+        return None
+    with torch.cuda.device(device):
+        n = kernels.library().clip_adam_scratch_len()
+    if n < 1:
+        raise RuntimeError(f"clip_adam: no resident grid on {device}")
+    return torch.empty(n, dtype=torch.float64, device=device)
 
 
 def clip_adam_plain(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor,
@@ -133,23 +149,29 @@ def clip_adam_plain(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor,
 
 
 def clip_adam(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-              *, lr: float, max_grad_norm: float, eps: float, bc1: float, bc2: float) -> None:
+              *, lr: float, max_grad_norm: float, eps: float, bc1: float, bc2: float,
+              partial: Optional[torch.Tensor] = None) -> None:
     """Global-norm clip + Adam + ``p -= lr * u`` over flat buffers, in
     place. CPU tensors take the plain version; CUDA tensors launch K9
-    (the norm stays on the device), or raise."""
+    (one launch; the norm stays on the device) with ``partial`` as its
+    scratch (``clip_adam_scratch``; the four buffers 16-byte aligned), or
+    raise. The launch allocates nothing, so a CUDA graph can capture it."""
     if kernels.on_cpu(params, grads, mu, nu):
         return clip_adam_plain(params, grads, mu, nu, lr=lr, max_grad_norm=max_grad_norm,
                                eps=eps, bc1=bc1, bc2=bc2)
     n = params.numel()
     for t, name in ((params, "params"), (grads, "grads"), (mu, "mu"), (nu, "nu")):
         kernels.expect(t, name, torch.float32, (n,))
-    G = max(1, min(264, -(-n // 1024)))
-    partial = torch.empty(G, dtype=torch.float64, device=params.device)
+        kernels.expect_rows16(t, name)
+    if partial is None or partial.device != params.device:
+        raise ValueError("clip_adam: CUDA buffers need K9's scratch on their device "
+                         "(clip_adam_scratch)")
+    kernels.expect(partial, "partial", torch.float64, (partial.numel(),))
     p = kernels.ptr
     err = kernels.library().clip_adam(
-        p(params), p(grads), p(mu), p(nu), p(partial), n, G, float(lr), float(max_grad_norm),
-        float(eps), ADAM_B1, ADAM_B2, 1 - ADAM_B1, 1 - ADAM_B2, float(bc1), float(bc2),
-        kernels.stream(params.device),
+        p(params), p(grads), p(mu), p(nu), p(partial), n, partial.numel(), float(lr),
+        float(max_grad_norm), float(eps), ADAM_B1, ADAM_B2, 1 - ADAM_B1, 1 - ADAM_B2,
+        float(bc1), float(bc2), kernels.stream(params.device),
     )
     kernels.check(err, "clip_adam")
     clip_adam.launches += 1
@@ -165,7 +187,8 @@ def clip_and_adam_step(opt: AdamState, lr: float, cfg: PPOUpdateConfig) -> None:
     with torch.no_grad():
         clip_adam(opt.flat_params, opt.flat_grads, opt.flat_mu, opt.flat_nu,
                   lr=lr, max_grad_norm=cfg.max_grad_norm, eps=cfg.adam_epsilon,
-                  bc1=1.0 - ADAM_B1 ** opt.count, bc2=1.0 - ADAM_B2 ** opt.count)
+                  bc1=1.0 - ADAM_B1 ** opt.count, bc2=1.0 - ADAM_B2 ** opt.count,
+                  partial=opt.partial)
 
 
 def _wmean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K4 and K13 in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K6 and K9 in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -15,7 +15,9 @@ exits non-zero without the final result line:
      exact, wins in all four directions, draws, invalid, out-of-range
      and already-done moves each counted and required), K5
      multiplayer GAE ([64, 4096, 2] and P = 4), K6 obs-norm apply
-     ([4096, 86], count 0, 1 and large) and update ([262144, 86],
+     ([4096, 86], count 0, 1 and large), its apply on the update batches
+     [T x E, D] ([524288, 270], [262144, 86], [524288, 5]; also with L2
+     flushed before each call), and its update ([262144, 86],
      [524288, 5]), K7 slot-grouped opponent forward (Ep = 1024 rows, MLP
      86 -> 512 -> 512 -> 7, K = 8 and K = 3, relu and tanh; and the Skull
      pool block, Ep = 1229, K = 8, 135 -> 256 -> 256 -> 256 -> 33; each of
@@ -24,7 +26,8 @@ exits non-zero without the final result line:
      and [131072, 2] minibatches, valid zeros, value clip on and off, two
      calls bit for bit), K9 clip + Adam (CartPole's 4,739,
      Connect Four's 311,304 and Skull CTDE 512x2's 784,418 parameters,
-     below and above the max norm), K10 episode statistics ([64, 4096]
+     below and above the max norm, two runs bit for bit), K10 episode
+     statistics ([64, 4096]
      with the learner block [:, :3072], [128, 4096], and four players with
      tied places [:, :2867]), K11 Skull step (E = 4096, the packed state,
      exact, along random-legal walks at 4, 2 and 6 players with invalid
@@ -46,14 +49,16 @@ exits non-zero without the final result line:
      P = 4;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
-     K4 and K13 print their ptxas lines (registers, stack frame, spills);
-     with --parent, the parent commit's K4 (its 8 field tensors unpacked
-     from the packed state outside the timed calls) and K13 (a contiguous
-     copy of the first 73 columns), built from DIR, checked against this
-     tree's outputs and timed in turns with this tree's (parent, new, new,
-     parent);
+     K4, K6, K9 and K13 print their ptxas lines (registers, stack frame,
+     spills); with --parent, the parent commit's K6 apply (at [4096, 86],
+     [4096, 270] and the update batches, there also with L2 flushed) and
+     K9 (at the five parameter counts), built from DIR,
+     checked against this tree's outputs and timed in turns with this
+     tree's (parent, new, new, parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
+  2b. one K9 step and one K6 apply captured into a CUDA graph: each
+     replay equal bit for bit to the eager call;
   3. the CartPole bench-shape train path through the CLI entry point
      (MLP 64x2, 4096 envs x 128 steps, obs norm on, 5 updates);
   3b. Connect Four self-play through the CLI (configs/connect_four.toml,
@@ -119,14 +124,8 @@ sys.path.insert(0, str(ROOT))
 
 from burn_ppo_torch import kernels  # noqa: E402
 from burn_ppo_torch.device import resolve_device  # noqa: E402
-from burn_ppo_torch.envs.base import (  # noqa: E402
-    EpisodeAccumulator,
-    arena_size,
-    autoreset_step,
-    carve_arena,
-)
+from burn_ppo_torch.envs.base import EpisodeAccumulator, autoreset_step  # noqa: E402
 from burn_ppo_torch.envs.cartpole import CartPole, CartPoleState, cartpole_step_autoreset  # noqa: E402
-from burn_ppo_torch.envs.connect_four import OBS_DIM as C4_OBS  # noqa: E402
 from burn_ppo_torch.envs.connect_four import (  # noqa: E402
     COLS,
     ROWS,
@@ -135,8 +134,6 @@ from burn_ppo_torch.envs.connect_four import (  # noqa: E402
     connect_four_step_autoreset,
     has_win,
 )
-from burn_ppo_torch.envs.liars_dice import F32_OUT as LD_F32_OUT  # noqa: E402
-from burn_ppo_torch.envs.liars_dice import I32_OUT as LD_I32_OUT  # noqa: E402
 from burn_ppo_torch.envs.liars_dice import (  # noqa: E402
     LiarsDice,
     LiarsDiceState,
@@ -192,6 +189,7 @@ from burn_ppo_torch.ppo.update import (  # noqa: E402
     PPOUpdateConfig,
     clip_adam,
     clip_adam_plain,
+    clip_adam_scratch,
     ppo_loss,
     ppo_loss_forward,
     ppo_loss_plain,
@@ -414,9 +412,9 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             spill = ""
-            k = re.search(r"\d+([A-Za-z_]+kernel)((?:I(?:Li\d+E)+E)?)", m.group(1))
+            k = re.search(r"\d+([A-Za-z_]+kernel)((?:I(?:L[ib]\d+E)+E)?)", m.group(1))
             name = m.group(1) if k is None else k.group(1) + (
-                "<{}>".format(", ".join(re.findall(r"Li(\d+)E", k.group(2)))) if k.group(2) else "")
+                "<{}>".format(", ".join(re.findall(r"L[ib](\d+)E", k.group(2)))) if k.group(2) else "")
         elif "spill" in ln and name is not None:
             spill = ln.strip()
         elif "Used" in ln and name is not None:
@@ -425,89 +423,65 @@ def ptxas_summary(text: str) -> list:
     return out
 
 
-def turns(new, parent) -> dict:
-    """The new kernel and the parent commit's, in turns (parent, new, new,
-    parent): device and events ms of each reading."""
-    out: dict = {"device_ms_turns": [], "ms_turns": [], "parent_device_ms": [], "parent_ms": []}
-    for who, fn in (("parent_", parent), ("", new), ("", new), ("parent_", parent)):
-        out[f"{who}device_ms" if who else "device_ms_turns"].append(device_ms(fn)[0])
-        out[f"{who}ms" if who else "ms_turns"].append(time_ms(fn))
+def turns(new, other, who: str = "parent") -> dict:
+    """The new kernel and another version (the parent commit's, unless
+    ``who`` names another), in turns (other, new, new, other): device and
+    events ms of each reading."""
+    out: dict = {"device_ms_turns": [], "ms_turns": [], f"{who}_device_ms": [], f"{who}_ms": []}
+    for key, fn in ((f"{who}_", other), ("", new), ("", new), (f"{who}_", other)):
+        out[f"{key}device_ms" if key else "device_ms_turns"].append(device_ms(fn)[0])
+        out[f"{key}ms" if key else "ms_turns"].append(time_ms(fn))
     return out
 
 
 class ParentKernels:
-    """The parent commit's K4 and K13, built from a checkout of it into a
-    library of their own and called as its wrappers called them (the
-    argument checks and the allocations; K4 with its 8 field tensors, K13
-    with its unpadded [E, 73] state and its own output arenas), so that
-    they are timed beside the new kernels in the same process."""
-
-    K13_W = 73  # the parent's packed Liar's Dice row, unpadded
+    """The parent commit's K6 apply and K9, built from a checkout of it
+    into a library of their own and called as its wrappers called them
+    (the argument checks and the allocations; K9 with its per-call
+    partials), so that they are timed beside the new kernels in the same
+    process."""
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
-        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k4_k13.so"
+        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k6_k9.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-               str(csrc / "connect_four_step.cu"), str(csrc / "liars_dice_step.cu")]
+               str(csrc / "obs_norm.cu"), str(csrc / "clip_adam.cu")]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
         self.ptxas = ptxas_summary(res.stdout + res.stderr)
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp, i, l, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
-        for name, argtypes in (("connect_four_step_autoreset", [vp] * 23 + [i, vp]),
-                               ("liars_dice_step_autoreset", [vp] * 9 + [i, vp])):
+        for name, argtypes in (("obs_norm_apply", [vp] * 5 + [l, i, f, vp]),
+                               ("clip_adam", [vp] * 5 + [l, i] + [f] * 9 + [vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
-    def k4(self, fields: dict, acc, action) -> dict:
-        """``fields``: the state as the parent held it, one contiguous
-        tensor per field (board [E, 6, 7], current, winner, done bool,
-        step_idx). Returns the next state's fields, the obs, mask, rewards
-        and done."""
-        E, dev = action.shape[0], action.device
-        for name, t in fields.items():
-            kernels.expect(t, f"state.{name}", t.dtype, tuple(t.shape))
-        kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, 2))
-        kernels.expect(acc.length, "length", torch.int32, (E,))
-        kernels.expect(action, "action", torch.int32, (E,))
-        nxt = {name: torch.empty_like(t) for name, t in fields.items()}
+    def apply(self, state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
+        D = obs.shape[-1]
+        kernels.expect(obs, "obs", torch.float32, obs.shape)
+        for t, name, shape in ((state.mean, "mean", (D,)), (state.m2, "m2", (D,)),
+                               (state.count, "count", ())):
+            kernels.expect(t, name, torch.float32, shape)
+        out = torch.empty_like(obs)
+        p = kernels.ptr
+        kernels.check(self.lib.obs_norm_apply(
+            p(obs), p(state.mean), p(state.m2), p(state.count), p(out), obs.numel() // D, D,
+            float(clip), kernels.stream(obs.device)), "parent K6 apply")
+        return out
 
-        def new(*shape, dtype=torch.float32):
-            return torch.empty(*shape, dtype=dtype, device=dev)
-
-        i32 = torch.int32
-        rest = {"reward_sum": new(E, 2), "length": new(E, dtype=i32), "rewards": new(E, 2),
-                "done": new(E), "log_total": new(E, 2), "log_length": new(E, dtype=i32),
-                "outcome": new(E, 2, dtype=i32), "active": new(E, dtype=i32),
-                "obs": new(E, C4_OBS), "mask": new(E, COLS)}
-        ptrs = [t.data_ptr() for t in (*fields.values(), acc.reward_sum, acc.length, action,
-                                       *nxt.values(), *rest.values())]
-        kernels.check(self.lib.connect_four_step_autoreset(*ptrs, E, kernels.stream(dev)),
-                      "parent K4")
-        return {"next": nxt, **rest}
-
-    def k13(self, ints73, shaping, acc, action, u_reset, u_step) -> dict:
-        """The parent's K13 on its [E, 73] state: its i32 and f32 output
-        arenas carved by name (the blocks of envs/liars_dice.py I32_OUT and
-        F32_OUT with a 73-column state)."""
-        E, dev = action.shape[0], action.device
-        kernels.expect(ints73, "state.ints", torch.int32, (E, self.K13_W))
-        kernels.expect(shaping, "state.shaping_coef", torch.float32, (E,))
-        kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, 4))
-        kernels.expect(acc.length, "length", torch.int32, (E,))
-        kernels.expect(action, "action", torch.int32, (E,))
-        kernels.expect(u_reset, "reset_values", torch.float32, (E, 8))
-        kernels.expect(u_step, "u", torch.float32, (E, 8))
-        i32_out = (("ints", self.K13_W),) + LD_I32_OUT[1:]
-        i32 = torch.empty(arena_size(E, i32_out), dtype=torch.int32, device=dev)
-        f32 = torch.empty(arena_size(E, LD_F32_OUT), dtype=torch.float32, device=dev)
-        kernels.check(self.lib.liars_dice_step_autoreset(
-            ints73.data_ptr(), shaping.data_ptr(), acc.reward_sum.data_ptr(), acc.length.data_ptr(),
-            action.data_ptr(), u_reset.data_ptr(), u_step.data_ptr(), i32.data_ptr(),
-            f32.data_ptr(), E, kernels.stream(dev)), "parent K13")
-        return {**carve_arena(i32, E, i32_out), **carve_arena(f32, E, LD_F32_OUT)}
+    def clip_adam(self, params, grads, mu, nu, *, lr, max_grad_norm, eps, bc1, bc2) -> None:
+        n = params.numel()
+        for t, name in ((params, "params"), (grads, "grads"), (mu, "mu"), (nu, "nu")):
+            kernels.expect(t, name, torch.float32, (n,))
+        G = max(1, min(264, -(-n // 1024)))
+        partial = torch.empty(G, dtype=torch.float64, device=params.device)
+        p = kernels.ptr
+        kernels.check(self.lib.clip_adam(
+            p(params), p(grads), p(mu), p(nu), p(partial), n, G, float(lr), float(max_grad_norm),
+            float(eps), 0.9, 0.999, 1 - 0.9, 1 - 0.999, float(bc1), float(bc2),
+            kernels.stream(params.device)), "parent K9")
 
 
 def check_cartpole(dev, g) -> dict:
@@ -710,11 +684,9 @@ def kernel_ptxas(ptxas: list, name: str) -> list:
     return [ln for ln in ptxas if ln.startswith(f"{name}_kernel")]
 
 
-def check_connect_four(dev, g, ptxas: list, parent: "ParentKernels | None") -> dict:
+def check_connect_four(dev, g, ptxas: list) -> dict:
     """K4 against the plain step over four consecutive steps: every output
-    equal, bit for bit. Timed on the last step; with ``parent``, the parent
-    commit's K4 on the same state (its 8 field tensors unpacked outside the
-    timed calls) checked and timed in turns."""
+    equal, bit for bit. Timed on the last step."""
     env, state, acc = connect_four_states(dev, g)
     empty = torch.empty(E, 0, device=dev)
     stats = {"steps": 4, "dones": 0, "wins_h_v_d1_d2": [0, 0, 0, 0], "draws": 0,
@@ -753,20 +725,6 @@ def check_connect_four(dev, g, ptxas: list, parent: "ParentKernels | None") -> d
         # the 69 four-in-a-row windows of the mover, a few operations each
         **bound(nbytes(s, a, act, k) - pad_bytes(s), 300.0 * E),
     }
-    if parent is not None:
-        fields = {name: x.contiguous() for name, x in s.fields().items()}
-        pk = parent.k4(fields, a, act)
-        torch.cuda.synchronize()
-        pairs = {"state": (ConnectFourState.of(**pk["next"]).ints, k.state.ints),
-                 "obs": (pk["obs"], k.obs), "mask": (pk["mask"], k.mask),
-                 "rewards": (pk["rewards"], k.rewards), "done": (pk["done"], k.done),
-                 "outcome": (pk["outcome"], k.log.outcome),
-                 "reward_sum": (pk["reward_sum"], k.acc.reward_sum)}
-        bad = [name for name, (x, y) in pairs.items() if not torch.equal(x, y)]
-        if bad:
-            raise AssertionError(f"connect_four_step_autoreset (parent): {bad} differ")
-        out.update(turns(lambda: env.step_autoreset(s, a, act, empty),
-                         lambda: parent.k4(fields, a, act)))
     return out
 
 
@@ -910,10 +868,8 @@ def liars_dice_walk(dev, g, steps: int) -> tuple:
     return env, last, ev
 
 
-def check_liars_dice(dev, g, ptxas: list, parent: "ParentKernels | None") -> tuple:
+def check_liars_dice(dev, g, ptxas: list) -> tuple:
     """K13 along a walk of 300 steps at E = 4096; every event must occur.
-    With ``parent``, the parent commit's K13 on a contiguous copy of the
-    first 73 columns of the last step's state, checked and timed in turns.
     Returns (the check, the last mask and obs for K2, K6 and K7)."""
     env, (s, a, act, ur, us, k), ev = liars_dice_walk(dev, g, 300)
     missing = [name for name, n in ev.items() if n == 0]
@@ -936,20 +892,6 @@ def check_liars_dice(dev, g, ptxas: list, parent: "ParentKernels | None") -> tup
         # integer and f32 operations per env
         **bound(nbytes(s, a, act, k) - pad_bytes(s) + uniform_rows * 8 * 4, 1500.0 * E),
     }
-    if parent is not None:
-        ints73 = s.ints[:, :ParentKernels.K13_W].contiguous()
-        pk = parent.k13(ints73, s.shaping_coef, a, act, ur, us)
-        torch.cuda.synchronize()
-        pairs = {"state": (pk["ints"], k.state.ints[:, :ParentKernels.K13_W]),
-                 "obs": (pk["obs"], k.obs), "mask": (pk["mask"], k.mask),
-                 "priv": (pk["priv"], k.priv), "rewards": (pk["rewards"], k.rewards),
-                 "done": (pk["done"], k.done), "outcome": (pk["outcome"], k.log.outcome),
-                 "reward_sum": (pk["acc_reward_sum"], k.acc.reward_sum)}
-        bad = [name for name, (x, y) in pairs.items() if not torch.equal(x, y)]
-        if bad:
-            raise AssertionError(f"liars_dice_step_autoreset (parent): {bad} differ")
-        out.update(turns(lambda: env.step_autoreset(s, a, act, ur, us),
-                         lambda: parent.k13(ints73, s.shaping_coef, a, act, ur, us)))
     return out, k.mask, k.obs
 
 
@@ -1068,10 +1010,12 @@ def connect_four_like(dev, g, n: int, D: int = 86) -> torch.Tensor:
     return (torch.rand(n, D, generator=g, device=dev) < rate).float()
 
 
-def check_obs_norm_apply(dev, g, obs: torch.Tensor, rows: int) -> dict:
+def check_obs_norm_apply(dev, g, obs: torch.Tensor, rows: int,
+                         parent: "ParentKernels | None") -> dict:
     """K6's apply on ``obs`` [4096, D] to 1e-6, from states at count 0 and
-    1 (the identity) and merged from ``rows`` x D; timed on the merged one,
-    and on that update batch."""
+    1 (the identity) and merged from ``rows`` x D; timed on the merged one.
+    With ``parent``, the parent commit's apply on each state, equal bit for
+    bit, and timed in turns on the merged one."""
     D = obs.shape[1]
     z = torch.zeros(D, device=dev)
     states = {
@@ -1090,14 +1034,99 @@ def check_obs_norm_apply(dev, g, obs: torch.Tensor, rows: int) -> dict:
             raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: max abs err {err} > 1e-6")
         if name != "merged" and not torch.equal(k, obs):
             raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: not the identity below count 2")
+        if parent is not None and not torch.equal(k, parent.apply(st, obs)):
+            raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: differs from the parent's")
         out[name] = err
         out["max_abs_err"] = max(out["max_abs_err"], err)
     st = states["merged"]
     out.update(timed(lambda: obs_norm_apply(st, obs), lambda: obs_norm_apply_plain(st, obs)))
     out.update(library_ms=None, **bound(nbytes(obs, st) + nbytes(obs), 6.0 * obs.numel()))
-    batch = connect_four_like(dev, g, rows, D)
-    out["update_batch_ms"] = time_ms(lambda: obs_norm_apply(st, batch))
-    out["update_batch_plain_ms"] = time_ms(lambda: obs_norm_apply_plain(st, batch))
+    if parent is not None:
+        out.update(parent_equal=True, **turns(lambda: obs_norm_apply(st, obs),
+                                              lambda: parent.apply(st, obs)))
+    return out
+
+
+def obs_norm_batches(dev, g) -> dict:
+    """The update batches [T x E, D] of the train paths with obs norm:
+    name -> a function making one (Liar's Dice MLP, Connect Four,
+    CartPole)."""
+    return {
+        "liars_dice_524288x270": lambda: connect_four_like(dev, g, E * T_LD, LD_OBS),
+        "c4_262144x86": lambda: connect_four_like(dev, g, E * T_C4),
+        "cartpole_524288x5": lambda: torch.randn(E * T, 5, generator=g, device=dev)
+        * torch.tensor([1.0, 0.5, 0.1, 0.8, 0.3], device=dev)
+        + torch.tensor([0.0, 0.1, 0.0, -0.1, 0.5], device=dev),
+    }
+
+
+def cold_device_ms(fn, kernel: str, reps: int = 10, tries: int = 3):
+    """Device time per call of the kernels whose name holds ``kernel``,
+    with L2 flushed before every call (a 256 MB fill, outside the reading):
+    the time of a call whose inputs come from HBM. None when no profile of
+    ``tries`` recorded the kernel."""
+    flush = torch.empty(64 << 20, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        if hits:
+            return sum(e.self_device_time_total / e.count for e in hits) / 1e3
+    return None
+
+
+def check_obs_norm_batch(dev, g, parent: "ParentKernels | None") -> dict:
+    """K6's apply on each update batch as the train step runs it once per
+    update, with the state merged from another batch of the same shape: to
+    1e-6 of the plain version, timed beside its bound (the batch and the
+    state read, the batch written), and its device time also with L2
+    flushed before each call (``cold_l2_device_ms``; at [524288, 5] the
+    batch and its output fit in L2 between calls). With ``parent``, the
+    parent commit's apply, equal bit for bit and timed in turns, warm and
+    with L2 flushed."""
+    out = {"tol": 1e-6, "max_abs_err": 0.0}
+    for name, make in obs_norm_batches(dev, g).items():
+        batch = make()
+        st = obs_norm_update_plain(ObsNormState.create(batch.shape[1], dev), make())
+        k = obs_norm_apply(st, batch)
+        p = obs_norm_apply_plain(st, batch)
+        torch.cuda.synchronize()
+        err = max_err([(k, p)])
+        if not err <= 1e-6:
+            raise AssertionError(f"obs_norm_apply {name}: max abs err {err} > 1e-6")
+        del p
+
+        def new():
+            return obs_norm_apply(st, batch)
+
+        res = {
+            "max_abs_err": err, **timed(new, lambda: obs_norm_apply_plain(st, batch)),
+            "cold_l2_device_ms": cold_device_ms(new, "obs_norm_apply"),
+            "library_ms": None, **bound(nbytes(batch, st) + nbytes(batch), 6.0 * batch.numel()),
+        }
+        if parent is not None:
+            if not torch.equal(parent.apply(st, batch), k):
+                raise AssertionError(f"obs_norm_apply {name}: differs from the parent's")
+
+            def old():
+                return parent.apply(st, batch)
+
+            res.update(parent_equal=True, **turns(new, old))
+            res["cold_l2_turns"] = {
+                "device_ms_turns": [], "parent_device_ms": []}
+            for key, fn in (("parent_device_ms", old), ("device_ms_turns", new),
+                            ("device_ms_turns", new), ("parent_device_ms", old)):
+                res["cold_l2_turns"][key].append(cold_device_ms(fn, "obs_norm_apply"))
+        del k
+        out[name] = res
+        out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
@@ -1304,56 +1333,121 @@ def check_ppo_loss(dev, g) -> dict:
     return out
 
 
-def check_clip_adam(dev, g) -> dict:
+def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
     """K9 over flat buffers of CartPole's MLP 64x2 (4,739 parameters),
-    Connect Four's MLP 512x2 (311,304) and Skull's CTDE 512x2 (784,418),
-    three steps below and three above the max norm: to 1e-5 relative +
-    1e-7 of the largest entry."""
+    Connect Four's MLP 512x2 (311,304), Skull's CTDE 512x2 (784,418) and
+    Liar's Dice's CTDE (873,778) and MLP 512x3 (689,714), three steps
+    below and three above the max norm: to 1e-5 relative + 1e-7 of the
+    largest entry; a second run of the same steps equal bit for bit. Timed
+    at each count; with ``parent``, the parent commit's K9 on the same
+    buffers, to the same tolerance, and timed in turns."""
     out = {"tol": "1e-5 * |plain| + 1e-7 * max|plain|", "max_abs_err": 0.0}
+    partial = clip_adam_scratch(dev)
+    out["grid_blocks"] = partial.numel()
     for n in (4739, 311304, SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
         for scale in (1e-3, 10.0):
-            p_k = torch.randn(n, generator=g, device=dev)
-            mu_k, nu_k = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
-            p_p, mu_p, nu_p = p_k.clone(), mu_k.clone(), nu_k.clone()
-            for count in (1, 2, 3):
-                grads = torch.randn(n, generator=g, device=dev) * scale / n ** 0.5
-                kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
-                          bc2=1 - 0.999 ** count)
-                clip_adam(p_k, grads, mu_k, nu_k, **kw)
-                clip_adam_plain(p_p, grads, mu_p, nu_p, **kw)
+            p0 = torch.randn(n, generator=g, device=dev)
+            grads = [torch.randn(n, generator=g, device=dev) * scale / n ** 0.5 for _ in range(3)]
+            runs = {}
+            for who, step in (("kernel", lambda *b, **kw: clip_adam(*b, **kw, partial=partial)),
+                              ("again", lambda *b, **kw: clip_adam(*b, **kw, partial=partial)),
+                              ("plain", clip_adam_plain),
+                              *((("parent", parent.clip_adam),) if parent is not None else ())):
+                bufs = [p0.clone(), None, torch.zeros(n, device=dev), torch.zeros(n, device=dev)]
+                for count in (1, 2, 3):
+                    bufs[1] = grads[count - 1]
+                    step(*bufs, lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
+                         bc2=1 - 0.999 ** count)
+                runs[who] = bufs[:1] + bufs[2:]
             torch.cuda.synchronize()
-            for a, b in ((p_k, p_p), (mu_k, mu_p), (nu_k, nu_p)):
-                if not bool(torch.all((a - b).abs() <= 1e-7 * float(b.abs().max())
-                                      + 1e-5 * b.abs())):
-                    raise AssertionError(f"clip_adam n={n} scale={scale}: max abs err "
-                                         f"{max_err([(a, b)])}")
             name = f"n{n}_{'above' if scale > 1 else 'below'}"
-            out[name] = max_err([(p_k, p_p), (mu_k, mu_p), (nu_k, nu_p)])
+            for who in ("kernel", "parent"):
+                for a, b in zip(runs.get(who, ()), runs["plain"]):
+                    if not bool(torch.all((a - b).abs() <= 1e-7 * float(b.abs().max())
+                                          + 1e-5 * b.abs())):
+                        raise AssertionError(f"clip_adam ({who}) {name}: max abs err "
+                                             f"{max_err([(a, b)])}")
+            if not all(torch.equal(a, b) for a, b in zip(runs["kernel"], runs["again"])):
+                raise AssertionError(f"clip_adam {name}: two runs differ")
+            out[name] = max_err(zip(runs["kernel"], runs["plain"]))
             out["max_abs_err"] = max(out["max_abs_err"], out[name])
-    n = 311304
-    prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
-    mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+            if parent is not None:
+                out[f"{name}_equal_to_parent"] = all(
+                    torch.equal(a, b) for a, b in zip(runs["kernel"], runs["parent"]))
     kw = dict(lr=1e-6, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
-    lib = torch.nn.Parameter(prm.clone())
-    lib.grad = grads.clone()
-    adam = torch.optim.Adam([lib], lr=1e-6, eps=1e-5, fused=True)
-    out.update(
-        **timed(lambda: clip_adam(prm, grads, mu, nu, **kw),
-                lambda: clip_adam_plain(prm, grads, mu, nu, **kw)),
-        library_ms=time_ms(adam.step),
-        library_call="torch.optim.Adam(fused=True).step() (Adam only: no global-norm clip)",
-        # read params, grads, mu, nu; write params, mu, nu
-        **bound(7 * 4 * n, 20.0 * n),
-    )
-    for n in (SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
+    for n in (311304, 4739, SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
         prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
         mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
-        out[f"n{n}"] = {
-            **timed(lambda: clip_adam(prm, grads, mu, nu, **kw),
+        entry = {
+            **timed(lambda: clip_adam(prm, grads, mu, nu, **kw, partial=partial),
                     lambda: clip_adam_plain(prm, grads, mu, nu, **kw)),
-            "library_ms": None, **bound(7 * 4 * n, 20.0 * n),
+            "library_ms": None,
+            # read params, grads, mu, nu; write params, mu, nu
+            **bound(7 * 4 * n, 20.0 * n),
         }
+        if n == 311304:
+            lib = torch.nn.Parameter(prm.clone())
+            lib.grad = grads.clone()
+            adam = torch.optim.Adam([lib], lr=1e-6, eps=1e-5, fused=True)
+            entry.update(library_ms=time_ms(adam.step), library_call="torch.optim.Adam("
+                         "fused=True).step() (Adam only: no global-norm clip)")
+        if parent is not None:
+            entry.update(turns(lambda: clip_adam(prm, grads, mu, nu, **kw, partial=partial),
+                               lambda: parent.clip_adam(prm, grads, mu, nu, **kw)))
+        if n == 311304:
+            out.update(entry)
+        else:
+            out[f"n{n}"] = entry
     return out
+
+
+def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
+    """One K9 step (Liar's Dice CTDE's 873,778 parameters, above the max
+    norm) and one K6 apply (``obs``) captured into a CUDA graph on the
+    current stream after a warm-up on a side stream: each replay, from the
+    same inputs, equal bit for bit to the eager call. A replay runs no
+    wrapper, so the launch counters do not move."""
+    n = LD_CTDE_PARAMS
+    start = [torch.randn(n, generator=g, device=dev),
+             torch.randn(n, generator=g, device=dev) * 10.0 / n ** 0.5,
+             torch.randn(n, generator=g, device=dev) * 1e-3,
+             torch.rand(n, generator=g, device=dev) * 1e-6]
+    kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** 4, bc2=1 - 0.999 ** 4,
+              partial=clip_adam_scratch(dev))
+    D = obs.shape[1]
+    st = obs_norm_update_plain(ObsNormState.create(D, dev), connect_four_like(dev, g, E * T_LD, D))
+    eager = [t.clone() for t in start]
+    clip_adam(*eager, **kw)
+    eager_obs = obs_norm_apply(st, obs)
+    bufs = [t.clone() for t in start]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        clip_adam(*[t.clone() for t in start], **kw)
+        obs_norm_apply(st, obs)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = {"clip_adam": torch.cuda.CUDAGraph(), "obs_norm_apply": torch.cuda.CUDAGraph()}
+    with torch.cuda.graph(graphs["clip_adam"]):
+        clip_adam(*bufs, **kw)
+    with torch.cuda.graph(graphs["obs_norm_apply"]):
+        captured = obs_norm_apply(st, obs)
+    before = (clip_adam.launches, obs_norm_apply.launches)
+    for replay in range(2):
+        for t, s0 in zip(bufs, start):
+            t.copy_(s0)
+        captured.zero_()
+        graphs["clip_adam"].replay()
+        graphs["obs_norm_apply"].replay()
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, b) for a, b in zip(bufs, eager))
+                and torch.equal(captured, eager_obs)):
+            raise AssertionError(f"graph replay {replay} differs from the eager calls")
+    if (clip_adam.launches, obs_norm_apply.launches) != before:
+        raise AssertionError("a graph replay moved a launch counter")
+    return {"replays": 2, "equal_bit_for_bit": True, "clip_adam_n": n,
+            "obs_norm_apply_shape": list(obs.shape),
+            "clip_adam_replay_ms": time_ms(graphs["clip_adam"].replay),
+            "obs_norm_apply_replay_ms": time_ms(graphs["obs_norm_apply"].replay)}
 
 
 def episode_logs(dev, g, T: int, P: int, rate: float = 0.05) -> EpisodeLog:
@@ -1677,7 +1771,7 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K4 and K13 are built from it "
+                    help="a checkout of the parent commit: its K6 and K9 are built from it "
                          "and timed in turns with this tree's")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
@@ -1696,7 +1790,7 @@ def main(argv: list) -> int:
 
     g = torch.Generator(device=dev).manual_seed(0)
     skull, skull_mask, skull_obs = check_skull(dev, g)
-    liars_dice, ld_mask, ld_obs = check_liars_dice(dev, g, ptxas, parent)
+    liars_dice, ld_mask, ld_obs = check_liars_dice(dev, g, ptxas)
     samples = {
         "A2": check_sample(dev, g, 2),
         "A7": check_sample(dev, g, 7),
@@ -1706,8 +1800,9 @@ def main(argv: list) -> int:
         "A49_liars_dice_opponents_Ep1024": check_sample(dev, g, 49, ld_mask[E - EP_LD:]),
         "A33_skull_opponents_Ep1229": check_sample(dev, g, 33, skull_mask[E - EP_SKULL:]),
     }
-    apply_c4 = check_obs_norm_apply(dev, g, connect_four_like(dev, g, E), E * T_C4)
-    apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD)
+    apply_c4 = check_obs_norm_apply(dev, g, connect_four_like(dev, g, E), E * T_C4, parent)
+    apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD, parent)
+    apply_batch = check_obs_norm_batch(dev, g, parent)
     checks = {
         "cartpole_step_autoreset": check_cartpole(dev, g),
         "masked_gumbel_sample": {
@@ -1716,14 +1811,16 @@ def main(argv: list) -> int:
             **{k: samples["A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
         "gae_reverse_scan": check_gae(dev, g),
-        "connect_four_step_autoreset": check_connect_four(dev, g, ptxas, parent),
+        "connect_four_step_autoreset": check_connect_four(dev, g, ptxas),
         "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g),
-        "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld,
-                           "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"])},
+        "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld, "update_batch": apply_batch,
+                           "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"],
+                                              apply_batch["max_abs_err"]),
+                           "ptxas": [ln for ln in ptxas if ln.startswith("obs_norm_")]},
         "obs_norm_update": check_obs_norm_update(dev, g),
         "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs),
         "ppo_loss": check_ppo_loss(dev, g),
-        "clip_adam": check_clip_adam(dev, g),
+        "clip_adam": {**check_clip_adam(dev, g, parent), "ptxas": kernel_ptxas(ptxas, "clip_adam")},
         "episode_stats": check_episode_stats(dev, g),
         "skull_step_autoreset": skull,
         "return_norm_roll": check_return_norm_roll(dev, g),
@@ -1732,6 +1829,7 @@ def main(argv: list) -> int:
     }
     screen_device_times(checks)
     emit("kernels_vs_plain", card=card_line, **checks)
+    emit("graph_capture", card=card_line, **check_graph_capture(dev, g, ld_obs))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         runs = {

@@ -284,3 +284,90 @@ def test_connect_four_kernel_wrapper_passes_one_state_and_two_output_buffers(mon
     with pytest.raises(ValueError, match="16-byte"):
         shifted = torch.zeros(E * c4.W + 1, dtype=torch.int32)[1:].view(E, c4.W)
         c4._launch(c4.ConnectFourState(shifted), acc, action)
+
+
+class _StandIn:
+    """A stand-in kernel library that records each entry point's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def _cuda_path_on_cpu(monkeypatch, *wrappers):
+    """Routes the wrappers' CUDA path to a stand-in library with CPU
+    tensors; each wrapper's launch counter is restored after the test."""
+    lib = _StandIn()
+    monkeypatch.setattr(kernels, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "stream", lambda dev: 0)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", w.launches)
+    return lib
+
+
+def test_obs_norm_wrappers_launch_their_entry_points_once_each(monkeypatch):
+    """K6's CUDA path with a stand-in library: the apply launches its entry
+    point once with the obs' start, the output, the rows and the clip; the
+    update launches its own once, into a new state; each counts on its own
+    counter."""
+    lib = _cuda_path_on_cpu(monkeypatch, obs_norm_update, obs_norm_apply)
+    before = (obs_norm_update.launches, obs_norm_apply.launches)
+    state = ObsNormState.create(86, torch.device("cpu"))
+    batch = torch.ones(3 * 5 * 86 + 1)[1:].view(3, 5, 86)  # starts 4 bytes in
+    out = obs_norm_apply(state, batch, clip=5.0)
+    (name, args), = lib.calls
+    assert name == "obs_norm_apply" and len(args) == len(kernels.SIGNATURES["obs_norm_apply"])
+    assert args[0] == batch.data_ptr() and args[4] == out.data_ptr() and out.shape == batch.shape
+    assert args[5:8] == (15, 86, 5.0)
+    new = obs_norm_update(state, torch.ones(3, 5, 86))
+    name, args = lib.calls[1]
+    assert name == "obs_norm_update" and len(args) == len(kernels.SIGNATURES["obs_norm_update"])
+    assert args[5] == new.mean.data_ptr() and args[7] == new.count.data_ptr()
+    assert args[8:10] == (15, 86)
+    assert (obs_norm_update.launches, obs_norm_apply.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_clip_adam_wrapper_passes_the_callers_scratch_and_allocates_nothing(monkeypatch):
+    """K9's CUDA path with a stand-in library: one launch with the
+    scratch's pointer and length, no allocation, and refusals without the
+    scratch and for a buffer off a 16-byte boundary."""
+    lib = _cuda_path_on_cpu(monkeypatch, clip_adam)
+    n = 1001
+    bufs = [torch.zeros(n) for _ in range(4)]
+    partial = torch.empty(264, dtype=torch.float64)
+    before = clip_adam.launches
+    kw = dict(lr=0.1, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def refuse(*a, **k):
+        raise AssertionError("clip_adam allocated")
+
+    monkeypatch.setattr(torch, "empty", refuse)
+    monkeypatch.setattr(torch, "empty_like", refuse)
+    clip_adam(*bufs, **kw, partial=partial)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    (name, args), = lib.calls
+    assert name == "clip_adam" and len(args) == len(kernels.SIGNATURES["clip_adam"])
+    assert args[:6] == (*(b.data_ptr() for b in bufs), partial.data_ptr(), n)
+    assert args[6] == 264 and clip_adam.launches == before + 1
+    with pytest.raises(ValueError, match="scratch"):
+        clip_adam(*bufs, **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        clip_adam(torch.zeros(n + 1)[1:], *bufs[1:], **kw, partial=partial)
+    assert clip_adam.launches == before + 1
+
+
+def test_adam_state_on_the_cpu_holds_no_kernel_scratch():
+    from burn_ppo_torch.ppo.update import AdamState, clip_adam_scratch
+
+    net = torch.nn.Linear(3, 2)
+    opt = AdamState.create(net)
+    assert opt.partial is None and clip_adam_scratch(torch.device("cpu")) is None
+    assert opt.flat_params.numel() == 8 and opt.flat_params.data_ptr() % 16 == 0

@@ -56,6 +56,7 @@ from burn_ppo_torch.ppo.update import (
     PPOUpdateConfig,
     clip_adam,
     clip_adam_plain,
+    clip_adam_scratch,
     ppo_loss,
     ppo_loss_forward,
     ppo_loss_plain,
@@ -417,6 +418,73 @@ def test_obs_norm_apply_kernel_matches_plain(dev, count, shape):
         assert torch.equal(k, obs)
 
 
+def parent_apply(state, obs, clip=10.0):
+    """The one-thread-per-element K6 apply that the float4 kernel replaced,
+    element by element: identity while count < 2, else
+    clip((x - mean) / max(sqrt(m2 / max(count, 1)), 1e-8)) with IEEE
+    division and sqrt; a NaN passes."""
+    c = state.count
+    std = torch.clamp(torch.sqrt(state.m2 / torch.clamp(c, min=1.0)), min=1e-8)
+    z = (obs - state.mean) / std
+    z = torch.where(z < -clip, -clip, torch.where(z > clip, clip, z))
+    return torch.where(c < 2.0, obs, z)
+
+
+def assert_bits_equal(a, b):
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@pytest.mark.parametrize("count", [0.0, 1.0, None])
+@pytest.mark.parametrize("rows,D,offset", [(4096, 4, 0), (4096, 86, 0), (4096, 270, 0),
+                                          (333, 5, 0), (7, 3, 1), (1023, 86, 2), (257, 270, 3),
+                                          (5, 1, 1), (2, 2, 0), (1, 3, 2)])
+def test_obs_norm_apply_kernel_is_the_parents_bit_for_bit(dev, count, rows, D, offset):
+    """At D = 4, 86 and 270, at rows x D not a multiple of 4, on views that
+    start 4, 8 or 12 bytes past a 16-byte boundary, with a NaN entry and
+    entries past the clip: the parent kernel's formula bit for bit, and
+    the plain version to 1e-6."""
+    g = torch.Generator(device=dev).manual_seed(rows * D + offset)
+    buf = torch.randn(rows * D + offset, generator=g, device=dev) * 3
+    obs = buf[offset:].view(rows, D)
+    assert obs.data_ptr() % 16 == 4 * offset
+    obs[rows // 2, D - 1] = float("nan")
+    obs[0, 0] = 1e4
+    if count is None:
+        state = obs_norm_update_plain(ObsNormState.create(D, dev), _obs01(g, dev, 5000, D))
+    else:
+        state = ObsNormState(mean=torch.rand(D, generator=g, device=dev),
+                             m2=torch.rand(D, generator=g, device=dev),
+                             count=torch.tensor(count, device=dev))
+    k = obs_norm_apply(state, obs)
+    torch.cuda.synchronize()
+    assert k.data_ptr() % 16 == 0
+    assert_bits_equal(k, parent_apply(state, obs))
+    p = obs_norm_apply_plain(state, obs)
+    assert torch.equal(torch.isnan(k), torch.isnan(p))
+    torch.testing.assert_close(k.nan_to_num(0.0), p.nan_to_num(0.0), rtol=0, atol=1e-6)
+
+
+def test_obs_norm_apply_kernel_replays_from_a_cuda_graph(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    D = 270
+    state = obs_norm_update_plain(ObsNormState.create(D, dev), _obs01(g, dev, 5000, D))
+    obs = torch.randn(4096, D, generator=g, device=dev)
+    eager = obs_norm_apply(state, obs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        obs_norm_apply(state, obs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = obs_norm_apply(state, obs)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 @pytest.mark.parametrize("N,D", [(262144, 86), (524288, 5), (7, 3), (1, 4)])
 def test_obs_norm_update_kernel_matches_plain(dev, N, D):
     """Into an empty and into a filled state: mean to 1e-6 absolute, m2 to
@@ -521,12 +589,67 @@ def test_clip_adam_kernel_matches_plain(dev, n, scale):
         kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
                   bc2=1 - 0.999 ** count)
         before = clip_adam.launches
-        clip_adam(p_k, grads, mu_k, nu_k, **kw)
+        clip_adam(p_k, grads, mu_k, nu_k, **kw, partial=clip_adam_scratch(dev))
         torch.cuda.synchronize()
         assert clip_adam.launches == before + 1
         clip_adam_plain(p_p, grads, mu_p, nu_p, **kw)
     for a, b in ((p_k, p_p), (mu_k, mu_p), (nu_k, nu_p)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n", [4739, 311304, 873778, 873781])
+@pytest.mark.parametrize("scale", [1e-3, 10.0])
+def test_clip_adam_kernel_is_bit_identical_across_calls_and_on_a_graph_replay(dev, n, scale):
+    """One K9 step from the same buffers: eagerly twice, then captured
+    into a CUDA graph and replayed; every buffer equal bit for bit, and
+    within the plain version's tolerance."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    start = [torch.randn(n, generator=g, device=dev),
+             torch.randn(n, generator=g, device=dev) * scale / n ** 0.5,
+             torch.randn(n, generator=g, device=dev) * 1e-3,
+             torch.rand(n, generator=g, device=dev) * 1e-6]
+    kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** 4, bc2=1 - 0.999 ** 4)
+    partial = clip_adam_scratch(dev)
+
+    def step(bufs):
+        clip_adam(bufs[0], bufs[1], bufs[2], bufs[3], **kw, partial=partial)
+
+    runs = []
+    for _ in range(2):
+        bufs = [t.clone() for t in start]
+        step(bufs)
+        runs.append(bufs)
+    graph_bufs = [t.clone() for t in start]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step([t.clone() for t in start])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step(graph_bufs)
+    for t, s0 in zip(graph_bufs, start):
+        t.copy_(s0)
+    before = clip_adam.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert clip_adam.launches == before  # a replay runs no wrapper
+    plain = [t.clone() for t in start]
+    clip_adam_plain(*plain, **kw)
+    for i in (0, 2, 3):
+        assert torch.equal(runs[0][i], runs[1][i])
+        assert torch.equal(runs[0][i], graph_bufs[i])
+        torch.testing.assert_close(runs[0][i], plain[i], rtol=1e-5,
+                                   atol=1e-7 * float(plain[i].abs().max()))
+
+
+def test_clip_adam_kernel_refuses_what_it_cannot_take(dev):
+    z = torch.zeros(9, device=dev)
+    kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
+    with pytest.raises(ValueError, match="scratch"):
+        clip_adam(z[:8], z[:8], z[:8], z[:8], **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        clip_adam(z[1:], z[:8], z[:8], z[:8], **kw, partial=clip_adam_scratch(dev))
 
 
 def episode_logs(g, dev, T, E, P, rate=0.05):

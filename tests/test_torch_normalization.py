@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -153,3 +154,43 @@ def test_return_norm_roll_on_the_acting_players_slot_matches_jax():
         np.testing.assert_allclose(t_ret.numpy(), np.asarray(j_ret), rtol=0, atol=1e-6)
         np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-6)
     assert (t_ret.numpy() != 0).sum(axis=0).min() > 0  # every seat holds a return
+
+
+def _jax_state(rng, D, start):
+    """A JAX ObsNormState at count 0, count 1 (one row merged) or merged
+    from a [64, D] batch of per-column scales and offsets."""
+    state = jn.ObsNormState.create(D)
+    if start == "count1":
+        state = jn.obs_norm_update(state, jnp.asarray(rng.normal(size=(1, D)).astype(np.float32)))
+    elif start == "merged":
+        x = rng.normal(size=(64, D)) * rng.uniform(0.1, 3.0, D) + rng.normal(size=D)
+        state = jn.obs_norm_update(state, jnp.asarray(x.astype(np.float32)))
+    return state
+
+
+@pytest.mark.parametrize("start", ["count0", "count1", "merged"])
+@pytest.mark.parametrize("D", [4, 86, 270])
+def test_obs_norm_update_then_apply_on_the_old_state_matches_jax(D, start):
+    """The train step's pair (train.py:120-124 and 142-146 of the JAX
+    package): the batch [T, E, D] merged into the stats, and the batch
+    normalised with the stats from BEFORE the merge."""
+    rng = np.random.default_rng(D)
+    j_state = _jax_state(rng, D, start)
+    t_state = tn.ObsNormState(*(_t(np.asarray(getattr(j_state, f))) for f in ("mean", "m2", "count")))
+    batch = (rng.normal(size=(5, 3, D)) * 2.5 + 0.7).astype(np.float32)
+    batch[..., 0] = 1.0  # a constant column
+    batch[0, 0, 1] = 40.0  # past the clip once the stats are filled
+    j_new = jn.obs_norm_update(j_state, jnp.asarray(batch))
+    j_out = np.asarray(jn.obs_norm_apply(j_state, jnp.asarray(batch)))
+    t_new = tn.obs_norm_update(t_state, _t(batch))
+    t_out = tn.obs_norm_apply(t_state, _t(batch))
+    assert t_out.shape == batch.shape
+    np.testing.assert_allclose(t_new.mean.numpy(), np.asarray(j_new.mean), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(t_new.m2.numpy(), np.asarray(j_new.m2), rtol=1e-5, atol=1e-6)
+    assert float(t_new.count) == float(j_new.count)
+    np.testing.assert_allclose(t_out.numpy(), j_out, rtol=0, atol=1e-6)
+    if start != "merged":  # count < 2 before the merge: the identity
+        np.testing.assert_array_equal(t_out.numpy(), batch)
+    else:
+        assert np.abs(t_out.numpy()).max() == 10.0
+
