@@ -88,6 +88,11 @@ class StepOutput(NamedTuple):
     obs: torch.Tensor  # [E, D] obs of the post-reset state
     mask: torch.Tensor  # [E, A] f32 action mask of the post-reset state
     priv: Optional[torch.Tensor] = None  # [E, Dp] privileged obs of the post-reset state
+    # Where the step folds in the return normaliser's per-step roll
+    # (``roll`` of ``Environment.step_autoreset``): the rolled returns
+    # [E, 1] and the samples [E]; None where it does not.
+    returns: Optional[torch.Tensor] = None
+    samples: Optional[torch.Tensor] = None
 
 
 def onehot_eq(i: torch.Tensor, size: int) -> torch.Tensor:
@@ -204,7 +209,13 @@ class Environment:
     def privileged_obs(self, state: State) -> torch.Tensor:
         raise NotImplementedError(f"{self.spec.name} has no privileged observations")
 
-    def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
+    def step_autoreset(self, state, acc, action, reset_values, step_values=None,
+                       roll=None) -> StepOutput:
+        """One auto-reset step of every env. A single-player env may be
+        given ``roll`` = (rolling returns [E, 1], gamma) and fold the return
+        normaliser's per-step roll into its step (CartPole does, and fills
+        ``StepOutput.returns`` and ``samples``); one that does not leaves
+        both None and the caller rolls."""
         return autoreset_step(self, state, acc, action, reset_values, step_values)
 
 
@@ -281,24 +292,31 @@ def _field_view(name: str, lo: int, hi: int, shape: tuple, is_bool: bool) -> pro
 
 # A fused env-step kernel writes its outputs into one buffer per dtype:
 # (name, columns per env) blocks, each E x columns, starting on a
-# 64-element (256 byte) boundary (csrc/connect_four_step.cu,
-# liars_dice_step.cu, skull_step.cu).
+# 64-element (256 byte) boundary (csrc/cartpole_step.cu,
+# connect_four_step.cu, liars_dice_step.cu, skull_step.cu). A block's
+# columns may be given as a one-element tuple, ``(1,)``, for an [E, 1] view.
 ARENA_ALIGN = 64
 
 
+def _cols(cols) -> int:
+    return cols[0] if isinstance(cols, tuple) else cols
+
+
 def arena_size(E: int, blocks) -> int:
-    return sum(-(-E * cols // ARENA_ALIGN) * ARENA_ALIGN for _, cols in blocks)
+    return sum(-(-E * _cols(cols) // ARENA_ALIGN) * ARENA_ALIGN for _, cols in blocks)
 
 
 def carve_arena(buf: torch.Tensor, E: int, blocks) -> dict:
-    """The blocks of ``buf`` by name, as [E, cols] views ([E] for one column).
-    One ``as_strided`` a block, where a slice and a view would be two tensor
-    constructions: a step wrapper carves about ten views per call."""
+    """The blocks of ``buf`` by name, as [E, cols] views ([E] for one column,
+    [E, 1] for ``(1,)``). One ``as_strided`` a block, where a slice and a
+    view would be two tensor constructions: a step wrapper carves about ten
+    views per call."""
     out, at = {}, buf.storage_offset()
     for name, cols in blocks:
-        out[name] = (buf.as_strided((E, cols), (cols, 1), at) if cols > 1
+        n = _cols(cols)
+        out[name] = (buf.as_strided((E, n), (n, 1), at) if n > 1 or isinstance(cols, tuple)
                      else buf.as_strided((E,), (1,), at))
-        at += -(-E * cols // ARENA_ALIGN) * ARENA_ALIGN
+        at += -(-E * n // ARENA_ALIGN) * ARENA_ALIGN
     return out
 
 

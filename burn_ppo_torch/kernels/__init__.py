@@ -52,8 +52,10 @@ _F = ctypes.c_float
 # stream are c_void_p (ctypes would otherwise pass a 32-bit int and cut
 # the pointer); scalars are c_int / c_float.
 SIGNATURES = {
-    # 9 inputs, 15 outputs, num_envs, stream
-    "cartpole_step_autoreset": [_VP] * 24 + [_I, _VP],
+    # physics rows, step_idx, reward_sum, length, action, reset rows, rolling
+    # returns (nullable: no roll), the i32 and the f32 output buffer,
+    # num_envs, gamma, stream
+    "cartpole_step_autoreset": [_VP] * 9 + [_I, _F, _VP],
     # packed state, reward_sum, length, action, the i32 and the f32 output
     # buffer, num_envs, stream
     "connect_four_step_autoreset": [_VP] * 6 + [_I, _VP],
@@ -91,9 +93,11 @@ SIGNATURES = {
     "skull_step_autoreset": [_VP] * 8 + [_I, _I, _VP],
     # returns, rewards, acting, dones, new_returns, samples, E, P, gamma, stream
     "return_norm_roll": [_VP] * 6 + [_I, _I, _F, _VP],
-    # samples, rewards, valid (nullable), mean, m2, count, scratch,
-    # normalized, stats (f64 [3]), N, G, clip, stream
-    "return_norm_finalize": [_VP] * 9 + [_L, _I, _F, _VP],
+    # samples, rewards, valid (nullable), mean, m2, count, scratch (f64
+    # [return_norm_finalize_scratch_len()]), its length, normalized, stats
+    # (f64 [3]), N, clip, stream
+    "return_norm_finalize": [_VP] * 7 + [_I] + [_VP] * 2 + [_L, _F, _VP],
+    "return_norm_finalize_scratch_len": [],
     # packed state, shaping, reward_sum, length, action, reset and step
     # uniforms, the i32 and the f32 output buffer, num_envs, stream
     "liars_dice_step_autoreset": [_VP] * 9 + [_I, _VP],

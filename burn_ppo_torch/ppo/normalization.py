@@ -15,6 +15,9 @@
   index), in shifted coordinates. Both run their plain PyTorch versions
   for CPU tensors and launch the hand-written kernel K12
   (``csrc/return_norm.cu``, ROADMAP B5) for CUDA tensors, or raise.
+  On CartPole's path the roll is folded into the env step (K1,
+  ``envs/cartpole.py``). The finalize's f64 scratch is made once, with
+  the state (``ReturnNormState.scratch``), so no call allocates it.
 
 PopArt (``normalize_values``) is not ported (ROADMAP A14): no ported
 config or checkpoint uses it. Stats are device tensors, so nothing here
@@ -147,6 +150,9 @@ class ReturnNormState:
     mean: torch.Tensor  # scalar Welford mean of observed rolling returns
     m2: torch.Tensor  # scalar
     count: torch.Tensor  # scalar
+    # K12 finalize's f64 scratch on a CUDA device (return_norm_scratch),
+    # carried from state to state; None on the CPU.
+    scratch: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(num_envs: int, num_players: int, device: torch.device) -> "ReturnNormState":
@@ -158,7 +164,21 @@ class ReturnNormState:
             mean=z(),
             m2=z(),
             count=z(),
+            scratch=return_norm_scratch(torch.device(device)),
         )
+
+
+def return_norm_scratch(device: torch.device) -> Optional[torch.Tensor]:
+    """K12 finalize's f64 scratch on a CUDA ``device``: two block sums and
+    three more per block of the largest grid it launches there; None on
+    the CPU."""
+    if device.type == "cpu":
+        return None
+    with torch.cuda.device(device):
+        n = kernels.library().return_norm_finalize_scratch_len()
+    if n < 1:
+        raise RuntimeError(f"return_norm_finalize: no resident grid on {device}")
+    return torch.empty(n, dtype=torch.float64, device=device)
 
 
 def return_norm_roll_plain(
@@ -266,11 +286,6 @@ def return_norm_finalize_f64_plain(
     return stats, normalized.reshape(shape)
 
 
-# Threads of a K12 finalize block, and the most blocks it uses.
-_FINALIZE_THREADS = 256
-_FINALIZE_MAX_BLOCKS = 1024
-
-
 def return_norm_finalize_f64(
     state: ReturnNormState,
     samples: torch.Tensor,
@@ -279,10 +294,10 @@ def return_norm_finalize_f64(
     valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the new stats in f64 [3], normalized rewards). CPU tensors take the
-    plain version; CUDA tensors launch K12's finalize (three passes: block
-    moments for the shift, block sums in shifted coordinates, then each
-    block's prefix from the earlier blocks' sums and a scan of its own
-    elements, all in f64), or raise."""
+    plain version; CUDA tensors launch K12's finalize (one cooperative
+    launch: block moments for the shift, block sums in shifted coordinates,
+    then each block's prefix and a scan of its own elements, all in f64,
+    with ``state.scratch`` as its scratch), or raise."""
     ts = [samples, rewards, state.mean, state.m2, state.count] + ([] if valid is None else [valid])
     if kernels.on_cpu(*ts):
         return return_norm_finalize_f64_plain(state, samples, rewards, clip, valid)
@@ -296,16 +311,18 @@ def return_norm_finalize_f64(
         kernels.expect(w, "valid", torch.float32, (N,))
     for t, name in ((state.mean, "mean"), (state.m2, "m2"), (state.count, "count")):
         kernels.expect(t, name, torch.float32, ())
+    scratch = state.scratch
+    if scratch is None or scratch.device != x.device:
+        raise ValueError("return_norm_finalize: CUDA tensors need the state's scratch on their "
+                         "device (ReturnNormState.create, return_norm_scratch)")
+    kernels.expect(scratch, "scratch", torch.float64, (scratch.numel(),))
     dev = x.device
-    T = _FINALIZE_THREADS
-    G = max(1, min(_FINALIZE_MAX_BLOCKS, -(-N // (8 * T))))
-    scratch = torch.empty(5 * G, dtype=torch.float64, device=dev)
     stats = torch.empty(3, dtype=torch.float64, device=dev)
     normalized = torch.empty_like(r)
     p = kernels.ptr
     err = kernels.library().return_norm_finalize(
-        p(x), p(r), p(w), p(state.mean), p(state.m2), p(state.count), p(scratch), p(normalized),
-        p(stats), N, G, float(clip), kernels.stream(dev))
+        p(x), p(r), p(w), p(state.mean), p(state.m2), p(state.count), p(scratch),
+        scratch.numel(), p(normalized), p(stats), N, float(clip), kernels.stream(dev))
     kernels.check(err, "return_norm_finalize")
     return_norm_finalize.launches += 1
     return stats, normalized.reshape(shape)

@@ -30,7 +30,7 @@ every row, then a selection by slot (pool_rollout.py:126-139, 171-178).
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -41,7 +41,6 @@ from burn_ppo_torch.models.core import activation_fn
 from burn_ppo_torch.ops.categorical import TINY, masked_sample
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
-    ReturnNormState,
     obs_norm_apply,
     return_norm_finalize,
     return_norm_roll,
@@ -325,7 +324,7 @@ def collect_rollouts_with_opponents(
                 new_returns, samples = return_norm_roll(
                     ret_norm.returns, acting_reward, players, out.done, gamma
                 )
-                ret_norm = ReturnNormState(new_returns, ret_norm.mean, ret_norm.m2, ret_norm.count)
+                ret_norm = replace(ret_norm, returns=new_returns)
                 cols["samples"].append(samples)
             # Reseat + resample where the episode just ended (after the
             # capture above).

@@ -12,9 +12,10 @@ step, in the reference's order:
      normalized obs and the RAW privileged obs, rollout.py:228-249);
   4. masked Gumbel-max sample and log pi(a) (kernel K2 on CUDA);
   5. env step with auto-reset, episode log captured before the reset
-     (kernel K1, K4 or K11 on CUDA);
-  6. the rolling-return update of the acting player's return (K12's roll
-     on CUDA).
+     (kernel K1, K4, K11 or K13 on CUDA);
+  6. the rolling-return update of the acting player's return: folded into
+     the env step where the env does it (CartPole's K1), else a gather of
+     the acting player's reward and K12's roll on CUDA.
 
 Before the loop the trainer's ``env_context`` (the scheduled
 reward-shaping coefficient) is written into every env state
@@ -199,14 +200,17 @@ def collect_rollouts(
                                       "active_players")}
     states, acc, ret_norm = carry.env_states, carry.episode_acc, carry.return_norm
     obs_raw, mask, priv = carry.obs, carry.mask, carry.priv
+    # One player: the env step may fold the roll of slot 0 in.
+    fold_roll = normalize_returns and env.spec.num_players == 1
     with torch.no_grad():
         for _ in range(num_steps):
             players = env.current_player(states)
             obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
             logits, values = network(obs, priv)
             actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
-            out = env.step_autoreset(states, acc, actions, env.draw_reset(rng, E),
-                                     env.draw_step(rng, E))
+            step = (states, acc, actions, env.draw_reset(rng, E), env.draw_step(rng, E))
+            out = (env.step_autoreset(*step, roll=(ret_norm.returns, gamma)) if fold_roll
+                   else env.step_autoreset(*step))
             for k, v in (("obs", obs_raw), ("actions", actions), ("rewards", out.rewards),
                          ("dones", out.done), ("values", values), ("log_probs", log_probs),
                          ("acting", players), ("masks", mask)):
@@ -216,11 +220,14 @@ def collect_rollouts(
             for k in log_cols:
                 log_cols[k].append(getattr(out.log, k))
             if normalize_returns:
-                acting_reward = torch.gather(out.rewards, 1, players.long()[:, None])[:, 0]
-                new_returns, samples = return_norm_roll(
-                    ret_norm.returns, acting_reward, players, out.done, gamma
-                )
-                ret_norm = ReturnNormState(new_returns, ret_norm.mean, ret_norm.m2, ret_norm.count)
+                if out.samples is None:  # the env step did not roll
+                    acting_reward = torch.gather(out.rewards, 1, players.long()[:, None])[:, 0]
+                    new_returns, samples = return_norm_roll(
+                        ret_norm.returns, acting_reward, players, out.done, gamma
+                    )
+                else:
+                    new_returns, samples = out.returns, out.samples
+                ret_norm = dataclasses.replace(ret_norm, returns=new_returns)
                 cols["samples"].append(samples)
             states, acc, obs_raw, mask, priv = out.state, out.acc, out.obs, out.mask, out.priv
 

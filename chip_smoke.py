@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K6 and K9 in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K1, K6, K9, K12 and train phase 3 in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -9,7 +9,9 @@ exits non-zero without the final result line:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from burn_ppo_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch version at the main paths'
-     shapes, timed with CUDA events: K1 CartPole step (E = 4096), K2
+     shapes, timed with CUDA events: K1 CartPole step (E = 4096 and 4097,
+     with and without the return normaliser's roll folded in; failures,
+     timeouts and continuing envs each required; timed with the roll), K2
      sample ([4096, 2] all legal; [4096, 7] with 0-6 masked columns), K3
      GAE [128, 4096], K4 Connect Four step (E = 4096, the packed state,
      exact, wins in all four directions, draws, invalid, out-of-range
@@ -33,7 +35,8 @@ exits non-zero without the final result line:
      exact, along random-legal walks at 4, 2 and 6 players with invalid
      actions, finished games and forced discards), K12 return normaliser (roll at
      [4096, 1] and [4096, 4]; finalize at [524288] with and without a
-     valid mask), K2 at [4096, 33] on Skull's own masks and at the
+     valid mask, two calls bit for bit, timed both ways), K2 at [4096, 33]
+     on Skull's own masks and at the
      opponents' [1229, 33] (the pool rows [2867:] of the same masks, a
      view that does not start 16-byte aligned); K13 Liar's Dice
      step (E = 4096, exact, along a random-legal walk with calls,
@@ -50,21 +53,28 @@ exits non-zero without the final result line:
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
      K4, K6, K9 and K13 print their ptxas lines (registers, stack frame,
-     spills); with --parent, the parent commit's K6 apply (at [4096, 86],
-     [4096, 270] and the update batches, there also with L2 flushed) and
-     K9 (at the five parameter counts), built from DIR,
+     spills); with --parent, the parent commit's K1 with the gather and
+     K12 roll its rollout ran after it (E = 4096), its three-launch K12
+     finalize ([524288], with and without the mask), K6 apply (at
+     [4096, 86], [4096, 270] and the update batches, there also with L2
+     flushed) and K9 (at the five parameter counts), built from DIR,
      checked against this tree's outputs and timed in turns with this
      tree's (parent, new, new, parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
-  2b. one K9 step and one K6 apply captured into a CUDA graph: each
-     replay equal bit for bit to the eager call;
+  2b. one K9 step, one K6 apply, one K1 step with the roll and one K12
+     finalize captured into CUDA graphs: each replay equal bit for bit to
+     the eager call;
   3. the CartPole bench-shape train path through the CLI entry point
-     (MLP 64x2, 4096 envs x 128 steps, obs norm on, 5 updates);
+     (MLP 64x2, 4096 envs x 128 steps, obs norm on, the return normaliser
+     on with its roll inside K1, 5 updates); with --parent (DIR a full
+     checkout), the parent's phase 3 and this tree's, each in a process of
+     its own, in turns (env-steps/s medians);
   3b. Connect Four self-play through the CLI (configs/connect_four.toml,
      MLP 512x2, no opponent pool, 4096 envs x 64 steps, obs norm on,
      5 updates): finite losses, Swiss points summing to 1;
-  3c. the same with the CNN (relu), 2 updates;
+  3c. the same with the CNN (relu) and the return normaliser on (the
+     gather and K12's roll every step), 2 updates;
   3d. Connect Four against the opponent pool through the CLI
      (configs/connect_four.toml as users run it: MLP 512x2, pool fraction
      0.25, 8 opponents at most, 4096 x 64, obs norm on), a checkpoint
@@ -176,6 +186,7 @@ from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     return_norm_finalize_f64_plain,
     return_norm_roll,
     return_norm_roll_plain,
+    return_norm_scratch,
 )
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
     ACTIVATIONS,
@@ -435,18 +446,20 @@ def turns(new, other, who: str = "parent") -> dict:
 
 
 class ParentKernels:
-    """The parent commit's K6 apply and K9, built from a checkout of it
-    into a library of their own and called as its wrappers called them
-    (the argument checks and the allocations; K9 with its per-call
-    partials), so that they are timed beside the new kernels in the same
-    process."""
+    """The parent commit's K1, K6 apply, K9 and K12 (roll and finalize),
+    built from a checkout of it into a library of their own and called as
+    its wrappers called them (the argument checks and the allocations; K9
+    with a scratch made once, the finalize with its per-call scratch; K1's
+    outputs in fourteen buffers), so that they are timed beside the new
+    kernels in the same process."""
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
-        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_k6_k9.so"
+        out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_kernels.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-               str(csrc / "obs_norm.cu"), str(csrc / "clip_adam.cu")]
+               *(str(csrc / f) for f in ("obs_norm.cu", "clip_adam.cu", "cartpole_step.cu",
+                                         "return_norm.cu"))]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
@@ -454,9 +467,14 @@ class ParentKernels:
         vp, i, l, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
         for name, argtypes in (("obs_norm_apply", [vp] * 5 + [l, i, f, vp]),
-                               ("clip_adam", [vp] * 5 + [l, i] + [f] * 9 + [vp])):
+                               ("clip_adam", [vp] * 5 + [l, i] + [f] * 9 + [vp]),
+                               ("clip_adam_scratch_len", []),
+                               ("cartpole_step_autoreset", [vp] * 24 + [i, vp]),
+                               ("return_norm_roll", [vp] * 6 + [i, i, f, vp]),
+                               ("return_norm_finalize", [vp] * 9 + [l, i, f, vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        self.partial = None  # K9's scratch, made at the first call
 
     def apply(self, state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
         D = obs.shape[-1]
@@ -475,55 +493,202 @@ class ParentKernels:
         n = params.numel()
         for t, name in ((params, "params"), (grads, "grads"), (mu, "mu"), (nu, "nu")):
             kernels.expect(t, name, torch.float32, (n,))
-        G = max(1, min(264, -(-n // 1024)))
-        partial = torch.empty(G, dtype=torch.float64, device=params.device)
+        if self.partial is None:
+            self.partial = torch.empty(self.lib.clip_adam_scratch_len(), dtype=torch.float64,
+                                       device=params.device)
         p = kernels.ptr
         kernels.check(self.lib.clip_adam(
-            p(params), p(grads), p(mu), p(nu), p(partial), n, G, float(lr), float(max_grad_norm),
+            p(params), p(grads), p(mu), p(nu), p(self.partial), n, self.partial.numel(),
+            float(lr), float(max_grad_norm),
             float(eps), 0.9, 0.999, 1 - 0.9, 1 - 0.999, float(bc1), float(bc2),
             kernels.stream(params.device)), "parent K9")
 
+    def cartpole_step(self, fields: list, acc: EpisodeAccumulator, action: torch.Tensor,
+                      reset: torch.Tensor) -> dict:
+        """The parent's K1: ``fields`` the state's x, x_dot, theta,
+        theta_dot (each [E] f32) and step_idx; 9 checks, 14 outputs."""
+        E = action.shape[0]
+        f32, i32 = torch.float32, torch.int32
+        for name, t, dt, shape in (
+                *((n, t, f32, (E,)) for n, t in zip(("x", "x_dot", "theta", "theta_dot"), fields)),
+                ("step_idx", fields[4], i32, (E,)), ("reward_sum", acc.reward_sum, f32, (E, 1)),
+                ("length", acc.length, i32, (E,)), ("action", action, i32, (E,)),
+                ("reset_values", reset, f32, (E, 4))):
+            kernels.expect(t, name, dt, shape)
+        dev = action.device
+        out = {n: torch.empty(E, dtype=f32, device=dev) for n in ("x", "x_dot", "theta", "theta_dot")}
+        out.update(step_idx=torch.empty(E, dtype=i32, device=dev),
+                   reward_sum=torch.empty(E, 1, dtype=f32, device=dev),
+                   length=torch.empty(E, dtype=i32, device=dev),
+                   reward=torch.empty(E, 1, dtype=f32, device=dev),
+                   done=torch.empty(E, dtype=f32, device=dev),
+                   ep_return=torch.empty(E, 1, dtype=f32, device=dev),
+                   ep_length=torch.empty(E, dtype=i32, device=dev),
+                   outcome=torch.empty(E, 1, dtype=i32, device=dev),
+                   active=torch.empty(E, dtype=i32, device=dev),
+                   obs=torch.empty(E, 5, dtype=f32, device=dev),
+                   mask=torch.empty(E, 2, dtype=f32, device=dev))
+        p = kernels.ptr
+        kernels.check(self.lib.cartpole_step_autoreset(
+            *map(p, fields), p(acc.reward_sum), p(acc.length), p(action), p(reset),
+            *(p(out[n]) for n in ("x", "x_dot", "theta", "theta_dot", "step_idx", "reward_sum",
+                                  "length", "reward", "done", "ep_return", "ep_length", "outcome",
+                                  "active", "obs", "mask")),
+            E, kernels.stream(dev)), "parent K1")
+        return out
 
-def check_cartpole(dev, g) -> dict:
-    env = CartPole()
+    def return_norm_roll(self, returns, rewards, acting, dones, gamma):
+        E, P = returns.shape
+        for t, name, dt, shape in ((returns, "returns", torch.float32, (E, P)),
+                                   (rewards, "rewards", torch.float32, (E,)),
+                                   (acting, "acting", torch.int32, (E,)),
+                                   (dones, "dones", torch.float32, (E,))):
+            kernels.expect(t, name, dt, shape)
+        new_returns, samples = torch.empty_like(returns), torch.empty_like(rewards)
+        p = kernels.ptr
+        kernels.check(self.lib.return_norm_roll(
+            p(returns), p(rewards), p(acting), p(dones), p(new_returns), p(samples), E, P,
+            float(gamma), kernels.stream(returns.device)), "parent K12 roll")
+        return new_returns, samples
 
+    def cartpole_rollout_step(self, fields, acc, action, reset, returns, players):
+        """What the parent's rollout ran for one CartPole step with the
+        return normaliser on: K1, the acting player's reward picked by a
+        gather, K12's roll."""
+        out = self.cartpole_step(fields, acc, action, reset)
+        acting_reward = torch.gather(out["reward"], 1, players.long()[:, None])[:, 0]
+        return out, self.return_norm_roll(returns, acting_reward, players, out["done"], 0.99)
+
+    def return_norm_finalize(self, state, samples, rewards, clip=10.0, valid=None):
+        """The parent's three-launch finalize, its scratch made per call."""
+        N = rewards.numel()
+        x, r = samples.reshape(-1), rewards.reshape(-1)
+        w = None if valid is None else valid.reshape(-1)
+        for t, name in ((x, "samples"), (r, "rewards"), *(((w, "valid"),) if w is not None else ())):
+            kernels.expect(t, name, torch.float32, (N,))
+        for t, name in ((state.mean, "mean"), (state.m2, "m2"), (state.count, "count")):
+            kernels.expect(t, name, torch.float32, ())
+        G = max(1, min(1024, -(-N // (8 * 256))))
+        scratch = torch.empty(5 * G, dtype=torch.float64, device=x.device)
+        stats = torch.empty(3, dtype=torch.float64, device=x.device)
+        normalized = torch.empty_like(r)
+        p = kernels.ptr
+        kernels.check(self.lib.return_norm_finalize(
+            p(x), p(r), p(w), p(state.mean), p(state.m2), p(state.count), p(scratch),
+            p(normalized), p(stats), N, G, float(clip), kernels.stream(x.device)),
+            "parent K12 finalize")
+        return stats, normalized.reshape(rewards.shape)
+
+
+def cartpole_inputs(dev, g, n: int) -> tuple:
+    """n envs on both sides of the failure thresholds, 5% of them at the
+    last step before the 500-step cap, with rolling returns for the roll."""
     def u(*shape):
         return torch.rand(*shape, generator=g, device=dev)
 
-    # States on both sides of the failure thresholds and the 500-step cap.
-    state = CartPoleState(
-        x=(u(E) - 0.5) * 4.9, x_dot=(u(E) - 0.5) * 4, theta=(u(E) - 0.5) * 0.43,
-        theta_dot=(u(E) - 0.5) * 4,
-        step_idx=torch.randint(0, 500, (E,), generator=g, device=dev, dtype=torch.int32),
-    )
-    acc = EpisodeAccumulator(u(E, 1) * 100, torch.randint(0, 499, (E,), generator=g, device=dev,
+    steps = torch.randint(0, 500, (n,), generator=g, device=dev, dtype=torch.int32)
+    state = CartPoleState.of(
+        (u(n) - 0.5) * 4.9, (u(n) - 0.5) * 4, (u(n) - 0.5) * 0.43, (u(n) - 0.5) * 4,
+        torch.where(u(n) < 0.05, 499, steps).to(torch.int32))
+    acc = EpisodeAccumulator(u(n, 1) * 100, torch.randint(0, 499, (n,), generator=g, device=dev,
                                                           dtype=torch.int32))
-    action = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
-    reset = (u(E, 4) - 0.5) * 0.1
-    k = env.step_autoreset(state, acc, action, reset)
-    p = autoreset_step(env, state, acc, action, reset)
-    torch.cuda.synchronize()
-    exact = [(k.state.step_idx, p.state.step_idx), (k.rewards, p.rewards), (k.done, p.done),
-             (k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
-             (k.log.total_rewards, p.log.total_rewards), (k.log.length, p.log.length),
-             (k.log.outcome, p.log.outcome), (k.log.active_players, p.log.active_players),
-             (k.mask, p.mask)]
-    for a, b in exact:
-        if not torch.equal(a, b):
-            raise AssertionError("cartpole_step_autoreset: discrete outputs differ from plain")
-    err = max_err([(k.state.x, p.state.x), (k.state.x_dot, p.state.x_dot),
-                   (k.state.theta, p.state.theta), (k.state.theta_dot, p.state.theta_dot),
-                   (k.obs, p.obs)])
-    if not err <= 1e-5:
-        raise AssertionError(f"cartpole_step_autoreset: max abs err {err} > 1e-5")
-    return {
-        "max_abs_err": err, "tol": 1e-5, "dones": int(p.done.sum()),
-        **timed(lambda: env.step_autoreset(state, acc, action, reset),
-                lambda: autoreset_step(env, state, acc, action, reset)),
-        "library_ms": None,
-        # ~30 f32 operations of Euler physics per env
-        **bound(nbytes(state, acc, action, reset, k), 30.0 * E),
-    }
+    action = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int32)
+    reset = (u(n, 4) - 0.5) * 0.1
+    returns = torch.randn(n, 1, generator=g, device=dev) * 3
+    return state, acc, action, reset, returns
+
+
+def plain_cartpole(env, state, acc, action, reset, roll):
+    """The plain step, then with ``roll`` the plain roll on player 0's slot:
+    what the CPU path composes."""
+    out = autoreset_step(env, state, acc, action, reset)
+    if roll is None:
+        return out
+    acting = torch.zeros(action.shape[0], dtype=torch.int32, device=action.device)
+    ret, samples = return_norm_roll_plain(roll[0], out.rewards[:, 0], acting, out.done, roll[1])
+    return out._replace(returns=ret, samples=samples)
+
+
+def check_cartpole(dev, g, parent: "ParentKernels | None") -> dict:
+    """K1 against the plain step at E = 4096 and 4097, with and without the
+    roll folded in: the discrete outputs, the returns and the samples
+    exact, the physics and obs to 1e-5; failures, timeouts and continuing
+    envs each required. Timed with the roll at 4096. With ``parent``, the
+    parent's K1, gather and K12 roll, as its rollout ran them, checked
+    against this tree's K1 and timed in turns with it."""
+    env = CartPole()
+    out = {"tol": {"floats": 1e-5, "discrete_returns_samples": "exact"}, "max_abs_err": 0.0}
+    for n in (E, E + 1):
+        state, acc, action, reset, returns = cartpole_inputs(dev, g, n)
+        for rolled in (False, True):
+            roll = (returns, 0.99) if rolled else None
+            k = env.step_autoreset(state, acc, action, reset, None, roll)
+            p = plain_cartpole(env, state, acc, action, reset, roll)
+            torch.cuda.synchronize()
+            exact = {"step_idx": (k.state.step_idx, p.state.step_idx),
+                     "rewards": (k.rewards, p.rewards), "done": (k.done, p.done),
+                     "acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
+                     "acc.length": (k.acc.length, p.acc.length),
+                     **{f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
+                        for f in ("completed", "total_rewards", "length", "outcome",
+                                  "active_players")},
+                     "mask": (k.mask, p.mask)}
+            if rolled:
+                exact.update(returns=(k.returns, p.returns), samples=(k.samples, p.samples))
+            bad = [name for name, (a, b) in exact.items()
+                   if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b)]
+            if bad or (not rolled and (k.returns is not None or k.samples is not None)):
+                raise AssertionError(f"cartpole_step_autoreset E={n} roll={rolled}: {bad} "
+                                     "differ from plain")
+            err = max_err([(k.state.phys, p.state.phys), (k.obs, p.obs)])
+            if not (err <= 1e-5 and k.obs.shape == p.obs.shape):
+                raise AssertionError(f"cartpole_step_autoreset E={n} roll={rolled}: max abs err "
+                                     f"{err} > 1e-5")
+            done, paid = p.done > 0, p.rewards[:, 0] > 0
+            ev = {"failures": int((done & ~paid).sum()), "timeouts": int((done & paid).sum()),
+                  "continuing": int((~done).sum())}
+            if min(ev.values()) == 0:
+                raise AssertionError(f"cartpole_step_autoreset E={n}: a branch was not reached: {ev}")
+            out[f"E{n}_{'roll' if rolled else 'no_roll'}"] = {"max_abs_err": err, **ev}
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+    s, a, act, rs, ret = cartpole_inputs(dev, g, E)
+    roll = (ret, 0.99)
+    k = env.step_autoreset(s, a, act, rs, None, roll)
+
+    def new():
+        return env.step_autoreset(s, a, act, rs, None, roll)
+
+    out.update(
+        **timed(new, lambda: plain_cartpole(env, s, a, act, rs, roll)),
+        library_ms=None,
+        # ~30 f32 operations of Euler physics per env and 2 of the roll; a
+        # reset row read only where the episode ends
+        **bound(nbytes(s, a, act, ret, k) + int(k.done.sum()) * 16, 32.0 * E),
+    )
+    if parent is not None:
+        fields = [s.x.contiguous(), s.x_dot.contiguous(), s.theta.contiguous(),
+                  s.theta_dot.contiguous(), s.step_idx]
+        players = torch.zeros(E, dtype=torch.int32, device=dev)
+        po, (pret, psamples) = parent.cartpole_rollout_step(fields, a, act, rs, ret, players)
+        torch.cuda.synchronize()
+        pphys = torch.stack([po[n] for n in ("x", "x_dot", "theta", "theta_dot")], 1)
+        exact = [(po["step_idx"], k.state.step_idx), (po["reward"], k.rewards),
+                 (po["done"], k.done), (po["reward_sum"], k.acc.reward_sum),
+                 (po["length"], k.acc.length), (po["ep_return"], k.log.total_rewards),
+                 (po["ep_length"], k.log.length), (po["outcome"], k.log.outcome),
+                 (po["active"], k.log.active_players), (po["mask"], k.mask),
+                 (pret, k.returns), (psamples, k.samples)]
+        if not all(torch.equal(x, y) for x, y in exact):
+            raise AssertionError("cartpole_step_autoreset: discrete outputs differ from the parent's")
+        err = max_err([(pphys, k.state.phys), (po["obs"], k.obs)])
+        if not err <= 1e-5:
+            raise AssertionError(f"cartpole_step_autoreset: max abs err {err} against the parent's")
+        out.update(
+            parent_max_abs_err=err,
+            parent_equal_bit_for_bit=torch.equal(pphys, k.state.phys) and torch.equal(po["obs"], k.obs),
+            parent_sequence="K1, players.long(), torch.gather of the acting reward, K12 roll",
+            **turns(new, lambda: parent.cartpole_rollout_step(fields, a, act, rs, ret, players)))
+    return out
 
 
 def check_sample(dev, g, A: int, mask=None) -> dict:
@@ -915,48 +1080,74 @@ def check_return_norm_roll(dev, g) -> dict:
     return out
 
 
-def check_return_norm_finalize(dev, g) -> dict:
+def check_return_norm_finalize(dev, g, parent: "ParentKernels | None") -> dict:
     """K12's finalize over CartPole's [524288] (128 x 4096): into an empty
     and into a filled state, with and without a valid mask, and a mask
     with no valid sample. f64 stats to 1e-12 relative, normalized rewards
-    to 2 f32 ulp; the empty mask leaves the state exactly as it was."""
+    to 2 f32 ulp; the empty mask leaves the state exactly as it was; two
+    calls give the same bits. Timed with and without the mask. With
+    ``parent``, the parent's three-launch finalize to the same tolerances
+    and timed in turns."""
     N = E * T
     tol = {"stats64_rel": 1e-12, "normalized_rel": 2.4e-7}
     out = {"tol": tol, "max_abs_err": 0.0}
     z = torch.zeros((), device=dev)
-    states = {"empty": ReturnNormState(torch.zeros(E, 1, device=dev), z, z.clone(), z.clone()),
+    scratch = return_norm_scratch(dev)
+    out["scratch_doubles"] = scratch.numel()
+    states = {"empty": ReturnNormState(torch.zeros(E, 1, device=dev), z, z.clone(), z.clone(),
+                                       scratch),
               "filled": ReturnNormState(torch.zeros(E, 1, device=dev), z + 0.37, z + 4.1e6,
-                                        z + 2.6e6)}
+                                        z + 2.6e6, scratch)}
     samples = torch.randn(N, generator=g, device=dev) * 2 + 0.5
     rewards = torch.randn(N, generator=g, device=dev)
     valid = (torch.rand(N, generator=g, device=dev) < 0.75).float()
+
+    def close(ks, kn, ps, pn, what):
+        rel_s = float(((ks - ps).abs() / ps.abs().clamp_min(1e-300)).max())
+        rel_n = float(((kn - pn).abs() / pn.abs().clamp_min(1e-30)).max())
+        if not (rel_s <= tol["stats64_rel"] and rel_n <= tol["normalized_rel"]):
+            raise AssertionError(f"return_norm_finalize {what}: stats rel {rel_s}, "
+                                 f"normalized rel {rel_n}")
+        return {"stats64_rel": rel_s, "normalized_rel": rel_n}
+
     for sname, st in states.items():
         for vname, w in (("all", None), ("masked", valid)):
             ks, kn = return_norm_finalize_f64(st, samples, rewards, 10.0, w)
+            again = return_norm_finalize_f64(st, samples, rewards, 10.0, w)
             ps, pn = return_norm_finalize_f64_plain(st, samples, rewards, 10.0, w)
             torch.cuda.synchronize()
-            rel_s = float(((ks - ps).abs() / ps.abs().clamp_min(1e-300)).max())
-            rel_n = float(((kn - pn).abs() / pn.abs().clamp_min(1e-30)).max())
-            if not (rel_s <= tol["stats64_rel"] and rel_n <= tol["normalized_rel"]):
-                raise AssertionError(f"return_norm_finalize {sname}/{vname}: stats rel {rel_s}, "
-                                     f"normalized rel {rel_n}")
-            out[f"{sname}_{vname}"] = {"stats64_rel": rel_s, "normalized_rel": rel_n}
+            if not (torch.equal(ks, again[0]) and torch.equal(kn, again[1])):
+                raise AssertionError(f"return_norm_finalize {sname}/{vname}: two calls differ")
+            out[f"{sname}_{vname}"] = close(ks, kn, ps, pn, f"{sname}/{vname}")
             out["max_abs_err"] = max(out["max_abs_err"], max_err([(kn, pn)]))
+            if parent is not None:
+                out[f"{sname}_{vname}"]["parent"] = close(
+                    *parent.return_norm_finalize(st, samples, rewards, 10.0, w), ps, pn,
+                    f"{sname}/{vname} (parent)")
+    out["bit_identical_across_calls"] = True
     new, _ = return_norm_finalize(states["filled"], samples, rewards, 10.0, torch.zeros_like(valid))
     torch.cuda.synchronize()
     if not all(torch.equal(getattr(new, f), getattr(states["filled"], f)) for f in ("mean", "m2", "count")):
         raise AssertionError("return_norm_finalize: a batch without valid samples moved the stats")
     st = states["empty"]
     x64 = samples.double()
-    out.update(
-        **timed(lambda: return_norm_finalize_f64(st, samples, rewards),
-                lambda: return_norm_finalize_f64_plain(st, samples, rewards)),
-        library_ms=time_ms(lambda: torch.cumsum(x64, 0)),
-        library_call="torch.cumsum of the f64 samples (one of the three prefix sums, no stats)",
-        # read samples and rewards, write the normalized rewards; ~25 f64
-        # operations per element
-        **bound(nbytes(samples, rewards) + nbytes(rewards), flops64=25.0 * N),
-    )
+    for vname, w in (("all", None), ("masked", valid)):
+        def kern(w=w):
+            return return_norm_finalize_f64(st, samples, rewards, 10.0, w)
+
+        entry = {
+            **timed(kern, lambda w=w: return_norm_finalize_f64_plain(st, samples, rewards, 10.0, w)),
+            "library_ms": time_ms(lambda: torch.cumsum(x64, 0)),
+            # read samples, rewards (and valid), write the normalized rewards
+            # and the stats; ~25 f64 operations per element
+            **bound(nbytes(samples, rewards, w) + nbytes(rewards) + 24, flops64=25.0 * N),
+        }
+        if parent is not None:
+            entry.update(turns(kern, lambda w=w: parent.return_norm_finalize(
+                st, samples, rewards, 10.0, w)))
+        out[f"timed_{vname}"] = entry
+    out.update({k: out["timed_all"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
+               library_call="torch.cumsum of the f64 samples (one of the three prefix sums, no stats)")
     return out
 
 
@@ -1403,10 +1594,12 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
 
 def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
     """One K9 step (Liar's Dice CTDE's 873,778 parameters, above the max
-    norm) and one K6 apply (``obs``) captured into a CUDA graph on the
-    current stream after a warm-up on a side stream: each replay, from the
-    same inputs, equal bit for bit to the eager call. A replay runs no
-    wrapper, so the launch counters do not move."""
+    norm), one K6 apply (``obs``), one K1 step with the roll (E = 4096)
+    and one K12 finalize ([524288] with a valid mask, the state's scratch)
+    captured into CUDA graphs on the current stream after a warm-up on a
+    side stream: each replay, from the same inputs, equal bit for bit to
+    the eager call. A replay runs no wrapper, so the launch counters do
+    not move."""
     n = LD_CTDE_PARAMS
     start = [torch.randn(n, generator=g, device=dev),
              torch.randn(n, generator=g, device=dev) * 10.0 / n ** 0.5,
@@ -1416,38 +1609,67 @@ def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
               partial=clip_adam_scratch(dev))
     D = obs.shape[1]
     st = obs_norm_update_plain(ObsNormState.create(D, dev), connect_four_like(dev, g, E * T_LD, D))
+    env = CartPole()
+    cp = cartpole_inputs(dev, g, E)
+    cp_roll = (cp[4], 0.99)
+    N = E * T
+    z = torch.zeros((), device=dev)
+    rn = ReturnNormState(torch.zeros(E, 1, device=dev), z + 0.37, z + 4.1e6, z + 2.6e6,
+                         return_norm_scratch(dev))
+    fin_in = (torch.randn(N, generator=g, device=dev), torch.randn(N, generator=g, device=dev),
+              10.0, (torch.rand(N, generator=g, device=dev) < 0.75).float())
     eager = [t.clone() for t in start]
     clip_adam(*eager, **kw)
     eager_obs = obs_norm_apply(st, obs)
+    eager_step = env.step_autoreset(*cp[:4], None, cp_roll)
+    eager_fin = return_norm_finalize_f64(rn, *fin_in)
     bufs = [t.clone() for t in start]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         clip_adam(*[t.clone() for t in start], **kw)
         obs_norm_apply(st, obs)
+        env.step_autoreset(*cp[:4], None, cp_roll)
+        return_norm_finalize_f64(rn, *fin_in)
     torch.cuda.current_stream().wait_stream(side)
-    graphs = {"clip_adam": torch.cuda.CUDAGraph(), "obs_norm_apply": torch.cuda.CUDAGraph()}
+    names = ("clip_adam", "obs_norm_apply", "cartpole_step_autoreset", "return_norm_finalize")
+    graphs = {name: torch.cuda.CUDAGraph() for name in names}
     with torch.cuda.graph(graphs["clip_adam"]):
         clip_adam(*bufs, **kw)
     with torch.cuda.graph(graphs["obs_norm_apply"]):
         captured = obs_norm_apply(st, obs)
-    before = (clip_adam.launches, obs_norm_apply.launches)
+    with torch.cuda.graph(graphs["cartpole_step_autoreset"]):
+        captured_step = env.step_autoreset(*cp[:4], None, cp_roll)
+    with torch.cuda.graph(graphs["return_norm_finalize"]):
+        captured_fin = return_norm_finalize_f64(rn, *fin_in)
+    step_pairs = [(captured_step.state.phys, eager_step.state.phys),
+                  (captured_step.state.step_idx, eager_step.state.step_idx),
+                  (captured_step.acc.reward_sum, eager_step.acc.reward_sum),
+                  (captured_step.acc.length, eager_step.acc.length),
+                  *((getattr(captured_step.log, f), getattr(eager_step.log, f))
+                    for f in ("completed", "total_rewards", "length", "outcome", "active_players")),
+                  *((getattr(captured_step, f), getattr(eager_step, f))
+                    for f in ("rewards", "done", "obs", "mask", "returns", "samples"))]
+    before = tuple(WRAPPERS[name].launches for name in names)
     for replay in range(2):
         for t, s0 in zip(bufs, start):
             t.copy_(s0)
-        captured.zero_()
-        graphs["clip_adam"].replay()
-        graphs["obs_norm_apply"].replay()
+        for t in (captured, *captured_fin, *(c for c, _ in step_pairs)):
+            t.zero_()
+        for graph in graphs.values():
+            graph.replay()
         torch.cuda.synchronize()
         if not (all(torch.equal(a, b) for a, b in zip(bufs, eager))
-                and torch.equal(captured, eager_obs)):
+                and torch.equal(captured, eager_obs)
+                and all(torch.equal(a, b) for a, b in step_pairs)
+                and all(torch.equal(a, b) for a, b in zip(captured_fin, eager_fin))):
             raise AssertionError(f"graph replay {replay} differs from the eager calls")
-    if (clip_adam.launches, obs_norm_apply.launches) != before:
+    if tuple(WRAPPERS[name].launches for name in names) != before:
         raise AssertionError("a graph replay moved a launch counter")
     return {"replays": 2, "equal_bit_for_bit": True, "clip_adam_n": n,
-            "obs_norm_apply_shape": list(obs.shape),
-            "clip_adam_replay_ms": time_ms(graphs["clip_adam"].replay),
-            "obs_norm_apply_replay_ms": time_ms(graphs["obs_norm_apply"].replay)}
+            "obs_norm_apply_shape": list(obs.shape), "cartpole_step_autoreset_envs": E,
+            "return_norm_finalize_n": N,
+            **{f"{name}_replay_ms": time_ms(graph.replay) for name, graph in graphs.items()}}
 
 
 def episode_logs(dev, g, T: int, P: int, rate: float = 0.05) -> EpisodeLog:
@@ -1568,6 +1790,9 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
 
 
 def bench_train(tmp: Path, card_line: str) -> dict:
+    """The CartPole bench shape. The return normaliser is on (one player):
+    its roll runs inside K1, so K12's roll launches never, and the
+    finalize once per update."""
     n = BENCH_UPDATES
     out, _ = train_phase(
         tmp / "bench", ["--config", str(ROOT / "configs" / "cartpole.toml"),
@@ -1575,16 +1800,47 @@ def bench_train(tmp: Path, card_line: str) -> dict:
         n, E * T,
         {"cartpole_step_autoreset": n * T, "masked_gumbel_sample": n * T,
          "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2), "obs_norm_update": n,
-         "return_norm_roll": n * T, "return_norm_finalize": n},
+         "return_norm_finalize": n},
         card_line,
     )
     return out
 
 
+BENCH_TURN = """
+import json, sys, tempfile
+from pathlib import Path
+sys.path.insert(0, ".")
+import chip_smoke
+with tempfile.TemporaryDirectory(prefix="chip_smoke_turn_") as d:
+    print(json.dumps(chip_smoke.bench_train(Path(d), chip_smoke.card())))
+"""
+
+
+def bench_train_turns(parent_dir: Path) -> dict:
+    """Phase 3 for the parent's tree (a full checkout) and this one, in
+    turns (parent, this, this, parent), each its own process running its
+    own ``chip_smoke.bench_train``: env-steps/s medians after the first
+    update."""
+    out: dict = {"parent_env_steps_per_s_median": [], "env_steps_per_s_median": []}
+    for key, tree in (("parent_", parent_dir), ("", ROOT), ("", ROOT), ("parent_", parent_dir)):
+        res = subprocess.run([sys.executable, "-c", BENCH_TURN], cwd=tree, capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"bench_train in {tree} exited {res.returncode}:\n{res.stderr[-4000:]}")
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        out[f"{key}env_steps_per_s_median"].append(run["env_steps_per_s_median_after_first"])
+    return out
+
+
 def selfplay_train(tmp: Path, card_line: str, network: str, updates: int) -> dict:
     """Connect Four pure self-play: one apply per rollout step, one for the
-    bootstrap and one for the update batch."""
-    extra = ["--network-type", "cnn", "--activation", "relu"] if network == "cnn" else []
+    bootstrap and one for the update batch. The CNN run also turns the
+    return normaliser on: two players, so the rollout gathers the acting
+    player's reward and launches K12's roll every step."""
+    extra = (["--network-type", "cnn", "--activation", "relu", "--normalize-returns"]
+             if network == "cnn" else [])
+    rn = ({"return_norm_roll": updates * T_C4, "return_norm_finalize": updates}
+          if network == "cnn" else {})
     out, series = train_phase(
         tmp / f"c4_{network}",
         ["--config", str(ROOT / "configs" / "connect_four.toml"),
@@ -1593,7 +1849,7 @@ def selfplay_train(tmp: Path, card_line: str, network: str, updates: int) -> dic
         updates, E * T_C4,
         {"connect_four_step_autoreset": updates * T_C4, "masked_gumbel_sample": updates * T_C4,
          "gae_multiplayer_reverse_scan": updates,
-         "obs_norm_apply": updates * (T_C4 + 2), "obs_norm_update": updates},
+         "obs_norm_apply": updates * (T_C4 + 2), "obs_norm_update": updates, **rn},
         card_line,
     )
     points = [a + b for a, b in zip(series["episode/player_0_points"],
@@ -1771,8 +2027,9 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K6 and K9 are built from it "
-                         "and timed in turns with this tree's")
+                    help="a checkout of the parent commit: its K1, K6, K9 and K12 are built "
+                         "from it and timed in turns with this tree's, and so is its CartPole "
+                         "train phase")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
@@ -1804,7 +2061,7 @@ def main(argv: list) -> int:
     apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD, parent)
     apply_batch = check_obs_norm_batch(dev, g, parent)
     checks = {
-        "cartpole_step_autoreset": check_cartpole(dev, g),
+        "cartpole_step_autoreset": check_cartpole(dev, g, parent),
         "masked_gumbel_sample": {
             **samples, "max_abs_err": max(x["max_abs_err"] for x in samples.values()),
             # A = 7's: Connect Four's, the pool path's
@@ -1824,7 +2081,7 @@ def main(argv: list) -> int:
         "episode_stats": check_episode_stats(dev, g),
         "skull_step_autoreset": skull,
         "return_norm_roll": check_return_norm_roll(dev, g),
-        "return_norm_finalize": check_return_norm_finalize(dev, g),
+        "return_norm_finalize": check_return_norm_finalize(dev, g, parent),
         "liars_dice_step_autoreset": liars_dice,
     }
     screen_device_times(checks)
@@ -1860,6 +2117,8 @@ def main(argv: list) -> int:
         }
         for phase, out in runs.items():
             emit(phase, **out)
+        if args.parent is not None:
+            emit("bench_train_turns", card=card_line, **bench_train_turns(args.parent.resolve()))
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
 
     # Launches: the sum over the eight train phases, each counted from 0.

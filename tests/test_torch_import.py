@@ -371,3 +371,91 @@ def test_adam_state_on_the_cpu_holds_no_kernel_scratch():
     opt = AdamState.create(net)
     assert opt.partial is None and clip_adam_scratch(torch.device("cpu")) is None
     assert opt.flat_params.numel() == 8 and opt.flat_params.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("rolled", [False, True])
+def test_cartpole_kernel_wrapper_passes_two_state_rows_and_two_output_buffers(monkeypatch, rolled):
+    """K1's CUDA path with a stand-in library: the C entry point takes the
+    physics rows, step_idx, the accumulators, the action, the reset rows,
+    the rolling returns (null without the roll), the i32 and f32 output
+    buffers, E, gamma and the stream (12 arguments); the wrapper makes two
+    allocations and one launch, and its outputs, the rolled returns and
+    samples among them, are views of the two buffers at the offsets the
+    kernel writes (64-element blocks)."""
+    from burn_ppo_torch.envs import cartpole as cp
+
+    assert kernels.SIGNATURES["cartpole_step_autoreset"] == [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib = _cuda_path_on_cpu(monkeypatch, cp.cartpole_step_autoreset, return_norm_roll)
+    E = 70
+    env = CartPole()
+    state = env.reset(torch.zeros(E, 4))
+    acc = EpisodeAccumulator.zero(E, 1, torch.device("cpu"))
+    action, reset = torch.zeros(E, dtype=torch.int32), torch.zeros(E, 4)
+    returns = torch.zeros(E, 1)
+    before = cp.cartpole_step_autoreset.launches
+    empty, allocations = torch.empty, []
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: (allocations.append(a), empty(*a, **k))[1])
+    out = env.step_autoreset(state, acc, action, reset, None, (returns, 0.5) if rolled else None)
+    monkeypatch.setattr(torch, "empty", empty)
+    assert len(allocations) == 2 and cp.cartpole_step_autoreset.launches == before + 1
+    (name, args), = lib.calls
+    assert name == "cartpole_step_autoreset" and len(args) == 12
+    assert args[:7] == (state.phys.data_ptr(), state.step_idx.data_ptr(),
+                        acc.reward_sum.data_ptr(), acc.length.data_ptr(), action.data_ptr(),
+                        reset.data_ptr(), returns.data_ptr() if rolled else None)
+    assert args[9:] == (E, 0.5 if rolled else 0.0, 0)
+    blk = lambda cols: -(-E * cols // 64) * 64 * 4  # noqa: E731
+    at = args[7]
+    for t, cols, shape in ((out.state.step_idx, 1, (E,)), (out.acc.length, 1, (E,)),
+                           (out.log.length, 1, (E,)), (out.log.outcome, 1, (E, 1)),
+                           (out.log.active_players, 1, (E,))):
+        assert t.data_ptr() == at and t.shape == shape and t.dtype == torch.int32
+        at += blk(cols)
+    at = args[8]
+    f32_blocks = [(out.state.phys, 4, (E, 4)), (out.acc.reward_sum, 1, (E, 1)),
+                  (out.rewards, 1, (E, 1)), (out.done, 1, (E,)),
+                  (out.log.total_rewards, 1, (E, 1)), (out.obs, 5, (E, 5)), (out.mask, 2, (E, 2))]
+    if rolled:
+        f32_blocks += [(out.returns, 1, (E, 1)), (out.samples, 1, (E,))]
+    else:
+        assert out.returns is None and out.samples is None
+    for t, cols, shape in f32_blocks:
+        assert t.data_ptr() == at and t.shape == shape and t.is_contiguous()
+        at += blk(cols)
+    assert out.log.completed is out.done and out.priv is None
+    assert out.state.x.shape == (E,) and out.state.x.data_ptr() == args[8]
+    assert return_norm_roll.launches == 0
+    with pytest.raises(ValueError, match="16-byte"):
+        env.step_autoreset(cp.CartPoleState(torch.zeros(E * 4 + 1)[1:].view(E, 4),
+                                            state.step_idx), acc, action, reset)
+
+
+def test_return_norm_finalize_wrapper_passes_the_states_scratch(monkeypatch):
+    """K12 finalize's CUDA path with a stand-in library: one launch with the
+    state's scratch and its length, two allocations (the stats and the
+    normalised rewards), and a refusal without the scratch."""
+    lib = _cuda_path_on_cpu(monkeypatch, return_norm_finalize)
+    cpu = torch.device("cpu")
+    assert ReturnNormState.create(8, 1, cpu).scratch is None
+    state = ReturnNormState.create(8, 1, cpu)
+    state.scratch = torch.empty(1320, dtype=torch.float64)
+    samples, rewards, valid = torch.ones(3, 8), torch.ones(3, 8), torch.ones(3, 8)
+    before = return_norm_finalize.launches
+    empty, empty_like, allocations = torch.empty, torch.empty_like, []
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: (allocations.append(a), empty(*a, **k))[1])
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda *a, **k: (allocations.append(a), empty_like(*a, **k))[1])
+    new, norm = return_norm_finalize(state, samples, rewards, 5.0, valid)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch, "empty_like", empty_like)
+    assert len(allocations) == 2 and return_norm_finalize.launches == before + 1
+    (name, args), = lib.calls
+    assert name == "return_norm_finalize"
+    assert len(args) == len(kernels.SIGNATURES["return_norm_finalize"]) == 13
+    assert args[2] == valid.data_ptr() and args[6:8] == (state.scratch.data_ptr(), 1320)
+    assert args[10:12] == (24, 5.0) and norm.shape == (3, 8)
+    assert new.scratch is state.scratch
+    state.scratch = None
+    with pytest.raises(ValueError, match="scratch"):
+        return_norm_finalize(state, samples, rewards)

@@ -45,6 +45,7 @@ from burn_ppo_torch.ppo.normalization import (
     return_norm_finalize_f64_plain,
     return_norm_roll,
     return_norm_roll_plain,
+    return_norm_scratch,
 )
 from burn_ppo_torch.ppo.pool_rollout import (
     OPPONENT_TILINGS,
@@ -74,35 +75,97 @@ def dev():
     return resolve_device("cuda")
 
 
-@pytest.mark.parametrize("E", [1, 257, 4096])
-def test_cartpole_kernel_matches_plain(dev, E):
-    g = torch.Generator(device=dev).manual_seed(E)
-    env = CartPole()
+def cartpole_inputs(dev, E, seed):
+    """States on both sides of the failure thresholds and the 500-step cap."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     u = lambda *s: torch.rand(*s, generator=g, device=dev)  # noqa: E731
-    state = CartPoleState(
-        x=(u(E) - 0.5) * 4.9, x_dot=(u(E) - 0.5) * 4, theta=(u(E) - 0.5) * 0.43,
-        theta_dot=(u(E) - 0.5) * 4,
-        step_idx=torch.randint(0, 500, (E,), generator=g, device=dev, dtype=torch.int32),
-    )
+    state = CartPoleState.of(
+        (u(E) - 0.5) * 4.9, (u(E) - 0.5) * 4, (u(E) - 0.5) * 0.43, (u(E) - 0.5) * 4,
+        torch.randint(0, 500, (E,), generator=g, device=dev, dtype=torch.int32))
     acc = EpisodeAccumulator(u(E, 1) * 100, torch.randint(0, 499, (E,), generator=g, device=dev,
                                                           dtype=torch.int32))
     action = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
     reset = (u(E, 4) - 0.5) * 0.1
-    before = cartpole_step_autoreset.launches
-    k = env.step_autoreset(state, acc, action, reset)
-    torch.cuda.synchronize()
-    assert cartpole_step_autoreset.launches == before + 1
-    p = autoreset_step(env, state, acc, action, reset)
-    for a, b in ((k.state.x, p.state.x), (k.state.x_dot, p.state.x_dot),
-                 (k.state.theta, p.state.theta), (k.state.theta_dot, p.state.theta_dot),
-                 (k.obs, p.obs)):
+    returns = torch.randn(E, 1, generator=g, device=dev) * 3
+    return state, acc, action, reset, returns
+
+
+def assert_cartpole_steps_close(k, p, rolled):
+    """Physics and obs to 1e-5 (sinf/cosf and fma contraction against the
+    CPU's), every other output equal, dtypes and shapes too."""
+    for a, b in ((k.state.phys, p.state.phys), (k.obs, p.obs)):
+        assert a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
-    for a, b in ((k.state.step_idx, p.state.step_idx), (k.rewards, p.rewards), (k.done, p.done),
-                 (k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
-                 (k.log.total_rewards, p.log.total_rewards), (k.log.length, p.log.length),
-                 (k.log.outcome, p.log.outcome), (k.log.active_players, p.log.active_players),
-                 (k.mask, p.mask)):
-        assert torch.equal(a, b)
+    pairs = [(k.state.step_idx, p.state.step_idx), (k.rewards, p.rewards), (k.done, p.done),
+             (k.acc.reward_sum, p.acc.reward_sum), (k.acc.length, p.acc.length),
+             (k.log.total_rewards, p.log.total_rewards), (k.log.length, p.log.length),
+             (k.log.outcome, p.log.outcome), (k.log.active_players, p.log.active_players),
+             (k.mask, p.mask)]
+    if rolled:
+        pairs += [(k.returns, p.returns), (k.samples, p.samples)]
+    else:
+        assert k.returns is None and k.samples is None
+    for a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rolled", [False, True])
+@pytest.mark.parametrize("E", [1, 255, 4096, 4097])
+def test_cartpole_kernel_matches_plain(dev, E, rolled):
+    """K1, with and without the return normaliser's roll folded in, against
+    the plain step (then return_norm_roll_plain on slot 0): one launch."""
+    env = CartPole()
+    state, acc, action, reset, returns = cartpole_inputs(dev, E, E)
+    roll = (returns, 0.99) if rolled else None
+    before = (cartpole_step_autoreset.launches, return_norm_roll.launches)
+    k = env.step_autoreset(state, acc, action, reset, None, roll)
+    torch.cuda.synchronize()
+    assert (cartpole_step_autoreset.launches, return_norm_roll.launches) == (
+        before[0] + 1, before[1])
+    p = autoreset_step(env, state, acc, action, reset)
+    if rolled:
+        ret, samples = return_norm_roll_plain(returns, p.rewards[:, 0],
+                                              torch.zeros(E, dtype=torch.int32, device=dev),
+                                              p.done, 0.99)
+        p = p._replace(returns=ret, samples=samples)
+    assert_cartpole_steps_close(k, p, rolled)
+
+
+def test_cartpole_kernel_replays_from_a_cuda_graph(dev):
+    """K1 with the roll captured into a CUDA graph: a replay equal bit for
+    bit to the eager call, and no launch counted."""
+    env = CartPole()
+    E = 4096
+    state, acc, action, reset, returns = cartpole_inputs(dev, E, 7)
+    eager = env.step_autoreset(state, acc, action, reset, None, (returns, 0.99))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        env.step_autoreset(state, acc, action, reset, None, (returns, 0.99))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = env.step_autoreset(state, acc, action, reset, None, (returns, 0.99))
+    before = cartpole_step_autoreset.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert cartpole_step_autoreset.launches == before
+    for a, b in zip(captured, eager):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+    assert torch.equal(captured.state.phys, eager.state.phys)
+    assert torch.equal(captured.log.total_rewards, eager.log.total_rewards)
+
+
+def test_cartpole_kernel_refuses_misaligned_rows(dev):
+    env = CartPole()
+    E = 64
+    state, acc, action, reset, _ = cartpole_inputs(dev, E, 3)
+    shifted = torch.zeros(E * 4 + 1, device=dev)[1:].view(E, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        env.step_autoreset(CartPoleState(shifted, state.step_idx), acc, action, reset)
+    with pytest.raises(ValueError, match="16-byte"):
+        env.step_autoreset(state, acc, action, shifted)
 
 
 @pytest.mark.parametrize("E,A,masked", [(4096, 2, False), (4096, 2, True), (300, 7, True),
@@ -766,38 +829,93 @@ def test_return_norm_roll_kernel_matches_plain_exactly(dev, E, P):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
-@pytest.mark.parametrize("N,weighted,filled", [(524288, False, False), (524288, True, True),
-                                               (1, False, False), (7, True, False),
-                                               (100003, False, True)])
-def test_return_norm_finalize_kernel_matches_plain(dev, N, weighted, filled):
+def return_norm_state(dev, filled: bool) -> ReturnNormState:
+    z = torch.zeros((), device=dev)
+    return ReturnNormState(returns=torch.zeros(1, 1, device=dev), mean=z + (0.4 if filled else 0),
+                           m2=z + (9e5 if filled else 0), count=z + (1e5 if filled else 0),
+                           scratch=return_norm_scratch(dev))
+
+
+@pytest.mark.parametrize("filled", [False, True])
+@pytest.mark.parametrize("valid", ["none", "mask", "zeros"])
+@pytest.mark.parametrize("N", [1, 2, 2047, 100003, 524288, 524289])
+def test_return_norm_finalize_kernel_matches_plain(dev, N, valid, filled):
     """The f64 stats to 1e-12 relative, the normalized rewards to f32
-    rounding (2 ulp), the pass-through below a count of 2 exact."""
+    rounding (2 ulp), the pass-through below a count of 2 exact; one
+    launch; a second call equal bit for bit."""
     g = torch.Generator(device=dev).manual_seed(N)
     samples = torch.randn(N, generator=g, device=dev) * 3 + 1
     rewards = torch.randn(N, generator=g, device=dev)
-    valid = (torch.rand(N, generator=g, device=dev) < 0.7).float() if weighted else None
-    z = torch.zeros((), device=dev)
-    state = ReturnNormState(returns=torch.zeros(1, 1, device=dev), mean=z + (0.4 if filled else 0),
-                            m2=z + (9e5 if filled else 0), count=z + (1e5 if filled else 0))
+    w = {"none": None, "mask": (torch.rand(N, generator=g, device=dev) < 0.7).float(),
+         "zeros": torch.zeros(N, device=dev)}[valid]
+    state = return_norm_state(dev, filled)
     before = return_norm_finalize.launches
-    ks, kn = return_norm_finalize_f64(state, samples, rewards, 10.0, valid)
+    ks, kn = return_norm_finalize_f64(state, samples, rewards, 10.0, w)
     torch.cuda.synchronize()
     assert return_norm_finalize.launches == before + 1
-    ps, pn = return_norm_finalize_f64_plain(state, samples, rewards, 10.0, valid)
+    again = return_norm_finalize_f64(state, samples, rewards, 10.0, w)
+    assert torch.equal(ks, again[0]) and torch.equal(kn, again[1])
+    ps, pn = return_norm_finalize_f64_plain(state, samples, rewards, 10.0, w)
     assert torch.all((ks - ps).abs() <= 1e-12 * ps.abs())
     assert torch.all((kn - pn).abs() <= 2.4e-7 * pn.abs())
 
 
 def test_return_norm_finalize_kernel_leaves_the_state_without_valid_samples(dev):
     N = 1000
-    z = torch.zeros((), device=dev)
-    state = ReturnNormState(returns=torch.zeros(1, 1, device=dev), mean=z + 0.1234567,
-                            m2=z + 7.654321, count=z + 77.0)
+    state = return_norm_state(dev, True)
+    state.mean, state.m2, state.count = state.mean + 0.1234567, state.m2 + 7.654321, state.count + 77
     new, _ = return_norm_finalize(state, torch.randn(N, device=dev), torch.randn(N, device=dev),
                                      10.0, torch.zeros(N, device=dev))
     torch.cuda.synchronize()
     for f in ("mean", "m2", "count"):
         assert torch.equal(getattr(new, f), getattr(state, f))
+
+
+def test_return_norm_finalize_kernel_takes_misaligned_views(dev):
+    """Inputs and output off a 16-byte boundary take the scalar loads."""
+    N = 9001
+    g = torch.Generator(device=dev).manual_seed(1)
+    buf = torch.randn(2 * N + 2, generator=g, device=dev)
+    samples, rewards = buf[1:N + 1], buf[N + 2:]
+    state = return_norm_state(dev, False)
+    ks, kn = return_norm_finalize_f64(state, samples, rewards)
+    ps, pn = return_norm_finalize_f64_plain(state, samples, rewards)
+    assert torch.all((ks - ps).abs() <= 1e-12 * ps.abs())
+    assert torch.all((kn - pn).abs() <= 2.4e-7 * pn.abs())
+
+
+def test_return_norm_finalize_kernel_replays_from_a_cuda_graph(dev):
+    """One launch on the state's scratch captures: a replay equal bit for
+    bit to the eager call."""
+    N = 524288
+    g = torch.Generator(device=dev).manual_seed(2)
+    samples = torch.randn(N, generator=g, device=dev)
+    rewards = torch.randn(N, generator=g, device=dev)
+    valid = (torch.rand(N, generator=g, device=dev) < 0.75).float()
+    state = return_norm_state(dev, True)
+    eager = return_norm_finalize_f64(state, samples, rewards, 10.0, valid)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        return_norm_finalize_f64(state, samples, rewards, 10.0, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = return_norm_finalize_f64(state, samples, rewards, 10.0, valid)
+    before = return_norm_finalize.launches
+    for t in captured:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert return_norm_finalize.launches == before
+    assert torch.equal(captured[0], eager[0]) and torch.equal(captured[1], eager[1])
+
+
+def test_return_norm_finalize_kernel_refuses_a_state_without_scratch(dev):
+    state = return_norm_state(dev, False)
+    state.scratch = None
+    with pytest.raises(ValueError, match="scratch"):
+        return_norm_finalize_f64(state, torch.zeros(8, device=dev), torch.zeros(8, device=dev))
 
 
 @pytest.mark.parametrize("E", [1, 3, 5, 257, 4096])
