@@ -157,7 +157,7 @@ def cartpole_step_autoreset(
     return _launch(state, acc, action, reset_values, roll)
 
 
-cartpole_step_autoreset.launches = 0
+kernels.counted(cartpole_step_autoreset)
 
 # The kernel's outputs, carved from one i32 and one f32 buffer (envs/base.py
 # carve_arena); csrc/cartpole_step.cu computes the same offsets. ROLL_OUT

@@ -163,7 +163,7 @@ def connect_four_step_autoreset(
     return _launch(state, acc, action)
 
 
-connect_four_step_autoreset.launches = 0
+kernels.counted(connect_four_step_autoreset)
 
 # The kernel's outputs, carved from one i32 and one f32 buffer (envs/base.py
 # carve_arena); csrc/connect_four_step.cu computes the same offsets.

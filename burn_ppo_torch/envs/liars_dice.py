@@ -323,7 +323,7 @@ def liars_dice_step_autoreset(
     return _launch(state, acc, action, reset_values, u)
 
 
-liars_dice_step_autoreset.launches = 0
+kernels.counted(liars_dice_step_autoreset)
 
 # The kernel's outputs, carved from one i32 and one f32 buffer (envs/base.py
 # carve_arena); csrc/liars_dice_step.cu computes the same offsets.

@@ -517,7 +517,7 @@ def skull_step_autoreset(
     return _launch(env, state, acc, action, u)
 
 
-skull_step_autoreset.launches = 0
+kernels.counted(skull_step_autoreset)
 
 
 def _outputs(n: int) -> tuple:

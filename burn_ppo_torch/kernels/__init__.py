@@ -18,6 +18,9 @@ The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
 ``ops/categorical.py``,
 ``ops/gae.py``, ``ppo/normalization.py``, ``ppo/pool_rollout.py``,
 ``ppo/update.py``, ``ppo/episode_stats.py``) and use the helpers below.
+Each registers itself with :func:`counted`, which gives it a ``launches``
+count: the wrapper adds one where it launches its kernel, and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -105,6 +108,17 @@ SIGNATURES = {
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+
+# Every wrapper of a kernel of this library, in the order their modules
+# registered them.
+WRAPPERS: list = []
+
+
+def counted(wrapper):
+    """Register a kernel wrapper, its ``launches`` count at 0."""
+    wrapper.launches = 0
+    WRAPPERS.append(wrapper)
+    return wrapper
 
 
 def _nvcc() -> str:

@@ -72,7 +72,7 @@ def compute_gae(
     return advantages, returns
 
 
-compute_gae.launches = 0
+kernels.counted(compute_gae)
 
 MAX_KERNEL_PLAYERS = 8
 
@@ -150,7 +150,7 @@ def compute_gae_multiplayer(
     return advantages, returns
 
 
-compute_gae_multiplayer.launches = 0
+kernels.counted(compute_gae_multiplayer)
 
 
 def compute_explained_variance(

@@ -95,7 +95,7 @@ def summarize_episode_logs(logs: EpisodeLog, num_players: int,
     }
 
 
-summarize_episode_logs.launches = 0
+kernels.counted(summarize_episode_logs)
 
 
 class WindowedEpisodeTracker:

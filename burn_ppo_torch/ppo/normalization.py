@@ -26,7 +26,7 @@ waits for the device.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 import torch
@@ -110,7 +110,7 @@ def obs_norm_apply(state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -
     return out
 
 
-obs_norm_apply.launches = 0
+kernels.counted(obs_norm_apply)
 
 # Threads of the update's first pass: enough to stream the batch, at
 # least 16 elements each.
@@ -141,7 +141,7 @@ def obs_norm_update(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
     return new
 
 
-obs_norm_update.launches = 0
+kernels.counted(obs_norm_update)
 
 
 @dataclass
@@ -151,8 +151,9 @@ class ReturnNormState:
     m2: torch.Tensor  # scalar
     count: torch.Tensor  # scalar
     # K12 finalize's f64 scratch on a CUDA device (return_norm_scratch),
-    # carried from state to state; None on the CPU.
-    scratch: Optional[torch.Tensor] = None
+    # carried from state to state; None on the CPU. Marked as scratch:
+    # holds nothing between calls, so a copy of the state shares it.
+    scratch: Optional[torch.Tensor] = field(default=None, metadata={"scratch": True})
 
     @staticmethod
     def create(num_envs: int, num_players: int, device: torch.device) -> "ReturnNormState":
@@ -225,7 +226,7 @@ def return_norm_roll(
     return new_returns, samples
 
 
-return_norm_roll.launches = 0
+kernels.counted(return_norm_roll)
 
 
 def return_norm_finalize_f64_plain(
@@ -348,4 +349,4 @@ def return_norm_finalize(
     return _with_stats(state, stats), normalized
 
 
-return_norm_finalize.launches = 0
+kernels.counted(return_norm_finalize)

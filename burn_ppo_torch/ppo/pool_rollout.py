@@ -4,8 +4,10 @@ Counterpart of burn_ppo_tpu/ppo/pool_rollout.py:58-303. A fraction of the
 envs plays against sampled past checkpoints: envs ``[0, L)`` are pure
 self-play (the learner plays every seat), envs ``[L, E)`` are pool envs
 (the learner plays seat ``learner_seat[e]``, every other seat the
-opponent in rotation slot ``seat_opp[e, seat]``). Per step, in the
-reference's order:
+opponent in rotation slot ``seat_opp[e, seat]``). Step t
+(``pool_rollout_step``) writes its outputs, the learner turns and the
+seating among them, into slice t of a ``RolloutBuffers``. Per step, in
+the reference's order:
 
   1. the learner forward on ALL E envs (its values are used everywhere;
      a CTDE learner's critic reads the raw privileged obs,
@@ -39,18 +41,14 @@ from burn_ppo_torch import kernels
 from burn_ppo_torch.envs.base import Environment, EpisodeLog
 from burn_ppo_torch.models.core import activation_fn
 from burn_ppo_torch.ops.categorical import TINY, masked_sample
-from burn_ppo_torch.ppo.normalization import (
-    ObsNormState,
-    obs_norm_apply,
-    return_norm_finalize,
-    return_norm_roll,
-)
+from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, return_norm_roll
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
     RolloutBatch,
+    RolloutBuffers,
     RolloutCarry,
-    advance_last_values,
     apply_env_context,
+    finish_rollout,
 )
 
 ACTIVATIONS = {"relu": 1, "tanh": 2}
@@ -222,7 +220,7 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
     return out
 
 
-opponent_actor_forward.launches = 0
+kernels.counted(opponent_actor_forward)
 
 
 @dataclass
@@ -252,6 +250,81 @@ class PoolStepLog:
     seat_opp: torch.Tensor  # [T, E, P] slots BEFORE the resample
 
 
+def pool_rollout_step(
+    network,
+    env: Environment,
+    opponents: OpponentStack,
+    carry: RolloutCarry,
+    seating: PoolSeating,
+    obs_norm: Optional[ObsNormState],
+    rng: RandomSource,
+    buffers: RolloutBuffers,
+    t: int,
+    *,
+    num_learner_envs: int,
+    slot_hi: torch.Tensor,
+    gamma: float,
+    normalize_returns: bool,
+    obs_clip: float = 10.0,
+) -> Tuple[RolloutCarry, PoolSeating]:
+    """One vs-pool step of every env, its outputs written into slice ``t``
+    of ``buffers``; the reseat draws slots in [0, ``slot_hi``), a 0-dim
+    integer tensor on the carry's device (a captured graph reads it at
+    each replay). Returns the
+    carry and the seating after the step (the carry as
+    ``rollout.rollout_step`` returns it)."""
+    E, A, P = carry.obs.shape[0], env.spec.num_actions, env.spec.num_players
+    L = num_learner_envs
+    Ep = E - L
+    states, ret_norm, seat = carry.env_states, carry.return_norm, seating
+    obs_raw, mask = carry.obs, carry.mask
+    players = env.current_player(states)
+    obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
+    logits, values = network(obs, carry.priv)
+    actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
+    learner_turn = (seat.learner_seat < 0) | (players == seat.learner_seat)
+    if Ep > 0:
+        acting_slot = torch.gather(seat.seat_opp[L:], 1, players[L:].long()[:, None])[:, 0]
+        opp_logits = opponent_actor_forward(obs_raw[L:].contiguous(), acting_slot.contiguous(),
+                                            opponents, obs_clip)
+        opp_actions, _ = masked_sample(opp_logits, mask[L:].contiguous(),
+                                       rng.uniform((Ep, A), TINY, 1.0))
+        actions = torch.cat([actions[:L], torch.where(learner_turn[L:], actions[L:], opp_actions)])
+    out = env.step_autoreset(states, carry.episode_acc, actions, env.draw_reset(rng, E),
+                             env.draw_step(rng, E))
+    buffers.put(t, obs=obs_raw, actions=actions, all_rewards=out.rewards, dones=out.done,
+                values=values, log_probs=log_probs, acting=players, masks=mask,
+                valid=learner_turn.to(torch.float32), seat=seat.learner_seat,
+                slots=seat.seat_opp, priv=carry.priv if buffers.priv is not None else None,
+                log=out.log)
+    if normalize_returns:
+        # The rolling return advances for EVERY acting player; the stats
+        # fold learner turns only, after the loop.
+        acting_reward = torch.gather(out.rewards, 1, players.long()[:, None])[:, 0]
+        new_returns, samples = return_norm_roll(
+            ret_norm.returns, acting_reward, players, out.done, gamma
+        )
+        ret_norm = replace(ret_norm, returns=new_returns)
+        buffers.put(t, samples=samples)
+    # Reseat + resample where the episode just ended (after the capture
+    # above).
+    done = out.done > 0
+    is_selfplay = torch.arange(E, device=done.device) < L
+    new_seats = rng.integers((E,), 0, P)
+    new_slots = rng.integers((E, P), 0, slot_hi)
+    seat = PoolSeating(
+        learner_seat=torch.where(done & ~is_selfplay, new_seats, seat.learner_seat),
+        seat_opp=torch.where(done[:, None], new_slots, seat.seat_opp),
+    )
+    carry = replace(carry, env_states=out.state, episode_acc=out.acc, return_norm=ret_norm,
+                    obs=out.obs, mask=out.mask, priv=out.priv)
+    return carry, seat
+
+
+def pool_step_log(buffers: RolloutBuffers) -> PoolStepLog:
+    return PoolStepLog(episode=buffers.log, learner_seat=buffers.seat, seat_opp=buffers.slots)
+
+
 def collect_rollouts_with_opponents(
     network,
     env: Environment,
@@ -263,101 +336,35 @@ def collect_rollouts_with_opponents(
     *,
     num_steps: int,
     num_learner_envs: int,
-    num_active: int,
+    num_active,
     gamma: float = 0.99,
     normalize_returns: bool = False,
     return_clip: float = 10.0,
     obs_clip: float = 10.0,
     env_context: Optional[dict] = None,
+    buffers: Optional[RolloutBuffers] = None,
 ) -> Tuple[RolloutCarry, PoolSeating, RolloutBatch, PoolStepLog]:
     """The vs-pool rollout. ``num_active`` (<= the stacked slot count)
-    bounds the slots drawn at a reseat. Per step the randoms are drawn in
+    bounds the slots drawn at a reseat: an int (0 counts as 1), or the
+    bound itself as a 0-dim integer tensor on the carry's device. Per step the randoms are drawn in
     the reference's key order: learner uniforms [E, A], opponent uniforms
     [Ep, A], the env reset, the env step's own draw, new seats [E], new
-    slots [E, P]."""
+    slots [E, P]. The batch and the log are views of ``buffers`` (made for
+    this call when None); ``carry`` and ``seating`` are not written."""
     carry = apply_env_context(carry, env_context)
-    E = carry.obs.shape[0]
-    A, P = env.spec.num_actions, env.spec.num_players
-    L = num_learner_envs
-    Ep = E - L
-    device = carry.obs.device
-    is_selfplay = torch.arange(E, device=device) < L
-    slot_hi = max(num_active, 1)
-    cols: dict = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs",
-                                  "acting", "masks", "valid", "samples", "seat", "slots", "priv")}
-    log_cols: dict = {k: [] for k in ("completed", "total_rewards", "length", "outcome",
-                                      "active_players")}
-    states, acc, ret_norm = carry.env_states, carry.episode_acc, carry.return_norm
-    obs_raw, mask, priv = carry.obs, carry.mask, carry.priv
-    seat = seating
+    if buffers is None:
+        buffers = RolloutBuffers.create(env, num_steps, carry.obs.shape[0], carry.obs.device,
+                                        privileged=network.is_ctde, samples=normalize_returns,
+                                        pool=True)
+    slot_hi = num_active
+    if not isinstance(slot_hi, torch.Tensor):
+        slot_hi = torch.tensor(max(num_active, 1), dtype=torch.int32, device=carry.obs.device)
     with torch.no_grad():
-        for _ in range(num_steps):
-            players = env.current_player(states)
-            obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
-            logits, values = network(obs, priv)
-            actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
-            learner_turn = (seat.learner_seat < 0) | (players == seat.learner_seat)
-            if Ep > 0:
-                acting_slot = torch.gather(seat.seat_opp[L:], 1, players[L:].long()[:, None])[:, 0]
-                opp_logits = opponent_actor_forward(obs_raw[L:].contiguous(),
-                                                    acting_slot.contiguous(), opponents, obs_clip)
-                opp_actions, _ = masked_sample(opp_logits, mask[L:].contiguous(),
-                                               rng.uniform((Ep, A), TINY, 1.0))
-                actions = torch.cat(
-                    [actions[:L], torch.where(learner_turn[L:], actions[L:], opp_actions)])
-            out = env.step_autoreset(states, acc, actions, env.draw_reset(rng, E),
-                                     env.draw_step(rng, E))
-            for k, v in (("obs", obs_raw), ("actions", actions), ("rewards", out.rewards),
-                         ("dones", out.done), ("values", values), ("log_probs", log_probs),
-                         ("acting", players), ("masks", mask),
-                         ("valid", learner_turn.to(torch.float32)),
-                         ("seat", seat.learner_seat), ("slots", seat.seat_opp)):
-                cols[k].append(v)
-            if network.is_ctde:
-                cols["priv"].append(priv)
-            for k in log_cols:
-                log_cols[k].append(getattr(out.log, k))
-            if normalize_returns:
-                # The rolling return advances for EVERY acting player; the
-                # stats fold learner turns only, after the loop.
-                acting_reward = torch.gather(out.rewards, 1, players.long()[:, None])[:, 0]
-                new_returns, samples = return_norm_roll(
-                    ret_norm.returns, acting_reward, players, out.done, gamma
-                )
-                ret_norm = replace(ret_norm, returns=new_returns)
-                cols["samples"].append(samples)
-            # Reseat + resample where the episode just ended (after the
-            # capture above).
-            done = out.done > 0
-            new_seats = rng.integers((E,), 0, P)
-            new_slots = rng.integers((E, P), 0, slot_hi)
-            seat = PoolSeating(
-                learner_seat=torch.where(done & ~is_selfplay, new_seats, seat.learner_seat),
-                seat_opp=torch.where(done[:, None], new_slots, seat.seat_opp),
-            )
-            states, acc, obs_raw, mask, priv = out.state, out.acc, out.obs, out.mask, out.priv
-
-    s = {k: torch.stack(v) for k, v in cols.items() if v}
-    all_rewards, acting = s["rewards"], s["acting"]
-    slot = acting.long()[..., None]
-    rewards = torch.gather(all_rewards, 2, slot)[..., 0]
-    if normalize_returns:
-        ret_norm, rewards = return_norm_finalize(ret_norm, s["samples"], rewards, return_clip,
-                                                 valid=s["valid"])
-        all_rewards = all_rewards.scatter(2, slot, rewards[..., None])
-    batch = RolloutBatch(
-        obs=s["obs"], actions=s["actions"], rewards=rewards, all_rewards=all_rewards,
-        dones=s["dones"], values=s["values"], log_probs=s["log_probs"], acting_players=acting,
-        action_masks=s["masks"], valid_mask=s["valid"], privileged_obs=s.get("priv"),
-    )
-    logs = PoolStepLog(
-        episode=EpisodeLog(**{k: torch.stack(v) for k, v in log_cols.items()}),
-        learner_seat=s["seat"], seat_opp=s["slots"],
-    )
-    new_carry = RolloutCarry(
-        env_states=states, episode_acc=acc, return_norm=ret_norm,
-        last_value_per_player=advance_last_values(
-            carry.last_value_per_player, batch.values, acting, batch.valid_mask),
-        obs=obs_raw, mask=mask, priv=priv,
-    )
-    return new_carry, seat, batch, logs
+        for t in range(num_steps):
+            carry, seating = pool_rollout_step(
+                network, env, opponents, carry, seating, obs_norm, rng, buffers, t,
+                num_learner_envs=num_learner_envs, slot_hi=slot_hi, gamma=gamma,
+                normalize_returns=normalize_returns, obs_clip=obs_clip)
+        carry = finish_rollout(carry, buffers, normalize_returns=normalize_returns,
+                               return_clip=return_clip, valid=buffers.valid)
+    return carry, seating, buffers.batch(), pool_step_log(buffers)

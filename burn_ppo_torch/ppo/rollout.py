@@ -1,8 +1,11 @@
-"""Rollout collection as a Python loop over T steps.
+"""Rollout collection as a loop over T steps into [T, E, ...] buffers.
 
 Counterpart of burn_ppo_tpu/ppo/rollout.py:150-363 (single-player and
-pure self-play; the TPU-only ``blocked_scan`` is not carried over). Per
-step, in the reference's order:
+pure self-play; the TPU-only ``blocked_scan`` is not carried over). Step
+t (``rollout_step``) writes its outputs into slice t of one
+``RolloutBuffers``, made once by the caller (``ppo/rollout_graph.py``
+keeps one for every update, so a captured CUDA graph finds them at the
+same addresses). Per step, in the reference's order:
 
   1. the acting player and the action mask, read from the env states
      (the mask comes out of the previous env step);
@@ -21,11 +24,12 @@ Before the loop the trainer's ``env_context`` (the scheduled
 reward-shaping coefficient) is written into every env state
 (rollout.py:218-226).
 
-After the loop the acting player's rewards are read out of the
-``[T, E, P]`` rewards, the return normalizer's prefix pass (K12's
-finalize on CUDA) normalizes them at once, and the per-player last values advance: each player's slot
-takes the value of the last step that player acted in (what the
-reference's per-step one-hot update leaves after T steps).
+After the loop (``finish_rollout``) the acting player's rewards are read
+out of the ``[T, E, P]`` rewards, the return normalizer's prefix pass
+(K12's finalize on CUDA) normalizes them at once, and the per-player last
+values advance: each player's slot takes the value of the last step that
+player acted in (what the reference's per-step one-hot update leaves
+after T steps).
 
 Randomness comes from a ``RandomSource``: on the main path one
 ``torch.Generator`` on the device (``TorchRandomSource``); in the parity
@@ -65,8 +69,10 @@ class RandomSource:
         """A random permutation of range(n), int64."""
         raise NotImplementedError
 
-    def integers(self, shape: Tuple[int, ...], low: int, high: int) -> torch.Tensor:
-        """i32 integers in [low, high) (``jax.random.randint``)."""
+    def integers(self, shape: Tuple[int, ...], low: int, high) -> torch.Tensor:
+        """i32 integers in [low, high) (``jax.random.randint``). ``high`` is
+        an int, or with ``low`` 0 a 0-dim i32 tensor on the source's
+        device, which a captured CUDA graph reads at each replay."""
         raise NotImplementedError
 
 
@@ -85,6 +91,14 @@ class TorchRandomSource(RandomSource):
         return torch.randperm(n, generator=self.generator, device=self.device)
 
     def integers(self, shape, low, high):
+        if isinstance(high, torch.Tensor):
+            if low != 0:
+                raise ValueError(f"a tensor bound draws from 0, not {low}")
+            # 31 random bits modulo the bound: uniform but for a bias under
+            # high / 2^31.
+            bits = torch.randint(0, 2**31, shape, generator=self.generator, device=self.device,
+                                 dtype=torch.int32)
+            return bits.remainder_(high)
         return torch.randint(low, high, shape, generator=self.generator, device=self.device,
                              dtype=torch.int32)
 
@@ -125,6 +139,74 @@ class RolloutCarry:
     priv: Optional[torch.Tensor] = None  # [E, Dp]
 
 
+LOG_FIELDS = ("completed", "total_rewards", "length", "outcome", "active_players")
+
+
+@dataclass
+class RolloutBuffers:
+    """The [T, E, ...] outputs of a rollout, made once per (env, T, E,
+    network kind) and written in place: step t writes slice t, so a
+    captured CUDA graph finds them at the same addresses at every replay.
+    ``valid`` is all ones here, made once; the vs-pool rollout writes its
+    learner turns. ``samples`` exists with the return normalizer on,
+    ``priv`` for a CTDE network, ``seat`` and ``slots`` on the vs-pool
+    path."""
+
+    obs: torch.Tensor  # [T, E, D] raw
+    actions: torch.Tensor  # [T, E] i32
+    rewards: torch.Tensor  # [T, E] acting player's (return-normalized) reward
+    all_rewards: torch.Tensor  # [T, E, P]
+    dones: torch.Tensor  # [T, E] f32
+    values: torch.Tensor  # [T, E]
+    log_probs: torch.Tensor  # [T, E]
+    acting: torch.Tensor  # [T, E] i32
+    masks: torch.Tensor  # [T, E, A] f32
+    valid: torch.Tensor  # [T, E] f32
+    log: EpisodeLog  # [T, E(, P)]
+    samples: Optional[torch.Tensor] = None  # [T, E] rolling-return samples
+    priv: Optional[torch.Tensor] = None  # [T, E, Dp] raw
+    seat: Optional[torch.Tensor] = None  # [T, E] i32 learner seat before the reseat
+    slots: Optional[torch.Tensor] = None  # [T, E, P] i32 opponent slots before it
+
+    @staticmethod
+    def create(env: Environment, num_steps: int, num_envs: int, device: torch.device, *,
+               privileged: bool, samples: bool, pool: bool = False) -> "RolloutBuffers":
+        spec = env.spec
+        P, f32, i32 = spec.num_players, torch.float32, torch.int32
+
+        def z(*shape, dtype=f32):
+            return torch.zeros(num_steps, num_envs, *shape, dtype=dtype, device=device)
+
+        return RolloutBuffers(
+            obs=z(spec.obs_dim), actions=z(dtype=i32), rewards=z(), all_rewards=z(P), dones=z(),
+            values=z(), log_probs=z(), acting=z(dtype=i32), masks=z(spec.num_actions),
+            valid=z() if pool else torch.ones(num_steps, num_envs, device=device),
+            log=EpisodeLog(completed=z(), total_rewards=z(P), length=z(dtype=i32),
+                           outcome=z(P, dtype=i32), active_players=z(dtype=i32)),
+            samples=z() if samples else None,
+            priv=z(spec.privileged_obs_dim) if privileged else None,
+            seat=z(dtype=i32) if pool else None, slots=z(P, dtype=i32) if pool else None,
+        )
+
+    def put(self, t: int, log: Optional[EpisodeLog] = None,
+            **cols: Optional[torch.Tensor]) -> None:
+        """Write one step's columns (None: skipped) and its episode log
+        into slice ``t``."""
+        pairs = [(getattr(self, k), v) for k, v in cols.items() if v is not None]
+        if log is not None:
+            pairs += [(getattr(self.log, k), getattr(log, k)) for k in LOG_FIELDS]
+        for dst, v in pairs:
+            dst[t].copy_(v)
+
+    def batch(self) -> RolloutBatch:
+        return RolloutBatch(
+            obs=self.obs, actions=self.actions, rewards=self.rewards,
+            all_rewards=self.all_rewards, dones=self.dones, values=self.values,
+            log_probs=self.log_probs, acting_players=self.acting, action_masks=self.masks,
+            valid_mask=self.valid, privileged_obs=self.priv,
+        )
+
+
 def init_rollout_carry(
     env: Environment, num_envs: int, rng: RandomSource, device: torch.device
 ) -> RolloutCarry:
@@ -143,11 +225,19 @@ def init_rollout_carry(
 
 def apply_env_context(carry: RolloutCarry, env_context: Optional[dict]) -> RolloutCarry:
     """Broadcast scalar context values (the scheduled reward-shaping
-    coefficient) into the env states' context fields."""
+    coefficient) into the env states' context fields. A value is a host
+    float or a 0-dim tensor on the states' device: a captured graph reads
+    the tensor, which the caller writes before each replay."""
     if not env_context:
         return carry
+
+    def fill(x: torch.Tensor, v) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.to(x.dtype).expand(x.shape).contiguous()
+        return torch.full_like(x, v)
+
     states = dataclasses.replace(carry.env_states, **{
-        f: torch.full_like(getattr(carry.env_states, f), v) for f, v in env_context.items()})
+        f: fill(getattr(carry.env_states, f), v) for f, v in env_context.items()})
     return dataclasses.replace(carry, env_states=states)
 
 
@@ -174,6 +264,80 @@ def advance_last_values(
     return torch.where(last_t > 0, picked, last_vpp)
 
 
+def rollout_step(
+    network,
+    env: Environment,
+    carry: RolloutCarry,
+    obs_norm: Optional[ObsNormState],
+    rng: RandomSource,
+    buffers: RolloutBuffers,
+    t: int,
+    *,
+    gamma: float,
+    normalize_returns: bool,
+    obs_clip: float = 10.0,
+) -> RolloutCarry:
+    """One step of the learner on every env, its outputs written into slice
+    ``t`` of ``buffers``. Returns the carry after the step; its
+    ``return_norm`` holds the rolled returns, its stats and
+    ``last_value_per_player`` are the rollout's start values."""
+    E, A = carry.obs.shape[0], env.spec.num_actions
+    states, ret_norm = carry.env_states, carry.return_norm
+    players = env.current_player(states)
+    obs = obs_norm_apply(obs_norm, carry.obs, obs_clip) if obs_norm is not None else carry.obs
+    logits, values = network(obs, carry.priv)
+    actions, log_probs = masked_sample(logits, carry.mask, rng.uniform((E, A), TINY, 1.0))
+    step = (states, carry.episode_acc, actions, env.draw_reset(rng, E), env.draw_step(rng, E))
+    # One player: the env step may fold the roll of slot 0 in.
+    if normalize_returns and env.spec.num_players == 1:
+        out = env.step_autoreset(*step, roll=(ret_norm.returns, gamma))
+    else:
+        out = env.step_autoreset(*step)
+    buffers.put(t, obs=carry.obs, actions=actions, all_rewards=out.rewards, dones=out.done,
+                values=values, log_probs=log_probs, acting=players, masks=carry.mask,
+                priv=carry.priv if buffers.priv is not None else None, log=out.log)
+    if normalize_returns:
+        if out.samples is None:  # the env step did not roll
+            acting_reward = torch.gather(out.rewards, 1, players.long()[:, None])[:, 0]
+            new_returns, samples = return_norm_roll(
+                ret_norm.returns, acting_reward, players, out.done, gamma
+            )
+        else:
+            new_returns, samples = out.returns, out.samples
+        ret_norm = dataclasses.replace(ret_norm, returns=new_returns)
+        buffers.put(t, samples=samples)
+    return dataclasses.replace(carry, env_states=out.state, episode_acc=out.acc,
+                               return_norm=ret_norm, obs=out.obs, mask=out.mask, priv=out.priv)
+
+
+def finish_rollout(
+    carry: RolloutCarry,
+    buffers: RolloutBuffers,
+    *,
+    normalize_returns: bool,
+    return_clip: float = 10.0,
+    valid: Optional[torch.Tensor] = None,
+) -> RolloutCarry:
+    """After the last step: the acting player's rewards into
+    ``buffers.rewards``, normalized (K12's finalize) where the normalizer
+    is on and written back into ``all_rewards``; the carry with the new
+    return stats and the advanced per-player last values. ``valid`` (the
+    vs-pool rollout's learner turns) masks both."""
+    slot = buffers.acting.long()[..., None]
+    buffers.rewards.copy_(torch.gather(buffers.all_rewards, 2, slot)[..., 0])
+    ret_norm = carry.return_norm
+    if normalize_returns:
+        args = (ret_norm, buffers.samples, buffers.rewards, return_clip)
+        ret_norm, rewards = (return_norm_finalize(*args) if valid is None
+                             else return_norm_finalize(*args, valid=valid))
+        buffers.rewards.copy_(rewards)
+        buffers.all_rewards.scatter_(2, slot, rewards[..., None])
+    return dataclasses.replace(
+        carry, return_norm=ret_norm,
+        last_value_per_player=advance_last_values(
+            carry.last_value_per_player, buffers.values, buffers.acting, valid))
+
+
 def collect_rollouts(
     network,
     env: Environment,
@@ -187,78 +351,23 @@ def collect_rollouts(
     return_clip: float = 10.0,
     obs_clip: float = 10.0,
     env_context: Optional[dict] = None,
+    buffers: Optional[RolloutBuffers] = None,
 ) -> Tuple[RolloutCarry, RolloutBatch, EpisodeLog]:
     """Single-player or pure self-play rollout (the learner acts every
-    turn). Returns (carry', batch, episode logs [T, E])."""
+    turn). Returns (carry', batch, episode logs [T, E]); the batch and the
+    logs are views of ``buffers`` (made for this call when None), which
+    the next rollout into them overwrites. ``carry`` is not written."""
     carry = apply_env_context(carry, env_context)
-    E = carry.obs.shape[0]
-    A = env.spec.num_actions
-    device = carry.obs.device
-    cols: dict = {k: [] for k in ("obs", "actions", "rewards", "dones", "values", "log_probs",
-                                  "acting", "masks", "samples", "priv")}
-    log_cols: dict = {k: [] for k in ("completed", "total_rewards", "length", "outcome",
-                                      "active_players")}
-    states, acc, ret_norm = carry.env_states, carry.episode_acc, carry.return_norm
-    obs_raw, mask, priv = carry.obs, carry.mask, carry.priv
-    # One player: the env step may fold the roll of slot 0 in.
-    fold_roll = normalize_returns and env.spec.num_players == 1
+    if buffers is None:
+        buffers = RolloutBuffers.create(env, num_steps, carry.obs.shape[0], carry.obs.device,
+                                        privileged=network.is_ctde, samples=normalize_returns)
     with torch.no_grad():
-        for _ in range(num_steps):
-            players = env.current_player(states)
-            obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
-            logits, values = network(obs, priv)
-            actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
-            step = (states, acc, actions, env.draw_reset(rng, E), env.draw_step(rng, E))
-            out = (env.step_autoreset(*step, roll=(ret_norm.returns, gamma)) if fold_roll
-                   else env.step_autoreset(*step))
-            for k, v in (("obs", obs_raw), ("actions", actions), ("rewards", out.rewards),
-                         ("dones", out.done), ("values", values), ("log_probs", log_probs),
-                         ("acting", players), ("masks", mask)):
-                cols[k].append(v)
-            if network.is_ctde:
-                cols["priv"].append(priv)
-            for k in log_cols:
-                log_cols[k].append(getattr(out.log, k))
-            if normalize_returns:
-                if out.samples is None:  # the env step did not roll
-                    acting_reward = torch.gather(out.rewards, 1, players.long()[:, None])[:, 0]
-                    new_returns, samples = return_norm_roll(
-                        ret_norm.returns, acting_reward, players, out.done, gamma
-                    )
-                else:
-                    new_returns, samples = out.returns, out.samples
-                ret_norm = dataclasses.replace(ret_norm, returns=new_returns)
-                cols["samples"].append(samples)
-            states, acc, obs_raw, mask, priv = out.state, out.acc, out.obs, out.mask, out.priv
-
-    s = {k: torch.stack(v) for k, v in cols.items() if v}
-    all_rewards, acting = s["rewards"], s["acting"]
-    slot = acting.long()[..., None]
-    rewards = torch.gather(all_rewards, 2, slot)[..., 0]
-    if normalize_returns:
-        ret_norm, rewards = return_norm_finalize(ret_norm, s["samples"], rewards, return_clip)
-        all_rewards = all_rewards.scatter(2, slot, rewards[..., None])
-    batch = RolloutBatch(
-        obs=s["obs"],
-        actions=s["actions"],
-        rewards=rewards,
-        all_rewards=all_rewards,
-        dones=s["dones"],
-        values=s["values"],
-        log_probs=s["log_probs"],
-        acting_players=acting,
-        action_masks=s["masks"],
-        valid_mask=torch.ones(num_steps, E, dtype=torch.float32, device=device),
-        privileged_obs=s.get("priv"),
-    )
-    logs = EpisodeLog(**{k: torch.stack(v) for k, v in log_cols.items()})
-    new_carry = RolloutCarry(
-        env_states=states, episode_acc=acc, return_norm=ret_norm,
-        last_value_per_player=advance_last_values(
-            carry.last_value_per_player, batch.values, acting),
-        obs=obs_raw, mask=mask, priv=priv,
-    )
-    return new_carry, batch, logs
+        for t in range(num_steps):
+            carry = rollout_step(network, env, carry, obs_norm, rng, buffers, t, gamma=gamma,
+                                 normalize_returns=normalize_returns, obs_clip=obs_clip)
+        carry = finish_rollout(carry, buffers, normalize_returns=normalize_returns,
+                               return_clip=return_clip)
+    return carry, buffers.batch(), buffers.log
 
 
 def bootstrap_values(

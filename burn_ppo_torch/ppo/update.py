@@ -177,7 +177,7 @@ def clip_adam(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu: t
     clip_adam.launches += 1
 
 
-clip_adam.launches = 0
+kernels.counted(clip_adam)
 
 
 def clip_and_adam_step(opt: AdamState, lr: float, cfg: PPOUpdateConfig) -> None:
@@ -393,7 +393,7 @@ def ppo_loss(
     return _PPOLoss.apply(logits.contiguous(), values.contiguous(), mb, ent_coef, cfg)
 
 
-ppo_loss.launches = 0
+kernels.counted(ppo_loss)
 
 
 def minibatch_loss(

@@ -9,7 +9,9 @@ prefix pass and the PPO epochs; the host loop evaluates the schedules,
 logs ``metrics.jsonl`` at ``log_freq`` boundaries and writes checkpoints.
 The device work of an update is enqueued without waiting for the device;
 the host reads the metrics (and on the vs-pool path the pool block's game
-records) once per update, in one transfer.
+records) once per update, in one transfer. On a card the rollout is one
+CUDA graph replay an update (``ppo/rollout_graph.py``); on the CPU it
+runs eagerly on the same static buffers.
 
 The ``Trainer`` supports fresh single-player runs, pure self-play, and
 self-play against the opponent pool (``opponent_pool_fraction > 0``,
@@ -53,19 +55,15 @@ from burn_ppo_torch.models.network import ActorCriticNetwork, make_network
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
 from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker, summarize_episode_logs
 from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, obs_norm_update
-from burn_ppo_torch.ppo.pool_rollout import (
-    OpponentStack,
-    PoolSeating,
-    collect_rollouts_with_opponents,
-)
+from burn_ppo_torch.ppo.pool_rollout import OpponentStack, PoolSeating
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
     RolloutCarry,
     TorchRandomSource,
     bootstrap_values,
-    collect_rollouts,
     init_rollout_carry,
 )
+from burn_ppo_torch.ppo.rollout_graph import RolloutRunner
 from burn_ppo_torch.ppo.update import AdamState, PPOUpdateConfig, ppo_update, resolve_shuffle_block
 from burn_ppo_torch.selfplay.opponent_pool import OpponentPool
 from burn_ppo_torch.selfplay.rating_history import RatingHistory
@@ -190,28 +188,32 @@ def _finish_step(env: Environment, cfg: Config, state: TrainState, carry: Rollou
                       obs_norm=obs_norm_new), metrics
 
 
-def _env_context(env: Environment, shaping_coef: float) -> Optional[dict]:
-    """The scheduled shaping coefficient for envs that read one
-    (train.py:266-275)."""
-    return {"shaping_coef": shaping_coef} if "shaping_coef" in env.context_fields else None
+def rollout_runner(env: Environment, cfg: Config,
+                   num_learner_envs: Optional[int] = None) -> RolloutRunner:
+    """The rollout of a train step on static buffers: a captured CUDA graph
+    replayed once an update on a card, the eager loop on the CPU
+    (``ppo/rollout_graph.py``). The scheduled shaping coefficient reaches
+    the envs that read one (train.py:266-275)."""
+    return RolloutRunner(env, num_steps=cfg.num_steps, gamma=cfg.gamma,
+                         normalize_returns=cfg.effective_normalize_returns(env.spec.num_players),
+                         return_clip=cfg.return_clip, num_learner_envs=num_learner_envs)
 
 
 def make_train_step(env: Environment, cfg: Config):
     """Fused rollout -> GAE -> PPO update. ``train_step(state, lr, ent_coef,
-    rng, shaping_coef=0.0)`` returns (state, metrics, episode logs [T, E])."""
-    normalize_returns = cfg.effective_normalize_returns(env.spec.num_players)
+    rng, shaping_coef=0.0)`` returns (state, metrics, episode logs [T, E]).
+    The state's carry and the logs are the step's own buffers, which its
+    next call overwrites; ``train_step.runner`` is its ``RolloutRunner``."""
+    runner = rollout_runner(env, cfg)
 
     def train_step(state: TrainState, lr: float, ent_coef: float, rng: RandomSource,
                    shaping_coef: float = 0.0):
-        carry, batch, logs = collect_rollouts(
-            state.network, env, state.carry, state.obs_norm, rng,
-            num_steps=cfg.num_steps, gamma=cfg.gamma,
-            normalize_returns=normalize_returns, return_clip=cfg.return_clip,
-            env_context=_env_context(env, shaping_coef),
-        )
+        carry, batch, logs = runner.run(state.network, state.carry, state.obs_norm, rng,
+                                        shaping_coef)
         new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef)
         return new_state, metrics, logs
 
+    train_step.runner = runner
     return train_step
 
 
@@ -231,19 +233,19 @@ def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
     the pool-env block. ``train_step(state, seating, opponents, num_active,
     lr, ent_coef, rng, shaping_coef=0.0)`` returns (state, seating,
     metrics, the learner block's episode summaries, the pool block's
-    ``PoolRecordLog``)."""
-    normalize_returns = cfg.effective_normalize_returns(env.spec.num_players)
+    ``PoolRecordLog``). The carry, the seating and the records are the
+    step's own buffers, which its next call overwrites; every rotation's
+    stack must have the same slot count (``refresh_rotation(pad_to=)``).
+    ``train_step.runner`` is its ``RolloutRunner``."""
     L = num_learner_envs
+    runner = rollout_runner(env, cfg, num_learner_envs=L)
 
     def train_step(state: TrainState, seating: PoolSeating, opponents: OpponentStack,
                    num_active: int, lr: float, ent_coef: float, rng: RandomSource,
                    shaping_coef: float = 0.0):
-        carry, seating, batch, pool_logs = collect_rollouts_with_opponents(
-            state.network, env, opponents, state.carry, seating, state.obs_norm, rng,
-            num_steps=cfg.num_steps, num_learner_envs=L, num_active=num_active,
-            gamma=cfg.gamma, normalize_returns=normalize_returns, return_clip=cfg.return_clip,
-            env_context=_env_context(env, shaping_coef),
-        )
+        carry, seating, batch, pool_logs = runner.run(
+            state.network, state.carry, state.obs_norm, rng, shaping_coef, seating=seating,
+            opponents=opponents, num_active=num_active)
         # Only learner turns are valid: a minibatch can be all-invalid.
         new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef,
                                           may_have_invalid=True)
@@ -256,6 +258,7 @@ def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
                                 seat_opp=pool_logs.seat_opp[:, L:])
         return new_state, seating, metrics, learner_stats, records
 
+    train_step.runner = runner
     return train_step
 
 
@@ -549,6 +552,17 @@ class Trainer:
         self.pool.apply_pending_updates()
         return fetched["metrics"], fetched["stats"]
 
+    def update(self, lr: float, ent_coef: float, shaping: float):
+        """One update, against the pool once it holds a checkpoint: (the
+        metrics, the episode summaries), fetched to the host."""
+        fetched = self._pool_update(lr, ent_coef, shaping)
+        if fetched is not None:
+            return fetched
+        self.state, metrics_t, logs = self.train_step(self.state, lr, ent_coef, self.rng, shaping)
+        fetched = self._fetch({"metrics": metrics_t,
+                               "stats": summarize_episode_logs(logs, self.num_players)})
+        return fetched["metrics"], fetched["stats"]
+
     # ------------------------------------------------------------------
     def train(self) -> Dict[str, float]:
         cfg = self.cfg
@@ -583,18 +597,9 @@ class Trainer:
                     break
                 lr = cfg.learning_rate.get(self.global_step)
                 ent_coef = cfg.entropy_coef.get(self.global_step)
-                shaping = cfg.reward_shaping_coef.get(self.global_step)
                 t0 = time.time()
-                fetched = self._pool_update(lr, ent_coef, shaping)
-                if fetched is None:
-                    self.state, metrics_t, logs = self.train_step(self.state, lr, ent_coef,
-                                                                  self.rng, shaping)
-                    fetched = self._fetch({
-                        "metrics": metrics_t,
-                        "stats": summarize_episode_logs(logs, self.num_players),
-                    })
-                    fetched = fetched["metrics"], fetched["stats"]
-                metrics, stats = fetched
+                metrics, stats = self.update(lr, ent_coef,
+                                             cfg.reward_shaping_coef.get(self.global_step))
                 self.tracker.ingest(stats)
                 self._enforce_guards(metrics)
                 step_time = time.time() - t0

@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K1, K6, K9, K12 and train phase 3 in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K1, K6, K9, K12 and train phases 3, 3d in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -53,7 +53,8 @@ exits non-zero without the final result line:
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
      K4, K6, K9 and K13 print their ptxas lines (registers, stack frame,
-     spills); with --parent, the parent commit's K1 with the gather and
+     spills); with --parent, when DIR's kernel sources differ from this
+     tree's, the parent commit's K1 with the gather and
      K12 roll its rollout ran after it (E = 4096), its three-launch K12
      finalize ([524288], with and without the mask), K6 apply (at
      [4096, 86], [4096, 270] and the update batches, there also with L2
@@ -65,11 +66,24 @@ exits non-zero without the final result line:
   2b. one K9 step, one K6 apply, one K1 step with the roll and one K12
      finalize captured into CUDA graphs: each replay equal bit for bit to
      the eager call;
+  2c. the trainer's rollout as one captured CUDA graph
+     (``ppo/rollout_graph.py``) against the eager loop
+     (``collect_rollouts``), from the same generator state, rollout after
+     rollout, every carry, batch and log tensor bit for bit and the
+     generator at the same offset: CartPole 4096 x 128, Connect Four
+     self-play 4096 x 64 (MLP 512x2), Skull CTDE self-play at the
+     bench_skull_ctde shape, and Liar's Dice CTDE against the pool 4096 x
+     128 across new rotations, a growing and a shrinking active count (one
+     graph, its slot bound on the device; the trainer's host remap of the
+     seats) and a shaping change; one capture a case; then the eager loop
+     and the graph timed in turns (events and device ms per rollout),
+     with the rollout's bound (the per-step kernels' bounds of phase 2
+     plus the forward at the f32 rate);
   3. the CartPole bench-shape train path through the CLI entry point
      (MLP 64x2, 4096 envs x 128 steps, obs norm on, the return normaliser
      on with its roll inside K1, 5 updates); with --parent (DIR a full
      checkout), the parent's phase 3 and this tree's, each in a process of
-     its own, in turns (env-steps/s medians);
+     its own, in turns (env-steps/s medians), and the same for phase 3d;
   3b. Connect Four self-play through the CLI (configs/connect_four.toml,
      MLP 512x2, no opponent pool, 4096 envs x 64 steps, obs norm on,
      5 updates): finite losses, Swiss points summing to 1;
@@ -101,11 +115,24 @@ exits non-zero without the final result line:
   3h. Liar's Dice with the MLP 512x3 against the pool
      (configs/liars_dice.toml --normalize-obs, 4096 x 128), 3 updates: K6
      at width 270 and K7 with MLP towers and per-slot obs norm;
+  3i. the device's idle share of one CartPole update (4096 x 128) and of
+     one Connect Four update against a pool of 8 (4096 x 64): the
+     profiler's device intervals in one update against the median of
+     three unprofiled updates on the host's clock (and against the
+     profiled update's own span); in one profiled replay of each
+     update's rollout graph, each rollout kernel's device launches,
+     counted by name, equal to those the graph captured;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps.
 
-Each train phase sets every kernel's launch counter to 0 just before it
-and checks the counts just after against what its updates imply.
+Each train phase sets every kernel's launch counter, and the rollout
+graphs' counts, to 0 just before it and checks the counts just after
+against what its updates imply: the rollout graphs replayed once an
+update; a rollout kernel's launches its graphs' captured launches times
+their replays (a replay runs no wrapper; phase 3i counts the replayed
+kernels on the device), and no eager launch of it beyond the graphs'
+warm-ups (one eager rollout before a runner's capture); the update's
+kernels counted by their wrappers.
 
 The line before the last holds the kernel table, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -122,6 +149,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -205,6 +233,19 @@ from burn_ppo_torch.ppo.update import (  # noqa: E402
     ppo_loss_forward,
     ppo_loss_plain,
 )
+from burn_ppo_torch.config import Config  # noqa: E402
+from burn_ppo_torch.envs import make_env  # noqa: E402
+from burn_ppo_torch.ppo.pool_rollout import PoolSeating, collect_rollouts_with_opponents  # noqa: E402
+from burn_ppo_torch.ppo.rollout import (  # noqa: E402
+    RolloutBuffers,
+    TorchRandomSource,
+    collect_rollouts,
+    finish_rollout,
+    init_rollout_carry,
+)
+from burn_ppo_torch.ppo.rollout_graph import RolloutGraph, state_leaves  # noqa: E402
+from burn_ppo_torch.ppo.update import AdamState  # noqa: E402
+from burn_ppo_torch.train import Trainer, build_network_for_env, rollout_runner  # noqa: E402
 
 E, T = 4096, 128  # CartPole bench shape
 T_C4 = 64  # Connect Four self-play shape: 4096 envs x 64 steps
@@ -578,6 +619,14 @@ class ParentKernels:
             p(normalized), p(stats), N, G, float(clip), kernels.stream(x.device)),
             "parent K12 finalize")
         return stats, normalized.reshape(rewards.shape)
+
+
+def same_kernel_sources(parent_dir: Path) -> bool:
+    """Whether the parent's ``csrc`` holds exactly this tree's sources."""
+    theirs = parent_dir / "burn_ppo_torch" / "csrc"
+    mine = {f.name: f.read_bytes() for f in kernels.sources()}
+    return ({f.name for f in theirs.glob("*.cu*")} == set(mine)
+            and all((theirs / n).read_bytes() == b for n, b in mine.items()))
 
 
 def cartpole_inputs(dev, g, n: int) -> tuple:
@@ -1672,6 +1721,318 @@ def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
             **{f"{name}_replay_ms": time_ms(graph.replay) for name, graph in graphs.items()}}
 
 
+# Phase 2c: (name, config, T, overrides, pool) at 4096 envs.
+ROLLOUT_CASES = (
+    ("cartpole", "cartpole.toml", T, {}, False),
+    ("connect_four_selfplay", "connect_four.toml", T_C4,
+     {"opponent_pool_fraction": 0.0, "normalize_obs": True}, False),
+    ("skull_ctde_selfplay", "skull_ctde.toml", T_C4,
+     {"opponent_pool_fraction": 0.0, "hidden_size": 512, "num_hidden": 2, "activation": "tanh",
+      "critic_hidden_size": 512, "critic_num_hidden": 2}, False),
+    ("liars_dice_ctde_pool", "liars_dice_ctde.toml", T_LD, {}, True),
+)
+# The pool case's rounds: (shaping, the rotation's active count); each
+# round a new stack, and the trainer's host remap of the seats where the
+# count shrinks.
+POOL_ROUNDS = ((0.05, 1), (0.05, 3), (0.02, 3), (0.02, 1))
+SELFPLAY_SHAPING = (0.05, 0.05, 0.02)
+
+
+def rollout_setup(dev, toml: str, steps: int, overrides: dict) -> tuple:
+    """A trainer's rollout inputs at 4096 envs on the card: the config's
+    network (its parameters in the flat buffer, as ``AdamState.create``
+    leaves them), the carry, obs-norm stats where the config has them on,
+    a seeded generator."""
+    cfg = Config.load(ROOT / "configs" / toml)
+    for k, v in {"num_envs": E, "num_steps": steps, **overrides}.items():
+        setattr(cfg, k, v)
+    env = make_env(cfg.env)
+    if env.spec.variable_player_count:
+        env = env.with_num_players(cfg.player_count.get_fixed_count())
+    net = build_network_for_env(env, cfg, torch.Generator().manual_seed(0)).to(dev)
+    AdamState.create(net)
+    rng = TorchRandomSource(torch.Generator(device=dev).manual_seed(1))
+    carry = init_rollout_carry(env, E, rng, dev)
+    norm = None
+    if cfg.normalize_obs:
+        noise = torch.rand(carry.obs.shape, generator=rng.generator, device=dev)
+        norm = obs_norm_update_plain(ObsNormState.create(env.spec.obs_dim, dev), carry.obs + noise)
+    return cfg, env, net, rng, carry, norm
+
+
+def rollout_bound(checks: dict, name: str, net, steps: int) -> dict:
+    """The least time of one rollout: the per-step kernels' bounds (phase 2,
+    at the same shapes) times the steps, plus the learner forward's
+    operations at the f32 rate, plus the finalize where it runs."""
+    samples = checks["masked_gumbel_sample"]
+    per_step = {
+        "cartpole": [checks["cartpole_step_autoreset"]["bound_ms"], samples["A2"]["bound_ms"],
+                     bound(E * 5 * 4 * 2 + 11 * 4, 6.0 * E * 5)["bound_ms"]],
+        "connect_four_selfplay": [checks["connect_four_step_autoreset"]["bound_ms"],
+                                  samples["A7"]["bound_ms"], checks["obs_norm_apply"]["bound_ms"]],
+        "skull_ctde_selfplay": [checks["skull_step_autoreset"]["bound_ms"],
+                                samples["A33_skull"]["bound_ms"]],
+        "liars_dice_ctde_pool": [
+            checks["liars_dice_step_autoreset"]["bound_ms"], samples["A49_liars_dice"]["bound_ms"],
+            samples["A49_liars_dice_opponents_Ep1024"]["bound_ms"],
+            checks["opponent_actor_forward"]["liars_dice_Ep1024_K8_ctde256x2"]["bound_ms"]],
+    }[name]
+    flops = sum(2.0 * E * m.in_features * m.out_features
+                for m in net.modules() if isinstance(m, torch.nn.Linear)) * steps
+    once = checks["return_norm_finalize"]["bound_ms"] if name == "cartpole" else 0.0
+    kernels_ms = sum(per_step) * steps + once
+    return {"bound_ms": kernels_ms + flops / F32_FLOP_PER_S * 1e3, "bound_by": "operations"
+            if flops / F32_FLOP_PER_S * 1e3 > kernels_ms else "bytes",
+            "bound_kernels_ms": kernels_ms, "forward_flops": flops}
+
+
+def first_difference(got: list, want: list) -> str | None:
+    """Where two lists of tensors first differ (index, shape), or None."""
+    if len(got) != len(want):
+        return f"{len(got)} tensors against {len(want)}"
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            return f"tensor {i} of shape {tuple(b.shape)}"
+    return None
+
+
+def check_rollout_graph(dev, g, checks: dict, name: str, toml: str, steps: int, overrides: dict,
+                        pool: bool) -> dict:
+    """The trainer's graphed rollout against the eager loop
+    (``collect_rollouts``, fresh buffers) from the same generator state,
+    rollout after rollout: every carry, batch and log tensor equal bit for
+    bit, and the generator left at the same offset; one capture. On the
+    pool case the rounds change the rotation (a new stack each round), the
+    active count (1, 3, 3, 1: the one graph reads it from the device) and
+    the shaping, and apply the trainer's host remap when the count
+    shrinks. Then the eager loop (into buffers of its own) and the graph
+    timed in turns (eager, graph, graph, eager): events ms per rollout
+    (the host's enqueue included) and the profiler's device ms; and the
+    post-loop (the acting rewards' gather, K12's finalize where the
+    normaliser is on, the last values) run eagerly after a replay, against
+    its device time inside the graph."""
+    cfg, env, net, rng, carry, norm = rollout_setup(dev, toml, steps, overrides)
+    gen, P = rng.generator, env.spec.num_players
+    normalize = cfg.effective_normalize_returns(P)
+    L = E - int(round(E * cfg.opponent_pool_fraction)) if pool else None
+    runner = rollout_runner(env, cfg, num_learner_envs=L)
+    shaped = "shaping_coef" in env.context_fields
+    if pool:
+        obs_dim, act = env.spec.obs_dim, cfg.activation
+        stacks = [random_opponents(dev, g, 8, act, D=obs_dim, H=cfg.hidden_size,
+                                   A=env.spec.num_actions, depth=cfg.num_hidden)
+                  for _ in POOL_ROUNDS]
+        for stack in stacks:
+            stack.norm = None  # CTDE checkpoints carry no obs normaliser
+        seat0 = PoolSeating.create(E, L, P, 1, rng)
+        rounds = [(s, a, stack) for (s, a), stack in zip(POOL_ROUNDS, stacks)]
+    else:
+        rounds = [(s, 0, None) for s in SELFPLAY_SHAPING]
+    RolloutGraph.reset_counts()
+    eager_in, graph_in = (carry, seat0 if pool else None), (carry, seat0 if pool else None)
+    prev_active = None
+    for i, (shaping, active, stack) in enumerate(rounds):
+        if pool and prev_active is not None and active < prev_active:
+            eager_in = (eager_in[0], PoolSeating(eager_in[1].learner_seat,
+                                                 eager_in[1].seat_opp % active))
+            graph_in = (graph_in[0], PoolSeating(graph_in[1].learner_seat,
+                                                 graph_in[1].seat_opp % active))
+        prev_active = active
+        kw = dict(num_steps=steps, gamma=cfg.gamma, normalize_returns=normalize,
+                  return_clip=cfg.return_clip,
+                  env_context={"shaping_coef": shaping} if shaped else None)
+        start = gen.get_state()
+        if pool:
+            eager = collect_rollouts_with_opponents(net, env, stack, eager_in[0], eager_in[1],
+                                                    norm, rng, num_learner_envs=L,
+                                                    num_active=active, **kw)
+            eager_in = (eager[0], eager[1])
+        else:
+            eager = collect_rollouts(net, env, eager_in[0], norm, rng, **kw)
+            eager_in = (eager[0], None)
+        want = [t.clone() for t in state_leaves(list(eager))]
+        after = gen.get_state()
+        gen.set_state(start)
+        got = runner.run(net, graph_in[0], norm, rng, shaping, seating=graph_in[1],
+                         opponents=stack, num_active=active)
+        torch.cuda.synchronize()
+        graph_in = (got[0], got[1] if pool else None)
+        diff = first_difference(state_leaves(list(got)), want)
+        if diff is not None or not torch.equal(gen.get_state(), after):
+            raise AssertionError(f"rollout graph {name} round {i}: differs from the eager loop "
+                                 f"at {diff or 'the generator offset'}")
+    if RolloutGraph.replays != len(rounds) or RolloutGraph.captures != 1:
+        raise AssertionError(f"{name}: {RolloutGraph.captures} captures and "
+                             f"{RolloutGraph.replays} replays for {len(rounds)} rollouts")
+    out = {"envs": E, "steps": steps, "rounds": len(rounds), "equal_bit_for_bit": True,
+           "graphs_captured": RolloutGraph.captures,
+           "launches_per_replay": {w.__name__: n // RolloutGraph.replays
+                                   for w, n in RolloutGraph.launches.items()}}
+    if pool:
+        out["rounds_shaping_active"] = [[s, a] for s, a in POOL_ROUNDS]
+
+    # The eager loop (from the runner's carry, which it does not write)
+    # and the graph in turns.
+    shaping, active, stack = rounds[-1]
+    kw = dict(num_steps=steps, gamma=cfg.gamma, normalize_returns=normalize,
+              return_clip=cfg.return_clip,
+              env_context={"shaping_coef": shaping} if shaped else None,
+              buffers=RolloutBuffers.create(env, steps, E, dev, privileged=net.is_ctde,
+                                            samples=normalize, pool=pool))
+    versions = {
+        "eager": (lambda: collect_rollouts_with_opponents(
+            net, env, stack, runner.carry, runner.seating, norm, rng, num_learner_envs=L,
+            num_active=active, **kw)) if pool else
+        (lambda: collect_rollouts(net, env, runner.carry, norm, rng, **kw)),
+        "graph": lambda: runner.run(net, runner.carry, norm, rng, shaping,
+                                    seating=runner.seating, opponents=stack, num_active=active),
+    }
+
+    def post_loop():
+        finish_rollout(runner.carry, runner.buffers, normalize_returns=normalize,
+                       return_clip=cfg.return_clip, valid=runner.buffers.valid if pool else None)
+
+    ms = {v: [] for v in versions}
+    dev_ms = {v: [] for v in versions}
+    for v in ("eager", "graph", "graph", "eager"):
+        ms[v].append(time_ms(versions[v], reps=5, warmup=1))
+        dev_ms[v].append(device_ms(versions[v], reps=3)[0])
+    rollout_ms, rollout_dev = min(ms["graph"]), min(filter(None, dev_ms["graph"]), default=None)
+    out["post_loop"] = {"eager_ms": time_ms(post_loop), "device_ms": device_ms(post_loop)[0]}
+    out.update(ms_turns=ms, device_ms_turns=dev_ms, ms=rollout_ms, device_ms=rollout_dev,
+               idle_share=None if rollout_dev is None else 1.0 - rollout_dev / rollout_ms,
+               **rollout_bound(checks, name, net, steps))
+    return out
+
+
+def check_rollout_graphs(dev, g, checks: dict) -> dict:
+    return {name: check_rollout_graph(dev, g, checks, name, toml, steps, over, pool)
+            for name, toml, steps, over, pool in ROLLOUT_CASES}
+
+
+# The device kernel of each rollout wrapper (csrc), one launch a call.
+ROLLOUT_KERNELS = {
+    "cartpole_step_autoreset": "cartpole_step_autoreset_kernel",
+    "connect_four_step_autoreset": "connect_four_step_autoreset_kernel",
+    "skull_step_autoreset": "skull_step_autoreset_kernel",
+    "liars_dice_step_autoreset": "liars_dice_step_autoreset_kernel",
+    "masked_gumbel_sample": "masked_gumbel_sample_kernel",
+    "obs_norm_apply": "obs_norm_apply_kernel",
+    "opponent_actor_forward": "opponent_mlp_kernel",
+    "return_norm_roll": "return_norm_roll_kernel",
+    "return_norm_finalize": "return_norm_finalize_kernel",
+}
+
+
+def kernel_counts(events, launched: dict) -> dict:
+    """Each rollout kernel's device launches in a profile, counted by name,
+    beside its wrapper's launches: {name: [device, expected]} for the
+    kernels either side has."""
+    out = {}
+    for name, kernel in ROLLOUT_KERNELS.items():
+        pattern = re.compile(rf"(?<![A-Za-z0-9_]){kernel}(?![A-Za-z0-9_])")
+        seen = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and pattern.search(e.name))
+        if seen or launched.get(name):
+            out[name] = [seen, launched.get(name, 0)]
+    return out
+
+
+def replay_kernel_counts(graph: RolloutGraph) -> dict:
+    """Each rollout kernel's device launches in one profiled replay of a
+    rollout graph, by name, against the launches it captured. A graph
+    that left a kernel out or captured it twice fails. A count under the
+    captured one (the profiler lost a launch) is profiled again, at most
+    three replays; one over it fails at once."""
+    captured = {name: graph.captured.get(w, 0) for name, w in WRAPPERS.items()}
+    act = torch.profiler.ProfilerActivity
+    profiles = []
+    while len(profiles) < 3:
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            graph.graph.replay()
+            torch.cuda.synchronize()
+        counts = kernel_counts(prof.events(), captured)
+        profiles.append(counts)
+        if any(seen > want for seen, want in counts.values()):
+            raise AssertionError(f"more rollout kernels in a replay than captured: {counts}")
+        if all(seen == want for seen, want in counts.values()):
+            return {"counts": counts, "profiles": len(profiles)}
+    names = Counter(e.name[:80] for e in prof.events() if any(
+        k in e.name for k in ROLLOUT_KERNELS.values()))
+    raise AssertionError(f"rollout kernels in a replay against those captured, three "
+                         f"profiles: {profiles}; the names in the last: {dict(names)}")
+
+
+def idle_share(update, runner) -> dict:
+    """The union of the device's kernel and copy intervals in one update
+    under the profiler, against the median of three unprofiled updates on
+    the host's clock (each ending synchronised), and against the profiled
+    update's own span (the profiler slows the host). One unprofiled update
+    first, which captures the rollout's graph; then the kernels of one
+    replay of that graph (``runner.graph``) counted on the device."""
+    update()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[1]
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        with torch.profiler.record_function("one_update"):
+            update()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events if e.name == "one_update"
+              and e.device_type != torch.autograd.DeviceType.CUDA]
+    if not window:
+        raise AssertionError("the profiler recorded no update range")
+    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    spans = sorted((max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "one_update"
+                   and e.time_range.end > w0 and e.time_range.start < w1)
+    if not spans:
+        raise AssertionError("the profiler recorded no device work in an update")
+    busy, end = 0.0, w0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"update_ms": wall_ms, "update_ms_profiled": (w1 - w0) / 1e3,
+            "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / 1e3 / wall_ms,
+            "idle_share_profiled": 1.0 - busy / (w1 - w0), "device_events": len(spans),
+            "replay_kernel_counts": replay_kernel_counts(runner.graph)}
+
+
+def update_idle_shares(tmp: Path, card_line: str) -> dict:
+    """The device's idle share of one CartPole update (4096 x 128, the
+    bench shape) and of one Connect Four update against a pool of 8
+    checkpoints (4096 x 64, configs/connect_four.toml with obs norm, K =
+    8), through ``Trainer.update``; and in one replay of each update's
+    rollout graph, every rollout kernel's device launches against those
+    the graph captured. Run in a process of its own (``phase_in_process``):
+    in a process that has profiled phase 2's kernels the profiler drops a
+    K6 launch from every profile."""
+    out = {"card": card_line}
+    for name, toml, steps, pool in (("cartpole", "cartpole.toml", T, False),
+                                   ("connect_four_pool", "connect_four.toml", T_C4, True)):
+        cfg = Config.load(ROOT / "configs" / toml)
+        cfg.num_envs, cfg.num_steps, cfg.normalize_obs, cfg.seed = E, steps, True, 0
+        tr = Trainer(cfg, tmp / f"idle_{name}", device="cuda", quiet=True)
+        if pool:
+            for _ in range(8):
+                tr.global_step += 1
+                tr.save_checkpoint()
+        lr, ent = cfg.learning_rate.get(0), cfg.entropy_coef.get(0)
+        out[name] = idle_share(lambda: tr.update(lr, ent, 0.0),
+                               (tr.pool_step if pool else tr.train_step).runner)
+        if pool:
+            out[name]["rotation"] = len(tr.pool.active)
+    return out
+
+
 def episode_logs(dev, g, T: int, P: int, rate: float = 0.05) -> EpisodeLog:
     """[T, 4096] logs: wins, all-tied draws and the [0, ..] sentinel."""
     kinds = torch.randint(0, 4, (T, E), generator=g, device=dev)
@@ -1759,15 +2120,27 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
 
     for w in WRAPPERS.values():
         w.launches = 0
+    RolloutGraph.reset_counts()
     t0 = time.time()
     rc = cli.main(["train", *args, "--total-steps", str(updates * steps_per_update),
                    "--checkpoint-freq", str(checkpoint_freq), "--seed", "0",
                    "--run-dir", str(run), "--quiet"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    eager = {name: w.launches for name, w in WRAPPERS.items()}
+    graphed = {name: RolloutGraph.launches.get(w, 0) for name, w in WRAPPERS.items()}
+    warmup = {name: RolloutGraph.warmup_launches.get(w, 0) for name, w in WRAPPERS.items()}
+    launches = {name: eager[name] + graphed[name] for name in WRAPPERS}
     if rc != 0:
         raise RuntimeError(f"train command exited {rc}")
+    # Every rollout is a graph replay, one an update; the eager launches
+    # of a rollout kernel are its graphs' warm-ups, and the env step runs
+    # only in replays.
+    if RolloutGraph.replays != updates:
+        raise AssertionError(f"{RolloutGraph.replays} rollout graph replays in {updates} updates")
+    steps = [name for name in WRAPPERS if graphed[name]]
+    if any(eager[name] != warmup[name] for name in steps if name != "obs_norm_apply"):
+        raise AssertionError(f"eager rollout launches {eager} beyond the warm-ups {warmup}")
     series = scalars(run)
     for name in ("train/policy_loss", "train/value_loss", "train/total_loss", "train/entropy",
                  "train/minibatch_updates"):
@@ -1777,15 +2150,20 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
     minibatches = int(sum(series["train/minibatch_updates"]))
     want = {name: expect.get(name, 0) for name in WRAPPERS}
     want.update(ppo_loss=minibatches, clip_adam=minibatches, episode_stats=updates)
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
+    # The main path's launches: eager (the warm-ups left out) plus the
+    # graphs' (captured x replayed).
+    main_path = {name: eager[name] - warmup[name] + graphed[name] for name in WRAPPERS}
+    if main_path != want:
+        raise AssertionError(f"kernel launches {main_path} != {want}")
     sps = series["perf/sps"]
     steady = sorted(sps[1:])
     return {
         "updates": updates, "env_steps": updates * steps_per_update, "wall_s": wall,
         "env_steps_per_s_per_update": sps,
         "env_steps_per_s_median_after_first": steady[len(steady) // 2],
-        "launches": launches, "card": card_line,
+        "launches": launches, "graph_launches": graphed, "warmup_launches": warmup,
+        "graph_replays": RolloutGraph.replays, "graph_captures": RolloutGraph.captures,
+        "card": card_line,
     }, series
 
 
@@ -1806,29 +2184,41 @@ def bench_train(tmp: Path, card_line: str) -> dict:
     return out
 
 
-BENCH_TURN = """
+TRAIN_TURN = """
 import json, sys, tempfile
 from pathlib import Path
 sys.path.insert(0, ".")
 import chip_smoke
 with tempfile.TemporaryDirectory(prefix="chip_smoke_turn_") as d:
-    print(json.dumps(chip_smoke.bench_train(Path(d), chip_smoke.card())))
+    print(json.dumps(chip_smoke.{}(Path(d), chip_smoke.card())))
 """
 
 
-def bench_train_turns(parent_dir: Path) -> dict:
-    """Phase 3 for the parent's tree (a full checkout) and this one, in
-    turns (parent, this, this, parent), each its own process running its
-    own ``chip_smoke.bench_train``: env-steps/s medians after the first
-    update."""
-    out: dict = {"parent_env_steps_per_s_median": [], "env_steps_per_s_median": []}
+def phase_in_process(tree: Path, phase: str) -> dict:
+    """``chip_smoke.<phase>(tmp, card)`` of ``tree``'s chip_smoke, in a
+    process of its own: the phase's JSON result."""
+    res = subprocess.run([sys.executable, "-c", TRAIN_TURN.format(phase)], cwd=tree,
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"{phase} in {tree} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def train_turns(parent_dir: Path, phase: str) -> dict:
+    """A train phase (``bench_train``: phase 3, CartPole 4096 x 128;
+    ``selfplay_pool_train``: phase 3d, Connect Four against the pool at the
+    bench_selfplay_pool shape) for the parent's tree (a full checkout) and
+    this one, in turns (parent, this, this, parent), each its own process
+    running its own ``chip_smoke``: env-steps/s medians after the first
+    update, every update's, and on the pool phase the updates at K = 8
+    (the parent's tree may run fewer updates than this one's)."""
+    out: dict = {"train_phase": phase}
     for key, tree in (("parent_", parent_dir), ("", ROOT), ("", ROOT), ("parent_", parent_dir)):
-        res = subprocess.run([sys.executable, "-c", BENCH_TURN], cwd=tree, capture_output=True,
-                             text=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(f"bench_train in {tree} exited {res.returncode}:\n{res.stderr[-4000:]}")
-        run = json.loads(res.stdout.strip().splitlines()[-1])
-        out[f"{key}env_steps_per_s_median"].append(run["env_steps_per_s_median_after_first"])
+        run = phase_in_process(tree, phase)
+        for name in ("env_steps_per_s_median_after_first", "env_steps_per_s_at_k8",
+                     "env_steps_per_s_per_update"):
+            if name in run:
+                out.setdefault(f"{key}{name}", []).append(run[name])
     return out
 
 
@@ -2028,22 +2418,31 @@ def main(argv: list) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the parent commit: its K1, K6, K9 and K12 are built "
-                         "from it and timed in turns with this tree's, and so is its CartPole "
-                         "train phase")
+                         "from it and timed in turns with this tree's, and so are its CartPole "
+                         "and Connect Four vs-pool train phases")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
     emit("device", nvidia_smi=card_line, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], name=torch.cuda.get_device_name(0))
+    if set(WRAPPERS.values()) != set(kernels.WRAPPERS):
+        raise AssertionError("the kernel table's wrappers are not the registered ones "
+                             "(kernels.WRAPPERS)")
 
     t0 = time.time()
     lib_path = kernels.build()
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    parent = None if args.parent is None else ParentKernels(args.parent.resolve())
+    # ParentKernels binds 4d22e10's entry points; a parent whose kernel
+    # sources are this tree's has nothing to time against them.
+    parent = None
+    if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
+        parent = ParentKernels(args.parent.resolve())
     emit("build", seconds=time.time() - t0, library=str(lib_path.relative_to(ROOT)), ptxas=ptxas,
-         parent_ptxas=None if parent is None else parent.ptxas)
+         parent_ptxas=None if parent is None else parent.ptxas,
+         parent_kernels=None if args.parent is None else
+         "built and timed in turns" if parent is not None else "the parent's csrc is this tree's")
 
     g = torch.Generator(device=dev).manual_seed(0)
     skull, skull_mask, skull_obs = check_skull(dev, g)
@@ -2087,6 +2486,7 @@ def main(argv: list) -> int:
     screen_device_times(checks)
     emit("kernels_vs_plain", card=card_line, **checks)
     emit("graph_capture", card=card_line, **check_graph_capture(dev, g, ld_obs))
+    emit("rollout_graphs", card=card_line, **check_rollout_graphs(dev, g, checks))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         runs = {
@@ -2117,8 +2517,11 @@ def main(argv: list) -> int:
         }
         for phase, out in runs.items():
             emit(phase, **out)
+        emit("update_idle_share", **phase_in_process(ROOT, "update_idle_shares"))
         if args.parent is not None:
-            emit("bench_train_turns", card=card_line, **bench_train_turns(args.parent.resolve()))
+            for name, phase in (("bench_train_turns", "bench_train"),
+                                ("bench_selfplay_pool_turns", "selfplay_pool_train")):
+                emit(name, card=card_line, **train_turns(args.parent.resolve(), phase))
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
 
     # Launches: the sum over the eight train phases, each counted from 0.

@@ -1103,3 +1103,145 @@ def test_ppo_loss_kernel_refuses_too_many_actions(dev):
     logits, values, mb = loss_batch(g, dev, 64, 65)
     with pytest.raises(ValueError, match="1 to 64 actions"):
         ppo_loss_forward(logits, values, mb, 0.05, PPOUpdateConfig())
+
+
+# ---------------------------------------------------------------------------
+# The rollout as one captured CUDA graph (ppo/rollout_graph.py)
+# ---------------------------------------------------------------------------
+
+
+def _rollout_setup(dev, env_name, E, T, seed=0):
+    """A trainer's rollout inputs on the card: the config's network (its
+    parameters in the flat buffer, as ``AdamState.create`` leaves them),
+    the carry, obs-norm stats from random obs, and a seeded generator."""
+    from burn_ppo_torch.config import Config
+    from burn_ppo_torch.envs import make_env
+    from burn_ppo_torch.ppo.rollout import TorchRandomSource, init_rollout_carry
+    from burn_ppo_torch.ppo.update import AdamState
+    from burn_ppo_torch.train import build_network_for_env
+
+    hidden = {"cartpole": 64, "connect_four": 128}[env_name]
+    cfg = Config(env=env_name, num_envs=E, num_steps=T, hidden_size=hidden, num_hidden=2,
+                 activation="relu", normalize_obs=True, seed=seed)
+    env = make_env(env_name)
+    net = build_network_for_env(env, cfg, torch.Generator().manual_seed(seed)).to(dev)
+    AdamState.create(net)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rng = TorchRandomSource(gen)
+    carry = init_rollout_carry(env, E, rng, dev)
+    D = env.spec.obs_dim
+    norm = obs_norm_update_plain(ObsNormState.create(D, dev),
+                                 torch.rand(64, D, generator=torch.Generator(device=dev)
+                                            .manual_seed(seed + 2), device=dev) * 3.0)
+    return cfg, env, net, rng, carry, norm
+
+
+def _rollout_leaves(carry, batch, logs):
+    from burn_ppo_torch.ppo.rollout_graph import state_leaves
+
+    return state_leaves(carry) + state_leaves(batch) + state_leaves(logs)
+
+
+@pytest.mark.parametrize("env_name,E,T", [("cartpole", 1024, 48), ("connect_four", 1024, 24)])
+def test_graphed_rollout_equals_the_eager_loop_bit_for_bit(dev, env_name, E, T):
+    """Three rollouts back to back from one generator state: the eager loop
+    (``collect_rollouts``, fresh buffers) and the runner's graph replays
+    give the same bits in every batch, log and carry tensor, and leave
+    the generator at the same offset; one capture, three replays, no
+    wrapper counter moved by a replay."""
+
+    from burn_ppo_torch.ppo.rollout import collect_rollouts
+    from burn_ppo_torch.ppo.rollout_graph import RolloutGraph
+    from burn_ppo_torch.train import rollout_runner
+
+    cfg, env, net, rng, carry0, norm = _rollout_setup(dev, env_name, E, T)
+    normalize = cfg.effective_normalize_returns(env.spec.num_players)
+    runner = rollout_runner(env, cfg)
+    RolloutGraph.reset_counts()
+    eager_carry, graph_carry = carry0, carry0
+    for _ in range(3):
+        start = rng.generator.get_state()
+        eager = collect_rollouts(net, env, eager_carry, norm, rng, num_steps=T, gamma=cfg.gamma,
+                                 normalize_returns=normalize)
+        want = [t.clone() for t in _rollout_leaves(*eager)]
+        after = rng.generator.get_state()
+        rng.generator.set_state(start)
+        counts = [w.launches for w in (masked_sample, obs_norm_apply)]
+        got = runner.run(net, graph_carry, norm, rng)
+        torch.cuda.synchronize()
+        assert torch.equal(rng.generator.get_state(), after)
+        have = _rollout_leaves(*got)
+        assert len(have) == len(want)
+        for i, (a, b) in enumerate(zip(have, want)):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), i
+        eager_carry = eager[0]
+        graph_carry = got[0]
+    assert runner.graph is not None and RolloutGraph.captures == 1 and RolloutGraph.replays == 3
+    assert RolloutGraph.launches[masked_sample] == 3 * T
+    # after the capture (warm-up included), the replays moved no counter
+    assert [w.launches for w in (masked_sample, obs_norm_apply)] == counts
+
+
+def test_graph_replays_draw_new_randoms_and_a_seed_repeats_its_run(dev):
+    """Two replays from the same carry draw different randoms (the
+    generator is registered with the graph and advances); two runners from
+    the same seed give the same bits."""
+    from burn_ppo_torch.train import rollout_runner
+
+    runs = []
+    for _ in range(2):
+        cfg, env, net, rng, carry0, norm = _rollout_setup(dev, "cartpole", 512, 16, seed=4)
+        runner = rollout_runner(env, cfg)
+        first = [t.clone() for t in _rollout_leaves(*runner.run(net, carry0, norm, rng))]
+        second = [t.clone() for t in _rollout_leaves(*runner.run(net, carry0, norm, rng))]
+        runs.append((first, second))
+        batch_1, batch_2 = first, second
+        # same carry in, so the obs of step 0 agree; the sampled actions do not
+        assert not all(torch.equal(a, b) for a, b in zip(batch_1, batch_2))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_one_vs_pool_graph_replays_every_active_count_bit_for_bit(dev):
+    """Connect Four against a padded stack of 4, the active count 1, 2, 4
+    and a new rotation each rollout: one capture, and each replay equals
+    the eager loop (``collect_rollouts_with_opponents``, the same draw rule
+    for the reseat's device bound) bit for bit, the generator at the same
+    offset and the reseats below the count."""
+    from burn_ppo_torch.ppo.pool_rollout import (
+        OpponentStack,
+        PoolSeating,
+        actor_params,
+        collect_rollouts_with_opponents,
+    )
+    from burn_ppo_torch.ppo.rollout_graph import RolloutGraph, state_leaves
+    from burn_ppo_torch.train import build_network_for_env, rollout_runner
+
+    E, T, L, K = 1024, 16, 768, 4
+    cfg, env, net, rng, carry0, norm = _rollout_setup(dev, "connect_four", E, T)
+    seat0 = PoolSeating.create(E, L, env.spec.num_players, 1, rng)
+    runner = rollout_runner(env, cfg, num_learner_envs=L)
+    RolloutGraph.reset_counts()
+    eager_in = graph_in = (carry0, seat0)
+    for i, active in enumerate((1, 2, 4)):
+        nets = [build_network_for_env(env, cfg, torch.Generator().manual_seed(10 * i + k)).to(dev)
+                for k in range(K)]
+        stack = OpponentStack.of([actor_params(n) for n in nets], None)
+        start = rng.generator.get_state()
+        eager = collect_rollouts_with_opponents(
+            net, env, stack, *eager_in, norm, rng, num_steps=T, num_learner_envs=L,
+            num_active=active, gamma=cfg.gamma)
+        want = [t.clone() for t in state_leaves(list(eager))]
+        after = rng.generator.get_state()
+        rng.generator.set_state(start)
+        got = runner.run(net, graph_in[0], norm, rng, seating=graph_in[1], opponents=stack,
+                         num_active=active)
+        torch.cuda.synchronize()
+        assert torch.equal(rng.generator.get_state(), after)
+        have = state_leaves(list(got))
+        assert len(have) == len(want)
+        for j, (a, b) in enumerate(zip(have, want)):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (active, j)
+        assert int(got[1].seat_opp[L:].max()) < active
+        eager_in, graph_in = (eager[0], eager[1]), (got[0], got[1])
+    assert RolloutGraph.captures == 1 and RolloutGraph.replays == 3
