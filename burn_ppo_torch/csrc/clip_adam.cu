@@ -26,8 +26,25 @@
 //        g' = norm < max_norm ? g : (g / norm) * max_norm
 //        mu = (1 - b1) * g' + b1 * mu,  nu = (1 - b2) * g'^2 + b2 * nu
 //        u  = (mu / bc1) / (sqrt(nu / bc2) + eps),  p = p - lr * u
-//      with the bias corrections bc = 1 - b^count formed on the host.
+//      each operation rounded on its own (__fmul_rn, __fadd_rn, ...): no
+//      product is contracted into an FMA, so the step's bits are the plain
+//      version's wherever the norm is under the clip, and do not move with
+//      the code around it (left to nvcc, which products it contracted
+//      changed with the surrounding code).
 //      Not torch's clip_grad_norm_, which scales by max / (norm + 1e-6).
+// Everything that changes from step to step is read on the device, so one
+// captured launch serves every step of a CUDA graph of the update:
+//   * lr, an f32 scalar;
+//   * the Adam count, an i32 scalar: the step uses count + 1 and block 0
+//     writes it back after the grid barrier (every block has read it);
+//   * the bias corrections bc = 1 - b^count, looked up in the caller's
+//     f32 table [2, bias_len] at min(count, bias_len - 1) (the host forms
+//     the table as it formed the values before, so they are the same
+//     bits; past the last entry both round to 1.0f);
+//   * run, an i32 flag that K8's finalize writes:
+//     where it is 0 every block returns before the grid barrier, all
+//     alike (after the norm's pass, whose partials are scratch), and
+//     parameters, moments and count stay as they were.
 // The launch allocates nothing and sets no function attribute, so it can
 // be captured into a CUDA graph; the partials' scratch is the caller's.
 
@@ -51,7 +68,17 @@ struct AdamArgs {
   float* nu;
   double* partial;
   long n;
-  float lr, max_norm, eps, b1, b2, one_minus_b1, one_minus_b2, bc1, bc2;
+  const float* lr;
+  int* count;
+  const int* run;
+  const float* bias;
+  int bias_len;
+  float max_norm, eps, b1, b2, one_minus_b1, one_minus_b2;
+};
+
+// The step's scalars, read on the device before the grid barrier.
+struct Step {
+  float lr, bc1, bc2;
 };
 
 // Every lane ends with the same bits: a + b == b + a at each level.
@@ -60,15 +87,16 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__device__ __forceinline__ void adam_one(const AdamArgs& a, float gi, float& p, float& mu,
-                                         float& nu, bool keep, float gn) {
-  const float gc = keep ? gi : (gi / gn) * a.max_norm;
-  const float m = a.one_minus_b1 * gc + a.b1 * mu;
-  const float v = a.one_minus_b2 * (gc * gc) + a.b2 * nu;
+__device__ __forceinline__ void adam_one(const AdamArgs& a, const Step& st, float gi, float& p,
+                                         float& mu, float& nu, bool keep, float gn) {
+  const float gc = keep ? gi : __fmul_rn(__fdiv_rn(gi, gn), a.max_norm);
+  const float m = __fadd_rn(__fmul_rn(a.one_minus_b1, gc), __fmul_rn(a.b1, mu));
+  const float v = __fadd_rn(__fmul_rn(a.one_minus_b2, __fmul_rn(gc, gc)), __fmul_rn(a.b2, nu));
   mu = m;
   nu = v;
-  const float u = (m / a.bc1) / (sqrtf(v / a.bc2) + a.eps);
-  p = p - a.lr * u;
+  const float u =
+      __fdiv_rn(__fdiv_rn(m, st.bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, st.bc2)), a.eps));
+  p = __fsub_rn(p, __fmul_rn(st.lr, u));
 }
 
 // All four buffers 16-byte aligned (the wrapper checks); n % 4 tail
@@ -84,6 +112,12 @@ __global__ void __launch_bounds__(THREADS) clip_adam_kernel(AdamArgs a) {
   const bool tail_thread = blockIdx.x == 0 && threadIdx.x >= THREADS - 4 &&
                            tail_at + (threadIdx.x - (THREADS - 4)) < a.n;
   const long tail_i = tail_at + (threadIdx.x - (THREADS - 4));
+  // The step's scalars are loaded first and used after the norm's pass,
+  // so their latency hides behind it. A volatile load stays before the
+  // barrier, after which block 0 writes the count back.
+  const int go = __ldcg(a.run);
+  const int count = *reinterpret_cast<const volatile int*>(a.count) + 1;
+  const float lr = __ldcg(a.lr);
 
   double acc = 0.0;
   for (long v = first; v < nvec; v += stride) {
@@ -97,6 +131,8 @@ __global__ void __launch_bounds__(THREADS) clip_adam_kernel(AdamArgs a) {
     const double x = a.g[tail_i];
     acc += x * x;
   }
+  const int ci = count < a.bias_len ? count : a.bias_len - 1;
+  const Step st{lr, __ldcg(a.bias + ci), __ldcg(a.bias + a.bias_len + ci)};
   acc = warp_sum(acc);
   if (lane == 0) warp_part[warp] = acc;
   __syncthreads();
@@ -104,8 +140,12 @@ __global__ void __launch_bounds__(THREADS) clip_adam_kernel(AdamArgs a) {
     double b = warp_sum(lane < WARPS ? warp_part[lane] : 0.0);
     if (lane == 0) a.partial[blockIdx.x] = b;
   }
+  // Every block read the same flag: all return here, before the barrier,
+  // or none does. The partials written are scratch.
+  if (!go) return;
 
   cg::this_grid().sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.count = count;
 
   if (warp == 0) {
     double ss = 0.0;
@@ -121,15 +161,15 @@ __global__ void __launch_bounds__(THREADS) clip_adam_kernel(AdamArgs a) {
     float4 m4 = reinterpret_cast<const float4*>(a.mu)[v];
     float4 n4 = reinterpret_cast<const float4*>(a.nu)[v];
     const float4 g4 = reinterpret_cast<const float4*>(a.g)[v];
-    adam_one(a, g4.x, p4.x, m4.x, n4.x, keep, gn);
-    adam_one(a, g4.y, p4.y, m4.y, n4.y, keep, gn);
-    adam_one(a, g4.z, p4.z, m4.z, n4.z, keep, gn);
-    adam_one(a, g4.w, p4.w, m4.w, n4.w, keep, gn);
+    adam_one(a, st, g4.x, p4.x, m4.x, n4.x, keep, gn);
+    adam_one(a, st, g4.y, p4.y, m4.y, n4.y, keep, gn);
+    adam_one(a, st, g4.z, p4.z, m4.z, n4.z, keep, gn);
+    adam_one(a, st, g4.w, p4.w, m4.w, n4.w, keep, gn);
     reinterpret_cast<float4*>(a.p)[v] = p4;
     reinterpret_cast<float4*>(a.mu)[v] = m4;
     reinterpret_cast<float4*>(a.nu)[v] = n4;
   }
-  if (tail_thread) adam_one(a, a.g[tail_i], a.p[tail_i], a.mu[tail_i], a.nu[tail_i], keep, gn);
+  if (tail_thread) adam_one(a, st, a.g[tail_i], a.p[tail_i], a.mu[tail_i], a.nu[tail_i], keep, gn);
 }
 
 // The blocks the whole grid may hold at once on the current device.
@@ -154,13 +194,15 @@ int resident_blocks() {
 extern "C" int clip_adam_scratch_len() { return resident_blocks(); }
 
 // partial: [scratch_len] doubles of the caller's. All buffers flat, n
-// elements, 16-byte aligned.
+// elements, 16-byte aligned. lr: f32 scalar; count: i32 scalar; run: i32
+// scalar; bias: f32 [2, bias_len].
 extern "C" int clip_adam(void* params, const void* grads, void* mu, void* nu, void* partial,
-                         long n, int scratch_len, float lr, float max_norm, float eps, float b1,
-                         float b2, float one_minus_b1, float one_minus_b2, float bc1, float bc2,
-                         void* stream) {
+                         long n, int scratch_len, const void* lr, void* count, const void* run,
+                         const void* bias, int bias_len, float max_norm, float eps, float b1,
+                         float b2, float one_minus_b1, float one_minus_b2, void* stream) {
   const int resident = resident_blocks();
-  if (n <= 0 || resident < 1 || scratch_len < resident) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || resident < 1 || scratch_len < resident || bias_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto addr = [](const void* b) { return reinterpret_cast<std::uintptr_t>(b); };
   if ((addr(params) | addr(grads) | addr(mu) | addr(nu)) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -168,8 +210,11 @@ extern "C" int clip_adam(void* params, const void* grads, void* mu, void* nu, vo
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
   AdamArgs a{static_cast<float*>(params), static_cast<const float*>(grads),
-             static_cast<float*>(mu), static_cast<float*>(nu), static_cast<double*>(partial), n,
-             lr, max_norm, eps, b1, b2, one_minus_b1, one_minus_b2, bc1, bc2};
+             static_cast<float*>(mu),         static_cast<float*>(nu),
+             static_cast<double*>(partial),   n,
+             static_cast<const float*>(lr),   static_cast<int*>(count),
+             static_cast<const int*>(run),    static_cast<const float*>(bias),
+             bias_len, max_norm, eps, b1, b2, one_minus_b1, one_minus_b2};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(blocks));
   cfg.blockDim = dim3(THREADS);

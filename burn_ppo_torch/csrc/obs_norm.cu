@@ -39,6 +39,11 @@
 //      f32, written as the plain version writes it (no contraction into
 //      FMAs). The batch statistics differ from the plain version's f32
 //      two-pass ones by its rounding, not the kernel's.
+//   The merge is in place (the stats keep their addresses from update to
+//   update, as a CUDA graph of the update needs): block d reads column d
+//   before it writes it, and launch 1 copies the old count into the
+//   scratch, where launch 2 reads it, so block 0's new count races with no
+//   other block's read.
 
 #include <cuda_runtime.h>
 
@@ -129,10 +134,11 @@ __global__ void __launch_bounds__(APPLY_THREADS, APPLY_BLOCKS_PER_SM) obs_norm_a
 }
 
 __global__ void obs_norm_partial_kernel(const float* __restrict__ x, long N,
-                                        int D, long active,
+                                        int D, long active, const float* __restrict__ count_a,
                                         double* __restrict__ sums,
                                         double* __restrict__ squares) {
   const long t = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
+  if (t == 0) squares[active] = count_a[0];  // the old count, for launch 2
   if (t >= active) return;
   const double shift = x[t % D];
   double s = 0.0, q = 0.0;
@@ -148,9 +154,7 @@ __global__ void obs_norm_partial_kernel(const float* __restrict__ x, long N,
 __global__ void obs_norm_merge_kernel(
     const float* __restrict__ x, const double* __restrict__ sums,
     const double* __restrict__ squares, long lanes, long N, int D,
-    const float* __restrict__ mean_a, const float* __restrict__ m2_a,
-    const float* __restrict__ count_a, float* __restrict__ mean_out,
-    float* __restrict__ m2_out, float* __restrict__ count_out) {
+    float* mean, float* m2, float* __restrict__ count) {
   __shared__ double ss[MERGE_THREADS];
   __shared__ double qq[MERGE_THREADS];
   const int d = blockIdx.x;
@@ -176,17 +180,15 @@ __global__ void obs_norm_merge_kernel(
   const float m2_b = static_cast<float>(fmax(qq[0] - ss[0] * ss[0] / n, 0.0));
   // _welford_merge in f32, operation by operation.
   const float nb = static_cast<float>(N);
-  const float ca = count_a[0];
+  const float ca = static_cast<float>(squares[lanes * D]);
   const float total = __fadd_rn(ca, nb);
   const float safe = fmaxf(total, 1.0f);
-  const float delta = __fsub_rn(mean_b, mean_a[d]);
-  const float mean = __fadd_rn(mean_a[d], __fmul_rn(delta, __fdiv_rn(nb, safe)));
-  const float m2 = __fadd_rn(__fadd_rn(m2_a[d], m2_b),
-                             __fmul_rn(__fmul_rn(delta, delta),
-                                       __fdiv_rn(__fmul_rn(ca, nb), safe)));
-  mean_out[d] = mean;
-  m2_out[d] = m2;
-  if (d == 0) count_out[0] = total;
+  const float mean_a = mean[d];
+  const float delta = __fsub_rn(mean_b, mean_a);
+  mean[d] = __fadd_rn(mean_a, __fmul_rn(delta, __fdiv_rn(nb, safe)));
+  m2[d] = __fadd_rn(__fadd_rn(m2[d], m2_b),
+                    __fmul_rn(__fmul_rn(delta, delta), __fdiv_rn(__fmul_rn(ca, nb), safe)));
+  if (d == 0) count[0] = total;
 }
 
 int multiprocessors() {
@@ -227,11 +229,10 @@ extern "C" int obs_norm_apply(const void* x, const void* mean, const void* m2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: 2 * lanes * D doubles. N >= 1 (an empty batch leaves the state
-// as it is; the wrapper does not launch).
-extern "C" int obs_norm_update(const void* x, const void* mean, const void* m2,
-                               const void* count, void* scratch,
-                               void* mean_out, void* m2_out, void* count_out,
+// mean, m2, count: the state, merged into in place. scratch: 2 * lanes *
+// D + 1 doubles. N >= 1 (an empty batch leaves the state as it is; the
+// wrapper does not launch).
+extern "C" int obs_norm_update(const void* x, void* mean, void* m2, void* count, void* scratch,
                                long N, int D, long lanes, void* stream) {
   if (N <= 0 || D <= 0 || lanes <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -240,13 +241,12 @@ extern "C" int obs_norm_update(const void* x, const void* mean, const void* m2,
   double* squares = sums + active;
   const int threads = 256;
   obs_norm_partial_kernel<<<(active + threads - 1) / threads, threads, 0, s>>>(
-      static_cast<const float*>(x), N, D, active, sums, squares);
+      static_cast<const float*>(x), N, D, active, static_cast<const float*>(count), sums,
+      squares);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   obs_norm_merge_kernel<<<D, MERGE_THREADS, 0, s>>>(
-      static_cast<const float*>(x), sums, squares, lanes, N, D,
-      static_cast<const float*>(mean), static_cast<const float*>(m2),
-      static_cast<const float*>(count), static_cast<float*>(mean_out),
-      static_cast<float*>(m2_out), static_cast<float*>(count_out));
+      static_cast<const float*>(x), sums, squares, lanes, N, D, static_cast<float*>(mean),
+      static_cast<float*>(m2), static_cast<float*>(count));
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,6 +39,15 @@
 //      order and writes the loss and the 14 metrics. Two calls on the
 //      same inputs give the same bits. The grid covers each warp tile
 //      once, up to what the card holds at once (occupancy times SMs).
+// The entropy coefficient is an f32 scalar on the device, read after the
+// wait, so one captured launch serves every update of a CUDA graph.
+// With the update's bookkeeping, the last block's finalize also decides
+// on the card what the JAX scan decides with lax.cond
+// (burn_ppo_tpu/ppo/update.py:346-382), so the host reads nothing back:
+//   run = !stop && (!can_be_empty || sum(valid) > 0)   (i32, for K9)
+//   where run: sums += the 14 metrics (f32), count += 1, and
+//              stop = approx_kl > target_kl (in double; target_kl < 0:
+//              no early stop).
 // Gradient rules at ties follow JAX: d max(a, b) splits 1/2 - 1/2 where
 // a == b, and jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)) passes 1/2
 // of the gradient at x == lo or x == hi. Masked actions (additive -1e9)
@@ -171,13 +180,22 @@ struct RowArgs {
   int M, A, G_stats, vec;
   float eps, lo, hi;
   int clip_value;
-  float value_coef, ent_coef;
+  float value_coef;
+  const float* ent_coef;
   const double* stats;
   double* sums;  // [gridDim.x, NSUM]
   unsigned* done_count;
   float* out;  // [15]: the loss, then the 14 metrics in METRIC_KEYS order
   float* dlogits;
   float* dvalues;
+  // The update's bookkeeping: the metric sums [14], the minibatches run
+  // (f32), the stop and run flags (i32).
+  float* book_sums;
+  float* book_count;
+  int* book_stop;
+  int* book_run;
+  int can_be_empty;
+  double target_kl;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -270,6 +288,7 @@ __global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
   }
   __syncthreads();
   const AdvStats s = st;
+  const float ent_coef = *g.ent_coef;
   double v[NSUM] = {};
   for (int t = first; t < tiles; t += step) {
     if (t != first) issue(t);
@@ -361,7 +380,7 @@ __global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
       const float coef = w / s.wc;
       dv = g.value_coef * 0.5f * coef * dvl;
       row[DLP * WR + r] = dpmax_dr * ratio * coef;
-      row[DENT * WR + r] = g.ent_coef * coef;
+      row[DENT * WR + r] = ent_coef * coef;
 
       const double wd = w;
       const float err = fabsf(val - ret);
@@ -464,7 +483,7 @@ __global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
   const float entropy = static_cast<float>(tot[2] / wc);
   const double me = tot[7] / wc;
   const double ss_e = fmax(tot[8] - 2.0 * me * tot[7] + me * me * s.wsum, 0.0);
-  const float total = policy_loss + value_loss * g.value_coef - entropy * g.ent_coef;
+  const float total = policy_loss + value_loss * g.value_coef - entropy * ent_coef;
   float* out = g.out;
   out[0] = total;
   out[1] = policy_loss;
@@ -481,6 +500,13 @@ __global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
   out[12] = static_cast<float>(sqrt(ss_e / fmax(s.wsum - 1.0, 1.0)));  // value_error_std
   out[13] = has_mask ? static_cast<float>(tot[9] / wc) : 0.0f;  // avg_valid_actions
   out[14] = has_mask ? static_cast<float>(tot[10] / fmax(tot[11], 1e-8)) : 0.0f;
+  const int run = *g.book_stop == 0 && (!g.can_be_empty || s.wsum > 0.0);
+  if (run) {
+    for (int j = 0; j < 14; ++j) g.book_sums[j] += out[1 + j];
+    *g.book_count += 1.0f;
+    if (g.target_kl >= 0.0 && static_cast<double>(out[4]) > g.target_kl) *g.book_stop = 1;
+  }
+  *g.book_run = run;
 }
 
 // The row pass as a programmatic dependent launch of the stats pass: its
@@ -532,13 +558,16 @@ cudaError_t launch_rows(const RowArgs& a, cudaStream_t s) {
 // stats partials, the row blocks' partials and the done-counter.
 extern "C" int ppo_loss_scratch_len() { return 3 * STATS_BLOCKS + NSUM * ROW_BLOCKS + 1; }
 
-// out: [15] f32; A in [1, 64].
+// out: [15] f32; A in [1, 64]; ent_coef: f32 scalar. book_sums (f32
+// [14]), book_count (f32), book_stop and book_run (i32).
 extern "C" int ppo_loss_forward(const void* logits, const void* values, const void* mask,
                                 const void* actions, const void* old_lp, const void* adv,
                                 const void* returns, const void* old_values,
                                 const void* valid, int M, int A, float eps, float lo, float hi,
-                                int clip_value, float value_coef, float ent_coef,
+                                int clip_value, float value_coef, const void* ent_coef,
                                 void* scratch, void* out, void* dlogits, void* dvalues,
+                                void* book_sums, void* book_count, void* book_stop,
+                                void* book_run, int can_be_empty, double target_kl,
                                 void* stream) {
   if (M <= 0 || A < 1 || A > MAX_A) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -574,13 +603,19 @@ extern "C" int ppo_loss_forward(const void* logits, const void* values, const vo
   a.hi = hi;
   a.clip_value = clip_value;
   a.value_coef = value_coef;
-  a.ent_coef = ent_coef;
+  a.ent_coef = static_cast<const float*>(ent_coef);
   a.stats = stats;
   a.sums = sums;
   a.done_count = done_count;
   a.out = static_cast<float*>(out);
   a.dlogits = static_cast<float*>(dlogits);
   a.dvalues = static_cast<float*>(dvalues);
+  a.book_sums = static_cast<float*>(book_sums);
+  a.book_count = static_cast<float*>(book_count);
+  a.book_stop = static_cast<int*>(book_stop);
+  a.book_run = static_cast<int*>(book_run);
+  a.can_be_empty = can_be_empty;
+  a.target_kl = target_kl;
   // Lanes per row: 2 for rows up to 8 wide (16 rows a pass), else 8;
   // entries per lane: the row's width over its lanes, rounded up.
   switch (A <= 8 ? (A + 1) / 2 : 4 + (A + 7) / 8) {

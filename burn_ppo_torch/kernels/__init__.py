@@ -50,10 +50,11 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C signature of every entry point: (name, argtypes). Pointers and the
 # stream are c_void_p (ctypes would otherwise pass a 32-bit int and cut
-# the pointer); scalars are c_int / c_float.
+# the pointer); scalars are c_int / c_float / c_double.
 SIGNATURES = {
     # physics rows, step_idx, reward_sum, length, action, reset rows, rolling
     # returns (nullable: no roll), the i32 and the f32 output buffer,
@@ -72,8 +73,9 @@ SIGNATURES = {
     "gae_multiplayer_reverse_scan": [_VP] * 7 + [_I, _I, _I, _F, _F, _VP],
     # obs, mean, m2, count, out, N, D, clip, stream
     "obs_norm_apply": [_VP] * 5 + [_L, _I, _F, _VP],
-    # batch, mean, m2, count, scratch, mean', m2', count', N, D, lanes, stream
-    "obs_norm_update": [_VP] * 8 + [_L, _I, _L, _VP],
+    # batch, mean, m2, count (merged into in place), scratch, N, D, lanes,
+    # stream
+    "obs_norm_update": [_VP] * 5 + [_L, _I, _L, _VP],
     # x, slot, norm mean, m2, count (nullable), clip, host arrays of the
     # layers' weight and bias pointers and of the widths, depth, act, out,
     # rows, K, tiling, stream
@@ -81,13 +83,18 @@ SIGNATURES = {
     # widths, depth, rows, K, out: resident 3-block clusters
     "opp_mlp_default_tiling": [_VP, _I, _I, _I, _VP],
     # logits, values, mask, actions, old_lp, adv, returns, old_values, valid,
-    # M, A, eps, lo, hi, clip_value, value_coef, ent_coef,
-    # scratch (f64 [ppo_loss_scratch_len()]), out, dlogits, dvalues, stream
-    "ppo_loss_forward": [_VP] * 9 + [_I] * 2 + [_F] * 3 + [_I] + [_F] * 2 + [_VP] * 5,
+    # M, A, eps, lo, hi, clip_value, value_coef, ent_coef (f32 scalar),
+    # scratch (f64 [ppo_loss_scratch_len()]), out, dlogits, dvalues, the
+    # bookkeeping (sums, count, stop, run), can_be_empty,
+    # target_kl (double), stream
+    "ppo_loss_forward": ([_VP] * 9 + [_I] * 2 + [_F] * 3 + [_I, _F] + [_VP] * 9
+                         + [_I, _D, _VP]),
     "ppo_loss_scratch_len": [],
-    # params, grads, mu, nu, partial, n, partial's length, lr, max_norm,
-    # eps, b1, b2, 1 - b1, 1 - b2, bc1, bc2, stream
-    "clip_adam": [_VP] * 5 + [_L, _I] + [_F] * 9 + [_VP],
+    # params, grads, mu, nu, partial, n, partial's length, lr (f32 scalar),
+    # count (i32 scalar), run (i32 scalar), the bias-correction
+    # table (f32 [2, its length]), its length, max_norm, eps, b1, b2,
+    # 1 - b1, 1 - b2, stream
+    "clip_adam": [_VP] * 5 + [_L, _I] + [_VP] * 4 + [_I] + [_F] * 6 + [_VP],
     "clip_adam_scratch_len": [],
     # completed, totals, length, outcome, T, E, L, P, G, sums, extrema, out, stream
     "episode_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 4,

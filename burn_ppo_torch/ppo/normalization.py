@@ -5,7 +5,9 @@
   clipped, identity while count < 2. ``obs_norm_apply`` and
   ``obs_norm_update`` run their plain PyTorch versions for CPU tensors
   and launch the hand-written kernel K6 (``csrc/obs_norm.cu``, ROADMAP
-  B3) for CUDA tensors, or raise.
+  B3) for CUDA tensors, or raise. The update merges into the state in
+  place, so that the stats keep their addresses from update to update (a
+  CUDA graph of the update reads and writes them there).
 * ``ReturnNormState`` — per-env, per-player rolling discounted returns;
   rewards are divided by the running std of those returns (variance
   only), clipped. ``return_norm_roll`` is the elementwise per-step half,
@@ -65,13 +67,15 @@ class ObsNormState:
 
 def obs_norm_update_plain(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
     """Plain PyTorch K6 update: merge a raw obs batch [..., D] into the
-    running stats (normalization.py:68-75)."""
+    running stats in place (normalization.py:68-75); returns ``state``."""
     flat = batch.reshape(-1, batch.shape[-1])
-    n = torch.tensor(float(flat.shape[0]), dtype=torch.float32, device=flat.device)
+    n = torch.full((), float(flat.shape[0]), dtype=torch.float32, device=flat.device)
     mean_b = torch.mean(flat, dim=0)
     m2_b = torch.sum(torch.square(flat - mean_b), dim=0)
-    mean, m2, count = _welford_merge(state.mean, state.m2, state.count, mean_b, m2_b, n)
-    return ObsNormState(mean=mean, m2=m2, count=count)
+    merged = _welford_merge(state.mean, state.m2, state.count, mean_b, m2_b, n)
+    for dst, src in zip((state.mean, state.m2, state.count), merged):
+        dst.copy_(src)
+    return state
 
 
 def obs_norm_apply_plain(state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
@@ -118,7 +122,8 @@ _UPDATE_MAX_THREADS = 1056 * 256
 
 
 def obs_norm_update(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
-    """Merge a raw obs batch [..., D] into the running stats."""
+    """Merge a raw obs batch [..., D] into the running stats in place;
+    returns ``state``."""
     if kernels.on_cpu(batch, state.mean, state.m2, state.count):
         return obs_norm_update_plain(state, batch)
     D = batch.shape[-1]
@@ -128,17 +133,16 @@ def obs_norm_update(state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
     if N == 0:
         return state
     lanes = max(1, min(_UPDATE_MAX_THREADS, -(-N * D // 16)) // D)
-    scratch = torch.empty(2 * lanes * D, dtype=torch.float64, device=batch.device)
-    new = ObsNormState(mean=torch.empty_like(state.mean), m2=torch.empty_like(state.m2),
-                       count=torch.empty_like(state.count))
+    # Two partials a lane and column, then the old count (csrc/obs_norm.cu).
+    scratch = torch.empty(2 * lanes * D + 1, dtype=torch.float64, device=batch.device)
     p = kernels.ptr
     err = kernels.library().obs_norm_update(
-        p(batch), p(state.mean), p(state.m2), p(state.count), p(scratch),
-        p(new.mean), p(new.m2), p(new.count), N, D, lanes, kernels.stream(batch.device),
+        p(batch), p(state.mean), p(state.m2), p(state.count), p(scratch), N, D, lanes,
+        kernels.stream(batch.device),
     )
     kernels.check(err, "obs_norm_update")
     obs_norm_update.launches += 1
-    return new
+    return state
 
 
 kernels.counted(obs_norm_update)

@@ -38,7 +38,9 @@ A replay runs no wrapper, so the kernels' launch counters do not move.
 (rollouts replayed), ``launches`` (each wrapper's kernel launches, those
 captured times the replays), ``captures`` and ``warmup_launches`` (the
 warm-ups' launches, which the wrappers' counters also hold). A capture
-launches nothing, so the counters it moved are put back.
+launches nothing, so the counters it moved are put back. The capture
+and the counts are ``CapturedGraph``'s, which the update's graphs
+(``ppo/update_graph.py``) share.
 """
 
 from __future__ import annotations
@@ -116,43 +118,58 @@ def _moved(start: List[int]) -> Dict[Callable, int]:
     return {w: w.launches - c for w, c in zip(kernels.WRAPPERS, start) if w.launches != c}
 
 
-class RolloutGraph:
-    """One rollout captured into a CUDA graph: ``fn`` is run once eagerly
-    on a side stream, ``state`` (the tensors it writes that it reads) and
-    the generator put back, then captured."""
+class CapturedGraph:
+    """Functions captured into CUDA graphs, one graph each: ``steps`` are
+    run once eagerly, in order, on a side stream (which reaches the kernel
+    library's first load, function attributes and cuBLAS's workspace
+    before capture), ``state`` (the tensors they write that they read) and
+    the generator put back, then each step is captured, the generator
+    registered with every graph, all graphs in one memory pool (safe
+    while they are replayed in the order captured, as ``replay`` does,
+    middle ones skipped or not). ``replay(skip)`` replays the first graph,
+    each middle one while ``skip()`` is false, and the last. A subclass
+    keeps its own counts over all its instances: ``replays``,
+    ``captures``, ``skipped`` (middle graphs not replayed), ``launches``
+    (each wrapper's launches in the graphs replayed) and
+    ``warmup_launches``."""
 
     replays = 0
     captures = 0
+    skipped = 0
     launches: Dict[Callable, int] = {}
     warmup_launches: Dict[Callable, int] = {}
 
-    @staticmethod
-    def reset_counts() -> None:
-        RolloutGraph.replays = RolloutGraph.captures = 0
-        RolloutGraph.launches, RolloutGraph.warmup_launches = {}, {}
+    @classmethod
+    def reset_counts(cls) -> None:
+        cls.replays = cls.captures = cls.skipped = 0
+        cls.launches, cls.warmup_launches = {}, {}
 
-    def __init__(self, fn: Callable[[], None], state: List[torch.Tensor],
+    def __init__(self, steps: List[Callable[[], None]], state: List[torch.Tensor],
                  generator: torch.Generator) -> None:
         if getattr(torch.cuda.CUDAGraph, "register_generator_state", None) is None:
             raise RuntimeError("this torch cannot register a generator with a CUDA graph "
                                f"(torch {torch.__version__}): every replay would draw the same "
                                "randoms")
-        self._warm_up(fn, state, generator)
-        start = _launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(generator)
-        try:
-            with torch.cuda.graph(self.graph):
-                fn()
-        finally:
-            # A capture launches nothing: put the counters back.
-            self.captured = _moved(start)
-            for w, c in zip(kernels.WRAPPERS, start):
-                w.launches = c
-        RolloutGraph.captures += 1
+        self._warm_up(steps, state, generator)
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.captured: List[Dict[Callable, int]] = []
+        pool = torch.cuda.graph_pool_handle()
+        for step in steps:
+            start = _launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(generator)
+            try:
+                with torch.cuda.graph(graph, pool=pool):
+                    step()
+            finally:
+                # A capture launches nothing: put the counters back.
+                self.captured.append(_moved(start))
+                for w, c in zip(kernels.WRAPPERS, start):
+                    w.launches = c
+            self.graphs.append(graph)
+        type(self).captures += 1
 
-    @staticmethod
-    def _warm_up(fn, state: List[torch.Tensor], generator: torch.Generator) -> None:
+    def _warm_up(self, steps, state: List[torch.Tensor], generator: torch.Generator) -> None:
         current = torch.cuda.current_stream()
         saved = [t.clone() for t in state]
         rng_state = generator.get_state()
@@ -160,17 +177,45 @@ class RolloutGraph:
         side = torch.cuda.Stream()
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            fn()
+            for step in steps:
+                step()
         current.wait_stream(side)
         for t, s in zip(state, saved):
             t.copy_(s)
         generator.set_state(rng_state)
-        _add(RolloutGraph.warmup_launches, _moved(start))
+        _add(type(self).warmup_launches, _moved(start))
 
-    def replay(self) -> None:
-        self.graph.replay()
-        RolloutGraph.replays += 1
-        _add(RolloutGraph.launches, self.captured)
+    def _replay(self, i: int) -> None:
+        self.graphs[i].replay()
+        _add(type(self).launches, self.captured[i])
+
+    def replay(self, skip: Callable[[], bool] = lambda: False) -> None:
+        cls = type(self)
+        self._replay(0)
+        for i in range(1, len(self.graphs) - 1):
+            if skip():
+                cls.skipped += len(self.graphs) - 1 - i
+                break
+            self._replay(i)
+        if len(self.graphs) > 1:
+            self._replay(len(self.graphs) - 1)
+        cls.replays += 1
+
+
+class RolloutGraph(CapturedGraph):
+    """One rollout captured into a CUDA graph: ``fn`` is run once eagerly
+    on a side stream, ``state`` (the tensors it writes that it reads) and
+    the generator put back, then captured."""
+
+    replays = 0
+    captures = 0
+    skipped = 0
+    launches: Dict[Callable, int] = {}
+    warmup_launches: Dict[Callable, int] = {}
+
+    def __init__(self, fn: Callable[[], None], state: List[torch.Tensor],
+                 generator: torch.Generator) -> None:
+        super().__init__([fn], state, generator)
 
 
 def _add(into: Dict[Callable, int], counts: Dict[Callable, int]) -> None:

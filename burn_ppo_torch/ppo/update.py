@@ -20,10 +20,19 @@ Counterpart of burn_ppo_tpu/ppo/update.py:71-431:
   * KL early stop that still applies the offending minibatch;
   * an uneven N % num_minibatches split padded with copies of real rows
     whose valid flag is 0; a minibatch with no valid row (all pad, or all
-    opponent turns on the vs-pool path: ``may_have_invalid``) is skipped,
-    decided for every epoch at once from one device-to-host copy;
+    opponent turns on the vs-pool path: ``may_have_invalid``) is skipped;
   * the 14 metrics averaged over the minibatches run, plus the explained
     variance.
+
+Nothing is read back to the host, so the update can be captured into
+CUDA graphs (``ppo/update_graph.py``). Every epoch's rows are
+drawn up front into one index tensor; the learning rate and the entropy
+coefficient are 0-dim device tensors. Where the JAX scan skips a
+minibatch with ``lax.cond`` (the KL stop, an empty minibatch), the port
+runs its forward and backward all the same and decides on the device:
+K8's finalize sets ``LossBook.run`` (and adds the metrics, counts the
+minibatch, raises the stop flag), and K9 with ``run`` 0 leaves the
+parameters, the moments and the Adam count as they were.
 
 The TPU-only packed [N, C] buffer and its 128-lane pad are not carried
 over: rows are gathered per field with one index tensor.
@@ -57,6 +66,10 @@ class PPOUpdateConfig:
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
+# Entries of the bias-correction table: from count 17,321 on, 1 - 0.999^count
+# rounds to 1.0 in f32 (and 1 - 0.9^count from 165 on), so the last entry
+# serves every larger count.
+ADAM_BIAS_LEN = 32768
 
 
 def resolve_shuffle_block(n: int, mb_size: int, requested: int) -> int:
@@ -95,18 +108,38 @@ def _named_views(network: torch.nn.Module, flat: torch.Tensor) -> Dict[str, torc
     return out
 
 
+_BIAS_TABLES: Dict[torch.device, torch.Tensor] = {}
+
+
+def adam_bias_table(device: torch.device) -> torch.Tensor:
+    """f32 [2, ADAM_BIAS_LEN]: row 0 holds ``1 - 0.9^c``, row 1
+    ``1 - 0.999^c`` at column c, each formed in double on the host and
+    rounded to f32 once; made once per device. K9 and its plain version
+    look the step's corrections up at min(count, ADAM_BIAS_LEN - 1)."""
+    device = torch.device(device)
+    table = _BIAS_TABLES.get(device)
+    if table is None:
+        rows = [[1.0 - b ** c for c in range(ADAM_BIAS_LEN)] for b in (ADAM_B1, ADAM_B2)]
+        table = torch.tensor(rows, dtype=torch.float32)
+        if not bool((table[:, -1] == 1.0).all()):
+            raise AssertionError("the bias-correction table is too short")
+        table = _BIAS_TABLES[device] = table.to(device)
+    return table
+
+
 @dataclass
 class AdamState:
     """optax ``chain(clip_by_global_norm, scale_by_adam)`` state: the step
     count and the two moments, beside the network's flat parameter and
     gradient buffers (``flat_parameters``, made once here). The moments
     are flat buffers of the same layout; ``mu`` and ``nu`` view them by
-    parameter name. The count is a host integer: it changes only where
-    the host decides that a minibatch runs. ``partial`` is K9's scratch
-    on a CUDA device (``clip_adam_scratch``), made once here so that no
-    step allocates; None on the CPU."""
+    parameter name. The count is a 0-dim i32 tensor on the parameters'
+    device (``count_tensor``), which K9 advances where a minibatch runs,
+    so only the device knows it after a KL stop; ``count`` fetches it.
+    ``partial`` is K9's scratch on a CUDA device (``clip_adam_scratch``),
+    made once here so that no step allocates; None on the CPU."""
 
-    count: int
+    count_tensor: torch.Tensor
     flat_params: torch.Tensor
     flat_grads: torch.Tensor
     flat_mu: torch.Tensor
@@ -115,11 +148,18 @@ class AdamState:
     nu: Dict[str, torch.Tensor]
     partial: Optional[torch.Tensor] = None
 
+    @property
+    def count(self) -> int:
+        """The Adam count, fetched from the device."""
+        return int(self.count_tensor)
+
     @staticmethod
     def create(network: torch.nn.Module) -> "AdamState":
         flat, grads = flat_parameters(network)
         mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
-        return AdamState(count=0, flat_params=flat, flat_grads=grads, flat_mu=mu, flat_nu=nu,
+        adam_bias_table(flat.device)  # made now, before any graph capture
+        return AdamState(count_tensor=torch.zeros((), dtype=torch.int32, device=flat.device),
+                         flat_params=flat, flat_grads=grads, flat_mu=mu, flat_nu=nu,
                          mu=_named_views(network, mu), nu=_named_views(network, nu),
                          partial=clip_adam_scratch(flat.device))
 
@@ -137,41 +177,57 @@ def clip_adam_scratch(device: torch.device) -> Optional[torch.Tensor]:
 
 
 def clip_adam_plain(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor,
-                    nu: torch.Tensor, *, lr: float, max_grad_norm: float, eps: float,
-                    bc1: float, bc2: float) -> None:
-    """Plain PyTorch K9, in place on flat buffers."""
+                    nu: torch.Tensor, *, lr: torch.Tensor, count: torch.Tensor,
+                    run: torch.Tensor, max_grad_norm: float, eps: float) -> None:
+    """Plain PyTorch K9, in place on flat buffers: the step that makes the
+    Adam count ``count + 1``, its bias corrections from
+    ``adam_bias_table``; where ``run`` is 0, nothing changes."""
+    c = count + 1
+    bias = adam_bias_table(params.device)
+    col = torch.clamp(c, max=ADAM_BIAS_LEN - 1).long()
+    bc1, bc2 = bias[0, col], bias[1, col]
     g_norm = torch.sqrt(torch.sum(torch.square(grads)))
     g = torch.where(g_norm < max_grad_norm, grads, (grads / g_norm) * max_grad_norm)
-    mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
-    nu.copy_((1 - ADAM_B2) * torch.square(g) + ADAM_B2 * nu)
-    u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-    params.sub_(lr * u)
+    m = (1 - ADAM_B1) * g + ADAM_B1 * mu
+    v = (1 - ADAM_B2) * torch.square(g) + ADAM_B2 * nu
+    u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    p = params - lr * u
+    for dst, new in ((mu, m), (nu, v), (params, p), (count, c)):
+        dst.copy_(torch.where(run != 0, new, dst))
 
 
 def clip_adam(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-              *, lr: float, max_grad_norm: float, eps: float, bc1: float, bc2: float,
-              partial: Optional[torch.Tensor] = None) -> None:
+              *, lr: torch.Tensor, count: torch.Tensor, run: torch.Tensor,
+              max_grad_norm: float, eps: float, partial: Optional[torch.Tensor] = None) -> None:
     """Global-norm clip + Adam + ``p -= lr * u`` over flat buffers, in
-    place. CPU tensors take the plain version; CUDA tensors launch K9
-    (one launch; the norm stays on the device) with ``partial`` as its
-    scratch (``clip_adam_scratch``; the four buffers 16-byte aligned), or
-    raise. The launch allocates nothing, so a CUDA graph can capture it."""
-    if kernels.on_cpu(params, grads, mu, nu):
-        return clip_adam_plain(params, grads, mu, nu, lr=lr, max_grad_norm=max_grad_norm,
-                               eps=eps, bc1=bc1, bc2=bc2)
+    place, as the step that makes the Adam count ``count + 1``: ``lr`` a
+    0-dim f32 tensor, ``count`` a 0-dim i32 tensor that the step advances,
+    ``run`` a 0-dim i32 flag, 0 for a step that changes nothing. CPU
+    tensors take the plain version; CUDA tensors launch K9 (one launch;
+    the norm, the count and the flag stay on the device) with
+    ``partial`` as its scratch (``clip_adam_scratch``; the four buffers
+    16-byte aligned), or raise. The launch allocates nothing, so a CUDA
+    graph can capture it."""
+    if kernels.on_cpu(params, grads, mu, nu, lr, count, run):
+        return clip_adam_plain(params, grads, mu, nu, lr=lr, count=count, run=run,
+                               max_grad_norm=max_grad_norm, eps=eps)
     n = params.numel()
     for t, name in ((params, "params"), (grads, "grads"), (mu, "mu"), (nu, "nu")):
         kernels.expect(t, name, torch.float32, (n,))
         kernels.expect_rows16(t, name)
+    kernels.expect(lr, "lr", torch.float32, ())
+    kernels.expect(count, "count", torch.int32, ())
+    kernels.expect(run, "run", torch.int32, ())
     if partial is None or partial.device != params.device:
         raise ValueError("clip_adam: CUDA buffers need K9's scratch on their device "
                          "(clip_adam_scratch)")
     kernels.expect(partial, "partial", torch.float64, (partial.numel(),))
+    bias = adam_bias_table(params.device)
     p = kernels.ptr
     err = kernels.library().clip_adam(
-        p(params), p(grads), p(mu), p(nu), p(partial), n, partial.numel(), float(lr),
-        float(max_grad_norm), float(eps), ADAM_B1, ADAM_B2, 1 - ADAM_B1, 1 - ADAM_B2,
-        float(bc1), float(bc2), kernels.stream(params.device),
+        p(params), p(grads), p(mu), p(nu), p(partial), n, partial.numel(), p(lr), p(count),
+        p(run), p(bias), ADAM_BIAS_LEN, float(max_grad_norm), float(eps), ADAM_B1, ADAM_B2,
+        1 - ADAM_B1, 1 - ADAM_B2, kernels.stream(params.device),
     )
     kernels.check(err, "clip_adam")
     clip_adam.launches += 1
@@ -180,15 +236,16 @@ def clip_adam(params: torch.Tensor, grads: torch.Tensor, mu: torch.Tensor, nu: t
 kernels.counted(clip_adam)
 
 
-def clip_and_adam_step(opt: AdamState, lr: float, cfg: PPOUpdateConfig) -> None:
+def clip_and_adam_step(opt: AdamState, lr: torch.Tensor, cfg: PPOUpdateConfig,
+                       run: torch.Tensor) -> None:
     """Global-norm clip + Adam + ``p -= lr * u`` of every parameter, in
-    place, from the gradients in ``opt.flat_grads``."""
-    opt.count += 1
+    place, from the gradients in ``opt.flat_grads``, ``lr`` a 0-dim f32
+    tensor; the Adam count advances on the device. ``run`` (a 0-dim i32
+    flag): 0 leaves everything as it was."""
     with torch.no_grad():
-        clip_adam(opt.flat_params, opt.flat_grads, opt.flat_mu, opt.flat_nu,
-                  lr=lr, max_grad_norm=cfg.max_grad_norm, eps=cfg.adam_epsilon,
-                  bc1=1.0 - ADAM_B1 ** opt.count, bc2=1.0 - ADAM_B2 ** opt.count,
-                  partial=opt.partial)
+        clip_adam(opt.flat_params, opt.flat_grads, opt.flat_mu, opt.flat_nu, lr=lr,
+                  count=opt.count_tensor, run=run, max_grad_norm=cfg.max_grad_norm,
+                  eps=cfg.adam_epsilon, partial=opt.partial)
 
 
 def _wmean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -240,17 +297,66 @@ def _jax_clip(x: torch.Tensor, lo: float, hi: float):
     return m2, d1 * d2
 
 
+@dataclass
+class LossBook:
+    """One update's minibatch bookkeeping on the device, which K8's
+    finalize writes (``ppo_loss(book=)``): the metric sums [14] and the
+    minibatches run (f32), the stop flag (i32, 1 once the KL stop fired)
+    and the current minibatch's run flag (i32, read by K9); beside them
+    K8's output [15] and, on a CUDA device, its f64 scratch, made once
+    here for every minibatch of the update."""
+
+    sums: torch.Tensor
+    count: torch.Tensor
+    stop: torch.Tensor
+    run: torch.Tensor
+    out: torch.Tensor
+    scratch: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def create(device: torch.device) -> "LossBook":
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        scratch = None
+        if device.type != "cpu":
+            scratch = torch.empty(kernels.library().ppo_loss_scratch_len(), dtype=torch.float64,
+                                  device=device)
+        return LossBook(sums=z(len(METRIC_KEYS)), count=z(), stop=z(dtype=torch.int32),
+                        run=z(dtype=torch.int32), out=z(1 + len(METRIC_KEYS)), scratch=scratch)
+
+
+def book_plain(book: LossBook, metrics: torch.Tensor, valid: torch.Tensor,
+               cfg: PPOUpdateConfig, can_be_empty: bool) -> None:
+    """Plain twin of K8's bookkeeping (burn_ppo_tpu/ppo/update.py:346-382):
+    the minibatch runs unless the KL stop fired or, where it may be empty,
+    it holds no valid row; where it runs, the metrics are added and
+    counted and its approx_kl (in double) may raise the stop flag."""
+    run = book.stop == 0
+    if can_be_empty:
+        run = run & (torch.sum(valid) > 0.0)
+    book.sums.copy_(torch.where(run, book.sums + metrics, book.sums))
+    book.count.copy_(torch.where(run, book.count + 1.0, book.count))
+    if cfg.target_kl is not None:
+        kl_over = metrics[3].to(torch.float64) > cfg.target_kl
+        book.stop.copy_(torch.where(run & kl_over, 1, book.stop))
+    book.run.copy_(run)
+
+
 def ppo_loss_plain(
     logits: torch.Tensor,
     values: torch.Tensor,
     mb: Dict[str, torch.Tensor],
-    ent_coef: float,
+    ent_coef: torch.Tensor,
     cfg: PPOUpdateConfig,
+    book: LossBook,
+    can_be_empty: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K8: (loss, the 14 metrics [14], dL/dlogits [M, A],
     dL/dvalues [M]) of one minibatch, from the network's logits [M, A] and
     values [M] (burn_ppo_tpu/ppo/update.py:125-212 under value_and_grad,
-    with JAX's gradient rules at ties)."""
+    with JAX's gradient rules at ties), and its bookkeeping into ``book``
+    (``book_plain``)."""
     w = mb["valid"]
     mask = mb.get("action_masks")
     logp = torch.log_softmax(apply_action_mask(logits, mask), dim=-1)
@@ -312,7 +418,9 @@ def ppo_loss_plain(
         ]
     else:
         metrics += [torch.zeros((), device=w.device)] * 2
-    return loss, torch.stack(metrics), dlogits, dvalues
+    metrics = torch.stack(metrics)
+    book_plain(book, metrics, w, cfg, can_be_empty)
+    return loss, metrics, dlogits, dvalues
 
 
 # K8's widest row (csrc/ppo_loss.cu: 8 lanes a row, 8 entries a lane).
@@ -323,18 +431,22 @@ def ppo_loss_forward(
     logits: torch.Tensor,
     values: torch.Tensor,
     mb: Dict[str, torch.Tensor],
-    ent_coef: float,
+    ent_coef: torch.Tensor,
     cfg: PPOUpdateConfig,
+    book: LossBook,
+    can_be_empty: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(loss, metrics [14], dL/dlogits, dL/dvalues) of one minibatch. CPU
-    tensors take the plain version; CUDA tensors launch K8 (two launches:
-    the advantage statistics, then the rows with the last block's
-    finalize), or raise."""
+    """(loss, metrics [14], dL/dlogits, dL/dvalues) of one minibatch, the
+    entropy coefficient a 0-dim f32 tensor, and its bookkeeping into
+    ``book``. CPU tensors take the plain version; CUDA tensors launch K8
+    (two launches: the advantage statistics, then the rows with the last
+    block's finalize, which does the update's bookkeeping and writes the
+    loss and metrics into ``book.out``, in the book's scratch), or raise."""
     mask = mb.get("action_masks")
     cols = [mb[k] for k in LOSS_FIELDS]
-    ts = [logits, values, *cols] + ([] if mask is None else [mask])
-    if kernels.on_cpu(*ts):
-        return ppo_loss_plain(logits, values, mb, ent_coef, cfg)
+    ts = [logits, values, *cols, ent_coef, book.sums, book.count, book.stop, book.run, book.out]
+    if kernels.on_cpu(*ts, *([] if mask is None else [mask])):
+        return ppo_loss_plain(logits, values, mb, ent_coef, cfg, book, can_be_empty)
     M, A = logits.shape
     if not 1 <= A <= _LOSS_MAX_ACTIONS:
         raise ValueError(f"ppo_loss: the kernel takes 1 to {_LOSS_MAX_ACTIONS} actions, got {A}")
@@ -346,16 +458,28 @@ def ppo_loss_forward(
         kernels.expect(t, k, torch.int32 if k == "actions" else torch.float32, (M,))
     dev = logits.device
     lib = kernels.library()
-    scratch = torch.empty(lib.ppo_loss_scratch_len(), dtype=torch.float64, device=dev)
-    out = torch.empty(15, dtype=torch.float32, device=dev)
+    kernels.expect(ent_coef, "ent_coef", torch.float32, ())
+    scratch, out = book.scratch, book.out
+    if scratch is None or scratch.device != dev:
+        raise ValueError("ppo_loss: a CUDA book needs K8's scratch on its device "
+                         "(LossBook.create)")
+    kernels.expect(scratch, "scratch", torch.float64, (lib.ppo_loss_scratch_len(),))
+    kernels.expect(out, "out", torch.float32, (1 + len(METRIC_KEYS),))
+    kernels.expect(book.sums, "sums", torch.float32, (len(METRIC_KEYS),))
+    kernels.expect(book.count, "count", torch.float32, ())
+    kernels.expect(book.stop, "stop", torch.int32, ())
+    kernels.expect(book.run, "run", torch.int32, ())
     dlogits = torch.empty_like(logits)
     dvalues = torch.empty_like(values)
     eps = cfg.clip_epsilon
+    target_kl = -1.0 if cfg.target_kl is None else float(cfg.target_kl)
     p = kernels.ptr
     err = lib.ppo_loss_forward(
         p(logits), p(values), p(mask), *(p(t) for t in cols), M, A, float(eps),
         float(1.0 - eps), float(1.0 + eps), int(cfg.clip_value), float(cfg.value_coef),
-        float(ent_coef), p(scratch), p(out), p(dlogits), p(dvalues), kernels.stream(dev),
+        p(ent_coef), p(scratch), p(out), p(dlogits), p(dvalues), p(book.sums), p(book.count),
+        p(book.stop), p(book.run),
+        int(can_be_empty), target_kl, kernels.stream(dev),
     )
     kernels.check(err, "ppo_loss_forward")
     ppo_loss.launches += 1
@@ -367,9 +491,9 @@ class _PPOLoss(torch.autograd.Function):
     forward and the backward scales them."""
 
     @staticmethod
-    def forward(ctx, logits, values, mb, ent_coef, cfg):
+    def forward(ctx, logits, values, mb, ent_coef, cfg, book, can_be_empty):
         loss, metrics, dlogits, dvalues = ppo_loss_forward(
-            logits.detach(), values.detach(), mb, ent_coef, cfg)
+            logits.detach(), values.detach(), mb, ent_coef, cfg, book, can_be_empty)
         ctx.save_for_backward(dlogits, dvalues)
         ctx.mark_non_differentiable(metrics)
         return loss, metrics
@@ -377,20 +501,24 @@ class _PPOLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_loss, _g_metrics):
         dlogits, dvalues = ctx.saved_tensors
-        return g_loss * dlogits, g_loss * dvalues, None, None, None
+        return g_loss * dlogits, g_loss * dvalues, None, None, None, None, None
 
 
 def ppo_loss(
     logits: torch.Tensor,
     values: torch.Tensor,
     mb: Dict[str, torch.Tensor],
-    ent_coef: float,
+    ent_coef: torch.Tensor,
     cfg: PPOUpdateConfig,
+    book: LossBook,
+    can_be_empty: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scalar loss (differentiable in ``logits`` and ``values``) and the 14
-    metrics [14] in ``METRIC_KEYS`` order."""
+    metrics [14] in ``METRIC_KEYS`` order, the update's bookkeeping
+    (``LossBook``) done on the way."""
     mb = {k: mb[k].contiguous() for k in LOSS_FIELDS + ("action_masks",) if mb.get(k) is not None}
-    return _PPOLoss.apply(logits.contiguous(), values.contiguous(), mb, ent_coef, cfg)
+    return _PPOLoss.apply(logits.contiguous(), values.contiguous(), mb, ent_coef, cfg, book,
+                          can_be_empty)
 
 
 kernels.counted(ppo_loss)
@@ -399,36 +527,41 @@ kernels.counted(ppo_loss)
 def minibatch_loss(
     network: torch.nn.Module,
     mb: Dict[str, torch.Tensor],
-    ent_coef: float,
+    ent_coef: torch.Tensor,
     cfg: PPOUpdateConfig,
+    book: LossBook,
+    can_be_empty: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scalar loss (with autograd graph) + the detached metrics [14] in
     ``METRIC_KEYS`` order for one minibatch
     (burn_ppo_tpu/ppo/update.py:125-212); a CTDE network's values are its
     critic's on the minibatch's privileged obs."""
     logits, values = network(mb["obs"], mb.get("privileged_obs"))
-    return ppo_loss(logits, values, mb, ent_coef, cfg)
+    return ppo_loss(logits, values, mb, ent_coef, cfg, book, can_be_empty)
 
 
-def ppo_update(
-    network: torch.nn.Module,
-    opt: AdamState,
-    data: Dict[str, torch.Tensor],
-    rng: RandomSource,
-    lr: float,
-    ent_coef: float,
-    cfg: PPOUpdateConfig,
-    may_have_invalid: bool = False,
-) -> Dict[str, torch.Tensor]:
-    """num_epochs x num_minibatches PPO steps on flattened [N, ...] data
-    (obs already normalized, actions, old_log_probs, advantages, returns,
-    old_values, valid, optional action_masks and privileged_obs, which the
-    shuffle carries like every other column). Updates ``network`` and
-    ``opt`` in place; returns the metrics as device scalars.
+@dataclass
+class UpdatePlan:
+    """What an update's epochs read, made before the first (``plan_update``):
+    the padded [nmb x mb_size, ...] columns, every epoch's rows [epochs,
+    nmb, mb_size] drawn up front, the device bookkeeping, the learning
+    rate and entropy coefficient as 0-dim tensors, and the unpadded data
+    (for the explained variance)."""
 
-    ``may_have_invalid``: the valid column carries real zeros (vs-pool
-    rollouts mark opponent turns invalid), so a minibatch can have no
-    valid row even without padding; such minibatches are skipped."""
+    fields: Dict[str, torch.Tensor]
+    rows: torch.Tensor
+    book: LossBook
+    lr: torch.Tensor
+    ent_coef: torch.Tensor
+    can_be_empty: bool
+    data: Dict[str, torch.Tensor]
+
+
+def plan_update(data: Dict[str, torch.Tensor], rng: RandomSource, lr: torch.Tensor,
+                ent_coef: torch.Tensor, cfg: PPOUpdateConfig,
+                may_have_invalid: bool = False) -> UpdatePlan:
+    """The pad, every epoch's permutation and a fresh ``LossBook``; ``lr``
+    and ``ent_coef`` 0-dim f32 tensors on the data's device."""
     N = data["actions"].shape[0]
     nmb = cfg.num_minibatches
     mb_size = N // nmb
@@ -437,9 +570,7 @@ def ppo_update(
     if N % nmb:
         mb_size = -(-N // nmb)
     pad = nmb * mb_size - N
-    can_be_empty = pad >= mb_size or may_have_invalid
     device = data["actions"].device
-
     fields = {k: v for k, v in data.items() if v is not None}
     if pad:
         # Wrapped copies of real rows with valid = 0: every reduction is
@@ -449,36 +580,60 @@ def ppo_update(
     R = resolve_shuffle_block(nmb * mb_size, mb_size, cfg.shuffle_block_rows)
     num_blocks = (nmb * mb_size) // R
     within = torch.arange(R, device=device)
-    epoch_rows = [(rng.permutation(num_blocks).to(device)[:, None] * R + within).reshape(nmb, mb_size)
-                  for _ in range(cfg.num_epochs)]
-    if can_be_empty:
-        # One transfer for every epoch's decision (valid sums of 0/1 flags are exact).
-        empty = (torch.stack([fields["valid"][rows].sum(1) for rows in epoch_rows]) <= 0.0).tolist()
+    perms = torch.stack([rng.permutation(num_blocks).to(device) for _ in range(cfg.num_epochs)])
+    rows = (perms[:, :, None] * R + within).reshape(cfg.num_epochs, nmb, mb_size)
+    return UpdatePlan(fields=fields, rows=rows, book=LossBook.create(device), lr=lr,
+                      ent_coef=ent_coef, can_be_empty=pad >= mb_size or may_have_invalid, data=data)
 
-    sums = torch.zeros(len(METRIC_KEYS), device=device)
-    count = 0
-    stop = False
-    for e, rows in enumerate(epoch_rows):
-        if stop:
-            break
-        for i in range(nmb):
-            if can_be_empty and empty[e][i]:
-                continue
-            mb = {k: v[rows[i]] for k, v in fields.items()}
-            loss, metrics = minibatch_loss(network, mb, ent_coef, cfg)
-            opt.flat_grads.zero_()
-            loss.backward()
-            clip_and_adam_step(opt, lr, cfg)
-            sums = sums + metrics
-            count += 1
-            if cfg.target_kl is not None and float(metrics[3]) > cfg.target_kl:
-                stop = True
-                break
 
-    averaged = sums / float(max(count, 1))
-    metrics = dict(zip(METRIC_KEYS, averaged))
-    metrics["num_minibatch_updates"] = torch.tensor(float(count), device=device)
+def update_minibatch(network: torch.nn.Module, opt: AdamState, plan: UpdatePlan,
+                     cfg: PPOUpdateConfig, epoch: int, m: int) -> None:
+    """Minibatch ``m`` of ``epoch``: gathered by its device rows, its loss
+    (K8, whose finalize decides whether it runs), backward, and K9, which
+    changes nothing where it does not run."""
+    mb = {k: v[plan.rows[epoch, m]] for k, v in plan.fields.items()}
+    loss, _ = minibatch_loss(network, mb, plan.ent_coef, cfg, plan.book, plan.can_be_empty)
+    opt.flat_grads.zero_()
+    loss.backward()
+    clip_and_adam_step(opt, plan.lr, cfg, plan.book.run)
+
+
+def update_metrics(plan: UpdatePlan) -> Dict[str, torch.Tensor]:
+    """The 14 metrics averaged over the minibatches run, their count and
+    the explained variance, as device scalars."""
+    book, data = plan.book, plan.data
+    metrics = dict(zip(METRIC_KEYS, book.sums / torch.clamp(book.count, min=1.0)))
+    metrics["num_minibatch_updates"] = book.count
     metrics["explained_variance"] = compute_explained_variance(
         data["old_values"], data["returns"], data["valid"]
     )
     return metrics
+
+
+def ppo_update(
+    network: torch.nn.Module,
+    opt: AdamState,
+    data: Dict[str, torch.Tensor],
+    rng: RandomSource,
+    lr: torch.Tensor,
+    ent_coef: torch.Tensor,
+    cfg: PPOUpdateConfig,
+    may_have_invalid: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """num_epochs x num_minibatches PPO steps on flattened [N, ...] data
+    (obs already normalized, actions, old_log_probs, advantages, returns,
+    old_values, valid, optional action_masks and privileged_obs, which the
+    shuffle carries like every other column). Updates ``network`` and
+    ``opt`` in place; returns the metrics as device scalars. ``lr`` and
+    ``ent_coef``: 0-dim f32 tensors on the data's device (a CUDA graph of
+    the update reads them there). Reads nothing back: every minibatch
+    runs, those after a KL stop changing nothing.
+
+    ``may_have_invalid``: the valid column carries real zeros (vs-pool
+    rollouts mark opponent turns invalid), so a minibatch can have no
+    valid row even without padding; such minibatches are skipped."""
+    plan = plan_update(data, rng, lr, ent_coef, cfg, may_have_invalid)
+    for e in range(cfg.num_epochs):
+        for m in range(cfg.num_minibatches):
+            update_minibatch(network, opt, plan, cfg, e, m)
+    return update_metrics(plan)

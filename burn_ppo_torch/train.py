@@ -9,9 +9,12 @@ prefix pass and the PPO epochs; the host loop evaluates the schedules,
 logs ``metrics.jsonl`` at ``log_freq`` boundaries and writes checkpoints.
 The device work of an update is enqueued without waiting for the device;
 the host reads the metrics (and on the vs-pool path the pool block's game
-records) once per update, in one transfer. On a card the rollout is one
-CUDA graph replay an update (``ppo/rollout_graph.py``); on the CPU it
-runs eagerly on the same static buffers.
+records) once per update, in one transfer. On a card a train step is two
+CUDA graph replays: the rollout (``ppo/rollout_graph.py``) and the rest
+of the update, every epoch and minibatch included, with the KL stop and
+the empty-minibatch skip decided on the device
+(``ppo/update_graph.py``); on the CPU both run eagerly on the same static
+buffers.
 
 The ``Trainer`` supports fresh single-player runs, pure self-play, and
 self-play against the opponent pool (``opponent_pool_fraction > 0``,
@@ -52,19 +55,18 @@ from burn_ppo_torch.device import resolve_device
 from burn_ppo_torch.envs import make_env, registered_envs
 from burn_ppo_torch.envs.base import Environment
 from burn_ppo_torch.models.network import ActorCriticNetwork, make_network
-from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
-from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker, summarize_episode_logs
-from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, obs_norm_update
+from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker
+from burn_ppo_torch.ppo.normalization import ObsNormState
 from burn_ppo_torch.ppo.pool_rollout import OpponentStack, PoolSeating
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
     RolloutCarry,
     TorchRandomSource,
-    bootstrap_values,
     init_rollout_carry,
 )
 from burn_ppo_torch.ppo.rollout_graph import RolloutRunner
-from burn_ppo_torch.ppo.update import AdamState, PPOUpdateConfig, ppo_update, resolve_shuffle_block
+from burn_ppo_torch.ppo.update import AdamState, resolve_shuffle_block
+from burn_ppo_torch.ppo.update_graph import UpdateRunner
 from burn_ppo_torch.selfplay.opponent_pool import OpponentPool
 from burn_ppo_torch.selfplay.rating_history import RatingHistory
 
@@ -96,32 +98,6 @@ def build_network_for_env(env: Environment, cfg: Config, generator: torch.Genera
     )
 
 
-def update_config(cfg: Config) -> PPOUpdateConfig:
-    return PPOUpdateConfig(
-        clip_epsilon=cfg.clip_epsilon,
-        clip_value=cfg.clip_value,
-        value_coef=cfg.value_coef,
-        max_grad_norm=cfg.max_grad_norm,
-        num_epochs=cfg.num_epochs,
-        num_minibatches=cfg.num_minibatches,
-        target_kl=cfg.target_kl,
-        adam_epsilon=cfg.adam_epsilon,
-        shuffle_block_rows=cfg.shuffle_block_rows,
-    )
-
-
-def guard_counts(batch) -> Dict[str, torch.Tensor]:
-    """Runtime-guard counts over a rollout (burn_ppo_tpu/train.py:185-204):
-    rows with an empty action mask, and non-finite log-probs or values."""
-    return {
-        "invalid_mask_count": torch.sum(
-            (torch.sum(batch.action_masks, dim=-1) == 0.0).to(torch.float32)
-        ),
-        "nonfinite_count": torch.sum((~torch.isfinite(batch.log_probs)).to(torch.float32))
-        + torch.sum((~torch.isfinite(batch.values)).to(torch.float32)),
-    }
-
-
 GUARD_METRIC_KEYS = ("invalid_mask_count", "nonfinite_count")
 
 # (series name, metrics key): the JAX trainer's names (train.py:1758-1778).
@@ -143,51 +119,6 @@ METRIC_SERIES = (
 )
 
 
-def _finish_step(env: Environment, cfg: Config, state: TrainState, carry: RolloutCarry,
-                 batch, rng: RandomSource, lr: float, ent_coef: float,
-                 may_have_invalid: bool = False):
-    """Obs-normalizer merge, bootstrap, GAE, flatten and the PPO update
-    after a rollout (train.py:110-249). Returns (state', metrics)."""
-    net = state.network
-    # Lagged obs normalization: the stats absorb this rollout's raw
-    # batch AFTER it; the bootstrap uses the new stats, the update
-    # re-normalizes the batch with the stats the rollout used.
-    obs_norm_new = (
-        obs_norm_update(state.obs_norm, batch.obs) if state.obs_norm is not None else None
-    )
-    last_values, last_vpp = bootstrap_values(net, env, carry, obs_norm_new)
-    if env.spec.num_players > 1:
-        advantages, returns = compute_gae_multiplayer(
-            batch.all_rewards, batch.values, batch.dones, batch.acting_players, last_vpp,
-            cfg.gamma, cfg.gae_lambda,
-        )
-    else:
-        advantages, returns = compute_gae(
-            batch.rewards, batch.values, batch.dones, last_values, cfg.gamma, cfg.gae_lambda
-        )
-    T, E = batch.actions.shape
-    N = T * E
-    obs_u = obs_norm_apply(state.obs_norm, batch.obs) if state.obs_norm is not None else batch.obs
-    data = {
-        "obs": obs_u.reshape(N, -1),
-        "actions": batch.actions.reshape(N),
-        "old_log_probs": batch.log_probs.reshape(N),
-        "advantages": advantages.reshape(N),
-        "returns": returns.reshape(N),
-        "old_values": batch.values.reshape(N),
-        "valid": batch.valid_mask.reshape(N),
-        "action_masks": batch.action_masks.reshape(N, env.spec.num_actions),
-    }
-    if batch.privileged_obs is not None:
-        data["privileged_obs"] = batch.privileged_obs.reshape(N, -1)
-    metrics = ppo_update(net, state.opt_state, data, rng, lr, ent_coef, update_config(cfg),
-                         may_have_invalid=may_have_invalid)
-    if cfg.runtime_guards != "off":
-        metrics.update(guard_counts(batch))
-    return TrainState(network=net, opt_state=state.opt_state, carry=carry,
-                      obs_norm=obs_norm_new), metrics
-
-
 def rollout_runner(env: Environment, cfg: Config,
                    num_learner_envs: Optional[int] = None) -> RolloutRunner:
     """The rollout of a train step on static buffers: a captured CUDA graph
@@ -202,19 +133,30 @@ def rollout_runner(env: Environment, cfg: Config,
 def make_train_step(env: Environment, cfg: Config):
     """Fused rollout -> GAE -> PPO update. ``train_step(state, lr, ent_coef,
     rng, shaping_coef=0.0)`` returns (state, metrics, episode logs [T, E]).
-    The state's carry and the logs are the step's own buffers, which its
-    next call overwrites; ``train_step.runner`` is its ``RolloutRunner``."""
+    The state's carry, obs-norm stats, the metrics and the logs are the
+    step's own buffers, which its next call overwrites;
+    ``train_step.runner`` is its ``RolloutRunner`` and
+    ``train_step.updater`` its ``UpdateRunner`` (whose ``outputs["stats"]``
+    are the step's episode summaries)."""
     runner = rollout_runner(env, cfg)
+    updater = UpdateRunner(env, cfg)
 
     def train_step(state: TrainState, lr: float, ent_coef: float, rng: RandomSource,
                    shaping_coef: float = 0.0):
-        carry, batch, logs = runner.run(state.network, state.carry, state.obs_norm, rng,
-                                        shaping_coef)
-        new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef)
-        return new_state, metrics, logs
+        carry, _, logs = runner.run(state.network, state.carry, state.obs_norm, rng,
+                                    shaping_coef)
+        out = updater.run(state.network, state.opt_state, runner, rng, lr, ent_coef)
+        return _stepped(state, runner), out["metrics"], logs
 
-    train_step.runner = runner
+    train_step.runner, train_step.updater = runner, updater
     return train_step
+
+
+def _stepped(state: TrainState, runner: RolloutRunner) -> TrainState:
+    """The state after a train step: the runner's carry and obs-norm stats,
+    which the update merged the batch into."""
+    return TrainState(network=state.network, opt_state=state.opt_state, carry=runner.carry,
+                      obs_norm=runner.obs_norm)
 
 
 @dataclass
@@ -236,29 +178,27 @@ def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
     ``PoolRecordLog``). The carry, the seating and the records are the
     step's own buffers, which its next call overwrites; every rotation's
     stack must have the same slot count (``refresh_rotation(pad_to=)``).
-    ``train_step.runner`` is its ``RolloutRunner``."""
+    ``train_step.runner`` is its ``RolloutRunner``, ``train_step.updater``
+    its ``UpdateRunner``."""
     L = num_learner_envs
     runner = rollout_runner(env, cfg, num_learner_envs=L)
+    # Only learner turns are valid: a minibatch can be all-invalid.
+    updater = UpdateRunner(env, cfg, num_learner_envs=L)
 
     def train_step(state: TrainState, seating: PoolSeating, opponents: OpponentStack,
                    num_active: int, lr: float, ent_coef: float, rng: RandomSource,
                    shaping_coef: float = 0.0):
-        carry, seating, batch, pool_logs = runner.run(
+        _, seating, _, pool_logs = runner.run(
             state.network, state.carry, state.obs_norm, rng, shaping_coef, seating=seating,
             opponents=opponents, num_active=num_active)
-        # Only learner turns are valid: a minibatch can be all-invalid.
-        new_state, metrics = _finish_step(env, cfg, state, carry, batch, rng, lr, ent_coef,
-                                          may_have_invalid=True)
-        metrics["learner_valid_fraction"] = torch.mean(batch.valid_mask)
-        learner_stats = summarize_episode_logs(pool_logs.episode, env.spec.num_players,
-                                               num_envs=L)
+        out = updater.run(state.network, state.opt_state, runner, rng, lr, ent_coef)
         ep = pool_logs.episode
         records = PoolRecordLog(completed=ep.completed[:, L:], outcome=ep.outcome[:, L:],
                                 learner_seat=pool_logs.learner_seat[:, L:],
                                 seat_opp=pool_logs.seat_opp[:, L:])
-        return new_state, seating, metrics, learner_stats, records
+        return _stepped(state, runner), seating, out["metrics"], out["stats"], records
 
-    train_step.runner = runner
+    train_step.runner, train_step.updater = runner, updater
     return train_step
 
 
@@ -558,9 +498,9 @@ class Trainer:
         fetched = self._pool_update(lr, ent_coef, shaping)
         if fetched is not None:
             return fetched
-        self.state, metrics_t, logs = self.train_step(self.state, lr, ent_coef, self.rng, shaping)
+        self.state, metrics_t, _ = self.train_step(self.state, lr, ent_coef, self.rng, shaping)
         fetched = self._fetch({"metrics": metrics_t,
-                               "stats": summarize_episode_logs(logs, self.num_players)})
+                               "stats": self.train_step.updater.outputs["stats"]})
         return fetched["metrics"], fetched["stats"]
 
     # ------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K1, K6, K9, K12 and train phases 3, 3d in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K6, K8, K9, train phases 3, 3d and train steps in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -54,11 +54,11 @@ exits non-zero without the final result line:
      where one PyTorch call computes the same function, that call's time;
      K4, K6, K9 and K13 print their ptxas lines (registers, stack frame,
      spills); with --parent, when DIR's kernel sources differ from this
-     tree's, the parent commit's K1 with the gather and
-     K12 roll its rollout ran after it (E = 4096), its three-launch K12
-     finalize ([524288], with and without the mask), K6 apply (at
-     [4096, 86], [4096, 270] and the update batches, there also with L2
-     flushed) and K9 (at the five parameter counts), built from DIR,
+     tree's, the parent commit's K6 apply (at [4096, 86], [4096, 270]
+     and the update batches, there also with L2 flushed) and update (into
+     new tensors, at the three update batches), K8 (at [65536, 7], [65536,
+     33], [65536, 49], its float entropy coefficient) and K9 (at the five
+     parameter counts, its host bias corrections), built from DIR,
      checked against this tree's outputs and timed in turns with this
      tree's (parent, new, new, parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
@@ -79,6 +79,28 @@ exits non-zero without the final result line:
      and the graph timed in turns (events and device ms per rollout),
      with the rollout's bound (the per-step kernels' bounds of phase 2
      plus the forward at the f32 rate);
+  2d. (in a process of its own) the trainer's update
+     (``ppo/update_graph.py``: the obs-norm merge,
+     bootstrap, GAE, every epoch's minibatches, the guard counts and the
+     episode summaries) as captured CUDA graphs against the eager loop
+     (``UpdateRunner.eager``) from one saved state, update after update:
+     parameters, moments, the Adam count, obs-norm stats, every metric and
+     summary bit for bit and the generator at the same offset; CartPole
+     4096 x 128, Connect Four self-play 4096 x 64 (MLP 512x2, 6 epochs,
+     target_kl 0.02), Liar's Dice CTDE against the pool as
+     configs/liars_dice_ctde.toml runs it (the KL stop required to fire),
+     then a last update with two valid rows left in its batch
+     (all-invalid minibatches required); one capture a runner; the
+     minibatches run and skipped and the minibatch graphs skipped; from
+     one saved state the eager loop and the graphs timed in turns, and the
+     host's waits for the stop flag between minibatch graphs (count and
+     ms); each update kernel's device launches in one profiled replay;
+     one train step under ``torch.cuda.set_sync_debug_mode("error")`` (no
+     stream or device synchronize; the host's wait for the stop flag is
+     an event query, which that mode does not see); with
+     --parent, whole train steps through ``Trainer.update`` (CartPole and
+     Liar's Dice CTDE against the pool) of DIR and this tree in turns,
+     each in a process of its own (phase ``update_turns``);
   3. the CartPole bench-shape train path through the CLI entry point
      (MLP 64x2, 4096 envs x 128 steps, obs norm on, the return normaliser
      on with its roll inside K1, 5 updates); with --parent (DIR a full
@@ -126,13 +148,14 @@ exits non-zero without the final result line:
      average return >= 195 within 200k steps.
 
 Each train phase sets every kernel's launch counter, and the rollout
-graphs' counts, to 0 just before it and checks the counts just after
-against what its updates imply: the rollout graphs replayed once an
-update; a rollout kernel's launches its graphs' captured launches times
-their replays (a replay runs no wrapper; phase 3i counts the replayed
-kernels on the device), and no eager launch of it beyond the graphs'
-warm-ups (one eager rollout before a runner's capture); the update's
-kernels counted by their wrappers.
+and update graphs' counts, to 0 just before it and checks the counts
+just after against what its updates imply: the rollout and update
+graphs replayed once an update, captured once a runner; a kernel's
+launches its graphs' captured launches times their replays (a replay
+runs no wrapper; phase 3i counts the replayed kernels on the device),
+and no eager launch beyond the graphs' warm-ups (one eager rollout and
+one eager update before a runner's captures); K8 and K9 once per
+minibatch graph replayed.
 
 The line before the last holds the kernel table, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -217,7 +240,6 @@ from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     return_norm_scratch,
 )
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
-    ACTIVATIONS,
     OPPONENT_TILINGS,
     OpponentStack,
     opponent_actor_forward,
@@ -225,6 +247,7 @@ from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
 )
 from burn_ppo_torch.ppo.update import (  # noqa: E402
     LOSS_FIELDS,
+    LossBook,
     PPOUpdateConfig,
     clip_adam,
     clip_adam_plain,
@@ -245,6 +268,7 @@ from burn_ppo_torch.ppo.rollout import (  # noqa: E402
 )
 from burn_ppo_torch.ppo.rollout_graph import RolloutGraph, state_leaves  # noqa: E402
 from burn_ppo_torch.ppo.update import AdamState  # noqa: E402
+from burn_ppo_torch.ppo.update_graph import UpdateGraph, UpdateRunner  # noqa: E402
 from burn_ppo_torch.train import Trainer, build_network_for_env, rollout_runner  # noqa: E402
 
 E, T = 4096, 128  # CartPole bench shape
@@ -487,20 +511,21 @@ def turns(new, other, who: str = "parent") -> dict:
 
 
 class ParentKernels:
-    """The parent commit's K1, K6 apply, K9 and K12 (roll and finalize),
-    built from a checkout of it into a library of their own and called as
-    its wrappers called them (the argument checks and the allocations; K9
-    with a scratch made once, the finalize with its per-call scratch; K1's
-    outputs in fourteen buffers), so that they are timed beside the new
-    kernels in the same process."""
+    """The parent commit's (4e589f6) K6 apply and update, K8 and K9, built
+    from a checkout of it into a library of their own and called as its
+    wrappers called them (the argument checks and the allocations: K6's
+    update into new tensors, its scratch per call; K8 with the entropy
+    coefficient as a float and its scratch and output per call; K9 with
+    the learning rate and the bias corrections as floats and a scratch
+    made once), so that they are timed beside the new kernels in the same
+    process."""
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
         out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_kernels.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-               *(str(csrc / f) for f in ("obs_norm.cu", "clip_adam.cu", "cartpole_step.cu",
-                                         "return_norm.cu"))]
+               *(str(csrc / f) for f in ("obs_norm.cu", "clip_adam.cu", "ppo_loss.cu"))]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
@@ -508,11 +533,12 @@ class ParentKernels:
         vp, i, l, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
         for name, argtypes in (("obs_norm_apply", [vp] * 5 + [l, i, f, vp]),
+                               ("obs_norm_update", [vp] * 8 + [l, i, l, vp]),
                                ("clip_adam", [vp] * 5 + [l, i] + [f] * 9 + [vp]),
                                ("clip_adam_scratch_len", []),
-                               ("cartpole_step_autoreset", [vp] * 24 + [i, vp]),
-                               ("return_norm_roll", [vp] * 6 + [i, i, f, vp]),
-                               ("return_norm_finalize", [vp] * 9 + [l, i, f, vp])):
+                               ("ppo_loss_forward", [vp] * 9 + [i] * 2 + [f] * 3 + [i]
+                                + [f] * 2 + [vp] * 5),
+                               ("ppo_loss_scratch_len", [])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         self.partial = None  # K9's scratch, made at the first call
@@ -530,6 +556,24 @@ class ParentKernels:
             float(clip), kernels.stream(obs.device)), "parent K6 apply")
         return out
 
+    def obs_norm_update(self, state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
+        D = batch.shape[-1]
+        N = batch.numel() // D
+        kernels.expect(batch, "batch", torch.float32, batch.shape)
+        for t, name, shape in ((state.mean, "mean", (D,)), (state.m2, "m2", (D,)),
+                               (state.count, "count", ())):
+            kernels.expect(t, name, torch.float32, shape)
+        lanes = max(1, min(1056 * 256, -(-N * D // 16)) // D)
+        scratch = torch.empty(2 * lanes * D, dtype=torch.float64, device=batch.device)
+        new = ObsNormState(mean=torch.empty_like(state.mean), m2=torch.empty_like(state.m2),
+                           count=torch.empty_like(state.count))
+        p = kernels.ptr
+        kernels.check(self.lib.obs_norm_update(
+            p(batch), p(state.mean), p(state.m2), p(state.count), p(scratch), p(new.mean),
+            p(new.m2), p(new.count), N, D, lanes, kernels.stream(batch.device)),
+            "parent K6 update")
+        return new
+
     def clip_adam(self, params, grads, mu, nu, *, lr, max_grad_norm, eps, bc1, bc2) -> None:
         n = params.numel()
         for t, name in ((params, "params"), (grads, "grads"), (mu, "mu"), (nu, "nu")):
@@ -544,81 +588,28 @@ class ParentKernels:
             float(eps), 0.9, 0.999, 1 - 0.9, 1 - 0.999, float(bc1), float(bc2),
             kernels.stream(params.device)), "parent K9")
 
-    def cartpole_step(self, fields: list, acc: EpisodeAccumulator, action: torch.Tensor,
-                      reset: torch.Tensor) -> dict:
-        """The parent's K1: ``fields`` the state's x, x_dot, theta,
-        theta_dot (each [E] f32) and step_idx; 9 checks, 14 outputs."""
-        E = action.shape[0]
-        f32, i32 = torch.float32, torch.int32
-        for name, t, dt, shape in (
-                *((n, t, f32, (E,)) for n, t in zip(("x", "x_dot", "theta", "theta_dot"), fields)),
-                ("step_idx", fields[4], i32, (E,)), ("reward_sum", acc.reward_sum, f32, (E, 1)),
-                ("length", acc.length, i32, (E,)), ("action", action, i32, (E,)),
-                ("reset_values", reset, f32, (E, 4))):
-            kernels.expect(t, name, dt, shape)
-        dev = action.device
-        out = {n: torch.empty(E, dtype=f32, device=dev) for n in ("x", "x_dot", "theta", "theta_dot")}
-        out.update(step_idx=torch.empty(E, dtype=i32, device=dev),
-                   reward_sum=torch.empty(E, 1, dtype=f32, device=dev),
-                   length=torch.empty(E, dtype=i32, device=dev),
-                   reward=torch.empty(E, 1, dtype=f32, device=dev),
-                   done=torch.empty(E, dtype=f32, device=dev),
-                   ep_return=torch.empty(E, 1, dtype=f32, device=dev),
-                   ep_length=torch.empty(E, dtype=i32, device=dev),
-                   outcome=torch.empty(E, 1, dtype=i32, device=dev),
-                   active=torch.empty(E, dtype=i32, device=dev),
-                   obs=torch.empty(E, 5, dtype=f32, device=dev),
-                   mask=torch.empty(E, 2, dtype=f32, device=dev))
+    def ppo_loss_forward(self, logits, values, mb, ent_coef: float, cfg: PPOUpdateConfig):
+        M, A = logits.shape
+        mask = mb.get("action_masks")
+        cols = [mb[k] for k in LOSS_FIELDS]
+        kernels.expect(logits, "logits", torch.float32, (M, A))
+        kernels.expect(values, "values", torch.float32, (M,))
+        if mask is not None:
+            kernels.expect(mask, "action_masks", torch.float32, (M, A))
+        for k, t in zip(LOSS_FIELDS, cols):
+            kernels.expect(t, k, torch.int32 if k == "actions" else torch.float32, (M,))
+        dev = logits.device
+        scratch = torch.empty(self.lib.ppo_loss_scratch_len(), dtype=torch.float64, device=dev)
+        out = torch.empty(15, dtype=torch.float32, device=dev)
+        dlogits, dvalues = torch.empty_like(logits), torch.empty_like(values)
+        eps = cfg.clip_epsilon
         p = kernels.ptr
-        kernels.check(self.lib.cartpole_step_autoreset(
-            *map(p, fields), p(acc.reward_sum), p(acc.length), p(action), p(reset),
-            *(p(out[n]) for n in ("x", "x_dot", "theta", "theta_dot", "step_idx", "reward_sum",
-                                  "length", "reward", "done", "ep_return", "ep_length", "outcome",
-                                  "active", "obs", "mask")),
-            E, kernels.stream(dev)), "parent K1")
-        return out
-
-    def return_norm_roll(self, returns, rewards, acting, dones, gamma):
-        E, P = returns.shape
-        for t, name, dt, shape in ((returns, "returns", torch.float32, (E, P)),
-                                   (rewards, "rewards", torch.float32, (E,)),
-                                   (acting, "acting", torch.int32, (E,)),
-                                   (dones, "dones", torch.float32, (E,))):
-            kernels.expect(t, name, dt, shape)
-        new_returns, samples = torch.empty_like(returns), torch.empty_like(rewards)
-        p = kernels.ptr
-        kernels.check(self.lib.return_norm_roll(
-            p(returns), p(rewards), p(acting), p(dones), p(new_returns), p(samples), E, P,
-            float(gamma), kernels.stream(returns.device)), "parent K12 roll")
-        return new_returns, samples
-
-    def cartpole_rollout_step(self, fields, acc, action, reset, returns, players):
-        """What the parent's rollout ran for one CartPole step with the
-        return normaliser on: K1, the acting player's reward picked by a
-        gather, K12's roll."""
-        out = self.cartpole_step(fields, acc, action, reset)
-        acting_reward = torch.gather(out["reward"], 1, players.long()[:, None])[:, 0]
-        return out, self.return_norm_roll(returns, acting_reward, players, out["done"], 0.99)
-
-    def return_norm_finalize(self, state, samples, rewards, clip=10.0, valid=None):
-        """The parent's three-launch finalize, its scratch made per call."""
-        N = rewards.numel()
-        x, r = samples.reshape(-1), rewards.reshape(-1)
-        w = None if valid is None else valid.reshape(-1)
-        for t, name in ((x, "samples"), (r, "rewards"), *(((w, "valid"),) if w is not None else ())):
-            kernels.expect(t, name, torch.float32, (N,))
-        for t, name in ((state.mean, "mean"), (state.m2, "m2"), (state.count, "count")):
-            kernels.expect(t, name, torch.float32, ())
-        G = max(1, min(1024, -(-N // (8 * 256))))
-        scratch = torch.empty(5 * G, dtype=torch.float64, device=x.device)
-        stats = torch.empty(3, dtype=torch.float64, device=x.device)
-        normalized = torch.empty_like(r)
-        p = kernels.ptr
-        kernels.check(self.lib.return_norm_finalize(
-            p(x), p(r), p(w), p(state.mean), p(state.m2), p(state.count), p(scratch),
-            p(normalized), p(stats), N, G, float(clip), kernels.stream(x.device)),
-            "parent K12 finalize")
-        return stats, normalized.reshape(rewards.shape)
+        kernels.check(self.lib.ppo_loss_forward(
+            p(logits), p(values), p(mask), *(p(t) for t in cols), M, A, float(eps),
+            float(1.0 - eps), float(1.0 + eps), int(cfg.clip_value), float(cfg.value_coef),
+            float(ent_coef), p(scratch), p(out), p(dlogits), p(dvalues), kernels.stream(dev)),
+            "parent K8")
+        return out[0], out[1:], dlogits, dvalues
 
 
 def same_kernel_sources(parent_dir: Path) -> bool:
@@ -658,13 +649,11 @@ def plain_cartpole(env, state, acc, action, reset, roll):
     return out._replace(returns=ret, samples=samples)
 
 
-def check_cartpole(dev, g, parent: "ParentKernels | None") -> dict:
+def check_cartpole(dev, g) -> dict:
     """K1 against the plain step at E = 4096 and 4097, with and without the
     roll folded in: the discrete outputs, the returns and the samples
     exact, the physics and obs to 1e-5; failures, timeouts and continuing
-    envs each required. Timed with the roll at 4096. With ``parent``, the
-    parent's K1, gather and K12 roll, as its rollout ran them, checked
-    against this tree's K1 and timed in turns with it."""
+    envs each required. Timed with the roll at 4096."""
     env = CartPole()
     out = {"tol": {"floats": 1e-5, "discrete_returns_samples": "exact"}, "max_abs_err": 0.0}
     for n in (E, E + 1):
@@ -714,29 +703,6 @@ def check_cartpole(dev, g, parent: "ParentKernels | None") -> dict:
         # reset row read only where the episode ends
         **bound(nbytes(s, a, act, ret, k) + int(k.done.sum()) * 16, 32.0 * E),
     )
-    if parent is not None:
-        fields = [s.x.contiguous(), s.x_dot.contiguous(), s.theta.contiguous(),
-                  s.theta_dot.contiguous(), s.step_idx]
-        players = torch.zeros(E, dtype=torch.int32, device=dev)
-        po, (pret, psamples) = parent.cartpole_rollout_step(fields, a, act, rs, ret, players)
-        torch.cuda.synchronize()
-        pphys = torch.stack([po[n] for n in ("x", "x_dot", "theta", "theta_dot")], 1)
-        exact = [(po["step_idx"], k.state.step_idx), (po["reward"], k.rewards),
-                 (po["done"], k.done), (po["reward_sum"], k.acc.reward_sum),
-                 (po["length"], k.acc.length), (po["ep_return"], k.log.total_rewards),
-                 (po["ep_length"], k.log.length), (po["outcome"], k.log.outcome),
-                 (po["active"], k.log.active_players), (po["mask"], k.mask),
-                 (pret, k.returns), (psamples, k.samples)]
-        if not all(torch.equal(x, y) for x, y in exact):
-            raise AssertionError("cartpole_step_autoreset: discrete outputs differ from the parent's")
-        err = max_err([(pphys, k.state.phys), (po["obs"], k.obs)])
-        if not err <= 1e-5:
-            raise AssertionError(f"cartpole_step_autoreset: max abs err {err} against the parent's")
-        out.update(
-            parent_max_abs_err=err,
-            parent_equal_bit_for_bit=torch.equal(pphys, k.state.phys) and torch.equal(po["obs"], k.obs),
-            parent_sequence="K1, players.long(), torch.gather of the acting reward, K12 roll",
-            **turns(new, lambda: parent.cartpole_rollout_step(fields, a, act, rs, ret, players)))
     return out
 
 
@@ -1129,14 +1095,12 @@ def check_return_norm_roll(dev, g) -> dict:
     return out
 
 
-def check_return_norm_finalize(dev, g, parent: "ParentKernels | None") -> dict:
+def check_return_norm_finalize(dev, g) -> dict:
     """K12's finalize over CartPole's [524288] (128 x 4096): into an empty
     and into a filled state, with and without a valid mask, and a mask
     with no valid sample. f64 stats to 1e-12 relative, normalized rewards
     to 2 f32 ulp; the empty mask leaves the state exactly as it was; two
-    calls give the same bits. Timed with and without the mask. With
-    ``parent``, the parent's three-launch finalize to the same tolerances
-    and timed in turns."""
+    calls give the same bits. Timed with and without the mask."""
     N = E * T
     tol = {"stats64_rel": 1e-12, "normalized_rel": 2.4e-7}
     out = {"tol": tol, "max_abs_err": 0.0}
@@ -1169,10 +1133,6 @@ def check_return_norm_finalize(dev, g, parent: "ParentKernels | None") -> dict:
                 raise AssertionError(f"return_norm_finalize {sname}/{vname}: two calls differ")
             out[f"{sname}_{vname}"] = close(ks, kn, ps, pn, f"{sname}/{vname}")
             out["max_abs_err"] = max(out["max_abs_err"], max_err([(kn, pn)]))
-            if parent is not None:
-                out[f"{sname}_{vname}"]["parent"] = close(
-                    *parent.return_norm_finalize(st, samples, rewards, 10.0, w), ps, pn,
-                    f"{sname}/{vname} (parent)")
     out["bit_identical_across_calls"] = True
     new, _ = return_norm_finalize(states["filled"], samples, rewards, 10.0, torch.zeros_like(valid))
     torch.cuda.synchronize()
@@ -1191,9 +1151,6 @@ def check_return_norm_finalize(dev, g, parent: "ParentKernels | None") -> dict:
             # and the stats; ~25 f64 operations per element
             **bound(nbytes(samples, rewards, w) + nbytes(rewards) + 24, flops64=25.0 * N),
         }
-        if parent is not None:
-            entry.update(turns(kern, lambda w=w: parent.return_norm_finalize(
-                st, samples, rewards, 10.0, w)))
         out[f"timed_{vname}"] = entry
     out.update({k: out["timed_all"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
                library_call="torch.cumsum of the f64 samples (one of the three prefix sums, no stats)")
@@ -1370,12 +1327,14 @@ def check_obs_norm_batch(dev, g, parent: "ParentKernels | None") -> dict:
     return out
 
 
-def check_obs_norm_update(dev, g) -> dict:
+def check_obs_norm_update(dev, g, parent: "ParentKernels | None") -> dict:
     """Into an empty and into a filled state, at the Connect Four update
     batch [262144, 86], the CartPole one [524288, 5] and Liar's Dice's
     [524288, 270]: mean to 1e-6 absolute, m2 to 1e-5 relative, count
-    exact. ``max_abs_err`` is the mean's; the top level's times are
-    Connect Four's."""
+    exact. The update merges in place (into the state itself), and is
+    timed so. ``max_abs_err`` is the mean's; the top level's times are
+    Connect Four's. With ``parent``, the parent commit's update (into new
+    tensors) equal bit for bit and timed in turns."""
     batches = {
         "c4_262144x86": lambda: connect_four_like(dev, g, E * T_C4),
         "cartpole_524288x5": lambda: torch.randn(E * T, 5, generator=g, device=dev)
@@ -1385,13 +1344,16 @@ def check_obs_norm_update(dev, g) -> dict:
     }
     out = {"tol": {"mean": 1e-6, "m2_rel": 1e-5, "count": "exact"}, "max_abs_err": 0.0,
            "library_call": "torch.var_mean(batch, dim=0) (the batch moments, no merge)"}
+    def copy(st):
+        return ObsNormState(st.mean.clone(), st.m2.clone(), st.count.clone())
+
     for name, make in batches.items():
         x1, x2 = make(), make()
         st = ObsNormState.create(x1.shape[1], dev)
         errs = []
         for x in (x1, x2):
-            k = obs_norm_update(st, x)
-            p = obs_norm_update_plain(st, x)
+            k = obs_norm_update(copy(st), x)
+            p = obs_norm_update_plain(copy(st), x)
             torch.cuda.synchronize()
             mean_err = max_err([(k.mean, p.mean)])
             m2_rel = float(((k.m2 - p.m2).abs() / p.m2.abs().clamp_min(1e-30)).max())
@@ -1401,16 +1363,29 @@ def check_obs_norm_update(dev, g) -> dict:
                 raise AssertionError(f"obs_norm_update {name}: m2 rel err {m2_rel} > 1e-5")
             if not torch.equal(k.count, p.count):
                 raise AssertionError(f"obs_norm_update {name}: count {k.count} != {p.count}")
+            if parent is not None:
+                v = parent.obs_norm_update(st, x)
+                if not all(torch.equal(getattr(v, f), getattr(k, f))
+                           for f in ("mean", "m2", "count")):
+                    raise AssertionError(f"obs_norm_update {name}: differs from the parent's")
             errs.append({"mean_abs": mean_err, "m2_rel": m2_rel, "count": float(k.count)})
             out["max_abs_err"] = max(out["max_abs_err"], mean_err)
             st = p
+        work, plain_work = copy(st), copy(st)
+
+        def new():
+            return obs_norm_update(work, x1)
+
         out[name] = {
             "into_empty": errs[0], "into_filled": errs[1],
-            **timed(lambda: obs_norm_update(st, x1), lambda: obs_norm_update_plain(st, x1)),
+            **timed(new, lambda: obs_norm_update_plain(plain_work, x1)),
             "library_ms": time_ms(lambda: torch.var_mean(x1, dim=0)),
             # read the batch and the state, write the state
             **bound(nbytes(x1) + 3 * x1.shape[1] * 4 * 2, 4.0 * x1.numel()),
         }
+        if parent is not None:
+            out[name].update(parent_equal=True,
+                             **turns(new, lambda: parent.obs_norm_update(st, x1)))
     out.update({k: out["c4_262144x86"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
 
@@ -1521,12 +1496,16 @@ def loss_batch(dev, g, M: int, A: int):
     return logits, values, mb
 
 
-def check_ppo_loss(dev, g) -> dict:
+def check_ppo_loss(dev, g, parent: "ParentKernels | None") -> dict:
     """K8 at the minibatch shapes: Connect Four [65536, 7] (value clip off
     and on), Skull [65536, 33], Liar's Dice [65536, 49], CartPole
     [131072, 2]. Loss and metrics to 1e-5 relative, gradients to 1e-4
     relative + 1e-6 of their largest entry; a second call on the same
-    inputs gives the same bits."""
+    inputs gives the same bits. Called as the update calls it (the
+    entropy coefficient on the device, the update's bookkeeping in a
+    ``LossBook``); with ``parent``, the parent commit's K8 (a float
+    coefficient, scratch and output made per call) equal bit for bit and
+    timed in turns."""
     out = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
 
     def close(k, p, name) -> float:
@@ -1541,33 +1520,45 @@ def check_ppo_loss(dev, g) -> dict:
                              (65536, 49, False), (131072, 2, False)):
         logits, values, mb = loss_batch(dev, g, M, A)
         cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
-        k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
-        again = ppo_loss_forward(logits, values, mb, 0.05, cfg)
-        p = ppo_loss_plain(logits, values, mb, 0.05, cfg)
+        ent = torch.full((), 0.05, device=dev)
+        k = ppo_loss_forward(logits, values, mb, ent, cfg, LossBook.create(dev))
+        again = ppo_loss_forward(logits, values, mb, ent, cfg, LossBook.create(dev))
+        p = ppo_loss_plain(logits, values, mb, ent, cfg, LossBook.create(dev))
         torch.cuda.synchronize()
         name = f"M{M}_A{A}" + ("_clip" if clip_value else "")
         close(k, p, name)
         if not all(torch.equal(a, b) for a, b in zip(k, again)):
             raise AssertionError(f"ppo_loss {name}: two calls on the same inputs differ")
+        if parent is not None and not all(torch.equal(a, b) for a, b in zip(
+                k, parent.ppo_loss_forward(logits, values, mb, 0.05, cfg))):
+            raise AssertionError(f"ppo_loss {name}: differs from the parent's")
         out[name] = max_err(list(zip(k, p)))
         out["max_abs_err"] = max(out["max_abs_err"], out[name])
     out["bit_identical_across_calls"] = True
-    cfg = PPOUpdateConfig(clip_epsilon=0.1)
+    out["parent_equal_bit_for_bit"] = parent is not None or None
+    cfg = PPOUpdateConfig(clip_epsilon=0.1, target_kl=0.02)
+    book, ent = LossBook.create(dev), torch.full((), 0.05, device=dev)
     for A in (7, 33, 49):
         logits, values, mb = loss_batch(dev, g, 65536, A)
         # logits, mask, dL/dlogits [M, A]; values, the columns read,
         # dL/dvalues [M] (old_values is read only with the value clip on)
         read = [t for k, t in mb.items() if k != "old_values" or cfg.clip_value]
+
+        def new():
+            return ppo_loss_forward(logits, values, mb, ent, cfg, book, True)
+
         entry = {
             "max_abs_err": out[f"M65536_A{A}"],
-            **timed(lambda: ppo_loss_forward(logits, values, mb, 0.05, cfg),
-                    lambda: ppo_loss_plain(logits, values, mb, 0.05, cfg)),
+            **timed(new, lambda: ppo_loss_plain(logits, values, mb, ent, cfg, book, True)),
             "library_ms": None,
             # per row: the masked log-softmax and its gradient (~12 per
             # action), ratio, clip, value and metric terms (~60)
             **bound(nbytes(logits, values, read) + nbytes(logits, values) + 15 * 4,
                     65536 * (12.0 * A + 60.0)),
         }
+        if parent is not None:
+            entry.update(turns(new, lambda: parent.ppo_loss_forward(logits, values, mb, 0.05,
+                                                                    cfg)))
         out[f"M65536_A{A}"] = entry
     out.update({k: out["M65536_A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
@@ -1578,26 +1569,46 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
     Connect Four's MLP 512x2 (311,304), Skull's CTDE 512x2 (784,418) and
     Liar's Dice's CTDE (873,778) and MLP 512x3 (689,714), three steps
     below and three above the max norm: to 1e-5 relative + 1e-7 of the
-    largest entry; a second run of the same steps equal bit for bit. Timed
-    at each count; with ``parent``, the parent commit's K9 on the same
-    buffers, to the same tolerance, and timed in turns."""
-    out = {"tol": "1e-5 * |plain| + 1e-7 * max|plain|", "max_abs_err": 0.0}
+    largest entry, and below it (no clip: the norm's rounding does not
+    enter) bit for bit; a second run of the same steps equal bit for bit.
+    Timed at each count; with ``parent``, the parent commit's K9 on the
+    same buffers, to the same tolerance (whether bit for bit is
+    reported), and timed in turns."""
+    out = {"tol": "1e-5 * |plain| + 1e-7 * max|plain|; below the max norm, bit for bit",
+           "max_abs_err": 0.0}
     partial = clip_adam_scratch(dev)
     out["grid_blocks"] = partial.numel()
+    lr = torch.full((), 1e-3, device=dev)
+    run = torch.ones((), dtype=torch.int32, device=dev)
+
+    def ours(fn):
+        # this tree's K9 and its plain version: the learning rate, the
+        # Adam count and the run flag on the device
+        def step(*bufs, count, cnt):
+            fn(*bufs, lr=lr, count=cnt, run=run, max_grad_norm=0.5, eps=1e-5)
+        return step
+
+    def parents(*bufs, count, cnt):
+        # the parent's K9: the bias corrections formed on the host
+        parent.clip_adam(*bufs, lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
+                         bc2=1 - 0.999 ** count)
+
     for n in (4739, 311304, SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
         for scale in (1e-3, 10.0):
             p0 = torch.randn(n, generator=g, device=dev)
             grads = [torch.randn(n, generator=g, device=dev) * scale / n ** 0.5 for _ in range(3)]
             runs = {}
-            for who, step in (("kernel", lambda *b, **kw: clip_adam(*b, **kw, partial=partial)),
-                              ("again", lambda *b, **kw: clip_adam(*b, **kw, partial=partial)),
-                              ("plain", clip_adam_plain),
-                              *((("parent", parent.clip_adam),) if parent is not None else ())):
+            for who, step in (("kernel", ours(lambda *b, **kw: clip_adam(*b, **kw,
+                                                                          partial=partial))),
+                              ("again", ours(lambda *b, **kw: clip_adam(*b, **kw,
+                                                                         partial=partial))),
+                              ("plain", ours(clip_adam_plain)),
+                              *((("parent", parents),) if parent is not None else ())):
                 bufs = [p0.clone(), None, torch.zeros(n, device=dev), torch.zeros(n, device=dev)]
+                cnt = torch.zeros((), dtype=torch.int32, device=dev)
                 for count in (1, 2, 3):
                     bufs[1] = grads[count - 1]
-                    step(*bufs, lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
-                         bc2=1 - 0.999 ** count)
+                    step(*bufs, count=count, cnt=cnt)
                 runs[who] = bufs[:1] + bufs[2:]
             torch.cuda.synchronize()
             name = f"n{n}_{'above' if scale > 1 else 'below'}"
@@ -1609,12 +1620,22 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
                                              f"{max_err([(a, b)])}")
             if not all(torch.equal(a, b) for a, b in zip(runs["kernel"], runs["again"])):
                 raise AssertionError(f"clip_adam {name}: two runs differ")
+            if scale < 1 and not all(torch.equal(a, b)
+                                     for a, b in zip(runs["kernel"], runs["plain"])):
+                raise AssertionError(f"clip_adam {name}: below the max norm, not the plain "
+                                     "version's bits")
             out[name] = max_err(zip(runs["kernel"], runs["plain"]))
             out["max_abs_err"] = max(out["max_abs_err"], out[name])
             if parent is not None:
                 out[f"{name}_equal_to_parent"] = all(
                     torch.equal(a, b) for a, b in zip(runs["kernel"], runs["parent"]))
-    kw = dict(lr=1e-6, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
+                if scale < 1:  # where the kernel is the plain version's bits
+                    out[f"{name}_parent_equal_to_plain"] = all(
+                        torch.equal(a, b) for a, b in zip(runs["parent"], runs["plain"]))
+    kw = dict(lr=torch.full((), 1e-6, device=dev), count=torch.zeros((), dtype=torch.int32,
+                                                                     device=dev),
+              run=run, max_grad_norm=0.5, eps=1e-5)
+    parent_kw = dict(lr=1e-6, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
     for n in (311304, 4739, SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
         prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
         mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
@@ -1622,7 +1643,8 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
             **timed(lambda: clip_adam(prm, grads, mu, nu, **kw, partial=partial),
                     lambda: clip_adam_plain(prm, grads, mu, nu, **kw)),
             "library_ms": None,
-            # read params, grads, mu, nu; write params, mu, nu
+            # read params, grads, mu, nu; write params, mu, nu (and the
+            # step's scalars)
             **bound(7 * 4 * n, 20.0 * n),
         }
         if n == 311304:
@@ -1633,7 +1655,7 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
                          "fused=True).step() (Adam only: no global-norm clip)")
         if parent is not None:
             entry.update(turns(lambda: clip_adam(prm, grads, mu, nu, **kw, partial=partial),
-                               lambda: parent.clip_adam(prm, grads, mu, nu, **kw)))
+                               lambda: parent.clip_adam(prm, grads, mu, nu, **parent_kw)))
         if n == 311304:
             out.update(entry)
         else:
@@ -1653,9 +1675,13 @@ def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
     start = [torch.randn(n, generator=g, device=dev),
              torch.randn(n, generator=g, device=dev) * 10.0 / n ** 0.5,
              torch.randn(n, generator=g, device=dev) * 1e-3,
-             torch.rand(n, generator=g, device=dev) * 1e-6]
-    kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** 4, bc2=1 - 0.999 ** 4,
-              partial=clip_adam_scratch(dev))
+             torch.rand(n, generator=g, device=dev) * 1e-6,
+             torch.full((), 3, dtype=torch.int32, device=dev)]
+    kw = dict(lr=torch.full((), 1e-3, device=dev), max_grad_norm=0.5, eps=1e-5,
+              run=torch.ones((), dtype=torch.int32, device=dev), partial=clip_adam_scratch(dev))
+
+    def adam(bufs):
+        clip_adam(*bufs[:4], count=bufs[4], **kw)
     D = obs.shape[1]
     st = obs_norm_update_plain(ObsNormState.create(D, dev), connect_four_like(dev, g, E * T_LD, D))
     env = CartPole()
@@ -1668,7 +1694,7 @@ def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
     fin_in = (torch.randn(N, generator=g, device=dev), torch.randn(N, generator=g, device=dev),
               10.0, (torch.rand(N, generator=g, device=dev) < 0.75).float())
     eager = [t.clone() for t in start]
-    clip_adam(*eager, **kw)
+    adam(eager)
     eager_obs = obs_norm_apply(st, obs)
     eager_step = env.step_autoreset(*cp[:4], None, cp_roll)
     eager_fin = return_norm_finalize_f64(rn, *fin_in)
@@ -1676,7 +1702,7 @@ def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        clip_adam(*[t.clone() for t in start], **kw)
+        adam([t.clone() for t in start])
         obs_norm_apply(st, obs)
         env.step_autoreset(*cp[:4], None, cp_roll)
         return_norm_finalize_f64(rn, *fin_in)
@@ -1684,7 +1710,7 @@ def check_graph_capture(dev, g, obs: torch.Tensor) -> dict:
     names = ("clip_adam", "obs_norm_apply", "cartpole_step_autoreset", "return_norm_finalize")
     graphs = {name: torch.cuda.CUDAGraph() for name in names}
     with torch.cuda.graph(graphs["clip_adam"]):
-        clip_adam(*bufs, **kw)
+        adam(bufs)
     with torch.cuda.graph(graphs["obs_norm_apply"]):
         captured = obs_norm_apply(st, obs)
     with torch.cuda.graph(graphs["cartpole_step_autoreset"]):
@@ -1894,9 +1920,10 @@ def check_rollout_graph(dev, g, checks: dict, name: str, toml: str, steps: int, 
 
     ms = {v: [] for v in versions}
     dev_ms = {v: [] for v in versions}
-    for v in ("eager", "graph", "graph", "eager"):
-        ms[v].append(time_ms(versions[v], reps=5, warmup=1))
-        dev_ms[v].append(device_ms(versions[v], reps=3)[0])
+    for i, v in enumerate(("eager", "graph", "graph", "eager")):
+        ms[v].append(time_ms(versions[v], reps=3, warmup=1))
+        if i < 2:  # the device times of the first turn; the events of both
+            dev_ms[v].append(device_ms(versions[v], reps=3)[0])
     rollout_ms, rollout_dev = min(ms["graph"]), min(filter(None, dev_ms["graph"]), default=None)
     out["post_loop"] = {"eager_ms": time_ms(post_loop), "device_ms": device_ms(post_loop)[0]}
     out.update(ms_turns=ms, device_ms_turns=dev_ms, ms=rollout_ms, device_ms=rollout_dev,
@@ -1908,6 +1935,255 @@ def check_rollout_graph(dev, g, checks: dict, name: str, toml: str, steps: int, 
 def check_rollout_graphs(dev, g, checks: dict) -> dict:
     return {name: check_rollout_graph(dev, g, checks, name, toml, steps, over, pool)
             for name, toml, steps, over, pool in ROLLOUT_CASES}
+
+
+# Phase 2d: (name, config, T, overrides, pool) at 4096 envs. On the
+# vs-pool case a last round keeps two valid rows of the batch, so most of
+# its minibatches hold none.
+UPDATE_CASES = (
+    ("cartpole", "cartpole.toml", T, {}, False),
+    ("connect_four_selfplay", "connect_four.toml", T_C4,
+     {"opponent_pool_fraction": 0.0, "normalize_obs": True, "num_epochs": 6,
+      "target_kl": 0.02}, False),
+    ("liars_dice_ctde_pool", "liars_dice_ctde.toml", T_LD, {}, True),
+)
+UPDATE_ROUNDS = 3  # and the empty-minibatch round on the vs-pool case
+
+
+def update_leaves(opt: AdamState, runner) -> list:
+    """What an update writes and reads again: parameters, moments, the
+    Adam count, the obs-norm stats."""
+    return [opt.flat_params, opt.flat_mu, opt.flat_nu, opt.count_tensor,
+            *state_leaves(runner.obs_norm)]
+
+
+def output_leaves(out: dict) -> list:
+    return state_leaves([list(out["metrics"].values()), list(out["stats"].values())])
+
+
+def update_bound(cfg, net, runner, opt: AdamState, minibatches: float) -> dict:
+    """The least time of one update: the batch read once and the optimizer
+    state read and written once (bytes), against the GEMMs of the
+    minibatches that ran (forward, and backward at twice the forward) and
+    of the bootstrap's forward at the f32 rate (operations)."""
+    N = cfg.num_steps * E
+    mb_size = -(-N // cfg.num_minibatches)
+    macs = sum(m.in_features * m.out_features for m in net.modules()
+               if isinstance(m, torch.nn.Linear))
+    flops = 6.0 * macs * mb_size * minibatches + 2.0 * macs * E
+    n = opt.flat_params.numel()
+    return bound(nbytes(*state_leaves(runner.buffers.batch())) + 7 * 4 * n, flops)
+
+
+def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict,
+                       pool: bool) -> dict:
+    """The trainer's graphed update against the eager loop
+    (``UpdateRunner.eager``, every minibatch run), update after update, each
+    after a graphed rollout: from one saved state (parameters, moments,
+    Adam count, obs-norm stats, generator) both give the same bits in all
+    of these, in every metric and episode summary, and leave the generator
+    at the same offset; one capture. Then the minibatches run and skipped
+    and the minibatch graphs skipped; from one saved state, the eager loop
+    and the graphs timed in turns (events and device ms), and the host's
+    waits for the stop flag in the timed replays (per wait and per
+    update); each update kernel's device launches in one profiled replay
+    against those captured; and one more train step (rollout and update)
+    under ``torch.cuda.set_sync_debug_mode("error")``, which sees any
+    stream or device synchronize (not the host's event polls)."""
+    cfg, env, net, rng, carry, norm = rollout_setup(dev, toml, steps, overrides)
+    opt = AdamState.create(net)
+    P = env.spec.num_players
+    L = E - int(round(E * cfg.opponent_pool_fraction)) if pool else None
+    runner = rollout_runner(env, cfg, num_learner_envs=L)
+    updater = UpdateRunner(env, cfg, num_learner_envs=L)
+    lr, ent = cfg.learning_rate.get(0), cfg.entropy_coef.get(0)
+    shaping = cfg.reward_shaping_coef.get(0)
+    kw = {}
+    if pool:
+        stack = random_opponents(dev, g, 8, cfg.activation, D=env.spec.obs_dim,
+                                 H=cfg.hidden_size, A=env.spec.num_actions, depth=cfg.num_hidden)
+        if net.is_ctde:
+            stack.norm = None  # CTDE checkpoints carry no obs normaliser
+        kw = dict(seating=PoolSeating.create(E, L, P, 1, rng), opponents=stack, num_active=8)
+
+    def rollout(empty: bool = False):
+        runner.run(net, runner.carry or carry, runner.obs_norm or norm, rng, shaping, **kw)
+        if pool:
+            kw["seating"] = runner.seating
+        if empty:  # two valid rows left: most minibatches hold none
+            valid = runner.buffers.valid.view(-1)
+            valid.zero_()
+            valid[3:4].fill_(1.0)
+            valid[valid.numel() // 2 + 7:][:1].fill_(1.0)
+
+    UpdateGraph.reset_counts()
+    launched = cfg.num_epochs * cfg.num_minibatches
+    rounds = [False] * UPDATE_ROUNDS + ([True] if pool else [])
+    ran = []
+    for i, empty in enumerate(rounds):
+        rollout(empty)
+        saved = [t.clone() for t in update_leaves(opt, runner)]
+        start = rng.generator.get_state()
+        eager = updater.eager(net, opt, runner, rng, lr, ent)
+        want = [t.clone() for t in update_leaves(opt, runner) + output_leaves(eager)]
+        after = rng.generator.get_state()
+        for t, s0 in zip(update_leaves(opt, runner), saved):
+            t.copy_(s0)
+        rng.generator.set_state(start)
+        got = updater.run(net, opt, runner, rng, lr, ent)
+        torch.cuda.synchronize()
+        diff = first_difference(update_leaves(opt, runner) + output_leaves(got), want)
+        if diff is not None or not torch.equal(rng.generator.get_state(), after):
+            raise AssertionError(f"update graph {name} round {i}: differs from the eager loop "
+                                 f"at {diff or 'the generator offset'}")
+        ran.append(int(float(got["metrics"]["num_minibatch_updates"])))
+    if UpdateGraph.replays != len(rounds) or UpdateGraph.captures != 1:
+        raise AssertionError(f"{name}: {UpdateGraph.captures} captures and "
+                             f"{UpdateGraph.replays} replays for {len(rounds)} updates")
+    if pool and min(ran[:UPDATE_ROUNDS]) == launched:
+        raise AssertionError(f"{name}: the KL stop fired in no update: {ran} of {launched}")
+    if pool and ran[-1] > 2 * cfg.num_epochs:
+        raise AssertionError(f"{name}: {ran[-1]} minibatches ran with two valid rows")
+    out = {"envs": E, "steps": steps, "epochs": cfg.num_epochs,
+           "minibatches_per_epoch": cfg.num_minibatches, "target_kl": cfg.target_kl,
+           "updates": len(rounds), "last_update_two_valid_rows": pool,
+           "equal_bit_for_bit": True, "graphs_captured":
+           UpdateGraph.captures, "graphs_per_update": len(updater.graph.graphs),
+           "minibatches_launched_eagerly": launched, "minibatches_run": ran,
+           "minibatches_skipped": [launched - r for r in ran],
+           "minibatch_graphs_skipped": UpdateGraph.skipped,
+           "launches": {w.__name__: c for w, c in UpdateGraph.launches.items()}}
+
+    # From one saved state, every call the same work: the eager loop and
+    # the graphs in turns.
+    rollout()
+    saved = [t.clone() for t in update_leaves(opt, runner)]
+    start = rng.generator.get_state()
+    versions = {"eager": lambda: updater.eager(net, opt, runner, rng, lr, ent),
+                "graph": lambda: updater.run(net, opt, runner, rng, lr, ent)}
+    minibatches = {}
+
+    def from_saved(v):
+        def call():
+            for t, s0 in zip(update_leaves(opt, runner), saved):
+                t.copy_(s0)
+            rng.generator.set_state(start)
+            return versions[v]()
+        return call
+
+    for v in versions:
+        minibatches[v] = int(float(from_saved(v)()["metrics"]["num_minibatch_updates"]))
+    ms = {v: [] for v in versions}
+    dev_ms = {v: [] for v in versions}
+    order = ("eager", "graph")
+    polls = (updater.polls, updater.poll_seconds, UpdateGraph.replays)
+    for i, v in enumerate(order + order[::-1]):
+        ms[v].append(time_ms(from_saved(v), reps=2, warmup=1))
+        if i < len(order):  # the device times of the first turn; the events of both
+            dev_ms[v].append(device_ms(from_saved(v), reps=2)[0])
+    n_polls, wait_s = updater.polls - polls[0], updater.poll_seconds - polls[1]
+    out.update(stop_flag_waits_per_update=n_polls / max(UpdateGraph.replays - polls[2], 1),
+               stop_flag_wait_ms_per_wait=wait_s * 1e3 / n_polls if n_polls else None)
+    update_ms, update_dev = min(ms["graph"]), min(filter(None, dev_ms["graph"]), default=None)
+    out.update(timed_minibatches_run=minibatches, ms_turns=ms, device_ms_turns=dev_ms,
+               ms=update_ms, device_ms=update_dev,
+               idle_share=None if update_dev is None else 1.0 - update_dev / update_ms,
+               **update_bound(cfg, net, runner, opt, minibatches["graph"]),
+               library_ms=None,
+               replay_kernel_counts=replay_kernel_counts(updater.graph, UPDATE_KERNELS))
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rollout()
+        updater.run(net, opt, runner, rng, lr, ent)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["train_step_without_stream_or_device_sync"] = True
+    return out
+
+
+def update_graph_cases(tmp: Path, card_line: str) -> dict:
+    """Phase 2d, run in a process of its own (``phase_in_process``): in a
+    process that has profiled phase 2's kernels the profiler drops K6's
+    launches from a replay's profile."""
+    dev = resolve_device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    return {"card": card_line, **{name: check_update_graph(dev, g, name, toml, steps, over, pool)
+                                  for name, toml, steps, over, pool in UPDATE_CASES}}
+
+
+# (name, config, T, overrides): the train steps timed in turns with the
+# parent's (``update_turns``).
+TURN_CASES = (
+    ("cartpole", "cartpole.toml", T, {}),
+    ("connect_four_pool", "connect_four.toml", T_C4, {"normalize_obs": True}),
+    ("liars_dice_ctde_pool", "liars_dice_ctde.toml", T_LD, {}),
+)
+TURN_UPDATES = 5
+
+UPDATE_TURN = """
+import json, sys, tempfile, time
+from pathlib import Path
+sys.path.insert(0, ".")
+import torch
+from burn_ppo_torch.config import Config
+from burn_ppo_torch.train import Trainer
+
+out = {{}}
+with tempfile.TemporaryDirectory(prefix="chip_smoke_update_turn_") as d:
+    for name, toml, steps, over in {cases}:
+        cfg = Config.load(Path("configs") / toml)
+        for k, v in {{"num_envs": {envs}, "num_steps": steps, "seed": 0, **over}}.items():
+            setattr(cfg, k, v)
+        tr = Trainer(cfg, Path(d) / name, device="cuda", quiet=True)
+        lr, ent = cfg.learning_rate.get(0), cfg.entropy_coef.get(0)
+        shaping = cfg.reward_shaping_coef.get(0)
+        tr.update(lr, ent, shaping)
+        if tr.pool is not None:
+            tr.global_step += 1
+            tr.save_checkpoint()
+            tr.update(lr, ent, shaping)
+        ms, ran = [], []
+        for _ in range({updates}):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, _ = tr.update(lr, ent, shaping)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ran.append(m["num_minibatch_updates"])
+        out[name] = {{"train_step_ms": ms, "minibatches_run": ran}}
+print(json.dumps(out))
+"""
+
+
+def update_turns(parent_dir: Path) -> dict:
+    """Whole train steps through ``Trainer.update`` (the rollout, the
+    update, the fetch; on the vs-pool path against one checkpoint, the
+    pool's record folds included) of the parent's tree and this one, in
+    turns (parent, this, this, parent), each its own process: CartPole at
+    4096 x 128, Connect Four against the pool at 4096 x 64 (obs norm on;
+    its KL stop seldom fires) and Liar's Dice CTDE against the pool at
+    4096 x 128 (it fires in most updates), after one warm update (two on
+    the vs-pool paths), host ms of each of ``TURN_UPDATES`` updates and
+    its minibatches run. ``parent_dir`` may be any tree of this
+    repository whose ``Trainer.update`` has this signature."""
+    code = UPDATE_TURN.format(cases=repr(TURN_CASES), envs=E, updates=TURN_UPDATES)
+    out: dict = {}
+    for key, tree in (("parent", parent_dir), ("this", ROOT), ("this", ROOT),
+                      ("parent", parent_dir)):
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"update turn in {tree} exited {res.returncode}:\n"
+                               f"{res.stderr[-4000:]}")
+        for name, run in json.loads(res.stdout.strip().splitlines()[-1]).items():
+            entry = out.setdefault(name, {})
+            entry.setdefault(f"{key}_train_step_ms", []).append(run["train_step_ms"])
+            entry.setdefault(f"{key}_minibatches_run", []).append(run["minibatches_run"])
+            entry.setdefault(f"{key}_median_ms", []).append(
+                sorted(run["train_step_ms"])[len(run["train_step_ms"]) // 2])
+    return out
 
 
 # The device kernel of each rollout wrapper (csrc), one launch a call.
@@ -1924,12 +2200,25 @@ ROLLOUT_KERNELS = {
 }
 
 
-def kernel_counts(events, launched: dict) -> dict:
-    """Each rollout kernel's device launches in a profile, counted by name,
-    beside its wrapper's launches: {name: [device, expected]} for the
-    kernels either side has."""
+# The device kernel of each update wrapper that launches one of it a call
+# (K8's row pass; K6's update its merge).
+UPDATE_KERNELS = {
+    "ppo_loss": "ppo_loss_rows_kernel",
+    "clip_adam": "clip_adam_kernel",
+    "obs_norm_apply": "obs_norm_apply_kernel",
+    "obs_norm_update": "obs_norm_merge_kernel",
+    "gae_reverse_scan": "gae_reverse_scan_kernel",
+    "gae_multiplayer_reverse_scan": "gae_multiplayer_kernel",
+    "episode_stats": "episode_stats_final_kernel",
+}
+
+
+def kernel_counts(events, launched: dict, names: dict = ROLLOUT_KERNELS) -> dict:
+    """Each kernel of ``names`` (wrapper -> device kernel), its device
+    launches in a profile counted by name, beside its wrapper's launches:
+    {name: [device, expected]} for the kernels either side has."""
     out = {}
-    for name, kernel in ROLLOUT_KERNELS.items():
+    for name, kernel in names.items():
         pattern = re.compile(rf"(?<![A-Za-z0-9_]){kernel}(?![A-Za-z0-9_])")
         seen = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                    and pattern.search(e.name))
@@ -1938,38 +2227,40 @@ def kernel_counts(events, launched: dict) -> dict:
     return out
 
 
-def replay_kernel_counts(graph: RolloutGraph) -> dict:
-    """Each rollout kernel's device launches in one profiled replay of a
-    rollout graph, by name, against the launches it captured. A graph
-    that left a kernel out or captured it twice fails. A count under the
-    captured one (the profiler lost a launch) is profiled again, at most
-    three replays; one over it fails at once."""
-    captured = {name: graph.captured.get(w, 0) for name, w in WRAPPERS.items()}
+def replay_kernel_counts(graph, names: dict = ROLLOUT_KERNELS) -> dict:
+    """Each kernel's device launches (``names``: the rollout's or the
+    update's) in one profiled replay of a graph (a ``RolloutGraph``, or an
+    ``UpdateGraph`` replayed whole, no minibatch graph skipped), by name, against the
+    launches it captured. A graph that left a kernel out or captured it
+    twice fails. A count under the captured one (the profiler lost a
+    launch) is profiled again, at most three replays; one over it fails
+    at once. A replay of an update graph trains on."""
+    captured = {name: sum(c.get(w, 0) for c in graph.captured) for name, w in WRAPPERS.items()}
     act = torch.profiler.ProfilerActivity
     profiles = []
     while len(profiles) < 3:
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            graph.graph.replay()
+            graph.replay()
             torch.cuda.synchronize()
-        counts = kernel_counts(prof.events(), captured)
+        counts = kernel_counts(prof.events(), captured, names)
         profiles.append(counts)
         if any(seen > want for seen, want in counts.values()):
-            raise AssertionError(f"more rollout kernels in a replay than captured: {counts}")
+            raise AssertionError(f"more kernels in a replay than captured: {counts}")
         if all(seen == want for seen, want in counts.values()):
             return {"counts": counts, "profiles": len(profiles)}
-    names = Counter(e.name[:80] for e in prof.events() if any(
-        k in e.name for k in ROLLOUT_KERNELS.values()))
-    raise AssertionError(f"rollout kernels in a replay against those captured, three "
-                         f"profiles: {profiles}; the names in the last: {dict(names)}")
+    seen = Counter(e.name[:80] for e in prof.events() if any(k in e.name for k in names.values()))
+    raise AssertionError(f"kernels in a replay against those captured, three profiles: "
+                         f"{profiles}; the names in the last: {dict(seen)}")
 
 
-def idle_share(update, runner) -> dict:
+def idle_share(update, step) -> dict:
     """The union of the device's kernel and copy intervals in one update
     under the profiler, against the median of three unprofiled updates on
     the host's clock (each ending synchronised), and against the profiled
     update's own span (the profiler slows the host). One unprofiled update
-    first, which captures the rollout's graph; then the kernels of one
-    replay of that graph (``runner.graph``) counted on the device."""
+    first, which captures the rollout's and the update's graphs; then the
+    kernels of one replay of each (``step.runner.graph``,
+    ``step.updater.graph``) counted on the device."""
     update()
     torch.cuda.synchronize()
     walls = []
@@ -2003,7 +2294,9 @@ def idle_share(update, runner) -> dict:
     return {"update_ms": wall_ms, "update_ms_profiled": (w1 - w0) / 1e3,
             "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / 1e3 / wall_ms,
             "idle_share_profiled": 1.0 - busy / (w1 - w0), "device_events": len(spans),
-            "replay_kernel_counts": replay_kernel_counts(runner.graph)}
+            "replay_kernel_counts": replay_kernel_counts(step.runner.graph),
+            "update_replay_kernel_counts": replay_kernel_counts(step.updater.graph,
+                                                                UPDATE_KERNELS)}
 
 
 def update_idle_shares(tmp: Path, card_line: str) -> dict:
@@ -2011,8 +2304,9 @@ def update_idle_shares(tmp: Path, card_line: str) -> dict:
     bench shape) and of one Connect Four update against a pool of 8
     checkpoints (4096 x 64, configs/connect_four.toml with obs norm, K =
     8), through ``Trainer.update``; and in one replay of each update's
-    rollout graph, every rollout kernel's device launches against those
-    the graph captured. Run in a process of its own (``phase_in_process``):
+    rollout graph and of its update graphs (every minibatch), every kernel's
+    device launches against those the graphs captured. Run in a process
+    of its own (``phase_in_process``):
     in a process that has profiled phase 2's kernels the profiler drops a
     K6 launch from every profile."""
     out = {"card": card_line}
@@ -2027,7 +2321,7 @@ def update_idle_shares(tmp: Path, card_line: str) -> dict:
                 tr.save_checkpoint()
         lr, ent = cfg.learning_rate.get(0), cfg.entropy_coef.get(0)
         out[name] = idle_share(lambda: tr.update(lr, ent, 0.0),
-                               (tr.pool_step if pool else tr.train_step).runner)
+                               tr.pool_step if pool else tr.train_step)
         if pool:
             out[name]["rotation"] = len(tr.pool.active)
     return out
@@ -2113,14 +2407,19 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
     """One training run through the CLI, with every launch counter at 0
     just before it and read just after; checks the counts against
     ``expect`` (kernels not named there: 0) and the losses for finiteness.
-    Every update launches K10 once, and K8 and K9 once per minibatch it
-    runs (``train/minibatch_updates``: KL early stop and skipped
-    all-invalid minibatches make that count the run's own)."""
+    Every update is two graph replays, the rollout's and the update's
+    (one capture each per runner), and launches K10 once, and K8 and K9
+    once per minibatch graph replayed (every minibatch without
+    ``target_kl``; with it, those the host replayed before it saw the
+    stop flag): a minibatch after a KL stop or with no valid row launches
+    both and changes nothing (``train/minibatch_updates`` counts those
+    that ran)."""
     from burn_ppo_torch import cli
 
     for w in WRAPPERS.values():
         w.launches = 0
     RolloutGraph.reset_counts()
+    UpdateGraph.reset_counts()
     t0 = time.time()
     rc = cli.main(["train", *args, "--total-steps", str(updates * steps_per_update),
                    "--checkpoint-freq", str(checkpoint_freq), "--seed", "0",
@@ -2128,19 +2427,24 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
     torch.cuda.synchronize()
     wall = time.time() - t0
     eager = {name: w.launches for name, w in WRAPPERS.items()}
-    graphed = {name: RolloutGraph.launches.get(w, 0) for name, w in WRAPPERS.items()}
-    warmup = {name: RolloutGraph.warmup_launches.get(w, 0) for name, w in WRAPPERS.items()}
+    graphed = {name: RolloutGraph.launches.get(w, 0) + UpdateGraph.launches.get(w, 0)
+               for name, w in WRAPPERS.items()}
+    warmup = {name: RolloutGraph.warmup_launches.get(w, 0) + UpdateGraph.warmup_launches.get(w, 0)
+              for name, w in WRAPPERS.items()}
     launches = {name: eager[name] + graphed[name] for name in WRAPPERS}
     if rc != 0:
         raise RuntimeError(f"train command exited {rc}")
-    # Every rollout is a graph replay, one an update; the eager launches
-    # of a rollout kernel are its graphs' warm-ups, and the env step runs
-    # only in replays.
-    if RolloutGraph.replays != updates:
-        raise AssertionError(f"{RolloutGraph.replays} rollout graph replays in {updates} updates")
-    steps = [name for name in WRAPPERS if graphed[name]]
-    if any(eager[name] != warmup[name] for name in steps if name != "obs_norm_apply"):
-        raise AssertionError(f"eager rollout launches {eager} beyond the warm-ups {warmup}")
+    # Every rollout and every update is a graph replay, one each an
+    # update, one capture each per runner; the only eager launches are the
+    # graphs' warm-ups.
+    captures = (RolloutGraph.captures, UpdateGraph.captures)
+    if (RolloutGraph.replays, UpdateGraph.replays) != (updates, updates):
+        raise AssertionError(f"{RolloutGraph.replays} rollout and {UpdateGraph.replays} update "
+                             f"graph replays in {updates} updates")
+    if captures[0] != captures[1] or not 1 <= captures[0] <= 2:
+        raise AssertionError(f"graph captures (rollout, update) {captures}: one each per runner")
+    if eager != warmup:
+        raise AssertionError(f"eager launches {eager} beyond the warm-ups {warmup}")
     series = scalars(run)
     for name in ("train/policy_loss", "train/value_loss", "train/total_loss", "train/entropy",
                  "train/minibatch_updates"):
@@ -2148,8 +2452,12 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
         if len(vals) != updates or not all(v is not None and math.isfinite(v) for v in vals):
             raise AssertionError(f"{name}: expected {updates} finite values, got {vals}")
     minibatches = int(sum(series["train/minibatch_updates"]))
+    cfg = Config.load(run / "config.toml")
+    # K8 and K9 launch in every minibatch graph replayed (those after a KL
+    # stop are skipped where the update is a graph per minibatch)
+    launched = updates * cfg.num_epochs * cfg.num_minibatches - UpdateGraph.skipped
     want = {name: expect.get(name, 0) for name in WRAPPERS}
-    want.update(ppo_loss=minibatches, clip_adam=minibatches, episode_stats=updates)
+    want.update(ppo_loss=launched, clip_adam=launched, episode_stats=updates)
     # The main path's launches: eager (the warm-ups left out) plus the
     # graphs' (captured x replayed).
     main_path = {name: eager[name] - warmup[name] + graphed[name] for name in WRAPPERS}
@@ -2162,7 +2470,9 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
         "env_steps_per_s_per_update": sps,
         "env_steps_per_s_median_after_first": steady[len(steady) // 2],
         "launches": launches, "graph_launches": graphed, "warmup_launches": warmup,
-        "graph_replays": RolloutGraph.replays, "graph_captures": RolloutGraph.captures,
+        "graph_replays": [RolloutGraph.replays, UpdateGraph.replays],
+        "graph_captures": list(captures), "minibatch_graphs_skipped": UpdateGraph.skipped,
+        "minibatches_run": minibatches, "minibatches_skipped": launched - minibatches,
         "card": card_line,
     }, series
 
@@ -2434,7 +2744,7 @@ def main(argv: list) -> int:
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    # ParentKernels binds 4d22e10's entry points; a parent whose kernel
+    # ParentKernels binds 4e589f6's entry points; a parent whose kernel
     # sources are this tree's has nothing to time against them.
     parent = None
     if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
@@ -2460,7 +2770,7 @@ def main(argv: list) -> int:
     apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD, parent)
     apply_batch = check_obs_norm_batch(dev, g, parent)
     checks = {
-        "cartpole_step_autoreset": check_cartpole(dev, g, parent),
+        "cartpole_step_autoreset": check_cartpole(dev, g),
         "masked_gumbel_sample": {
             **samples, "max_abs_err": max(x["max_abs_err"] for x in samples.values()),
             # A = 7's: Connect Four's, the pool path's
@@ -2473,20 +2783,23 @@ def main(argv: list) -> int:
                            "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"],
                                               apply_batch["max_abs_err"]),
                            "ptxas": [ln for ln in ptxas if ln.startswith("obs_norm_")]},
-        "obs_norm_update": check_obs_norm_update(dev, g),
+        "obs_norm_update": check_obs_norm_update(dev, g, parent),
         "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs),
-        "ppo_loss": check_ppo_loss(dev, g),
+        "ppo_loss": check_ppo_loss(dev, g, parent),
         "clip_adam": {**check_clip_adam(dev, g, parent), "ptxas": kernel_ptxas(ptxas, "clip_adam")},
         "episode_stats": check_episode_stats(dev, g),
         "skull_step_autoreset": skull,
         "return_norm_roll": check_return_norm_roll(dev, g),
-        "return_norm_finalize": check_return_norm_finalize(dev, g, parent),
+        "return_norm_finalize": check_return_norm_finalize(dev, g),
         "liars_dice_step_autoreset": liars_dice,
     }
     screen_device_times(checks)
     emit("kernels_vs_plain", card=card_line, **checks)
     emit("graph_capture", card=card_line, **check_graph_capture(dev, g, ld_obs))
     emit("rollout_graphs", card=card_line, **check_rollout_graphs(dev, g, checks))
+    emit("update_graphs", **phase_in_process(ROOT, "update_graph_cases"))
+    if args.parent is not None:
+        emit("update_turns", card=card_line, **update_turns(args.parent.resolve()))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         runs = {

@@ -34,7 +34,7 @@ from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     return_norm_roll,
 )
 from burn_ppo_torch.ppo.pool_rollout import OpponentStack, opponent_actor_forward  # noqa: E402
-from burn_ppo_torch.ppo.update import PPOUpdateConfig, clip_adam, ppo_loss  # noqa: E402
+from burn_ppo_torch.ppo.update import LossBook, PPOUpdateConfig, clip_adam, ppo_loss  # noqa: E402
 
 WRAPPERS = (cartpole_step_autoreset, connect_four_step_autoreset, masked_sample, compute_gae,
             compute_gae_multiplayer, obs_norm_apply, obs_norm_update, opponent_actor_forward,
@@ -139,12 +139,14 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     mb = {"actions": torch.zeros(E, dtype=torch.int32), "old_log_probs": torch.zeros(E),
           "advantages": torch.arange(E, dtype=torch.float32), "returns": torch.zeros(E),
           "old_values": torch.zeros(E), "valid": torch.ones(E)}
-    loss, metrics = ppo_loss(torch.zeros(E, 2), torch.zeros(E), mb, 0.01, PPOUpdateConfig())
+    loss, metrics = ppo_loss(torch.zeros(E, 2), torch.zeros(E), mb, torch.tensor(0.01),
+                             PPOUpdateConfig(), LossBook.create(cpu))
     assert loss.shape == () and metrics.shape == (14,)
     params = torch.ones(6)
-    clip_adam(params, torch.ones(6), torch.zeros(6), torch.zeros(6), lr=0.1, max_grad_norm=0.5,
-              eps=1e-5, bc1=0.1, bc2=0.001)
-    assert bool(torch.all(params < 1.0))
+    count = torch.zeros((), dtype=torch.int32)
+    clip_adam(params, torch.ones(6), torch.zeros(6), torch.zeros(6), lr=torch.tensor(0.1),
+              count=count, run=torch.ones((), dtype=torch.int32), max_grad_norm=0.5, eps=1e-5)
+    assert bool(torch.all(params < 1.0)) and int(count) == 1
     logs = EpisodeLog(completed=torch.ones(2, E), total_rewards=torch.zeros(2, E, 2),
                       length=torch.ones(2, E, dtype=torch.int32),
                       outcome=torch.ones(2, E, 2, dtype=torch.int32),
@@ -314,8 +316,8 @@ def _cuda_path_on_cpu(monkeypatch, *wrappers):
 def test_obs_norm_wrappers_launch_their_entry_points_once_each(monkeypatch):
     """K6's CUDA path with a stand-in library: the apply launches its entry
     point once with the obs' start, the output, the rows and the clip; the
-    update launches its own once, into a new state; each counts on its own
-    counter."""
+    update launches its own once, in place into the state; each counts on
+    its own counter."""
     lib = _cuda_path_on_cpu(monkeypatch, obs_norm_update, obs_norm_apply)
     before = (obs_norm_update.launches, obs_norm_apply.launches)
     state = ObsNormState.create(86, torch.device("cpu"))
@@ -328,21 +330,28 @@ def test_obs_norm_wrappers_launch_their_entry_points_once_each(monkeypatch):
     new = obs_norm_update(state, torch.ones(3, 5, 86))
     name, args = lib.calls[1]
     assert name == "obs_norm_update" and len(args) == len(kernels.SIGNATURES["obs_norm_update"])
-    assert args[5] == new.mean.data_ptr() and args[7] == new.count.data_ptr()
-    assert args[8:10] == (15, 86)
+    assert new is state
+    assert args[1] == state.mean.data_ptr() and args[3] == state.count.data_ptr()
+    assert args[5:7] == (15, 86)
     assert (obs_norm_update.launches, obs_norm_apply.launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_clip_adam_wrapper_passes_the_callers_scratch_and_allocates_nothing(monkeypatch):
     """K9's CUDA path with a stand-in library: one launch with the
-    scratch's pointer and length, no allocation, and refusals without the
-    scratch and for a buffer off a 16-byte boundary."""
+    scratch's pointer and length and the device scalars' and the
+    bias-correction table's pointers, no allocation, and refusals without
+    the scratch and for a buffer off a 16-byte boundary."""
+    from burn_ppo_torch.ppo.update import ADAM_BIAS_LEN, adam_bias_table
+
     lib = _cuda_path_on_cpu(monkeypatch, clip_adam)
     n = 1001
     bufs = [torch.zeros(n) for _ in range(4)]
     partial = torch.empty(264, dtype=torch.float64)
     before = clip_adam.launches
-    kw = dict(lr=0.1, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
+    lr, count, run = (torch.tensor(0.1), torch.zeros((), dtype=torch.int32),
+                      torch.ones((), dtype=torch.int32))
+    kw = dict(lr=lr, count=count, run=run, max_grad_norm=0.5, eps=1e-5)
+    table = adam_bias_table(torch.device("cpu"))
     empty, empty_like = torch.empty, torch.empty_like
 
     def refuse(*a, **k):
@@ -357,6 +366,8 @@ def test_clip_adam_wrapper_passes_the_callers_scratch_and_allocates_nothing(monk
     assert name == "clip_adam" and len(args) == len(kernels.SIGNATURES["clip_adam"])
     assert args[:6] == (*(b.data_ptr() for b in bufs), partial.data_ptr(), n)
     assert args[6] == 264 and clip_adam.launches == before + 1
+    assert args[7:12] == (lr.data_ptr(), count.data_ptr(), run.data_ptr(), table.data_ptr(),
+                          ADAM_BIAS_LEN)
     with pytest.raises(ValueError, match="scratch"):
         clip_adam(*bufs, **kw)
     with pytest.raises(ValueError, match="16-byte"):

@@ -54,7 +54,12 @@ from burn_ppo_torch.ppo.pool_rollout import (
     opponent_actor_forward_plain,
 )
 from burn_ppo_torch.ppo.update import (
+    ADAM_B1,
+    ADAM_B2,
+    ADAM_BIAS_LEN,
+    LossBook,
     PPOUpdateConfig,
+    adam_bias_table,
     clip_adam,
     clip_adam_plain,
     clip_adam_scratch,
@@ -559,10 +564,12 @@ def test_obs_norm_update_kernel_matches_plain(dev, N, D):
     for _ in range(2):
         x = make()
         before = obs_norm_update.launches
-        k = obs_norm_update(state, x)
+        k = obs_norm_update(ObsNormState(state.mean.clone(), state.m2.clone(),
+                                         state.count.clone()), x)
         torch.cuda.synchronize()
         assert obs_norm_update.launches == before + 1
-        p = obs_norm_update_plain(state, x)
+        p = obs_norm_update_plain(ObsNormState(state.mean.clone(), state.m2.clone(),
+                                               state.count.clone()), x)
         torch.testing.assert_close(k.mean, p.mean, rtol=0, atol=1e-6)
         assert bool(torch.all((k.m2 - p.m2).abs() <= 1e-5 * p.m2.abs()))
         assert torch.equal(k.count, p.count)
@@ -602,6 +609,13 @@ def test_opponent_actor_kernel_matches_plain(dev, K, act, Ep):
     torch.testing.assert_close(k, p, rtol=1e-4, atol=1e-4)
 
 
+def k8(logits, values, mb, ent_coef, cfg, fn=ppo_loss_forward):
+    """K8 (or ``fn``, its plain version) with the entropy coefficient as a
+    0-dim device tensor and a fresh ``LossBook``."""
+    dev = logits.device
+    return fn(logits, values, mb, torch.full((), ent_coef, device=dev), cfg, LossBook.create(dev))
+
+
 def loss_batch(g, dev, M, A):
     logits = torch.randn(M, A, generator=g, device=dev) * 2
     n_masked = torch.randint(0, A, (M, 1), generator=g, device=dev)
@@ -629,10 +643,10 @@ def test_ppo_loss_kernel_matches_plain(dev, M, A, clip_value):
     logits, values, mb = loss_batch(g, dev, M, A)
     cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value)
     before = ppo_loss.launches
-    k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+    k = k8(logits, values, mb, 0.05, cfg)
     torch.cuda.synchronize()
     assert ppo_loss.launches == before + 1
-    p = ppo_loss_plain(logits, values, mb, 0.05, cfg)
+    p = k8(logits, values, mb, 0.05, cfg, ppo_loss_plain)
     torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-6)
     for a, b in zip(k[2:], p[2:]):
@@ -642,22 +656,28 @@ def test_ppo_loss_kernel_matches_plain(dev, M, A, clip_value):
 @pytest.mark.parametrize("n", [4739, 311304])
 @pytest.mark.parametrize("scale", [1e-3, 10.0])
 def test_clip_adam_kernel_matches_plain(dev, n, scale):
-    """Three steps below and above the max norm."""
+    """Three steps below and above the max norm; below it (no clip) K9's
+    parameters and moments are the plain version's bit for bit: each of
+    its operations is rounded on its own, as the plain version's are."""
     g = torch.Generator(device=dev).manual_seed(n)
     p_k = torch.randn(n, generator=g, device=dev)
     mu_k, nu_k = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
     p_p, mu_p, nu_p = p_k.clone(), mu_k.clone(), nu_k.clone()
+    c_k, c_p = (torch.zeros((), dtype=torch.int32, device=dev) for _ in range(2))
+    kw = dict(lr=torch.full((), 1e-3, device=dev), run=torch.ones((), dtype=torch.int32,
+                                                                  device=dev),
+              max_grad_norm=0.5, eps=1e-5)
     for count in (1, 2, 3):
         grads = torch.randn(n, generator=g, device=dev) * scale / n ** 0.5
-        kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
-                  bc2=1 - 0.999 ** count)
         before = clip_adam.launches
-        clip_adam(p_k, grads, mu_k, nu_k, **kw, partial=clip_adam_scratch(dev))
+        clip_adam(p_k, grads, mu_k, nu_k, **kw, count=c_k, partial=clip_adam_scratch(dev))
         torch.cuda.synchronize()
         assert clip_adam.launches == before + 1
-        clip_adam_plain(p_p, grads, mu_p, nu_p, **kw)
+        clip_adam_plain(p_p, grads, mu_p, nu_p, **kw, count=c_p)
+        assert int(c_k) == int(c_p) == count
     for a, b in ((p_k, p_p), (mu_k, mu_p), (nu_k, nu_p)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7 * float(b.abs().max()))
+        assert scale > 1 or torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [4739, 311304, 873778, 873781])
@@ -670,12 +690,14 @@ def test_clip_adam_kernel_is_bit_identical_across_calls_and_on_a_graph_replay(de
     start = [torch.randn(n, generator=g, device=dev),
              torch.randn(n, generator=g, device=dev) * scale / n ** 0.5,
              torch.randn(n, generator=g, device=dev) * 1e-3,
-             torch.rand(n, generator=g, device=dev) * 1e-6]
-    kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** 4, bc2=1 - 0.999 ** 4)
+             torch.rand(n, generator=g, device=dev) * 1e-6,
+             torch.full((), 3, dtype=torch.int32, device=dev)]
+    kw = dict(lr=torch.full((), 1e-3, device=dev), max_grad_norm=0.5, eps=1e-5,
+              run=torch.ones((), dtype=torch.int32, device=dev))
     partial = clip_adam_scratch(dev)
 
     def step(bufs):
-        clip_adam(bufs[0], bufs[1], bufs[2], bufs[3], **kw, partial=partial)
+        clip_adam(bufs[0], bufs[1], bufs[2], bufs[3], count=bufs[4], **kw, partial=partial)
 
     runs = []
     for _ in range(2):
@@ -698,7 +720,8 @@ def test_clip_adam_kernel_is_bit_identical_across_calls_and_on_a_graph_replay(de
     torch.cuda.synchronize()
     assert clip_adam.launches == before  # a replay runs no wrapper
     plain = [t.clone() for t in start]
-    clip_adam_plain(*plain, **kw)
+    clip_adam_plain(*plain[:4], count=plain[4], **kw)
+    assert int(runs[0][4]) == int(runs[1][4]) == int(graph_bufs[4]) == int(plain[4]) == 4
     for i in (0, 2, 3):
         assert torch.equal(runs[0][i], runs[1][i])
         assert torch.equal(runs[0][i], graph_bufs[i])
@@ -708,11 +731,72 @@ def test_clip_adam_kernel_is_bit_identical_across_calls_and_on_a_graph_replay(de
 
 def test_clip_adam_kernel_refuses_what_it_cannot_take(dev):
     z = torch.zeros(9, device=dev)
-    kw = dict(lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
+    kw = dict(lr=torch.full((), 1e-3, device=dev), count=torch.zeros((), dtype=torch.int32,
+                                                                     device=dev),
+              run=torch.ones((), dtype=torch.int32, device=dev), max_grad_norm=0.5, eps=1e-5)
     with pytest.raises(ValueError, match="scratch"):
         clip_adam(z[:8], z[:8], z[:8], z[:8], **kw)
     with pytest.raises(ValueError, match="16-byte aligned"):
         clip_adam(z[1:], z[:8], z[:8], z[:8], **kw, partial=clip_adam_scratch(dev))
+
+
+@pytest.mark.parametrize("n", [4739, 873778])
+def test_clip_adam_kernel_with_run_0_changes_nothing(dev, n):
+    """K9 with its run flag 0: parameters, moments and count bit for bit
+    as they were (every block returns before the grid barrier); with 1
+    the step, and with any other nonzero flag the same step bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    start = [torch.randn(n, generator=g, device=dev),
+             torch.randn(n, generator=g, device=dev) * 10.0 / n ** 0.5,
+             torch.randn(n, generator=g, device=dev) * 1e-3,
+             torch.rand(n, generator=g, device=dev) * 1e-6,
+             torch.full((), 7, dtype=torch.int32, device=dev)]
+    kw = dict(lr=torch.full((), 1e-3, device=dev), max_grad_norm=0.5, eps=1e-5,
+              partial=clip_adam_scratch(dev))
+    outs = {}
+    for name, run in (("off", 0), ("on", 1), ("two", 2)):
+        bufs = [t.clone() for t in start]
+        flag = torch.full((), run, dtype=torch.int32, device=dev)
+        clip_adam(*bufs[:4], count=bufs[4], run=flag, **kw)
+        torch.cuda.synchronize()
+        outs[name] = bufs
+    for i in (0, 2, 3, 4):
+        assert torch.equal(outs["off"][i], start[i])
+        assert torch.equal(outs["on"][i], outs["two"][i])
+    assert int(outs["on"][4]) == 8
+
+
+def test_adam_bias_corrections_are_the_host_expression(dev):
+    """The table K9 reads on the card holds float32(1 - b^count), formed on
+    the host in double, for every count 1..100000 (past its end the last
+    entry, 1.0f)."""
+    table = adam_bias_table(dev).cpu()
+    counts = range(1, 100001)
+    cols = torch.tensor([min(c, ADAM_BIAS_LEN - 1) for c in counts])
+    for row, b in ((0, ADAM_B1), (1, ADAM_B2)):
+        want = torch.tensor([1.0 - b ** c for c in counts], dtype=torch.float64).float()
+        assert torch.equal(table[row, cols], want)
+
+
+@pytest.mark.parametrize("count", [0, 163, 17319, 32766, 99999])
+def test_clip_adam_kernel_matches_plain_at_every_count(dev, count):
+    """One step from Adam counts on both sides of the corrections' 1.0f
+    rounding and the table's end."""
+    n = 311304
+    g = torch.Generator(device=dev).manual_seed(count)
+    start = [torch.randn(n, generator=g, device=dev),
+             torch.randn(n, generator=g, device=dev) * 1e-3 / n ** 0.5,
+             torch.randn(n, generator=g, device=dev) * 1e-3,
+             torch.rand(n, generator=g, device=dev) * 1e-6,
+             torch.full((), count, dtype=torch.int32, device=dev)]
+    kw = dict(lr=torch.full((), 3e-4, device=dev), max_grad_norm=0.5, eps=1e-5,
+              run=torch.ones((), dtype=torch.int32, device=dev))
+    k, p = [t.clone() for t in start], [t.clone() for t in start]
+    clip_adam(*k[:4], count=k[4], **kw, partial=clip_adam_scratch(dev))
+    clip_adam_plain(*p[:4], count=p[4], **kw)
+    assert int(k[4]) == int(p[4]) == count + 1
+    for i in (0, 2, 3):
+        torch.testing.assert_close(k[i], p[i], rtol=1e-5, atol=1e-7 * float(p[i].abs().max()))
 
 
 def episode_logs(g, dev, T, E, P, rate=0.05):
@@ -1079,9 +1163,9 @@ def test_ppo_loss_kernel_at_every_action_count(dev, A, M, case):
         cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=True)
         if case == "all_invalid":
             mb["valid"].zero_()
-    k = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+    k = k8(logits, values, mb, 0.05, cfg)
     torch.cuda.synchronize()
-    assert_loss_close(k, ppo_loss_plain(logits, values, mb, 0.05, cfg))
+    assert_loss_close(k, k8(logits, values, mb, 0.05, cfg, ppo_loss_plain))
     if case == "all_invalid":
         assert not bool(k[2].any()) and not bool(k[3].any())
 
@@ -1091,8 +1175,8 @@ def test_ppo_loss_kernel_is_bit_identical_across_calls(dev, M, A):
     g = torch.Generator(device=dev).manual_seed(M - A)
     logits, values, mb = loss_batch(g, dev, M, A)
     cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=True)
-    first = ppo_loss_forward(logits, values, mb, 0.05, cfg)
-    second = ppo_loss_forward(logits, values, mb, 0.05, cfg)
+    first = k8(logits, values, mb, 0.05, cfg)
+    second = k8(logits, values, mb, 0.05, cfg)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
@@ -1102,7 +1186,52 @@ def test_ppo_loss_kernel_refuses_too_many_actions(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     logits, values, mb = loss_batch(g, dev, 64, 65)
     with pytest.raises(ValueError, match="1 to 64 actions"):
-        ppo_loss_forward(logits, values, mb, 0.05, PPOUpdateConfig())
+        k8(logits, values, mb, 0.05, PPOUpdateConfig())
+
+
+def test_ppo_loss_kernel_takes_the_entropy_coefficient_on_the_device(dev):
+    """The 0-dim device ent_coef is read at launch: a new value written
+    into the same tensor gives the plain version's values at that value,
+    and the bits of a fresh tensor holding it."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits, values, mb = loss_batch(g, dev, 65536, 49)
+    cfg = PPOUpdateConfig(clip_value=True)
+    ent = torch.full((), 0.03, device=dev)
+    a = ppo_loss_forward(logits, values, mb, ent, cfg, LossBook.create(dev))
+    assert_loss_close(a, k8(logits, values, mb, 0.03, cfg, ppo_loss_plain))
+    ent.fill_(0.07)
+    b = ppo_loss_forward(logits, values, mb, ent, cfg, LossBook.create(dev))
+    assert not torch.equal(a[2], b[2])
+    for x, y in zip(b, k8(logits, values, mb, 0.07, cfg)):
+        assert torch.equal(x, y)
+    assert_loss_close(b, k8(logits, values, mb, 0.07, cfg, ppo_loss_plain))
+
+
+def test_ppo_loss_kernel_bookkeeping_matches_the_plain_twin(dev):
+    """A sequence of minibatches (ordinary, all-invalid, one whose
+    approx_kl passes target_kl, then more after the stop) through K8 with
+    a book and through the plain version with another: the run flag after
+    each, the minibatches counted, the stop flag and the metric sums."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    batches = [loss_batch(g, dev, 16384, 33) for _ in range(5)]
+    batches[1][2]["valid"] = torch.zeros(16384, device=dev)
+    # target_kl 0: the first minibatch that runs stops the rest.
+    for target_kl in (None, 0.0):
+        cfg = PPOUpdateConfig(target_kl=target_kl)
+        kb, pb = LossBook.create(dev), LossBook.create(dev)
+        runs = []
+        for logits, values, mb in batches:
+            ent = torch.full((), 0.02, device=dev)
+            k = ppo_loss_forward(logits, values, mb, ent, cfg, kb, True)
+            ppo_loss_plain(logits, values, mb, ent, cfg, pb, True)
+            runs.append((int(kb.run), int(pb.run)))
+            assert torch.equal(kb.out[1:], k[1])
+        assert all(a == b for a, b in runs), runs
+        want = [1, 0, 1, 1, 1] if target_kl is None else [1, 0, 0, 0, 0]
+        assert [a for a, _ in runs] == want
+        assert float(kb.count) == float(pb.count) == sum(want)
+        assert int(kb.stop) == int(pb.stop) == (0 if target_kl is None else 1)
+        torch.testing.assert_close(kb.sums, pb.sums, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -1245,3 +1374,115 @@ def test_one_vs_pool_graph_replays_every_active_count_bit_for_bit(dev):
         assert int(got[1].seat_opp[L:].max()) < active
         eager_in, graph_in = (eager[0], eager[1]), (got[0], got[1])
     assert RolloutGraph.captures == 1 and RolloutGraph.replays == 3
+
+
+# ---------------------------------------------------------------------------
+# The update as one captured CUDA graph (ppo/update_graph.py)
+# ---------------------------------------------------------------------------
+
+
+def _update_state(net, opt, runner):
+    """What an update writes: parameters, moments, count, obs-norm stats."""
+    from burn_ppo_torch.ppo.rollout_graph import state_leaves
+
+    return [opt.flat_params, opt.flat_mu, opt.flat_nu, opt.count_tensor,
+            *state_leaves(runner.obs_norm)]
+
+
+def _update_case(dev, seed, target_kl):
+    from burn_ppo_torch.ppo.update import AdamState
+    from burn_ppo_torch.ppo.update_graph import UpdateRunner
+    from burn_ppo_torch.train import rollout_runner
+
+    cfg, env, net, rng, carry, norm = _rollout_setup(dev, "cartpole", 1024, 32, seed=seed)
+    cfg.target_kl = target_kl
+    opt = AdamState.create(net)
+    return cfg, env, net, opt, rng, carry, norm, rollout_runner(env, cfg), UpdateRunner(env, cfg)
+
+
+def test_graphed_update_equals_the_eager_loop_bit_for_bit(dev):
+    """Three updates, each after a graphed rollout, with a KL stop that
+    fires: from one saved state the eager loop (``UpdateRunner.eager``)
+    and the runner's graph replay give the same parameters, moments,
+    count, obs-norm stats, metrics and episode summaries bit for bit, and
+    leave the generator at the same offset; one capture, three replays;
+    the replays launch K8 in the minibatches that ran and no other (no
+    minibatch is empty here), the graphs of the rest skipped."""
+    from burn_ppo_torch.ppo.rollout_graph import state_leaves
+    from burn_ppo_torch.ppo.update_graph import UpdateGraph
+
+    cfg, env, net, opt, rng, carry, norm, runner, updater = _update_case(dev, 0, 0.002)
+    UpdateGraph.reset_counts()
+    lr, ent = 0.01, 0.01
+    minibatches = []
+    for _ in range(3):
+        runner.run(net, carry, norm, rng)
+        carry, norm = runner.carry, runner.obs_norm
+        saved = [t.clone() for t in _update_state(net, opt, runner)]
+        start = rng.generator.get_state()
+        eager = updater.eager(net, opt, runner, rng, lr, ent)
+        want = [t.clone() for t in _update_state(net, opt, runner) + state_leaves(
+            [list(eager["metrics"].values()), list(eager["stats"].values())])]
+        after = rng.generator.get_state()
+        for t, s0 in zip(_update_state(net, opt, runner), saved):
+            t.copy_(s0)
+        rng.generator.set_state(start)
+        got = updater.run(net, opt, runner, rng, lr, ent)
+        torch.cuda.synchronize()
+        have = _update_state(net, opt, runner) + state_leaves(
+            [list(got["metrics"].values()), list(got["stats"].values())])
+        assert len(have) == len(want)
+        for i, (a, b) in enumerate(zip(have, want)):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), i
+        assert torch.equal(rng.generator.get_state(), after)
+        minibatches.append(float(got["metrics"]["num_minibatch_updates"]))
+    assert UpdateGraph.captures == 1 and UpdateGraph.replays == 3
+    total = cfg.num_epochs * cfg.num_minibatches
+    assert min(minibatches) < total, minibatches
+    launched = UpdateGraph.launches[ppo_loss]
+    assert launched == sum(minibatches) and UpdateGraph.skipped == 3 * total - launched
+
+
+def test_update_graph_replays_draw_new_permutations_and_a_seed_repeats_its_run(dev):
+    """Two replays of one graph on the same inputs draw different epoch
+    permutations (other parameters after the second); two runners from
+    the same seed give the same bits."""
+    runs = []
+    for _ in range(2):
+        cfg, env, net, opt, rng, carry, norm, runner, updater = _update_case(dev, 4, None)
+        runner.run(net, carry, norm, rng)
+        saved = [t.clone() for t in _update_state(net, opt, runner)]
+        outs = []
+        for _ in range(2):
+            for t, s0 in zip(_update_state(net, opt, runner), saved):
+                t.copy_(s0)
+            updater.run(net, opt, runner, rng, 0.003, 0.01)
+            outs.append([t.clone() for t in _update_state(net, opt, runner)])
+        assert updater.graph is not None
+        assert not torch.equal(outs[0][0], outs[1][0])
+        runs.append(outs)
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_a_train_step_does_not_sync_with_the_host(dev):
+    """A CartPole train step, both graphs captured, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no stream or device
+    synchronize from the rollout's replay to the update's (the host's
+    wait for the stop flag between minibatch graphs is an event query,
+    which this mode does not see)."""
+    from burn_ppo_torch.ppo.update import AdamState
+    from burn_ppo_torch.train import TrainState, make_train_step
+
+    cfg, env, net, rng, carry, norm = _rollout_setup(dev, "cartpole", 1024, 32, seed=2)
+    cfg.target_kl = 0.01
+    state = TrainState(network=net, opt_state=AdamState.create(net), carry=carry, obs_norm=norm)
+    step = make_train_step(env, cfg)
+    state, _, _ = step(state, 0.003, 0.01, rng)  # the captures
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics, _ = step(state, 0.003, 0.01, rng)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(metrics["num_minibatch_updates"]) >= 1

@@ -182,8 +182,9 @@ def test_obs_norm_update_then_apply_on_the_old_state_matches_jax(D, start):
     batch[0, 0, 1] = 40.0  # past the clip once the stats are filled
     j_new = jn.obs_norm_update(j_state, jnp.asarray(batch))
     j_out = np.asarray(jn.obs_norm_apply(j_state, jnp.asarray(batch)))
+    t_out = tn.obs_norm_apply(t_state, _t(batch))  # before the merge, in place
     t_new = tn.obs_norm_update(t_state, _t(batch))
-    t_out = tn.obs_norm_apply(t_state, _t(batch))
+    assert t_new is t_state
     assert t_out.shape == batch.shape
     np.testing.assert_allclose(t_new.mean.numpy(), np.asarray(j_new.mean), rtol=0, atol=1e-6)
     np.testing.assert_allclose(t_new.m2.numpy(), np.asarray(j_new.m2), rtol=1e-5, atol=1e-6)

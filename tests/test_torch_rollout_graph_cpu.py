@@ -4,8 +4,8 @@ replayed. On a card the same code is captured into one CUDA graph and
 replayed; each input a graph would read at a stale address is covered
 here by an update that changes it:
 
-* the obs normalizer's stats, new tensors after every update (three
-  CartPole train steps);
+* the obs normalizer's stats, which every update merges its batch into
+  in place (three CartPole train steps);
 * the scheduled shaping coefficient (Liar's Dice, a value per update);
 * the opponent stack of a new rotation and the active slot count of the
   reseat (Connect Four against the pool);
@@ -71,9 +71,10 @@ def _assert_params_match(tstate, jstate):
 
 def test_three_train_steps_on_the_static_carry_match_jax(start):
     """Three CartPole train steps: the carry the step returns is the
-    runner's static carry every time, the obs-norm stats the update makes
-    are new tensors that the next rollout reads through the runner's own
-    buffers, and every step matches JAX's."""
+    runner's static carry every time, the update merges the batch into
+    the runner's obs-norm stats in place (the state's stats are the
+    runner's, which the next rollout reads), and every step matches
+    JAX's."""
     network, tx, jstate, tstate, env, _ = start
     j_step = jax.jit(jax_make_train_step(network, CARTPOLE_JENV, CARTPOLE_CFG, tx))
     t_step = make_train_step(env, CARTPOLE_CFG)
@@ -84,15 +85,12 @@ def test_three_train_steps_on_the_static_carry_match_jax(start):
     for _ in range(3):
         carry_key = _replay_rollout(src, carry_key)
         update_key = _replay_update(src, update_key)
-        stats_in = tstate.obs_norm
         jstate, j_m, j_logs = j_step(jstate, jnp.float32(LR), jnp.float32(ENT), jnp.float32(0.0))
         tstate, t_m, t_logs = t_step(tstate, LR, ENT, src)
         assert not src.uniforms and not src.perms
-        # The rollout read the stats it was handed, copied into the
-        # runner's buffers; the update's new stats are other tensors.
+        # The update merged the batch into the runner's stats in place.
         for f in ("mean", "m2", "count"):
-            assert torch.equal(getattr(runner.obs_norm, f), getattr(stats_in, f))
-            assert getattr(tstate.obs_norm, f) is not getattr(runner.obs_norm, f)
+            assert getattr(tstate.obs_norm, f) is getattr(runner.obs_norm, f)
             np.testing.assert_allclose(getattr(tstate.obs_norm, f).numpy(),
                                        np.asarray(getattr(jstate.obs_norm, f)), rtol=1e-5)
         carries.append(tstate.carry)

@@ -69,6 +69,17 @@ def _torch_data(data):
     return {k: torch.from_numpy(np.array(v)) for k, v in data.items()}
 
 
+def _book():
+    return tu.LossBook.create(torch.device("cpu"))
+
+
+def _scalar(x):
+    return torch.tensor(x, dtype=torch.float32)
+
+
+_RUN = torch.ones((), dtype=torch.int32)
+
+
 @pytest.mark.parametrize("clip_value", [False, True])
 def test_minibatch_loss_and_grads_match_jax(clip_value):
     jnet, jparams, tnet = _nets(split=clip_value)
@@ -80,7 +91,7 @@ def test_minibatch_loss_and_grads_match_jax(clip_value):
     (j_loss, j_aux), j_grads = jax.jit(lambda p, mb: grad_fn(p, jnet, mb, None, 0.01, jcfg))(
         jparams, {k: jnp.asarray(v) for k, v in data.items()}
     )
-    t_loss, t_metrics = tu.minibatch_loss(tnet, _torch_data(data), 0.01, tcfg)
+    t_loss, t_metrics = tu.minibatch_loss(tnet, _torch_data(data), _scalar(0.01), tcfg, _book())
     t_aux = dict(zip(tu.METRIC_KEYS, t_metrics))
     names = [k for k, _ in tnet.named_parameters()]
     t_grads = torch.autograd.grad(t_loss, list(tnet.parameters()))
@@ -123,7 +134,8 @@ def test_ppo_update_matches_jax_with_replayed_permutations(case):
     perms = [jax.random.permutation(k, nmb * mb_size)
              for k in jax.random.split(key, epochs)]
     opt = tu.AdamState.create(tnet)
-    t_m = tu.ppo_update(tnet, opt, _torch_data(data), ReplaySource(perms), lr, 0.01, tcfg)
+    t_m = tu.ppo_update(tnet, opt, _torch_data(data), ReplaySource(perms), _scalar(lr),
+                        _scalar(0.01), tcfg)
 
     count = float(j_m["num_minibatch_updates"])
     assert float(t_m["num_minibatch_updates"]) == count
@@ -162,7 +174,7 @@ def test_clip_is_optax_clip_by_global_norm():
         cfg = tu.PPOUpdateConfig(max_grad_norm=max_norm, adam_epsilon=1e-5)
         for prm, g in zip(net.parameters(), grads):
             prm.grad.copy_(g)
-        tu.clip_and_adam_step(opt, 1.0, cfg)
+        tu.clip_and_adam_step(opt, _scalar(1.0), cfg, _RUN)
         clipped = [g if norm < max_norm else g / norm * max_norm for g in grads]
         for mu, g in zip(opt.mu.values(), clipped):
             np.testing.assert_allclose(mu.numpy(), 0.1 * g.numpy(), rtol=1e-6)
@@ -227,7 +239,8 @@ def test_k8_plain_loss_metrics_and_grads_match_jax(A, clip_value, masked):
         {"logits": jnp.asarray(logits), "values": jnp.asarray(values)}, _Outputs(),
         _jax_mb(mb), None, 0.03, jcfg)
     t_loss, t_metrics, t_dlogits, t_dvalues = tu.ppo_loss_plain(
-        torch.from_numpy(logits), torch.from_numpy(values), _torch_data(mb), 0.03, tcfg)
+        torch.from_numpy(logits), torch.from_numpy(values), _torch_data(mb), _scalar(0.03), tcfg,
+        _book())
     np.testing.assert_allclose(float(t_loss), float(j_loss), rtol=1e-5)
     for k, v in zip(tu.METRIC_KEYS, t_metrics):
         np.testing.assert_allclose(float(v), float(j_aux[k]), rtol=1e-5, atol=1e-7, err_msg=k)
@@ -245,7 +258,7 @@ def test_k8_plain_loss_metrics_and_grads_match_jax(A, clip_value, masked):
     # Through the autograd node: the same gradients reach the inputs.
     lt = torch.from_numpy(logits).requires_grad_()
     vt = torch.from_numpy(values).requires_grad_()
-    loss, metrics = tu.ppo_loss(lt, vt, _torch_data(mb), 0.03, tcfg)
+    loss, metrics = tu.ppo_loss(lt, vt, _torch_data(mb), _scalar(0.03), tcfg, _book())
     (2.0 * loss).backward()
     np.testing.assert_allclose(lt.grad.numpy(), 2.0 * t_dlogits.numpy(), rtol=1e-6)
     np.testing.assert_allclose(vt.grad.numpy(), 2.0 * t_dvalues.numpy(), rtol=1e-6)
@@ -259,8 +272,8 @@ def test_k8_plain_all_invalid_minibatch_gives_zeros_like_jax():
         {"logits": jnp.asarray(logits), "values": jnp.asarray(values)}, _Outputs(),
         _jax_mb(mb), None, 0.01, cfg)
     t_loss, t_metrics, t_dl, t_dv = tu.ppo_loss_plain(
-        torch.from_numpy(logits), torch.from_numpy(values), _torch_data(mb), 0.01,
-        tu.PPOUpdateConfig(clip_value=True))
+        torch.from_numpy(logits), torch.from_numpy(values), _torch_data(mb), _scalar(0.01),
+        tu.PPOUpdateConfig(clip_value=True), _book())
     assert float(t_loss) == float(j_loss) == 0.0
     for k, v in zip(tu.METRIC_KEYS, t_metrics):
         assert float(v) == pytest.approx(float(j_aux[k]), abs=1e-7), k
@@ -278,14 +291,16 @@ def test_k9_plain_matches_optax_over_three_steps(scale):
     jp, jstate = jnp.asarray(p0), None
     jstate = tx.init(jp)
     tp, mu, nu = torch.from_numpy(p0.copy()), torch.zeros(n), torch.zeros(n)
+    t_count = torch.zeros((), dtype=torch.int32)
     norms = []
     for count in (1, 2, 3):
         g = (rng.normal(size=n) * scale / np.sqrt(n)).astype(np.float32)
         norms.append(float(np.linalg.norm(g)))
         u, jstate = tx.update(jnp.asarray(g), jstate, jp)
         jp = jp - lr * u
-        tu.clip_adam(tp, torch.from_numpy(g), mu, nu, lr=lr, max_grad_norm=max_norm, eps=1e-5,
-                     bc1=1 - 0.9 ** count, bc2=1 - 0.999 ** count)
+        tu.clip_adam(tp, torch.from_numpy(g), mu, nu, lr=torch.tensor(lr), count=t_count,
+                     run=_RUN, max_grad_norm=max_norm, eps=1e-5)
+        assert int(t_count) == count == int(jstate[1].count)
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(mu.numpy(), np.asarray(jstate[1].mu), rtol=1e-6, atol=1e-9)
         np.testing.assert_allclose(nu.numpy(), np.asarray(jstate[1].nu), rtol=1e-6, atol=1e-12)
@@ -311,8 +326,8 @@ def test_ppo_update_may_have_invalid_skips_all_invalid_minibatches():
     perms = [np.asarray(jax.random.permutation(k, n)) for k in jax.random.split(key, epochs)]
     expected = sum(int(np.isin(p.reshape(nmb, -1), [3, 20]).any(1).sum()) for p in perms)
     opt = tu.AdamState.create(tnet)
-    t_m = tu.ppo_update(tnet, opt, _torch_data(data), ReplaySource(perms), lr, 0.01, tcfg,
-                        may_have_invalid=True)
+    t_m = tu.ppo_update(tnet, opt, _torch_data(data), ReplaySource(perms), _scalar(lr),
+                        _scalar(0.01), tcfg, may_have_invalid=True)
     assert float(t_m["num_minibatch_updates"]) == float(j_m["num_minibatch_updates"]) == expected
     assert expected <= epochs * 2 and opt.count == expected
     for a, b in zip(tree_leaves(params_to_jax(tnet.state_dict())),
