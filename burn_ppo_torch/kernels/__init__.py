@@ -96,8 +96,10 @@ SIGNATURES = {
     # 1 - b1, 1 - b2, stream
     "clip_adam": [_VP] * 5 + [_L, _I] + [_VP] * 4 + [_I] + [_F] * 6 + [_VP],
     "clip_adam_scratch_len": [],
-    # completed, totals, length, outcome, T, E, L, P, G, sums, extrema, out, stream
-    "episode_stats": [_VP] * 4 + [_I] * 5 + [_VP] * 4,
+    # completed, totals, length, outcome, T, E, L, P, scratch (f64
+    # [episode_stats_scratch_len()], zeroed once), its length, out, stream
+    "episode_stats": [_VP] * 4 + [_I] * 4 + [_VP, _I, _VP, _VP],
+    "episode_stats_scratch_len": [],
     # packed state, shaping, reward_sum, length, action, u, the i32 and the
     # f32 output buffer, num_envs, num_players, stream
     "skull_step_autoreset": [_VP] * 8 + [_I, _I, _VP],

@@ -3,8 +3,10 @@
 The train step reduces the [T, E] episode logs to a handful of scalars
 on the device: ``summarize_episode_logs`` runs its plain PyTorch version
 for CPU tensors and launches the hand-written kernel K10
-(``csrc/episode_stats.cu``, ROADMAP B14) for CUDA tensors, or raises. The
-host tracker keeps a trailing window of >= 100 episodes over those
+(``csrc/episode_stats.cu``, ROADMAP B14) for CUDA tensors, or raises. K10
+is one launch whose scratch (``episode_stats_scratch``) is made once a
+device, at the first call, which must not be inside a CUDA graph capture.
+The host tracker keeps a trailing window of >= 100 episodes over those
 per-update summaries. ``WindowedEpisodeTracker`` is a copy of the JAX
 package's host-side class, whose module imports JAX.
 """
@@ -56,6 +58,34 @@ def summarize_episode_logs_plain(logs: EpisodeLog, num_players: int) -> Dict[str
     }
 
 
+# K10's scratch on each CUDA device (``episode_stats_scratch``).
+_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+
+
+def episode_stats_scratch(device: torch.device) -> torch.Tensor:
+    """K10's f64 scratch on a CUDA ``device``: a partial for each block of
+    the largest grid it launches there and, in the last double, the i32
+    ticket of the block that finishes last, zero before the first launch
+    and put back to zero by every launch. Made at the first call on the
+    device and kept, so a CUDA graph captures it at a fixed address and
+    every call, eager or replayed, reuses it (calls on one device are
+    ordered on one stream). A tensor made during a capture would live in
+    the graph's private pool: made there, it raises."""
+    scratch = _SCRATCH.get(device)
+    if scratch is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "episode_stats: K10's scratch is made at the first call on a device, and "
+                "that call is inside a CUDA graph capture; call summarize_episode_logs once "
+                "eagerly on the device before capturing it")
+        with torch.cuda.device(device):
+            n = kernels.library().episode_stats_scratch_len()
+        if n < 2:
+            raise RuntimeError(f"episode_stats: no grid on {device}")
+        scratch = _SCRATCH[device] = torch.zeros(n, dtype=torch.float64, device=device)
+    return scratch
+
+
 def summarize_episode_logs(logs: EpisodeLog, num_players: int,
                            num_envs: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Window scalars of the first ``num_envs`` env columns of the logs
@@ -78,14 +108,12 @@ def summarize_episode_logs(logs: EpisodeLog, num_players: int,
     kernels.expect(logs.length, "length", torch.int32, (T, E))
     kernels.expect(logs.outcome, "outcome", torch.int32, (T, E, P))
     dev = logs.completed.device
-    G = max(1, min(132, -(-T * L // 1024)))
-    sums = torch.empty(G, 3 + 2 * P, dtype=torch.float64, device=dev)
-    extrema = torch.empty(G, 2, dtype=torch.float32, device=dev)
+    scratch = episode_stats_scratch(dev)
     out = torch.empty(5 + 2 * P, dtype=torch.float32, device=dev)
     p = kernels.ptr
     err = kernels.library().episode_stats(
         p(logs.completed), p(logs.total_rewards), p(logs.length), p(logs.outcome),
-        T, E, L, P, G, p(sums), p(extrema), p(out), kernels.stream(dev),
+        T, E, L, P, p(scratch), scratch.numel(), p(out), kernels.stream(dev),
     )
     kernels.check(err, "episode_stats")
     summarize_episode_logs.launches += 1

@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K6, K8, K9, train phases 3, 3d and train steps in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K5, K10, train phases 3, 3d and train steps in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -52,15 +52,15 @@ exits non-zero without the final result line:
      P = 4;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
-     K4, K6, K9 and K13 print their ptxas lines (registers, stack frame,
-     spills); with --parent, when DIR's kernel sources differ from this
-     tree's, the parent commit's K6 apply (at [4096, 86], [4096, 270]
-     and the update batches, there also with L2 flushed) and update (into
-     new tensors, at the three update batches), K8 (at [65536, 7], [65536,
-     33], [65536, 49], its float entropy coefficient) and K9 (at the five
-     parameter counts, its host bias corrections), built from DIR,
-     checked against this tree's outputs and timed in turns with this
-     tree's (parent, new, new, parent);
+     K4, K5, K6, K9, K10 and K13 print their ptxas lines (registers,
+     stack frame, spills); K10 gives the same bits on two calls and on two
+     replays of a captured graph, and is timed beside an empty kernel's
+     launch (the floor); with --parent, when DIR's kernel sources differ
+     from this tree's, the parent commit's K5 (at [64, 4096, 2], [64,
+     4096, 4] and [128, 4096, 4], equal bit for bit) and K10 (at every
+     shape above, to the plain version's tolerances), built from DIR,
+     checked and timed in turns with this tree's (parent, new, new,
+     parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
   2b. one K9 step, one K6 apply, one K1 step with the roll and one K12
@@ -246,7 +246,6 @@ from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
     opponent_actor_forward_plain,
 )
 from burn_ppo_torch.ppo.update import (  # noqa: E402
-    LOSS_FIELDS,
     LossBook,
     PPOUpdateConfig,
     clip_adam,
@@ -511,105 +510,101 @@ def turns(new, other, who: str = "parent") -> dict:
 
 
 class ParentKernels:
-    """The parent commit's (4e589f6) K6 apply and update, K8 and K9, built
-    from a checkout of it into a library of their own and called as its
-    wrappers called them (the argument checks and the allocations: K6's
-    update into new tensors, its scratch per call; K8 with the entropy
-    coefficient as a float and its scratch and output per call; K9 with
-    the learning rate and the bias corrections as floats and a scratch
-    made once), so that they are timed beside the new kernels in the same
-    process."""
+    """The parent commit's (84d39a1) K5 and K10, built from a checkout of
+    it into a library of their own and called as its wrappers called them
+    (the argument checks and the allocations: K5's outputs per call; K10's
+    two launches, its grid of min(132, ceil(T x L / 1024)) blocks, its
+    sums, extrema and output made per call), so that they are timed beside
+    the new kernels in the same process."""
+
+    SOURCES = ("gae_multiplayer.cu", "episode_stats.cu")
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
         out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_kernels.so"
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-               *(str(csrc / f) for f in ("obs_norm.cu", "clip_adam.cu", "ppo_loss.cu"))]
+               *(str(csrc / f) for f in self.SOURCES)]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
         self.ptxas = ptxas_summary(res.stdout + res.stderr)
-        vp, i, l, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
-        for name, argtypes in (("obs_norm_apply", [vp] * 5 + [l, i, f, vp]),
-                               ("obs_norm_update", [vp] * 8 + [l, i, l, vp]),
-                               ("clip_adam", [vp] * 5 + [l, i] + [f] * 9 + [vp]),
-                               ("clip_adam_scratch_len", []),
-                               ("ppo_loss_forward", [vp] * 9 + [i] * 2 + [f] * 3 + [i]
-                                + [f] * 2 + [vp] * 5),
-                               ("ppo_loss_scratch_len", [])):
+        for name, argtypes in (("gae_multiplayer_reverse_scan", [vp] * 7 + [i] * 3 + [f] * 2
+                                + [vp]),
+                               ("episode_stats", [vp] * 4 + [i] * 5 + [vp] * 4)):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        self.partial = None  # K9's scratch, made at the first call
 
-    def apply(self, state: ObsNormState, obs: torch.Tensor, clip: float = 10.0) -> torch.Tensor:
-        D = obs.shape[-1]
-        kernels.expect(obs, "obs", torch.float32, obs.shape)
-        for t, name, shape in ((state.mean, "mean", (D,)), (state.m2, "m2", (D,)),
-                               (state.count, "count", ())):
-            kernels.expect(t, name, torch.float32, shape)
-        out = torch.empty_like(obs)
+    def gae_multiplayer(self, all_rewards, values, dones, acting, last_vpp, gamma: float,
+                        gae_lambda: float):
+        T, E, P = all_rewards.shape
+        for name, t, dtype, shape in (
+            ("all_rewards", all_rewards, torch.float32, (T, E, P)),
+            ("values", values, torch.float32, (T, E)),
+            ("dones", dones, torch.float32, (T, E)),
+            ("acting", acting, torch.int32, (T, E)),
+            ("last_vpp", last_vpp, torch.float32, (E, P)),
+        ):
+            kernels.expect(t, name, dtype, shape)
+        advantages, returns = torch.empty_like(values), torch.empty_like(values)
         p = kernels.ptr
-        kernels.check(self.lib.obs_norm_apply(
-            p(obs), p(state.mean), p(state.m2), p(state.count), p(out), obs.numel() // D, D,
-            float(clip), kernels.stream(obs.device)), "parent K6 apply")
-        return out
+        kernels.check(self.lib.gae_multiplayer_reverse_scan(
+            p(all_rewards), p(values), p(dones), p(acting), p(last_vpp), p(advantages),
+            p(returns), T, E, P, float(gamma), float(gamma * gae_lambda),
+            kernels.stream(values.device)), "parent K5")
+        return advantages, returns
 
-    def obs_norm_update(self, state: ObsNormState, batch: torch.Tensor) -> ObsNormState:
-        D = batch.shape[-1]
-        N = batch.numel() // D
-        kernels.expect(batch, "batch", torch.float32, batch.shape)
-        for t, name, shape in ((state.mean, "mean", (D,)), (state.m2, "m2", (D,)),
-                               (state.count, "count", ())):
-            kernels.expect(t, name, torch.float32, shape)
-        lanes = max(1, min(1056 * 256, -(-N * D // 16)) // D)
-        scratch = torch.empty(2 * lanes * D, dtype=torch.float64, device=batch.device)
-        new = ObsNormState(mean=torch.empty_like(state.mean), m2=torch.empty_like(state.m2),
-                           count=torch.empty_like(state.count))
+    def episode_stats(self, logs: EpisodeLog, P: int, num_envs: int | None = None) -> dict:
+        T, E = logs.completed.shape
+        L = E if num_envs is None else num_envs
+        kernels.expect(logs.completed, "completed", torch.float32, (T, E))
+        kernels.expect(logs.total_rewards, "total_rewards", torch.float32, (T, E, P))
+        kernels.expect(logs.length, "length", torch.int32, (T, E))
+        kernels.expect(logs.outcome, "outcome", torch.int32, (T, E, P))
+        dev = logs.completed.device
+        G = max(1, min(132, -(-T * L // 1024)))
+        sums = torch.empty(G, 3 + 2 * P, dtype=torch.float64, device=dev)
+        extrema = torch.empty(G, 2, dtype=torch.float32, device=dev)
+        out = torch.empty(5 + 2 * P, dtype=torch.float32, device=dev)
         p = kernels.ptr
-        kernels.check(self.lib.obs_norm_update(
-            p(batch), p(state.mean), p(state.m2), p(state.count), p(scratch), p(new.mean),
-            p(new.m2), p(new.count), N, D, lanes, kernels.stream(batch.device)),
-            "parent K6 update")
-        return new
+        kernels.check(self.lib.episode_stats(
+            p(logs.completed), p(logs.total_rewards), p(logs.length), p(logs.outcome),
+            T, E, L, P, G, p(sums), p(extrema), p(out), kernels.stream(dev)), "parent K10")
+        return {
+            "count": out[0], "ret_sum": out[1:1 + P], "ret0_max": out[P + 1],
+            "ret0_min": out[P + 2], "len_sum": out[P + 3], "pts_sum": out[P + 4:2 * P + 4],
+            "draws": out[2 * P + 4],
+        }
 
-    def clip_adam(self, params, grads, mu, nu, *, lr, max_grad_norm, eps, bc1, bc2) -> None:
-        n = params.numel()
-        for t, name in ((params, "params"), (grads, "grads"), (mu, "mu"), (nu, "nu")):
-            kernels.expect(t, name, torch.float32, (n,))
-        if self.partial is None:
-            self.partial = torch.empty(self.lib.clip_adam_scratch_len(), dtype=torch.float64,
-                                       device=params.device)
-        p = kernels.ptr
-        kernels.check(self.lib.clip_adam(
-            p(params), p(grads), p(mu), p(nu), p(self.partial), n, self.partial.numel(),
-            float(lr), float(max_grad_norm),
-            float(eps), 0.9, 0.999, 1 - 0.9, 1 - 0.999, float(bc1), float(bc2),
-            kernels.stream(params.device)), "parent K9")
 
-    def ppo_loss_forward(self, logits, values, mb, ent_coef: float, cfg: PPOUpdateConfig):
-        M, A = logits.shape
-        mask = mb.get("action_masks")
-        cols = [mb[k] for k in LOSS_FIELDS]
-        kernels.expect(logits, "logits", torch.float32, (M, A))
-        kernels.expect(values, "values", torch.float32, (M,))
-        if mask is not None:
-            kernels.expect(mask, "action_masks", torch.float32, (M, A))
-        for k, t in zip(LOSS_FIELDS, cols):
-            kernels.expect(t, k, torch.int32 if k == "actions" else torch.float32, (M,))
-        dev = logits.device
-        scratch = torch.empty(self.lib.ppo_loss_scratch_len(), dtype=torch.float64, device=dev)
-        out = torch.empty(15, dtype=torch.float32, device=dev)
-        dlogits, dvalues = torch.empty_like(logits), torch.empty_like(values)
-        eps = cfg.clip_epsilon
-        p = kernels.ptr
-        kernels.check(self.lib.ppo_loss_forward(
-            p(logits), p(values), p(mask), *(p(t) for t in cols), M, A, float(eps),
-            float(1.0 - eps), float(1.0 + eps), int(cfg.clip_value), float(cfg.value_coef),
-            float(ent_coef), p(scratch), p(out), p(dlogits), p(dvalues), kernels.stream(dev)),
-            "parent K8")
-        return out[0], out[1:], dlogits, dvalues
+class EmptyKernel:
+    """An empty kernel of one warp, built with the same flags into a
+    library of its own: its device time is the floor under any launch."""
+
+    SOURCE = (
+        "#include <cuda_runtime.h>\n"
+        "__global__ void empty_kernel() {}\n"
+        'extern "C" int empty_launch(void* s) {\n'
+        "  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(s)>>>();\n"
+        "  return static_cast<int>(cudaGetLastError());\n"
+        "}\n")
+
+    def __init__(self):
+        d = ROOT / ".cache" / "burn_ppo_torch" / "floor"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "empty.cu").write_text(self.SOURCE)
+        out = d / "libempty.so"
+        res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
+                              str(d / "empty.cu")], capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"the empty kernel failed to build:\n{res.stdout}{res.stderr}")
+        self.lib = ctypes.CDLL(str(out))
+        self.lib.empty_launch.argtypes, self.lib.empty_launch.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def __call__(self) -> None:
+        kernels.check(self.lib.empty_launch(kernels.stream(torch.device("cuda"))), "empty kernel")
 
 
 def same_kernel_sources(parent_dir: Path) -> bool:
@@ -1176,8 +1171,12 @@ def turn_based_rollout(dev, g, P: int, steps: int = T_C4):
     return rewards, values, done, acting, last_vpp
 
 
-def check_gae_multiplayer(dev, g) -> dict:
-    out = {"tol": 1e-5}
+def check_gae_multiplayer(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
+    """K5 at Connect Four's [64, 4096, 2], Skull's bench shape [64, 4096,
+    4] and the [128, 4096, 4] of skull_ctde.toml and both Liar's Dice
+    configs: to 1e-5 of the plain version. With ``parent``, the parent
+    commit's K5 on the same inputs, equal bit for bit, and timed in turns."""
+    out = {"tol": 1e-5, "ptxas": kernel_ptxas(ptxas, "gae_multiplayer_staged")}
     for P, steps in ((2, T_C4), (4, T_C4), (4, T_LD)):
         args = turn_based_rollout(dev, g, P, steps)
         adv_k, ret_k = compute_gae_multiplayer(*args, 0.99, 0.95)
@@ -1187,12 +1186,22 @@ def check_gae_multiplayer(dev, g) -> dict:
         if not err <= 1e-5:
             raise AssertionError(f"gae_multiplayer_reverse_scan P={P}: max abs err {err} > 1e-5")
         name = f"P{P}" if steps == T_C4 else f"T{steps}_P{P}"
+
+        def new():
+            return compute_gae_multiplayer(*args, 0.99, 0.95)
+
         out[name] = {
             "max_abs_err": err,
-            **timed(lambda: compute_gae_multiplayer(*args, 0.99, 0.95),
-                    lambda: compute_gae_multiplayer_plain(*args, 0.99, 0.95)),
+            **timed(new, lambda: compute_gae_multiplayer_plain(*args, 0.99, 0.95)),
             "library_ms": None, **bound(nbytes(*args, adv_k, ret_k), 12.0 * steps * E * P),
         }
+        if parent is not None:
+            adv_o, ret_o = parent.gae_multiplayer(*args, 0.99, 0.95)
+            if not (torch.equal(adv_k, adv_o) and torch.equal(ret_k, ret_o)):
+                raise AssertionError(f"gae_multiplayer_reverse_scan {name}: differs from the "
+                                     f"parent's, max abs {max_err([(adv_k, adv_o), (ret_k, ret_o)])}")
+            out[name].update(parent_equal_bit_for_bit=True,
+                             **turns(new, lambda: parent.gae_multiplayer(*args, 0.99, 0.95)))
     out.update(max_abs_err=max(v["max_abs_err"] for k, v in out.items() if k.startswith(("P", "T"))),
                **{k: out["P2"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
@@ -1207,12 +1216,9 @@ def connect_four_like(dev, g, n: int, D: int = 86) -> torch.Tensor:
     return (torch.rand(n, D, generator=g, device=dev) < rate).float()
 
 
-def check_obs_norm_apply(dev, g, obs: torch.Tensor, rows: int,
-                         parent: "ParentKernels | None") -> dict:
+def check_obs_norm_apply(dev, g, obs: torch.Tensor, rows: int) -> dict:
     """K6's apply on ``obs`` [4096, D] to 1e-6, from states at count 0 and
-    1 (the identity) and merged from ``rows`` x D; timed on the merged one.
-    With ``parent``, the parent commit's apply on each state, equal bit for
-    bit, and timed in turns on the merged one."""
+    1 (the identity) and merged from ``rows`` x D; timed on the merged one."""
     D = obs.shape[1]
     z = torch.zeros(D, device=dev)
     states = {
@@ -1231,16 +1237,11 @@ def check_obs_norm_apply(dev, g, obs: torch.Tensor, rows: int,
             raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: max abs err {err} > 1e-6")
         if name != "merged" and not torch.equal(k, obs):
             raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: not the identity below count 2")
-        if parent is not None and not torch.equal(k, parent.apply(st, obs)):
-            raise AssertionError(f"obs_norm_apply [{E}, {D}] {name}: differs from the parent's")
         out[name] = err
         out["max_abs_err"] = max(out["max_abs_err"], err)
     st = states["merged"]
     out.update(timed(lambda: obs_norm_apply(st, obs), lambda: obs_norm_apply_plain(st, obs)))
     out.update(library_ms=None, **bound(nbytes(obs, st) + nbytes(obs), 6.0 * obs.numel()))
-    if parent is not None:
-        out.update(parent_equal=True, **turns(lambda: obs_norm_apply(st, obs),
-                                              lambda: parent.apply(st, obs)))
     return out
 
 
@@ -1279,15 +1280,13 @@ def cold_device_ms(fn, kernel: str, reps: int = 10, tries: int = 3):
     return None
 
 
-def check_obs_norm_batch(dev, g, parent: "ParentKernels | None") -> dict:
+def check_obs_norm_batch(dev, g) -> dict:
     """K6's apply on each update batch as the train step runs it once per
     update, with the state merged from another batch of the same shape: to
     1e-6 of the plain version, timed beside its bound (the batch and the
     state read, the batch written), and its device time also with L2
     flushed before each call (``cold_l2_device_ms``; at [524288, 5] the
-    batch and its output fit in L2 between calls). With ``parent``, the
-    parent commit's apply, equal bit for bit and timed in turns, warm and
-    with L2 flushed."""
+    batch and its output fit in L2 between calls)."""
     out = {"tol": 1e-6, "max_abs_err": 0.0}
     for name, make in obs_norm_batches(dev, g).items():
         batch = make()
@@ -1308,33 +1307,19 @@ def check_obs_norm_batch(dev, g, parent: "ParentKernels | None") -> dict:
             "cold_l2_device_ms": cold_device_ms(new, "obs_norm_apply"),
             "library_ms": None, **bound(nbytes(batch, st) + nbytes(batch), 6.0 * batch.numel()),
         }
-        if parent is not None:
-            if not torch.equal(parent.apply(st, batch), k):
-                raise AssertionError(f"obs_norm_apply {name}: differs from the parent's")
-
-            def old():
-                return parent.apply(st, batch)
-
-            res.update(parent_equal=True, **turns(new, old))
-            res["cold_l2_turns"] = {
-                "device_ms_turns": [], "parent_device_ms": []}
-            for key, fn in (("parent_device_ms", old), ("device_ms_turns", new),
-                            ("device_ms_turns", new), ("parent_device_ms", old)):
-                res["cold_l2_turns"][key].append(cold_device_ms(fn, "obs_norm_apply"))
         del k
         out[name] = res
         out["max_abs_err"] = max(out["max_abs_err"], err)
     return out
 
 
-def check_obs_norm_update(dev, g, parent: "ParentKernels | None") -> dict:
+def check_obs_norm_update(dev, g) -> dict:
     """Into an empty and into a filled state, at the Connect Four update
     batch [262144, 86], the CartPole one [524288, 5] and Liar's Dice's
     [524288, 270]: mean to 1e-6 absolute, m2 to 1e-5 relative, count
     exact. The update merges in place (into the state itself), and is
     timed so. ``max_abs_err`` is the mean's; the top level's times are
-    Connect Four's. With ``parent``, the parent commit's update (into new
-    tensors) equal bit for bit and timed in turns."""
+    Connect Four's."""
     batches = {
         "c4_262144x86": lambda: connect_four_like(dev, g, E * T_C4),
         "cartpole_524288x5": lambda: torch.randn(E * T, 5, generator=g, device=dev)
@@ -1363,11 +1348,6 @@ def check_obs_norm_update(dev, g, parent: "ParentKernels | None") -> dict:
                 raise AssertionError(f"obs_norm_update {name}: m2 rel err {m2_rel} > 1e-5")
             if not torch.equal(k.count, p.count):
                 raise AssertionError(f"obs_norm_update {name}: count {k.count} != {p.count}")
-            if parent is not None:
-                v = parent.obs_norm_update(st, x)
-                if not all(torch.equal(getattr(v, f), getattr(k, f))
-                           for f in ("mean", "m2", "count")):
-                    raise AssertionError(f"obs_norm_update {name}: differs from the parent's")
             errs.append({"mean_abs": mean_err, "m2_rel": m2_rel, "count": float(k.count)})
             out["max_abs_err"] = max(out["max_abs_err"], mean_err)
             st = p
@@ -1383,9 +1363,6 @@ def check_obs_norm_update(dev, g, parent: "ParentKernels | None") -> dict:
             # read the batch and the state, write the state
             **bound(nbytes(x1) + 3 * x1.shape[1] * 4 * 2, 4.0 * x1.numel()),
         }
-        if parent is not None:
-            out[name].update(parent_equal=True,
-                             **turns(new, lambda: parent.obs_norm_update(st, x1)))
     out.update({k: out["c4_262144x86"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
 
@@ -1496,16 +1473,14 @@ def loss_batch(dev, g, M: int, A: int):
     return logits, values, mb
 
 
-def check_ppo_loss(dev, g, parent: "ParentKernels | None") -> dict:
+def check_ppo_loss(dev, g) -> dict:
     """K8 at the minibatch shapes: Connect Four [65536, 7] (value clip off
     and on), Skull [65536, 33], Liar's Dice [65536, 49], CartPole
     [131072, 2]. Loss and metrics to 1e-5 relative, gradients to 1e-4
     relative + 1e-6 of their largest entry; a second call on the same
     inputs gives the same bits. Called as the update calls it (the
     entropy coefficient on the device, the update's bookkeeping in a
-    ``LossBook``); with ``parent``, the parent commit's K8 (a float
-    coefficient, scratch and output made per call) equal bit for bit and
-    timed in turns."""
+    ``LossBook``)."""
     out = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
 
     def close(k, p, name) -> float:
@@ -1529,13 +1504,9 @@ def check_ppo_loss(dev, g, parent: "ParentKernels | None") -> dict:
         close(k, p, name)
         if not all(torch.equal(a, b) for a, b in zip(k, again)):
             raise AssertionError(f"ppo_loss {name}: two calls on the same inputs differ")
-        if parent is not None and not all(torch.equal(a, b) for a, b in zip(
-                k, parent.ppo_loss_forward(logits, values, mb, 0.05, cfg))):
-            raise AssertionError(f"ppo_loss {name}: differs from the parent's")
         out[name] = max_err(list(zip(k, p)))
         out["max_abs_err"] = max(out["max_abs_err"], out[name])
     out["bit_identical_across_calls"] = True
-    out["parent_equal_bit_for_bit"] = parent is not None or None
     cfg = PPOUpdateConfig(clip_epsilon=0.1, target_kl=0.02)
     book, ent = LossBook.create(dev), torch.full((), 0.05, device=dev)
     for A in (7, 33, 49):
@@ -1556,24 +1527,19 @@ def check_ppo_loss(dev, g, parent: "ParentKernels | None") -> dict:
             **bound(nbytes(logits, values, read) + nbytes(logits, values) + 15 * 4,
                     65536 * (12.0 * A + 60.0)),
         }
-        if parent is not None:
-            entry.update(turns(new, lambda: parent.ppo_loss_forward(logits, values, mb, 0.05,
-                                                                    cfg)))
         out[f"M65536_A{A}"] = entry
     out.update({k: out["M65536_A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
 
 
-def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
+def check_clip_adam(dev, g) -> dict:
     """K9 over flat buffers of CartPole's MLP 64x2 (4,739 parameters),
     Connect Four's MLP 512x2 (311,304), Skull's CTDE 512x2 (784,418) and
     Liar's Dice's CTDE (873,778) and MLP 512x3 (689,714), three steps
     below and three above the max norm: to 1e-5 relative + 1e-7 of the
     largest entry, and below it (no clip: the norm's rounding does not
     enter) bit for bit; a second run of the same steps equal bit for bit.
-    Timed at each count; with ``parent``, the parent commit's K9 on the
-    same buffers, to the same tolerance (whether bit for bit is
-    reported), and timed in turns."""
+    Timed at each count."""
     out = {"tol": "1e-5 * |plain| + 1e-7 * max|plain|; below the max norm, bit for bit",
            "max_abs_err": 0.0}
     partial = clip_adam_scratch(dev)
@@ -1584,14 +1550,9 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
     def ours(fn):
         # this tree's K9 and its plain version: the learning rate, the
         # Adam count and the run flag on the device
-        def step(*bufs, count, cnt):
+        def step(*bufs, cnt):
             fn(*bufs, lr=lr, count=cnt, run=run, max_grad_norm=0.5, eps=1e-5)
         return step
-
-    def parents(*bufs, count, cnt):
-        # the parent's K9: the bias corrections formed on the host
-        parent.clip_adam(*bufs, lr=1e-3, max_grad_norm=0.5, eps=1e-5, bc1=1 - 0.9 ** count,
-                         bc2=1 - 0.999 ** count)
 
     for n in (4739, 311304, SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
         for scale in (1e-3, 10.0):
@@ -1602,22 +1563,19 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
                                                                           partial=partial))),
                               ("again", ours(lambda *b, **kw: clip_adam(*b, **kw,
                                                                          partial=partial))),
-                              ("plain", ours(clip_adam_plain)),
-                              *((("parent", parents),) if parent is not None else ())):
+                              ("plain", ours(clip_adam_plain))):
                 bufs = [p0.clone(), None, torch.zeros(n, device=dev), torch.zeros(n, device=dev)]
                 cnt = torch.zeros((), dtype=torch.int32, device=dev)
                 for count in (1, 2, 3):
                     bufs[1] = grads[count - 1]
-                    step(*bufs, count=count, cnt=cnt)
+                    step(*bufs, cnt=cnt)
                 runs[who] = bufs[:1] + bufs[2:]
             torch.cuda.synchronize()
             name = f"n{n}_{'above' if scale > 1 else 'below'}"
-            for who in ("kernel", "parent"):
-                for a, b in zip(runs.get(who, ()), runs["plain"]):
-                    if not bool(torch.all((a - b).abs() <= 1e-7 * float(b.abs().max())
-                                          + 1e-5 * b.abs())):
-                        raise AssertionError(f"clip_adam ({who}) {name}: max abs err "
-                                             f"{max_err([(a, b)])}")
+            for a, b in zip(runs["kernel"], runs["plain"]):
+                if not bool(torch.all((a - b).abs() <= 1e-7 * float(b.abs().max())
+                                      + 1e-5 * b.abs())):
+                    raise AssertionError(f"clip_adam {name}: max abs err {max_err([(a, b)])}")
             if not all(torch.equal(a, b) for a, b in zip(runs["kernel"], runs["again"])):
                 raise AssertionError(f"clip_adam {name}: two runs differ")
             if scale < 1 and not all(torch.equal(a, b)
@@ -1626,16 +1584,9 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
                                      "version's bits")
             out[name] = max_err(zip(runs["kernel"], runs["plain"]))
             out["max_abs_err"] = max(out["max_abs_err"], out[name])
-            if parent is not None:
-                out[f"{name}_equal_to_parent"] = all(
-                    torch.equal(a, b) for a, b in zip(runs["kernel"], runs["parent"]))
-                if scale < 1:  # where the kernel is the plain version's bits
-                    out[f"{name}_parent_equal_to_plain"] = all(
-                        torch.equal(a, b) for a, b in zip(runs["parent"], runs["plain"]))
     kw = dict(lr=torch.full((), 1e-6, device=dev), count=torch.zeros((), dtype=torch.int32,
                                                                      device=dev),
               run=run, max_grad_norm=0.5, eps=1e-5)
-    parent_kw = dict(lr=1e-6, max_grad_norm=0.5, eps=1e-5, bc1=0.1, bc2=0.001)
     for n in (311304, 4739, SKULL_CTDE_PARAMS, LD_CTDE_PARAMS, LD_MLP_PARAMS):
         prm, grads = torch.randn(n, generator=g, device=dev), torch.randn(n, generator=g, device=dev)
         mu, nu = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
@@ -1653,9 +1604,6 @@ def check_clip_adam(dev, g, parent: "ParentKernels | None") -> dict:
             adam = torch.optim.Adam([lib], lr=1e-6, eps=1e-5, fused=True)
             entry.update(library_ms=time_ms(adam.step), library_call="torch.optim.Adam("
                          "fused=True).step() (Adam only: no global-norm clip)")
-        if parent is not None:
-            entry.update(turns(lambda: clip_adam(prm, grads, mu, nu, **kw, partial=partial),
-                               lambda: parent.clip_adam(prm, grads, mu, nu, **parent_kw)))
         if n == 311304:
             out.update(entry)
         else:
@@ -2208,8 +2156,8 @@ UPDATE_KERNELS = {
     "obs_norm_apply": "obs_norm_apply_kernel",
     "obs_norm_update": "obs_norm_merge_kernel",
     "gae_reverse_scan": "gae_reverse_scan_kernel",
-    "gae_multiplayer_reverse_scan": "gae_multiplayer_kernel",
-    "episode_stats": "episode_stats_final_kernel",
+    "gae_multiplayer_reverse_scan": "gae_multiplayer_staged_kernel",
+    "episode_stats": "episode_stats_kernel",
 }
 
 
@@ -2341,30 +2289,73 @@ def episode_logs(dev, g, T: int, P: int, rate: float = 0.05) -> EpisodeLog:
     )
 
 
-def check_episode_stats(dev, g) -> dict:
+def summaries_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def check_episode_stats(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
     """K10 at the learner block of the pool path ([64, 4096], first 3072
     columns), all of Connect Four's [64, 4096], CartPole's [128, 4096] and
-    four players with tied places in Skull's learner block (first 2867):
-    counts, extrema and lengths exact, sums to 1e-6 relative + 1e-3."""
+    four players with tied places in Skull's learner block (first 2867)
+    and Liar's Dice's ([128, 4096], first 3072): counts, extrema and
+    lengths exact, sums to 1e-6 relative + 1e-3; two calls, and two
+    replays of a captured graph, the eager call's bits. Timed at [64,
+    3072] P = 2, [64, 2867] P = 4 and [128, 3072] P = 4 beside an empty
+    kernel's launch (the floor under any launch). With ``parent``, the
+    parent commit's K10 on the same logs, to the same tolerances, timed in
+    turns."""
     out = {"tol": {"count_len_draws_max_min": "exact", "sums": "1e-6 rel + 1e-3"},
-           "max_abs_err": 0.0}
+           "max_abs_err": 0.0, "ptxas": kernel_ptxas(ptxas, "episode_stats")}
     L = E - EP
+
+    def close(k, p, name, who="") -> None:
+        for key in ("count", "len_sum", "draws", "ret0_max", "ret0_min"):
+            if not torch.equal(k[key], p[key]):
+                raise AssertionError(f"episode_stats{who} {name}: {key} {k[key]} != {p[key]}")
+        for key in ("ret_sum", "pts_sum"):
+            if not bool(torch.all((k[key] - p[key]).abs() <= 1e-3 + 1e-6 * p[key].abs())):
+                raise AssertionError(f"episode_stats{who} {name}: {key} {k[key]} != {p[key]}")
+
     for T_, P, cols in ((T_C4, 2, L), (T_C4, 2, None), (T, 1, None), (T_C4, 4, E - EP_SKULL),
                         (T_LD, 4, E - EP_LD)):
         logs = episode_logs(dev, g, T_, P)
         k = summarize_episode_logs(logs, P, num_envs=cols)
+        again = summarize_episode_logs(logs, P, num_envs=cols)
         cut = EpisodeLog(**{f: getattr(logs, f)[:, :cols] for f in vars(logs)})
         p = summarize_episode_logs_plain(logs if cols is None else cut, P)
         torch.cuda.synchronize()
         name = f"T{T_}_P{P}_" + ("all" if cols is None else f"first{cols}")
-        for key in ("count", "len_sum", "draws", "ret0_max", "ret0_min"):
-            if not torch.equal(k[key], p[key]):
-                raise AssertionError(f"episode_stats {name}: {key} {k[key]} != {p[key]}")
-        for key in ("ret_sum", "pts_sum"):
-            if not bool(torch.all((k[key] - p[key]).abs() <= 1e-3 + 1e-6 * p[key].abs())):
-                raise AssertionError(f"episode_stats {name}: {key} {k[key]} != {p[key]}")
+        close(k, p, name)
+        if not summaries_equal(k, again):
+            raise AssertionError(f"episode_stats {name}: two calls differ")
+        if parent is not None:
+            close(parent.episode_stats(logs, P, num_envs=cols), p, name, " (parent)")
         out[name] = max_err([(k[f], p[f]) for f in p])
         out["max_abs_err"] = max(out["max_abs_err"], out[name])
+    out["bit_identical_across_calls"] = True
+
+    # Two replays of a captured call, each the eager call's bits.
+    logs = episode_logs(dev, g, T_LD, 4)
+    eager = summarize_episode_logs(logs, 4, num_envs=E - EP_LD)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        summarize_episode_logs(logs, 4, num_envs=E - EP_LD)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = summarize_episode_logs(logs, 4, num_envs=E - EP_LD)
+    for i in range(2):
+        for t in captured.values():
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not summaries_equal(captured, eager):
+            raise AssertionError(f"episode_stats: graph replay {i} differs from the eager call")
+    out["graph_replays_equal_bit_for_bit"] = 2
+    del graph
+
+    floor = EmptyKernel()
 
     def timing(P: int, cols: int, T_: int = T_C4) -> dict:
         logs = episode_logs(dev, g, T_, P)
@@ -2376,15 +2367,24 @@ def check_episode_stats(dev, g) -> dict:
         done = int((block.completed > 0).sum())
         row = (block.length.element_size() + block.total_rewards[0, 0].numel() * 4
                + block.outcome[0, 0].numel() * 4)
-        return {
-            **timed(lambda: summarize_episode_logs(logs, P, num_envs=cols),
-                    lambda: summarize_episode_logs_plain(block, P)),
+
+        def new():
+            return summarize_episode_logs(logs, P, num_envs=cols)
+
+        res = {
+            **timed(new, lambda: summarize_episode_logs_plain(block, P)),
             "library_ms": None, "completed_rows": done,
             **bound(nbytes(block.completed) + done * row + (5 + 2 * P) * 4,
                     T_ * cols + 30.0 * done),
         }
+        if parent is not None:
+            res.update(turns(new, lambda: parent.episode_stats(logs, P, num_envs=cols)))
+            # the floor in the same turns: an empty kernel's launch
+            res["empty_kernel_device_ms"] = [device_ms(floor)[0] for _ in range(2)]
+        return res
 
     out.update(timing(2, L))
+    out["empty_kernel_device_ms"] = device_ms(floor)[0]
     name = f"T{T_C4}_P4_first{E - EP_SKULL}"
     out[name] = {"max_abs_err": out.pop(name), **timing(4, E - EP_SKULL)}
     name = f"T{T_LD}_P4_first{E - EP_LD}"
@@ -2727,7 +2727,7 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K1, K6, K9 and K12 are built "
+                    help="a checkout of the parent commit: its K5 and K10 are built "
                          "from it and timed in turns with this tree's, and so are its CartPole "
                          "and Connect Four vs-pool train phases")
     args = ap.parse_args(argv)
@@ -2744,7 +2744,7 @@ def main(argv: list) -> int:
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    # ParentKernels binds 4e589f6's entry points; a parent whose kernel
+    # ParentKernels binds 84d39a1's entry points; a parent whose kernel
     # sources are this tree's has nothing to time against them.
     parent = None
     if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
@@ -2766,9 +2766,9 @@ def main(argv: list) -> int:
         "A49_liars_dice_opponents_Ep1024": check_sample(dev, g, 49, ld_mask[E - EP_LD:]),
         "A33_skull_opponents_Ep1229": check_sample(dev, g, 33, skull_mask[E - EP_SKULL:]),
     }
-    apply_c4 = check_obs_norm_apply(dev, g, connect_four_like(dev, g, E), E * T_C4, parent)
-    apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD, parent)
-    apply_batch = check_obs_norm_batch(dev, g, parent)
+    apply_c4 = check_obs_norm_apply(dev, g, connect_four_like(dev, g, E), E * T_C4)
+    apply_ld = check_obs_norm_apply(dev, g, ld_obs, E * T_LD)
+    apply_batch = check_obs_norm_batch(dev, g)
     checks = {
         "cartpole_step_autoreset": check_cartpole(dev, g),
         "masked_gumbel_sample": {
@@ -2778,16 +2778,16 @@ def main(argv: list) -> int:
         },
         "gae_reverse_scan": check_gae(dev, g),
         "connect_four_step_autoreset": check_connect_four(dev, g, ptxas),
-        "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g),
+        "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g, parent, ptxas),
         "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld, "update_batch": apply_batch,
                            "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"],
                                               apply_batch["max_abs_err"]),
                            "ptxas": [ln for ln in ptxas if ln.startswith("obs_norm_")]},
-        "obs_norm_update": check_obs_norm_update(dev, g, parent),
+        "obs_norm_update": check_obs_norm_update(dev, g),
         "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs),
-        "ppo_loss": check_ppo_loss(dev, g, parent),
-        "clip_adam": {**check_clip_adam(dev, g, parent), "ptxas": kernel_ptxas(ptxas, "clip_adam")},
-        "episode_stats": check_episode_stats(dev, g),
+        "ppo_loss": check_ppo_loss(dev, g),
+        "clip_adam": {**check_clip_adam(dev, g), "ptxas": kernel_ptxas(ptxas, "clip_adam")},
+        "episode_stats": check_episode_stats(dev, g, parent, ptxas),
         "skull_step_autoreset": skull,
         "return_norm_roll": check_return_norm_roll(dev, g),
         "return_norm_finalize": check_return_norm_finalize(dev, g),

@@ -126,3 +126,65 @@ def test_skull_placements_award_six_points_a_game_like_jax():
     for k in j:
         np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=1e-6, atol=1e-5, err_msg=k)
     assert float(t["pts_sum"].sum()) == pytest.approx(6.0 * E)
+
+
+def _summaries(raw: dict, P: int, L=None):
+    """The JAX summary of columns [:L] and the port's of the whole logs
+    with ``num_envs=L``."""
+    j = jax_summarize(_JaxLog(**{k: jnp.asarray(v[:, :L]) for k, v in raw.items()}), P)
+    t = summarize_episode_logs(EpisodeLog(**{
+        k: torch.from_numpy(v.astype(np.float32) if k == "completed" else v)
+        for k, v in raw.items()}), P, num_envs=L)
+    assert set(t) == set(j)
+    return j, t
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_an_update_without_a_completed_episode_matches_jax(P):
+    """Count 0 and the extrema of no episode: -inf and +inf, as JAX gives
+    them; every sum 0."""
+    raw = _logs(min(P, 3), seed=20 + P) if P < 4 else _four_player_logs(4, 16, seed=24)
+    raw["completed"][:] = False
+    j, t = _summaries(raw, P)
+    for k in j:
+        np.testing.assert_array_equal(t[k].numpy(), np.asarray(j[k]), err_msg=k)
+    assert float(t["count"]) == 0.0
+    assert float(t["ret0_max"]) == -np.inf and float(t["ret0_min"]) == np.inf
+
+
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_every_entry_completed_matches_jax(P):
+    raw = _logs(P, seed=30 + P) if P < 4 else _four_player_logs(4, 16, seed=34)
+    raw["completed"][:] = True
+    j, t = _summaries(raw, P)
+    for k in j:
+        np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=1e-6, atol=1e-4, err_msg=k)
+    assert float(t["count"]) == raw["completed"].size
+
+
+def _four_player_logs(T: int, E: int, seed: int) -> dict:
+    """Four-player logs: wins, shared places, all tied and the sentinel."""
+    rng = np.random.default_rng(seed)
+    kinds = rng.integers(0, 4, (T, E))
+    outcome = rng.integers(1, 5, (T, E, 4)).astype(np.int32)
+    outcome[kinds == 1] = 1
+    outcome[kinds == 2] = 0
+    return dict(
+        completed=rng.random((T, E)) < 0.05,
+        total_rewards=rng.normal(size=(T, E, 4)).astype(np.float32),
+        length=rng.integers(1, 43, (T, E)).astype(np.int32),
+        outcome=outcome,
+        active_players=np.full((T, E), 4, np.int32),
+    )
+
+
+@pytest.mark.parametrize("T", [1, 2])
+def test_four_player_learner_block_with_a_ragged_width_matches_jax(T):
+    """Skull's learner block: L = 2867 of E = 4096 columns, a width that
+    leaves a ragged float4 tail in K10's rows."""
+    raw = _four_player_logs(T, 4096, seed=40 + T)
+    assert raw["completed"][:, :2867].any() and raw["completed"][:, 2867:].any()
+    j, t = _summaries(raw, 4, L=2867)
+    for k in j:
+        np.testing.assert_allclose(t[k].numpy(), np.asarray(j[k]), rtol=1e-6, atol=1e-4, err_msg=k)
+    assert float(t["count"]) == raw["completed"][:, :2867].sum()

@@ -375,6 +375,53 @@ def test_clip_adam_wrapper_passes_the_callers_scratch_and_allocates_nothing(monk
     assert clip_adam.launches == before + 1
 
 
+def test_episode_stats_wrapper_makes_its_scratch_once_and_refuses_it_in_a_capture(monkeypatch):
+    """K10's CUDA path with a stand-in library: a first call inside a CUDA
+    graph capture raises and makes nothing; the first call outside makes
+    the device's scratch once (f64, zeroed, the library's length); every
+    call passes it with its length, allocates only its output and
+    launches once, a later call inside a capture too."""
+    import contextlib
+
+    from burn_ppo_torch.ppo import episode_stats as es
+
+    lib = _cuda_path_on_cpu(monkeypatch, summarize_episode_logs)
+    lib.episode_stats_scratch_len = lambda: 37
+    monkeypatch.setattr(es, "_SCRATCH", {})
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    capturing = [True]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    T, E, P = 2, 8, 2
+    logs = EpisodeLog(completed=torch.ones(T, E), total_rewards=torch.zeros(T, E, P),
+                      length=torch.ones(T, E, dtype=torch.int32),
+                      outcome=torch.ones(T, E, P, dtype=torch.int32),
+                      active_players=torch.full((T, E), P, dtype=torch.int32))
+    before = summarize_episode_logs.launches
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        summarize_episode_logs(logs, P, num_envs=5)
+    assert es._SCRATCH == {} and lib.calls == []
+    capturing[0] = False
+    summarize_episode_logs(logs, P, num_envs=5)
+    scratch = es._SCRATCH[torch.device("cpu")]
+    assert scratch.dtype == torch.float64 and scratch.numel() == 37 and not bool(scratch.any())
+    (name, args), = lib.calls
+    assert name == "episode_stats" and len(args) == len(kernels.SIGNATURES["episode_stats"])
+    assert args[:4] == tuple(t.data_ptr() for t in (logs.completed, logs.total_rewards,
+                                                    logs.length, logs.outcome))
+    assert args[4:10] == (T, E, 5, P, scratch.data_ptr(), 37)
+    capturing[0] = True
+    allocations = []
+    empty, zeros = torch.empty, torch.zeros
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: (allocations.append(a), empty(*a, **k))[1])
+    monkeypatch.setattr(torch, "zeros", lambda *a, **k: (allocations.append(a), zeros(*a, **k))[1])
+    summarize_episode_logs(logs, P)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch, "zeros", zeros)
+    assert allocations == [(5 + 2 * P,)] and list(es._SCRATCH.values()) == [scratch]
+    assert lib.calls[1][1][6] == E and lib.calls[1][1][8] == scratch.data_ptr()
+    assert summarize_episode_logs.launches == before + 2
+
+
 def test_adam_state_on_the_cpu_holds_no_kernel_scratch():
     from burn_ppo_torch.ppo.update import AdamState, clip_adam_scratch
 

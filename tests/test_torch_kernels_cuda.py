@@ -450,6 +450,30 @@ def test_gae_multiplayer_kernel_matches_plain(dev, T, E, P):
     torch.testing.assert_close(ret_k, ret_p, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("P", range(1, 9))
+@pytest.mark.parametrize("T", [1, 37])
+@pytest.mark.parametrize("E", [1, 33, 100, 4097])
+def test_gae_multiplayer_kernel_at_the_ragged_edges(dev, E, T, P):
+    """K5 where its staged copies fall back or run short: E not a multiple
+    of the block's 32 envs or of 4 (4-byte copies), T = 1 and T not a
+    multiple of the 16-step chunk, every P, and acting indices -1 and P
+    (no seat) on some steps."""
+    g = torch.Generator(device=dev).manual_seed(1000 * P + T + E)
+    done = (torch.rand(T, E, generator=g, device=dev) < 0.1).float()
+    acting = torch.randint(0, P, (T, E), generator=g, device=dev, dtype=torch.int32)
+    off = torch.rand(T, E, generator=g, device=dev)
+    acting = torch.where(off < 0.05, -1, torch.where(off < 0.1, P, acting)).to(torch.int32)
+    rewards = torch.randn(T, E, P, generator=g, device=dev)
+    rewards *= torch.rand(T, E, P, generator=g, device=dev) < 0.3
+    values = torch.randn(T, E, generator=g, device=dev)
+    last_vpp = torch.randn(E, P, generator=g, device=dev)
+    adv_k, ret_k = compute_gae_multiplayer(rewards, values, done, acting, last_vpp, 0.99, 0.95)
+    adv_p, ret_p = compute_gae_multiplayer_plain(rewards, values, done, acting, last_vpp,
+                                                 0.99, 0.95)
+    torch.testing.assert_close(adv_k, adv_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ret_k, ret_p, rtol=0, atol=1e-5)
+
+
 def test_gae_multiplayer_kernel_refuses_more_than_eight_players(dev):
     z = torch.zeros(2, 3, device=dev)
     with pytest.raises(ValueError, match="1..8 players"):
@@ -822,12 +846,90 @@ def test_episode_stats_kernel_matches_plain(dev, T, E, P, L):
     torch.cuda.synchronize()
     assert summarize_episode_logs.launches == before + 1
     cut = EpisodeLog(**{f: getattr(logs, f)[:, :L] for f in logs.__dataclass_fields__})
-    p = summarize_episode_logs_plain(logs if L is None else cut, P)
+    assert_summaries_match(k, summarize_episode_logs_plain(logs if L is None else cut, P))
+
+
+def assert_summaries_match(k, p):
     assert set(k) == set(p)
     for key in ("count", "len_sum", "draws", "ret0_max", "ret0_min"):
         assert torch.equal(k[key], p[key]), key
     for key in ("ret_sum", "pts_sum"):
         torch.testing.assert_close(k[key], p[key], rtol=1e-6, atol=1e-3)
+
+
+@pytest.mark.parametrize("rate", [0.0, 1.0])
+@pytest.mark.parametrize("T,E,P,L", [(64, 4096, 4, 1), (64, 4096, 4, 2867), (5, 4096, 2, 1),
+                                     (3, 4097, 4, 2867)])
+def test_episode_stats_kernel_with_none_or_all_completed(dev, T, E, P, L, rate):
+    """K10 on a learner block of 1 and of 2867 columns (a ragged float4
+    tail; E = 4097 rows off 16 bytes), no entry completed (count 0, the
+    extrema -inf and +inf) or all of them (a warp's list full)."""
+    g = torch.Generator(device=dev).manual_seed(T + L)
+    logs = episode_logs(g, dev, T, E, P, rate)
+    if rate == 1.0:
+        logs.completed.fill_(1.0)
+    k = summarize_episode_logs(logs, P, num_envs=L)
+    cut = EpisodeLog(**{f: getattr(logs, f)[:, :L] for f in logs.__dataclass_fields__})
+    assert_summaries_match(k, summarize_episode_logs_plain(cut, P))
+    if rate == 0.0:
+        assert float(k["count"]) == 0.0
+        assert float(k["ret0_max"]) == float("-inf") and float(k["ret0_min"]) == float("inf")
+
+
+@pytest.mark.parametrize("T,P,L", [(64, 2, 3072), (64, 4, 2867), (128, 4, 3072)])
+def test_episode_stats_kernel_gives_the_same_bits_twice(dev, T, P, L):
+    """Partials added in a fixed order, the ticket put back: two calls in
+    a row give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(T * P)
+    logs = episode_logs(g, dev, T, 4096, P)
+    first = {k: v.clone() for k, v in summarize_episode_logs(logs, P, num_envs=L).items()}
+    second = summarize_episode_logs(logs, P, num_envs=L)
+    for key in first:
+        assert torch.equal(first[key], second[key]), key
+
+
+def test_episode_stats_kernel_replays_from_a_cuda_graph(dev):
+    """One launch on the device's scratch captures: two replays each equal
+    bit for bit to the eager call (the last block put the ticket back),
+    and no launch counted."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    logs = episode_logs(g, dev, 128, 4096, 4)
+    eager = summarize_episode_logs(logs, 4, num_envs=3072)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        summarize_episode_logs(logs, 4, num_envs=3072)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = summarize_episode_logs(logs, 4, num_envs=3072)
+    before = summarize_episode_logs.launches
+    for _ in range(2):
+        for t in captured.values():
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for key in eager:
+            assert torch.equal(captured[key], eager[key]), key
+    assert summarize_episode_logs.launches == before
+
+
+def test_episode_stats_scratch_first_made_inside_a_capture_raises(dev, monkeypatch):
+    """The scratch is made at the first call on a device; a first call
+    inside a capture raises rather than make it in the graph's pool."""
+    from burn_ppo_torch.ppo import episode_stats
+
+    monkeypatch.setattr(episode_stats, "_SCRATCH", {})
+    g = torch.Generator(device=dev).manual_seed(6)
+    logs = episode_logs(g, dev, 4, 64, 2)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            summarize_episode_logs(logs, 2)
+    assert episode_stats._SCRATCH == {}
+    torch.cuda.synchronize()
+    assert float(summarize_episode_logs(logs, 2)["count"]) == float(logs.completed.sum())
+    assert list(episode_stats._SCRATCH) == [logs.completed.device]
 
 
 @pytest.mark.parametrize("E,n", [(1, 4), (257, 2), (4096, 4), (512, 6)])
