@@ -1,4 +1,4 @@
-"""Checkpoints in the JAX package's layout: save, and load for inference.
+"""Checkpoints in the JAX package's layout: save, load, resume and fork.
 
 Same on-disk format as burn_ppo_tpu/checkpoint.py:42-47, 232-316, 373-511,
 so each package loads what the other writes:
@@ -8,6 +8,8 @@ so each package loads what the other writes:
         optimizer.npz      optax chain state leaves: count, mu..., nu...
         obs_norm.npz       (mean, m2, count)   when normalize_obs
         return_norm.npz    (returns, mean, m2, count)
+        generator_state.npz  the port's device generator (``torch.Generator``
+                           state bytes), one leaf
         metadata.json
     <run>/checkpoints/latest -> step_00012345
     <run>/checkpoints/best   -> step_...  (best average return for one
@@ -15,12 +17,17 @@ so each package loads what the other writes:
     <run>/opponent_stats.json, rating_games.jsonl, rating_metadata.json
                                           (the vs-pool path, selfplay/)
 
-Writes are atomic (temp dir + rename, temp symlink + rename). The
-generator state of the port has no JAX form, so no ``rng_state.npz`` is
-written; the JAX loader derives a fresh shuffle key when it is absent.
-``load_model`` and ``load_obs_normalizer`` read a network and its obs
-normalizer for inference; the optimizer state, resume and fork come later
-(ROADMAP A9b).
+Writes are atomic (temp dir + rename, temp symlink + rename). The JAX
+package keeps its two PRNG keys in ``rng_state.npz``, which the port
+neither writes nor reads: its generator state has no JAX form, so it
+lives in a file of its own name, which JAX ignores (and derives a fresh
+shuffle key, train.py:907-911); a port resuming a checkpoint without it
+derives a stream of its own (``train.Trainer``). ``load_model`` and
+``load_obs_normalizer`` read a network and its obs normalizer for
+inference; ``load_params``, ``load_optimizer``, ``load_component`` and
+``load_generator_state`` restore a run for resume and fork, copying into
+the tensors that exist (the trainer's CUDA graphs read them where they
+were captured).
 """
 
 from __future__ import annotations
@@ -40,6 +47,9 @@ from burn_ppo_torch.models.network import ActorCriticNetwork
 from burn_ppo_torch.ppo.normalization import ObsNormState
 
 CHECKPOINT_DIR_PREFIX = "step_"
+# The port's generator state; never ``rng_state.npz``, which JAX loads as
+# two JAX keys (burn_ppo_tpu/train.py:901-904).
+GENERATOR_STATE = "generator_state"
 
 
 def save_leaves(path: Path, leaves: List[Any]) -> None:
@@ -155,16 +165,76 @@ def network_from_metadata(meta: Dict[str, Any], device: str | torch.device = "cp
     ).to(device)
 
 
+def load_metadata(ckpt_dir: str | Path) -> Dict[str, Any]:
+    return json.loads((Path(ckpt_dir) / "metadata.json").read_text())
+
+
+def _fill(dsts: List[torch.Tensor], leaves: List[np.ndarray], what: str) -> None:
+    """Copy ``leaves`` into ``dsts`` in place, after checking that every
+    count and shape agrees (so a mismatch changes nothing)."""
+    if len(leaves) != len(dsts):
+        raise ValueError(f"{what}: {len(leaves)} leaves; the run holds {len(dsts)}")
+    for d, a in zip(dsts, leaves):
+        if tuple(np.shape(a)) != tuple(d.shape):
+            raise ValueError(f"{what}: a leaf of shape {np.shape(a)} for one of {tuple(d.shape)}")
+    with torch.no_grad():
+        for d, a in zip(dsts, leaves):
+            d.copy_(torch.as_tensor(np.asarray(a)))
+
+
+def load_params(ckpt_dir: str | Path, network: torch.nn.Module) -> None:
+    """Fill ``network``'s parameters from ``model.npz`` in place (in
+    ``tree_leaves`` order; the architecture must match)."""
+    template = params_to_jax(network.state_dict())
+    params = tree_fill(template, load_leaves(Path(ckpt_dir) / "model.npz"))
+    network.load_state_dict(params_from_jax(params))
+
+
+def load_optimizer(ckpt_dir: str | Path, opt, network: torch.nn.Module) -> None:
+    """Fill an ``AdamState`` (the count, ``mu`` and ``nu``) from
+    ``optimizer.npz`` in place: the inverse of ``optimizer_leaves``."""
+    template = params_to_jax(network.state_dict())
+    leaves = load_leaves(Path(ckpt_dir) / "optimizer.npz")
+    n = len(tree_leaves(template))
+    if len(leaves) != 1 + 2 * n or np.shape(leaves[0]) != ():
+        raise ValueError(f"{ckpt_dir}/optimizer.npz: {len(leaves)} leaves, not the count and "
+                         f"two moments of {n} parameters")
+    mu = params_from_jax(tree_fill(template, leaves[1:1 + n]))
+    nu = params_from_jax(tree_fill(template, leaves[1 + n:]))
+    names = list(opt.mu)
+    _fill([opt.count_tensor] + [opt.mu[k] for k in names] + [opt.nu[k] for k in names],
+          [leaves[0]] + [mu[k] for k in names] + [nu[k] for k in names], "optimizer.npz")
+
+
+def load_component(ckpt_dir: str | Path, name: str, dsts: List[torch.Tensor]) -> bool:
+    """Fill ``dsts`` from ``<name>.npz`` in place (leaves in the state's
+    field order); False, with nothing changed, when the file is absent
+    (the feature was off when it was saved)."""
+    path = Path(ckpt_dir) / f"{name}.npz"
+    if not path.exists():
+        return False
+    _fill(dsts, load_leaves(path), f"{name}.npz")
+    return True
+
+
+def load_generator_state(ckpt_dir: str | Path) -> Optional[torch.Tensor]:
+    """The saved generator state (a uint8 CPU tensor for
+    ``torch.Generator.set_state``), or None for a checkpoint without one
+    (one that JAX wrote)."""
+    path = Path(ckpt_dir) / f"{GENERATOR_STATE}.npz"
+    if not path.exists():
+        return None
+    (state,) = load_leaves(path)
+    return torch.from_numpy(np.ascontiguousarray(state, dtype=np.uint8))
+
+
 def load_model(ckpt_dir: str | Path, device: str | torch.device = "cpu"):
     """(network, metadata) of a checkpoint written by either package: the
     network rebuilt from ``metadata.json``, its weights filled from
     ``model.npz`` in ``tree_leaves`` order."""
-    ckpt_dir = Path(ckpt_dir)
-    meta = json.loads((ckpt_dir / "metadata.json").read_text())
+    meta = load_metadata(ckpt_dir)
     network = network_from_metadata(meta, device)
-    template = params_to_jax(network.state_dict())
-    params = tree_fill(template, load_leaves(ckpt_dir / "model.npz"))
-    network.load_state_dict(params_from_jax(params))
+    load_params(ckpt_dir, network)
     return network, meta
 
 
@@ -173,20 +243,17 @@ def load_obs_normalizer(ckpt_dir: str | Path,
     """The obs normalizer of a checkpoint, or None when it trained without
     one. The leaves follow ``ObsNormState``'s field order (mean, m2,
     count), not sorted keys."""
-    ckpt_dir = Path(ckpt_dir)
-    meta = json.loads((ckpt_dir / "metadata.json").read_text())
+    meta = load_metadata(ckpt_dir)
     if not meta.get("normalize_obs"):
         return None
-    mean, m2, count = (torch.as_tensor(np.asarray(a, np.float32), device=device)
-                       for a in load_leaves(ckpt_dir / "obs_norm.npz"))
-    D = meta["obs_dim"]
-    if mean.shape != (D,) or m2.shape != (D,) or count.shape != ():
-        raise ValueError(f"{ckpt_dir}/obs_norm.npz does not hold an obs_dim {D} normalizer")
-    return ObsNormState(mean=mean, m2=m2, count=count)
+    state = ObsNormState.create(meta["obs_dim"], torch.device(device))
+    if not load_component(ckpt_dir, "obs_norm", [state.mean, state.m2, state.count]):
+        raise FileNotFoundError(f"{ckpt_dir} trained with normalize_obs but has no obs_norm.npz")
+    return state
 
 
 class CheckpointManager:
-    """Save checkpoints under ``<run_dir>/checkpoints``."""
+    """Save and resolve checkpoints under ``<run_dir>/checkpoints``."""
 
     def __init__(self, run_dir: str | Path):
         self.dir = Path(run_dir) / "checkpoints"
@@ -194,6 +261,17 @@ class CheckpointManager:
 
     def step_dir(self, step: int) -> Path:
         return self.dir / f"{CHECKPOINT_DIR_PREFIX}{step:08d}"
+
+    def resolve(self, which: str = "latest") -> Optional[Path]:
+        """'latest' / 'best' / 'step_NNN' / a step number -> its dir, or
+        None (checkpoint.py:362-370)."""
+        cand = self.dir / str(which)
+        if cand.exists():
+            return cand.resolve()
+        if str(which).isdigit():
+            p = self.step_dir(int(which))
+            return p if p.exists() else None
+        return None
 
     def save(
         self,

@@ -2,11 +2,14 @@
 
 The parser and the override collection are copies of
 burn_ppo_tpu/cli.py:31-231, so the flags, the subcommands and the TOML
-grammar are the same as the JAX CLI's. The port trains on CUDA. Flags for
-what the port does not have yet are refused with an error naming the
+grammar are the same as the JAX CLI's, and so are ``--resume`` and
+``--fork`` (burn_ppo_tpu/cli.py:300-356). The port trains on CUDA. Flags
+for what the port does not have yet are refused with an error naming the
 ROADMAP item, never ignored.
 
     python -m burn_ppo_torch train --config configs/cartpole.toml
+    python -m burn_ppo_torch train --resume runs/<name> --total-steps N
+    python -m burn_ppo_torch train --fork runs/<name>/checkpoints/step_X [overrides]
 """
 
 from __future__ import annotations
@@ -229,8 +232,6 @@ def refused_flags(args) -> List[str]:
     flag or from the TOML, are refused by ``train.unsupported_config``."""
     refused = []
     checks = (
-        (args.resume, "--resume (ROADMAP A9: checkpoint load and resume)"),
-        (args.fork, "--fork (ROADMAP A9: checkpoint load and fork)"),
         (args.multihost, "--multihost (ROADMAP A16)"),
         (args.profile_dir is not None or args.profile_phases
          or args.profile_start != 1 or args.profile_updates != 2,
@@ -248,6 +249,50 @@ def refused_flags(args) -> List[str]:
     return refused
 
 
+def _train_config(args, runs_base: Path):
+    """(config, run dir, Trainer keywords) of a fresh run, a ``--resume``
+    or a ``--fork`` (burn_ppo_tpu/cli.py:300-356); an int is the exit
+    code of a refusal, its error printed."""
+    overrides = collect_overrides(args)
+    if args.resume:
+        run_dir = Path(args.resume)
+        if not (run_dir / "config.toml").exists():
+            print(f"error: no config.toml in {run_dir}", file=sys.stderr)
+            return 1
+        try:
+            cfg = Config.load(run_dir / "config.toml").apply_overrides(overrides, resume=True)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        latest = run_dir / "checkpoints" / "latest"
+        if not latest.exists():
+            print(f"error: no checkpoints/latest in {run_dir}", file=sys.stderr)
+            return 1
+        return cfg, run_dir, {"resume_from": latest.resolve()}
+    if args.fork:
+        ckpt = Path(args.fork)
+        if not (ckpt / "metadata.json").exists():
+            print(f"error: {ckpt} is not a checkpoint directory", file=sys.stderr)
+            return 1
+        parent_run = ckpt.resolve().parent.parent  # runs/<name>/checkpoints/step_X
+        parent_cfg = parent_run / "config.toml"
+        cfg = Config.load(parent_cfg if parent_cfg.exists() else args.config)
+        cfg = cfg.apply_overrides(overrides)
+        cfg.forked_from = parent_run.name
+        cfg.run_name = args.run_name or generate_run_name(runs_base, cfg.env,
+                                                          parent=parent_run.name)
+        run_dir = Path(args.run_dir) if args.run_dir else runs_base / cfg.run_name
+        return cfg, run_dir, {"resume_from": ckpt.resolve(), "forked_from_run": parent_run.name}
+    cfg = Config.load(args.config).apply_overrides(overrides)
+    cfg.run_name = args.run_name or cfg.run_name or generate_run_name(runs_base, cfg.env)
+    run_dir = Path(args.run_dir) if args.run_dir else runs_base / cfg.run_name
+    if (run_dir / "checkpoints" / "latest").exists():
+        print(f"error: run dir {run_dir} already has checkpoints; use --resume or --fork",
+              file=sys.stderr)
+        return 1
+    return cfg, run_dir, {}
+
+
 def run_train(args, device: str = "cuda") -> int:
     from burn_ppo_torch.train import Trainer, unsupported_config
 
@@ -256,21 +301,17 @@ def run_train(args, device: str = "cuda") -> int:
         print("error: not supported by burn_ppo_torch yet: " + "; ".join(refused),
               file=sys.stderr)
         return 2
-    cfg = Config.load(args.config).apply_overrides(collect_overrides(args))
+    setup = _train_config(args, Path(args.runs_base))
+    if isinstance(setup, int):
+        return setup
+    cfg, run_dir, resume = setup
     reason = unsupported_config(cfg)
     if reason is not None:
-        print(f"error: config {args.config} is not supported by burn_ppo_torch yet: {reason}",
+        source = args.resume or args.fork or args.config
+        print(f"error: config {source} is not supported by burn_ppo_torch yet: {reason}",
               file=sys.stderr)
         return 2
-    runs_base = Path(args.runs_base)
-    run_name = args.run_name or cfg.run_name or generate_run_name(runs_base, cfg.env)
-    cfg.run_name = run_name
-    run_dir = Path(args.run_dir) if args.run_dir else runs_base / run_name
-    if (run_dir / "checkpoints" / "latest").exists():
-        print(f"error: run dir {run_dir} already has checkpoints (resume is "
-              "not ported yet, ROADMAP A9)", file=sys.stderr)
-        return 1
-    trainer = Trainer(cfg, run_dir, device=device, quiet=args.quiet)
+    trainer = Trainer(cfg, run_dir, device=device, quiet=args.quiet, **resume)
     summary = trainer.train()
     if not args.quiet:
         print(

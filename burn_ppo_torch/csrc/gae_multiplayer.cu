@@ -61,6 +61,8 @@
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 constexpr int MAX_PLAYERS = 8;
@@ -78,26 +80,6 @@ struct Stage {
   static constexpr int ACTING = DONES + CHUNK * ENVS;
   static constexpr int FLOATS = ACTING + CHUNK * ENVS;
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <bool VEC>
-__device__ __forceinline__ void copy_unit(float* dst, const void* src) {
-  if constexpr (VEC) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The block's copies of steps [t0, t0 + n) of envs [e0, e0 + nb) into a
 // stage, in units of W floats spread over all its threads: a step's
@@ -274,8 +256,6 @@ cudaError_t launch(const void* all_rewards, const void* values, const void* done
       static_cast<float*>(returns), T, E, gamma, gamma_lambda);
   return cudaGetLastError();
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<unsigned long>(p) % 16 == 0; }
 
 }  // namespace
 

@@ -16,16 +16,22 @@ the empty-minibatch skip decided on the device
 (``ppo/update_graph.py``); on the CPU both run eagerly on the same static
 buffers.
 
-The ``Trainer`` supports fresh single-player runs, pure self-play, and
+The ``Trainer`` supports single-player runs, pure self-play, and
 self-play against the opponent pool (``opponent_pool_fraction > 0``,
 the MLP or CTDE, one opponent rotation per update), on CartPole, Connect
 Four, Liar's Dice and Skull (a fixed player count, ``player_count``; the
 scheduled ``reward_shaping_coef`` is written into the env states before
 every rollout): the pool and the rating
-history start with the run, every update samples a rotation and folds
+history start with the run (or, on a resume, continue from its run dir's
+files), every update samples a rotation and folds
 its game records into the win rates and the rating log, and every
 checkpoint joins the pool, recomputes the Plackett-Luce ratings and moves
-the rating-driven ``best`` link. Everything else raises
+the rating-driven ``best`` link. Each of these runs fresh, resumed or
+forked from a checkpoint (``resume_from``): the model, the optimizer,
+both normalizers, the counters and the device generator are restored;
+the env states are not (nor are they in the JAX package), so a resumed
+run is deterministic, two resumes of one checkpoint equal bit for bit,
+but not the uninterrupted run. Everything else raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -42,9 +48,15 @@ import numpy as np
 import torch
 
 from burn_ppo_torch.checkpoint import (
+    GENERATOR_STATE,
     CheckpointManager,
     _atomic_symlink,
     build_metadata,
+    load_component,
+    load_generator_state,
+    load_metadata,
+    load_optimizer,
+    load_params,
     model_leaves,
     optimizer_leaves,
 )
@@ -268,15 +280,25 @@ def validate_config(cfg: Config) -> None:
                          f"not '{cfg.env}'")
 
 
+# The high word that sets a resumed run's generator seed apart from a fresh
+# run's where the checkpoint holds no generator state (JAX folds the same
+# constant into its carry key, train.py:907-911).
+RESUME_STREAM = 0x5EED << 32
+
+
 class Trainer:
-    """Owns the device state and the host bookkeeping of one fresh training
-    run: single-player, pure self-play, or self-play against the pool.
+    """Owns the device state and the host bookkeeping of one training run:
+    single-player, pure self-play, or self-play against the pool; fresh,
+    or resumed or forked from a checkpoint (``resume_from``, a step dir;
+    ``forked_from_run``, the parent run's name, recorded in every
+    checkpoint's metadata).
 
     ``device`` defaults to ``"cuda"``; the CPU tests pass ``"cpu"``, where
     every kernel wrapper runs its plain PyTorch version."""
 
     def __init__(self, cfg: Config, run_dir: str | Path, *, device: str = "cuda",
-                 quiet: bool = False):
+                 quiet: bool = False, resume_from: Optional[str | Path] = None,
+                 forked_from_run: Optional[str] = None):
         validate_config(cfg)
         self.cfg = cfg
         self.run_dir = Path(run_dir)
@@ -344,12 +366,64 @@ class Trainer:
                 f"epoch shuffle: tiled, {block} rows/tile ({n} samples/update; "
                 "set shuffle_block_rows = 1 for exact per-sample shuffling)"
             )
+        self.forked_from = forked_from_run or cfg.forked_from
+        # After the fresh carry and the seating have drawn from the
+        # generator (JAX replaces the carry key after init_rollout_carry),
+        # before any graph is captured.
+        if resume_from is not None:
+            self._restore(Path(resume_from))
+
+    def _restore(self, ckpt_dir: Path) -> None:
+        """Resume or fork (train.py:865-919): the model, the optimizer, both
+        normalizers, the counters and the device generator. Every tensor is
+        loaded into the buffer the fresh state made: the rollout and update
+        graphs read them where they are captured, and the runners refuse
+        parameters that moved."""
+        meta = load_metadata(ckpt_dir)
+        state = self.state
+        load_params(ckpt_dir, state.network)
+        load_optimizer(ckpt_dir, state.opt_state, state.network)
+        on = state.obs_norm
+        if on is not None and not load_component(ckpt_dir, "obs_norm", [on.mean, on.m2, on.count]):
+            # A fork that turns obs normalization on from a run without it.
+            if not self.quiet:
+                print(f"warning: {ckpt_dir} has no obs_norm.npz; normalize_obs starts from "
+                      "fresh statistics")
+        rn = state.carry.return_norm  # its finalize scratch stays
+        load_component(ckpt_dir, "return_norm", [rn.returns, rn.mean, rn.m2, rn.count])
+        saved = load_generator_state(ckpt_dir)
+        if saved is not None and saved.numel() == self.generator.get_state().numel():
+            self.generator.set_state(saved)
+        else:
+            # A checkpoint JAX wrote (no generator state), or one from
+            # another device type's generator: a stream distinct from the
+            # fresh run's.
+            self.generator.manual_seed((self.seed + 1) ^ RESUME_STREAM)
+        self.global_step = int(meta["step"])
+        if meta.get("best_avg_return") is not None:
+            self.best_avg_return = float(meta["best_avg_return"])
+        recent = meta.get("recent_returns", [])
+        if recent:
+            # Display only: avg_return stays continuous across the resume.
+            self.tracker.seed(float(np.mean(recent)), len(recent))
+
+    def checkpoint_leaves(self) -> Dict[str, Optional[list]]:
+        """What a checkpoint holds, file by file (``<name>.npz``), in the
+        saved layout; None for a feature that is off."""
+        state = self.state
+        on, rn = state.obs_norm, state.carry.return_norm
+        return {
+            "model": model_leaves(state.network),
+            "optimizer": optimizer_leaves(state.opt_state),
+            "obs_norm": None if on is None else [on.mean, on.m2, on.count],
+            "return_norm": [rn.returns, rn.mean, rn.m2, rn.count],
+            GENERATOR_STATE: [self.generator.get_state()],
+        }
 
     # ------------------------------------------------------------------
     def save_checkpoint(self) -> Path:
         state = self.state
         tr = self.tracker
-        rn = state.carry.return_norm
         exploitability = None
         if self.pool is not None:
             perf = self.pool.get_pool_performance(self._best_ckpt_name())
@@ -361,22 +435,18 @@ class Trainer:
             num_players=self.num_players,
             avg_return=tr.avg_return,
             best_avg_return=None if self.best_avg_return == float("-inf") else self.best_avg_return,
-            recent_returns=[tr.avg_return] * min(100, int(tr.window_count)),
+            # The windowed average, repeated for its episode count; before
+            # any episode of a resumed run ends, the resume seed's count
+            # (train.py:979-983).
+            recent_returns=[tr.avg_return] * min(100, int(tr.window_count) or tr.seed_count),
+            forked_from=self.forked_from,
             rng_seed=self.seed,
             normalize_obs=self.cfg.normalize_obs,
             exploitability_vs_pool=exploitability,
         )
-        on = state.obs_norm
-        path = self.ckpt.save(
-            self.global_step,
-            model_leaves(state.network),
-            optimizer_leaves(state.opt_state),
-            {
-                "obs_norm": None if on is None else [on.mean, on.m2, on.count],
-                "return_norm": [rn.returns, rn.mean, rn.m2, rn.count],
-            },
-            meta,
-        )
+        leaves = self.checkpoint_leaves()
+        path = self.ckpt.save(self.global_step, leaves.pop("model"), leaves.pop("optimizer"),
+                              leaves, meta)
         # Single-player best follows the average return (train.py:994-998);
         # the multiplayer best is rating-driven (vs-pool runs only).
         if self.num_players == 1 and tr.avg_return > self.best_avg_return:

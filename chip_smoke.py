@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K5, K10, train phases 3, 3d and train steps in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K3, K5, K10, train phases 3, 3d and train steps in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -13,7 +13,9 @@ exits non-zero without the final result line:
      with and without the return normaliser's roll folded in; failures,
      timeouts and continuing envs each required; timed with the roll), K2
      sample ([4096, 2] all legal; [4096, 7] with 0-6 masked columns), K3
-     GAE [128, 4096], K4 Connect Four step (E = 4096, the packed state,
+     GAE ([128, 4096]; [128, 32], configs/cartpole.toml's; [100, 4097], a
+     partial chunk and block on the 4-byte path), K4 Connect Four step
+     (E = 4096, the packed state,
      exact, wins in all four directions, draws, invalid, out-of-range
      and already-done moves each counted and required), K5
      multiplayer GAE ([64, 4096, 2] and P = 4), K6 obs-norm apply
@@ -52,13 +54,14 @@ exits non-zero without the final result line:
      P = 4;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
-     K4, K5, K6, K9, K10 and K13 print their ptxas lines (registers,
+     K3, K4, K5, K6, K9, K10 and K13 print their ptxas lines (registers,
      stack frame, spills); K10 gives the same bits on two calls and on two
      replays of a captured graph, and is timed beside an empty kernel's
      launch (the floor); with --parent, when DIR's kernel sources differ
-     from this tree's, the parent commit's K5 (at [64, 4096, 2], [64,
-     4096, 4] and [128, 4096, 4], equal bit for bit) and K10 (at every
-     shape above, to the plain version's tolerances), built from DIR,
+     from this tree's, the parent commit's K3 (at its three shapes, equal
+     bit for bit), K5 (at [64, 4096, 2], [64, 4096, 4] and [128, 4096, 4],
+     equal bit for bit) and K10 (at every shape above, to the plain
+     version's tolerances), built from DIR,
      checked and timed in turns with this tree's (parent, new, new,
      parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
@@ -144,6 +147,18 @@ exits non-zero without the final result line:
      profiled update's own span); in one profiled replay of each
      update's rollout graph, each rollout kernel's device launches,
      counted by name, equal to those the graph captured;
+  3j. resume and fork through the CLI, each leg a process of its own:
+     CartPole at the bench shape (obs and return norm on), Liar's Dice
+     CTDE against the pool (configs/liars_dice_ctde.toml, 4096 envs) and a
+     --fork of the CartPole run (a new learning rate): 2 updates with a
+     checkpoint after each; then at once, each in its own process, the
+     checkpoint loaded by a resumed Trainer (every restored leaf, the
+     generator state included, equal to the saved one) and two resumes
+     of 2 updates from copies of the run dir, whose last checkpoints
+     must be equal bit for bit; every leg's rollouts and updates graph
+     replays, counted as in the train phases; the vs-pool case's pool
+     stats and rating files carry the first leg's checkpoints; the fork
+     records forked_from in every checkpoint;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps.
 
@@ -175,6 +190,7 @@ import time
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -510,14 +526,14 @@ def turns(new, other, who: str = "parent") -> dict:
 
 
 class ParentKernels:
-    """The parent commit's (84d39a1) K5 and K10, built from a checkout of
-    it into a library of their own and called as its wrappers called them
-    (the argument checks and the allocations: K5's outputs per call; K10's
-    two launches, its grid of min(132, ceil(T x L / 1024)) blocks, its
-    sums, extrema and output made per call), so that they are timed beside
-    the new kernels in the same process."""
+    """The parent commit's (cc5c46c) K3, K5 and K10, built from a checkout
+    of it into a library of their own and called as its wrappers called
+    them (the argument checks and the allocations: K3's and K5's outputs
+    per call; K10's one launch with its scratch, made once, and its output
+    per call), so that they are timed beside the new kernels in the same
+    process."""
 
-    SOURCES = ("gae_multiplayer.cu", "episode_stats.cu")
+    SOURCES = ("gae.cu", "gae_multiplayer.cu", "episode_stats.cu")
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
@@ -531,11 +547,26 @@ class ParentKernels:
         self.ptxas = ptxas_summary(res.stdout + res.stderr)
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
-        for name, argtypes in (("gae_multiplayer_reverse_scan", [vp] * 7 + [i] * 3 + [f] * 2
+        for name, argtypes in (("gae_reverse_scan", [vp] * 6 + [i, i, f, f, vp]),
+                               ("gae_multiplayer_reverse_scan", [vp] * 7 + [i] * 3 + [f] * 2
                                 + [vp]),
-                               ("episode_stats", [vp] * 4 + [i] * 5 + [vp] * 4)):
+                               ("episode_stats", [vp] * 4 + [i] * 4 + [vp, i, vp, vp]),
+                               ("episode_stats_scratch_len", [])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        self.scratch = None  # K10's, made at its first call, as the parent made it
+
+    def gae(self, rewards, values, dones, last_values, gamma: float, gae_lambda: float):
+        T, E = values.shape
+        for name, t, shape in (("rewards", rewards, (T, E)), ("values", values, (T, E)),
+                               ("dones", dones, (T, E)), ("last_values", last_values, (E,))):
+            kernels.expect(t, name, torch.float32, shape)
+        advantages, returns = torch.empty_like(values), torch.empty_like(values)
+        p = kernels.ptr
+        kernels.check(self.lib.gae_reverse_scan(
+            p(rewards), p(values), p(dones), p(last_values), p(advantages), p(returns), T, E,
+            float(gamma), float(gamma * gae_lambda), kernels.stream(values.device)), "parent K3")
+        return advantages, returns
 
     def gae_multiplayer(self, all_rewards, values, dones, acting, last_vpp, gamma: float,
                         gae_lambda: float):
@@ -564,14 +595,16 @@ class ParentKernels:
         kernels.expect(logs.length, "length", torch.int32, (T, E))
         kernels.expect(logs.outcome, "outcome", torch.int32, (T, E, P))
         dev = logs.completed.device
-        G = max(1, min(132, -(-T * L // 1024)))
-        sums = torch.empty(G, 3 + 2 * P, dtype=torch.float64, device=dev)
-        extrema = torch.empty(G, 2, dtype=torch.float32, device=dev)
+        if self.scratch is None:
+            with torch.cuda.device(dev):
+                n = self.lib.episode_stats_scratch_len()
+            self.scratch = torch.zeros(n, dtype=torch.float64, device=dev)
         out = torch.empty(5 + 2 * P, dtype=torch.float32, device=dev)
         p = kernels.ptr
         kernels.check(self.lib.episode_stats(
             p(logs.completed), p(logs.total_rewards), p(logs.length), p(logs.outcome),
-            T, E, L, P, G, p(sums), p(extrema), p(out), kernels.stream(dev)), "parent K10")
+            T, E, L, P, p(self.scratch), self.scratch.numel(), p(out), kernels.stream(dev)),
+            "parent K10")
         return {
             "count": out[0], "ret_sum": out[1:1 + P], "ret0_max": out[P + 1],
             "ret0_min": out[P + 2], "len_sum": out[P + 3], "pts_sum": out[P + 4:2 * P + 4],
@@ -748,24 +781,50 @@ def check_sample(dev, g, A: int, mask=None) -> dict:
     return out
 
 
-def check_gae(dev, g) -> dict:
-    r = torch.randn(T, E, generator=g, device=dev)
-    v = torch.randn(T, E, generator=g, device=dev)
-    d = (torch.rand(T, E, generator=g, device=dev) < 0.02).float()
-    last = torch.randn(E, generator=g, device=dev)
-    adv_k, ret_k = compute_gae(r, v, d, last, 0.99, 0.95)
-    adv_p, ret_p = compute_gae_plain(r, v, d, last, 0.99, 0.95)
-    torch.cuda.synchronize()
-    err = max_err([(adv_k, adv_p), (ret_k, ret_p)])
-    if not err <= 1e-5:
-        raise AssertionError(f"gae_reverse_scan: max abs err {err} > 1e-5")
-    return {
-        "max_abs_err": err, "tol": 1e-5,
-        **timed(lambda: compute_gae(r, v, d, last, 0.99, 0.95),
-                lambda: compute_gae_plain(r, v, d, last, 0.99, 0.95)),
-        "library_ms": None,
-        **bound(nbytes(r, v, d, last, adv_k, ret_k), 8.0 * T * E),
-    }
+# K3's shapes: the bench shape, configs/cartpole.toml's (one block), and
+# a partial 64-step chunk with a partial 32-env block on the 4-byte path.
+GAE_SHAPES = ((T, E), (T, 32), (100, E + 1))
+
+
+def check_gae(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
+    """K3 at ``GAE_SHAPES``: to 1e-5 of the plain version. With ``parent``,
+    the parent commit's K3 on the same inputs, equal bit for bit, and
+    timed in turns."""
+    out = {"tol": 1e-5, "ptxas": kernel_ptxas(ptxas, "gae_reverse_scan_staged")}
+    for steps, envs in GAE_SHAPES:
+        r = torch.randn(steps, envs, generator=g, device=dev)
+        v = torch.randn(steps, envs, generator=g, device=dev)
+        d = (torch.rand(steps, envs, generator=g, device=dev) < 0.02).float()
+        last = torch.randn(envs, generator=g, device=dev)
+        args = (r, v, d, last, 0.99, 0.95)
+        adv_k, ret_k = compute_gae(*args)
+        adv_p, ret_p = compute_gae_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err([(adv_k, adv_p), (ret_k, ret_p)])
+        name = f"T{steps}_E{envs}"
+        if not err <= 1e-5:
+            raise AssertionError(f"gae_reverse_scan {name}: max abs err {err} > 1e-5")
+
+        def new(args=args):
+            return compute_gae(*args)
+
+        out[name] = {
+            "max_abs_err": err,
+            **timed(new, lambda: compute_gae_plain(*args)),
+            "library_ms": None,
+            **bound(nbytes(r, v, d, last, adv_k, ret_k), 8.0 * steps * envs),
+        }
+        if parent is not None:
+            adv_o, ret_o = parent.gae(*args)
+            if not (torch.equal(adv_k, adv_o) and torch.equal(ret_k, ret_o)):
+                raise AssertionError(f"gae_reverse_scan {name}: differs from the parent's, "
+                                     f"max abs {max_err([(adv_k, adv_o), (ret_k, ret_o)])}")
+            out[name].update(parent_equal_bit_for_bit=True,
+                             **turns(new, lambda args=args: parent.gae(*args)))
+    bench = out[f"T{T}_E{E}"]
+    out.update(max_abs_err=max(out[f"T{t}_E{e}"]["max_abs_err"] for t, e in GAE_SHAPES),
+               **{k: bench[k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
+    return out
 
 
 def win_directions(plane: torch.Tensor) -> torch.Tensor:
@@ -2155,7 +2214,7 @@ UPDATE_KERNELS = {
     "clip_adam": "clip_adam_kernel",
     "obs_norm_apply": "obs_norm_apply_kernel",
     "obs_norm_update": "obs_norm_merge_kernel",
-    "gae_reverse_scan": "gae_reverse_scan_kernel",
+    "gae_reverse_scan": "gae_reverse_scan_staged_kernel",
     "gae_multiplayer_reverse_scan": "gae_multiplayer_staged_kernel",
     "episode_stats": "episode_stats_kernel",
 }
@@ -2403,10 +2462,15 @@ def scalars(run: Path) -> dict:
 
 
 def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
-                expect: dict, card_line: str, checkpoint_freq: int = 10**12) -> tuple:
+                expect: dict, card_line: str, checkpoint_freq: int = 10**12, done: int = 0,
+                resume: bool = False) -> tuple:
     """One training run through the CLI, with every launch counter at 0
     just before it and read just after; checks the counts against
     ``expect`` (kernels not named there: 0) and the losses for finiteness.
+    ``done`` updates were trained before (a fork's source, or with
+    ``resume`` the run in ``run``, which is then resumed: ``args`` unused,
+    the series read from the values this run logs after those already in
+    its ``metrics.jsonl``).
     Every update is two graph replays, the rollout's and the update's
     (one capture each per runner), and launches K10 once, and K8 and K9
     once per minibatch graph replayed (every minibatch without
@@ -2421,9 +2485,11 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
     RolloutGraph.reset_counts()
     UpdateGraph.reset_counts()
     t0 = time.time()
-    rc = cli.main(["train", *args, "--total-steps", str(updates * steps_per_update),
-                   "--checkpoint-freq", str(checkpoint_freq), "--seed", "0",
-                   "--run-dir", str(run), "--quiet"])
+    logged = {k: len(v) for k, v in scalars(run).items()} if resume else {}
+    total = str((done + updates) * steps_per_update)
+    rc = cli.main(["train", "--resume", str(run), "--total-steps", total, "--quiet"] if resume
+                  else ["train", *args, "--total-steps", total, "--checkpoint-freq",
+                        str(checkpoint_freq), "--seed", "0", "--run-dir", str(run), "--quiet"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     eager = {name: w.launches for name, w in WRAPPERS.items()}
@@ -2445,7 +2511,7 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
         raise AssertionError(f"graph captures (rollout, update) {captures}: one each per runner")
     if eager != warmup:
         raise AssertionError(f"eager launches {eager} beyond the warm-ups {warmup}")
-    series = scalars(run)
+    series = {k: v[logged.get(k, 0):] for k, v in scalars(run).items()}
     for name in ("train/policy_loss", "train/value_loss", "train/total_loss", "train/entropy",
                  "train/minibatch_updates"):
         vals = series.get(name, [])
@@ -2695,6 +2761,210 @@ def four_player_pool_train(tmp: Path, card_line: str, name: str, args: list, ste
     return out
 
 
+RESUME_UPDATES = 2  # each leg of the resume phase
+RESUME_LEG = """
+import json, sys
+from pathlib import Path
+sys.path.insert(0, ".")
+import chip_smoke
+print(json.dumps(chip_smoke.{}))
+"""
+
+
+def in_processes(calls: list) -> list:
+    """``chip_smoke.<call>`` (each a call's source text) in processes of
+    their own, all at once: their JSON results, in order."""
+    procs = [subprocess.Popen([sys.executable, "-c", RESUME_LEG.format(c)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in calls]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, (out, err) in zip(calls, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{c} exited {p.returncode}:\n{err[-4000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def resume_case(name: str) -> tuple:
+    """(first leg's CLI flags, env steps an update, expected launches of a
+    leg of ``n`` updates of which ``pool`` ran against the pool) of a case
+    of the resume phase: CartPole at the bench shape (obs and return
+    norm on), Liar's Dice CTDE against the pool (liars_dice_ctde.toml)."""
+    if name == "cartpole":
+        return (["--config", str(ROOT / "configs" / "cartpole.toml"), "--num-envs", str(E),
+                 "--num-steps", str(T)], E * T,
+                lambda n, pool: {"cartpole_step_autoreset": n * T, "masked_gumbel_sample": n * T,
+                                 "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2),
+                                 "obs_norm_update": n, "return_norm_finalize": n})
+    return (["--config", str(ROOT / "configs" / "liars_dice_ctde.toml"), "--num-envs", str(E)],
+            E * T_LD,
+            lambda n, pool: {"liars_dice_step_autoreset": n * T_LD,
+                             "masked_gumbel_sample": (n + pool) * T_LD,
+                             "opponent_actor_forward": pool * T_LD,
+                             "gae_multiplayer_reverse_scan": n})
+
+
+def resume_leg(case: str, run: str, done: int, mode: str, fork_from: str = "") -> dict:
+    """One leg of the resume phase in this process, through the CLI: a
+    fresh run (``mode`` "fresh"), a ``--fork`` of ``fork_from`` with a new
+    learning rate ("fork"), or a ``--resume`` of ``run`` ("resume"), each
+    ``RESUME_UPDATES`` updates with a checkpoint after each; the launch
+    counts checked as in every train phase (every rollout and update a
+    graph replay). The first update of a fresh vs-pool run has an empty
+    pool; every later one runs against it."""
+    args, spu, expect = resume_case(case)
+    n = RESUME_UPDATES
+    pool = 0 if case == "cartpole" else n - 1 if mode == "fresh" else n
+    if mode == "fork":
+        args = ["--fork", fork_from, "--learning-rate", "0.0005", "--runs-base",
+                str(Path(run).parent)]
+    out, _ = train_phase(Path(run), args, n, spu, expect(n, pool), card(), checkpoint_freq=spu,
+                         done=done, resume=mode == "resume")
+    meta = json.loads((Path(run) / "checkpoints" / "latest" / "metadata.json").read_text())
+    if meta["step"] != (done + n) * spu:
+        raise AssertionError(f"{case} {mode}: the last checkpoint is at step {meta['step']}, "
+                             f"not {(done + n) * spu}")
+    return {k: out[k] for k in ("wall_s", "graph_replays", "graph_captures", "minibatches_run")} | {
+        "launches": {k: v for k, v in out["launches"].items() if v},
+        "forked_from": meta["forked_from"]}
+
+
+def leaf_bytes(x) -> tuple:
+    a = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+def restored_leaves(run: str) -> dict:
+    """A ``Trainer`` resumed from ``run``'s latest checkpoint in this
+    process: every leaf it restored (parameters, moments, the Adam count,
+    obs-norm and return-norm state, the generator state) equal to the
+    saved one, bit for bit."""
+    from burn_ppo_torch.checkpoint import load_leaves
+
+    ckpt = (Path(run) / "checkpoints" / "latest").resolve()
+    t = Trainer(Config.load(Path(run) / "config.toml"), run, quiet=True, resume_from=ckpt)
+    live = {k: v for k, v in t.checkpoint_leaves().items() if v is not None}
+    files = {f.stem: load_leaves(f) for f in ckpt.glob("*.npz")}
+    if set(live) != set(files):
+        raise AssertionError(f"{ckpt}: the trainer holds {sorted(live)}, the files {sorted(files)}")
+    for k in live:
+        if len(live[k]) != len(files[k]) or any(
+                leaf_bytes(a) != leaf_bytes(b) for a, b in zip(live[k], files[k])):
+            raise AssertionError(f"{ckpt}/{k}.npz: a restored leaf differs from the saved one")
+    meta = json.loads((ckpt / "metadata.json").read_text())
+    if t.global_step != meta["step"]:
+        raise AssertionError(f"{ckpt}: global step {t.global_step}, saved {meta['step']}")
+    return {"checkpoint": ckpt.name, "leaves": {k: len(v) for k, v in live.items()},
+            "values": sum(int(np.prod(leaf_bytes(x)[1])) for v in live.values() for x in v),
+            "generator_state_bytes": int(t.generator.get_state().numel())}
+
+
+def equal_checkpoints(a: Path, b: Path) -> list:
+    """The files of two runs' latest checkpoints, each leaf equal bit for
+    bit; raises on the first that differs."""
+    from burn_ppo_torch.checkpoint import load_leaves
+
+    ca, cb = (r / "checkpoints" / "latest" for r in (a, b))
+    names = sorted(f.name for f in ca.glob("*.npz"))
+    if names != sorted(f.name for f in cb.glob("*.npz")):
+        raise AssertionError(f"{ca} and {cb} hold other files")
+    for f in names:
+        la, lb = load_leaves(ca / f), load_leaves(cb / f)
+        if len(la) != len(lb) or any(leaf_bytes(x) != leaf_bytes(y) for x, y in zip(la, lb)):
+            raise AssertionError(f"two resumes differ in {f}: {ca} and {cb}")
+    return names
+
+
+def pool_carried(first: Path, resumed: Path) -> dict:
+    """The first leg's checkpoints in the resumed run's pool stats (games
+    no fewer) and rating files (its games a prefix of the log, its
+    checkpoints rated)."""
+    before = {s["name"]: s for s in json.loads((first / "opponent_stats.json").read_text())[
+        "opponents"]}
+    after = {s["name"]: s for s in json.loads((resumed / "opponent_stats.json").read_text())[
+        "opponents"]}
+    games = (first / "rating_games.jsonl").read_text().splitlines()
+    resumed_games = (resumed / "rating_games.jsonl").read_text().splitlines()
+    rated = json.loads((resumed / "rating_metadata.json").read_text())
+    if not before or not set(before) < set(after) or any(
+            after[k]["games_played"] < before[k]["games_played"] for k in before):
+        raise AssertionError(f"the pool stats lost the first leg's checkpoints: {sorted(before)} "
+                             f"-> {sorted(after)}")
+    if resumed_games[:len(games)] != games or len(resumed_games) <= len(games):
+        raise AssertionError("the rating log does not continue the first leg's")
+    steps = rated["checkpoint_steps"]
+    if not set(before) <= set(steps) or rated["first_checkpoint"] != min(before):
+        raise AssertionError(f"the rating metadata lost the first leg's checkpoints: {rated}")
+    return {"pool_before": sorted(before), "pool_after": sorted(after),
+            "rating_games_before": len(games), "rating_games_after": len(resumed_games),
+            "rated_checkpoints": sorted(steps), "current_checkpoint": rated["current_checkpoint"]}
+
+
+def resume_phase(tmp: Path, card_line: str) -> dict:
+    """Phase ``resume``: for CartPole at the bench shape, Liar's Dice CTDE
+    against the pool, and a ``--fork`` of the CartPole run (a new learning
+    rate): a leg of 2 updates with a checkpoint after each, then in
+    processes of their own, at once, the checkpoint loaded (every restored
+    leaf the saved one) and two resumes of 2 updates from copies of the
+    run dir, whose last checkpoints must be equal bit for bit; each leg's
+    rollouts and updates graph replays; on the vs-pool case the pool stats
+    and rating files carried over; the fork's lineage in its metadata."""
+    import shutil
+
+    t0 = time.time()
+    out: dict = {"card": card_line, "updates_a_leg": RESUME_UPDATES}
+    legs = {"cartpole": tmp / "cartpole", "liars_dice_ctde_pool": tmp / "liars_dice"}
+    first = in_processes([f"resume_leg({c!r}, {str(r)!r}, 0, 'fresh')" for c, r in legs.items()])
+    fork = tmp / "cartpole_fork"
+    cases = [(c, r, 0, leg) for (c, r), leg in zip(legs.items(), first)]
+    copies = {}
+    for case, run, _, _ in cases:
+        copies[run] = [run.with_name(f"{run.name}_{tag}") for tag in ("load", "r1", "r2")]
+        for dst in copies[run]:
+            shutil.copytree(run, dst, symlinks=True)
+    # The two cases' loads and resumes, and the fork's first leg, at once.
+    calls = [c for case, run, done, _ in cases for c in (
+        f"restored_leaves({str(copies[run][0])!r})",
+        *(f"resume_leg({case!r}, {str(r)!r}, {RESUME_UPDATES}, 'resume')"
+          for r in copies[run][1:]))]
+    src = str((legs["cartpole"] / "checkpoints" / "latest").resolve())
+    calls.append(f"resume_leg('cartpole', {str(fork)!r}, {RESUME_UPDATES}, 'fork', {src!r})")
+    results = in_processes(calls)
+    fork_leg = results.pop()
+    if fork_leg["forked_from"] != "cartpole":
+        raise AssertionError(f"the fork's metadata records forked_from {fork_leg['forked_from']!r}")
+    copies[fork] = [fork.with_name(f"{fork.name}_{tag}") for tag in ("load", "r1", "r2")]
+    for dst in copies[fork]:
+        shutil.copytree(fork, dst, symlinks=True)
+    results += in_processes([f"restored_leaves({str(copies[fork][0])!r})",
+                             *(f"resume_leg('cartpole', {str(r)!r}, {2 * RESUME_UPDATES}, "
+                               "'resume')" for r in copies[fork][1:])])
+    cases.append(("cartpole_fork", fork, RESUME_UPDATES, fork_leg))
+    for i, (case, run, _, leg) in enumerate(cases):
+        restored, r1, r2 = results[3 * i:3 * i + 3]
+        res = {"first_leg": leg, "restored": restored, "resumes": [r1, r2],
+               "equal_files": equal_checkpoints(copies[run][1], copies[run][2])}
+        if r1["launches"] != r2["launches"]:
+            raise AssertionError(f"{case}: the two resumes launched {r1['launches']} and "
+                                 f"{r2['launches']}")
+        if case == "liars_dice_ctde_pool":
+            res["pool"] = pool_carried(run, copies[run][1])
+        if case == "cartpole_fork":
+            for r in (fork, *copies[fork][1:]):
+                meta = json.loads((r / "checkpoints" / "latest" / "metadata.json").read_text())
+                if meta["forked_from"] != "cartpole":
+                    raise AssertionError(f"{r}: forked_from {meta['forked_from']!r}")
+            res["forked_from"] = "cartpole"
+        out[case] = res
+    out["seconds"] = time.time() - t0
+    return out
+
+
 def learning_bar(tmp: Path) -> dict:
     """scripts/validate_cartpole.py's run, through the port's CLI."""
     from burn_ppo_torch import cli
@@ -2744,7 +3014,7 @@ def main(argv: list) -> int:
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    # ParentKernels binds 84d39a1's entry points; a parent whose kernel
+    # ParentKernels binds cc5c46c's entry points; a parent whose kernel
     # sources are this tree's has nothing to time against them.
     parent = None
     if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
@@ -2776,7 +3046,7 @@ def main(argv: list) -> int:
             # A = 7's: Connect Four's, the pool path's
             **{k: samples["A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
-        "gae_reverse_scan": check_gae(dev, g),
+        "gae_reverse_scan": check_gae(dev, g, parent, ptxas),
         "connect_four_step_autoreset": check_connect_four(dev, g, ptxas),
         "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g, parent, ptxas),
         "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld, "update_batch": apply_batch,
@@ -2831,6 +3101,7 @@ def main(argv: list) -> int:
         for phase, out in runs.items():
             emit(phase, **out)
         emit("update_idle_share", **phase_in_process(ROOT, "update_idle_shares"))
+        emit("resume", **resume_phase(Path(d), card_line))
         if args.parent is not None:
             for name, phase in (("bench_train_turns", "bench_train"),
                                 ("bench_selfplay_pool_turns", "selfplay_pool_train")):

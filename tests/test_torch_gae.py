@@ -55,6 +55,25 @@ def test_random_rollout_matches_jax():
     np.testing.assert_allclose(t_ret.numpy(), np.asarray(j_ret), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("T,E", [(128, 32), (100, 37)])
+def test_kernel_shapes_match_jax(T, E):
+    """K3's chip shapes on its plain version: [128, 32] (configs/cartpole.toml
+    and the learning bar: one block of the kernel) and a T that is no whole
+    number of the kernel's 64-step chunks with an E that is no whole
+    number of its 32-env blocks (on the card [100, 4097])."""
+    rng = np.random.default_rng(T + E)
+    rewards = rng.normal(size=(T, E)).astype(np.float32)
+    values = rng.normal(size=(T, E)).astype(np.float32)
+    dones = (rng.random((T, E)) < 0.02).astype(np.float32)
+    last = rng.normal(size=E).astype(np.float32)
+    j_adv, j_ret = jax_gae(jnp.asarray(rewards), jnp.asarray(values), jnp.asarray(dones),
+                           jnp.asarray(last), 0.99, 0.95)
+    t_adv, t_ret = compute_gae(*(torch.from_numpy(a) for a in (rewards, values, dones, last)),
+                               0.99, 0.95)
+    np.testing.assert_allclose(t_adv.numpy(), np.asarray(j_adv), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(t_ret.numpy(), np.asarray(j_ret), rtol=0, atol=1e-5)
+
+
 def test_explained_variance():
     v = T_([1.0, 2.0, 3.0, 4.0])
     assert float(compute_explained_variance(v, v)) == pytest.approx(1.0)

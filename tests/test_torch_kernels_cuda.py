@@ -294,6 +294,41 @@ def test_gae_kernel_matches_plain(dev, T, E):
     torch.testing.assert_close(ret_k, ret_p, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("T,E", [(128, 4096), (128, 32), (100, 4097), (64, 100), (129, 4096)])
+def test_gae_kernel_at_the_chip_shapes_gives_the_same_bits_twice(dev, T, E):
+    """The bench shape, configs/cartpole.toml's one block, and ragged
+    shapes: a partial chunk, a partial block, the 4-byte copy path (E %
+    4 != 0) and a third chunk."""
+    g = torch.Generator(device=dev).manual_seed(T + E)
+    r = torch.randn(T, E, generator=g, device=dev)
+    v = torch.randn(T, E, generator=g, device=dev)
+    d = (torch.rand(T, E, generator=g, device=dev) < 0.02).float()
+    last = torch.randn(E, generator=g, device=dev)
+    adv_k, ret_k = compute_gae(r, v, d, last, 0.99, 0.95)
+    adv_2, ret_2 = compute_gae(r, v, d, last, 0.99, 0.95)
+    torch.cuda.synchronize()
+    assert torch.equal(adv_k, adv_2) and torch.equal(ret_k, ret_2)
+    adv_p, ret_p = compute_gae_plain(r, v, d, last, 0.99, 0.95)
+    torch.testing.assert_close(adv_k, adv_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ret_k, ret_p, rtol=0, atol=1e-5)
+
+
+def test_gae_kernel_takes_views_that_are_not_16_byte_aligned(dev):
+    """Rows of a wider buffer, offset by one float: the 4-byte path."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    T, E = 70, 256
+    buf = torch.randn(3, T, E + 1, generator=g, device=dev)
+    r, v = buf[0, :, 1:].contiguous(), buf[1, :, 1:].contiguous()
+    flat = torch.zeros(T * E + 1, device=dev)
+    d = flat[1:].view(T, E)
+    d.copy_((torch.rand(T, E, generator=g, device=dev) < 0.05).float())
+    last = torch.randn(E, generator=g, device=dev)
+    adv_k, ret_k = compute_gae(r, v, d, last, 0.99, 0.95)
+    adv_p, ret_p = compute_gae_plain(r, v, d, last, 0.99, 0.95)
+    torch.testing.assert_close(adv_k, adv_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(ret_k, ret_p, rtol=0, atol=1e-5)
+
+
 def test_wrappers_check_arguments(dev):
     with pytest.raises(TypeError):
         compute_gae(torch.zeros(2, 3, device=dev, dtype=torch.float64),
