@@ -27,7 +27,9 @@ derives a stream of its own (``train.Trainer``). ``load_model`` and
 inference; ``load_params``, ``load_optimizer``, ``load_component`` and
 ``load_generator_state`` restore a run for resume and fork, copying into
 the tensors that exist (the trainer's CUDA graphs read them where they
-were captured).
+were captured). A checkpoint of the Rust reference (a Burn ``model.mpk``
+and no ``model.npz``) is refused with ``NotPortedError``: its import is
+ROADMAP A15's ``interop.py``.
 """
 
 from __future__ import annotations
@@ -228,10 +230,30 @@ def load_generator_state(ckpt_dir: str | Path) -> Optional[torch.Tensor]:
     return torch.from_numpy(np.ascontiguousarray(state, dtype=np.uint8))
 
 
+class NotPortedError(RuntimeError):
+    """Input the port cannot read yet; the message names the ROADMAP item.
+    The command line turns it into exit code 2."""
+
+
+def is_reference_checkpoint(ckpt_dir: str | Path) -> bool:
+    """A checkpoint of the Rust reference: a Burn NamedMpk model file
+    instead of ``model.npz`` (burn_ppo_tpu/checkpoint.py:449-455)."""
+    d = Path(ckpt_dir)
+    return not (d / "model.npz").exists() and ((d / "model.mpk").exists() or (d / "model").exists())
+
+
+def _refuse_reference(ckpt_dir: str | Path) -> None:
+    if is_reference_checkpoint(ckpt_dir):
+        raise NotPortedError(
+            f"{ckpt_dir} is a Burn .mpk checkpoint of the reference (no model.npz); "
+            "its import is not ported to burn_ppo_torch yet (ROADMAP A15, interop)")
+
+
 def load_model(ckpt_dir: str | Path, device: str | torch.device = "cpu"):
     """(network, metadata) of a checkpoint written by either package: the
     network rebuilt from ``metadata.json``, its weights filled from
     ``model.npz`` in ``tree_leaves`` order."""
+    _refuse_reference(ckpt_dir)
     meta = load_metadata(ckpt_dir)
     network = network_from_metadata(meta, device)
     load_params(ckpt_dir, network)
@@ -243,6 +265,7 @@ def load_obs_normalizer(ckpt_dir: str | Path,
     """The obs normalizer of a checkpoint, or None when it trained without
     one. The leaves follow ``ObsNormState``'s field order (mean, m2,
     count), not sorted keys."""
+    _refuse_reference(ckpt_dir)
     meta = load_metadata(ckpt_dir)
     if not meta.get("normalize_obs"):
         return None

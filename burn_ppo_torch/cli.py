@@ -1,15 +1,18 @@
-"""Command line of the port: the ``train`` subcommand.
+"""Command line of the port: the ``train``, ``eval`` and ``tournament`` subcommands.
 
 The parser and the override collection are copies of
 burn_ppo_tpu/cli.py:31-231, so the flags, the subcommands and the TOML
 grammar are the same as the JAX CLI's, and so are ``--resume`` and
-``--fork`` (burn_ppo_tpu/cli.py:300-356). The port trains on CUDA. Flags
-for what the port does not have yet are refused with an error naming the
+``--fork`` (burn_ppo_tpu/cli.py:300-356). The port runs on CUDA. Flags
+and subcommands for what the port does not have yet (``interactive``, a
+Burn ``.mpk`` checkpoint) are refused with exit 2 and an error naming the
 ROADMAP item, never ignored.
 
     python -m burn_ppo_torch train --config configs/cartpole.toml
     python -m burn_ppo_torch train --resume runs/<name> --total-steps N
     python -m burn_ppo_torch train --fork runs/<name>/checkpoints/step_X [overrides]
+    python -m burn_ppo_torch eval -c gauntlet/connect_four/r4 --random
+    python -m burn_ppo_torch tournament gauntlet/skull/r4 gauntlet/skull/r4_mid --random --players 4
 """
 
 from __future__ import annotations
@@ -321,9 +324,30 @@ def run_train(args, device: str = "cuda") -> int:
     return 0
 
 
+def run_front_end(args, device: str = "cuda") -> int:
+    """``eval`` or ``tournament`` on ``device`` (a CUDA request without a
+    card raises in ``resolve_device``); a checkpoint the port cannot read
+    yet exits 2."""
+    from burn_ppo_torch.checkpoint import NotPortedError
+    from burn_ppo_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    try:
+        if args.command == "eval":
+            from burn_ppo_torch.eval import run_evaluation_cli
+
+            return run_evaluation_cli(args, device=dev)
+        from burn_ppo_torch.tournament import run_tournament_cli
+
+        return run_tournament_cli(args, device=dev)
+    except NotPortedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
 def main(argv: Optional[List[str]] = None, *, device: str = "cuda") -> int:
     """``device`` is the hook the CPU tests use; the command line always
-    trains on CUDA."""
+    runs on CUDA."""
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
     known = {"train", "eval", "tournament", "interactive", "-h", "--help", "--version"}
@@ -332,8 +356,10 @@ def main(argv: Optional[List[str]] = None, *, device: str = "cuda") -> int:
     args = parser.parse_args(argv)
     if args.command == "train":
         return run_train(args, device=device)
+    if args.command in ("eval", "tournament"):
+        return run_front_end(args, device=device)
     print(f"error: '{args.command}' is not ported to burn_ppo_torch yet "
-          "(ROADMAP A15: front ends)", file=sys.stderr)
+          "(ROADMAP A15: front ends, interactive)", file=sys.stderr)
     return 2
 
 

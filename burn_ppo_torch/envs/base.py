@@ -138,6 +138,14 @@ def _lead(state: State) -> torch.Tensor:
     return getattr(state, dataclasses.fields(state)[0].name)
 
 
+def env_row(state: State, index: int = 0) -> State:
+    """Env ``index`` of a batched state as a batch of one on the CPU, one
+    copy a field: what the host's text helpers read."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name)[index:index + 1].cpu() for f in dataclasses.fields(state)
+    })
+
+
 def select_state(done: torch.Tensor, on_true: State, on_false: State) -> State:
     """Per-env select between two states of the same dataclass type."""
     return dataclasses.replace(
@@ -217,6 +225,18 @@ class Environment:
         ``StepOutput.returns`` and ``samples``); one that does not leaves
         both None and the caller rolls."""
         return autoreset_step(self, state, acc, action, reset_values, step_values)
+
+    # -- human-facing helpers (watch mode and human play; base.py:184-195) ----
+    def render(self, state: State, index: int = 0) -> Optional[str]:
+        """Text of env ``index`` of the batch (``env_row``), or None where
+        the env has no renderer."""
+        return None
+
+    def describe_action(self, action: int) -> str:
+        return f"Action {action}"
+
+    def parse_action(self, text: str) -> int:
+        return int(text.strip())
 
 
 @dataclass

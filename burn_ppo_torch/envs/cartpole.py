@@ -36,6 +36,7 @@ from burn_ppo_torch.envs.base import (
     arena_size,
     autoreset_step,
     carve_arena,
+    env_row,
 )
 from burn_ppo_torch.ppo.normalization import return_norm_roll_plain
 
@@ -130,6 +131,30 @@ class CartPole(Environment):
     def step_autoreset(self, state, acc, action, reset_values, step_values=None,
                        roll=None) -> StepOutput:
         return cartpole_step_autoreset(self, state, acc, action, reset_values, roll)
+
+    # -- human-facing helpers (cartpole.py:114-139) --------------------------
+    def describe_action(self, action: int) -> str:
+        return "Push left" if action == 0 else "Push right"
+
+    def parse_action(self, text: str) -> int:
+        t = text.strip().lower()
+        if t in ("left", "l", "0"):
+            return 0
+        if t in ("right", "r", "1"):
+            return 1
+        raise ValueError("Enter 'left' or 'right' (or 'l'/'r')")
+
+    def render(self, state: CartPoleState, index: int = 0) -> str:
+        s = env_row(state, index)
+        x, theta = float(s.x[0]), float(s.theta[0])
+        width = 41
+        pos = int((x / X_THRESHOLD + 1.0) * (width - 1) / 2)
+        pos = max(0, min(width - 1, pos))
+        track = ["-"] * width
+        track[pos] = "C"
+        angle_deg = theta * 180.0 / 3.141592653589793
+        return (f"x={x:+.3f} theta={angle_deg:+.2f}deg step={int(s.step_idx[0])}\n"
+                + "".join(track))
 
 
 def cartpole_step_autoreset(

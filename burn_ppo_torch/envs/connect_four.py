@@ -33,6 +33,7 @@ from burn_ppo_torch.envs.base import (
     arena_size,
     autoreset_step,
     carve_arena,
+    env_row,
 )
 
 ROWS, COLS = 6, 7
@@ -147,6 +148,31 @@ class ConnectFour(Environment):
 
     def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
         return connect_four_step_autoreset(self, state, acc, action, reset_values)
+
+    # -- human-facing helpers (connect_four.py:158-185) -----------------------
+    def render(self, state: ConnectFourState, index: int = 0) -> str:
+        s = env_row(state, index)
+        board = s.board[0].tolist()
+        sym = {0: ".", 1: "X", 2: "O"}
+        lines = ["  1 2 3 4 5 6 7", " ---------------"]
+        for r in range(ROWS):
+            lines.append("| " + " ".join(sym[c] for c in board[r]) + " |")
+        lines.append(" ---------------")
+        if bool(s.done[0]):
+            msg = {0: "X (Player 0) wins!", 1: "O (Player 1) wins!"}.get(int(s.winner[0]), "Draw!")
+            lines.append(msg)
+        else:
+            lines.append(f"Turn: {'X (Player 0)' if int(s.current[0]) == 0 else 'O (Player 1)'}")
+        return "\n".join(lines)
+
+    def describe_action(self, action: int) -> str:
+        return f"Column {action + 1}"
+
+    def parse_action(self, text: str) -> int:
+        col = int(text.strip())
+        if 1 <= col <= 7:
+            return col - 1
+        raise ValueError("Enter column 1-7")
 
 
 def connect_four_step_autoreset(

@@ -43,6 +43,7 @@ from burn_ppo_torch.envs.base import (
     arena_size,
     autoreset_step,
     carve_arena,
+    env_row,
     first_true_clockwise,
     onehot_eq,
     push_ring_row,
@@ -305,6 +306,50 @@ class LiarsDice(Environment):
 
     def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
         return liars_dice_step_autoreset(self, state, acc, action, reset_values, step_values)
+
+    # -- human-facing helpers (liars_dice.py:385-433) -------------------------
+    def render(self, state: LiarsDiceState, index: int = 0) -> str:
+        s = env_row(state, index)
+        dc, dice, cur = s.dice_count[0].tolist(), s.dice[0].tolist(), int(s.current[0])
+        lines = ["=== Liar's Dice ===", ""]
+        for p in range(P):
+            marker = "->" if p == cur else "  "
+            status = "OUT" if dc[p] == 0 else f"{dc[p]} dice"
+            if p == cur:
+                ds = " ".join(f"[{dice[p][i]}]" for i in range(dc[p]))
+            elif dc[p] > 0:
+                ds = " ".join("[?]" for _ in range(dc[p]))
+            else:
+                ds = ""
+            lines.append(f"{marker} Player {p}: {status}  {ds}")
+        lines.append("")
+        qty = int(s.bid_qty[0])
+        if qty > 0:
+            lines.append(f"Current bid: {qty} {int(s.bid_face[0])}s "
+                         f"(by Player {int(s.last_bidder[0])})")
+        else:
+            lines.append("No bid yet - first player to bid")
+        if bool(s.game_over[0]):
+            winner = next((p for p in range(P) if dc[p] > 0), 0)
+            lines.append(f"Game Over: Player {winner} wins!")
+        return "\n".join(lines)
+
+    def describe_action(self, action: int) -> str:
+        if action == CALL:
+            return "Call Liar!"
+        return f"Bid: {action // FACES + 1} {action % FACES + 1}s"
+
+    def parse_action(self, text: str) -> int:
+        t = text.strip().lower()
+        if t in ("call", "liar", "l"):
+            return CALL
+        parts = t.split()
+        if len(parts) >= 2:
+            qty = int(parts[0])
+            face = int(parts[1].rstrip("s"))
+            if 1 <= face <= 6 and 1 <= qty <= 8:
+                return (qty - 1) * FACES + (face - 1)
+        raise ValueError("Enter 'N Fs' (e.g., '3 4s') or 'call'")
 
 
 def liars_dice_step_autoreset(

@@ -45,6 +45,7 @@ from burn_ppo_torch.envs.base import (
     arena_size,
     autoreset_step,
     carve_arena,
+    env_row,
     first_true_clockwise,
     onehot_eq,
     push_ring_row,
@@ -500,6 +501,64 @@ class Skull(Environment):
 
     def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
         return skull_step_autoreset(self, state, acc, action, reset_values, step_values)
+
+    # -- human-facing helpers (skull.py:749-814) -----------------------------
+    def render(self, state: SkullState, index: int = 0) -> str:
+        s = env_row(state, index)
+        cur = int(s.current[0])
+        phase = ["Placing", "Bidding", "Revealing"][int(s.phase[0])]
+        lines = [f"=== Skull ({self.n} players) ===", f"Phase: {phase} | Current Player: P{cur}"]
+        if int(s.current_bidder[0]) >= 0:
+            lines.append(f"Current Bid: {int(s.current_bid[0])} by P{int(s.current_bidder[0])}")
+        lines.append("")
+        coasters, alive = self._coasters(s)[0].tolist(), self._alive(s)[0].tolist()
+        wins, passed = s.wins[0].tolist(), s.passed[0].tolist()
+        revealed, stack_len = s.revealed[0].tolist(), s.stack_len[0].tolist()
+        for p in range(self.n):
+            curm = ">" if p == cur else " "
+            am = " " if alive[p] else "X"
+            lines.append(f"{curm}{am} P{p}: {wins[p]}W {coasters[p]}C | "
+                         f"Stack: {revealed[p]}/{stack_len[p]} revealed"
+                         f"{' (passed)' if passed[p] else ''}")
+            if p == cur and stack_len[p] > 0:
+                cards = s.stack[0].reshape(MAXP, CARDS)[p][:stack_len[p]].tolist()
+                lines.append(f"   Stack contents: [{''.join('S' if c == SKULL_C else 'R' for c in cards)}]")
+        if bool(s.game_over[0]) and int(s.winner[0]) >= 0:
+            lines.append(f"\nGame Over! Winner: P{int(s.winner[0])}")
+        return "\n".join(lines)
+
+    def describe_action(self, action: int) -> str:
+        if action == PLACE_SKULL:
+            return "Place Skull"
+        if action == PLACE_ROSE:
+            return "Place Rose"
+        if BID_BASE <= action < PASS:
+            return f"Bid {action - BID_BASE + 1}"
+        if action == PASS:
+            return "Pass"
+        if REVEAL_BASE <= action < A:
+            return f"Reveal P{action - REVEAL_BASE}"
+        return f"Unknown action {action}"
+
+    def parse_action(self, text: str) -> int:
+        t = text.strip().lower()
+        if t in ("skull", "s", "place skull"):
+            return PLACE_SKULL
+        if t in ("rose", "r", "place rose"):
+            return PLACE_ROSE
+        if t in ("pass", "p"):
+            return PASS
+        if t.startswith("bid "):
+            t = t[4:].strip()
+        if t.isdigit() and 1 <= int(t) <= MAX_BID:
+            return BID_BASE + int(t) - 1
+        if t.startswith("reveal "):
+            rest = t[7:].strip()
+            if rest.startswith("p") and rest[1:].isdigit():
+                p = int(rest[1:])
+                if p < MAXP:
+                    return REVEAL_BASE + p
+        raise ValueError(f"Unknown action: {text}")
 
 
 def skull_step_autoreset(

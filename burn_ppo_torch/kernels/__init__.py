@@ -15,7 +15,7 @@ exception, because a refused launch never runs and a later
 
 The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
 ``envs/connect_four.py``, ``envs/skull.py``, ``envs/liars_dice.py``,
-``ops/categorical.py``,
+``ops/categorical.py`` (K2 and K14),
 ``ops/gae.py``, ``ppo/normalization.py``, ``ppo/pool_rollout.py``,
 ``ppo/update.py``, ``ppo/episode_stats.py``) and use the helpers below.
 Each registers itself with :func:`counted`, which gives it a ``launches``
@@ -65,6 +65,9 @@ SIGNATURES = {
     "connect_four_step_autoreset": [_VP] * 6 + [_I, _VP],
     # logits, mask (nullable), uniforms, actions, log_probs, rows, A, stream
     "masked_gumbel_sample": [_VP] * 5 + [_I, _I, _VP],
+    # logits, mask (nullable), temperatures (nullable), the temperature of
+    # every row where they are null, uniforms, actions, rows, A, stream
+    "temperature_sample": [_VP] * 3 + [_F] + [_VP] * 2 + [_I, _I, _VP],
     # rewards, values, dones, last_values, advantages, returns, T, E,
     # gamma, gamma*lambda, stream
     "gae_reverse_scan": [_VP] * 6 + [_I, _I, _F, _F, _VP],

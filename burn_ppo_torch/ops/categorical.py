@@ -11,11 +11,17 @@ launches the hand-written kernel ``csrc/masked_gumbel_sample.cu``
 draws (``u`` in [tiny, 1)), so tests can hand in the JAX side's draws:
 ``jax.random.categorical(k, l) == argmax(l - log(-log(u)))`` with
 ``u = jax.random.uniform(k, l.shape, minval=tiny, maxval=1)``.
+
+``sample_with_temperature`` is eval's sampler: the mask, a temperature per
+row (or one for all rows), a Gumbel-max sample where it is above 0 and the
+greedy action where it is not. CPU tensors take
+``sample_with_temperature_plain``; CUDA tensors launch the hand-written
+kernel ``csrc/temperature_sample.cu`` (K14, ROADMAP B16), or raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -24,6 +30,7 @@ from burn_ppo_torch import kernels
 MASK_NEG = -1.0e9
 TINY = torch.finfo(torch.float32).tiny
 MAX_KERNEL_ACTIONS = 64
+MIN_TEMP = 1.0e-8
 
 
 def apply_action_mask(logits: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -85,3 +92,60 @@ def masked_sample(
 
 
 kernels.counted(masked_sample)
+
+
+def sample_with_temperature_plain(
+    logits: torch.Tensor, mask: Optional[torch.Tensor],
+    temperature: Union[float, torch.Tensor], uniforms: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch K14 (burn_ppo_tpu/ops/categorical.py:84-111): actions
+    [E] i32. Where the row's temperature t > 0, ``argmax(masked / max(t,
+    1e-8) - log(-log(u)))``, the first maximum winning a tie, as
+    ``jax.random.categorical`` picks; where t <= 0, the LAST maximal index
+    of ``masked`` (the reference's greedy ``max_by`` keeps the later of
+    equal elements). ``temperature`` is a float, a 0-dim tensor or one per
+    row, [E]."""
+    masked = apply_action_mask(logits, mask)
+    rows, A = masked.shape
+    t = torch.as_tensor(temperature, dtype=masked.dtype, device=masked.device).expand(rows)
+    safe_t = torch.clamp(t, min=MIN_TEMP)
+    gumbel = -torch.log(-torch.log(uniforms))
+    sampled = torch.argmax(gumbel + masked / safe_t[:, None], dim=-1)
+    greedy = A - 1 - torch.argmax(masked.flip(-1), dim=-1)
+    return torch.where(t <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def sample_with_temperature(
+    logits: torch.Tensor, mask: Optional[torch.Tensor],
+    temperature: Union[float, torch.Tensor], uniforms: torch.Tensor,
+) -> torch.Tensor:
+    """Mask, temperature and sample of one eval step: actions [E] i32.
+    ``uniforms`` [E, A] in [tiny, 1) are drawn by the caller for every row,
+    greedy or not; ``temperature`` is a float or an [E] tensor (a 0-dim
+    tensor only on the CPU)."""
+    temps = temperature if isinstance(temperature, torch.Tensor) else None
+    ts = [t for t in (logits, mask, temps, uniforms) if t is not None]
+    if kernels.on_cpu(*ts):
+        return sample_with_temperature_plain(logits, mask, temperature, uniforms)
+    rows, A = logits.shape
+    if A > MAX_KERNEL_ACTIONS:
+        raise ValueError(f"temperature_sample kernel takes at most {MAX_KERNEL_ACTIONS} actions, "
+                         f"got {A}")
+    kernels.expect(logits, "logits", torch.float32, (rows, A))
+    kernels.expect(uniforms, "uniforms", torch.float32, (rows, A))
+    if mask is not None:
+        kernels.expect(mask, "mask", torch.float32, (rows, A))
+    if temps is not None:
+        kernels.expect(temps, "temperature", torch.float32, (rows,))
+    actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
+    err = kernels.library().temperature_sample(
+        kernels.ptr(logits), kernels.ptr(mask), kernels.ptr(temps),
+        0.0 if temps is not None else float(temperature), kernels.ptr(uniforms),
+        kernels.ptr(actions), rows, A, kernels.stream(logits.device),
+    )
+    kernels.check(err, "temperature_sample")
+    sample_with_temperature.launches += 1
+    return actions
+
+
+kernels.counted(sample_with_temperature)

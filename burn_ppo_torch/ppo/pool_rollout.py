@@ -151,22 +151,37 @@ OPPONENT_TILINGS = ((32, 2), (32, 3))
 _OPP_MAX_WIDTH, _OPP_MAX_HEAD, _OPP_MAX_LAYERS, _OPP_MAX_SLOTS = 512, 64, 4, 128
 
 
-def _check_opponent_tower(stack: OpponentStack, D: int) -> List[int]:
-    """The tower's widths [D, hidden..., A], or ValueError for a tower K7
-    does not take."""
-    widths = [D] + [w.shape[2] for w in stack.weights]
-    hidden = widths[1:-1]
+def actor_widths(network) -> Optional[List[int]]:
+    """The widths [D, hidden..., A] of a network's actor tower as
+    ``actor_params`` reads it, or None for a tower K7 cannot run (the CNN)."""
+    if network.network_type not in ("mlp", "ctde"):
+        return None
+    return [network.obs_dim] + [network.hidden_size] * network.num_hidden + [network.action_count]
+
+
+def opponent_tower_problems(widths: Sequence[int], num_slots: int) -> List[str]:
+    """What K7 does not take of a tower of ``widths`` [D, hidden..., A] with
+    ``num_slots`` slots; empty where it takes it."""
+    D, hidden, depth = widths[0], list(widths[1:-1]), len(widths) - 1
     problems = []
-    if not 1 <= len(stack.weights) <= _OPP_MAX_LAYERS:
-        problems.append(f"{len(stack.weights)} layers (1 to {_OPP_MAX_LAYERS})")
+    if not 1 <= depth <= _OPP_MAX_LAYERS:
+        problems.append(f"{depth} layers (1 to {_OPP_MAX_LAYERS})")
     if not 1 <= D <= _OPP_MAX_WIDTH:
         problems.append(f"obs width {D} (1 to {_OPP_MAX_WIDTH})")
     if any(h % 32 or not 32 <= h <= _OPP_MAX_WIDTH for h in hidden):
         problems.append(f"hidden widths {hidden} (multiples of 32 up to {_OPP_MAX_WIDTH})")
     if not 1 <= widths[-1] <= _OPP_MAX_HEAD:
         problems.append(f"head width {widths[-1]} (1 to {_OPP_MAX_HEAD})")
-    if not 1 <= stack.num_slots <= _OPP_MAX_SLOTS:
-        problems.append(f"{stack.num_slots} slots (1 to {_OPP_MAX_SLOTS})")
+    if not 1 <= num_slots <= _OPP_MAX_SLOTS:
+        problems.append(f"{num_slots} slots (1 to {_OPP_MAX_SLOTS})")
+    return problems
+
+
+def _check_opponent_tower(stack: OpponentStack, D: int) -> List[int]:
+    """The tower's widths [D, hidden..., A], or ValueError for a tower K7
+    does not take."""
+    widths = [D] + [w.shape[2] for w in stack.weights]
+    problems = opponent_tower_problems(widths, stack.num_slots)
     if problems:
         raise ValueError("opponent_actor_forward: the kernel does not take " + ", ".join(problems))
     return widths

@@ -52,6 +52,9 @@ exits non-zero without the final result line:
      per-slot obs norm, K8 at [65536, 49], K9 at the CTDE's 873,778 and
      the MLP's 689,714 parameters, K10 at [128, 3072] of [128, 4096],
      P = 4;
+     K14, eval's temperature sampler, on every row at [1, 7], [64, 7],
+     [64, 33], [256, 33], [64, 49] and [1024, 49] (the envs' masks,
+     temperatures from 0, 0.4, 1 and 1e-3, exact greedy ties required);
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
      K3, K4, K5, K6, K9, K10 and K13 print their ptxas lines (registers,
@@ -159,6 +162,20 @@ exits non-zero without the final result line:
      replays, counted as in the train phases; the vs-pool case's pool
      stats and rating files carry the first leg's checkpoints; the fork
      records forked_from in every checkpoint;
+  3k. (in a process of its own) the eval command through cli.main on the
+     card: Connect Four r4 against r4_mid, greedy, 256 games x 64 envs
+     (K4, K7, K14), the game records equal to a CPU run; Skull r4,
+     r4_best, r4_mid and Random, 1024 games x 256 envs (K11, K7, K14;
+     valid placements, games/s, one chunk's events ms and its kernels on
+     the device, 64 each); a watched Connect Four and a watched Skull game
+     (the env step and K14 at E = 1, K6 for each model move), printed;
+     K4, K11 and K14 at E = 1 against their plain versions;
+  3l. (in a process of its own) the tournament command on the three
+     gauntlets as scripts/gauntlet.py rate plays them (48 games a pod on
+     Skull, 192 on Connect Four and Liar's Dice): every entry above Random
+     by more than 2 of its sigma and within 4 combined sigma of
+     gauntlet/<env>/ratings_r4.json; the pods that stacked their models
+     for K7 and those that took the per-model path, both on Skull;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps.
 
@@ -179,6 +196,7 @@ The line before the last holds the kernel table, the last line
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -229,6 +247,8 @@ from burn_ppo_torch.ops.categorical import (  # noqa: E402
     apply_action_mask,
     masked_sample,
     masked_sample_plain,
+    sample_with_temperature,
+    sample_with_temperature_plain,
 )
 from burn_ppo_torch.ops.gae import (  # noqa: E402
     compute_gae,
@@ -326,6 +346,7 @@ WRAPPERS = {
     "return_norm_roll": return_norm_roll,
     "return_norm_finalize": return_norm_finalize,
     "liars_dice_step_autoreset": liars_dice_step_autoreset,
+    "temperature_sample": sample_with_temperature,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -355,6 +376,8 @@ SOURCES = {
                              "burn_ppo_tpu/ppo/normalization.py:136"),
     "liars_dice_step_autoreset": ("burn_ppo_torch/csrc/liars_dice_step.cu",
                                   "burn_ppo_tpu/envs/liars_dice.py:133"),
+    "temperature_sample": ("burn_ppo_torch/csrc/temperature_sample.cu",
+                           "burn_ppo_tpu/ops/categorical.py:84"),
 }
 
 
@@ -2992,6 +3015,431 @@ def learning_bar(tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K14 and the front ends (eval, tournament)
+# ---------------------------------------------------------------------------
+EVAL_TEMPS = (0.0, 0.4, 1.0, 1e-3)
+
+
+def temperature_case(dev, g, mask: torch.Tensor) -> dict:
+    """K14 on the rows of an env's own mask (rows with a legal action):
+    per-row temperatures mixed from 0, 0.4, 1 and 1e-3; every greedy row
+    with two legal actions gets an exact tie at its top between two of
+    them. The actions must equal the plain version's at every row."""
+    mask = mask.contiguous()
+    rows, A = mask.shape
+    logits = torch.randn(rows, A, generator=g, device=dev) * 2
+    temps = torch.tensor(EVAL_TEMPS, device=dev)[
+        torch.randint(0, len(EVAL_TEMPS), (rows,), generator=g, device=dev)]
+    # two legal columns of each row (legal ones rank first)
+    two = torch.topk(mask + 0.5 * torch.rand(rows, A, generator=g, device=dev), 2, dim=1).indices
+    tie = (temps == 0) & (mask.sum(1) >= 2)
+    peak = (logits.max(1).values + 1.0)[:, None].expand(rows, 2)
+    logits[tie.nonzero()[:, :1], two[tie]] = peak[tie]
+    uni = torch.rand(rows, A, generator=g, device=dev).clamp_min(TINY)
+    got = sample_with_temperature(logits, mask, temps, uni)
+    torch.cuda.synchronize()
+    want = sample_with_temperature_plain(logits, mask, temps, uni)
+    if not torch.equal(got, want):
+        bad = int((got != want).nonzero()[0, 0])
+        raise AssertionError(f"temperature_sample [{rows}, {A}]: row {bad} took {int(got[bad])}, "
+                             f"the plain version {int(want[bad])}")
+    if not bool(torch.all(torch.gather(mask, 1, got.long()[:, None]) > 0)):
+        raise AssertionError(f"temperature_sample [{rows}, {A}]: a masked action")
+    if not torch.equal(got[tie].long(), two[tie].max(1).values):
+        raise AssertionError(f"temperature_sample [{rows}, {A}]: a greedy tie not broken to the "
+                             "last index")
+    sampled = int((temps > 0).sum())
+    return {
+        "rows": rows, "greedy_rows": int((temps <= 0).sum()), "greedy_tie_rows": int(tie.sum()),
+        "max_abs_err": 0.0, "tol": "exact (every row's action)",
+        **timed(lambda: sample_with_temperature(logits, mask, temps, uni),
+                lambda: sample_with_temperature_plain(logits, mask, temps, uni)),
+        "library_ms": None,
+        # logits, mask, temperatures, the sampled rows' uniforms, actions;
+        # per sampled entry: mask add, divide, two logs, negations, add,
+        # compare; per greedy entry: add, compare
+        **bound(nbytes(logits, mask, temps, got) + sampled * A * 4,
+                8.0 * sampled * A + 2.0 * (rows - sampled) * A),
+    }
+
+
+def check_temperature_sample(dev, g, c4_mask, skull_mask, ld_mask, ptxas: list) -> dict:
+    """K14 at eval's shapes: one env (watch mode, human play) and the
+    default 64 envs on Connect Four, Skull and Liar's Dice, Skull's 256
+    envs of phase ``eval`` and Liar's Dice at 1024 rows."""
+    def legal(m):
+        return m[m.sum(1) > 0]
+
+    cases = {"1x7": legal(c4_mask)[:1], "64x7": legal(c4_mask)[:64],
+             "64x33": legal(skull_mask)[:64], "256x33": legal(skull_mask)[:256],
+             "64x49": legal(ld_mask)[:64], "1024x49": legal(ld_mask)[:1024]}
+    out = {name: temperature_case(dev, g, m) for name, m in cases.items()}
+    ties = sum(c["greedy_tie_rows"] for c in out.values())
+    if ties == 0 or min(c["greedy_tie_rows"] for n, c in out.items() if n != "1x7") == 0:
+        raise AssertionError(f"temperature_sample: too few greedy rows with ties: "
+                             f"{[c['greedy_tie_rows'] for c in out.values()]}")
+    out.update({"greedy_tie_rows": ties, "max_abs_err": 0.0, "tol": "exact",
+                "ptxas": kernel_ptxas(ptxas, "temperature_sample"),
+                # phase eval's Skull shape stands for the kernel
+                **{k: out["256x33"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")}})
+    return out
+
+
+GAUNTLET = ROOT / "gauntlet"
+C4_GREEDY = ["--temp", "0", "--temp-cutoff", "10", "--temp-final", "0"]
+# Each eval kernel's device name (the profiler's), for the counts in one chunk.
+EVAL_KERNELS = {
+    "connect_four_step_autoreset": "connect_four_step_autoreset_kernel",
+    "skull_step_autoreset": "skull_step_autoreset_kernel",
+    "opponent_actor_forward": "opponent_mlp_kernel",
+    "temperature_sample": "temperature_sample_kernel",
+}
+
+
+def front_end_run(argv: list, expect: set) -> dict:
+    """``cli.main(argv)`` on the card with every launch counter at 0 just
+    before it and read just after: the kernels of ``expect`` must each
+    launch, and no other. Keeps what ``eval.run_stats_mode`` returned and
+    the printed text."""
+    import contextlib
+    import io
+
+    import burn_ppo_torch.eval as ev
+    from burn_ppo_torch import cli
+
+    stats = []
+    real = ev.run_stats_mode
+    ev.run_stats_mode = lambda *a, **k: stats.append(real(*a, **k)) or stats[-1]
+    for w in WRAPPERS.values():
+        w.launches = 0
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        ev.run_stats_mode = real
+    wall = time.time() - t0
+    launches = {name: w.launches for name, w in WRAPPERS.items() if w.launches}
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(argv[:2])} exited {rc}:\n{buf.getvalue()[-2000:]}")
+    if set(launches) != expect:
+        raise AssertionError(f"{' '.join(argv)}: kernels launched {launches}, expected each of "
+                             f"{sorted(expect)} and no other")
+    return {"wall_s": wall, "launches": launches, "stats": stats, "text": buf.getvalue()}
+
+
+def valid_placements(records: list) -> bool:
+    """Every game's placements a competition ranking: each seat's place is
+    one more than the seats placed strictly better."""
+    return all(p == 1 + sum(q < p for _, q in rec) for rec in records for _, p in rec)
+
+
+def first_divergence(sources_gpu, sources_cpu, temp, num_envs: int, steps: int) -> dict:
+    """The first step where the card's and the CPU's greedy eval engines
+    pick another action: the row and the top-two gap of its masked logits
+    on the CPU."""
+    import burn_ppo_torch.eval as ev
+
+    env = make_env("connect_four")
+    engines = [ev.StatsEngine(env, srcs, num_envs, temp, ev.random_source(0, d), d)
+               for srcs, d in ((sources_gpu, resolve_device("cuda")),
+                               (sources_cpu, torch.device("cpu")))]
+    log = [ev.ChunkLog(torch.empty(1, num_envs, device=e.device),
+                       torch.empty(1, num_envs, 2, dtype=torch.int32, device=e.device),
+                       torch.empty(1, num_envs, 2, device=e.device),
+                       torch.empty(1, num_envs, dtype=torch.int32, device=e.device))
+           for e in engines]
+    with torch.no_grad():
+        for t in range(steps):
+            picks = []
+            for e in engines:
+                acting = e.perm_table[e.perm_idx.long(), env.current_player(e.states).long()]
+                logits = e.logits(e.obs, acting)
+                half = torch.full_like(logits, 0.5)
+                picks.append((apply_action_mask(logits, e.mask).cpu(),
+                              sample_with_temperature(logits, e.mask, 0.0, half).cpu()))
+            rows = picks[0][1] != picks[1][1]
+            if bool(rows.any()):
+                r = int(rows.nonzero()[0, 0])
+                top = torch.topk(picks[1][0][r], 2).values
+                scale = float(picks[1][0][r].abs().max())
+                return {"step": t, "row": r, "top_two_gap": float(top[0] - top[1]),
+                        "k7_tol": 2 * (1e-4 + 1e-4 * scale)}
+            for i, e in enumerate(engines):
+                e.step(log[i], 0)
+    return {"step": None}
+
+
+def eval_phase(tmp: Path, card_line: str) -> dict:
+    """Phase ``eval`` (its own process): the eval command through
+    ``cli.main`` on the card. (a) Connect Four r4 against r4_mid, greedy,
+    256 games x 64 envs: K4, K7 and K14, one each a step; the game records
+    equal to the port's CPU run of the same command (every game is
+    deterministic). (b) Skull r4, r4_best and r4_mid (CTDE 512x2 tanh, obs
+    norm: three stacked K7 slots) and Random, 1024 games x 256 envs at the
+    env's temperature: K11, K7 and K14; valid placements in every game;
+    games/s; one chunk's events ms and its kernels counted on the device
+    (64 each). (c) one watched greedy Connect Four game and one watched
+    Skull game: K4 or K11, K14 and K6 (each model move's obs norm) at
+    E = 1, counted; then K4, K11 and K14 at E = 1 against their plain
+    versions along single-env games."""
+    import burn_ppo_torch.eval as ev
+
+    dev = resolve_device("cuda")
+    out: dict = {"card": card_line}
+    t_phase = time.time()
+    c4 = [GAUNTLET / "connect_four" / "r4", GAUNTLET / "connect_four" / "r4_mid"]
+    greedy = ev.TempSchedule(initial=0.0, final_temp=0.0, cutoff=10)
+
+    # (a)
+    t_part = time.time()
+    run = front_end_run(["eval", "-c", str(c4[0]), "-c", str(c4[1]), *C4_GREEDY, "-n", "256",
+                         "--num-envs", "64", "--seed", "0"],
+                        {"connect_four_step_autoreset", "opponent_actor_forward",
+                         "temperature_sample"})
+    (gpu,) = run["stats"]
+    L = run["launches"]
+    steps = L["temperature_sample"]
+    if not (L["connect_four_step_autoreset"] == L["opponent_actor_forward"] == steps
+            and steps % 64 == 0 and gpu.logits_path == "stacked"):
+        raise AssertionError(f"eval (a): launches {L}, logits {gpu.logits_path}")
+    t0 = time.time()
+    cpu_sources = [ev.PlayerSource.checkpoint(p, "cpu") for p in c4]
+    cpu = ev.run_stats_mode(make_env("connect_four"), cpu_sources, 256, num_envs=64, temp=greedy,
+                            seed=0, quiet=True, device="cpu")
+    same = (gpu.game_records == cpu.game_records and gpu.placements == cpu.placements
+            and gpu.rewards == cpu.rewards and gpu.draws == cpu.draws)
+    diverge = None
+    if not same:
+        diverge = first_divergence([ev.PlayerSource.checkpoint(p, dev) for p in c4], cpu_sources,
+                                   greedy, 64, steps)
+        if diverge["step"] is None or not diverge["top_two_gap"] <= diverge["k7_tol"]:
+            raise AssertionError(f"eval (a): the card's games differ from the CPU's: {diverge}")
+    out["connect_four_greedy"] = {
+        "games": gpu.total_games, "draws": gpu.draws, "steps": steps, "wall_s": run["wall_s"],
+        "games_per_s": gpu.total_games / run["wall_s"], "launches": L,
+        "records_equal_cpu_run": same, "first_divergence": diverge,
+        "cpu_run_s": time.time() - t0, "summary": gpu.summary_rows(),
+        "seconds": time.time() - t_part}
+
+    # (b)
+    t_part = time.time()
+    skull = [GAUNTLET / "skull" / n for n in ("r4", "r4_best", "r4_mid")]
+    argv = ["eval", *[x for p in skull for x in ("-c", str(p))], "--random", "-n", "1024",
+            "--num-envs", "256", "--seed", "0"]
+    run = front_end_run(argv, {"skull_step_autoreset", "opponent_actor_forward",
+                               "temperature_sample"})
+    (st,) = run["stats"]
+    L = run["launches"]
+    steps = L["temperature_sample"]
+    if not (L["skull_step_autoreset"] == L["opponent_actor_forward"] == steps and steps % 64 == 0
+            and st.logits_path == "stacked" and st.total_games == 1024):
+        raise AssertionError(f"eval (b): launches {L}, logits {st.logits_path}, "
+                             f"{st.total_games} games")
+    if not valid_placements(st.game_records):
+        raise AssertionError("eval (b): a game's placements are not a ranking")
+    sources = [ev.PlayerSource.checkpoint(p, dev) for p in skull] + [ev.PlayerSource.random()]
+    env = make_env("skull")
+    engine = ev.StatsEngine(env, sources, 256, ev.default_temp(env), ev.random_source(1, dev), dev)
+    engine.run_chunk().fetch()  # warm
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        engine.run_chunk()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    want = {name: engine.chunk_steps for name in ("skull_step_autoreset",
+                                                  "opponent_actor_forward", "temperature_sample")}
+    act = torch.profiler.ProfilerActivity
+    for tries in range(1, 4):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            engine.run_chunk()
+            torch.cuda.synchronize()
+        counts = kernel_counts(prof.events(), want, EVAL_KERNELS)
+        if all(seen == n for seen, n in counts.values()):
+            break
+    else:
+        raise AssertionError(f"eval (b): kernels on the device in one chunk {counts}, want 64 each")
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out["skull_three_models_and_random"] = {
+        "games": st.total_games, "steps": steps, "wall_s": run["wall_s"],
+        "games_per_s": st.total_games / run["wall_s"], "launches": L,
+        "placements_valid": True, "summary": st.summary_rows(),
+        "chunk_events_ms": sorted(times)[1], "chunk_events_ms_all": times,
+        "chunk_device_ms": busy, "chunk_kernels_on_device": counts, "profiles": tries,
+        "seconds": time.time() - t_part}
+
+    # (c)
+    watched = {}
+    for name, argv, step_kernel in (
+            ("connect_four", ["-c", str(c4[0]), "-c", str(c4[1]), *C4_GREEDY], "connect_four"),
+            ("skull", ["-c", str(skull[0]), "--random"], "skull")):
+        run = front_end_run(["eval", *argv, "--watch", "-n", "1", "--seed", "0"],
+                            {f"{step_kernel}_step_autoreset", "temperature_sample",
+                             "obs_norm_apply"})
+        lines = run["text"].splitlines()
+        moves = [ln for ln in lines if " (P" in ln and "): " in ln]
+        model_moves = [ln for ln in moves if not ln.startswith("Random")]
+        L = run["launches"]
+        if not (L[f"{step_kernel}_step_autoreset"] == L["temperature_sample"] == len(moves)
+                and L["obs_norm_apply"] == len(model_moves)):
+            raise AssertionError(f"watch {name}: launches {L}, {len(moves)} moves")
+        final = lines[max(i for i, ln in enumerate(lines) if ln.startswith("Final rewards"))
+                      - (10 if name == "connect_four" else 0):]
+        watched[name] = {"moves": len(moves), "launches": L, "wall_s": run["wall_s"],
+                         "move_lines": moves if name == "connect_four" else moves[-6:],
+                         "final": final}
+    out["watch"] = watched
+    out["single_env_vs_plain"] = single_env_walks(dev)
+    out["seconds"] = time.time() - t_phase
+    out["launches_total"] = {name: sum(v["launches"].get(name, 0) for v in (
+        out["connect_four_greedy"], out["skull_three_models_and_random"], *watched.values()))
+        for name in WRAPPERS}
+    return out
+
+
+def single_env_walks(dev) -> dict:
+    """K4, K11 and K14 at E = 1, as watch mode and human play run them,
+    against their plain versions along whole games: every step's outputs
+    equal bit for bit (the plain env step on the CPU copy of the inputs,
+    where a step of one env is not a few hundred launches), every action
+    equal; temperatures cycling through 0, 0.4, 1 and 1e-3, so greedy and
+    sampled moves both occur."""
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(5)
+    cpu = torch.device("cpu")
+
+    def host(x):
+        return None if x is None else dataclasses.replace(
+            x, **{f.name: getattr(x, f.name).cpu() for f in dataclasses.fields(x)})
+
+    for env, games in ((ConnectFour(), 3), (Skull(4), 2)):
+        t0 = time.time()
+        A = env.spec.num_actions
+        steps = ends = 0
+        for _ in range(games):
+            empty = torch.empty(1, 0, device=dev)
+            state = env.reset(empty)
+            acc = EpisodeAccumulator.zero(1, env.spec.num_players, dev)
+            mask = env.action_mask(state)
+            for t in range(1000):
+                logits = torch.randn(1, A, generator=g, device=dev)
+                u = torch.rand(1, A, generator=g, device=dev).clamp_min(TINY)
+                temp = torch.tensor([EVAL_TEMPS[t % 4]], device=dev)
+                a = sample_with_temperature(logits, mask, temp, u)
+                torch.cuda.synchronize()
+                if not torch.equal(a, sample_with_temperature_plain(logits, mask, temp, u)):
+                    raise AssertionError(f"temperature_sample at E = 1 ({env.spec.name}, step "
+                                         f"{t}) differs from plain")
+                su = env.draw_step(TorchRandomSource(g), 1)
+                k = env.step_autoreset(state, acc, a, empty, su)
+                p = autoreset_step(env, host(state), host(acc), a.cpu(), empty.cpu(),
+                                   None if su is None else su.cpu())
+                bad = step_differences(host_output(k), p, type(state).INT_FIELDS)
+                if bad:
+                    raise AssertionError(f"{env.spec.name} step at E = 1: {bad} differ from plain")
+                steps += 1
+                state, acc, mask = k.state, k.acc, k.mask
+                if bool(k.done[0]):
+                    ends += 1
+                    break
+        if ends != games:
+            raise AssertionError(f"{env.spec.name} at E = 1: {ends} of {games} games ended")
+        out[env.spec.name] = {"games": games, "steps": steps, "tol": "exact",
+                              "seconds": time.time() - t0}
+    return out
+
+
+def host_output(k):
+    """An env step's outputs copied to the CPU."""
+    state = dataclasses.replace(
+        k.state, **{f.name: getattr(k.state, f.name).cpu() for f in dataclasses.fields(k.state)})
+    log = EpisodeLog(*(x.cpu() for x in (k.log.completed, k.log.total_rewards, k.log.length,
+                                         k.log.outcome, k.log.active_players)))
+    return k._replace(state=state, acc=EpisodeAccumulator(k.acc.reward_sum.cpu(), k.acc.length.cpu()),
+                      rewards=k.rewards.cpu(), done=k.done.cpu(), log=log, obs=k.obs.cpu(),
+                      mask=k.mask.cpu(), priv=None if k.priv is None else k.priv.cpu())
+
+
+TOURNAMENT_GAMES = {"connect_four": 192, "skull": 48, "liars_dice": 192}
+TOURNAMENT_PLAYERS = {"skull": 4, "liars_dice": 4}
+# Besides the env step and K14: K7 for the pods whose models stack, and
+# K6 for a pod of one model and Random (Connect Four) or the per-model
+# path (Skull), whose models normalise their obs.
+TOURNAMENT_KERNELS = {"connect_four": {"opponent_actor_forward", "obs_norm_apply"},
+                      "skull": {"opponent_actor_forward", "obs_norm_apply"},
+                      "liars_dice": {"opponent_actor_forward"}}
+
+
+def tournament_phase(tmp: Path, card_line: str) -> dict:
+    """Phase ``tournament`` (its own process): the three gauntlets as
+    ``scripts/gauntlet.py rate`` runs them (the entries with a model.npz,
+    sorted, plus Random; 64 envs, seed 0; Skull and Liar's Dice at 4
+    players; the format the field gives: round robin), through the port's
+    ``tournament`` command on the card, 48 games a pod on Skull and 192 on
+    Connect Four and Liar's Dice. Every entry rated above Random by more
+    than 2 of its own sigma, and within 4 combined sigma of
+    ``gauntlet/<env>/ratings_r4.json``; the pods that stacked their models
+    for K7 and those that took the per-model path counted (Skull's field
+    mixes CTDE 512x2 tanh with obs norm and CTDE 256x3 relu without: both
+    must occur)."""
+    out: dict = {"card": card_line}
+    t_phase = time.time()
+    launches_total = {name: 0 for name in WRAPPERS}
+    for env_name, games in TOURNAMENT_GAMES.items():
+        env_dir = GAUNTLET / env_name
+        entries = sorted(p for p in env_dir.iterdir() if p.is_dir() and (p / "model.npz").exists())
+        res_path = tmp / f"{env_name}.json"
+        players = TOURNAMENT_PLAYERS.get(env_name)
+        argv = ["tournament", *map(str, entries), "--random", "-n", str(games), "--num-envs", "64",
+                "--seed", "0", "-o", str(res_path)] + (["--players", str(players)] if players else [])
+        step_kernel = f"{env_name}_step_autoreset"
+        run = front_end_run(argv, {step_kernel, "temperature_sample",
+                                   *TOURNAMENT_KERNELS[env_name]})
+        res = json.loads(res_path.read_text())
+        ref = {r["name"]: r for r in json.loads((env_dir / "ratings_r4.json").read_text())["rankings"]}
+        rows = {r["name"]: r for r in res["rankings"]}
+        base = rows["Random"]["rating"]
+        table = []
+        for name in sorted(rows):
+            if name == "Random":
+                continue
+            r, j = rows[name], ref[name]
+            comb = math.hypot(r["uncertainty"], j["uncertainty"])
+            entry = {"name": name, "rating": r["rating"], "sigma": r["uncertainty"],
+                     "jax_rating": j["rating"], "jax_sigma": j["uncertainty"],
+                     "over_random_in_sigma": (r["rating"] - base) / r["uncertainty"],
+                     "from_jax_in_combined_sigma": (r["rating"] - j["rating"]) / comb}
+            table.append(entry)
+            if not entry["over_random_in_sigma"] > 2.0:
+                raise AssertionError(f"tournament {env_name}: {name} not 2 sigma above Random: "
+                                     f"{entry}")
+            if not abs(entry["from_jax_in_combined_sigma"]) < 4.0:
+                raise AssertionError(f"tournament {env_name}: {name} more than 4 combined sigma "
+                                     f"from ratings_r4.json: {entry}")
+        pods = Counter(p["logits"] for p in res["pods"])
+        L = run["launches"]
+        if L["temperature_sample"] != L[step_kernel] or L["temperature_sample"] % 64:
+            raise AssertionError(f"tournament {env_name}: launches {L}")
+        for name, n in L.items():
+            launches_total[name] += n
+        out[env_name] = {"seconds": run["wall_s"], "games_per_pod": games, "pods": len(res["pods"]),
+                         "pods_by_logits": dict(pods), "total_games": res["total_games"],
+                         "format": res["format"], "ratings": table, "launches": L}
+    sk = out["skull"]["pods_by_logits"]
+    if not (sk.get("stacked", 0) > 0 and sk.get("per_model", 0) > 0):
+        raise AssertionError(f"tournament skull: pods by logits {sk}: both K7 and per-model needed")
+    out["seconds"] = time.time() - t_phase
+    out["launches_total"] = launches_total
+    return out
+
+
 def main(argv: list) -> int:
     import argparse
 
@@ -3063,6 +3511,12 @@ def main(argv: list) -> int:
         "return_norm_finalize": check_return_norm_finalize(dev, g),
         "liars_dice_step_autoreset": liars_dice,
     }
+    # K14 on a generator of its own, so that the inputs of the checks above
+    # stay those of the earlier trees.
+    g14 = torch.Generator(device=dev).manual_seed(14)
+    _, c4_state, _ = connect_four_states(dev, g14)
+    checks["temperature_sample"] = check_temperature_sample(
+        dev, g14, ConnectFour().action_mask(c4_state), skull_mask, ld_mask, ptxas)
     screen_device_times(checks)
     emit("kernels_vs_plain", card=card_line, **checks)
     emit("graph_capture", card=card_line, **check_graph_capture(dev, g, ld_obs))
@@ -3102,18 +3556,34 @@ def main(argv: list) -> int:
             emit(phase, **out)
         emit("update_idle_share", **phase_in_process(ROOT, "update_idle_shares"))
         emit("resume", **resume_phase(Path(d), card_line))
+        # The front ends, each in a process of its own, through cli.main.
+        front = {"eval": phase_in_process(ROOT, "eval_phase"),
+                 "tournament": phase_in_process(ROOT, "tournament_phase")}
+        watched = front["eval"]["watch"]["connect_four"]
+        print("\n".join(["watched connect_four game:"] + watched["move_lines"]
+                         + watched["final"]), flush=True)
+        for env_name in TOURNAMENT_GAMES:
+            t = front["tournament"][env_name]
+            print(f"tournament {env_name}: {t['seconds']:.1f} s, pods {t['pods_by_logits']}; "
+                  + "; ".join(f"{e['name']} {e['rating']:.1f}±{e['sigma']:.1f} (JAX "
+                              f"{e['jax_rating']:.1f}±{e['jax_sigma']:.1f})" for e in t["ratings"]),
+                  flush=True)
+        for phase, res in front.items():
+            emit(phase, **res)
         if args.parent is not None:
             for name, phase in (("bench_train_turns", "bench_train"),
                                 ("bench_selfplay_pool_turns", "selfplay_pool_train")):
                 emit(name, card=card_line, **train_turns(args.parent.resolve(), phase))
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
 
-    # Launches: the sum over the eight train phases, each counted from 0.
+    # Launches: the sum over the eight train phases and the front ends'
+    # runs, each counted from 0.
     table = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            "launches": sum(r["launches"][name] for r in runs.values()),
+            "launches": sum(r["launches"][name] for r in runs.values())
+            + sum(f["launches_total"][name] for f in front.values()),
             **{k: checks[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
         }

@@ -21,7 +21,7 @@ from burn_ppo_torch.envs.cartpole import CartPole, cartpole_step_autoreset  # no
 from burn_ppo_torch.envs.connect_four import ConnectFour, connect_four_step_autoreset  # noqa: E402
 from burn_ppo_torch.envs.liars_dice import LiarsDice, liars_dice_step_autoreset  # noqa: E402
 from burn_ppo_torch.envs.skull import Skull, skull_step_autoreset  # noqa: E402
-from burn_ppo_torch.ops.categorical import masked_sample  # noqa: E402
+from burn_ppo_torch.ops.categorical import masked_sample, sample_with_temperature  # noqa: E402
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer  # noqa: E402
 from burn_ppo_torch.envs.base import EpisodeLog  # noqa: E402
 from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs  # noqa: E402
@@ -39,7 +39,7 @@ from burn_ppo_torch.ppo.update import LossBook, PPOUpdateConfig, clip_adam, ppo_
 WRAPPERS = (cartpole_step_autoreset, connect_four_step_autoreset, masked_sample, compute_gae,
             compute_gae_multiplayer, obs_norm_apply, obs_norm_update, opponent_actor_forward,
             ppo_loss, clip_adam, summarize_episode_logs, skull_step_autoreset, return_norm_roll,
-            return_norm_finalize)
+            return_norm_finalize, sample_with_temperature)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -517,3 +517,64 @@ def test_return_norm_finalize_wrapper_passes_the_states_scratch(monkeypatch):
     state.scratch = None
     with pytest.raises(ValueError, match="scratch"):
         return_norm_finalize(state, samples, rewards)
+
+
+def test_front_end_modules_import_with_jax_blocked():
+    """eval, tournament, human and utils are the port's own: none of them
+    reaches JAX or the JAX package."""
+    code = textwrap.dedent(
+        """
+        import sys
+        for name in ("jax", "jaxlib", "flax", "optax", "burn_ppo_tpu"):
+            sys.modules[name] = None
+        import burn_ppo_torch.eval, burn_ppo_torch.tournament, burn_ppo_torch.human
+        import burn_ppo_torch.utils, burn_ppo_torch.cli
+        print(burn_ppo_torch.eval.run_stats_mode.__module__)
+        """
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "burn_ppo_torch.eval"
+
+
+@pytest.mark.parametrize("per_row", [True, False])
+def test_temperature_sample_wrapper_launches_once_and_allocates_only_the_output(monkeypatch,
+                                                                              per_row):
+    """K14's CUDA path with a stand-in library: one launch with the logits,
+    the mask, the temperatures (or null and the one temperature), the
+    uniforms and the output; the wrapper allocates the output alone."""
+    lib = _cuda_path_on_cpu(monkeypatch, sample_with_temperature)
+    before = sample_with_temperature.launches
+    rows, A = 6, 33
+    logits, mask, uni = torch.zeros(rows, A), torch.ones(rows, A), torch.full((rows, A), 0.5)
+    temps = torch.tensor([0.0, 0.4, 1.0, 1e-3, 0.0, 2.0]) if per_row else 0.25
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append((a, k)) or real_empty(*a, **k))
+    out = sample_with_temperature(logits, mask, temps, uni)
+    (name, args), = lib.calls
+    assert name == "temperature_sample"
+    assert len(args) == len(kernels.SIGNATURES["temperature_sample"])
+    assert args[0] == logits.data_ptr() and args[1] == mask.data_ptr()
+    if per_row:
+        assert args[2] == temps.data_ptr() and args[3] == 0.0
+    else:
+        assert args[2] is None and args[3] == 0.25
+    assert args[4] == uni.data_ptr() and args[5] == out.data_ptr() and args[6:8] == (rows, A)
+    assert out.shape == (rows,) and out.dtype == torch.int32
+    assert len(made) == 1
+    assert sample_with_temperature.launches == before + 1
+    lib.calls.clear()
+    sample_with_temperature(logits, None, temps, uni)
+    (_, args), = lib.calls
+    assert args[1] is None
+
+
+def test_temperature_sample_takes_the_plain_path_on_cpu():
+    before = sample_with_temperature.launches
+    logits = torch.tensor([[1.0, 3.0, 3.0, 0.0], [0.0, 0.0, 0.0, 0.0]])
+    mask = torch.tensor([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 0.0, 0.0]])
+    got = sample_with_temperature(logits, mask, torch.zeros(2), torch.full((2, 4), 0.5))
+    assert got.tolist() == [2, 1]  # greedy: the last of the tied maxima
+    assert sample_with_temperature.launches == before

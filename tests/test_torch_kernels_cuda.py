@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K13 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K14 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -21,6 +21,8 @@ from burn_ppo_torch.ops.categorical import (
     apply_action_mask,
     masked_sample,
     masked_sample_plain,
+    sample_with_temperature,
+    sample_with_temperature_plain,
 )
 from burn_ppo_torch.ops.gae import (
     compute_gae,
@@ -1623,3 +1625,62 @@ def test_a_train_step_does_not_sync_with_the_host(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert float(metrics["num_minibatch_updates"]) >= 1
+
+
+def temperature_inputs(dev, rows, A, seed, ties=True):
+    """Logits, a mask with at least one legal action a row, per-row
+    temperatures mixed from 0, 0.4, 1 and 1e-3, and uniforms; a third of
+    the rows hold exact ties between two legal columns."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(rows, A, generator=g, device=dev) * 2
+    mask = (torch.rand(rows, A, generator=g, device=dev) > 0.3).float()
+    mask[:, A - 1] = 1.0
+    if ties and A > 1:
+        tied = torch.rand(rows, generator=g, device=dev) < 0.33
+        cols = torch.randperm(A, generator=g, device=dev)[:2]
+        logits[tied.nonzero()[:, 0][:, None], cols[None, :]] = 9.0
+        mask[tied.nonzero()[:, 0][:, None], cols[None, :]] = 1.0
+    choice = torch.tensor([0.0, 0.4, 1.0, 1e-3], device=dev)
+    temps = choice[torch.randint(0, 4, (rows,), generator=g, device=dev)]
+    uni = torch.rand(rows, A, generator=g, device=dev).clamp_min(TINY)
+    return logits, mask, temps, uni
+
+
+@pytest.mark.parametrize("rows, A", [(1, 7), (64, 7), (64, 33), (64, 49), (1024, 49), (5, 2),
+                                     (33, 8), (65, 9), (3, 64), (1, 1)])
+def test_temperature_sample_kernel_equals_plain(dev, rows, A):
+    """K14's actions are the plain version's at every row, per-row
+    temperatures, with and without the mask, and at one temperature for
+    all rows (0 and 0.7)."""
+    logits, mask, temps, uni = temperature_inputs(dev, rows, A, rows * 100 + A)
+    for m in (mask, None):
+        for t in (temps, 0.0, 0.7):
+            got = sample_with_temperature(logits, m, t, uni)
+            torch.cuda.synchronize()
+            want = sample_with_temperature_plain(logits, m, t, uni)
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+            if m is not None:
+                assert bool(torch.all(torch.gather(m, 1, got.long()[:, None]) > 0))
+
+
+def test_temperature_sample_kernel_breaks_greedy_ties_to_the_last_index(dev):
+    """Every column tied: greedy rows take the last legal column, across
+    all of a row's lanes."""
+    for A in (2, 7, 33, 49, 64):
+        logits = torch.zeros(96, A, device=dev)
+        mask = torch.ones(96, A, device=dev)
+        mask[1::2, A - 1] = 0.0  # odd rows: the last legal is A - 2
+        got = sample_with_temperature(logits, mask, 0.0, torch.full((96, A), 0.5, device=dev))
+        want = torch.where(torch.arange(96, device=dev) % 2 == 1, A - 2, A - 1)
+        assert torch.equal(got.long(), want) or A == 1
+
+
+def test_temperature_sample_kernel_refuses_what_it_cannot_take(dev):
+    logits, mask, temps, uni = temperature_inputs(dev, 8, 65, 0, ties=False)
+    with pytest.raises(ValueError, match="at most 64"):
+        sample_with_temperature(logits, mask, temps, uni)
+    logits, mask, temps, uni = temperature_inputs(dev, 8, 7, 0)
+    with pytest.raises(ValueError, match="temperature"):
+        sample_with_temperature(logits, mask, temps[:4], uni)
+    with pytest.raises(ValueError, match="contiguous"):
+        sample_with_temperature(logits.t().contiguous().t(), mask, temps, uni)

@@ -315,7 +315,7 @@ def test_every_kernel_wrapper_is_registered_once():
     from burn_ppo_torch.envs.connect_four import connect_four_step_autoreset
     from burn_ppo_torch.envs.liars_dice import liars_dice_step_autoreset
     from burn_ppo_torch.envs.skull import skull_step_autoreset
-    from burn_ppo_torch.ops.categorical import masked_sample
+    from burn_ppo_torch.ops.categorical import masked_sample, sample_with_temperature
     from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
     from burn_ppo_torch.ppo import normalization as norm
     from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs
@@ -326,7 +326,7 @@ def test_every_kernel_wrapper_is_registered_once():
             skull_step_autoreset, masked_sample, compute_gae, compute_gae_multiplayer,
             norm.obs_norm_apply, norm.obs_norm_update, norm.return_norm_roll,
             norm.return_norm_finalize, summarize_episode_logs, opponent_actor_forward,
-            clip_adam, ppo_loss}
+            clip_adam, ppo_loss, sample_with_temperature}
     assert len(kernels.WRAPPERS) == len(set(kernels.WRAPPERS)) == len(want)
     assert set(kernels.WRAPPERS) == want
     assert all(isinstance(w.launches, int) for w in kernels.WRAPPERS)
