@@ -8,6 +8,7 @@ so each package loads what the other writes:
         optimizer.npz      optax chain state leaves: count, mu..., nu...
         obs_norm.npz       (mean, m2, count)   when normalize_obs
         return_norm.npz    (returns, mean, m2, count)
+        popart.npz         (mean, m2, count)   when normalize_values
         generator_state.npz  the port's device generator (``torch.Generator``
                            state bytes), one leaf
         metadata.json

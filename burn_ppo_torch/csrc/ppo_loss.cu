@@ -48,6 +48,20 @@
 //   where run: sums += the 14 metrics (f32), count += 1, and
 //              stop = approx_kl > target_kl (in double; target_kl < 0:
 //              no early stop).
+// PopArt (normalize_values, ROADMAP B18): with the value normaliser's
+// state given (mean, m2, count, f32 scalars on the device), the row pass
+// normalises the returns and old values as burn_ppo_tpu/ppo/update.py:
+// 164-166 does, (x - mean) / std once the count is >= 2, before the value
+// loss and its metrics.
+// The adaptive entropy controller (ROADMAP B19): with its state given
+// (coef, last entropy: f32; has-entropy: bool), the coefficient is the
+// state's; on the update's first minibatch (ent_step) every block steps it
+// from the target in ent_coef (burn_ppo_tpu/ppo/entropy.py:49-80, Rust's
+// signum through copysign) before its rows read it, and the finalize
+// stores it. Every finalize records the update's mean entropy so far,
+// sums[entropy] / max(count, 1): after the update's last minibatch, KL
+// stop or not, the state holds the mean the JAX package records
+// (train.py:240-245), with no launch of its own.
 // Gradient rules at ties follow JAX: d max(a, b) splits 1/2 - 1/2 where
 // a == b, and jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)) passes 1/2
 // of the gradient at x == lo or x == hi. Masked actions (additive -1e9)
@@ -196,7 +210,37 @@ struct RowArgs {
   int* book_run;
   int can_be_empty;
   double target_kl;
+  // PopArt's state (all null: off).
+  const float* pa_mean;
+  const float* pa_m2;
+  const float* pa_count;
+  // The entropy controller's state (all null: off; ent_coef is then the
+  // coefficient, else the step's target), whether this launch steps it,
+  // and its clamp and step.
+  float* ent_cur;
+  float* ent_last;
+  bool* ent_has;
+  int ent_step;
+  float ent_min, ent_max, ent_delta;
 };
+
+// PopArt's std: 1 before two samples, else sqrt(m2 / max(count, 1) + 1e-4),
+// each operation rounded on its own as the plain version rounds it.
+__device__ __forceinline__ float popart_std(float m2, float count) {
+  if (count < 2.0f) return 1.0f;
+  return sqrtf(__fadd_rn(__fdiv_rn(m2, fmaxf(count, 1.0f)), 1e-4f));
+}
+
+// The entropy coefficient of this minibatch: the scalar given, or the
+// controller's, stepped on the update's first minibatch.
+__device__ __forceinline__ float entropy_coef(const RowArgs& g) {
+  if (g.ent_cur == nullptr) return *g.ent_coef;
+  const float cur = *g.ent_cur;
+  if (!g.ent_step || !*g.ent_has) return cur;
+  const float error = __fsub_rn(*g.ent_coef, *g.ent_last);
+  const float moved = __fadd_rn(cur, __fmul_rn(g.ent_delta, copysignf(1.0f, error)));
+  return fminf(g.ent_max, fmaxf(g.ent_min, moved));
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -288,7 +332,10 @@ __global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
   }
   __syncthreads();
   const AdvStats s = st;
-  const float ent_coef = *g.ent_coef;
+  const float ent_coef = entropy_coef(g);
+  const bool popart = g.pa_count != nullptr && *g.pa_count >= 2.0f;
+  const float pa_mean = popart ? *g.pa_mean : 0.0f;
+  const float pa_std = popart ? popart_std(*g.pa_m2, *g.pa_count) : 1.0f;
   double v[NSUM] = {};
   for (int t = first; t < tiles; t += step) {
     if (t != first) issue(t);
@@ -363,10 +410,13 @@ __global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
       const float pmax = jmax(-an * ratio, -an * rc, &g1, &g2);
       const float dpmax_dr = g1 * -an + g2 * (-an * dclip);
 
-      const float val = col[VAL * WR + r], ret = col[RET * WR + r];
+      const float val = col[VAL * WR + r];
+      float ret = col[RET * WR + r];
+      if (popart) ret = __fdiv_rn(__fsub_rn(ret, pa_mean), pa_std);
       float vl, dvl;
       if (g.clip_value) {
-        const float ov = col[OV * WR + r];
+        float ov = col[OV * WR + r];
+        if (popart) ov = __fdiv_rn(__fsub_rn(ov, pa_mean), pa_std);
         float dd, h1, h2;
         const float vcl = ov + jclip(val - ov, -g.eps, g.eps, &dd);
         const float e1 = val - ret, e2 = vcl - ret;
@@ -507,6 +557,11 @@ __global__ void __launch_bounds__(THREADS, 2) ppo_loss_rows_kernel(RowArgs g) {
     if (g.target_kl >= 0.0 && static_cast<double>(out[4]) > g.target_kl) *g.book_stop = 1;
   }
   *g.book_run = run;
+  if (g.ent_cur != nullptr) {
+    if (g.ent_step) *g.ent_cur = ent_coef;
+    *g.ent_last = __fdiv_rn(g.book_sums[2], fmaxf(*g.book_count, 1.0f));
+    *g.ent_has = true;
+  }
 }
 
 // The row pass as a programmatic dependent launch of the stats pass: its
@@ -559,7 +614,9 @@ cudaError_t launch_rows(const RowArgs& a, cudaStream_t s) {
 extern "C" int ppo_loss_scratch_len() { return 3 * STATS_BLOCKS + NSUM * ROW_BLOCKS + 1; }
 
 // out: [15] f32; A in [1, 64]; ent_coef: f32 scalar. book_sums (f32
-// [14]), book_count (f32), book_stop and book_run (i32).
+// [14]), book_count (f32), book_stop and book_run (i32). pa_mean, pa_m2,
+// pa_count: PopArt's f32 scalars, or all null; ent_cur, ent_last (f32)
+// and ent_has (bool): the entropy controller's state, or all null.
 extern "C" int ppo_loss_forward(const void* logits, const void* values, const void* mask,
                                 const void* actions, const void* old_lp, const void* adv,
                                 const void* returns, const void* old_values,
@@ -568,7 +625,9 @@ extern "C" int ppo_loss_forward(const void* logits, const void* values, const vo
                                 void* scratch, void* out, void* dlogits, void* dvalues,
                                 void* book_sums, void* book_count, void* book_stop,
                                 void* book_run, int can_be_empty, double target_kl,
-                                void* stream) {
+                                const void* pa_mean, const void* pa_m2, const void* pa_count,
+                                void* ent_cur, void* ent_last, void* ent_has, int ent_step,
+                                float ent_min, float ent_max, float ent_delta, void* stream) {
   if (M <= 0 || A < 1 || A > MAX_A) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   double* stats = static_cast<double*>(scratch);
@@ -616,6 +675,16 @@ extern "C" int ppo_loss_forward(const void* logits, const void* values, const vo
   a.book_run = static_cast<int*>(book_run);
   a.can_be_empty = can_be_empty;
   a.target_kl = target_kl;
+  a.pa_mean = static_cast<const float*>(pa_mean);
+  a.pa_m2 = static_cast<const float*>(pa_m2);
+  a.pa_count = static_cast<const float*>(pa_count);
+  a.ent_cur = static_cast<float*>(ent_cur);
+  a.ent_last = static_cast<float*>(ent_last);
+  a.ent_has = static_cast<bool*>(ent_has);
+  a.ent_step = ent_step;
+  a.ent_min = ent_min;
+  a.ent_max = ent_max;
+  a.ent_delta = ent_delta;
   // Lanes per row: 2 for rows up to 8 wide (16 rows a pass), else 8;
   // entries per lane: the row's width over its lanes, rounded up.
   switch (A <= 8 ? (A + 1) / 2 : 4 + (A + 7) / 8) {

@@ -16,7 +16,8 @@ exception, because a refused launch never runs and a later
 The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
 ``envs/connect_four.py``, ``envs/skull.py``, ``envs/liars_dice.py``,
 ``ops/categorical.py`` (K2 and K14),
-``ops/gae.py``, ``ppo/normalization.py``, ``ppo/pool_rollout.py``,
+``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
+``ppo/pool_rollout.py``,
 ``ppo/update.py``, ``ppo/episode_stats.py``) and use the helpers below.
 Each registers itself with :func:`counted`, which gives it a ``launches``
 count: the wrapper adds one where it launches its kernel, and nowhere
@@ -89,9 +90,11 @@ SIGNATURES = {
     # M, A, eps, lo, hi, clip_value, value_coef, ent_coef (f32 scalar),
     # scratch (f64 [ppo_loss_scratch_len()]), out, dlogits, dvalues, the
     # bookkeeping (sums, count, stop, run), can_be_empty,
-    # target_kl (double), stream
+    # target_kl (double), PopArt's mean, m2, count (nullable), the entropy
+    # controller's coef, last entropy, has-entropy (nullable), its step
+    # flag, min, max, delta, stream
     "ppo_loss_forward": ([_VP] * 9 + [_I] * 2 + [_F] * 3 + [_I, _F] + [_VP] * 9
-                         + [_I, _D, _VP]),
+                         + [_I, _D] + [_VP] * 6 + [_I] + [_F] * 3 + [_VP]),
     "ppo_loss_scratch_len": [],
     # params, grads, mu, nu, partial, n, partial's length, lr (f32 scalar),
     # count (i32 scalar), run (i32 scalar), the bias-correction
@@ -116,6 +119,13 @@ SIGNATURES = {
     # packed state, shaping, reward_sum, length, action, reset and step
     # uniforms, the i32 and the f32 output buffer, num_envs, stream
     "liars_dice_step_autoreset": [_VP] * 9 + [_I, _VP],
+    # returns, valid, N, mean, m2, count (merged into in place), the value
+    # head's weight and bias (rescaled in place), H, scratch (f64
+    # [popart_update_scratch_len()]), its length, stream
+    "popart_update": [_VP, _VP, _L] + [_VP] * 5 + [_I, _VP, _I, _VP],
+    "popart_update_scratch_len": [],
+    # x, mean, m2, count, out, n, stream
+    "popart_denormalize": [_VP] * 5 + [_L, _VP],
 }
 
 _LOCK = threading.Lock()

@@ -144,6 +144,14 @@ class ActorCriticNetwork(nn.Module):
     def is_ctde(self) -> bool:
         return self.network_type == "ctde"
 
+    def value_head_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The value head's weight as JAX's kernel [H, 1] and its bias [1]
+        (network.py:260-270): detached views of the parameters' storage, so
+        PopArt's rescale writes the parameters in place. The MLP's and the
+        CNN's head, or the CTDE critic's."""
+        head = self.value_head
+        return head.weight.detach().view(-1, 1), head.bias.detach()
+
     def forward_actor(self, obs: torch.Tensor) -> torch.Tensor:
         """Policy logits [B, A] from the obs alone."""
         if self.is_ctde:

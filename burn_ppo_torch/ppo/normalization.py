@@ -21,9 +21,20 @@
   ``envs/cartpole.py``). The finalize's f64 scratch is made once, with
   the state (``ReturnNormState.scratch``), so no call allocates it.
 
-PopArt (``normalize_values``) is not ported (ROADMAP A14): no ported
-config or checkpoint uses it. Stats are device tensors, so nothing here
-waits for the device.
+* ``PopArtState`` — PopArt's value normalizer (``normalize_values``,
+  normalization.py:243-317): a scalar Welford mean and M2 of the raw
+  returns. The critic learns normalized values; the rollout and the
+  bootstrap denormalize its outputs (``popart_denormalize``, kernel K16,
+  ``csrc/popart.cu``), and once per update ``popart_update_rescale``
+  merges the batch's valid returns into the stats and rescales the value
+  head in place so that its denormalized outputs are unchanged (kernel
+  K15, one cooperative launch; ROADMAP B18). The loss normalizes the
+  returns and old values with the new stats inside K8
+  (``ppo/update.py``). ``popart_update``, ``popart_normalize``,
+  ``popart_denormalize_plain`` and ``popart_rescale_value_head`` are the
+  JAX package's functions in plain PyTorch.
+
+Stats are device tensors, so nothing here waits for the device.
 """
 
 from __future__ import annotations
@@ -354,3 +365,173 @@ def return_norm_finalize(
 
 
 kernels.counted(return_norm_finalize)
+
+
+# ---------------------------------------------------------------------------
+# PopArt value normalizer
+# ---------------------------------------------------------------------------
+POPART_EPS = 1e-4
+
+
+@dataclass
+class PopArtState:
+    """Scalar Welford stats of the raw returns, 0-dim f32 tensors made
+    once: the update merges into them in place, so the rollout and update
+    graphs read them where they were captured."""
+
+    mean: torch.Tensor
+    m2: torch.Tensor
+    count: torch.Tensor
+    # K15's f64 scratch on a CUDA device (popart_scratch); None on the
+    # CPU. Holds nothing between calls, so a copy of the state shares it.
+    scratch: Optional[torch.Tensor] = field(default=None, metadata={"scratch": True})
+
+    @staticmethod
+    def create(device: torch.device) -> "PopArtState":
+        def z():
+            return torch.zeros((), dtype=torch.float32, device=device)
+
+        return PopArtState(mean=z(), m2=z(), count=z(),
+                           scratch=popart_scratch(torch.device(device)))
+
+    @property
+    def std(self) -> torch.Tensor:
+        """1.0 before 2 samples (normalization.rs:313-320); a device
+        expression."""
+        s = torch.sqrt(self.m2 / torch.clamp(self.count, min=1.0) + POPART_EPS)
+        return torch.where(self.count < 2.0, torch.ones_like(s), s)
+
+    @property
+    def initialized(self) -> torch.Tensor:
+        return self.count >= 2.0
+
+
+def popart_scratch(device: torch.device) -> Optional[torch.Tensor]:
+    """K15's f64 scratch on a CUDA ``device``: three block sums per block
+    of the largest grid it launches there; None on the CPU."""
+    if device.type == "cpu":
+        return None
+    with torch.cuda.device(device):
+        n = kernels.library().popart_update_scratch_len()
+    if n < 1:
+        raise RuntimeError(f"popart_update_rescale: no resident grid on {device}")
+    return torch.empty(n, dtype=torch.float64, device=device)
+
+
+def _batch_moments(returns: torch.Tensor, mask: Optional[torch.Tensor]):
+    """(n, mean, m2) of the valid returns, each f32: the sums in double,
+    the mean rounded to f32 before the squares about it are summed (JAX
+    forms every sum in f32)."""
+    x = returns.reshape(-1).to(torch.float64)
+    w = torch.ones_like(x) if mask is None else mask.reshape(-1).to(torch.float64)
+    n = torch.sum(w)
+    mean_b = (torch.sum(x * w) / torch.clamp(n, min=1.0)).to(torch.float32)
+    m2_b = torch.sum(torch.square(x - mean_b.to(torch.float64)) * w).to(torch.float32)
+    return n.to(torch.float32), mean_b, m2_b
+
+
+def popart_update(state: PopArtState, returns: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[PopArtState, torch.Tensor, torch.Tensor]:
+    """Merge a batch of raw returns: (the new state, the old mean, the old
+    std), new tensors; ``state`` is not written (normalization.py:271-285)."""
+    n, mean_b, m2_b = _batch_moments(returns, mask)
+    mean, m2, count = _welford_merge(state.mean, state.m2, state.count, mean_b, m2_b, n)
+    return (PopArtState(mean=mean, m2=m2, count=count, scratch=state.scratch),
+            state.mean.clone(), state.std)
+
+
+def popart_normalize(state: PopArtState, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(state.initialized, (x - state.mean) / state.std, x)
+
+
+def popart_denormalize_plain(state: PopArtState, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K16: ``x * std + mean`` once initialized."""
+    return torch.where(state.initialized, x * state.std + state.mean, x)
+
+
+def popart_rescale_value_head(kernel: torch.Tensor, bias: torch.Tensor, old_mean: torch.Tensor,
+                              old_std: torch.Tensor, new_mean: torch.Tensor,
+                              new_std: torch.Tensor, do_rescale: torch.Tensor):
+    """W' = W * s_old/s_new ; b' = (b*s_old + mu_old - mu_new)/s_new, where
+    ``do_rescale`` (normalization.py:297-317, reference src/ppo.rs:1599-1653):
+    the denormalized outputs survive the stats shift."""
+    new_kernel = kernel * (old_std / new_std)
+    new_bias = (bias * old_std + old_mean - new_mean) / new_std
+    return (torch.where(do_rescale, new_kernel, kernel), torch.where(do_rescale, new_bias, bias))
+
+
+def popart_update_rescale_plain(state: PopArtState, returns: torch.Tensor, valid: torch.Tensor,
+                                kernel: torch.Tensor, bias: torch.Tensor) -> None:
+    """Plain PyTorch K15, in place: ``popart_update`` on the valid raw
+    returns, then the value head (``kernel`` [H, 1], ``bias`` [1]) rescaled
+    where the new state is initialized (update.py:241-257)."""
+    new, old_mean, old_std = popart_update(state, returns, valid)
+    head = popart_rescale_value_head(kernel, bias, old_mean, old_std, new.mean, new.std,
+                                     new.initialized)
+    with torch.no_grad():
+        for dst, src in zip((kernel, bias, state.mean, state.m2, state.count),
+                            (*head, new.mean, new.m2, new.count)):
+            dst.copy_(src)
+
+
+def popart_update_rescale(state: PopArtState, returns: torch.Tensor, valid: torch.Tensor,
+                          kernel: torch.Tensor, bias: torch.Tensor) -> None:
+    """Merge the batch's valid raw returns ([N] f32, ``valid`` [N] f32)
+    into ``state`` and rescale the value head (``kernel`` [H, 1], ``bias``
+    [1], views of the parameters' storage) in place. CPU tensors take the
+    plain version; CUDA tensors launch K15 (one cooperative launch, the
+    state's scratch), or raise. Nothing is allocated, so a CUDA graph can
+    capture it."""
+    ts = [returns, valid, kernel, bias, state.mean, state.m2, state.count]
+    if kernels.on_cpu(*ts):
+        return popart_update_rescale_plain(state, returns, valid, kernel, bias)
+    N, H = returns.numel(), kernel.numel()
+    kernels.expect(returns, "returns", torch.float32, (N,))
+    kernels.expect(valid, "valid", torch.float32, (N,))
+    kernels.expect(kernel, "kernel", torch.float32, (H, 1))
+    kernels.expect(bias, "bias", torch.float32, (1,))
+    for t, name in ((state.mean, "mean"), (state.m2, "m2"), (state.count, "count")):
+        kernels.expect(t, name, torch.float32, ())
+    scratch = state.scratch
+    if scratch is None or scratch.device != returns.device:
+        raise ValueError("popart_update_rescale: CUDA tensors need the state's scratch on "
+                         "their device (PopArtState.create)")
+    kernels.expect(scratch, "scratch", torch.float64, (scratch.numel(),))
+    p = kernels.ptr
+    err = kernels.library().popart_update(
+        p(returns), p(valid), N, p(state.mean), p(state.m2), p(state.count), p(kernel), p(bias),
+        H, p(scratch), scratch.numel(), kernels.stream(returns.device))
+    kernels.check(err, "popart_update")
+    popart_update_rescale.launches += 1
+
+
+kernels.counted(popart_update_rescale)
+
+
+def popart_denormalize(state: PopArtState, x: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x * std + mean`` once initialized, into ``out`` (a new tensor
+    when None; it may be a view, such as a step's slice of the rollout's
+    values). CPU tensors take the plain version; CUDA tensors launch K16
+    (a thread an element), or raise."""
+    ts = [x, state.mean, state.m2, state.count] + ([] if out is None else [out])
+    if kernels.on_cpu(*ts):
+        y = popart_denormalize_plain(state, x)
+        return y if out is None else out.copy_(y)
+    n = x.numel()
+    kernels.expect(x, "x", torch.float32, x.shape)
+    if out is None:
+        out = torch.empty_like(x)
+    kernels.expect(out, "out", torch.float32, x.shape)
+    for t, name in ((state.mean, "mean"), (state.m2, "m2"), (state.count, "count")):
+        kernels.expect(t, name, torch.float32, ())
+    p = kernels.ptr
+    err = kernels.library().popart_denormalize(
+        p(x), p(state.mean), p(state.m2), p(state.count), p(out), n, kernels.stream(x.device))
+    kernels.check(err, "popart_denormalize")
+    popart_denormalize.launches += 1
+    return out
+
+
+kernels.counted(popart_denormalize)

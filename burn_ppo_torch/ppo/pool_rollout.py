@@ -41,7 +41,12 @@ from burn_ppo_torch import kernels
 from burn_ppo_torch.envs.base import Environment, EpisodeLog
 from burn_ppo_torch.models.core import activation_fn
 from burn_ppo_torch.ops.categorical import TINY, masked_sample
-from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, return_norm_roll
+from burn_ppo_torch.ppo.normalization import (
+    ObsNormState,
+    PopArtState,
+    obs_norm_apply,
+    return_norm_roll,
+)
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
     RolloutBatch,
@@ -49,6 +54,7 @@ from burn_ppo_torch.ppo.rollout import (
     RolloutCarry,
     apply_env_context,
     finish_rollout,
+    store_values,
 )
 
 ACTIVATIONS = {"relu": 1, "tanh": 2}
@@ -281,6 +287,7 @@ def pool_rollout_step(
     gamma: float,
     normalize_returns: bool,
     obs_clip: float = 10.0,
+    popart: Optional[PopArtState] = None,
 ) -> Tuple[RolloutCarry, PoolSeating]:
     """One vs-pool step of every env, its outputs written into slice ``t``
     of ``buffers``; the reseat draws slots in [0, ``slot_hi``), a 0-dim
@@ -297,6 +304,7 @@ def pool_rollout_step(
     obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
     logits, values = network(obs, carry.priv)
     actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
+    values = store_values(popart, values, buffers, t)  # denormalized (pool_rollout.py:161-162)
     learner_turn = (seat.learner_seat < 0) | (players == seat.learner_seat)
     if Ep > 0:
         acting_slot = torch.gather(seat.seat_opp[L:], 1, players[L:].long()[:, None])[:, 0]
@@ -358,6 +366,7 @@ def collect_rollouts_with_opponents(
     obs_clip: float = 10.0,
     env_context: Optional[dict] = None,
     buffers: Optional[RolloutBuffers] = None,
+    popart: Optional[PopArtState] = None,
 ) -> Tuple[RolloutCarry, PoolSeating, RolloutBatch, PoolStepLog]:
     """The vs-pool rollout. ``num_active`` (<= the stacked slot count)
     bounds the slots drawn at a reseat: an int (0 counts as 1), or the
@@ -379,7 +388,7 @@ def collect_rollouts_with_opponents(
             carry, seating = pool_rollout_step(
                 network, env, opponents, carry, seating, obs_norm, rng, buffers, t,
                 num_learner_envs=num_learner_envs, slot_hi=slot_hi, gamma=gamma,
-                normalize_returns=normalize_returns, obs_clip=obs_clip)
+                normalize_returns=normalize_returns, obs_clip=obs_clip, popart=popart)
         carry = finish_rollout(carry, buffers, normalize_returns=normalize_returns,
                                return_clip=return_clip, valid=buffers.valid)
     return carry, seating, buffers.batch(), pool_step_log(buffers)

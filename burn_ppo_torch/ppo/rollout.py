@@ -12,7 +12,9 @@ same addresses). Per step, in the reference's order:
   2. normalize the obs with the LAGGED obs-normalizer stats (kernel K6 on
      CUDA);
   3. network forward -> logits, value (the CTDE critic reads the
-     normalized obs and the RAW privileged obs, rollout.py:228-249);
+     normalized obs and the RAW privileged obs, rollout.py:228-249); with
+     PopArt the value is denormalized as it is stored (kernel K16 on CUDA,
+     rollout.py:253-254);
   4. masked Gumbel-max sample and log pi(a) (kernel K2 on CUDA);
   5. env step with auto-reset, episode log captured before the reset
      (kernel K1, K4, K11 or K13 on CUDA);
@@ -49,8 +51,10 @@ from burn_ppo_torch.envs.base import Environment, EpisodeAccumulator, EpisodeLog
 from burn_ppo_torch.ops.categorical import TINY, masked_sample
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
+    PopArtState,
     ReturnNormState,
     obs_norm_apply,
+    popart_denormalize,
     return_norm_finalize,
     return_norm_roll,
 )
@@ -276,9 +280,11 @@ def rollout_step(
     gamma: float,
     normalize_returns: bool,
     obs_clip: float = 10.0,
+    popart: Optional[PopArtState] = None,
 ) -> RolloutCarry:
     """One step of the learner on every env, its outputs written into slice
-    ``t`` of ``buffers``. Returns the carry after the step; its
+    ``t`` of ``buffers`` (the values denormalized with ``popart``, when
+    given). Returns the carry after the step; its
     ``return_norm`` holds the rolled returns, its stats and
     ``last_value_per_player`` are the rollout's start values."""
     E, A = carry.obs.shape[0], env.spec.num_actions
@@ -287,6 +293,7 @@ def rollout_step(
     obs = obs_norm_apply(obs_norm, carry.obs, obs_clip) if obs_norm is not None else carry.obs
     logits, values = network(obs, carry.priv)
     actions, log_probs = masked_sample(logits, carry.mask, rng.uniform((E, A), TINY, 1.0))
+    values = store_values(popart, values, buffers, t)
     step = (states, carry.episode_acc, actions, env.draw_reset(rng, E), env.draw_step(rng, E))
     # One player: the env step may fold the roll of slot 0 in.
     if normalize_returns and env.spec.num_players == 1:
@@ -308,6 +315,17 @@ def rollout_step(
         buffers.put(t, samples=samples)
     return dataclasses.replace(carry, env_states=out.state, episode_acc=out.acc,
                                return_norm=ret_norm, obs=out.obs, mask=out.mask, priv=out.priv)
+
+
+def store_values(popart: Optional[PopArtState], values: torch.Tensor, buffers: RolloutBuffers,
+                 t: int) -> Optional[torch.Tensor]:
+    """With PopArt, the learner's values denormalized straight into slice
+    ``t`` of the buffers' values (K16 on CUDA, in place of the copy) and
+    None returned; else ``values``, for ``RolloutBuffers.put``."""
+    if popart is None:
+        return values
+    popart_denormalize(popart, values, out=buffers.values[t])
+    return None
 
 
 def finish_rollout(
@@ -352,6 +370,7 @@ def collect_rollouts(
     obs_clip: float = 10.0,
     env_context: Optional[dict] = None,
     buffers: Optional[RolloutBuffers] = None,
+    popart: Optional[PopArtState] = None,
 ) -> Tuple[RolloutCarry, RolloutBatch, EpisodeLog]:
     """Single-player or pure self-play rollout (the learner acts every
     turn). Returns (carry', batch, episode logs [T, E]); the batch and the
@@ -364,7 +383,8 @@ def collect_rollouts(
     with torch.no_grad():
         for t in range(num_steps):
             carry = rollout_step(network, env, carry, obs_norm, rng, buffers, t, gamma=gamma,
-                                 normalize_returns=normalize_returns, obs_clip=obs_clip)
+                                 normalize_returns=normalize_returns, obs_clip=obs_clip,
+                                 popart=popart)
         carry = finish_rollout(carry, buffers, normalize_returns=normalize_returns,
                                return_clip=return_clip)
     return carry, buffers.batch(), buffers.log
@@ -376,16 +396,20 @@ def bootstrap_values(
     carry: RolloutCarry,
     obs_norm: Optional[ObsNormState],
     obs_clip: float = 10.0,
+    popart: Optional[PopArtState] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Value of the final env states for the GAE bootstrap.
 
     Returns (last_values [E], last_value_per_player [E, P]), the acting
     players' slots refreshed with this forward (rollout.py:331-363); CTDE
-    values come from the critic on the raw privileged obs (350-352)."""
+    values come from the critic on the raw privileged obs (350-352); with
+    ``popart`` denormalized (K16 on CUDA, 355-356)."""
     obs = carry.obs
     if obs_norm is not None:
         obs = obs_norm_apply(obs_norm, obs, obs_clip)
     with torch.no_grad():
         values = network(obs, carry.priv)[1]
+    if popart is not None:
+        values = popart_denormalize(popart, values)
     players = env.current_player(carry.env_states).long()[:, None]
     return values, carry.last_value_per_player.scatter(1, players, values[:, None])

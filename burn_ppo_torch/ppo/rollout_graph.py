@@ -10,8 +10,9 @@ from update to update, and writes its outputs into one ``RolloutBuffers``:
 * the carry (env states, episode accumulators, the return normalizer,
   the per-player last values, obs, mask and privileged obs), which the
   end of the rollout writes back;
-* the obs normalizer's stats: the update replaces them with new tensors
-  every update, so ``run`` copies them in;
+* the obs normalizer's stats and PopArt's value-normalizer stats: the
+  update merges into the runner's own in place, and ``run`` copies in
+  any others a caller hands it (never rebinding the runner's);
 * the scheduled shaping coefficient, a 0-dim device tensor that ``run``
   writes before each rollout (a host float would be baked into a graph);
 * on the vs-pool path, the seating (written back at the end, and copied
@@ -52,7 +53,7 @@ import torch
 
 from burn_ppo_torch import kernels
 from burn_ppo_torch.envs.base import Environment
-from burn_ppo_torch.ppo.normalization import ObsNormState
+from burn_ppo_torch.ppo.normalization import ObsNormState, PopArtState
 from burn_ppo_torch.ppo.pool_rollout import (
     OpponentStack,
     PoolSeating,
@@ -167,6 +168,13 @@ class CapturedGraph:
                 for w, c in zip(kernels.WRAPPERS, start):
                     w.launches = c
             self.graphs.append(graph)
+        # Each capture begins by resetting the generator's graph seed and
+        # offset tensors, shared by every graph registered with it, with
+        # kernels launched eagerly on the capture stream; the first replay
+        # writes them on the current stream. Unsynchronized, the last
+        # capture's reset could land after that write and the replay draw
+        # from offset 0, on a busy card.
+        torch.cuda.synchronize()
         type(self).captures += 1
 
     def _warm_up(self, steps, state: List[torch.Tensor], generator: torch.Generator) -> None:
@@ -240,6 +248,7 @@ class RolloutRunner:
         self.num_learner_envs = num_learner_envs
         self.carry: Optional[RolloutCarry] = None
         self.obs_norm: Optional[ObsNormState] = None
+        self.popart: Optional[PopArtState] = None
         self.shaping: Optional[torch.Tensor] = None
         self.seating: Optional[PoolSeating] = None
         self.opponents: Optional[OpponentStack] = None
@@ -252,10 +261,11 @@ class RolloutRunner:
     def pool(self) -> bool:
         return self.num_learner_envs is not None
 
-    def _allocate(self, network, carry, obs_norm, seating, opponents) -> None:
+    def _allocate(self, network, carry, obs_norm, popart, seating, opponents) -> None:
         device = carry.obs.device
         self.carry = _clone(carry)
         self.obs_norm = _clone(obs_norm)
+        self.popart = _clone(popart)
         if "shaping_coef" in self.env.context_fields:
             self.shaping = torch.zeros((), dtype=torch.float32, device=device)
         if self.pool:
@@ -267,17 +277,21 @@ class RolloutRunner:
 
     def run(self, network, carry: RolloutCarry, obs_norm: Optional[ObsNormState],
             rng: RandomSource, shaping_coef: float = 0.0, seating: Optional[PoolSeating] = None,
-            opponents: Optional[OpponentStack] = None, num_active: int = 0):
-        """One rollout from these inputs. Returns (carry, batch, episode
-        logs), or on the vs-pool path (carry, seating, batch,
-        ``PoolStepLog``): the runner's static carry and seating, and views
-        of its buffers, all of which the next run overwrites."""
+            opponents: Optional[OpponentStack] = None, num_active: int = 0,
+            popart: Optional[PopArtState] = None):
+        """One rollout from these inputs (``popart``: the value normalizer
+        that denormalizes the learner's values, or None). Returns (carry,
+        batch, episode logs), or on the vs-pool path (carry, seating,
+        batch, ``PoolStepLog``): the runner's static carry and seating, and
+        views of its buffers, all of which the next run overwrites."""
         if self.carry is None:
-            self._allocate(network, carry, obs_norm, seating, opponents)
+            self._allocate(network, carry, obs_norm, popart, seating, opponents)
         copy_into(self.carry, carry)
-        if (obs_norm is None) != (self.obs_norm is None):
-            raise ValueError("the obs normalizer cannot be switched on or off between rollouts")
-        copy_into(self.obs_norm, obs_norm)
+        for mine, given, what in ((self.obs_norm, obs_norm, "the obs normalizer"),
+                                  (self.popart, popart, "PopArt")):
+            if (given is None) != (mine is None):
+                raise ValueError(f"{what} cannot be switched on or off between rollouts")
+            copy_into(mine, given)
         if self.shaping is not None:
             self.shaping.fill_(shaping_coef)
         if self.pool:
@@ -303,7 +317,7 @@ class RolloutRunner:
         kw = dict(num_steps=self.num_steps, gamma=self.gamma,
                   normalize_returns=self.normalize_returns, return_clip=self.return_clip,
                   env_context=None if self.shaping is None else {"shaping_coef": self.shaping},
-                  buffers=self.buffers)
+                  buffers=self.buffers, popart=self.popart)
         if self.pool:
             carry, seating, _, _ = collect_rollouts_with_opponents(
                 network, self.env, self.opponents, self.carry, self.seating, self.obs_norm, rng,

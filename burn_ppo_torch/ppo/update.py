@@ -22,7 +22,14 @@ Counterpart of burn_ppo_tpu/ppo/update.py:71-431:
     whose valid flag is 0; a minibatch with no valid row (all pad, or all
     opponent turns on the vs-pool path: ``may_have_invalid``) is skipped;
   * the 14 metrics averaged over the minibatches run, plus the explained
-    variance.
+    variance;
+  * with PopArt (``normalize_values``), the loss on returns and old values
+    normalized with the value normalizer's new stats (update.py:164-166),
+    inside K8; the stats merge and the value head's rescale run before the
+    epochs (``ppo/update_graph.py prepare_update``, kernel K15);
+  * with the adaptive entropy controller, the first minibatch's K8 steps
+    it and every K8 records the update's mean entropy so far
+    (``ppo/entropy.py``): ``ent_coef`` is then the scheduled target.
 
 Nothing is read back to the host, so the update can be captured into
 CUDA graphs (``ppo/update_graph.py``). Every epoch's rows are
@@ -48,6 +55,12 @@ import torch
 from burn_ppo_torch import kernels
 from burn_ppo_torch.ops.categorical import apply_action_mask, entropy_from_logp, log_prob_from_logp
 from burn_ppo_torch.ops.gae import compute_explained_variance
+from burn_ppo_torch.ppo.entropy import (
+    AdaptiveEntropyState,
+    adaptive_entropy_record,
+    adaptive_entropy_step,
+)
+from burn_ppo_torch.ppo.normalization import PopArtState, popart_normalize
 from burn_ppo_torch.ppo.rollout import RandomSource
 
 
@@ -62,6 +75,10 @@ class PPOUpdateConfig:
     target_kl: Optional[float] = None
     adam_epsilon: float = 1e-5
     shuffle_block_rows: int = 0
+    # The adaptive entropy controller's clamp and step (when it is on).
+    ent_min_coef: float = 0.001
+    ent_max_coef: float = 0.1
+    ent_delta: float = 0.001
 
 
 ADAM_B1 = 0.9
@@ -351,12 +368,23 @@ def ppo_loss_plain(
     cfg: PPOUpdateConfig,
     book: LossBook,
     can_be_empty: bool = False,
+    popart: Optional[PopArtState] = None,
+    controller: Optional[AdaptiveEntropyState] = None,
+    ent_step: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K8: (loss, the 14 metrics [14], dL/dlogits [M, A],
     dL/dvalues [M]) of one minibatch, from the network's logits [M, A] and
     values [M] (burn_ppo_tpu/ppo/update.py:125-212 under value_and_grad,
     with JAX's gradient rules at ties), and its bookkeeping into ``book``
-    (``book_plain``)."""
+    (``book_plain``). With ``popart`` the returns and old values are
+    normalized with its stats; with ``controller`` (the adaptive entropy
+    controller's state) the coefficient is the
+    controller's (stepped first where ``ent_step``, ``ent_coef`` the
+    target) and the update's mean entropy so far is recorded."""
+    if controller is not None:
+        ent_coef = (adaptive_entropy_step(controller, ent_coef, cfg.ent_min_coef, cfg.ent_max_coef,
+                                          cfg.ent_delta)
+                    if ent_step else controller.coef.clone())
     w = mb["valid"]
     mask = mb.get("action_masks")
     logp = torch.log_softmax(apply_action_mask(logits, mask), dim=-1)
@@ -380,8 +408,12 @@ def ppo_loss_plain(
     dpmax_dr = g1 * -adv_n + g2 * (-adv_n * d_clip)
 
     returns = mb["returns"]
+    if popart is not None:
+        returns = popart_normalize(popart, returns)
     if cfg.clip_value:
         old_values = mb["old_values"]
+        if popart is not None:
+            old_values = popart_normalize(popart, old_values)
         dv, dv_clip = _jax_clip(values - old_values, -eps, eps)
         e1, e2 = values - returns, (old_values + dv) - returns
         vl, h1, h2 = _jax_max(torch.square(e1), torch.square(e2))
@@ -420,6 +452,8 @@ def ppo_loss_plain(
         metrics += [torch.zeros((), device=w.device)] * 2
     metrics = torch.stack(metrics)
     book_plain(book, metrics, w, cfg, can_be_empty)
+    if controller is not None:
+        adaptive_entropy_record(controller, book.sums[2] / torch.clamp(book.count, min=1.0))
     return loss, metrics, dlogits, dvalues
 
 
@@ -435,18 +469,28 @@ def ppo_loss_forward(
     cfg: PPOUpdateConfig,
     book: LossBook,
     can_be_empty: bool = False,
+    popart: Optional[PopArtState] = None,
+    controller: Optional[AdaptiveEntropyState] = None,
+    ent_step: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(loss, metrics [14], dL/dlogits, dL/dvalues) of one minibatch, the
     entropy coefficient a 0-dim f32 tensor, and its bookkeeping into
     ``book``. CPU tensors take the plain version; CUDA tensors launch K8
     (two launches: the advantage statistics, then the rows with the last
     block's finalize, which does the update's bookkeeping and writes the
-    loss and metrics into ``book.out``, in the book's scratch), or raise."""
+    loss and metrics into ``book.out``, in the book's scratch), or raise.
+    ``popart`` and ``controller`` (with ``ent_step``): as ``ppo_loss_plain``,
+    read and written on the device by the same two launches."""
     mask = mb.get("action_masks")
     cols = [mb[k] for k in LOSS_FIELDS]
-    ts = [logits, values, *cols, ent_coef, book.sums, book.count, book.stop, book.run, book.out]
+    pa = [] if popart is None else [popart.mean, popart.m2, popart.count]
+    ent = ([] if controller is None
+           else [controller.coef, controller.last_entropy, controller.has_entropy])
+    ts = [logits, values, *cols, ent_coef, book.sums, book.count, book.stop, book.run, book.out,
+          *pa, *ent]
     if kernels.on_cpu(*ts, *([] if mask is None else [mask])):
-        return ppo_loss_plain(logits, values, mb, ent_coef, cfg, book, can_be_empty)
+        return ppo_loss_plain(logits, values, mb, ent_coef, cfg, book, can_be_empty, popart,
+                              controller, ent_step)
     M, A = logits.shape
     if not 1 <= A <= _LOSS_MAX_ACTIONS:
         raise ValueError(f"ppo_loss: the kernel takes 1 to {_LOSS_MAX_ACTIONS} actions, got {A}")
@@ -469,6 +513,12 @@ def ppo_loss_forward(
     kernels.expect(book.count, "count", torch.float32, ())
     kernels.expect(book.stop, "stop", torch.int32, ())
     kernels.expect(book.run, "run", torch.int32, ())
+    for t, name in zip(pa, ("popart mean", "popart m2", "popart count")):
+        kernels.expect(t, name, torch.float32, ())
+    for t, name, dtype in zip(ent, ("coef", "last_entropy", "has_entropy"),
+                              (torch.float32, torch.float32, torch.bool)):
+        kernels.expect(t, name, dtype, ())
+    pa, ent = pa or [None] * 3, ent or [None] * 3
     dlogits = torch.empty_like(logits)
     dvalues = torch.empty_like(values)
     eps = cfg.clip_epsilon
@@ -479,7 +529,9 @@ def ppo_loss_forward(
         float(1.0 - eps), float(1.0 + eps), int(cfg.clip_value), float(cfg.value_coef),
         p(ent_coef), p(scratch), p(out), p(dlogits), p(dvalues), p(book.sums), p(book.count),
         p(book.stop), p(book.run),
-        int(can_be_empty), target_kl, kernels.stream(dev),
+        int(can_be_empty), target_kl, *(p(t) for t in pa), *(p(t) for t in ent), int(ent_step),
+        float(cfg.ent_min_coef), float(cfg.ent_max_coef), float(cfg.ent_delta),
+        kernels.stream(dev),
     )
     kernels.check(err, "ppo_loss_forward")
     ppo_loss.launches += 1
@@ -491,9 +543,11 @@ class _PPOLoss(torch.autograd.Function):
     forward and the backward scales them."""
 
     @staticmethod
-    def forward(ctx, logits, values, mb, ent_coef, cfg, book, can_be_empty):
+    def forward(ctx, logits, values, mb, ent_coef, cfg, book, can_be_empty, popart, controller,
+                ent_step):
         loss, metrics, dlogits, dvalues = ppo_loss_forward(
-            logits.detach(), values.detach(), mb, ent_coef, cfg, book, can_be_empty)
+            logits.detach(), values.detach(), mb, ent_coef, cfg, book, can_be_empty, popart,
+            controller, ent_step)
         ctx.save_for_backward(dlogits, dvalues)
         ctx.mark_non_differentiable(metrics)
         return loss, metrics
@@ -501,7 +555,7 @@ class _PPOLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_loss, _g_metrics):
         dlogits, dvalues = ctx.saved_tensors
-        return g_loss * dlogits, g_loss * dvalues, None, None, None, None, None
+        return (g_loss * dlogits, g_loss * dvalues) + (None,) * 8
 
 
 def ppo_loss(
@@ -512,13 +566,17 @@ def ppo_loss(
     cfg: PPOUpdateConfig,
     book: LossBook,
     can_be_empty: bool = False,
+    popart: Optional[PopArtState] = None,
+    controller: Optional[AdaptiveEntropyState] = None,
+    ent_step: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scalar loss (differentiable in ``logits`` and ``values``) and the 14
     metrics [14] in ``METRIC_KEYS`` order, the update's bookkeeping
-    (``LossBook``) done on the way."""
+    (``LossBook``) done on the way; ``popart``, ``controller`` and
+    ``ent_step`` as ``ppo_loss_forward`` takes them."""
     mb = {k: mb[k].contiguous() for k in LOSS_FIELDS + ("action_masks",) if mb.get(k) is not None}
     return _PPOLoss.apply(logits.contiguous(), values.contiguous(), mb, ent_coef, cfg, book,
-                          can_be_empty)
+                          can_be_empty, popart, controller, ent_step)
 
 
 kernels.counted(ppo_loss)
@@ -531,13 +589,17 @@ def minibatch_loss(
     cfg: PPOUpdateConfig,
     book: LossBook,
     can_be_empty: bool = False,
+    popart: Optional[PopArtState] = None,
+    controller: Optional[AdaptiveEntropyState] = None,
+    ent_step: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scalar loss (with autograd graph) + the detached metrics [14] in
     ``METRIC_KEYS`` order for one minibatch
     (burn_ppo_tpu/ppo/update.py:125-212); a CTDE network's values are its
     critic's on the minibatch's privileged obs."""
     logits, values = network(mb["obs"], mb.get("privileged_obs"))
-    return ppo_loss(logits, values, mb, ent_coef, cfg, book, can_be_empty)
+    return ppo_loss(logits, values, mb, ent_coef, cfg, book, can_be_empty, popart, controller,
+                    ent_step)
 
 
 @dataclass
@@ -545,8 +607,9 @@ class UpdatePlan:
     """What an update's epochs read, made before the first (``plan_update``):
     the padded [nmb x mb_size, ...] columns, every epoch's rows [epochs,
     nmb, mb_size] drawn up front, the device bookkeeping, the learning
-    rate and entropy coefficient as 0-dim tensors, and the unpadded data
-    (for the explained variance)."""
+    rate and entropy coefficient (with the controller on, its target) as
+    0-dim tensors, the unpadded data (for the explained variance), and
+    the value normalizer and entropy controller the loss reads, or None."""
 
     fields: Dict[str, torch.Tensor]
     rows: torch.Tensor
@@ -555,11 +618,14 @@ class UpdatePlan:
     ent_coef: torch.Tensor
     can_be_empty: bool
     data: Dict[str, torch.Tensor]
+    popart: Optional[PopArtState] = None
+    controller: Optional[AdaptiveEntropyState] = None
 
 
 def plan_update(data: Dict[str, torch.Tensor], rng: RandomSource, lr: torch.Tensor,
-                ent_coef: torch.Tensor, cfg: PPOUpdateConfig,
-                may_have_invalid: bool = False) -> UpdatePlan:
+                ent_coef: torch.Tensor, cfg: PPOUpdateConfig, may_have_invalid: bool = False,
+                popart: Optional[PopArtState] = None,
+                controller: Optional[AdaptiveEntropyState] = None) -> UpdatePlan:
     """The pad, every epoch's permutation and a fresh ``LossBook``; ``lr``
     and ``ent_coef`` 0-dim f32 tensors on the data's device."""
     N = data["actions"].shape[0]
@@ -583,16 +649,19 @@ def plan_update(data: Dict[str, torch.Tensor], rng: RandomSource, lr: torch.Tens
     perms = torch.stack([rng.permutation(num_blocks).to(device) for _ in range(cfg.num_epochs)])
     rows = (perms[:, :, None] * R + within).reshape(cfg.num_epochs, nmb, mb_size)
     return UpdatePlan(fields=fields, rows=rows, book=LossBook.create(device), lr=lr,
-                      ent_coef=ent_coef, can_be_empty=pad >= mb_size or may_have_invalid, data=data)
+                      ent_coef=ent_coef, can_be_empty=pad >= mb_size or may_have_invalid, data=data,
+                      popart=popart, controller=controller)
 
 
 def update_minibatch(network: torch.nn.Module, opt: AdamState, plan: UpdatePlan,
                      cfg: PPOUpdateConfig, epoch: int, m: int) -> None:
     """Minibatch ``m`` of ``epoch``: gathered by its device rows, its loss
     (K8, whose finalize decides whether it runs), backward, and K9, which
-    changes nothing where it does not run."""
+    changes nothing where it does not run. The update's first minibatch
+    steps the entropy controller."""
     mb = {k: v[plan.rows[epoch, m]] for k, v in plan.fields.items()}
-    loss, _ = minibatch_loss(network, mb, plan.ent_coef, cfg, plan.book, plan.can_be_empty)
+    loss, _ = minibatch_loss(network, mb, plan.ent_coef, cfg, plan.book, plan.can_be_empty,
+                             plan.popart, plan.controller, ent_step=epoch == 0 and m == 0)
     opt.flat_grads.zero_()
     loss.backward()
     clip_and_adam_step(opt, plan.lr, cfg, plan.book.run)
@@ -600,13 +669,20 @@ def update_minibatch(network: torch.nn.Module, opt: AdamState, plan: UpdatePlan,
 
 def update_metrics(plan: UpdatePlan) -> Dict[str, torch.Tensor]:
     """The 14 metrics averaged over the minibatches run, their count and
-    the explained variance, as device scalars."""
+    the explained variance (on the raw scale), as device scalars; with
+    PopArt its new mean and std (train.py:173-175), with the entropy
+    controller the coefficient the update used (train.py:246)."""
     book, data = plan.book, plan.data
     metrics = dict(zip(METRIC_KEYS, book.sums / torch.clamp(book.count, min=1.0)))
     metrics["num_minibatch_updates"] = book.count
     metrics["explained_variance"] = compute_explained_variance(
         data["old_values"], data["returns"], data["valid"]
     )
+    if plan.popart is not None:
+        metrics["value_norm/mean"] = plan.popart.mean.clone()
+        metrics["value_norm/std"] = plan.popart.std
+    if plan.controller is not None:
+        metrics["adaptive_ent_coef"] = plan.controller.coef.clone()
     return metrics
 
 

@@ -3,8 +3,11 @@ captured CUDA graphs on a card.
 
 Counterpart of the rest of the JAX package's fused train-step program
 (burn_ppo_tpu/train.py:110-249): after the rollout, the obs-normalizer
-merge, the bootstrap value, GAE, the batch's obs-norm apply, the
-flattening and padding, every epoch's minibatches
+merge, the bootstrap value (denormalized with PopArt's old stats), GAE,
+PopArt's merge of the raw returns and the value head's rescale (K15), the
+batch's obs-norm apply, the flattening and padding, every epoch's
+minibatches (the first stepping the adaptive entropy controller inside
+K8, every one recording the mean entropy)
 (burn_ppo_tpu/ppo/update.py:344-421, where ``lax.cond`` skips the
 minibatches after a KL stop and the empty ones), the runtime-guard
 counts and the episode summaries (K10): ``prepare_update``, then
@@ -19,12 +22,14 @@ update to update: the ``RolloutRunner``'s carry, obs-norm stats and
 ``RolloutBuffers`` (the update merges the batch into the runner's stats
 in place, so the next rollout reads them where they are), the
 network's flat parameter, gradient and moment buffers and the Adam
-count (``AdamState``), and the learning rate and entropy coefficient as
-0-dim device tensors that ``run`` fills. On the CPU it runs eagerly (the
-path the parity tests hold against JAX); on a card it replays CUDA
-graphs captured at the runner's first update after one eager warm-up on
-a side stream (the parameters, moments, count, obs-norm stats and the
-generator put back after it):
+count (``AdamState``), the runner's PopArt stats, the entropy
+controller's state (the runner's own, copied into from the caller's),
+and the learning rate and entropy coefficient (the controller's target
+when it is on) as 0-dim device tensors that ``run`` fills. On the CPU
+it runs eagerly (the path the parity tests hold against JAX); on a card
+it replays CUDA graphs captured at the runner's first update after one
+eager warm-up on a side stream (the parameters, moments, count, obs-norm
+and PopArt stats, the controller and the generator put back after it):
 
 * without ``target_kl``, one graph of the whole update: nothing can stop
   a minibatch;
@@ -62,7 +67,14 @@ from burn_ppo_torch.config import Config
 from burn_ppo_torch.envs.base import Environment
 from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
 from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs
-from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply, obs_norm_update
+from burn_ppo_torch.ppo.entropy import AdaptiveEntropyState
+from burn_ppo_torch.ppo.normalization import (
+    ObsNormState,
+    PopArtState,
+    obs_norm_apply,
+    obs_norm_update,
+    popart_update_rescale,
+)
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
     RolloutBatch,
@@ -70,7 +82,13 @@ from burn_ppo_torch.ppo.rollout import (
     TorchRandomSource,
     bootstrap_values,
 )
-from burn_ppo_torch.ppo.rollout_graph import CapturedGraph, RolloutRunner, state_leaves
+from burn_ppo_torch.ppo.rollout_graph import (
+    CapturedGraph,
+    RolloutRunner,
+    _clone,
+    copy_into,
+    state_leaves,
+)
 from burn_ppo_torch.ppo.update import (
     AdamState,
     PPOUpdateConfig,
@@ -92,6 +110,9 @@ def update_config(cfg: Config) -> PPOUpdateConfig:
         target_kl=cfg.target_kl,
         adam_epsilon=cfg.adam_epsilon,
         shuffle_block_rows=cfg.shuffle_block_rows,
+        ent_min_coef=cfg.adaptive_entropy_min_coef,
+        ent_max_coef=cfg.adaptive_entropy_max_coef,
+        ent_delta=cfg.adaptive_entropy_delta,
     )
 
 
@@ -110,17 +131,21 @@ def guard_counts(batch: RolloutBatch) -> Dict[str, torch.Tensor]:
 def prepare_update(env: Environment, cfg: Config, network: torch.nn.Module,
                    carry: RolloutCarry, batch: RolloutBatch, obs_norm: Optional[ObsNormState],
                    rng: RandomSource, lr: torch.Tensor, ent_coef: torch.Tensor,
-                   may_have_invalid: bool = False) -> UpdatePlan:
-    """Obs-normalizer merge, bootstrap, GAE, flatten and the epochs' plan
-    after a rollout (train.py:110-183). Lagged obs normalization: the
-    update re-normalizes the batch with the stats the rollout used, then
-    merges the raw batch into ``obs_norm`` in place, and the bootstrap
-    reads the new stats."""
+                   may_have_invalid: bool = False, popart: Optional[PopArtState] = None,
+                   controller: Optional[AdaptiveEntropyState] = None) -> UpdatePlan:
+    """Obs-normalizer merge, bootstrap, GAE, PopArt, flatten and the
+    epochs' plan after a rollout (train.py:110-183, update.py:241-257).
+    Lagged obs normalization: the update re-normalizes the batch with the
+    stats the rollout used, then merges the raw batch into ``obs_norm`` in
+    place, and the bootstrap reads the new stats. With ``popart`` the
+    bootstrap denormalizes with its old stats, then the GAE returns (raw,
+    the valid ones) merge into it in place and the value head is rescaled
+    (K15), and the loss normalizes with the new stats."""
     obs_u = batch.obs
     if obs_norm is not None:
         obs_u = obs_norm_apply(obs_norm, batch.obs)
         obs_norm_update(obs_norm, batch.obs)
-    last_values, last_vpp = bootstrap_values(network, env, carry, obs_norm)
+    last_values, last_vpp = bootstrap_values(network, env, carry, obs_norm, popart=popart)
     if env.spec.num_players > 1:
         advantages, returns = compute_gae_multiplayer(
             batch.all_rewards, batch.values, batch.dones, batch.acting_players, last_vpp,
@@ -144,7 +169,11 @@ def prepare_update(env: Environment, cfg: Config, network: torch.nn.Module,
     }
     if batch.privileged_obs is not None:
         data["privileged_obs"] = batch.privileged_obs.reshape(N, -1)
-    return plan_update(data, rng, lr, ent_coef, update_config(cfg), may_have_invalid)
+    if popart is not None:
+        kernel, bias = network.value_head_params()
+        popart_update_rescale(popart, data["returns"], data["valid"], kernel, bias)
+    return plan_update(data, rng, lr, ent_coef, update_config(cfg), may_have_invalid, popart,
+                       controller)
 
 
 class UpdateGraph(CapturedGraph):
@@ -167,7 +196,9 @@ class UpdateRunner:
     graph replays on a CUDA device (a graph per minibatch where
     ``target_kl`` can stop them), the eager loop elsewhere. ``polls`` and
     ``poll_seconds`` count the host's waits for the stop flag and the
-    time they took."""
+    time they took. ``entropy`` is the adaptive entropy controller's
+    state the graphs read and write (the runner's own, made at the first
+    run that hands one), None with the controller off."""
 
     def __init__(self, env: Environment, cfg: Config, num_learner_envs: Optional[int] = None):
         self.env = env
@@ -175,6 +206,7 @@ class UpdateRunner:
         self.num_learner_envs = num_learner_envs
         self.lr: Optional[torch.Tensor] = None
         self.ent_coef: Optional[torch.Tensor] = None
+        self.entropy: Optional[AdaptiveEntropyState] = None
         self.outputs: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.graph: Optional[UpdateGraph] = None
         self.polls = 0
@@ -194,15 +226,25 @@ class UpdateRunner:
         self.lr.fill_(lr)
         self.ent_coef.fill_(ent_coef)
 
+    def _entropy(self, entropy: Optional[AdaptiveEntropyState]) -> None:
+        if self.entropy is None and entropy is not None:
+            self.entropy = _clone(entropy)
+        if (entropy is None) != (self.entropy is None):
+            raise ValueError("the entropy controller cannot be switched on or off between updates")
+        copy_into(self.entropy, entropy)
+
     def run(self, network, opt: AdamState, rollout: RolloutRunner, rng: RandomSource,
-            lr: float, ent_coef: float) -> Dict[str, Dict[str, torch.Tensor]]:
+            lr: float, ent_coef: float,
+            entropy: Optional[AdaptiveEntropyState] = None) -> Dict[str, Dict[str, torch.Tensor]]:
         """One update after ``rollout``'s last run, with this learning rate
-        and entropy coefficient: {"metrics": ..., "stats": the episode
-        summaries (the learner block's on the vs-pool path)}, the runner's
-        own tensors, which the next run overwrites."""
+        and entropy coefficient (with ``entropy``, the controller's state,
+        the scheduled target entropy): {"metrics": ..., "stats": the
+        episode summaries (the learner block's on the vs-pool path)}, the
+        runner's own tensors, which the next run overwrites."""
         if rollout.carry.obs.device.type != "cuda":
-            self.outputs = self.eager(network, opt, rollout, rng, lr, ent_coef)
+            self.outputs = self.eager(network, opt, rollout, rng, lr, ent_coef, entropy)
             return self.outputs
+        self._entropy(entropy)
         self._scalars(rollout.carry.obs.device, lr, ent_coef)
         self._graph(network, opt, rollout, rng).replay(self._stopped)
         self.outputs = self._made["outputs"]
@@ -219,7 +261,8 @@ class UpdateRunner:
         def begin():
             made["plan"] = prepare_update(self.env, self.cfg, network, rollout.carry,
                                           rollout.buffers.batch(), rollout.obs_norm, rng,
-                                          self.lr, self.ent_coef, may_have_invalid=self.pool)
+                                          self.lr, self.ent_coef, may_have_invalid=self.pool,
+                                          popart=rollout.popart, controller=self.entropy)
             update_minibatch(network, opt, made["plan"], ucfg, 0, 0)
 
         def minibatch(e, m):
@@ -249,10 +292,12 @@ class UpdateRunner:
         return [whole]
 
     def eager(self, network, opt: AdamState, rollout: RolloutRunner, rng: RandomSource,
-              lr: float, ent_coef: float) -> Dict[str, Dict[str, torch.Tensor]]:
+              lr: float, ent_coef: float,
+              entropy: Optional[AdaptiveEntropyState] = None) -> Dict[str, Dict[str, torch.Tensor]]:
         """The update run eagerly on the rollout runner's inputs, every
         minibatch (those after a KL stop change nothing): what a replay
-        computes, in tensors of its own."""
+        computes, in tensors of its own; ``entropy`` as ``run`` takes it."""
+        self._entropy(entropy)
         self._scalars(rollout.carry.obs.device, lr, ent_coef)
         made: Dict[str, object] = {}
         for step in self._steps(made, network, opt, rollout, rng):
@@ -285,7 +330,8 @@ class UpdateRunner:
         if self.graph is None:
             self._bound = bound
             state = ([opt.flat_params, opt.flat_mu, opt.flat_nu, opt.count_tensor]
-                     + state_leaves(rollout.obs_norm))
+                     + state_leaves(rollout.obs_norm) + state_leaves(rollout.popart)
+                     + state_leaves(self.entropy))
             steps = self._steps(self._made, network, opt, rollout, rng)
             self.graph = UpdateGraph(steps, state, rng.generator)
         elif (any(a is not b for a, b in zip(bound[:3], self._bound[:3]))

@@ -26,9 +26,15 @@ history start with the run (or, on a resume, continue from its run dir's
 files), every update samples a rotation and folds
 its game records into the win rates and the rating log, and every
 checkpoint joins the pool, recomputes the Plackett-Luce ratings and moves
-the rating-driven ``best`` link. Each of these runs fresh, resumed or
-forked from a checkpoint (``resume_from``): the model, the optimizer,
-both normalizers, the counters and the device generator are restored;
+the rating-driven ``best`` link. Each may normalize its values with
+PopArt (``normalize_values``: the state in the rollout and update graphs,
+kernels K15 and K16 and K8's loss) and steer its entropy coefficient with
+the adaptive controller (``adaptive_entropy``: the host writes the
+scheduled target, K8 steps and records the controller on the device).
+Each runs fresh, resumed or forked from a checkpoint (``resume_from``):
+the model, the optimizer, the normalizers (PopArt's too), the counters
+and the device generator are restored (the entropy controller restarts,
+as in the reference);
 the env states are not (nor are they in the JAX package), so a resumed
 run is deterministic, two resumes of one checkpoint equal bit for bit,
 but not the uninterrupted run. Everything else raises
@@ -37,6 +43,7 @@ but not the uninterrupted run. Everything else raises
 
 from __future__ import annotations
 
+import math
 import signal
 import sys
 import time
@@ -68,7 +75,8 @@ from burn_ppo_torch.envs import make_env, registered_envs
 from burn_ppo_torch.envs.base import Environment
 from burn_ppo_torch.models.network import ActorCriticNetwork, make_network
 from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker
-from burn_ppo_torch.ppo.normalization import ObsNormState
+from burn_ppo_torch.ppo.entropy import AdaptiveEntropyState
+from burn_ppo_torch.ppo.normalization import ObsNormState, PopArtState
 from burn_ppo_torch.ppo.pool_rollout import OpponentStack, PoolSeating
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
@@ -89,6 +97,8 @@ class TrainState:
     opt_state: AdamState
     carry: RolloutCarry
     obs_norm: Optional[ObsNormState]
+    popart: Optional[PopArtState] = None  # normalize_values
+    ent_state: Optional[AdaptiveEntropyState] = None  # adaptive_entropy
 
 
 def build_network_for_env(env: Environment, cfg: Config, generator: torch.Generator):
@@ -146,8 +156,10 @@ def make_train_step(env: Environment, cfg: Config):
     """Fused rollout -> GAE -> PPO update. ``train_step(state, lr, ent_coef,
     rng, shaping_coef=0.0)`` returns (state, metrics, episode logs [T, E]).
     The state's carry, obs-norm stats, the metrics and the logs are the
-    step's own buffers, which its next call overwrites;
-    ``train_step.runner`` is its ``RolloutRunner`` and
+    step's own buffers, which its next call overwrites; with the adaptive
+    entropy controller (``state.ent_state``) ``ent_coef`` is the scheduled
+    target entropy (train.py:215-247); ``train_step.runner`` is its
+    ``RolloutRunner`` and
     ``train_step.updater`` its ``UpdateRunner`` (whose ``outputs["stats"]``
     are the step's episode summaries)."""
     runner = rollout_runner(env, cfg)
@@ -156,19 +168,22 @@ def make_train_step(env: Environment, cfg: Config):
     def train_step(state: TrainState, lr: float, ent_coef: float, rng: RandomSource,
                    shaping_coef: float = 0.0):
         carry, _, logs = runner.run(state.network, state.carry, state.obs_norm, rng,
-                                    shaping_coef)
-        out = updater.run(state.network, state.opt_state, runner, rng, lr, ent_coef)
-        return _stepped(state, runner), out["metrics"], logs
+                                    shaping_coef, popart=state.popart)
+        out = updater.run(state.network, state.opt_state, runner, rng, lr, ent_coef,
+                          entropy=state.ent_state)
+        return _stepped(state, runner, updater), out["metrics"], logs
 
     train_step.runner, train_step.updater = runner, updater
     return train_step
 
 
-def _stepped(state: TrainState, runner: RolloutRunner) -> TrainState:
-    """The state after a train step: the runner's carry and obs-norm stats,
-    which the update merged the batch into."""
+def _stepped(state: TrainState, runner: RolloutRunner, updater: UpdateRunner) -> TrainState:
+    """The state after a train step: the runner's carry, obs-norm and
+    PopArt stats, which the update merged the batch into, and the
+    updater's entropy controller."""
     return TrainState(network=state.network, opt_state=state.opt_state, carry=runner.carry,
-                      obs_norm=runner.obs_norm)
+                      obs_norm=runner.obs_norm, popart=runner.popart,
+                      ent_state=updater.entropy)
 
 
 @dataclass
@@ -202,13 +217,15 @@ def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
                    shaping_coef: float = 0.0):
         _, seating, _, pool_logs = runner.run(
             state.network, state.carry, state.obs_norm, rng, shaping_coef, seating=seating,
-            opponents=opponents, num_active=num_active)
-        out = updater.run(state.network, state.opt_state, runner, rng, lr, ent_coef)
+            opponents=opponents, num_active=num_active, popart=state.popart)
+        out = updater.run(state.network, state.opt_state, runner, rng, lr, ent_coef,
+                          entropy=state.ent_state)
         ep = pool_logs.episode
         records = PoolRecordLog(completed=ep.completed[:, L:], outcome=ep.outcome[:, L:],
                                 learner_seat=pool_logs.learner_seat[:, L:],
                                 seat_opp=pool_logs.seat_opp[:, L:])
-        return _stepped(state, runner), seating, out["metrics"], out["stats"], records
+        return (_stepped(state, runner, updater), seating, out["metrics"], out["stats"],
+                records)
 
     train_step.runner, train_step.updater = runner, updater
     return train_step
@@ -256,12 +273,9 @@ def unsupported_config(cfg: Config) -> Optional[str]:
     if cfg.network_type == "ctde" and make_env(cfg.env).spec.privileged_obs_dim is None:
         return (f"network_type 'ctde' needs an env with privileged observations (liars_dice, "
                 f"skull), not {cfg.env!r}; the JAX package cannot build it either")
-    if cfg.normalize_values:
-        return "normalize_values (PopArt): ROADMAP A14"
-    if cfg.adaptive_entropy is not None:
-        return "adaptive_entropy: ROADMAP A11"
     if cfg.compute_dtype is not None:
-        return f"compute_dtype {cfg.compute_dtype!r}: not on the port's f32 path"
+        return (f"compute_dtype {cfg.compute_dtype!r}: mixed precision, ROADMAP A18; the port "
+                "trains in f32")
     if cfg.mesh_data not in (0, 1):
         return f"mesh_data {cfg.mesh_data}: multi-device training, ROADMAP A16"
     return None
@@ -328,7 +342,13 @@ class Trainer:
                 if cfg.normalize_obs
                 else None
             ),
+            popart=PopArtState.create(self.device) if cfg.normalize_values else None,
+            # A fresh controller on every start, resumes included (the
+            # reference's is in memory, train.py:650-659).
+            ent_state=(AdaptiveEntropyState.create(cfg.entropy_coef.get(0), self.device)
+                       if cfg.adaptive_entropy is not None else None),
         )
+        self.max_entropy = math.log(self.env.spec.num_actions)
         self.train_step = make_train_step(self.env, cfg)
         self.global_step = 0
         self.best_avg_return = float("-inf")
@@ -391,6 +411,12 @@ class Trainer:
                       "fresh statistics")
         rn = state.carry.return_norm  # its finalize scratch stays
         load_component(ckpt_dir, "return_norm", [rn.returns, rn.mean, rn.m2, rn.count])
+        pa = state.popart
+        if pa is not None and not load_component(ckpt_dir, "popart", [pa.mean, pa.m2, pa.count]):
+            # A fork that turns PopArt on from a run without it (train.py:888-897).
+            if not self.quiet:
+                print(f"warning: {ckpt_dir} has no popart.npz; normalize_values starts from "
+                      "fresh statistics")
         saved = load_generator_state(ckpt_dir)
         if saved is not None and saved.numel() == self.generator.get_state().numel():
             self.generator.set_state(saved)
@@ -411,12 +437,14 @@ class Trainer:
         """What a checkpoint holds, file by file (``<name>.npz``), in the
         saved layout; None for a feature that is off."""
         state = self.state
-        on, rn = state.obs_norm, state.carry.return_norm
+        on, rn, pa = state.obs_norm, state.carry.return_norm, state.popart
         return {
             "model": model_leaves(state.network),
             "optimizer": optimizer_leaves(state.opt_state),
             "obs_norm": None if on is None else [on.mean, on.m2, on.count],
             "return_norm": [rn.returns, rn.mean, rn.m2, rn.count],
+            # PopArtState's leaf order (normalization.py:247-250).
+            "popart": None if pa is None else [pa.mean, pa.m2, pa.count],
             GENERATOR_STATE: [self.generator.get_state()],
         }
 
@@ -442,6 +470,7 @@ class Trainer:
             forked_from=self.forked_from,
             rng_seed=self.seed,
             normalize_obs=self.cfg.normalize_obs,
+            normalize_values=self.cfg.normalize_values,
             exploitability_vs_pool=exploitability,
         )
         leaves = self.checkpoint_leaves()
@@ -606,10 +635,17 @@ class Trainer:
                 ):
                     break
                 lr = cfg.learning_rate.get(self.global_step)
-                ent_coef = cfg.entropy_coef.get(self.global_step)
+                # With the adaptive controller the update takes the
+                # scheduled target; the coefficient it used comes back in
+                # the metrics (train.py:1373-1386, 1611-1620).
+                ent_target = self.entropy_target(self.global_step)
+                ent_coef = (cfg.entropy_coef.get(self.global_step) if ent_target is None
+                            else ent_target)
                 t0 = time.time()
                 metrics, stats = self.update(lr, ent_coef,
                                              cfg.reward_shaping_coef.get(self.global_step))
+                if ent_target is not None:
+                    ent_coef = metrics["adaptive_ent_coef"]
                 self.tracker.ingest(stats)
                 self._enforce_guards(metrics)
                 step_time = time.time() - t0
@@ -618,7 +654,7 @@ class Trainer:
                 if self.global_step >= next_log:
                     next_log = self.global_step + cfg.log_freq
                     sps = steps_per_update / max(step_time, 1e-9)
-                    self._log_metrics(metrics, lr, ent_coef, sps)
+                    self._log_metrics(metrics, lr, ent_coef, sps, ent_target)
                     self._print_progress(progress, metrics, sps)
                 if self.global_step >= next_ckpt:
                     next_ckpt = self.global_step + cfg.checkpoint_freq
@@ -643,12 +679,24 @@ class Trainer:
             **{f"train/{k}": v for k, v in last_metrics.items()},
         }
 
-    def _log_metrics(self, m, lr, ent_coef, sps) -> None:
+    def entropy_target(self, step: int) -> Optional[float]:
+        """The adaptive controller's scheduled target entropy at ``step``,
+        ``adaptive_entropy.get(step) * ln(A)``; None with it off."""
+        if self.cfg.adaptive_entropy is None:
+            return None
+        return self.cfg.adaptive_entropy.get(step) * self.max_entropy
+
+    def _log_metrics(self, m, lr, ent_coef, sps, ent_target: Optional[float] = None) -> None:
         """The JAX trainer's series names (train.py:1752-1841) for the
-        keys the slice produces."""
+        keys the slice produces; with the adaptive controller also the
+        coefficient as ``train/adaptive_ent_coef`` (the key of JAX's run
+        summary)."""
         step = self.global_step
         log = self.metrics.log_scalar
         log("train/entropy_coef", ent_coef, step)
+        if ent_target is not None:
+            log("train/entropy_target", ent_target, step)
+            log("train/adaptive_ent_coef", m["adaptive_ent_coef"], step)
         log("train/learning_rate", lr, step)
         for name, key in METRIC_SERIES:
             log(name, m[key], step)
@@ -658,6 +706,9 @@ class Trainer:
         for gk in GUARD_METRIC_KEYS:
             if gk in m:
                 log(f"train/{gk}", m[gk], step)
+        if "value_norm/mean" in m:
+            log("value_norm/mean", m["value_norm/mean"], step)
+            log("value_norm/std", m["value_norm/std"], step)
         if "learner_valid_fraction" in m:
             log("train/learner_valid_fraction", m["learner_valid_fraction"], step)
         log("perf/sps", sps, step)

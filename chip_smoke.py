@@ -69,6 +69,16 @@ exits non-zero without the final result line:
      parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
+  2a. phase ``popart``: K15, PopArt's update (the masked moments of the
+     raw returns, the Welford merge and the value head's rescale, one
+     cooperative launch) against its plain version at the CartPole batch
+     [524288] (all valid, head 64) and the vs-pool batch with a quarter of
+     its rows invalid (head 512), and one valid sample onto counts 0, 1
+     and 2 (the rescale's gate); two calls and two replays of a captured
+     graph bit for bit; timed beside torch.var_mean; K16, the rollout's
+     denormalisation, bit for bit at [4096] into a step's slice; K8 with
+     PopArt's stats and the adaptive entropy controller stepping, at
+     [65536, 7] and [65536, 49] with the value clip;
   2b. one K9 step, one K6 apply, one K1 step with the roll and one K12
      finalize captured into CUDA graphs: each replay equal bit for bit to
      the eager call;
@@ -176,8 +186,22 @@ exits non-zero without the final result line:
      by more than 2 of its sigma and within 4 combined sigma of
      gauntlet/<env>/ratings_r4.json; the pods that stacked their models
      for K7 and those that took the per-model path, both on Skull;
+  3m. phase ``popart_entropy_train``: CartPole at the bench shape and
+     configs/liars_dice_ctde.toml at 4096 envs against the pool, each with
+     --normalize-values --adaptive-entropy 0.5 through the CLI, 4 updates
+     (K15 once an update, K16 T + 1 times, every count checked as in the
+     other train phases; the Liar's Dice KL stop required to fire), the
+     PopArt and controller series printed update by update; then, in a
+     process of its own, both updates as graphs against the eager loop bit
+     for bit (PopArt's stats and the controller's state among the leaves)
+     and K15, K16 and K8 counted on the device in one replay of each graph;
+     the resume phase (3j) holds a CartPole case with both flags, whose
+     popart.npz comes back bit for bit;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
-     average return >= 195 within 200k steps.
+     average return >= 195 within 200k steps; then the same with
+     --normalize-values, printed beside the JAX package's CPU result for
+     that configuration (JAX_POPART_BAR), which it must match in clearing
+     195.
 
 Each train phase sets every kernel's launch counter, and the rollout
 and update graphs' counts, to 0 just before it and checks the counts
@@ -261,8 +285,10 @@ from burn_ppo_torch.ppo.episode_stats import (  # noqa: E402
     summarize_episode_logs,
     summarize_episode_logs_plain,
 )
+from burn_ppo_torch.ppo.entropy import AdaptiveEntropyState, adaptive_entropy_record  # noqa: E402
 from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     ObsNormState,
+    PopArtState,
     ReturnNormState,
     obs_norm_apply,
     obs_norm_apply_plain,
@@ -274,6 +300,10 @@ from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     return_norm_roll,
     return_norm_roll_plain,
     return_norm_scratch,
+    popart_denormalize,
+    popart_denormalize_plain,
+    popart_update_rescale,
+    popart_update_rescale_plain,
 )
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
     OPPONENT_TILINGS,
@@ -293,6 +323,7 @@ from burn_ppo_torch.ppo.update import (  # noqa: E402
 )
 from burn_ppo_torch.config import Config  # noqa: E402
 from burn_ppo_torch.envs import make_env  # noqa: E402
+from burn_ppo_torch.schedule import Schedule  # noqa: E402
 from burn_ppo_torch.ppo.pool_rollout import PoolSeating, collect_rollouts_with_opponents  # noqa: E402
 from burn_ppo_torch.ppo.rollout import (  # noqa: E402
     RolloutBuffers,
@@ -347,6 +378,8 @@ WRAPPERS = {
     "return_norm_finalize": return_norm_finalize,
     "liars_dice_step_autoreset": liars_dice_step_autoreset,
     "temperature_sample": sample_with_temperature,
+    "popart_update": popart_update_rescale,
+    "popart_denormalize": popart_denormalize,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -378,6 +411,9 @@ SOURCES = {
                                   "burn_ppo_tpu/envs/liars_dice.py:133"),
     "temperature_sample": ("burn_ppo_torch/csrc/temperature_sample.cu",
                            "burn_ppo_tpu/ops/categorical.py:84"),
+    "popart_update": ("burn_ppo_torch/csrc/popart.cu", "burn_ppo_tpu/ppo/normalization.py:272"),
+    "popart_denormalize": ("burn_ppo_torch/csrc/popart.cu",
+                           "burn_ppo_tpu/ppo/normalization.py:293"),
 }
 
 
@@ -1980,11 +2016,13 @@ UPDATE_CASES = (
 UPDATE_ROUNDS = 3  # and the empty-minibatch round on the vs-pool case
 
 
-def update_leaves(opt: AdamState, runner) -> list:
+def update_leaves(opt: AdamState, runner, updater=None) -> list:
     """What an update writes and reads again: parameters, moments, the
-    Adam count, the obs-norm stats."""
+    Adam count, the obs-norm stats, PopArt's stats and the entropy
+    controller's state (where they are on)."""
     return [opt.flat_params, opt.flat_mu, opt.flat_nu, opt.count_tensor,
-            *state_leaves(runner.obs_norm)]
+            *state_leaves(runner.obs_norm), *state_leaves(runner.popart),
+            *state_leaves(None if updater is None else updater.entropy)]
 
 
 def output_leaves(out: dict) -> list:
@@ -2029,6 +2067,12 @@ def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict
     lr, ent = cfg.learning_rate.get(0), cfg.entropy_coef.get(0)
     shaping = cfg.reward_shaping_coef.get(0)
     kw = {}
+    popart = PopArtState.create(dev) if cfg.normalize_values else None
+    if cfg.adaptive_entropy is not None:  # the update takes the target
+        # The controller the update runs on from the start, so that the
+        # first saved state holds it too.
+        updater.entropy = AdaptiveEntropyState.create(ent, dev)
+        ent = cfg.adaptive_entropy.get(0) * math.log(env.spec.num_actions)
     if pool:
         stack = random_opponents(dev, g, 8, cfg.activation, D=env.spec.obs_dim,
                                  H=cfg.hidden_size, A=env.spec.num_actions, depth=cfg.num_hidden)
@@ -2037,7 +2081,8 @@ def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict
         kw = dict(seating=PoolSeating.create(E, L, P, 1, rng), opponents=stack, num_active=8)
 
     def rollout(empty: bool = False):
-        runner.run(net, runner.carry or carry, runner.obs_norm or norm, rng, shaping, **kw)
+        runner.run(net, runner.carry or carry, runner.obs_norm or norm, rng, shaping, **kw,
+                   popart=runner.popart or popart)
         if pool:
             kw["seating"] = runner.seating
         if empty:  # two valid rows left: most minibatches hold none
@@ -2052,17 +2097,17 @@ def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict
     ran = []
     for i, empty in enumerate(rounds):
         rollout(empty)
-        saved = [t.clone() for t in update_leaves(opt, runner)]
+        saved = [t.clone() for t in update_leaves(opt, runner, updater)]
         start = rng.generator.get_state()
-        eager = updater.eager(net, opt, runner, rng, lr, ent)
-        want = [t.clone() for t in update_leaves(opt, runner) + output_leaves(eager)]
+        eager = updater.eager(net, opt, runner, rng, lr, ent, updater.entropy)
+        want = [t.clone() for t in update_leaves(opt, runner, updater) + output_leaves(eager)]
         after = rng.generator.get_state()
-        for t, s0 in zip(update_leaves(opt, runner), saved):
+        for t, s0 in zip(update_leaves(opt, runner, updater), saved):
             t.copy_(s0)
         rng.generator.set_state(start)
-        got = updater.run(net, opt, runner, rng, lr, ent)
+        got = updater.run(net, opt, runner, rng, lr, ent, updater.entropy)
         torch.cuda.synchronize()
-        diff = first_difference(update_leaves(opt, runner) + output_leaves(got), want)
+        diff = first_difference(update_leaves(opt, runner, updater) + output_leaves(got), want)
         if diff is not None or not torch.equal(rng.generator.get_state(), after):
             raise AssertionError(f"update graph {name} round {i}: differs from the eager loop "
                                  f"at {diff or 'the generator offset'}")
@@ -2087,15 +2132,15 @@ def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict
     # From one saved state, every call the same work: the eager loop and
     # the graphs in turns.
     rollout()
-    saved = [t.clone() for t in update_leaves(opt, runner)]
+    saved = [t.clone() for t in update_leaves(opt, runner, updater)]
     start = rng.generator.get_state()
-    versions = {"eager": lambda: updater.eager(net, opt, runner, rng, lr, ent),
-                "graph": lambda: updater.run(net, opt, runner, rng, lr, ent)}
+    versions = {"eager": lambda: updater.eager(net, opt, runner, rng, lr, ent, updater.entropy),
+                "graph": lambda: updater.run(net, opt, runner, rng, lr, ent, updater.entropy)}
     minibatches = {}
 
     def from_saved(v):
         def call():
-            for t, s0 in zip(update_leaves(opt, runner), saved):
+            for t, s0 in zip(update_leaves(opt, runner, updater), saved):
                 t.copy_(s0)
             rng.generator.set_state(start)
             return versions[v]()
@@ -2121,12 +2166,17 @@ def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict
                **update_bound(cfg, net, runner, opt, minibatches["graph"]),
                library_ms=None,
                replay_kernel_counts=replay_kernel_counts(updater.graph, UPDATE_KERNELS))
+    if popart is not None:  # K16 in the rollout, T a replay
+        out["rollout_replay_kernel_counts"] = replay_kernel_counts(runner.graph)
+    if updater.entropy is not None:
+        out["adaptive_ent_coef"] = float(updater.entropy.coef)
+        out["value_norm"] = [float(runner.popart.mean), float(runner.popart.std)]
 
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         rollout()
-        updater.run(net, opt, runner, rng, lr, ent)
+        updater.run(net, opt, runner, rng, lr, ent, updater.entropy)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -2227,6 +2277,7 @@ ROLLOUT_KERNELS = {
     "opponent_actor_forward": "opponent_mlp_kernel",
     "return_norm_roll": "return_norm_roll_kernel",
     "return_norm_finalize": "return_norm_finalize_kernel",
+    "popart_denormalize": "popart_denormalize_kernel",
 }
 
 
@@ -2240,6 +2291,8 @@ UPDATE_KERNELS = {
     "gae_reverse_scan": "gae_reverse_scan_staged_kernel",
     "gae_multiplayer_reverse_scan": "gae_multiplayer_staged_kernel",
     "episode_stats": "episode_stats_kernel",
+    "popart_update": "popart_update_kernel",
+    "popart_denormalize": "popart_denormalize_kernel",
 }
 
 
@@ -2817,13 +2870,18 @@ def resume_case(name: str) -> tuple:
     """(first leg's CLI flags, env steps an update, expected launches of a
     leg of ``n`` updates of which ``pool`` ran against the pool) of a case
     of the resume phase: CartPole at the bench shape (obs and return
-    norm on), Liar's Dice CTDE against the pool (liars_dice_ctde.toml)."""
-    if name == "cartpole":
+    norm on; ``cartpole_popart_entropy`` with PopArt and the adaptive
+    entropy controller too), Liar's Dice CTDE against the pool
+    (liars_dice_ctde.toml)."""
+    if name.startswith("cartpole"):
+        popart = name == "cartpole_popart_entropy"
         return (["--config", str(ROOT / "configs" / "cartpole.toml"), "--num-envs", str(E),
-                 "--num-steps", str(T)], E * T,
+                 "--num-steps", str(T), *(POPART_FLAGS if popart else [])], E * T,
                 lambda n, pool: {"cartpole_step_autoreset": n * T, "masked_gumbel_sample": n * T,
                                  "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2),
-                                 "obs_norm_update": n, "return_norm_finalize": n})
+                                 "obs_norm_update": n, "return_norm_finalize": n,
+                                 **({"popart_update": n, "popart_denormalize": n * (T + 1)}
+                                    if popart else {})})
     return (["--config", str(ROOT / "configs" / "liars_dice_ctde.toml"), "--num-envs", str(E)],
             E * T_LD,
             lambda n, pool: {"liars_dice_step_autoreset": n * T_LD,
@@ -2842,7 +2900,7 @@ def resume_leg(case: str, run: str, done: int, mode: str, fork_from: str = "") -
     pool; every later one runs against it."""
     args, spu, expect = resume_case(case)
     n = RESUME_UPDATES
-    pool = 0 if case == "cartpole" else n - 1 if mode == "fresh" else n
+    pool = 0 if case.startswith("cartpole") else n - 1 if mode == "fresh" else n
     if mode == "fork":
         args = ["--fork", fork_from, "--learning-rate", "0.0005", "--runs-base",
                 str(Path(run).parent)]
@@ -2929,10 +2987,12 @@ def pool_carried(first: Path, resumed: Path) -> dict:
 
 
 def resume_phase(tmp: Path, card_line: str) -> dict:
-    """Phase ``resume``: for CartPole at the bench shape, Liar's Dice CTDE
-    against the pool, and a ``--fork`` of the CartPole run (a new learning
-    rate): a leg of 2 updates with a checkpoint after each, then in
-    processes of their own, at once, the checkpoint loaded (every restored
+    """Phase ``resume``: for CartPole at the bench shape, the same with
+    PopArt and the adaptive entropy controller (``popart.npz`` among the
+    leaves restored and compared), Liar's Dice CTDE against the pool, and
+    a ``--fork`` of the CartPole run (a new learning rate): a leg of 2
+    updates with a checkpoint after each, then in processes of their own,
+    at once, the checkpoint loaded (every restored
     leaf the saved one) and two resumes of 2 updates from copies of the
     run dir, whose last checkpoints must be equal bit for bit; each leg's
     rollouts and updates graph replays; on the vs-pool case the pool stats
@@ -2941,7 +3001,8 @@ def resume_phase(tmp: Path, card_line: str) -> dict:
 
     t0 = time.time()
     out: dict = {"card": card_line, "updates_a_leg": RESUME_UPDATES}
-    legs = {"cartpole": tmp / "cartpole", "liars_dice_ctde_pool": tmp / "liars_dice"}
+    legs = {"cartpole": tmp / "cartpole", "liars_dice_ctde_pool": tmp / "liars_dice",
+            "cartpole_popart_entropy": tmp / "cartpole_popart"}
     first = in_processes([f"resume_leg({c!r}, {str(r)!r}, 0, 'fresh')" for c, r in legs.items()])
     fork = tmp / "cartpole_fork"
     cases = [(c, r, 0, leg) for (c, r), leg in zip(legs.items(), first)]
@@ -2977,6 +3038,10 @@ def resume_phase(tmp: Path, card_line: str) -> dict:
                                  f"{r2['launches']}")
         if case == "liars_dice_ctde_pool":
             res["pool"] = pool_carried(run, copies[run][1])
+        if case == "cartpole_popart_entropy":
+            res["popart_leaves"] = res["restored"]["leaves"].get("popart")
+            if res["popart_leaves"] != 3 or "popart.npz" not in res["equal_files"]:
+                raise AssertionError(f"{case}: popart.npz not restored or not compared: {res}")
         if case == "cartpole_fork":
             for r in (fork, *copies[fork][1:]):
                 meta = json.loads((r / "checkpoints" / "latest" / "metadata.json").read_text())
@@ -2988,18 +3053,19 @@ def resume_phase(tmp: Path, card_line: str) -> dict:
     return out
 
 
-def learning_bar(tmp: Path) -> dict:
-    """scripts/validate_cartpole.py's run, through the port's CLI."""
+def learning_bar(tmp: Path, extra: tuple = (), require: bool = True) -> dict:
+    """scripts/validate_cartpole.py's run, through the port's CLI, with the
+    ``extra`` flags; ``require``: the bar (>= 195) must be cleared."""
     from burn_ppo_torch import cli
 
-    run = tmp / "bar"
+    run = tmp / ("bar" + "".join(extra).replace("-", "_"))
     t0 = time.time()
     rc = cli.main(["train", "--config", str(ROOT / "configs" / "cartpole.toml"),
                    "--num-envs", "32", "--num-steps", "128", "--total-steps", "200000",
                    "--learning-rate", "0.001", "--entropy-coef", "0.01", "--normalize-obs",
                    "--hidden-size", "64", "--num-hidden", "2", "--activation", "tanh",
                    "--checkpoint-freq", "100000", "--log-freq", "8192", "--seed", "1",
-                   "--run-dir", str(run), "--quiet"])
+                   *extra, "--run-dir", str(run), "--quiet"])
     wall = time.time() - t0
     if rc != 0:
         raise RuntimeError(f"train command exited {rc}")
@@ -3010,8 +3076,368 @@ def learning_bar(tmp: Path) -> dict:
         "approx_kl": last["train/approx_kl"],
         "explained_variance": last["train/explained_variance"], "wall_s": wall,
     }
-    if not (meta["step"] >= 200_000 and meta["avg_return"] >= 195.0):
+    if not (meta["step"] >= 200_000 and (meta["avg_return"] >= 195.0 or not require)):
         raise AssertionError(f"CartPole learning bar failed: {out}")
+    return out
+
+
+def learning_bar_popart(tmp: Path) -> dict:
+    """The learning bar with ``--normalize-values``, beside the JAX
+    package's result for the same configuration on the CPU
+    (``JAX_POPART_BAR``): where JAX clears 195, the port must too."""
+    jax_clears = (JAX_POPART_BAR["avg_return"] or 0.0) >= 195.0
+    port = learning_bar(tmp, ("--normalize-values",), require=jax_clears)
+    print(f"learning bar with --normalize-values: port (this card) avg_return "
+          f"{port['avg_return']:.2f} at step {port['final_step']}; JAX package (CPU) "
+          f"{JAX_POPART_BAR['avg_return']} at step {JAX_POPART_BAR['final_step']}", flush=True)
+    return {"port": port, "jax_cpu": JAX_POPART_BAR, "jax_clears_195": jax_clears}
+
+
+# ---------------------------------------------------------------------------
+# PopArt (K15, K16, K8's normalised returns) and the adaptive entropy
+# controller (inside K8)
+# ---------------------------------------------------------------------------
+POPART_UPDATES = 4  # each train run of phase popart_entropy_train
+# The JAX package's result for the learning bar's configuration with
+# normalize_values on, on the CPU (its CLI, seed 1; PERF.md names the run).
+JAX_POPART_BAR = {"avg_return": 286.2758620689655, "final_step": 200704,
+                  "run": "python -m burn_ppo_tpu train --config configs/cartpole.toml "
+                         "--num-envs 32 --num-steps 128 --total-steps 200000 "
+                         "--learning-rate 0.001 --entropy-coef 0.01 --normalize-obs "
+                         "--hidden-size 64 --num-hidden 2 --activation tanh --seed 1 "
+                         "--normalize-values --platform cpu"}
+
+
+def popart_inputs(dev, g, N: int, count: float, H: int, valid: float | int = 1.0) -> tuple:
+    """Raw returns [N] and valid [N] (``valid`` a share of rows, or an int:
+    that many valid rows), a state of ``count`` samples, a value head [H, 1]
+    and [1]."""
+    x = torch.randn(N, generator=g, device=dev) * 30 + 7
+    if isinstance(valid, int):
+        w = torch.zeros(N, device=dev)
+        w[torch.randperm(N, generator=g, device=dev)[:valid]] = 1.0
+    else:
+        w = (torch.rand(N, generator=g, device=dev) < valid).float()
+    state = PopArtState.create(dev)
+    state.mean.fill_(2.5 if count else 0.0)
+    state.m2.fill_(90.0 * count)
+    state.count.fill_(float(count))
+    kernel = torch.randn(H, 1, generator=g, device=dev) * 0.1
+    bias = torch.randn(1, generator=g, device=dev)
+    return x, w, state, kernel, bias
+
+
+def popart_leaves(state, kernel, bias) -> list:
+    return [state.mean, state.m2, state.count, kernel, bias]
+
+
+def check_popart_update(dev, g) -> dict:
+    """K15 against its plain version: the CartPole update batch [524288]
+    (all valid, head 64), the vs-pool batch with a quarter of its rows
+    invalid (head 512, the Liar's Dice CTDE critic's), and the count gate:
+    one valid sample onto counts 0, 1 and 2 (the head untouched at a new
+    count of 1, rescaled from 2 on). Stats and head to 1e-6 relative (the
+    batch sums in another f64 order); two calls and two replays of a
+    captured graph give the same bits; timed from a saved state beside
+    ``torch.var_mean`` of the returns (the moments alone, unmasked)."""
+    out: dict = {"tol": {"stats_rel": 1e-6, "head_rel": 1e-6}, "max_abs_err": 0.0}
+    cases = (("cartpole_N524288_H64", 524288, 1e6, 64, 1.0),
+             ("pool_N524288_H512_quarter_invalid", 524288, 3e6, 512, 0.75),
+             ("count0_one_valid", 4096, 0, 64, 1), ("count1_one_valid", 4096, 1, 64, 1),
+             ("count2_one_valid", 4096, 2, 512, 1))
+    saved = {}
+    for name, N, count, H, valid in cases:
+        x, w, state, kernel, bias = popart_inputs(dev, g, N, count, H, valid)
+        start = [t.clone() for t in popart_leaves(state, kernel, bias)]
+        plain = PopArtState(*(t.clone() for t in start[:3]))
+        pk, pb = start[3].clone(), start[4].clone()
+        popart_update_rescale(state, x, w, kernel, bias)
+        popart_update_rescale_plain(plain, x, w, pk, pb)
+        torch.cuda.synchronize()
+        pairs = list(zip(popart_leaves(state, kernel, bias), popart_leaves(plain, pk, pb)))
+        for a, b in pairs:
+            if not bool(torch.all((a - b).abs() <= 1e-6 * b.abs() + 1e-7)):
+                raise AssertionError(f"popart_update {name}: max abs err {max_err([(a, b)])}")
+        new_count = float(state.count)
+        if new_count < 2 and not (torch.equal(kernel, start[3]) and torch.equal(bias, start[4])):
+            raise AssertionError(f"popart_update {name}: the head moved at count {new_count}")
+        if new_count >= 2 and torch.equal(kernel, start[3]):
+            raise AssertionError(f"popart_update {name}: the head was not rescaled")
+        out[name] = {"max_abs_err": max_err(pairs), "count": [count, new_count],
+                     "head_rescaled": new_count >= 2}
+        out["max_abs_err"] = max(out["max_abs_err"], out[name]["max_abs_err"])
+        saved[name] = (x, w, state, kernel, bias, start)
+    # Two calls and two graph replays from one saved state: the same bits.
+    x, w, state, kernel, bias, start = saved["pool_N524288_H512_quarter_invalid"]
+    leaves = popart_leaves(state, kernel, bias)
+
+    def restore():
+        for t, s0 in zip(leaves, start):
+            t.copy_(s0)
+
+    runs = []
+    for _ in range(2):
+        restore()
+        popart_update_rescale(state, x, w, kernel, bias)
+        runs.append([t.clone() for t in leaves])
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        restore()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        popart_update_rescale(state, x, w, kernel, bias)
+    popart_update_rescale.launches -= 1  # a capture launches nothing
+    for _ in range(2):
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in leaves])
+    if not all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0])):
+        raise AssertionError("popart_update: two calls or two graph replays differ")
+    out["bit_identical_across_calls_and_replays"] = True
+    for name in ("cartpole_N524288_H64", "pool_N524288_H512_quarter_invalid"):
+        x, w, state, kernel, bias, start = saved[name]
+        leaves = popart_leaves(state, kernel, bias)
+        plain = PopArtState(*(t.clone() for t in start[:3]))
+        pk, pb = start[3].clone(), start[4].clone()
+
+        def new(x=x, w=w, state=state, kernel=kernel, bias=bias, leaves=leaves, start=start):
+            for t, s0 in zip(leaves, start):
+                t.copy_(s0)
+            popart_update_rescale(state, x, w, kernel, bias)
+
+        def old(x=x, w=w, plain=plain, pk=pk, pb=pb, start=start):
+            for t, s0 in zip(popart_leaves(plain, pk, pb), start):
+                t.copy_(s0)
+            popart_update_rescale_plain(plain, x, w, pk, pb)
+
+        H = kernel.numel()
+        out[name].update(
+            **timed(new, old), library_ms=time_ms(lambda x=x: torch.var_mean(x)),
+            # returns and valid read once, the stats and the head read and
+            # written; per element, the f64 sums (w, w x, then x - mean,
+            # its square, times w, the sum)
+            **bound(x.numel() * 8 + 2 * 12 + 2 * (H + 1) * 4, flops64=7.0 * x.numel()))
+    out.update({k: out["cartpole_N524288_H64"][k]
+                for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
+    return out
+
+
+def check_popart_denormalize(dev, g) -> dict:
+    """K16 against its plain version, bit for bit (two roundings each) at
+    [4096] (the rollout's values a step) with counts 0, 1, 2 and large,
+    written into a step's slice of a [T, E] buffer as the rollout does;
+    timed at count 3e6."""
+    out: dict = {"tol": "bit for bit", "max_abs_err": 0.0}
+    buf = torch.zeros(T, E, device=dev)
+    for count in (0, 1, 2, 3e6):
+        x, _, state, _, _ = popart_inputs(dev, g, E, count, 1)
+        popart_denormalize(state, x, out=buf[5])
+        torch.cuda.synchronize()
+        want = popart_denormalize_plain(state, x)
+        if not torch.equal(buf[5], want) or (count < 2 and not torch.equal(buf[5], x)):
+            raise AssertionError(f"popart_denormalize at count {count}: max abs err "
+                                 f"{max_err([(buf[5], want)])}")
+        if bool(buf[4].any()) or bool(buf[6].any()):
+            raise AssertionError("popart_denormalize wrote outside its slice")
+    out.update(**timed(lambda: popart_denormalize(state, x, out=buf[5]),
+                       lambda: popart_denormalize_plain(state, x)),
+               library_ms=None,
+               # values read, the slice written, the three stats read; a
+               # multiply and an add an element
+               **bound(E * 4 * 2 + 12, 2.0 * E))
+    return out
+
+
+def check_ppo_loss_popart_entropy(dev, g) -> dict:
+    """K8 with PopArt's stats (count 3e6: the gate open) and the
+    controller stepping on this minibatch, against its plain version, at
+    Connect Four's [65536, 7] and Liar's Dice's [65536, 49] with the value
+    clip on (old values normalised too): loss and metrics to 1e-5
+    relative, gradients to 1e-4 relative + 1e-6 of their largest entry,
+    the stepped coefficient equal, the recorded entropy the book's mean;
+    two calls give the same bits; then timed in turns against K8 with
+    both off."""
+    out: dict = {"tol": {"loss_metrics_rel": 1e-5, "grads_rel": 1e-4}, "max_abs_err": 0.0}
+    for A in (7, 49):
+        logits, values, mb = loss_batch(dev, g, 65536, A)
+        mb["returns"] = mb["returns"] * 40 + 9
+        mb["old_values"] = mb["old_values"] * 40 + 9
+        _, _, popart, _, _ = popart_inputs(dev, g, 8, 3e6, 1)
+        cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=True, ent_delta=0.004)
+        res = []
+        for fn in (ppo_loss_forward, ppo_loss_forward, ppo_loss_plain):
+            ctrl = AdaptiveEntropyState.create(0.02, dev)
+            adaptive_entropy_record(ctrl, torch.tensor(0.3, device=dev))
+            book = LossBook.create(dev)
+            r = fn(logits, values, mb, torch.full((), 0.9, device=dev), cfg, book, False, popart,
+                   ctrl, True)
+            res.append(([t.clone() for t in r], ctrl, book))
+        torch.cuda.synchronize()
+        (k, kc, kb), (again, _, _), (p, pc, _) = res
+        for a, b, rel in zip(k, p, (1e-5, 1e-5, 1e-4, 1e-4)):
+            atol = 1e-6 * max(float(b.abs().max()), 1.0 if rel == 1e-5 else 0.0)
+            if not bool(torch.all((a - b).abs() <= atol + rel * b.abs())):
+                raise AssertionError(f"ppo_loss with PopArt A={A}: max abs err {max_err([(a, b)])}")
+        if not all(torch.equal(a, b) for a, b in zip(k, again)):
+            raise AssertionError(f"ppo_loss with PopArt A={A}: two calls differ")
+        if float(kc.coef) != float(pc.coef) or float(kc.last_entropy) != float(
+                kb.sums[2] / kb.count) or not bool(kc.has_entropy):
+            raise AssertionError(f"ppo_loss's controller A={A}: {kc} against {pc}")
+        out[f"M65536_A{A}_clip"] = {"max_abs_err": max_err(list(zip(k, p))),
+                                    "coef": float(kc.coef),
+                                    "recorded_entropy": [float(kc.last_entropy),
+                                                         float(pc.last_entropy)]}
+        # K8 with PopArt and the controller stepping, against K8 with both
+        # off (the parent's path), in turns on the same minibatch.
+        book, ctrl = LossBook.create(dev), AdaptiveEntropyState.create(0.02, dev)
+        target, coef = torch.full((), 0.9, device=dev), torch.full((), 0.05, device=dev)
+        out[f"M65536_A{A}_clip"].update(turns(
+            lambda: ppo_loss_forward(logits, values, mb, target, cfg, book, False, popart, ctrl,
+                                     True),
+            lambda: ppo_loss_forward(logits, values, mb, coef, cfg, book, False), who="off"))
+        out["max_abs_err"] = max(out["max_abs_err"], out[f"M65536_A{A}_clip"]["max_abs_err"])
+    return out
+
+
+def check_popart(dev, g) -> dict:
+    """Phase ``popart``: K15, K16 and K8 with PopArt and the controller
+    against their plain versions."""
+    return {"popart_update": check_popart_update(dev, g),
+            "popart_denormalize": check_popart_denormalize(dev, g),
+            "ppo_loss_popart_entropy": check_ppo_loss_popart_entropy(dev, g)}
+
+
+POPART_FLAGS = ["--normalize-values", "--adaptive-entropy", "0.5"]
+POPART_OVERRIDES = {"normalize_values": True, "adaptive_entropy": Schedule.parse(0.5)}
+
+
+def popart_series(series: dict, updates: int, num_actions: int) -> dict:
+    """The PopArt and controller series of a run, each with one finite
+    value an update: the target 0.5 ln(A) at every update, the
+    coefficient the update used (train/entropy_coef equal to
+    train/adaptive_ent_coef), a std that moved off 1."""
+    names = ("value_norm/mean", "value_norm/std", "train/adaptive_ent_coef",
+             "train/entropy_target", "train/entropy_coef")
+    out = {k: series.get(k, []) for k in names}
+    for k, v in out.items():
+        if len(v) != updates or not all(x is not None and math.isfinite(x) for x in v):
+            raise AssertionError(f"{k}: expected {updates} finite values, got {v}")
+    target = 0.5 * math.log(num_actions)
+    if any(abs(t - target) > 1e-6 * target for t in out["train/entropy_target"]):
+        raise AssertionError(f"train/entropy_target {out['train/entropy_target']} is not {target}")
+    if out["train/entropy_coef"] != out["train/adaptive_ent_coef"]:
+        raise AssertionError("train/entropy_coef is not the controller's coefficient")
+    if all(s == 1.0 for s in out["value_norm/std"]):
+        raise AssertionError("value_norm/std never moved off 1")
+    return out
+
+
+def popart_update_graph_cases(tmp: Path, card_line: str) -> dict:
+    """The update with PopArt and the controller as captured CUDA graphs
+    against the eager loop, bit for bit (``check_update_graph``, the
+    PopArt stats and the controller's state among the leaves), in a
+    process of its own as phase 2d: CartPole at 4096 x 128 and Liar's Dice
+    CTDE against the pool (the KL stop required to fire); each graph's
+    kernels (K15 and K16 in the update, K16 T times in the rollout, K8 a
+    minibatch) counted on the device in one replay."""
+    dev = resolve_device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    return {"card": card_line, **{name: check_update_graph(dev, g, name, toml, steps,
+                                                          {**over, **POPART_OVERRIDES}, pool)
+                                  for name, toml, steps, over, pool in POPART_UPDATE_CASES}}
+
+
+POPART_UPDATE_CASES = (
+    ("cartpole_popart_entropy", "cartpole.toml", T, {}, False),
+    ("liars_dice_ctde_pool_popart_entropy", "liars_dice_ctde.toml", T_LD, {}, True),
+)
+
+
+def popart_entropy_train(tmp: Path, card_line: str) -> dict:
+    """Phase ``popart_entropy_train``: CartPole at the bench shape and
+    configs/liars_dice_ctde.toml at 4096 envs against the pool, each with
+    ``--normalize-values --adaptive-entropy 0.5`` through the CLI,
+    ``POPART_UPDATES`` updates, counted as every train phase (K15 once an
+    update in its graph, K16 T + 1 times: every rollout step and the
+    bootstrap; on Liar's Dice a graph per minibatch, ``target_kl``'s
+    path, whether or not the stop fires), the PopArt and controller series
+    printed; then the graphed update against the eager one, the KL stop
+    required there (``popart_update_graph_cases``), and whole train steps
+    with both off and on in turns (``popart_turns``)."""
+    n = POPART_UPDATES
+    t0 = time.time()
+    cartpole, series = train_phase(
+        tmp / "popart_cartpole", ["--config", str(ROOT / "configs" / "cartpole.toml"),
+                                  "--num-envs", str(E), "--num-steps", str(T), *POPART_FLAGS],
+        n, E * T,
+        {"cartpole_step_autoreset": n * T, "masked_gumbel_sample": n * T,
+         "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2), "obs_norm_update": n,
+         "return_norm_finalize": n, "popart_update": n, "popart_denormalize": n * (T + 1)},
+        card_line)
+    cartpole["series"] = popart_series(series, n, 2)
+    pool = four_player_pool_train(
+        tmp, card_line, "popart_liars_dice_pool",
+        ["--config", str(ROOT / "configs" / "liars_dice_ctde.toml"), *POPART_FLAGS],
+        "liars_dice_step_autoreset", T_LD, EP_LD, n, "ctde", LD_OBS,
+        {"popart_update": n, "popart_denormalize": n * (T_LD + 1)})
+    pool["series"] = popart_series(scalars(tmp / "popart_liars_dice_pool"), n, 49)
+    for name, run in (("cartpole", cartpole), ("liars_dice_ctde_pool", pool)):
+        for u in range(n):
+            print(f"popart_entropy_train {name} update {u + 1}: "
+                  + " ".join(f"{k}={v[u]!r}" for k, v in run["series"].items()), flush=True)
+    return {"card": card_line, "cartpole": cartpole, "liars_dice_ctde_pool": pool,
+            "update_graphs": phase_in_process(ROOT, "popart_update_graph_cases"),
+            "train_step_turns": phase_in_process(ROOT, "popart_turns"),
+            "seconds": time.time() - t0}
+
+
+POPART_TURN_UPDATES = 4
+
+
+def popart_turns(tmp: Path, card_line: str) -> dict:
+    """Whole train steps through ``Trainer.update`` (rollout, update,
+    fetch; on the vs-pool path against one checkpoint) with PopArt and the
+    controller off and on, in turns (off, on, on, off) ``POPART_TURN_UPDATES``
+    times, two trainers in this process after their warm updates:
+    CartPole at 4096 x 128 and Liar's Dice CTDE against the pool at 4096 x
+    128 (its KL stop makes the work vary: the minibatches run are kept
+    beside each time). Host ms of each step, each ending synchronised."""
+    out: dict = {"card": card_line}
+    for name, toml, steps in (("cartpole", "cartpole.toml", T),
+                              ("liars_dice_ctde_pool", "liars_dice_ctde.toml", T_LD)):
+        trainers, steppers = {}, {}
+        for key, over in (("off", {}), ("on", POPART_OVERRIDES)):
+            cfg = Config.load(ROOT / "configs" / toml)
+            for k, v in {"num_envs": E, "num_steps": steps, "seed": 0, **over}.items():
+                setattr(cfg, k, v)
+            tr = Trainer(cfg, tmp / f"{name}_{key}", quiet=True)
+            trainers[key] = tr
+            step = lambda tr=tr: tr.update(  # noqa: E731
+                tr.cfg.learning_rate.get(0), tr.entropy_target(0) or tr.cfg.entropy_coef.get(0),
+                tr.cfg.reward_shaping_coef.get(0))
+            steppers[key] = step
+            step()
+            if tr.pool is not None:
+                tr.global_step += 1
+                tr.save_checkpoint()
+                step()
+        ms = {"off": [], "on": []}
+        ran = {"off": [], "on": []}
+        for _ in range(POPART_TURN_UPDATES):
+            for key in ("off", "on", "on", "off"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m, _ = steppers[key]()
+                torch.cuda.synchronize()
+                ms[key].append((time.perf_counter() - t0) * 1e3)
+                ran[key].append(m["num_minibatch_updates"])
+        out[name] = {"train_step_ms": ms, "minibatches_run": ran,
+                     "median_ms": {k: sorted(v)[len(v) // 2] for k, v in ms.items()}}
+        del trainers, steppers
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3517,8 +3943,18 @@ def main(argv: list) -> int:
     _, c4_state, _ = connect_four_states(dev, g14)
     checks["temperature_sample"] = check_temperature_sample(
         dev, g14, ConnectFour().action_mask(c4_state), skull_mask, ld_mask, ptxas)
+    # Phase popart: K15, K16 and K8 with PopArt and the controller, on a
+    # generator of their own.
+    popart = check_popart(dev, torch.Generator(device=dev).manual_seed(16))
+    for name in ("popart_update", "popart_denormalize"):
+        checks[name] = popart[name]
+    popart["ptxas"] = [ln for ln in ptxas if ln.startswith("popart_")]
+    checks["ppo_loss"]["max_abs_err"] = max(checks["ppo_loss"]["max_abs_err"],
+                                            popart["ppo_loss_popart_entropy"]["max_abs_err"])
     screen_device_times(checks)
-    emit("kernels_vs_plain", card=card_line, **checks)
+    emit("kernels_vs_plain", card=card_line,
+         **{k: v for k, v in checks.items() if k not in popart})
+    emit("popart", card=card_line, **popart)
     emit("graph_capture", card=card_line, **check_graph_capture(dev, g, ld_obs))
     emit("rollout_graphs", card=card_line, **check_rollout_graphs(dev, g, checks))
     emit("update_graphs", **phase_in_process(ROOT, "update_graph_cases"))
@@ -3554,6 +3990,11 @@ def main(argv: list) -> int:
         }
         for phase, out in runs.items():
             emit(phase, **out)
+        # PopArt and the adaptive entropy controller on two training paths.
+        pe = popart_entropy_train(Path(d), card_line)
+        emit("popart_entropy_train", **pe)
+        runs["popart_cartpole"] = pe["cartpole"]
+        runs["popart_liars_dice_pool"] = pe["liars_dice_ctde_pool"]
         emit("update_idle_share", **phase_in_process(ROOT, "update_idle_shares"))
         emit("resume", **resume_phase(Path(d), card_line))
         # The front ends, each in a process of its own, through cli.main.
@@ -3575,9 +4016,11 @@ def main(argv: list) -> int:
                                 ("bench_selfplay_pool_turns", "selfplay_pool_train")):
                 emit(name, card=card_line, **train_turns(args.parent.resolve(), phase))
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
+        emit("learning_bar_popart", card=card_line, **learning_bar_popart(Path(d)))
 
-    # Launches: the sum over the eight train phases and the front ends'
-    # runs, each counted from 0.
+    # Launches: the sum over the ten train phases (phase
+    # popart_entropy_train's two among them) and the front ends' runs, each
+    # counted from 0.
     table = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name][0],

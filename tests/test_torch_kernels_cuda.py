@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K14 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K16 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -35,9 +35,15 @@ from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs, summarize_e
 from burn_ppo_torch.envs.liars_dice import LiarsDice, LiarsDiceState, liars_dice_step_autoreset
 from burn_ppo_torch.envs.liars_dice import walk_actions as liars_dice_walk
 from burn_ppo_torch.envs.skull import Skull, SkullState, skull_step_autoreset, walk_actions
+from burn_ppo_torch.ppo.entropy import AdaptiveEntropyState, adaptive_entropy_record
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
+    PopArtState,
     ReturnNormState,
+    popart_denormalize,
+    popart_denormalize_plain,
+    popart_update_rescale,
+    popart_update_rescale_plain,
     obs_norm_apply,
     obs_norm_apply_plain,
     obs_norm_update,
@@ -1684,3 +1690,144 @@ def test_temperature_sample_kernel_refuses_what_it_cannot_take(dev):
         sample_with_temperature(logits, mask, temps[:4], uni)
     with pytest.raises(ValueError, match="contiguous"):
         sample_with_temperature(logits.t().contiguous().t(), mask, temps, uni)
+
+
+def popart_case(dev, N, count, H, seed, valid_share=1.0):
+    """Raw returns [N], valid [N], a state of ``count`` samples and a value
+    head [H, 1] + [1], on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(N, generator=g, device=dev) * 30 + 7
+    w = (torch.rand(N, generator=g, device=dev) < valid_share).float()
+    state = PopArtState.create(dev)
+    state.mean.fill_(2.5 if count else 0.0)
+    state.m2.fill_(90.0 * count)
+    state.count.fill_(float(count))
+    kernel = torch.randn(H, 1, generator=g, device=dev) * 0.1
+    bias = torch.randn(1, generator=g, device=dev)
+    return x, w, state, kernel, bias
+
+
+def popart_copy(state, kernel, bias):
+    s = PopArtState(mean=state.mean.clone(), m2=state.m2.clone(), count=state.count.clone(),
+                    scratch=state.scratch)
+    return s, kernel.clone(), bias.clone()
+
+
+@pytest.mark.parametrize("N,count,H,share", [(524288, 0, 64, 1.0), (524288, 4096, 512, 0.75),
+                                             (524288, 1, 64, 1.0), (1, 1, 64, 1.0),
+                                             (1, 0, 64, 1.0), (2, 0, 512, 1.0),
+                                             (1000, 7, 3, 0.5), (8_000_001, 300, 512, 0.9),
+                                             (4096, 9, 64, 0.0)])
+def test_popart_update_kernel_matches_plain(dev, N, count, H, share):
+    """K15 against its plain version: the merged stats to f64 rounding of
+    the batch sums (rtol 1e-6), the head as the plain rescale of those
+    stats; the count gate (0, 1 and 2 samples, an empty mask); more than
+    the resident grid's registers hold (8,000,001)."""
+    x, w, state, kernel, bias = popart_case(dev, N, count, H, N + count)
+    ps, pk, pb = popart_copy(state, kernel, bias)
+    before = popart_update_rescale.launches
+    popart_update_rescale(state, x, w, kernel, bias)
+    torch.cuda.synchronize()
+    assert popart_update_rescale.launches == before + 1
+    popart_update_rescale_plain(ps, x, w, pk, pb)
+    for f in ("mean", "m2", "count"):
+        torch.testing.assert_close(getattr(state, f), getattr(ps, f), rtol=1e-6, atol=1e-6)
+    assert float(state.count) == float(ps.count)
+    torch.testing.assert_close(kernel, pk, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(bias, pb, rtol=1e-6, atol=1e-6)
+    if float(state.count) < 2:
+        assert torch.equal(kernel, popart_case(dev, N, count, H, N + count)[3])
+
+
+def test_popart_update_kernel_gives_the_same_bits_twice_and_on_graph_replays(dev):
+    x, w, state, kernel, bias = popart_case(dev, 524288, 1000, 512, 3, 0.8)
+    start = popart_copy(state, kernel, bias)
+    outs = []
+    for _ in range(2):
+        s, k, b = popart_copy(*start)
+        popart_update_rescale(s, x, w, k, b)
+        outs.append(torch.cat([s.mean[None], s.m2[None], s.count[None], k[:, 0], b]))
+    s, k, b = popart_copy(*start)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        popart_update_rescale(s, x, w, k, b)
+    s0, k0, b0 = start
+    for _ in range(2):
+        for dst, src in zip((s.mean, s.m2, s.count, k, b), (s0.mean, s0.m2, s0.count, k0, b0)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(torch.cat([s.mean[None], s.m2[None], s.count[None], k[:, 0], b]))
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+@pytest.mark.parametrize("n,count", [(4096, 0), (4096, 1), (4096, 2), (4096, 5000), (7, 3)])
+def test_popart_denormalize_kernel_is_the_plain_version_bit_for_bit(dev, n, count):
+    """K16, two roundings as the plain version: the same bits, into a
+    slice of a larger buffer as the rollout's values."""
+    x, _, state, _, _ = popart_case(dev, n, count, 1, n + 17 * count)
+    out = torch.zeros(3, n, device=dev)
+    before = popart_denormalize.launches
+    popart_denormalize(state, x, out=out[1])
+    torch.cuda.synchronize()
+    assert popart_denormalize.launches == before + 1
+    assert torch.equal(out[1], popart_denormalize_plain(state, x))
+    assert torch.equal(out[0], torch.zeros(n, device=dev))
+    if count < 2:
+        assert torch.equal(out[1], x)
+
+
+@pytest.mark.parametrize("M,A,clip_value", [(65536, 7, True), (65536, 49, True),
+                                            (65536, 49, False), (1000, 2, True)])
+@pytest.mark.parametrize("count", [1, 5000])
+def test_ppo_loss_kernel_with_popart_and_the_controller_matches_plain(dev, M, A, clip_value,
+                                                                       count):
+    """K8 with PopArt's stats (the gate closed at count 1) and the
+    controller stepping on this minibatch: the loss, metrics and gradients
+    to K8's tolerances, the stepped coefficient and the recorded entropy
+    to the metric's."""
+    g = torch.Generator(device=dev).manual_seed(M + A + count)
+    logits, values, mb = loss_batch(g, dev, M, A)
+    mb["returns"] = mb["returns"] * 40 + 9
+    mb["old_values"] = mb["old_values"] * 40 + 9
+    _, _, popart, _, _ = popart_case(dev, 8, count, 1, 5)
+    cfg = PPOUpdateConfig(clip_epsilon=0.1, clip_value=clip_value, ent_delta=0.004)
+    outs = []
+    for fn in (ppo_loss_forward, ppo_loss_plain):
+        ctrl = AdaptiveEntropyState.create(0.02, dev)
+        adaptive_entropy_record(ctrl, torch.tensor(0.3, device=dev))
+        book = LossBook.create(dev)
+        before = ppo_loss.launches
+        res = fn(logits, values, mb, torch.full((), 0.9, device=dev), cfg, book, False, popart,
+                 ctrl, True)
+        torch.cuda.synchronize()
+        assert ppo_loss.launches == before + (fn is ppo_loss_forward)
+        outs.append((res, ctrl, book))
+    (k, kc, kb), (p, pc, pb) = outs
+    torch.testing.assert_close(k[0], p[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(k[1], p[1], rtol=1e-5, atol=1e-6)
+    for a, b in zip(k[2:], p[2:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+    assert float(kc.coef) == float(pc.coef) == float(torch.tensor(0.024, dtype=torch.float32))
+    assert float(kc.last_entropy) == float(kb.sums[2] / kb.count)
+    torch.testing.assert_close(kc.last_entropy, pc.last_entropy, rtol=1e-5, atol=1e-6)
+    assert bool(kc.has_entropy)
+
+
+def test_ppo_loss_kernel_with_the_controller_on_later_minibatches_reads_its_coefficient(dev):
+    """Not the update's first minibatch: the coefficient is the state's
+    as it stands, and the record takes the book's running mean."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    logits, values, mb = loss_batch(g, dev, 4096, 33)
+    cfg = PPOUpdateConfig()
+    ctrl = AdaptiveEntropyState.create(0.037, dev)
+    book = LossBook.create(dev)
+    k = ppo_loss_forward(logits, values, mb, torch.full((), 5.0, device=dev), cfg, book, False,
+                         None, ctrl, False)
+    ref = ppo_loss_forward(logits, values, mb, torch.full((), 0.037, device=dev), cfg,
+                           LossBook.create(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], ref[0]) and torch.equal(k[2], ref[2])
+    assert float(ctrl.coef) == float(torch.tensor(0.037))
+    assert float(ctrl.last_entropy) == float(book.sums[2] / book.count)

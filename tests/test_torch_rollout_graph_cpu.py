@@ -326,7 +326,8 @@ def test_every_kernel_wrapper_is_registered_once():
             skull_step_autoreset, masked_sample, compute_gae, compute_gae_multiplayer,
             norm.obs_norm_apply, norm.obs_norm_update, norm.return_norm_roll,
             norm.return_norm_finalize, summarize_episode_logs, opponent_actor_forward,
-            clip_adam, ppo_loss, sample_with_temperature}
+            clip_adam, ppo_loss, sample_with_temperature, norm.popart_update_rescale,
+            norm.popart_denormalize}
     assert len(kernels.WRAPPERS) == len(set(kernels.WRAPPERS)) == len(want)
     assert set(kernels.WRAPPERS) == want
     assert all(isinstance(w.launches, int) for w in kernels.WRAPPERS)

@@ -265,12 +265,12 @@ def test_plain_connect_four_config_is_refused_with_the_flag_to_pass(tmp_path, ca
 
 @pytest.mark.parametrize("overrides,item", [
     ({"opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12"),
-    ({"env": "liars_dice", "normalize_values": True}, "A14"),
+    ({"env": "liars_dice", "compute_dtype": "bfloat16"}, "A18"),
     ({"env": "liars_dice", "network_type": "ctde", "opponent_pool_fraction": 0.25,
       "pool_rotation_interval": 2}, "A12c"),
-    ({"env": "skull", "network_type": "ctde", "normalize_values": True}, "A14"),
-    ({"normalize_values": True}, "A14"),
-    ({"adaptive_entropy": 1.0}, "A11"),
+    ({"env": "skull", "network_type": "ctde", "mesh_data": 2}, "A16"),
+    ({"opponent_pool_fraction": 0.25, "pool_rotation_interval": 8}, "A12c"),
+    ({"env": "liars_dice", "opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12b"),
     ({"opponent_pool_fraction": 0.25, "pool_rotation_interval": 2}, "A12c"),
 ])
 def test_unsupported_config_names_the_roadmap_item(overrides, item):

@@ -215,10 +215,10 @@ def test_two_ctde_train_steps_match_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--config", "configs/liars_dice.toml", "--normalize-values"], "A14"),
+    (["--config", "configs/liars_dice.toml", "--compute-dtype", "bfloat16"], "A18"),
     (["--config", "configs/liars_dice_ctde.toml", "--pool-rotation-interval", "2"], "A12c"),
-    (["--config", "configs/skull_ctde.toml", "--normalize-values"], "A14"),
-    (["--config", "configs/skull_ctde.toml", "--adaptive-entropy", "1.0"], "A11"),
+    (["--config", "configs/skull_ctde.toml", "--mesh-data", "2"], "A16"),
+    (["--config", "configs/skull_ctde.toml", "--pool-rotation-interval", "8"], "A12c"),
     (["--config", "configs/skull_ctde.toml", "--network-type", "cnn"], "A12b"),
     (["--config", "configs/skull_ctde.toml", "--pool-rotation-interval", "2"], "A12c"),
 ])

@@ -211,7 +211,7 @@ def test_train_command_end_to_end_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--max-checkpoints-this-run", "2"],
-                                   ["--env", "liars_dice", "--adaptive-entropy", "1.0"],
+                                   ["--env", "liars_dice", "--mesh-data", "2"],
                                    ["--network-type", "ctde"], ["--platform", "cpu"],
                                    ["--profile-dir", "p"], ["--checkify"],
                                    ["--compute-dtype", "bfloat16"]])
@@ -223,8 +223,8 @@ def test_train_command_refuses_unported_flags(flags, tmp_path, capsys):
 
 
 def test_trainer_refuses_unported_config(tmp_path):
-    cfg = Config(env="cartpole", normalize_values=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = Config(env="cartpole", compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
         Trainer(cfg, tmp_path, device="cpu")
 
 
