@@ -2,13 +2,16 @@
 
 The parser and the override collection are copies of
 burn_ppo_tpu/cli.py:31-231, so the flags, the subcommands and the TOML
-grammar are the same as the JAX CLI's, and so are ``--resume`` and
-``--fork`` (burn_ppo_tpu/cli.py:300-356). The port runs on CUDA. Flags
-and subcommands for what the port does not have yet (``interactive``, a
-Burn ``.mpk`` checkpoint) are refused with exit 2 and an error naming the
-ROADMAP item, never ignored.
+grammar are the same as the JAX CLI's, and so are ``--resume``,
+``--fork`` (burn_ppo_tpu/cli.py:300-356) and the supervisor mode,
+``--reload-every-n-checkpoints N`` (234-278: ``supervisor.py`` respawns
+the training as a child process every N checkpoints). The port runs on
+CUDA. Flags and subcommands for what the port does not have yet
+(``interactive``, a Burn ``.mpk`` checkpoint) are refused with exit 2 and
+an error naming the ROADMAP item, never ignored.
 
     python -m burn_ppo_torch train --config configs/cartpole.toml
+    python -m burn_ppo_torch train --config configs/cartpole.toml --reload-every-n-checkpoints 1
     python -m burn_ppo_torch train --resume runs/<name> --total-steps N
     python -m burn_ppo_torch train --fork runs/<name>/checkpoints/step_X [overrides]
     python -m burn_ppo_torch eval -c gauntlet/connect_four/r4 --random
@@ -240,9 +243,6 @@ def refused_flags(args) -> List[str]:
          or args.profile_start != 1 or args.profile_updates != 2,
          "--profile-* (ROADMAP A17: profiling tools)"),
         (args.checkify, "--checkify (JAX-only debug mode)"),
-        (args.reload_every_n_checkpoints or args.max_checkpoints_this_run
-         or args.elapsed_time_offset_ms,
-         "--reload-every-n-checkpoints (ROADMAP A15: supervisor)"),
         (args.platform is not None, "--platform (the port runs on CUDA)"),
         (args.compilation_cache != "auto", "--compilation-cache (XLA-only)"),
     )
@@ -296,7 +296,56 @@ def _train_config(args, runs_base: Path):
     return cfg, run_dir, {}
 
 
-def run_train(args, device: str = "cuda") -> int:
+def without_reload_flag(argv: List[str]) -> List[str]:
+    """``argv`` without ``--reload-every-n-checkpoints`` and its value
+    (both the ``--flag value`` and the ``--flag=value`` form)."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--reload-every-n-checkpoints":
+            skip = True
+        elif not a.startswith("--reload-every-n-checkpoints="):
+            out.append(a)
+    return out
+
+
+def supervise(args, argv: List[str]) -> int:
+    """Supervisor mode (burn_ppo_tpu/cli.py:234-278, the reference's
+    main.rs:1700-1784): the run respawned as a child process, ``python -m
+    burn_ppo_torch train``, every ``--reload-every-n-checkpoints``
+    checkpoints; ``argv`` is the train subcommand's arguments. A fresh run
+    gets its run dir fixed here (``--run-dir``), so that every child
+    trains into it."""
+    from burn_ppo_torch.supervisor import TrainingSupervisor
+    from burn_ppo_torch.train import unsupported_config
+
+    runs_base = Path(args.runs_base)
+    if args.resume:
+        run_dir = Path(args.resume)
+        cfg = Config.load(run_dir / "config.toml")
+    else:
+        cfg = Config.load(args.config).apply_overrides(collect_overrides(args))
+        run_name = args.run_name or cfg.run_name or generate_run_name(runs_base, cfg.env)
+        run_dir = Path(args.run_dir) if args.run_dir else runs_base / run_name
+    reason = unsupported_config(cfg)
+    if reason is not None:
+        print(f"error: config {args.resume or args.config} is not supported by burn_ppo_torch "
+              f"yet: {reason}", file=sys.stderr)
+        return 2
+    child_args = without_reload_flag(argv)
+    if "--run-dir" not in child_args and not args.resume:
+        child_args += ["--run-dir", str(run_dir)]
+    return TrainingSupervisor(
+        run_dir, child_args, reload_every_n_checkpoints=args.reload_every_n_checkpoints,
+        total_steps=args.total_steps or cfg.total_steps, quiet=args.quiet,
+    ).run()
+
+
+def run_train(args, device: str = "cuda", argv: Optional[List[str]] = None) -> int:
+    """``train``: a supervised run (its children on the command line's
+    device, CUDA), or one Trainer on ``device``. ``argv`` is the
+    subcommand's arguments, which a supervisor hands its children."""
     from burn_ppo_torch.train import Trainer, unsupported_config
 
     refused = refused_flags(args)
@@ -304,6 +353,11 @@ def run_train(args, device: str = "cuda") -> int:
         print("error: not supported by burn_ppo_torch yet: " + "; ".join(refused),
               file=sys.stderr)
         return 2
+    # Children are marked by --max-checkpoints-this-run; a fork is never
+    # supervised (as in JAX).
+    if args.reload_every_n_checkpoints > 0 and args.max_checkpoints_this_run == 0 \
+            and not args.fork:
+        return supervise(args, list(argv or []))
     setup = _train_config(args, Path(args.runs_base))
     if isinstance(setup, int):
         return setup
@@ -314,7 +368,9 @@ def run_train(args, device: str = "cuda") -> int:
         print(f"error: config {source} is not supported by burn_ppo_torch yet: {reason}",
               file=sys.stderr)
         return 2
-    trainer = Trainer(cfg, run_dir, device=device, quiet=args.quiet, **resume)
+    trainer = Trainer(cfg, run_dir, device=device, quiet=args.quiet,
+                      max_checkpoints_this_run=args.max_checkpoints_this_run,
+                      elapsed_time_offset=args.elapsed_time_offset_ms / 1000.0, **resume)
     summary = trainer.train()
     if not args.quiet:
         print(
@@ -355,7 +411,7 @@ def main(argv: Optional[List[str]] = None, *, device: str = "cuda") -> int:
         argv = ["train"] + argv
     args = parser.parse_args(argv)
     if args.command == "train":
-        return run_train(args, device=device)
+        return run_train(args, device=device, argv=argv[1:])
     if args.command in ("eval", "tournament"):
         return run_front_end(args, device=device)
     print(f"error: '{args.command}' is not ported to burn_ppo_torch yet "

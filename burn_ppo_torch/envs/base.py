@@ -204,6 +204,12 @@ class Environment:
         lead = _lead(state)
         return lead.new_zeros(lead.shape[0], dtype=torch.int32)
 
+    def current_player_view(self, state: State) -> Optional[torch.Tensor]:
+        """The player to act as the state holds it: an [E] i32 view, which
+        may be strided (a packed state's column); None where player 0
+        always acts."""
+        return None if self.spec.num_players == 1 else self.current_player(state)
+
     def game_outcome(self, state: State) -> torch.Tensor:
         """[E, P] i32 placements (1 = winner, ties share a place); read only
         where the episode ended."""

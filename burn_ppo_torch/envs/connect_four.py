@@ -136,6 +136,9 @@ class ConnectFour(Environment):
     def current_player(self, state: ConnectFourState) -> torch.Tensor:
         return state.current.contiguous()
 
+    def current_player_view(self, state: ConnectFourState) -> torch.Tensor:
+        return state.current
+
     def game_outcome(self, state: ConnectFourState) -> torch.Tensor:
         """[1,2] P0 won / [2,1] P1 won / [1,1] full board / [0,0] no result
         (connect_four.py:134-156)."""

@@ -272,6 +272,9 @@ class LiarsDice(Environment):
     def current_player(self, state: LiarsDiceState) -> torch.Tensor:
         return state.current.contiguous()
 
+    def current_player_view(self, state: LiarsDiceState) -> torch.Tensor:
+        return state.current
+
     def game_outcome(self, state: LiarsDiceState) -> torch.Tensor:
         return state.placements.contiguous()
 

@@ -470,6 +470,9 @@ class Skull(Environment):
     def current_player(self, s: SkullState) -> torch.Tensor:
         return s.current.contiguous()
 
+    def current_player_view(self, s: SkullState) -> torch.Tensor:
+        return s.current
+
     # -- privileged obs (skull.py:690-746) ----------------------------------
     def privileged_obs(self, s: SkullState) -> torch.Tensor:
         n = self.n

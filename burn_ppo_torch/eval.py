@@ -10,24 +10,29 @@ src/eval.rs):
   * ``EvalStats``: per-source placements, rewards, draws and Plackett-Luce
     ratings;
   * ``run_stats_mode``: parallel envs, seat permutations rotated between
-    games, each env's acting model's logits (``make_acting_logits_fn``),
-    the temperature sampler K14 and the env step kernel (K1, K4, K11,
-    K13), chunks of 64 steps run eagerly, the host reading each chunk's
-    episode records once;
+    games, each env's acting model's logits (``ActingLogits``), the
+    temperature sampler K14, the env step kernel (K1, K4, K11, K13) and
+    the step's seating and records (K17, ``sample_seats`` and
+    ``record_step``), chunks of 64 steps (``StatsEngine``), the host
+    reading each chunk's episode records once; ``EngineCache`` keeps one
+    engine per shape for a tournament's pods;
   * ``run_watch_mode`` and ``run_interactive_evaluation``: one env at a
     time, its text rendered, human moves read from the terminal
     (``human.py``).
 
-The JAX engine is one jitted ``lax.scan`` a chunk; here each step is a
-handful of launches (ROADMAP B17 would capture a chunk as one CUDA
-graph). Randomness comes from a ``ppo/rollout.py RandomSource``: one
-``torch.Generator`` on the device, seeded from ``seed``, or in the parity
-tests a source replaying JAX's draws. Per step it draws the sampler's
-uniforms [E, A], then the env's reset values and its step values.
+The JAX engine is one jitted ``lax.scan`` a chunk; here a chunk is one
+CUDA graph replay on a card (``EvalGraph``), the same steps run eagerly
+on the CPU. Randomness comes from a ``ppo/rollout.py RandomSource``: one
+``torch.Generator`` on the device, seeded from ``seed`` and registered
+with the graph, or in the parity tests a source replaying JAX's draws.
+Per step it draws the sampler's uniforms [E, A], then the env's reset
+values and its step values.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import itertools
 import math
 import time
@@ -39,6 +44,7 @@ from typing import Any, ClassVar, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from burn_ppo_torch import kernels
 from burn_ppo_torch.checkpoint import load_metadata, load_model, load_obs_normalizer
 from burn_ppo_torch.envs import make_env
 from burn_ppo_torch.envs.base import Environment, EpisodeAccumulator, env_row
@@ -52,6 +58,7 @@ from burn_ppo_torch.ppo.pool_rollout import (
     opponent_tower_problems,
 )
 from burn_ppo_torch.ppo.rollout import RandomSource, TorchRandomSource
+from burn_ppo_torch.ppo.rollout_graph import CapturedGraph, copy_into, state_leaves
 from burn_ppo_torch.utils import rewards_to_placements
 
 LOAD_CACHE_SIZE = 64
@@ -119,11 +126,14 @@ def sources_device(sources: Sequence[PlayerSource], default: str | torch.device 
     return devices.pop() if devices else torch.device(default)
 
 
+def resolve_seed(seed: Optional[int]) -> int:
+    """``seed``, or the clock when None (as the JAX package's PRNGKey is)."""
+    return seed if seed is not None else int(time.time()) % 2**31
+
+
 def random_source(seed: Optional[int], device: torch.device) -> RandomSource:
-    """One generator on ``device``, seeded from ``seed`` (the clock when
-    None, as the JAX package's PRNGKey is)."""
-    seed = seed if seed is not None else int(time.time()) % 2**31
-    return TorchRandomSource(torch.Generator(device=device).manual_seed(seed))
+    """One generator on ``device``, seeded from ``seed`` (``resolve_seed``)."""
+    return TorchRandomSource(torch.Generator(device=device).manual_seed(resolve_seed(seed)))
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +185,16 @@ class TempSchedule:
         else:
             ramp = torch.full_like(move, self.initial)
         return torch.where(move >= self.cutoff, torch.full_like(move, self.final_temp), ramp)
+
+    def kernel_args(self) -> tuple:
+        """K17's schedule, the f32 constants ``get_temp`` rounds to: (mode
+        (0 constant, 1 cutoff, 2 decay), initial, final, final - initial,
+        cutoff, 1 / cutoff)."""
+        f32 = lambda x: float(np.float32(x))  # noqa: E731
+        if self.cutoff is None:
+            return 0, f32(self.initial), 0.0, 0.0, 0.0, 0.0
+        return (2 if self.decay else 1, f32(self.initial), f32(self.final_temp),
+                f32(self.final_temp - self.initial), float(self.cutoff), f32(1.0 / self.cutoff))
 
     def describe(self) -> str:
         if self.cutoff is None:
@@ -355,9 +375,37 @@ def seat_maps(num_sources: int, num_players: int) -> np.ndarray:
     return np.array([[(i + r) % S for i in range(P)] for r in range(S)], dtype=np.int32)
 
 
+def _unique_models(sources: Sequence[PlayerSource]) -> Tuple[List[PlayerSource], List[int]]:
+    """The sources' unique models (one network object and obs normaliser
+    each, as the load cache shares them) and each source's index among
+    them (-1: random)."""
+    uniques: List[PlayerSource] = []
+    src_map: List[int] = []
+    for s in sources:
+        if s.kind == "random":
+            src_map.append(-1)
+            continue
+        j = next((j for j, u in enumerate(uniques)
+                  if u.network is s.network and u.obs_norm is s.obs_norm), None)
+        if j is None:
+            uniques.append(s)
+            j = len(uniques) - 1
+        src_map.append(j)
+    return uniques, src_map
+
+
+def network_arch(network) -> tuple:
+    """What fixes a network's forward: its kind, activation, obs layout
+    and every parameter's name and shape."""
+    return (network.network_type, network.activation, network.split_networks, network.obs_shape,
+            tuple((n, tuple(p.shape)) for n, p in network.named_parameters()))
+
+
 class ActingLogits:
     """``logits(obs_raw [E, D], acting_source [E]) -> [E, A]``: each env's
-    policy logits under its acting source, zeros for a random source.
+    policy logits under its acting source, zeros for a random source;
+    ``forward_slots(obs_raw, slot)`` the same from each env's unique
+    model (``slot_of_source`` of its acting source, -1 random).
 
     Sources that hold one network object (one checkpoint path, through
     the load cache) collapse to one unique model, never forwarded twice.
@@ -376,43 +424,87 @@ class ActingLogits:
         per unique model, each row taking its model's logits by
         ``torch.where`` (JAX's ``hetero``, eval.py:482-498).
 
+    With ``own`` (the stats engine's), the networks, obs normalisers and
+    stack are copies of the object's own, at fixed addresses: a CUDA graph
+    reads them, and ``load`` copies another lineup of the same ``key``
+    into them. The stack then has a slot for every source, so that lineups
+    with fewer unique models share its shape. Without ``own`` the shared
+    load-cache networks are forwarded as they are.
+
     The JAX package also drops from its stacked path to the per-model one
     when ``n_params * num_envs`` passes 64M (eval.py:442-447): that guards
     the per-env parameter copies of its one-hot contraction in TPU
     memory, which K7 does not make, so the port has no such switch."""
 
     def __init__(self, env: Environment, sources: Sequence[PlayerSource],
-                 device: torch.device):
+                 device: torch.device, *, own: bool = False):
         self.num_actions = env.spec.num_actions
         self.device = device
-        uniques: List[PlayerSource] = []
-        src_map: List[int] = []
-        for s in sources:
-            if s.kind == "random":
-                src_map.append(-1)
-                continue
-            j = next((j for j, u in enumerate(uniques)
-                      if u.network is s.network and u.obs_norm is s.obs_norm), None)
-            if j is None:
-                uniques.append(s)
-                j = len(uniques) - 1
-            src_map.append(j)
-        self.uniques = uniques
+        uniques, src_map = _unique_models(sources)
+        self.path = self._path(uniques)
+        self.key = self.lineup_key(sources)
         # acting source -> unique model (-1: random), on the device
         self.slot_of_source = torch.tensor(src_map, dtype=torch.int32, device=device)
-        self.is_random = self.slot_of_source < 0
+        if own and self.path in ("single", "per_model"):
+            uniques = [dataclasses.replace(u, network=copy.deepcopy(u.network),
+                                           obs_norm=copy.deepcopy(u.obs_norm)) for u in uniques]
+        self.uniques = uniques
         self.stack: Optional[OpponentStack] = None
-        U = len(uniques)
-        if U == 0:
-            self.path = "random"
-        elif U == 1:
-            self.path = "single"
-        elif self._k7_takes(uniques):
-            self.path = "stacked"
-            norms = None if uniques[0].obs_norm is None else [u.obs_norm for u in uniques]
-            self.stack = OpponentStack.of([actor_params(u.network) for u in uniques], norms)
-        else:
-            self.path = "per_model"
+        if self.path == "stacked":
+            self.stack = self._stack_of(uniques, len(sources) if own else len(uniques))
+
+    @staticmethod
+    def _path(uniques: Sequence[PlayerSource]) -> str:
+        if not uniques:
+            return "random"
+        if len(uniques) == 1:
+            return "single"
+        return "stacked" if ActingLogits._k7_takes(uniques) else "per_model"
+
+    @staticmethod
+    def lineup_key(sources: Sequence[PlayerSource]) -> tuple:
+        """What an engine's static logits fix of a lineup: the path, the
+        source count and the unique models' architectures and obs-norm
+        presence (per model, except on the stacked path, whose models
+        share one tower)."""
+        uniques, _ = _unique_models(sources)
+        path = ActingLogits._path(uniques)
+        archs = [(network_arch(u.network), u.obs_norm is None) for u in uniques]
+        return path, len(sources), tuple(archs[:1] if path == "stacked" else archs)
+
+    @staticmethod
+    def _stack_of(uniques: Sequence[PlayerSource], slots: int) -> OpponentStack:
+        """The unique models' actor towers as K7's first slots of a stack of
+        ``slots``, the rest zeros (no row reads them)."""
+        norms = None if uniques[0].obs_norm is None else [u.obs_norm for u in uniques]
+        stack = OpponentStack.of([actor_params(u.network) for u in uniques], norms)
+        pad = slots - len(uniques)
+        if pad == 0:
+            return stack
+
+        def padded(x: torch.Tensor) -> torch.Tensor:
+            return torch.cat([x, x.new_zeros(pad, *x.shape[1:])])
+
+        norm = stack.norm
+        return OpponentStack(
+            weights=[padded(w) for w in stack.weights], biases=[padded(b) for b in stack.biases],
+            activation=stack.activation,
+            norm=None if norm is None else ObsNormState(padded(norm.mean), padded(norm.m2),
+                                                        padded(norm.count)))
+
+    def load(self, sources: Sequence[PlayerSource]) -> None:
+        """Copy another lineup of this ``key`` into the own buffers: the
+        seat map, and the networks, obs normalisers or stack."""
+        if self.lineup_key(sources) != self.key:
+            raise ValueError("a lineup of another key: its logits need other static buffers")
+        uniques, src_map = _unique_models(sources)
+        self.slot_of_source.copy_(torch.tensor(src_map, dtype=torch.int32))
+        if self.stack is not None:
+            copy_into(self.stack, self._stack_of(uniques, self.stack.num_slots))
+            return
+        for mine, u in zip(self.uniques, uniques):
+            mine.network.load_state_dict(u.network.state_dict())
+            copy_into(mine.obs_norm, u.obs_norm)
 
     @staticmethod
     def _k7_takes(uniques: Sequence[PlayerSource]) -> bool:
@@ -431,10 +523,12 @@ class ActingLogits:
         return u.network.forward_actor(obs)
 
     def __call__(self, obs_raw: torch.Tensor, acting_source: torch.Tensor) -> torch.Tensor:
+        return self.forward_slots(obs_raw, self.slot_of_source[acting_source.long()])
+
+    def forward_slots(self, obs_raw: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
         E = obs_raw.shape[0]
         if self.path == "random":
             return torch.zeros(E, self.num_actions, device=obs_raw.device)
-        slot = self.slot_of_source[acting_source.long()]  # [E] i32, -1 = random
         if self.path == "stacked":
             return opponent_actor_forward(obs_raw, slot, self.stack)
         rand = (slot < 0)[:, None]
@@ -465,15 +559,174 @@ class ChunkLog:
     total_rewards: torch.Tensor  # [T, E, P] f32
     perm: torch.Tensor  # [T, E] i32
 
+    @staticmethod
+    def create(T: int, E: int, P: int, device: torch.device) -> "ChunkLog":
+        return ChunkLog(completed=torch.zeros(T, E, device=device),
+                        outcome=torch.zeros(T, E, P, dtype=torch.int32, device=device),
+                        total_rewards=torch.zeros(T, E, P, device=device),
+                        perm=torch.zeros(T, E, dtype=torch.int32, device=device))
+
     def fetch(self) -> Dict[str, np.ndarray]:
-        return {k: getattr(self, k).cpu().numpy()
+        """The records copied to the host (a copy on the CPU too: the
+        engine's next chunk overwrites its log)."""
+        return {k: getattr(self, k).to("cpu", copy=True).numpy()
                 for k in ("completed", "outcome", "total_rewards", "perm")}
 
 
+# ---------------------------------------------------------------------------
+# K17: the step's seating and records (eval.py:569-592)
+# ---------------------------------------------------------------------------
+def sample_seats_plain(perm_table: torch.Tensor, perm_idx: torch.Tensor,
+                       player: Optional[torch.Tensor], slot_of_source: torch.Tensor,
+                       move_count: torch.Tensor, temp: TempSchedule, slot: torch.Tensor,
+                       temps: torch.Tensor) -> None:
+    """Plain PyTorch K17 seat pass: each env's acting model ``slot`` [E]
+    i32 (``slot_of_source[perm_table[perm_idx, player]]``, -1 random) and
+    its temperature ``temps`` [E] f32 (``temp.get_temp(move_count)``),
+    written into the caller's buffers. ``player`` None is player 0."""
+    seat = torch.zeros_like(perm_idx) if player is None else player
+    source = perm_table[perm_idx.long(), seat.long()]
+    slot.copy_(slot_of_source[source.long()])
+    temps.copy_(temp.get_temp(move_count))
+
+
+def sample_seats(perm_table: torch.Tensor, perm_idx: torch.Tensor,
+                 player: Optional[torch.Tensor], slot_of_source: torch.Tensor,
+                 move_count: torch.Tensor, temp: TempSchedule, slot: torch.Tensor,
+                 temps: torch.Tensor) -> None:
+    """K17's seat pass, before the logits: plain PyTorch on the CPU, the
+    kernel (``csrc/eval_step.cu`` ``sample_seats_kernel``) on a CUDA
+    device. ``player`` may be a strided view (a packed state's column):
+    the kernel reads it in place."""
+    ts = [t for t in (perm_table, perm_idx, player, slot_of_source, move_count, slot, temps)
+          if t is not None]
+    if kernels.on_cpu(*ts):
+        return sample_seats_plain(perm_table, perm_idx, player, slot_of_source, move_count,
+                                  temp, slot, temps)
+    n_perms, P = perm_table.shape
+    E = perm_idx.shape[0]
+    kernels.expect(perm_table, "perm_table", torch.int32, (n_perms, P))
+    for t, name in ((perm_idx, "perm_idx"), (move_count, "move_count"), (slot, "slot")):
+        kernels.expect(t, name, torch.int32, (E,))
+    kernels.expect(slot_of_source, "slot_of_source", torch.int32, (slot_of_source.shape[0],))
+    kernels.expect(temps, "temps", torch.float32, (E,))
+    if player is not None and (player.dtype != torch.int32 or tuple(player.shape) != (E,)):
+        raise ValueError(f"player: expected an [{E}] i32 view, got {player.dtype} "
+                         f"{tuple(player.shape)}")
+    err = kernels.library().eval_sample_seats(
+        kernels.ptr(perm_table), n_perms, P, kernels.ptr(perm_idx), kernels.ptr(player),
+        0 if player is None else player.stride(0), kernels.ptr(slot_of_source),
+        kernels.ptr(move_count), *temp.kernel_args(), kernels.ptr(slot), kernels.ptr(temps), E,
+        kernels.stream(perm_idx.device))
+    kernels.check(err, "eval_sample_seats")
+    sample_seats.launches += 1
+
+
+kernels.counted(sample_seats)
+
+
+def record_step_plain(log: ChunkLog, t: int, step_log, perm_idx: torch.Tensor,
+                      move_count: torch.Tensor, n_perms: int) -> None:
+    """Plain PyTorch K17 record pass: the step's episode log and each env's
+    permutation before the advance into row ``t`` of ``log``, then, in
+    place, ``move_count`` to 0 and ``perm_idx`` to the next permutation
+    where the env is done (``step_log.completed``, the step's done),
+    ``move_count + 1`` elsewhere."""
+    log.completed[t] = step_log.completed
+    log.outcome[t] = step_log.outcome
+    log.total_rewards[t] = step_log.total_rewards
+    log.perm[t] = perm_idx
+    ended = step_log.completed > 0
+    move_count.copy_(torch.where(ended, 0, move_count + 1))
+    perm_idx.copy_(torch.where(ended, (perm_idx + 1) % n_perms, perm_idx))
+
+
+def record_step(log: ChunkLog, t: int, step_log, perm_idx: torch.Tensor,
+                move_count: torch.Tensor, n_perms: int) -> None:
+    """K17's record pass, after the env step: plain PyTorch on the CPU, the
+    kernel (``csrc/eval_step.cu`` ``record_step_kernel``) on a CUDA
+    device, writing row ``t`` where it lies (inside a chunk's graph, a
+    pointer fixed at capture)."""
+    rows = (step_log.completed, step_log.outcome, step_log.total_rewards)
+    if kernels.on_cpu(*rows, perm_idx, move_count, log.completed):
+        return record_step_plain(log, t, step_log, perm_idx, move_count, n_perms)
+    _, E, P = log.outcome.shape
+    completed = step_log.completed
+    outcome, totals = step_log.outcome.reshape(E, P), step_log.total_rewards.reshape(E, P)
+    kernels.expect(completed, "completed", torch.float32, (E,))
+    kernels.expect(outcome, "outcome", torch.int32, (E, P))
+    kernels.expect(totals, "total_rewards", torch.float32, (E, P))
+    kernels.expect(perm_idx, "perm_idx", torch.int32, (E,))
+    kernels.expect(move_count, "move_count", torch.int32, (E,))
+    err = kernels.library().eval_record_step(
+        kernels.ptr(completed), kernels.ptr(outcome), kernels.ptr(totals), kernels.ptr(perm_idx),
+        kernels.ptr(move_count), n_perms, kernels.ptr(log.completed[t]),
+        kernels.ptr(log.outcome[t]), kernels.ptr(log.total_rewards[t]), kernels.ptr(log.perm[t]),
+        E, P, kernels.stream(perm_idx.device))
+    kernels.check(err, "eval_record_step")
+    record_step.launches += 1
+
+
+kernels.counted(record_step)
+
+
+# ---------------------------------------------------------------------------
+# The chunk: static buffers, one CUDA graph on a card (eval.py:551-598)
+# ---------------------------------------------------------------------------
+@dataclass
+class EvalCarry:
+    """The stats engine's carry, at fixed addresses: envs, episode
+    accumulators, the obs and mask of the current states, each env's move
+    count and permutation."""
+
+    states: Any
+    acc: EpisodeAccumulator
+    obs: torch.Tensor  # [E, D]
+    mask: torch.Tensor  # [E, A] f32
+    move_count: torch.Tensor  # [E] i32
+    perm_idx: torch.Tensor  # [E] i32
+
+
+class EvalGraph(CapturedGraph):
+    """One stats chunk captured into a CUDA graph (``CapturedGraph``: a
+    warm-up on a side stream, the carry and the generator put back, the
+    generator registered), with counts of its own over all its
+    instances."""
+
+    replays = 0
+    captures = 0
+    skipped = 0
+    launches: Dict[Any, int] = {}
+    warmup_launches: Dict[Any, int] = {}
+
+    def __init__(self, fn, state: List[torch.Tensor], generator: torch.Generator) -> None:
+        super().__init__([fn], state, generator)
+
+
+def engine_key(env: Environment, sources: Sequence[PlayerSource], num_envs: int,
+               temp: TempSchedule, device: torch.device, chunk_steps: int = 64) -> tuple:
+    """What a stats engine's buffers and graph fix: the env and its player
+    count, E, T, the lineup's logits (``ActingLogits.lineup_key``: path,
+    source count, architectures, obs-norm presence; the source and player
+    counts fix the permutation table), the schedule and the device."""
+    return (env.spec, num_envs, chunk_steps, ActingLogits.lineup_key(sources), temp, str(device))
+
+
 class StatsEngine:
-    """The stats engine's carry and its chunk of steps (eval.py:551-598):
-    envs, episode accumulators, each env's move count and permutation,
-    and the obs and mask of the current states."""
+    """The stats engine's carry and its chunk of steps (eval.py:551-598),
+    on static buffers: the carry (``EvalCarry``), the seat and temperature
+    scratch, one ``ChunkLog`` that every chunk overwrites (fetch it before
+    the next), and the logits' own networks or stack (``ActingLogits``
+    with ``own``). A step writes its records into row t of the log and
+    advances the move counts and permutations in place (K17); the chunk's
+    last states are copied back into the carry.
+
+    ``run_chunk`` replays one CUDA graph of the chunk on a card, captured
+    at the first chunk (the random source must be a ``TorchRandomSource``),
+    and runs the same steps eagerly on the CPU; ``eager_chunk`` runs them
+    eagerly anywhere. A failed capture raises; nothing falls back to the
+    eager loop. ``load`` puts another lineup of the same ``engine_key``
+    and a new seed into the buffers (``EngineCache``)."""
 
     def __init__(self, env: Environment, sources: Sequence[PlayerSource], num_envs: int,
                  temp: TempSchedule, rng: RandomSource, device: torch.device,
@@ -481,50 +734,114 @@ class StatsEngine:
         P = env.spec.num_players
         self.env, self.temp, self.rng, self.device = env, temp, rng, device
         self.num_envs, self.chunk_steps = num_envs, chunk_steps
+        self.key = engine_key(env, sources, num_envs, temp, device, chunk_steps)
         self.perms = seat_maps(len(sources), P)
-        self.perm_table = torch.from_numpy(self.perms).to(device=device, dtype=torch.long)
+        self.perm_table = torch.from_numpy(self.perms).to(device)
         self.n_perms = self.perms.shape[0]
-        self.logits = ActingLogits(env, sources, device)
-        with torch.no_grad():
-            self.states = env.reset(env.draw_reset(rng, num_envs).to(device))
-            self.acc = EpisodeAccumulator.zero(num_envs, P, device)
-            self.obs = env.obs(self.states)
-            self.mask = env.action_mask(self.states)
-        self.move_count = torch.zeros(num_envs, dtype=torch.int32, device=device)
-        # Starting permutations staggered across envs for coverage.
-        self.perm_idx = torch.arange(num_envs, dtype=torch.int32, device=device) % self.n_perms
+        self.logits = ActingLogits(env, sources, device, own=True)
+        self.slot = torch.zeros(num_envs, dtype=torch.int32, device=device)
+        self.temps = torch.zeros(num_envs, dtype=torch.float32, device=device)
+        self.log = ChunkLog.create(chunk_steps, num_envs, P, device)
+        self.graph: Optional[EvalGraph] = None
+        self.carry: Optional[EvalCarry] = None
+        self.chunks = 0
+        self._reset()
 
-    def step(self, log: ChunkLog, t: int) -> None:
-        """One step of every env, its records written into slice ``t``."""
+    def _reset(self) -> None:
+        """A fresh carry from the random source, written into the static one."""
+        env, E, dev = self.env, self.num_envs, self.device
+        with torch.no_grad():
+            states = env.reset(env.draw_reset(self.rng, E).to(dev))
+            fresh = EvalCarry(
+                states=states, acc=EpisodeAccumulator.zero(E, env.spec.num_players, dev),
+                obs=env.obs(states), mask=env.action_mask(states),
+                move_count=torch.zeros(E, dtype=torch.int32, device=dev),
+                # Starting permutations staggered across envs for coverage.
+                perm_idx=torch.arange(E, dtype=torch.int32, device=dev) % self.n_perms)
+        if self.carry is None:
+            self.carry = fresh
+        else:
+            copy_into(self.carry, fresh)
+
+    def load(self, sources: Sequence[PlayerSource], seed: int) -> None:
+        """Play another lineup of this ``key`` from ``seed``: its models
+        copied into the own buffers, the generator re-seeded, the fresh
+        reset drawn eagerly into the carry (what a new engine seeded so
+        draws)."""
+        if not isinstance(self.rng, TorchRandomSource):
+            raise TypeError("an engine reloads by re-seeding a TorchRandomSource's generator")
+        self.logits.load(sources)
+        self.rng.generator.manual_seed(seed)
+        self._reset()
+
+    def step(self, c: EvalCarry, t: int) -> EvalCarry:
+        """One step of every env from carry ``c``, its records written into
+        row ``t`` of the log; returns the next carry (move counts and
+        permutations advanced in place)."""
         env, E, rng = self.env, self.num_envs, self.rng
-        players = env.current_player(self.states)
-        acting = self.perm_table[self.perm_idx.long(), players.long()]  # [E]
-        logits = self.logits(self.obs, acting)
-        temps = self.temp.get_temp(self.move_count)
+        sample_seats(self.perm_table, c.perm_idx, env.current_player_view(c.states),
+                     self.logits.slot_of_source, c.move_count, self.temp, self.slot, self.temps)
+        logits = self.logits.forward_slots(c.obs, self.slot)
         actions = sample_with_temperature(
-            logits, self.mask, temps, rng.uniform((E, env.spec.num_actions), TINY, 1.0))
-        out = env.step_autoreset(self.states, self.acc, actions, env.draw_reset(rng, E),
+            logits, c.mask, self.temps, rng.uniform((E, env.spec.num_actions), TINY, 1.0))
+        out = env.step_autoreset(c.states, c.acc, actions, env.draw_reset(rng, E),
                                  env.draw_step(rng, E))
-        log.completed[t] = out.log.completed
-        log.outcome[t] = out.log.outcome
-        log.total_rewards[t] = out.log.total_rewards
-        log.perm[t] = self.perm_idx
-        done = out.done > 0
-        self.move_count = torch.where(done, 0, self.move_count + 1).to(torch.int32)
-        self.perm_idx = torch.where(done, (self.perm_idx + 1) % self.n_perms,
-                                    self.perm_idx).to(torch.int32)
-        self.states, self.acc, self.obs, self.mask = out.state, out.acc, out.obs, out.mask
+        record_step(self.log, t, out.log, c.perm_idx, c.move_count, self.n_perms)
+        return dataclasses.replace(c, states=out.state, acc=out.acc, obs=out.obs, mask=out.mask)
+
+    def _chunk(self) -> None:
+        c = self.carry
+        with torch.no_grad():
+            for t in range(self.chunk_steps):
+                c = self.step(c, t)
+            copy_into(self.carry, c)
+
+    def eager_chunk(self) -> ChunkLog:
+        """The chunk's steps run one by one (on a card, every wrapper
+        launching), into the same buffers as ``run_chunk``."""
+        self._chunk()
+        self.chunks += 1
+        return self.log
 
     def run_chunk(self) -> ChunkLog:
-        T, E, P, dev = self.chunk_steps, self.num_envs, self.env.spec.num_players, self.device
-        log = ChunkLog(completed=torch.empty(T, E, device=dev),
-                       outcome=torch.empty(T, E, P, dtype=torch.int32, device=dev),
-                       total_rewards=torch.empty(T, E, P, device=dev),
-                       perm=torch.empty(T, E, dtype=torch.int32, device=dev))
-        with torch.no_grad():
-            for t in range(T):
-                self.step(log, t)
-        return log
+        """One chunk: a graph replay on a card, the eager steps on the CPU.
+        Returns the engine's log, which the next chunk overwrites."""
+        if self.device.type != "cuda":
+            return self.eager_chunk()
+        if self.graph is None:
+            if not isinstance(self.rng, TorchRandomSource):
+                raise TypeError("a graphed chunk draws from a TorchRandomSource's generator")
+            self.graph = EvalGraph(self._chunk, state_leaves(self.carry), self.rng.generator)
+        self.graph.replay()
+        self.chunks += 1
+        return self.log
+
+
+class EngineCache:
+    """One ``StatsEngine`` per ``engine_key``, reused across a tournament's
+    pods: a lineup of a key seen before is copied into that engine's
+    buffers (``StatsEngine.load``), so its graph, captured once, replays
+    for every pod. ``built`` and ``reused`` count the pods of each kind."""
+
+    def __init__(self):
+        self.engines: Dict[tuple, StatsEngine] = {}
+        self.built = self.reused = 0
+
+    def engine(self, env: Environment, sources: Sequence[PlayerSource], num_envs: int,
+               temp: TempSchedule, seed: Optional[int], device: torch.device,
+               chunk_steps: int = 64) -> StatsEngine:
+        seed = resolve_seed(seed)
+        key = engine_key(env, sources, num_envs, temp, device, chunk_steps)
+        engine = self.engines.get(key)
+        if engine is None:
+            engine = StatsEngine(env, sources, num_envs, temp, random_source(seed, device),
+                                 device, chunk_steps)
+            self.engines[key] = engine
+            self.built += 1
+        else:
+            engine.load(sources, seed)
+            self.reused += 1
+        return engine
 
 
 def run_stats_mode(
@@ -539,18 +856,24 @@ def run_stats_mode(
     *,
     device: Optional[str | torch.device] = None,
     rng: Optional[RandomSource] = None,
+    engines: Optional[EngineCache] = None,
 ) -> EvalStats:
     """Play ``num_games`` with seat rotation; returns per-source stats.
     Runs on the device the checkpoint sources live on (``device`` when
     every source is random); ``rng`` replaces the generator seeded from
-    ``seed``."""
+    ``seed``; ``engines`` reuses an engine of the same shape."""
     P = env.spec.num_players
     temp = temp or default_temp(env)
     if not all(s.kind in ("checkpoint", "random") for s in sources):
         raise ValueError("human players use the interactive path")
     dev = sources_device(sources, device if device is not None else "cuda")
-    engine = StatsEngine(env, sources, num_envs, temp, rng or random_source(seed, dev), dev,
-                         chunk_steps)
+    if engines is not None:
+        if rng is not None:
+            raise ValueError("an engine cache re-seeds its engines' own generators: pass a seed")
+        engine = engines.engine(env, sources, num_envs, temp, seed, dev, chunk_steps)
+    else:
+        engine = StatsEngine(env, sources, num_envs, temp, rng or random_source(seed, dev), dev,
+                             chunk_steps)
     stats = EvalStats([s.name for s in sources], P, logits_path=engine.logits.path)
     while stats.total_games < num_games:
         got = engine.run_chunk().fetch()

@@ -18,7 +18,8 @@ The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
 ``ops/categorical.py`` (K2 and K14),
 ``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
 ``ppo/pool_rollout.py``,
-``ppo/update.py``, ``ppo/episode_stats.py``) and use the helpers below.
+``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17)) and use
+the helpers below.
 Each registers itself with :func:`counted`, which gives it a ``launches``
 count: the wrapper adds one where it launches its kernel, and nowhere
 else.
@@ -126,6 +127,15 @@ SIGNATURES = {
     "popart_update_scratch_len": [],
     # x, mean, m2, count, out, n, stream
     "popart_denormalize": [_VP] * 5 + [_L, _VP],
+    # perm_table, n_perms, P, perm_idx, player (nullable), its stride,
+    # slot_of_source, move_count, the schedule's mode, initial, final,
+    # span, cutoff, 1 / cutoff, slot, temp, E, stream
+    "eval_sample_seats": ([_VP, _I, _I, _VP, _VP, _L, _VP, _VP, _I] + [_F] * 5
+                          + [_VP, _VP, _I, _VP]),
+    # completed (the step's done), outcome, total_rewards, perm_idx,
+    # move_count, n_perms, the log row's completed, outcome, total_rewards
+    # and perm, E, P, stream
+    "eval_record_step": [_VP] * 5 + [_I] + [_VP] * 4 + [_I, _I, _VP],
 }
 
 _LOCK = threading.Lock()

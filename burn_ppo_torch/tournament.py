@@ -20,8 +20,11 @@ subcommand, src/tournament.rs), function by function:
 Each pod is played by eval's stats engine (``eval.run_stats_mode``) on
 the device the contestants were loaded on; its JSON entry in ``pods``
 also says how the engine computed the logits (``"logits"``:
-``ActingLogits.path``). The pods' seeds come from ``random.Random(seed)``
-as in the JAX package.
+``ActingLogits.path``). Pods of one shape (``eval.engine_key``: env,
+envs, logits path, architectures, schedule) share one engine
+(``eval.EngineCache``): its buffers take each pod's models and seed, and
+on a card its chunk's CUDA graph, captured once, replays for all of them.
+The pods' seeds come from ``random.Random(seed)`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 
 from burn_ppo_torch.checkpoint import load_metadata
 from burn_ppo_torch.envs import make_env
-from burn_ppo_torch.eval import PlayerSource, TempSchedule, run_stats_mode
+from burn_ppo_torch.eval import EngineCache, PlayerSource, TempSchedule, run_stats_mode
 from burn_ppo_torch.selfplay.plackett_luce import (
     GameResult,
     PlackettLuceConfig,
@@ -520,6 +523,7 @@ def run_tournament(
     rng = random.Random(seed)
     all_games: List[GameResult] = []
     pods_log = []
+    engines = EngineCache()
 
     def run_pod(pod: List[int], round_idx: int) -> None:
         pod_sources = [contestants[ci].source for ci in pod]
@@ -532,6 +536,7 @@ def run_tournament(
             seed=rng.randrange(2**31),
             quiet=True,
             device=device,
+            engines=engines,
         )
         # Map per-game records (source-in-pod, placement) to pod order.
         games = []
@@ -643,6 +648,7 @@ def run_tournament(
         )
 
     if not quiet:
+        print(f"\nStats engines: {engines.built} built, reused for {engines.reused} pods")
         print(f"\nFinal standings ({len(all_games)} games):")
         hdr = f"{'#':>3} {'Contestant':<44} {'Swiss':>7} {'Rating':>8} {'±':>6} {'Games':>6}"
         print(hdr)

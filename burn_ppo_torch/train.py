@@ -312,9 +312,15 @@ class Trainer:
 
     def __init__(self, cfg: Config, run_dir: str | Path, *, device: str = "cuda",
                  quiet: bool = False, resume_from: Optional[str | Path] = None,
-                 forked_from_run: Optional[str] = None):
+                 forked_from_run: Optional[str] = None, max_checkpoints_this_run: int = 0,
+                 elapsed_time_offset: float = 0.0):
         validate_config(cfg)
         self.cfg = cfg
+        # A supervisor's child (supervisor.py) stops after this many
+        # checkpoints (0: no limit) and carries its parent's elapsed
+        # seconds into the time limit and the progress line.
+        self.max_checkpoints_this_run = max_checkpoints_this_run
+        self.elapsed_time_offset = elapsed_time_offset
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.quiet = quiet
@@ -611,7 +617,8 @@ class Trainer:
         start_step = self.global_step
         self.metrics.log_hparams(cfg.to_dict())
         cfg.save_toml(self.run_dir / "config.toml")
-        progress = TrainingProgress(cfg.total_steps, start_step=self.global_step, quiet=self.quiet)
+        progress = TrainingProgress(cfg.total_steps, start_step=self.global_step,
+                                    elapsed_offset=self.elapsed_time_offset, quiet=self.quiet)
 
         interrupted = {"flag": False}
         prev_handlers = {}
@@ -628,10 +635,13 @@ class Trainer:
         last_metrics: Dict[str, float] = {}
         next_log = self.global_step + cfg.log_freq
         next_ckpt = self.global_step + cfg.checkpoint_freq
+        checkpoints_saved = 0
+        hit_checkpoint_cap = False
         try:
             while self.global_step < cfg.total_steps:
                 if interrupted["flag"] or (
-                    max_seconds is not None and time.time() - start_time > max_seconds
+                    max_seconds is not None
+                    and time.time() - start_time + self.elapsed_time_offset > max_seconds
                 ):
                     break
                 lr = cfg.learning_rate.get(self.global_step)
@@ -659,7 +669,13 @@ class Trainer:
                 if self.global_step >= next_ckpt:
                     next_ckpt = self.global_step + cfg.checkpoint_freq
                     self.save_checkpoint()
-            self.save_checkpoint()
+                    checkpoints_saved += 1
+                    if 0 < self.max_checkpoints_this_run <= checkpoints_saved:
+                        # The supervisor's reload point (train.py:1639-1645).
+                        hit_checkpoint_cap = True
+                        break
+            if not hit_checkpoint_cap:
+                self.save_checkpoint()
             if interrupted["flag"]:
                 progress.finish_interrupted()
             else:

@@ -55,6 +55,10 @@ exits non-zero without the final result line:
      K14, eval's temperature sampler, on every row at [1, 7], [64, 7],
      [64, 33], [256, 33], [64, 49] and [1024, 49] (the envs' masks,
      temperatures from 0, 0.4, 1 and 1e-3, exact greedy ties required);
+     K17, the eval step's seating and records (``sample_seats`` and
+     ``record_step``), bit for bit at E = 1, 64, 256 and 4096, P = 2 and
+     4, under constant, cutoff and decay schedules with a Random seat,
+     timed at [256, 4];
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
      K3, K4, K5, K6, K9, K10 and K13 print their ptxas lines (registers,
@@ -172,20 +176,33 @@ exits non-zero without the final result line:
      replays, counted as in the train phases; the vs-pool case's pool
      stats and rating files carry the first leg's checkpoints; the fork
      records forked_from in every checkpoint;
-  3k. (in a process of its own) the eval command through cli.main on the
-     card: Connect Four r4 against r4_mid, greedy, 256 games x 64 envs
-     (K4, K7, K14), the game records equal to a CPU run; Skull r4,
-     r4_best, r4_mid and Random, 1024 games x 256 envs (K11, K7, K14;
-     valid placements, games/s, one chunk's events ms and its kernels on
-     the device, 64 each); a watched Connect Four and a watched Skull game
-     (the env step and K14 at E = 1, K6 for each model move), printed;
-     K4, K11 and K14 at E = 1 against their plain versions;
-  3l. (in a process of its own) the tournament command on the three
+  3k. (in a process of its own, with 3l) the eval command through
+     cli.main on the card, every stats chunk one CUDA graph replay (``eval.StatsEngine``,
+     ``EvalGraph``): Connect Four r4 against r4_mid, greedy, 256 games x
+     64 envs (K4, K7, K14, K17's two passes; each wrapper's launches the
+     graph's captured x replayed plus its warm-up), the game records equal
+     to a CPU run; Skull r4, r4_best, r4_mid and Random, 1024 games x 256
+     envs (K11, K7, K14, K17; valid placements; one chunk graphed and
+     eager in turns: events ms, device ms, idle share; games/s both ways
+     in turns; the kernels counted on the device in one replay against
+     those captured); from one saved carry and generator state, two graph
+     replays against two eager chunks bit for bit on the stacked, single,
+     per-model (the CTDE towers, and a seeded CNN) and random paths; a
+     watched Connect Four and a watched Skull game (eager: the env step
+     and K14 at E = 1, K6 for each model move), printed; K4, K11 and K14
+     at E = 1 against their plain versions;
+  3l. (after 3k, in its process) the tournament command on the three
      gauntlets as scripts/gauntlet.py rate plays them (48 games a pod on
-     Skull, 192 on Connect Four and Liar's Dice): every entry above Random
-     by more than 2 of its sigma and within 4 combined sigma of
-     gauntlet/<env>/ratings_r4.json; the pods that stacked their models
-     for K7 and those that took the per-model path, both on Skull;
+     Skull, 192 on Connect Four and Liar's Dice), under seeds 0 and 1,
+     pods of one shape sharing one engine and its graph
+     (``eval.EngineCache``; captures and replays counted): every entry
+     above Random by more than 2 of its sigma and within 4 combined sigma
+     of gauntlet/<env>/ratings_r4.json under both seeds, the entries below
+     JAX's counted; the pods that stacked their models for K7 and those
+     that took the per-model path, both on Skull; a pod loaded into a
+     cached engine against a fresh engine of its seed run eagerly, bit for
+     bit; each gauntlet's seconds with the cache against an engine a pod
+     run eagerly, in turns;
   3m. phase ``popart_entropy_train``: CartPole at the bench shape and
      configs/liars_dice_ctde.toml at 4096 envs against the pool, each with
      --normalize-values --adaptive-entropy 0.5 through the CLI, 4 updates
@@ -197,6 +214,13 @@ exits non-zero without the final result line:
      and K15, K16 and K8 counted on the device in one replay of each graph;
      the resume phase (3j) holds a CartPole case with both flags, whose
      popart.npz comes back bit for bit;
+  3n. phase ``supervisor`` (while phase 3j runs): configs/cartpole.toml
+     with --reload-every-n-checkpoints 1 for three checkpoints, twice at once,
+     each ``python -m burn_ppo_torch train`` in a process of its own
+     spawning three children (the later two with --resume and a growing
+     --elapsed-time-offset-ms): the total step reached, one metrics entry
+     an update without gap or repeat, each logged by a child on the card,
+     the two runs' final model, optimizer and generator bit for bit;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps; then the same with
      --normalize-values, printed beside the JAX package's CPU result for
@@ -323,6 +347,16 @@ from burn_ppo_torch.ppo.update import (  # noqa: E402
 )
 from burn_ppo_torch.config import Config  # noqa: E402
 from burn_ppo_torch.envs import make_env  # noqa: E402
+from burn_ppo_torch.eval import (  # noqa: E402
+    ChunkLog,
+    EvalGraph,
+    TempSchedule,
+    record_step,
+    record_step_plain,
+    sample_seats,
+    sample_seats_plain,
+    seat_maps,
+)
 from burn_ppo_torch.schedule import Schedule  # noqa: E402
 from burn_ppo_torch.ppo.pool_rollout import PoolSeating, collect_rollouts_with_opponents  # noqa: E402
 from burn_ppo_torch.ppo.rollout import (  # noqa: E402
@@ -380,6 +414,8 @@ WRAPPERS = {
     "temperature_sample": sample_with_temperature,
     "popart_update": popart_update_rescale,
     "popart_denormalize": popart_denormalize,
+    "sample_seats": sample_seats,
+    "record_step": record_step,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -414,11 +450,17 @@ SOURCES = {
     "popart_update": ("burn_ppo_torch/csrc/popart.cu", "burn_ppo_tpu/ppo/normalization.py:272"),
     "popart_denormalize": ("burn_ppo_torch/csrc/popart.cu",
                            "burn_ppo_tpu/ppo/normalization.py:293"),
+    "sample_seats": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:575"),
+    "record_step": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:586"),
 }
 
 
+T_START = time.time()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.time() - T_START}), flush=True)
 
 
 def card() -> str:
@@ -2310,6 +2352,9 @@ def kernel_counts(events, launched: dict, names: dict = ROLLOUT_KERNELS) -> dict
     return out
 
 
+PROFILE_LEAD_CYCLES = 40_000_000  # ~20 ms of device time at the H100's ~2 GHz
+
+
 def replay_kernel_counts(graph, names: dict = ROLLOUT_KERNELS) -> dict:
     """Each kernel's device launches (``names``: the rollout's or the
     update's) in one profiled replay of a graph (a ``RolloutGraph``, or an
@@ -2323,6 +2368,11 @@ def replay_kernel_counts(graph, names: dict = ROLLOUT_KERNELS) -> dict:
     profiles = []
     while len(profiles) < 3:
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            # A replay enqueues all its kernels at once, and a profile can
+            # miss the kernels of its first milliseconds (once an update
+            # graph's first 7-9 minibatches, three profiles in a row): the
+            # stream waits on the device first.
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
             graph.replay()
             torch.cuda.synchronize()
         counts = kernel_counts(prof.events(), captured, names)
@@ -2649,11 +2699,12 @@ with tempfile.TemporaryDirectory(prefix="chip_smoke_turn_") as d:
 def phase_in_process(tree: Path, phase: str) -> dict:
     """``chip_smoke.<phase>(tmp, card)`` of ``tree``'s chip_smoke, in a
     process of its own: the phase's JSON result."""
+    t0 = time.time()
     res = subprocess.run([sys.executable, "-c", TRAIN_TURN.format(phase)], cwd=tree,
                          capture_output=True, text=True, timeout=900)
     if res.returncode != 0:
         raise RuntimeError(f"{phase} in {tree} exited {res.returncode}:\n{res.stderr[-4000:]}")
-    return json.loads(res.stdout.strip().splitlines()[-1])
+    return {**json.loads(res.stdout.strip().splitlines()[-1]), "process_s": time.time() - t0}
 
 
 def train_turns(parent_dir: Path, phase: str) -> dict:
@@ -3512,6 +3563,108 @@ def check_temperature_sample(dev, g, c4_mask, skull_mask, ld_mask, ptxas: list) 
     return out
 
 
+# K17's schedules: constant (Skull, Liar's Dice), Connect Four's cutoff at
+# move 10, two decays; moves drawn from [0, 70) cross every cutoff.
+K17_SCHEDULES = (TempSchedule(initial=0.7), TempSchedule(initial=0.4, final_temp=0.0, cutoff=10),
+                 TempSchedule(initial=1.5, final_temp=0.25, cutoff=7, decay=True),
+                 TempSchedule(initial=1.0, final_temp=0.3, cutoff=13, decay=True))
+
+
+def eval_step_inputs(dev, g, E: int, P: int) -> dict:
+    """One eval step's seating and records: the seat maps of P + 1 sources
+    (one Random), the player a strided column of a packed-like [E, 27]
+    buffer (as Skull's), a quarter of the envs done (the step's done is its
+    log's completed, one buffer)."""
+    perms = torch.from_numpy(seat_maps(P + 1, P)).to(dev)
+    ints = torch.randint(0, P, (E, 27), generator=g, device=dev, dtype=torch.int32)
+    done = (torch.rand(E, generator=g, device=dev) < 0.25).float()
+    return dict(
+        perm_table=perms,
+        perm_idx=torch.randint(0, perms.shape[0], (E,), generator=g, device=dev, dtype=torch.int32),
+        player=ints[:, 5],
+        slot_of_source=torch.tensor([0, -1] + list(range(1, P)), dtype=torch.int32, device=dev),
+        move_count=torch.randint(0, 70, (E,), generator=g, device=dev, dtype=torch.int32),
+        done=done,
+        log=EpisodeLog(completed=done, total_rewards=torch.randn(E, P, generator=g, device=dev),
+                       length=torch.zeros(E, dtype=torch.int32, device=dev),
+                       outcome=torch.randint(0, P + 1, (E, P), generator=g, device=dev,
+                                             dtype=torch.int32),
+                       active_players=torch.zeros(E, dtype=torch.int32, device=dev)))
+
+
+def seats_call(x: dict, temp: TempSchedule, fn=sample_seats) -> tuple:
+    E = x["perm_idx"].shape[0]
+    slot = torch.full((E,), 99, dtype=torch.int32, device=x["perm_idx"].device)
+    temps = torch.full((E,), -1.0, device=slot.device)
+    fn(x["perm_table"], x["perm_idx"], x["player"], x["slot_of_source"], x["move_count"], temp,
+       slot, temps)
+    return slot, temps
+
+
+def record_call(x: dict, fn=record_step) -> list:
+    E, P = x["log"].outcome.shape
+    log = ChunkLog.create(2, E, P, x["done"].device)
+    pi, mc = x["perm_idx"].clone(), x["move_count"].clone()
+    fn(log, 1, x["log"], pi, mc, x["perm_table"].shape[0])
+    return [pi, mc, log.completed, log.outcome, log.total_rewards, log.perm]
+
+
+def check_eval_step(dev, g, ptxas: list) -> dict:
+    """K17 against its plain version, every output bit for bit, at E = 1,
+    64, 256 and 4096 and P = 2 and 4, under the constant, cutoff and two
+    decay schedules (moves crossing each cutoff; a Random seat); timed at
+    phase eval (b)'s shape, 256 envs of four players, with the bytes bound
+    of what these inputs need (each perm-table entry and source read
+    once)."""
+    out: dict = {"sample_seats": {"shapes": []}, "record_step": {"shapes": []}}
+    for E in (1, 64, 256, 4096):
+        for P in (2, 4):
+            x = eval_step_inputs(dev, g, E, P)
+            random_rows = crossed = 0
+            for temp in K17_SCHEDULES:
+                (ks, kt), (ps, pt) = seats_call(x, temp), seats_call(x, temp, sample_seats_plain)
+                torch.cuda.synchronize()
+                if not (torch.equal(ks, ps) and torch.equal(kt, pt)):
+                    raise AssertionError(f"sample_seats [{E}, {P}] {temp}: differs from plain")
+                random_rows = int((ks == -1).sum())
+                if temp.cutoff is not None:
+                    crossed += int((x["move_count"] >= temp.cutoff).sum())
+            k, p = record_call(x), record_call(x, record_step_plain)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(k, p)):
+                raise AssertionError(f"record_step [{E}, {P}]: differs from plain")
+            out["sample_seats"]["shapes"].append({"E": E, "P": P, "random_rows": random_rows,
+                                                  "rows_past_cutoff": crossed})
+            out["record_step"]["shapes"].append({"E": E, "P": P, "done": int(x["done"].sum())})
+    if not sum(c["random_rows"] for c in out["sample_seats"]["shapes"]) or not sum(
+            c["rows_past_cutoff"] for c in out["sample_seats"]["shapes"]):
+        raise AssertionError(f"sample_seats: no Random seat or no move past a cutoff: {out}")
+    E, P = 256, 4
+    x = eval_step_inputs(dev, g, E, P)
+    temp = K17_SCHEDULES[1]
+    slot, temps = seats_call(x, temp)
+    entries = torch.unique(x["perm_idx"].long() * P + x["player"].long()).numel()
+    sources = torch.unique(x["perm_table"].flatten()[
+        x["perm_idx"].long() * P + x["player"].long()]).numel()
+    seat_bytes = 4 * (5 * E + entries + sources)  # perm_idx, player, moves, slot, temp
+    log = ChunkLog.create(64, E, P, dev)
+    pi, mc = x["perm_idx"].clone(), x["move_count"].clone()
+    n_perms = x["perm_table"].shape[0]
+    # reads: completed (the step's done), outcome, totals, perm_idx, moves;
+    # writes: the log row's four, perm_idx, moves
+    record_bytes = 4 * (3 * E + 2 * E * P) + 4 * (4 * E + 2 * E * P)
+    for name, kernel, plain, nbytes_ in (
+            ("sample_seats", lambda: seats_call(x, temp),
+             lambda: seats_call(x, temp, sample_seats_plain), seat_bytes),
+            ("record_step", lambda: record_step(log, 0, x["log"], pi, mc, n_perms),
+             lambda: record_step_plain(log, 0, x["log"], pi, mc, n_perms),
+             record_bytes)):
+        out[name].update(timed(kernel, plain), **bound(nbytes_), shape=[E, P], max_abs_err=0.0,
+                         tol="exact", library_ms=None, launches_per_chunk=64,
+                         ptxas=kernel_ptxas(ptxas, name))
+    return out
+
+
 GAUNTLET = ROOT / "gauntlet"
 C4_GREEDY = ["--temp", "0", "--temp-cutoff", "10", "--temp-final", "0"]
 # Each eval kernel's device name (the profiler's), for the counts in one chunk.
@@ -3520,14 +3673,20 @@ EVAL_KERNELS = {
     "skull_step_autoreset": "skull_step_autoreset_kernel",
     "opponent_actor_forward": "opponent_mlp_kernel",
     "temperature_sample": "temperature_sample_kernel",
+    "sample_seats": "sample_seats_kernel",
+    "record_step": "record_step_kernel",
 }
+K17 = ("sample_seats", "record_step")
 
 
 def front_end_run(argv: list, expect: set) -> dict:
-    """``cli.main(argv)`` on the card with every launch counter at 0 just
-    before it and read just after: the kernels of ``expect`` must each
-    launch, and no other. Keeps what ``eval.run_stats_mode`` returned and
-    the printed text."""
+    """``cli.main(argv)`` on the card with every launch counter and the
+    eval graphs' counts at 0 just before it and read just after: the
+    kernels of ``expect`` must each launch, and no other. A stats run's
+    chunks are graph replays: its launches are the wrappers' (the graphs'
+    warm-ups; no other eager launch allowed) plus each graph's captured
+    launches times its replays; ``main_path`` leaves the warm-ups out.
+    Keeps what ``eval.run_stats_mode`` returned and the printed text."""
     import contextlib
     import io
 
@@ -3539,6 +3698,7 @@ def front_end_run(argv: list, expect: set) -> dict:
     ev.run_stats_mode = lambda *a, **k: stats.append(real(*a, **k)) or stats[-1]
     for w in WRAPPERS.values():
         w.launches = 0
+    EvalGraph.reset_counts()
     buf = io.StringIO()
     t0 = time.time()
     try:
@@ -3548,13 +3708,31 @@ def front_end_run(argv: list, expect: set) -> dict:
     finally:
         ev.run_stats_mode = real
     wall = time.time() - t0
-    launches = {name: w.launches for name, w in WRAPPERS.items() if w.launches}
+    eager = {name: w.launches for name, w in WRAPPERS.items()}
+    graphed = {name: EvalGraph.launches.get(w, 0) for name, w in WRAPPERS.items()}
+    warmup = {name: EvalGraph.warmup_launches.get(w, 0) for name, w in WRAPPERS.items()}
+    launches = {name: eager[name] + graphed[name] for name in WRAPPERS
+                if eager[name] + graphed[name]}
     if rc != 0:
         raise RuntimeError(f"{' '.join(argv[:2])} exited {rc}:\n{buf.getvalue()[-2000:]}")
     if set(launches) != expect:
         raise AssertionError(f"{' '.join(argv)}: kernels launched {launches}, expected each of "
                              f"{sorted(expect)} and no other")
-    return {"wall_s": wall, "launches": launches, "stats": stats, "text": buf.getvalue()}
+    if EvalGraph.captures and eager != warmup:
+        raise AssertionError(f"{' '.join(argv)}: eager launches {eager} beyond the graphs' "
+                             f"warm-ups {warmup}")
+    return {"wall_s": wall, "launches": launches, "stats": stats, "text": buf.getvalue(),
+            "main_path": {name: eager[name] - warmup[name] + graphed[name] for name in launches},
+            "graph_captures": EvalGraph.captures, "graph_replays": EvalGraph.replays}
+
+
+def check_chunk_launches(name: str, run: dict, step_kernel: str, steps_per_chunk: int = 64):
+    """A stats run's main path: one graph replay a chunk, K17's two passes,
+    K14 and the env step once a step of each replayed chunk."""
+    m, chunks = run["main_path"], run["graph_replays"]
+    want = {k: chunks * steps_per_chunk for k in (step_kernel, "temperature_sample", *K17)}
+    if {k: m.get(k) for k in want} != want or chunks < 1:
+        raise AssertionError(f"{name}: main-path launches {m}, {chunks} replays: want {want}")
 
 
 def valid_placements(records: list) -> bool:
@@ -3573,20 +3751,17 @@ def first_divergence(sources_gpu, sources_cpu, temp, num_envs: int, steps: int) 
     engines = [ev.StatsEngine(env, srcs, num_envs, temp, ev.random_source(0, d), d)
                for srcs, d in ((sources_gpu, resolve_device("cuda")),
                                (sources_cpu, torch.device("cpu")))]
-    log = [ev.ChunkLog(torch.empty(1, num_envs, device=e.device),
-                       torch.empty(1, num_envs, 2, dtype=torch.int32, device=e.device),
-                       torch.empty(1, num_envs, 2, device=e.device),
-                       torch.empty(1, num_envs, dtype=torch.int32, device=e.device))
-           for e in engines]
+    carries = [e.carry for e in engines]
     with torch.no_grad():
         for t in range(steps):
             picks = []
-            for e in engines:
-                acting = e.perm_table[e.perm_idx.long(), env.current_player(e.states).long()]
-                logits = e.logits(e.obs, acting)
+            for e, c in zip(engines, carries):
+                sample_seats(e.perm_table, c.perm_idx, env.current_player_view(c.states),
+                             e.logits.slot_of_source, c.move_count, e.temp, e.slot, e.temps)
+                logits = e.logits.forward_slots(c.obs, e.slot)
                 half = torch.full_like(logits, 0.5)
-                picks.append((apply_action_mask(logits, e.mask).cpu(),
-                              sample_with_temperature(logits, e.mask, 0.0, half).cpu()))
+                picks.append((apply_action_mask(logits, c.mask).cpu(),
+                              sample_with_temperature(logits, c.mask, 0.0, half).cpu()))
             rows = picks[0][1] != picks[1][1]
             if bool(rows.any()):
                 r = int(rows.nonzero()[0, 0])
@@ -3594,24 +3769,174 @@ def first_divergence(sources_gpu, sources_cpu, temp, num_envs: int, steps: int) 
                 scale = float(picks[1][0][r].abs().max())
                 return {"step": t, "row": r, "top_two_gap": float(top[0] - top[1]),
                         "k7_tol": 2 * (1e-4 + 1e-4 * scale)}
-            for i, e in enumerate(engines):
-                e.step(log[i], 0)
+            carries = [e.step(c, 0) for e, c in zip(engines, carries)]
     return {"step": None}
 
 
+def seeded_cnn(dev):
+    """A Connect Four CNN player (``configs/connect_four.toml`` with
+    ``network_type = "cnn"``), its weights random from a seed: eval's
+    per-model path through cuDNN."""
+    import burn_ppo_torch.eval as ev
+
+    cfg = Config.load(ROOT / "configs" / "connect_four.toml").apply_overrides(
+        {"network_type": "cnn"})
+    net = build_network_for_env(make_env("connect_four"), cfg, torch.Generator().manual_seed(5))
+    return ev.PlayerSource(kind="checkpoint", name="cnn", network=net.to(dev).requires_grad_(False))
+
+
+def engine_outputs(engine) -> list:
+    """A chunk's log, the carry and the generator's state, copied."""
+    return ([x.clone() for x in state_leaves(engine.log) + state_leaves(engine.carry)]
+            + [engine.rng.generator.get_state()])
+
+
+def replay_equals_eager(engine, chunks: int = 2) -> dict:
+    """From one saved carry and generator state, ``chunks`` graph replays
+    and as many eager chunks: every log array of every chunk, the final
+    carry and the generator bit for bit."""
+    if engine.graph is None:
+        engine.run_chunk()  # the capture
+    carry = [t.clone() for t in state_leaves(engine.carry)]
+    gen = engine.rng.generator.get_state()
+    runs, games = [], []
+    for run in (engine.run_chunk, engine.eager_chunk):
+        for t, s in zip(state_leaves(engine.carry), carry):
+            t.copy_(s)
+        engine.rng.generator.set_state(gen)
+        outs, done = [], 0
+        for _ in range(chunks):
+            run()
+            done += int(engine.log.completed.sum())
+            outs += engine_outputs(engine)
+        torch.cuda.synchronize()
+        runs.append(outs)
+        games.append(done)
+    same = len(runs[0]) == len(runs[1]) and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in zip(*runs))
+    if not same:
+        raise AssertionError(f"the graphed chunk ({engine.logits.path}) differs from the eager "
+                             "chunk from the same carry and generator state")
+    return {"path": engine.logits.path, "envs": engine.num_envs, "chunks": chunks,
+            "games_completed": games[0], "bit_for_bit": True}
+
+
+def chunk_turns(engine, reps: int = 2) -> dict:
+    """One chunk as a graph replay and eagerly, in turns (graph, eager,
+    eager, graph, ...): events ms each; then one profiled chunk of each:
+    the device's busy ms (the kernels' and copies' time), and the idle
+    share 1 - busy / events median."""
+    def events(fn) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    engine.run_chunk()
+    engine.eager_chunk()
+    torch.cuda.synchronize()
+    times: dict = {"graph": [], "eager": []}
+    for _ in range(reps):
+        for mode in ("graph", "eager", "eager", "graph"):
+            times[mode].append(events(engine.run_chunk if mode == "graph" else engine.eager_chunk))
+    act = torch.profiler.ProfilerActivity
+    out: dict = {}
+    for mode, fn in (("graph", engine.run_chunk), ("eager", engine.eager_chunk)):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        med = sorted(times[mode])[len(times[mode]) // 2]
+        out[mode] = {"events_ms": times[mode], "events_ms_median": med, "device_ms": busy,
+                     "idle_share": 1.0 - busy / med if busy else None}
+    return out
+
+
+def chunk_bound(engine) -> dict:
+    """The least time of one stacked-model chunk, as row B8's rollout bound:
+    each step's kernels' bounds (the env step, the uniforms, K14, K17's two
+    passes) plus the actor forwards of the rows a model plays (K7's
+    towers) at the f32 rate, all from one step of this engine's carry
+    (its seats, temperatures and env state), times its steps."""
+    env, c, E = engine.env, engine.carry, engine.num_envs
+    A, P, dev = env.spec.num_actions, env.spec.num_players, c.obs.device
+    stack = engine.logits.stack
+    rng = TorchRandomSource(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        sample_seats(engine.perm_table, c.perm_idx, env.current_player_view(c.states),
+                     engine.logits.slot_of_source, c.move_count, engine.temp, engine.slot,
+                     engine.temps)
+        rows, sampled = int((engine.slot >= 0).sum()), int((engine.temps > 0).sum())
+        action = torch.argmax(c.mask, 1).to(torch.int32)
+        u = env.draw_step(rng, E)
+        out = env.step_autoreset(c.states, c.acc, action, env.draw_reset(rng, E), u)
+    pad = pad_bytes(c.states) if hasattr(c.states, "PAD_COL") else 0
+    step = bound(nbytes(c.states, c.acc, action, u, out) - pad, 2000.0 * E)["bound_ms"]
+    per_step = {
+        "env_step": step,
+        "uniforms": bound(4 * E * A)["bound_ms"],
+        # the logits, mask and uniforms of the sampled rows, the actions
+        "temperature_sample": bound(4 * (3 * sampled * A + E))["bound_ms"],
+        "sample_seats": bound(4 * (5 * E + 2 * E))["bound_ms"],
+        "record_step": bound(4 * (7 * E + 4 * E * P))["bound_ms"],
+    }
+    flops = rows * sum(2.0 * w.shape[1] * w.shape[2] for w in stack.weights)
+    kernels_ms = sum(per_step.values()) * engine.chunk_steps
+    forward_ms = flops * engine.chunk_steps / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": kernels_ms + forward_ms,
+            "bound_by": "operations" if forward_ms > kernels_ms else "bytes",
+            "bound_kernels_ms": kernels_ms, "forward_flops_per_step": flops,
+            "model_rows": rows, "per_step_ms": per_step}
+
+
+def games_per_s_turns(env, sources, games: int, num_envs: int) -> dict:
+    """``run_stats_mode`` (a new engine each run: capture included) graphed
+    and with its chunks run eagerly (``StatsEngine.run_chunk`` switched to
+    ``eager_chunk`` for the run), in turns; games/s of each run."""
+    import burn_ppo_torch.eval as ev
+
+    out: dict = {"graph": [], "eager": []}
+    real = ev.StatsEngine.run_chunk
+    for mode in ("graph", "eager", "eager", "graph"):
+        if mode == "eager":
+            ev.StatsEngine.run_chunk = ev.StatsEngine.eager_chunk
+        try:
+            t0 = time.time()
+            st = ev.run_stats_mode(env, sources, games, num_envs=num_envs, seed=0, quiet=True)
+            torch.cuda.synchronize()
+            out[mode].append(st.total_games / (time.time() - t0))
+        finally:
+            ev.StatsEngine.run_chunk = real
+    return out
+
+
 def eval_phase(tmp: Path, card_line: str) -> dict:
-    """Phase ``eval`` (its own process): the eval command through
-    ``cli.main`` on the card. (a) Connect Four r4 against r4_mid, greedy,
-    256 games x 64 envs: K4, K7 and K14, one each a step; the game records
-    equal to the port's CPU run of the same command (every game is
-    deterministic). (b) Skull r4, r4_best and r4_mid (CTDE 512x2 tanh, obs
-    norm: three stacked K7 slots) and Random, 1024 games x 256 envs at the
-    env's temperature: K11, K7 and K14; valid placements in every game;
-    games/s; one chunk's events ms and its kernels counted on the device
-    (64 each). (c) one watched greedy Connect Four game and one watched
-    Skull game: K4 or K11, K14 and K6 (each model move's obs norm) at
-    E = 1, counted; then K4, K11 and K14 at E = 1 against their plain
-    versions along single-env games."""
+    """Phase ``eval`` (a process of its own, with phase ``tournament``):
+    the eval command through ``cli.main`` on the card, every chunk one
+    CUDA graph replay. (a)
+    Connect Four r4 against r4_mid, greedy, 256 games x 64 envs: K4, K7,
+    K14 and K17's two passes, each once a step of every replayed chunk;
+    the game records equal to the port's CPU run of the same command
+    (every game is deterministic). (b) Skull r4, r4_best and r4_mid (CTDE
+    512x2 tanh, obs norm: three stacked K7 slots) and Random, 1024 games x
+    256 envs at the env's temperature: K11, K7, K14 and K17; valid
+    placements in every game; one chunk graphed and eager in turns
+    (events and device ms, the idle share), games/s both ways in turns,
+    the kernels counted on the device in one replay against those the
+    graph captured. (c) from one saved carry and generator state, two
+    graph replays against two eager chunks bit for bit: Connect Four
+    greedy (stacked), Skull three models and Random (stacked), Connect
+    Four r4 and Random (single), Skull r4, r4_flagship and two Random
+    (per_model, the CTDE 512x2 with obs norm and 256x3 without), a seeded
+    Connect Four CNN beside r4 (per_model through cuDNN) and two Random
+    (random). (d) one
+    watched greedy Connect Four game and one watched Skull game: K4 or
+    K11, K14 and K6 (each model move's obs norm) at E = 1, counted, eager;
+    then K4, K11 and K14 at E = 1 against their plain versions along
+    single-env games."""
     import burn_ppo_torch.eval as ev
 
     dev = resolve_device("cuda")
@@ -3625,12 +3950,12 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     run = front_end_run(["eval", "-c", str(c4[0]), "-c", str(c4[1]), *C4_GREEDY, "-n", "256",
                          "--num-envs", "64", "--seed", "0"],
                         {"connect_four_step_autoreset", "opponent_actor_forward",
-                         "temperature_sample"})
+                         "temperature_sample", *K17})
     (gpu,) = run["stats"]
-    L = run["launches"]
-    steps = L["temperature_sample"]
-    if not (L["connect_four_step_autoreset"] == L["opponent_actor_forward"] == steps
-            and steps % 64 == 0 and gpu.logits_path == "stacked"):
+    check_chunk_launches("eval (a)", run, "connect_four_step_autoreset")
+    L, steps = run["launches"], run["main_path"]["temperature_sample"]
+    if not (run["main_path"]["opponent_actor_forward"] == steps and gpu.logits_path == "stacked"
+            and run["graph_captures"] == 1):
         raise AssertionError(f"eval (a): launches {L}, logits {gpu.logits_path}")
     t0 = time.time()
     cpu_sources = [ev.PlayerSource.checkpoint(p, "cpu") for p in c4]
@@ -3647,8 +3972,9 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     out["connect_four_greedy"] = {
         "games": gpu.total_games, "draws": gpu.draws, "steps": steps, "wall_s": run["wall_s"],
         "games_per_s": gpu.total_games / run["wall_s"], "launches": L,
-        "records_equal_cpu_run": same, "first_divergence": diverge,
-        "cpu_run_s": time.time() - t0, "summary": gpu.summary_rows(),
+        "main_path_launches": run["main_path"], "graph_captures": run["graph_captures"],
+        "graph_replays": run["graph_replays"], "records_equal_cpu_run": same,
+        "first_divergence": diverge, "cpu_run_s": time.time() - t0, "summary": gpu.summary_rows(),
         "seconds": time.time() - t_part}
 
     # (b)
@@ -3657,11 +3983,11 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     argv = ["eval", *[x for p in skull for x in ("-c", str(p))], "--random", "-n", "1024",
             "--num-envs", "256", "--seed", "0"]
     run = front_end_run(argv, {"skull_step_autoreset", "opponent_actor_forward",
-                               "temperature_sample"})
+                               "temperature_sample", *K17})
     (st,) = run["stats"]
+    check_chunk_launches("eval (b)", run, "skull_step_autoreset")
     L = run["launches"]
-    steps = L["temperature_sample"]
-    if not (L["skull_step_autoreset"] == L["opponent_actor_forward"] == steps and steps % 64 == 0
+    if not (run["main_path"]["opponent_actor_forward"] == run["main_path"]["temperature_sample"]
             and st.logits_path == "stacked" and st.total_games == 1024):
         raise AssertionError(f"eval (b): launches {L}, logits {st.logits_path}, "
                              f"{st.total_games} games")
@@ -3670,38 +3996,43 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     sources = [ev.PlayerSource.checkpoint(p, dev) for p in skull] + [ev.PlayerSource.random()]
     env = make_env("skull")
     engine = ev.StatsEngine(env, sources, 256, ev.default_temp(env), ev.random_source(1, dev), dev)
-    engine.run_chunk().fetch()  # warm
-    times = []
-    for _ in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        engine.run_chunk()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    want = {name: engine.chunk_steps for name in ("skull_step_autoreset",
-                                                  "opponent_actor_forward", "temperature_sample")}
-    act = torch.profiler.ProfilerActivity
-    for tries in range(1, 4):
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            engine.run_chunk()
-            torch.cuda.synchronize()
-        counts = kernel_counts(prof.events(), want, EVAL_KERNELS)
-        if all(seen == n for seen, n in counts.values()):
-            break
-    else:
-        raise AssertionError(f"eval (b): kernels on the device in one chunk {counts}, want 64 each")
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    chunk = chunk_turns(engine)
+    counts = replay_kernel_counts(engine.graph, EVAL_KERNELS)
+    chunk["bound"] = chunk_bound(engine)
     out["skull_three_models_and_random"] = {
-        "games": st.total_games, "steps": steps, "wall_s": run["wall_s"],
-        "games_per_s": st.total_games / run["wall_s"], "launches": L,
-        "placements_valid": True, "summary": st.summary_rows(),
-        "chunk_events_ms": sorted(times)[1], "chunk_events_ms_all": times,
-        "chunk_device_ms": busy, "chunk_kernels_on_device": counts, "profiles": tries,
+        "games": st.total_games, "steps": run["main_path"]["temperature_sample"],
+        "wall_s": run["wall_s"], "games_per_s": st.total_games / run["wall_s"], "launches": L,
+        "main_path_launches": run["main_path"], "graph_captures": run["graph_captures"],
+        "graph_replays": run["graph_replays"], "placements_valid": True,
+        "summary": st.summary_rows(), "chunk": chunk,
+        "chunk_kernels_on_device": counts,
+        "games_per_s_turns": games_per_s_turns(env, sources, 1024, 256),
         "seconds": time.time() - t_part}
 
     # (c)
+    t_part = time.time()
+    skull_mixed = [ev.PlayerSource.checkpoint(GAUNTLET / "skull" / n, dev)
+                   for n in ("r4", "r4_flagship")] + [ev.PlayerSource.random()] * 2
+    c4_dev = [ev.PlayerSource.checkpoint(p, dev) for p in c4]
+    c4_env = make_env("connect_four")
+    c4_temp = ev.default_temp(c4_env)
+    cases = {
+        "connect_four_greedy_stacked": (c4_env, c4_dev, 64, greedy),
+        "skull_three_models_and_random_stacked": (env, sources, 256, ev.default_temp(env)),
+        "connect_four_single": (c4_env, c4_dev[:1] + [ev.PlayerSource.random()], 64, c4_temp),
+        "skull_per_model": (env, skull_mixed, 256, ev.default_temp(env)),
+        "connect_four_cnn_per_model": (c4_env, [seeded_cnn(dev), c4_dev[0]], 64, c4_temp),
+        "connect_four_random": (c4_env, [ev.PlayerSource.random()] * 2, 64, c4_temp),
+    }
+    out["replay_vs_eager"] = {
+        name: replay_equals_eager(ev.StatsEngine(e, srcs, n, temp, ev.random_source(7, dev), dev))
+        for name, (e, srcs, n, temp) in cases.items()}
+    if {c["path"] for c in out["replay_vs_eager"].values()} != {"stacked", "single", "per_model",
+                                                                 "random"}:
+        raise AssertionError(f"replay_vs_eager: paths {out['replay_vs_eager']}")
+    out["replay_vs_eager"]["seconds"] = time.time() - t_part
+
+    # (d)
     watched = {}
     for name, argv, step_kernel in (
             ("connect_four", ["-c", str(c4[0]), "-c", str(c4[1]), *C4_GREEDY], "connect_four"),
@@ -3795,74 +4126,260 @@ def host_output(k):
 
 TOURNAMENT_GAMES = {"connect_four": 192, "skull": 48, "liars_dice": 192}
 TOURNAMENT_PLAYERS = {"skull": 4, "liars_dice": 4}
-# Besides the env step and K14: K7 for the pods whose models stack, and
-# K6 for a pod of one model and Random (Connect Four) or the per-model
+# The gauntlets are rated under seed 0 and, as a second draw, seed 1.
+TOURNAMENT_SEEDS = (0, 1)
+# Besides the env step, K14 and K17: K7 for the pods whose models stack,
+# and K6 for a pod of one model and Random (Connect Four) or the per-model
 # path (Skull), whose models normalise their obs.
 TOURNAMENT_KERNELS = {"connect_four": {"opponent_actor_forward", "obs_norm_apply"},
                       "skull": {"opponent_actor_forward", "obs_norm_apply"},
                       "liars_dice": {"opponent_actor_forward"}}
 
 
+def gauntlet_entries(env_name: str) -> list:
+    env_dir = GAUNTLET / env_name
+    return sorted(p for p in env_dir.iterdir() if p.is_dir() and (p / "model.npz").exists())
+
+
+def gauntlet_ratings(env_name: str, res: dict, seed: int) -> list:
+    """Each entry's rating beside JAX's ``ratings_r4.json``: above Random by
+    more than 2 of its own sigma, and within 4 combined sigma of JAX's."""
+    ref = {r["name"]: r for r in json.loads(
+        (GAUNTLET / env_name / "ratings_r4.json").read_text())["rankings"]}
+    rows = {r["name"]: r for r in res["rankings"]}
+    base = rows["Random"]["rating"]
+    table = []
+    for name in sorted(rows):
+        if name == "Random":
+            continue
+        r, j = rows[name], ref[name]
+        comb = math.hypot(r["uncertainty"], j["uncertainty"])
+        entry = {"name": name, "rating": r["rating"], "sigma": r["uncertainty"],
+                 "jax_rating": j["rating"], "jax_sigma": j["uncertainty"],
+                 "over_random_in_sigma": (r["rating"] - base) / r["uncertainty"],
+                 "from_jax_in_combined_sigma": (r["rating"] - j["rating"]) / comb}
+        table.append(entry)
+        if not entry["over_random_in_sigma"] > 2.0:
+            raise AssertionError(f"tournament {env_name} (seed {seed}): {name} not 2 sigma above "
+                                 f"Random: {entry}")
+        if not abs(entry["from_jax_in_combined_sigma"]) < 4.0:
+            raise AssertionError(f"tournament {env_name} (seed {seed}): {name} more than 4 "
+                                 f"combined sigma from ratings_r4.json: {entry}")
+    return table
+
+
+def cached_pods_equal_fresh_engines(dev) -> dict:
+    """Two pods of one key through one ``EngineCache``: the second is
+    loaded into the first's engine (its models, its seed, a fresh reset)
+    and replays the graph the first captured; chunk by chunk it must equal
+    a new engine of the second pod's seed run eagerly, bit for bit (every
+    log array, the carry, the generator). Connect Four's stacked pods
+    (64 envs) and Skull's per-model pods (48 envs, the CTDE 512x2 with obs
+    norm beside the 256x3 without, and Random)."""
+    import burn_ppo_torch.eval as ev
+
+    out = {}
+    for name, env_name, pods, E in (
+            ("connect_four_stacked", "connect_four", (["r4", "r4_mid"], ["r4_best", "r4"]), 64),
+            ("skull_per_model", "skull", (["r4", "r4_flagship", "r4_mid", None],
+                                          ["r4_best", "r4_flagship_best", "r4", None]), 48)):
+        env = make_env(env_name)
+        temp = ev.default_temp(env)
+        lineups = [[ev.PlayerSource.random() if n is None else
+                    ev.PlayerSource.checkpoint(GAUNTLET / env_name / n, dev) for n in pod]
+                   for pod in pods]
+        cache = ev.EngineCache()
+        first = cache.engine(env, lineups[0], E, temp, 101, dev)
+        first.run_chunk()
+        engine = cache.engine(env, lineups[1], E, temp, 202, dev)
+        fresh = ev.StatsEngine(env, lineups[1], E, temp, ev.random_source(202, dev), dev)
+        if engine is not first or cache.reused != 1:
+            raise AssertionError(f"{name}: the second pod did not reuse the first's engine")
+        games = 0
+        for _ in range(2):
+            engine.run_chunk()
+            fresh.eager_chunk()
+            torch.cuda.synchronize()
+            games += int(engine.log.completed.sum())
+            if not all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in
+                       zip(engine_outputs(engine), engine_outputs(fresh), strict=True)):
+                raise AssertionError(f"{name}: the cached engine's pod differs from a fresh "
+                                     "engine's")
+        out[name] = {"path": engine.logits.path, "envs": E, "chunks": 2, "games": games,
+                     "bit_for_bit": True}
+    return out
+
+
+def tournament_turns(env_name: str, games: int, dev) -> dict:
+    """A gauntlet's tournament with the engine cache and graphed chunks,
+    and as the earlier engine played it (an engine a pod, chunks run
+    eagerly: the tournament's ``EngineCache`` and ``StatsEngine.run_chunk``
+    switched for the run), in turns: seconds of each."""
+    import burn_ppo_torch.eval as ev
+    import burn_ppo_torch.tournament as tt
+
+    class EnginePerPod(ev.EngineCache):
+        def engine(self, *args, **kw):
+            self.engines.clear()
+            return super().engine(*args, **kw)
+
+    out: dict = {"graph_cached_s": [], "eager_per_pod_s": []}
+    real = ev.StatsEngine.run_chunk
+    for cached in (True, False, False, True):
+        if not cached:
+            ev.StatsEngine.run_chunk = ev.StatsEngine.eager_chunk
+            tt.EngineCache = EnginePerPod
+        try:
+            t0 = time.time()
+            tt.run_tournament(gauntlet_entries(env_name), num_games=games, num_envs=64,
+                              include_random=True, players=TOURNAMENT_PLAYERS.get(env_name),
+                              seed=0, quiet=True, device=dev)
+            torch.cuda.synchronize()
+            out["graph_cached_s" if cached else "eager_per_pod_s"].append(time.time() - t0)
+        finally:
+            ev.StatsEngine.run_chunk = real
+            tt.EngineCache = ev.EngineCache
+    return out
+
+
 def tournament_phase(tmp: Path, card_line: str) -> dict:
-    """Phase ``tournament`` (its own process): the three gauntlets as
-    ``scripts/gauntlet.py rate`` runs them (the entries with a model.npz,
-    sorted, plus Random; 64 envs, seed 0; Skull and Liar's Dice at 4
-    players; the format the field gives: round robin), through the port's
+    """Phase ``tournament`` (after phase ``eval``, in its process): the
+    three gauntlets as ``scripts/gauntlet.py rate`` runs them (the entries with a model.npz,
+    sorted, plus Random; 64 envs; Skull and Liar's Dice at 4 players; the
+    format the field gives: round robin), through the port's
     ``tournament`` command on the card, 48 games a pod on Skull and 192 on
-    Connect Four and Liar's Dice. Every entry rated above Random by more
-    than 2 of its own sigma, and within 4 combined sigma of
-    ``gauntlet/<env>/ratings_r4.json``; the pods that stacked their models
-    for K7 and those that took the per-model path counted (Skull's field
-    mixes CTDE 512x2 tanh with obs norm and CTDE 256x3 relu without: both
-    must occur)."""
+    Connect Four and Liar's Dice, under seeds 0 and 1: pods of one shape
+    share one engine and its graph (graphs captured and replayed, counted;
+    the command's "Stats engines" line). Every entry rated above Random by
+    more than 2 of its own sigma, and within 4 combined sigma of
+    ``gauntlet/<env>/ratings_r4.json``, under both seeds; the pods that
+    stacked their models for K7 and those that took the per-model path
+    counted (Skull's field mixes CTDE 512x2 tanh with obs norm and CTDE
+    256x3 relu without: both must occur). Then a cached pod against a
+    fresh engine of its seed, bit for bit, and each gauntlet's seconds
+    with the cache and graphs against an engine a pod run eagerly,
+    in turns."""
     out: dict = {"card": card_line}
     t_phase = time.time()
+    dev = resolve_device("cuda")
     launches_total = {name: 0 for name in WRAPPERS}
     for env_name, games in TOURNAMENT_GAMES.items():
-        env_dir = GAUNTLET / env_name
-        entries = sorted(p for p in env_dir.iterdir() if p.is_dir() and (p / "model.npz").exists())
-        res_path = tmp / f"{env_name}.json"
-        players = TOURNAMENT_PLAYERS.get(env_name)
-        argv = ["tournament", *map(str, entries), "--random", "-n", str(games), "--num-envs", "64",
-                "--seed", "0", "-o", str(res_path)] + (["--players", str(players)] if players else [])
         step_kernel = f"{env_name}_step_autoreset"
-        run = front_end_run(argv, {step_kernel, "temperature_sample",
-                                   *TOURNAMENT_KERNELS[env_name]})
-        res = json.loads(res_path.read_text())
-        ref = {r["name"]: r for r in json.loads((env_dir / "ratings_r4.json").read_text())["rankings"]}
-        rows = {r["name"]: r for r in res["rankings"]}
-        base = rows["Random"]["rating"]
-        table = []
-        for name in sorted(rows):
-            if name == "Random":
-                continue
-            r, j = rows[name], ref[name]
-            comb = math.hypot(r["uncertainty"], j["uncertainty"])
-            entry = {"name": name, "rating": r["rating"], "sigma": r["uncertainty"],
-                     "jax_rating": j["rating"], "jax_sigma": j["uncertainty"],
-                     "over_random_in_sigma": (r["rating"] - base) / r["uncertainty"],
-                     "from_jax_in_combined_sigma": (r["rating"] - j["rating"]) / comb}
-            table.append(entry)
-            if not entry["over_random_in_sigma"] > 2.0:
-                raise AssertionError(f"tournament {env_name}: {name} not 2 sigma above Random: "
-                                     f"{entry}")
-            if not abs(entry["from_jax_in_combined_sigma"]) < 4.0:
-                raise AssertionError(f"tournament {env_name}: {name} more than 4 combined sigma "
-                                     f"from ratings_r4.json: {entry}")
-        pods = Counter(p["logits"] for p in res["pods"])
-        L = run["launches"]
-        if L["temperature_sample"] != L[step_kernel] or L["temperature_sample"] % 64:
-            raise AssertionError(f"tournament {env_name}: launches {L}")
-        for name, n in L.items():
-            launches_total[name] += n
-        out[env_name] = {"seconds": run["wall_s"], "games_per_pod": games, "pods": len(res["pods"]),
-                         "pods_by_logits": dict(pods), "total_games": res["total_games"],
-                         "format": res["format"], "ratings": table, "launches": L}
-    sk = out["skull"]["pods_by_logits"]
+        players = TOURNAMENT_PLAYERS.get(env_name)
+        out[env_name] = {"games_per_pod": games}
+        for seed in TOURNAMENT_SEEDS:
+            res_path = tmp / f"{env_name}_{seed}.json"
+            argv = (["tournament", *map(str, gauntlet_entries(env_name)), "--random", "-n",
+                     str(games), "--num-envs", "64", "--seed", str(seed), "-o", str(res_path)]
+                    + (["--players", str(players)] if players else []))
+            run = front_end_run(argv, {step_kernel, "temperature_sample", *K17,
+                                       *TOURNAMENT_KERNELS[env_name]})
+            res = json.loads(res_path.read_text())
+            check_chunk_launches(f"tournament {env_name}", run, step_kernel)
+            m = re.search(r"Stats engines: (\d+) built, reused for (\d+) pods", run["text"])
+            if m is None or int(m.group(1)) != run["graph_captures"] or (
+                    int(m.group(1)) + int(m.group(2)) != len(res["pods"])):
+                raise AssertionError(f"tournament {env_name}: engines {m and m.group(0)}, "
+                                     f"{run['graph_captures']} captures, {len(res['pods'])} pods")
+            for name, n in run["launches"].items():
+                launches_total[name] += n
+            table = gauntlet_ratings(env_name, res, seed)
+            out[env_name][f"seed_{seed}"] = {
+                "seconds": run["wall_s"], "pods": len(res["pods"]),
+                "pods_by_logits": dict(Counter(p["logits"] for p in res["pods"])),
+                "engines_built": int(m.group(1)), "pods_reusing_an_engine": int(m.group(2)),
+                "graph_captures": run["graph_captures"], "graph_replays": run["graph_replays"],
+                "total_games": res["total_games"], "format": res["format"], "ratings": table,
+                "below_jax": sum(e["rating"] < e["jax_rating"] for e in table),
+                "launches": run["launches"], "main_path_launches": run["main_path"]}
+        out[env_name]["turns"] = tournament_turns(env_name, games, dev)
+    sk = out["skull"]["seed_0"]["pods_by_logits"]
     if not (sk.get("stacked", 0) > 0 and sk.get("per_model", 0) > 0):
         raise AssertionError(f"tournament skull: pods by logits {sk}: both K7 and per-model needed")
+    out["below_jax"] = {f"seed_{seed}": sum(out[e][f"seed_{seed}"]["below_jax"]
+                                            for e in TOURNAMENT_GAMES) for seed in TOURNAMENT_SEEDS}
+    out["entries"] = sum(len(out[e]["seed_0"]["ratings"]) for e in TOURNAMENT_GAMES)
+    out["cached_pod_vs_fresh_engine"] = cached_pods_equal_fresh_engines(dev)
     out["seconds"] = time.time() - t_phase
     out["launches_total"] = launches_total
+    return out
+
+
+def front_end_phases(tmp: Path, card_line: str) -> dict:
+    """Phases ``eval`` and ``tournament``, one after the other in one
+    process (each starts its counters at 0)."""
+    return {"eval": eval_phase(tmp, card_line), "tournament": tournament_phase(tmp, card_line)}
+
+
+SUPERVISED_STEPS = 4096  # configs/cartpole.toml: 32 envs x 128 steps, an update a checkpoint
+
+
+def supervisor_start(tmp: Path) -> dict:
+    """Phase ``supervisor``: ``python -m burn_ppo_torch train --config
+    configs/cartpole.toml --reload-every-n-checkpoints 1`` for three
+    checkpoints (an update each), twice at once, each supervisor in a
+    process of its own (``cli.main``) spawning three children in turn:
+    the first fresh, the later ones with ``--resume`` and a growing
+    ``--elapsed-time-offset-ms``. This starts both runs; phase ``resume``
+    runs meanwhile (both only check bits), then ``supervisor_finish``
+    waits for them: each run ends at the total step with three
+    checkpoints; its metrics have one entry an update, no gap or repeat,
+    each with the device memory that only a child on the card logs; the
+    two runs' final model, optimizer and generator equal bit for bit."""
+    procs = {}
+    for name in ("a", "b"):
+        run = tmp / f"supervised_{name}"
+        cmd = [sys.executable, "-m", "burn_ppo_torch", "train", "--config",
+               str(ROOT / "configs" / "cartpole.toml"), "--total-steps",
+               str(3 * SUPERVISED_STEPS), "--checkpoint-freq", str(SUPERVISED_STEPS),
+               "--seed", "0", "--run-dir", str(run), "--reload-every-n-checkpoints", "1"]
+        procs[name] = (run, subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    return {"procs": procs, "t0": time.time()}
+
+
+def supervisor_finish(started: dict, card_line: str) -> dict:
+    procs, total = started["procs"], 3 * SUPERVISED_STEPS
+    out: dict = {"card": card_line, "total_steps": total}
+    try:
+        texts = {name: p.communicate(timeout=600)[0] for name, (_, p) in procs.items()}
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, (run, p) in procs.items():
+        text = texts[name]
+        if p.returncode != 0:
+            raise RuntimeError(f"supervised run {name} exited {p.returncode}:\n{text[-3000:]}")
+        spawns = [ln for ln in text.splitlines() if ln.startswith("supervisor: spawn #")]
+        offsets = [int(re.search(r"--elapsed-time-offset-ms (\d+)", ln).group(1)) for ln in spawns]
+        resumed = ["--resume" in ln for ln in spawns]
+        if resumed != [False, True, True] or not 0 < offsets[1] < offsets[2]:
+            raise AssertionError(f"supervised run {name}: spawns {spawns}")
+        step = json.loads((run / "checkpoints" / "latest" / "metadata.json").read_text())["step"]
+        ckpts = sorted(int(d.name[5:]) for d in (run / "checkpoints").glob("step_*"))
+        logged: dict = {}
+        for line in (run / "metrics.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            if rec["type"] == "scalar":
+                logged.setdefault(rec["name"], []).append(rec["step"])
+        want = [SUPERVISED_STEPS * (i + 1) for i in range(3)]
+        if step != total or ckpts != want or logged.get("perf/sps") != want:
+            raise AssertionError(f"supervised run {name}: step {step}, checkpoints {ckpts}, "
+                                 f"perf/sps logged at {logged.get('perf/sps')}")
+        if logged.get("perf/device_mb_in_use") != want:
+            raise AssertionError(f"supervised run {name}: device memory logged at "
+                                 f"{logged.get('perf/device_mb_in_use')}: a child off the card")
+        out[name] = {"children": len(spawns), "elapsed_offsets_ms": offsets, "final_step": step,
+                     "checkpoints": ckpts, "logged_steps": logged["perf/sps"]}
+    latest = [procs[n][0] / "checkpoints" / "latest" for n in ("a", "b")]
+    files = ("model.npz", "optimizer.npz", "generator_state.npz")
+    differ = [f for f in files if (latest[0] / f).read_bytes() != (latest[1] / f).read_bytes()]
+    if differ:
+        raise AssertionError(f"two supervised runs end differently: {differ}")
+    out["equal_files"] = list(files)
+    out["seconds"] = time.time() - started["t0"]
     return out
 
 
@@ -3943,6 +4460,8 @@ def main(argv: list) -> int:
     _, c4_state, _ = connect_four_states(dev, g14)
     checks["temperature_sample"] = check_temperature_sample(
         dev, g14, ConnectFour().action_mask(c4_state), skull_mask, ld_mask, ptxas)
+    # K17, the eval step's seating and records, on a generator of its own.
+    checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas))
     # Phase popart: K15, K16 and K8 with PopArt and the controller, on a
     # generator of their own.
     popart = check_popart(dev, torch.Generator(device=dev).manual_seed(16))
@@ -3996,19 +4515,25 @@ def main(argv: list) -> int:
         runs["popart_cartpole"] = pe["cartpole"]
         runs["popart_liars_dice_pool"] = pe["liars_dice_ctde_pool"]
         emit("update_idle_share", **phase_in_process(ROOT, "update_idle_shares"))
+        # The supervised runs go on while phase resume runs.
+        supervised = supervisor_start(Path(d))
         emit("resume", **resume_phase(Path(d), card_line))
-        # The front ends, each in a process of its own, through cli.main.
-        front = {"eval": phase_in_process(ROOT, "eval_phase"),
-                 "tournament": phase_in_process(ROOT, "tournament_phase")}
+        emit("supervisor", **supervisor_finish(supervised, card_line))
+        # The front ends, through cli.main, in one process of their own.
+        front = phase_in_process(ROOT, "front_end_phases")
+        front = {"eval": front["eval"], "tournament": front["tournament"]}
         watched = front["eval"]["watch"]["connect_four"]
         print("\n".join(["watched connect_four game:"] + watched["move_lines"]
                          + watched["final"]), flush=True)
         for env_name in TOURNAMENT_GAMES:
-            t = front["tournament"][env_name]
-            print(f"tournament {env_name}: {t['seconds']:.1f} s, pods {t['pods_by_logits']}; "
-                  + "; ".join(f"{e['name']} {e['rating']:.1f}±{e['sigma']:.1f} (JAX "
-                              f"{e['jax_rating']:.1f}±{e['jax_sigma']:.1f})" for e in t["ratings"]),
-                  flush=True)
+            for seed in TOURNAMENT_SEEDS:
+                t = front["tournament"][env_name][f"seed_{seed}"]
+                print(f"tournament {env_name} seed {seed}: {t['seconds']:.1f} s, pods "
+                      f"{t['pods_by_logits']}, graphs {t['graph_captures']} captured "
+                      f"{t['graph_replays']} replayed; "
+                      + "; ".join(f"{e['name']} {e['rating']:.1f}±{e['sigma']:.1f} (JAX "
+                                  f"{e['jax_rating']:.1f}±{e['jax_sigma']:.1f})"
+                                  for e in t["ratings"]), flush=True)
         for phase, res in front.items():
             emit(phase, **res)
         if args.parent is not None:

@@ -116,11 +116,19 @@ def test_fork_invalid_checkpoint_errors(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--max-checkpoints-this-run", "2"],
                                    ["--elapsed-time-offset-ms", "5"]])
-def test_the_supervisors_flags_stay_refused_on_resume(trained_run, flags, capsys):
-    rc = cli.main(["train", "--resume", str(trained_run), *flags], device="cpu")
-    assert rc == 2
-    assert "ROADMAP A15" in capsys.readouterr().err
-    assert latest_meta(trained_run)["step"] == 64
+def test_the_supervisors_flags_stay_refused_on_resume(run_copy, flags, capsys):
+    """A supervisor's child flags (supervisor.py), once refused, are taken
+    on a resume: at most two more checkpoints (96 and 128, no final save
+    after the cap), or the elapsed offset, which changes no step."""
+    rc = cli.main(["train", "--resume", str(run_copy), "--total-steps", "256", *flags, "--quiet"],
+                  device="cpu")
+    assert rc == 0
+    assert "not supported" not in capsys.readouterr().err
+    steps = sorted(p.name for p in (run_copy / "checkpoints").glob("step_*"))
+    if flags[0] == "--max-checkpoints-this-run":
+        assert latest_meta(run_copy)["step"] == 128 and steps[-1] == "step_00000128"
+    else:
+        assert latest_meta(run_copy)["step"] == 256 and steps[-1] == "step_00000256"
 
 
 def test_cnn_resume_cli(tmp_path):

@@ -148,7 +148,9 @@ def test_liars_dice_three_checkpoints_and_random_step_for_step():
     init_dice, recs = jax_engine_draws(js, seed=11, steps=2 * T_LD)
     src, env = replay(init_dice, recs)
     engine = ev.StatsEngine(env, ts, E_LD, ev.default_temp(env), src, CPU, chunk_steps=T_LD)
-    assert engine.logits.path == "stacked" and engine.logits.stack.num_slots == 3
+    # three models stacked for K7, in a stack of a slot per source
+    assert engine.logits.path == "stacked" and len(engine.logits.uniques) == 3
+    assert engine.logits.stack.num_slots == 4
     logs = [engine.run_chunk().fetch() for _ in range(2)]
     assert not src.uniforms and not env.draws  # every draw consumed, in order
     for t, rec in enumerate(recs):

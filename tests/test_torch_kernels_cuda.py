@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K16 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K17 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -1831,3 +1831,126 @@ def test_ppo_loss_kernel_with_the_controller_on_later_minibatches_reads_its_coef
     assert torch.equal(k[0], ref[0]) and torch.equal(k[2], ref[2])
     assert float(ctrl.coef) == float(torch.tensor(0.037))
     assert float(ctrl.last_entropy) == float(book.sums[2] / book.count)
+
+
+# ---------------------------------------------------------------------------
+# K17: the eval step's seating and records, and the graphed eval chunk
+# ---------------------------------------------------------------------------
+K17_SCHEDULES = ({"initial": 0.7}, {"initial": 0.4, "final_temp": 0.0, "cutoff": 10},
+                 {"initial": 1.5, "final_temp": 0.25, "cutoff": 7, "decay": True},
+                 {"initial": 0.9, "final_temp": 0.1, "cutoff": 30, "decay": True})
+
+
+def k17_inputs(dev, E, P, seed):
+    """Seat maps of P + 1 sources (one Random), moves crossing every
+    cutoff, the player a strided column of a packed-like buffer, a
+    quarter of the envs done."""
+    from burn_ppo_torch.eval import seat_maps
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perms = torch.from_numpy(seat_maps(P + 1, P)).to(dev)
+    ints = torch.randint(0, P, (E, 12), generator=g, device=dev, dtype=torch.int32)
+    return dict(
+        perm_table=perms,
+        perm_idx=torch.randint(0, perms.shape[0], (E,), generator=g, device=dev, dtype=torch.int32),
+        player=ints[:, 5],
+        slot_of_source=torch.tensor([0, -1] + list(range(1, P)), dtype=torch.int32, device=dev),
+        move_count=torch.randint(0, 70, (E,), generator=g, device=dev, dtype=torch.int32),
+        done=(torch.rand(E, generator=g, device=dev) < 0.25).float(),
+        outcome=torch.randint(0, P + 1, (E, P), generator=g, device=dev, dtype=torch.int32),
+        totals=torch.randn(E, P, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("E", [1, 64, 256, 4096])
+def test_eval_step_kernels_match_plain_bit_for_bit(dev, E, P):
+    from burn_ppo_torch.eval import (ChunkLog, TempSchedule, record_step, record_step_plain,
+                                     sample_seats, sample_seats_plain)
+
+    x = k17_inputs(dev, E, P, E + P)
+    for sched in K17_SCHEDULES:
+        temp = TempSchedule(**sched)
+        outs = []
+        for fn in (sample_seats, sample_seats_plain):
+            slot = torch.full((E,), 99, dtype=torch.int32, device=dev)
+            temps = torch.full((E,), -1.0, device=dev)
+            before = sample_seats.launches
+            fn(x["perm_table"], x["perm_idx"], x["player"], x["slot_of_source"],
+               x["move_count"], temp, slot, temps)
+            torch.cuda.synchronize()
+            assert sample_seats.launches == before + (fn is sample_seats)
+            outs.append((slot, temps))
+        (ks, kt), (ps, pt) = outs
+        assert torch.equal(ks, ps) and torch.equal(kt, pt), sched
+    if E >= 64:
+        assert bool((ks == -1).any())  # a Random seat
+    log_rows = []
+    for fn in (record_step, record_step_plain):
+        log = ChunkLog.create(3, E, P, dev)
+        pi, mc = x["perm_idx"].clone(), x["move_count"].clone()
+        step_log = EpisodeLog(completed=x["done"], total_rewards=x["totals"],
+                              length=torch.zeros(E, dtype=torch.int32, device=dev),
+                              outcome=x["outcome"],
+                              active_players=torch.zeros(E, dtype=torch.int32, device=dev))
+        before = record_step.launches
+        fn(log, 1, step_log, pi, mc, x["perm_table"].shape[0])
+        torch.cuda.synchronize()
+        assert record_step.launches == before + (fn is record_step)
+        log_rows.append([pi, mc, log.completed, log.outcome, log.total_rewards, log.perm])
+    for a, b in zip(*log_rows):
+        assert torch.equal(a, b)
+
+
+def eval_engine(dev, lineup: str, E: int, seed: int = 3):
+    from pathlib import Path
+
+    from burn_ppo_torch import eval as ev
+    from burn_ppo_torch.envs import make_env
+
+    g = Path(__file__).resolve().parent.parent / "gauntlet"
+    env_name, names, randoms = {
+        "stacked": ("connect_four", ["r4", "r4_mid"], 0),
+        "single": ("connect_four", ["r4"], 1),
+        "per_model": ("skull", ["r4", "r4_flagship"], 2),
+        "cnn_per_model": ("connect_four", ["r4"], 0),
+        "random": ("connect_four", [], 2),
+    }[lineup]
+    env = make_env(env_name)
+    srcs = [ev.PlayerSource.checkpoint(g / env_name / n, dev) for n in names]
+    srcs += [ev.PlayerSource.random()] * randoms
+    if lineup == "cnn_per_model":
+        from burn_ppo_torch.config import Config
+        from burn_ppo_torch.train import build_network_for_env
+
+        cfg = Config(env="connect_four", network_type="cnn")
+        net = build_network_for_env(env, cfg, torch.Generator().manual_seed(5))
+        srcs.insert(0, ev.PlayerSource(kind="checkpoint", name="cnn",
+                                       network=net.to(dev).requires_grad_(False)))
+    return ev.StatsEngine(env, srcs, E, ev.default_temp(env), ev.random_source(seed, dev), dev,
+                          chunk_steps=32)
+
+
+@pytest.mark.parametrize("lineup", ["stacked", "single", "per_model", "cnn_per_model", "random"])
+def test_graphed_eval_chunk_replays_bit_for_bit_and_equals_the_eager_chunk(dev, lineup):
+    """From one saved carry and generator state: two graph replays give the
+    same bits, and so does the eager chunk (every log array, the carry
+    and the generator's state after the chunk)."""
+    from burn_ppo_torch.ppo.rollout_graph import state_leaves
+
+    engine = eval_engine(dev, lineup, 64)
+    engine.run_chunk()  # the capture, then a replay
+    carry = [t.clone() for t in state_leaves(engine.carry)]
+    gen = engine.rng.generator.get_state()
+    runs = []
+    for run in (engine.run_chunk, engine.run_chunk, engine.eager_chunk):
+        for t, s in zip(state_leaves(engine.carry), carry):
+            t.copy_(s)
+        engine.rng.generator.set_state(gen)
+        log = run()
+        torch.cuda.synchronize()
+        runs.append([x.clone() for x in (*state_leaves(log), *state_leaves(engine.carry))]
+                    + [engine.rng.generator.get_state()])
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    assert engine.graph is not None and engine.logits.path == lineup.replace("cnn_", "")

@@ -210,7 +210,7 @@ def test_train_command_end_to_end_on_cpu(tmp_path):
     assert float(norm.count) == 2 * 8 * 16
 
 
-@pytest.mark.parametrize("flags", [["--max-checkpoints-this-run", "2"],
+@pytest.mark.parametrize("flags", [["--multihost"],
                                    ["--env", "liars_dice", "--mesh-data", "2"],
                                    ["--network-type", "ctde"], ["--platform", "cpu"],
                                    ["--profile-dir", "p"], ["--checkify"],
