@@ -1,4 +1,4 @@
-"""Command line of the port: the ``train``, ``eval`` and ``tournament`` subcommands.
+"""Command line of the port: the ``train``, ``eval``, ``tournament`` and ``interactive`` subcommands.
 
 The parser and the override collection are copies of
 burn_ppo_tpu/cli.py:31-231, so the flags, the subcommands and the TOML
@@ -6,9 +6,9 @@ grammar are the same as the JAX CLI's, and so are ``--resume``,
 ``--fork`` (burn_ppo_tpu/cli.py:300-356) and the supervisor mode,
 ``--reload-every-n-checkpoints N`` (234-278: ``supervisor.py`` respawns
 the training as a child process every N checkpoints). The port runs on
-CUDA. Flags and subcommands for what the port does not have yet
-(``interactive``, a Burn ``.mpk`` checkpoint) are refused with exit 2 and
-an error naming the ROADMAP item, never ignored.
+CUDA. Flags and inputs the port does not have yet (a Burn ``.mpk``
+checkpoint) are refused with exit 2 and an error naming the ROADMAP item,
+never ignored.
 
     python -m burn_ppo_torch train --config configs/cartpole.toml
     python -m burn_ppo_torch train --config configs/cartpole.toml --reload-every-n-checkpoints 1
@@ -16,6 +16,7 @@ an error naming the ROADMAP item, never ignored.
     python -m burn_ppo_torch train --fork runs/<name>/checkpoints/step_X [overrides]
     python -m burn_ppo_torch eval -c gauntlet/connect_four/r4 --random
     python -m burn_ppo_torch tournament gauntlet/skull/r4 gauntlet/skull/r4_mid --random --players 4
+    python -m burn_ppo_torch interactive gauntlet/skull   # the Skull assistant on localhost:3000
 """
 
 from __future__ import annotations
@@ -401,6 +402,22 @@ def run_front_end(args, device: str = "cuda") -> int:
         return 2
 
 
+def run_interactive(args, device: str = "cuda") -> int:
+    """The Skull assistant's web server on ``device`` (a CUDA request
+    without a card raises in ``resolve_device``); sources without a Skull
+    checkpoint, or a checkpoint the port cannot read yet, exit 2."""
+    from burn_ppo_torch.checkpoint import NotPortedError
+    from burn_ppo_torch.device import resolve_device
+    from burn_ppo_torch.interactive import run_interactive_cli
+
+    dev = resolve_device(device)
+    try:
+        return run_interactive_cli(args, device=dev)
+    except (NotPortedError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
 def main(argv: Optional[List[str]] = None, *, device: str = "cuda") -> int:
     """``device`` is the hook the CPU tests use; the command line always
     runs on CUDA."""
@@ -414,9 +431,7 @@ def main(argv: Optional[List[str]] = None, *, device: str = "cuda") -> int:
         return run_train(args, device=device, argv=argv[1:])
     if args.command in ("eval", "tournament"):
         return run_front_end(args, device=device)
-    print(f"error: '{args.command}' is not ported to burn_ppo_torch yet "
-          "(ROADMAP A15: front ends, interactive)", file=sys.stderr)
-    return 2
+    return run_interactive(args, device=device)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-// K17 sample_seats / record_step — the eval stats engine's bookkeeping
-// around the sampler and the env step, two launches a step.
+// K17 step_books — the eval stats engine's bookkeeping around the sampler
+// and the env step, one launch a step.
 //
 // Replaces what XLA fuses around the env step and the sampler in the body
 // of the stats chunk's lax.scan, burn_ppo_tpu/eval.py step_fn (569-594),
@@ -12,16 +12,24 @@
 //     permutation BEFORE the advance into row t of the chunk's outputs
 //     (585-586), then the advance of move_count and perm_idx where the env
 //     is done (587-592), in place.
-// Plain PyTorch twins: burn_ppo_torch/eval.py sample_seats_plain and
-// record_step_plain, used for CPU tensors.
+// Plain PyTorch twin: burn_ppo_torch/eval.py step_books_plain (the record
+// half record_step_plain, the seat half sample_seats_plain), used for CPU
+// tensors.
 //
-// What bounds it on an H100: the launch. A step of 256 envs moves ~5 KB;
-// the two launches replace the ~10 small kernels of the eager step (two
-// casts and the perm gather, the slot gather, the schedule's 3-6 ops, four
-// copies into the chunk's log, the compare, add, modulo and two selects of
-// the advance). One thread an env, 256 threads a block; both launches sit
-// inside the chunk's CUDA graph, the row t of the log a pointer fixed at
-// capture.
+// One C entry, eval_step_books; a null record or seat output leaves that
+// half out. A chunk of T steps launches T + 1 times: the seats of step 0
+// (sample_seats_kernel), then after each env step t < T - 1 the records of
+// t fused with the seats of t + 1 (record_and_seat_kernel: both halves
+// depend only on the env step of t), and the records of step T - 1 alone
+// (record_step_kernel). One thread an env, 256 threads a block; every
+// launch sits inside the chunk's CUDA graph, row t of the log a pointer
+// fixed at capture.
+//
+// What bounds it on an H100: the launch and a chain of dependent loads. A
+// step of 256 envs moves ~5 KB. The fused launch keeps the advanced move
+// count and permutation in registers (the seats read them from there, not
+// again from memory); at P = 4 the outcome and total-reward rows move in
+// one 16-byte load and store each.
 //
 // The player is read from the state's own column (pointer and stride, no
 // copy of the strided view); a null column is player 0 (one player).
@@ -60,80 +68,147 @@ __device__ __forceinline__ float temperature(const Schedule& s, int move_count) 
   return move >= s.cutoff ? s.final_temp : ramp;
 }
 
-__global__ void __launch_bounds__(THREADS) sample_seats_kernel(
-    const int* __restrict__ perm_table, int P, const int* __restrict__ perm_idx,
-    const int* __restrict__ player, long player_stride, const int* __restrict__ slot_of_source,
-    const int* __restrict__ move_count, Schedule s, int* __restrict__ slot,
-    float* __restrict__ temp, int E) {
+struct Records {  // the record half: the step's log in, row t of the chunk's log out
+  const float* completed;
+  const int* outcome;
+  const float* total_rewards;
+  float* log_completed;
+  int* log_outcome;
+  float* log_total_rewards;
+  int* log_perm;
+  bool vec4;  // P == 4 and every [E, 4] row 16-byte aligned
+};
+
+struct Seats {  // the seat half: each env's acting slot and temperature
+  const int* perm_table;
+  const int* player;  // null: player 0
+  long player_stride;
+  const int* slot_of_source;
+  Schedule s;
+  int* slot;
+  float* temp;
+};
+
+// One env's step bookkeeping: the records (RECORD), then the seats of the
+// next step (SEATS) from the advanced move count and permutation, kept in
+// registers.
+template <bool RECORD, bool SEATS>
+__device__ __forceinline__ void step_books(const Records& r, const Seats& q, int* perm_idx,
+                                           int* move_count, int n_perms, int P, int E) {
   const int e = blockIdx.x * THREADS + threadIdx.x;
   if (e >= E) return;
-  const int seat = player != nullptr ? player[static_cast<long>(e) * player_stride] : 0;
-  slot[e] = slot_of_source[perm_table[perm_idx[e] * P + seat]];
-  temp[e] = temperature(s, move_count[e]);
+  int pi = perm_idx[e], mc = move_count[e], seat = 0;
+  const float ended = RECORD ? r.completed[e] : 0.0f;
+  if (SEATS && q.player != nullptr) seat = q.player[static_cast<long>(e) * q.player_stride];
+  if (RECORD) {
+    r.log_completed[e] = ended;
+    if (r.vec4) {
+      reinterpret_cast<int4*>(r.log_outcome)[e] = reinterpret_cast<const int4*>(r.outcome)[e];
+      reinterpret_cast<float4*>(r.log_total_rewards)[e] =
+          reinterpret_cast<const float4*>(r.total_rewards)[e];
+    } else {
+      const long row = static_cast<long>(e) * P;
+      for (int p = 0; p < P; ++p) {
+        r.log_outcome[row + p] = r.outcome[row + p];
+        r.log_total_rewards[row + p] = r.total_rewards[row + p];
+      }
+    }
+    r.log_perm[e] = pi;
+    if (ended > 0.0f) {
+      mc = 0;
+      pi = (pi + 1) % n_perms;
+    } else {
+      mc += 1;
+    }
+    move_count[e] = mc;
+    perm_idx[e] = pi;
+  }
+  if (SEATS) {
+    q.slot[e] = q.slot_of_source[q.perm_table[pi * P + seat]];
+    q.temp[e] = temperature(q.s, mc);
+  }
 }
 
-__global__ void __launch_bounds__(THREADS) record_step_kernel(
-    const float* __restrict__ completed, const int* __restrict__ outcome,
-    const float* __restrict__ total_rewards, int* __restrict__ perm_idx,
-    int* __restrict__ move_count, int n_perms,
-    float* __restrict__ log_completed, int* __restrict__ log_outcome,
-    float* __restrict__ log_total_rewards, int* __restrict__ log_perm, int E, int P) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= E) return;
-  const float ended = completed[e];
-  log_completed[e] = ended;
-  const long row = static_cast<long>(e) * P;
-  for (int p = 0; p < P; ++p) {
-    log_outcome[row + p] = outcome[row + p];
-    log_total_rewards[row + p] = total_rewards[row + p];
-  }
-  const int pi = perm_idx[e];
-  log_perm[e] = pi;
-  move_count[e] = ended > 0.0f ? 0 : move_count[e] + 1;
-  perm_idx[e] = ended > 0.0f ? (pi + 1) % n_perms : pi;
+// One name a half (the profiler tells a chunk's launches apart by them).
+__global__ void __launch_bounds__(THREADS) sample_seats_kernel(Seats q, int* perm_idx,
+                                                                int* move_count, int n_perms,
+                                                                int P, int E) {
+  step_books<false, true>(Records{}, q, perm_idx, move_count, n_perms, P, E);
+}
+
+__global__ void __launch_bounds__(THREADS) record_step_kernel(Records r, int* perm_idx,
+                                                               int* move_count, int n_perms,
+                                                               int P, int E) {
+  step_books<true, false>(r, Seats{}, perm_idx, move_count, n_perms, P, E);
+}
+
+__global__ void __launch_bounds__(THREADS) record_and_seat_kernel(Records r, Seats q,
+                                                                   int* perm_idx, int* move_count,
+                                                                   int n_perms, int P, int E) {
+  step_books<true, true>(r, q, perm_idx, move_count, n_perms, P, E);
 }
 
 unsigned blocks(int E) { return static_cast<unsigned>((E + THREADS - 1) / THREADS); }
 
+bool aligned16(const void* p) { return reinterpret_cast<unsigned long>(p) % 16 == 0; }
+
+Records records(const void* completed, const void* outcome, const void* total_rewards,
+                void* log_completed, void* log_outcome, void* log_total_rewards, void* log_perm,
+                int P) {
+  Records r{static_cast<const float*>(completed), static_cast<const int*>(outcome),
+            static_cast<const float*>(total_rewards), static_cast<float*>(log_completed),
+            static_cast<int*>(log_outcome), static_cast<float*>(log_total_rewards),
+            static_cast<int*>(log_perm), false};
+  r.vec4 = P == 4 && aligned16(outcome) && aligned16(total_rewards) && aligned16(log_outcome) &&
+           aligned16(log_total_rewards);
+  return r;
+}
+
+Seats seats(const void* perm_table, const void* player, long player_stride,
+            const void* slot_of_source, int mode, float initial, float final_temp, float span,
+            float cutoff, float inv_cutoff, void* slot, void* temp) {
+  return Seats{static_cast<const int*>(perm_table), static_cast<const int*>(player),
+               player_stride, static_cast<const int*>(slot_of_source),
+               Schedule{mode, initial, final_temp, span, cutoff, inv_cutoff},
+               static_cast<int*>(slot), static_cast<float*>(temp)};
+}
+
 }  // namespace
 
-// perm_table [n_perms, P], perm_idx [E], slot_of_source [S], move_count
-// [E]: i32; player: E i32 at the given stride (null: player 0); outputs
-// slot [E] i32 and temp [E] f32. mode: 0 constant, 1 cutoff, 2 decay.
-extern "C" int eval_sample_seats(const void* perm_table, int n_perms, int P, const void* perm_idx,
-                                 const void* player, long player_stride,
-                                 const void* slot_of_source, const void* move_count, int mode,
-                                 float initial, float final_temp, float span, float cutoff,
-                                 float inv_cutoff, void* slot, void* temp, int E, void* stream) {
-  if (n_perms < 1 || P < 1 || mode < CONSTANT || mode > DECAY) {
+// perm_idx, move_count [E] i32 (advanced in place by the records);
+// perm_table [n_perms, P] i32. The records (left out when log_completed is
+// null): the env step's log, completed [E] (its done) and total_rewards
+// [E, P] f32, outcome [E, P] i32, into the log row: completed [E] f32,
+// outcome [E, P] i32, total_rewards [E, P] f32, perm [E] i32. The seats
+// (left out when slot is null), after the records: player, E i32 at the
+// given stride (null: player 0), slot_of_source [S] i32, the schedule
+// (mode 0 constant, 1 cutoff, 2 decay), into slot [E] i32 and temp [E] f32.
+extern "C" int eval_step_books(void* perm_idx, void* move_count, const void* perm_table,
+                               int n_perms, int P, const void* completed, const void* outcome,
+                               const void* total_rewards, void* log_completed,
+                               void* log_outcome, void* log_total_rewards, void* log_perm,
+                               const void* player, long player_stride,
+                               const void* slot_of_source, int mode, float initial,
+                               float final_temp, float span, float cutoff, float inv_cutoff,
+                               void* slot, void* temp, int E, void* stream) {
+  const bool record = log_completed != nullptr, seat = slot != nullptr;
+  if (n_perms < 1 || P < 1 || !(record || seat) || mode < CONSTANT || mode > DECAY) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (E <= 0) return 0;
-  const Schedule s{mode, initial, final_temp, span, cutoff, inv_cutoff};
-  sample_seats_kernel<<<blocks(E), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(perm_table), P, static_cast<const int*>(perm_idx),
-      static_cast<const int*>(player), player_stride, static_cast<const int*>(slot_of_source),
-      static_cast<const int*>(move_count), s, static_cast<int*>(slot), static_cast<float*>(temp),
-      E);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// completed [E] (the step's done), total_rewards [E, P]: f32; outcome
-// [E, P] i32: the env step's log; perm_idx, move_count [E] i32, advanced
-// in place; the log row: completed [E] f32, outcome [E, P] i32,
-// total_rewards [E, P] f32, perm [E] i32.
-extern "C" int eval_record_step(const void* completed, const void* outcome,
-                                const void* total_rewards, void* perm_idx, void* move_count,
-                                int n_perms, void* log_completed,
-                                void* log_outcome, void* log_total_rewards, void* log_perm, int E,
-                                int P, void* stream) {
-  if (n_perms < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (E <= 0) return 0;
-  record_step_kernel<<<blocks(E), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(completed), static_cast<const int*>(outcome),
-      static_cast<const float*>(total_rewards), static_cast<int*>(perm_idx),
-      static_cast<int*>(move_count), n_perms,
-      static_cast<float*>(log_completed), static_cast<int*>(log_outcome),
-      static_cast<float*>(log_total_rewards), static_cast<int*>(log_perm), E, P);
+  const Records r = records(completed, outcome, total_rewards, log_completed, log_outcome,
+                            log_total_rewards, log_perm, P);
+  const Seats q = seats(perm_table, player, player_stride, slot_of_source, mode, initial,
+                        final_temp, span, cutoff, inv_cutoff, slot, temp);
+  int* pi = static_cast<int*>(perm_idx);
+  int* mc = static_cast<int*>(move_count);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (record && seat) {
+    record_and_seat_kernel<<<blocks(E), THREADS, 0, s>>>(r, q, pi, mc, n_perms, P, E);
+  } else if (record) {
+    record_step_kernel<<<blocks(E), THREADS, 0, s>>>(r, pi, mc, n_perms, P, E);
+  } else {
+    sample_seats_kernel<<<blocks(E), THREADS, 0, s>>>(q, pi, mc, n_perms, P, E);
+  }
   return static_cast<int>(cudaGetLastError());
 }

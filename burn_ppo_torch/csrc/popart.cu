@@ -12,39 +12,41 @@
 // popart_update_rescale_plain and popart_denormalize_plain, used for CPU
 // tensors.
 //
-// update (K15): one cooperative launch (cudaLaunchKernelEx with the
-// cooperative attribute) of at most the blocks the card holds at once, so
-// the two grid barriers cannot deadlock. Each thread owns ITEMS consecutive
-// elements of a tile of FT * ITEMS, each block a contiguous run of tiles;
-// the block's first tile (returns and valid) stays in registers across
-// both barriers, later tiles are read again (from L2):
-//   1. the block's sums of w and w x in f64, by warp shuffles, into its
-//      partial; grid barrier;
-//   2. every block's first warp adds all G partials (each lane's loads all
-//      in flight, then one fixed shuffle tree), so every block has the same
-//      batch mean bits, rounded to f32 as the plain version rounds it;
-//      then the block's sum of w (x - mean)^2 in f64; grid barrier;
-//   3. block 0 adds those partials the same way and merges the batch into
-//      (mean, m2, count) in f32 (Chan et al., the plain version's order of
-//      operations, each rounded on its own: __fmul_rn / __fadd_rn, no
-//      contraction), then, where the new count is >= 2, rescales the head:
-//      W' = W * s_old / s_new, b' = (b s_old + mu_old - mu_new) / s_new.
-// Every sum is taken in a fixed order, so two calls (and two graph replays)
-// give the same bits; the batch sums differ from the plain version's
-// torch.sum only in f64 rounding. Bound: bytes, 8 B an element read once.
-// The launch allocates nothing and sets no function attribute, so it can
-// be captured into a CUDA graph; the partials' scratch is the caller's.
+// update (K15): one ordinary launch, no grid barrier. Each thread owns
+// ITEMS consecutive elements of a tile of FT * ITEMS (16-byte loads where
+// the buffers allow), each block a contiguous run of tiles, at most
+// MAX_BLOCKS blocks. One pass: the block's f64 sums of w, w (x - c) and
+// w (x - c)^2 about the shift c, the state's running mean as it was
+// before the launch (every block reads it first; 0 on a fresh state), by
+// warp shuffles into the block's partial. Then one acq_rel ticket a block
+// on an i32 counter in the scratch (K10's take_ticket); the block that
+// takes the last ticket:
+//   1. adds all partials in block order (thread t blocks t, t + FT, ...,
+//      then lanes and warps by one fixed shuffle tree), so the sums have
+//      the same bits in every run;
+//   2. forms the batch mean f32((S1 + c S0) / max(S0, 1)), as the plain
+//      version rounds it, and the batch m2 about that f32 mean m as
+//      S2 - 2 (m - c) S1 + (m - c)^2 S0 in f64 (the plain version's
+//      sum of w (x - m)^2, up to f64 rounding; never below 0);
+//   3. merges the batch into (mean, m2, count) in f32 (Chan et al., the
+//      plain version's order of operations, each rounded on its own:
+//      __fmul_rn / __fadd_rn, no contraction), then, where the new count
+//      is >= 2, rescales the head: W' = W * s_old / s_new,
+//      b' = (b s_old + mu_old - mu_new) / s_new;
+//   4. sets the ticket back to 0, so that the next launch (or graph
+//      replay) starts from 0.
+// The batch sums differ from the plain version's torch.sum only in f64
+// rounding. Bound: bytes, 8 B an element read once. The launch allocates
+// nothing and sets no attribute, so it can be captured into a CUDA
+// graph; the partials' scratch is the caller's, zeroed once.
 //
 // denormalise (K16): a thread an element, y = x * std + mean once the
 // count is >= 2 (two roundings, as the plain version), else x; it writes
 // the rollout's values slice in place of the copy it replaces.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -52,8 +54,9 @@ constexpr int FT = 256;  // threads of an update block
 constexpr int FWARPS = FT / 32;
 constexpr int ITEMS = 8;  // consecutive elements per thread
 constexpr long TILE = FT * ITEMS;
-constexpr int PARTIALS_PER_LANE = 16;  // a warp adds at most 512 partials
-constexpr int MAX_BLOCKS = 32 * PARTIALS_PER_LANE;
+constexpr int MAX_BLOCKS = 1024;  // the grid's cap: a fixed scratch
+constexpr int PER_THREAD = MAX_BLOCKS / FT;  // partials a thread of the last block adds
+constexpr int NS = 3;  // sums a block: w, w (x - c), w (x - c)^2
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float POPART_EPS = 1e-4f;
 
@@ -71,8 +74,8 @@ struct UpdArgs {
   float* count;
   float* head_w;  // [H]
   float* head_b;  // [1]
-  double* part1;  // [G, 2]: w, w x
-  double* part2;  // [G]: w (x - mean)^2
+  double* part;  // [G, NS]
+  unsigned* ticket;  // the scratch's last double, 0 between launches
   long n;
   long tiles;
   long tiles_per_block;
@@ -110,127 +113,114 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// The block's sum of each thread's v[0..K), in warp order, into out.
-template <int K>
-__device__ __forceinline__ void block_sum(const double (&v)[K], double* out,
-                                          double (&red)[FWARPS][2]) {
+// The block's sums of each thread's v[0..NS), warps in order; thread
+// c < NS returns sum c (the others 0).
+__device__ __forceinline__ double block_sum(const double (&v)[NS], double (&red)[FWARPS][NS]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int c = 0; c < K; ++c) {
+  for (int c = 0; c < NS; ++c) {
     const double s = warp_sum(v[c]);
     if (lane == 0) red[warp][c] = s;
   }
   __syncthreads();
-  if (threadIdx.x < K) {
-    double s = 0.0;
+  double s = 0.0;
+  if (threadIdx.x < NS) {
     for (int wi = 0; wi < FWARPS; ++wi) s += red[wi][threadIdx.x];
-    out[threadIdx.x] = s;
   }
+  return s;
 }
 
-// The sum of column c of `count` rows of `width` partials, by one warp:
-// lane l loads rows l, l + 32, ... (all its loads in flight at once), adds
-// them in order, then a fixed shuffle tree.
-__device__ __forceinline__ double sum_partials(const double* part, int width, int c, long count) {
-  const int lane = threadIdx.x & 31;
-  double v[PARTIALS_PER_LANE];
-#pragma unroll
-  for (int k = 0; k < PARTIALS_PER_LANE; ++k) {
-    const long b = lane + 32L * k;
-    v[k] = b < count ? __ldcg(part + b * width + c) : 0.0;
-  }
-  double s = 0.0;
-#pragma unroll
-  for (int k = 0; k < PARTIALS_PER_LANE; ++k) s += v[k];
-  return warp_sum(s);
+// Takes a ticket: the add happens after this thread's earlier writes are
+// visible on the device (release), and the thread that takes the last
+// ticket sees every write made before the others (acquire).
+__device__ __forceinline__ unsigned take_ticket(unsigned* ticket) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(ticket)
+               : "memory");
+  return old;
 }
 
 __global__ void __launch_bounds__(FT) popart_update_kernel(UpdArgs a) {
-  __shared__ double red[FWARPS][2];
-  __shared__ double bcast[2];
+  __shared__ double red[FWARPS][NS];
+  __shared__ bool is_last;
   __shared__ float head[3];  // W scale, new bias, rescale flag
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long G = gridDim.x;
+  const int t = threadIdx.x;
   const long tile0 = blockIdx.x * a.tiles_per_block;
   const long tile1 = min(tile0 + a.tiles_per_block, a.tiles);
 
-  // The block's first tile stays in registers; later ones are read again.
-  Run first;
-  load_run(a, tile0 * TILE + t * ITEMS, first);
-
-  // 1. The block's sums of w and w x.
-  double m[2] = {0.0, 0.0};
-  auto moments = [&](const Run& run) {
+  // One pass: the block's shifted sums.
+  const float ma = *a.mean;
+  const double c = static_cast<double>(ma);
+  double m[NS] = {0.0, 0.0, 0.0};
+  for (long k = tile0; k < tile1; ++k) {
+    Run run;
+    load_run(a, k * TILE + t * ITEMS, run);
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
-      m[0] += static_cast<double>(run.w[i]);
-      m[1] += static_cast<double>(run.w[i]) * static_cast<double>(run.x[i]);
-    }
-  };
-  moments(first);
-  for (long k = tile0 + 1; k < tile1; ++k) {
-    Run later;
-    load_run(a, k * TILE + t * ITEMS, later);
-    moments(later);
-  }
-  block_sum<2>(m, a.part1 + 2 * blockIdx.x, red);
-  cg::this_grid().sync();
-
-  // 2. The batch mean, the same f32 bits in every block, then the block's
-  // sum of w (x - mean)^2.
-  if (warp == 0) {
-    const double sw = sum_partials(a.part1, 2, 0, G);
-    const double swx = sum_partials(a.part1, 2, 1, G);
-    if (lane == 0) {
-      bcast[0] = sw;
-      bcast[1] = static_cast<double>(static_cast<float>(swx / (sw > 1.0 ? sw : 1.0)));
+      const double w = static_cast<double>(run.w[i]);
+      const double wd = w * (static_cast<double>(run.x[i]) - c);
+      m[0] += w;
+      m[1] += wd;
+      m[2] += wd * (static_cast<double>(run.x[i]) - c);
     }
   }
+  const double mine = block_sum(m, red);
+  // Thread c < NS writes sum c of the partial; then one ticket a block,
+  // whose release covers the block's writes (they precede it through the
+  // barrier).
+  if (t < NS) a.part[NS * blockIdx.x + t] = mine;
   __syncthreads();
-  const double mean_b = bcast[1];
-  double q[1] = {0.0};
-  auto squares = [&](const Run& run) {
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const double d = static_cast<double>(run.x[i]) - mean_b;
-      q[0] += (d * d) * static_cast<double>(run.w[i]);
-    }
-  };
-  squares(first);
-  for (long k = tile0 + 1; k < tile1; ++k) {
-    Run later;
-    load_run(a, k * TILE + t * ITEMS, later);
-    squares(later);
-  }
-  block_sum<1>(q, a.part2 + blockIdx.x, red);
-  cg::this_grid().sync();
-  if (blockIdx.x != 0) return;
+  if (t == 0) is_last = take_ticket(a.ticket) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
 
-  // 3. Block 0: the merge, then the head.
-  if (warp == 0) {
-    const double sq = sum_partials(a.part2, 1, 0, G);
-    if (lane == 0) {
-      const float nb = static_cast<float>(bcast[0]), mb = static_cast<float>(mean_b);
-      const float m2b = static_cast<float>(sq);
-      const float ma = *a.mean, m2a = *a.m2, ca = *a.count;
-      const float total = __fadd_rn(ca, nb);
-      const float safe = fmaxf(total, 1.0f);
-      const float delta = __fsub_rn(mb, ma);
-      const float mean = __fadd_rn(ma, __fmul_rn(delta, __fdiv_rn(nb, safe)));
-      const float m2 = __fadd_rn(__fadd_rn(m2a, m2b), __fmul_rn(__fmul_rn(delta, delta),
-                                                                __fdiv_rn(__fmul_rn(ca, nb), safe)));
-      const bool keep = nb > 0.0f;
-      const float new_mean = keep ? mean : ma, new_m2 = keep ? m2 : m2a;
-      const float new_count = keep ? total : ca;
-      const float s_old = popart_std(m2a, ca), s_new = popart_std(new_m2, new_count);
-      const bool rescale = new_count >= 2.0f;
-      head[0] = __fdiv_rn(s_old, s_new);
-      head[1] = __fdiv_rn(__fsub_rn(__fadd_rn(__fmul_rn(*a.head_b, s_old), ma), new_mean), s_new);
-      head[2] = rescale ? 1.0f : 0.0f;
-      *a.mean = new_mean;
-      *a.m2 = new_m2;
-      *a.count = new_count;
+  // The last block: every partial, in block order.
+  __threadfence();
+  double v[NS] = {0.0, 0.0, 0.0};
+  {
+    double y[PER_THREAD][NS];
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) {
+      const long b = t + static_cast<long>(FT) * k;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) y[k][j] = b < gridDim.x ? __ldcg(a.part + NS * b + j) : 0.0;
     }
+#pragma unroll
+    for (int k = 0; k < PER_THREAD; ++k) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) v[j] += y[k][j];
+    }
+  }
+  __syncthreads();  // red is reused
+  const double total = block_sum(v, red);
+  if (t < NS) red[0][t] = total;
+  __syncthreads();
+  if (t == 0) {
+    const double s0 = red[0][0], s1 = red[0][1], s2 = red[0][2];
+    const float mb = static_cast<float>((s1 + c * s0) / (s0 > 1.0 ? s0 : 1.0));
+    const double d = static_cast<double>(mb) - c;
+    const double q = s2 - 2.0 * d * s1 + d * d * s0;
+    const float nb = static_cast<float>(s0), m2b = static_cast<float>(q > 0.0 ? q : 0.0);
+    const float m2a = *a.m2, ca = *a.count;
+    const float tot = __fadd_rn(ca, nb);
+    const float safe = fmaxf(tot, 1.0f);
+    const float delta = __fsub_rn(mb, ma);
+    const float mean = __fadd_rn(ma, __fmul_rn(delta, __fdiv_rn(nb, safe)));
+    const float m2 = __fadd_rn(__fadd_rn(m2a, m2b), __fmul_rn(__fmul_rn(delta, delta),
+                                                              __fdiv_rn(__fmul_rn(ca, nb), safe)));
+    const bool keep = nb > 0.0f;
+    const float new_mean = keep ? mean : ma, new_m2 = keep ? m2 : m2a;
+    const float new_count = keep ? tot : ca;
+    const float s_old = popart_std(m2a, ca), s_new = popart_std(new_m2, new_count);
+    head[0] = __fdiv_rn(s_old, s_new);
+    head[1] = __fdiv_rn(__fsub_rn(__fadd_rn(__fmul_rn(*a.head_b, s_old), ma), new_mean), s_new);
+    head[2] = new_count >= 2.0f ? 1.0f : 0.0f;
+    *a.mean = new_mean;
+    *a.m2 = new_m2;
+    *a.count = new_count;
+    *a.ticket = 0u;
   }
   __syncthreads();
   if (head[2] == 0.0f) return;
@@ -250,39 +240,23 @@ __global__ void popart_denormalize_kernel(const float* __restrict__ x,
   out[i] = c < 2.0f ? v : __fadd_rn(__fmul_rn(v, popart_std(*m2, c)), *mean);
 }
 
-// The blocks the whole update grid may hold at once on the current device.
-int update_resident_blocks() {
-  static int resident[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, popart_update_kernel, FT, 0) !=
-            cudaSuccess)
-      return 0;
-    resident[dev] = min(sms * per_sm, MAX_BLOCKS);
-  }
-  return resident[dev];
-}
-
 }  // namespace
 
-// Doubles of scratch an update on the current device may use: 3 per block
-// of the largest grid it launches.
-extern "C" int popart_update_scratch_len() { return 3 * update_resident_blocks(); }
+// Doubles of scratch an update may use: every block's partial, then the
+// ticket (i32, in the last double, zero before the first launch; each
+// launch leaves it 0).
+extern "C" int popart_update_scratch_len() { return NS * MAX_BLOCKS + 1; }
 
 // returns, valid: [N] f32; mean, m2, count: f32 scalars, merged into in
 // place; head_w [H] and head_b [1] f32, rescaled in place; scratch:
-// [scratch_len] doubles of the caller's.
+// [scratch_len] doubles of the caller's, zeroed once.
 extern "C" int popart_update(const void* returns, const void* valid, long N, void* mean, void* m2,
                              void* count, void* head_w, void* head_b, int H, void* scratch,
                              int scratch_len, void* stream) {
-  const int resident = update_resident_blocks();
-  if (N <= 0 || H < 1 || resident < 1 || scratch_len < 3 * resident)
+  if (N <= 0 || H < 1 || scratch_len < popart_update_scratch_len())
     return static_cast<int>(cudaErrorInvalidValue);
   const long tiles = (N + TILE - 1) / TILE;
-  const long per_block = (tiles + resident - 1) / resident;
+  const long per_block = (tiles + MAX_BLOCKS - 1) / MAX_BLOCKS;
   const long blocks = (tiles + per_block - 1) / per_block;
   const auto addr = [](const void* b) { return reinterpret_cast<std::uintptr_t>(b); };
   UpdArgs a;
@@ -293,24 +267,16 @@ extern "C" int popart_update(const void* returns, const void* valid, long N, voi
   a.count = static_cast<float*>(count);
   a.head_w = static_cast<float*>(head_w);
   a.head_b = static_cast<float*>(head_b);
-  a.part1 = static_cast<double*>(scratch);
-  a.part2 = a.part1 + 2 * blocks;
+  a.part = static_cast<double*>(scratch);
+  a.ticket = reinterpret_cast<unsigned*>(a.part + scratch_len - 1);
   a.n = N;
   a.tiles = tiles;
   a.tiles_per_block = per_block;
   a.H = H;
   a.vec = (addr(returns) | addr(valid)) % 16 == 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(FT);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, popart_update_kernel, a));
+  popart_update_kernel<<<static_cast<unsigned>(blocks), FT, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x, out: [n] f32 (out may be any slice of a larger buffer); mean, m2,

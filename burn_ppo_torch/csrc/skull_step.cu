@@ -1,6 +1,9 @@
 // K11 skull_step_autoreset — the Skull phase machine with rewards, done,
 // episode log, auto-reset, accumulators, and the obs, action mask and
-// privileged obs of the post-reset state, one launch per env step.
+// privileged obs of the post-reset state, one launch per env step. With
+// the reset flag off, a finished env keeps its stepped (terminal) row, and
+// the obs, mask and privileged obs are that row's: one game's last move,
+// as the interactive assistant shows it.
 //
 // Replaces the XLA fusion of burn_ppo_tpu/envs/skull.py Skull.step (280-526),
 // obs (529-616), action_mask (619-678), privileged_obs (690-746),
@@ -35,9 +38,10 @@
 //      its staged row (validity is decided before anything changes, so one
 //      copy of the state serves), the placements of the stepped state, the
 //      rewards, accumulators and episode log; a finished env's row becomes
-//      the fresh game's; then a few derived words of the row (the current
-//      player's hand, the relative seat maps, the 33 mask bits). Seat
-//      searches are bit operations on a mask of the seats alive;
+//      the fresh game's (with the reset flag on); then a few derived words
+//      of the row (the current player's hand, the relative seat maps, the
+//      33 mask bits). Seat searches are bit operations on a mask of the
+//      seats alive;
 //   3. every thread: the rows go out with 16-byte stores, and the obs,
 //      privileged obs and mask of the block's envs go straight to global
 //      memory. Each output segment (a run of columns of one kind) is a loop
@@ -164,6 +168,7 @@ struct Args {
   float* priv;
   int num_envs;
   int n;
+  int reset;  // 0: a finished env keeps its terminal row
 };
 
 using packed_rows::block_len;
@@ -713,7 +718,7 @@ __global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
     g.active[e] = n;
     g.done[e] = done ? 1.0f : 0.0f;
     g.shaping_out[e] = rsc;  // the shaping coefficient survives the reset
-    if (done) {
+    if (done && g.reset) {
 #pragma unroll
       for (int c = 0; c < W; ++c) r[c] = reset_value(c, n);
     }
@@ -730,11 +735,11 @@ __global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
 
 // in: the packed state [E, 108] i32, shaping [E], reward_sum [E, n],
 // length [E], action [E], u [E]; out: the i32 and the f32 buffer of
-// envs/skull.py _outputs.
+// envs/skull.py _outputs. reset 0 keeps a finished env's terminal row.
 extern "C" int skull_step_autoreset(const int* ints, const float* shaping, const float* acc_sum,
                                     const int* acc_len, const int* action, const float* u,
                                     int* out_i32, float* out_f32, int num_envs, int num_players,
-                                    void* stream) {
+                                    int reset, void* stream) {
   if (num_players < 2 || num_players > MAXP) return static_cast<int>(cudaErrorInvalidValue);
   if (num_envs <= 0) return 0;
   const long E = num_envs;
@@ -774,6 +779,7 @@ extern "C" int skull_step_autoreset(const int* ints, const float* shaping, const
   g.priv = f;
   g.num_envs = num_envs;
   g.n = n;
+  g.reset = reset;
   const int blocks = static_cast<int>((E + EB - 1) / EB);
   skull_step_autoreset_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());

@@ -353,12 +353,15 @@ def autoreset_step(
     action: torch.Tensor,
     reset_values: torch.Tensor,
     step_values: Optional[torch.Tensor] = None,
+    reset: bool = True,
 ) -> StepOutput:
     """Step every env with auto-reset (plain PyTorch).
 
     The log, outcome included, reads the stepped state before the reset
     values replace it (burn_ppo_tpu/envs/base.py:248-274); the context
-    fields carry over into the fresh state (base.py:265-268)."""
+    fields carry over into the fresh state (base.py:265-268). With
+    ``reset`` False a finished env keeps its stepped (terminal) state, and
+    the obs, mask and privileged obs are that state's."""
     if step_values is None:
         stepped, rewards, done_b = env.step(state, action)
     else:
@@ -373,10 +376,13 @@ def autoreset_step(
         outcome=env.game_outcome(stepped),
         active_players=env.active_player_count(stepped),
     )
-    fresh = env.reset(reset_values)
-    if env.context_fields:
-        fresh = dataclasses.replace(fresh, **{f: getattr(stepped, f) for f in env.context_fields})
-    next_state = select_state(done_b, fresh, stepped)
+    next_state = stepped
+    if reset:
+        fresh = env.reset(reset_values)
+        if env.context_fields:
+            fresh = dataclasses.replace(fresh, **{f: getattr(stepped, f)
+                                                  for f in env.context_fields})
+        next_state = select_state(done_b, fresh, stepped)
     next_acc = EpisodeAccumulator(
         reward_sum=torch.where(done_b[:, None], torch.zeros_like(new_sum), new_sum),
         length=torch.where(done_b, torch.zeros_like(new_len), new_len),

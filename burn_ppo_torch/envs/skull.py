@@ -502,8 +502,11 @@ class Skull(Environment):
         ], 1)
         return torch.nn.functional.pad(flat, (0, PRIV_DIM - flat.shape[1]))
 
-    def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
-        return skull_step_autoreset(self, state, acc, action, reset_values, step_values)
+    def step_autoreset(self, state, acc, action, reset_values, step_values=None,
+                       reset: bool = True) -> StepOutput:
+        """``reset`` False keeps a finished env's terminal state (K11's
+        flag): the last move of one game, as the assistant shows it."""
+        return skull_step_autoreset(self, state, acc, action, reset_values, step_values, reset)
 
     # -- human-facing helpers (skull.py:749-814) -----------------------------
     def render(self, state: SkullState, index: int = 0) -> str:
@@ -571,12 +574,14 @@ def skull_step_autoreset(
     action: torch.Tensor,
     reset_values: torch.Tensor,
     u: torch.Tensor,
+    reset: bool = True,
 ) -> StepOutput:
     """One auto-reset step of every env: plain PyTorch on the CPU, kernel
-    K11 on a CUDA device. ``u`` [E] are the step's uniforms (``draw_step``)."""
+    K11 on a CUDA device. ``u`` [E] are the step's uniforms (``draw_step``);
+    ``reset`` False keeps a finished env's terminal state."""
     if kernels.on_cpu(state.ints, action, reset_values, u):
-        return autoreset_step(env, state, acc, action, reset_values, u)
-    return _launch(env, state, acc, action, u)
+        return autoreset_step(env, state, acc, action, reset_values, u, reset)
+    return _launch(env, state, acc, action, u, reset)
 
 
 kernels.counted(skull_step_autoreset)
@@ -593,7 +598,7 @@ def _outputs(n: int) -> tuple:
 
 
 def _launch(env: Skull, state: SkullState, acc: EpisodeAccumulator, action: torch.Tensor,
-            u: torch.Tensor) -> StepOutput:
+            u: torch.Tensor, reset: bool = True) -> StepOutput:
     E, n, dev = state.ints.shape[0], env.n, state.ints.device
     kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
     kernels.expect_rows16(state.ints, "state.ints")
@@ -608,7 +613,7 @@ def _launch(env: Skull, state: SkullState, acc: EpisodeAccumulator, action: torc
     err = kernels.library().skull_step_autoreset(
         state.ints.data_ptr(), state.shaping_coef.data_ptr(), acc.reward_sum.data_ptr(),
         acc.length.data_ptr(), action.data_ptr(), u.data_ptr(), i32.data_ptr(), f32.data_ptr(),
-        E, n, kernels.stream(dev))
+        E, n, int(reset), kernels.stream(dev))
     kernels.check(err, "skull_step_autoreset")
     skull_step_autoreset.launches += 1
     oi, of = carve_arena(i32, E, i32_out), carve_arena(f32, E, f32_out)

@@ -12,10 +12,12 @@ src/eval.rs):
   * ``run_stats_mode``: parallel envs, seat permutations rotated between
     games, each env's acting model's logits (``ActingLogits``), the
     temperature sampler K14, the env step kernel (K1, K4, K11, K13) and
-    the step's seating and records (K17, ``sample_seats`` and
-    ``record_step``), chunks of 64 steps (``StatsEngine``), the host
-    reading each chunk's episode records once; ``EngineCache`` keeps one
-    engine per shape for a tournament's pods;
+    the step's seating and records (K17, ``step_books``, once a step: the
+    seats before a chunk's first step, the records of each step fused with
+    the next step's seats, the last step's records alone), chunks of 64
+    steps (``StatsEngine``),
+    the host reading each chunk's episode records once; ``EngineCache``
+    keeps one engine per shape for a tournament's pods;
   * ``run_watch_mode`` and ``run_interactive_evaluation``: one env at a
     time, its text rendered, human moves read from the terminal
     (``human.py``).
@@ -39,7 +41,7 @@ import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, ClassVar, Dict, List, Optional, Sequence, Tuple
+from typing import Any, ClassVar, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -574,60 +576,48 @@ class ChunkLog:
 
 
 # ---------------------------------------------------------------------------
-# K17: the step's seating and records (eval.py:569-592)
+# K17: the step's seating and records (eval.py:569-592), one launch a step:
+# the seats of a chunk's first step, then after each env step its records
+# fused with the next step's seats, the last step's records alone
 # ---------------------------------------------------------------------------
+class Records(NamedTuple):
+    """K17's record half: the env step's ``step_log`` into row ``t`` of
+    ``log``."""
+
+    log: ChunkLog
+    t: int
+    step_log: Any
+
+
+class Seats(NamedTuple):
+    """K17's seat half: each env's acting model into ``slot`` [E] i32 and
+    its temperature into ``temps`` [E] f32. ``player`` is the state's
+    player column (a strided view, read in place; None is player 0)."""
+
+    player: Optional[torch.Tensor]
+    slot_of_source: torch.Tensor
+    temp: TempSchedule
+    slot: torch.Tensor
+    temps: torch.Tensor
+
+
 def sample_seats_plain(perm_table: torch.Tensor, perm_idx: torch.Tensor,
                        player: Optional[torch.Tensor], slot_of_source: torch.Tensor,
                        move_count: torch.Tensor, temp: TempSchedule, slot: torch.Tensor,
                        temps: torch.Tensor) -> None:
-    """Plain PyTorch K17 seat pass: each env's acting model ``slot`` [E]
-    i32 (``slot_of_source[perm_table[perm_idx, player]]``, -1 random) and
-    its temperature ``temps`` [E] f32 (``temp.get_temp(move_count)``),
-    written into the caller's buffers. ``player`` None is player 0."""
+    """Plain PyTorch seat half: each env's acting model ``slot`` [E] i32
+    (``slot_of_source[perm_table[perm_idx, player]]``, -1 random) and its
+    temperature ``temps`` [E] f32 (``temp.get_temp(move_count)``), written
+    into the caller's buffers. ``player`` None is player 0."""
     seat = torch.zeros_like(perm_idx) if player is None else player
     source = perm_table[perm_idx.long(), seat.long()]
     slot.copy_(slot_of_source[source.long()])
     temps.copy_(temp.get_temp(move_count))
 
 
-def sample_seats(perm_table: torch.Tensor, perm_idx: torch.Tensor,
-                 player: Optional[torch.Tensor], slot_of_source: torch.Tensor,
-                 move_count: torch.Tensor, temp: TempSchedule, slot: torch.Tensor,
-                 temps: torch.Tensor) -> None:
-    """K17's seat pass, before the logits: plain PyTorch on the CPU, the
-    kernel (``csrc/eval_step.cu`` ``sample_seats_kernel``) on a CUDA
-    device. ``player`` may be a strided view (a packed state's column):
-    the kernel reads it in place."""
-    ts = [t for t in (perm_table, perm_idx, player, slot_of_source, move_count, slot, temps)
-          if t is not None]
-    if kernels.on_cpu(*ts):
-        return sample_seats_plain(perm_table, perm_idx, player, slot_of_source, move_count,
-                                  temp, slot, temps)
-    n_perms, P = perm_table.shape
-    E = perm_idx.shape[0]
-    kernels.expect(perm_table, "perm_table", torch.int32, (n_perms, P))
-    for t, name in ((perm_idx, "perm_idx"), (move_count, "move_count"), (slot, "slot")):
-        kernels.expect(t, name, torch.int32, (E,))
-    kernels.expect(slot_of_source, "slot_of_source", torch.int32, (slot_of_source.shape[0],))
-    kernels.expect(temps, "temps", torch.float32, (E,))
-    if player is not None and (player.dtype != torch.int32 or tuple(player.shape) != (E,)):
-        raise ValueError(f"player: expected an [{E}] i32 view, got {player.dtype} "
-                         f"{tuple(player.shape)}")
-    err = kernels.library().eval_sample_seats(
-        kernels.ptr(perm_table), n_perms, P, kernels.ptr(perm_idx), kernels.ptr(player),
-        0 if player is None else player.stride(0), kernels.ptr(slot_of_source),
-        kernels.ptr(move_count), *temp.kernel_args(), kernels.ptr(slot), kernels.ptr(temps), E,
-        kernels.stream(perm_idx.device))
-    kernels.check(err, "eval_sample_seats")
-    sample_seats.launches += 1
-
-
-kernels.counted(sample_seats)
-
-
 def record_step_plain(log: ChunkLog, t: int, step_log, perm_idx: torch.Tensor,
                       move_count: torch.Tensor, n_perms: int) -> None:
-    """Plain PyTorch K17 record pass: the step's episode log and each env's
+    """Plain PyTorch record half: the step's episode log and each env's
     permutation before the advance into row ``t`` of ``log``, then, in
     place, ``move_count`` to 0 and ``perm_idx`` to the next permutation
     where the env is done (``step_log.completed``, the step's done),
@@ -641,33 +631,74 @@ def record_step_plain(log: ChunkLog, t: int, step_log, perm_idx: torch.Tensor,
     perm_idx.copy_(torch.where(ended, (perm_idx + 1) % n_perms, perm_idx))
 
 
-def record_step(log: ChunkLog, t: int, step_log, perm_idx: torch.Tensor,
-                move_count: torch.Tensor, n_perms: int) -> None:
-    """K17's record pass, after the env step: plain PyTorch on the CPU, the
-    kernel (``csrc/eval_step.cu`` ``record_step_kernel``) on a CUDA
-    device, writing row ``t`` where it lies (inside a chunk's graph, a
-    pointer fixed at capture)."""
-    rows = (step_log.completed, step_log.outcome, step_log.total_rewards)
-    if kernels.on_cpu(*rows, perm_idx, move_count, log.completed):
-        return record_step_plain(log, t, step_log, perm_idx, move_count, n_perms)
-    _, E, P = log.outcome.shape
-    completed = step_log.completed
-    outcome, totals = step_log.outcome.reshape(E, P), step_log.total_rewards.reshape(E, P)
-    kernels.expect(completed, "completed", torch.float32, (E,))
-    kernels.expect(outcome, "outcome", torch.int32, (E, P))
-    kernels.expect(totals, "total_rewards", torch.float32, (E, P))
+def step_books_plain(perm_table: torch.Tensor, perm_idx: torch.Tensor, move_count: torch.Tensor,
+                     records: Optional[Records] = None, seats: Optional[Seats] = None) -> None:
+    """Plain PyTorch K17: the records (if given), then the seats (if given)
+    from the advanced move counts and permutations."""
+    if records is not None:
+        record_step_plain(*records, perm_idx, move_count, perm_table.shape[0])
+    if seats is not None:
+        sample_seats_plain(perm_table, perm_idx, seats.player, seats.slot_of_source, move_count,
+                           seats.temp, seats.slot, seats.temps)
+
+
+def step_books(perm_table: torch.Tensor, perm_idx: torch.Tensor, move_count: torch.Tensor,
+               records: Optional[Records] = None, seats: Optional[Seats] = None) -> None:
+    """K17, the step's bookkeeping in one launch: plain PyTorch on the
+    CPU, the kernel (``csrc/eval_step.cu``) on a CUDA device. ``records``
+    writes row ``t`` where it lies (inside a chunk's graph, a pointer fixed
+    at capture) and advances ``move_count`` and ``perm_idx`` in place;
+    ``seats`` then reads the advanced ones. A chunk gives the first step
+    the seats alone, each step but the last both, the last the records
+    alone."""
+    if records is None and seats is None:
+        raise ValueError("step_books: neither records nor seats")
+    ts = [perm_table, perm_idx, move_count]
+    if records is not None:
+        ts += [records.step_log.completed, records.step_log.outcome,
+               records.step_log.total_rewards, records.log.completed]
+    if seats is not None:
+        ts += [x for x in (seats.player, seats.slot_of_source, seats.slot, seats.temps)
+               if x is not None]
+    if kernels.on_cpu(*ts):
+        return step_books_plain(perm_table, perm_idx, move_count, records, seats)
+    n_perms, P = perm_table.shape
+    E = perm_idx.shape[0]
+    kernels.expect(perm_table, "perm_table", torch.int32, (n_perms, P))
     kernels.expect(perm_idx, "perm_idx", torch.int32, (E,))
     kernels.expect(move_count, "move_count", torch.int32, (E,))
-    err = kernels.library().eval_record_step(
-        kernels.ptr(completed), kernels.ptr(outcome), kernels.ptr(totals), kernels.ptr(perm_idx),
-        kernels.ptr(move_count), n_perms, kernels.ptr(log.completed[t]),
-        kernels.ptr(log.outcome[t]), kernels.ptr(log.total_rewards[t]), kernels.ptr(log.perm[t]),
-        E, P, kernels.stream(perm_idx.device))
-    kernels.check(err, "eval_record_step")
-    record_step.launches += 1
+    p = kernels.ptr
+    rec = [None] * 7
+    if records is not None:
+        log, t, step_log = records
+        outcome = step_log.outcome.reshape(E, P)
+        totals = step_log.total_rewards.reshape(E, P)
+        kernels.expect(log.outcome, "log.outcome", torch.int32, (log.outcome.shape[0], E, P))
+        kernels.expect(step_log.completed, "completed", torch.float32, (E,))
+        kernels.expect(outcome, "outcome", torch.int32, (E, P))
+        kernels.expect(totals, "total_rewards", torch.float32, (E, P))
+        rec = [p(step_log.completed), p(outcome), p(totals), p(log.completed[t]),
+               p(log.outcome[t]), p(log.total_rewards[t]), p(log.perm[t])]
+    seat = [None, 0, None, 0, 0.0, 0.0, 0.0, 0.0, 0.0, None, None]
+    if seats is not None:
+        player = seats.player
+        kernels.expect(seats.slot, "slot", torch.int32, (E,))
+        kernels.expect(seats.slot_of_source, "slot_of_source", torch.int32,
+                       (seats.slot_of_source.shape[0],))
+        kernels.expect(seats.temps, "temps", torch.float32, (E,))
+        if player is not None and (player.dtype != torch.int32 or tuple(player.shape) != (E,)):
+            raise ValueError(f"player: expected an [{E}] i32 view, got {player.dtype} "
+                             f"{tuple(player.shape)}")
+        seat = [p(player), 0 if player is None else player.stride(0), p(seats.slot_of_source),
+                *seats.temp.kernel_args(), p(seats.slot), p(seats.temps)]
+    err = kernels.library().eval_step_books(
+        p(perm_idx), p(move_count), p(perm_table), n_perms, P, *rec, *seat, E,
+        kernels.stream(perm_idx.device))
+    kernels.check(err, "eval_step_books")
+    step_books.launches += 1
 
 
-kernels.counted(record_step)
+kernels.counted(step_books)
 
 
 # ---------------------------------------------------------------------------
@@ -718,8 +749,9 @@ class StatsEngine:
     scratch, one ``ChunkLog`` that every chunk overwrites (fetch it before
     the next), and the logits' own networks or stack (``ActingLogits``
     with ``own``). A step writes its records into row t of the log and
-    advances the move counts and permutations in place (K17); the chunk's
-    last states are copied back into the carry.
+    advances the move counts and permutations in place, in the launch that
+    seats the next step (K17: T + 1 launches a chunk of T steps); the
+    chunk's last states are copied back into the carry.
 
     ``run_chunk`` replays one CUDA graph of the chunk on a card, captured
     at the first chunk (the random source must be a ``TorchRandomSource``),
@@ -774,26 +806,39 @@ class StatsEngine:
         self.rng.generator.manual_seed(seed)
         self._reset()
 
-    def step(self, c: EvalCarry, t: int) -> EvalCarry:
-        """One step of every env from carry ``c``, its records written into
-        row ``t`` of the log; returns the next carry (move counts and
-        permutations advanced in place)."""
+    def seats(self, states) -> Seats:
+        """K17's seat half for the step from ``states``: into the engine's
+        slot and temperature scratch."""
+        return Seats(self.env.current_player_view(states), self.logits.slot_of_source,
+                     self.temp, self.slot, self.temps)
+
+    def seat(self, c: EvalCarry) -> None:
+        """The seats and temperatures of carry ``c``'s step into the
+        engine's scratch (K17's seat half alone): a chunk's first step."""
+        step_books(self.perm_table, c.perm_idx, c.move_count, seats=self.seats(c.states))
+
+    def step(self, c: EvalCarry, t: int, last: bool = False) -> EvalCarry:
+        """One step of every env from carry ``c``, whose seats are in the
+        scratch; its records written into row ``t`` of the log and, unless
+        ``last``, the next step's seats in the same launch (K17). Returns
+        the next carry (move counts and permutations advanced in place)."""
         env, E, rng = self.env, self.num_envs, self.rng
-        sample_seats(self.perm_table, c.perm_idx, env.current_player_view(c.states),
-                     self.logits.slot_of_source, c.move_count, self.temp, self.slot, self.temps)
         logits = self.logits.forward_slots(c.obs, self.slot)
         actions = sample_with_temperature(
             logits, c.mask, self.temps, rng.uniform((E, env.spec.num_actions), TINY, 1.0))
         out = env.step_autoreset(c.states, c.acc, actions, env.draw_reset(rng, E),
                                  env.draw_step(rng, E))
-        record_step(self.log, t, out.log, c.perm_idx, c.move_count, self.n_perms)
+        step_books(self.perm_table, c.perm_idx, c.move_count, Records(self.log, t, out.log),
+                   None if last else self.seats(out.state))
         return dataclasses.replace(c, states=out.state, acc=out.acc, obs=out.obs, mask=out.mask)
 
     def _chunk(self) -> None:
         c = self.carry
+        T = self.chunk_steps
         with torch.no_grad():
-            for t in range(self.chunk_steps):
-                c = self.step(c, t)
+            self.seat(c)
+            for t in range(T):
+                c = self.step(c, t, last=t == T - 1)
             copy_into(self.carry, c)
 
     def eager_chunk(self) -> ChunkLog:

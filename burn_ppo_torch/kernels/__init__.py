@@ -109,7 +109,7 @@ SIGNATURES = {
     "episode_stats_scratch_len": [],
     # packed state, shaping, reward_sum, length, action, u, the i32 and the
     # f32 output buffer, num_envs, num_players, stream
-    "skull_step_autoreset": [_VP] * 8 + [_I, _I, _VP],
+    "skull_step_autoreset": [_VP] * 8 + [_I, _I, _I, _VP],
     # returns, rewards, acting, dones, new_returns, samples, E, P, gamma, stream
     "return_norm_roll": [_VP] * 6 + [_I, _I, _F, _VP],
     # samples, rewards, valid (nullable), mean, m2, count, scratch (f64
@@ -127,15 +127,14 @@ SIGNATURES = {
     "popart_update_scratch_len": [],
     # x, mean, m2, count, out, n, stream
     "popart_denormalize": [_VP] * 5 + [_L, _VP],
-    # perm_table, n_perms, P, perm_idx, player (nullable), its stride,
-    # slot_of_source, move_count, the schedule's mode, initial, final,
-    # span, cutoff, 1 / cutoff, slot, temp, E, stream
-    "eval_sample_seats": ([_VP, _I, _I, _VP, _VP, _L, _VP, _VP, _I] + [_F] * 5
-                          + [_VP, _VP, _I, _VP]),
-    # completed (the step's done), outcome, total_rewards, perm_idx,
-    # move_count, n_perms, the log row's completed, outcome, total_rewards
-    # and perm, E, P, stream
-    "eval_record_step": [_VP] * 5 + [_I] + [_VP] * 4 + [_I, _I, _VP],
+    # perm_idx, move_count, perm_table, n_perms, P; the records (a null
+    # log row leaves them out): completed (the step's done), outcome,
+    # total_rewards, the log row's completed, outcome, total_rewards and
+    # perm; the seats (a null slot leaves them out): player (nullable), its
+    # stride, slot_of_source, the schedule's mode, initial, final, span,
+    # cutoff, 1 / cutoff, slot, temp; E, stream
+    "eval_step_books": ([_VP, _VP, _VP, _I, _I] + [_VP] * 7 + [_VP, _L, _VP, _I] + [_F] * 5
+                        + [_VP, _VP, _I, _VP]),
 }
 
 _LOCK = threading.Lock()

@@ -28,8 +28,8 @@
   ``csrc/popart.cu``), and once per update ``popart_update_rescale``
   merges the batch's valid returns into the stats and rescales the value
   head in place so that its denormalized outputs are unchanged (kernel
-  K15, one cooperative launch; ROADMAP B18). The loss normalizes the
-  returns and old values with the new stats inside K8
+  K15, one launch with a last-block ticket; ROADMAP B18). The loss
+  normalizes the returns and old values with the new stats inside K8
   (``ppo/update.py``). ``popart_update``, ``popart_normalize``,
   ``popart_denormalize_plain`` and ``popart_rescale_value_head`` are the
   JAX package's functions in plain PyTorch.
@@ -383,7 +383,8 @@ class PopArtState:
     m2: torch.Tensor
     count: torch.Tensor
     # K15's f64 scratch on a CUDA device (popart_scratch); None on the
-    # CPU. Holds nothing between calls, so a copy of the state shares it.
+    # CPU. Holds only a ticket at 0 between calls, so a copy of the state
+    # shares it.
     scratch: Optional[torch.Tensor] = field(default=None, metadata={"scratch": True})
 
     @staticmethod
@@ -407,15 +408,13 @@ class PopArtState:
 
 
 def popart_scratch(device: torch.device) -> Optional[torch.Tensor]:
-    """K15's f64 scratch on a CUDA ``device``: three block sums per block
-    of the largest grid it launches there; None on the CPU."""
+    """K15's f64 scratch on a CUDA ``device``, zeroed: three block sums per
+    block of the largest grid it launches, then the last-block ticket
+    (which every launch leaves at 0); None on the CPU."""
     if device.type == "cpu":
         return None
-    with torch.cuda.device(device):
-        n = kernels.library().popart_update_scratch_len()
-    if n < 1:
-        raise RuntimeError(f"popart_update_rescale: no resident grid on {device}")
-    return torch.empty(n, dtype=torch.float64, device=device)
+    n = kernels.library().popart_update_scratch_len()
+    return torch.zeros(n, dtype=torch.float64, device=device)
 
 
 def _batch_moments(returns: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -480,8 +479,8 @@ def popart_update_rescale(state: PopArtState, returns: torch.Tensor, valid: torc
     """Merge the batch's valid raw returns ([N] f32, ``valid`` [N] f32)
     into ``state`` and rescale the value head (``kernel`` [H, 1], ``bias``
     [1], views of the parameters' storage) in place. CPU tensors take the
-    plain version; CUDA tensors launch K15 (one cooperative launch, the
-    state's scratch), or raise. Nothing is allocated, so a CUDA graph can
+    plain version; CUDA tensors launch K15 (one launch, the state's
+    scratch and its last-block ticket), or raise. Nothing is allocated, so a CUDA graph can
     capture it."""
     ts = [returns, valid, kernel, bias, state.mean, state.m2, state.count]
     if kernels.on_cpu(*ts):

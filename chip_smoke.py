@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K3, K5, K10, train phases 3, 3d and train steps in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K3, K5, K10, K15, K17, train phases 3, 3d,
+                                         # train steps and the Skull eval chunk in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -55,10 +56,13 @@ exits non-zero without the final result line:
      K14, eval's temperature sampler, on every row at [1, 7], [64, 7],
      [64, 33], [256, 33], [64, 49] and [1024, 49] (the envs' masks,
      temperatures from 0, 0.4, 1 and 1e-3, exact greedy ties required);
-     K17, the eval step's seating and records (``sample_seats`` and
-     ``record_step``), bit for bit at E = 1, 64, 256 and 4096, P = 2 and
-     4, under constant, cutoff and decay schedules with a Random seat,
-     timed at [256, 4];
+     K17, the eval step's seating and records (``step_books``: the seat
+     half alone, both halves in one launch, the record half alone), bit
+     for bit at E = 1, 64, 256 and 4096, P = 2 and 4, under constant,
+     cutoff and decay schedules with a Random seat (also with a seat
+     table of 1680 maps), timed at [256, 4], the fused launch in turns
+     against the two halves launched apart (with --parent, the parent's
+     two passes);
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
      K3, K4, K5, K6, K9, K10 and K13 print their ptxas lines (registers,
@@ -75,11 +79,13 @@ exits non-zero without the final result line:
      two tries) is reported as null, never as 0;
   2a. phase ``popart``: K15, PopArt's update (the masked moments of the
      raw returns, the Welford merge and the value head's rescale, one
-     cooperative launch) against its plain version at the CartPole batch
+     launch with a last-block ticket) against its plain version at the CartPole batch
      [524288] (all valid, head 64) and the vs-pool batch with a quarter of
      its rows invalid (head 512), and one valid sample onto counts 0, 1
      and 2 (the rescale's gate); two calls and two replays of a captured
-     graph bit for bit; timed beside torch.var_mean; K16, the rollout's
+     graph bit for bit; timed beside torch.var_mean, in turns with it on
+     the device clock (with --parent, also with the parent's K15, which
+     must agree to the same tolerance); K16, the rollout's
      denormalisation, bit for bit at [4096] into a step's slice; K8 with
      PopArt's stats and the adaptive entropy controller stepping, at
      [65536, 7] and [65536, 49] with the value clip;
@@ -179,13 +185,15 @@ exits non-zero without the final result line:
   3k. (in a process of its own, with 3l) the eval command through
      cli.main on the card, every stats chunk one CUDA graph replay (``eval.StatsEngine``,
      ``EvalGraph``): Connect Four r4 against r4_mid, greedy, 256 games x
-     64 envs (K4, K7, K14, K17's two passes; each wrapper's launches the
-     graph's captured x replayed plus its warm-up), the game records equal
-     to a CPU run; Skull r4, r4_best, r4_mid and Random, 1024 games x 256
-     envs (K11, K7, K14, K17; valid placements; one chunk graphed and
-     eager in turns: events ms, device ms, idle share; games/s both ways
-     in turns; the kernels counted on the device in one replay against
-     those captured); from one saved carry and generator state, two graph
+     64 envs (K4, K7, K14, K17 65 launches a chunk; each
+     wrapper's launches the graph's captured x replayed plus its warm-up),
+     the game records equal to a CPU run; Skull r4, r4_best, r4_mid and
+     Random, 1024 games x 256 envs (K11, K7, K14, K17; valid placements;
+     one chunk graphed and eager in turns: events ms, device ms, idle
+     share; games/s both ways in turns; the kernels counted on the device
+     in one replay against those captured, K17 65 times); with --parent,
+     that chunk of the parent's tree and this one in turns, each in a
+     process of its own (phase ``eval_chunk_turns``); from one saved carry and generator state, two graph
      replays against two eager chunks bit for bit on the stacked, single,
      per-model (the CTDE towers, and a seeded CNN) and random paths; a
      watched Connect Four and a watched Skull game (eager: the env step
@@ -221,6 +229,16 @@ exits non-zero without the final result line:
      --elapsed-time-offset-ms): the total step reached, one metrics entry
      an update without gap or repeat, each logged by a child on the card,
      the two runs' final model, optimizer and generator bit for bit;
+  3o. phase ``interactive`` (after 3l, in its process): the Skull
+     assistant's server in a thread on gauntlet/skull, its networks on the
+     card, one scripted session through its HTTP API (r4 selected, a
+     four-player game, a skull reveal and its discard, 24 ai_sample moves
+     each after an ai_probs, an undo, then ai_sample moves to the game's
+     end): every ai_probs' full probabilities summing to 1 within 1e-5
+     with zero on every illegal action, the last position equal bit for
+     bit to the plain step's on the same uniform (K11 with its reset
+     off), K11 once per applied move and K6 once per forward, the median
+     ms per route;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps; then the same with
      --normalize-values, printed beside the JAX package's CPU result for
@@ -351,11 +369,11 @@ from burn_ppo_torch.eval import (  # noqa: E402
     ChunkLog,
     EvalGraph,
     TempSchedule,
-    record_step,
-    record_step_plain,
-    sample_seats,
-    sample_seats_plain,
+    Records,
+    Seats,
     seat_maps,
+    step_books,
+    step_books_plain,
 )
 from burn_ppo_torch.schedule import Schedule  # noqa: E402
 from burn_ppo_torch.ppo.pool_rollout import PoolSeating, collect_rollouts_with_opponents  # noqa: E402
@@ -414,8 +432,7 @@ WRAPPERS = {
     "temperature_sample": sample_with_temperature,
     "popart_update": popart_update_rescale,
     "popart_denormalize": popart_denormalize,
-    "sample_seats": sample_seats,
-    "record_step": record_step,
+    "step_books": step_books,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -450,8 +467,7 @@ SOURCES = {
     "popart_update": ("burn_ppo_torch/csrc/popart.cu", "burn_ppo_tpu/ppo/normalization.py:272"),
     "popart_denormalize": ("burn_ppo_torch/csrc/popart.cu",
                            "burn_ppo_tpu/ppo/normalization.py:293"),
-    "sample_seats": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:575"),
-    "record_step": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:586"),
+    "step_books": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:575"),
 }
 
 
@@ -490,16 +506,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int = 10, tries: int = 3) -> tuple:
+def device_ms(fn, reps: int = 10, tries: int = 3, only: str | None = None) -> tuple:
     """Kernel time per call on the card, from the profiler: the CUDA-typed
     events only (a CPU op's device column counts the same kernels again).
     The profiler loses a launch now and then, most often one at the start
     of a profile, so a kernel's sum over ``reps`` calls reads low: each
     kernel counts as the mean of its recorded launches times its launches
     per call, ceil(recorded / reps), which holds while fewer than ``reps``
-    of a kernel's launches are lost. Returns (ms, launches lost), or (None,
-    None) when no profile of ``tries`` recorded a kernel: a reading of 0 is
-    no measurement."""
+    of a kernel's launches are lost. ``only`` counts the kernels whose name
+    holds it and no other (a kernel alone, not the copies that set up its
+    inputs). Returns (ms, launches lost), or (None, None) when no profile
+    of ``tries`` recorded a kernel: a reading of 0 is no measurement."""
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
@@ -508,7 +525,8 @@ def device_ms(fn, reps: int = 10, tries: int = 3) -> tuple:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (only is None or only in e.key)]
         if kernels:
             per_call = [math.ceil(e.count / reps) for e in kernels]
             ms = sum(e.self_device_time_total / e.count * n for e, n in zip(kernels, per_call)) / 1e3
@@ -615,26 +633,31 @@ def ptxas_summary(text: str) -> list:
     return out
 
 
-def turns(new, other, who: str = "parent") -> dict:
+def turns(new, other, who: str = "parent", only: str | None = None,
+          other_only: str | None = None) -> dict:
     """The new kernel and another version (the parent commit's, unless
     ``who`` names another), in turns (other, new, new, other): device and
-    events ms of each reading."""
+    events ms of each reading; ``only`` and ``other_only`` restrict each
+    side's device time to the kernels of that name (``device_ms``)."""
     out: dict = {"device_ms_turns": [], "ms_turns": [], f"{who}_device_ms": [], f"{who}_ms": []}
-    for key, fn in ((f"{who}_", other), ("", new), ("", new), (f"{who}_", other)):
-        out[f"{key}device_ms" if key else "device_ms_turns"].append(device_ms(fn)[0])
+    for key, fn, name in ((f"{who}_", other, other_only), ("", new, only), ("", new, only),
+                          (f"{who}_", other, other_only)):
+        out[f"{key}device_ms" if key else "device_ms_turns"].append(device_ms(fn, only=name)[0])
         out[f"{key}ms" if key else "ms_turns"].append(time_ms(fn))
     return out
 
 
 class ParentKernels:
-    """The parent commit's (cc5c46c) K3, K5 and K10, built from a checkout
-    of it into a library of their own and called as its wrappers called
-    them (the argument checks and the allocations: K3's and K5's outputs
-    per call; K10's one launch with its scratch, made once, and its output
-    per call), so that they are timed beside the new kernels in the same
-    process."""
+    """The parent commit's K3, K5, K10, K15 and K17 (their C entry points
+    as cc5c46c and 05cbb50 have them), built from a checkout of it into a
+    library of their own and called as its wrappers called them (the
+    argument checks and the allocations: K3's and K5's outputs per call;
+    K10's one launch with its scratch, made once, and its output per call;
+    K15's cooperative launch with a scratch of its own, made once; K17's
+    seat and record passes, two launches a step), so that they are timed
+    beside the new kernels in the same process."""
 
-    SOURCES = ("gae.cu", "gae_multiplayer.cu", "episode_stats.cu")
+    SOURCES = ("gae.cu", "gae_multiplayer.cu", "episode_stats.cu", "popart.cu", "eval_step.cu")
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
@@ -646,16 +669,69 @@ class ParentKernels:
         if res.returncode != 0:
             raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
         self.ptxas = ptxas_summary(res.stdout + res.stderr)
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, i, f, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
         self.lib = ctypes.CDLL(str(out))
         for name, argtypes in (("gae_reverse_scan", [vp] * 6 + [i, i, f, f, vp]),
                                ("gae_multiplayer_reverse_scan", [vp] * 7 + [i] * 3 + [f] * 2
                                 + [vp]),
                                ("episode_stats", [vp] * 4 + [i] * 4 + [vp, i, vp, vp]),
-                               ("episode_stats_scratch_len", [])):
+                               ("episode_stats_scratch_len", []),
+                               ("popart_update", [vp, vp, lg] + [vp] * 5 + [i, vp, i, vp]),
+                               ("popart_update_scratch_len", []),
+                               ("eval_sample_seats", [vp, i, i, vp, vp, lg, vp, vp, i] + [f] * 5
+                                + [vp, vp, i, vp]),
+                               ("eval_record_step", [vp] * 5 + [i] + [vp] * 4 + [i, i, vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         self.scratch = None  # K10's, made at its first call, as the parent made it
+        self.popart_scratch = None  # K15's, made at its first call
+
+    def popart_update(self, state, returns, valid, kernel, bias) -> None:
+        """The parent's K15 (one cooperative launch of at most the resident
+        grid, two grid barriers) into ``state`` and the head in place."""
+        N, H = returns.numel(), kernel.numel()
+        kernels.expect(returns, "returns", torch.float32, (N,))
+        kernels.expect(valid, "valid", torch.float32, (N,))
+        kernels.expect(kernel, "kernel", torch.float32, (H, 1))
+        kernels.expect(bias, "bias", torch.float32, (1,))
+        dev = returns.device
+        if self.popart_scratch is None:
+            with torch.cuda.device(dev):
+                n = self.lib.popart_update_scratch_len()
+            self.popart_scratch = torch.empty(n, dtype=torch.float64, device=dev)
+        p = kernels.ptr
+        kernels.check(self.lib.popart_update(
+            p(returns), p(valid), N, p(state.mean), p(state.m2), p(state.count), p(kernel),
+            p(bias), H, p(self.popart_scratch), self.popart_scratch.numel(),
+            kernels.stream(dev)), "parent K15")
+
+    def sample_seats(self, perm_table, perm_idx, player, slot_of_source, move_count, temp, slot,
+                     temps) -> None:
+        """The parent's K17 seat pass, a launch of its own."""
+        n_perms, P = perm_table.shape
+        E = perm_idx.shape[0]
+        kernels.expect(perm_table, "perm_table", torch.int32, (n_perms, P))
+        for t, name in ((perm_idx, "perm_idx"), (move_count, "move_count"), (slot, "slot")):
+            kernels.expect(t, name, torch.int32, (E,))
+        kernels.expect(temps, "temps", torch.float32, (E,))
+        p = kernels.ptr
+        kernels.check(self.lib.eval_sample_seats(
+            p(perm_table), n_perms, P, p(perm_idx), p(player), player.stride(0),
+            p(slot_of_source), p(move_count), *temp.kernel_args(), p(slot), p(temps), E,
+            kernels.stream(perm_idx.device)), "parent K17 seats")
+
+    def record_step(self, log, t, step_log, perm_idx, move_count, n_perms) -> None:
+        """The parent's K17 record pass, a launch of its own."""
+        _, E, P = log.outcome.shape
+        kernels.expect(step_log.completed, "completed", torch.float32, (E,))
+        kernels.expect(perm_idx, "perm_idx", torch.int32, (E,))
+        kernels.expect(move_count, "move_count", torch.int32, (E,))
+        p = kernels.ptr
+        kernels.check(self.lib.eval_record_step(
+            p(step_log.completed), p(step_log.outcome), p(step_log.total_rewards), p(perm_idx),
+            p(move_count), n_perms, p(log.completed[t]), p(log.outcome[t]),
+            p(log.total_rewards[t]), p(log.perm[t]), E, P, kernels.stream(perm_idx.device)),
+            "parent K17 records")
 
     def gae(self, rewards, values, dones, last_values, gamma: float, gae_lambda: float):
         T, E = values.shape
@@ -1084,10 +1160,13 @@ def step_differences(k, p, fields=()) -> list:
 
 def skull_walk(dev, g, n: int, steps: int) -> tuple:
     """K11 against the plain step at every step of a random-legal walk of
-    4096 envs of ``Skull(n)``: every output equal, bit for bit. Before each
-    step 15% of the envs get a forced discard and 0.3% are marked finished;
-    half play with a shaping coefficient of 0.05. Returns (env, the last
-    step's inputs and K11 output, event counts)."""
+    4096 envs of ``Skull(n)``: every output equal, bit for bit, with the
+    reset on and, every fourth step, with it off (a finished env's
+    terminal row kept, as the assistant steps; the finished rows so
+    checked counted). Before each step 15% of the envs get a forced
+    discard and 0.3% are marked finished; half play with a shaping
+    coefficient of 0.05. Returns (env, the last step's inputs and K11
+    output, event counts)."""
     env = Skull(n)
     empty = torch.empty(E, 0, device=dev)
     state = env.reset(empty)
@@ -1095,8 +1174,9 @@ def skull_walk(dev, g, n: int, steps: int) -> tuple:
     acc = EpisodeAccumulator.zero(E, n, dev)
     ev = {"steps": steps, "phase_placing_bidding_revealing": [0, 0, 0], "game_ends": 0,
           "skull_hits": 0, "rose_wins": 0, "eliminations": 0, "invalid_actions": 0,
-          "finished_games_in": 0, "forced_discards_revealing": 0, "full_histories": 0}
-    for _ in range(steps):
+          "finished_games_in": 0, "forced_discards_revealing": 0, "full_histories": 0,
+          "terminal_rows_kept": 0}
+    for step in range(steps):
         fd = torch.randint(0, 2, (E,), generator=g, device=dev, dtype=torch.int32)
         fd = torch.where(torch.rand(E, generator=g, device=dev) < 0.15, fd, -1)
         over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
@@ -1110,9 +1190,16 @@ def skull_walk(dev, g, n: int, steps: int) -> tuple:
         bad = step_differences(k, p, SKULL_FIELDS)
         if bad:
             raise AssertionError(f"skull_step_autoreset P={n}: {bad} differ from plain")
+        bad = step % 4 == 0 and step_differences(
+            env.step_autoreset(state, acc, action, empty, u, reset=False),
+            autoreset_step(env, state, acc, action, empty, u, reset=False), SKULL_FIELDS)
+        if bad:
+            raise AssertionError(f"skull_step_autoreset P={n}, reset off: {bad} differ from "
+                                 "plain")
         legal = torch.gather(mask, 1, action.long().clamp(0, 32)[:, None])[:, 0] > 0
         valid = (action >= 0) & (action < 33) & legal & ~state.game_over
         done = k.done > 0
+        ev["terminal_rows_kept"] += int(done.sum()) if step % 4 == 0 else 0
         for ph in range(3):
             ev["phase_placing_bidding_revealing"][ph] += int((state.phase == ph).sum())
         ev["game_ends"] += int((done & valid).sum())
@@ -1139,7 +1226,7 @@ def check_skull(dev, g) -> tuple:
         walks[n] = skull_walk(dev, g, n, steps)
         out[f"P{n}"] = walks[n][2]
     for key in ("game_ends", "skull_hits", "rose_wins", "eliminations", "invalid_actions",
-                "finished_games_in", "forced_discards_revealing"):
+                "finished_games_in", "forced_discards_revealing", "terminal_rows_kept"):
         if out["P4"][key] == 0:
             raise AssertionError(f"skull_step_autoreset: no {key} in the P=4 walk: {out['P4']}")
     if min(out["P4"]["phase_placing_bidding_revealing"]) == 0 or out["P6"]["full_histories"] == 0:
@@ -3182,7 +3269,10 @@ def popart_leaves(state, kernel, bias) -> list:
     return [state.mean, state.m2, state.count, kernel, bias]
 
 
-def check_popart_update(dev, g) -> dict:
+K15 = "popart_update_kernel"
+
+
+def check_popart_update(dev, g, parent: "ParentKernels | None" = None) -> dict:
     """K15 against its plain version: the CartPole update batch [524288]
     (all valid, head 64), the vs-pool batch with a quarter of its rows
     invalid (head 512, the Liar's Dice CTDE critic's), and the count gate:
@@ -3190,7 +3280,11 @@ def check_popart_update(dev, g) -> dict:
     count of 1, rescaled from 2 on). Stats and head to 1e-6 relative (the
     batch sums in another f64 order); two calls and two replays of a
     captured graph give the same bits; timed from a saved state beside
-    ``torch.var_mean`` of the returns (the moments alone, unmasked)."""
+    ``torch.var_mean`` of the returns (the moments alone, unmasked), and
+    in turns on the device clock with it and, with ``parent``, with the
+    parent's K15 (the same inputs, from the same saved state). Each call
+    first copies the saved state back (five small copies): ``device_ms``
+    counts them, ``kernel_device_ms`` and the turns count K15 alone."""
     out: dict = {"tol": {"stats_rel": 1e-6, "head_rel": 1e-6}, "max_abs_err": 0.0}
     cases = (("cartpole_N524288_H64", 524288, 1e6, 64, 1.0),
              ("pool_N524288_H512_quarter_invalid", 524288, 3e6, 512, 0.75),
@@ -3264,15 +3358,41 @@ def check_popart_update(dev, g) -> dict:
                 t.copy_(s0)
             popart_update_rescale_plain(plain, x, w, pk, pb)
 
+        def var_mean(x=x):
+            torch.var_mean(x)
+
+        def parent_k15(x=x, w=w, plain=plain, pk=pk, pb=pb, start=start):
+            for t, s0 in zip(popart_leaves(plain, pk, pb), start):
+                t.copy_(s0)
+            parent.popart_update(plain, x, w, pk, pb)
+
+        if parent is not None:
+            parent_k15()
+            torch.cuda.synchronize()
+            new()
+            torch.cuda.synchronize()
+            pairs = list(zip(popart_leaves(state, kernel, bias), popart_leaves(plain, pk, pb)))
+            for a, b in pairs:
+                if not bool(torch.all((a - b).abs() <= 1e-6 * b.abs() + 1e-7)):
+                    raise AssertionError(f"popart_update {name}: the parent's K15 differs, max "
+                                         f"abs err {max_err([(a, b)])}")
+            out[name]["parent_turns"] = turns(new, parent_k15, only=K15,
+                                              other_only=K15)
+            out[name]["parent_max_abs_err"] = max_err(pairs)
         H = kernel.numel()
         out[name].update(
-            **timed(new, old), library_ms=time_ms(lambda x=x: torch.var_mean(x)),
+            **timed(new, old), library_ms=time_ms(var_mean),
+            # the kernel alone: ``new`` first restores five leaves (copies)
+            kernel_device_ms=device_ms(new, only=K15)[0],
+            library_device_ms=device_ms(var_mean)[0],
+            library_turns=turns(new, var_mean, "library", only=K15),
             # returns and valid read once, the stats and the head read and
             # written; per element, the f64 sums (w, w x, then x - mean,
             # its square, times w, the sum)
             **bound(x.numel() * 8 + 2 * 12 + 2 * (H + 1) * 4, flops64=7.0 * x.numel()))
     out.update({k: out["cartpole_N524288_H64"][k]
-                for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
+                for k in TIMES + ("kernel_device_ms", "library_ms", "library_device_ms",
+                                  "bound_ms", "bound_by")})
     return out
 
 
@@ -3353,10 +3473,10 @@ def check_ppo_loss_popart_entropy(dev, g) -> dict:
     return out
 
 
-def check_popart(dev, g) -> dict:
+def check_popart(dev, g, parent: "ParentKernels | None" = None) -> dict:
     """Phase ``popart``: K15, K16 and K8 with PopArt and the controller
     against their plain versions."""
-    return {"popart_update": check_popart_update(dev, g),
+    return {"popart_update": check_popart_update(dev, g, parent),
             "popart_denormalize": check_popart_denormalize(dev, g),
             "ppo_loss_popart_entropy": check_ppo_loss_popart_entropy(dev, g)}
 
@@ -3592,77 +3712,140 @@ def eval_step_inputs(dev, g, E: int, P: int) -> dict:
                        active_players=torch.zeros(E, dtype=torch.int32, device=dev)))
 
 
-def seats_call(x: dict, temp: TempSchedule, fn=sample_seats) -> tuple:
-    E = x["perm_idx"].shape[0]
-    slot = torch.full((E,), 99, dtype=torch.int32, device=x["perm_idx"].device)
-    temps = torch.full((E,), -1.0, device=slot.device)
-    fn(x["perm_table"], x["perm_idx"], x["player"], x["slot_of_source"], x["move_count"], temp,
-       slot, temps)
-    return slot, temps
+# K17's launches in a chunk: the seat half alone before the first step,
+# both halves after each step but the last, the record half alone after it.
+K17_HALVES = ("seats", "both", "records")
+K17_DEVICE = {"seats": "sample_seats", "both": "record_and_seat", "records": "record_step"}
 
 
-def record_call(x: dict, fn=record_step) -> list:
+def books_buffers(x: dict) -> dict:
+    """K17's outputs for ``eval_step_inputs``: a two-row log, the counts
+    and permutations copied, the seat and temperature scratch."""
     E, P = x["log"].outcome.shape
-    log = ChunkLog.create(2, E, P, x["done"].device)
-    pi, mc = x["perm_idx"].clone(), x["move_count"].clone()
-    fn(log, 1, x["log"], pi, mc, x["perm_table"].shape[0])
-    return [pi, mc, log.completed, log.outcome, log.total_rewards, log.perm]
+    dev = x["done"].device
+    return dict(log=ChunkLog.create(2, E, P, dev), pi=x["perm_idx"].clone(),
+                mc=x["move_count"].clone(),
+                slot=torch.full((E,), 99, dtype=torch.int32, device=dev),
+                temps=torch.full((E,), -1.0, device=dev))
 
 
-def check_eval_step(dev, g, ptxas: list) -> dict:
-    """K17 against its plain version, every output bit for bit, at E = 1,
-    64, 256 and 4096 and P = 2 and 4, under the constant, cutoff and two
-    decay schedules (moves crossing each cutoff; a Random seat); timed at
-    phase eval (b)'s shape, 256 envs of four players, with the bytes bound
-    of what these inputs need (each perm-table entry and source read
-    once)."""
-    out: dict = {"sample_seats": {"shapes": []}, "record_step": {"shapes": []}}
+def books_call(x: dict, temp: TempSchedule, fn=step_books, halves: str = "both",
+               b: dict | None = None) -> list:
+    """K17 (or its plain version) on ``x``: the seat half alone, the
+    record half alone (row 1 of the log), or both (``K17_HALVES``), into
+    ``b`` (new buffers when None): every output."""
+    b = books_buffers(x) if b is None else b
+    records = None if halves == "seats" else Records(b["log"], 1, x["log"])
+    seats = None if halves == "records" else Seats(x["player"], x["slot_of_source"], temp,
+                                                   b["slot"], b["temps"])
+    fn(x["perm_table"], b["pi"], b["mc"], records, seats)
+    log = b["log"]
+    return [b["pi"], b["mc"], b["slot"], b["temps"], log.completed, log.outcome,
+            log.total_rewards, log.perm]
+
+
+def check_eval_step(dev, g, ptxas: list, parent: "ParentKernels | None" = None) -> dict:
+    """K17 (``step_books``, one C entry) against its plain version, every
+    output bit for bit, at E = 1, 64, 256 and 4096 and P = 2 and 4, under
+    the constant, cutoff and two decay schedules (moves crossing each
+    cutoff; a Random seat), each half alone (a chunk's first and last
+    step) and both in one launch (the records of a step, then the next
+    step's seats), also with a large seat table (8 sources, 1680 seat
+    maps at P = 4). Timed at phase eval (b)'s shape, 256 envs of four
+    players, with the bytes bound of what these inputs need (each
+    perm-table entry and source read once); the fused launch in turns
+    against the two halves launched one after the other, and, with
+    ``parent``, against the parent's two passes."""
+    out: dict = {"shapes": [], "halves": {}}
     for E in (1, 64, 256, 4096):
         for P in (2, 4):
             x = eval_step_inputs(dev, g, E, P)
             random_rows = crossed = 0
             for temp in K17_SCHEDULES:
-                (ks, kt), (ps, pt) = seats_call(x, temp), seats_call(x, temp, sample_seats_plain)
-                torch.cuda.synchronize()
-                if not (torch.equal(ks, ps) and torch.equal(kt, pt)):
-                    raise AssertionError(f"sample_seats [{E}, {P}] {temp}: differs from plain")
-                random_rows = int((ks == -1).sum())
+                for halves in K17_HALVES:
+                    k = books_call(x, temp, halves=halves)
+                    p = books_call(x, temp, step_books_plain, halves)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+                        raise AssertionError(f"step_books ({halves}) [{E}, {P}] {temp}: "
+                                             "differs from plain")
+                    if halves == "seats":
+                        random_rows = int((k[2] == -1).sum())
                 if temp.cutoff is not None:
                     crossed += int((x["move_count"] >= temp.cutoff).sum())
-            k, p = record_call(x), record_call(x, record_step_plain)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(k, p)):
-                raise AssertionError(f"record_step [{E}, {P}]: differs from plain")
-            out["sample_seats"]["shapes"].append({"E": E, "P": P, "random_rows": random_rows,
-                                                  "rows_past_cutoff": crossed})
-            out["record_step"]["shapes"].append({"E": E, "P": P, "done": int(x["done"].sum())})
-    if not sum(c["random_rows"] for c in out["sample_seats"]["shapes"]) or not sum(
-            c["rows_past_cutoff"] for c in out["sample_seats"]["shapes"]):
-        raise AssertionError(f"sample_seats: no Random seat or no move past a cutoff: {out}")
+            out["shapes"].append({"E": E, "P": P, "random_rows": random_rows,
+                                  "rows_past_cutoff": crossed, "done": int(x["done"].sum())})
+    if not sum(c["random_rows"] for c in out["shapes"]) or not sum(
+            c["rows_past_cutoff"] for c in out["shapes"]):
+        raise AssertionError(f"step_books: no Random seat or no move past a cutoff: {out}")
+    # A large seat table: 8 sources in 4 seats.
+    x = eval_step_inputs(dev, g, 256, 4)
+    x["perm_table"] = torch.from_numpy(seat_maps(8, 4)).to(dev)
+    x["perm_idx"] = torch.randint(0, x["perm_table"].shape[0], (256,), generator=g, device=dev,
+                                  dtype=torch.int32)
+    x["slot_of_source"] = torch.tensor([0, -1, 1, 2, -1, 3, 4, 5], dtype=torch.int32, device=dev)
+    for temp in K17_SCHEDULES:
+        for halves in ("seats", "both"):
+            if not all(torch.equal(a, b) for a, b in zip(
+                    books_call(x, temp, halves=halves),
+                    books_call(x, temp, step_books_plain, halves))):
+                raise AssertionError(f"step_books ({halves}), 1680 seat maps, {temp}: differs "
+                                     "from plain")
+    out["large_table"] = {"n_perms": x["perm_table"].shape[0], "P": 4, "bit_for_bit": True}
     E, P = 256, 4
     x = eval_step_inputs(dev, g, E, P)
     temp = K17_SCHEDULES[1]
-    slot, temps = seats_call(x, temp)
     entries = torch.unique(x["perm_idx"].long() * P + x["player"].long()).numel()
     sources = torch.unique(x["perm_table"].flatten()[
         x["perm_idx"].long() * P + x["player"].long()]).numel()
-    seat_bytes = 4 * (5 * E + entries + sources)  # perm_idx, player, moves, slot, temp
-    log = ChunkLog.create(64, E, P, dev)
-    pi, mc = x["perm_idx"].clone(), x["move_count"].clone()
-    n_perms = x["perm_table"].shape[0]
     # reads: completed (the step's done), outcome, totals, perm_idx, moves;
     # writes: the log row's four, perm_idx, moves
     record_bytes = 4 * (3 * E + 2 * E * P) + 4 * (4 * E + 2 * E * P)
-    for name, kernel, plain, nbytes_ in (
-            ("sample_seats", lambda: seats_call(x, temp),
-             lambda: seats_call(x, temp, sample_seats_plain), seat_bytes),
-            ("record_step", lambda: record_step(log, 0, x["log"], pi, mc, n_perms),
-             lambda: record_step_plain(log, 0, x["log"], pi, mc, n_perms),
-             record_bytes)):
-        out[name].update(timed(kernel, plain), **bound(nbytes_), shape=[E, P], max_abs_err=0.0,
-                         tol="exact", library_ms=None, launches_per_chunk=64,
-                         ptxas=kernel_ptxas(ptxas, name))
-    return out
+    nbytes_ = {
+        "seats": 4 * (5 * E + entries + sources),  # perm_idx, player, moves, slot, temp
+        "records": record_bytes,
+        # the records' reads and writes, then the player read and the slot
+        # and temperature written (the counts and permutations stay in
+        # registers)
+        "both": record_bytes + 4 * (3 * E + entries + sources),
+    }
+    bufs = {h: books_buffers(x) for h in K17_HALVES}
+    plain_bufs = {h: books_buffers(x) for h in K17_HALVES}
+    for halves in K17_HALVES:
+        out["halves"][halves] = {
+            "device_kernel": f"{K17_DEVICE[halves]}_kernel",
+            **timed(lambda h=halves: books_call(x, temp, halves=h, b=bufs[h]),
+                    lambda h=halves: books_call(x, temp, step_books_plain, h, plain_bufs[h])),
+            **bound(nbytes_[halves]), "ptxas": kernel_ptxas(ptxas, K17_DEVICE[halves])}
+    both = out["halves"]["both"]
+    out.update({k: both[k] for k in both if k not in ("device_kernel", "ptxas")},
+               shape=[E, P], max_abs_err=0.0, tol="exact", library_ms=None,
+               launches_per_chunk=k17_per_chunk())
+    log = ChunkLog.create(64, E, P, dev)
+    pk = {k: x[k].clone() for k in ("perm_idx", "move_count")}
+    slot_b, temps_b = bufs["seats"]["slot"], bufs["seats"]["temps"]
+
+    def pair(seats=None, record=None):
+        """The parent's order: the records of a step, then the next seat
+        pass, two launches (this tree's halves alone unless given)."""
+        if record is None:
+            step_books(x["perm_table"], pk["perm_idx"], pk["move_count"],
+                       Records(log, 0, x["log"]))
+            step_books(x["perm_table"], pk["perm_idx"], pk["move_count"],
+                       seats=Seats(x["player"], x["slot_of_source"], temp, slot_b, temps_b))
+            return
+        record(log, 0, x["log"], pk["perm_idx"], pk["move_count"], x["perm_table"].shape[0])
+        seats(x["perm_table"], pk["perm_idx"], x["player"], x["slot_of_source"],
+              pk["move_count"], temp, slot_b, temps_b)
+
+    def fused():
+        books_call(x, temp, b=bufs["both"])
+
+    out["pair_turns"] = turns(fused, pair, "pair")
+    if parent is not None:
+        out["parent_turns"] = turns(
+            fused, lambda: pair(parent.sample_seats, parent.record_step))
+    return {"step_books": out}
 
 
 GAUNTLET = ROOT / "gauntlet"
@@ -3673,10 +3856,9 @@ EVAL_KERNELS = {
     "skull_step_autoreset": "skull_step_autoreset_kernel",
     "opponent_actor_forward": "opponent_mlp_kernel",
     "temperature_sample": "temperature_sample_kernel",
-    "sample_seats": "sample_seats_kernel",
-    "record_step": "record_step_kernel",
+    # K17's three kernels, one a kind of launch (csrc/eval_step.cu)
+    "step_books": "(?:sample_seats|record_and_seat|record_step)_kernel",
 }
-K17 = ("sample_seats", "record_step")
 
 
 def front_end_run(argv: list, expect: set) -> dict:
@@ -3726,11 +3908,19 @@ def front_end_run(argv: list, expect: set) -> dict:
             "graph_captures": EvalGraph.captures, "graph_replays": EvalGraph.replays}
 
 
+def k17_per_chunk(steps: int = 64) -> int:
+    """K17's launches in a chunk of ``steps``: the seat half before the
+    first step, both halves after each step but the last, the record half
+    after the last (steps + 1 in all)."""
+    return steps + 1
+
+
 def check_chunk_launches(name: str, run: dict, step_kernel: str, steps_per_chunk: int = 64):
-    """A stats run's main path: one graph replay a chunk, K17's two passes,
-    K14 and the env step once a step of each replayed chunk."""
+    """A stats run's main path: one graph replay a chunk, K14 and the env
+    step once a step of each replayed chunk, K17 steps + 1 times a chunk."""
     m, chunks = run["main_path"], run["graph_replays"]
-    want = {k: chunks * steps_per_chunk for k in (step_kernel, "temperature_sample", *K17)}
+    want = {k: chunks * steps_per_chunk for k in (step_kernel, "temperature_sample")}
+    want["step_books"] = chunks * k17_per_chunk(steps_per_chunk)
     if {k: m.get(k) for k in want} != want or chunks < 1:
         raise AssertionError(f"{name}: main-path launches {m}, {chunks} replays: want {want}")
 
@@ -3753,11 +3943,11 @@ def first_divergence(sources_gpu, sources_cpu, temp, num_envs: int, steps: int) 
                                (sources_cpu, torch.device("cpu")))]
     carries = [e.carry for e in engines]
     with torch.no_grad():
+        for e, c in zip(engines, carries):
+            e.seat(c)
         for t in range(steps):
             picks = []
             for e, c in zip(engines, carries):
-                sample_seats(e.perm_table, c.perm_idx, env.current_player_view(c.states),
-                             e.logits.slot_of_source, c.move_count, e.temp, e.slot, e.temps)
                 logits = e.logits.forward_slots(c.obs, e.slot)
                 half = torch.full_like(logits, 0.5)
                 picks.append((apply_action_mask(logits, c.mask).cpu(),
@@ -3769,7 +3959,7 @@ def first_divergence(sources_gpu, sources_cpu, temp, num_envs: int, steps: int) 
                 scale = float(picks[1][0][r].abs().max())
                 return {"step": t, "row": r, "top_two_gap": float(top[0] - top[1]),
                         "k7_tol": 2 * (1e-4 + 1e-4 * scale)}
-            carries = [e.step(c, 0) for e, c in zip(engines, carries)]
+            carries = [e.step(c, 0) for e, c in zip(engines, carries)]  # seats the next step
     return {"step": None}
 
 
@@ -3857,8 +4047,8 @@ def chunk_turns(engine, reps: int = 2) -> dict:
 
 def chunk_bound(engine) -> dict:
     """The least time of one stacked-model chunk, as row B8's rollout bound:
-    each step's kernels' bounds (the env step, the uniforms, K14, K17's two
-    passes) plus the actor forwards of the rows a model plays (K7's
+    each step's kernels' bounds (the env step, the uniforms, K14, K17's
+    fused pass) plus the actor forwards of the rows a model plays (K7's
     towers) at the f32 rate, all from one step of this engine's carry
     (its seats, temperatures and env state), times its steps."""
     env, c, E = engine.env, engine.carry, engine.num_envs
@@ -3866,9 +4056,7 @@ def chunk_bound(engine) -> dict:
     stack = engine.logits.stack
     rng = TorchRandomSource(torch.Generator(device=dev).manual_seed(0))
     with torch.no_grad():
-        sample_seats(engine.perm_table, c.perm_idx, env.current_player_view(c.states),
-                     engine.logits.slot_of_source, c.move_count, engine.temp, engine.slot,
-                     engine.temps)
+        engine.seat(c)
         rows, sampled = int((engine.slot >= 0).sum()), int((engine.temps > 0).sum())
         action = torch.argmax(c.mask, 1).to(torch.int32)
         u = env.draw_step(rng, E)
@@ -3880,8 +4068,9 @@ def chunk_bound(engine) -> dict:
         "uniforms": bound(4 * E * A)["bound_ms"],
         # the logits, mask and uniforms of the sampled rows, the actions
         "temperature_sample": bound(4 * (3 * sampled * A + E))["bound_ms"],
-        "sample_seats": bound(4 * (5 * E + 2 * E))["bound_ms"],
-        "record_step": bound(4 * (7 * E + 4 * E * P))["bound_ms"],
+        # the records' reads and writes and the seats' player, slot and
+        # temperature (the tables' few entries left out)
+        "step_books": bound(4 * (7 * E + 4 * E * P) + 4 * 3 * E)["bound_ms"],
     }
     flops = rows * sum(2.0 * w.shape[1] * w.shape[2] for w in stack.weights)
     kernels_ms = sum(per_step.values()) * engine.chunk_steps
@@ -3917,8 +4106,9 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     """Phase ``eval`` (a process of its own, with phase ``tournament``):
     the eval command through ``cli.main`` on the card, every chunk one
     CUDA graph replay. (a)
-    Connect Four r4 against r4_mid, greedy, 256 games x 64 envs: K4, K7,
-    K14 and K17's two passes, each once a step of every replayed chunk;
+    Connect Four r4 against r4_mid, greedy, 256 games x 64 envs: K4, K7
+    and K14 once a step of every replayed chunk, K17 once a step and once
+    more;
     the game records equal to the port's CPU run of the same command
     (every game is deterministic). (b) Skull r4, r4_best and r4_mid (CTDE
     512x2 tanh, obs norm: three stacked K7 slots) and Random, 1024 games x
@@ -3950,7 +4140,7 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     run = front_end_run(["eval", "-c", str(c4[0]), "-c", str(c4[1]), *C4_GREEDY, "-n", "256",
                          "--num-envs", "64", "--seed", "0"],
                         {"connect_four_step_autoreset", "opponent_actor_forward",
-                         "temperature_sample", *K17})
+                         "temperature_sample", "step_books"})
     (gpu,) = run["stats"]
     check_chunk_launches("eval (a)", run, "connect_four_step_autoreset")
     L, steps = run["launches"], run["main_path"]["temperature_sample"]
@@ -3983,7 +4173,7 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     argv = ["eval", *[x for p in skull for x in ("-c", str(p))], "--random", "-n", "1024",
             "--num-envs", "256", "--seed", "0"]
     run = front_end_run(argv, {"skull_step_autoreset", "opponent_actor_forward",
-                               "temperature_sample", *K17})
+                               "temperature_sample", "step_books"})
     (st,) = run["stats"]
     check_chunk_launches("eval (b)", run, "skull_step_autoreset")
     L = run["launches"]
@@ -3998,6 +4188,10 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     engine = ev.StatsEngine(env, sources, 256, ev.default_temp(env), ev.random_source(1, dev), dev)
     chunk = chunk_turns(engine)
     counts = replay_kernel_counts(engine.graph, EVAL_KERNELS)
+    k17 = counts["counts"]["step_books"][0]
+    if k17 != k17_per_chunk():
+        raise AssertionError(f"eval (b): K17 in one replay {k17}, want {k17_per_chunk()}")
+    chunk["k17_launches_in_one_replay"] = k17
     chunk["bound"] = chunk_bound(engine)
     out["skull_three_models_and_random"] = {
         "games": st.total_games, "steps": run["main_path"]["temperature_sample"],
@@ -4141,6 +4335,17 @@ def gauntlet_entries(env_name: str) -> list:
     return sorted(p for p in env_dir.iterdir() if p.is_dir() and (p / "model.npz").exists())
 
 
+# Each gauntlet entry's (rating, sigma) under seed 0 as the parent tree
+# (05cbb50) rated it: the seat passes and records of K17 changed order and
+# launches, not the games, so seed 0 must give these again.
+PARENT_SEED0_RATINGS = {
+    "connect_four": {"r4": (1802.0, 63.9), "r4_best": (1550.8, 51.3), "r4_mid": (1297.1, 40.4)},
+    "skull": {"r4": (1366.3, 28.3), "r4_best": (1365.6, 28.4), "r4_flagship": (1366.1, 28.4),
+              "r4_flagship_best": (1376.3, 28.5), "r4_mid": (1345.7, 28.4)},
+    "liars_dice": {"r4": (1529.2, 58.5), "r4_best": (1534.1, 58.7), "r4_mid": (1498.2, 58.1)},
+}
+
+
 def gauntlet_ratings(env_name: str, res: dict, seed: int) -> list:
     """Each entry's rating beside JAX's ``ratings_r4.json``: above Random by
     more than 2 of its own sigma, and within 4 combined sigma of JAX's."""
@@ -4258,7 +4463,8 @@ def tournament_phase(tmp: Path, card_line: str) -> dict:
     256x3 relu without: both must occur). Then a cached pod against a
     fresh engine of its seed, bit for bit, and each gauntlet's seconds
     with the cache and graphs against an engine a pod run eagerly,
-    in turns."""
+    in turns. Under seed 0 every rating and sigma is the parent tree's
+    (``PARENT_SEED0_RATINGS``): the same games."""
     out: dict = {"card": card_line}
     t_phase = time.time()
     dev = resolve_device("cuda")
@@ -4272,7 +4478,7 @@ def tournament_phase(tmp: Path, card_line: str) -> dict:
             argv = (["tournament", *map(str, gauntlet_entries(env_name)), "--random", "-n",
                      str(games), "--num-envs", "64", "--seed", str(seed), "-o", str(res_path)]
                     + (["--players", str(players)] if players else []))
-            run = front_end_run(argv, {step_kernel, "temperature_sample", *K17,
+            run = front_end_run(argv, {step_kernel, "temperature_sample", "step_books",
                                        *TOURNAMENT_KERNELS[env_name]})
             res = json.loads(res_path.read_text())
             check_chunk_launches(f"tournament {env_name}", run, step_kernel)
@@ -4284,6 +4490,10 @@ def tournament_phase(tmp: Path, card_line: str) -> dict:
             for name, n in run["launches"].items():
                 launches_total[name] += n
             table = gauntlet_ratings(env_name, res, seed)
+            if seed == 0 and {e["name"]: (e["rating"], e["sigma"]) for e in table} != (
+                    PARENT_SEED0_RATINGS[env_name]):
+                raise AssertionError(f"tournament {env_name} seed 0: ratings {table} are not the "
+                                     f"parent tree's {PARENT_SEED0_RATINGS[env_name]}")
             out[env_name][f"seed_{seed}"] = {
                 "seconds": run["wall_s"], "pods": len(res["pods"]),
                 "pods_by_logits": dict(Counter(p["logits"] for p in res["pods"])),
@@ -4306,9 +4516,262 @@ def tournament_phase(tmp: Path, card_line: str) -> dict:
 
 
 def front_end_phases(tmp: Path, card_line: str) -> dict:
-    """Phases ``eval`` and ``tournament``, one after the other in one
-    process (each starts its counters at 0)."""
-    return {"eval": eval_phase(tmp, card_line), "tournament": tournament_phase(tmp, card_line)}
+    """Phases ``eval``, ``tournament`` and ``interactive``, one after the
+    other in one process (each starts its counters at 0)."""
+    return {"eval": eval_phase(tmp, card_line), "tournament": tournament_phase(tmp, card_line),
+            "interactive": interactive_phase(tmp, card_line)}
+
+
+INTERACTIVE_SAMPLES = 24  # ai_sample moves of the scripted session
+INTERACTIVE_END_MOVES = 600  # then ai_sample moves until the game ends, at most
+# A four-player skull reveal: P0 places its skull, P1-P3 a rose each, P0
+# bids 4 (every card on the table: straight to revealing) and must reveal
+# its own stack first, its skull.
+SKULL_REVEAL = (0, 1, 1, 1, 5, 27)
+
+
+def interactive_terminal_check(sess, state, drawn, label: str, discard: int) -> dict:
+    """The assistant's position after the move that ended its game (one
+    K11 launch with the reset off) against the plain Skull step of the
+    position before it on the CPU, with the same uniform (the session's
+    generator put back to its state before the move) and the chosen
+    discard: the state, obs and mask equal bit for bit, no legal action."""
+    from burn_ppo_torch.interactive import _with_discard
+
+    env = sess.env
+    action = {env.describe_action(a): a for a in range(env.spec.num_actions)}[label]
+    g = torch.Generator(device=sess.device)
+    g.set_state(drawn)
+    u = env.draw_step(TorchRandomSource(g), 1).cpu()
+    before = _with_discard(state, discard)
+    before = SkullState(before.ints.cpu(), before.shaping_coef.cpu())
+    stepped, _, done = env.step(before, torch.tensor([action], dtype=torch.int32), u)
+    plain = _with_discard(stepped, -1)
+    pos = sess.pos
+    pairs = {"ints": (pos.state.ints, plain.ints),
+             "shaping_coef": (pos.state.shaping_coef, plain.shaping_coef),
+             "obs": (pos.obs, env.obs(plain)), "mask": (pos.mask, env.action_mask(plain))}
+    bad = [k for k, (a, b) in pairs.items() if not torch.equal(a.cpu(), b)]
+    if bad or not bool(done[0]) or bool(pos.mask.any()) or not bool(pos.state.game_over[0]):
+        raise AssertionError(f"interactive: the terminal position differs from the plain step's "
+                             f"({bad}, done {bool(done[0])})")
+    return {"action": label, "discard": discard, "winner": int(pos.state.winner[0]),
+            "tol": "exact"}
+
+
+def interactive_phase(tmp: Path, card_line: str) -> dict:
+    """Phase ``interactive`` (in the front ends' process): the Skull
+    assistant's server (``burn_ppo_torch.interactive``) in a thread on
+    ``gauntlet/skull``, its networks on the card, every launch counter at
+    0 before and read after. One scripted session through the HTTP API:
+    the page, the networks, r4 selected, a four-player game, a skull
+    reveal and its discard, then ``INTERACTIVE_SAMPLES`` ``ai_sample``
+    moves each after an ``ai_probs`` (a new game when one ends; every
+    skull reveal's discard chosen), an undo back to the position before
+    the last move, the history, then ``ai_sample`` moves until the game
+    ends, whose last position must be the plain step's
+    (``interactive_terminal_check``). Every ``ai_probs``: the network's full
+    probabilities on the card sum to 1 within 1e-5, zero on every illegal
+    action, and the listed ones legal and equal to them. K11 once per
+    applied move, K6 once per forward. The median ms of each route."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from burn_ppo_torch.interactive import InteractiveApp, make_handler
+
+    dev = resolve_device("cuda")
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.time()
+    app = InteractiveApp([GAUNTLET / "skull"], device=dev)
+    load_s = time.time() - t0
+    names = [n["name"] for n in app.networks]
+    net = app.networks[names.index("r4")]["source"]
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(app))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    times: dict = {}
+    sid = "chip-smoke"
+
+    def call(path: str, body=None):
+        req = urllib.request.Request(
+            base + path, data=None if body is None else json.dumps(body).encode(),
+            headers={"x-session-id": sid, "content-type": "application/json"},
+            method="GET" if body is None else "POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as r:
+            raw = r.read()
+        times.setdefault(path, []).append((time.perf_counter() - t) * 1e3)
+        return raw if path == "/" else json.loads(raw)
+
+    forwards = applied = discards = games = samples = 0
+    last_discard = -1
+    worst = 0.0
+    try:
+        if b"Skull Assistant" not in call("/"):
+            raise AssertionError("interactive: the page is not the assistant's")
+        if sorted(call("/api/networks")["networks"]) != sorted(names):
+            raise AssertionError(f"interactive: networks {names}")
+        call("/api/select_network", {"index": names.index("r4")})
+        call("/api/new_game", {"num_players": 4, "ai_seat": 0})
+        games += 1
+        sess = app.sessions[sid]
+
+        def discard(r):
+            nonlocal discards, applied, last_discard
+            last_discard = -1
+            if not r.get("pending_discard"):
+                applied += bool(r.get("ok"))
+                return r
+            me = call("/api/game_state")["players"][r["bidder"]]
+            last_discard = 1 if me["roses"] else 0
+            r = call("/api/execute_discard", {"choice": "rose" if me["roses"] else "skull"})
+            discards += 1
+            applied += 1
+            return r
+
+        for a in SKULL_REVEAL:
+            r = call("/api/execute_action", {"action": a})
+            if "error" in r:
+                raise AssertionError(f"interactive: scripted move {a}: {r}")
+        if not r.get("pending_discard"):
+            raise AssertionError(f"interactive: the scripted reveal asked no discard: {r}")
+        applied += len(SKULL_REVEAL) - 1
+        discard(r)
+        before_last = None
+        while samples < INTERACTIVE_SAMPLES:
+            state = call("/api/game_state")
+            if state["game_over"]:
+                call("/api/new_game", {"num_players": 4, "ai_seat": samples % 4})
+                games += 1
+                continue
+            listed = call("/api/ai_probs", {})["probs"]
+            full = np.asarray(app._model_probs(sess))
+            forwards += 2
+            mask = sess.pos.mask[0].cpu().numpy() > 0
+            err = abs(float(full.sum()) - 1.0)
+            worst = max(worst, err)
+            if err > 1e-5 or (full[~mask] != 0).any():
+                raise AssertionError(f"interactive: probabilities sum {full.sum()}, illegal "
+                                     f"{full[~mask].max()}")
+            if not all(mask[p["action"]] and abs(p["prob"] - float(full[p["action"]])) <= 1e-6
+                       for p in listed):
+                raise AssertionError(f"interactive: listed {listed} against {full}")
+            before_last = state
+            r = discard(call("/api/ai_sample", {}))
+            forwards += 1
+            if "error" in r:
+                raise AssertionError(f"interactive: ai_sample: {r}")
+            samples += 1
+        if not call("/api/undo", {})["ok"]:
+            raise AssertionError("interactive: undo refused")
+        after = call("/api/game_state")
+        if {k: v for k, v in after.items() if k != "can_undo"} != {
+                k: v for k, v in before_last.items() if k != "can_undo"}:
+            raise AssertionError("interactive: undo did not restore the position before the "
+                                 "last move")
+        history = call("/api/history")["history"]
+        # Then AI moves until the game ends, the position before each move
+        # and the generator's state kept.
+        end = None
+        for _ in range(INTERACTIVE_END_MOVES):
+            before = (sess.pos.state, sess.generator.get_state())
+            r = discard(call("/api/ai_sample", {}))
+            forwards += 1
+            if "error" in r:
+                raise AssertionError(f"interactive: ai_sample towards the end: {r}")
+            if r["state"]["game_over"]:
+                end = (*before, sess.action_history[-1]["action"], last_discard)
+                break
+        if end is None:
+            raise AssertionError(f"interactive: no game end in {INTERACTIVE_END_MOVES} moves")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=10)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items() if w.launches}
+    want = {"skull_step_autoreset": applied, "obs_norm_apply": forwards}
+    if launches != want:
+        raise AssertionError(f"interactive: launches {launches}, want {want}")
+    terminal = interactive_terminal_check(sess, *end)
+    on_card = next(net.network.parameters()).device.type == "cuda" and (
+        net.obs_norm is None or net.obs_norm.mean.device.type == "cuda")
+    if not on_card or discards < 2:
+        raise AssertionError(f"interactive: network on the card {on_card}, {discards} discards")
+    route_ms = {k: float(np.median(v)) for k, v in times.items()}
+    return {"card": card_line, "networks": names, "selected": "r4", "network_on_cuda": on_card,
+            "load_s": load_s, "games": games, "ai_samples": samples, "moves_applied": applied,
+            "terminal_equals_plain": terminal,
+            "discards": discards, "forwards": forwards, "history_entries": len(history),
+            "probs_sum_max_err": worst, "launches": launches, "route_median_ms": route_ms,
+            "route_calls": {k: len(v) for k, v in times.items()},
+            "seconds": time.time() - t0,
+            "launches_total": {name: launches.get(name, 0) for name in WRAPPERS}}
+
+
+CHUNK_TURN = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+from pathlib import Path
+import burn_ppo_torch.eval as ev
+from burn_ppo_torch.device import resolve_device
+from burn_ppo_torch.envs import make_env
+
+dev = resolve_device("cuda")
+g = Path("gauntlet") / "skull"
+sources = ([ev.PlayerSource.checkpoint(g / n, dev) for n in ("r4", "r4_best", "r4_mid")]
+           + [ev.PlayerSource.random()])
+env = make_env("skull")
+engine = ev.StatsEngine(env, sources, 256, ev.default_temp(env), ev.random_source(1, dev), dev)
+engine.run_chunk()
+torch.cuda.synchronize()
+events = []
+for _ in range(9):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    engine.run_chunk()
+    end.record()
+    end.synchronize()
+    events.append(start.elapsed_time(end))
+act = torch.profiler.ProfilerActivity
+with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    engine.run_chunk()
+    torch.cuda.synchronize()
+cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+busy = sum(e.self_device_time_total for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+k17 = {k: sum(1 for e in cuda if k in e.name)
+       for k in ("sample_seats_kernel", "record_step_kernel", "record_and_seat_kernel")}
+med = sorted(events)[len(events) // 2]
+print(json.dumps({"events_ms": events, "events_ms_median": med, "device_ms": busy,
+                  "idle_share": 1.0 - busy / med, "k17_launches": k17}))
+"""
+
+
+def chunk_tree_turns(parent_dir: Path) -> dict:
+    """The Skull eval chunk of phase eval (b) (256 envs, r4, r4_best,
+    r4_mid and Random, a graph replay) of the parent's tree and this one,
+    in turns (parent, this, this, parent), each in a process of its own:
+    the events ms of nine replays, one profiled replay's device busy ms
+    and idle share, K17's launches in it by name."""
+    out: dict = {}
+    for key, tree in (("parent", parent_dir), ("this", ROOT), ("this", ROOT),
+                      ("parent", parent_dir)):
+        res = subprocess.run([sys.executable, "-c", CHUNK_TURN], cwd=tree, capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"chunk turn in {tree} exited {res.returncode}:\n"
+                               f"{res.stderr[-4000:]}")
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        for name in ("events_ms_median", "device_ms", "idle_share", "k17_launches"):
+            out.setdefault(f"{key}_{name}", []).append(run[name])
+    if any(sum(k.values()) != 65 for k in out["this_k17_launches"]):
+        raise AssertionError(f"chunk turns: this tree's K17 launches {out['this_k17_launches']}")
+    return out
 
 
 SUPERVISED_STEPS = 4096  # configs/cartpole.toml: 32 envs x 128 steps, an update a checkpoint
@@ -4388,9 +4851,10 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K5 and K10 are built "
-                         "from it and timed in turns with this tree's, and so are its CartPole "
-                         "and Connect Four vs-pool train phases")
+                    help="a checkout of the parent commit: its K3, K5, K10, K15 and K17 are "
+                         "built from it and timed in turns with this tree's, and so are its "
+                         "CartPole and Connect Four vs-pool train phases and its Skull eval "
+                         "chunk")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
@@ -4405,8 +4869,9 @@ def main(argv: list) -> int:
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    # ParentKernels binds cc5c46c's entry points; a parent whose kernel
-    # sources are this tree's has nothing to time against them.
+    # ParentKernels binds the entry points as cc5c46c and 05cbb50 have
+    # them; a parent whose kernel sources are this tree's has nothing to
+    # time against them.
     parent = None
     if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
         parent = ParentKernels(args.parent.resolve())
@@ -4461,10 +4926,10 @@ def main(argv: list) -> int:
     checks["temperature_sample"] = check_temperature_sample(
         dev, g14, ConnectFour().action_mask(c4_state), skull_mask, ld_mask, ptxas)
     # K17, the eval step's seating and records, on a generator of its own.
-    checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas))
+    checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas, parent))
     # Phase popart: K15, K16 and K8 with PopArt and the controller, on a
     # generator of their own.
-    popart = check_popart(dev, torch.Generator(device=dev).manual_seed(16))
+    popart = check_popart(dev, torch.Generator(device=dev).manual_seed(16), parent)
     for name in ("popart_update", "popart_denormalize"):
         checks[name] = popart[name]
     popart["ptxas"] = [ln for ln in ptxas if ln.startswith("popart_")]
@@ -4521,7 +4986,7 @@ def main(argv: list) -> int:
         emit("supervisor", **supervisor_finish(supervised, card_line))
         # The front ends, through cli.main, in one process of their own.
         front = phase_in_process(ROOT, "front_end_phases")
-        front = {"eval": front["eval"], "tournament": front["tournament"]}
+        front = {k: front[k] for k in ("eval", "tournament", "interactive")}
         watched = front["eval"]["watch"]["connect_four"]
         print("\n".join(["watched connect_four game:"] + watched["move_lines"]
                          + watched["final"]), flush=True)
@@ -4534,8 +4999,13 @@ def main(argv: list) -> int:
                       + "; ".join(f"{e['name']} {e['rating']:.1f}±{e['sigma']:.1f} (JAX "
                                   f"{e['jax_rating']:.1f}±{e['jax_sigma']:.1f})"
                                   for e in t["ratings"]), flush=True)
+        print("interactive routes, median ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in front["interactive"]["route_median_ms"].items()),
+            flush=True)
         for phase, res in front.items():
             emit(phase, **res)
+        if args.parent is not None:
+            emit("eval_chunk_turns", card=card_line, **chunk_tree_turns(args.parent.resolve()))
         if args.parent is not None:
             for name, phase in (("bench_train_turns", "bench_train"),
                                 ("bench_selfplay_pool_turns", "selfplay_pool_train")):

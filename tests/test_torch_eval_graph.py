@@ -85,9 +85,10 @@ def test_seat_pass_matches_jax_seat_lookup(env_name, paths, random_at):
     columns[:, 3] = torch.from_numpy(players)
     logits = ev.ActingLogits(env, ts, CPU)
     slot, temps = torch.full((E,), 99, dtype=torch.int32), torch.zeros(E)
-    ev.sample_seats(torch.from_numpy(perms), torch.from_numpy(perm_idx), columns[:, 3],
-                    logits.slot_of_source, torch.zeros(E, dtype=torch.int32),
-                    ev.TempSchedule(initial=0.5), slot, temps)
+    ev.step_books(torch.from_numpy(perms), torch.from_numpy(perm_idx),
+                  torch.zeros(E, dtype=torch.int32),
+                  seats=ev.Seats(columns[:, 3], logits.slot_of_source,
+                                 ev.TempSchedule(initial=0.5), slot, temps))
     np.testing.assert_array_equal(slot.numpy(), want)
     assert set(want) >= ({-1} if random_at else set()) | {0, 1}
     assert (temps.numpy() == np.float32(0.5)).all()
@@ -96,9 +97,10 @@ def test_seat_pass_matches_jax_seat_lookup(env_name, paths, random_at):
 def test_seat_pass_without_a_player_column_seats_player_0():
     perm_table = torch.tensor([[2], [0], [1]], dtype=torch.int32)
     slot, temps = torch.zeros(4, dtype=torch.int32), torch.zeros(4)
-    ev.sample_seats(perm_table, torch.tensor([0, 1, 2, 0], dtype=torch.int32), None,
-                    torch.tensor([5, -1, 7], dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
-                    ev.TempSchedule(initial=1.0), slot, temps)
+    ev.step_books(perm_table, torch.tensor([0, 1, 2, 0], dtype=torch.int32),
+                  torch.zeros(4, dtype=torch.int32),
+                  seats=ev.Seats(None, torch.tensor([5, -1, 7], dtype=torch.int32),
+                                 ev.TempSchedule(initial=1.0), slot, temps))
     assert slot.tolist() == [7, 5, -1, 7]
 
 
@@ -111,9 +113,11 @@ def test_seat_pass_temperatures_match_jax_jitted_get_temp(schedule):
     E = moves.shape[0]
     want = np.asarray(jax.jit(jev.TempSchedule(**schedule).get_temp)(jnp.asarray(moves)))
     temps = torch.full((E,), -1.0)
-    ev.sample_seats(torch.zeros(1, 1, dtype=torch.int32), torch.zeros(E, dtype=torch.int32), None,
-                    torch.zeros(1, dtype=torch.int32), torch.from_numpy(moves),
-                    ev.TempSchedule(**schedule), torch.zeros(E, dtype=torch.int32), temps)
+    ev.step_books(torch.zeros(1, 1, dtype=torch.int32), torch.zeros(E, dtype=torch.int32),
+                  torch.from_numpy(moves),
+                  seats=ev.Seats(None, torch.zeros(1, dtype=torch.int32),
+                                 ev.TempSchedule(**schedule), torch.zeros(E, dtype=torch.int32),
+                                 temps))
     np.testing.assert_array_equal(temps.numpy(), want)
     if schedule.get("decay"):
         assert len(np.unique(want)) > cutoff // 2  # the ramp is taken
@@ -146,6 +150,85 @@ def test_kernel_arguments_give_get_temp_bit_for_bit(schedule):
                                   t.get_temp(torch.from_numpy(moves)).numpy())
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES[1:4])
+def test_fused_pass_matches_jax_advance_then_the_next_steps_seats(schedule):
+    """K17's fused pass (the records of step t, then the seats of t + 1) on
+    the CPU: row t, the advance, and the next step's slot and temperature
+    as JAX's step_fn forms them in its next iteration (the advanced
+    permutation and move count, the stepped state's player, the jitted
+    get_temp), exact; and equal to the record half alone, then the seat
+    half alone."""
+    rng = np.random.default_rng(18)
+    T, E, P = 4, 301, 4
+    perms = ev.seat_maps(5, P)
+    n_perms = len(perms)
+    slot_of_source = np.array([0, -1, 1, 2, 3], dtype=np.int32)
+    move = rng.integers(0, 2 * 30, E).astype(np.int32)
+    perm_idx = rng.integers(0, n_perms, E).astype(np.int32)
+    done = (rng.random(E) < 0.3).astype(np.float32)
+    outcome = rng.integers(0, 5, (E, P)).astype(np.int32)
+    totals = rng.normal(size=(E, P)).astype(np.float32)
+    columns = rng.integers(0, P, (E, 7)).astype(np.int32)
+    jd = jnp.asarray(done) > 0
+    new_move = jnp.where(jd, 0, jnp.asarray(move) + 1)
+    new_perm = jnp.where(jd, (jnp.asarray(perm_idx) + 1) % n_perms, jnp.asarray(perm_idx))
+    acting = np.asarray(jnp.asarray(perms)[new_perm, jnp.asarray(columns[:, 2])])
+    want_slot = slot_of_source[acting]
+    want_temp = np.asarray(jax.jit(jev.TempSchedule(**schedule).get_temp)(new_move))
+    temp = ev.TempSchedule(**schedule)
+    step_log = EpisodeLog(completed=torch.from_numpy(done), total_rewards=torch.from_numpy(totals),
+                          length=torch.zeros(E, dtype=torch.int32),
+                          outcome=torch.from_numpy(outcome),
+                          active_players=torch.zeros(E, dtype=torch.int32))
+    outs = []
+    for fused in (True, False):
+        log = ev.ChunkLog.create(T, E, P, CPU)
+        mc, pi = torch.from_numpy(move.copy()), torch.from_numpy(perm_idx.copy())
+        slot, temps = torch.full((E,), 99, dtype=torch.int32), torch.full((E,), -1.0)
+        table, player = torch.from_numpy(perms), torch.from_numpy(columns)[:, 2]
+        sources = torch.from_numpy(slot_of_source)
+        records = ev.Records(log, 2, step_log)
+        seats = ev.Seats(player, sources, temp, slot, temps)
+        if fused:
+            ev.step_books(table, pi, mc, records, seats)
+        else:
+            ev.step_books(table, pi, mc, records=records)
+            ev.step_books(table, pi, mc, seats=seats)
+        outs.append([x.clone() for x in (mc, pi, slot, temps, *state_leaves(log))])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    mc, pi, slot, temps = outs[0][:4]
+    np.testing.assert_array_equal(mc.numpy(), np.asarray(new_move))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(new_perm))
+    np.testing.assert_array_equal(slot.numpy(), want_slot)
+    np.testing.assert_array_equal(temps.numpy(), want_temp)
+    np.testing.assert_array_equal(outs[0][4 + 3][2].numpy(), perm_idx)  # the log's perm row
+    assert (want_slot == -1).any() and (np.asarray(new_move) >= temp.cutoff).any()
+
+
+def test_a_chunk_runs_the_seat_pass_once_the_fused_pass_t_minus_1_times_and_the_record_pass_once(
+        monkeypatch):
+    """The engine's chunk of T steps: K17's seat pass before the first
+    step, the fused pass after each step but the last, the record pass
+    after the last (T + 1 launches on a card)."""
+    calls = []
+    real = ev.step_books
+
+    def books(*a, **k):
+        halves = dict(zip(("records", "seats"), a[3:]), **k)
+        calls.append({(True, True): "record_and_seat", (True, False): "record_step",
+                      (False, True): "sample_seats"}[
+            (halves.get("records") is not None, halves.get("seats") is not None)])
+        return real(*a, **k)
+
+    monkeypatch.setattr(ev, "step_books", books)
+    env = make_env("connect_four")
+    engine = ev.StatsEngine(env, [ev.PlayerSource.random()] * 2, 8, ev.default_temp(env),
+                            ev.random_source(0, CPU), CPU, chunk_steps=5)
+    engine.eager_chunk()
+    assert calls == ["sample_seats"] + ["record_and_seat"] * 4 + ["record_step"]
+
+
 def test_record_pass_matches_jax_advance_and_perm_row():
     """Row t of the log: the step's log and the permutation BEFORE the
     advance (eval.py:586); move counts and permutations advanced where
@@ -167,7 +250,8 @@ def test_record_pass_matches_jax_advance_and_perm_row():
                           outcome=torch.from_numpy(outcome),
                           active_players=torch.zeros(E, dtype=torch.int32))
     mc, pi = torch.from_numpy(move.copy()), torch.from_numpy(perm_idx.copy())
-    ev.record_step(log, 3, step_log, pi, mc, n_perms)
+    ev.step_books(torch.zeros(n_perms, P, dtype=torch.int32), pi, mc,
+                  ev.Records(log, 3, step_log))
     np.testing.assert_array_equal(mc.numpy(), want_move)
     np.testing.assert_array_equal(pi.numpy(), want_perm)
     got = log.fetch()
@@ -377,16 +461,61 @@ def test_tournament_with_the_engine_cache_equals_one_without(tmp_path, monkeypat
     assert sorted(p["logits"] for p in a["pods"]) == ["stacked"] * 5
 
 
-def test_k17_wrappers_launch_once_each_with_the_strided_player_and_the_log_row(monkeypatch):
-    """K17's CUDA path with a stand-in library: the seat pass reads the
-    player column where it lies (its pointer and stride, no copy) and
-    takes the schedule's f32 constants; the record pass writes row t of
-    the log by pointer; each counts one launch on its own counter."""
+def test_k17_fused_wrapper_launches_once_with_both_halves_arguments(monkeypatch):
+    """K17's fused pass with a stand-in library: one launch of
+    ``eval_step_books`` with the arguments its signature lists: the counts
+    and permutations, the perm table, the step's log, row t of the log by
+    pointer, the stepped state's player column where it lies (pointer and
+    stride), the sources' slots, the schedule's f32 constants, the slot
+    and temperature outputs; nothing allocated; one count."""
     from burn_ppo_torch import kernels
     from tests.test_torch_import import _cuda_path_on_cpu
 
-    lib = _cuda_path_on_cpu(monkeypatch, ev.sample_seats, ev.record_step)
-    before = (ev.sample_seats.launches, ev.record_step.launches)
+    lib = _cuda_path_on_cpu(monkeypatch, ev.step_books)
+    before = ev.step_books.launches
+    E, P = 6, 4
+    ints = torch.zeros(E, 9, dtype=torch.int32)
+    perm_table = torch.zeros(24, P, dtype=torch.int32)
+    perm_idx, move = torch.zeros(E, dtype=torch.int32), torch.zeros(E, dtype=torch.int32)
+    slot, temps = torch.zeros(E, dtype=torch.int32), torch.zeros(E)
+    sources = torch.zeros(5, dtype=torch.int32)
+    temp = ev.TempSchedule(initial=1.5, final_temp=0.25, cutoff=7, decay=True)
+    log = ev.ChunkLog.create(3, E, P, CPU)
+    done = torch.zeros(E)
+    step_log = EpisodeLog(completed=done, total_rewards=torch.zeros(E, P),
+                          length=torch.zeros(E, dtype=torch.int32),
+                          outcome=torch.zeros(E, P, dtype=torch.int32),
+                          active_players=torch.zeros(E, dtype=torch.int32))
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(a) or real_empty(*a, **k))
+    ev.step_books(perm_table, perm_idx, move, ev.Records(log, 2, step_log),
+                  ev.Seats(ints[:, 4], sources, temp, slot, temps))
+    (name, args), = lib.calls
+    assert name == "eval_step_books" and len(args) == len(kernels.SIGNATURES[name])
+    assert args[:5] == (perm_idx.data_ptr(), move.data_ptr(), perm_table.data_ptr(), 24, P)
+    assert args[5] == done.data_ptr()
+    assert args[8:12] == tuple(x[2].data_ptr() for x in (log.completed, log.outcome,
+                                                         log.total_rewards, log.perm))
+    assert args[12] == ints[:, 4].data_ptr() and args[13] == 9
+    assert args[14] == sources.data_ptr()
+    assert args[15:21] == temp.kernel_args()
+    assert args[21:24] == (slot.data_ptr(), temps.data_ptr(), E) and not made
+    assert ev.step_books.launches == before + 1
+
+
+def test_k17_wrappers_launch_once_each_with_the_strided_player_and_the_log_row(monkeypatch):
+    """K17's halves alone with a stand-in library: the seat half reads the
+    player column where it lies (its pointer and stride, no copy), takes
+    the schedule's f32 constants and passes null record pointers; the
+    record half writes row t of the log by pointer and passes a null slot
+    and temperature; each is one launch of the one entry; neither half
+    at all is refused before a launch."""
+    from burn_ppo_torch import kernels
+    from tests.test_torch_import import _cuda_path_on_cpu
+
+    lib = _cuda_path_on_cpu(monkeypatch, ev.step_books)
+    before = ev.step_books.launches
     E, P = 6, 4
     ints = torch.zeros(E, 9, dtype=torch.int32)
     perm_table = torch.zeros(24, P, dtype=torch.int32)
@@ -396,13 +525,14 @@ def test_k17_wrappers_launch_once_each_with_the_strided_player_and_the_log_row(m
     made = []
     real_empty = torch.empty
     monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(a) or real_empty(*a, **k))
-    ev.sample_seats(perm_table, perm_idx, ints[:, 4], torch.zeros(5, dtype=torch.int32), move,
-                    temp, slot, temps)
+    ev.step_books(perm_table, perm_idx, move,
+                  seats=ev.Seats(ints[:, 4], torch.zeros(5, dtype=torch.int32), temp, slot, temps))
     (name, args), = lib.calls
-    assert name == "eval_sample_seats" and len(args) == len(kernels.SIGNATURES[name])
-    assert args[:3] == (perm_table.data_ptr(), 24, P)
-    assert args[4] == ints[:, 4].data_ptr() and args[5] == 9
-    assert args[8:14] == temp.kernel_args() and args[14:17] == (slot.data_ptr(),
+    assert name == "eval_step_books" and len(args) == len(kernels.SIGNATURES[name])
+    assert args[:5] == (perm_idx.data_ptr(), move.data_ptr(), perm_table.data_ptr(), 24, P)
+    assert args[5:12] == (None,) * 7
+    assert args[12] == ints[:, 4].data_ptr() and args[13] == 9
+    assert args[15:21] == temp.kernel_args() and args[21:24] == (slot.data_ptr(),
                                                                 temps.data_ptr(), E)
     log = ev.ChunkLog.create(3, E, P, CPU)
     done = torch.zeros(E)
@@ -410,11 +540,14 @@ def test_k17_wrappers_launch_once_each_with_the_strided_player_and_the_log_row(m
                           length=torch.zeros(E, dtype=torch.int32),
                           outcome=torch.zeros(E, P, dtype=torch.int32),
                           active_players=torch.zeros(E, dtype=torch.int32))
-    ev.record_step(log, 2, step_log, perm_idx, move, 24)
+    ev.step_books(perm_table, perm_idx, move, ev.Records(log, 2, step_log))
     name, args = lib.calls[1]
-    assert name == "eval_record_step" and len(args) == len(kernels.SIGNATURES[name])
-    assert args[0] == done.data_ptr() and args[3:6] == (perm_idx.data_ptr(), move.data_ptr(), 24)
-    assert args[6:10] == tuple(x[2].data_ptr() for x in (log.completed, log.outcome,
+    assert name == "eval_step_books" and len(args) == len(kernels.SIGNATURES[name])
+    assert args[:5] == (perm_idx.data_ptr(), move.data_ptr(), perm_table.data_ptr(), 24, P)
+    assert args[5] == done.data_ptr()
+    assert args[8:12] == tuple(x[2].data_ptr() for x in (log.completed, log.outcome,
                                                          log.total_rewards, log.perm))
-    assert args[10:12] == (E, P) and not made
-    assert (ev.sample_seats.launches, ev.record_step.launches) == (before[0] + 1, before[1] + 1)
+    assert args[12] is None and args[21:24] == (None, None, E) and not made
+    with pytest.raises(ValueError):
+        ev.step_books(perm_table, perm_idx, move)
+    assert len(lib.calls) == 2 and ev.step_books.launches == before + 2

@@ -311,9 +311,12 @@ def test_burn_mpk_checkpoint_is_refused_with_exit_2(tmp_path, capsys):
 
 
 def test_interactive_still_refused_and_no_cpu_fallback(monkeypatch, capsys):
+    """The assistant is Skull's: a Connect Four checkpoint exits 2; no front
+    end falls back to the CPU without a card."""
     assert cli.main(["interactive", str(C4 / "r4")], device="cpu") == 2
-    assert "ROADMAP A15" in capsys.readouterr().err
+    assert "requires skull checkpoints" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for cmd in (["eval", "-c", str(C4 / "r4"), "--random"], ["tournament", str(C4 / "r4"), "--random"]):
+    for cmd in (["eval", "-c", str(C4 / "r4"), "--random"], ["tournament", str(C4 / "r4"), "--random"],
+                ["interactive", str(C4.parent / "skull" / "r4")]):
         with pytest.raises(RuntimeError, match="cuda"):
             cli.main(cmd)

@@ -979,7 +979,9 @@ def test_episode_stats_scratch_first_made_inside_a_capture_raises(dev, monkeypat
 def test_skull_kernel_matches_plain_exactly(dev, E, n):
     """K11 against the plain step along a walk of 150 steps, every output
     equal bit for bit (the packed state whole); forced discards, finished
-    games fed back in and a shaping coefficient on half the envs."""
+    games fed back in and a shaping coefficient on half the envs. Every
+    step also with the reset off (the terminal rows kept), against the
+    plain step so."""
     g = torch.Generator(device=dev).manual_seed(E + n)
     env = Skull(n)
     empty = torch.empty(E, 0, device=dev)
@@ -1011,6 +1013,8 @@ def test_skull_kernel_matches_plain_exactly(dev, E, n):
         assert skull_step_autoreset.launches == before + 1
         p = autoreset_step(env, state, acc, action, empty, u)
         assert_equal(k, p)
+        assert_equal(env.step_autoreset(state, acc, action, empty, u, reset=False),
+                     autoreset_step(env, state, acc, action, empty, u, reset=False))
         dones += int(p.done.sum())
         state, acc = p.state, p.acc
     assert dones > 0
@@ -1864,41 +1868,120 @@ def k17_inputs(dev, E, P, seed):
 @pytest.mark.parametrize("P", [2, 4])
 @pytest.mark.parametrize("E", [1, 64, 256, 4096])
 def test_eval_step_kernels_match_plain_bit_for_bit(dev, E, P):
-    from burn_ppo_torch.eval import (ChunkLog, TempSchedule, record_step, record_step_plain,
-                                     sample_seats, sample_seats_plain)
+    """K17's halves alone (a chunk's first step: the seats; its last: the
+    records) against their plain versions, every output bit for bit; one
+    launch each."""
+    from burn_ppo_torch.eval import ChunkLog, Records, Seats, TempSchedule, step_books
+    from burn_ppo_torch.eval import step_books_plain
 
     x = k17_inputs(dev, E, P, E + P)
     for sched in K17_SCHEDULES:
         temp = TempSchedule(**sched)
         outs = []
-        for fn in (sample_seats, sample_seats_plain):
+        for fn in (step_books, step_books_plain):
             slot = torch.full((E,), 99, dtype=torch.int32, device=dev)
             temps = torch.full((E,), -1.0, device=dev)
-            before = sample_seats.launches
-            fn(x["perm_table"], x["perm_idx"], x["player"], x["slot_of_source"],
-               x["move_count"], temp, slot, temps)
+            before = step_books.launches
+            fn(x["perm_table"], x["perm_idx"], x["move_count"],
+               seats=Seats(x["player"], x["slot_of_source"], temp, slot, temps))
             torch.cuda.synchronize()
-            assert sample_seats.launches == before + (fn is sample_seats)
+            assert step_books.launches == before + (fn is step_books)
             outs.append((slot, temps))
         (ks, kt), (ps, pt) = outs
         assert torch.equal(ks, ps) and torch.equal(kt, pt), sched
     if E >= 64:
         assert bool((ks == -1).any())  # a Random seat
     log_rows = []
-    for fn in (record_step, record_step_plain):
+    for fn in (step_books, step_books_plain):
         log = ChunkLog.create(3, E, P, dev)
         pi, mc = x["perm_idx"].clone(), x["move_count"].clone()
         step_log = EpisodeLog(completed=x["done"], total_rewards=x["totals"],
                               length=torch.zeros(E, dtype=torch.int32, device=dev),
                               outcome=x["outcome"],
                               active_players=torch.zeros(E, dtype=torch.int32, device=dev))
-        before = record_step.launches
-        fn(log, 1, step_log, pi, mc, x["perm_table"].shape[0])
+        before = step_books.launches
+        fn(x["perm_table"], pi, mc, Records(log, 1, step_log))
         torch.cuda.synchronize()
-        assert record_step.launches == before + (fn is record_step)
+        assert step_books.launches == before + (fn is step_books)
         log_rows.append([pi, mc, log.completed, log.outcome, log.total_rewards, log.perm])
     for a, b in zip(*log_rows):
         assert torch.equal(a, b)
+
+
+def k17_step_log(dev, x, offset: bool = False):
+    """The env step's log of ``k17_inputs``; ``offset`` puts its [E, P]
+    rows 4 bytes into their buffers (no 16-byte rows)."""
+    E, P = x["outcome"].shape
+
+    def shifted(t):
+        if not offset:
+            return t
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.flatten()
+        return buf[1:].view(E, P)
+
+    return EpisodeLog(completed=x["done"], total_rewards=shifted(x["totals"]),
+                      length=torch.zeros(E, dtype=torch.int32, device=dev),
+                      outcome=shifted(x["outcome"]),
+                      active_players=torch.zeros(E, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("case", ["aligned_rows", "offset_rows", "large_table"])
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("E", [1, 64, 256, 4096])
+def test_eval_record_and_seat_kernel_matches_plain_bit_for_bit(dev, E, P, case):
+    """K17's fused launch (the records of step t, then the seats of t + 1
+    from the advanced counts and permutations) against the two plain
+    halves in sequence: every output bit for bit under constant, cutoff
+    and decay, a Random seat, moves past each cutoff; a small table, a
+    large one (8 sources: 1680 seat maps at P = 4), and log rows that do
+    not start 16-byte aligned."""
+    from burn_ppo_torch.eval import (ChunkLog, Records, Seats, TempSchedule, seat_maps,
+                                     step_books, step_books_plain)
+
+    x = k17_inputs(dev, E, P, 7 * E + P)
+    if case == "large_table":
+        x["perm_table"] = torch.from_numpy(seat_maps(8, P)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(E)
+        x["perm_idx"] = torch.randint(0, x["perm_table"].shape[0], (E,), generator=g, device=dev,
+                                      dtype=torch.int32)
+        x["slot_of_source"] = torch.tensor([0, -1, 1, 2, -1, 3, 4, 5], dtype=torch.int32,
+                                           device=dev)
+    crossed = 0
+    for sched in K17_SCHEDULES:
+        temp = TempSchedule(**sched)
+        outs = []
+        for fn in (step_books, step_books_plain):
+            log = ChunkLog.create(3, E, P, dev)
+            pi, mc = x["perm_idx"].clone(), x["move_count"].clone()
+            slot = torch.full((E,), 99, dtype=torch.int32, device=dev)
+            temps = torch.full((E,), -1.0, device=dev)
+            before = step_books.launches
+            fn(x["perm_table"], pi, mc,
+               Records(log, 1, k17_step_log(dev, x, case == "offset_rows")),
+               Seats(x["player"], x["slot_of_source"], temp, slot, temps))
+            torch.cuda.synchronize()
+            assert step_books.launches == before + (fn is step_books)
+            outs.append([pi, mc, slot, temps, log.completed, log.outcome, log.total_rewards,
+                         log.perm])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), sched
+        if temp.cutoff is not None:
+            crossed += int((outs[0][1] >= temp.cutoff).sum())
+    if E >= 64:
+        assert bool((outs[0][2] == -1).any()) and crossed > 0  # a Random seat, late moves
+
+
+def test_a_chunk_launches_k17_once_a_step(dev):
+    """An eager chunk of T steps launches K17 T + 1 times: the seats, the
+    fused pass T - 1 times, the records."""
+    from burn_ppo_torch import eval as ev
+
+    engine = eval_engine(dev, "stacked", 64)
+    before = ev.step_books.launches
+    engine.eager_chunk()
+    torch.cuda.synchronize()
+    assert ev.step_books.launches - before == 33
 
 
 def eval_engine(dev, lineup: str, E: int, seed: int = 3):

@@ -315,7 +315,7 @@ def test_every_kernel_wrapper_is_registered_once():
     from burn_ppo_torch.envs.connect_four import connect_four_step_autoreset
     from burn_ppo_torch.envs.liars_dice import liars_dice_step_autoreset
     from burn_ppo_torch.envs.skull import skull_step_autoreset
-    from burn_ppo_torch.eval import record_step, sample_seats
+    from burn_ppo_torch.eval import step_books
     from burn_ppo_torch.ops.categorical import masked_sample, sample_with_temperature
     from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
     from burn_ppo_torch.ppo import normalization as norm
@@ -328,7 +328,7 @@ def test_every_kernel_wrapper_is_registered_once():
             norm.obs_norm_apply, norm.obs_norm_update, norm.return_norm_roll,
             norm.return_norm_finalize, summarize_episode_logs, opponent_actor_forward,
             clip_adam, ppo_loss, sample_with_temperature, norm.popart_update_rescale,
-            norm.popart_denormalize, sample_seats, record_step}
+            norm.popart_denormalize, step_books}
     assert len(kernels.WRAPPERS) == len(set(kernels.WRAPPERS)) == len(want)
     assert set(kernels.WRAPPERS) == want
     assert all(isinstance(w.launches, int) for w in kernels.WRAPPERS)

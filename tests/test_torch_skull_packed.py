@@ -151,8 +151,9 @@ def test_select_state_on_packed_states():
 def test_the_kernel_wrapper_checks_few_arguments_and_allocates_two_buffers(monkeypatch):
     """The CUDA path's host work, run on CPU tensors with a stand-in
     library: six argument checks and an alignment check, two allocations,
-    one launch; the outputs are views of the two buffers at the offsets
-    the kernel writes (``_outputs``, 64-element blocks)."""
+    one launch with the arguments its signature lists (the reset flag 1,
+    or 0 when the reset is off); the outputs are views of the two buffers
+    at the offsets the kernel writes (``_outputs``, 64-element blocks)."""
     E, n = 70, 4
     env, state, acc = walked_state(n, E, steps=5, seed=4)
     calls = {"expect": 0, "empty": 0, "launch": []}
@@ -186,7 +187,9 @@ def test_the_kernel_wrapper_checks_few_arguments_and_allocates_two_buffers(monke
     assert calls["expect"] == 6 and calls["empty"] == 2
     assert sk.skull_step_autoreset.launches == before + 1
     (args,) = calls["launch"]
-    assert args[8:10] == (E, n)
+    assert args[8:11] == (E, n, 1) and len(args) == len(kernels.SIGNATURES["skull_step_autoreset"])
+    sk._launch(env, state, acc, action, u, reset=False)
+    assert calls["launch"][1][8:11] == (E, n, 0)
     i32_base, f32_base = args[6], args[7]
     blk = lambda cols: -(-E * cols // 64) * 64 * 4  # noqa: E731
     assert out.state.ints.shape == (E, sk.W) and out.state.ints.data_ptr() == i32_base
@@ -225,3 +228,42 @@ def test_both_packed_states_share_one_layout(cls):
             assert view.data_ptr() == state.ints[:, lo].data_ptr(), name
     again = cls.of(state.shaping_coef, **{f: getattr(state, f) for f in cls.INT_FIELDS})
     assert torch.equal(again.ints, state.ints)
+
+
+@pytest.mark.parametrize("n", [2, 4, 6])
+def test_the_step_with_its_reset_off_keeps_the_terminal_states(n):
+    """``step_autoreset(..., reset=False)`` on the CPU: a finished env
+    keeps the plain step's terminal state, with that state's obs, mask
+    (all zero) and privileged obs; rewards, done, the log and the
+    accumulators are the auto-reset step's, and so is every output of an
+    env that goes on. The walk ends games on the way."""
+    E = 256
+    env, state, acc = walked_state(n, E, steps=3, seed=n)
+    g = torch.Generator().manual_seed(10 + n)
+    empty = torch.empty(E, 0)
+    ends = 0
+    for _ in range(60):
+        action = sk.walk_actions(env.action_mask(state), g)
+        u = torch.rand(E, generator=g)
+        on = env.step_autoreset(state, acc, action, empty, u)
+        off = env.step_autoreset(state, acc, action, empty, u, reset=False)
+        stepped = env.step(state, action, u)[0]
+        done = on.done > 0
+        ends += int(done.sum())
+        for a, b in ((on.rewards, off.rewards), (on.done, off.done),
+                     (on.acc.reward_sum, off.acc.reward_sum), (on.acc.length, off.acc.length)):
+            assert torch.equal(a, b)
+        for f in ("completed", "total_rewards", "length", "outcome", "active_players"):
+            assert torch.equal(getattr(on.log, f), getattr(off.log, f))
+        assert torch.equal(off.state.ints, stepped.ints)
+        assert torch.equal(off.state.shaping_coef, stepped.shaping_coef)
+        assert torch.equal(off.obs, env.obs(stepped))
+        assert torch.equal(off.mask, env.action_mask(stepped))
+        assert torch.equal(off.priv, env.privileged_obs(stepped))
+        assert not off.mask[done].any() and off.state.game_over[done].all()
+        keep = ~done
+        for a, b in ((on.state.ints, off.state.ints), (on.obs, off.obs), (on.mask, off.mask),
+                     (on.priv, off.priv)):
+            assert torch.equal(a[keep], b[keep])
+        state, acc = on.state, on.acc
+    assert ends > 0
