@@ -29,8 +29,9 @@ inference; ``load_params``, ``load_optimizer``, ``load_component`` and
 ``load_generator_state`` restore a run for resume and fork, copying into
 the tensors that exist (the trainer's CUDA graphs read them where they
 were captured). A checkpoint of the Rust reference (a Burn ``model.mpk``
-and no ``model.npz``) is refused with ``NotPortedError``: its import is
-ROADMAP A15's ``interop.py``.
+and no ``model.npz``) loads for inference through ``interop.py``, as the
+JAX package's ``CheckpointManager`` routes it; one that does not decode
+raises ``ReferenceImportError``.
 """
 
 from __future__ import annotations
@@ -231,9 +232,11 @@ def load_generator_state(ckpt_dir: str | Path) -> Optional[torch.Tensor]:
     return torch.from_numpy(np.ascontiguousarray(state, dtype=np.uint8))
 
 
-class NotPortedError(RuntimeError):
-    """Input the port cannot read yet; the message names the ROADMAP item.
-    The command line turns it into exit code 2."""
+class ReferenceImportError(ValueError):
+    """A reference checkpoint whose record does not decode into the
+    network its ``metadata.json`` describes (the import's KeyError or
+    ValueError, as the JAX package's loader raises them). The command line
+    turns it into exit code 2."""
 
 
 def is_reference_checkpoint(ckpt_dir: str | Path) -> bool:
@@ -243,18 +246,19 @@ def is_reference_checkpoint(ckpt_dir: str | Path) -> bool:
     return not (d / "model.npz").exists() and ((d / "model.mpk").exists() or (d / "model").exists())
 
 
-def _refuse_reference(ckpt_dir: str | Path) -> None:
-    if is_reference_checkpoint(ckpt_dir):
-        raise NotPortedError(
-            f"{ckpt_dir} is a Burn .mpk checkpoint of the reference (no model.npz); "
-            "its import is not ported to burn_ppo_torch yet (ROADMAP A15, interop)")
-
-
 def load_model(ckpt_dir: str | Path, device: str | torch.device = "cpu"):
-    """(network, metadata) of a checkpoint written by either package: the
+    """(network, metadata) of a checkpoint written by either package (the
     network rebuilt from ``metadata.json``, its weights filled from
-    ``model.npz`` in ``tree_leaves`` order."""
-    _refuse_reference(ckpt_dir)
+    ``model.npz`` in ``tree_leaves`` order) or by the Rust reference (its
+    Burn record imported, ``interop.load_reference_checkpoint``)."""
+    if is_reference_checkpoint(ckpt_dir):
+        from burn_ppo_torch.interop import load_reference_checkpoint
+
+        try:
+            network, _, meta = load_reference_checkpoint(ckpt_dir, device)
+        except (KeyError, ValueError) as e:
+            raise ReferenceImportError(f"{ckpt_dir}: Burn record not imported: {e}") from e
+        return network, meta
     meta = load_metadata(ckpt_dir)
     network = network_from_metadata(meta, device)
     load_params(ckpt_dir, network)
@@ -265,8 +269,12 @@ def load_obs_normalizer(ckpt_dir: str | Path,
                         device: str | torch.device = "cpu") -> Optional[ObsNormState]:
     """The obs normalizer of a checkpoint, or None when it trained without
     one. The leaves follow ``ObsNormState``'s field order (mean, m2,
-    count), not sorted keys."""
-    _refuse_reference(ckpt_dir)
+    count), not sorted keys. A reference checkpoint's is its
+    ``normalizer.json`` (``interop.load_reference_obs_norm``)."""
+    if is_reference_checkpoint(ckpt_dir):
+        from burn_ppo_torch.interop import load_reference_obs_norm
+
+        return load_reference_obs_norm(ckpt_dir, device)
     meta = load_metadata(ckpt_dir)
     if not meta.get("normalize_obs"):
         return None

@@ -383,9 +383,9 @@ def run_train(args, device: str = "cuda", argv: Optional[List[str]] = None) -> i
 
 def run_front_end(args, device: str = "cuda") -> int:
     """``eval`` or ``tournament`` on ``device`` (a CUDA request without a
-    card raises in ``resolve_device``); a checkpoint the port cannot read
-    yet exits 2."""
-    from burn_ppo_torch.checkpoint import NotPortedError
+    card raises in ``resolve_device``); a reference checkpoint whose record
+    does not import exits 2."""
+    from burn_ppo_torch.checkpoint import ReferenceImportError
     from burn_ppo_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -397,7 +397,7 @@ def run_front_end(args, device: str = "cuda") -> int:
         from burn_ppo_torch.tournament import run_tournament_cli
 
         return run_tournament_cli(args, device=dev)
-    except NotPortedError as e:
+    except ReferenceImportError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
@@ -405,15 +405,15 @@ def run_front_end(args, device: str = "cuda") -> int:
 def run_interactive(args, device: str = "cuda") -> int:
     """The Skull assistant's web server on ``device`` (a CUDA request
     without a card raises in ``resolve_device``); sources without a Skull
-    checkpoint, or a checkpoint the port cannot read yet, exit 2."""
-    from burn_ppo_torch.checkpoint import NotPortedError
+    checkpoint, or a reference checkpoint whose record does not import,
+    exit 2."""
     from burn_ppo_torch.device import resolve_device
     from burn_ppo_torch.interactive import run_interactive_cli
 
     dev = resolve_device(device)
     try:
         return run_interactive_cli(args, device=dev)
-    except (NotPortedError, ValueError) as e:
+    except ValueError as e:  # ReferenceImportError among them
         print(f"error: {e}", file=sys.stderr)
         return 2
 

@@ -1,6 +1,12 @@
 // K1 cartpole_step_autoreset — CartPole step, auto-reset, obs, mask and
 // episode log, with the return normaliser's per-step roll as an optional
-// epilogue: one launch per env step.
+// epilogue: one launch per env step. With the reset flag off, a finished
+// env keeps its stepped (terminal) physics row, and the obs is that row's:
+// a watched game's last move. With the sampling front
+// (cartpole_sample_step_kernel, eval's stats engine), the block first
+// samples its envs' actions with K14's row code (temperature_sample.cuh)
+// from the logits, mask, temperatures and uniforms, then steps with them:
+// K14's launch folded into the step's.
 //
 // Replaces the XLA fusion of burn_ppo_tpu/envs/cartpole.py CartPole.step
 // (69-112), CartPole.obs and CartPole.reset (55-67) under
@@ -44,6 +50,12 @@
 //     state;
 //   * one player: the outcome is place 1, one active player, and the
 //     action mask of the post-reset state is all ones;
+//   * reset 0: a finished env keeps the stepped row and step count (the
+//     accumulators restart at 0 all the same, as the plain step's);
+//   * the sampling front: the block's two warps sample its 64 envs'
+//     actions (2 lanes a row, 16 rows a warp at a time) into shared memory
+//     and the actions output, then __syncthreads(), then the step above
+//     with those actions. The step kernel without the front is unchanged.
 //   * the roll, as return_norm.cu's roll at P = 1 and acting slot 0:
 //     v = returns * gamma + reward, rounded twice (__fmul_rn, __fadd_rn: no
 //     contraction into one fma), the sample is v, and the new return is 0
@@ -55,6 +67,7 @@
 #include <cstdint>
 
 #include "packed_rows.cuh"
+#include "temperature_sample.cuh"
 
 namespace {
 
@@ -70,6 +83,7 @@ constexpr float THETA_THRESHOLD = 0.20943951023931953f;  // 12 * pi / 180
 constexpr float FOUR_THIRDS = 1.3333333333333333f;
 constexpr int MAX_STEPS = 500;
 constexpr int OBS_DIM = 5;
+constexpr int A = 2;
 constexpr int EB = 64;  // envs (threads) per block
 static_assert(EB % 4 == 0, "a block's obs and mask spans must be whole 16-byte runs");
 
@@ -99,21 +113,34 @@ struct Args {
   float* returns_out;  // with the roll
   float* samples;
   int num_envs;
+  int do_reset;  // 0: a finished env keeps its terminal row
 };
 
-__global__ void __launch_bounds__(EB) cartpole_step_autoreset_kernel(Args g) {
+using temp_sample::Front;
+
+// One block's envs; SAMPLE prepends the sampling front (f), else the
+// actions are g.action.
+template <bool SAMPLE>
+__device__ __forceinline__ void step_block(const Args& g, const Front& f) {
   __shared__ float obs_rows[EB * OBS_DIM];
   const long e0 = static_cast<long>(blockIdx.x) * EB;
   const int count = static_cast<int>(min(static_cast<long>(EB), g.num_envs - e0));
   const int t = threadIdx.x;
   const long e = e0 + t;
+  int sampled = 0;
+  if constexpr (SAMPLE) {
+    __shared__ int acts[EB];
+    temp_sample::sample_block<A, EB / 32>(f, e0, count, acts);
+    __syncthreads();
+    if (t < count) sampled = acts[t];
+  }
 
   if (t < count) {
     const float4 s = g.phys[e];
     const int steps0 = g.step[e];
     const float sum0 = g.acc_sum[e];
     const int len0 = g.acc_len[e];
-    const int act = g.action[e];
+    const int act = SAMPLE ? sampled : g.action[e];
     const float ret0 = g.returns != nullptr ? g.returns[e] : 0.0f;
     // Loaded with the rest, before it is known whether the episode ends:
     // 16 bytes more than the data needs, one dependent round trip less.
@@ -147,7 +174,7 @@ __global__ void __launch_bounds__(EB) cartpole_step_autoreset_kernel(Args g) {
     const int new_len = len0 + 1;
     float4 n = make_float4(x, x_dot, theta, theta_dot);
     int nstep = steps;
-    if (done) {
+    if (done && g.do_reset) {
       n = reset;
       nstep = 0;
     }
@@ -193,10 +220,10 @@ __global__ void __launch_bounds__(EB) cartpole_step_autoreset_kernel(Args g) {
     }
   }
   // The mask span, count x 2 ones.
-  if (t < EB * 2 / 4) {
-    float* mask = g.mask + e0 * 2;
+  if (t < EB * A / 4) {
+    float* mask = g.mask + e0 * A;
     const int j = 4 * t;
-    const int len = count * 2;
+    const int len = count * A;
     if (j + 3 < len) {
       reinterpret_cast<float4*>(mask)[t] = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
     } else {
@@ -205,17 +232,33 @@ __global__ void __launch_bounds__(EB) cartpole_step_autoreset_kernel(Args g) {
   }
 }
 
+__global__ void __launch_bounds__(EB) cartpole_step_autoreset_kernel(Args g) {
+  step_block<false>(g, Front{});
+}
+
+__global__ void __launch_bounds__(EB) cartpole_sample_step_kernel(Args g, Front f) {
+  step_block<true>(g, f);
+}
+
 }  // namespace
 
 // in: the physics rows [E, 4] and reset rows [E, 4] (both 16-byte
 // aligned), step_idx [E], reward_sum [E, 1], length [E], action [E], and
 // with the roll the rolling returns [E, 1] (else null); out: the i32 and
 // the f32 buffer of envs/cartpole.py I32_OUT and F32_OUT (+ ROLL_OUT).
+// reset 0 keeps a finished env's terminal row. With the sampling front
+// (logits not null; action null) the block samples its envs' actions from
+// logits, mask (nullable) and uniforms [E, 2] at the temperatures [E]
+// (nullable: ``temp`` for every row) into actions [E], then steps with
+// them (eval's step).
 extern "C" int cartpole_step_autoreset(const void* phys, const int* step_idx,
                                        const float* acc_sum, const int* acc_len,
                                        const int* action, const void* reset,
                                        const float* returns, int* out_i32, float* out_f32,
-                                       int num_envs, float gamma, void* stream) {
+                                       int num_envs, float gamma, int reset_flag,
+                                       const void* logits, const void* mask, const void* temps,
+                                       float temp, const void* uniforms, int* actions,
+                                       void* stream) {
   if (num_envs <= 0) return 0;
   const auto addr = [](const void* b) { return reinterpret_cast<std::uintptr_t>(b); };
   if ((addr(phys) | addr(reset) | addr(out_f32)) % 16)
@@ -255,12 +298,19 @@ extern "C" int cartpole_step_autoreset(const void* phys, const int* step_idx,
   g.obs = f;
   f += block_len(E, OBS_DIM);
   g.mask = f;
-  f += block_len(E, 2);
+  f += block_len(E, A);
   g.returns_out = f;
   f += block_len(E, 1);
   g.samples = f;
   g.num_envs = num_envs;
+  g.do_reset = reset_flag;
   const int blocks = static_cast<int>((E + EB - 1) / EB);
-  cartpole_step_autoreset_kernel<<<blocks, EB, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (logits != nullptr) {
+    cartpole_sample_step_kernel<<<blocks, EB, 0, s>>>(
+        g, temp_sample::front_of(logits, mask, temps, temp, uniforms, actions));
+  } else {
+    cartpole_step_autoreset_kernel<<<blocks, EB, 0, s>>>(g);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,11 @@
 // K4 connect_four_step_autoreset — Connect Four move, win check, rewards,
 // outcome, episode log, auto-reset, obs and action mask, one launch per
-// env step.
+// env step. With the reset flag off, a finished env keeps its stepped
+// (terminal) row, and the obs and mask are that row's: a watched game's
+// last move. With the sampling front (connect_four_sample_step_kernel,
+// eval's stats engine), the block first samples its envs' actions with
+// K14's row code (temperature_sample.cuh), then steps with them: K14's
+// launch folded into the step's.
 //
 // Replaces the XLA fusion of burn_ppo_tpu/envs/connect_four.py
 // ConnectFour.step/_has_win/obs/action_mask/game_outcome/reset (35-156)
@@ -60,13 +65,20 @@
 //     won, [1,1] full board, [0,0] no result (an invalid move);
 //   * obs of the post-reset state: channels-last planes [row, col,
 //     player] (84 floats), then the one-hot of the player to move; mask
-//     1.0 where the top cell of a column is empty.
+//     1.0 where the top cell of a column is empty;
+//   * reset 0: a finished env keeps the stepped row (the board, the mover
+//     as current, the winner, done, step_idx + 1);
+//   * the sampling front: the block's first warp samples its 8 envs'
+//     actions (2 lanes a row) into shared memory and the actions output,
+//     then __syncthreads(), then the step above with those actions. The
+//     step kernel without the front is unchanged.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "packed_rows.cuh"
+#include "temperature_sample.cuh"
 
 namespace {
 
@@ -108,6 +120,7 @@ struct Args {
   float* obs;
   float* mask;
   int num_envs;
+  int reset;  // 0: a finished env keeps its terminal row
 };
 
 using packed_rows::block_len;
@@ -129,20 +142,32 @@ constexpr uint64_t TOP_ROW = 0x40810204081ull;
 static_assert(TOP_ROW == (1ull | 1ull << 7 | 1ull << 14 | 1ull << 21 | 1ull << 28 | 1ull << 35 |
                           1ull << 42), "bit c * 7 of every column c");
 
-__global__ void __launch_bounds__(NT) connect_four_step_autoreset_kernel(Args g) {
+using temp_sample::Front;
+
+// One block's envs; SAMPLE prepends the sampling front (f), else the
+// actions are g.action.
+template <bool SAMPLE>
+__device__ __forceinline__ void step_block(const Args& g, const Front& f) {
   __shared__ int rows[EB * WS];
   const long e0 = static_cast<long>(blockIdx.x) * EB;
   const int count = static_cast<int>(min(static_cast<long>(EB), g.num_envs - e0));
   const int t = threadIdx.x;
   const long e = e0 + t;
   const bool stepper = t < count;
+  int sampled = 0;
+  if constexpr (SAMPLE) {
+    __shared__ int acts[EB];
+    temp_sample::sample_block<COLS, NT / 32>(f, e0, count, acts);
+    __syncthreads();
+    if (stepper) sampled = acts[t];
+  }
 
   // 1. The stepping threads' per-env inputs, then the rows: every load
   // of a thread in flight before its first shared-memory store.
   int action = 0, len = 0;
   float2 sum_in = make_float2(0.0f, 0.0f);
   if (stepper) {
-    action = g.action[e];
+    action = SAMPLE ? sampled : g.action[e];
     len = g.acc_len[e] + 1;
     sum_in = make_float2(g.acc_sum[2 * e], g.acc_sum[2 * e + 1]);
   }
@@ -202,19 +227,22 @@ __global__ void __launch_bounds__(NT) connect_four_step_autoreset_kernel(Args g)
     }
     reinterpret_cast<int2*>(g.outcome)[e] = o;
 
-    // The post-reset row: the fresh game where the episode ended. A row
-    // that goes on has winner -1 (no win, no full board, a valid move).
-    if (done) {
+    // The post-reset row: the fresh game where the episode ended (with
+    // the reset flag on), else the stepped row. A row that goes on has
+    // winner -1 (no win, no full board, a valid move).
+    if (done && g.reset) {
 #pragma unroll
       for (int i = 0; i < CELLS; ++i) r[i] = 0;
       r[O_CUR] = 0;
       r[O_STEP] = 0;
+      r[O_WINNER] = -1;
+      r[O_DONE] = 0;
     } else {
-      r[O_CUR] = 1 - cur;
+      r[O_CUR] = done ? cur : 1 - cur;
       r[O_STEP] += 1;
+      r[O_WINNER] = winner;
+      r[O_DONE] = done ? 1 : 0;
     }
-    r[O_WINNER] = -1;
-    r[O_DONE] = 0;
 #pragma unroll
     for (int i = O_PAD; i < W; ++i) r[i] = 0;
   }
@@ -261,14 +289,29 @@ __global__ void __launch_bounds__(NT) connect_four_step_autoreset_kernel(Args g)
   }
 }
 
+__global__ void __launch_bounds__(NT) connect_four_step_autoreset_kernel(Args g) {
+  step_block<false>(g, Front{});
+}
+
+__global__ void __launch_bounds__(NT) connect_four_sample_step_kernel(Args g, Front f) {
+  step_block<true>(g, f);
+}
+
 }  // namespace
 
 // in: the packed state [E, 48] i32, reward_sum [E, 2], length [E],
 // action [E]; out: the i32 and the f32 buffer of envs/connect_four.py
-// I32_OUT and F32_OUT.
+// I32_OUT and F32_OUT. reset 0 keeps a finished env's terminal row.
+// With the sampling front (logits not null; action null) the block samples
+// its envs' actions from logits, mask (nullable) and uniforms [E, 7] at the
+// temperatures [E] (nullable: ``temp`` for every row) into actions [E],
+// then steps with them (eval's step).
 extern "C" int connect_four_step_autoreset(const int* ints, const float* acc_sum,
                                            const int* acc_len, const int* action, int* out_i32,
-                                           float* out_f32, int num_envs, void* stream) {
+                                           float* out_f32, int num_envs, int reset,
+                                           const void* logits, const void* mask,
+                                           const void* temps, float temp, const void* uniforms,
+                                           int* actions, void* stream) {
   if (num_envs <= 0) return 0;
   const long E = num_envs;
   Args g;
@@ -299,7 +342,14 @@ extern "C" int connect_four_step_autoreset(const int* ints, const float* acc_sum
   f += block_len(E, OBS_DIM);
   g.mask = f;
   g.num_envs = num_envs;
+  g.reset = reset;
   const int blocks = static_cast<int>((E + EB - 1) / EB);
-  connect_four_step_autoreset_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (logits != nullptr) {
+    connect_four_sample_step_kernel<<<blocks, NT, 0, s>>>(
+        g, temp_sample::front_of(logits, mask, temps, temp, uniforms, actions));
+  } else {
+    connect_four_step_autoreset_kernel<<<blocks, NT, 0, s>>>(g);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,12 @@
 // K13 liars_dice_step_autoreset — the Liar's Dice step with rewards, done,
 // episode log, auto-reset, accumulators, and the obs, action mask and
-// privileged obs of the post-reset state, one launch per env step.
+// privileged obs of the post-reset state, one launch per env step. With
+// the reset flag off, a finished env keeps its stepped (terminal) row, and
+// the obs, mask and privileged obs are that row's: a watched game's last
+// move. With the sampling front (liars_dice_sample_step_kernel, eval's
+// stats engine), the block first samples its envs' actions with K14's row
+// code (temperature_sample.cuh), then steps with them: K14's launch folded
+// into the step's.
 //
 // Replaces the XLA fusion of burn_ppo_tpu/envs/liars_dice.py LiarsDice.step
 // (133-257), obs (260-309), action_mask (312-324), privileged_obs (333-382)
@@ -61,11 +67,17 @@
 //     lowest alive seat as the winner, and a loser seat out of range read
 //     as 0 (JAX's one-hot reads);
 //   * the dice: min(floor(u * 6), 5) + 1 from the uniforms, the reset's
-//     for a fresh game, the step's for the reroll of a new round.
+//     for a fresh game, the step's for the reroll of a new round;
+//   * reset 0: a finished env keeps the stepped row;
+//   * the sampling front: the block's first four warps sample its 8 envs'
+//     actions (16 lanes a row, 2 rows a warp) into shared memory and the
+//     actions output, then __syncthreads(), then the step above with
+//     those actions. The step kernel without the front is unchanged.
 
 #include <cuda_runtime.h>
 
 #include "packed_rows.cuh"
+#include "temperature_sample.cuh"
 
 namespace {
 
@@ -127,6 +139,7 @@ struct Args {
   float* mask;
   float* priv;
   int num_envs;
+  int reset;  // 0: a finished env keeps its terminal row
 };
 
 using packed_rows::block_len;
@@ -404,7 +417,12 @@ __device__ __forceinline__ void copy_out(const float* src, float* dst, int count
   }
 }
 
-__global__ void __launch_bounds__(NT) liars_dice_step_autoreset_kernel(Args g) {
+using temp_sample::Front;
+
+// One block's envs; SAMPLE prepends the sampling front (f), else the
+// actions are g.action.
+template <bool SAMPLE>
+__device__ __forceinline__ void step_block(const Args& g, const Front& f) {
   __shared__ int rows[EB * WS];
   __shared__ unsigned long long mbits[EB];
   __shared__ __align__(16) float obs_s[EB * OBS_DIM];
@@ -415,6 +433,13 @@ __global__ void __launch_bounds__(NT) liars_dice_step_autoreset_kernel(Args g) {
   const int t = threadIdx.x;
   const long e = e0 + t;
   const bool stepper = t < count;
+  int sampled = 0;
+  if constexpr (SAMPLE) {
+    __shared__ int acts[EB];
+    temp_sample::sample_block<A, NT / 32>(f, e0, count, acts);
+    __syncthreads();
+    if (stepper) sampled = acts[t];
+  }
 
   // 1. The stepping threads' per-env inputs (both rows of uniforms, before
   // the step knows which it needs), then the rows: every load of a thread
@@ -422,7 +447,7 @@ __global__ void __launch_bounds__(NT) liars_dice_step_autoreset_kernel(Args g) {
   int action = 0, len = 0;
   float shaping = 0.0f, sum_in[P], u_reset[P * DICE], u_step[P * DICE];
   if (stepper) {
-    action = g.action[e];
+    action = SAMPLE ? sampled : g.action[e];
     shaping = g.shaping[e];
     len = g.acc_len[e] + 1;
 #pragma unroll
@@ -454,7 +479,7 @@ __global__ void __launch_bounds__(NT) liars_dice_step_autoreset_kernel(Args g) {
     g.active[e] = P;
     g.done[e] = done ? 1.0f : 0.0f;
     g.shaping_out[e] = shaping;  // the shaping coefficient survives the reset
-    if (done) reset_row(r, u_reset);
+    if (done && g.reset) reset_row(r, u_reset);
 #pragma unroll
     for (int c = O_PAD; c < W; ++c) r[c] = 0;
     mbits[t] = mask_bits(r);
@@ -495,16 +520,31 @@ __global__ void __launch_bounds__(NT) liars_dice_step_autoreset_kernel(Args g) {
   copy_out<A>(mask_s, g.mask + e0 * A, count);
 }
 
+__global__ void __launch_bounds__(NT) liars_dice_step_autoreset_kernel(Args g) {
+  step_block<false>(g, Front{});
+}
+
+__global__ void __launch_bounds__(NT) liars_dice_sample_step_kernel(Args g, Front f) {
+  step_block<true>(g, f);
+}
+
 }  // namespace
 
 // in: the packed state [E, 76] i32, shaping [E], reward_sum [E, 4],
 // length [E], action [E], reset and step uniforms [E, 8]; out: the i32 and
-// the f32 buffer of envs/liars_dice.py I32_OUT and F32_OUT.
+// the f32 buffer of envs/liars_dice.py I32_OUT and F32_OUT. reset 0 keeps
+// a finished env's terminal row.
+// With the sampling front (logits not null; action null) the block samples
+// its envs' actions from logits, mask (nullable) and uniforms [E, 49] at the
+// temperatures [E] (nullable: ``temp`` for every row) into actions [E],
+// then steps with them (eval's step).
 extern "C" int liars_dice_step_autoreset(const int* ints, const float* shaping,
                                          const float* acc_sum, const int* acc_len,
                                          const int* action, const float* u_reset,
                                          const float* u_step, int* out_i32, float* out_f32,
-                                         int num_envs, void* stream) {
+                                         int num_envs, int reset, const void* logits,
+                                         const void* mask, const void* temps, float temp,
+                                         const void* uniforms, int* actions, void* stream) {
   if (num_envs <= 0) return 0;
   const long E = num_envs;
   Args g;
@@ -542,7 +582,14 @@ extern "C" int liars_dice_step_autoreset(const int* ints, const float* shaping,
   f += block_len(E, A);
   g.priv = f;
   g.num_envs = num_envs;
+  g.reset = reset;
   const int blocks = static_cast<int>((E + EB - 1) / EB);
-  liars_dice_step_autoreset_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (logits != nullptr) {
+    liars_dice_sample_step_kernel<<<blocks, NT, 0, s>>>(
+        g, temp_sample::front_of(logits, mask, temps, temp, uniforms, actions));
+  } else {
+    liars_dice_step_autoreset_kernel<<<blocks, NT, 0, s>>>(g);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,16 @@
 // K2 masked_gumbel_sample — action mask, Gumbel-max sample and log pi(a)
-// for one rollout step, one launch.
+// for one rollout step, with PopArt's denormalisation of the step's values
+// as an optional epilogue: one launch.
 //
 // Replaces the XLA fusion of burn_ppo_tpu/ops/categorical.py
 // apply_action_mask + sample_categorical (jax.random.categorical) +
 // log_prob_categorical (27-81) as used at burn_ppo_tpu/ppo/rollout.py:249-252
-// (ROADMAP queue B, item B2). Plain PyTorch twin:
-// burn_ppo_torch/ops/categorical.py masked_sample_plain.
+// (ROADMAP queue B, item B2), and, with PopArt on, the rollout's
+// burn_ppo_tpu/ppo/normalization.py popart_denormalize (293-294) at
+// ppo/rollout.py:253-254 and ppo/pool_rollout.py:161-162 (item B18, K16's
+// launch a step until it moved here). Plain PyTorch twin:
+// burn_ppo_torch/ops/categorical.py masked_sample_plain, then
+// burn_ppo_torch/ppo/normalization.py popart_denormalize_plain.
 //
 // What bounds it on an H100: launch latency, then bytes. At [4096, 49] a
 // launch reads 3 x 803 KB (logits, mask, uniforms) and writes 32 KB (~0.7
@@ -36,11 +41,19 @@
 //   * log pi(a) = (masked[a] - max) - log(sum exp(masked - max)), the
 //     order of jax.nn.log_softmax; the sum is a tree over the lanes, so its
 //     last bits differ from the plain version's (tolerance 1e-5).
+//   * the value epilogue (VALUES): the lane that writes a row's action
+//     loads the row's value and PopArt's mean, m2 and count with its other
+//     loads, and stores v * std + mean once the count is >= 2, else v
+//     (csrc/popart.cuh, K16's operations), into the caller's slice of the
+//     rollout's values. Without it (null pointers) the kernel is the one
+//     without the epilogue: the same code and bits.
 // Compiled without --use_fast_math: logf/expf are the accurate ones.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "popart.cuh"
 
 namespace {
 
@@ -57,11 +70,21 @@ __device__ __forceinline__ void better(float& v, int& j, float v2, int j2) {
   }
 }
 
-template <int G>
+// The value epilogue's pointers: the step's values [rows], PopArt's
+// scalar stats, and the output slice [rows].
+struct Values {
+  const float* values;
+  const float* mean;
+  const float* m2;
+  const float* count;
+  float* out;
+};
+
+template <int G, bool VALUES>
 __global__ void __launch_bounds__(32 * WARPS) masked_gumbel_sample_kernel(
     const float* __restrict__ logits, const float* __restrict__ mask,
     const float* __restrict__ uniforms, int* __restrict__ actions,
-    float* __restrict__ log_probs, int rows, int A) {
+    float* __restrict__ log_probs, int rows, int A, Values vals) {
   constexpr int RW = 32 / G;                         // rows per warp
   constexpr int EPL = G >= 8 ? MAX_ACTIONS / G : 8 / G;  // entries per lane, at most
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -76,6 +99,15 @@ __global__ void __launch_bounds__(32 * WARPS) masked_gumbel_sample_kernel(
   const int rr = lane / G, sub = lane % G;
   const bool live = rr < nrows;
   const int base = rr * A;
+  float v = 0.0f, mean = 0.0f, m2 = 0.0f, count = 0.0f;
+  if constexpr (VALUES) {
+    if (live && sub == 0) {
+      v = vals.values[row0 + rr];
+      mean = *vals.mean;
+      m2 = *vals.m2;
+      count = *vals.count;
+    }
+  }
   float xs[EPL];
   float mx = -INFINITY, best = -INFINITY;
   int best_j = -1;
@@ -113,26 +145,43 @@ __global__ void __launch_bounds__(32 * WARPS) masked_gumbel_sample_kernel(
     if (has_mask) xa += (m[base + best_j] != 0.0f) ? 0.0f : MASK_NEG;
     actions[row0 + rr] = best_j;
     log_probs[row0 + rr] = (xa - mx) - logf(se);
+    if constexpr (VALUES) vals.out[row0 + rr] = popart::denormalize(v, mean, m2, count);
   }
 }
 
 template <int G>
 cudaError_t launch(const float* logits, const float* mask, const float* uniforms, int* actions,
-                   float* log_probs, int rows, int A, cudaStream_t stream) {
+                   float* log_probs, int rows, int A, const Values& vals,
+                   cudaStream_t stream) {
   const long warps = (static_cast<long>(rows) + 32 / G - 1) / (32 / G);
   const int blocks = static_cast<int>((warps + WARPS - 1) / WARPS);
-  masked_gumbel_sample_kernel<G><<<blocks, 32 * WARPS, 0, stream>>>(
-      logits, mask, uniforms, actions, log_probs, rows, A);
+  if (vals.out != nullptr) {
+    masked_gumbel_sample_kernel<G, true><<<blocks, 32 * WARPS, 0, stream>>>(
+        logits, mask, uniforms, actions, log_probs, rows, A, vals);
+  } else {
+    masked_gumbel_sample_kernel<G, false><<<blocks, 32 * WARPS, 0, stream>>>(
+        logits, mask, uniforms, actions, log_probs, rows, A, vals);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// values, mean, m2, count and values_out all null: no epilogue; all set:
+// values_out[r] = PopArt's denormalisation of values[r].
 extern "C" int masked_gumbel_sample(const void* logits, const void* mask,
                                     const void* uniforms, void* actions,
                                     void* log_probs, int rows, int num_actions,
-                                    void* stream) {
+                                    const void* values, const void* mean, const void* m2,
+                                    const void* count, void* values_out, void* stream) {
   if (num_actions < 1 || num_actions > MAX_ACTIONS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Values vals{static_cast<const float*>(values), static_cast<const float*>(mean),
+                    static_cast<const float*>(m2), static_cast<const float*>(count),
+                    static_cast<float*>(values_out)};
+  const bool some = values || mean || m2 || count || values_out;
+  if (some && !(values && mean && m2 && count && values_out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows <= 0) return 0;
@@ -142,7 +191,8 @@ extern "C" int masked_gumbel_sample(const void* logits, const void* mask,
   auto* a = static_cast<int*>(actions);
   auto* lp = static_cast<float*>(log_probs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = num_actions > 8 ? launch<16>(l, m, u, a, lp, rows, num_actions, s)
-                                          : launch<2>(l, m, u, a, lp, rows, num_actions, s);
+  const cudaError_t err = num_actions > 8
+                              ? launch<16>(l, m, u, a, lp, rows, num_actions, vals, s)
+                              : launch<2>(l, m, u, a, lp, rows, num_actions, vals, s);
   return static_cast<int>(err);
 }

@@ -1,8 +1,8 @@
 // K15 popart_update / K16 popart_denormalize — PopArt's value normaliser:
 // once per update, the valid raw returns merged into the scalar Welford
 // stats and the value head rescaled to keep its denormalised outputs;
-// every rollout step, the critic's values denormalised where the rollout
-// stores them.
+// the bootstrap's values denormalised (each rollout step's are
+// denormalised in K2's launch, csrc/masked_gumbel_sample.cu).
 //
 // Replaces the XLA fusions of burn_ppo_tpu/ppo/normalization.py
 // popart_update, popart_rescale_value_head (272-317) and
@@ -41,12 +41,16 @@
 // graph; the partials' scratch is the caller's, zeroed once.
 //
 // denormalise (K16): a thread an element, y = x * std + mean once the
-// count is >= 2 (two roundings, as the plain version), else x; it writes
-// the rollout's values slice in place of the copy it replaces.
+// count is >= 2 (two roundings, as the plain version; popart.cuh), else x.
+// The rollout's steps denormalise in K2's launch (its value epilogue,
+// csrc/masked_gumbel_sample.cu, the same operations); K16 is the update's
+// one launch, the bootstrap's values.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "popart.cuh"
 
 namespace {
 
@@ -58,14 +62,6 @@ constexpr int MAX_BLOCKS = 1024;  // the grid's cap: a fixed scratch
 constexpr int PER_THREAD = MAX_BLOCKS / FT;  // partials a thread of the last block adds
 constexpr int NS = 3;  // sums a block: w, w (x - c), w (x - c)^2
 constexpr unsigned FULL = 0xffffffffu;
-constexpr float POPART_EPS = 1e-4f;
-
-// PopArt's std: 1 before two samples, else sqrt(m2 / max(count, 1) + eps).
-__device__ __forceinline__ float popart_std(float m2, float count) {
-  if (count < 2.0f) return 1.0f;
-  return sqrtf(__fadd_rn(__fdiv_rn(m2, fmaxf(count, 1.0f)), POPART_EPS));
-}
-
 struct UpdArgs {
   const float* x;
   const float* w;
@@ -213,7 +209,7 @@ __global__ void __launch_bounds__(FT) popart_update_kernel(UpdArgs a) {
     const bool keep = nb > 0.0f;
     const float new_mean = keep ? mean : ma, new_m2 = keep ? m2 : m2a;
     const float new_count = keep ? tot : ca;
-    const float s_old = popart_std(m2a, ca), s_new = popart_std(new_m2, new_count);
+    const float s_old = popart::std_of(m2a, ca), s_new = popart::std_of(new_m2, new_count);
     head[0] = __fdiv_rn(s_old, s_new);
     head[1] = __fdiv_rn(__fsub_rn(__fadd_rn(__fmul_rn(*a.head_b, s_old), ma), new_mean), s_new);
     head[2] = new_count >= 2.0f ? 1.0f : 0.0f;
@@ -237,7 +233,7 @@ __global__ void popart_denormalize_kernel(const float* __restrict__ x,
   const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float c = *count, v = x[i];
-  out[i] = c < 2.0f ? v : __fadd_rn(__fmul_rn(v, popart_std(*m2, c)), *mean);
+  out[i] = popart::denormalize(v, *mean, *m2, c);
 }
 
 }  // namespace

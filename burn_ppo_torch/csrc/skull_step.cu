@@ -3,7 +3,10 @@
 // privileged obs of the post-reset state, one launch per env step. With
 // the reset flag off, a finished env keeps its stepped (terminal) row, and
 // the obs, mask and privileged obs are that row's: one game's last move,
-// as the interactive assistant shows it.
+// as the interactive assistant shows it. With the sampling front
+// (skull_sample_step_kernel, eval's stats engine), the block first samples
+// its envs' actions with K14's row code (temperature_sample.cuh), then
+// steps with them: K14's launch folded into the step's.
 //
 // Replaces the XLA fusion of burn_ppo_tpu/envs/skull.py Skull.step (280-526),
 // obs (529-616), action_mask (619-678), privileged_obs (690-746),
@@ -72,12 +75,17 @@
 //   * XLA divides by a constant as a product with its f32 reciprocal, and
 //     the final reward 1 - 2 eff / (n - 1) is one fused multiply-add; the
 //     kernel writes both out the same way (fmaf, and x * (1.0f / 24.0f)).
+// The sampling front: the block's first two warps sample its 4 envs'
+// actions (16 lanes a row, 2 rows a warp) into shared memory and the
+// actions output, then __syncthreads(), then the step above with those
+// actions. The step kernel without the front is unchanged.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "packed_rows.cuh"
+#include "temperature_sample.cuh"
 
 namespace {
 
@@ -645,7 +653,12 @@ __device__ void write_outputs(const Args& g, const int* rows, const int* der, lo
   }
 }
 
-__global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
+using temp_sample::Front;
+
+// One block's envs; SAMPLE prepends the sampling front (f), else the
+// actions are g.action.
+template <bool SAMPLE>
+__device__ __forceinline__ void step_block(const Args& g, const Front& f) {
   __shared__ int rows[EB * WS];
   __shared__ int der[EB * DW];
   const int n = g.n;
@@ -654,13 +667,20 @@ __global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
   const int t = threadIdx.x;
   const long e = e0 + t;
   const bool stepper = t < count;
+  int sampled = 0;
+  if constexpr (SAMPLE) {
+    __shared__ int acts[EB];
+    temp_sample::sample_block<A, NT / 32>(f, e0, count, acts);
+    __syncthreads();
+    if (stepper) sampled = acts[t];
+  }
 
   // 1. The stepping threads' per-env inputs, then the rows: every load
   // of a thread in flight before its first shared-memory store.
   int action = 0, len = 0;
   float u = 0.0f, rsc = 0.0f, sum_in[MAXP];
   if (stepper) {
-    action = g.action[e];
+    action = SAMPLE ? sampled : g.action[e];
     u = g.u[e];
     rsc = g.shaping[e];
     len = g.acc_len[e] + 1;
@@ -731,19 +751,32 @@ __global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
   write_outputs(g, rows, der, e0, count);
 }
 
+__global__ void __launch_bounds__(NT) skull_step_autoreset_kernel(Args g) {
+  step_block<false>(g, Front{});
+}
+
+__global__ void __launch_bounds__(NT) skull_sample_step_kernel(Args g, Front f) {
+  step_block<true>(g, f);
+}
+
 }  // namespace
 
 // in: the packed state [E, 108] i32, shaping [E], reward_sum [E, n],
 // length [E], action [E], u [E]; out: the i32 and the f32 buffer of
 // envs/skull.py _outputs. reset 0 keeps a finished env's terminal row.
+// With the sampling front (logits not null; action null) the block samples
+// its envs' actions from logits, mask (nullable) and uniforms [E, 33] at the
+// temperatures [E] (nullable: ``temp`` for every row) into actions [E],
+// then steps with them (eval's step).
 extern "C" int skull_step_autoreset(const int* ints, const float* shaping, const float* acc_sum,
                                     const int* acc_len, const int* action, const float* u,
                                     int* out_i32, float* out_f32, int num_envs, int num_players,
-                                    int reset, void* stream) {
+                                    int reset, const void* logits, const void* mask,
+                                    const void* temps, float temp, const void* uniforms,
+                                    int* actions, void* stream) {
   if (num_players < 2 || num_players > MAXP) return static_cast<int>(cudaErrorInvalidValue);
   if (num_envs <= 0) return 0;
   const long E = num_envs;
-  const int n = num_players;
   Args g;
   g.ints = ints;
   g.shaping = shaping;
@@ -759,28 +792,34 @@ extern "C" int skull_step_autoreset(const int* ints, const float* shaping, const
   g.log_len = i;
   i += block_len(E, 1);
   g.outcome = i;
-  i += block_len(E, n);
+  i += block_len(E, num_players);
   g.active = i;
   float* f = out_f32;
   g.shaping_out = f;
   f += block_len(E, 1);
   g.acc_sum_out = f;
-  f += block_len(E, n);
+  f += block_len(E, num_players);
   g.rewards = f;
-  f += block_len(E, n);
+  f += block_len(E, num_players);
   g.done = f;
   f += block_len(E, 1);
   g.log_total = f;
-  f += block_len(E, n);
+  f += block_len(E, num_players);
   g.obs = f;
   f += block_len(E, OBS_DIM);
   g.mask = f;
   f += block_len(E, A);
   g.priv = f;
   g.num_envs = num_envs;
-  g.n = n;
+  g.n = num_players;
   g.reset = reset;
   const int blocks = static_cast<int>((E + EB - 1) / EB);
-  skull_step_autoreset_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (logits != nullptr) {
+    skull_sample_step_kernel<<<blocks, NT, 0, s>>>(
+        g, temp_sample::front_of(logits, mask, temps, temp, uniforms, actions));
+  } else {
+    skull_step_autoreset_kernel<<<blocks, NT, 0, s>>>(g);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,8 @@ from typing import Any, ClassVar, NamedTuple, Optional, Tuple
 
 import torch
 
+from burn_ppo_torch import kernels
+
 State = Any
 
 
@@ -93,6 +95,9 @@ class StepOutput(NamedTuple):
     # [E, 1] and the samples [E]; None where it does not.
     returns: Optional[torch.Tensor] = None
     samples: Optional[torch.Tensor] = None
+    # Where the step sampled its own actions (``front`` of
+    # ``Environment.step_autoreset``): those actions [E] i32.
+    actions: Optional[torch.Tensor] = None
 
 
 def onehot_eq(i: torch.Tensor, size: int) -> torch.Tensor:
@@ -224,13 +229,31 @@ class Environment:
         raise NotImplementedError(f"{self.spec.name} has no privileged observations")
 
     def step_autoreset(self, state, acc, action, reset_values, step_values=None,
-                       roll=None) -> StepOutput:
+                       roll=None, reset: bool = True, front=None) -> StepOutput:
         """One auto-reset step of every env. A single-player env may be
         given ``roll`` = (rolling returns [E, 1], gamma) and fold the return
         normaliser's per-step roll into its step (CartPole does, and fills
         ``StepOutput.returns`` and ``samples``); one that does not leaves
-        both None and the caller rolls."""
-        return autoreset_step(self, state, acc, action, reset_values, step_values)
+        both None and the caller rolls. ``reset`` False keeps a finished
+        env's terminal state (watch mode's last move). With ``front`` (an
+        ``ops/categorical.py TemperatureFront``) and no ``action`` the step
+        takes K14's sample of it (eval's step) and returns those actions in
+        ``StepOutput.actions``; each env's kernel samples in the step's
+        launch."""
+        return autoreset_step(self, state, acc, action, reset_values, step_values, reset, front)
+
+    def sample_step_autoreset(self, state, acc, front, reset_values,
+                              step_values=None) -> StepOutput:
+        """Eval's step of every env: K14's sample of ``front`` then the step,
+        the actions in ``StepOutput.actions``. On a card one launch of the
+        env's step kernel with its sampling front (``step_autoreset`` given
+        the front); on the CPU the plain sample, then ``step_autoreset``
+        with those actions."""
+        if kernels.on_cpu(*front.tensors()):
+            actions = front.plain()
+            out = self.step_autoreset(state, acc, actions, reset_values, step_values)
+            return out._replace(actions=actions)
+        return self.step_autoreset(state, acc, None, reset_values, step_values, front=front)
 
     # -- human-facing helpers (watch mode and human play; base.py:184-195) ----
     def render(self, state: State, index: int = 0) -> Optional[str]:
@@ -354,6 +377,7 @@ def autoreset_step(
     reset_values: torch.Tensor,
     step_values: Optional[torch.Tensor] = None,
     reset: bool = True,
+    front=None,
 ) -> StepOutput:
     """Step every env with auto-reset (plain PyTorch).
 
@@ -361,7 +385,11 @@ def autoreset_step(
     values replace it (burn_ppo_tpu/envs/base.py:248-274); the context
     fields carry over into the fresh state (base.py:265-268). With
     ``reset`` False a finished env keeps its stepped (terminal) state, and
-    the obs, mask and privileged obs are that state's."""
+    the obs, mask and privileged obs are that state's. With ``front`` (a
+    ``TemperatureFront``) the actions are its plain sample, returned in
+    ``StepOutput.actions``."""
+    if front is not None:
+        action = front.plain()
     if step_values is None:
         stepped, rewards, done_b = env.step(state, action)
     else:
@@ -389,4 +417,11 @@ def autoreset_step(
     )
     priv = env.privileged_obs(next_state) if env.spec.privileged_obs_dim else None
     return StepOutput(next_state, next_acc, rewards, done, log, env.obs(next_state),
-                      env.action_mask(next_state), priv)
+                      env.action_mask(next_state), priv,
+                      actions=None if front is None else action)
+
+
+def action_sources(action: Optional[torch.Tensor], front) -> list:
+    """The tensors a step's actions come from: ``action``, or those of the
+    sampling ``front``."""
+    return [action] if front is None else front.tensors()

@@ -15,13 +15,17 @@ plain PyTorch composition (``envs/base.py autoreset_step`` over ``step``,
 ``reset`` and ``obs`` below, then, with ``roll``,
 ``ppo/normalization.py return_norm_roll_plain`` on player 0's slot); for
 CUDA tensors it launches the hand-written kernel ``csrc/cartpole_step.cu``
-(ROADMAP B1), the roll folded in, or raises.
+(ROADMAP B1), the roll folded in, or raises. Given a sampling ``front``
+(``ops/categorical.py TemperatureFront``, eval's step) it steps with K14's
+sample of it: the plain sample then the plain step on the CPU, one launch
+of the kernel with its sampling front on a card.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,10 +38,12 @@ from burn_ppo_torch.envs.base import (
     EpisodeLog,
     StepOutput,
     arena_size,
+    action_sources,
     autoreset_step,
     carve_arena,
     env_row,
 )
+from burn_ppo_torch.ops.categorical import front_args
 from burn_ppo_torch.ppo.normalization import return_norm_roll_plain
 
 # The reference's constants are Python doubles that meet f32 arrays and
@@ -129,8 +135,8 @@ class CartPole(Environment):
                          dim=1)
 
     def step_autoreset(self, state, acc, action, reset_values, step_values=None,
-                       roll=None) -> StepOutput:
-        return cartpole_step_autoreset(self, state, acc, action, reset_values, roll)
+                       roll=None, reset: bool = True, front=None) -> StepOutput:
+        return cartpole_step_autoreset(self, state, acc, action, reset_values, roll, reset, front)
 
     # -- human-facing helpers (cartpole.py:114-139) --------------------------
     def describe_action(self, action: int) -> str:
@@ -161,17 +167,21 @@ def cartpole_step_autoreset(
     env: CartPole,
     state: CartPoleState,
     acc: EpisodeAccumulator,
-    action: torch.Tensor,
+    action: Optional[torch.Tensor],
     reset_values: torch.Tensor,
     roll=None,
+    reset: bool = True,
+    front=None,
 ) -> StepOutput:
     """One auto-reset step of every env: plain PyTorch on the CPU, kernel
     K1 on a CUDA device. With ``roll`` = (rolling returns [E, 1], gamma)
     the step also advances the return normaliser's rolling return of the
     one player and returns it and the samples (``StepOutput.returns``,
-    ``samples``)."""
-    if kernels.on_cpu(state.phys, action, reset_values):
-        out = autoreset_step(env, state, acc, action, reset_values)
+    ``samples``). ``reset`` False keeps a finished env's terminal state.
+    With ``front`` (and no ``action``) the actions are K14's sample of it,
+    in ``StepOutput.actions``."""
+    if kernels.on_cpu(state.phys, reset_values, *action_sources(action, front)):
+        out = autoreset_step(env, state, acc, action, reset_values, reset=reset, front=front)
         if roll is None:
             return out
         returns, gamma = roll
@@ -179,7 +189,7 @@ def cartpole_step_autoreset(
         new_returns, samples = return_norm_roll_plain(returns, out.rewards[:, 0], acting,
                                                       out.done, gamma)
         return out._replace(returns=new_returns, samples=samples)
-    return _launch(state, acc, action, reset_values, roll)
+    return _launch(state, acc, action, reset_values, roll, reset, front)
 
 
 kernels.counted(cartpole_step_autoreset)
@@ -192,10 +202,13 @@ I32_OUT = (("step_idx", 1), ("acc_length", 1), ("log_length", 1), ("outcome", (1
 F32_OUT = (("phys", 4), ("acc_reward_sum", (1,)), ("rewards", (1,)), ("done", 1),
            ("log_total_rewards", (1,)), ("obs", OBS_DIM), ("mask", 2))
 ROLL_OUT = F32_OUT + (("returns", (1,)), ("samples", 1))
+# With the sampling front the i32 buffer also holds the sampled actions.
+ACTIONS_OUT = (("actions", 1),)
 
 
-def _launch(state: CartPoleState, acc: EpisodeAccumulator, action: torch.Tensor,
-            reset_values: torch.Tensor, roll) -> StepOutput:
+def _launch(state: CartPoleState, acc: EpisodeAccumulator, action: Optional[torch.Tensor],
+            reset_values: torch.Tensor, roll, reset: bool = True,
+            front=None) -> StepOutput:
     E, dev = state.phys.shape[0], state.phys.device
     f32, i32 = torch.float32, torch.int32
     kernels.expect(state.phys, "state.phys", f32, (E, 4))
@@ -203,23 +216,25 @@ def _launch(state: CartPoleState, acc: EpisodeAccumulator, action: torch.Tensor,
     kernels.expect(state.step_idx, "state.step_idx", i32, (E,))
     kernels.expect(acc.reward_sum, "reward_sum", f32, (E, 1))
     kernels.expect(acc.length, "length", i32, (E,))
-    kernels.expect(action, "action", i32, (E,))
+    if front is None:
+        kernels.expect(action, "action", i32, (E,))
     kernels.expect(reset_values, "reset_values", f32, (E, 4))
     kernels.expect_rows16(reset_values, "reset_values")
     returns, gamma = (None, 0.0) if roll is None else roll
     if returns is not None:
         kernels.expect(returns, "returns", f32, (E, 1))
     f_out = F32_OUT if returns is None else ROLL_OUT
-    oi = torch.empty(arena_size(E, I32_OUT), dtype=i32, device=dev)
-    of = torch.empty(arena_size(E, f_out), dtype=f32, device=dev)
+    i_out = I32_OUT if front is None else I32_OUT + ACTIONS_OUT
+    ib = torch.empty(arena_size(E, i_out), dtype=i32, device=dev)
+    fb = torch.empty(arena_size(E, f_out), dtype=f32, device=dev)
+    oi, of = carve_arena(ib, E, i_out), carve_arena(fb, E, f_out)
+    p = kernels.ptr
     err = kernels.library().cartpole_step_autoreset(
-        state.phys.data_ptr(), state.step_idx.data_ptr(), acc.reward_sum.data_ptr(),
-        acc.length.data_ptr(), action.data_ptr(), reset_values.data_ptr(),
-        kernels.ptr(returns), oi.data_ptr(), of.data_ptr(), E, float(gamma),
-        kernels.stream(dev))
+        p(state.phys), p(state.step_idx), p(acc.reward_sum), p(acc.length), p(action),
+        p(reset_values), p(returns), p(ib), p(fb), E, float(gamma), int(reset),
+        *front_args(front, oi.get("actions"), 2), kernels.stream(dev))
     kernels.check(err, "cartpole_step_autoreset")
     cartpole_step_autoreset.launches += 1
-    oi, of = carve_arena(oi, E, I32_OUT), carve_arena(of, E, f_out)
     done = of["done"]
     log = EpisodeLog(completed=done, total_rewards=of["log_total_rewards"],
                      length=oi["log_length"], outcome=oi["outcome"],
@@ -227,4 +242,5 @@ def _launch(state: CartPoleState, acc: EpisodeAccumulator, action: torch.Tensor,
     return StepOutput(CartPoleState(of["phys"], oi["step_idx"]),
                       EpisodeAccumulator(of["acc_reward_sum"], oi["acc_length"]),
                       of["rewards"], done, log, of["obs"], of["mask"],
-                      returns=of.get("returns"), samples=of.get("samples"))
+                      returns=of.get("returns"), samples=of.get("samples"),
+                      actions=oi.get("actions"))

@@ -15,10 +15,15 @@ out.
 plain PyTorch composition (``envs/base.py autoreset_step`` over ``step``,
 ``reset``, ``obs``, ``action_mask`` and ``game_outcome`` below); for CUDA
 tensors it launches the hand-written kernel ``csrc/connect_four_step.cu``
-(ROADMAP B10), or raises. The reset draws no randoms.
+(ROADMAP B10), or raises. The reset draws no randoms. Given a sampling
+``front`` (``ops/categorical.py TemperatureFront``, eval's step) it steps
+with K14's sample of it: the plain sample then the plain step on the CPU,
+one launch of the kernel with its sampling front on a card.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,11 +35,13 @@ from burn_ppo_torch.envs.base import (
     EpisodeLog,
     PackedState,
     StepOutput,
+    action_sources,
     arena_size,
     autoreset_step,
     carve_arena,
     env_row,
 )
+from burn_ppo_torch.ops.categorical import front_args
 
 ROWS, COLS = 6, 7
 OBS_DIM = ROWS * COLS * 2 + 2
@@ -149,8 +156,9 @@ class ConnectFour(Environment):
                             torch.where(state.winner == 1, 1, torch.where(full, 2, 3)))
         return placements[which]
 
-    def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
-        return connect_four_step_autoreset(self, state, acc, action, reset_values)
+    def step_autoreset(self, state, acc, action, reset_values, step_values=None,
+                       reset: bool = True, front=None) -> StepOutput:
+        return connect_four_step_autoreset(self, state, acc, action, reset_values, reset, front)
 
     # -- human-facing helpers (connect_four.py:158-185) -----------------------
     def render(self, state: ConnectFourState, index: int = 0) -> str:
@@ -182,14 +190,18 @@ def connect_four_step_autoreset(
     env: ConnectFour,
     state: ConnectFourState,
     acc: EpisodeAccumulator,
-    action: torch.Tensor,
+    action: Optional[torch.Tensor],
     reset_values: torch.Tensor,
+    reset: bool = True,
+    front=None,
 ) -> StepOutput:
     """One auto-reset step of every env: plain PyTorch on the CPU, kernel
-    K4 on a CUDA device."""
-    if kernels.on_cpu(state.ints, action, reset_values):
-        return autoreset_step(env, state, acc, action, reset_values)
-    return _launch(state, acc, action)
+    K4 on a CUDA device. ``reset`` False keeps a finished env's terminal
+    state. With ``front`` (and no ``action``) the actions are K14's sample
+    of it, in ``StepOutput.actions``."""
+    if kernels.on_cpu(state.ints, reset_values, *action_sources(action, front)):
+        return autoreset_step(env, state, acc, action, reset_values, reset=reset, front=front)
+    return _launch(state, acc, action, reset, front)
 
 
 kernels.counted(connect_four_step_autoreset)
@@ -200,27 +212,34 @@ I32_OUT = (("ints", W), ("acc_length", 1), ("log_length", 1), ("outcome", 2),
            ("active_players", 1))
 F32_OUT = (("acc_reward_sum", 2), ("rewards", 2), ("done", 1), ("log_total_rewards", 2),
            ("obs", OBS_DIM), ("mask", COLS))
+# With the sampling front the i32 buffer also holds the sampled actions.
+ACTIONS_OUT = (("actions", 1),)
 
 
-def _launch(state: ConnectFourState, acc: EpisodeAccumulator, action: torch.Tensor) -> StepOutput:
+def _launch(state: ConnectFourState, acc: EpisodeAccumulator, action: Optional[torch.Tensor],
+            reset: bool = True, front=None) -> StepOutput:
     E, dev = state.ints.shape[0], state.ints.device
     kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
     kernels.expect_rows16(state.ints, "state.ints")
     kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, 2))
     kernels.expect(acc.length, "length", torch.int32, (E,))
-    kernels.expect(action, "action", torch.int32, (E,))
-    i32 = torch.empty(arena_size(E, I32_OUT), dtype=torch.int32, device=dev)
+    if front is None:
+        kernels.expect(action, "action", torch.int32, (E,))
+    i_out = I32_OUT if front is None else I32_OUT + ACTIONS_OUT
+    i32 = torch.empty(arena_size(E, i_out), dtype=torch.int32, device=dev)
     f32 = torch.empty(arena_size(E, F32_OUT), dtype=torch.float32, device=dev)
+    oi, of = carve_arena(i32, E, i_out), carve_arena(f32, E, F32_OUT)
+    p = kernels.ptr
     err = kernels.library().connect_four_step_autoreset(
-        state.ints.data_ptr(), acc.reward_sum.data_ptr(), acc.length.data_ptr(),
-        action.data_ptr(), i32.data_ptr(), f32.data_ptr(), E, kernels.stream(dev))
+        p(state.ints), p(acc.reward_sum), p(acc.length), p(action), p(i32), p(f32), E,
+        int(reset), *front_args(front, oi.get("actions"), COLS), kernels.stream(dev))
     kernels.check(err, "connect_four_step_autoreset")
     connect_four_step_autoreset.launches += 1
-    oi, of = carve_arena(i32, E, I32_OUT), carve_arena(f32, E, F32_OUT)
     done = of["done"]
     log = EpisodeLog(completed=done, total_rewards=of["log_total_rewards"],
                      length=oi["log_length"], outcome=oi["outcome"],
                      active_players=oi["active_players"])
     return StepOutput(ConnectFourState(oi["ints"]),
                       EpisodeAccumulator(of["acc_reward_sum"], oi["acc_length"]),
-                      of["rewards"], done, log, of["obs"], of["mask"])
+                      of["rewards"], done, log, of["obs"], of["mask"],
+                      actions=oi.get("actions"))

@@ -25,10 +25,15 @@ replay it.
 plain composition (``envs/base.py autoreset_step`` over ``step``,
 ``reset``, ``obs``, ``action_mask``, ``privileged_obs`` and
 ``game_outcome``); for CUDA tensors it launches the hand-written kernel
-``csrc/liars_dice_step.cu`` (ROADMAP B12), or raises.
+``csrc/liars_dice_step.cu`` (ROADMAP B12), or raises. Given a sampling
+``front`` (``ops/categorical.py TemperatureFront``, eval's step) it steps
+with K14's sample of it: the plain sample then the plain step on the CPU,
+one launch of the kernel with its sampling front on a card.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -40,6 +45,7 @@ from burn_ppo_torch.envs.base import (
     EpisodeLog,
     ShapedPackedState,
     StepOutput,
+    action_sources,
     arena_size,
     autoreset_step,
     carve_arena,
@@ -49,6 +55,7 @@ from burn_ppo_torch.envs.base import (
     push_ring_row,
     read_at,
 )
+from burn_ppo_torch.ops.categorical import front_args
 
 P = 4  # players
 DICE = 2  # dice per player
@@ -307,8 +314,10 @@ class LiarsDice(Environment):
         ], 1)
         return torch.nn.functional.pad(flat, (0, PRIV_DIM - flat.shape[1]))
 
-    def step_autoreset(self, state, acc, action, reset_values, step_values=None) -> StepOutput:
-        return liars_dice_step_autoreset(self, state, acc, action, reset_values, step_values)
+    def step_autoreset(self, state, acc, action, reset_values, step_values=None,
+                       reset: bool = True, front=None) -> StepOutput:
+        return liars_dice_step_autoreset(self, state, acc, action, reset_values, step_values,
+                                         reset, front)
 
     # -- human-facing helpers (liars_dice.py:385-433) -------------------------
     def render(self, state: LiarsDiceState, index: int = 0) -> str:
@@ -359,16 +368,21 @@ def liars_dice_step_autoreset(
     env: LiarsDice,
     state: LiarsDiceState,
     acc: EpisodeAccumulator,
-    action: torch.Tensor,
+    action: Optional[torch.Tensor],
     reset_values: torch.Tensor,
     u: torch.Tensor,
+    reset: bool = True,
+    front=None,
 ) -> StepOutput:
     """One auto-reset step of every env: plain PyTorch on the CPU, kernel
     K13 on a CUDA device. ``reset_values`` and ``u`` [E, 8] are the fresh
-    game's and the reroll's uniforms (``draw_reset``, ``draw_step``)."""
-    if kernels.on_cpu(state.ints, action, reset_values, u):
-        return autoreset_step(env, state, acc, action, reset_values, u)
-    return _launch(state, acc, action, reset_values, u)
+    game's and the reroll's uniforms (``draw_reset``, ``draw_step``);
+    ``reset`` False keeps a finished env's terminal state. With ``front``
+    (and no ``action``) the actions are K14's sample of it, in
+    ``StepOutput.actions``."""
+    if kernels.on_cpu(state.ints, reset_values, u, *action_sources(action, front)):
+        return autoreset_step(env, state, acc, action, reset_values, u, reset, front)
+    return _launch(state, acc, action, reset_values, u, reset, front)
 
 
 kernels.counted(liars_dice_step_autoreset)
@@ -379,35 +393,42 @@ I32_OUT = (("ints", W), ("acc_length", 1), ("log_length", 1), ("outcome", P),
            ("active_players", 1))
 F32_OUT = (("shaping_coef", 1), ("acc_reward_sum", P), ("rewards", P), ("done", 1),
            ("log_total_rewards", P), ("obs", OBS_DIM), ("mask", A), ("priv", PRIV_DIM))
+# With the sampling front the i32 buffer also holds the sampled actions.
+ACTIONS_OUT = (("actions", 1),)
 
 
-def _launch(state: LiarsDiceState, acc: EpisodeAccumulator, action: torch.Tensor,
-            reset_values: torch.Tensor, u: torch.Tensor) -> StepOutput:
+def _launch(state: LiarsDiceState, acc: EpisodeAccumulator, action: Optional[torch.Tensor],
+            reset_values: torch.Tensor, u: torch.Tensor, reset: bool = True,
+            front=None) -> StepOutput:
     E, dev = state.ints.shape[0], state.ints.device
     kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
     kernels.expect_rows16(state.ints, "state.ints")
     kernels.expect(state.shaping_coef, "state.shaping_coef", torch.float32, (E,))
     kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, P))
     kernels.expect(acc.length, "length", torch.int32, (E,))
-    kernels.expect(action, "action", torch.int32, (E,))
+    if front is None:
+        kernels.expect(action, "action", torch.int32, (E,))
     kernels.expect(reset_values, "reset_values", torch.float32, (E, P * DICE))
     kernels.expect(u, "u", torch.float32, (E, P * DICE))
-    i32 = torch.empty(arena_size(E, I32_OUT), dtype=torch.int32, device=dev)
+    i_out = I32_OUT if front is None else I32_OUT + ACTIONS_OUT
+    i32 = torch.empty(arena_size(E, i_out), dtype=torch.int32, device=dev)
     f32 = torch.empty(arena_size(E, F32_OUT), dtype=torch.float32, device=dev)
+    oi, of = carve_arena(i32, E, i_out), carve_arena(f32, E, F32_OUT)
+    p = kernels.ptr
     err = kernels.library().liars_dice_step_autoreset(
-        state.ints.data_ptr(), state.shaping_coef.data_ptr(), acc.reward_sum.data_ptr(),
-        acc.length.data_ptr(), action.data_ptr(), reset_values.data_ptr(), u.data_ptr(),
-        i32.data_ptr(), f32.data_ptr(), E, kernels.stream(dev))
+        p(state.ints), p(state.shaping_coef), p(acc.reward_sum), p(acc.length), p(action),
+        p(reset_values), p(u), p(i32), p(f32), E, int(reset),
+        *front_args(front, oi.get("actions"), A), kernels.stream(dev))
     kernels.check(err, "liars_dice_step_autoreset")
     liars_dice_step_autoreset.launches += 1
-    oi, of = carve_arena(i32, E, I32_OUT), carve_arena(f32, E, F32_OUT)
     done = of["done"]
     log = EpisodeLog(completed=done, total_rewards=of["log_total_rewards"],
                      length=oi["log_length"], outcome=oi["outcome"],
                      active_players=oi["active_players"])
     return StepOutput(LiarsDiceState(oi["ints"], of["shaping_coef"]),
                       EpisodeAccumulator(of["acc_reward_sum"], oi["acc_length"]),
-                      of["rewards"], done, log, of["obs"], of["mask"], of["priv"])
+                      of["rewards"], done, log, of["obs"], of["mask"], of["priv"],
+                      actions=oi.get("actions"))
 
 
 def walk_actions(mask: torch.Tensor, g: torch.Generator) -> torch.Tensor:

@@ -26,11 +26,15 @@ rollout draws at every step (``draw_step``); the JAX env draws
 plain composition (``envs/base.py autoreset_step`` over ``step``,
 ``reset``, ``obs``, ``action_mask``, ``privileged_obs`` and
 ``game_outcome``); for CUDA tensors it launches the hand-written kernel
-``csrc/skull_step.cu`` (ROADMAP B13), or raises.
+``csrc/skull_step.cu`` (ROADMAP B13), or raises. Given a sampling
+``front`` (``ops/categorical.py TemperatureFront``, eval's step) it steps
+with K14's sample of it: the plain sample then the plain step on the CPU,
+one launch of the kernel with its sampling front on a card.
 """
 
 from __future__ import annotations
 
+from typing import Optional
 
 import torch
 
@@ -42,6 +46,7 @@ from burn_ppo_torch.envs.base import (
     EpisodeLog,
     ShapedPackedState,
     StepOutput,
+    action_sources,
     arena_size,
     autoreset_step,
     carve_arena,
@@ -52,6 +57,7 @@ from burn_ppo_torch.envs.base import (
     read_at,
     select_state,
 )
+from burn_ppo_torch.ops.categorical import front_args
 
 MAXP = 6
 CARDS = 4  # per player: 3 roses + 1 skull
@@ -503,10 +509,11 @@ class Skull(Environment):
         return torch.nn.functional.pad(flat, (0, PRIV_DIM - flat.shape[1]))
 
     def step_autoreset(self, state, acc, action, reset_values, step_values=None,
-                       reset: bool = True) -> StepOutput:
+                       reset: bool = True, front=None) -> StepOutput:
         """``reset`` False keeps a finished env's terminal state (K11's
         flag): the last move of one game, as the assistant shows it."""
-        return skull_step_autoreset(self, state, acc, action, reset_values, step_values, reset)
+        return skull_step_autoreset(self, state, acc, action, reset_values, step_values, reset,
+                                    front)
 
     # -- human-facing helpers (skull.py:749-814) -----------------------------
     def render(self, state: SkullState, index: int = 0) -> str:
@@ -571,17 +578,20 @@ def skull_step_autoreset(
     env: Skull,
     state: SkullState,
     acc: EpisodeAccumulator,
-    action: torch.Tensor,
+    action: Optional[torch.Tensor],
     reset_values: torch.Tensor,
     u: torch.Tensor,
     reset: bool = True,
+    front=None,
 ) -> StepOutput:
     """One auto-reset step of every env: plain PyTorch on the CPU, kernel
     K11 on a CUDA device. ``u`` [E] are the step's uniforms (``draw_step``);
-    ``reset`` False keeps a finished env's terminal state."""
-    if kernels.on_cpu(state.ints, action, reset_values, u):
-        return autoreset_step(env, state, acc, action, reset_values, u, reset)
-    return _launch(env, state, acc, action, u, reset)
+    ``reset`` False keeps a finished env's terminal state. With ``front``
+    (and no ``action``) the actions are K14's sample of it, in
+    ``StepOutput.actions``."""
+    if kernels.on_cpu(state.ints, reset_values, u, *action_sources(action, front)):
+        return autoreset_step(env, state, acc, action, reset_values, u, reset, front)
+    return _launch(env, state, acc, action, u, reset, front)
 
 
 kernels.counted(skull_step_autoreset)
@@ -597,33 +607,38 @@ def _outputs(n: int) -> tuple:
              ("log_total_rewards", n), ("obs", OBS_DIM), ("mask", A), ("priv", PRIV_DIM)))
 
 
-def _launch(env: Skull, state: SkullState, acc: EpisodeAccumulator, action: torch.Tensor,
-            u: torch.Tensor, reset: bool = True) -> StepOutput:
+def _launch(env: Skull, state: SkullState, acc: EpisodeAccumulator, action: Optional[torch.Tensor],
+            u: torch.Tensor, reset: bool = True, front=None) -> StepOutput:
     E, n, dev = state.ints.shape[0], env.n, state.ints.device
     kernels.expect(state.ints, "state.ints", torch.int32, (E, W))
     kernels.expect_rows16(state.ints, "state.ints")
     kernels.expect(state.shaping_coef, "state.shaping_coef", torch.float32, (E,))
     kernels.expect(acc.reward_sum, "reward_sum", torch.float32, (E, n))
     kernels.expect(acc.length, "length", torch.int32, (E,))
-    kernels.expect(action, "action", torch.int32, (E,))
+    if front is None:
+        kernels.expect(action, "action", torch.int32, (E,))
     kernels.expect(u, "u", torch.float32, (E,))
     i32_out, f32_out = _outputs(n)
+    if front is not None:
+        i32_out += (("actions", 1),)  # the sampled actions
     i32 = torch.empty(arena_size(E, i32_out), dtype=torch.int32, device=dev)
     f32 = torch.empty(arena_size(E, f32_out), dtype=torch.float32, device=dev)
+    oi, of = carve_arena(i32, E, i32_out), carve_arena(f32, E, f32_out)
+    p = kernels.ptr
     err = kernels.library().skull_step_autoreset(
-        state.ints.data_ptr(), state.shaping_coef.data_ptr(), acc.reward_sum.data_ptr(),
-        acc.length.data_ptr(), action.data_ptr(), u.data_ptr(), i32.data_ptr(), f32.data_ptr(),
-        E, n, int(reset), kernels.stream(dev))
+        p(state.ints), p(state.shaping_coef), p(acc.reward_sum), p(acc.length), p(action), p(u),
+        p(i32), p(f32), E, n, int(reset), *front_args(front, oi.get("actions"), A),
+        kernels.stream(dev))
     kernels.check(err, "skull_step_autoreset")
     skull_step_autoreset.launches += 1
-    oi, of = carve_arena(i32, E, i32_out), carve_arena(f32, E, f32_out)
     done = of["done"]
     log = EpisodeLog(completed=done, total_rewards=of["log_total_rewards"],
                      length=oi["log_length"], outcome=oi["outcome"],
                      active_players=oi["active_players"])
     return StepOutput(SkullState(oi["ints"], of["shaping_coef"]),
                       EpisodeAccumulator(of["acc_reward_sum"], oi["acc_length"]),
-                      of["rewards"], done, log, of["obs"], of["mask"], of["priv"])
+                      of["rewards"], done, log, of["obs"], of["mask"], of["priv"],
+                      actions=oi.get("actions"))
 
 
 def walk_actions(mask: torch.Tensor, g: torch.Generator) -> torch.Tensor:

@@ -11,7 +11,8 @@ src/eval.rs):
     ratings;
   * ``run_stats_mode``: parallel envs, seat permutations rotated between
     games, each env's acting model's logits (``ActingLogits``), the
-    temperature sampler K14, the env step kernel (K1, K4, K11, K13) and
+    env step kernel (K1, K4, K11, K13) with the temperature sampler K14's
+    row code as its sampling front (one launch a step), and
     the step's seating and records (K17, ``step_books``, once a step: the
     seats before a chunk's first step, the records of each step fused with
     the next step's seats, the last step's records alone), chunks of 64
@@ -19,8 +20,8 @@ src/eval.rs):
     the host reading each chunk's episode records once; ``EngineCache``
     keeps one engine per shape for a tournament's pods;
   * ``run_watch_mode`` and ``run_interactive_evaluation``: one env at a
-    time, its text rendered, human moves read from the terminal
-    (``human.py``).
+    time (K14 alone, then the env step with its reset off), its text
+    rendered, human moves read from the terminal (``human.py``).
 
 The JAX engine is one jitted ``lax.scan`` a chunk; here a chunk is one
 CUDA graph replay on a card (``EvalGraph``), the same steps run eagerly
@@ -49,8 +50,8 @@ import torch
 from burn_ppo_torch import kernels
 from burn_ppo_torch.checkpoint import load_metadata, load_model, load_obs_normalizer
 from burn_ppo_torch.envs import make_env
-from burn_ppo_torch.envs.base import Environment, EpisodeAccumulator, env_row
-from burn_ppo_torch.ops.categorical import TINY, sample_with_temperature
+from burn_ppo_torch.envs.base import Environment, EpisodeAccumulator
+from burn_ppo_torch.ops.categorical import TINY, TemperatureFront, sample_with_temperature
 from burn_ppo_torch.ppo.normalization import ObsNormState, obs_norm_apply
 from burn_ppo_torch.ppo.pool_rollout import (
     OpponentStack,
@@ -824,10 +825,12 @@ class StatsEngine:
         the next carry (move counts and permutations advanced in place)."""
         env, E, rng = self.env, self.num_envs, self.rng
         logits = self.logits.forward_slots(c.obs, self.slot)
-        actions = sample_with_temperature(
-            logits, c.mask, self.temps, rng.uniform((E, env.spec.num_actions), TINY, 1.0))
-        out = env.step_autoreset(c.states, c.acc, actions, env.draw_reset(rng, E),
-                                 env.draw_step(rng, E))
+        # K14's sample in the env step's launch; the uniforms drawn first,
+        # as the sampler and the step apart drew them.
+        front = TemperatureFront(logits, c.mask, self.temps,
+                                 rng.uniform((E, env.spec.num_actions), TINY, 1.0))
+        out = env.sample_step_autoreset(c.states, c.acc, front, env.draw_reset(rng, E),
+                                        env.draw_step(rng, E))
         step_books(self.perm_table, c.perm_idx, c.move_count, Records(self.log, t, out.log),
                    None if last else self.seats(out.state))
         return dataclasses.replace(c, states=out.state, acc=out.acc, obs=out.obs, mask=out.mask)
@@ -945,9 +948,9 @@ def run_stats_mode(
 # ---------------------------------------------------------------------------
 class SingleGame:
     """One env (a batch of one) stepped through the env's step kernel, with
-    the text helpers' view of it. When a move ends the game, ``terminal``
-    holds the stepped state before the auto-reset replaced it (the plain
-    step of the same move on the host, for the final render)."""
+    the text helpers' view of it. The step runs with its reset off, so the
+    move that ends the game leaves its terminal state, which ``terminal``
+    holds (for the final render)."""
 
     def __init__(self, env: Environment, rng: RandomSource, device: torch.device):
         self.env, self.rng, self.device = env, rng, device
@@ -969,11 +972,10 @@ class SingleGame:
         reset_values = env.draw_reset(rng, 1)
         u = env.draw_step(rng, 1)
         with torch.no_grad():
-            out = env.step_autoreset(self.state, self.acc, a, reset_values, u)
+            out = env.step_autoreset(self.state, self.acc, a, reset_values, u, reset=False)
         self.rewards = out.rewards[0].cpu().numpy()
         if bool(out.done[0]):
-            args = (env_row(self.state), a.cpu()) + (() if u is None else (u.cpu(),))
-            self.terminal = env.step(*args)[0]
+            self.terminal = out.state
         self.state, self.acc, self.obs, self.mask = out.state, out.acc, out.obs, out.mask
 
     def view(self):

@@ -14,8 +14,10 @@ exception, because a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it.
 
 The wrappers live beside their plain PyTorch versions (``envs/cartpole.py``,
-``envs/connect_four.py``, ``envs/skull.py``, ``envs/liars_dice.py``,
-``ops/categorical.py`` (K2 and K14),
+``envs/connect_four.py``, ``envs/skull.py``, ``envs/liars_dice.py``: each
+env's step, with K14's sampling front as an option,
+``ops/categorical.py`` (K2, with PopArt's denormalisation as an optional
+epilogue, and K14),
 ``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
 ``ppo/pool_rollout.py``,
 ``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17)) and use
@@ -54,19 +56,28 @@ _L = ctypes.c_long
 _F = ctypes.c_float
 _D = ctypes.c_double
 
+# The sampling front of an env step entry (csrc/temperature_sample.cuh
+# Front, ops/categorical.py front_args): logits (null: no front, the
+# step's action given), mask (nullable), temperatures (nullable), the
+# temperature of every row where they are null, uniforms, the sampled
+# actions.
+FRONT = [_VP] * 3 + [_F] + [_VP] * 2
+
 # C signature of every entry point: (name, argtypes). Pointers and the
 # stream are c_void_p (ctypes would otherwise pass a 32-bit int and cut
 # the pointer); scalars are c_int / c_float / c_double.
 SIGNATURES = {
     # physics rows, step_idx, reward_sum, length, action, reset rows, rolling
     # returns (nullable: no roll), the i32 and the f32 output buffer,
-    # num_envs, gamma, stream
-    "cartpole_step_autoreset": [_VP] * 9 + [_I, _F, _VP],
+    # num_envs, gamma, the reset flag, the sampling front (FRONT), stream
+    "cartpole_step_autoreset": [_VP] * 9 + [_I, _F, _I] + FRONT + [_VP],
     # packed state, reward_sum, length, action, the i32 and the f32 output
-    # buffer, num_envs, stream
-    "connect_four_step_autoreset": [_VP] * 6 + [_I, _VP],
-    # logits, mask (nullable), uniforms, actions, log_probs, rows, A, stream
-    "masked_gumbel_sample": [_VP] * 5 + [_I, _I, _VP],
+    # buffer, num_envs, the reset flag, the sampling front, stream
+    "connect_four_step_autoreset": [_VP] * 6 + [_I, _I] + FRONT + [_VP],
+    # logits, mask (nullable), uniforms, actions, log_probs, rows, A; the
+    # value epilogue (all null, or all set): values, PopArt's mean, m2,
+    # count, the values' output slice; stream
+    "masked_gumbel_sample": [_VP] * 5 + [_I, _I] + [_VP] * 6,
     # logits, mask (nullable), temperatures (nullable), the temperature of
     # every row where they are null, uniforms, actions, rows, A, stream
     "temperature_sample": [_VP] * 3 + [_F] + [_VP] * 2 + [_I, _I, _VP],
@@ -108,8 +119,9 @@ SIGNATURES = {
     "episode_stats": [_VP] * 4 + [_I] * 4 + [_VP, _I, _VP, _VP],
     "episode_stats_scratch_len": [],
     # packed state, shaping, reward_sum, length, action, u, the i32 and the
-    # f32 output buffer, num_envs, num_players, stream
-    "skull_step_autoreset": [_VP] * 8 + [_I, _I, _I, _VP],
+    # f32 output buffer, num_envs, num_players, the reset flag, the sampling
+    # front, stream
+    "skull_step_autoreset": [_VP] * 8 + [_I, _I, _I] + FRONT + [_VP],
     # returns, rewards, acting, dones, new_returns, samples, E, P, gamma, stream
     "return_norm_roll": [_VP] * 6 + [_I, _I, _F, _VP],
     # samples, rewards, valid (nullable), mean, m2, count, scratch (f64
@@ -118,8 +130,9 @@ SIGNATURES = {
     "return_norm_finalize": [_VP] * 7 + [_I] + [_VP] * 2 + [_L, _F, _VP],
     "return_norm_finalize_scratch_len": [],
     # packed state, shaping, reward_sum, length, action, reset and step
-    # uniforms, the i32 and the f32 output buffer, num_envs, stream
-    "liars_dice_step_autoreset": [_VP] * 9 + [_I, _VP],
+    # uniforms, the i32 and the f32 output buffer, num_envs, the reset
+    # flag, the sampling front, stream
+    "liars_dice_step_autoreset": [_VP] * 9 + [_I, _I] + FRONT + [_VP],
     # returns, valid, N, mean, m2, count (merged into in place), the value
     # head's weight and bias (rescaled in place), H, scratch (f64
     # [popart_update_scratch_len()]), its length, stream

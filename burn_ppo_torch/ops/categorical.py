@@ -7,7 +7,11 @@ log-softmax, log-prob, entropy and Gumbel-max sampling.
 ``masked_sample`` is the rollout's policy step. For CPU tensors it runs
 the plain PyTorch version (``masked_sample_plain``); for CUDA tensors it
 launches the hand-written kernel ``csrc/masked_gumbel_sample.cu``
-(ROADMAP B2), or raises. The Gumbel noise comes from uniforms the caller
+(ROADMAP B2), or raises. Given PopArt's state, the step's values and an
+output slice, the same launch denormalises the values into the slice
+(its epilogue, K16's operations; the plain path runs
+``ppo/normalization.py popart_denormalize_plain`` after the sample). The
+Gumbel noise comes from uniforms the caller
 draws (``u`` in [tiny, 1)), so tests can hand in the JAX side's draws:
 ``jax.random.categorical(k, l) == argmax(l - log(-log(u)))`` with
 ``u = jax.random.uniform(k, l.shape, minval=tiny, maxval=1)``.
@@ -16,16 +20,20 @@ draws (``u`` in [tiny, 1)), so tests can hand in the JAX side's draws:
 row (or one for all rows), a Gumbel-max sample where it is above 0 and the
 greedy action where it is not. CPU tensors take
 ``sample_with_temperature_plain``; CUDA tensors launch the hand-written
-kernel ``csrc/temperature_sample.cu`` (K14, ROADMAP B16), or raise.
+kernel ``csrc/temperature_sample.cu`` (K14, ROADMAP B16), or raise. Eval's
+stats engine hands the same inputs (``TemperatureFront``) to the env's
+step instead (``front``), whose kernel samples in its own launch
+(``front_args`` checks them and gives the C arguments).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from burn_ppo_torch import kernels
+from burn_ppo_torch.ppo.normalization import popart_denormalize_plain
 
 MASK_NEG = -1.0e9
 TINY = torch.finfo(torch.float32).tiny
@@ -66,12 +74,22 @@ def masked_sample_plain(
 
 
 def masked_sample(
-    logits: torch.Tensor, mask: Optional[torch.Tensor], uniforms: torch.Tensor
+    logits: torch.Tensor, mask: Optional[torch.Tensor], uniforms: torch.Tensor, *,
+    popart=None, values: Optional[torch.Tensor] = None,
+    values_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mask, Gumbel-max sample and log pi(a) of one rollout step."""
+    """Mask, Gumbel-max sample and log pi(a) of one rollout step. With
+    ``popart`` (a ``PopArtState``), the step's ``values`` [rows] are
+    denormalised into ``values_out`` [rows] (a view, such as a step's slice
+    of the rollout's values), in the same launch on a card."""
     ts = (logits, uniforms) if mask is None else (logits, mask, uniforms)
-    if kernels.on_cpu(*ts):
-        return masked_sample_plain(logits, mask, uniforms)
+    epilogue = () if popart is None else (values, popart.mean, popart.m2, popart.count,
+                                           values_out)
+    if kernels.on_cpu(*ts, *epilogue):
+        out = masked_sample_plain(logits, mask, uniforms)
+        if popart is not None:
+            values_out.copy_(popart_denormalize_plain(popart, values))
+        return out
     rows, A = logits.shape
     if A > MAX_KERNEL_ACTIONS:
         raise ValueError(f"masked_sample kernel takes at most {MAX_KERNEL_ACTIONS} actions, got {A}")
@@ -79,12 +97,17 @@ def masked_sample(
     kernels.expect(uniforms, "uniforms", torch.float32, (rows, A))
     if mask is not None:
         kernels.expect(mask, "mask", torch.float32, (rows, A))
+    if popart is not None:
+        for t, name, shape in ((values, "values", (rows,)), (values_out, "values_out", (rows,)),
+                               (popart.mean, "mean", ()), (popart.m2, "m2", ()),
+                               (popart.count, "count", ())):
+            kernels.expect(t, name, torch.float32, shape)
     actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
     log_probs = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    p = kernels.ptr
     err = kernels.library().masked_gumbel_sample(
-        kernels.ptr(logits), kernels.ptr(mask), kernels.ptr(uniforms),
-        kernels.ptr(actions), kernels.ptr(log_probs), rows, A,
-        kernels.stream(logits.device),
+        p(logits), p(mask), p(uniforms), p(actions), p(log_probs), rows, A,
+        *(p(t) for t in epilogue or (None,) * 5), kernels.stream(logits.device),
     )
     kernels.check(err, "masked_gumbel_sample")
     masked_sample.launches += 1
@@ -115,19 +138,37 @@ def sample_with_temperature_plain(
     return torch.where(t <= 0.0, greedy, sampled).to(torch.int32)
 
 
-def sample_with_temperature(
-    logits: torch.Tensor, mask: Optional[torch.Tensor],
-    temperature: Union[float, torch.Tensor], uniforms: torch.Tensor,
-) -> torch.Tensor:
-    """Mask, temperature and sample of one eval step: actions [E] i32.
-    ``uniforms`` [E, A] in [tiny, 1) are drawn by the caller for every row,
-    greedy or not; ``temperature`` is a float or an [E] tensor (a 0-dim
-    tensor only on the CPU)."""
+class TemperatureFront(NamedTuple):
+    """The inputs of one eval step's sample (K14's): ``logits`` [E, A],
+    ``mask`` [E, A] or None, ``temperature`` a float or an [E] tensor (a
+    0-dim tensor only on the CPU), ``uniforms`` [E, A] in [tiny, 1) drawn
+    for every row, greedy or not."""
+
+    logits: torch.Tensor
+    mask: Optional[torch.Tensor]
+    temperature: Union[float, torch.Tensor]
+    uniforms: torch.Tensor
+
+    def tensors(self) -> list:
+        return [t for t in (self.logits, self.mask, self.temperature, self.uniforms)
+                if isinstance(t, torch.Tensor)]
+
+    def plain(self) -> torch.Tensor:
+        return sample_with_temperature_plain(*self)
+
+
+def front_args(front: Optional[TemperatureFront], actions: Optional[torch.Tensor],
+               num_actions: int) -> tuple:
+    """The checked C arguments of K14's row code for CUDA tensors:
+    logits, mask, temperatures (null for a float), the float temperature,
+    uniforms and the ``actions`` [E] i32 output, the rows ``num_actions``
+    wide (an env step kernel's width is its own constant). All null
+    without a front."""
+    if front is None:
+        return (None, None, None, 0.0, None, None)
+    logits, mask, temperature, uniforms = front
     temps = temperature if isinstance(temperature, torch.Tensor) else None
-    ts = [t for t in (logits, mask, temps, uniforms) if t is not None]
-    if kernels.on_cpu(*ts):
-        return sample_with_temperature_plain(logits, mask, temperature, uniforms)
-    rows, A = logits.shape
+    rows, A = actions.shape[0], num_actions
     if A > MAX_KERNEL_ACTIONS:
         raise ValueError(f"temperature_sample kernel takes at most {MAX_KERNEL_ACTIONS} actions, "
                          f"got {A}")
@@ -137,12 +178,25 @@ def sample_with_temperature(
         kernels.expect(mask, "mask", torch.float32, (rows, A))
     if temps is not None:
         kernels.expect(temps, "temperature", torch.float32, (rows,))
+    kernels.expect(actions, "actions", torch.int32, (rows,))
+    return (kernels.ptr(logits), kernels.ptr(mask), kernels.ptr(temps),
+            0.0 if temps is not None else float(temperature), kernels.ptr(uniforms),
+            kernels.ptr(actions))
+
+
+def sample_with_temperature(
+    logits: torch.Tensor, mask: Optional[torch.Tensor],
+    temperature: Union[float, torch.Tensor], uniforms: torch.Tensor,
+) -> torch.Tensor:
+    """Mask, temperature and sample of one eval step: actions [E] i32
+    (``TemperatureFront`` describes the inputs)."""
+    front = TemperatureFront(logits, mask, temperature, uniforms)
+    if kernels.on_cpu(*front.tensors()):
+        return front.plain()
+    rows, A = logits.shape
     actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
-    err = kernels.library().temperature_sample(
-        kernels.ptr(logits), kernels.ptr(mask), kernels.ptr(temps),
-        0.0 if temps is not None else float(temperature), kernels.ptr(uniforms),
-        kernels.ptr(actions), rows, A, kernels.stream(logits.device),
-    )
+    err = kernels.library().temperature_sample(*front_args(front, actions, A), rows, A,
+                                               kernels.stream(logits.device))
     kernels.check(err, "temperature_sample")
     sample_with_temperature.launches += 1
     return actions

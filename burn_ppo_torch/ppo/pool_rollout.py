@@ -54,7 +54,7 @@ from burn_ppo_torch.ppo.rollout import (
     RolloutCarry,
     apply_env_context,
     finish_rollout,
-    store_values,
+    sample_and_store_values,
 )
 
 ACTIVATIONS = {"relu": 1, "tanh": 2}
@@ -303,8 +303,9 @@ def pool_rollout_step(
     players = env.current_player(states)
     obs = obs_norm_apply(obs_norm, obs_raw, obs_clip) if obs_norm is not None else obs_raw
     logits, values = network(obs, carry.priv)
-    actions, log_probs = masked_sample(logits, mask, rng.uniform((E, A), TINY, 1.0))
-    values = store_values(popart, values, buffers, t)  # denormalized (pool_rollout.py:161-162)
+    # the values denormalized (pool_rollout.py:161-162) in K2's launch
+    actions, log_probs, values = sample_and_store_values(
+        logits, mask, rng.uniform((E, A), TINY, 1.0), values, popart, buffers, t)
     learner_turn = (seat.learner_seat < 0) | (players == seat.learner_seat)
     if Ep > 0:
         acting_slot = torch.gather(seat.seat_opp[L:], 1, players[L:].long()[:, None])[:, 0]

@@ -12,10 +12,10 @@ same addresses). Per step, in the reference's order:
   2. normalize the obs with the LAGGED obs-normalizer stats (kernel K6 on
      CUDA);
   3. network forward -> logits, value (the CTDE critic reads the
-     normalized obs and the RAW privileged obs, rollout.py:228-249); with
-     PopArt the value is denormalized as it is stored (kernel K16 on CUDA,
-     rollout.py:253-254);
-  4. masked Gumbel-max sample and log pi(a) (kernel K2 on CUDA);
+     normalized obs and the RAW privileged obs, rollout.py:228-249);
+  4. masked Gumbel-max sample and log pi(a) (kernel K2 on CUDA); with
+     PopArt the value is denormalized as it is stored, in K2's launch
+     (rollout.py:253-254);
   5. env step with auto-reset, episode log captured before the reset
      (kernel K1, K4, K11 or K13 on CUDA);
   6. the rolling-return update of the acting player's return: folded into
@@ -292,8 +292,8 @@ def rollout_step(
     players = env.current_player(states)
     obs = obs_norm_apply(obs_norm, carry.obs, obs_clip) if obs_norm is not None else carry.obs
     logits, values = network(obs, carry.priv)
-    actions, log_probs = masked_sample(logits, carry.mask, rng.uniform((E, A), TINY, 1.0))
-    values = store_values(popart, values, buffers, t)
+    actions, log_probs, values = sample_and_store_values(
+        logits, carry.mask, rng.uniform((E, A), TINY, 1.0), values, popart, buffers, t)
     step = (states, carry.episode_acc, actions, env.draw_reset(rng, E), env.draw_step(rng, E))
     # One player: the env step may fold the roll of slot 0 in.
     if normalize_returns and env.spec.num_players == 1:
@@ -317,15 +317,19 @@ def rollout_step(
                                return_norm=ret_norm, obs=out.obs, mask=out.mask, priv=out.priv)
 
 
-def store_values(popart: Optional[PopArtState], values: torch.Tensor, buffers: RolloutBuffers,
-                 t: int) -> Optional[torch.Tensor]:
-    """With PopArt, the learner's values denormalized straight into slice
-    ``t`` of the buffers' values (K16 on CUDA, in place of the copy) and
-    None returned; else ``values``, for ``RolloutBuffers.put``."""
+def sample_and_store_values(logits: torch.Tensor, mask: Optional[torch.Tensor],
+                            uniforms: torch.Tensor, values: torch.Tensor,
+                            popart: Optional[PopArtState], buffers: RolloutBuffers,
+                            t: int) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """K2 on the learner's step: (actions, log-probs, values). With
+    PopArt, the values are denormalized straight into slice ``t`` of the
+    buffers' values in K2's launch (its epilogue, in place of the copy) and
+    None returned for them; else ``values``, for ``RolloutBuffers.put``."""
     if popart is None:
-        return values
-    popart_denormalize(popart, values, out=buffers.values[t])
-    return None
+        return (*masked_sample(logits, mask, uniforms), values)
+    actions, log_probs = masked_sample(logits, mask, uniforms, popart=popart, values=values,
+                                       values_out=buffers.values[t])
+    return actions, log_probs, None
 
 
 def finish_rollout(

@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K3, K5, K10, K15, K17, train phases 3, 3d,
-                                         # train steps and the Skull eval chunk in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K2 + K16, K14 + step, K3, K5, K10,
+                                         # K15, train phases 3, 3d, train steps and the Skull
+                                         # eval chunk in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -61,8 +62,19 @@ exits non-zero without the final result line:
      for bit at E = 1, 64, 256 and 4096, P = 2 and 4, under constant,
      cutoff and decay schedules with a Random seat (also with a seat
      table of 1680 maps), timed at [256, 4], the fused launch in turns
-     against the two halves launched apart (with --parent, the parent's
-     two passes);
+     against the two halves launched apart;
+     each env step with K14's row code as its sampling front (eval's one
+     launch a step: the step wrappers given a ``front``, their kernels'
+     ``<env>_sample_step_kernel`` instance) against K14 then the step and
+     against the plain sample then the plain step on the same inputs at
+     E = 1, 64, 256 and 4096 along 12-step walks, the actions and every
+     output bit for bit (CartPole's physics and obs against the plain
+     step to K1's 1e-5), timed at the env's
+     eval shape in turns with K14 + the step (with --parent, also with the
+     parent's K14 + step: Connect Four at 64 envs, Skull at 256 and 4096);
+     K1, K4 and K13 also with the reset flag off (a finished env's terminal
+     row kept) against the plain step, K4 at every step of its walk, K13
+     every fourth;
      each kernel's least time on the card (bytes or operations) and,
      where one PyTorch call computes the same function, that call's time;
      K3, K4, K5, K6, K9, K10 and K13 print their ptxas lines (registers,
@@ -85,9 +97,14 @@ exits non-zero without the final result line:
      and 2 (the rescale's gate); two calls and two replays of a captured
      graph bit for bit; timed beside torch.var_mean, in turns with it on
      the device clock (with --parent, also with the parent's K15, which
-     must agree to the same tolerance); K16, the rollout's
-     denormalisation, bit for bit at [4096] into a step's slice; K8 with
-     PopArt's stats and the adaptive entropy controller stepping, at
+     must agree to the same tolerance); K16, the bootstrap's
+     denormalisation, bit for bit at [4096] into a step's slice; K2 with
+     its value epilogue (the rollout steps' denormalisation) against K2
+     then K16 at [4096, 2] and [4096, 49], counts 0, 1, 2 and 5000, bit
+     for bit, timed in turns with the two launches (with --parent, the
+     parent's two); the rollout with PopArt on (CartPole, Liar's Dice CTDE
+     against the pool) by both routes from one state, bit for bit; K8
+     with PopArt's stats and the adaptive entropy controller stepping, at
      [65536, 7] and [65536, 49] with the value clip;
   2b. one K9 step, one K6 apply, one K1 step with the roll and one K12
      finalize captured into CUDA graphs: each replay equal bit for bit to
@@ -185,20 +202,26 @@ exits non-zero without the final result line:
   3k. (in a process of its own, with 3l) the eval command through
      cli.main on the card, every stats chunk one CUDA graph replay (``eval.StatsEngine``,
      ``EvalGraph``): Connect Four r4 against r4_mid, greedy, 256 games x
-     64 envs (K4, K7, K14, K17 65 launches a chunk; each
+     64 envs (K4 with K14's sampling front, K7, K17 65 launches a chunk,
+     K14 alone none; each
      wrapper's launches the graph's captured x replayed plus its warm-up),
      the game records equal to a CPU run; Skull r4, r4_best, r4_mid and
-     Random, 1024 games x 256 envs (K11, K7, K14, K17; valid placements;
+     Random, 1024 games x 256 envs (K11 with the sampling front, K7, K17;
+     valid placements;
      one chunk graphed and eager in turns: events ms, device ms, idle
      share; games/s both ways in turns; the kernels counted on the device
-     in one replay against those captured, K17 65 times); with --parent,
+     in one replay against those captured, K17 65 times, the fused step
+     64, K14 and K11 without its front 0); with --parent,
      that chunk of the parent's tree and this one in turns, each in a
      process of its own (phase ``eval_chunk_turns``); from one saved carry and generator state, two graph
      replays against two eager chunks bit for bit on the stacked, single,
      per-model (the CTDE towers, and a seeded CNN) and random paths; a
      watched Connect Four and a watched Skull game (eager: the env step
      and K14 at E = 1, K6 for each model move), printed; K4, K11 and K14
-     at E = 1 against their plain versions;
+     at E = 1 against their plain versions; a watched game of each env
+     (``eval.SingleGame``, the step's reset off) to its end, its last
+     position the plain step's; CartPole with a Random player, 256 games
+     (K1 with the sampling front);
   3l. (after 3k, in its process) the tournament command on the three
      gauntlets as scripts/gauntlet.py rate plays them (48 games a pod on
      Skull, 192 on Connect Four and Liar's Dice), under seeds 0 and 1,
@@ -214,7 +237,8 @@ exits non-zero without the final result line:
   3m. phase ``popart_entropy_train``: CartPole at the bench shape and
      configs/liars_dice_ctde.toml at 4096 envs against the pool, each with
      --normalize-values --adaptive-entropy 0.5 through the CLI, 4 updates
-     (K15 once an update, K16 T + 1 times, every count checked as in the
+     (K15 once an update, K16 once (the bootstrap's; the rollout steps
+     denormalise in K2's launch), every count checked as in the
      other train phases; the Liar's Dice KL stop required to fire), the
      PopArt and controller series printed update by update; then, in a
      process of its own, both updates as graphs against the eager loop bit
@@ -239,6 +263,14 @@ exits non-zero without the final result line:
      bit to the plain step's on the same uniform (K11 with its reset
      off), K11 once per applied move and K6 once per forward, the median
      ms per route;
+  3p. phase ``interop`` (after 3o, in its process): Burn NamedMpk
+     directories of the Rust reference's layout written from the Connect
+     Four and Skull r4 checkpoints (``write_burn_dir``, the MessagePack
+     encoder here), loaded on the card through the loaders' route to
+     ``interop.py``: parameters and obs normaliser bit for bit the
+     ``.npz`` original's, two graphed chunks of each bit for bit the
+     original's, ``eval`` (kernels counted) and ``tournament`` on the
+     Connect Four directory with the original's games and standings;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps; then the same with
      --normalize-values, printed beside the JAX package's CPU result for
@@ -286,7 +318,11 @@ sys.path.insert(0, str(ROOT))
 from burn_ppo_torch import kernels  # noqa: E402
 from burn_ppo_torch.device import resolve_device  # noqa: E402
 from burn_ppo_torch.envs.base import EpisodeAccumulator, autoreset_step  # noqa: E402
-from burn_ppo_torch.envs.cartpole import CartPole, CartPoleState, cartpole_step_autoreset  # noqa: E402
+from burn_ppo_torch.envs.cartpole import (  # noqa: E402
+    CartPole,
+    CartPoleState,
+    cartpole_step_autoreset,
+)
 from burn_ppo_torch.envs.connect_four import (  # noqa: E402
     COLS,
     ROWS,
@@ -310,7 +346,9 @@ from burn_ppo_torch.envs.skull import (  # noqa: E402
 )
 from burn_ppo_torch.ops.categorical import (  # noqa: E402
     TINY,
+    TemperatureFront,
     apply_action_mask,
+    front_args,
     masked_sample,
     masked_sample_plain,
     sample_with_temperature,
@@ -384,6 +422,7 @@ from burn_ppo_torch.ppo.rollout import (  # noqa: E402
     finish_rollout,
     init_rollout_carry,
 )
+from burn_ppo_torch.ppo.rollout import sample_and_store_values as SAMPLE_AND_STORE  # noqa: E402
 from burn_ppo_torch.ppo.rollout_graph import RolloutGraph, state_leaves  # noqa: E402
 from burn_ppo_torch.ppo.update import AdamState  # noqa: E402
 from burn_ppo_torch.ppo.update_graph import UpdateGraph, UpdateRunner  # noqa: E402
@@ -469,6 +508,10 @@ SOURCES = {
                            "burn_ppo_tpu/ppo/normalization.py:293"),
     "step_books": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:575"),
 }
+# The env steps with K14's row code as their sampling front (the step
+# kernels' other instance, launched by the same wrappers): eval's sample
+# (eval.py:577-579) and env step (eval.py:581-583) in one launch.
+SAMPLE_FRONT_REPLACES = "burn_ppo_tpu/eval.py:579"
 
 
 T_START = time.time()
@@ -648,27 +691,36 @@ def turns(new, other, who: str = "parent", only: str | None = None,
 
 
 class ParentKernels:
-    """The parent commit's K3, K5, K10, K15 and K17 (their C entry points
-    as cc5c46c and 05cbb50 have them), built from a checkout of it into a
-    library of their own and called as its wrappers called them (the
-    argument checks and the allocations: K3's and K5's outputs per call;
-    K10's one launch with its scratch, made once, and its output per call;
-    K15's cooperative launch with a scratch of its own, made once; K17's
-    seat and record passes, two launches a step), so that they are timed
-    beside the new kernels in the same process."""
+    """The parent commit's kernels (their C entry points as 80f701e has
+    them), built from a checkout of it into a library of their own (one
+    ``nvcc`` a source, all at once, then one link) and called as its
+    wrappers called them (the argument checks and the allocations), so
+    that they are timed beside the new kernels in the same process: K3,
+    K5, K10 and K15 (unchanged here; K10's scratch and K15's made once);
+    K2 without the value epilogue and K16, the rollout's two launches a
+    step with PopArt on; K14 and the Connect Four and Skull steps, eval's
+    two launches a step. Its ptxas lines cover every step kernel (K1, K4,
+    K11, K13), K2 and K14, beside this tree's."""
 
-    SOURCES = ("gae.cu", "gae_multiplayer.cu", "episode_stats.cu", "popart.cu", "eval_step.cu")
+    SOURCES = ("gae.cu", "gae_multiplayer.cu", "episode_stats.cu", "popart.cu",
+               "masked_gumbel_sample.cu", "temperature_sample.cu", "cartpole_step.cu",
+               "connect_four_step.cu", "skull_step.cu", "liars_dice_step.cu")
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
         out = ROOT / ".cache" / "burn_ppo_torch" / "parent" / "libparent_kernels.so"
         out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(out),
-               *(str(csrc / f) for f in self.SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"parent kernels failed to build:\n{res.stdout}{res.stderr}")
-        self.ptxas = ptxas_summary(res.stdout + res.stderr)
+        objs = [out.parent / f"{Path(f).stem}.o" for f in self.SOURCES]
+        nvcc = kernels._nvcc()
+        logs = []
+        for cmds in ([[nvcc, *kernels.NVCC_FLAGS, "-c", "-o", str(o), str(csrc / f)]
+                      for f, o in zip(self.SOURCES, objs)],
+                     [[nvcc, *kernels.ARCH, "-shared", "-o", str(out), *map(str, objs)]]):
+            for rc, text in kernels._run_all(cmds):
+                logs.append(text)
+                if rc != 0:
+                    raise RuntimeError(f"parent kernels failed to build:\n{text}")
+        self.ptxas = ptxas_summary("\n".join(logs))
         vp, i, f, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
         self.lib = ctypes.CDLL(str(out))
         for name, argtypes in (("gae_reverse_scan", [vp] * 6 + [i, i, f, f, vp]),
@@ -678,17 +730,18 @@ class ParentKernels:
                                ("episode_stats_scratch_len", []),
                                ("popart_update", [vp, vp, lg] + [vp] * 5 + [i, vp, i, vp]),
                                ("popart_update_scratch_len", []),
-                               ("eval_sample_seats", [vp, i, i, vp, vp, lg, vp, vp, i] + [f] * 5
-                                + [vp, vp, i, vp]),
-                               ("eval_record_step", [vp] * 5 + [i] + [vp] * 4 + [i, i, vp])):
+                               ("popart_denormalize", [vp] * 5 + [lg, vp]),
+                               ("masked_gumbel_sample", [vp] * 5 + [i, i, vp]),
+                               ("temperature_sample", [vp] * 3 + [f] + [vp] * 2 + [i, i, vp]),
+                               ("connect_four_step_autoreset", [vp] * 6 + [i, vp]),
+                               ("skull_step_autoreset", [vp] * 8 + [i, i, i, vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         self.scratch = None  # K10's, made at its first call, as the parent made it
         self.popart_scratch = None  # K15's, made at its first call
 
     def popart_update(self, state, returns, valid, kernel, bias) -> None:
-        """The parent's K15 (one cooperative launch of at most the resident
-        grid, two grid barriers) into ``state`` and the head in place."""
+        """The parent's K15 into ``state`` and the head in place."""
         N, H = returns.numel(), kernel.numel()
         kernels.expect(returns, "returns", torch.float32, (N,))
         kernels.expect(valid, "valid", torch.float32, (N,))
@@ -698,40 +751,59 @@ class ParentKernels:
         if self.popart_scratch is None:
             with torch.cuda.device(dev):
                 n = self.lib.popart_update_scratch_len()
-            self.popart_scratch = torch.empty(n, dtype=torch.float64, device=dev)
+            self.popart_scratch = torch.zeros(n, dtype=torch.float64, device=dev)
         p = kernels.ptr
         kernels.check(self.lib.popart_update(
             p(returns), p(valid), N, p(state.mean), p(state.m2), p(state.count), p(kernel),
             p(bias), H, p(self.popart_scratch), self.popart_scratch.numel(),
             kernels.stream(dev)), "parent K15")
 
-    def sample_seats(self, perm_table, perm_idx, player, slot_of_source, move_count, temp, slot,
-                     temps) -> None:
-        """The parent's K17 seat pass, a launch of its own."""
-        n_perms, P = perm_table.shape
-        E = perm_idx.shape[0]
-        kernels.expect(perm_table, "perm_table", torch.int32, (n_perms, P))
-        for t, name in ((perm_idx, "perm_idx"), (move_count, "move_count"), (slot, "slot")):
-            kernels.expect(t, name, torch.int32, (E,))
-        kernels.expect(temps, "temps", torch.float32, (E,))
-        p = kernels.ptr
-        kernels.check(self.lib.eval_sample_seats(
-            p(perm_table), n_perms, P, p(perm_idx), p(player), player.stride(0),
-            p(slot_of_source), p(move_count), *temp.kernel_args(), p(slot), p(temps), E,
-            kernels.stream(perm_idx.device)), "parent K17 seats")
+    def sample_then_denormalize(self, logits, mask, uniforms, state, values, out):
+        """The parent's rollout step with PopArt on: K2 (actions and
+        log-probs into new outputs), then K16 into ``out``."""
+        rows, A = logits.shape
+        for t, name, shape in ((logits, "logits", (rows, A)), (uniforms, "uniforms", (rows, A)),
+                               (values, "values", (rows,)), (out, "out", (rows,))):
+            kernels.expect(t, name, torch.float32, shape)
+        actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
+        log_probs = torch.empty(rows, dtype=torch.float32, device=logits.device)
+        p, st = kernels.ptr, kernels.stream(logits.device)
+        kernels.check(self.lib.masked_gumbel_sample(p(logits), p(mask), p(uniforms), p(actions),
+                                                    p(log_probs), rows, A, st), "parent K2")
+        kernels.check(self.lib.popart_denormalize(p(values), p(state.mean), p(state.m2),
+                                                  p(state.count), p(out), rows, st),
+                      "parent K16")
+        return actions, log_probs
 
-    def record_step(self, log, t, step_log, perm_idx, move_count, n_perms) -> None:
-        """The parent's K17 record pass, a launch of its own."""
-        _, E, P = log.outcome.shape
-        kernels.expect(step_log.completed, "completed", torch.float32, (E,))
-        kernels.expect(perm_idx, "perm_idx", torch.int32, (E,))
-        kernels.expect(move_count, "move_count", torch.int32, (E,))
-        p = kernels.ptr
-        kernels.check(self.lib.eval_record_step(
-            p(step_log.completed), p(step_log.outcome), p(step_log.total_rewards), p(perm_idx),
-            p(move_count), n_perms, p(log.completed[t]), p(log.outcome[t]),
-            p(log.total_rewards[t]), p(log.perm[t]), E, P, kernels.stream(perm_idx.device)),
-            "parent K17 records")
+    def sample_then_step(self, env, state, acc, front, u):
+        """The parent's eval step on Connect Four or Skull: K14 into new
+        actions, then the env step kernel into new output buffers, as its
+        wrappers made them. Returns (actions, the i32 buffer, the f32
+        buffer)."""
+        from burn_ppo_torch.envs import connect_four as c4
+        from burn_ppo_torch.envs import skull as sk
+
+        E, A = front.logits.shape
+        dev = front.logits.device
+        actions = torch.empty(E, dtype=torch.int32, device=dev)
+        p, st = kernels.ptr, kernels.stream(dev)
+        kernels.check(self.lib.temperature_sample(*front_args(front, actions, A), E, A, st),
+                      "parent K14")
+        if isinstance(env, ConnectFour):
+            i_out, f_out = c4.I32_OUT, c4.F32_OUT
+        else:
+            i_out, f_out = sk._outputs(env.n)
+        i32 = torch.empty(c4.arena_size(E, i_out), dtype=torch.int32, device=dev)
+        f32 = torch.empty(c4.arena_size(E, f_out), dtype=torch.float32, device=dev)
+        if isinstance(env, ConnectFour):
+            err = self.lib.connect_four_step_autoreset(
+                p(state.ints), p(acc.reward_sum), p(acc.length), p(actions), p(i32), p(f32), E, st)
+        else:
+            err = self.lib.skull_step_autoreset(
+                p(state.ints), p(state.shaping_coef), p(acc.reward_sum), p(acc.length),
+                p(actions), p(u), p(i32), p(f32), E, env.n, 1, st)
+        kernels.check(err, "parent step")
+        return actions, c4.carve_arena(i32, E, i_out), c4.carve_arena(f32, E, f_out)
 
     def gae(self, rewards, values, dones, last_values, gamma: float, gae_lambda: float):
         T, E = values.shape
@@ -817,6 +889,11 @@ class EmptyKernel:
         kernels.check(self.lib.empty_launch(kernels.stream(torch.device("cuda"))), "empty kernel")
 
 
+FLAG_OFF_KERNELS = ("cartpole_step_autoreset_kernel", "connect_four_step_autoreset_kernel",
+                    "skull_step_autoreset_kernel", "liars_dice_step_autoreset_kernel",
+                    "masked_gumbel_sample_kernel", "temperature_sample_kernel")
+
+
 def same_kernel_sources(parent_dir: Path) -> bool:
     """Whether the parent's ``csrc`` holds exactly this tree's sources."""
     theirs = parent_dir / "burn_ppo_torch" / "csrc"
@@ -894,6 +971,21 @@ def check_cartpole(dev, g) -> dict:
                 raise AssertionError(f"cartpole_step_autoreset E={n}: a branch was not reached: {ev}")
             out[f"E{n}_{'roll' if rolled else 'no_roll'}"] = {"max_abs_err": err, **ev}
             out["max_abs_err"] = max(out["max_abs_err"], err)
+        # the reset off (a watched game's last move): a finished env keeps
+        # its stepped row and step count
+        k = env.step_autoreset(state, acc, action, reset, reset=False)
+        p = autoreset_step(env, state, acc, action, reset, reset=False)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in (
+            (k.state.step_idx, p.state.step_idx), (k.done, p.done), (k.rewards, p.rewards),
+            (k.acc.length, p.acc.length), (k.log.length, p.log.length)))
+        err = max_err([(k.state.phys, p.state.phys), (k.obs, p.obs)])
+        kept = int((k.state.step_idx[p.done > 0] > 0).sum())
+        if not (same and err <= 1e-5 and kept == int((p.done > 0).sum()) > 0):
+            raise AssertionError(f"cartpole_step_autoreset E={n}, reset off: discrete outputs "
+                                 f"equal {same}, max abs err {err}, {kept} terminal rows kept")
+        out[f"E{n}_reset_off"] = {"max_abs_err": err, "terminal_rows_kept": kept}
+        out["max_abs_err"] = max(out["max_abs_err"], err)
     s, a, act, rs, ret = cartpole_inputs(dev, g, E)
     roll = (ret, 0.99)
     k = env.step_autoreset(s, a, act, rs, None, roll)
@@ -1097,11 +1189,13 @@ def kernel_ptxas(ptxas: list, name: str) -> list:
 
 def check_connect_four(dev, g, ptxas: list) -> dict:
     """K4 against the plain step over four consecutive steps: every output
-    equal, bit for bit. Timed on the last step."""
+    equal, bit for bit, with the reset on and off (a finished env's
+    terminal row kept, as a watched game's last move; the finished rows so
+    checked counted). Timed on the last step."""
     env, state, acc = connect_four_states(dev, g)
     empty = torch.empty(E, 0, device=dev)
     stats = {"steps": 4, "dones": 0, "wins_h_v_d1_d2": [0, 0, 0, 0], "draws": 0,
-             "no_outcome": 0, "out_of_range": 0, "done_in": 0}
+             "no_outcome": 0, "out_of_range": 0, "done_in": 0, "terminal_rows_kept": 0}
     for _ in range(4):
         action = connect_four_actions(env, state, dev, g)
         k = env.step_autoreset(state, acc, action, empty)
@@ -1110,6 +1204,13 @@ def check_connect_four(dev, g, ptxas: list) -> dict:
         bad = step_differences(k, p, ConnectFourState.INT_FIELDS)
         if bad:
             raise AssertionError(f"connect_four_step_autoreset: {bad} differ from plain")
+        bad = step_differences(env.step_autoreset(state, acc, action, empty, reset=False),
+                               autoreset_step(env, state, acc, action, empty, reset=False),
+                               ConnectFourState.INT_FIELDS)
+        if bad:
+            raise AssertionError(f"connect_four_step_autoreset, reset off: {bad} differ from "
+                                 "plain")
+        stats["terminal_rows_kept"] += int(p.done.sum())
         stepped, rewards, done = env.step(state, action)
         won = rewards.abs().sum(1) > 0
         dirs = win_directions(stepped.board == (state.current + 1)[:, None, None])[won]
@@ -1123,7 +1224,8 @@ def check_connect_four(dev, g, ptxas: list) -> dict:
         last = (state, acc, action)
         state, acc = p.state, p.acc
     if (min(stats["wins_h_v_d1_d2"]) == 0 or min(stats["draws"], stats["no_outcome"],
-                                                   stats["out_of_range"], stats["done_in"]) == 0):
+                                                   stats["out_of_range"], stats["done_in"],
+                                                   stats["terminal_rows_kept"]) == 0):
         raise AssertionError(f"connect_four_step_autoreset: a branch was not reached: {stats}")
     s, a, act = last
     k = env.step_autoreset(s, a, act, empty)
@@ -1247,18 +1349,20 @@ def check_skull(dev, g) -> tuple:
 def liars_dice_walk(dev, g, steps: int) -> tuple:
     """K13 against the plain step at every step of a random-legal walk of
     4096 envs (``walk_actions``: calls, patient rounds, 1% unmasked and
-    0.5% out-of-range actions): every output equal, bit for bit. Before
-    each step 0.3% of the envs are marked finished; half play with a
-    shaping coefficient of 0.05. Returns (env, the last step's inputs and
-    K13 output, event counts)."""
+    0.5% out-of-range actions): every output equal, bit for bit, with the
+    reset on and, every fourth step, with it off (a finished env's
+    terminal row kept, as a watched game's last move; the finished rows so
+    checked counted). Before each step 0.3% of the envs are marked
+    finished; half play with a shaping coefficient of 0.05. Returns (env,
+    the last step's inputs and K13 output, event counts)."""
     env = LiarsDice()
     state = env.reset(torch.rand(E, 8, generator=g, device=dev))
     state = LiarsDiceState(state.ints, (torch.arange(E, device=dev) % 2) * 0.05)
     acc = EpisodeAccumulator.zero(E, 4, dev)
     ev = dict.fromkeys(("calls", "dice_lost", "eliminations", "game_ends", "finished_games_in",
                         "invalid_actions", "out_of_range_actions", "full_histories",
-                        "shaped_rounds"), 0)
-    for _ in range(steps):
+                        "shaped_rounds", "terminal_rows_kept"), 0)
+    for step in range(steps):
         over = state.game_over | (torch.rand(E, generator=g, device=dev) < 0.003)
         state = LiarsDiceState.of(state.shaping_coef, **{**state.fields(), "game_over": over})
         mask = env.action_mask(state)
@@ -1271,6 +1375,12 @@ def liars_dice_walk(dev, g, steps: int) -> tuple:
         bad = step_differences(k, p)
         if bad:
             raise AssertionError(f"liars_dice_step_autoreset: {bad} differ from plain")
+        bad = step % 4 == 0 and step_differences(
+            env.step_autoreset(state, acc, action, u_reset, u_step, reset=False),
+            autoreset_step(env, state, acc, action, u_reset, u_step, reset=False))
+        if bad:
+            raise AssertionError(f"liars_dice_step_autoreset, reset off: {bad} differ from plain")
+        ev["terminal_rows_kept"] += int((k.done > 0).sum()) if step % 4 == 0 else 0
         stepped, _, _ = env.step(state, action, u_step)
         in_range = (action >= 0) & (action < 49)
         legal = torch.gather(mask, 1, action.long().clamp(0, 48)[:, None])[:, 0] > 0
@@ -2295,8 +2405,14 @@ def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict
                **update_bound(cfg, net, runner, opt, minibatches["graph"]),
                library_ms=None,
                replay_kernel_counts=replay_kernel_counts(updater.graph, UPDATE_KERNELS))
-    if popart is not None:  # K16 in the rollout, T a replay
-        out["rollout_replay_kernel_counts"] = replay_kernel_counts(runner.graph)
+    if popart is not None:  # K16: once in the update (the bootstrap), never in the rollout
+        rollout_counts = replay_kernel_counts(runner.graph)
+        k16 = (rollout_counts["counts"].get("popart_denormalize", [0, 0]),
+               out["replay_kernel_counts"]["counts"].get("popart_denormalize"))
+        if k16 != ([0, 0], [1, 1]):
+            raise AssertionError(f"{name}: K16 in one replay of the rollout and of the update "
+                                 f"graph {k16}, want [0, 0] and [1, 1]")
+        out["rollout_replay_kernel_counts"] = rollout_counts
     if updater.entropy is not None:
         out["adaptive_ent_coef"] = float(updater.entropy.coef)
         out["value_norm"] = [float(runner.popart.mean), float(runner.popart.std)]
@@ -3018,7 +3134,7 @@ def resume_case(name: str) -> tuple:
                 lambda n, pool: {"cartpole_step_autoreset": n * T, "masked_gumbel_sample": n * T,
                                  "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2),
                                  "obs_norm_update": n, "return_norm_finalize": n,
-                                 **({"popart_update": n, "popart_denormalize": n * (T + 1)}
+                                 **({"popart_update": n, "popart_denormalize": n}
                                     if popart else {})})
     return (["--config", str(ROOT / "configs" / "liars_dice_ctde.toml"), "--num-envs", str(E)],
             E * T_LD,
@@ -3481,6 +3597,71 @@ def check_popart(dev, g, parent: "ParentKernels | None" = None) -> dict:
             "ppo_loss_popart_entropy": check_ppo_loss_popart_entropy(dev, g)}
 
 
+def popart_rollout_routes(dev) -> dict:
+    """With PopArt on, the rollout as it runs (K2 denormalising the
+    learner's values in its launch) against the parent's route (K2, then
+    K16 into the step's slice of the values), from one carry and generator
+    state, eagerly: CartPole at 4096 x 128 and Liar's Dice CTDE against a
+    pool of 8 (3 active) at 4096 x 128, PopArt's stats initialised. Every
+    carry, batch and log tensor (values, actions and log-probs among them)
+    bit for bit; K16 launched 0 times in the first, T in the second."""
+    from burn_ppo_torch.ppo import pool_rollout as pr
+    from burn_ppo_torch.ppo import rollout as ro
+
+    def k2_then_k16(logits, mask, uniforms, values, popart, buffers, t):
+        actions, log_probs = masked_sample(logits, mask, uniforms)
+        popart_denormalize(popart, values, out=buffers.values[t])
+        return actions, log_probs, None
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(22)
+    for name, toml, steps, pool in (("cartpole", "cartpole.toml", T, False),
+                                    ("liars_dice_ctde_pool", "liars_dice_ctde.toml", T_LD, True)):
+        cfg, env, net, rng, carry, norm = rollout_setup(dev, toml, steps, POPART_OVERRIDES)
+        P = env.spec.num_players
+        popart = PopArtState.create(dev)
+        popart.mean.fill_(1.5)
+        popart.m2.fill_(9000.0)
+        popart.count.fill_(1000.0)
+        kw = dict(num_steps=steps, gamma=cfg.gamma,
+                  normalize_returns=cfg.effective_normalize_returns(P),
+                  return_clip=cfg.return_clip, popart=popart,
+                  env_context={"shaping_coef": 0.05} if "shaping_coef" in env.context_fields
+                  else None)
+        if pool:
+            L = E - int(round(E * cfg.opponent_pool_fraction))
+            stack = random_opponents(dev, g, 8, cfg.activation, D=env.spec.obs_dim,
+                                     H=cfg.hidden_size, A=env.spec.num_actions,
+                                     depth=cfg.num_hidden)
+            stack.norm = None
+            seating = PoolSeating.create(E, L, P, 3, rng)
+        start = rng.generator.get_state()
+        runs, launches = [], []
+        for route in ("k2_epilogue", "k2_then_k16"):
+            rng.generator.set_state(start)
+            before = (masked_sample.launches, popart_denormalize.launches)
+            if route == "k2_then_k16":
+                ro.sample_and_store_values = pr.sample_and_store_values = k2_then_k16
+            try:
+                res = (collect_rollouts_with_opponents(net, env, stack, carry, seating, norm, rng,
+                                                       num_learner_envs=L, num_active=3, **kw)
+                       if pool else collect_rollouts(net, env, carry, norm, rng, **kw))
+                torch.cuda.synchronize()
+            finally:
+                ro.sample_and_store_values = pr.sample_and_store_values = SAMPLE_AND_STORE
+            runs.append([t.clone() for t in state_leaves(list(res))])
+            launches.append([masked_sample.launches - before[0],
+                             popart_denormalize.launches - before[1]])
+        diff = first_difference(runs[0], runs[1])
+        k2 = steps * (2 if pool else 1)
+        if diff is not None or launches != [[k2, 0], [k2, steps]]:
+            raise AssertionError(f"popart rollout {name}: the two routes differ at {diff}, "
+                                 f"launches (K2, K16) {launches}")
+        out[name] = {"envs": E, "steps": steps, "equal_bit_for_bit": True,
+                     "launches_k2_k16": dict(zip(("k2_epilogue", "k2_then_k16"), launches))}
+    return out
+
+
 POPART_FLAGS = ["--normalize-values", "--adaptive-entropy", "0.5"]
 POPART_OVERRIDES = {"normalize_values": True, "adaptive_entropy": Schedule.parse(0.5)}
 
@@ -3512,8 +3693,8 @@ def popart_update_graph_cases(tmp: Path, card_line: str) -> dict:
     PopArt stats and the controller's state among the leaves), in a
     process of its own as phase 2d: CartPole at 4096 x 128 and Liar's Dice
     CTDE against the pool (the KL stop required to fire); each graph's
-    kernels (K15 and K16 in the update, K16 T times in the rollout, K8 a
-    minibatch) counted on the device in one replay."""
+    kernels (K15 and K16 once in the update, K16 never in the rollout, K8
+    a minibatch) counted on the device in one replay."""
     dev = resolve_device("cuda")
     g = torch.Generator(device=dev).manual_seed(16)
     return {"card": card_line, **{name: check_update_graph(dev, g, name, toml, steps,
@@ -3532,8 +3713,8 @@ def popart_entropy_train(tmp: Path, card_line: str) -> dict:
     configs/liars_dice_ctde.toml at 4096 envs against the pool, each with
     ``--normalize-values --adaptive-entropy 0.5`` through the CLI,
     ``POPART_UPDATES`` updates, counted as every train phase (K15 once an
-    update in its graph, K16 T + 1 times: every rollout step and the
-    bootstrap; on Liar's Dice a graph per minibatch, ``target_kl``'s
+    update in its graph, K16 once, the bootstrap's: the rollout steps
+    denormalise in K2's launch; on Liar's Dice a graph per minibatch, ``target_kl``'s
     path, whether or not the stop fires), the PopArt and controller series
     printed; then the graphed update against the eager one, the KL stop
     required there (``popart_update_graph_cases``), and whole train steps
@@ -3546,14 +3727,14 @@ def popart_entropy_train(tmp: Path, card_line: str) -> dict:
         n, E * T,
         {"cartpole_step_autoreset": n * T, "masked_gumbel_sample": n * T,
          "gae_reverse_scan": n, "obs_norm_apply": n * (T + 2), "obs_norm_update": n,
-         "return_norm_finalize": n, "popart_update": n, "popart_denormalize": n * (T + 1)},
+         "return_norm_finalize": n, "popart_update": n, "popart_denormalize": n},
         card_line)
     cartpole["series"] = popart_series(series, n, 2)
     pool = four_player_pool_train(
         tmp, card_line, "popart_liars_dice_pool",
         ["--config", str(ROOT / "configs" / "liars_dice_ctde.toml"), *POPART_FLAGS],
         "liars_dice_step_autoreset", T_LD, EP_LD, n, "ctde", LD_OBS,
-        {"popart_update": n, "popart_denormalize": n * (T_LD + 1)})
+        {"popart_update": n, "popart_denormalize": n})
     pool["series"] = popart_series(scalars(tmp / "popart_liars_dice_pool"), n, 49)
     for name, run in (("cartpole", cartpole), ("liars_dice_ctde_pool", pool)):
         for u in range(n):
@@ -3683,6 +3864,264 @@ def check_temperature_sample(dev, g, c4_mask, skull_mask, ld_mask, ptxas: list) 
     return out
 
 
+# The fused sample-and-step (K14's row code as the step's sampling front):
+# checked at these env counts, timed at each env's eval shape (eval's
+# default 64 envs; phase eval (b)'s 256 on Skull), and with --parent timed
+# in turns with the parent's K14 + step at eval's Connect Four shape and
+# Skull's eval and rollout shapes.
+SAMPLE_STEP_SHAPES = (1, 64, 256, 4096)
+SAMPLE_STEP_TIMED = {"cartpole": 64, "connect_four": 64, "skull": 256, "liars_dice": 64}
+SAMPLE_STEP_PARENT = {"connect_four": (64,), "skull": (256, 4096)}
+# Integer and f32 operations of one env's step (the bounds of K1, K4, K11
+# and K13 above).
+STEP_OPS = {"cartpole": 32.0, "connect_four": 300.0, "skull": 2000.0, "liars_dice": 1500.0}
+SAMPLE_STEP_WALK = 12  # steps checked at each env count
+
+
+def sample_step_env(dev, g, name: str, n: int) -> tuple:
+    """(env, state, acc, draw) of ``n`` fresh envs (CartPole's on both
+    sides of its thresholds); ``draw()`` gives a step's reset and step
+    values."""
+    empty = torch.empty(n, 0, device=dev)
+    if name == "cartpole":
+        state, acc, _, reset, _ = cartpole_inputs(dev, g, n)
+        return CartPole(), state, acc, lambda: (reset, None)
+    if name == "connect_four":
+        env = ConnectFour()
+        return env, env.reset(empty), EpisodeAccumulator.zero(n, 2, dev), lambda: (empty, None)
+    if name == "skull":
+        env = Skull(4)
+        state = env.reset(empty)
+        state.shaping_coef = (torch.arange(n, device=dev) % 2) * 0.05
+        return env, state, EpisodeAccumulator.zero(n, 4, dev), lambda: (
+            empty, torch.rand(n, generator=g, device=dev))
+    env = LiarsDice()
+    state = env.reset(torch.rand(n, 8, generator=g, device=dev))
+    state = LiarsDiceState(state.ints, (torch.arange(n, device=dev) % 2) * 0.05)
+    return env, state, EpisodeAccumulator.zero(n, 4, dev), lambda: (
+        torch.rand(n, 8, generator=g, device=dev), torch.rand(n, 8, generator=g, device=dev))
+
+
+def eval_front(dev, g, mask: torch.Tensor, step: int) -> tuple:
+    """One eval step's sampling inputs on ``mask``'s rows: logits, per-row
+    temperatures from 0, 0.4, 1 and 1e-3 (one float, 0.7, every fourth
+    step), an exact tie at the top of every greedy row with two legal
+    actions, and the uniforms. Returns (front, greedy tie rows, sampled
+    rows)."""
+    n, A = mask.shape
+    logits = torch.randn(n, A, generator=g, device=dev) * 2
+    temps = (0.7 if step % 4 == 3 else torch.tensor(EVAL_TEMPS, device=dev)[
+        torch.randint(0, len(EVAL_TEMPS), (n,), generator=g, device=dev)])
+    per_row = temps if isinstance(temps, torch.Tensor) else torch.full((n,), temps, device=dev)
+    two = torch.topk(mask + 0.5 * torch.rand(n, A, generator=g, device=dev), 2, dim=1).indices
+    tie = (per_row <= 0) & (mask.sum(1) >= 2)
+    peak = (logits.max(1).values + 1.0)[:, None].expand(n, 2)
+    logits[tie.nonzero()[:, :1], two[tie]] = peak[tie]
+    uni = torch.rand(n, A, generator=g, device=dev).clamp_min(TINY)
+    return TemperatureFront(logits, mask, temps, uni), int(tie.sum()), int((per_row > 0).sum())
+
+
+def step_outputs_differ(name: str, k, p) -> list:
+    """The outputs of two steps that differ, every one bit for bit
+    (CartPole's physics rows and obs among them)."""
+    if name != "cartpole":
+        return step_differences(k, p)
+    pairs = {"phys": (k.state.phys, p.state.phys), "step_idx": (k.state.step_idx, p.state.step_idx),
+             "obs": (k.obs, p.obs), "mask": (k.mask, p.mask), "rewards": (k.rewards, p.rewards),
+             "done": (k.done, p.done), "acc.reward_sum": (k.acc.reward_sum, p.acc.reward_sum),
+             "acc.length": (k.acc.length, p.acc.length),
+             **{f"log.{f}": (getattr(k.log, f), getattr(p.log, f))
+                for f in ("completed", "total_rewards", "length", "outcome", "active_players")}}
+    return [n for n, (a, b) in pairs.items() if a.dtype != b.dtype or not torch.equal(a, b)]
+
+
+# An env step's outputs by the name of their block in its output buffers.
+ARENA_FIELDS = {"ints": lambda o: o.state.ints, "shaping_coef": lambda o: o.state.shaping_coef,
+                "acc_length": lambda o: o.acc.length, "log_length": lambda o: o.log.length,
+                "outcome": lambda o: o.log.outcome,
+                "active_players": lambda o: o.log.active_players,
+                "acc_reward_sum": lambda o: o.acc.reward_sum, "rewards": lambda o: o.rewards,
+                "done": lambda o: o.done, "log_total_rewards": lambda o: o.log.total_rewards,
+                "obs": lambda o: o.obs, "mask": lambda o: o.mask, "priv": lambda o: o.priv}
+
+
+def sample_front_err(name: str, k, p) -> tuple:
+    """The fused step ``k`` against the plain sample then the plain step
+    ``p``: (the outputs that differ, the max abs error). Bit for bit,
+    CartPole's physics and obs to K1's 1e-5 (sinf/cosf and fma contraction
+    against torch's), its other outputs exact."""
+    if name != "cartpole":
+        bad = step_differences(k, p)
+        return bad, 0.0
+    err = max_err([(k.state.phys, p.state.phys), (k.obs, p.obs)])
+    bad = [f for f in step_outputs_differ(name, k, p) if f not in ("phys", "obs")]
+    return bad + (["phys or obs beyond 1e-5"] if err > 1e-5 else []), err
+
+
+def check_sample_steps(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
+    """Each env's step with K14's row code as its sampling front (eval's
+    one launch a step: the step wrapper given a ``front``) against K14
+    then the step kernel (the two launches it replaces) and against the
+    plain sample then the plain step on the same inputs: at E = 1, 64, 256
+    and 4096, along a walk of ``SAMPLE_STEP_WALK`` steps from fresh envs,
+    the actions and every output bit for bit (against the plain step
+    CartPole's physics and obs to K1's 1e-5, its max abs error reported),
+    greedy ties and finished games counted. Timed at the env's eval shape
+    beside its plain version (the plain sample, then the plain step), in
+    turns with K14 + the step (``k14_then_step``) and, with ``parent``,
+    with the parent's K14 + step (Connect Four at 64 envs, Skull at 256
+    and 4096), whose outputs must be the fused step's bit for bit. Keyed
+    by the env step's wrapper."""
+    out = {}
+    for name in ("cartpole", "connect_four", "skull", "liars_dice"):
+        res: dict = {"max_abs_err": 0.0,
+                     "tol": "exact (actions and every output; against the plain step "
+                            "CartPole's physics and obs to 1e-5)",
+                     "ptxas": kernel_ptxas(ptxas, f"{name}_sample_step"), "shapes": {}}
+        wrapper = WRAPPERS[f"{name}_step_autoreset"]
+        for n in SAMPLE_STEP_SHAPES:
+            env, state, acc, draw = sample_step_env(dev, g, name, n)
+            mask, ev = env.action_mask(state), {"greedy_ties": 0, "done": 0}
+            for step in range(SAMPLE_STEP_WALK):
+                front, ties, sampled = eval_front(dev, g, mask, step)
+                reset, u = draw()
+                before = (wrapper.launches, sample_with_temperature.launches)
+                k = env.step_autoreset(state, acc, None, reset, u, front=front)
+                if (wrapper.launches, sample_with_temperature.launches) != (before[0] + 1,
+                                                                           before[1]):
+                    raise AssertionError(f"{name} step with its front: not one launch of its own")
+                want = sample_with_temperature(*front)
+                p = env.step_autoreset(state, acc, want, reset, u)
+                plain = autoreset_step(env, state, acc, None, reset, u, front=front)
+                torch.cuda.synchronize()
+                bad = step_outputs_differ(name, k, p)
+                if bad or not torch.equal(k.actions, want):
+                    raise AssertionError(f"{name} step with its front E={n} step {step}: actions "
+                                         f"equal {torch.equal(k.actions, want)}, {bad} differ "
+                                         "from K14 then the step")
+                bad, err = sample_front_err(name, k, plain)
+                if bad or not torch.equal(k.actions, plain.actions):
+                    raise AssertionError(f"{name} step with its front E={n} step {step}: actions "
+                                         f"equal {torch.equal(k.actions, plain.actions)}, {bad} "
+                                         f"differ from the plain sample then the plain step "
+                                         f"(max abs err {err})")
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                ev["greedy_ties"] += ties
+                ev["done"] += int(p.done.sum())
+                last = (env, state, acc, front, reset, u, k, sampled)
+                state, acc, mask = p.state, p.acc, p.mask
+            res["shapes"][f"E{n}"] = ev
+            if n == SAMPLE_STEP_TIMED[name]:
+                timed_at = last
+            if parent is not None and n in SAMPLE_STEP_PARENT.get(name, ()):
+                env_, s, a, front, reset, u, k, _ = last
+                pa, pi, pf = parent.sample_then_step(env_, s, a, front, u)
+                torch.cuda.synchronize()
+                bad = [f for f, t in {**pi, **pf}.items() if f in ARENA_FIELDS
+                       and not torch.equal(t, ARENA_FIELDS[f](k))]
+                if bad or not torch.equal(pa, k.actions):
+                    raise AssertionError(f"{name} step with its front E={n}: {bad} differ from "
+                                         "the parent's K14 then its step")
+                res[f"parent_turns_E{n}"] = turns(
+                    lambda: env_.step_autoreset(s, a, None, reset, u, front=front),
+                    lambda: parent.sample_then_step(env_, s, a, front, u))
+        if sum(ev["greedy_ties"] for ev in res["shapes"].values()) == 0 or (
+                name in ("cartpole", "connect_four") and res["shapes"]["E256"]["done"] == 0):
+            raise AssertionError(f"{name} step with its front: a case was not reached: "
+                                 f"{res['shapes']}")
+        env, s, a, front, reset, u, k, sampled = timed_at
+        n, A = front.logits.shape
+
+        def fused():
+            return env.step_autoreset(s, a, None, reset, u, front=front)
+
+        def two():
+            return env.step_autoreset(s, a, sample_with_temperature(*front), reset, u)
+
+        def plain():
+            return autoreset_step(env, s, a, None, reset, u, front=front)
+
+        pad = pad_bytes(s) if hasattr(s, "PAD_COL") else 0
+        temps = front.temperature if isinstance(front.temperature, torch.Tensor) else None
+        # the front's logits, mask, temperatures and the sampled rows'
+        # uniforms, the actions; the step's state, accumulators, step
+        # values and outputs (CartPole's reset rows where an episode ends)
+        moved = (nbytes(front.logits, front.mask, temps, s, a, u, k) - pad
+                 + 4 * sampled * A + (16 * int(k.done.sum()) if name == "cartpole" else 0))
+        res.update(timed(fused, plain), library_ms=None, timed_envs=n,
+                   **bound(moved, 8.0 * sampled * A + 2.0 * (n - sampled) * A
+                           + STEP_OPS[name] * n),
+                   k14_then_step_turns=turns(fused, two, who="k14_then_step"))
+        out[f"{name}_step_autoreset"] = res
+    return out
+
+
+def check_sample_popart_epilogue(dev, g, parent: "ParentKernels | None") -> dict:
+    """K2 with its value epilogue (PopArt's denormalisation of the step's
+    values into a slice of the rollout's) against K2 without it then K16
+    into the same slice: actions, log-probs and values bit for bit, the
+    slices beside it untouched; the values also against
+    ``popart_denormalize_plain``, bit for bit; PopArt's count 0, 1, 2 and 5000, at the
+    rollout's [4096, 2] (CartPole) and [4096, 49] (Liar's Dice) and the
+    learner rows of a vs-pool step; timed at count 5000 in turns with K2 +
+    K16 and, with ``parent``, with the parent's K2 + K16 (bit for bit
+    too)."""
+    out = {}
+    for rows, A in ((E, 2), (E, 49)):
+        case: dict = {"counts": []}
+        for count in (0, 1, 2, 5000):
+            logits = torch.randn(rows, A, generator=g, device=dev) * 2
+            mask = (torch.rand(rows, A, generator=g, device=dev) < 0.6).float()
+            mask[:, 0] = 1.0
+            u = torch.rand(rows, A, generator=g, device=dev).clamp_min(TINY)
+            values = torch.randn(rows, generator=g, device=dev) * 3
+            state = PopArtState.create(dev)
+            state.mean.fill_(2.5 if count else 0.0)
+            state.m2.fill_(90.0 * count)
+            state.count.fill_(float(count))
+            buf = torch.full((3, rows), -7.0, device=dev)
+            a, lp = masked_sample(logits, mask, u, popart=state, values=values, values_out=buf[1])
+            a2, lp2 = masked_sample(logits, mask, u)
+            want = torch.empty(rows, device=dev)
+            popart_denormalize(state, values, out=want)
+            plain = popart_denormalize_plain(state, values)
+            torch.cuda.synchronize()
+            same = (torch.equal(a, a2) and torch.equal(lp, lp2) and torch.equal(buf[1], want)
+                    and bool((buf[0] == -7.0).all()) and bool((buf[2] == -7.0).all()))
+            if not same:
+                raise AssertionError(f"masked_gumbel_sample with the epilogue [{rows}, {A}] at "
+                                     f"count {count}: not K2 then K16 bit for bit")
+            if not torch.equal(buf[1], plain):
+                raise AssertionError(f"masked_gumbel_sample with the epilogue [{rows}, {A}] at "
+                                     f"count {count}: values not popart_denormalize_plain's bit "
+                                     f"for bit (max abs err {max_err([(buf[1], plain)])})")
+            if parent is not None:
+                pbuf = torch.full((rows,), -7.0, device=dev)
+                pa, plp = parent.sample_then_denormalize(logits, mask, u, state, values, pbuf)
+                torch.cuda.synchronize()
+                if not (torch.equal(pa, a) and torch.equal(plp, lp) and torch.equal(pbuf, buf[1])):
+                    raise AssertionError(f"masked_gumbel_sample with the epilogue [{rows}, {A}] "
+                                         f"at count {count}: not the parent's K2 then K16")
+            case["counts"].append(count)
+
+        def fused(state=state):
+            return masked_sample(logits, mask, u, popart=state, values=values, values_out=buf[1])
+
+        def two(state=state):
+            masked_sample(logits, mask, u)
+            return popart_denormalize(state, values, out=buf[1])
+
+        case.update(tol="exact", k2_then_k16_turns=turns(fused, two, who="k2_then_k16"),
+                    # logits, mask, uniforms, values and the three stats
+                    # read; actions, log-probs and values written
+                    **bound(4 * (3 * rows * A + 2 * rows + 3) + 8 * rows, 8.0 * rows * A))
+        if parent is not None:
+            case["parent_turns"] = turns(fused, lambda: parent.sample_then_denormalize(
+                logits, mask, u, state, values, buf[1]))
+        out[f"{rows}x{A}"] = case
+    return out
+
+
 # K17's schedules: constant (Skull, Liar's Dice), Connect Four's cutoff at
 # move 10, two decays; moves drawn from [0, 70) cross every cutoff.
 K17_SCHEDULES = (TempSchedule(initial=0.7), TempSchedule(initial=0.4, final_temp=0.0, cutoff=10),
@@ -3744,7 +4183,7 @@ def books_call(x: dict, temp: TempSchedule, fn=step_books, halves: str = "both",
             log.total_rewards, log.perm]
 
 
-def check_eval_step(dev, g, ptxas: list, parent: "ParentKernels | None" = None) -> dict:
+def check_eval_step(dev, g, ptxas: list) -> dict:
     """K17 (``step_books``, one C entry) against its plain version, every
     output bit for bit, at E = 1, 64, 256 and 4096 and P = 2 and 4, under
     the constant, cutoff and two decay schedules (moves crossing each
@@ -3754,8 +4193,7 @@ def check_eval_step(dev, g, ptxas: list, parent: "ParentKernels | None" = None) 
     maps at P = 4). Timed at phase eval (b)'s shape, 256 envs of four
     players, with the bytes bound of what these inputs need (each
     perm-table entry and source read once); the fused launch in turns
-    against the two halves launched one after the other, and, with
-    ``parent``, against the parent's two passes."""
+    against the two halves launched one after the other."""
     out: dict = {"shapes": [], "halves": {}}
     for E in (1, 64, 256, 4096):
         for P in (2, 4):
@@ -3825,35 +4263,32 @@ def check_eval_step(dev, g, ptxas: list, parent: "ParentKernels | None" = None) 
     pk = {k: x[k].clone() for k in ("perm_idx", "move_count")}
     slot_b, temps_b = bufs["seats"]["slot"], bufs["seats"]["temps"]
 
-    def pair(seats=None, record=None):
-        """The parent's order: the records of a step, then the next seat
-        pass, two launches (this tree's halves alone unless given)."""
-        if record is None:
-            step_books(x["perm_table"], pk["perm_idx"], pk["move_count"],
-                       Records(log, 0, x["log"]))
-            step_books(x["perm_table"], pk["perm_idx"], pk["move_count"],
-                       seats=Seats(x["player"], x["slot_of_source"], temp, slot_b, temps_b))
-            return
-        record(log, 0, x["log"], pk["perm_idx"], pk["move_count"], x["perm_table"].shape[0])
-        seats(x["perm_table"], pk["perm_idx"], x["player"], x["slot_of_source"],
-              pk["move_count"], temp, slot_b, temps_b)
+    def pair():
+        """The records of a step, then the next seat pass: two launches of
+        this tree's halves alone."""
+        step_books(x["perm_table"], pk["perm_idx"], pk["move_count"], Records(log, 0, x["log"]))
+        step_books(x["perm_table"], pk["perm_idx"], pk["move_count"],
+                   seats=Seats(x["player"], x["slot_of_source"], temp, slot_b, temps_b))
 
     def fused():
         books_call(x, temp, b=bufs["both"])
 
     out["pair_turns"] = turns(fused, pair, "pair")
-    if parent is not None:
-        out["parent_turns"] = turns(
-            fused, lambda: pair(parent.sample_seats, parent.record_step))
     return {"step_books": out}
 
 
 GAUNTLET = ROOT / "gauntlet"
 C4_GREEDY = ["--temp", "0", "--temp-cutoff", "10", "--temp-final", "0"]
 # Each eval kernel's device name (the profiler's), for the counts in one chunk.
+# A chunk's env step samples in its own launch: every launch of the step
+# wrapper is the kernel's instance with the sampling front, and the
+# instance without it (no wrapper's count: any launch fails) and K14 must
+# read 0 in a replay.
 EVAL_KERNELS = {
-    "connect_four_step_autoreset": "connect_four_step_autoreset_kernel",
-    "skull_step_autoreset": "skull_step_autoreset_kernel",
+    "connect_four_step_autoreset": "connect_four_sample_step_kernel",
+    "skull_step_autoreset": "skull_sample_step_kernel",
+    "connect_four_step_autoreset without its front": "connect_four_step_autoreset_kernel",
+    "skull_step_autoreset without its front": "skull_step_autoreset_kernel",
     "opponent_actor_forward": "opponent_mlp_kernel",
     "temperature_sample": "temperature_sample_kernel",
     # K17's three kernels, one a kind of launch (csrc/eval_step.cu)
@@ -3916,11 +4351,12 @@ def k17_per_chunk(steps: int = 64) -> int:
 
 
 def check_chunk_launches(name: str, run: dict, step_kernel: str, steps_per_chunk: int = 64):
-    """A stats run's main path: one graph replay a chunk, K14 and the env
-    step once a step of each replayed chunk, K17 steps + 1 times a chunk."""
+    """A stats run's main path: one graph replay a chunk, the env step with
+    K14's sampling front (``step_kernel``) once a step of each replayed
+    chunk and K14 alone never, K17 steps + 1 times a chunk."""
     m, chunks = run["main_path"], run["graph_replays"]
-    want = {k: chunks * steps_per_chunk for k in (step_kernel, "temperature_sample")}
-    want["step_books"] = chunks * k17_per_chunk(steps_per_chunk)
+    want = {step_kernel: chunks * steps_per_chunk, "temperature_sample": None,
+            "step_books": chunks * k17_per_chunk(steps_per_chunk)}
     if {k: m.get(k) for k in want} != want or chunks < 1:
         raise AssertionError(f"{name}: main-path launches {m}, {chunks} replays: want {want}")
 
@@ -4047,8 +4483,8 @@ def chunk_turns(engine, reps: int = 2) -> dict:
 
 def chunk_bound(engine) -> dict:
     """The least time of one stacked-model chunk, as row B8's rollout bound:
-    each step's kernels' bounds (the env step, the uniforms, K14, K17's
-    fused pass) plus the actor forwards of the rows a model plays (K7's
+    each step's kernels' bounds (the env step with its sampling front, the
+    uniforms, K17's fused pass) plus the actor forwards of the rows a model plays (K7's
     towers) at the f32 rate, all from one step of this engine's carry
     (its seats, temperatures and env state), times its steps."""
     env, c, E = engine.env, engine.carry, engine.num_envs
@@ -4066,8 +4502,9 @@ def chunk_bound(engine) -> dict:
     per_step = {
         "env_step": step,
         "uniforms": bound(4 * E * A)["bound_ms"],
-        # the logits, mask and uniforms of the sampled rows, the actions
-        "temperature_sample": bound(4 * (3 * sampled * A + E))["bound_ms"],
+        # the sampling front's logits, mask and uniforms of the sampled
+        # rows and its actions (in the env step's launch)
+        "sampling_front": bound(4 * (3 * sampled * A + E))["bound_ms"],
         # the records' reads and writes and the seats' player, slot and
         # temperature (the tables' few entries left out)
         "step_books": bound(4 * (7 * E + 4 * E * P) + 4 * 3 * E)["bound_ms"],
@@ -4106,17 +4543,19 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     """Phase ``eval`` (a process of its own, with phase ``tournament``):
     the eval command through ``cli.main`` on the card, every chunk one
     CUDA graph replay. (a)
-    Connect Four r4 against r4_mid, greedy, 256 games x 64 envs: K4, K7
-    and K14 once a step of every replayed chunk, K17 once a step and once
-    more;
+    Connect Four r4 against r4_mid, greedy, 256 games x 64 envs: K4 with
+    K14's sampling front and K7 once a step of every replayed chunk (K14
+    alone never), K17 once a step and once more;
     the game records equal to the port's CPU run of the same command
     (every game is deterministic). (b) Skull r4, r4_best and r4_mid (CTDE
     512x2 tanh, obs norm: three stacked K7 slots) and Random, 1024 games x
-    256 envs at the env's temperature: K11, K7, K14 and K17; valid
+    256 envs at the env's temperature: K11 with the sampling front, K7
+    and K17; valid
     placements in every game; one chunk graphed and eager in turns
     (events and device ms, the idle share), games/s both ways in turns,
     the kernels counted on the device in one replay against those the
-    graph captured. (c) from one saved carry and generator state, two
+    graph captured (K14 and K11 without the front 0). (c) from one saved
+    carry and generator state, two
     graph replays against two eager chunks bit for bit: Connect Four
     greedy (stacked), Skull three models and Random (stacked), Connect
     Four r4 and Random (single), Skull r4, r4_flagship and two Random
@@ -4126,7 +4565,10 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     watched greedy Connect Four game and one watched Skull game: K4 or
     K11, K14 and K6 (each model move's obs norm) at E = 1, counted, eager;
     then K4, K11 and K14 at E = 1 against their plain versions along
-    single-env games."""
+    single-env games, and a watched game of each env to its end, its last
+    position the plain step's (``watch_terminal_checks``). (e) CartPole,
+    a Random player's 256 games at 64 envs: K1 with the sampling front
+    once a step."""
     import burn_ppo_torch.eval as ev
 
     dev = resolve_device("cuda")
@@ -4139,11 +4581,10 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     t_part = time.time()
     run = front_end_run(["eval", "-c", str(c4[0]), "-c", str(c4[1]), *C4_GREEDY, "-n", "256",
                          "--num-envs", "64", "--seed", "0"],
-                        {"connect_four_step_autoreset", "opponent_actor_forward",
-                         "temperature_sample", "step_books"})
+                        {"connect_four_step_autoreset", "opponent_actor_forward", "step_books"})
     (gpu,) = run["stats"]
     check_chunk_launches("eval (a)", run, "connect_four_step_autoreset")
-    L, steps = run["launches"], run["main_path"]["temperature_sample"]
+    L, steps = run["launches"], run["main_path"]["connect_four_step_autoreset"]
     if not (run["main_path"]["opponent_actor_forward"] == steps and gpu.logits_path == "stacked"
             and run["graph_captures"] == 1):
         raise AssertionError(f"eval (a): launches {L}, logits {gpu.logits_path}")
@@ -4172,12 +4613,11 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     skull = [GAUNTLET / "skull" / n for n in ("r4", "r4_best", "r4_mid")]
     argv = ["eval", *[x for p in skull for x in ("-c", str(p))], "--random", "-n", "1024",
             "--num-envs", "256", "--seed", "0"]
-    run = front_end_run(argv, {"skull_step_autoreset", "opponent_actor_forward",
-                               "temperature_sample", "step_books"})
+    run = front_end_run(argv, {"skull_step_autoreset", "opponent_actor_forward", "step_books"})
     (st,) = run["stats"]
     check_chunk_launches("eval (b)", run, "skull_step_autoreset")
     L = run["launches"]
-    if not (run["main_path"]["opponent_actor_forward"] == run["main_path"]["temperature_sample"]
+    if not (run["main_path"]["opponent_actor_forward"] == run["main_path"]["skull_step_autoreset"]
             and st.logits_path == "stacked" and st.total_games == 1024):
         raise AssertionError(f"eval (b): launches {L}, logits {st.logits_path}, "
                              f"{st.total_games} games")
@@ -4189,12 +4629,21 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
     chunk = chunk_turns(engine)
     counts = replay_kernel_counts(engine.graph, EVAL_KERNELS)
     k17 = counts["counts"]["step_books"][0]
-    if k17 != k17_per_chunk():
-        raise AssertionError(f"eval (b): K17 in one replay {k17}, want {k17_per_chunk()}")
+    fused = counts["counts"]["skull_step_autoreset"][0]
+    # kernels that a replay must not launch: K14 alone, the step without
+    # its front (a device launch of either beyond the 0 captured fails in
+    # replay_kernel_counts)
+    absent = {k: counts["counts"].get(k, [0, 0])[0]
+              for k in ("temperature_sample", "skull_step_autoreset without its front")}
+    if k17 != k17_per_chunk() or fused != 64 or any(absent.values()):
+        raise AssertionError(f"eval (b): in one replay K17 {k17} (want {k17_per_chunk()}), the "
+                             f"fused step {fused} (want 64), {absent} (want 0)")
     chunk["k17_launches_in_one_replay"] = k17
+    chunk["sample_step_launches_in_one_replay"] = fused
+    chunk["k14_launches_in_one_replay"] = absent["temperature_sample"]
     chunk["bound"] = chunk_bound(engine)
     out["skull_three_models_and_random"] = {
-        "games": st.total_games, "steps": run["main_path"]["temperature_sample"],
+        "games": st.total_games, "steps": run["main_path"]["skull_step_autoreset"],
         "wall_s": run["wall_s"], "games_per_s": st.total_games / run["wall_s"], "launches": L,
         "main_path_launches": run["main_path"], "graph_captures": run["graph_captures"],
         "graph_replays": run["graph_replays"], "placements_valid": True,
@@ -4248,10 +4697,70 @@ def eval_phase(tmp: Path, card_line: str) -> dict:
                          "final": final}
     out["watch"] = watched
     out["single_env_vs_plain"] = single_env_walks(dev)
+    out["watch_terminal_vs_plain"] = watch_terminal_checks(dev)
+
+    # (e)
+    run = front_end_run(["eval", "--env", "cartpole", "--random", "-n", "256", "--num-envs",
+                         "64", "--seed", "0"], {"cartpole_step_autoreset", "step_books"})
+    check_chunk_launches("eval (e)", run, "cartpole_step_autoreset")
+    (cp,) = run["stats"]
+    out["cartpole_random"] = {"games": cp.total_games, "wall_s": run["wall_s"],
+                              "launches": run["launches"], "main_path_launches": run["main_path"],
+                              "graph_replays": run["graph_replays"]}
     out["seconds"] = time.time() - t_phase
     out["launches_total"] = {name: sum(v["launches"].get(name, 0) for v in (
-        out["connect_four_greedy"], out["skull_three_models_and_random"], *watched.values()))
-        for name in WRAPPERS}
+        out["connect_four_greedy"], out["skull_three_models_and_random"], *watched.values(),
+        out["cartpole_random"])) for name in WRAPPERS}
+    return out
+
+
+def watch_terminal_checks(dev) -> dict:
+    """Watch mode's game (``eval.SingleGame``: the env step kernel at E = 1
+    with its reset off, K14's moves) played to its end on each env: the
+    state the last move leaves (``terminal``, what the final render shows)
+    equals the plain ``env.step`` of that move on the host copy of the
+    state before it, every field bit for bit (CartPole's physics to 1e-5),
+    and the game stepped once on the card a move, never on the host."""
+    import burn_ppo_torch.eval as ev
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    for env, step in ((CartPole(), cartpole_step_autoreset),
+                      (ConnectFour(), connect_four_step_autoreset),
+                      (Skull(4), skull_step_autoreset), (LiarsDice(), liars_dice_step_autoreset)):
+        name, A = env.spec.name, env.spec.num_actions
+        game = ev.SingleGame(env, ev.random_source(9, dev), dev)
+        drawn = []
+        real_draw = env.draw_step
+        env.draw_step = lambda rng, n: drawn.append(real_draw(rng, n)) or drawn[-1]
+        before, moves = step.launches, 0
+        try:
+            while not game.done and moves < 5000:
+                prev = game.state
+                logits = torch.randn(1, A, generator=g, device=dev)
+                u = torch.rand(1, A, generator=g, device=dev).clamp_min(TINY)
+                temp = torch.tensor([EVAL_TEMPS[moves % 4]], device=dev)
+                action = int(sample_with_temperature(logits, game.mask, temp, u)[0])
+                game.play(action)
+                moves += 1
+        finally:
+            del env.draw_step
+        if not game.done or step.launches - before != moves:
+            raise AssertionError(f"watch {name}: done {game.done} after {moves} moves, "
+                                 f"{step.launches - before} step launches")
+        host = {f.name: getattr(prev, f.name).cpu() for f in dataclasses.fields(prev)}
+        args = (dataclasses.replace(prev, **host), torch.tensor([action], dtype=torch.int32))
+        want = env.step(*args + (() if drawn[-1] is None else (drawn[-1].cpu(),)))[0]
+        got = {f.name: getattr(game.terminal, f.name).cpu() for f in dataclasses.fields(want)}
+        if name == "cartpole":
+            err = max_err([(got["phys"], want.phys)])
+            bad = [] if err <= 1e-5 and torch.equal(got["step_idx"], want.step_idx) else ["phys"]
+        else:
+            bad = [f for f, t in got.items() if not torch.equal(t, getattr(want, f))]
+        if bad or env.render(game.view()) != env.render(want):
+            raise AssertionError(f"watch {name}: the last position differs from the plain step "
+                                 f"in {bad}")
+        out[name] = {"moves": moves, "step_launches": moves, "terminal_equals_plain_step": True}
     return out
 
 
@@ -4322,8 +4831,8 @@ TOURNAMENT_GAMES = {"connect_four": 192, "skull": 48, "liars_dice": 192}
 TOURNAMENT_PLAYERS = {"skull": 4, "liars_dice": 4}
 # The gauntlets are rated under seed 0 and, as a second draw, seed 1.
 TOURNAMENT_SEEDS = (0, 1)
-# Besides the env step, K14 and K17: K7 for the pods whose models stack,
-# and K6 for a pod of one model and Random (Connect Four) or the per-model
+# Besides the env step with K14's sampling front and K17: K7 for the pods
+# whose models stack, and K6 for a pod of one model and Random (Connect Four) or the per-model
 # path (Skull), whose models normalise their obs.
 TOURNAMENT_KERNELS = {"connect_four": {"opponent_actor_forward", "obs_norm_apply"},
                       "skull": {"opponent_actor_forward", "obs_norm_apply"},
@@ -4478,8 +4987,7 @@ def tournament_phase(tmp: Path, card_line: str) -> dict:
             argv = (["tournament", *map(str, gauntlet_entries(env_name)), "--random", "-n",
                      str(games), "--num-envs", "64", "--seed", str(seed), "-o", str(res_path)]
                     + (["--players", str(players)] if players else []))
-            run = front_end_run(argv, {step_kernel, "temperature_sample", "step_books",
-                                       *TOURNAMENT_KERNELS[env_name]})
+            run = front_end_run(argv, {step_kernel, "step_books", *TOURNAMENT_KERNELS[env_name]})
             res = json.loads(res_path.read_text())
             check_chunk_launches(f"tournament {env_name}", run, step_kernel)
             m = re.search(r"Stats engines: (\d+) built, reused for (\d+) pods", run["text"])
@@ -4516,10 +5024,160 @@ def tournament_phase(tmp: Path, card_line: str) -> dict:
 
 
 def front_end_phases(tmp: Path, card_line: str) -> dict:
-    """Phases ``eval``, ``tournament`` and ``interactive``, one after the
-    other in one process (each starts its counters at 0)."""
+    """Phases ``eval``, ``tournament``, ``interactive`` and ``interop``, one
+    after the other in one process (each starts its counters at 0)."""
     return {"eval": eval_phase(tmp, card_line), "tournament": tournament_phase(tmp, card_line),
-            "interactive": interactive_phase(tmp, card_line)}
+            "interactive": interactive_phase(tmp, card_line),
+            "interop": interop_phase(tmp, card_line)}
+
+
+def burn_msgpack(obj) -> bytes:
+    """MessagePack of a Burn record (maps, lists, strings, raw bytes, ints,
+    floats, None): the encoder of phase ``interop``'s test directories,
+    which the package only reads."""
+    import struct
+
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, bool):
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, int):
+        return bytes([obj]) if 0 <= obj <= 0x7F else b"\xd3" + struct.pack(">q", obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, str):
+        b = obj.encode()
+        return (bytes([0xA0 | len(b)]) if len(b) <= 31 else b"\xdb" + struct.pack(">I", len(b))) + b
+    if isinstance(obj, (bytes, bytearray)):
+        return b"\xc6" + struct.pack(">I", len(obj)) + bytes(obj)
+    if isinstance(obj, (list, tuple)):
+        head = bytes([0x90 | len(obj)]) if len(obj) <= 15 else b"\xdd" + struct.pack(">I", len(obj))
+        return head + b"".join(burn_msgpack(v) for v in obj)
+    head = bytes([0x80 | len(obj)]) if len(obj) <= 15 else b"\xdf" + struct.pack(">I", len(obj))
+    return head + b"".join(burn_msgpack(k) + burn_msgpack(v) for k, v in obj.items())
+
+
+def write_burn_dir(src: Path, dst: Path) -> Path:
+    """The Rust reference's layout of checkpoint ``src`` (an MLP or CTDE
+    network): ``model.mpk``, its weights as a Burn record (the network's
+    enum variant, ParamSerde id/param wrappers, f32 byte leaves, Linear
+    weights [d_in, d_out]), ``metadata.json``, and ``normalizer.json``
+    with the obs normaliser's M2 as ``var``; no ``model.npz``."""
+    from burn_ppo_torch.checkpoint import load_model, load_obs_normalizer
+    from burn_ppo_torch.convert import params_to_jax
+
+    network, meta = load_model(src)
+    tree = params_to_jax(network.state_dict())
+
+    def leaf(a, pid):
+        a = np.ascontiguousarray(a, np.float32)
+        return {"id": pid, "param": {"bytes": a.tobytes(), "shape": list(a.shape), "dtype": "F32"}}
+
+    def linear(layer, pid):
+        return {"weight": leaf(layer["kernel"], f"{pid}.w"),
+                "bias": leaf(layer["bias"], f"{pid}.b")}
+
+    record = {k: ([linear(x, f"{k}{i}") for i, x in enumerate(v)] if isinstance(v, list)
+                  else linear(v, k)) for k, v in tree.items()}
+    variant = {"mlp": "Mlp", "ctde": "Ctde"}[meta["network_type"]]
+    dst.mkdir(parents=True)
+    (dst / "model.mpk").write_bytes(burn_msgpack({variant: record}))
+    (dst / "metadata.json").write_text(json.dumps(meta))
+    norm = load_obs_normalizer(src)
+    if norm is not None:
+        (dst / "normalizer.json").write_text(json.dumps(
+            {"mean": norm.mean.tolist(), "var": norm.m2.tolist(), "count": float(norm.count),
+             "clip": 10.0}))
+    return dst
+
+
+def interop_phase(tmp: Path, card_line: str) -> dict:
+    """Phase ``interop`` (in the front ends' process): Burn NamedMpk
+    directories written from gauntlet checkpoints (``write_burn_dir``:
+    Connect Four r4, MLP 512x2 with obs norm; Skull r4, CTDE 512x2 with
+    obs norm), loaded on the card through ``checkpoint.load_model`` and
+    ``load_obs_normalizer`` (their route to ``interop.py``): the
+    parameters and the obs normaliser bit for bit the ``.npz`` original's;
+    two graphed chunks of a stats engine of each (the model and Random)
+    bit for bit the original's engine from the same seed; ``eval`` on the
+    Connect Four directory through ``cli.main`` (its kernels counted) with
+    the original's games, and ``tournament`` with it beside r4_mid with
+    the original's standings."""
+    import burn_ppo_torch.eval as ev
+    from burn_ppo_torch.checkpoint import is_reference_checkpoint, load_model, load_obs_normalizer
+
+    dev = resolve_device("cuda")
+    t0 = time.time()
+    out: dict = {"card": card_line}
+    launches = {name: 0 for name in WRAPPERS}
+    for env_name, E_eval in (("connect_four", 64), ("skull", 64)):
+        src = GAUNTLET / env_name / "r4"
+        burn = write_burn_dir(src, tmp / "burn" / env_name / "r4")
+        if not is_reference_checkpoint(burn):
+            raise AssertionError(f"interop {env_name}: the written directory is not a Burn one")
+        (nb, _), (nn, _) = load_model(burn, dev), load_model(src, dev)
+        same = [torch.equal(a, b) for a, b in zip(nb.state_dict().values(),
+                                                  nn.state_dict().values(), strict=True)]
+        norms = load_obs_normalizer(burn, dev), load_obs_normalizer(src, dev)
+        same += [torch.equal(getattr(norms[0], f), getattr(norms[1], f))
+                 for f in ("mean", "m2", "count")]
+        if not all(same) or next(nb.parameters()).device != dev:
+            raise AssertionError(f"interop {env_name}: the import differs from the .npz")
+        env = make_env(env_name)
+        logs = []
+        for path in (burn, src):
+            srcs = [ev.PlayerSource.checkpoint(path, dev)] + [ev.PlayerSource.random()] * (
+                env.spec.num_players - 1)
+            engine = ev.StatsEngine(env, srcs, E_eval, ev.default_temp(env),
+                                    ev.random_source(5, dev), dev)
+            for _ in range(2):
+                engine.run_chunk()
+            torch.cuda.synchronize()
+            logs.append([t.cpu() for t in engine_outputs(engine)])
+        if not all(torch.equal(a, b) for a, b in zip(*logs, strict=True)):
+            raise AssertionError(f"interop {env_name}: the Burn directory's chunks differ from "
+                                 "the .npz original's")
+        out[env_name] = {"params_and_obs_norm_equal": True, "tensors_compared": len(same),
+                         "chunks_equal_bit_for_bit": 2, "envs": E_eval,
+                         "network": nb.network_type}
+    c4 = GAUNTLET / "connect_four"
+    burn = tmp / "burn" / "connect_four" / "r4"
+    runs = {}
+    for key, path in (("burn", burn), ("npz", c4 / "r4")):
+        run = front_end_run(["eval", "-c", str(path), "--random", "-n", "128", "--num-envs", "64",
+                             "--seed", "3"], {"connect_four_step_autoreset", "step_books",
+                                              "obs_norm_apply"})
+        check_chunk_launches(f"interop eval {key}", run, "connect_four_step_autoreset")
+        runs[key] = run
+        if key == "burn":
+            for name, n in run["launches"].items():
+                launches[name] += n
+    (b,), (n,) = runs["burn"]["stats"], runs["npz"]["stats"]
+    if not (b.game_records == n.game_records and b.placements == n.placements
+            and b.rewards == n.rewards):
+        raise AssertionError("interop eval: the Burn directory's games differ from the .npz's")
+    out["eval"] = {"games": b.total_games, "wall_s": runs["burn"]["wall_s"],
+                   "main_path_launches": runs["burn"]["main_path"], "games_equal_npz": True}
+    results = []
+    for path in (burn, c4 / "r4"):
+        res_path = tmp / f"interop_{len(results)}.json"
+        run = front_end_run(["tournament", str(path), str(c4 / "r4_mid"), "--random", "-n", "64",
+                             "--num-envs", "64", "--seed", "4", "-o", str(res_path)],
+                            {"connect_four_step_autoreset", "step_books", "opponent_actor_forward",
+                             "obs_norm_apply"})
+        if not results:
+            for name, k in run["launches"].items():
+                launches[name] += k
+        results.append(json.loads(res_path.read_text()))
+    rows = [[{k: r[k] for k in r if k not in ("source", "name")} for r in res["rankings"]]
+            for res in results]
+    if rows[0] != rows[1]:
+        raise AssertionError(f"interop tournament: standings {rows}")
+    out["tournament"] = {"pods": len(results[0]["pods"]), "games": results[0]["total_games"],
+                         "standings_equal_npz": True}
+    out["seconds"] = time.time() - t0
+    out["launches_total"] = launches
+    return out
 
 
 INTERACTIVE_SAMPLES = 24  # ai_sample moves of the scripted session
@@ -4746,9 +5404,13 @@ busy = sum(e.self_device_time_total for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 k17 = {k: sum(1 for e in cuda if k in e.name)
        for k in ("sample_seats_kernel", "record_step_kernel", "record_and_seat_kernel")}
+steps = {k: sum(1 for e in cuda if k in e.name)
+         for k in ("temperature_sample_kernel", "skull_step_autoreset_kernel",
+                   "skull_sample_step_kernel")}
 med = sorted(events)[len(events) // 2]
 print(json.dumps({"events_ms": events, "events_ms_median": med, "device_ms": busy,
-                  "idle_share": 1.0 - busy / med, "k17_launches": k17}))
+                  "idle_share": 1.0 - busy / med, "k17_launches": k17,
+                  "sample_and_step_launches": steps}))
 """
 
 
@@ -4757,7 +5419,8 @@ def chunk_tree_turns(parent_dir: Path) -> dict:
     r4_mid and Random, a graph replay) of the parent's tree and this one,
     in turns (parent, this, this, parent), each in a process of its own:
     the events ms of nine replays, one profiled replay's device busy ms
-    and idle share, K17's launches in it by name."""
+    and idle share, K17's, K14's and the Skull step's launches in it by
+    name (this tree: K14 0, the step with its sampling front 64)."""
     out: dict = {}
     for key, tree in (("parent", parent_dir), ("this", ROOT), ("this", ROOT),
                       ("parent", parent_dir)):
@@ -4767,10 +5430,16 @@ def chunk_tree_turns(parent_dir: Path) -> dict:
             raise RuntimeError(f"chunk turn in {tree} exited {res.returncode}:\n"
                                f"{res.stderr[-4000:]}")
         run = json.loads(res.stdout.strip().splitlines()[-1])
-        for name in ("events_ms_median", "device_ms", "idle_share", "k17_launches"):
+        for name in ("events_ms_median", "device_ms", "idle_share", "k17_launches",
+                     "sample_and_step_launches"):
             out.setdefault(f"{key}_{name}", []).append(run[name])
     if any(sum(k.values()) != 65 for k in out["this_k17_launches"]):
         raise AssertionError(f"chunk turns: this tree's K17 launches {out['this_k17_launches']}")
+    fused = {"temperature_sample_kernel": 0, "skull_step_autoreset_kernel": 0,
+             "skull_sample_step_kernel": 64}
+    if any(k != fused for k in out["this_sample_and_step_launches"]):
+        raise AssertionError(f"chunk turns: this tree's K14 and step launches "
+                             f"{out['this_sample_and_step_launches']}, want {fused}")
     return out
 
 
@@ -4851,10 +5520,10 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K3, K5, K10, K15 and K17 are "
-                         "built from it and timed in turns with this tree's, and so are its "
-                         "CartPole and Connect Four vs-pool train phases and its Skull eval "
-                         "chunk")
+                    help="a checkout of the parent commit: its K2 + K16, K14 + step, K3, K5, "
+                         "K10 and K15 are built from it and timed in turns with this tree's, "
+                         "and so are its CartPole and Connect Four vs-pool train phases and its "
+                         "Skull eval chunk")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
@@ -4877,6 +5546,11 @@ def main(argv: list) -> int:
         parent = ParentKernels(args.parent.resolve())
     emit("build", seconds=time.time() - t0, library=str(lib_path.relative_to(ROOT)), ptxas=ptxas,
          parent_ptxas=None if parent is None else parent.ptxas,
+         # the step kernels, K2 and K14 without their new fronts and
+         # epilogue: their registers beside the parent's
+         flag_off_ptxas={"this": [ln for ln in ptxas if ln.startswith(FLAG_OFF_KERNELS)],
+                         "parent": None if parent is None else
+                         [ln for ln in parent.ptxas if ln.startswith(FLAG_OFF_KERNELS)]},
          parent_kernels=None if args.parent is None else
          "built and timed in turns" if parent is not None else "the parent's csrc is this tree's")
 
@@ -4926,10 +5600,20 @@ def main(argv: list) -> int:
     checks["temperature_sample"] = check_temperature_sample(
         dev, g14, ConnectFour().action_mask(c4_state), skull_mask, ld_mask, ptxas)
     # K17, the eval step's seating and records, on a generator of its own.
-    checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas, parent))
+    checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas))
+    # The env steps with K14's sampling front, on a generator of their own:
+    # each beside its step's own checks, its error in the step's.
+    fronts = check_sample_steps(dev, torch.Generator(device=dev).manual_seed(19), parent, ptxas)
+    for name, res in fronts.items():
+        checks[name]["sample_front"] = res
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], res["max_abs_err"])
     # Phase popart: K15, K16 and K8 with PopArt and the controller, on a
     # generator of their own.
     popart = check_popart(dev, torch.Generator(device=dev).manual_seed(16), parent)
+    # K2's value epilogue, on a generator of its own.
+    popart["masked_gumbel_sample_popart_epilogue"] = check_sample_popart_epilogue(
+        dev, torch.Generator(device=dev).manual_seed(20), parent)
+    popart["rollout_k2_epilogue_vs_k2_then_k16"] = popart_rollout_routes(dev)
     for name in ("popart_update", "popart_denormalize"):
         checks[name] = popart[name]
     popart["ptxas"] = [ln for ln in ptxas if ln.startswith("popart_")]
@@ -4986,7 +5670,7 @@ def main(argv: list) -> int:
         emit("supervisor", **supervisor_finish(supervised, card_line))
         # The front ends, through cli.main, in one process of their own.
         front = phase_in_process(ROOT, "front_end_phases")
-        front = {k: front[k] for k in ("eval", "tournament", "interactive")}
+        front = {k: front[k] for k in ("eval", "tournament", "interactive", "interop")}
         watched = front["eval"]["watch"]["connect_four"]
         print("\n".join(["watched connect_four game:"] + watched["move_lines"]
                          + watched["final"]), flush=True)
@@ -5013,6 +5697,7 @@ def main(argv: list) -> int:
         emit("learning_bar", card=card_line, **learning_bar(Path(d)))
         emit("learning_bar_popart", card=card_line, **learning_bar_popart(Path(d)))
 
+    KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # Launches: the sum over the ten train phases (phase
     # popart_entropy_train's two among them) and the front ends' runs, each
     # counted from 0.
@@ -5022,8 +5707,12 @@ def main(argv: list) -> int:
             "replaces": SOURCES[name][1],
             "launches": sum(r["launches"][name] for r in runs.values())
             + sum(f["launches_total"][name] for f in front.values()),
-            **{k: checks[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")},
+            **{k: checks[name][k] for k in KERNEL_KEYS},
+            # an env step's instance with K14's sampling front (eval's),
+            # launched by the same wrapper: its own check and times
+            **({"sample_front": {"replaces": SAMPLE_FRONT_REPLACES,
+                                 **{k: checks[name]["sample_front"][k] for k in KERNEL_KEYS}}}
+               if "sample_front" in checks[name] else {}),
         }
         for name in WRAPPERS
     ]

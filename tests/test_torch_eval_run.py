@@ -292,7 +292,7 @@ def test_eval_cli_without_players_errors(capsys):
 
 def reference_checkpoint(tmp_path):
     """A directory of the Rust reference's layout: metadata.json and a Burn
-    model.mpk, no model.npz."""
+    model.mpk that decodes to an empty map (no tensors), no model.npz."""
     d = tmp_path / "burn_ckpt"
     d.mkdir()
     meta = json.loads((C4 / "r4" / "metadata.json").read_text())
@@ -302,12 +302,28 @@ def reference_checkpoint(tmp_path):
 
 
 def test_burn_mpk_checkpoint_is_refused_with_exit_2(tmp_path, capsys):
+    """A Burn record without the network's tensors fails the port's import
+    as it fails JAX's (KeyError, the same message), and ``eval`` and
+    ``tournament`` exit 2 naming it; a well-formed one is accepted."""
+    from burn_ppo_torch import interop
+    from burn_ppo_tpu import interop as jinterop
+    from tests.test_torch_interop import write_burn_dir
+
     d = reference_checkpoint(tmp_path)
+    errors = []
+    for load in (jinterop.load_reference_checkpoint, interop.load_reference_checkpoint):
+        with pytest.raises(KeyError, match="missing tensor") as e:
+            load(d)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
     assert eval_cli("-c", d, "--random", "-n", "2") == 2
     err = capsys.readouterr().err
-    assert "A15, interop" in err and ".mpk" in err
+    assert "Burn record not imported" in err and "missing tensor" in err
     assert cli.main(["tournament", str(d), str(C4 / "r4"), "-n", "2"], device="cpu") == 2
-    assert "A15, interop" in capsys.readouterr().err
+    assert "missing tensor" in capsys.readouterr().err
+    good = write_burn_dir(C4 / "r4", tmp_path / "good" / "r4")
+    assert eval_cli("-c", good, "--random", "-n", "2") == 0
+    assert "games: 2/2" in capsys.readouterr().out
 
 
 def test_interactive_still_refused_and_no_cpu_fallback(monkeypatch, capsys):

@@ -222,14 +222,16 @@ def test_liars_dice_takes_the_plain_path_on_cpu_and_its_kernel_is_bound():
 def test_connect_four_kernel_wrapper_passes_one_state_and_two_output_buffers(monkeypatch):
     """K4's CUDA path, run on CPU tensors with a stand-in library: the C
     entry point takes the packed state, the accumulators, the action and
-    the i32 and f32 output buffers (8 arguments with E and the stream);
+    the i32 and f32 output buffers (15 arguments with E, the reset flag,
+    the sampling front's six, all null here, and the stream);
     the wrapper makes four argument checks and an alignment check, two
     allocations and one launch, and its outputs are views of the two
     buffers at the offsets the kernel writes (64-element blocks)."""
     from burn_ppo_torch.envs import connect_four as c4
 
     assert kernels.SIGNATURES["connect_four_step_autoreset"] == [ctypes.c_void_p] * 6 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_float] + [
+        ctypes.c_void_p] * 3
     E = 70
     env = ConnectFour()
     state = env.reset(torch.empty(E, 0))
@@ -265,9 +267,9 @@ def test_connect_four_kernel_wrapper_passes_one_state_and_two_output_buffers(mon
     assert calls["expect"] == 4 and calls["empty"] == 2
     assert c4.connect_four_step_autoreset.launches == before + 1
     (args,) = calls["launch"]
-    assert len(args) == 8 and args[:4] == (state.ints.data_ptr(), acc.reward_sum.data_ptr(),
-                                           acc.length.data_ptr(), action.data_ptr())
-    assert args[6:] == (E, 0)
+    assert len(args) == 15 and args[:4] == (state.ints.data_ptr(), acc.reward_sum.data_ptr(),
+                                            acc.length.data_ptr(), action.data_ptr())
+    assert args[6:] == (E, 1, None, None, None, 0.0, None, None, 0)
     i32_base, f32_base = args[4], args[5]
     blk = lambda cols: -(-E * cols // 64) * 64 * 4  # noqa: E731
     assert out.state.ints.shape == (E, c4.W) and out.state.ints.data_ptr() == i32_base
@@ -436,14 +438,16 @@ def test_cartpole_kernel_wrapper_passes_two_state_rows_and_two_output_buffers(mo
     """K1's CUDA path with a stand-in library: the C entry point takes the
     physics rows, step_idx, the accumulators, the action, the reset rows,
     the rolling returns (null without the roll), the i32 and f32 output
-    buffers, E, gamma and the stream (12 arguments); the wrapper makes two
+    buffers, E, gamma, the reset flag, the sampling front's six (all null
+    here) and the stream (19 arguments); the wrapper makes two
     allocations and one launch, and its outputs, the rolled returns and
     samples among them, are views of the two buffers at the offsets the
     kernel writes (64-element blocks)."""
     from burn_ppo_torch.envs import cartpole as cp
 
     assert kernels.SIGNATURES["cartpole_step_autoreset"] == [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_float] + [ctypes.c_void_p] * 3
     lib = _cuda_path_on_cpu(monkeypatch, cp.cartpole_step_autoreset, return_norm_roll)
     E = 70
     env = CartPole()
@@ -458,11 +462,11 @@ def test_cartpole_kernel_wrapper_passes_two_state_rows_and_two_output_buffers(mo
     monkeypatch.setattr(torch, "empty", empty)
     assert len(allocations) == 2 and cp.cartpole_step_autoreset.launches == before + 1
     (name, args), = lib.calls
-    assert name == "cartpole_step_autoreset" and len(args) == 12
+    assert name == "cartpole_step_autoreset" and len(args) == 19
     assert args[:7] == (state.phys.data_ptr(), state.step_idx.data_ptr(),
                         acc.reward_sum.data_ptr(), acc.length.data_ptr(), action.data_ptr(),
                         reset.data_ptr(), returns.data_ptr() if rolled else None)
-    assert args[9:] == (E, 0.5 if rolled else 0.0, 0)
+    assert args[9:] == (E, 0.5 if rolled else 0.0, 1, None, None, None, 0.0, None, None, 0)
     blk = lambda cols: -(-E * cols // 64) * 64 * 4  # noqa: E731
     at = args[7]
     for t, cols, shape in ((out.state.step_idx, 1, (E,)), (out.acc.length, 1, (E,)),

@@ -369,7 +369,9 @@ def assert_steps_equal(k, p):
 def test_connect_four_kernel_matches_plain_exactly(dev, E):
     """Random play for 60 steps: mostly legal moves, some full columns and
     out-of-range actions, some states already done; every output equal.
-    E = 1, 3, 5 and 257 end on a block with fewer envs than a full one."""
+    E = 1, 3, 5 and 257 end on a block with fewer envs than a full one.
+    Every step also with the reset off (the terminal rows kept), against
+    the plain step so."""
     g = torch.Generator(device=dev).manual_seed(E)
     env = ConnectFour()
     empty = torch.empty(E, 0, device=dev)
@@ -392,6 +394,8 @@ def test_connect_four_kernel_matches_plain_exactly(dev, E):
         assert connect_four_step_autoreset.launches == before + 1
         p = autoreset_step(env, state, acc, action, empty)
         assert_steps_equal(k, p)
+        assert_steps_equal(env.step_autoreset(state, acc, action, empty, reset=False),
+                           autoreset_step(env, state, acc, action, empty, reset=False))
         seen_done += int(p.done.sum())
         state, acc = p.state, p.acc
     assert seen_done > 0
@@ -1155,7 +1159,9 @@ def test_return_norm_finalize_kernel_refuses_a_state_without_scratch(dev):
 def test_liars_dice_kernel_matches_plain_exactly(dev, E):
     """K13 against the plain step along a walk of 200 steps, every output
     equal bit for bit; unmasked and out-of-range actions, finished games fed
-    back in and a shaping coefficient on half the envs."""
+    back in and a shaping coefficient on half the envs. Every step also
+    with the reset off (the terminal rows kept), against the plain step
+    so."""
     g = torch.Generator(device=dev).manual_seed(E)
     env = LiarsDice()
     state = env.reset(torch.rand(E, 8, generator=g, device=dev))
@@ -1174,6 +1180,8 @@ def test_liars_dice_kernel_matches_plain_exactly(dev, E):
         assert liars_dice_step_autoreset.launches == before + 1
         p = autoreset_step(env, state, acc, action, u_reset, u_step)
         assert_steps_equal(k, p)
+        assert_steps_equal(env.step_autoreset(state, acc, action, u_reset, u_step, reset=False),
+                           autoreset_step(env, state, acc, action, u_reset, u_step, reset=False))
         dones += int(p.done.sum())
         state, acc = p.state, p.acc
     assert dones > 0
@@ -2037,3 +2045,144 @@ def test_graphed_eval_chunk_replays_bit_for_bit_and_equals_the_eager_chunk(dev, 
         for a, b in zip(runs[0], other):
             assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
     assert engine.graph is not None and engine.logits.path == lineup.replace("cnn_", "")
+
+
+@pytest.mark.parametrize("E", [1, 255, 4096, 4097])
+def test_cartpole_kernel_with_its_reset_off_matches_plain(dev, E):
+    """K1 with the reset flag off: a finished env keeps its stepped physics
+    row and step count (obs from them), against the plain step so."""
+    env = CartPole()
+    state, acc, action, reset, _ = cartpole_inputs(dev, E, E + 1)
+    k = env.step_autoreset(state, acc, action, reset, reset=False)
+    torch.cuda.synchronize()
+    p = autoreset_step(env, state, acc, action, reset, reset=False)
+    assert_cartpole_steps_close(k, p, False)
+    if E >= 255:
+        assert bool(p.done.any()) and bool((k.state.step_idx[p.done > 0] > 0).all())
+
+
+# Each env's walk for the sampling front: the env, its step values, and
+# states with finished games among them.
+def sample_step_case(dev, name, E, g):
+    empty = torch.empty(E, 0, device=dev)
+    if name == "cartpole":
+        env = CartPole()
+        state, acc, _, reset, _ = cartpole_inputs(dev, E, E + 7)
+        return env, state, acc, lambda: (reset, None)
+    if name == "connect_four":
+        env = ConnectFour()
+        return env, env.reset(empty), EpisodeAccumulator.zero(E, 2, dev), lambda: (empty, None)
+    if name == "skull":
+        env = Skull(4)
+        state = env.reset(empty)
+        state = SkullState(state.ints, (torch.arange(E, device=dev) % 2) * 0.05)
+        return env, state, EpisodeAccumulator.zero(E, 4, dev), lambda: (
+            empty, torch.rand(E, generator=g, device=dev))
+    env = LiarsDice()
+    state = env.reset(torch.rand(E, 8, generator=g, device=dev))
+    return env, state, EpisodeAccumulator.zero(E, 4, dev), lambda: (
+        torch.rand(E, 8, generator=g, device=dev), torch.rand(E, 8, generator=g, device=dev))
+
+
+def front_case(dev, g, mask, temps):
+    """Logits with exact ties at the top of every greedy row with two legal
+    actions, the temperatures (per row, or one float) and the uniforms."""
+    E, A = mask.shape
+    logits = torch.randn(E, A, generator=g, device=dev) * 2
+    per_row = temps if isinstance(temps, torch.Tensor) else torch.full((E,), temps, device=dev)
+    two = torch.topk(mask + 0.5 * torch.rand(E, A, generator=g, device=dev), 2, dim=1).indices
+    tie = (per_row <= 0) & (mask.sum(1) >= 2)
+    peak = (logits.max(1).values + 1.0)[:, None].expand(E, 2)
+    logits[tie.nonzero()[:, :1], two[tie]] = peak[tie]
+    uni = torch.rand(E, A, generator=g, device=dev).clamp_min(TINY)
+    from burn_ppo_torch.ops.categorical import TemperatureFront
+
+    return TemperatureFront(logits, mask, temps, uni), int(tie.sum())
+
+
+@pytest.mark.parametrize("name", ["cartpole", "connect_four", "skull", "liars_dice"])
+@pytest.mark.parametrize("E", [1, 64, 256, 4096])
+def test_sample_step_kernel_equals_k14_then_the_step(dev, name, E):
+    """The step with its sampling front (one launch) against K14 then the
+    step kernel on the same inputs, along a walk of 40 steps: the actions
+    and every output bit for bit; and against the plain sample then the
+    plain step: the actions and every output bit for bit, CartPole's
+    physics and obs to K1's 1e-5. Per-row temperatures from 0, 0.4, 1 and
+    1e-3 with greedy ties, and one float temperature every fifth step."""
+    import importlib
+
+    g = torch.Generator(device=dev).manual_seed(E * 7 + len(name))
+    env, state, acc, draws = sample_step_case(dev, name, E, g)
+    wrapper = getattr(importlib.import_module(f"burn_ppo_torch.envs.{name}"),
+                      f"{name}_step_autoreset")
+    mask = env.action_mask(state)
+    temps_set = torch.tensor([0.0, 0.4, 1.0, 1e-3], device=dev)
+    ties = dones = 0
+    for t in range(40):
+        temps = (0.7 if t % 5 == 4 else
+                 temps_set[torch.randint(0, 4, (E,), generator=g, device=dev)])
+        front, n = front_case(dev, g, mask, temps)
+        ties += n
+        reset, u = draws()
+        before = (wrapper.launches, sample_with_temperature.launches)
+        k = env.step_autoreset(state, acc, None, reset, u, front=front)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, sample_with_temperature.launches) == (before[0] + 1, before[1])
+        want = sample_with_temperature(*front)
+        p = env.step_autoreset(state, acc, want, reset, u)
+        plain = autoreset_step(env, state, acc, None, reset, u, front=front)
+        torch.cuda.synchronize()
+        assert torch.equal(k.actions, want) and torch.equal(k.actions, plain.actions), f"step {t}"
+        if name == "cartpole":
+            assert torch.equal(k.state.phys, p.state.phys) and torch.equal(k.obs, p.obs)
+            assert_cartpole_steps_close(k, p, False)
+            assert_cartpole_steps_close(k, plain, False)
+        else:
+            assert_steps_equal(k, p)
+            assert_steps_equal(k, plain)
+        dones += int(p.done.sum())
+        state, acc, mask = p.state, p.acc, p.mask
+    assert ties > 0
+    if E >= 64 and name in ("cartpole", "connect_four"):
+        assert dones > 0
+
+
+@pytest.mark.parametrize("rows,A", [(4096, 2), (4096, 49), (1, 33), (1229, 33)])
+@pytest.mark.parametrize("count", [0, 1, 2, 5000])
+def test_sample_kernel_with_the_popart_epilogue_equals_k2_then_k16(dev, rows, A, count):
+    """K2 with its value epilogue against K2 without it, then K16 into the
+    same slice: actions, log-probs and values bit for bit; the slices
+    beside it untouched."""
+    g = torch.Generator(device=dev).manual_seed(rows + A + count)
+    logits, mask, u = sample_case(g, dev, rows, A, True)
+    values, _, state, _, _ = popart_case(dev, rows, count, 1, rows * 3 + count)
+    out = torch.full((3, rows), -7.0, device=dev)
+    before = (masked_sample.launches, popart_denormalize.launches)
+    a, lp = masked_sample(logits, mask, u, popart=state, values=values, values_out=out[1])
+    torch.cuda.synchronize()
+    assert (masked_sample.launches, popart_denormalize.launches) == (before[0] + 1, before[1])
+    a2, lp2 = masked_sample(logits, mask, u)
+    want = torch.zeros(rows, device=dev)
+    popart_denormalize(state, values, out=want)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a2) and torch.equal(lp, lp2) and torch.equal(out[1], want)
+    assert torch.equal(out[1], popart_denormalize_plain(state, values))
+    assert bool((out[0] == -7.0).all()) and bool((out[2] == -7.0).all())
+    with pytest.raises(ValueError):
+        masked_sample(logits, mask, u, popart=state, values=values[:-1] if rows > 1 else
+                      values.repeat(2), values_out=out[1])
+
+
+def test_a_chunk_launches_the_fused_step_once_a_step_and_k14_never(dev):
+    """An eager chunk of T steps on Connect Four: the env step (with its
+    sampling front) T times, K14 never."""
+    from burn_ppo_torch import eval as ev
+
+    engine = eval_engine(dev, "stacked", 64)
+    before = (connect_four_step_autoreset.launches, sample_with_temperature.launches)
+    engine.eager_chunk()
+    torch.cuda.synchronize()
+    assert (connect_four_step_autoreset.launches,
+            sample_with_temperature.launches) == (before[0] + 32, before[1])
+    assert ev.step_books.launches > 0
+
