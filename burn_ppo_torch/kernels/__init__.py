@@ -20,7 +20,8 @@ env's step, with K14's sampling front as an option,
 epilogue, and K14),
 ``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
 ``ppo/pool_rollout.py``,
-``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17)) and use
+``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17),
+``ppo/window.py`` (K18, K19)) and use
 the helpers below.
 Each registers itself with :func:`counted`, which gives it a ``launches``
 count: the wrapper adds one where it launches its kernel, and nowhere
@@ -148,6 +149,12 @@ SIGNATURES = {
     # cutoff, 1 / cutoff, slot, temp; E, stream
     "eval_step_books": ([_VP, _VP, _VP, _I, _I] + [_VP] * 7 + [_VP, _L, _VP, _I] + [_F] * 5
                         + [_VP, _VP, _I, _VP]),
+    # completed, outcome, seat, slots, T, E, L, P, the window's first-update
+    # flag, its running count, its capacity, the record rows, stream
+    "window_records": [_VP] * 4 + [_I] * 4 + [_VP] * 5,
+    # host arrays of the fields' sources, lengths and folds, their count,
+    # the accumulators, the first-update flag, stream
+    "window_report": [_VP] * 3 + [_I] + [_VP] * 3,
 }
 
 _LOCK = threading.Lock()

@@ -10,7 +10,9 @@ minibatches (the first stepping the adaptive entropy controller inside
 K8, every one recording the mean entropy)
 (burn_ppo_tpu/ppo/update.py:344-421, where ``lax.cond`` skips the
 minibatches after a KL stop and the empty ones), the runtime-guard
-counts and the episode summaries (K10): ``prepare_update``, then
+counts and the episode summaries (K10), and with a ``WindowBook`` the
+update window's records (K18, first) and report (K19, last)
+(``ppo/window.py``): ``prepare_update``, then
 ``ppo/update.py``'s ``update_minibatch`` for each minibatch of each epoch
 and ``update_metrics``, reading nothing back to the host: the KL stop and
 the empty-minibatch skip are device flags (``ppo/update.py LossBook``),
@@ -97,6 +99,7 @@ from burn_ppo_torch.ppo.update import (
     update_metrics,
     update_minibatch,
 )
+from burn_ppo_torch.ppo.window import WindowBook, window_records
 
 
 def update_config(cfg: Config) -> PPOUpdateConfig:
@@ -200,10 +203,12 @@ class UpdateRunner:
     state the graphs read and write (the runner's own, made at the first
     run that hands one), None with the controller off."""
 
-    def __init__(self, env: Environment, cfg: Config, num_learner_envs: Optional[int] = None):
+    def __init__(self, env: Environment, cfg: Config, num_learner_envs: Optional[int] = None,
+                 book: Optional[WindowBook] = None):
         self.env = env
         self.cfg = cfg
         self.num_learner_envs = num_learner_envs
+        self.book = book
         self.lr: Optional[torch.Tensor] = None
         self.ent_coef: Optional[torch.Tensor] = None
         self.entropy: Optional[AdaptiveEntropyState] = None
@@ -259,6 +264,10 @@ class UpdateRunner:
         ucfg = update_config(self.cfg)
 
         def begin():
+            buffers = rollout.buffers
+            if self.book is not None and self.book.records:
+                window_records(self.book, buffers.log.completed, buffers.log.outcome,
+                               buffers.seat, buffers.slots, self.num_learner_envs)
             made["plan"] = prepare_update(self.env, self.cfg, network, rollout.carry,
                                           rollout.buffers.batch(), rollout.obs_norm, rng,
                                           self.lr, self.ent_coef, may_have_invalid=self.pool,
@@ -277,6 +286,8 @@ class UpdateRunner:
                 metrics["learner_valid_fraction"] = torch.mean(batch.valid_mask)
             stats = summarize_episode_logs(rollout.buffers.log, self.env.spec.num_players,
                                            num_envs=self.num_learner_envs)
+            if self.book is not None:
+                self.book.fold(metrics, stats)
             made["outputs"] = {"metrics": metrics, "stats": stats}
 
         rest = [minibatch(e, m) for e in range(ucfg.num_epochs)
@@ -331,7 +342,8 @@ class UpdateRunner:
             self._bound = bound
             state = ([opt.flat_params, opt.flat_mu, opt.flat_nu, opt.count_tensor]
                      + state_leaves(rollout.obs_norm) + state_leaves(rollout.popart)
-                     + state_leaves(self.entropy))
+                     + state_leaves(self.entropy)
+                     + ([] if self.book is None else self.book.leaves()))
             steps = self._steps(self._made, network, opt, rollout, rng)
             self.graph = UpdateGraph(steps, state, rng.generator)
         elif (any(a is not b for a, b in zip(bound[:3], self._bound[:3]))

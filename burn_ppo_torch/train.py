@@ -7,9 +7,16 @@ obs-normalizer merge, the bootstrap value, GAE (multiplayer GAE with the
 per-player last values for ``num_players > 1``), the return-normalizer
 prefix pass and the PPO epochs; the host loop evaluates the schedules,
 logs ``metrics.jsonl`` at ``log_freq`` boundaries and writes checkpoints.
-The device work of an update is enqueued without waiting for the device;
-the host reads the metrics (and on the vs-pool path the pool block's game
-records) once per update, in one transfer. On a card a train step is two
+The host runs the updates in windows, as the JAX package does
+(train.py:291-360, 434-516, 1058-1115): up to 64 updates, a power of two,
+between two log, checkpoint or total-step boundaries (and, against the
+pool, at most ``pool_rotation_interval`` on one rotation), each update
+enqueued without waiting for the device; the window's report (the last
+update's metrics, the guard counters summed, the maxima of ``approx_kl``
+and ``clip_fraction``, the episode summaries summed) and on the vs-pool
+path its compacted game records stay on the device (``ppo/window.py``,
+kernels K19 and K18) and the host reads them once a window, in one
+transfer. On a card a train step is two
 CUDA graph replays: the rollout (``ppo/rollout_graph.py``) and the rest
 of the update, every epoch and minibatch included, with the KL stop and
 the empty-minibatch skip decided on the device
@@ -18,12 +25,12 @@ buffers.
 
 The ``Trainer`` supports single-player runs, pure self-play, and
 self-play against the opponent pool (``opponent_pool_fraction > 0``,
-the MLP or CTDE, one opponent rotation per update), on CartPole, Connect
+the MLP or CTDE, one opponent rotation per window), on CartPole, Connect
 Four, Liar's Dice and Skull (a fixed player count, ``player_count``; the
 scheduled ``reward_shaping_coef`` is written into the env states before
 every rollout): the pool and the rating
 history start with the run (or, on a resume, continue from its run dir's
-files), every update samples a rotation and folds
+files), every window samples a rotation and folds
 its game records into the win rates and the rating log, and every
 checkpoint joins the pool, recomputes the Plackett-Luce ratings and moves
 the rating-driven ``best`` link. Each may normalize its values with
@@ -87,6 +94,13 @@ from burn_ppo_torch.ppo.rollout import (
 from burn_ppo_torch.ppo.rollout_graph import RolloutRunner
 from burn_ppo_torch.ppo.update import AdamState, resolve_shuffle_block
 from burn_ppo_torch.ppo.update_graph import UpdateRunner
+from burn_ppo_torch.ppo.window import (
+    GUARD_METRIC_KEYS,
+    MAX_WINDOW,
+    WindowBook,
+    largest_pow2_le,
+    record_capacity,
+)
 from burn_ppo_torch.selfplay.opponent_pool import OpponentPool
 from burn_ppo_torch.selfplay.rating_history import RatingHistory
 
@@ -120,8 +134,6 @@ def build_network_for_env(env: Environment, cfg: Config, generator: torch.Genera
     )
 
 
-GUARD_METRIC_KEYS = ("invalid_mask_count", "nonfinite_count")
-
 # (series name, metrics key): the JAX trainer's names (train.py:1758-1778).
 METRIC_SERIES = (
     ("train/policy_loss", "policy_loss"),
@@ -152,7 +164,7 @@ def rollout_runner(env: Environment, cfg: Config,
                          return_clip=cfg.return_clip, num_learner_envs=num_learner_envs)
 
 
-def make_train_step(env: Environment, cfg: Config):
+def make_train_step(env: Environment, cfg: Config, book: Optional[WindowBook] = None):
     """Fused rollout -> GAE -> PPO update. ``train_step(state, lr, ent_coef,
     rng, shaping_coef=0.0)`` returns (state, metrics, episode logs [T, E]).
     The state's carry, obs-norm stats, the metrics and the logs are the
@@ -161,9 +173,10 @@ def make_train_step(env: Environment, cfg: Config):
     target entropy (train.py:215-247); ``train_step.runner`` is its
     ``RolloutRunner`` and
     ``train_step.updater`` its ``UpdateRunner`` (whose ``outputs["stats"]``
-    are the step's episode summaries)."""
+    are the step's episode summaries). With ``book`` every step also folds
+    its metrics and summaries into that update window's report (K19)."""
     runner = rollout_runner(env, cfg)
-    updater = UpdateRunner(env, cfg)
+    updater = UpdateRunner(env, cfg, book=book)
 
     def train_step(state: TrainState, lr: float, ent_coef: float, rng: RandomSource,
                    shaping_coef: float = 0.0):
@@ -197,7 +210,8 @@ class PoolRecordLog:
     seat_opp: torch.Tensor  # i32 rotation slots BEFORE the resample
 
 
-def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
+def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int,
+                         book: Optional[WindowBook] = None):
     """Vs-pool variant (train.py:377-431): the stacked opponents act on
     the pool-env block. ``train_step(state, seating, opponents, num_active,
     lr, ent_coef, rng, shaping_coef=0.0)`` returns (state, seating,
@@ -206,11 +220,13 @@ def make_pool_train_step(env: Environment, cfg: Config, num_learner_envs: int):
     step's own buffers, which its next call overwrites; every rotation's
     stack must have the same slot count (``refresh_rotation(pad_to=)``).
     ``train_step.runner`` is its ``RolloutRunner``, ``train_step.updater``
-    its ``UpdateRunner``."""
+    its ``UpdateRunner``. With ``book`` (one with a record buffer) every
+    step also appends its completed pool games to that update window's
+    records (K18) and folds its report (K19)."""
     L = num_learner_envs
     runner = rollout_runner(env, cfg, num_learner_envs=L)
     # Only learner turns are valid: a minibatch can be all-invalid.
-    updater = UpdateRunner(env, cfg, num_learner_envs=L)
+    updater = UpdateRunner(env, cfg, num_learner_envs=L, book=book)
 
     def train_step(state: TrainState, seating: PoolSeating, opponents: OpponentStack,
                    num_active: int, lr: float, ent_coef: float, rng: RandomSource,
@@ -267,9 +283,6 @@ def unsupported_config(cfg: Config) -> Optional[str]:
             return ("network_type 'cnn' with the opponent pool (opponent_pool_fraction "
                     f"{cfg.opponent_pool_fraction}): ROADMAP A12b; pass "
                     "--opponent-pool-fraction 0 for pure self-play with the CNN")
-        if cfg.pool_rotation_interval > 1:
-            return (f"pool_rotation_interval {cfg.pool_rotation_interval} (several vs-pool "
-                    "updates per rotation): ROADMAP A12c; the port rotates every update")
     if cfg.network_type == "ctde" and make_env(cfg.env).spec.privileged_obs_dim is None:
         return (f"network_type 'ctde' needs an env with privileged observations (liars_dice, "
                 f"skull), not {cfg.env!r}; the JAX package cannot build it either")
@@ -355,7 +368,11 @@ class Trainer:
                        if cfg.adaptive_entropy is not None else None),
         )
         self.max_entropy = math.log(self.env.spec.num_actions)
-        self.train_step = make_train_step(self.env, cfg)
+        # Every update runs inside an update window (train.py:713-717): its
+        # report, and on the vs-pool path its records, folded on the device.
+        self.book = WindowBook(self.device, self.num_players)
+        self.train_step = make_train_step(self.env, cfg, book=self.book)
+        self._per_update_time: Optional[float] = None
         self.global_step = 0
         self.best_avg_return = float("-inf")
         self.ckpt = CheckpointManager(self.run_dir)
@@ -383,7 +400,14 @@ class Trainer:
             self.rating_history = RatingHistory.load(self.run_dir)
             self.seating = PoolSeating.create(self.num_envs, self.num_learner_envs,
                                               self.num_players, 1, self.rng)
-            self.pool_step = make_pool_train_step(self.env, cfg, self.num_learner_envs)
+            # Up to this many vs-pool updates a rotation (train.py:1487-1496).
+            self.max_pool_window = largest_pow2_le(
+                min(max(cfg.pool_rotation_interval, 1), MAX_WINDOW))
+            self.pool_book = WindowBook(
+                self.device, self.num_players,
+                record_rows=record_capacity(self.max_pool_window, cfg.num_steps, pool_envs))
+            self.pool_step = make_pool_train_step(self.env, cfg, self.num_learner_envs,
+                                                  book=self.pool_book)
 
         n = cfg.num_steps * self.num_envs
         block = resolve_shuffle_block(n, -(-n // cfg.num_minibatches), cfg.shuffle_block_rows)
@@ -535,6 +559,13 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _enforce_guards(self, metrics: Dict[str, float]) -> None:
+        if metrics.get("pool_record_overflow", 0.0) > 0:
+            # Warn only, never raise (train.py:1711-1722): the rows lost bias
+            # the win rates and ratings, never the training math.
+            print(f"WARNING: pool record buffer overflowed by "
+                  f"{int(metrics['pool_record_overflow'])} game(s) at step {self.global_step}; "
+                  "win-rate/rating stats missed them (episodes completing faster than 1 per 8 "
+                  "env-steps)", file=sys.stderr)
         if self.cfg.runtime_guards == "off":
             return
         problems = []
@@ -555,27 +586,60 @@ class Trainer:
             raise RuntimeError(msg + "\n(set runtime_guards = 'warn' to continue anyway)")
         print(f"WARNING: {msg}", file=sys.stderr)
 
-    @staticmethod
-    def _fetch(groups: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, dict]:
-        """Every tensor of ``groups`` to the host in one transfer: 0-dim
-        tensors come back as floats, the others as arrays of their shape."""
-        items = [(g, k, v) for g, d in groups.items() for k, v in d.items()]
-        flat = torch.cat([v.reshape(-1).to(torch.float32) for _, _, v in items]).cpu().numpy()
-        out: Dict[str, dict] = {g: {} for g in groups}
-        off = 0
-        for g, k, v in items:
-            n = v.numel()
-            out[g][k] = flat[off:off + n].reshape(v.shape).copy() if v.dim() else float(flat[off])
-            off += n
+    # ------------------------------------------------------------------
+    def _window_size(self, next_log: int, next_ckpt: int,
+                     remaining_seconds: Optional[float] = None,
+                     per_update_seconds: Optional[float] = None) -> int:
+        """Largest power-of-2 update count within every boundary (log,
+        checkpoint, total steps) and, with a time budget, about the time
+        left, capped at 64 (train.py:1058-1083)."""
+        spu = self.cfg.num_steps * self.num_envs
+        room = min(next_log - self.global_step, next_ckpt - self.global_step,
+                   self.cfg.total_steps - self.global_step)
+        max_updates = max(1, room // spu)
+        if remaining_seconds is not None and per_update_seconds:
+            max_updates = min(max_updates, max(1, int(remaining_seconds / per_update_seconds)))
+        return largest_pow2_le(max(min(max_updates, MAX_WINDOW), 1))
+
+    def _choose_window_k(self, next_log: int, next_ckpt: int, max_seconds: Optional[float],
+                         start_time: float, cap: Optional[int] = None) -> int:
+        """This window's update count (train.py:1085-1115; one process, so
+        nothing to broadcast)."""
+        remaining = None
+        if max_seconds is not None:
+            remaining = max_seconds - (time.time() - start_time + self.elapsed_time_offset)
+        k = self._window_size(next_log, next_ckpt, remaining, self._per_update_time)
+        if cap is not None:
+            k = min(k, cap)
+        return k
+
+    def schedule(self, k: int) -> list:
+        """(lr, entropy coefficient or, with the adaptive controller, its
+        target, shaping) of each of the next ``k`` updates, at its own step
+        (train.py:1390-1413)."""
+        spu = self.cfg.num_steps * self.num_envs
+        out = []
+        for i in range(k):
+            o = self.global_step + i * spu
+            target = self.entropy_target(o)
+            out.append((self.cfg.learning_rate.get(o),
+                        self.cfg.entropy_coef.get(o) if target is None else target,
+                        self.cfg.reward_shaping_coef.get(o)))
         return out
 
-    def _pool_update(self, lr: float, ent_coef: float, shaping: float):
-        """One vs-pool update (train.py:1425-1536): sample the rotation,
-        run the pool step, fold its game records. None while the pool is
-        empty (the update is then plain self-play on every env)."""
-        if self.pool is None or not len(self.pool):
-            return None
+    @property
+    def pool_ready(self) -> bool:
+        """Whether the next window runs against the pool: it holds a
+        checkpoint (until then every env is self-play)."""
+        return self.pool is not None and len(self.pool) > 0
+
+    def rotate(self):
+        """A new rotation of the pool (train.py:1431-1477): (the stacked
+        opponents padded to the configured slots, their names), the seats
+        remapped into range where the slot count shrank."""
+        t0 = time.time()
         stack, names = self.pool.refresh_rotation(pad_to=max(self.cfg.max_active_opponents, 1))
+        self._perf_extra["perf/pool_rotation_time"] = time.time() - t0
         if self.cfg.debug_opponents and not self.quiet:
             weights = self.pool.selection_weights()
             total_w = sum(weights.values()) or 1.0
@@ -587,26 +651,50 @@ class Trainer:
             # Remap stale slots into range after K shrank.
             self.seating = PoolSeating(self.seating.learner_seat, self.seating.seat_opp % K)
         self._last_num_slots = K
-        self.state, self.seating, metrics_t, stats_t, records = self.pool_step(
-            self.state, self.seating, stack, K, lr, ent_coef, self.rng, shaping)
-        fetched = self._fetch({"metrics": metrics_t, "stats": stats_t,
-                               "rec": records.__dict__})
-        rec = fetched["rec"]
-        rows = extract_pool_records(PoolRecordLog(**rec), self.num_players)
+        return stack, names
+
+    def self_play_window(self, schedule: Sequence[tuple]):
+        """One window of updates on every env (train.py:291-318,
+        1577-1597): (the report's metrics, its episode summaries), fetched
+        once."""
+        self.book.start()
+        for lr, ent_coef, shaping in schedule:
+            self.state, _, _ = self.train_step(self.state, lr, ent_coef, self.rng, shaping)
+        metrics, stats, _ = self.book.fetch()
+        return metrics, stats
+
+    def pool_window(self, stack, names: Sequence[str], schedule: Sequence[tuple]):
+        """One window of vs-pool updates against one rotation
+        (train.py:434-516, 1498-1545): the updates, one fetch of the report
+        and the records, and one fold of the records into the win rates and
+        the rating log. Returns (metrics, episode summaries)."""
+        W = len(schedule)
+        t0 = time.time()
+        self.pool_book.start(
+            record_capacity(W, self.cfg.num_steps, self.num_envs - self.num_learner_envs))
+        runner = self.pool_step.runner
+        for i, (lr, ent_coef, shaping) in enumerate(schedule):
+            # After the first update the runner holds the rotation's stack:
+            # the later ones copy nothing in.
+            opponents = stack if i == 0 else runner.opponents
+            self.state, self.seating, _, _, _ = self.pool_step(
+                self.state, self.seating, opponents, len(names), lr, ent_coef, self.rng, shaping)
+        metrics, stats, rows = self.pool_book.fetch()
+        self._perf_extra["perf/pool_window_time"] = time.time() - t0
+        t0 = time.time()
         self._apply_pool_records(rows, names)
         self.pool.apply_pending_updates()
-        return fetched["metrics"], fetched["stats"]
+        self._perf_extra["perf/pool_record_time"] = time.time() - t0
+        return metrics, stats
 
     def update(self, lr: float, ent_coef: float, shaping: float):
-        """One update, against the pool once it holds a checkpoint: (the
-        metrics, the episode summaries), fetched to the host."""
-        fetched = self._pool_update(lr, ent_coef, shaping)
-        if fetched is not None:
-            return fetched
-        self.state, metrics_t, _ = self.train_step(self.state, lr, ent_coef, self.rng, shaping)
-        fetched = self._fetch({"metrics": metrics_t,
-                               "stats": self.train_step.updater.outputs["stats"]})
-        return fetched["metrics"], fetched["stats"]
+        """One update, a window of one (against a new rotation once the pool
+        holds a checkpoint): (the metrics, the episode summaries), fetched
+        to the host."""
+        if self.pool_ready:
+            stack, names = self.rotate()
+            return self.pool_window(stack, names, [(lr, ent_coef, shaping)])
+        return self.self_play_window([(lr, ent_coef, shaping)])
 
     # ------------------------------------------------------------------
     def train(self) -> Dict[str, float]:
@@ -644,26 +732,35 @@ class Trainer:
                     and time.time() - start_time + self.elapsed_time_offset > max_seconds
                 ):
                     break
-                lr = cfg.learning_rate.get(self.global_step)
-                # With the adaptive controller the update takes the
-                # scheduled target; the coefficient it used comes back in
-                # the metrics (train.py:1373-1386, 1611-1620).
-                ent_target = self.entropy_target(self.global_step)
-                ent_coef = (cfg.entropy_coef.get(self.global_step) if ent_target is None
-                            else ent_target)
                 t0 = time.time()
-                metrics, stats = self.update(lr, ent_coef,
-                                             cfg.reward_shaping_coef.get(self.global_step))
+                if self.pool_ready:
+                    # One rotation drives up to pool_rotation_interval
+                    # updates (train.py:1425-1545).
+                    stack, names = self.rotate()
+                    k = self._choose_window_k(next_log, next_ckpt, max_seconds, start_time,
+                                              cap=self.max_pool_window)
+                    sched = self.schedule(k)
+                    metrics, stats = self.pool_window(stack, names, sched)
+                else:
+                    k = self._choose_window_k(next_log, next_ckpt, max_seconds, start_time)
+                    sched = self.schedule(k)
+                    metrics, stats = self.self_play_window(sched)
+                # The report is the window's last update's: log the schedule
+                # values that produced it (train.py:1590-1597); with the
+                # adaptive controller the coefficient it used.
+                lr, ent_coef, _ = sched[-1]
+                ent_target = self.entropy_target(self.global_step + (k - 1) * steps_per_update)
                 if ent_target is not None:
                     ent_coef = metrics["adaptive_ent_coef"]
                 self.tracker.ingest(stats)
                 self._enforce_guards(metrics)
                 step_time = time.time() - t0
-                self.global_step += steps_per_update
+                self._per_update_time = step_time / k
+                self.global_step += steps_per_update * k
                 last_metrics = metrics
                 if self.global_step >= next_log:
                     next_log = self.global_step + cfg.log_freq
-                    sps = steps_per_update / max(step_time, 1e-9)
+                    sps = steps_per_update * k / max(step_time, 1e-9)
                     self._log_metrics(metrics, lr, ent_coef, sps, ent_target)
                     self._print_progress(progress, metrics, sps)
                 if self.global_step >= next_ckpt:
@@ -716,6 +813,10 @@ class Trainer:
         log("train/learning_rate", lr, step)
         for name, key in METRIC_SERIES:
             log(name, m[key], step)
+        if "approx_kl_max" in m:
+            # The window's spikes (train.py:1766-1768).
+            log("train/approx_kl_max", m["approx_kl_max"], step)
+            log("train/clip_fraction_max", m["clip_fraction_max"], step)
         if m.get("avg_valid_actions", 0.0):
             log("train/avg_valid_actions", m["avg_valid_actions"], step)
             log("train/entropy_valid_pct", m["entropy_valid_pct"], step)

@@ -89,6 +89,12 @@ exits non-zero without the final result line:
      parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
+  2. (continued) K18, the update window's pool records, against its plain
+     version bit for bit over a window of 8 appends at the flagship shape
+     (T = 64, E = 4096, Ep = 1229, P = 4, C = 78,656) and over one whose
+     capacity of 500 rows overflows; K19, the window's report, bit for
+     bit over 8 folds (a KL spike, a guard count, an update without an
+     episode); each timed, one append or fold;
   2a. phase ``popart``: K15, PopArt's update (the masked moments of the
      raw returns, the Welford merge and the value head's rescale, one
      launch with a last-block ticket) against its plain version at the CartPole batch
@@ -271,6 +277,21 @@ exits non-zero without the final result line:
      ``.npz`` original's, two graphed chunks of each bit for bit the
      original's, ``eval`` (kernels counted) and ``tournament`` on the
      Connect Four directory with the original's games and standings;
+  3q. phase ``pool_window`` (in a process of its own): configs/
+     skull_ctde_tpu.toml unchanged at full width (Skull, 4 players, 4096 x
+     64, CTDE 256x3 relu, pool fraction 0.3, 8 opponents, 8 updates a
+     rotation) through the CLI for 24 updates: a self-play window of 8, a
+     checkpoint joining the pool, two pool windows of 8, each one rotation
+     and one record fold; K18 and K19 8 launches a window (the update
+     graphs' replays), every count checked as in the train phases; the
+     fetched rows, the overflow, the three perf/pool_* series and
+     train/approx_kl_max printed; a pool window against 8 sequential pool
+     steps of a book-less step with the same rotation of 8 freshly
+     initialised opponents from the same state and generator state, bit
+     for bit (parameters, optimizer, carry, seating, the rows against
+     extract_pool_records); the window against 8 single-update rotations
+     (pool_rotation_interval = 1) in turns, and one window profiled (its
+     events and device ms, K18 and K19 8 each on the device);
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps; then the same with
      --normalize-values, printed beside the JAX package's CPU result for
@@ -285,7 +306,8 @@ launches its graphs' captured launches times their replays (a replay
 runs no wrapper; phase 3i counts the replayed kernels on the device),
 and no eager launch beyond the graphs' warm-ups (one eager rollout and
 one eager update before a runner's captures); K8 and K9 once per
-minibatch graph replayed.
+minibatch graph replayed; K19 once an update and K18 once a vs-pool
+update (the update window's report and records, in the update graphs).
 
 The line before the last holds the kernel table, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -426,7 +448,21 @@ from burn_ppo_torch.ppo.rollout import sample_and_store_values as SAMPLE_AND_STO
 from burn_ppo_torch.ppo.rollout_graph import RolloutGraph, state_leaves  # noqa: E402
 from burn_ppo_torch.ppo.update import AdamState  # noqa: E402
 from burn_ppo_torch.ppo.update_graph import UpdateGraph, UpdateRunner  # noqa: E402
-from burn_ppo_torch.train import Trainer, build_network_for_env, rollout_runner  # noqa: E402
+from burn_ppo_torch.ppo.window import (  # noqa: E402
+    WindowBook,
+    record_capacity,
+    window_records,
+    window_records_plain,
+    window_report,
+    window_report_plain,
+)
+from burn_ppo_torch.train import (  # noqa: E402
+    Trainer,
+    build_network_for_env,
+    extract_pool_records,
+    make_pool_train_step,
+    rollout_runner,
+)
 
 E, T = 4096, 128  # CartPole bench shape
 T_C4 = 64  # Connect Four self-play shape: 4096 envs x 64 steps
@@ -472,6 +508,8 @@ WRAPPERS = {
     "popart_update": popart_update_rescale,
     "popart_denormalize": popart_denormalize,
     "step_books": step_books,
+    "window_records": window_records,
+    "window_report": window_report,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -507,6 +545,8 @@ SOURCES = {
     "popart_denormalize": ("burn_ppo_torch/csrc/popart.cu",
                            "burn_ppo_tpu/ppo/normalization.py:293"),
     "step_books": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:575"),
+    "window_records": ("burn_ppo_torch/csrc/window_records.cu", "burn_ppo_tpu/train.py:462"),
+    "window_report": ("burn_ppo_torch/csrc/window_report.cu", "burn_ppo_tpu/train.py:333"),
 }
 # The env steps with K14's row code as their sampling front (the step
 # kernels' other instance, launched by the same wrappers): eval's sample
@@ -2538,6 +2578,8 @@ UPDATE_KERNELS = {
     "episode_stats": "episode_stats_kernel",
     "popart_update": "popart_update_kernel",
     "popart_denormalize": "popart_denormalize_kernel",
+    "window_records": "window_records_kernel",
+    "window_report": "window_report_kernel",
 }
 
 
@@ -2792,7 +2834,7 @@ def scalars(run: Path) -> dict:
 
 def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
                 expect: dict, card_line: str, checkpoint_freq: int = 10**12, done: int = 0,
-                resume: bool = False) -> tuple:
+                resume: bool = False, as_configured: bool = False) -> tuple:
     """One training run through the CLI, with every launch counter at 0
     just before it and read just after; checks the counts against
     ``expect`` (kernels not named there: 0) and the losses for finiteness.
@@ -2806,7 +2848,11 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
     ``target_kl``; with it, those the host replayed before it saw the
     stop flag): a minibatch after a KL stop or with no valid row launches
     both and changes nothing (``train/minibatch_updates`` counts those
-    that ran)."""
+    that ran). Every update folds its window's report (K19), and a vs-pool
+    update appends its window's records (K18, in ``expect``): one window
+    an update, since every log comes after one, except ``as_configured``:
+    the config's own seed and log and checkpoint cadence, one series value
+    a log."""
     from burn_ppo_torch import cli
 
     for w in WRAPPERS.values():
@@ -2816,9 +2862,10 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
     t0 = time.time()
     logged = {k: len(v) for k, v in scalars(run).items()} if resume else {}
     total = str((done + updates) * steps_per_update)
+    cadence = [] if as_configured else ["--checkpoint-freq", str(checkpoint_freq), "--seed", "0"]
     rc = cli.main(["train", "--resume", str(run), "--total-steps", total, "--quiet"] if resume
-                  else ["train", *args, "--total-steps", total, "--checkpoint-freq",
-                        str(checkpoint_freq), "--seed", "0", "--run-dir", str(run), "--quiet"])
+                  else ["train", *args, "--total-steps", total, *cadence, "--run-dir", str(run),
+                        "--quiet"])
     torch.cuda.synchronize()
     wall = time.time() - t0
     eager = {name: w.launches for name, w in WRAPPERS.items()}
@@ -2841,18 +2888,21 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
     if eager != warmup:
         raise AssertionError(f"eager launches {eager} beyond the warm-ups {warmup}")
     series = {k: v[logged.get(k, 0):] for k, v in scalars(run).items()}
+    cfg = Config.load(run / "config.toml")
+    logs = updates * steps_per_update // cfg.log_freq if as_configured else updates
     for name in ("train/policy_loss", "train/value_loss", "train/total_loss", "train/entropy",
                  "train/minibatch_updates"):
         vals = series.get(name, [])
-        if len(vals) != updates or not all(v is not None and math.isfinite(v) for v in vals):
-            raise AssertionError(f"{name}: expected {updates} finite values, got {vals}")
-    minibatches = int(sum(series["train/minibatch_updates"]))
-    cfg = Config.load(run / "config.toml")
+        if len(vals) != logs or not all(v is not None and math.isfinite(v) for v in vals):
+            raise AssertionError(f"{name}: expected {logs} finite values, got {vals}")
+    # With windows a log holds the last update's count only.
+    minibatches = None if as_configured else int(sum(series["train/minibatch_updates"]))
     # K8 and K9 launch in every minibatch graph replayed (those after a KL
     # stop are skipped where the update is a graph per minibatch)
     launched = updates * cfg.num_epochs * cfg.num_minibatches - UpdateGraph.skipped
     want = {name: expect.get(name, 0) for name in WRAPPERS}
-    want.update(ppo_loss=launched, clip_adam=launched, episode_stats=updates)
+    want.update(ppo_loss=launched, clip_adam=launched, episode_stats=updates,
+                window_report=updates)
     # The main path's launches: eager (the warm-ups left out) plus the
     # graphs' (captured x replayed).
     main_path = {name: eager[name] - warmup[name] + graphed[name] for name in WRAPPERS}
@@ -2867,7 +2917,8 @@ def train_phase(run: Path, args: list, updates: int, steps_per_update: int,
         "launches": launches, "graph_launches": graphed, "warmup_launches": warmup,
         "graph_replays": [RolloutGraph.replays, UpdateGraph.replays],
         "graph_captures": list(captures), "minibatch_graphs_skipped": UpdateGraph.skipped,
-        "minibatches_run": minibatches, "minibatches_skipped": launched - minibatches,
+        "minibatches_run": minibatches,
+        "minibatches_skipped": None if minibatches is None else launched - minibatches,
         "card": card_line,
     }, series
 
@@ -2980,7 +3031,7 @@ def selfplay_pool_train(tmp: Path, card_line: str) -> dict:
         {"connect_four_step_autoreset": n * T_C4,
          "masked_gumbel_sample": n * T_C4 + pool_updates * T_C4,
          "opponent_actor_forward": pool_updates * T_C4,
-         "gae_multiplayer_reverse_scan": n,
+         "gae_multiplayer_reverse_scan": n, "window_records": pool_updates,
          "obs_norm_apply": n * (T_C4 + 2), "obs_norm_update": n},
         card_line, checkpoint_freq=E * T_C4,
     )
@@ -3066,7 +3117,7 @@ def four_player_pool_train(tmp: Path, card_line: str, name: str, args: list, ste
         run, [*args, "--num-envs", str(E)], updates, E * steps,
         {step_kernel: updates * steps, "masked_gumbel_sample": (updates + pool_updates) * steps,
          "opponent_actor_forward": pool_updates * steps, "gae_multiplayer_reverse_scan": updates,
-         **(expect or {})},
+         "window_records": pool_updates, **(expect or {})},
         card_line, checkpoint_freq=E * steps,
     )
     stats = json.loads((run / "opponent_stats.json").read_text())["opponents"]
@@ -3141,7 +3192,7 @@ def resume_case(name: str) -> tuple:
             lambda n, pool: {"liars_dice_step_autoreset": n * T_LD,
                              "masked_gumbel_sample": (n + pool) * T_LD,
                              "opponent_actor_forward": pool * T_LD,
-                             "gae_multiplayer_reverse_scan": n})
+                             "gae_multiplayer_reverse_scan": n, "window_records": pool})
 
 
 def resume_leg(case: str, run: str, done: int, mode: str, fork_from: str = "") -> dict:
@@ -5515,6 +5566,355 @@ def supervisor_finish(started: dict, card_line: str) -> dict:
     return out
 
 
+# ---- K18 and K19, the update window's records and report (PR 20) -------
+
+FLAGSHIP = ROOT / "configs" / "skull_ctde_tpu.toml"
+T_FLAG, W_FLAG = 64, 8  # its steps per update and updates a rotation
+FLAGSHIP_UPDATES = 24  # a self-play window of 8, a checkpoint, two pool windows of 8
+FLAGSHIP_OPPONENTS = 8
+# K18's reads of a completed game: its seat, the P placements and the P-1
+# opponents' slots (the learner's own slot is not read)
+RECORD_BYTES = 4 + 4 * 4 + 4 * 3
+
+
+def window_logs(dev, g, T: int, E_: int, L: int, P: int, rate: float) -> tuple:
+    """One rollout's pool-record inputs: completed [T, E] f32 at ``rate``,
+    placements [T, E, P] (a permutation of 1..P), the learner's seat [T, E]
+    (-1 in the learner block), the opponents' slots [T, E, P]."""
+    completed = (torch.rand(T, E_, generator=g, device=dev) < rate).to(torch.float32)
+    seat = torch.randint(0, P, (T, E_), generator=g, device=dev, dtype=torch.int32)
+    seat[:, :L] = -1
+    outcome = (torch.argsort(torch.rand(T, E_, P, generator=g, device=dev), dim=-1) + 1)
+    slots = torch.randint(0, 8, (T, E_, P), generator=g, device=dev, dtype=torch.int32)
+    return completed, outcome.to(torch.int32), seat, slots
+
+
+def records_run(fn, book: WindowBook, logs: list, capacity: int, L: int) -> tuple:
+    """A window of appends through ``fn`` (K18 or its plain version), the
+    first-update flag cleared after each as K19 clears it: (count, rows
+    [:min(count, capacity)] on the host)."""
+    book.start(capacity)
+    for c, o, s_, sl in logs:
+        fn(book, c, o, s_, sl, L)
+        book.first.zero_()
+    total = int(book.total)
+    return total, book.rows[:min(total, capacity)].cpu()
+
+
+def check_window_records(dev, g) -> dict:
+    """K18 against its plain version bit for bit: a window of 8 appends at
+    the flagship shape (Skull, 4 players, T = 64, E = 4096, Ep = 1229, C =
+    78,656) and a window whose capacity (500 rows) overflows; one append
+    timed (the first-update flag set, so each call starts the buffer)."""
+    P, L = 4, E - EP_SKULL
+    out = {}
+    for name, rate, capacity in (("flagship_W8", 0.03, record_capacity(W_FLAG, T_FLAG, EP_SKULL)),
+                                 ("overflow_C500", 0.3, 500)):
+        logs = [window_logs(dev, g, T_FLAG, E, L, P, rate) for _ in range(W_FLAG)]
+        books = [WindowBook(dev, P, record_rows=record_capacity(W_FLAG, T_FLAG, EP_SKULL))
+                 for _ in range(2)]
+        kt, kr = records_run(window_records, books[0], logs, capacity, L)
+        pt, pr = records_run(window_records_plain, books[1], logs, capacity, L)
+        if kt != pt or not torch.equal(kr, pr):
+            raise AssertionError(f"window_records {name}: count {kt} against the plain {pt}, "
+                                 f"rows equal {torch.equal(kr, pr)}")
+        if (capacity == 500) != (kt > capacity):
+            raise AssertionError(f"window_records {name}: {kt} games for a capacity of {capacity}")
+        out[name] = {"games": kt, "rows": len(kr), "overflow": max(kt - capacity, 0),
+                     "capacity": capacity}
+    logs = window_logs(dev, g, T_FLAG, E, L, P, 0.03)
+    kb, pb = (WindowBook(dev, P, record_rows=record_capacity(W_FLAG, T_FLAG, EP_SKULL))
+              for _ in range(2))
+    for b in (kb, pb):
+        b.start(record_capacity(W_FLAG, T_FLAG, EP_SKULL))
+    games = int(((logs[0][:, L:] > 0) & (logs[2][:, L:] >= 0)).sum())
+    out.update(timed(lambda: window_records(kb, *logs, L), lambda: window_records_plain(pb, *logs, L)))
+    out.update(library_ms=None, games_per_update=games, max_abs_err=0.0,
+               **bound(T_FLAG * EP_SKULL * 4 + games * (RECORD_BYTES + 2 * P - 1)))
+    return out
+
+
+def report_inputs(dev, g, P: int = 4) -> tuple:
+    """An update's outputs as the update graph makes them: 14 metric means
+    and the minibatch count as views of one tensor, the explained
+    variance, the guards and the learner's valid share apart, and the
+    episode summaries as views of K10's output."""
+    sums = torch.rand(15, generator=g, device=dev)
+    metrics = dict(zip([f"m{i}" for i in range(14)], sums[:14]))
+    metrics.update(approx_kl=sums[3], clip_fraction=sums[4], num_minibatch_updates=sums[14],
+                   explained_variance=torch.rand((), generator=g, device=dev),
+                   invalid_mask_count=torch.zeros((), device=dev),
+                   nonfinite_count=torch.zeros((), device=dev),
+                   learner_valid_fraction=torch.rand((), generator=g, device=dev))
+    out = torch.rand(5 + 2 * P, generator=g, device=dev) * 100
+    stats = {"count": out[0], "ret_sum": out[1:1 + P], "ret0_max": out[P + 1],
+             "ret0_min": out[P + 2], "len_sum": out[P + 3], "pts_sum": out[P + 4:2 * P + 4],
+             "draws": out[2 * P + 4]}
+    return metrics, stats, sums, out
+
+
+def check_window_report(dev, g) -> dict:
+    """K19 against its plain version bit for bit over a window of 8 folds
+    of fresh outputs (a KL spike in the fourth, a guard count in the
+    second, an update with no episode: extrema -inf / +inf); one fold
+    timed."""
+    P = 4
+    metrics, stats, sums, out = report_inputs(dev, g, P)
+    books = [WindowBook(dev, P) for _ in range(2)]
+    for b in books:
+        b.start()
+    for w in range(W_FLAG):
+        sums.copy_(torch.rand(15, generator=g, device=dev))
+        out.copy_(torch.rand(5 + 2 * P, generator=g, device=dev) * 100)
+        if w == 3:
+            sums[3] = 7.5
+        if w == 5:
+            out[0], out[P + 1], out[P + 2] = 0.0, float("-inf"), float("inf")
+        metrics["invalid_mask_count"].fill_(2.0 if w == 1 else 0.0)
+        books[0].fold(metrics, stats)
+        window_report_plain(books[1], books[1].fields(metrics, stats))
+    if not torch.equal(books[0].acc, books[1].acc) or int(books[0].first) != 0:
+        raise AssertionError("window_report: the kernel's report differs from the plain one")
+    m, st, _ = books[0].fetch()
+    if m["approx_kl_max"] != 7.5 or m["invalid_mask_count"] != 2.0:
+        raise AssertionError(f"window_report: maxima and sums {m}")
+    fields = books[0].fields(metrics, stats)
+    entries = sum(t.numel() for t, _ in fields)
+    res = {"fields": len(fields), "entries": entries, "report": {**m, **{
+        k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in st.items()}}}
+    res.update(timed(lambda: window_report(books[0], fields),
+                     lambda: window_report_plain(books[1], fields)))
+    res.update(library_ms=None, max_abs_err=0.0, **bound(entries * 4 * 3 + 4))
+    return res
+
+
+def one_window_profile(run_window) -> dict:
+    """One pool window under the profiler: its events span (CUDA events
+    around the whole call, fetch included), the union of its device
+    intervals, and K18's and K19's device launches counted by name."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        start.record()
+        run_window()
+        end.record()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, last = 0.0, float("-inf")
+    for a, b in spans:
+        if b > last:
+            busy += b - max(a, last)
+            last = b
+    counts = {n: sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and k in e.name)
+              for n, k in (("window_records", "window_records_kernel"),
+                           ("window_report", "window_report_kernel"))}
+    return {"events_ms": start.elapsed_time(end), "device_ms": busy / 1e3,
+            "device_launches": counts}
+
+
+def flagship_trainer(tmp: Path, name: str) -> Trainer:
+    """configs/skull_ctde_tpu.toml at full width on the card, its pool
+    holding 8 freshly initialised opponents (checkpoints 1-8, each a
+    network seeded 1000 + i), the learner back at its own initial
+    parameters."""
+    cfg = Config.load(FLAGSHIP)
+    tr = Trainer(cfg, tmp / name, device="cuda", quiet=True)
+    net = tr.state.network
+    keep = [p.detach().clone() for p in net.parameters()]
+    with torch.no_grad():
+        for i in range(FLAGSHIP_OPPONENTS):
+            fresh = build_network_for_env(tr.env, cfg, torch.Generator().manual_seed(1000 + i))
+            for p, q in zip(net.parameters(), fresh.parameters()):
+                p.copy_(q)
+            tr.global_step = i + 1
+            tr.save_checkpoint()
+        for p, q in zip(net.parameters(), keep):
+            p.copy_(q)
+    tr.global_step = 0
+    return tr
+
+
+def trainer_leaves(tr: Trainer) -> list:
+    st = tr.state
+    return ([p.detach() for p in st.network.parameters()]
+            + [st.opt_state.flat_mu, st.opt_state.flat_nu, st.opt_state.count_tensor]
+            + state_leaves(st.carry) + state_leaves(tr.seating))
+
+
+def window_against_sequential(tmp: Path) -> tuple:
+    """A pool window of W = 8 (``Trainer.pool_window``: K18 and K19 in the
+    update graphs, one fetch, one fold) against 8 sequential pool steps of
+    a book-less ``make_pool_train_step`` with the same rotation, from the
+    same start state and generator state (two trainers built alike): the
+    parameters, the optimizer state, the carry and the seating bit for
+    bit, the window's rows those of ``extract_pool_records`` over the 8
+    steps' logs, its report the last step's metrics and the steps' KL
+    maximum. Returns (the result, the window's trainer)."""
+    from types import SimpleNamespace
+
+    a, b = flagship_trainer(tmp, "window"), flagship_trainer(tmp, "sequential")
+    rows_a = []
+    apply = a._apply_pool_records
+    a._apply_pool_records = lambda rows, names: (rows_a.append(rows), apply(rows, names))[1]
+    stack_a, names_a = a.rotate()
+    stack_b, names_b = b.rotate()
+    if names_a != names_b or len(names_a) != FLAGSHIP_OPPONENTS:
+        raise AssertionError(f"the two pools rotated {names_a} and {names_b}")
+    sched = a.schedule(W_FLAG)
+    metrics_a, _ = a.pool_window(stack_a, names_a, sched)
+    step = make_pool_train_step(b.env, b.cfg, b.num_learner_envs)
+    logs, kls = [], []
+    for lr, ec, sc in sched:
+        b.state, b.seating, m, _, rec = step(b.state, b.seating, stack_b, len(names_b), lr, ec,
+                                             b.rng, sc)
+        logs.append({k: v.cpu().numpy() for k, v in rec.__dict__.items()})
+        kls.append(float(m["approx_kl"]))
+    rows_b = extract_pool_records(SimpleNamespace(
+        **{k: np.concatenate([x[k] for x in logs]) for k in logs[0]}), 4)
+    cap = record_capacity(W_FLAG, T_FLAG, EP_SKULL)
+    differ = [i for i, (x, y) in enumerate(zip(trainer_leaves(a), trainer_leaves(b)))
+              if not torch.equal(x, y)]
+    if differ or not np.array_equal(rows_a[0], rows_b[:cap]):
+        raise AssertionError(f"pool window against sequential steps: leaves {differ} differ, "
+                             f"rows equal {np.array_equal(rows_a[0], rows_b[:cap])}")
+    if metrics_a["approx_kl"] != kls[-1] or metrics_a["approx_kl_max"] != max(kls):
+        raise AssertionError(f"the window's KL {metrics_a['approx_kl']}, max "
+                             f"{metrics_a['approx_kl_max']}; the steps' {kls}")
+    return {"leaves_equal": len(trainer_leaves(a)), "rows": len(rows_a[0]),
+            "overflow": metrics_a["pool_record_overflow"], "approx_kl_steps": kls,
+            "opponents": names_a}, a
+
+
+def window_turns(tr: Trainer, rounds: int = 3) -> dict:
+    """A pool window of 8 against 8 single-update rotations in turns
+    (window, singles, singles, window, each round), host ms each. The
+    singles are this tree's windows of one (``pool_rotation_interval =
+    1``: each a rotation, an update with K18 and K19, and a fetch), the
+    parent's cadence but not its code. The time saved an update is given
+    as the median's difference and as the range over the rounds' pairs;
+    then one window profiled, its idle share from that one trace."""
+    def window():
+        stack, names = tr.rotate()
+        tr.pool_window(stack, names, tr.schedule(W_FLAG))
+
+    def singles():
+        for lr, ec, sc in tr.schedule(W_FLAG):
+            tr.update(lr, ec, sc)
+
+    ms = {"window": [], "singles": []}
+    for name in ("window", "singles", "singles", "window") * rounds:
+        fn = window if name == "window" else singles
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    saved = (median(ms["singles"]) - median(ms["window"])) / W_FLAG
+    pairs = [(s_ - w) / W_FLAG for w, s_ in zip(ms["window"], ms["singles"])]
+    profile = one_window_profile(window)
+    profile["idle_share"] = 1.0 - profile["device_ms"] / profile["events_ms"]
+    if profile["device_launches"] != {"window_records": W_FLAG, "window_report": W_FLAG}:
+        raise AssertionError(f"one pool window's K18 and K19 on the device: "
+                             f"{profile['device_launches']}")
+    return {"window_ms_turns": ms["window"], "singles_ms_turns": ms["singles"],
+            "host_ms_saved_per_update_median": saved,
+            "host_ms_saved_per_update_range": [min(pairs), max(pairs)], "one_window": profile}
+
+
+def pool_window_phase(tmp: Path, card_line: str) -> dict:
+    """Phase ``pool_window`` (in a process of its own): (a)
+    configs/skull_ctde_tpu.toml unchanged at full width (4096 x 64, CTDE
+    256x3, pool fraction 0.3, K = 8, W = 8) through the CLI for 24 updates:
+    a self-play window of 8, a checkpoint, two pool windows of 8, each one
+    rotation and one record fold; the windows, rotations, folds, rows,
+    overflow and K18/K19 launches a window (graph replays), counted as in
+    every train phase; (b) a pool window against 8 sequential pool steps
+    bit for bit; (c) the window against 8 single-update rotations in
+    turns, and one window profiled (K18 and K19 8 each on the device)."""
+    t0 = time.time()
+    seen = {"windows": [], "rotations": [], "folds": [], "per_window": []}
+    originals = {k: getattr(Trainer, k) for k in ("_choose_window_k", "rotate",
+                                                  "_apply_pool_records", "pool_window",
+                                                  "self_play_window")}
+
+    def choose(self, *a, **kw):
+        k = originals["_choose_window_k"](self, *a, **kw)
+        seen["windows"].append({"step": self.global_step, "k": k, "cap": kw.get("cap")})
+        return k
+
+    def rotate(self):
+        seen["rotations"].append(self.global_step)
+        return originals["rotate"](self)
+
+    def fold(self, rows, names):
+        seen["folds"].append({"step": self.global_step, "rows": int(len(rows))})
+        return originals["_apply_pool_records"](self, rows, names)
+
+    def counted(kind):
+        def run(self, *a):
+            before = [UpdateGraph.launches.get(w, 0) for w in (window_records, window_report)]
+            m, st = originals[kind](self, *a)
+            after = [UpdateGraph.launches.get(w, 0) for w in (window_records, window_report)]
+            seen["per_window"].append({
+                "kind": kind, "step": self.global_step, "window_records": after[0] - before[0],
+                "window_report": after[1] - before[1],
+                "overflow": m.get("pool_record_overflow")})
+            return m, st
+        return run
+
+    patches = {"_choose_window_k": choose, "rotate": rotate, "_apply_pool_records": fold,
+               "pool_window": counted("pool_window"),
+               "self_play_window": counted("self_play_window")}
+    for k, f in patches.items():
+        setattr(Trainer, k, f)
+    try:
+        pool_updates = FLAGSHIP_UPDATES - W_FLAG
+        run, series = train_phase(
+            tmp / "flagship", ["--config", str(FLAGSHIP)], FLAGSHIP_UPDATES, E * T_FLAG,
+            {"skull_step_autoreset": FLAGSHIP_UPDATES * T_FLAG,
+             "masked_gumbel_sample": (FLAGSHIP_UPDATES + pool_updates) * T_FLAG,
+             "opponent_actor_forward": pool_updates * T_FLAG,
+             "gae_multiplayer_reverse_scan": FLAGSHIP_UPDATES, "window_records": pool_updates},
+            card_line, as_configured=True)
+    finally:
+        for k, f in originals.items():
+            setattr(Trainer, k, f)
+    spu = E * T_FLAG
+    want_windows = [{"step": 0, "k": 8, "cap": None}, {"step": 8 * spu, "k": 8, "cap": 8},
+                    {"step": 16 * spu, "k": 8, "cap": 8}]
+    if seen["windows"] != want_windows:
+        raise AssertionError(f"windows {seen['windows']}, not {want_windows}")
+    if seen["rotations"] != [8 * spu, 16 * spu] or [f["step"] for f in seen["folds"]] != [
+            8 * spu, 16 * spu]:
+        raise AssertionError(f"rotations {seen['rotations']}, folds {seen['folds']}")
+    want_counts = [("self_play_window", 0, 8), ("pool_window", 8, 8), ("pool_window", 8, 8)]
+    got_counts = [(w["kind"], w["window_records"], w["window_report"]) for w in seen["per_window"]]
+    if got_counts != want_counts:
+        raise AssertionError(f"K18/K19 launches a window {got_counts}, not {want_counts}")
+    perf = {k: series.get(k) for k in ("perf/pool_rotation_time", "perf/pool_window_time",
+                                       "perf/pool_record_time", "train/approx_kl_max",
+                                       "train/clip_fraction_max", "train/approx_kl")}
+    if any(not v or len(v) != 2 for k, v in perf.items() if k.startswith("perf/pool")):
+        raise AssertionError(f"the pool series: {perf}")
+    sequential, tr = window_against_sequential(tmp)
+    turns = window_turns(tr)
+    print(f"pool_window ({card_line}): windows {[w['k'] for w in seen['windows']]}, rotations at "
+          f"{seen['rotations']}, folds {seen['folds']}, K18/K19 a window {got_counts}; one "
+          f"window {turns['one_window']['events_ms']:.1f} events ms, "
+          f"{turns['one_window']['device_ms']:.1f} device ms (idle "
+          f"{turns['one_window']['idle_share']:.3f} under the profiler); window against singles "
+          f"{turns['host_ms_saved_per_update_median']:.2f} ms an update saved (median), range "
+          f"{turns['host_ms_saved_per_update_range']}", flush=True)
+    return {"card": card_line, "config": str(FLAGSHIP.relative_to(ROOT)), "run": run,
+            "windows": seen["windows"], "rotations": seen["rotations"], "folds": seen["folds"],
+            "per_window": seen["per_window"], "series": perf,
+            "window_vs_sequential": sequential, "turns": turns, "seconds": time.time() - t0}
+
+
 def main(argv: list) -> int:
     import argparse
 
@@ -5601,6 +6001,12 @@ def main(argv: list) -> int:
         dev, g14, ConnectFour().action_mask(c4_state), skull_mask, ld_mask, ptxas)
     # K17, the eval step's seating and records, on a generator of its own.
     checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas))
+    # K18 and K19, the update window's records and report, on one of their own.
+    g20 = torch.Generator(device=dev).manual_seed(20)
+    checks["window_records"] = {**check_window_records(dev, g20),
+                                "ptxas": kernel_ptxas(ptxas, "window_records")}
+    checks["window_report"] = {**check_window_report(dev, g20),
+                               "ptxas": kernel_ptxas(ptxas, "window_report")}
     # The env steps with K14's sampling front, on a generator of their own:
     # each beside its step's own checks, its error in the step's.
     fronts = check_sample_steps(dev, torch.Generator(device=dev).manual_seed(19), parent, ptxas)
@@ -5658,6 +6064,10 @@ def main(argv: list) -> int:
         }
         for phase, out in runs.items():
             emit(phase, **out)
+        # The flagship config's update windows, in a process of its own.
+        pool_window = phase_in_process(ROOT, "pool_window_phase")
+        emit("pool_window", **pool_window)
+        runs["pool_window"] = pool_window["run"]
         # PopArt and the adaptive entropy controller on two training paths.
         pe = popart_entropy_train(Path(d), card_line)
         emit("popart_entropy_train", **pe)

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K17 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K19 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -2186,3 +2186,77 @@ def test_a_chunk_launches_the_fused_step_once_a_step_and_k14_never(dev):
             sample_with_temperature.launches) == (before[0] + 32, before[1])
     assert ev.step_books.launches > 0
 
+
+
+def _window_logs(dev, g, T, E, L, P, rate):
+    completed = (torch.rand(T, E, generator=g, device=dev) < rate).to(torch.float32)
+    seat = torch.randint(0, P, (T, E), generator=g, device=dev, dtype=torch.int32)
+    seat[:, :L] = -1
+    seat[torch.rand(T, E, generator=g, device=dev) < 0.05] = -1
+    outcome = torch.argsort(torch.rand(T, E, P, generator=g, device=dev), dim=-1) + 1
+    slots = torch.randint(0, 8, (T, E, P), generator=g, device=dev, dtype=torch.int32)
+    return completed, outcome.to(torch.int32), seat, slots
+
+
+@pytest.mark.parametrize("T,E,L,P,rate,capacity", [
+    (64, 4096, 2867, 4, 0.03, None), (8, 16, 12, 2, 0.5, None), (37, 1000, 1, 6, 0.2, None),
+    (64, 4096, 2867, 4, 0.3, 500), (3, 5, 0, 3, 1.0, 1)])
+def test_window_records_kernel_matches_plain_exactly(dev, T, E, L, P, rate, capacity):
+    """K18 against its plain version over a window of 4 appends: the count
+    and the rows below the capacity bit for bit, overflow included."""
+    from burn_ppo_torch.ppo.window import (
+        WindowBook,
+        record_capacity,
+        window_records,
+        window_records_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(T * E + P)
+    logs = [_window_logs(dev, g, T, E, L, P, rate) for _ in range(4)]
+    cap = capacity or record_capacity(4, T, E - L)
+    out = []
+    for fn in (window_records, window_records_plain):
+        book = WindowBook(dev, P, record_rows=max(cap, record_capacity(4, T, E - L)))
+        book.start(cap)
+        before = window_records.launches
+        for c, o, s, sl in logs:
+            fn(book, c, o, s, sl, L)
+            book.first.zero_()
+        out.append((int(book.total), book.rows[:min(int(book.total), cap)].clone(),
+                    window_records.launches - before))
+    (kt, kr, kn), (pt, pr, pn) = out
+    assert kt == pt and torch.equal(kr, pr) and kn == 4 and pn == 0
+    if capacity is not None:
+        assert kt > cap
+
+
+def test_window_report_kernel_matches_plain_exactly(dev):
+    """K19 against its plain version over 8 folds: copies at the first,
+    last, sums, maxima (a NaN kept) and minima bit for bit; the flag
+    cleared."""
+    from burn_ppo_torch.ppo.window import (
+        LAST,
+        MAX,
+        MIN,
+        SUM,
+        WindowBook,
+        window_report,
+        window_report_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    srcs = [torch.rand(n, generator=g, device=dev) for n in (1, 1, 4, 1, 1, 4, 1)]
+    fields = list(zip(srcs, (LAST, SUM, SUM, MAX, MIN, MAX, LAST)))
+    books = [WindowBook(dev, 4) for _ in range(2)]
+    for b in books:
+        b.start()
+    for w in range(8):
+        for t in srcs:
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        if w == 5:
+            srcs[3].fill_(float("nan"))
+        window_report(books[0], fields)
+        window_report_plain(books[1], fields)
+        assert int(books[0].first) == 0 == int(books[1].first)
+    torch.testing.assert_close(books[0].acc, books[1].acc, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(books[0].acc[6])  # the max field's entry, from the fifth fold on

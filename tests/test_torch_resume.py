@@ -122,6 +122,36 @@ def test_two_resumes_are_bit_identical_and_trained(base):
     assert not np.array_equal(results[0]["optimizer"][0], restored["optimizer"][0])
 
 
+def test_two_resumes_under_windows_are_bit_identical(tmp_path):
+    """A log and a checkpoint every 4 updates: every window runs 4 updates
+    (A12c, train.py:1058-1083). A first leg of one window, then two
+    resumes of two windows each from its checkpoint: the same windows and
+    every saved leaf bit for bit."""
+    path = tmp_path / "w.toml"
+
+    def run(name, total, **kw):
+        path.write_text(CARTPOLE.format(envs=4, total=total, ckpt=128, obs="true"))
+        t = Trainer(Config.load(path), tmp_path / name, device="cpu", quiet=True, **kw)
+        sizes, choose = [], t._choose_window_k
+        t._choose_window_k = lambda *a, **k: (sizes.append(choose(*a, **k)), sizes[-1])[1]
+        t.train()
+        return t, sizes
+
+    first, sizes = run("first", 128)
+    assert sizes == [4]
+    ckpt = (tmp_path / "first" / "checkpoints" / "latest").resolve()
+    results = []
+    for tag in ("w1", "w2"):
+        t, sizes = run(tag, 384, resume_from=ckpt)
+        assert sizes == [4, 4] and t.global_step == 384
+        results.append(live(t))
+        assert [p.name for p in sorted((tmp_path / tag / "checkpoints").glob("step_*"))] == [
+            "step_00000256", "step_00000384"]
+    assert_leaves_equal(results[0], results[1])
+    assert_leaves_equal(saved(tmp_path / "w1" / "checkpoints" / "step_00000384"),
+                        saved(tmp_path / "w2" / "checkpoints" / "step_00000384"))
+
+
 def test_resume_continues_the_generator_chain(base):
     tmp, ckpt, before, done = base
     after = done.generator.get_state()

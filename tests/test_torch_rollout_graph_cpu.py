@@ -322,13 +322,14 @@ def test_every_kernel_wrapper_is_registered_once():
     from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs
     from burn_ppo_torch.ppo.pool_rollout import opponent_actor_forward
     from burn_ppo_torch.ppo.update import clip_adam, ppo_loss
+    from burn_ppo_torch.ppo.window import window_records, window_report
 
     want = {cartpole_step_autoreset, connect_four_step_autoreset, liars_dice_step_autoreset,
             skull_step_autoreset, masked_sample, compute_gae, compute_gae_multiplayer,
             norm.obs_norm_apply, norm.obs_norm_update, norm.return_norm_roll,
             norm.return_norm_finalize, summarize_episode_logs, opponent_actor_forward,
             clip_adam, ppo_loss, sample_with_temperature, norm.popart_update_rescale,
-            norm.popart_denormalize, step_books}
+            norm.popart_denormalize, step_books, window_records, window_report}
     assert len(kernels.WRAPPERS) == len(set(kernels.WRAPPERS)) == len(want)
     assert set(kernels.WRAPPERS) == want
     assert all(isinstance(w.launches, int) for w in kernels.WRAPPERS)

@@ -1,9 +1,11 @@
 """Connect Four against the opponent pool, the slice as a whole: two fused
 vs-pool train steps of the port against the JAX package's from the same
 start state, JAX's own random draws replayed; the ``train`` command with
-the pool end to end; and the pool configurations the port refuses."""
+the pool end to end; several updates a rotation; and the pool
+configurations the port refuses."""
 
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -152,7 +154,6 @@ def test_train_command_trains_against_the_pool_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--network-type", "cnn"], "A12b"),
-    (["--pool-rotation-interval", "4"], "A12c"),
 ])
 def test_pool_configs_the_port_lacks_are_refused(flags, item, tmp_path, capsys):
     rc = cli.main(["train", "--config", "configs/connect_four.toml", *flags,
@@ -160,3 +161,34 @@ def test_pool_configs_the_port_lacks_are_refused(flags, item, tmp_path, capsys):
     assert rc == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
     assert not (tmp_path / "r").exists()
+
+
+def rotation_steps(out: str) -> list:
+    """The global steps of the rotations a ``--debug-opponents`` run printed."""
+    return [int(m) for m in re.findall(r"\[opponents @ step (\d+)\]", out)]
+
+
+def cadence_run(config: str, interval: int, run, extra=()) -> list:
+    """``config`` with ``--pool-rotation-interval interval`` through the CLI
+    at 8 envs x 8 steps: a log and a checkpoint every 2W updates, 4W
+    updates in all. Returns the rotation steps; a window of 2W self-play
+    updates, then two windows of W against one rotation each."""
+    spu, W = 64, interval
+    rc = cli.main(["train", "--config", config, "--pool-rotation-interval", str(W),
+                   "--num-envs", "8", "--num-steps", "8", "--total-steps", str(4 * W * spu),
+                   "--log-freq", str(2 * W * spu), "--checkpoint-freq", str(2 * W * spu),
+                   "--num-epochs", "1", "--num-minibatches", "2", "--hidden-size", "16",
+                   "--num-hidden", "1", *extra, "--seed", "1", "--debug-opponents",
+                   "--run-dir", str(run)], device="cpu")
+    assert rc == 0
+    return [2 * W * spu, 3 * W * spu]
+
+
+def test_the_pool_rotation_interval_runs_windows_against_one_rotation(tmp_path, capsys):
+    """connect_four.toml with 4 updates a rotation (A12c): one rotation and
+    one record fold a window of 4 (the stats file lists the checkpoint the
+    two windows played)."""
+    want = cadence_run("configs/connect_four.toml", 4, tmp_path / "r")
+    assert rotation_steps(capsys.readouterr().out) == want
+    stats = json.loads((tmp_path / "r" / "opponent_stats.json").read_text())["opponents"]
+    assert [s["name"] for s in stats] == ["step_00000512"] and stats[0]["games_played"] > 0

@@ -266,12 +266,8 @@ def test_plain_connect_four_config_is_refused_with_the_flag_to_pass(tmp_path, ca
 @pytest.mark.parametrize("overrides,item", [
     ({"opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12"),
     ({"env": "liars_dice", "compute_dtype": "bfloat16"}, "A18"),
-    ({"env": "liars_dice", "network_type": "ctde", "opponent_pool_fraction": 0.25,
-      "pool_rotation_interval": 2}, "A12c"),
     ({"env": "skull", "network_type": "ctde", "mesh_data": 2}, "A16"),
-    ({"opponent_pool_fraction": 0.25, "pool_rotation_interval": 8}, "A12c"),
     ({"env": "liars_dice", "opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12b"),
-    ({"opponent_pool_fraction": 0.25, "pool_rotation_interval": 2}, "A12c"),
 ])
 def test_unsupported_config_names_the_roadmap_item(overrides, item):
     base = dict(env="connect_four", opponent_pool_fraction=0.0)
@@ -283,6 +279,36 @@ def test_unsupported_config_names_the_roadmap_item(overrides, item):
     # MLP against the pool is the port's vs-pool path.
     assert unsupported_config(Config(env="cartpole", opponent_pool_fraction=0.25)) is None
     assert unsupported_config(Config(env="connect_four", opponent_pool_fraction=0.25)) is None
+
+
+@pytest.mark.parametrize("overrides", [
+    {"env": "liars_dice", "network_type": "ctde", "opponent_pool_fraction": 0.25,
+     "pool_rotation_interval": 2},
+    {"opponent_pool_fraction": 0.25, "pool_rotation_interval": 8},
+    {"opponent_pool_fraction": 0.25, "pool_rotation_interval": 2},
+])
+def test_a_pool_rotation_interval_trains_with_its_rotation_cadence(overrides, tmp_path):
+    """Several vs-pool updates a rotation (A12c) on the Trainer: a window of
+    2W self-play updates up to the first checkpoint, then a rotation each
+    W updates, the window's records folded once."""
+    W, spu = overrides["pool_rotation_interval"], 64
+    base = dict(env="connect_four", opponent_pool_fraction=0.0, num_envs=8, num_steps=8,
+                hidden_size=16, num_hidden=1, critic_hidden_size=16, critic_num_hidden=1,
+                num_epochs=1, num_minibatches=2, total_steps=4 * W * spu,
+                log_freq=2 * W * spu, checkpoint_freq=2 * W * spu, seed=3)
+    from burn_ppo_torch.config import Config as PortConfig
+
+    cfg = PortConfig(**{**base, **overrides})
+    assert unsupported_config(cfg) is None
+    trainer = Trainer(cfg, tmp_path, device="cpu", quiet=True)
+    rotations, folds = [], []
+    rotate, fold = trainer.rotate, trainer._apply_pool_records
+    trainer.rotate = lambda: (rotations.append(trainer.global_step), rotate())[1]
+    trainer._apply_pool_records = lambda rows, names: (folds.append(len(rows)),
+                                                       fold(rows, names))[1]
+    trainer.train()
+    assert rotations == [2 * W * spu, 3 * W * spu] and len(folds) == 2 and sum(folds) > 0
+    assert trainer.max_pool_window == W and trainer.global_step == 4 * W * spu
 
 
 def test_trainer_rejects_cnn_without_an_obs_shape(tmp_path):

@@ -10,6 +10,7 @@ own ``choice = randint(0, c)``; it also checks the two states agree at
 every step."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -216,17 +217,32 @@ def test_two_ctde_train_steps_match_jax():
 
 @pytest.mark.parametrize("flags,item", [
     (["--config", "configs/liars_dice.toml", "--compute-dtype", "bfloat16"], "A18"),
-    (["--config", "configs/liars_dice_ctde.toml", "--pool-rotation-interval", "2"], "A12c"),
     (["--config", "configs/skull_ctde.toml", "--mesh-data", "2"], "A16"),
-    (["--config", "configs/skull_ctde.toml", "--pool-rotation-interval", "8"], "A12c"),
     (["--config", "configs/skull_ctde.toml", "--network-type", "cnn"], "A12b"),
-    (["--config", "configs/skull_ctde.toml", "--pool-rotation-interval", "2"], "A12c"),
 ])
 def test_what_skull_still_lacks_is_refused(flags, item, tmp_path, capsys):
     rc = cli.main(["train", *flags, "--run-dir", str(tmp_path / "r")], device="cpu")
     assert rc == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
     assert not (tmp_path / "r").exists()
+
+
+@pytest.mark.parametrize("config,interval", [
+    ("configs/liars_dice_ctde.toml", 2),
+    ("configs/skull_ctde.toml", 8),
+    ("configs/skull_ctde.toml", 2),
+])
+def test_the_ctde_configs_train_several_updates_a_rotation(config, interval, tmp_path, capsys):
+    """The CTDE configs against the pool with ``--pool-rotation-interval``
+    (A12c) through the CLI, cut to 8 envs x 8 steps and 16-wide towers:
+    the rotations fall every W updates once the pool holds a checkpoint."""
+    from tests.test_torch_selfplay_pool_step import cadence_run, rotation_steps
+
+    want = cadence_run(config, interval, tmp_path / "r",
+                       extra=("--critic-hidden-size", "16", "--critic-num-hidden", "1"))
+    assert rotation_steps(capsys.readouterr().out) == want
+    meta = json.loads((tmp_path / "r" / "checkpoints" / "latest" / "metadata.json").read_text())
+    assert meta["step"] == 4 * interval * 64 and meta["network_type"] == "ctde"
 
 
 def test_ctde_needs_privileged_observations(tmp_path, capsys):
