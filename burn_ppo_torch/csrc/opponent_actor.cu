@@ -60,12 +60,35 @@
 // most 512, the head at most 64 wide, K at most 128 (the wrapper refuses
 // the rest). Sums run in another order than cuBLAS's: the logits agree
 // with the plain version to f32 rounding of 512-term dot products.
+//
+// The bf16 tower (opponent_mlp_bf16_kernel, the same body with BF16 set):
+// the counterpart of the bf16 XLA fusion of opponent_logits, where the
+// learner's network runs with compute_dtype bfloat16 (models/core.py:37-43:
+// bf16 operands, an f32 product, the f32 bias). Plain twin: the same
+// opponent_actor_forward_plain on a bf16 stack. The same slot grouping,
+// tiles and clusters; what changes:
+//   * the slot's obs are normalised in f32 and rounded to bf16 as they are
+//     stored; an activation is one bf16 where 3xTF32 keeps a (big, small)
+//     TF32 pair: a quarter of the bytes, stored row-major;
+//   * the weights come as bf16 (rounded once at the rotation) and stream by
+//     cp.async: half the bytes (a head whose width is not a multiple of 8
+//     is copied two bytes at a time);
+//   * one mma.sync m16n8k16 bf16 product with f32 sums where 3xTF32 takes
+//     three, its fragments loaded by ldmatrix (the weights' transposed);
+//   * the bias and activation in f32, rounded to bf16 only as the next
+//     layer's operand; the logits f32.
+// Its bound: the operations at the bf16 tensor cores' 989 TFLOP/s. The
+// products of bf16 values are exact in f32, so the logits agree with the
+// plain version to f32 sums in another order, and to one bf16 ulp where an
+// activation's rounding lands on the other side of a tie.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -87,14 +110,17 @@ struct Params {
   const float* norm_m2;  // [K, D]
   const float* norm_count;  // [K]
   float clip;
-  const float* w[MAX_LAYERS];  // [K, n_in, n_out]
+  const void* w[MAX_LAYERS];  // [K, n_in, n_out], f32 (bf16 for the bf16 tower)
   const float* b[MAX_LAYERS];  // [K, n_out]
   int n_in[MAX_LAYERS], n_out[MAX_LAYERS];
   int depth, act;
   float* out;  // [Ep, A]
   int rows, K;
-  int act_pitch;  // floats per activation row (big and small parts): = 16 (mod 32)
-  int w_pitch;  // floats per staged weight row: = 8 (mod 32)
+  // Elements per activation row: floats (big and small parts) = 16 (mod
+  // 32), or bf16 values = 8 (mod 64) for the bf16 tower.
+  int act_pitch;
+  // Elements per staged weight row: floats = 8 (mod 32), or bf16 = 8 (mod 64).
+  int w_pitch;
 };
 
 __device__ __forceinline__ float activate(float v, int act) {
@@ -160,6 +186,32 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of a 16 x 16 bf16 tile (row-major, ``pitch`` elements a
+// row): lane l gives the address of row l % 16, columns 8 (l / 16) on.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// The B fragment of a 16 x 8 bf16 tile stored k-major (a row a k, the 8
+// columns contiguous): lanes 0-15 give the addresses of rows 0-15.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
 // The 8-column tiles of a layer's n_out that cluster rank ``rank`` of C
 // computes: columns [lo, lo + 8 * tiles).
 __device__ __forceinline__ void column_slice(int n_out, int rank, int C, int& lo, int& tiles) {
@@ -169,21 +221,26 @@ __device__ __forceinline__ void column_slice(int n_out, int rank, int C, int& lo
   tiles = t1 - t0;
 }
 
-// Issue the cp.async copies of weight chunk ``c`` (KC rows of the block's
-// column slice of one layer, for slot k) into stage ``dst``. A thread takes
-// one 16-byte column unit (4 bytes for a head whose width is not a multiple
-// of 4) in every rows_per_pass-th row.
+// Start the copies of weight chunk ``c`` (KC rows of the block's column
+// slice of one layer, for slot k) into stage ``dst``. A thread takes one
+// 16-byte column unit (4 f32 or 8 bf16) in every rows_per_pass-th row, by
+// cp.async; for a head whose width is not a multiple of the unit, one
+// element (cp.async of 4 bytes for f32, a plain 2-byte copy for bf16,
+// visible after the barrier that precedes the chunk's use).
+template <bool BF16>
 __device__ __forceinline__ void load_chunk(const Params& p, const int* chunk_start, int c, int k,
-                                           int rank, int C, float* dst) {
+                                           int rank, int C, void* dst) {
+  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  constexpr int VEC = 16 / sizeof(T);
   int l = 0;
   while (c >= chunk_start[l + 1]) ++l;
   const int n_in = p.n_in[l], n_out = p.n_out[l];
   int lo, tiles;
   column_slice(n_out, rank, C, lo, tiles);
   const int k0 = (c - chunk_start[l]) * KC;
-  const float* w = p.w[l] + static_cast<long>(k) * n_in * n_out;
-  const bool vec = (n_out & 3) == 0;
-  const int unit = vec ? 4 : 1, per_row = tiles * 8 / unit;
+  const T* w = static_cast<const T*>(p.w[l]) + static_cast<long>(k) * n_in * n_out;
+  const bool vec = n_out % VEC == 0;
+  const int unit = vec ? VEC : 1, per_row = tiles * 8 / unit;
   if (per_row == 0) return;
   const int rows_per_pass = THREADS / per_row;
   const int r0 = threadIdx.x / per_row, col = lo + unit * (threadIdx.x - r0 * per_row);
@@ -191,10 +248,12 @@ __device__ __forceinline__ void load_chunk(const Params& p, const int* chunk_sta
   for (int r = r0; r < KC; r += rows_per_pass) {
     const int kk = k0 + r;
     const bool ok = kk < n_in && col < n_out;
-    const float* src = ok ? w + static_cast<long>(kk) * n_out + col : w;
-    float* d = dst + r * p.w_pitch + (col - lo);
+    const T* src = ok ? w + static_cast<long>(kk) * n_out + col : w;
+    T* d = static_cast<T*>(dst) + r * p.w_pitch + (col - lo);
     if (vec) {
       cp_async16(d, src, ok ? 16 : 0);
+    } else if constexpr (BF16) {
+      *reinterpret_cast<uint16_t*>(d) = ok ? *reinterpret_cast<const uint16_t*>(src) : 0;
     } else {
       cp_async4(d, src, ok ? 4 : 0);
     }
@@ -202,9 +261,11 @@ __device__ __forceinline__ void load_chunk(const Params& p, const int* chunk_sta
 }
 
 // R rows per cluster tile, C blocks per cluster, S pipeline stages; NTW
-// 8-column tiles per warp at most (a 512-wide layer split C ways).
-template <int R, int C, int S>
-__global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p) {
+// 8-column tiles per warp at most (a 512-wide layer split C ways). BF16:
+// the bf16 tower.
+template <int R, int C, int S, bool BF16>
+__device__ __forceinline__ void opponent_mlp(const Params& p) {
+  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
   constexpr int MT = R / 16;
   constexpr int NTW = (MAX_WIDTH / 8 / WARPS + C - 1) / C;
   extern __shared__ __align__(16) float smem[];
@@ -216,14 +277,14 @@ __global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p
   const int rank = static_cast<int>(blockIdx.x % C);
   const int tile = blockIdx.x / C;
   const int K = p.K, rows = p.rows, A = p.n_out[p.depth - 1];
-  float* act = smem;
+  T* act = reinterpret_cast<T*>(smem);
   const int ap = p.act_pitch;
 
   // 0. The slot ids into shared memory (the activation buffer, free until
   // the gather), when they fit: both passes below read them twice.
   const int* slots = p.slot;
-  if (rows <= R * ap) {
-    int* s_slot = reinterpret_cast<int*>(act);
+  if (rows * sizeof(int) <= R * ap * sizeof(T)) {
+    int* s_slot = reinterpret_cast<int*>(smem);
     for (int i = tid; i < rows; i += THREADS) cp_async4(s_slot + i, p.slot + i, 4);
     cp_async_commit();
     cp_async_wait<0>();
@@ -296,7 +357,7 @@ __global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p
   }
   __syncthreads();
 
-  float* stages = smem + R * ap;
+  T* stages = act + R * ap;
   const int stage_len = KC * p.w_pitch;
 
   // Weight chunks of every layer in one sequence; start the ring now.
@@ -307,7 +368,7 @@ __global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p
   }
   const int total = chunk_start[p.depth];
   for (int s = 0; s < S - 1; ++s) {
-    if (s < total) load_chunk(p, chunk_start, s, k, rank, C, stages + s * stage_len);
+    if (s < total) load_chunk<BF16>(p, chunk_start, s, k, rank, C, stages + s * stage_len);
     cp_async_commit();
   }
 
@@ -351,7 +412,11 @@ __global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p
             const float z = (x - mean[i]) / sd[i];
             x = z < -p.clip ? -p.clip : (z > p.clip ? p.clip : z);
           }
-          *reinterpret_cast<float2*>(act + r * ap + act_pos(c)) = split2(x);
+          if constexpr (BF16) {
+            act[r * ap + c] = __float2bfloat16_rn(x);
+          } else {
+            *reinterpret_cast<float2*>(act + r * ap + act_pos(c)) = split2(x);
+          }
         }
       }
     }
@@ -374,57 +439,81 @@ __global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p
     cp_async_wait<S - 2>();
     __syncthreads();
     if (c + S - 1 < total) {
-      load_chunk(p, chunk_start, c + S - 1, k, rank, C, stages + ((c + S - 1) % S) * stage_len);
+      load_chunk<BF16>(p, chunk_start, c + S - 1, k, rank, C,
+                       stages + ((c + S - 1) % S) * stage_len);
     }
     cp_async_commit();
 
-    const float* in = act;
-    const float* ws = stages + (c % S) * stage_len;
+    const T* ws = stages + (c % S) * stage_len;
     const int kbase = (c - chunk_start[l]) * KC;
+    if constexpr (BF16) {
 #pragma unroll
-    for (int ks = 0; ks < KC; ks += 8) {
-      uint32_t ab[MT][4], as[MT][4], bb[NTW][2], bs[NTW][2];
+      for (int ks = 0; ks < KC; ks += 16) {
+        uint32_t a[MT][4], b[NTW][2];
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        // (big, small) of columns t and t + 4, rows g and g + 8: split once
-        // when the activation was stored.
-        const float* a = in + (m * 16 + grp) * ap + (kbase + ks) * 2 + 4 * tig;
-        const float4 lo4 = *reinterpret_cast<const float4*>(a);
-        const float4 hi4 = *reinterpret_cast<const float4*>(a + 8 * ap);
-        ab[m][0] = __float_as_uint(lo4.x), as[m][0] = __float_as_uint(lo4.y);
-        ab[m][2] = __float_as_uint(lo4.z), as[m][2] = __float_as_uint(lo4.w);
-        ab[m][1] = __float_as_uint(hi4.x), as[m][1] = __float_as_uint(hi4.y);
-        ab[m][3] = __float_as_uint(hi4.z), as[m][3] = __float_as_uint(hi4.w);
-      }
+        for (int m = 0; m < MT; ++m) {
+          ldmatrix_x4(a[m], act + (m * 16 + (lane & 15)) * ap + kbase + ks + (lane >> 4) * 8);
+        }
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        if (warp + j * WARPS < tiles) {
-          const float* b = ws + (ks + tig) * p.w_pitch + (warp + j * WARPS) * 8 + grp;
-          split(b[0], bb[j][0], bs[j][0]);
-          split(b[4 * p.w_pitch], bb[j][1], bs[j][1]);
+        for (int j = 0; j < NTW; ++j) {
+          if (warp + j * WARPS < tiles) {
+            ldmatrix_x2_trans(b[j], ws + (ks + (lane & 15)) * p.w_pitch + (warp + j * WARPS) * 8);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          if (warp + j * WARPS < tiles) {
+#pragma unroll
+            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], a[m], b[j]);
+          }
         }
       }
-      // The three products of each tile in three sweeps over the tiles,
-      // so that consecutive mma.sync write different accumulators.
+    } else {
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        if (warp + j * WARPS < tiles) {
+      for (int ks = 0; ks < KC; ks += 8) {
+        uint32_t ab[MT][4], as[MT][4], bb[NTW][2], bs[NTW][2];
 #pragma unroll
-          for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], as[m], bb[j]);
+        for (int m = 0; m < MT; ++m) {
+          // (big, small) of columns t and t + 4, rows g and g + 8: split
+          // once when the activation was stored.
+          const float* a = act + (m * 16 + grp) * ap + (kbase + ks) * 2 + 4 * tig;
+          const float4 lo4 = *reinterpret_cast<const float4*>(a);
+          const float4 hi4 = *reinterpret_cast<const float4*>(a + 8 * ap);
+          ab[m][0] = __float_as_uint(lo4.x), as[m][0] = __float_as_uint(lo4.y);
+          ab[m][2] = __float_as_uint(lo4.z), as[m][2] = __float_as_uint(lo4.w);
+          ab[m][1] = __float_as_uint(hi4.x), as[m][1] = __float_as_uint(hi4.y);
+          ab[m][3] = __float_as_uint(hi4.z), as[m][3] = __float_as_uint(hi4.w);
         }
-      }
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        if (warp + j * WARPS < tiles) {
-#pragma unroll
-          for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bs[j]);
+        for (int j = 0; j < NTW; ++j) {
+          if (warp + j * WARPS < tiles) {
+            const float* b = ws + (ks + tig) * p.w_pitch + (warp + j * WARPS) * 8 + grp;
+            split(b[0], bb[j][0], bs[j][0]);
+            split(b[4 * p.w_pitch], bb[j][1], bs[j][1]);
+          }
         }
-      }
+        // The three products of each tile in three sweeps over the tiles,
+        // so that consecutive mma.sync write different accumulators.
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        if (warp + j * WARPS < tiles) {
+        for (int j = 0; j < NTW; ++j) {
+          if (warp + j * WARPS < tiles) {
 #pragma unroll
-          for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bb[j]);
+            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], as[m], bb[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          if (warp + j * WARPS < tiles) {
+#pragma unroll
+            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bs[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          if (warp + j * WARPS < tiles) {
+#pragma unroll
+            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bb[j]);
+          }
         }
       }
     }
@@ -454,6 +543,15 @@ __global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p
               if (col < n_out) o[col] = v0 + bias[col];
               if (col + 1 < n_out) o[col + 1] = v1 + bias[col + 1];
             }
+          } else if constexpr (BF16) {
+            // The pair rounded to bf16 as the next layer's operand.
+            const __nv_bfloat162 x = __floats2bfloat162_rn(activate(v0 + bias[col], p.act),
+                                                           activate(v1 + bias[col + 1], p.act));
+            __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(act + r * ap + col);
+            *d = x;
+            cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+            for (int q = 1; q < C; ++q) *cluster.map_shared_rank(d, (rank + q) % C) = x;
           } else {
             const float2 x0 = split2(activate(v0 + bias[col], p.act));
             const float2 x1 = split2(activate(v1 + bias[col + 1], p.act));
@@ -482,10 +580,28 @@ __global__ void __launch_bounds__(THREADS, 1) opponent_mlp_kernel(const Params p
   cp_async_wait<0>();
 }
 
-// The launch of one tiling: a cluster of C blocks per tile, the grid one
-// cluster per possible tile (some exit at once).
 template <int R, int C, int S>
+__global__ void __launch_bounds__(THREADS, 1)
+    opponent_mlp_kernel(const __grid_constant__ Params p) {
+  opponent_mlp<R, C, S, false>(p);
+}
+
+template <int R, int C, int S>
+__global__ void __launch_bounds__(THREADS, 1)
+    opponent_mlp_bf16_kernel(const __grid_constant__ Params p) {
+  opponent_mlp<R, C, S, true>(p);
+}
+
+// The launch of one tiling of one tower: a cluster of C blocks per tile,
+// the grid one cluster per possible tile (some exit at once).
+using KernelFn = void (*)(Params);
+
+template <int R, int C, int S, bool BF16>
 struct Tiling {
+  static KernelFn kernel() {
+    return BF16 ? opponent_mlp_bf16_kernel<R, C, S> : opponent_mlp_kernel<R, C, S>;
+  }
+
   static cudaLaunchConfig_t config(const Params& p, int smem, cudaStream_t stream,
                                    cudaLaunchAttribute* attr) {
     cudaLaunchConfig_t cfg = {};
@@ -505,8 +621,8 @@ struct Tiling {
   static cudaError_t allow(int smem) {
     static int smem_set = 0;
     if (smem <= smem_set) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        opponent_mlp_kernel<R, C, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) smem_set = smem;
     return err;
   }
@@ -520,8 +636,7 @@ struct Tiling {
       const cudaLaunchConfig_t cfg = config(p, smem, nullptr, &attr);
       int n = -1;
       if (allow(smem) != cudaSuccess ||
-          cudaOccupancyMaxActiveClusters(&n, opponent_mlp_kernel<R, C, S>, &cfg) !=
-              cudaSuccess) {
+          cudaOccupancyMaxActiveClusters(&n, kernel(), &cfg) != cudaSuccess) {
         return -1;
       }
       cached_smem = smem;
@@ -535,30 +650,40 @@ struct Tiling {
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = config(p, smem, stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, opponent_mlp_kernel<R, C, S>, p);
+    err = cudaLaunchKernelEx(&cfg, kernel(), p);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-using Tiling32x2 = Tiling<32, 2, 2>;
-using Tiling32x3 = Tiling<32, 3, 3>;
-
-// (R, C, S) of each tiling the entry point offers, in the order above.
+// (R, C, S) of each tiling the entry point offers, in the order below.
 constexpr int TILINGS[][3] = {{32, 2, 2}, {32, 3, 3}};
 constexpr int NUM_TILINGS = sizeof(TILINGS) / sizeof(TILINGS[0]);
 
+template <bool BF16>
+int launch_tiling(int tiling, const Params& p, int smem, cudaStream_t s) {
+  return tiling == 0 ? Tiling<32, 2, 2, BF16>::launch(p, smem, s)
+                     : Tiling<32, 3, 3, BF16>::launch(p, smem, s);
+}
+
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// The activation and weight-stage pitches of a tiling, and its shared
-// memory in bytes.
-int layout(Params& p, const int* widths, int depth, int tiling) {
+// The activation and weight-stage pitches of a tiling of a tower, and its
+// shared memory in bytes.
+int layout(Params& p, const int* widths, int depth, int tiling, bool bf16) {
   const int R = TILINGS[tiling][0], C = TILINGS[tiling][1], S = TILINGS[tiling][2];
   int widest = round_up(widths[0], KC), slice = 0;
   for (int l = 0; l < depth; ++l) {
     if (l > 0) widest = widths[l] > widest ? widths[l] : widest;
     const int all = (widths[l + 1] + 7) / 8, per = (all + C - 1) / C;
     slice = per * 8 > slice ? per * 8 : slice;
+  }
+  if (bf16) {
+    // 8 (mod 64) bf16 a row: ldmatrix's 8 rows of 16 bytes fall in 8
+    // different bank groups.
+    p.act_pitch = round_up(widest, 64) + 8;
+    p.w_pitch = round_up(slice, 64) + 8;
+    return 2 * (R * p.act_pitch + S * KC * p.w_pitch);
   }
   p.act_pitch = 2 * round_up(widest, 32) + 16;
   p.w_pitch = round_up(slice, 32) + 8;
@@ -570,7 +695,7 @@ int layout(Params& p, const int* widths, int depth, int tiling) {
 // SM each (a cluster that waits for a free GPC doubles the call; blocks
 // that share an SM run at half speed: 3 x tiles within 90% of the SMs),
 // else 2-block clusters. -1 on error.
-int choose_tiling(Params& p, const int* widths, int depth, int* resident = nullptr) {
+int choose_tiling(Params& p, const int* widths, int depth, bool bf16, int* resident = nullptr) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -579,7 +704,9 @@ int choose_tiling(Params& p, const int* widths, int depth, int* resident = nullp
       return -1;
     }
   }
-  const int n = Tiling32x3::resident_clusters(p, layout(p, widths, depth, 1));
+  const int smem = layout(p, widths, depth, 1, bf16);
+  const int n = bf16 ? Tiling<32, 3, 3, true>::resident_clusters(p, smem)
+                     : Tiling<32, 3, 3, false>::resident_clusters(p, smem);
   if (resident != nullptr) *resident = n;
   if (n < 0) return -1;
   const int tiles = (p.rows + 31) / 32 + (p.K + 1) / 2;
@@ -589,24 +716,26 @@ int choose_tiling(Params& p, const int* widths, int depth, int* resident = nullp
 }  // namespace
 
 // The tiling opp_mlp_forward takes by default for these widths, rows and
-// slots, and in *resident the 3-block clusters the card holds at once.
-extern "C" int opp_mlp_default_tiling(const int* widths, int depth, int rows, int K,
+// slots (bf16: the bf16 tower), and in *resident the 3-block clusters the
+// card holds at once.
+extern "C" int opp_mlp_default_tiling(const int* widths, int depth, int rows, int K, int bf16,
                                       int* resident) {
   Params p = {};
   p.rows = rows;
   p.K = K;
-  return choose_tiling(p, widths, depth, resident);
+  return choose_tiling(p, widths, depth, bf16 != 0, resident);
 }
 
 // widths: depth + 1 entries (obs, hidden..., head); w, b: depth pointers
-// each (host arrays); act: 0 = none, 1 = relu, 2 = tanh. norm_mean,
-// norm_m2, norm_count: all null for no normalisation. tiling: an index of
-// TILINGS, or -1 for choose_tiling's. out: [rows, head].
+// each (host arrays; w f32, or bf16 with bf16 set); act: 0 = none, 1 =
+// relu, 2 = tanh. norm_mean, norm_m2, norm_count: all null for no
+// normalisation. tiling: an index of TILINGS, or -1 for choose_tiling's.
+// out: [rows, head] f32.
 extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm_mean,
                                const void* norm_m2, const void* norm_count, float clip,
                                const void* const* w, const void* const* b, const int* widths,
                                int depth, int act, void* out, int rows, int K, int tiling,
-                               void* stream) {
+                               int bf16, void* stream) {
   if (depth < 1 || depth > MAX_LAYERS || K < 1 || K > MAX_SLOTS || rows < 0 || act < 0 ||
       act > 2 || tiling < -1 || tiling >= NUM_TILINGS) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -628,7 +757,7 @@ extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm
   p.norm_count = static_cast<const float*>(norm_count);
   p.clip = clip;
   for (int l = 0; l < depth; ++l) {
-    p.w[l] = static_cast<const float*>(w[l]);
+    p.w[l] = w[l];
     p.b[l] = static_cast<const float*>(b[l]);
     p.n_in[l] = widths[l];
     p.n_out[l] = widths[l + 1];
@@ -639,10 +768,10 @@ extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm
   p.rows = rows;
   p.K = K;
   if (tiling < 0) {
-    tiling = choose_tiling(p, widths, depth);
+    tiling = choose_tiling(p, widths, depth, bf16 != 0);
     if (tiling < 0) return static_cast<int>(cudaGetLastError());
   }
-  const int smem = layout(p, widths, depth, tiling);
+  const int smem = layout(p, widths, depth, tiling, bf16 != 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return tiling == 0 ? Tiling32x2::launch(p, smem, s) : Tiling32x3::launch(p, smem, s);
+  return bf16 ? launch_tiling<true>(tiling, p, smem, s) : launch_tiling<false>(tiling, p, smem, s);
 }

@@ -19,7 +19,7 @@ env's step, with K14's sampling front as an option,
 ``ops/categorical.py`` (K2, with PopArt's denormalisation as an optional
 epilogue, and K14),
 ``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
-``ppo/pool_rollout.py``,
+``ppo/pool_rollout.py`` (K7, its f32 and its bf16 tower),
 ``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17),
 ``ppo/window.py`` (K18, K19)) and use
 the helpers below.
@@ -95,10 +95,10 @@ SIGNATURES = {
     "obs_norm_update": [_VP] * 5 + [_L, _I, _L, _VP],
     # x, slot, norm mean, m2, count (nullable), clip, host arrays of the
     # layers' weight and bias pointers and of the widths, depth, act, out,
-    # rows, K, tiling, stream
-    "opp_mlp_forward": [_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 3 + [_VP],
-    # widths, depth, rows, K, out: resident 3-block clusters
-    "opp_mlp_default_tiling": [_VP, _I, _I, _I, _VP],
+    # rows, K, tiling, the bf16 tower (weights bf16), stream
+    "opp_mlp_forward": [_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 4 + [_VP],
+    # widths, depth, rows, K, the bf16 tower, out: resident 3-block clusters
+    "opp_mlp_default_tiling": [_VP, _I, _I, _I, _I, _VP],
     # logits, values, mask, actions, old_lp, adv, returns, old_values, valid,
     # M, A, eps, lo, hi, clip_value, value_coef, ent_coef (f32 scalar),
     # scratch (f64 [ppo_loss_scratch_len()]), out, dlogits, dvalues, the
@@ -150,11 +150,12 @@ SIGNATURES = {
     "eval_step_books": ([_VP, _VP, _VP, _I, _I] + [_VP] * 7 + [_VP, _L, _VP, _I] + [_F] * 5
                         + [_VP, _VP, _I, _VP]),
     # completed, outcome, seat, slots, T, E, L, P, the window's first-update
-    # flag, its running count, its capacity, the record rows, stream
-    "window_records": [_VP] * 4 + [_I] * 4 + [_VP] * 5,
-    # host arrays of the fields' sources, lengths and folds, their count,
-    # the accumulators, the first-update flag, stream
-    "window_report": [_VP] * 3 + [_I] + [_VP] * 3,
+    # flag, its running count, its capacity, the record rows, the scan's
+    # scratch (i64 [1 + its tiles], zeroed once), its tiles, stream
+    "window_records": [_VP] * 4 + [_I] * 4 + [_VP] * 5 + [_I, _VP],
+    # host arrays of each accumulator entry's source address and fold,
+    # their count, the accumulators, the first-update flag, stream
+    "window_report": [_VP] * 2 + [_I] + [_VP] * 3,
 }
 
 _LOCK = threading.Lock()

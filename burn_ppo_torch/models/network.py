@@ -7,6 +7,12 @@ reference's NHWC order, appends the remaining obs features and runs an FC
 stack on the configured activation. CTDE (network.py:165-182, 230-256) is
 an actor MLP on the obs and a critic MLP of its own width and depth on
 ``concat(privileged_obs, obs)``, privileged obs first.
+
+``compute_dtype="bfloat16"`` (network.py:72, 194-245) runs every dense
+and conv layer, heads included, with bf16 operands and f32 outputs
+(``models/core.py``); the parameters stay f32. The networks that
+checkpoints, eval, the tournament and the assistant build are f32, as
+JAX's ``network_from_metadata`` builds them.
 """
 
 from __future__ import annotations
@@ -18,7 +24,10 @@ from torch import nn
 
 from burn_ppo_torch.models.core import (
     activation_fn,
+    check_compute_dtype,
+    conv2d_same,
     conv_init,
+    dense,
     dense_init,
     mlp_stack_apply,
     mlp_stack_init,
@@ -55,9 +64,11 @@ class ActorCriticNetwork(nn.Module):
         kernel_size: int = 3,
         cnn_fc_hidden_size: int = 32,
         cnn_num_fc_layers: int = 1,
+        compute_dtype: Optional[str] = None,
         generator: torch.Generator,
     ):
         super().__init__()
+        check_compute_dtype(compute_dtype)
         if network_type not in ("mlp", "cnn", "ctde"):
             raise ValueError(f"Unknown network_type '{network_type}'")
         self.network_type = network_type
@@ -76,6 +87,7 @@ class ActorCriticNetwork(nn.Module):
         self.kernel_size = kernel_size
         self.cnn_fc_hidden_size = cnn_fc_hidden_size
         self.cnn_num_fc_layers = cnn_num_fc_layers
+        self.compute_dtype = compute_dtype
         self._act = activation_fn(activation)
         gain = hidden_gain(activation)
         g = generator
@@ -132,13 +144,19 @@ class ActorCriticNetwork(nn.Module):
         B, n = obs.shape[0], h * w * c
         x = obs[:, :n].reshape(B, h, w, c).permute(0, 3, 1, 2)  # NHWC -> NCHW
         for conv in convs:
-            x = torch.relu(conv(x))
+            x = torch.relu(conv2d_same(conv, x, self.compute_dtype))
         # Flatten in NHWC order, so the first FC layer's rows keep the
         # reference's h * W * C + w * C + c layout (network.py:191-197).
         x = x.permute(0, 2, 3, 1).reshape(B, -1)
         if self.obs_dim > n:
             x = torch.cat([x, obs[:, n:]], dim=1)
-        return mlp_stack_apply(fcs, x, self._act)
+        return self._stack(fcs, x)
+
+    def _stack(self, layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+        return mlp_stack_apply(layers, x, self._act, self.compute_dtype)
+
+    def _head(self, head: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return dense(head, x, self.compute_dtype)
 
     @property
     def is_ctde(self) -> bool:
@@ -155,7 +173,7 @@ class ActorCriticNetwork(nn.Module):
     def forward_actor(self, obs: torch.Tensor) -> torch.Tensor:
         """Policy logits [B, A] from the obs alone."""
         if self.is_ctde:
-            return self.policy_head(mlp_stack_apply(self.actor_layers, obs, self._act))
+            return self._head(self.policy_head, self._stack(self.actor_layers, obs))
         return self.forward(obs)[0]
 
     def forward(self, obs: torch.Tensor,
@@ -164,18 +182,16 @@ class ActorCriticNetwork(nn.Module):
         if self.is_ctde:
             if privileged_obs is None:
                 raise ValueError("the CTDE critic needs privileged_obs")
-            cx = mlp_stack_apply(self.critic_layers, torch.cat([privileged_obs, obs], dim=1),
-                                 self._act)
-            return self.forward_actor(obs), self.value_head(cx)[:, 0]
+            cx = self._stack(self.critic_layers, torch.cat([privileged_obs, obs], dim=1))
+            return self.forward_actor(obs), self._head(self.value_head, cx)[:, 0]
         if self.network_type == "mlp":
-            ax = mlp_stack_apply(self.layers, obs, self._act)
-            cx = (mlp_stack_apply(self.critic_layers, obs, self._act)
-                  if self.critic_layers is not None else ax)
+            ax = self._stack(self.layers, obs)
+            cx = self._stack(self.critic_layers, obs) if self.critic_layers is not None else ax
         else:
             ax = self._cnn_features(obs, self.conv_layers, self.fc_layers)
             cx = (self._cnn_features(obs, self.critic_conv_layers, self.critic_fc_layers)
                   if self.critic_conv_layers is not None else ax)
-        return self.policy_head(ax), self.value_head(cx)[:, 0]
+        return self._head(self.policy_head, ax), self._head(self.value_head, cx)[:, 0]
 
 
 def make_network(
@@ -193,10 +209,11 @@ def make_network(
     kernel_size: int = 3,
     cnn_fc_hidden_size: int = 32,
     cnn_num_fc_layers: int = 1,
+    compute_dtype: Optional[str] = None,
     generator: torch.Generator,
 ) -> ActorCriticNetwork:
     """Build the network for an env; ``generator`` draws the orthogonal
-    init on its device."""
+    init on its device; ``compute_dtype`` None (f32) or ``"bfloat16"``."""
     return ActorCriticNetwork(
         env_spec.obs_dim,
         env_spec.num_actions,
@@ -214,5 +231,6 @@ def make_network(
         kernel_size=kernel_size,
         cnn_fc_hidden_size=cnn_fc_hidden_size,
         cnn_num_fc_layers=cnn_num_fc_layers,
+        compute_dtype=compute_dtype,
         generator=generator,
     )

@@ -27,6 +27,11 @@ always the learner critic's; opponents contribute actions only.
 obs normalisation (the identity while that slot's count < 2) and actor
 MLP. Its plain version is the JAX formulation: K dense forwards over
 every row, then a selection by slot (pool_rollout.py:126-139, 171-178).
+JAX runs the learner's own network over the stacked opponents, so with
+the bf16 compute dtype the opponents' dense layers take bf16 operands
+too: such a stack holds its weights rounded to bf16 once, at the
+rotation (``actor_params(network, "bfloat16")``), and K7 runs a stack of
+bf16 weights through its bf16 tower. Eval's stacked models stay f32.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 
 from burn_ppo_torch import kernels
 from burn_ppo_torch.envs.base import Environment, EpisodeLog
-from burn_ppo_torch.models.core import activation_fn
+from burn_ppo_torch.models.core import BF16, activation_fn, check_compute_dtype
 from burn_ppo_torch.ops.categorical import TINY, masked_sample
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
@@ -63,18 +68,22 @@ ACTIVATIONS = {"relu": 1, "tanh": 2}
 @dataclass
 class ActorParams:
     """One opponent's actor tower in the JAX layout: a weight ``[in, out]``
-    and a bias ``[out]`` per hidden layer, then the policy head."""
+    and a bias ``[out]`` per hidden layer, then the policy head; the
+    weights f32, or bf16 for the bf16 compute dtype (the biases stay
+    f32)."""
 
     weights: List[torch.Tensor]
     biases: List[torch.Tensor]
     activation: str
 
 
-def actor_params(network) -> ActorParams:
+def actor_params(network, compute_dtype: Optional[str] = None) -> ActorParams:
     """A copy of a network's actor tower (the MLP's shared layers, or the
     CTDE actor's layers, and the policy head), detached from the live
-    parameters. K7 runs either unchanged: an opponent never reads the
+    parameters, its weights rounded to bf16 with ``compute_dtype=
+    "bfloat16"``. K7 runs either unchanged: an opponent never reads the
     critic."""
+    check_compute_dtype(compute_dtype)
     if network.network_type == "mlp":
         layers = list(network.layers) + [network.policy_head]
     elif network.network_type == "ctde":
@@ -82,8 +91,9 @@ def actor_params(network) -> ActorParams:
     else:
         raise NotImplementedError(
             f"opponents of network_type {network.network_type!r}: ROADMAP A12b")
+    wdtype = torch.bfloat16 if compute_dtype == BF16 else torch.float32
     return ActorParams(
-        weights=[layer.weight.detach().T.contiguous() for layer in layers],
+        weights=[layer.weight.detach().T.to(wdtype).contiguous() for layer in layers],
         biases=[layer.bias.detach().clone() for layer in layers],
         activation=network.activation,
     )
@@ -92,13 +102,19 @@ def actor_params(network) -> ActorParams:
 @dataclass
 class OpponentStack:
     """The rotation's K opponents stacked on the device: weights ``[K, in,
-    out]`` and biases ``[K, out]`` per layer, and the obs normalisers as
-    ``[K, D]`` means and M2s and ``[K]`` counts (None: no normalisation)."""
+    out]`` (f32, or bf16 for the bf16 compute dtype) and f32 biases
+    ``[K, out]`` per layer, and the obs normalisers as ``[K, D]`` means
+    and M2s and ``[K]`` counts (None: no normalisation)."""
 
     weights: List[torch.Tensor]
     biases: List[torch.Tensor]
     activation: str
     norm: Optional[ObsNormState] = None
+
+    @property
+    def bf16(self) -> bool:
+        """Whether the weights are bf16 (K7's bf16 tower)."""
+        return self.weights[0].dtype == torch.bfloat16
 
     @property
     def num_slots(self) -> int:
@@ -127,7 +143,10 @@ def opponent_actor_forward_plain(obs: torch.Tensor, slot: torch.Tensor, stack: O
     """Plain PyTorch K7: every slot's normalisation and actor MLP over all
     rows ([K, Ep, A], one ``bmm`` per layer), then each row's acting slot
     (a row whose slot is outside [0, K) gets zeros, as JAX's one-hot
-    contraction gives)."""
+    contraction gives). A stack of bf16 weights rounds each layer's input
+    to bf16 after the f32 normalisation and activation, and takes the f32
+    product of it and the bf16 weights (exact products, f32 sums) plus
+    the f32 bias, as JAX's dense does."""
     K = stack.num_slots
     x = obs.unsqueeze(0).expand(K, *obs.shape)
     if stack.norm is not None:
@@ -138,7 +157,10 @@ def opponent_actor_forward_plain(obs: torch.Tensor, slot: torch.Tensor, stack: O
         x = torch.where((n.count < 2.0)[:, None, None], x, normalized)
     act = activation_fn(stack.activation)
     depth = len(stack.weights)
+    bf16 = stack.bf16
     for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
+        if bf16:
+            x, w = x.to(torch.bfloat16).float(), w.float()
         x = torch.bmm(x, w) + b[:, None, :]
         if i < depth - 1:
             x = act(x)
@@ -198,15 +220,22 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
     """Each pool row's policy logits under its acting slot's opponent:
     raw obs [Ep, D], slot [Ep] i32 -> logits [Ep, A]. CPU tensors take the
     plain version; CUDA tensors launch K7 (``csrc/opponent_actor.cu``: one
-    launch, every layer of a tile of one slot's rows on chip, 3xTF32 on the
-    tensor cores), or raise. ``tiling`` indexes ``OPPONENT_TILINGS``
-    (default: the kernel's choice)."""
+    launch, every layer of a tile of one slot's rows on chip), or raise.
+    The weights' dtype selects the tower: f32 weights 3xTF32 on the tensor
+    cores (``opponent_mlp_kernel``); bf16 weights the bf16 tower
+    (``opponent_mlp_bf16_kernel``: the same slot grouping, tiles and
+    clusters; the normalised obs and the activations held as bf16, the
+    bf16 weights streamed, one ``mma.sync`` m16n8k16 bf16 product a step
+    with f32 sums, f32 bias and activation, f32 logits). ``launches``
+    counts both; the device's kernel names tell them apart. ``tiling``
+    indexes ``OPPONENT_TILINGS`` (default: the kernel's choice)."""
     norm = stack.norm
     ts = [obs, slot, *stack.weights, *stack.biases]
     if norm is not None:
         ts += [norm.mean, norm.m2, norm.count]
     if kernels.on_cpu(*ts):
         return opponent_actor_forward_plain(obs, slot, stack, clip)
+    wdtype = torch.bfloat16 if stack.bf16 else torch.float32
     Ep, D = obs.shape
     K = stack.num_slots
     widths = _check_opponent_tower(stack, D)
@@ -217,7 +246,7 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
         kernels.expect(norm.m2, "norm.m2", torch.float32, (K, D))
         kernels.expect(norm.count, "norm.count", torch.float32, (K,))
     for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
-        kernels.expect(w, f"weights[{i}]", torch.float32, (K, widths[i], widths[i + 1]))
+        kernels.expect(w, f"weights[{i}]", wdtype, (K, widths[i], widths[i + 1]))
         kernels.expect(b, f"biases[{i}]", torch.float32, (K, widths[i + 1]))
         if w.data_ptr() % 16:
             raise ValueError(f"weights[{i}]: the kernel's 16-byte copies need an aligned buffer")
@@ -234,7 +263,7 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
     err = kernels.library().opp_mlp_forward(
         p(obs), p(slot), *norm_ptrs, float(clip), w_ptrs, b_ptrs,
         (ctypes.c_int * (depth + 1))(*widths), depth, ACTIVATIONS[stack.activation], p(out), Ep,
-        K, tiling, kernels.stream(dev),
+        K, tiling, int(stack.bf16), kernels.stream(dev),
     )
     kernels.check(err, "opp_mlp_forward")
     opponent_actor_forward.launches += 1

@@ -45,6 +45,9 @@ MAX_METRIC_KEYS = ("approx_kl", "clip_fraction")
 # K19's fold of each field (csrc/window_report.cu Op) and its sizes.
 LAST, SUM, MAX, MIN = 0, 1, 2, 3
 MAX_FIELDS, MAX_ENTRIES = 48, 128
+# K18's entries a tile (csrc/window_records.cu TILE) and the tiles its
+# scan's scratch holds: 8M entries an update (T x Ep), e.g. 128 x 65,536.
+RECORD_TILE, MAX_RECORD_TILES = 1024, 8192
 STATS_FOLDS = (("count", SUM), ("ret_sum", SUM), ("ret0_max", MAX), ("ret0_min", MIN),
                ("len_sum", SUM), ("pts_sum", SUM), ("draws", SUM))
 
@@ -72,8 +75,10 @@ class WindowBook:
     buffer (int8 [record_rows, 2P-1]), the running count of the window's
     completed pool games (i32, those past the capacity included) and the
     window's capacity (i32, ``record_capacity`` of its length, at most
-    ``record_rows``). Every tensor keeps its address: the update graphs
-    read and write them where they were captured."""
+    ``record_rows``), and K18's scan scratch (``scan``: u64 as i64 [1 +
+    ``MAX_RECORD_TILES``], zeroed once: the ticket and the tiles' flags,
+    left consistent by every launch). Every tensor keeps its address: the
+    update graphs read and write them where they were captured."""
 
     def __init__(self, device: torch.device, num_players: int, record_rows: int = 0):
         i32 = torch.int32
@@ -85,6 +90,8 @@ class WindowBook:
         self.cap = torch.zeros((), dtype=i32, device=self.device)
         self.rows = (torch.zeros(record_rows, 2 * num_players - 1, dtype=torch.int8,
                                  device=self.device) if record_rows else None)
+        self.scan = (torch.zeros(1 + MAX_RECORD_TILES, dtype=torch.int64, device=self.device)
+                     if record_rows and self.device.type == "cuda" else None)
         # (group, key, source key, fold, entries) of each field
         self.layout: Optional[List[Tuple[str, str, str, int, int]]] = None
         self.capacity = 0  # the record capacity of the window started last
@@ -95,7 +102,8 @@ class WindowBook:
 
     def leaves(self) -> List[torch.Tensor]:
         """The tensors an update reads and writes (a graph's warm-up puts
-        them back); the rows are rewritten from the count."""
+        them back); the rows are rewritten from the count, and K18's scan
+        scratch is left ready for the next launch by every launch."""
         return [self.first, self.acc, self.total, self.cap]
 
     def start(self, capacity: int = 0) -> None:
@@ -206,6 +214,10 @@ def window_records(book: WindowBook, completed: torch.Tensor, outcome: torch.Ten
     if not 0 <= L < E or P != book.num_players:
         raise ValueError(f"window_records: {L} learner envs of {E}, {P} players "
                          f"(the book's {book.num_players})")
+    tiles = book.scan.numel() - 1
+    if T * (E - L) > tiles * RECORD_TILE:
+        raise ValueError(f"window_records: {T} x {E - L} entries, more than the scan's "
+                         f"{tiles} tiles of {RECORD_TILE}")
     kernels.expect(completed, "completed", torch.float32, (T, E))
     kernels.expect(outcome, "outcome", torch.int32, (T, E, P))
     kernels.expect(seat, "seat", torch.int32, (T, E))
@@ -213,7 +225,7 @@ def window_records(book: WindowBook, completed: torch.Tensor, outcome: torch.Ten
     p = kernels.ptr
     err = kernels.library().window_records(
         p(completed), p(outcome), p(seat), p(slots), T, E, L, P, p(book.first), p(book.total),
-        p(book.cap), p(book.rows), kernels.stream(completed.device))
+        p(book.cap), p(book.rows), p(book.scan), tiles, kernels.stream(completed.device))
     kernels.check(err, "window_records")
     window_records.launches += 1
 
@@ -253,11 +265,14 @@ def window_report(book: WindowBook, fields: Sequence[Tuple[torch.Tensor, int]]) 
     for i, t in enumerate(srcs):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"window_report: field {i} must be a contiguous f32 tensor")
-    n = len(fields)
-    ptrs = (ctypes.c_void_p * n)(*(t.data_ptr() for t in srcs))
-    lens = (ctypes.c_int * n)(*(t.numel() for t in srcs))
-    ops = (ctypes.c_int * n)(*(op for _, op in fields))
-    err = kernels.library().window_report(ptrs, lens, ops, n, kernels.ptr(book.acc),
+    # The table of accumulator entries: each entry's source address and fold.
+    entries = [(t.data_ptr() + 4 * j, op) for t, op in fields for j in range(t.numel())]
+    n = len(entries)
+    if n > MAX_ENTRIES:
+        raise ValueError(f"window_report: {n} accumulator entries, at most {MAX_ENTRIES}")
+    ptrs = (ctypes.c_void_p * n)(*(a for a, _ in entries))
+    ops = (ctypes.c_int * n)(*(op for _, op in entries))
+    err = kernels.library().window_report(ptrs, ops, n, kernels.ptr(book.acc),
                                           kernels.ptr(book.first), kernels.stream(book.acc.device))
     kernels.check(err, "window_report")
     window_report.launches += 1

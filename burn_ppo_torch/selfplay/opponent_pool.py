@@ -96,8 +96,12 @@ class OpponentPool:
         cache_size: int = 32,
         seed: int = 0,
         device: str | torch.device = "cpu",
+        compute_dtype: Optional[str] = None,
     ):
         self.device = torch.device(device)
+        # the learner's: each opponent's tower stored rounded to bf16 once
+        # with "bfloat16" (pool_rollout.py:126-139 runs the learner's network)
+        self.compute_dtype = compute_dtype
         self.run_dir = Path(run_dir)
         self.ckpt_dir = self.run_dir / "checkpoints"
         self.stats_path = self.run_dir / "opponent_stats.json"
@@ -197,7 +201,8 @@ class OpponentPool:
             return entry
         path = self.ckpt_dir / name
         network, _meta = load_model(path, self.device)
-        entry = (actor_params(network), load_obs_normalizer(path, self.device))
+        entry = (actor_params(network, self.compute_dtype),
+                 load_obs_normalizer(path, self.device))
         self._put(name, entry)
         return entry
 
@@ -213,7 +218,7 @@ class OpponentPool:
         from the live training state, so the first rotation that samples
         it skips the disk read. A clone: the update writes the live
         parameters in place."""
-        self._put(name, (actor_params(network), _clone_norm(obs_norm)))
+        self._put(name, (actor_params(network, self.compute_dtype), _clone_norm(obs_norm)))
 
     def refresh_rotation(
         self, pad_to: Optional[int] = None

@@ -130,6 +130,7 @@ def build_network_for_env(env: Environment, cfg: Config, generator: torch.Genera
         kernel_size=cfg.kernel_size,
         cnn_fc_hidden_size=cfg.cnn_fc_hidden_size,
         cnn_num_fc_layers=cfg.cnn_num_fc_layers,
+        compute_dtype=cfg.compute_dtype,
         generator=generator,
     )
 
@@ -286,9 +287,6 @@ def unsupported_config(cfg: Config) -> Optional[str]:
     if cfg.network_type == "ctde" and make_env(cfg.env).spec.privileged_obs_dim is None:
         return (f"network_type 'ctde' needs an env with privileged observations (liars_dice, "
                 f"skull), not {cfg.env!r}; the JAX package cannot build it either")
-    if cfg.compute_dtype is not None:
-        return (f"compute_dtype {cfg.compute_dtype!r}: mixed precision, ROADMAP A18; the port "
-                "trains in f32")
     if cfg.mesh_data not in (0, 1):
         return f"mesh_data {cfg.mesh_data}: multi-device training, ROADMAP A16"
     return None
@@ -396,6 +394,7 @@ class Trainer:
                 self.run_dir, select_alpha=cfg.opponent_select_alpha,
                 select_exponent=cfg.opponent_select_exponent,
                 max_active=cfg.max_active_opponents, seed=self.seed, device=self.device,
+                compute_dtype=cfg.compute_dtype,
             )
             self.rating_history = RatingHistory.load(self.run_dir)
             self.seating = PoolSeating.create(self.num_envs, self.num_learner_envs,

@@ -1,9 +1,8 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K2 + K16, K14 + step, K3, K5, K10,
-                                         # K15, train phases 3, 3d, train steps and the Skull
-                                         # eval chunk in turns
+    python3 chip_smoke.py --parent DIR   # also time DIR's K7, K18 and K19, train phases 3,
+                                         # 3d, train steps and the Skull eval chunk in turns
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -70,8 +69,7 @@ exits non-zero without the final result line:
      E = 1, 64, 256 and 4096 along 12-step walks, the actions and every
      output bit for bit (CartPole's physics and obs against the plain
      step to K1's 1e-5), timed at the env's
-     eval shape in turns with K14 + the step (with --parent, also with the
-     parent's K14 + step: Connect Four at 64 envs, Skull at 256 and 4096);
+     eval shape in turns with K14 + the step;
      K1, K4 and K13 also with the reset flag off (a finished env's terminal
      row kept) against the plain step, K4 at every step of its walk, K13
      every fourth;
@@ -81,20 +79,26 @@ exits non-zero without the final result line:
      stack frame, spills); K10 gives the same bits on two calls and on two
      replays of a captured graph, and is timed beside an empty kernel's
      launch (the floor); with --parent, when DIR's kernel sources differ
-     from this tree's, the parent commit's K3 (at its three shapes, equal
-     bit for bit), K5 (at [64, 4096, 2], [64, 4096, 4] and [128, 4096, 4],
-     equal bit for bit) and K10 (at every shape above, to the plain
-     version's tolerances), built from DIR,
-     checked and timed in turns with this tree's (parent, new, new,
+     from this tree's, the parent commit's K7 (its f32 tower at the four
+     pool shapes, to K7's tolerance), K18 and K19 (bit for bit), built from
+     DIR, checked and timed in turns with this tree's (parent, new, new,
      parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
-  2. (continued) K18, the update window's pool records, against its plain
-     version bit for bit over a window of 8 appends at the flagship shape
-     (T = 64, E = 4096, Ep = 1229, P = 4, C = 78,656) and over one whose
-     capacity of 500 rows overflows; K19, the window's report, bit for
-     bit over 8 folds (a KL spike, a guard count, an update without an
-     episode); each timed, one append or fold;
+  2. (continued) K18, the update window's pool records (one launch of many
+     blocks, a decoupled look-back), against its plain version bit for bit
+     on one book over two windows of 8 appends in a row at the flagship
+     shape (T = 64, E = 4096, Ep = 1229, P = 4, C = 78,656) and a window
+     whose capacity of 500 rows overflows; K19, the window's report (one
+     warp, a table an accumulator entry), bit for bit over 8 folds (a KL
+     spike, a guard count, an update without an episode); each timed, one
+     append or fold, beside an empty kernel's launch (K19 in turns with
+     it); K7's bf16 tower (the stacks' weights rounded to bf16) against
+     its plain version at Connect Four's pool block (Ep = 1024, K = 8, 86
+     -> 512 x2 -> 7, obs norm) and the flagship's (Ep = 1229, 135 -> 256
+     x3 -> 33), every tiling, to 2^-7 (|plain| + max |plain|), timed in
+     turns with K7's f32 tower and with torch.bmm in bf16, its bound the
+     bf16 tensor cores' rate;
   2a. phase ``popart``: K15, PopArt's update (the masked moments of the
      raw returns, the Welford merge and the value head's rescale, one
      launch with a last-block ticket) against its plain version at the CartPole batch
@@ -121,8 +125,9 @@ exits non-zero without the final result line:
      rollout, every carry, batch and log tensor bit for bit and the
      generator at the same offset: CartPole 4096 x 128, Connect Four
      self-play 4096 x 64 (MLP 512x2), Skull CTDE self-play at the
-     bench_skull_ctde shape, and Liar's Dice CTDE against the pool 4096 x
-     128 across new rotations, a growing and a shrinking active count (one
+     bench_skull_ctde shape, Liar's Dice CTDE against the pool 4096 x
+     128 and Connect Four against the pool with the bf16 compute dtype
+     (K7's bf16 tower) across new rotations, a growing and a shrinking active count (one
      graph, its slot bound on the device; the trainer's host remap of the
      seats) and a shaping change; one capture a case; then the eager loop
      and the graph timed in turns (events and device ms per rollout),
@@ -139,7 +144,9 @@ exits non-zero without the final result line:
      target_kl 0.02), Liar's Dice CTDE against the pool as
      configs/liars_dice_ctde.toml runs it (the KL stop required to fire),
      then a last update with two valid rows left in its batch
-     (all-invalid minibatches required); one capture a runner; the
+     (all-invalid minibatches required), and the bench_skull_ctde shape
+     with the bf16 compute dtype (its bf16 forward and backward under
+     capture); one capture a runner; the
      minibatches run and skipped and the minibatch graphs skipped; from
      one saved state the eager loop and the graphs timed in turns, and the
      host's waits for the stop flag between minibatch graphs (count and
@@ -292,8 +299,21 @@ exits non-zero without the final result line:
      extract_pool_records); the window against 8 single-update rotations
      (pool_rotation_interval = 1) in turns, and one window profiled (its
      events and device ms, K18 and K19 8 each on the device);
+  3r. the bf16 compute dtype (A18): Connect Four against the pool through
+     the CLI with --compute-dtype bfloat16 (4 updates, a checkpoint each:
+     K7's bf16 tower 64 launches a pool update, its f32 tower none) and
+     the CNN's self-play in bf16 (2 updates), counted as every train
+     phase; phase ``bf16`` (a process of its own): the bench_skull_ctde
+     shape in f32 and bf16, train steps in turns, one replay of each
+     update graph profiled (device ms, cuBLAS's GEMMs' share, the longest
+     kernels), one eager bf16 update's roundings and backward f32 products
+     (calls, launches, device ms, by their profiler labels); the flagship
+     configs/skull_ctde_tpu.toml in bf16, one pool window of 8 against 8
+     fresh opponents (bf16 stacks), every launch counted, K7's bf16 tower
+     64 on the device in one profiled rollout replay;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
-     average return >= 195 within 200k steps; then the same with
+     average return >= 195 within 200k steps, also with --compute-dtype
+     bfloat16 (printed beside the f32 bar); then the same with
      --normalize-values, printed beside the JAX package's CPU result for
      that configuration (JAX_POPART_BAR), which it must match in clearing
      195.
@@ -479,6 +499,11 @@ LD_OBS = 270
 LD_CTDE_PARAMS = 873778  # CTDE actor 256x2 on 270, critic 512x3 on 120 + 270
 LD_MLP_PARAMS = 689714  # MLP 512x3 on 270 -> 49 + value head
 LD_UPDATES_MLP = 3
+# bench.py's bench_skull_ctde shape on configs/skull_ctde.toml: CTDE actor
+# and critic 512x2 tanh, 4096 x 64, 4 epochs x 4 minibatches, no pool.
+SKULL_BENCH = {"opponent_pool_fraction": 0.0, "hidden_size": 512, "num_hidden": 2,
+               "activation": "tanh", "critic_hidden_size": 512, "critic_num_hidden": 2,
+               "num_epochs": 4, "num_minibatches": 4}
 # Published H100 SXM peaks (NVIDIA data sheet): HBM, and f32 and f64
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -486,8 +511,14 @@ TIMES = ("ms", "plain_ms", "device_ms", "plain_device_ms")
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12
 # Dense TF32 on the tensor cores; an f32-accurate product there is three
-# TF32 products (the 3xTF32 split of K7).
+# TF32 products (the 3xTF32 split of K7). Dense bf16 on the tensor cores
+# (K7's bf16 tower).
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
+# The kernels line's row of K7's bf16 tower, and the train runs whose K7
+# launches are all that tower's (their stacks' weights bf16).
+BF16_TOWER = "opponent_actor_forward_bf16_tower"
+BF16_RUNS = ("selfplay_pool_bf16", "bf16_flagship_window")
 WRAPPERS = {
     "cartpole_step_autoreset": cartpole_step_autoreset,
     "masked_gumbel_sample": masked_sample,
@@ -527,6 +558,10 @@ SOURCES = {
                         "burn_ppo_tpu/ppo/normalization.py:68"),
     "opponent_actor_forward": ("burn_ppo_torch/csrc/opponent_actor.cu",
                                "burn_ppo_tpu/ppo/pool_rollout.py:126"),
+    # K7's bf16 tower (launched by K7's wrapper for a stack of bf16
+    # weights): the same fusion with the learner's bf16 dense
+    # (models/core.py:37)
+    BF16_TOWER: ("burn_ppo_torch/csrc/opponent_actor.cu", "burn_ppo_tpu/ppo/pool_rollout.py:126"),
     "ppo_loss": ("burn_ppo_torch/csrc/ppo_loss.cu", "burn_ppo_tpu/ppo/update.py:125"),
     "clip_adam": ("burn_ppo_torch/csrc/clip_adam.cu", "burn_ppo_tpu/ppo/update.py:82"),
     "episode_stats": ("burn_ppo_torch/csrc/episode_stats.cu",
@@ -679,21 +714,43 @@ def pad_bytes(state) -> int:
 
 
 def bound(bytes_moved: float, flops: float = 0.0, flops64: float = 0.0,
-          flops_3xtf32: float = 0.0) -> dict:
+          flops_3xtf32: float = 0.0, flops_bf16: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
     the HBM rate and the operations over the peak of their type (f32, f64
-    for ``flops64``, and for ``flops_3xtf32`` three TF32 products each on
-    the tensor cores)."""
+    for ``flops64``, for ``flops_3xtf32`` three TF32 products each on the
+    tensor cores, and bf16 products on the tensor cores for
+    ``flops_bf16``)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = (flops / F32_FLOP_PER_S + flops64 / F64_FLOP_PER_S
-             + 3.0 * flops_3xtf32 / TF32_FLOP_PER_S) * 1e3
+             + 3.0 * flops_3xtf32 / TF32_FLOP_PER_S + flops_bf16 / BF16_FLOP_PER_S) * 1e3
     out = {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
            else "operations", "bytes": bytes_moved, "flops": flops, "flops64": flops64}
+    if flops_bf16:
+        out["flops_bf16"] = flops_bf16
     if flops_3xtf32:
         out["flops_3xtf32"] = flops_3xtf32
         # the same products at the f32 rate outside the tensor cores
         out["bound_ffma_ms"] = max(t_bytes, flops_3xtf32 / F32_FLOP_PER_S * 1e3)
     return out
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name: the shortest length-prefixed identifier that ends in ``kernel``
+    (it may hold digits, as ``opponent_mlp_bf16_kernel``; its length's
+    digits may follow a hash's), then ``<...>``."""
+    found = []
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        for i in range(len(m.group(1))):
+            ident = mangled[m.end():m.end() + int(m.group(1)[i:])]
+            if ident.endswith("kernel"):
+                found.append((len(ident), m.end()))
+    if not found:
+        return mangled
+    n, start = min(found)
+    t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + n:])
+    return mangled[start:start + n] + (
+        "<{}>".format(", ".join(re.findall(r"L[ib](\d+)E", t.group(1)))) if t else "")
 
 
 def ptxas_summary(text: str) -> list:
@@ -705,9 +762,7 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             spill = ""
-            k = re.search(r"\d+([A-Za-z_]+kernel)((?:I(?:L[ib]\d+E)+E)?)", m.group(1))
-            name = m.group(1) if k is None else k.group(1) + (
-                "<{}>".format(", ".join(re.findall(r"L[ib](\d+)E", k.group(2)))) if k.group(2) else "")
+            name = kernel_name(m.group(1))
         elif "spill" in ln and name is not None:
             spill = ln.strip()
         elif "Used" in ln and name is not None:
@@ -731,20 +786,17 @@ def turns(new, other, who: str = "parent", only: str | None = None,
 
 
 class ParentKernels:
-    """The parent commit's kernels (their C entry points as 80f701e has
-    them), built from a checkout of it into a library of their own (one
-    ``nvcc`` a source, all at once, then one link) and called as its
-    wrappers called them (the argument checks and the allocations), so
-    that they are timed beside the new kernels in the same process: K3,
-    K5, K10 and K15 (unchanged here; K10's scratch and K15's made once);
-    K2 without the value epilogue and K16, the rollout's two launches a
-    step with PopArt on; K14 and the Connect Four and Skull steps, eval's
-    two launches a step. Its ptxas lines cover every step kernel (K1, K4,
-    K11, K13), K2 and K14, beside this tree's."""
+    """The parent commit's versions of the kernels this tree redesigned or
+    extended (their C entry points as f912ae7 has them), built from a
+    checkout of it into a library of their own (one ``nvcc`` a source, all
+    at once, then one link) and called as its wrappers called them, so that
+    they are timed beside the new kernels in the same process: K7's f32
+    tower (``opp_mlp_forward`` without the bf16 flag), K18 (one block
+    walking the tiles in turn) and K19 (a thread an entry, a loop over a
+    by-value table of fields). Its ptxas lines cover them, beside this
+    tree's."""
 
-    SOURCES = ("gae.cu", "gae_multiplayer.cu", "episode_stats.cu", "popart.cu",
-               "masked_gumbel_sample.cu", "temperature_sample.cu", "cartpole_step.cu",
-               "connect_four_step.cu", "skull_step.cu", "liars_dice_step.cu")
+    SOURCES = ("opponent_actor.cu", "window_records.cu", "window_report.cu")
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
@@ -761,144 +813,49 @@ class ParentKernels:
                 if rc != 0:
                     raise RuntimeError(f"parent kernels failed to build:\n{text}")
         self.ptxas = ptxas_summary("\n".join(logs))
-        vp, i, f, lg = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_long
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
-        for name, argtypes in (("gae_reverse_scan", [vp] * 6 + [i, i, f, f, vp]),
-                               ("gae_multiplayer_reverse_scan", [vp] * 7 + [i] * 3 + [f] * 2
-                                + [vp]),
-                               ("episode_stats", [vp] * 4 + [i] * 4 + [vp, i, vp, vp]),
-                               ("episode_stats_scratch_len", []),
-                               ("popart_update", [vp, vp, lg] + [vp] * 5 + [i, vp, i, vp]),
-                               ("popart_update_scratch_len", []),
-                               ("popart_denormalize", [vp] * 5 + [lg, vp]),
-                               ("masked_gumbel_sample", [vp] * 5 + [i, i, vp]),
-                               ("temperature_sample", [vp] * 3 + [f] + [vp] * 2 + [i, i, vp]),
-                               ("connect_four_step_autoreset", [vp] * 6 + [i, vp]),
-                               ("skull_step_autoreset", [vp] * 8 + [i, i, i, vp])):
+        for name, argtypes in (("opp_mlp_forward", [vp] * 5 + [f] + [vp] * 3 + [i, i, vp]
+                                + [i] * 3 + [vp]),
+                               ("window_records", [vp] * 4 + [i] * 4 + [vp] * 5),
+                               ("window_report", [vp] * 3 + [i] + [vp] * 3)):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        self.scratch = None  # K10's, made at its first call, as the parent made it
-        self.popart_scratch = None  # K15's, made at its first call
 
-    def popart_update(self, state, returns, valid, kernel, bias) -> None:
-        """The parent's K15 into ``state`` and the head in place."""
-        N, H = returns.numel(), kernel.numel()
-        kernels.expect(returns, "returns", torch.float32, (N,))
-        kernels.expect(valid, "valid", torch.float32, (N,))
-        kernels.expect(kernel, "kernel", torch.float32, (H, 1))
-        kernels.expect(bias, "bias", torch.float32, (1,))
-        dev = returns.device
-        if self.popart_scratch is None:
-            with torch.cuda.device(dev):
-                n = self.lib.popart_update_scratch_len()
-            self.popart_scratch = torch.zeros(n, dtype=torch.float64, device=dev)
+    def opponent_forward(self, obs, slot, stack: OpponentStack, clip: float = 10.0):
+        """The parent's K7 (f32 towers only, its default tiling) into a new
+        output."""
+        Ep, D = obs.shape
+        widths = [D] + [w.shape[2] for w in stack.weights]
+        depth, norm = len(stack.weights), stack.norm
+        out = torch.empty(Ep, widths[-1], dtype=torch.float32, device=obs.device)
         p = kernels.ptr
-        kernels.check(self.lib.popart_update(
-            p(returns), p(valid), N, p(state.mean), p(state.m2), p(state.count), p(kernel),
-            p(bias), H, p(self.popart_scratch), self.popart_scratch.numel(),
-            kernels.stream(dev)), "parent K15")
+        kernels.check(self.lib.opp_mlp_forward(
+            p(obs), p(slot), *((None,) * 3 if norm is None else (p(norm.mean), p(norm.m2),
+                                                                  p(norm.count))),
+            float(clip), (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights)),
+            (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases)),
+            (ctypes.c_int * (depth + 1))(*widths), depth, 1 if stack.activation == "relu" else 2,
+            p(out), Ep, stack.num_slots, -1, kernels.stream(obs.device)), "parent K7")
+        return out
 
-    def sample_then_denormalize(self, logits, mask, uniforms, state, values, out):
-        """The parent's rollout step with PopArt on: K2 (actions and
-        log-probs into new outputs), then K16 into ``out``."""
-        rows, A = logits.shape
-        for t, name, shape in ((logits, "logits", (rows, A)), (uniforms, "uniforms", (rows, A)),
-                               (values, "values", (rows,)), (out, "out", (rows,))):
-            kernels.expect(t, name, torch.float32, shape)
-        actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
-        log_probs = torch.empty(rows, dtype=torch.float32, device=logits.device)
-        p, st = kernels.ptr, kernels.stream(logits.device)
-        kernels.check(self.lib.masked_gumbel_sample(p(logits), p(mask), p(uniforms), p(actions),
-                                                    p(log_probs), rows, A, st), "parent K2")
-        kernels.check(self.lib.popart_denormalize(p(values), p(state.mean), p(state.m2),
-                                                  p(state.count), p(out), rows, st),
-                      "parent K16")
-        return actions, log_probs
-
-    def sample_then_step(self, env, state, acc, front, u):
-        """The parent's eval step on Connect Four or Skull: K14 into new
-        actions, then the env step kernel into new output buffers, as its
-        wrappers made them. Returns (actions, the i32 buffer, the f32
-        buffer)."""
-        from burn_ppo_torch.envs import connect_four as c4
-        from burn_ppo_torch.envs import skull as sk
-
-        E, A = front.logits.shape
-        dev = front.logits.device
-        actions = torch.empty(E, dtype=torch.int32, device=dev)
-        p, st = kernels.ptr, kernels.stream(dev)
-        kernels.check(self.lib.temperature_sample(*front_args(front, actions, A), E, A, st),
-                      "parent K14")
-        if isinstance(env, ConnectFour):
-            i_out, f_out = c4.I32_OUT, c4.F32_OUT
-        else:
-            i_out, f_out = sk._outputs(env.n)
-        i32 = torch.empty(c4.arena_size(E, i_out), dtype=torch.int32, device=dev)
-        f32 = torch.empty(c4.arena_size(E, f_out), dtype=torch.float32, device=dev)
-        if isinstance(env, ConnectFour):
-            err = self.lib.connect_four_step_autoreset(
-                p(state.ints), p(acc.reward_sum), p(acc.length), p(actions), p(i32), p(f32), E, st)
-        else:
-            err = self.lib.skull_step_autoreset(
-                p(state.ints), p(state.shaping_coef), p(acc.reward_sum), p(acc.length),
-                p(actions), p(u), p(i32), p(f32), E, env.n, 1, st)
-        kernels.check(err, "parent step")
-        return actions, c4.carve_arena(i32, E, i_out), c4.carve_arena(f32, E, f_out)
-
-    def gae(self, rewards, values, dones, last_values, gamma: float, gae_lambda: float):
-        T, E = values.shape
-        for name, t, shape in (("rewards", rewards, (T, E)), ("values", values, (T, E)),
-                               ("dones", dones, (T, E)), ("last_values", last_values, (E,))):
-            kernels.expect(t, name, torch.float32, shape)
-        advantages, returns = torch.empty_like(values), torch.empty_like(values)
+    def window_records(self, book: WindowBook, completed, outcome, seat, slots, L: int) -> None:
+        """The parent's K18: one update's appends to the book's rows."""
+        T, E_ = completed.shape
         p = kernels.ptr
-        kernels.check(self.lib.gae_reverse_scan(
-            p(rewards), p(values), p(dones), p(last_values), p(advantages), p(returns), T, E,
-            float(gamma), float(gamma * gae_lambda), kernels.stream(values.device)), "parent K3")
-        return advantages, returns
+        kernels.check(self.lib.window_records(
+            p(completed), p(outcome), p(seat), p(slots), T, E_, L, outcome.shape[-1],
+            p(book.first), p(book.total), p(book.cap), p(book.rows),
+            kernels.stream(completed.device)), "parent K18")
 
-    def gae_multiplayer(self, all_rewards, values, dones, acting, last_vpp, gamma: float,
-                        gae_lambda: float):
-        T, E, P = all_rewards.shape
-        for name, t, dtype, shape in (
-            ("all_rewards", all_rewards, torch.float32, (T, E, P)),
-            ("values", values, torch.float32, (T, E)),
-            ("dones", dones, torch.float32, (T, E)),
-            ("acting", acting, torch.int32, (T, E)),
-            ("last_vpp", last_vpp, torch.float32, (E, P)),
-        ):
-            kernels.expect(t, name, dtype, shape)
-        advantages, returns = torch.empty_like(values), torch.empty_like(values)
-        p = kernels.ptr
-        kernels.check(self.lib.gae_multiplayer_reverse_scan(
-            p(all_rewards), p(values), p(dones), p(acting), p(last_vpp), p(advantages),
-            p(returns), T, E, P, float(gamma), float(gamma * gae_lambda),
-            kernels.stream(values.device)), "parent K5")
-        return advantages, returns
-
-    def episode_stats(self, logs: EpisodeLog, P: int, num_envs: int | None = None) -> dict:
-        T, E = logs.completed.shape
-        L = E if num_envs is None else num_envs
-        kernels.expect(logs.completed, "completed", torch.float32, (T, E))
-        kernels.expect(logs.total_rewards, "total_rewards", torch.float32, (T, E, P))
-        kernels.expect(logs.length, "length", torch.int32, (T, E))
-        kernels.expect(logs.outcome, "outcome", torch.int32, (T, E, P))
-        dev = logs.completed.device
-        if self.scratch is None:
-            with torch.cuda.device(dev):
-                n = self.lib.episode_stats_scratch_len()
-            self.scratch = torch.zeros(n, dtype=torch.float64, device=dev)
-        out = torch.empty(5 + 2 * P, dtype=torch.float32, device=dev)
-        p = kernels.ptr
-        kernels.check(self.lib.episode_stats(
-            p(logs.completed), p(logs.total_rewards), p(logs.length), p(logs.outcome),
-            T, E, L, P, p(self.scratch), self.scratch.numel(), p(out), kernels.stream(dev)),
-            "parent K10")
-        return {
-            "count": out[0], "ret_sum": out[1:1 + P], "ret0_max": out[P + 1],
-            "ret0_min": out[P + 2], "len_sum": out[P + 3], "pts_sum": out[P + 4:2 * P + 4],
-            "draws": out[2 * P + 4],
-        }
+    def window_report(self, book: WindowBook, fields) -> None:
+        """The parent's K19: the fields' pointers, lengths and folds."""
+        n = len(fields)
+        kernels.check(self.lib.window_report(
+            (ctypes.c_void_p * n)(*(t.data_ptr() for t, _ in fields)),
+            (ctypes.c_int * n)(*(t.numel() for t, _ in fields)),
+            (ctypes.c_int * n)(*(op for _, op in fields)), n, kernels.ptr(book.acc),
+            kernels.ptr(book.first), kernels.stream(book.acc.device)), "parent K19")
 
 
 class EmptyKernel:
@@ -929,9 +886,16 @@ class EmptyKernel:
         kernels.check(self.lib.empty_launch(kernels.stream(torch.device("cuda"))), "empty kernel")
 
 
-FLAG_OFF_KERNELS = ("cartpole_step_autoreset_kernel", "connect_four_step_autoreset_kernel",
-                    "skull_step_autoreset_kernel", "liars_dice_step_autoreset_kernel",
-                    "masked_gumbel_sample_kernel", "temperature_sample_kernel")
+_EMPTY: "EmptyKernel | None" = None
+
+
+def empty_kernel() -> "EmptyKernel":
+    """The empty kernel, built once a process."""
+    global _EMPTY
+    if _EMPTY is None:
+        _EMPTY = EmptyKernel()
+    return _EMPTY
+
 
 
 def same_kernel_sources(parent_dir: Path) -> bool:
@@ -1095,10 +1059,8 @@ def check_sample(dev, g, A: int, mask=None) -> dict:
 GAE_SHAPES = ((T, E), (T, 32), (100, E + 1))
 
 
-def check_gae(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
-    """K3 at ``GAE_SHAPES``: to 1e-5 of the plain version. With ``parent``,
-    the parent commit's K3 on the same inputs, equal bit for bit, and
-    timed in turns."""
+def check_gae(dev, g, ptxas: list) -> dict:
+    """K3 at ``GAE_SHAPES``: to 1e-5 of the plain version."""
     out = {"tol": 1e-5, "ptxas": kernel_ptxas(ptxas, "gae_reverse_scan_staged")}
     for steps, envs in GAE_SHAPES:
         r = torch.randn(steps, envs, generator=g, device=dev)
@@ -1123,13 +1085,6 @@ def check_gae(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
             "library_ms": None,
             **bound(nbytes(r, v, d, last, adv_k, ret_k), 8.0 * steps * envs),
         }
-        if parent is not None:
-            adv_o, ret_o = parent.gae(*args)
-            if not (torch.equal(adv_k, adv_o) and torch.equal(ret_k, ret_o)):
-                raise AssertionError(f"gae_reverse_scan {name}: differs from the parent's, "
-                                     f"max abs {max_err([(adv_k, adv_o), (ret_k, ret_o)])}")
-            out[name].update(parent_equal_bit_for_bit=True,
-                             **turns(new, lambda args=args: parent.gae(*args)))
     bench = out[f"T{T}_E{E}"]
     out.update(max_abs_err=max(out[f"T{t}_E{e}"]["max_abs_err"] for t, e in GAE_SHAPES),
                **{k: bench[k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
@@ -1568,11 +1523,10 @@ def turn_based_rollout(dev, g, P: int, steps: int = T_C4):
     return rewards, values, done, acting, last_vpp
 
 
-def check_gae_multiplayer(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
+def check_gae_multiplayer(dev, g, ptxas: list) -> dict:
     """K5 at Connect Four's [64, 4096, 2], Skull's bench shape [64, 4096,
     4] and the [128, 4096, 4] of skull_ctde.toml and both Liar's Dice
-    configs: to 1e-5 of the plain version. With ``parent``, the parent
-    commit's K5 on the same inputs, equal bit for bit, and timed in turns."""
+    configs: to 1e-5 of the plain version."""
     out = {"tol": 1e-5, "ptxas": kernel_ptxas(ptxas, "gae_multiplayer_staged")}
     for P, steps in ((2, T_C4), (4, T_C4), (4, T_LD)):
         args = turn_based_rollout(dev, g, P, steps)
@@ -1592,13 +1546,6 @@ def check_gae_multiplayer(dev, g, parent: "ParentKernels | None", ptxas: list) -
             **timed(new, lambda: compute_gae_multiplayer_plain(*args, 0.99, 0.95)),
             "library_ms": None, **bound(nbytes(*args, adv_k, ret_k), 12.0 * steps * E * P),
         }
-        if parent is not None:
-            adv_o, ret_o = parent.gae_multiplayer(*args, 0.99, 0.95)
-            if not (torch.equal(adv_k, adv_o) and torch.equal(ret_k, ret_o)):
-                raise AssertionError(f"gae_multiplayer_reverse_scan {name}: differs from the "
-                                     f"parent's, max abs {max_err([(adv_k, adv_o), (ret_k, ret_o)])}")
-            out[name].update(parent_equal_bit_for_bit=True,
-                             **turns(new, lambda: parent.gae_multiplayer(*args, 0.99, 0.95)))
     out.update(max_abs_err=max(v["max_abs_err"] for k, v in out.items() if k.startswith(("P", "T"))),
                **{k: out["P2"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
@@ -1781,14 +1728,18 @@ def random_opponents(dev, g, K: int, act: str, D: int = 86, H: int = 512, A: int
     return OpponentStack(weights=weights, biases=biases, activation=act, norm=norm)
 
 
-def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor) -> dict:
+def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
+                         parent: "ParentKernels | None" = None) -> dict:
     """K7 at the pool blocks the main paths give it, K = 8: Connect Four's
     (Ep = 1024, MLP 86 -> 512 -> 512 -> 7 with per-slot obs norm), Skull's
     (Ep = 1229, CTDE actor 135 -> 256 x3 -> 33, as configs/skull_ctde.toml
     trains), Liar's Dice's (Ep = 1024, CTDE actor 270 -> 256 x2 -> 49 and
     the MLP 270 -> 512 x3 -> 49 with obs norm), all relu; and Connect
     Four's at K = 3, relu and tanh. Every tiling is checked and timed at
-    the four shapes: |kernel - plain| <= 1e-4 + 1e-4 |plain|."""
+    the four shapes: |kernel - plain| <= 1e-4 + 1e-4 |plain|. With
+    ``parent``, the parent's K7 (before its bf16 tower) on the same inputs
+    at each shape, to the same tolerance, bit for bit or not, and timed in
+    turns with it."""
     out = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": 0.0,
            "tilings": [f"{r} rows x {c} blocks" for r, c in OPPONENT_TILINGS]}
 
@@ -1820,7 +1771,8 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor) 
         widths = [D] + [w.shape[2] for w in stack.weights]
         resident = ctypes.c_int(0)
         chosen = kernels.library().opp_mlp_default_tiling(
-            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, Ep, 8, ctypes.byref(resident))
+            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, Ep, 8, 0,
+            ctypes.byref(resident))
         entry["default_tiling"] = "{}x{}".format(*OPPONENT_TILINGS[chosen])
         entry["resident_3_block_clusters"] = resident.value
         tilings = {}
@@ -1835,6 +1787,7 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor) 
                     lambda: opponent_actor_forward_plain(obs, slot, stack)),
             tilings=tilings,
             library_ms=time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+            **({} if parent is None else parent_opponent_turns(parent, obs, slot, stack, close)),
             # Every row through its own slot only; f32-accurate products on
             # the tensor cores are three TF32 products (bound_ffma_ms: at
             # the f32 rate outside them).
@@ -1845,6 +1798,129 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor) 
     out["library_call"] = "torch.bmm over the K x Ep stacked rows, one per layer (K times the work)"
     out.update({k: out["c4_Ep1024_K8_mlp512x2"][k]
                 for k in TIMES + ("library_ms", "bound_ms", "bound_by", "bound_ffma_ms")})
+    return out
+
+
+def parent_opponent_turns(parent: "ParentKernels", obs, slot, stack, close) -> dict:
+    """The parent's K7 against this tree's on one case: its error against
+    this tree's output, whether the two are equal bit for bit, and both
+    timed in turns."""
+    mine = opponent_actor_forward(obs, slot, stack)
+    theirs = parent.opponent_forward(obs, slot, stack)
+    return {"parent_max_abs_err": close(theirs, mine, "the parent's"),
+            "parent_equal_bit_for_bit": bool(torch.equal(theirs, mine)),
+            "parent_turns": turns(lambda: opponent_actor_forward(obs, slot, stack),
+                                  lambda: parent.opponent_forward(obs, slot, stack),
+                                  only="opponent_mlp_kernel", other_only="opponent_mlp_kernel")}
+
+
+BF16_TOWER_TOL = ("every |kernel - plain| <= 2^-8 (|plain| + max |plain|), their mean "
+                  "<= 2^-15 max |plain|")
+
+
+def bf16_weights(stack: OpponentStack) -> OpponentStack:
+    """The stack as a bf16 run's rotation stores it: the weights rounded to
+    bf16 once, the biases and normalisers f32."""
+    return dataclasses.replace(stack, weights=[w.to(torch.bfloat16).contiguous()
+                                               for w in stack.weights])
+
+
+def bf16_tower_errors(k: torch.Tensor, p: torch.Tensor) -> dict:
+    """K7's bf16 tower against its plain version: the max and mean
+    |kernel - plain|, and whether they are within ``BF16_TOWER_TOL``. The
+    two differ by f32 sums in another order, and where one lands on the
+    other side of an activation's bf16 rounding, by one bf16 ulp passed on
+    through the later layers: rare, so the mean stays near the f32 sums'.
+    A tower that leaves the activations unrounded differs in every entry
+    and fails the mean."""
+    d, scale = (k - p).abs(), float(p.abs().max())
+    return {"max_abs": float(d.max()), "mean_abs": float(d.mean()), "max_abs_plain": scale,
+            "within": bool(torch.all(d <= 2.0**-8 * (p.abs() + scale)))
+            and float(d.mean()) <= 2.0**-15 * scale}
+
+
+def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor) -> dict:
+    """K7's bf16 tower at the pool blocks of the bf16 training paths, K = 8,
+    each stack's weights rounded to bf16 once: Connect Four's (Ep = 1024,
+    MLP 86 -> 512 x2 -> 7, relu, per-slot obs norm) and the flagship's
+    (Ep = 1229, CTDE actor 135 -> 256 x3 -> 33, relu). Each tiling
+    checked against the plain version on the same bf16 stack
+    (``bf16_tower_errors``), and the control, K7's f32 tower on the same
+    rounded weights, must fail the same check. Timed against the plain
+    version, in turns with K7's f32 tower on the f32 weights and with
+    torch.bmm in bf16 over the K x Ep stacked rows (the library call, K
+    times the work, bf16 out); its bound: the operations at the bf16
+    tensor cores' rate."""
+    out = {"tol": BF16_TOWER_TOL, "max_abs_err": 0.0}
+
+    def close(k, p, what):
+        errs = bf16_tower_errors(k, p)
+        if not errs["within"]:
+            raise AssertionError(f"K7's bf16 tower {what}: {errs}, over {BF16_TOWER_TOL}")
+        out["max_abs_err"] = max(out["max_abs_err"], errs["max_abs"])
+        return errs
+
+    shapes = (("c4_Ep1024_K8_mlp512x2", connect_four_like(dev, g, EP), 512, 2, 7, True),
+              ("skull_Ep1229_K8_ctde256x3", skull_obs[:EP_SKULL], 256, 3, 33, False))
+    for name, obs, H, depth, A, normed in shapes:
+        obs = obs.contiguous()
+        Ep, D = obs.shape
+        f32 = random_opponents(dev, g, 8, "relu", D=D, H=H, A=A, depth=depth)
+        if not normed:
+            f32.norm = None
+        stack = bf16_weights(f32)
+        slot = torch.randint(0, 8, (Ep,), generator=g, device=dev, dtype=torch.int32)
+        plain = opponent_actor_forward_plain(obs, slot, stack)
+        before = opponent_actor_forward.launches
+        errs = close(opponent_actor_forward(obs, slot, stack), plain, name)
+        if opponent_actor_forward.launches != before + 1:
+            raise AssertionError("a bf16 stack did not launch K7")
+        # the control: K7's f32 tower on the same rounded weights
+        control = bf16_tower_errors(
+            opponent_actor_forward(obs, slot, dataclasses.replace(
+                stack, weights=[w.float() for w in stack.weights])), plain)
+        if control["within"]:
+            raise AssertionError(f"K7's f32 tower on the rounded weights passes the bf16 "
+                                 f"tower's check at {name}: {control}")
+        entry = {"max_abs_err": errs["max_abs"], "mean_abs_err": errs["mean_abs"],
+                 "max_abs_plain": errs["max_abs_plain"],
+                 "control_f32_tower_rounded_weights": control}
+        widths = [D] + [w.shape[2] for w in stack.weights]
+        resident = ctypes.c_int(0)
+        chosen = kernels.library().opp_mlp_default_tiling(
+            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, Ep, 8, 1,
+            ctypes.byref(resident))
+        entry["default_tiling"] = "{}x{}".format(*OPPONENT_TILINGS[chosen])
+        entry["resident_3_block_clusters"] = resident.value
+        tilings = {}
+        for t, (r, c) in enumerate(OPPONENT_TILINGS):
+            run = (lambda t=t: opponent_actor_forward(obs, slot, stack, tiling=t))
+            errs = close(run(), plain, f"{name} tiling {t}")
+            tilings[f"{r}x{c}"] = {"max_abs_err": errs["max_abs"], "mean_abs_err": errs["mean_abs"],
+                                   "device_ms": device_ms(run)[0], "ms": time_ms(run)}
+        xs = [torch.rand(8, Ep, w.shape[1], generator=g, device=dev).to(torch.bfloat16)
+              for w in stack.weights]
+        bmm_bf16 = (lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)])
+        macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
+        new = (lambda: opponent_actor_forward(obs, slot, stack))
+        entry.update(
+            **timed(new, lambda: opponent_actor_forward_plain(obs, slot, stack)),
+            tilings=tilings, library_ms=time_ms(bmm_bf16),
+            f32_tower_turns=turns(new, lambda: opponent_actor_forward(obs, slot, f32),
+                                  who="f32_tower", only="opponent_mlp_bf16_kernel",
+                                  other_only="opponent_mlp_kernel"),
+            bmm_bf16_turns=turns(new, bmm_bf16, who="bmm_bf16",
+                                 only="opponent_mlp_bf16_kernel"),
+            # every row through its own slot only, bf16 products at the
+            # tensor cores' bf16 rate
+            **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + Ep * A * 4,
+                    flops_bf16=2.0 * Ep * macs),
+        )
+        out[name] = entry
+    out["library_call"] = ("torch.bmm in bf16 over the K x Ep stacked rows, one per layer "
+                           "(K times the work, bf16 out)")
+    out.update({k: out["c4_Ep1024_K8_mlp512x2"][k]
+                for k in TIMES + ("library_ms", "bound_ms", "bound_by")})
     return out
 
 
@@ -2101,6 +2177,9 @@ ROLLOUT_CASES = (
      {"opponent_pool_fraction": 0.0, "hidden_size": 512, "num_hidden": 2, "activation": "tanh",
       "critic_hidden_size": 512, "critic_num_hidden": 2}, False),
     ("liars_dice_ctde_pool", "liars_dice_ctde.toml", T_LD, {}, True),
+    # the bf16 compute dtype: the learner's bf16 dense and K7's bf16 tower
+    ("connect_four_pool_bf16", "connect_four.toml", T_C4,
+     {"normalize_obs": True, "compute_dtype": "bfloat16"}, True),
 )
 # The pool case's rounds: (shaping, the rotation's active count); each
 # round a new stack, and the trainer's host remap of the seats where the
@@ -2134,7 +2213,8 @@ def rollout_setup(dev, toml: str, steps: int, overrides: dict) -> tuple:
 def rollout_bound(checks: dict, name: str, net, steps: int) -> dict:
     """The least time of one rollout: the per-step kernels' bounds (phase 2,
     at the same shapes) times the steps, plus the learner forward's
-    operations at the f32 rate, plus the finalize where it runs."""
+    operations at the f32 rate (the bf16 tensor cores' with the bf16
+    compute dtype), plus the finalize where it runs."""
     samples = checks["masked_gumbel_sample"]
     per_step = {
         "cartpole": [checks["cartpole_step_autoreset"]["bound_ms"], samples["A2"]["bound_ms"],
@@ -2147,13 +2227,19 @@ def rollout_bound(checks: dict, name: str, net, steps: int) -> dict:
             checks["liars_dice_step_autoreset"]["bound_ms"], samples["A49_liars_dice"]["bound_ms"],
             samples["A49_liars_dice_opponents_Ep1024"]["bound_ms"],
             checks["opponent_actor_forward"]["liars_dice_Ep1024_K8_ctde256x2"]["bound_ms"]],
+        # the opponents' sample [1024, 7] bounded by the learner's [4096, 7]
+        "connect_four_pool_bf16": [
+            checks["connect_four_step_autoreset"]["bound_ms"], 2 * samples["A7"]["bound_ms"],
+            checks["obs_norm_apply"]["bound_ms"],
+            checks[BF16_TOWER]["c4_Ep1024_K8_mlp512x2"]["bound_ms"]],
     }[name]
     flops = sum(2.0 * E * m.in_features * m.out_features
                 for m in net.modules() if isinstance(m, torch.nn.Linear)) * steps
+    rate = BF16_FLOP_PER_S if net.compute_dtype == "bfloat16" else F32_FLOP_PER_S
     once = checks["return_norm_finalize"]["bound_ms"] if name == "cartpole" else 0.0
     kernels_ms = sum(per_step) * steps + once
-    return {"bound_ms": kernels_ms + flops / F32_FLOP_PER_S * 1e3, "bound_by": "operations"
-            if flops / F32_FLOP_PER_S * 1e3 > kernels_ms else "bytes",
+    return {"bound_ms": kernels_ms + flops / rate * 1e3, "bound_by": "operations"
+            if flops / rate * 1e3 > kernels_ms else "bytes",
             "bound_kernels_ms": kernels_ms, "forward_flops": flops}
 
 
@@ -2193,8 +2279,11 @@ def check_rollout_graph(dev, g, checks: dict, name: str, toml: str, steps: int, 
         stacks = [random_opponents(dev, g, 8, act, D=obs_dim, H=cfg.hidden_size,
                                    A=env.spec.num_actions, depth=cfg.num_hidden)
                   for _ in POOL_ROUNDS]
-        for stack in stacks:
-            stack.norm = None  # CTDE checkpoints carry no obs normaliser
+        if net.is_ctde:
+            for stack in stacks:
+                stack.norm = None  # CTDE checkpoints carry no obs normaliser
+        if cfg.compute_dtype == "bfloat16":  # as the rotation stores them
+            stacks = [bf16_weights(stack) for stack in stacks]
         seat0 = PoolSeating.create(E, L, P, 1, rng)
         rounds = [(s, a, stack) for (s, a), stack in zip(POOL_ROUNDS, stacks)]
     else:
@@ -2291,6 +2380,9 @@ UPDATE_CASES = (
      {"opponent_pool_fraction": 0.0, "normalize_obs": True, "num_epochs": 6,
       "target_kl": 0.02}, False),
     ("liars_dice_ctde_pool", "liars_dice_ctde.toml", T_LD, {}, True),
+    # the bf16 compute dtype's forward and backward at the bench_skull_ctde shape
+    ("skull_ctde_selfplay_bf16", "skull_ctde.toml", T_C4, {**SKULL_BENCH, "target_kl": None,
+                                                            "compute_dtype": "bfloat16"}, False),
 )
 UPDATE_ROUNDS = 3  # and the empty-minibatch round on the vs-pool case
 
@@ -2312,14 +2404,20 @@ def update_bound(cfg, net, runner, opt: AdamState, minibatches: float) -> dict:
     """The least time of one update: the batch read once and the optimizer
     state read and written once (bytes), against the GEMMs of the
     minibatches that ran (forward, and backward at twice the forward) and
-    of the bootstrap's forward at the f32 rate (operations)."""
+    of the bootstrap's forward at the f32 rate (operations); with the bf16
+    compute dtype the forwards at the bf16 tensor cores' rate, the
+    backward's f32 products at the f32 rate."""
     N = cfg.num_steps * E
     mb_size = -(-N // cfg.num_minibatches)
     macs = sum(m.in_features * m.out_features for m in net.modules()
                if isinstance(m, torch.nn.Linear))
-    flops = 6.0 * macs * mb_size * minibatches + 2.0 * macs * E
+    forward = 2.0 * macs * mb_size * minibatches + 2.0 * macs * E
+    backward = 4.0 * macs * mb_size * minibatches
     n = opt.flat_params.numel()
-    return bound(nbytes(*state_leaves(runner.buffers.batch())) + 7 * 4 * n, flops)
+    moved = nbytes(*state_leaves(runner.buffers.batch())) + 7 * 4 * n
+    if net.compute_dtype == "bfloat16":
+        return bound(moved, backward, flops_bf16=forward)
+    return bound(moved, forward + backward)
 
 
 def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict,
@@ -2357,6 +2455,8 @@ def check_update_graph(dev, g, name: str, toml: str, steps: int, overrides: dict
                                  H=cfg.hidden_size, A=env.spec.num_actions, depth=cfg.num_hidden)
         if net.is_ctde:
             stack.norm = None  # CTDE checkpoints carry no obs normaliser
+        if cfg.compute_dtype == "bfloat16":
+            stack = bf16_weights(stack)
         kw = dict(seating=PoolSeating.create(E, L, P, 1, rng), opponents=stack, num_active=8)
 
     def rollout(empty: bool = False):
@@ -2566,6 +2666,12 @@ ROLLOUT_KERNELS = {
 }
 
 
+# A bf16 run's rollout: K7's launches are its bf16 tower, and its f32
+# tower (no wrapper's count: any launch fails) reads 0.
+BF16_ROLLOUT_KERNELS = {**ROLLOUT_KERNELS, "opponent_actor_forward": "opponent_mlp_bf16_kernel",
+                        "opponent_actor_forward's f32 tower": "opponent_mlp_kernel"}
+
+
 # The device kernel of each update wrapper that launches one of it a call
 # (K8's row pass; K6's update its merge).
 UPDATE_KERNELS = {
@@ -2723,7 +2829,7 @@ def summaries_equal(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
-def check_episode_stats(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
+def check_episode_stats(dev, g, ptxas: list) -> dict:
     """K10 at the learner block of the pool path ([64, 4096], first 3072
     columns), all of Connect Four's [64, 4096], CartPole's [128, 4096] and
     four players with tied places in Skull's learner block (first 2867)
@@ -2731,9 +2837,7 @@ def check_episode_stats(dev, g, parent: "ParentKernels | None", ptxas: list) -> 
     lengths exact, sums to 1e-6 relative + 1e-3; two calls, and two
     replays of a captured graph, the eager call's bits. Timed at [64,
     3072] P = 2, [64, 2867] P = 4 and [128, 3072] P = 4 beside an empty
-    kernel's launch (the floor under any launch). With ``parent``, the
-    parent commit's K10 on the same logs, to the same tolerances, timed in
-    turns."""
+    kernel's launch (the floor under any launch)."""
     out = {"tol": {"count_len_draws_max_min": "exact", "sums": "1e-6 rel + 1e-3"},
            "max_abs_err": 0.0, "ptxas": kernel_ptxas(ptxas, "episode_stats")}
     L = E - EP
@@ -2758,8 +2862,6 @@ def check_episode_stats(dev, g, parent: "ParentKernels | None", ptxas: list) -> 
         close(k, p, name)
         if not summaries_equal(k, again):
             raise AssertionError(f"episode_stats {name}: two calls differ")
-        if parent is not None:
-            close(parent.episode_stats(logs, P, num_envs=cols), p, name, " (parent)")
         out[name] = max_err([(k[f], p[f]) for f in p])
         out["max_abs_err"] = max(out["max_abs_err"], out[name])
     out["bit_identical_across_calls"] = True
@@ -2785,7 +2887,7 @@ def check_episode_stats(dev, g, parent: "ParentKernels | None", ptxas: list) -> 
     out["graph_replays_equal_bit_for_bit"] = 2
     del graph
 
-    floor = EmptyKernel()
+    floor = empty_kernel()
 
     def timing(P: int, cols: int, T_: int = T_C4) -> dict:
         logs = episode_logs(dev, g, T_, P)
@@ -2807,10 +2909,6 @@ def check_episode_stats(dev, g, parent: "ParentKernels | None", ptxas: list) -> 
             **bound(nbytes(block.completed) + done * row + (5 + 2 * P) * 4,
                     T_ * cols + 30.0 * done),
         }
-        if parent is not None:
-            res.update(turns(new, lambda: parent.episode_stats(logs, P, num_envs=cols)))
-            # the floor in the same turns: an empty kernel's launch
-            res["empty_kernel_device_ms"] = [device_ms(floor)[0] for _ in range(2)]
         return res
 
     out.update(timing(2, L))
@@ -2979,17 +3077,19 @@ def train_turns(parent_dir: Path, phase: str) -> dict:
     return out
 
 
-def selfplay_train(tmp: Path, card_line: str, network: str, updates: int) -> dict:
+def selfplay_train(tmp: Path, card_line: str, network: str, updates: int,
+                   flags: tuple = ()) -> dict:
     """Connect Four pure self-play: one apply per rollout step, one for the
     bootstrap and one for the update batch. The CNN run also turns the
     return normaliser on: two players, so the rollout gathers the acting
-    player's reward and launches K12's roll every step."""
+    player's reward and launches K12's roll every step. ``flags``: more
+    (``BF16_FLAGS``: the bf16 compute dtype)."""
     extra = (["--network-type", "cnn", "--activation", "relu", "--normalize-returns"]
-             if network == "cnn" else [])
+             if network == "cnn" else []) + list(flags)
     rn = ({"return_norm_roll": updates * T_C4, "return_norm_finalize": updates}
           if network == "cnn" else {})
     out, series = train_phase(
-        tmp / f"c4_{network}",
+        tmp / (f"c4_{network}" + ("_bf16" if flags else "")),
         ["--config", str(ROOT / "configs" / "connect_four.toml"),
          "--opponent-pool-fraction", "0", "--num-envs", str(E), "--num-steps", str(T_C4),
          "--normalize-obs", *extra],
@@ -3008,7 +3108,8 @@ def selfplay_train(tmp: Path, card_line: str, network: str, updates: int) -> dic
         raise AssertionError(f"draw_rate outside [0, 1]: {draw_rate}")
     if not all(7.0 <= x <= 42.0 for x in length):
         raise AssertionError(f"mean episode length outside [7, 42]: {length}")
-    out.update(network=network, points_sum=points, draw_rate=draw_rate, length_mean=length,
+    out.update(network=network, flags=list(flags), points_sum=points, draw_rate=draw_rate,
+               length_mean=length,
                player_0_points=series["episode/player_0_points"],
                policy_loss=series["train/policy_loss"])
     return out
@@ -3439,7 +3540,7 @@ def popart_leaves(state, kernel, bias) -> list:
 K15 = "popart_update_kernel"
 
 
-def check_popart_update(dev, g, parent: "ParentKernels | None" = None) -> dict:
+def check_popart_update(dev, g) -> dict:
     """K15 against its plain version: the CartPole update batch [524288]
     (all valid, head 64), the vs-pool batch with a quarter of its rows
     invalid (head 512, the Liar's Dice CTDE critic's), and the count gate:
@@ -3448,8 +3549,7 @@ def check_popart_update(dev, g, parent: "ParentKernels | None" = None) -> dict:
     batch sums in another f64 order); two calls and two replays of a
     captured graph give the same bits; timed from a saved state beside
     ``torch.var_mean`` of the returns (the moments alone, unmasked), and
-    in turns on the device clock with it and, with ``parent``, with the
-    parent's K15 (the same inputs, from the same saved state). Each call
+    in turns on the device clock with it. Each call
     first copies the saved state back (five small copies): ``device_ms``
     counts them, ``kernel_device_ms`` and the turns count K15 alone."""
     out: dict = {"tol": {"stats_rel": 1e-6, "head_rel": 1e-6}, "max_abs_err": 0.0}
@@ -3528,24 +3628,6 @@ def check_popart_update(dev, g, parent: "ParentKernels | None" = None) -> dict:
         def var_mean(x=x):
             torch.var_mean(x)
 
-        def parent_k15(x=x, w=w, plain=plain, pk=pk, pb=pb, start=start):
-            for t, s0 in zip(popart_leaves(plain, pk, pb), start):
-                t.copy_(s0)
-            parent.popart_update(plain, x, w, pk, pb)
-
-        if parent is not None:
-            parent_k15()
-            torch.cuda.synchronize()
-            new()
-            torch.cuda.synchronize()
-            pairs = list(zip(popart_leaves(state, kernel, bias), popart_leaves(plain, pk, pb)))
-            for a, b in pairs:
-                if not bool(torch.all((a - b).abs() <= 1e-6 * b.abs() + 1e-7)):
-                    raise AssertionError(f"popart_update {name}: the parent's K15 differs, max "
-                                         f"abs err {max_err([(a, b)])}")
-            out[name]["parent_turns"] = turns(new, parent_k15, only=K15,
-                                              other_only=K15)
-            out[name]["parent_max_abs_err"] = max_err(pairs)
         H = kernel.numel()
         out[name].update(
             **timed(new, old), library_ms=time_ms(var_mean),
@@ -3640,10 +3722,10 @@ def check_ppo_loss_popart_entropy(dev, g) -> dict:
     return out
 
 
-def check_popart(dev, g, parent: "ParentKernels | None" = None) -> dict:
+def check_popart(dev, g) -> dict:
     """Phase ``popart``: K15, K16 and K8 with PopArt and the controller
     against their plain versions."""
-    return {"popart_update": check_popart_update(dev, g, parent),
+    return {"popart_update": check_popart_update(dev, g),
             "popart_denormalize": check_popart_denormalize(dev, g),
             "ppo_loss_popart_entropy": check_ppo_loss_popart_entropy(dev, g)}
 
@@ -3917,12 +3999,9 @@ def check_temperature_sample(dev, g, c4_mask, skull_mask, ld_mask, ptxas: list) 
 
 # The fused sample-and-step (K14's row code as the step's sampling front):
 # checked at these env counts, timed at each env's eval shape (eval's
-# default 64 envs; phase eval (b)'s 256 on Skull), and with --parent timed
-# in turns with the parent's K14 + step at eval's Connect Four shape and
-# Skull's eval and rollout shapes.
+# default 64 envs; phase eval (b)'s 256 on Skull).
 SAMPLE_STEP_SHAPES = (1, 64, 256, 4096)
 SAMPLE_STEP_TIMED = {"cartpole": 64, "connect_four": 64, "skull": 256, "liars_dice": 64}
-SAMPLE_STEP_PARENT = {"connect_four": (64,), "skull": (256, 4096)}
 # Integer and f32 operations of one env's step (the bounds of K1, K4, K11
 # and K13 above).
 STEP_OPS = {"cartpole": 32.0, "connect_four": 300.0, "skull": 2000.0, "liars_dice": 1500.0}
@@ -3986,16 +4065,6 @@ def step_outputs_differ(name: str, k, p) -> list:
     return [n for n, (a, b) in pairs.items() if a.dtype != b.dtype or not torch.equal(a, b)]
 
 
-# An env step's outputs by the name of their block in its output buffers.
-ARENA_FIELDS = {"ints": lambda o: o.state.ints, "shaping_coef": lambda o: o.state.shaping_coef,
-                "acc_length": lambda o: o.acc.length, "log_length": lambda o: o.log.length,
-                "outcome": lambda o: o.log.outcome,
-                "active_players": lambda o: o.log.active_players,
-                "acc_reward_sum": lambda o: o.acc.reward_sum, "rewards": lambda o: o.rewards,
-                "done": lambda o: o.done, "log_total_rewards": lambda o: o.log.total_rewards,
-                "obs": lambda o: o.obs, "mask": lambda o: o.mask, "priv": lambda o: o.priv}
-
-
 def sample_front_err(name: str, k, p) -> tuple:
     """The fused step ``k`` against the plain sample then the plain step
     ``p``: (the outputs that differ, the max abs error). Bit for bit,
@@ -4009,7 +4078,7 @@ def sample_front_err(name: str, k, p) -> tuple:
     return bad + (["phys or obs beyond 1e-5"] if err > 1e-5 else []), err
 
 
-def check_sample_steps(dev, g, parent: "ParentKernels | None", ptxas: list) -> dict:
+def check_sample_steps(dev, g, ptxas: list) -> dict:
     """Each env's step with K14's row code as its sampling front (eval's
     one launch a step: the step wrapper given a ``front``) against K14
     then the step kernel (the two launches it replaces) and against the
@@ -4019,10 +4088,8 @@ def check_sample_steps(dev, g, parent: "ParentKernels | None", ptxas: list) -> d
     CartPole's physics and obs to K1's 1e-5, its max abs error reported),
     greedy ties and finished games counted. Timed at the env's eval shape
     beside its plain version (the plain sample, then the plain step), in
-    turns with K14 + the step (``k14_then_step``) and, with ``parent``,
-    with the parent's K14 + step (Connect Four at 64 envs, Skull at 256
-    and 4096), whose outputs must be the fused step's bit for bit. Keyed
-    by the env step's wrapper."""
+    turns with K14 + the step (``k14_then_step``). Keyed by the env step's
+    wrapper."""
     out = {}
     for name in ("cartpole", "connect_four", "skull", "liars_dice"):
         res: dict = {"max_abs_err": 0.0,
@@ -4064,18 +4131,6 @@ def check_sample_steps(dev, g, parent: "ParentKernels | None", ptxas: list) -> d
             res["shapes"][f"E{n}"] = ev
             if n == SAMPLE_STEP_TIMED[name]:
                 timed_at = last
-            if parent is not None and n in SAMPLE_STEP_PARENT.get(name, ()):
-                env_, s, a, front, reset, u, k, _ = last
-                pa, pi, pf = parent.sample_then_step(env_, s, a, front, u)
-                torch.cuda.synchronize()
-                bad = [f for f, t in {**pi, **pf}.items() if f in ARENA_FIELDS
-                       and not torch.equal(t, ARENA_FIELDS[f](k))]
-                if bad or not torch.equal(pa, k.actions):
-                    raise AssertionError(f"{name} step with its front E={n}: {bad} differ from "
-                                         "the parent's K14 then its step")
-                res[f"parent_turns_E{n}"] = turns(
-                    lambda: env_.step_autoreset(s, a, None, reset, u, front=front),
-                    lambda: parent.sample_then_step(env_, s, a, front, u))
         if sum(ev["greedy_ties"] for ev in res["shapes"].values()) == 0 or (
                 name in ("cartpole", "connect_four") and res["shapes"]["E256"]["done"] == 0):
             raise AssertionError(f"{name} step with its front: a case was not reached: "
@@ -4107,7 +4162,7 @@ def check_sample_steps(dev, g, parent: "ParentKernels | None", ptxas: list) -> d
     return out
 
 
-def check_sample_popart_epilogue(dev, g, parent: "ParentKernels | None") -> dict:
+def check_sample_popart_epilogue(dev, g) -> dict:
     """K2 with its value epilogue (PopArt's denormalisation of the step's
     values into a slice of the rollout's) against K2 without it then K16
     into the same slice: actions, log-probs and values bit for bit, the
@@ -4115,8 +4170,7 @@ def check_sample_popart_epilogue(dev, g, parent: "ParentKernels | None") -> dict
     ``popart_denormalize_plain``, bit for bit; PopArt's count 0, 1, 2 and 5000, at the
     rollout's [4096, 2] (CartPole) and [4096, 49] (Liar's Dice) and the
     learner rows of a vs-pool step; timed at count 5000 in turns with K2 +
-    K16 and, with ``parent``, with the parent's K2 + K16 (bit for bit
-    too)."""
+    K16."""
     out = {}
     for rows, A in ((E, 2), (E, 49)):
         case: dict = {"counts": []}
@@ -4146,13 +4200,6 @@ def check_sample_popart_epilogue(dev, g, parent: "ParentKernels | None") -> dict
                 raise AssertionError(f"masked_gumbel_sample with the epilogue [{rows}, {A}] at "
                                      f"count {count}: values not popart_denormalize_plain's bit "
                                      f"for bit (max abs err {max_err([(buf[1], plain)])})")
-            if parent is not None:
-                pbuf = torch.full((rows,), -7.0, device=dev)
-                pa, plp = parent.sample_then_denormalize(logits, mask, u, state, values, pbuf)
-                torch.cuda.synchronize()
-                if not (torch.equal(pa, a) and torch.equal(plp, lp) and torch.equal(pbuf, buf[1])):
-                    raise AssertionError(f"masked_gumbel_sample with the epilogue [{rows}, {A}] "
-                                         f"at count {count}: not the parent's K2 then K16")
             case["counts"].append(count)
 
         def fused(state=state):
@@ -4166,9 +4213,6 @@ def check_sample_popart_epilogue(dev, g, parent: "ParentKernels | None") -> dict
                     # logits, mask, uniforms, values and the three stats
                     # read; actions, log-probs and values written
                     **bound(4 * (3 * rows * A + 2 * rows + 3) + 8 * rows, 8.0 * rows * A))
-        if parent is not None:
-            case["parent_turns"] = turns(fused, lambda: parent.sample_then_denormalize(
-                logits, mask, u, state, values, buf[1]))
         out[f"{rows}x{A}"] = case
     return out
 
@@ -5601,35 +5645,46 @@ def records_run(fn, book: WindowBook, logs: list, capacity: int, L: int) -> tupl
     return total, book.rows[:min(total, capacity)].cpu()
 
 
-def check_window_records(dev, g) -> dict:
-    """K18 against its plain version bit for bit: a window of 8 appends at
-    the flagship shape (Skull, 4 players, T = 64, E = 4096, Ep = 1229, C =
-    78,656) and a window whose capacity (500 rows) overflows; one append
-    timed (the first-update flag set, so each call starts the buffer)."""
+def check_window_records(dev, g, parent: "ParentKernels | None" = None) -> dict:
+    """K18 against its plain version bit for bit, on one book: two windows
+    of 8 appends in a row at the flagship shape (Skull, 4 players, T = 64,
+    E = 4096, Ep = 1229, C = 78,656) and a window whose capacity (500
+    rows) overflows; one append timed (the first-update flag set, so each
+    call starts the buffer). With ``parent``, the parent's K18 on the same
+    windows (bit for bit) and timed in turns with it."""
     P, L = 4, E - EP_SKULL
     out = {}
-    for name, rate, capacity in (("flagship_W8", 0.03, record_capacity(W_FLAG, T_FLAG, EP_SKULL)),
+    rows = record_capacity(W_FLAG, T_FLAG, EP_SKULL)
+    runs = (("kernel", window_records), ("plain", window_records_plain))
+    if parent is not None:
+        runs += (("parent", parent.window_records),)
+    books = {who: WindowBook(dev, P, record_rows=rows) for who, _ in runs}
+    for name, rate, capacity in (("flagship_W8", 0.03, rows), ("flagship_W8_again", 0.03, rows),
                                  ("overflow_C500", 0.3, 500)):
         logs = [window_logs(dev, g, T_FLAG, E, L, P, rate) for _ in range(W_FLAG)]
-        books = [WindowBook(dev, P, record_rows=record_capacity(W_FLAG, T_FLAG, EP_SKULL))
-                 for _ in range(2)]
-        kt, kr = records_run(window_records, books[0], logs, capacity, L)
-        pt, pr = records_run(window_records_plain, books[1], logs, capacity, L)
-        if kt != pt or not torch.equal(kr, pr):
-            raise AssertionError(f"window_records {name}: count {kt} against the plain {pt}, "
-                                 f"rows equal {torch.equal(kr, pr)}")
+        res = {who: records_run(fn, books[who], logs, capacity, L) for who, fn in runs}
+        kt, kr = res["kernel"]
+        for who, (t, r) in res.items():
+            if t != kt or not torch.equal(r, kr):
+                raise AssertionError(f"window_records {name}: count {kt} against the {who} "
+                                     f"{t}, rows equal {torch.equal(r, kr)}")
         if (capacity == 500) != (kt > capacity):
             raise AssertionError(f"window_records {name}: {kt} games for a capacity of {capacity}")
         out[name] = {"games": kt, "rows": len(kr), "overflow": max(kt - capacity, 0),
-                     "capacity": capacity}
+                     "capacity": capacity, "equal_bit_for_bit": [who for who, _ in runs]}
     logs = window_logs(dev, g, T_FLAG, E, L, P, 0.03)
-    kb, pb = (WindowBook(dev, P, record_rows=record_capacity(W_FLAG, T_FLAG, EP_SKULL))
-              for _ in range(2))
-    for b in (kb, pb):
-        b.start(record_capacity(W_FLAG, T_FLAG, EP_SKULL))
+    for b in books.values():
+        b.start(rows)
     games = int(((logs[0][:, L:] > 0) & (logs[2][:, L:] >= 0)).sum())
-    out.update(timed(lambda: window_records(kb, *logs, L), lambda: window_records_plain(pb, *logs, L)))
+
+    def new():
+        window_records(books["kernel"], *logs, L)
+
+    out.update(timed(new, lambda: window_records_plain(books["plain"], *logs, L)))
+    if parent is not None:
+        out["parent_turns"] = turns(new, lambda: parent.window_records(books["parent"], *logs, L))
     out.update(library_ms=None, games_per_update=games, max_abs_err=0.0,
+               empty_kernel_device_ms=device_ms(empty_kernel())[0],
                **bound(T_FLAG * EP_SKULL * 4 + games * (RECORD_BYTES + 2 * P - 1)))
     return out
 
@@ -5653,15 +5708,21 @@ def report_inputs(dev, g, P: int = 4) -> tuple:
     return metrics, stats, sums, out
 
 
-def check_window_report(dev, g) -> dict:
+def check_window_report(dev, g, parent: "ParentKernels | None" = None) -> dict:
     """K19 against its plain version bit for bit over a window of 8 folds
     of fresh outputs (a KL spike in the fourth, a guard count in the
     second, an update with no episode: extrema -inf / +inf); one fold
-    timed."""
+    timed, beside an empty kernel's launch (the floor). With ``parent``,
+    the parent's K19 over the same folds (bit for bit) and timed in turns
+    with it and with the empty launch."""
     P = 4
     metrics, stats, sums, out = report_inputs(dev, g, P)
-    books = [WindowBook(dev, P) for _ in range(2)]
-    for b in books:
+    folds = [("kernel", lambda b, f: window_report(b, f)),
+             ("plain", lambda b, f: window_report_plain(b, f))]
+    if parent is not None:
+        folds.append(("parent", lambda b, f: parent.window_report(b, f)))
+    books = {who: WindowBook(dev, P) for who, _ in folds}
+    for b in books.values():
         b.start()
     for w in range(W_FLAG):
         sums.copy_(torch.rand(15, generator=g, device=dev))
@@ -5671,19 +5732,28 @@ def check_window_report(dev, g) -> dict:
         if w == 5:
             out[0], out[P + 1], out[P + 2] = 0.0, float("-inf"), float("inf")
         metrics["invalid_mask_count"].fill_(2.0 if w == 1 else 0.0)
-        books[0].fold(metrics, stats)
-        window_report_plain(books[1], books[1].fields(metrics, stats))
-    if not torch.equal(books[0].acc, books[1].acc) or int(books[0].first) != 0:
-        raise AssertionError("window_report: the kernel's report differs from the plain one")
-    m, st, _ = books[0].fetch()
+        for who, fold in folds:
+            fold(books[who], books[who].fields(metrics, stats))
+    for who, b in books.items():
+        if not torch.equal(b.acc, books["kernel"].acc) or int(b.first) != 0:
+            raise AssertionError(f"window_report: the kernel's report differs from the {who} one")
+    m, st, _ = books["kernel"].fetch()
     if m["approx_kl_max"] != 7.5 or m["invalid_mask_count"] != 2.0:
         raise AssertionError(f"window_report: maxima and sums {m}")
-    fields = books[0].fields(metrics, stats)
+    fields = books["kernel"].fields(metrics, stats)
     entries = sum(t.numel() for t, _ in fields)
     res = {"fields": len(fields), "entries": entries, "report": {**m, **{
-        k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in st.items()}}}
-    res.update(timed(lambda: window_report(books[0], fields),
-                     lambda: window_report_plain(books[1], fields)))
+        k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in st.items()}},
+        "equal_bit_for_bit": [who for who, _ in folds]}
+
+    def new():
+        window_report(books["kernel"], fields)
+
+    floor = empty_kernel()
+    res.update(timed(new, lambda: window_report_plain(books["plain"], fields)),
+               empty_kernel_turns=turns(new, floor, who="empty_kernel"))
+    if parent is not None:
+        res["parent_turns"] = turns(new, lambda: parent.window_report(books["parent"], fields))
     res.update(library_ms=None, max_abs_err=0.0, **bound(entries * 4 * 3 + 4))
     return res
 
@@ -5715,12 +5785,13 @@ def one_window_profile(run_window) -> dict:
             "device_launches": counts}
 
 
-def flagship_trainer(tmp: Path, name: str) -> Trainer:
-    """configs/skull_ctde_tpu.toml at full width on the card, its pool
-    holding 8 freshly initialised opponents (checkpoints 1-8, each a
-    network seeded 1000 + i), the learner back at its own initial
-    parameters."""
+def flagship_trainer(tmp: Path, name: str, compute_dtype=None) -> Trainer:
+    """configs/skull_ctde_tpu.toml at full width on the card (with
+    ``compute_dtype``), its pool holding 8 freshly initialised opponents
+    (checkpoints 1-8, each a network seeded 1000 + i), the learner back at
+    its own initial parameters."""
     cfg = Config.load(FLAGSHIP)
+    cfg.compute_dtype = compute_dtype
     tr = Trainer(cfg, tmp / name, device="cuda", quiet=True)
     net = tr.state.network
     keep = [p.detach().clone() for p in net.parameters()]
@@ -5915,15 +5986,244 @@ def pool_window_phase(tmp: Path, card_line: str) -> dict:
             "window_vs_sequential": sequential, "turns": turns, "seconds": time.time() - t0}
 
 
+# ---------------------------------------------------------------------------
+# The bf16 compute dtype (A18)
+# ---------------------------------------------------------------------------
+BF16_FLAGS = ("--compute-dtype", "bfloat16")
+BF16_POOL_UPDATES = 4  # Connect Four against the pool in bf16: K reaches 3
+BF16_TURN_UPDATES = 3  # bench_skull_ctde train steps a turn
+# cuBLAS's GEMM kernels by name (nvjet, sm90 xmma, cutlass, the SIMT sgemm)
+GEMM_NAME = re.compile(r"gemm|nvjet|xmma|cutlass", re.IGNORECASE)
+# the profile's lead-in (torch.cuda._sleep), not the update's
+SLEEP_KERNEL = "spin_kernel"
+
+
+def selfplay_pool_bf16(tmp: Path, card_line: str) -> dict:
+    """Connect Four against the opponent pool with the bf16 compute dtype
+    (configs/connect_four.toml: MLP 512x2, pool fraction 0.25, 4096 x 64,
+    obs norm on), a checkpoint after every update, 4 updates (K = 1, 2, 3):
+    the learner's bf16 layers, and K7 once a pool step, its bf16 tower
+    (the pool stores bf16 weights for a run whose config.toml keeps the
+    dtype; phase ``bf16`` tells the towers apart on the device)."""
+    n = BF16_POOL_UPDATES
+    run = tmp / "c4_pool_bf16"
+    out, series = train_phase(
+        run, ["--config", str(ROOT / "configs" / "connect_four.toml"), "--num-envs", str(E),
+              "--num-steps", str(T_C4), "--normalize-obs", *BF16_FLAGS],
+        n, E * T_C4,
+        {"connect_four_step_autoreset": n * T_C4, "masked_gumbel_sample": (2 * n - 1) * T_C4,
+         "opponent_actor_forward": (n - 1) * T_C4, "gae_multiplayer_reverse_scan": n,
+         "window_records": n - 1, "obs_norm_apply": n * (T_C4 + 2), "obs_norm_update": n},
+        card_line, checkpoint_freq=E * T_C4)
+    if Config.load(run / "config.toml").compute_dtype != "bfloat16":
+        raise AssertionError("the bf16 run's config.toml lost its compute dtype")
+    out.update(learner_valid_share=series["train/learner_valid_fraction"],
+               policy_loss=series["train/policy_loss"], value_loss=series["train/value_loss"])
+    return out
+
+
+def bench_trainer(tmp: Path, name: str, compute_dtype) -> Trainer:
+    """A trainer at bench.py's bench_skull_ctde shape (``SKULL_BENCH``, no
+    ``target_kl``: every update the same work, as bench.py times it)."""
+    cfg = Config.load(ROOT / "configs" / "skull_ctde.toml")
+    for k, v in {"num_envs": E, "num_steps": T_C4, "seed": 0, **SKULL_BENCH, "target_kl": None,
+                 "compute_dtype": compute_dtype}.items():
+        setattr(cfg, k, v)
+    return Trainer(cfg, tmp / name, device="cuda", quiet=True)
+
+
+def update_breakdown(tr: Trainer) -> dict:
+    """One replay of the trainer's update graph under the profiler: the
+    kernels' device ms, cuBLAS's GEMMs' ms and share of it (by kernel
+    name), and the six longest kernels (trains on, as any update)."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+        tr.train_step.updater.graph.replay()
+        torch.cuda.synchronize()
+    per: Counter = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and SLEEP_KERNEL not in e.name:
+            per[e.name] += e.time_range.elapsed_us()
+    total = sum(per.values())
+    gemm = sum(v for k, v in per.items() if GEMM_NAME.search(k))
+    if not total:
+        raise AssertionError("the profiler recorded no kernel in an update graph's replay")
+    return {"device_ms": total / 1e3, "gemm_ms": gemm / 1e3, "gemm_share": gemm / total,
+            "gemm_kernels": sorted({k[:100] for k in per if GEMM_NAME.search(k)}),
+            "top": [[k[:100], v / 1e3] for k, v in per.most_common(6)]}
+
+
+def bf16_label_costs(tr: Trainer, lr: float, ent: float) -> dict:
+    """One eager bf16 update under the profiler: for each of the bf16
+    layers' profiler labels (``models/core.py``: the roundings to bf16,
+    the backward's f32 products), its calls, the device kernels launched
+    inside it and their device ms."""
+    from burn_ppo_torch.models.core import BF16_BACKWARD_PRODUCT, BF16_ROUND
+
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        tr.train_step.updater.eager(tr.state.network, tr.state.opt_state, tr.train_step.runner,
+                                    tr.rng, lr, ent, tr.state.ent_state)
+        torch.cuda.synchronize()
+    out = {}
+    for label in (BF16_ROUND, BF16_BACKWARD_PRODUCT):
+        calls = [e for e in prof.events() if e.name == label
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+        launches, us = 0, 0.0
+        stack = list(calls)
+        while stack:
+            e = stack.pop()
+            launches += len(e.kernels)
+            us += sum(k.duration for k in e.kernels)
+            stack.extend(e.cpu_children)
+        out[label] = {"calls": len(calls), "launches": launches, "device_ms": us / 1e3}
+    if not out[BF16_ROUND]["calls"] or not out[BF16_ROUND]["launches"]:
+        raise AssertionError(f"no bf16 rounding seen in an eager bf16 update: {out}")
+    return out
+
+
+def bench_bf16_turns(tmp: Path) -> dict:
+    """The bench_skull_ctde shape in f32 and in bf16: each trainer warmed
+    by two updates (their graphs captured), then ``BF16_TURN_UPDATES``
+    train steps (``Trainer.update``: rollout, update, fetch) a turn in
+    turns (f32, bf16, bf16, f32), host ms each; then for each one replay
+    of its update graph profiled (device ms, the GEMMs' share) and, for
+    bf16, one eager update's roundings and backward products."""
+    trainers = {"f32": bench_trainer(tmp, "bench_f32", None),
+                "bf16": bench_trainer(tmp, "bench_bf16", "bfloat16")}
+    cfg = trainers["f32"].cfg
+    lr, ent = cfg.learning_rate.get(0), cfg.entropy_coef.get(0)
+    for tr in trainers.values():
+        for _ in range(2):
+            tr.update(lr, ent, 0.0)
+    ms = {k: [] for k in trainers}
+    for k in ("f32", "bf16", "bf16", "f32"):
+        for _ in range(BF16_TURN_UPDATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m, _ = trainers[k].update(lr, ent, 0.0)
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+            if not all(math.isfinite(m[x]) for x in ("policy_loss", "value_loss", "entropy")):
+                raise AssertionError(f"bench_skull_ctde {k}: non-finite losses {m}")
+    median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    out = {"shape": "bench_skull_ctde: Skull, 4 players, CTDE 512x2 tanh, 4096 x 64, "
+                    "4 epochs x 4 minibatches, no pool, no target_kl",
+           "train_step_ms_turns": ms,
+           "env_steps_per_s_median": {k: E * T_C4 / median(v) * 1e3 for k, v in ms.items()},
+           "update_graph": {k: update_breakdown(tr) for k, tr in trainers.items()},
+           "bf16_eager_update_labels": bf16_label_costs(trainers["bf16"], lr, ent)}
+    return out
+
+
+def flagship_bf16_window(tmp: Path) -> dict:
+    """configs/skull_ctde_tpu.toml with the bf16 compute dtype
+    (``flagship_trainer``: a pool of 8 freshly initialised opponents): one
+    rotation, its stack's weights bf16, and one pool window of 8 updates,
+    every launch counted as in the train phases (K7's bf16 tower 8 x 64,
+    its f32 tower 0); then K7's bf16 tower counted on the device in one
+    profiled replay of the rollout graph."""
+    tr = flagship_trainer(tmp, "flagship_bf16", compute_dtype="bfloat16")
+    for w in WRAPPERS.values():
+        w.launches = 0
+    RolloutGraph.reset_counts()
+    UpdateGraph.reset_counts()
+    stack, names = tr.rotate()
+    if any(w.dtype != torch.bfloat16 for w in stack.weights):
+        raise AssertionError("the bf16 flagship's rotation did not stack bf16 towers")
+    t0 = time.time()
+    metrics, _ = tr.pool_window(stack, names, tr.schedule(W_FLAG))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    eager = {name: w.launches for name, w in WRAPPERS.items()}
+    graphed = {name: RolloutGraph.launches.get(w, 0) + UpdateGraph.launches.get(w, 0)
+               for name, w in WRAPPERS.items()}
+    warmup = {name: RolloutGraph.warmup_launches.get(w, 0) + UpdateGraph.warmup_launches.get(w, 0)
+              for name, w in WRAPPERS.items()}
+    main_path = {name: eager[name] - warmup[name] + graphed[name] for name in WRAPPERS}
+    launched = W_FLAG * tr.cfg.num_epochs * tr.cfg.num_minibatches - UpdateGraph.skipped
+    want = {name: 0 for name in WRAPPERS}
+    want.update(skull_step_autoreset=W_FLAG * T_FLAG, masked_gumbel_sample=2 * W_FLAG * T_FLAG,
+                opponent_actor_forward=W_FLAG * T_FLAG, gae_multiplayer_reverse_scan=W_FLAG,
+                window_records=W_FLAG, window_report=W_FLAG, episode_stats=W_FLAG,
+                ppo_loss=launched, clip_adam=launched)
+    if main_path != want or eager != warmup:
+        raise AssertionError(f"bf16 flagship window launches {main_path} != {want} (eager "
+                             f"{eager}, warm-ups {warmup})")
+    device = replay_kernel_counts(tr.pool_step.runner.graph, BF16_ROLLOUT_KERNELS)
+    if device["counts"].get("opponent_actor_forward") != [T_FLAG, T_FLAG]:
+        raise AssertionError(f"K7's bf16 tower on the device in one rollout replay: {device}")
+    return {"window_s": wall, "opponents": names, "main_path": main_path,
+            "approx_kl": metrics["approx_kl"], "approx_kl_max": metrics["approx_kl_max"],
+            "overflow": metrics["pool_record_overflow"], "rollout_replay_kernel_counts": device,
+            "run": {"launches": {name: eager[name] + graphed[name] for name in WRAPPERS}}}
+
+
+# The update's dense layers at bench_skull_ctde's minibatch (4096 x 64 / 4
+# rows): the CTDE actor 135 -> 512 x2 -> 33, the critic 335 -> 512 x2 -> 1.
+DENSE_BF16_M = 65536
+DENSE_BF16_SHAPES = ((135, 512), (512, 512), (512, 33), (335, 512), (512, 1))
+DENSE_BF16_TOL = "|y - ref| <= 2^-14 (|ref| + max |ref|)"
+
+
+def check_dense_bf16(dev) -> dict:
+    """``models/core.py dense`` with the bf16 compute dtype on the card
+    (cuBLAS's bf16 GEMM with an f32 output and the bias in its epilogue)
+    at the update's shapes, against the f32 product of the bf16-rounded
+    operands plus the bias (TF32 off): f32 sums in another order, within
+    ``DENSE_BF16_TOL``; an f32 output whose entries are not bf16 values;
+    and the control, the reference rounded to bf16, fails the limit."""
+    from burn_ppo_torch.models.core import dense
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 reference would not be f32")
+    g = torch.Generator(device=dev).manual_seed(18)
+    out = {"tol": DENSE_BF16_TOL, "rows": DENSE_BF16_M}
+    for fan_in, fan_out in DENSE_BF16_SHAPES:
+        lin = torch.nn.Linear(fan_in, fan_out, device=dev)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn(fan_out, fan_in, generator=g, device=dev)
+                             / fan_in ** 0.5)
+            lin.bias.copy_(torch.randn(fan_out, generator=g, device=dev))
+            x = torch.randn(DENSE_BF16_M, fan_in, generator=g, device=dev)
+            y = dense(lin, x, "bfloat16")
+            ref = (x.to(torch.bfloat16).float() @ lin.weight.to(torch.bfloat16).float().t()
+                   + lin.bias)
+        scale = ref.abs() + ref.abs().max()
+        rel = float(((y - ref).abs() / scale).max())
+        control = float(((ref.to(torch.bfloat16).float() - ref).abs() / scale).max())
+        bf16_values = float((y == y.to(torch.bfloat16).float()).float().mean())
+        name = f"{fan_in}x{fan_out}"
+        if y.dtype != torch.float32 or rel > 2.0**-14 or control <= 2.0**-14 or bf16_values >= 0.01:
+            raise AssertionError(f"dense bf16 on the card at {name}: dtype {y.dtype}, error "
+                                 f"{rel} of the scale, the bf16-rounded control {control}, "
+                                 f"bf16 values {bf16_values}")
+        out[name] = {"max_err_of_scale": rel, "control_bf16_output_err_of_scale": control,
+                     "share_of_bf16_values": bf16_values}
+    return out
+
+
+def bf16_phase(tmp: Path, card_line: str) -> dict:
+    """Phase ``bf16`` (in a process of its own): the bf16 dense on the card
+    at the update's shapes (``check_dense_bf16``), the bench_skull_ctde
+    shape in f32 and bf16 in turns with each update's breakdown
+    (``bench_bf16_turns``), and the bf16 flagship's pool window
+    (``flagship_bf16_window``)."""
+    t0 = time.time()
+    return {"card": card_line, "dense_card_route": check_dense_bf16(torch.device("cuda")),
+            "bench_skull_ctde": bench_bf16_turns(tmp),
+            "flagship_window": flagship_bf16_window(tmp), "seconds": time.time() - t0}
+
+
 def main(argv: list) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K2 + K16, K14 + step, K3, K5, "
-                         "K10 and K15 are built from it and timed in turns with this tree's, "
-                         "and so are its CartPole and Connect Four vs-pool train phases and its "
-                         "Skull eval chunk")
+                    help="a checkout of the parent commit: its K7, K18 and K19 are built "
+                         "from it and timed in turns with this tree's, and so are its CartPole "
+                         "and Connect Four vs-pool train phases, its train steps and its Skull "
+                         "eval chunk")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
@@ -5938,19 +6238,13 @@ def main(argv: list) -> int:
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    # ParentKernels binds the entry points as cc5c46c and 05cbb50 have
-    # them; a parent whose kernel sources are this tree's has nothing to
-    # time against them.
+    # ParentKernels binds the entry points as f912ae7 has them; a parent
+    # whose kernel sources are this tree's has nothing to time against them.
     parent = None
     if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
         parent = ParentKernels(args.parent.resolve())
     emit("build", seconds=time.time() - t0, library=str(lib_path.relative_to(ROOT)), ptxas=ptxas,
          parent_ptxas=None if parent is None else parent.ptxas,
-         # the step kernels, K2 and K14 without their new fronts and
-         # epilogue: their registers beside the parent's
-         flag_off_ptxas={"this": [ln for ln in ptxas if ln.startswith(FLAG_OFF_KERNELS)],
-                         "parent": None if parent is None else
-                         [ln for ln in parent.ptxas if ln.startswith(FLAG_OFF_KERNELS)]},
          parent_kernels=None if args.parent is None else
          "built and timed in turns" if parent is not None else "the parent's csrc is this tree's")
 
@@ -5976,18 +6270,18 @@ def main(argv: list) -> int:
             # A = 7's: Connect Four's, the pool path's
             **{k: samples["A7"][k] for k in TIMES + ("library_ms", "bound_ms", "bound_by")},
         },
-        "gae_reverse_scan": check_gae(dev, g, parent, ptxas),
+        "gae_reverse_scan": check_gae(dev, g, ptxas),
         "connect_four_step_autoreset": check_connect_four(dev, g, ptxas),
-        "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g, parent, ptxas),
+        "gae_multiplayer_reverse_scan": check_gae_multiplayer(dev, g, ptxas),
         "obs_norm_apply": {**apply_c4, "liars_dice_4096x270": apply_ld, "update_batch": apply_batch,
                            "max_abs_err": max(apply_c4["max_abs_err"], apply_ld["max_abs_err"],
                                               apply_batch["max_abs_err"]),
                            "ptxas": [ln for ln in ptxas if ln.startswith("obs_norm_")]},
         "obs_norm_update": check_obs_norm_update(dev, g),
-        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs),
+        "opponent_actor_forward": check_opponent_actor(dev, g, skull_obs, ld_obs, parent),
         "ppo_loss": check_ppo_loss(dev, g),
         "clip_adam": {**check_clip_adam(dev, g), "ptxas": kernel_ptxas(ptxas, "clip_adam")},
-        "episode_stats": check_episode_stats(dev, g, parent, ptxas),
+        "episode_stats": check_episode_stats(dev, g, ptxas),
         "skull_step_autoreset": skull,
         "return_norm_roll": check_return_norm_roll(dev, g),
         "return_norm_finalize": check_return_norm_finalize(dev, g),
@@ -6003,22 +6297,26 @@ def main(argv: list) -> int:
     checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas))
     # K18 and K19, the update window's records and report, on one of their own.
     g20 = torch.Generator(device=dev).manual_seed(20)
-    checks["window_records"] = {**check_window_records(dev, g20),
+    checks["window_records"] = {**check_window_records(dev, g20, parent),
                                 "ptxas": kernel_ptxas(ptxas, "window_records")}
-    checks["window_report"] = {**check_window_report(dev, g20),
+    checks["window_report"] = {**check_window_report(dev, g20, parent),
                                "ptxas": kernel_ptxas(ptxas, "window_report")}
+    # K7's bf16 tower, on a generator of its own.
+    checks[BF16_TOWER] = {
+        **check_opponent_actor_bf16(dev, torch.Generator(device=dev).manual_seed(21), skull_obs),
+        "ptxas": kernel_ptxas(ptxas, "opponent_mlp_bf16")}
     # The env steps with K14's sampling front, on a generator of their own:
     # each beside its step's own checks, its error in the step's.
-    fronts = check_sample_steps(dev, torch.Generator(device=dev).manual_seed(19), parent, ptxas)
+    fronts = check_sample_steps(dev, torch.Generator(device=dev).manual_seed(19), ptxas)
     for name, res in fronts.items():
         checks[name]["sample_front"] = res
         checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], res["max_abs_err"])
     # Phase popart: K15, K16 and K8 with PopArt and the controller, on a
     # generator of their own.
-    popart = check_popart(dev, torch.Generator(device=dev).manual_seed(16), parent)
+    popart = check_popart(dev, torch.Generator(device=dev).manual_seed(16))
     # K2's value epilogue, on a generator of its own.
     popart["masked_gumbel_sample_popart_epilogue"] = check_sample_popart_epilogue(
-        dev, torch.Generator(device=dev).manual_seed(20), parent)
+        dev, torch.Generator(device=dev).manual_seed(20))
     popart["rollout_k2_epilogue_vs_k2_then_k16"] = popart_rollout_routes(dev)
     for name in ("popart_update", "popart_denormalize"):
         checks[name] = popart[name]
@@ -6061,6 +6359,11 @@ def main(argv: list) -> int:
                 ["--config", str(ROOT / "configs" / "liars_dice.toml"), "--normalize-obs"],
                 "liars_dice_step_autoreset", T_LD, EP_LD, LD_UPDATES_MLP, "mlp", LD_OBS,
                 {"obs_norm_apply": LD_UPDATES_MLP * (T_LD + 2), "obs_norm_update": LD_UPDATES_MLP}),
+            # the bf16 compute dtype: Connect Four against the pool (K7's bf16
+            # tower) and the CNN's self-play
+            "selfplay_pool_bf16": selfplay_pool_bf16(Path(d), card_line),
+            "selfplay_train_cnn_bf16": selfplay_train(Path(d), card_line, "cnn", CNN_UPDATES,
+                                                      BF16_FLAGS),
         }
         for phase, out in runs.items():
             emit(phase, **out)
@@ -6068,6 +6371,19 @@ def main(argv: list) -> int:
         pool_window = phase_in_process(ROOT, "pool_window_phase")
         emit("pool_window", **pool_window)
         runs["pool_window"] = pool_window["run"]
+        # The bf16 compute dtype at the bench_skull_ctde shape and on the
+        # flagship's pool window, in a process of its own.
+        bf16 = phase_in_process(ROOT, "bf16_phase")
+        med, up = bf16["bench_skull_ctde"]["env_steps_per_s_median"], bf16["bench_skull_ctde"][
+            "update_graph"]
+        print(f"bf16 ({card_line}): bench_skull_ctde env-steps/s f32 {med['f32']:.0f}, bf16 "
+              f"{med['bf16']:.0f}; update graph device ms f32 {up['f32']['device_ms']:.2f} "
+              f"(GEMMs {up['f32']['gemm_share']:.3f}), bf16 {up['bf16']['device_ms']:.2f} "
+              f"(GEMMs {up['bf16']['gemm_share']:.3f}); K7's bf16 tower on the flagship window "
+              f"{bf16['flagship_window']['main_path']['opponent_actor_forward']} launches",
+              flush=True)
+        emit("bf16", **bf16)
+        runs["bf16_flagship_window"] = bf16["flagship_window"]["run"]
         # PopArt and the adaptive entropy controller on two training paths.
         pe = popart_entropy_train(Path(d), card_line)
         emit("popart_entropy_train", **pe)
@@ -6104,18 +6420,26 @@ def main(argv: list) -> int:
             for name, phase in (("bench_train_turns", "bench_train"),
                                 ("bench_selfplay_pool_turns", "selfplay_pool_train")):
                 emit(name, card=card_line, **train_turns(args.parent.resolve(), phase))
-        emit("learning_bar", card=card_line, **learning_bar(Path(d)))
+        bar = learning_bar(Path(d))
+        emit("learning_bar", card=card_line, **bar)
+        bar_bf16 = learning_bar(Path(d), BF16_FLAGS)
+        print(f"learning bar ({card_line}): f32 avg_return {bar['avg_return']:.2f}, with "
+              f"--compute-dtype bfloat16 {bar_bf16['avg_return']:.2f}", flush=True)
+        emit("learning_bar_bf16", card=card_line, **bar_bf16, f32_avg_return=bar["avg_return"])
         emit("learning_bar_popart", card=card_line, **learning_bar_popart(Path(d)))
 
     KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # Launches: the sum over the ten train phases (phase
-    # popart_entropy_train's two among them) and the front ends' runs, each
-    # counted from 0.
+    # Launches: the sum over the train phases (phase popart_entropy_train's
+    # two, the bf16 runs and phase bf16's flagship window among them) and the
+    # front ends' runs, each counted from 0.
+    # K7's launches in the bf16 runs are its bf16 tower's (its own row),
+    # the others its f32 tower's.
     table = [
         {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            "launches": sum(r["launches"][name] for r in runs.values())
+            "launches": sum(r["launches"][name] for k, r in runs.items()
+                            if name != "opponent_actor_forward" or k not in BF16_RUNS)
             + sum(f["launches_total"][name] for f in front.values()),
             **{k: checks[name][k] for k in KERNEL_KEYS},
             # an env step's instance with K14's sampling front (eval's),
@@ -6126,6 +6450,13 @@ def main(argv: list) -> int:
         }
         for name in WRAPPERS
     ]
+    table.append({"name": BF16_TOWER, "route": "cuda", "source": SOURCES[BF16_TOWER][0],
+                  "replaces": SOURCES[BF16_TOWER][1],
+                  "launches": sum(runs[k]["launches"]["opponent_actor_forward"] for k in BF16_RUNS),
+                  **{k: checks[BF16_TOWER][k] for k in KERNEL_KEYS}})
+    unlaunched = [row["name"] for row in table if not row["launches"]]
+    if unlaunched:
+        raise AssertionError(f"kernels the main paths never launched: {unlaunched}")
     print(json.dumps({"kernels": table}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

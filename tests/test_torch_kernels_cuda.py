@@ -1,10 +1,13 @@
-"""The CUDA kernels K1-K19 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K19 (K7 with its f32 and its bf16 tower) against
+their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -2260,3 +2263,203 @@ def test_window_report_kernel_matches_plain_exactly(dev):
         assert int(books[0].first) == 0 == int(books[1].first)
     torch.testing.assert_close(books[0].acc, books[1].acc, rtol=0, atol=0, equal_nan=True)
     assert torch.isnan(books[0].acc[6])  # the max field's entry, from the fifth fold on
+
+
+def _records_window(book, fn, logs, capacity, L):
+    """A window of appends through ``fn`` on ``book`` (the flag cleared
+    after each, as K19 clears it): (count, the rows below the capacity)."""
+    book.start(capacity)
+    for c, o, s, sl in logs:
+        fn(book, c, o, s, sl, L)
+        book.first.zero_()
+    total = int(book.total)
+    return total, book.rows[:min(total, capacity)].clone()
+
+
+def test_window_records_kernel_two_flagship_windows_in_a_row_and_graph_replays(dev):
+    """K18 (one launch of many blocks, a ticket and the tiles' flags in the
+    book's scratch) against its plain version bit for bit on ONE book: two
+    flagship windows of 8 in a row (T = 64, E = 4096, L = 2867, P = 4,
+    ~18,800 games a window), a window whose capacity of 500 overflows, and
+    a window of appends replayed from a captured CUDA graph (the scratch
+    left ready by every launch, no clearing launch)."""
+    from burn_ppo_torch.ppo.window import (
+        WindowBook,
+        record_capacity,
+        window_records,
+        window_records_plain,
+    )
+
+    T, E, L, P, W = 64, 4096, 2867, 4, 8
+    rows = record_capacity(W, T, E - L)
+    g = torch.Generator(device=dev).manual_seed(18)
+    kbook, pbook = WindowBook(dev, P, record_rows=rows), WindowBook(dev, P, record_rows=rows)
+    for rate, cap in ((0.03, rows), (0.03, rows), (0.3, 500)):
+        logs = [_window_logs(dev, g, T, E, L, P, rate) for _ in range(W)]
+        before = window_records.launches
+        kt, kr = _records_window(kbook, window_records, logs, cap, L)
+        pt, pr = _records_window(pbook, window_records_plain, logs, cap, L)
+        assert window_records.launches == before + W
+        assert kt == pt and torch.equal(kr, pr), (rate, cap, kt, pt)
+        assert (kt > cap) == (cap == 500) and (cap == 500 or kt > 15_000)
+    # a captured append, replayed: the graph reads the logs' buffers
+    logs = [_window_logs(dev, g, T, E, L, P, 0.03) for _ in range(2 * W)]
+    c, o, s, sl = (x.clone() for x in logs[0])
+    kbook.start(rows)
+    window_records(kbook, c, o, s, sl, L)  # warm-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        window_records(kbook, c, o, s, sl, L)
+    for window in (logs[:W], logs[W:]):
+        kbook.start(rows)
+        for x in window:
+            for dst, src in zip((c, o, s, sl), x):
+                dst.copy_(src)
+            graph.replay()
+            kbook.first.zero_()
+        kt, kr = int(kbook.total), kbook.rows[:min(int(kbook.total), rows)].clone()
+        pt, pr = _records_window(pbook, window_records_plain, window, rows, L)
+        assert kt == pt and torch.equal(kr, pr)
+
+
+def test_window_report_kernel_at_128_entries_and_from_a_graph(dev):
+    """K19 (a table of 128 accumulator entries, one warp) against its
+    plain version bit for bit over two windows of 8 folds, replayed from a
+    captured CUDA graph, -inf / +inf and a NaN among the values."""
+    from burn_ppo_torch.ppo.window import (
+        LAST,
+        MAX,
+        MIN,
+        SUM,
+        WindowBook,
+        window_report,
+        window_report_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    sizes = (1, 4, 1, 33, 1, 40, 16, 32)
+    ops = (LAST, SUM, MAX, SUM, MIN, MAX, LAST, MIN)
+    srcs = [torch.rand(n, generator=g, device=dev) for n in sizes]
+    fields = list(zip(srcs, ops))
+    kbook, pbook = WindowBook(dev, 4), WindowBook(dev, 4)
+    kbook.start()
+    window_report(kbook, fields)  # warm-up, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        window_report(kbook, fields)
+    for _ in range(2):
+        kbook.start()
+        pbook.start()
+        for w in range(8):
+            for t in srcs:
+                t.copy_(torch.randn(t.shape, generator=g, device=dev) * 10)
+            if w == 2:
+                srcs[2].fill_(float("-inf"))
+                srcs[4].fill_(float("inf"))
+            if w == 6:
+                srcs[5][7] = float("nan")
+            graph.replay()
+            window_report_plain(pbook, fields)
+            assert int(kbook.first) == 0 == int(pbook.first)
+        torch.testing.assert_close(kbook.acc, pbook.acc, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(kbook.acc[sum(sizes[:5]) + 7])
+
+
+def bf16_stack(stack):
+    """The stack as the rotation stores it with the bf16 compute dtype:
+    its weights rounded to bf16 once, the biases f32."""
+    return dataclasses.replace(stack, weights=[w.to(torch.bfloat16).contiguous()
+                                               for w in stack.weights])
+
+
+def f32_stack(stack):
+    return dataclasses.replace(stack, weights=[w.float() for w in stack.weights])
+
+
+def bf16_tower_close(k, p) -> bool:
+    """Every |kernel - plain| <= 2^-8 (|plain| + max |plain|), and their mean
+    <= 2^-15 max |plain|. The two differ by f32 sums in another order, and
+    where one lands on the other side of an activation's bf16 rounding, one
+    bf16 ulp passed on through the later layers: rare, so the mean stays
+    near the f32 sums' (an emulation in f64 sums, 2.7e-6 max |plain| at
+    most). A tower that leaves the activations unrounded differs from
+    plain in every entry (K7's f32 tower on the rounded weights, 4e-4 max
+    |plain| or more): it fails the mean."""
+    d, scale = (k - p).abs(), p.abs().max()
+    return bool(torch.all(d <= 2.0**-8 * (p.abs() + scale))) and float(d.mean()) <= float(
+        2.0**-15 * scale)
+
+
+@pytest.mark.parametrize("tower,Ep,normed", [("c4_mlp512x2", 1024, True),
+                                             ("skull_ctde256x3", 1229, False),
+                                             ("ld_mlp512x3", 1024, True),
+                                             ("ld_ctde256x2", 37, False)])
+@pytest.mark.parametrize("tiling", [None, 0, 1])
+def test_opponent_actor_bf16_tower_matches_plain(dev, tower, Ep, normed, tiling):
+    """K7's bf16 tower against the plain version on the same bf16 stack, at
+    the pool shapes (Connect Four Ep = 1024, K = 8, 86 -> 512 x2 -> 7 with
+    obs norm; the flagship's Ep = 1229, 135 -> 256 x3 -> 33), out-of-range
+    slots reading zeros; K7's f32 tower on the same rounded weights, the
+    control, fails the same check."""
+    g = torch.Generator(device=dev).manual_seed(Ep + len(tower))
+    obs, slot, stack = opponent_case(g, dev, tower, "relu" if normed else "tanh", normed, Ep=Ep)
+    slot[:3] = torch.tensor([-1, 8, 40], device=dev, dtype=torch.int32)
+    stack = bf16_stack(stack)
+    before = opponent_actor_forward.launches
+    k = opponent_actor_forward(obs, slot, stack, tiling=tiling)
+    torch.cuda.synchronize()
+    assert opponent_actor_forward.launches == before + 1
+    p = opponent_actor_forward_plain(obs, slot, stack)
+    assert torch.equal(k[:3], torch.zeros_like(k[:3]))
+    assert bf16_tower_close(k, p), (float((k - p).abs().max()), float((k - p).abs().mean()))
+    control = opponent_actor_forward(obs, slot, f32_stack(stack), tiling=tiling)
+    assert not bf16_tower_close(control, p)
+
+
+def test_opponent_actor_bf16_tower_refuses_f32_weights(dev):
+    """A stack whose first layer is bf16 and whose later layers are f32
+    is refused: the tower is chosen by the weights, one dtype for all."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    obs, slot, stack = opponent_case(g, dev, "c4_mlp512x2", "relu", True, Ep=64)
+    stack.weights[0] = stack.weights[0].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        opponent_actor_forward(obs, slot, stack)
+
+
+# The update's dense layers with the bf16 compute dtype at bench_skull_ctde's
+# minibatch (4096 x 64 / 4 rows): the CTDE actor 135 -> 512 x2 -> 33 and the
+# critic 335 -> 512 x2 -> 1.
+DENSE_BF16_SHAPES = [(135, 512), (512, 512), (512, 33), (335, 512), (512, 1)]
+
+
+@pytest.mark.parametrize("fan_in,fan_out", DENSE_BF16_SHAPES)
+def test_dense_bf16_card_route_keeps_an_f32_output(dev, fan_in, fan_out):
+    """``dense(..., "bfloat16")`` on the card (cuBLAS's bf16 GEMM with an
+    f32 output and the bias in its epilogue) against the f32 product of the
+    bf16-rounded operands plus the bias, TF32 off, at M = 65536: f32 sums
+    in another order, |y - ref| <= 2^-14 (|ref| + max |ref|); an f32
+    output, not bf16 values. A bf16-rounded result, the control, fails."""
+    from burn_ppo_torch.models.core import dense
+
+    g = torch.Generator(device=dev).manual_seed(fan_in * fan_out)
+    M = 65536
+    lin = torch.nn.Linear(fan_in, fan_out, device=dev)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(fan_out, fan_in, generator=g, device=dev) / fan_in ** 0.5)
+        lin.bias.copy_(torch.randn(fan_out, generator=g, device=dev))
+    x = torch.randn(M, fan_in, generator=g, device=dev)
+    with torch.no_grad():
+        y = dense(lin, x, "bfloat16")
+        ref = (x.to(torch.bfloat16).float() @ lin.weight.to(torch.bfloat16).float().t()
+               + lin.bias)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert y.dtype == torch.float32 and y.shape == (M, fan_out)
+
+    def close(a):
+        return bool(torch.all((a - ref).abs() <= 2.0**-14 * (ref.abs() + ref.abs().max())))
+
+    assert close(y), float((y - ref).abs().max())
+    assert not close(ref.to(torch.bfloat16).float())
+    assert float((y == y.to(torch.bfloat16).float()).float().mean()) < 0.01

@@ -265,7 +265,7 @@ def test_plain_connect_four_config_is_refused_with_the_flag_to_pass(tmp_path, ca
 
 @pytest.mark.parametrize("overrides,item", [
     ({"opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12"),
-    ({"env": "liars_dice", "compute_dtype": "bfloat16"}, "A18"),
+    ({"env": "liars_dice", "compute_dtype": "bfloat16", "mesh_data": 2}, "A16"),
     ({"env": "skull", "network_type": "ctde", "mesh_data": 2}, "A16"),
     ({"env": "liars_dice", "opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12b"),
 ])

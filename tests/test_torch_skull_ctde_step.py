@@ -216,7 +216,8 @@ def test_two_ctde_train_steps_match_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--config", "configs/liars_dice.toml", "--compute-dtype", "bfloat16"], "A18"),
+    (["--config", "configs/liars_dice.toml", "--compute-dtype", "bfloat16", "--mesh-data", "2"],
+     "A16"),
     (["--config", "configs/skull_ctde.toml", "--mesh-data", "2"], "A16"),
     (["--config", "configs/skull_ctde.toml", "--network-type", "cnn"], "A12b"),
 ])

@@ -277,7 +277,7 @@ def test_supervised_cartpole_resumes_three_children_to_the_same_bits(tmp_path, m
 def test_a_fork_and_a_refused_config_are_never_supervised(tmp_path, monkeypatch, capsys):
     spawned = in_process_children(monkeypatch)
     cfg = tmp_path / "bad.toml"
-    cfg.write_text('env = "cartpole"\ncompute_dtype = "bfloat16"\n')
+    cfg.write_text('env = "cartpole"\ncompute_dtype = "bfloat16"\nmesh_data = 2\n')
     assert cli.main(["train", "-c", str(cfg), "--reload-every-n-checkpoints", "1",
                      "--run-dir", str(tmp_path / "r")], device="cpu") == 2
     assert "not supported by burn_ppo_torch" in capsys.readouterr().err

@@ -214,7 +214,7 @@ def test_train_command_end_to_end_on_cpu(tmp_path):
                                    ["--env", "liars_dice", "--mesh-data", "2"],
                                    ["--network-type", "ctde"], ["--platform", "cpu"],
                                    ["--profile-dir", "p"], ["--checkify"],
-                                   ["--compute-dtype", "bfloat16"]])
+                                   ["--compute-dtype", "bfloat16", "--mesh-data", "2"]])
 def test_train_command_refuses_unported_flags(flags, tmp_path, capsys):
     rc = cli.main(["train", "--run-dir", str(tmp_path / "r"), *flags], device="cpu")
     assert rc == 2
@@ -223,8 +223,8 @@ def test_train_command_refuses_unported_flags(flags, tmp_path, capsys):
 
 
 def test_trainer_refuses_unported_config(tmp_path):
-    cfg = Config(env="cartpole", compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
+    cfg = Config(env="cartpole", compute_dtype="bfloat16", mesh_data=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         Trainer(cfg, tmp_path, device="cpu")
 
 
