@@ -81,6 +81,21 @@
 // products of bf16 values are exact in f32, so the logits agree with the
 // plain version to f32 sums in another order, and to one bf16 ulp where an
 // activation's rounding lands on the other side of a tie.
+//
+// The feature front (opponent_cnn_mlp_kernel, opponent_cnn_mlp_bf16_kernel:
+// the same body with FEAT set; ROADMAP queue B, item B11c): the tail of
+// the CNN opponents' XLA fusion, models/network.py _cnn_features' last
+// relu, flatten and concat (192-197) and the FC tower and head under the
+// vmap of pool_rollout.py opponent_logits. Plain twin:
+// pool_rollout.py opponent_features_forward_plain. The tower's input row
+// of a row of slot k is gathered from the last grouped conv's output (any
+// strides, the K slots' channels side by side, before its relu): column
+// c < H W C' is channel k C' + c % C' at pixel c / C' (JAX's NHWC
+// flatten), relu'd at the load; the columns after it are the raw obs's
+// columns past the spatial slice, normalised by slot k as the raw-obs
+// front normalises. From there it runs as the raw-obs kernel does, f32 or
+// bf16 tower. Its bound: the tower's operations, as the raw-obs kernel's,
+// and the gathered features' bytes (Ep H W C' floats).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -116,6 +131,15 @@ struct Params {
   int depth, act;
   float* out;  // [Ep, A]
   int rows, K;
+  // The raw obs's row stride (its width, also the normalisers'), and the
+  // obs column that the tower's first obs column reads.
+  int obs_stride, obs_off;
+  // The feature front (FEAT): the last conv's output and its strides
+  // (row, channel, h, w), its channels a slot, the width W of its pixels,
+  // and the tower's feature columns H W C' (its obs columns follow).
+  const float* feat;
+  long feat_stride[4];
+  int feat_c, feat_w, feat_hwc;
   // Elements per activation row: floats (big and small parts) = 16 (mod
   // 32), or bf16 values = 8 (mod 64) for the bf16 tower.
   int act_pitch;
@@ -262,8 +286,8 @@ __device__ __forceinline__ void load_chunk(const Params& p, const int* chunk_sta
 
 // R rows per cluster tile, C blocks per cluster, S pipeline stages; NTW
 // 8-column tiles per warp at most (a 512-wide layer split C ways). BF16:
-// the bf16 tower.
-template <int R, int C, int S, bool BF16>
+// the bf16 tower. FEAT: the feature front.
+template <int R, int C, int S, bool BF16, bool FEAT>
 __device__ __forceinline__ void opponent_mlp(const Params& p) {
   using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
   constexpr int MT = R / 16;
@@ -374,20 +398,37 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
 
   // 4. Gather and normalise the tile's obs rows once (zeros past the tile
   // and in the padding columns): a warp takes R / WARPS rows, a lane every
-  // 32nd column, all of its loads issued before any is used.
+  // 32nd column, all of its loads issued before any is used. With the
+  // feature front, the first feat_hwc columns are the slot's conv
+  // features (relu'd, never normalised), the rest obs columns.
   {
     constexpr int RPW = R / WARPS, CPL = MAX_WIDTH / 32;
     const int D = p.n_in[0], Dp = (D + KC - 1) / KC * KC;
+    const int hwc = FEAT ? p.feat_hwc : 0;
     const bool normed = p.norm_mean != nullptr && p.norm_count[k] >= 2.0f;
     float mean[CPL], sd[CPL], v[RPW][CPL];
 #pragma unroll
     for (int q = 0; q < RPW; ++q) {
       const int r = warp * RPW + q;
-      const float* xr = p.x + static_cast<long>(r < seg_rows ? s_rows[r] : 0) * D;
+      const long row = r < seg_rows ? s_rows[r] : 0;
+      const float* xr = p.x + row * p.obs_stride + p.obs_off;
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        v[q][i] = r < seg_rows && c < D ? xr[c] : 0.0f;
+        float x = 0.0f;
+        if (r < seg_rows && c < D) {
+          if (FEAT && c < hwc) {
+            const int hw = c / p.feat_c, ch = c - hw * p.feat_c;
+            const int h = hw / p.feat_w, w = hw - h * p.feat_w;
+            x = activate(p.feat[row * p.feat_stride[0] +
+                                static_cast<long>(k * p.feat_c + ch) * p.feat_stride[1] +
+                                h * p.feat_stride[2] + w * p.feat_stride[3]],
+                         1);
+          } else {
+            x = xr[c - hwc];
+          }
+        }
+        v[q][i] = x;
       }
     }
     if (normed) {
@@ -395,9 +436,10 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        const long d = static_cast<long>(k) * D + c;
-        mean[i] = c < D ? p.norm_mean[d] : 0.0f;
-        sd[i] = c < D ? fmaxf(sqrtf(p.norm_m2[d] / fmaxf(cnt, 1.0f)), 1e-8f) : 1.0f;
+        const bool obs_col = c >= hwc && c < D;
+        const long d = static_cast<long>(k) * p.obs_stride + p.obs_off + (c - hwc);
+        mean[i] = obs_col ? p.norm_mean[d] : 0.0f;
+        sd[i] = obs_col ? fmaxf(sqrtf(p.norm_m2[d] / fmaxf(cnt, 1.0f)), 1e-8f) : 1.0f;
       }
     }
 #pragma unroll
@@ -408,7 +450,7 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
         const int c = lane + 32 * i;
         if (c < Dp) {
           float x = v[q][i];
-          if (normed && r < seg_rows && c < D) {
+          if (normed && r < seg_rows && c >= hwc && c < D) {
             const float z = (x - mean[i]) / sd[i];
             x = z < -p.clip ? -p.clip : (z > p.clip ? p.clip : z);
           }
@@ -583,22 +625,35 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
 template <int R, int C, int S>
 __global__ void __launch_bounds__(THREADS, 1)
     opponent_mlp_kernel(const __grid_constant__ Params p) {
-  opponent_mlp<R, C, S, false>(p);
+  opponent_mlp<R, C, S, false, false>(p);
 }
 
 template <int R, int C, int S>
 __global__ void __launch_bounds__(THREADS, 1)
     opponent_mlp_bf16_kernel(const __grid_constant__ Params p) {
-  opponent_mlp<R, C, S, true>(p);
+  opponent_mlp<R, C, S, true, false>(p);
+}
+
+template <int R, int C, int S>
+__global__ void __launch_bounds__(THREADS, 1)
+    opponent_cnn_mlp_kernel(const __grid_constant__ Params p) {
+  opponent_mlp<R, C, S, false, true>(p);
+}
+
+template <int R, int C, int S>
+__global__ void __launch_bounds__(THREADS, 1)
+    opponent_cnn_mlp_bf16_kernel(const __grid_constant__ Params p) {
+  opponent_mlp<R, C, S, true, true>(p);
 }
 
 // The launch of one tiling of one tower: a cluster of C blocks per tile,
 // the grid one cluster per possible tile (some exit at once).
 using KernelFn = void (*)(Params);
 
-template <int R, int C, int S, bool BF16>
+template <int R, int C, int S, bool BF16, bool FEAT>
 struct Tiling {
   static KernelFn kernel() {
+    if (FEAT) return BF16 ? opponent_cnn_mlp_bf16_kernel<R, C, S> : opponent_cnn_mlp_kernel<R, C, S>;
     return BF16 ? opponent_mlp_bf16_kernel<R, C, S> : opponent_mlp_kernel<R, C, S>;
   }
 
@@ -660,10 +715,10 @@ struct Tiling {
 constexpr int TILINGS[][3] = {{32, 2, 2}, {32, 3, 3}};
 constexpr int NUM_TILINGS = sizeof(TILINGS) / sizeof(TILINGS[0]);
 
-template <bool BF16>
+template <bool BF16, bool FEAT>
 int launch_tiling(int tiling, const Params& p, int smem, cudaStream_t s) {
-  return tiling == 0 ? Tiling<32, 2, 2, BF16>::launch(p, smem, s)
-                     : Tiling<32, 3, 3, BF16>::launch(p, smem, s);
+  return tiling == 0 ? Tiling<32, 2, 2, BF16, FEAT>::launch(p, smem, s)
+                     : Tiling<32, 3, 3, BF16, FEAT>::launch(p, smem, s);
 }
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -695,7 +750,8 @@ int layout(Params& p, const int* widths, int depth, int tiling, bool bf16) {
 // SM each (a cluster that waits for a free GPC doubles the call; blocks
 // that share an SM run at half speed: 3 x tiles within 90% of the SMs),
 // else 2-block clusters. -1 on error.
-int choose_tiling(Params& p, const int* widths, int depth, bool bf16, int* resident = nullptr) {
+int choose_tiling(Params& p, const int* widths, int depth, bool bf16, bool feat,
+                  int* resident = nullptr) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -705,8 +761,10 @@ int choose_tiling(Params& p, const int* widths, int depth, bool bf16, int* resid
     }
   }
   const int smem = layout(p, widths, depth, 1, bf16);
-  const int n = bf16 ? Tiling<32, 3, 3, true>::resident_clusters(p, smem)
-                     : Tiling<32, 3, 3, false>::resident_clusters(p, smem);
+  const int n = feat ? (bf16 ? Tiling<32, 3, 3, true, true>::resident_clusters(p, smem)
+                             : Tiling<32, 3, 3, false, true>::resident_clusters(p, smem))
+                     : (bf16 ? Tiling<32, 3, 3, true, false>::resident_clusters(p, smem)
+                             : Tiling<32, 3, 3, false, false>::resident_clusters(p, smem));
   if (resident != nullptr) *resident = n;
   if (n < 0) return -1;
   const int tiles = (p.rows + 31) / 32 + (p.K + 1) / 2;
@@ -723,20 +781,16 @@ extern "C" int opp_mlp_default_tiling(const int* widths, int depth, int rows, in
   Params p = {};
   p.rows = rows;
   p.K = K;
-  return choose_tiling(p, widths, depth, bf16 != 0, resident);
+  return choose_tiling(p, widths, depth, bf16 != 0, false, resident);
 }
 
-// widths: depth + 1 entries (obs, hidden..., head); w, b: depth pointers
-// each (host arrays; w f32, or bf16 with bf16 set); act: 0 = none, 1 =
-// relu, 2 = tanh. norm_mean, norm_m2, norm_count: all null for no
-// normalisation. tiling: an index of TILINGS, or -1 for choose_tiling's.
-// out: [rows, head] f32.
-extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm_mean,
-                               const void* norm_m2, const void* norm_count, float clip,
-                               const void* const* w, const void* const* b, const int* widths,
-                               int depth, int act, void* out, int rows, int K, int tiling,
-                               int bf16, void* stream) {
-  if (depth < 1 || depth > MAX_LAYERS || K < 1 || K > MAX_SLOTS || rows < 0 || act < 0 ||
+namespace {
+
+// The launch of either front: checks the tower, fills the tower's part of
+// p (the front's fields set by the caller) and launches the tiling.
+int forward(Params& p, const void* const* w, const void* const* b, const int* widths, int depth,
+            int act, int K, int tiling, bool bf16, bool feat, cudaStream_t s) {
+  if (depth < 1 || depth > MAX_LAYERS || K < 1 || K > MAX_SLOTS || p.rows < 0 || act < 0 ||
       act > 2 || tiling < -1 || tiling >= NUM_TILINGS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -748,14 +802,7 @@ extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (rows == 0) return 0;
-  Params p = {};
-  p.x = static_cast<const float*>(x);
-  p.slot = static_cast<const int*>(slot);
-  p.norm_mean = static_cast<const float*>(norm_mean);
-  p.norm_m2 = static_cast<const float*>(norm_m2);
-  p.norm_count = static_cast<const float*>(norm_count);
-  p.clip = clip;
+  if (p.rows == 0) return 0;
   for (int l = 0; l < depth; ++l) {
     p.w[l] = w[l];
     p.b[l] = static_cast<const float*>(b[l]);
@@ -764,14 +811,79 @@ extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm
   }
   p.depth = depth;
   p.act = act;
-  p.out = static_cast<float*>(out);
-  p.rows = rows;
   p.K = K;
   if (tiling < 0) {
-    tiling = choose_tiling(p, widths, depth, bf16 != 0);
+    tiling = choose_tiling(p, widths, depth, bf16, feat);
     if (tiling < 0) return static_cast<int>(cudaGetLastError());
   }
-  const int smem = layout(p, widths, depth, tiling, bf16 != 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_tiling<true>(tiling, p, smem, s) : launch_tiling<false>(tiling, p, smem, s);
+  const int smem = layout(p, widths, depth, tiling, bf16);
+  if (feat) {
+    return bf16 ? launch_tiling<true, true>(tiling, p, smem, s)
+                : launch_tiling<false, true>(tiling, p, smem, s);
+  }
+  return bf16 ? launch_tiling<true, false>(tiling, p, smem, s)
+              : launch_tiling<false, false>(tiling, p, smem, s);
+}
+
+Params front(const void* x, const void* slot, const void* norm_mean, const void* norm_m2,
+             const void* norm_count, float clip, void* out, int rows) {
+  Params p = {};
+  p.x = static_cast<const float*>(x);
+  p.slot = static_cast<const int*>(slot);
+  p.norm_mean = static_cast<const float*>(norm_mean);
+  p.norm_m2 = static_cast<const float*>(norm_m2);
+  p.norm_count = static_cast<const float*>(norm_count);
+  p.clip = clip;
+  p.out = static_cast<float*>(out);
+  p.rows = rows;
+  return p;
+}
+
+}  // namespace
+
+// widths: depth + 1 entries (obs, hidden..., head); w, b: depth pointers
+// each (host arrays; w f32, or bf16 with bf16 set); act: 0 = none, 1 =
+// relu, 2 = tanh. norm_mean, norm_m2, norm_count: all null for no
+// normalisation. tiling: an index of TILINGS, or -1 for choose_tiling's.
+// out: [rows, head] f32.
+extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm_mean,
+                               const void* norm_m2, const void* norm_count, float clip,
+                               const void* const* w, const void* const* b, const int* widths,
+                               int depth, int act, void* out, int rows, int K, int tiling,
+                               int bf16, void* stream) {
+  Params p = front(x, slot, norm_mean, norm_m2, norm_count, clip, out, rows);
+  p.obs_stride = widths[0];
+  p.obs_off = 0;
+  return forward(p, w, b, widths, depth, act, K, tiling, bf16 != 0, false,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The feature front: opp_mlp_forward's arguments, widths[0] the tower's
+// input width feat_h * feat_w * feat_c + (D - spatial), then the last
+// conv's output feat ([rows, K * feat_c, feat_h, feat_w] at the element
+// strides feat_strides: row, channel, h, w; before its relu), and the
+// raw obs x [rows, D]'s spatial width (its extra columns start there; the
+// normalisers are [K, D]).
+extern "C" int opp_mlp_forward_features(const void* x, const void* slot, const void* norm_mean,
+                                        const void* norm_m2, const void* norm_count, float clip,
+                                        const void* const* w, const void* const* b,
+                                        const int* widths, int depth, int act, void* out, int rows,
+                                        int K, int tiling, int bf16, const void* feat,
+                                        const long* feat_strides, int feat_c, int feat_h,
+                                        int feat_w, int spatial, void* stream) {
+  const int hwc = feat_h * feat_w * feat_c;
+  if (feat == nullptr || feat_c < 1 || feat_h < 1 || feat_w < 1 || spatial < 0 ||
+      widths[0] < hwc) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p = front(x, slot, norm_mean, norm_m2, norm_count, clip, out, rows);
+  p.obs_off = spatial;
+  p.obs_stride = spatial + widths[0] - hwc;
+  p.feat = static_cast<const float*>(feat);
+  for (int i = 0; i < 4; ++i) p.feat_stride[i] = feat_strides[i];
+  p.feat_c = feat_c;
+  p.feat_w = feat_w;
+  p.feat_hwc = hwc;
+  return forward(p, w, b, widths, depth, act, K, tiling, bf16 != 0, true,
+                 static_cast<cudaStream_t>(stream));
 }

@@ -19,7 +19,8 @@ env's step, with K14's sampling front as an option,
 ``ops/categorical.py`` (K2, with PopArt's denormalisation as an optional
 epilogue, and K14),
 ``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
-``ppo/pool_rollout.py`` (K7, its f32 and its bf16 tower),
+``ppo/pool_rollout.py`` (K7, its f32 and its bf16 tower, its feature
+front; K20),
 ``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17),
 ``ppo/window.py`` (K18, K19)) and use
 the helpers below.
@@ -97,6 +98,15 @@ SIGNATURES = {
     # layers' weight and bias pointers and of the widths, depth, act, out,
     # rows, K, tiling, the bf16 tower (weights bf16), stream
     "opp_mlp_forward": [_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 4 + [_VP],
+    # opp_mlp_forward's arguments up to the stream, then the feature front:
+    # the last conv's output, a host array of its four strides (elements:
+    # row, channel, h, w), its channels a slot, H, W, the obs's spatial
+    # width H W C (its extra columns start there), stream
+    "opp_mlp_forward_features": ([_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 4
+                                 + [_VP, _VP] + [_I] * 4 + [_VP]),
+    # x, norm mean, m2, count (nullable), clip, out, rows, D, K, H, W, C,
+    # bf16 values, stream
+    "opp_cnn_front": [_VP] * 4 + [_F, _VP] + [_I] * 7 + [_VP],
     # widths, depth, rows, K, the bf16 tower, out: resident 3-block clusters
     "opp_mlp_default_tiling": [_VP, _I, _I, _I, _I, _VP],
     # logits, values, mask, actions, old_lp, adv, returns, old_values, valid,

@@ -32,6 +32,16 @@ the bf16 compute dtype the opponents' dense layers take bf16 operands
 too: such a stack holds its weights rounded to bf16 once, at the
 rotation (``actor_params(network, "bfloat16")``), and K7 runs a stack of
 bf16 weights through its bf16 tower. Eval's stacked models stay f32.
+
+A CNN opponent (``OpponentStack.cnn``) runs in three stages, all K slots
+at once as JAX's vmap does: K20 (``opponent_cnn_front``) writes every
+slot's normalised spatial obs as one tensor of K groups of channels, each
+conv layer is one cuDNN conv with ``groups = K`` (``opponent_convs``),
+and K7's feature front (``opponent_features_forward``) loads each row's
+slot's channels of the last conv, relu'd and flattened in JAX's NHWC
+order, then the row's extra obs columns normalised by its slot, and runs
+the FC tower and the policy head. ``opponent_cnn_forward_plain`` is the
+JAX formulation from the raw obs, slot by slot.
 """
 
 from __future__ import annotations
@@ -41,10 +51,11 @@ from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from burn_ppo_torch import kernels
 from burn_ppo_torch.envs.base import Environment, EpisodeLog
-from burn_ppo_torch.models.core import BF16, activation_fn, check_compute_dtype
+from burn_ppo_torch.models.core import BF16, activation_fn, check_compute_dtype, round_bf16
 from burn_ppo_torch.ops.categorical import TINY, masked_sample
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
@@ -70,33 +81,47 @@ class ActorParams:
     """One opponent's actor tower in the JAX layout: a weight ``[in, out]``
     and a bias ``[out]`` per hidden layer, then the policy head; the
     weights f32, or bf16 for the bf16 compute dtype (the biases stay
-    f32)."""
+    f32). A CNN's also holds its conv layers, OIHW weights and biases
+    (f32; with the bf16 compute dtype the weights hold bf16 values, the
+    card's bf16 conv being an f32 conv of rounded operands), and the obs
+    shape (H, W, C) of the spatial slice they read."""
 
     weights: List[torch.Tensor]
     biases: List[torch.Tensor]
     activation: str
+    conv_weights: Optional[List[torch.Tensor]] = None
+    conv_biases: Optional[List[torch.Tensor]] = None
+    obs_shape: Optional[Tuple[int, int, int]] = None
 
 
 def actor_params(network, compute_dtype: Optional[str] = None) -> ActorParams:
-    """A copy of a network's actor tower (the MLP's shared layers, or the
-    CTDE actor's layers, and the policy head), detached from the live
-    parameters, its weights rounded to bf16 with ``compute_dtype=
-    "bfloat16"``. K7 runs either unchanged: an opponent never reads the
-    critic."""
+    """A copy of a network's actor tower (the MLP's shared layers, the
+    CTDE actor's layers, or the CNN's convs and FC layers; then the policy
+    head), detached from the live parameters, its weights rounded to bf16
+    with ``compute_dtype="bfloat16"``. An opponent never reads the critic
+    (nor a split CNN's critic convs)."""
     check_compute_dtype(compute_dtype)
+    convs = None
     if network.network_type == "mlp":
         layers = list(network.layers) + [network.policy_head]
     elif network.network_type == "ctde":
         layers = list(network.actor_layers) + [network.policy_head]
     else:
-        raise NotImplementedError(
-            f"opponents of network_type {network.network_type!r}: ROADMAP A12b")
-    wdtype = torch.bfloat16 if compute_dtype == BF16 else torch.float32
-    return ActorParams(
+        layers = list(network.fc_layers) + [network.policy_head]
+        convs = list(network.conv_layers)
+    bf16 = compute_dtype == BF16
+    wdtype = torch.bfloat16 if bf16 else torch.float32
+    params = ActorParams(
         weights=[layer.weight.detach().T.to(wdtype).contiguous() for layer in layers],
         biases=[layer.bias.detach().clone() for layer in layers],
         activation=network.activation,
     )
+    if convs is not None:
+        params.conv_weights = [(round_bf16(c.weight.detach()).float() if bf16
+                                else c.weight.detach().clone()) for c in convs]
+        params.conv_biases = [c.bias.detach().clone() for c in convs]
+        params.obs_shape = tuple(network.obs_shape)
+    return params
 
 
 @dataclass
@@ -104,17 +129,29 @@ class OpponentStack:
     """The rotation's K opponents stacked on the device: weights ``[K, in,
     out]`` (f32, or bf16 for the bf16 compute dtype) and f32 biases
     ``[K, out]`` per layer, and the obs normalisers as ``[K, D]`` means
-    and M2s and ``[K]`` counts (None: no normalisation)."""
+    and M2s and ``[K]`` counts (None: no normalisation). A CNN stack also
+    holds its conv layers stacked for a grouped conv, the K opponents'
+    weights ``[K * C_out, C_in, kh, kw]`` and biases ``[K * C_out]`` per
+    layer (slot k's channels ``[k * C_out, (k + 1) * C_out)``), and the
+    obs shape; ``weights`` and ``biases`` are then its FC tower and head."""
 
     weights: List[torch.Tensor]
     biases: List[torch.Tensor]
     activation: str
     norm: Optional[ObsNormState] = None
+    conv_weights: Optional[List[torch.Tensor]] = None
+    conv_biases: Optional[List[torch.Tensor]] = None
+    obs_shape: Optional[Tuple[int, int, int]] = None
 
     @property
     def bf16(self) -> bool:
-        """Whether the weights are bf16 (K7's bf16 tower)."""
+        """Whether the weights are bf16 (K7's bf16 tower; a CNN stack's
+        convs then take bf16-rounded operands)."""
         return self.weights[0].dtype == torch.bfloat16
+
+    @property
+    def cnn(self) -> bool:
+        return self.conv_weights is not None
 
     @property
     def num_slots(self) -> int:
@@ -125,12 +162,19 @@ class OpponentStack:
         acts = {p.activation for p in params}
         if len(acts) != 1:
             raise ValueError(f"opponents with mixed activations {sorted(acts)}")
+        if len({p.obs_shape for p in params}) != 1:
+            raise ValueError("opponents of mixed towers: CNN and MLP, or other obs shapes")
         depth = len(params[0].weights)
         stack = OpponentStack(
             weights=[torch.stack([p.weights[i] for p in params]) for i in range(depth)],
             biases=[torch.stack([p.biases[i] for p in params]) for i in range(depth)],
             activation=acts.pop(),
         )
+        if params[0].obs_shape is not None:
+            convs = range(len(params[0].conv_weights))
+            stack.conv_weights = [torch.cat([p.conv_weights[i] for p in params]) for i in convs]
+            stack.conv_biases = [torch.cat([p.conv_biases[i] for p in params]) for i in convs]
+            stack.obs_shape = params[0].obs_shape
         if norms is not None:
             stack.norm = ObsNormState(mean=torch.stack([n.mean for n in norms]),
                                       m2=torch.stack([n.m2 for n in norms]),
@@ -138,36 +182,135 @@ class OpponentStack:
         return stack
 
 
-def opponent_actor_forward_plain(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack,
-                                 clip: float = 10.0) -> torch.Tensor:
-    """Plain PyTorch K7: every slot's normalisation and actor MLP over all
-    rows ([K, Ep, A], one ``bmm`` per layer), then each row's acting slot
-    (a row whose slot is outside [0, K) gets zeros, as JAX's one-hot
-    contraction gives). A stack of bf16 weights rounds each layer's input
-    to bf16 after the f32 normalisation and activation, and takes the f32
-    product of it and the bf16 weights (exact products, f32 sums) plus
-    the f32 bias, as JAX's dense does."""
-    K = stack.num_slots
+def _by_slot(obs: torch.Tensor, norm: Optional[ObsNormState], K: int,
+             clip: float) -> torch.Tensor:
+    """The obs [Ep, D] under each slot's normaliser, [K, Ep, D] (the
+    identity while a slot's count < 2; a view of obs without norms)."""
     x = obs.unsqueeze(0).expand(K, *obs.shape)
-    if stack.norm is not None:
-        n = stack.norm
-        var = n.m2 / torch.clamp(n.count, min=1.0)[:, None]
-        std = torch.clamp(torch.sqrt(var), min=1e-8)[:, None, :]
-        normalized = torch.clamp((x - n.mean[:, None, :]) / std, -clip, clip)
-        x = torch.where((n.count < 2.0)[:, None, None], x, normalized)
+    if norm is None:
+        return x
+    var = norm.m2 / torch.clamp(norm.count, min=1.0)[:, None]
+    std = torch.clamp(torch.sqrt(var), min=1e-8)[:, None, :]
+    normalized = torch.clamp((x - norm.mean[:, None, :]) / std, -clip, clip)
+    return torch.where((norm.count < 2.0)[:, None, None], x, normalized)
+
+
+def _tower_plain(x: torch.Tensor, stack: OpponentStack) -> torch.Tensor:
+    """Every slot's FC tower and head over its rows: x [K, Ep, in] ->
+    logits [K, Ep, A], one ``bmm`` a layer. A stack of bf16 weights rounds
+    each layer's input to bf16 and takes the f32 product of it and the
+    bf16 weights (exact products, f32 sums) plus the f32 bias, as JAX's
+    dense does."""
     act = activation_fn(stack.activation)
     depth = len(stack.weights)
-    bf16 = stack.bf16
     for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
-        if bf16:
+        if stack.bf16:
             x, w = x.to(torch.bfloat16).float(), w.float()
         x = torch.bmm(x, w) + b[:, None, :]
         if i < depth - 1:
             x = act(x)
+    return x
+
+
+def _select(logits_k: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Each row's acting slot of [K, Ep, A]; a row whose slot is outside
+    [0, K) gets zeros, as JAX's one-hot contraction gives."""
+    K = logits_k.shape[0]
     inside = (slot >= 0) & (slot < K)
-    rows = torch.arange(obs.shape[0], device=obs.device)
-    picked = x[torch.where(inside, slot, 0).long(), rows]
+    rows = torch.arange(logits_k.shape[1], device=logits_k.device)
+    picked = logits_k[torch.where(inside, slot, 0).long(), rows]
     return torch.where(inside[:, None], picked, 0.0)
+
+
+def opponent_actor_forward_plain(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack,
+                                 clip: float = 10.0) -> torch.Tensor:
+    """Plain PyTorch K7: every slot's normalisation and actor MLP over all
+    rows ([K, Ep, A], one ``bmm`` per layer), then each row's acting slot
+    (zeros outside [0, K)). A stack of bf16 weights rounds each layer's
+    input to bf16 after the f32 normalisation and activation."""
+    return _select(_tower_plain(_by_slot(obs, stack.norm, stack.num_slots, clip), stack), slot)
+
+
+def opponent_cnn_forward_plain(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack,
+                               clip: float = 10.0) -> torch.Tensor:
+    """The CNN opponents' logits as JAX computes them
+    (burn_ppo_tpu/ppo/pool_rollout.py:126-139, 171-178;
+    models/network.py:187-198): for every slot, its normalisation of the
+    raw obs [Ep, D], its conv stack over the spatial slice (stride-1 SAME
+    convs, relu), the flatten in NHWC order with the remaining obs columns
+    appended, its FC tower and head, over every row; then each row's
+    acting slot (zeros outside [0, K)). Slot by slot, one conv per slot
+    and layer. A bf16 stack rounds each conv's input to bf16 (its weights
+    hold bf16 values) and takes the f32 conv, as JAX's bf16 conv does."""
+    K, (H, W, C), Ep = stack.num_slots, stack.obs_shape, obs.shape[0]
+    n = H * W * C
+    x = _by_slot(obs, stack.norm, K, clip)
+    feats = []
+    for k in range(K):
+        h = x[k][:, :n].reshape(Ep, H, W, C).permute(0, 3, 1, 2)
+        for w, b in zip(stack.conv_weights, stack.conv_biases):
+            c_out = w.shape[0] // K
+            if stack.bf16:
+                h = h.to(torch.bfloat16).float()
+            h = torch.relu(F.conv2d(h, w[k * c_out:(k + 1) * c_out], b[k * c_out:(k + 1) * c_out],
+                                    padding="same"))
+        feats.append(torch.cat([h.permute(0, 2, 3, 1).reshape(Ep, -1), x[k][:, n:]], dim=1))
+    return _select(_tower_plain(torch.stack(feats), stack), slot)
+
+
+def opponent_cnn_front_plain(obs: torch.Tensor, stack: OpponentStack,
+                             clip: float = 10.0) -> torch.Tensor:
+    """Plain PyTorch K20: every slot's normalisation of the spatial slice
+    of the raw obs [Ep, D], as the first conv's input of all K slots,
+    [Ep, K * C, H, W] (slot k's channels ``[k * C, (k + 1) * C)``, the
+    NHWC slice permuted to NCHW); rounded to bf16 values for a bf16
+    stack."""
+    K, (H, W, C), Ep = stack.num_slots, stack.obs_shape, obs.shape[0]
+    x = _by_slot(obs[:, :H * W * C], _columns(stack.norm, 0, H * W * C), K, clip)
+    x = x.reshape(K, Ep, H, W, C).permute(1, 0, 4, 2, 3).reshape(Ep, K * C, H, W)
+    return x.to(torch.bfloat16).float() if stack.bf16 else x.contiguous()
+
+
+def _columns(norm: Optional[ObsNormState], lo: int, hi: int) -> Optional[ObsNormState]:
+    """The stacked normalisers of obs columns [lo, hi)."""
+    if norm is None:
+        return None
+    return ObsNormState(mean=norm.mean[:, lo:hi], m2=norm.m2[:, lo:hi], count=norm.count)
+
+
+def opponent_convs(x: torch.Tensor, stack: OpponentStack) -> torch.Tensor:
+    """The K slots' conv stacks over K20's output [Ep, K * C, H, W]: each
+    layer one cuDNN conv with ``groups = K`` (stride 1, SAME, the bias),
+    relu between layers; returns the last conv's output before its relu,
+    which K7's feature front applies as it loads. A bf16 stack rounds each
+    later conv's input to bf16 after the relu (K20 rounded the first's),
+    and runs the f32 conv of the rounded values, as the learner's card
+    route does (``models/core.py``). The grouped conv beat a loop of K
+    per-slot convs a layer, and channels-last layouts, as a graph replays
+    them at Connect Four's pool block (``PERF.md``, row B22)."""
+    K = stack.num_slots
+    for i, (w, b) in enumerate(zip(stack.conv_weights, stack.conv_biases)):
+        if i:
+            x = torch.relu(x)
+            if stack.bf16:
+                x = round_bf16(x).float()
+        x = F.conv2d(x, w, b, padding="same", groups=K)
+    return x
+
+
+def opponent_features_forward_plain(feat: torch.Tensor, obs: torch.Tensor, slot: torch.Tensor,
+                                    stack: OpponentStack, clip: float = 10.0) -> torch.Tensor:
+    """Plain PyTorch K7 with the feature front: for every slot, its
+    channels of the last conv's output ``feat`` [Ep, K * C, H, W] relu'd
+    and flattened in NHWC order (h W C + w C + c), then the obs columns
+    past the spatial slice normalised by the slot; the slot's FC tower and
+    head over every row; each row's acting slot (zeros outside [0, K))."""
+    K, (H, W, C), Ep = stack.num_slots, stack.obs_shape, obs.shape[0]
+    n = H * W * C
+    cc = feat.shape[1] // K
+    f = torch.relu(feat).reshape(Ep, K, cc, H, W).permute(1, 0, 3, 4, 2).reshape(K, Ep, -1)
+    extras = _by_slot(obs[:, n:], _columns(stack.norm, n, obs.shape[1]), K, clip)
+    return _select(_tower_plain(torch.cat([f, extras], dim=2), stack), slot)
 
 
 # K7's tilings (csrc/opponent_actor.cu TILINGS): rows per cluster tile and
@@ -180,11 +323,21 @@ _OPP_MAX_WIDTH, _OPP_MAX_HEAD, _OPP_MAX_LAYERS, _OPP_MAX_SLOTS = 512, 64, 4, 128
 
 
 def actor_widths(network) -> Optional[List[int]]:
-    """The widths [D, hidden..., A] of a network's actor tower as
-    ``actor_params`` reads it, or None for a tower K7 cannot run (the CNN)."""
+    """The widths [D, hidden..., A] of a network's actor tower as K7 reads
+    it from the raw obs, or None for a tower whose K7 front reads conv
+    features (the CNN: ``cnn_actor_widths``)."""
     if network.network_type not in ("mlp", "ctde"):
         return None
     return [network.obs_dim] + [network.hidden_size] * network.num_hidden + [network.action_count]
+
+
+def cnn_actor_widths(obs_shape: Sequence[int], obs_dim: int, last_channels: int,
+                     fc_widths: Sequence[int], action_count: int) -> List[int]:
+    """The widths [F, fc..., A] of a CNN's actor tower behind its convs, as
+    K7's feature front reads it: F the flatten of the last conv
+    (H W ``last_channels``) plus the obs columns past the spatial slice."""
+    H, W, C = obs_shape
+    return [H * W * last_channels + obs_dim - H * W * C, *fc_widths, action_count]
 
 
 def opponent_tower_problems(widths: Sequence[int], num_slots: int) -> List[str]:
@@ -205,14 +358,56 @@ def opponent_tower_problems(widths: Sequence[int], num_slots: int) -> List[str]:
     return problems
 
 
-def _check_opponent_tower(stack: OpponentStack, D: int) -> List[int]:
-    """The tower's widths [D, hidden..., A], or ValueError for a tower K7
-    does not take."""
+def _tower_args(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack, D: int,
+                clip: float, tiling: Optional[int], what: str) -> tuple:
+    """K7's arguments up to the stream (its C entries share them), the
+    tower of input width ``D`` checked against what the kernel takes, and
+    the output [Ep, A]."""
+    norm = stack.norm
+    wdtype = torch.bfloat16 if stack.bf16 else torch.float32
+    Ep, obs_dim = obs.shape
+    K = stack.num_slots
     widths = [D] + [w.shape[2] for w in stack.weights]
-    problems = opponent_tower_problems(widths, stack.num_slots)
+    problems = opponent_tower_problems(widths, K)
     if problems:
-        raise ValueError("opponent_actor_forward: the kernel does not take " + ", ".join(problems))
-    return widths
+        raise ValueError(f"{what}: the kernel does not take " + ", ".join(problems))
+    kernels.expect(obs, "obs", torch.float32, (Ep, obs_dim))
+    kernels.expect(slot, "slot", torch.int32, (Ep,))
+    if norm is not None:
+        kernels.expect(norm.mean, "norm.mean", torch.float32, (K, obs_dim))
+        kernels.expect(norm.m2, "norm.m2", torch.float32, (K, obs_dim))
+        kernels.expect(norm.count, "norm.count", torch.float32, (K,))
+    for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
+        kernels.expect(w, f"weights[{i}]", wdtype, (K, widths[i], widths[i + 1]))
+        kernels.expect(b, f"biases[{i}]", torch.float32, (K, widths[i + 1]))
+        if w.data_ptr() % 16:
+            raise ValueError(f"weights[{i}]: the kernel's 16-byte copies need an aligned buffer")
+    tiling = -1 if tiling is None else tiling
+    if not -1 <= tiling < len(OPPONENT_TILINGS):
+        raise ValueError(f"tiling {tiling}: expected an index of {OPPONENT_TILINGS}")
+    out = torch.empty(Ep, widths[-1], dtype=torch.float32, device=obs.device)
+    depth = len(stack.weights)
+    p = kernels.ptr
+    w_ptrs = (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights))
+    b_ptrs = (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases))
+    norm_ptrs = (None,) * 3 if norm is None else (p(norm.mean), p(norm.m2), p(norm.count))
+    args = (p(obs), p(slot), *norm_ptrs, float(clip), w_ptrs, b_ptrs,
+            (ctypes.c_int * (depth + 1))(*widths), depth, ACTIVATIONS[stack.activation], p(out),
+            Ep, K, tiling, int(stack.bf16))
+    return args, out
+
+
+def _feature_width(stack: OpponentStack, obs_dim: int) -> int:
+    """The width of a CNN stack's tower input: the last conv's flatten
+    plus the obs columns past the spatial slice."""
+    H, W, C = stack.obs_shape
+    return H * W * (stack.conv_weights[-1].shape[0] // stack.num_slots) + obs_dim - H * W * C
+
+
+def _stack_tensors(stack: OpponentStack) -> list:
+    norm = stack.norm
+    ts = [*stack.weights, *stack.biases, *(stack.conv_weights or []), *(stack.conv_biases or [])]
+    return ts if norm is None else ts + [norm.mean, norm.m2, norm.count]
 
 
 def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack,
@@ -228,49 +423,96 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
     bf16 weights streamed, one ``mma.sync`` m16n8k16 bf16 product a step
     with f32 sums, f32 bias and activation, f32 logits). ``launches``
     counts both; the device's kernel names tell them apart. ``tiling``
-    indexes ``OPPONENT_TILINGS`` (default: the kernel's choice)."""
-    norm = stack.norm
-    ts = [obs, slot, *stack.weights, *stack.biases]
-    if norm is not None:
-        ts += [norm.mean, norm.m2, norm.count]
-    if kernels.on_cpu(*ts):
+    indexes ``OPPONENT_TILINGS`` (default: the kernel's choice).
+
+    A CNN stack runs K20 (``opponent_cnn_front``), the grouped convs
+    (``opponent_convs``) and K7's feature front
+    (``opponent_features_forward``), each counted by its own wrapper; this
+    wrapper's ``launches`` counts K7's raw-obs launches only."""
+    if stack.cnn:
+        feat = opponent_convs(opponent_cnn_front(obs, stack, clip), stack)
+        return opponent_features_forward(feat, obs, slot, stack, clip, tiling)
+    if kernels.on_cpu(obs, slot, *_stack_tensors(stack)):
         return opponent_actor_forward_plain(obs, slot, stack, clip)
-    wdtype = torch.bfloat16 if stack.bf16 else torch.float32
-    Ep, D = obs.shape
-    K = stack.num_slots
-    widths = _check_opponent_tower(stack, D)
-    kernels.expect(obs, "obs", torch.float32, (Ep, D))
-    kernels.expect(slot, "slot", torch.int32, (Ep,))
-    if norm is not None:
-        kernels.expect(norm.mean, "norm.mean", torch.float32, (K, D))
-        kernels.expect(norm.m2, "norm.m2", torch.float32, (K, D))
-        kernels.expect(norm.count, "norm.count", torch.float32, (K,))
-    for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
-        kernels.expect(w, f"weights[{i}]", wdtype, (K, widths[i], widths[i + 1]))
-        kernels.expect(b, f"biases[{i}]", torch.float32, (K, widths[i + 1]))
-        if w.data_ptr() % 16:
-            raise ValueError(f"weights[{i}]: the kernel's 16-byte copies need an aligned buffer")
-    tiling = -1 if tiling is None else tiling
-    if not -1 <= tiling < len(OPPONENT_TILINGS):
-        raise ValueError(f"tiling {tiling}: expected an index of {OPPONENT_TILINGS}")
-    dev = obs.device
-    out = torch.empty(Ep, widths[-1], dtype=torch.float32, device=dev)
-    depth = len(stack.weights)
-    p = kernels.ptr
-    w_ptrs = (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights))
-    b_ptrs = (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases))
-    norm_ptrs = (None,) * 3 if norm is None else (p(norm.mean), p(norm.m2), p(norm.count))
-    err = kernels.library().opp_mlp_forward(
-        p(obs), p(slot), *norm_ptrs, float(clip), w_ptrs, b_ptrs,
-        (ctypes.c_int * (depth + 1))(*widths), depth, ACTIVATIONS[stack.activation], p(out), Ep,
-        K, tiling, int(stack.bf16), kernels.stream(dev),
-    )
+    args, out = _tower_args(obs, slot, stack, obs.shape[1], clip, tiling,
+                            "opponent_actor_forward")
+    err = kernels.library().opp_mlp_forward(*args, kernels.stream(obs.device))
     kernels.check(err, "opp_mlp_forward")
     opponent_actor_forward.launches += 1
     return out
 
 
 kernels.counted(opponent_actor_forward)
+
+
+def opponent_cnn_front(obs: torch.Tensor, stack: OpponentStack, clip: float = 10.0) -> torch.Tensor:
+    """K20: the first conv's input of all K slots of a CNN stack, raw obs
+    [Ep, D] -> [Ep, K * C, H, W] f32 (bf16 values for a bf16 stack). CPU
+    tensors take ``opponent_cnn_front_plain``; CUDA tensors launch
+    ``csrc/opponent_cnn_front.cu`` (one launch, one thread an output
+    element, each slot's normalisation and the NHWC -> NCHW permute folded
+    into the store), or raise."""
+    norm = stack.norm
+    if kernels.on_cpu(obs, *_stack_tensors(stack)):
+        return opponent_cnn_front_plain(obs, stack, clip)
+    Ep, D = obs.shape
+    K, (H, W, C) = stack.num_slots, stack.obs_shape
+    if H * W * C > D:
+        raise ValueError(f"opponent_cnn_front: obs shape {stack.obs_shape} past the obs width {D}")
+    kernels.expect(obs, "obs", torch.float32, (Ep, D))
+    if norm is not None:
+        kernels.expect(norm.mean, "norm.mean", torch.float32, (K, D))
+        kernels.expect(norm.m2, "norm.m2", torch.float32, (K, D))
+        kernels.expect(norm.count, "norm.count", torch.float32, (K,))
+    out = torch.empty(Ep, K * C, H, W, dtype=torch.float32, device=obs.device)
+    p = kernels.ptr
+    norm_ptrs = (None,) * 3 if norm is None else (p(norm.mean), p(norm.m2), p(norm.count))
+    err = kernels.library().opp_cnn_front(
+        p(obs), *norm_ptrs, float(clip), p(out), Ep, D, K, H, W, C, int(stack.bf16),
+        kernels.stream(obs.device))
+    kernels.check(err, "opp_cnn_front")
+    opponent_cnn_front.launches += 1
+    return out
+
+
+kernels.counted(opponent_cnn_front)
+
+
+def opponent_features_forward(feat: torch.Tensor, obs: torch.Tensor, slot: torch.Tensor,
+                              stack: OpponentStack, clip: float = 10.0,
+                              tiling: Optional[int] = None) -> torch.Tensor:
+    """K7 with its feature front: each pool row's logits under its acting
+    slot's CNN opponent, from the last conv's output ``feat`` [Ep, K * C,
+    H, W] (any strides; before its relu) and the raw obs [Ep, D]. CPU
+    tensors take ``opponent_features_forward_plain``; CUDA tensors launch
+    K7 (``opponent_cnn_mlp_kernel``, ``opponent_cnn_mlp_bf16_kernel``): a
+    row of slot k loads channels [k C, (k + 1) C) of its ``feat`` row,
+    relu'd, in NHWC order, then its obs columns past the spatial slice
+    normalised by slot k, and runs on as the raw-obs kernel does. Counted
+    apart from ``opponent_actor_forward``."""
+    if kernels.on_cpu(feat, obs, slot, *_stack_tensors(stack)):
+        return opponent_features_forward_plain(feat, obs, slot, stack, clip)
+    Ep, D = obs.shape
+    K, (H, W, C) = stack.num_slots, stack.obs_shape
+    if feat.dtype != torch.float32 or feat.dim() != 4 or feat.shape[0] != Ep \
+            or feat.shape[1] % K or tuple(feat.shape[2:]) != (H, W):
+        raise ValueError(f"feat: expected f32 [{Ep}, K * C, {H}, {W}] with K = {K}, got "
+                         f"{feat.dtype} {tuple(feat.shape)}")
+    cc = feat.shape[1] // K
+    if cc != stack.conv_weights[-1].shape[0] // K:
+        raise ValueError(f"feat: {cc} channels a slot, the last conv has "
+                         f"{stack.conv_weights[-1].shape[0] // K}")
+    args, out = _tower_args(obs, slot, stack, _feature_width(stack, D), clip, tiling,
+                            "opponent_features_forward")
+    strides = (ctypes.c_long * 4)(*feat.stride())
+    err = kernels.library().opp_mlp_forward_features(
+        *args, kernels.ptr(feat), strides, cc, H, W, H * W * C, kernels.stream(obs.device))
+    kernels.check(err, "opp_mlp_forward_features")
+    opponent_features_forward.launches += 1
+    return out
+
+
+kernels.counted(opponent_features_forward)
 
 
 @dataclass

@@ -18,15 +18,18 @@ from update to update, and writes its outputs into one ``RolloutBuffers``:
 * on the vs-pool path, the seating (written back at the end, and copied
   in where the trainer remapped it on the host), the rotation's opponent
   stack, copied into one stack of the padded slot count (K7 takes its
-  layers' pointers as host arrays, fixed at capture), and the reseat's
-  slot bound, the rotation's active count as a 0-dim device tensor.
+  layers' pointers as host arrays, fixed at capture; a CNN stack's
+  grouped-conv weights and biases too, which the captured cuDNN convs
+  read), and the reseat's slot bound, the rotation's active count as a
+  0-dim device tensor.
 
 ``run`` copies in every input that is not already the static one, then
 runs the rollout: eagerly on the CPU (the path the parity tests hold
 against JAX), or on a card by replaying one CUDA graph of all T steps and
 the post-loop, captured at the runner's first rollout after one eager
 warm-up on a side stream (which reaches the kernel library's first load,
-K7's ``cudaFuncSetAttribute`` and cuBLAS's workspace before capture);
+K7's ``cudaFuncSetAttribute``, cuBLAS's workspace and cuDNN's conv plans
+before capture);
 the static inputs and the generator's state are then put back, so the
 first replay draws what the eager loop would. Every random comes from
 the generator of a ``TorchRandomSource``, registered with the graph, so

@@ -25,7 +25,7 @@ buffers.
 
 The ``Trainer`` supports single-player runs, pure self-play, and
 self-play against the opponent pool (``opponent_pool_fraction > 0``,
-the MLP or CTDE, one opponent rotation per window), on CartPole, Connect
+the MLP, the CTDE or the CNN, one opponent rotation per window), on CartPole, Connect
 Four, Liar's Dice and Skull (a fixed player count, ``player_count``; the
 scheduled ``reward_shaping_coef`` is written into the env states before
 every rollout): the pool and the rating
@@ -84,7 +84,12 @@ from burn_ppo_torch.models.network import ActorCriticNetwork, make_network
 from burn_ppo_torch.ppo.episode_stats import WindowedEpisodeTracker
 from burn_ppo_torch.ppo.entropy import AdaptiveEntropyState
 from burn_ppo_torch.ppo.normalization import ObsNormState, PopArtState
-from burn_ppo_torch.ppo.pool_rollout import OpponentStack, PoolSeating
+from burn_ppo_torch.ppo.pool_rollout import (
+    OpponentStack,
+    PoolSeating,
+    cnn_actor_widths,
+    opponent_tower_problems,
+)
 from burn_ppo_torch.ppo.rollout import (
     RandomSource,
     RolloutCarry,
@@ -279,17 +284,32 @@ def unsupported_config(cfg: Config) -> Optional[str]:
     None when it can."""
     if cfg.env not in registered_envs():
         return f"env {cfg.env!r}: not an env of the JAX package either"
-    if cfg.env != "cartpole" and cfg.opponent_pool_fraction > 0.0:
-        if cfg.network_type == "cnn":
-            return ("network_type 'cnn' with the opponent pool (opponent_pool_fraction "
-                    f"{cfg.opponent_pool_fraction}): ROADMAP A12b; pass "
-                    "--opponent-pool-fraction 0 for pure self-play with the CNN")
+    if cfg.env != "cartpole" and cfg.opponent_pool_fraction > 0.0 and cfg.network_type == "cnn":
+        problems = cnn_opponent_problems(cfg)
+        if problems:
+            return ("network_type 'cnn' with the opponent pool: K7's feature front does not "
+                    f"take {', '.join(problems)}: ROADMAP A12e; pass --opponent-pool-fraction 0 "
+                    "for pure self-play with this CNN")
     if cfg.network_type == "ctde" and make_env(cfg.env).spec.privileged_obs_dim is None:
         return (f"network_type 'ctde' needs an env with privileged observations (liars_dice, "
                 f"skull), not {cfg.env!r}; the JAX package cannot build it either")
     if cfg.mesh_data not in (0, 1):
         return f"mesh_data {cfg.mesh_data}: multi-device training, ROADMAP A16"
     return None
+
+
+def cnn_opponent_problems(cfg: Config) -> list:
+    """What K7's feature front does not take of this config's CNN tower
+    behind its convs, at the pool's slot count (the widths of a CNN whose
+    env has no obs shape are not checked: ``validate_config`` refuses it)."""
+    spec = make_env(cfg.env).spec
+    if spec.obs_shape is None or cfg.num_conv_layers < 1:
+        return []
+    channels = list(cfg.conv_channels) or [64]
+    last = channels[min(cfg.num_conv_layers, len(channels)) - 1]
+    widths = cnn_actor_widths(spec.obs_shape, spec.obs_dim, last,
+                              [cfg.cnn_fc_hidden_size] * cfg.cnn_num_fc_layers, spec.num_actions)
+    return opponent_tower_problems(widths, max(cfg.max_active_opponents, 1))
 
 
 def validate_config(cfg: Config) -> None:

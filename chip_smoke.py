@@ -311,6 +311,20 @@ exits non-zero without the final result line:
      configs/skull_ctde_tpu.toml in bf16, one pool window of 8 against 8
      fresh opponents (bf16 stacks), every launch counted, K7's bf16 tower
      64 on the device in one profiled rollout replay;
+  3s. the CNN against the pool (A12b): in phase 2, K20 (the opponents'
+     conv front) bit for bit its plain version at Ep = 1024, K = 8, obs
+     norm on, f32 and bf16; the grouped cuDNN convs in turns with a loop
+     of K per-slot convs; K7's feature front after them against
+     opponent_cnn_forward_plain (each slot's normalisation, convs and
+     tower over every row, then the row's slot), f32 to K7's tolerance,
+     the bf16 tower by its check with its control failing; the rollout
+     case ``connect_four_pool_cnn`` graphed bit for bit; phase
+     ``selfplay_pool_cnn``: configs/connect_four.toml with --network-type
+     cnn through the CLI, 4096 x 64, 10 updates with a checkpoint each
+     (K = 8 at updates 9 and 10), K20 and K7's feature front 64 launches a
+     pool update, the update times on the host's clock, the idle share
+     from phase ``update_idle_share``'s CNN case; and 3 updates of the same
+     with --compute-dtype bfloat16;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps, also with --compute-dtype
      bfloat16 (printed beside the f32 bar); then the same with
@@ -427,11 +441,19 @@ from burn_ppo_torch.ppo.normalization import (  # noqa: E402
     popart_update_rescale,
     popart_update_rescale_plain,
 )
+from burn_ppo_torch.models.network import ActorCriticNetwork  # noqa: E402
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
     OPPONENT_TILINGS,
     OpponentStack,
+    actor_params,
     opponent_actor_forward,
     opponent_actor_forward_plain,
+    opponent_cnn_forward_plain,
+    opponent_cnn_front,
+    opponent_cnn_front_plain,
+    opponent_convs,
+    opponent_features_forward,
+    opponent_features_forward_plain,
 )
 from burn_ppo_torch.ppo.update import (  # noqa: E402
     LossBook,
@@ -519,6 +541,14 @@ BF16_FLOP_PER_S = 989e12
 # launches are all that tower's (their stacks' weights bf16).
 BF16_TOWER = "opponent_actor_forward_bf16_tower"
 BF16_RUNS = ("selfplay_pool_bf16", "bf16_flagship_window")
+# The kernels line's row of K7's feature front in its bf16 tower, and the
+# CNN vs-pool runs whose feature-front launches are all that tower's.
+CNN_BF16_TOWER = "opponent_features_forward_bf16_tower"
+CNN_BF16_RUNS = ("selfplay_pool_cnn_bf16",)
+CNN_POOL_UPDATES_BF16 = 3  # the CNN against the pool in bf16: K reaches 2
+# configs/connect_four.toml's default CNN: convs 2 -> 8 -> 8 (3 x 3) over
+# the 6 x 7 board, FC 338 -> 32, head 7.
+C4_SHAPE, C4_CONV = (6, 7, 2), (8, 8)
 WRAPPERS = {
     "cartpole_step_autoreset": cartpole_step_autoreset,
     "masked_gumbel_sample": masked_sample,
@@ -541,6 +571,8 @@ WRAPPERS = {
     "step_books": step_books,
     "window_records": window_records,
     "window_report": window_report,
+    "opponent_cnn_front": opponent_cnn_front,
+    "opponent_features_forward": opponent_features_forward,
 }
 SOURCES = {
     "cartpole_step_autoreset": ("burn_ppo_torch/csrc/cartpole_step.cu",
@@ -582,6 +614,16 @@ SOURCES = {
     "step_books": ("burn_ppo_torch/csrc/eval_step.cu", "burn_ppo_tpu/eval.py:575"),
     "window_records": ("burn_ppo_torch/csrc/window_records.cu", "burn_ppo_tpu/train.py:462"),
     "window_report": ("burn_ppo_torch/csrc/window_report.cu", "burn_ppo_tpu/train.py:333"),
+    # the CNN opponents under the vmap of opponent_logits: each slot's
+    # obs_norm_apply and the spatial reshape feeding the first conv (K20),
+    # and the last relu, flatten, concat, FC tower and head (K7's feature
+    # front; its bf16 tower with the learner's bf16 dense)
+    "opponent_cnn_front": ("burn_ppo_torch/csrc/opponent_cnn_front.cu",
+                           "burn_ppo_tpu/ppo/pool_rollout.py:132"),
+    "opponent_features_forward": ("burn_ppo_torch/csrc/opponent_actor.cu",
+                                  "burn_ppo_tpu/models/network.py:195"),
+    CNN_BF16_TOWER: ("burn_ppo_torch/csrc/opponent_actor.cu",
+                     "burn_ppo_tpu/models/network.py:195"),
 }
 # The env steps with K14's row code as their sampling front (the step
 # kernels' other instance, launched by the same wrappers): eval's sample
@@ -1924,6 +1966,183 @@ def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor) -> dict:
     return out
 
 
+def cnn_opponents(dev, g, K: int, normed: bool = True, bf16: bool = False) -> OpponentStack:
+    """K Connect Four CNNs of configs/connect_four.toml's default shape
+    (convs 2 -> 8 -> 8, 3 x 3, FC 32, head 7), each initialised as the
+    trainer initialises one from a seed drawn from ``g``, their biases
+    random, stacked as a rotation stacks checkpoints (``actor_params``,
+    ``OpponentStack.of``; bf16: as a bf16 run stores them), with obs
+    normalisers: slot 0 at count 0, slot 1 at count 1 (the identity), the
+    others merged."""
+    params = []
+    for _ in range(K):
+        seed = int(torch.randint(0, 2**31, (1,), generator=g, device=dev))
+        net = ActorCriticNetwork(86, 7, network_type="cnn", obs_shape=C4_SHAPE,
+                                 conv_channels=C4_CONV, activation="relu",
+                                 generator=torch.Generator(device=dev).manual_seed(seed))
+        with torch.no_grad():
+            for m in [*net.conv_layers, *net.fc_layers, net.policy_head]:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g, device=dev) * 0.1)
+        params.append(actor_params(net, "bfloat16" if bf16 else None))
+    norms = None
+    if normed:
+        counts = [0.0, 1.0] + [5000.0] * (K - 2)
+        norms = [ObsNormState(mean=torch.rand(86, generator=g, device=dev),
+                              m2=torch.rand(86, generator=g, device=dev) * 300.0,
+                              count=torch.tensor(c, device=dev)) for c in counts[:K]]
+    return OpponentStack.of(params, norms)
+
+
+def per_slot_convs(x: torch.Tensor, stack: OpponentStack) -> torch.Tensor:
+    """``opponent_convs`` as a loop of K per-slot cuDNN convs a layer (the
+    alternative to the grouped conv, timed against it)."""
+    K = stack.num_slots
+    for i, (w, b) in enumerate(zip(stack.conv_weights, stack.conv_biases)):
+        if i:
+            x = torch.relu(x)
+            if stack.bf16:
+                x = x.to(torch.bfloat16).float()
+        ci, co = x.shape[1] // K, w.shape[0] // K
+        x = torch.cat([torch.nn.functional.conv2d(
+            x[:, k * ci:(k + 1) * ci], w[k * co:(k + 1) * co], b[k * co:(k + 1) * co],
+            padding="same") for k in range(K)], dim=1)
+    return x
+
+
+def graph_replay_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event span of one replay of ``fn`` captured into a CUDA
+    graph (after a warm-up on a side stream): its time as the rollout
+    graph runs it, without the host's launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps)
+
+
+def conv_macs(stack: OpponentStack) -> int:
+    """Multiply-adds of one row through all K slots' convs."""
+    H, W, _ = stack.obs_shape
+    return sum(w.numel() * H * W for w in stack.conv_weights)
+
+
+def check_opponent_cnn(dev, g) -> dict:
+    """The CNN opponents' path at Connect Four's pool block (Ep = 1024, K =
+    8, obs norm on), f32 and bf16 (the stack stored as a bf16 run stores
+    it): K20 bit for bit its plain version; the grouped cuDNN convs against
+    a loop of K per-slot convs, equal to 1e-5 and timed in turns; K7's
+    feature front after them against ``opponent_cnn_forward_plain`` (the
+    JAX formulation from the raw obs), f32 to 1e-4 + 1e-4 |plain|, the
+    bf16 tower by ``bf16_tower_errors`` with its control (the f32 tower on
+    the same rounded weights and features) failing; every tiling; each
+    timed against its plain version, K7's feature front also against
+    torch.bmm over the K x Ep stacked rows (its library call, K times the
+    work), with its bound."""
+    obs = connect_four_like(dev, g, EP)
+    slot = torch.randint(0, 8, (EP,), generator=g, device=dev, dtype=torch.int32)
+    slot[:3] = torch.tensor([-1, 8, 40], device=dev, dtype=torch.int32)
+    front, feats, towers = {}, {}, {}
+    for bf16 in (False, True):
+        key = "bf16" if bf16 else "f32"
+        stack = cnn_opponents(dev, g, 8, bf16=bf16)
+        # K20: every slot's normalised spatial obs as the grouped conv's input
+        before = opponent_cnn_front.launches
+        k = opponent_cnn_front(obs, stack)
+        p = opponent_cnn_front_plain(obs, stack)
+        if opponent_cnn_front.launches != before + 1 or not torch.equal(k, p):
+            raise AssertionError(f"opponent_cnn_front {key}: not bit for bit its plain version, "
+                                 f"max abs err {max_err([(k, p)])}")
+        if bf16 and not torch.equal(k, k.to(torch.bfloat16).float()):
+            raise AssertionError("opponent_cnn_front bf16: values that are not bf16")
+        front[key] = {
+            "max_abs_err": 0.0, "equal_bit_for_bit": True, "shape": list(k.shape),
+            **timed(lambda: opponent_cnn_front(obs, stack),
+                    lambda: opponent_cnn_front_plain(obs, stack)),
+            "library_ms": None,
+            # the raw obs and the normalisers read once, the output written once
+            **bound(nbytes(obs, stack.norm) + k.numel() * 4, 6.0 * k.numel()),
+        }
+        # the convs: one grouped conv a layer against K per-slot convs
+        feat = opponent_convs(k, stack)
+        loop = per_slot_convs(k, stack)
+        conv_err = max_err([(feat, loop)])
+        if conv_err > 1e-5 * float(loop.abs().max()):
+            raise AssertionError(f"grouped convs {key} against per-slot convs: {conv_err}")
+        conv = {"max_abs_err": conv_err, "macs": EP * conv_macs(stack),
+                **turns(lambda: opponent_convs(k, stack), lambda: per_slot_convs(k, stack),
+                        who="per_slot_loop"),
+                # as the rollout graph runs them: one graph each, in turns
+                "graph_ms_turns": [], "per_slot_loop_graph_ms": []}
+        for which in ("per_slot_loop_graph_ms", "graph_ms_turns", "graph_ms_turns",
+                      "per_slot_loop_graph_ms"):
+            conv[which].append(graph_replay_ms(
+                (lambda: per_slot_convs(k, stack)) if which.startswith("per_slot")
+                else (lambda: opponent_convs(k, stack))))
+        # K7's feature front after them, against the JAX formulation
+        want = opponent_cnn_forward_plain(obs, slot, stack)
+        counts = (opponent_cnn_front.launches, opponent_features_forward.launches,
+                  opponent_actor_forward.launches)
+        got = opponent_actor_forward(obs, slot, stack)
+        if (opponent_cnn_front.launches, opponent_features_forward.launches,
+                opponent_actor_forward.launches) != (counts[0] + 1, counts[1] + 1, counts[2]):
+            raise AssertionError("a CNN stack did not launch K20 and K7's feature front once each")
+        if not torch.equal(got[:3], torch.zeros_like(got[:3])):
+            raise AssertionError("K7's feature front: out-of-range slots not zeros")
+        if bf16:
+            errs = bf16_tower_errors(got, want)
+            control = bf16_tower_errors(opponent_features_forward(
+                feat, obs, slot, dataclasses.replace(
+                    stack, weights=[w.float() for w in stack.weights])), want)
+            if not errs["within"] or control["within"]:
+                raise AssertionError(f"K7's bf16 feature front {errs}, its control {control}; "
+                                     f"{BF16_TOWER_TOL}")
+            entry = {"tol": BF16_TOWER_TOL, "max_abs_err": errs["max_abs"],
+                     "mean_abs_err": errs["mean_abs"], "max_abs_plain": errs["max_abs_plain"],
+                     "control_f32_tower_rounded_weights": control}
+        else:
+            d = (got - want).abs()
+            if not bool(torch.all(d <= 1e-4 + 1e-4 * want.abs())):
+                raise AssertionError(f"K7's feature front f32: max abs err {float(d.max())}")
+            entry = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": float(d.max())}
+        tilings = {}
+        for t, (r, c) in enumerate(OPPONENT_TILINGS):
+            run = (lambda t=t: opponent_features_forward(feat, obs, slot, stack, tiling=t))
+            tilings[f"{r}x{c}"] = {"max_abs_err": max_err([(run(), got)]),
+                                   "device_ms": device_ms(run)[0], "ms": time_ms(run)}
+        cc, (H, W, C) = feat.shape[1] // 8, stack.obs_shape
+        F = H * W * cc + obs.shape[1] - H * W * C
+        wdt = torch.bfloat16 if bf16 else torch.float32
+        xs = [torch.rand(8, EP, w.shape[1], generator=g, device=dev).to(wdt) for w in stack.weights]
+        macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
+        rows_in = int(((slot >= 0) & (slot < 8)).sum())
+        # what this run's rows read: their slot's features and extra obs
+        # columns, the weights, biases and normalisers, the logits out
+        moved = (rows_in * F * 4 + nbytes(slot, stack.weights, stack.biases, stack.norm)
+                 + EP * 7 * 4)
+        ops = {"flops_bf16" if bf16 else "flops_3xtf32": 2.0 * rows_in * macs}
+        entry.update(
+            **timed(lambda: opponent_features_forward(feat, obs, slot, stack),
+                    lambda: opponent_features_forward_plain(feat, obs, slot, stack)),
+            tilings=tilings, feature_width=F,
+            library_ms=time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+            library_call="torch.bmm over the K x Ep stacked rows, one per layer (K times the "
+                         "work" + (", bf16 out)" if bf16 else ")"),
+            **bound(moved, **ops))
+        whole = {"events_ms": time_ms(lambda: opponent_actor_forward(obs, slot, stack)),
+                 "plain_events_ms": time_ms(lambda: opponent_cnn_forward_plain(obs, slot, stack))}
+        (towers if bf16 else feats)[key] = {**entry, "convs": conv, "whole_path": whole}
+    keys = TIMES + ("library_ms", "bound_ms", "bound_by", "max_abs_err")
+    return {
+        "opponent_cnn_front": {**front, **{k: front["f32"][k] for k in keys}},
+        "opponent_features_forward": {**feats, **{k: feats["f32"][k] for k in keys}},
+        CNN_BF16_TOWER: {**towers, **{k: towers["bf16"][k] for k in keys}},
+    }
+
+
 def loss_batch(dev, g, M: int, A: int):
     """A minibatch as the update gives it: 0 to A-1 masked actions per row,
     a fifth of the rows invalid."""
@@ -2180,6 +2399,9 @@ ROLLOUT_CASES = (
     # the bf16 compute dtype: the learner's bf16 dense and K7's bf16 tower
     ("connect_four_pool_bf16", "connect_four.toml", T_C4,
      {"normalize_obs": True, "compute_dtype": "bfloat16"}, True),
+    # the CNN against the pool: K20, the grouped convs, K7's feature front
+    ("connect_four_pool_cnn", "connect_four.toml", T_C4,
+     {"normalize_obs": True, "network_type": "cnn"}, True),
 )
 # The pool case's rounds: (shaping, the rotation's active count); each
 # round a new stack, and the trainer's host remap of the seats where the
@@ -2232,9 +2454,19 @@ def rollout_bound(checks: dict, name: str, net, steps: int) -> dict:
             checks["connect_four_step_autoreset"]["bound_ms"], 2 * samples["A7"]["bound_ms"],
             checks["obs_norm_apply"]["bound_ms"],
             checks[BF16_TOWER]["c4_Ep1024_K8_mlp512x2"]["bound_ms"]],
+        # K20, the grouped convs' operations (all K slots over every pool
+        # row) at the f32 rate, and K7's feature front
+        "connect_four_pool_cnn": [
+            checks["connect_four_step_autoreset"]["bound_ms"], 2 * samples["A7"]["bound_ms"],
+            checks["obs_norm_apply"]["bound_ms"], checks["opponent_cnn_front"]["bound_ms"],
+            2.0 * checks["opponent_features_forward"]["f32"]["convs"]["macs"] / F32_FLOP_PER_S
+            * 1e3, checks["opponent_features_forward"]["bound_ms"]],
     }[name]
+    H, W, _ = net.obs_shape or (1, 1, 1)
     flops = sum(2.0 * E * m.in_features * m.out_features
                 for m in net.modules() if isinstance(m, torch.nn.Linear)) * steps
+    flops += sum(2.0 * E * H * W * m.weight.numel()
+                 for m in net.modules() if isinstance(m, torch.nn.Conv2d)) * steps
     rate = BF16_FLOP_PER_S if net.compute_dtype == "bfloat16" else F32_FLOP_PER_S
     once = checks["return_norm_finalize"]["bound_ms"] if name == "cartpole" else 0.0
     kernels_ms = sum(per_step) * steps + once
@@ -2276,7 +2508,8 @@ def check_rollout_graph(dev, g, checks: dict, name: str, toml: str, steps: int, 
     shaped = "shaping_coef" in env.context_fields
     if pool:
         obs_dim, act = env.spec.obs_dim, cfg.activation
-        stacks = [random_opponents(dev, g, 8, act, D=obs_dim, H=cfg.hidden_size,
+        stacks = [cnn_opponents(dev, g, 8) if cfg.network_type == "cnn" else
+                  random_opponents(dev, g, 8, act, D=obs_dim, H=cfg.hidden_size,
                                    A=env.spec.num_actions, depth=cfg.num_hidden)
                   for _ in POOL_ROUNDS]
         if net.is_ctde:
@@ -2660,6 +2893,8 @@ ROLLOUT_KERNELS = {
     "masked_gumbel_sample": "masked_gumbel_sample_kernel",
     "obs_norm_apply": "obs_norm_apply_kernel",
     "opponent_actor_forward": "opponent_mlp_kernel",
+    "opponent_cnn_front": "opponent_cnn_front_kernel",
+    "opponent_features_forward": "opponent_cnn_mlp_kernel",
     "return_norm_roll": "return_norm_roll_kernel",
     "return_norm_finalize": "return_norm_finalize_kernel",
     "popart_denormalize": "popart_denormalize_kernel",
@@ -2787,7 +3022,7 @@ def update_idle_shares(tmp: Path, card_line: str) -> dict:
     """The device's idle share of one CartPole update (4096 x 128, the
     bench shape) and of one Connect Four update against a pool of 8
     checkpoints (4096 x 64, configs/connect_four.toml with obs norm, K =
-    8), through ``Trainer.update``; and in one replay of each update's
+    8), with the MLP and with the CNN, through ``Trainer.update``; and in one replay of each update's
     rollout graph and of its update graphs (every minibatch), every kernel's
     device launches against those the graphs captured. Run in a process
     of its own (``phase_in_process``):
@@ -2795,9 +3030,12 @@ def update_idle_shares(tmp: Path, card_line: str) -> dict:
     K6 launch from every profile."""
     out = {"card": card_line}
     for name, toml, steps, pool in (("cartpole", "cartpole.toml", T, False),
-                                   ("connect_four_pool", "connect_four.toml", T_C4, True)):
+                                   ("connect_four_pool", "connect_four.toml", T_C4, True),
+                                   ("connect_four_pool_cnn", "connect_four.toml", T_C4, True)):
         cfg = Config.load(ROOT / "configs" / toml)
         cfg.num_envs, cfg.num_steps, cfg.normalize_obs, cfg.seed = E, steps, True, 0
+        if name.endswith("_cnn"):
+            cfg.network_type = "cnn"
         tr = Trainer(cfg, tmp / f"idle_{name}", device="cuda", quiet=True)
         if pool:
             for _ in range(8):
@@ -3155,6 +3393,58 @@ def selfplay_pool_train(tmp: Path, card_line: str) -> dict:
                learner_valid_share=share, learner_valid_share_expected=want,
                current_elo=series["train/current_elo"], best_elo=series["train/best_elo"],
                env_steps_per_s_at_k8=sps[8:], policy_loss=series["train/policy_loss"])
+    return out
+
+
+def selfplay_pool_cnn(tmp: Path, card_line: str, bf16: bool = False) -> dict:
+    """The CNN against the opponent pool (A12b): configs/connect_four.toml
+    as users run it with --network-type cnn (pool fraction 0.25, 8
+    opponents at most), obs norm on, 4096 x 64, a checkpoint after every
+    update: 10 updates, the pool reaching K = 8 at updates 9 and 10 (or,
+    with ``bf16``, 3 updates with --compute-dtype bfloat16: K7's feature
+    front in its bf16 tower). Per pool update, every step: K20 once, the
+    grouped convs, K7's feature front once, K2 twice (learner, opponents),
+    K7's raw-obs front never. The update times on the host's clock from
+    ``perf/sps``."""
+    n = CNN_POOL_UPDATES_BF16 if bf16 else POOL_UPDATES
+    pool_updates = n - 1
+    run = tmp / ("c4_pool_cnn" + ("_bf16" if bf16 else ""))
+    out, series = train_phase(
+        run,
+        ["--config", str(ROOT / "configs" / "connect_four.toml"), "--network-type", "cnn",
+         "--num-envs", str(E), "--num-steps", str(T_C4), "--normalize-obs",
+         *(BF16_FLAGS if bf16 else ())],
+        n, E * T_C4,
+        {"connect_four_step_autoreset": n * T_C4,
+         "masked_gumbel_sample": n * T_C4 + pool_updates * T_C4,
+         "opponent_cnn_front": pool_updates * T_C4,
+         "opponent_features_forward": pool_updates * T_C4,
+         "gae_multiplayer_reverse_scan": n, "window_records": pool_updates,
+         "obs_norm_apply": n * (T_C4 + 2), "obs_norm_update": n},
+        card_line, checkpoint_freq=E * T_C4,
+    )
+    cfg = Config.load(run / "config.toml")
+    if cfg.network_type != "cnn" or cfg.compute_dtype != ("bfloat16" if bf16 else None):
+        raise AssertionError(f"the run's config.toml: {cfg.network_type} {cfg.compute_dtype}")
+    stats = json.loads((run / "opponent_stats.json").read_text())["opponents"]
+    rotation_sizes = [min(u - 1, 8) for u in range(1, n + 1)]
+    if len(stats) != n - 1 or (not bf16 and max(rotation_sizes) != 8):
+        raise AssertionError(f"the pool did not reach {min(n - 1, 8)} opponents: {len(stats)} "
+                             "in the stats file")
+    for f in ("rating_games.jsonl", "rating_metadata.json", "checkpoints/best"):
+        if not (run / f).exists():
+            raise AssertionError(f"the CNN vs-pool run wrote no {f}")
+    share = series["train/learner_valid_fraction"]
+    want = (E - EP + EP / 2) / E
+    if len(share) != pool_updates or not all(abs(s - want) <= 0.02 for s in share):
+        raise AssertionError(f"learner valid share {share} not within 0.02 of {want}")
+    sps = series["perf/sps"]
+    update_ms = [E * T_C4 / v * 1e3 for v in sps]
+    out.update(rotation_sizes=rotation_sizes, opponents_in_pool=len(stats),
+               games_played=sum(x["games_played"] for x in stats),
+               learner_valid_share=share, learner_valid_share_expected=want,
+               env_steps_per_s_at_k8=sps[8:], update_ms_host=update_ms,
+               policy_loss=series["train/policy_loss"], value_loss=series["train/value_loss"])
     return out
 
 
@@ -5276,6 +5566,9 @@ def interop_phase(tmp: Path, card_line: str) -> dict:
 
 
 INTERACTIVE_SAMPLES = 24  # ai_sample moves of the scripted session
+# More ai_sample moves, at most, while none of them has met a forced discard
+# yet: the session's generator is seeded from the OS, so 24 moves may meet none.
+INTERACTIVE_DISCARD_SAMPLES = 400
 INTERACTIVE_END_MOVES = 600  # then ai_sample moves until the game ends, at most
 # A four-player skull reveal: P0 places its skull, P1-P3 a rose each, P0
 # bids 4 (every card on the table: straight to revealing) and must reveal
@@ -5320,7 +5613,9 @@ def interactive_phase(tmp: Path, card_line: str) -> dict:
     the page, the networks, r4 selected, a four-player game, a skull
     reveal and its discard, then ``INTERACTIVE_SAMPLES`` ``ai_sample``
     moves each after an ``ai_probs`` (a new game when one ends; every
-    skull reveal's discard chosen), an undo back to the position before
+    skull reveal's discard chosen; more moves, up to
+    ``INTERACTIVE_DISCARD_SAMPLES``, until one of them has met a forced
+    discard, which the phase requires), an undo back to the position before
     the last move, the history, then ``ai_sample`` moves until the game
     ends, whose last position must be the plain step's
     (``interactive_terminal_check``). Every ``ai_probs``: the network's full
@@ -5394,7 +5689,8 @@ def interactive_phase(tmp: Path, card_line: str) -> dict:
         applied += len(SKULL_REVEAL) - 1
         discard(r)
         before_last = None
-        while samples < INTERACTIVE_SAMPLES:
+        while samples < INTERACTIVE_SAMPLES or (discards < 2
+                                                and samples < INTERACTIVE_DISCARD_SAMPLES):
             state = call("/api/game_state")
             if state["game_over"]:
                 call("/api/new_game", {"num_players": 4, "ai_seat": samples % 4})
@@ -6305,6 +6601,12 @@ def main(argv: list) -> int:
     checks[BF16_TOWER] = {
         **check_opponent_actor_bf16(dev, torch.Generator(device=dev).manual_seed(21), skull_obs),
         "ptxas": kernel_ptxas(ptxas, "opponent_mlp_bf16")}
+    # The CNN opponents (A12b): K20, the grouped convs, K7's feature front
+    # in both towers, on a generator of their own.
+    checks.update(check_opponent_cnn(dev, torch.Generator(device=dev).manual_seed(22)))
+    checks["opponent_cnn_front"]["ptxas"] = kernel_ptxas(ptxas, "opponent_cnn_front")
+    checks["opponent_features_forward"]["ptxas"] = kernel_ptxas(ptxas, "opponent_cnn_mlp")
+    checks[CNN_BF16_TOWER]["ptxas"] = kernel_ptxas(ptxas, "opponent_cnn_mlp_bf16")
     # The env steps with K14's sampling front, on a generator of their own:
     # each beside its step's own checks, its error in the step's.
     fronts = check_sample_steps(dev, torch.Generator(device=dev).manual_seed(19), ptxas)
@@ -6364,6 +6666,10 @@ def main(argv: list) -> int:
             "selfplay_pool_bf16": selfplay_pool_bf16(Path(d), card_line),
             "selfplay_train_cnn_bf16": selfplay_train(Path(d), card_line, "cnn", CNN_UPDATES,
                                                       BF16_FLAGS),
+            # the CNN against the pool (A12b): K20, the grouped convs and
+            # K7's feature front, f32 to K = 8, then bf16
+            "selfplay_pool_cnn": selfplay_pool_cnn(Path(d), card_line),
+            "selfplay_pool_cnn_bf16": selfplay_pool_cnn(Path(d), card_line, bf16=True),
         }
         for phase, out in runs.items():
             emit(phase, **out)
@@ -6389,7 +6695,14 @@ def main(argv: list) -> int:
         emit("popart_entropy_train", **pe)
         runs["popart_cartpole"] = pe["cartpole"]
         runs["popart_liars_dice_pool"] = pe["liars_dice_ctde_pool"]
-        emit("update_idle_share", **phase_in_process(ROOT, "update_idle_shares"))
+        idle = phase_in_process(ROOT, "update_idle_shares")
+        emit("update_idle_share", **idle)
+        cnn, cnn_idle = runs["selfplay_pool_cnn"], idle["connect_four_pool_cnn"]
+        print(f"selfplay_pool_cnn ({card_line}): updates "
+              + ", ".join(f"{x:.1f}" for x in cnn["update_ms_host"]) + " ms on the host's clock "
+              f"(K = 8 at the last two); one update at K = 8 {cnn_idle['update_ms']:.1f} ms, "
+              f"device busy {cnn_idle['device_busy_ms']:.1f} ms, idle share "
+              f"{cnn_idle['idle_share']:.3f}", flush=True)
         # The supervised runs go on while phase resume runs.
         supervised = supervisor_start(Path(d))
         emit("resume", **resume_phase(Path(d), card_line))
@@ -6439,7 +6752,8 @@ def main(argv: list) -> int:
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
             "launches": sum(r["launches"][name] for k, r in runs.items()
-                            if name != "opponent_actor_forward" or k not in BF16_RUNS)
+                            if (name != "opponent_actor_forward" or k not in BF16_RUNS)
+                            and (name != "opponent_features_forward" or k not in CNN_BF16_RUNS))
             + sum(f["launches_total"][name] for f in front.values()),
             **{k: checks[name][k] for k in KERNEL_KEYS},
             # an env step's instance with K14's sampling front (eval's),
@@ -6454,6 +6768,11 @@ def main(argv: list) -> int:
                   "replaces": SOURCES[BF16_TOWER][1],
                   "launches": sum(runs[k]["launches"]["opponent_actor_forward"] for k in BF16_RUNS),
                   **{k: checks[BF16_TOWER][k] for k in KERNEL_KEYS}})
+    table.append({"name": CNN_BF16_TOWER, "route": "cuda", "source": SOURCES[CNN_BF16_TOWER][0],
+                  "replaces": SOURCES[CNN_BF16_TOWER][1],
+                  "launches": sum(runs[k]["launches"]["opponent_features_forward"]
+                                  for k in CNN_BF16_RUNS),
+                  **{k: checks[CNN_BF16_TOWER][k] for k in KERNEL_KEYS}})
     unlaunched = [row["name"] for row in table if not row["launches"]]
     if unlaunched:
         raise AssertionError(f"kernels the main paths never launched: {unlaunched}")

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K19 (K7 with its f32 and its bf16 tower) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K20 (K7 with its f32 and its bf16 tower and its
+feature front) against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -1399,10 +1399,11 @@ def test_ppo_loss_kernel_bookkeeping_matches_the_plain_twin(dev):
 # ---------------------------------------------------------------------------
 
 
-def _rollout_setup(dev, env_name, E, T, seed=0):
+def _rollout_setup(dev, env_name, E, T, seed=0, **overrides):
     """A trainer's rollout inputs on the card: the config's network (its
     parameters in the flat buffer, as ``AdamState.create`` leaves them),
-    the carry, obs-norm stats from random obs, and a seeded generator."""
+    the carry, obs-norm stats from random obs, and a seeded generator;
+    ``overrides`` are further config fields."""
     from burn_ppo_torch.config import Config
     from burn_ppo_torch.envs import make_env
     from burn_ppo_torch.ppo.rollout import TorchRandomSource, init_rollout_carry
@@ -1411,7 +1412,7 @@ def _rollout_setup(dev, env_name, E, T, seed=0):
 
     hidden = {"cartpole": 64, "connect_four": 128}[env_name]
     cfg = Config(env=env_name, num_envs=E, num_steps=T, hidden_size=hidden, num_hidden=2,
-                 activation="relu", normalize_obs=True, seed=seed)
+                 activation="relu", normalize_obs=True, seed=seed, **overrides)
     env = make_env(env_name)
     net = build_network_for_env(env, cfg, torch.Generator().manual_seed(seed)).to(dev)
     AdamState.create(net)
@@ -2463,3 +2464,189 @@ def test_dense_bf16_card_route_keeps_an_f32_output(dev, fan_in, fan_out):
     assert close(y), float((y - ref).abs().max())
     assert not close(ref.to(torch.bfloat16).float())
     assert float((y == y.to(torch.bfloat16).float()).float().mean()) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# The CNN opponents (A12b): K20, the grouped convs and K7's feature front
+# ---------------------------------------------------------------------------
+def cnn_opponents(dev, seed, K=8, normed=True, bf16=False):
+    """K seeded Connect Four CNNs of the default shape (2 -> 8 -> 8, 3 x 3
+    convs, FC 32 relu, head 7), random biases, stacked as the pool stacks
+    them (``actor_params``, ``OpponentStack.of``); obs normalisers with
+    slot 0 at count 0 and slot 1 at count 1 (the identity), the rest
+    merged."""
+    from burn_ppo_torch.models.network import ActorCriticNetwork
+    from burn_ppo_torch.ppo.pool_rollout import actor_params
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = []
+    for k in range(K):
+        net = ActorCriticNetwork(86, 7, network_type="cnn", obs_shape=(6, 7, 2), activation="relu",
+                                 generator=torch.Generator(device=dev).manual_seed(seed * 64 + k))
+        with torch.no_grad():
+            for m in [*net.conv_layers, *net.fc_layers, net.policy_head]:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g, device=dev) * 0.1)
+        params.append(actor_params(net, "bfloat16" if bf16 else None))
+    norms = None
+    if normed:
+        norms = [ObsNormState(mean=torch.rand(86, generator=g, device=dev),
+                              m2=torch.rand(86, generator=g, device=dev) * 300.0,
+                              count=torch.tensor(float(c), device=dev))
+                 for c in [0, 1] + [5000] * (K - 2)][:K]
+    return OpponentStack.of(params, norms)
+
+
+def cnn_case(dev, seed, Ep, K=8, normed=True, bf16=False):
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    obs = torch.randn(Ep, 86, generator=g, device=dev) * 2.0 + 0.5
+    slot = torch.randint(0, K, (Ep,), generator=g, device=dev, dtype=torch.int32)
+    slot[:3] = torch.tensor([-1, K, 40], device=dev, dtype=torch.int32)
+    return obs, slot, cnn_opponents(dev, seed, K, normed, bf16)
+
+
+@pytest.mark.parametrize("Ep,K", [(1024, 8), (37, 3)])
+@pytest.mark.parametrize("normed", [True, False])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_opponent_cnn_front_kernel_equals_plain_bit_for_bit(dev, Ep, K, normed, bf16):
+    """K20 at the pool block's shape and a ragged one: every slot's
+    normalisation (identity at counts 0 and 1) of the NHWC spatial slice,
+    stored NCHW as one grouped-conv input; bf16 values for a bf16 stack."""
+    from burn_ppo_torch.ppo.pool_rollout import opponent_cnn_front, opponent_cnn_front_plain
+
+    obs, _, stack = cnn_case(dev, Ep + K, Ep, K, normed, bf16)
+    before = opponent_cnn_front.launches
+    k = opponent_cnn_front(obs, stack)
+    torch.cuda.synchronize()
+    assert opponent_cnn_front.launches == before + 1
+    p = opponent_cnn_front_plain(obs, stack)
+    assert k.shape == (Ep, K * 2, 6, 7) and torch.equal(k, p)
+    assert torch.equal(k, k.to(torch.bfloat16).float()) == bf16
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("tiling", [None, 0, 1])
+def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16, tiling):
+    """K20, the grouped convs and K7's feature front against
+    ``opponent_cnn_forward_plain`` (each slot's normalisation, convs and
+    tower over every row, then the row's slot) at Ep = 1024, K = 8:
+    f32 to K7's 1e-4 + 1e-4 |plain|, bf16 by ``bf16_tower_close``, whose
+    control (K7's f32 tower on the same rounded weights and features)
+    fails; out-of-range slots read zeros."""
+    from burn_ppo_torch.ppo.pool_rollout import (
+        opponent_cnn_forward_plain,
+        opponent_cnn_front,
+        opponent_convs,
+        opponent_features_forward,
+    )
+
+    obs, slot, stack = cnn_case(dev, 7 + bf16, 1024, bf16=bf16)
+    counts = [w.launches for w in (opponent_cnn_front, opponent_features_forward,
+                                   opponent_actor_forward)]
+    k = opponent_actor_forward(obs, slot, stack, tiling=tiling)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (opponent_cnn_front, opponent_features_forward,
+                                 opponent_actor_forward)] == [counts[0] + 1, counts[1] + 1, counts[2]]
+    p = opponent_cnn_forward_plain(obs, slot, stack)
+    assert torch.equal(k[:3], torch.zeros_like(k[:3]))
+    if not bf16:
+        assert_opponent_close(k, p)
+        return
+    assert bf16_tower_close(k, p), (float((k - p).abs().max()), float((k - p).abs().mean()))
+    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    control = opponent_features_forward(feat, obs, slot, f32_stack(stack), tiling=tiling)
+    assert not bf16_tower_close(control, p)
+
+
+@pytest.mark.parametrize("Ep", [37, 1229])
+def test_opponent_features_kernel_reads_any_feature_strides(dev, Ep):
+    """K7's feature front alone against its plain version on the same conv
+    output, NCHW and channels-last (the kernel takes the strides), with
+    empty slots and a slot under a tile."""
+    from burn_ppo_torch.ppo.pool_rollout import (
+        opponent_cnn_front,
+        opponent_convs,
+        opponent_features_forward,
+        opponent_features_forward_plain,
+    )
+
+    obs, slot, stack = cnn_case(dev, Ep, Ep)
+    g = torch.Generator(device=dev).manual_seed(Ep)
+    used = torch.tensor([0, 3, 5, 7], device=dev, dtype=torch.int32)
+    slot[3:] = used[torch.randint(0, 4, (Ep - 3,), generator=g, device=dev)]
+    slot[3:6] = 2
+    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    p = opponent_features_forward_plain(feat, obs, slot, stack)
+    for f in (feat, feat.contiguous(memory_format=torch.channels_last)):
+        k = opponent_features_forward(f, obs, slot, stack)
+        torch.cuda.synchronize()
+        assert torch.equal(k[:3], torch.zeros_like(k[:3]))
+        assert_opponent_close(k, p)
+
+
+def _cnn_pool_case(dev, seed):
+    from burn_ppo_torch.ppo.pool_rollout import PoolSeating
+    from burn_ppo_torch.train import rollout_runner
+
+    E, T, L = 1024, 16, 768
+    cfg, env, net, rng, carry0, norm = _rollout_setup(dev, "connect_four", E, T, seed=seed,
+                                                      network_type="cnn")
+    seat0 = PoolSeating.create(E, L, env.spec.num_players, 1, rng)
+    return E, T, L, cfg, env, net, rng, carry0, norm, seat0, rollout_runner(
+        env, cfg, num_learner_envs=L)
+
+
+def test_cnn_vs_pool_graph_replays_equal_the_eager_loop_bit_for_bit(dev):
+    """Connect Four's CNN against a padded stack of 4 CNNs, the active count
+    1, 2, 4 and a new rotation each rollout: one capture, and each replay
+    equals the eager loop bit for bit (K20, the grouped cuDNN convs and
+    K7's feature front inside the graph), the generator at the same
+    offset; K20 and the feature front counted T a replay."""
+    from burn_ppo_torch.ppo.pool_rollout import (
+        collect_rollouts_with_opponents,
+        opponent_cnn_front,
+        opponent_features_forward,
+    )
+    from burn_ppo_torch.ppo.rollout_graph import RolloutGraph, state_leaves
+
+    E, T, L, cfg, env, net, rng, carry0, norm, seat0, runner = _cnn_pool_case(dev, 0)
+    RolloutGraph.reset_counts()
+    eager_in = graph_in = (carry0, seat0)
+    for i, active in enumerate((1, 2, 4)):
+        stack = cnn_opponents(dev, 10 + i, K=4, normed=True)
+        start = rng.generator.get_state()
+        eager = collect_rollouts_with_opponents(
+            net, env, stack, *eager_in, norm, rng, num_steps=T, num_learner_envs=L,
+            num_active=active, gamma=cfg.gamma)
+        want = [t.clone() for t in state_leaves(list(eager))]
+        after = rng.generator.get_state()
+        rng.generator.set_state(start)
+        got = runner.run(net, graph_in[0], norm, rng, seating=graph_in[1], opponents=stack,
+                         num_active=active)
+        torch.cuda.synchronize()
+        assert torch.equal(rng.generator.get_state(), after)
+        have = state_leaves(list(got))
+        assert len(have) == len(want)
+        for j, (a, b) in enumerate(zip(have, want)):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (active, j)
+        eager_in, graph_in = (eager[0], eager[1]), (got[0], got[1])
+    assert RolloutGraph.captures == 1 and RolloutGraph.replays == 3
+    assert RolloutGraph.launches[opponent_cnn_front] == 3 * T
+    assert RolloutGraph.launches[opponent_features_forward] == 3 * T
+
+
+def test_cnn_vs_pool_graph_replays_draw_new_randoms_and_a_seed_repeats_its_run(dev):
+    runs = []
+    for _ in range(2):
+        E, T, L, cfg, env, net, rng, carry0, norm, seat0, runner = _cnn_pool_case(dev, 4)
+        stack = cnn_opponents(dev, 3, K=4, normed=True)
+        from burn_ppo_torch.ppo.rollout_graph import state_leaves
+
+        outs = []
+        for _ in range(2):
+            got = runner.run(net, carry0, norm, rng, seating=seat0, opponents=stack,
+                             num_active=4)
+            outs.append([t.clone() for t in state_leaves(list(got))])
+        assert not all(torch.equal(a, b) for a, b in zip(*outs))
+        runs.append(outs[0] + outs[1])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -320,7 +320,11 @@ def test_every_kernel_wrapper_is_registered_once():
     from burn_ppo_torch.ops.gae import compute_gae, compute_gae_multiplayer
     from burn_ppo_torch.ppo import normalization as norm
     from burn_ppo_torch.ppo.episode_stats import summarize_episode_logs
-    from burn_ppo_torch.ppo.pool_rollout import opponent_actor_forward
+    from burn_ppo_torch.ppo.pool_rollout import (
+        opponent_actor_forward,
+        opponent_cnn_front,
+        opponent_features_forward,
+    )
     from burn_ppo_torch.ppo.update import clip_adam, ppo_loss
     from burn_ppo_torch.ppo.window import window_records, window_report
 
@@ -329,7 +333,8 @@ def test_every_kernel_wrapper_is_registered_once():
             norm.obs_norm_apply, norm.obs_norm_update, norm.return_norm_roll,
             norm.return_norm_finalize, summarize_episode_logs, opponent_actor_forward,
             clip_adam, ppo_loss, sample_with_temperature, norm.popart_update_rescale,
-            norm.popart_denormalize, step_books, window_records, window_report}
+            norm.popart_denormalize, step_books, window_records, window_report,
+            opponent_cnn_front, opponent_features_forward}
     assert len(kernels.WRAPPERS) == len(set(kernels.WRAPPERS)) == len(want)
     assert set(kernels.WRAPPERS) == want
     assert all(isinstance(w.launches, int) for w in kernels.WRAPPERS)

@@ -1,8 +1,8 @@
 """Connect Four against the opponent pool, the slice as a whole: two fused
 vs-pool train steps of the port against the JAX package's from the same
 start state, JAX's own random draws replayed; the ``train`` command with
-the pool end to end; several updates a rotation; and the pool
-configurations the port refuses."""
+the pool end to end; several updates a rotation; the CNN against the
+pool through the CLI, and the CNN tower the port refuses."""
 
 import json
 import re
@@ -154,10 +154,19 @@ def test_train_command_trains_against_the_pool_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--network-type", "cnn"], "A12b"),
+    (["--network-type", "cnn", "--cnn-fc-hidden-size", "48"], "A12e"),
 ])
 def test_pool_configs_the_port_lacks_are_refused(flags, item, tmp_path, capsys):
-    rc = cli.main(["train", "--config", "configs/connect_four.toml", *flags,
-                   "--run-dir", str(tmp_path / "r")], device="cpu")
+    """The CNN against the pool (A12b) trains since it was ported; a CNN
+    tower that K7's feature front does not take (an FC width that is not a
+    multiple of 32) is refused with exit 2, naming its item, before a run
+    dir is made."""
+    rc = cli.main(["train", "--config", "configs/connect_four.toml", *flags, "--num-envs", "8",
+                   "--num-steps", "8", "--total-steps", "64", "--checkpoint-freq", "64",
+                   "--quiet", "--run-dir", str(tmp_path / "r")], device="cpu")
+    if item == "A12b":
+        assert rc == 0 and (tmp_path / "r" / "checkpoints" / "step_00000064").is_dir()
+        return
     assert rc == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
     assert not (tmp_path / "r").exists()

@@ -35,7 +35,14 @@ from burn_ppo_torch.ppo.rollout import (  # noqa: E402
     init_rollout_carry,
 )
 from burn_ppo_torch.ppo.update import AdamState  # noqa: E402
-from burn_ppo_torch.train import Trainer, TrainState, make_train_step, unsupported_config  # noqa: E402
+from burn_ppo_torch.config import Config as TorchConfig  # noqa: E402
+from burn_ppo_torch.train import (  # noqa: E402
+    Trainer,
+    TrainState,
+    make_train_step,
+    unsupported_config,
+    validate_config,
+)
 from burn_ppo_torch.train import build_network_for_env as torch_build_network  # noqa: E402
 
 E, T, EPOCHS, NMB = 16, 16, 2, 2
@@ -251,16 +258,13 @@ def test_train_command_trains_selfplay_on_cpu(network, tmp_path):
         assert a.shape == b.shape
 
 
-def test_plain_connect_four_config_is_refused_with_the_flag_to_pass(tmp_path, capsys):
-    """connect_four.toml runs against the opponent pool (0.25); with the CNN
-    that is not ported yet, and the refusal names the flag that runs the
-    CNN in pure self-play."""
-    rc = cli.main(["train", "--config", "configs/connect_four.toml", "--network-type", "cnn",
-                   "--run-dir", str(tmp_path / "r")], device="cpu")
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP A12b" in err and "--opponent-pool-fraction 0" in err
-    assert not (tmp_path / "r").exists()
+def test_plain_connect_four_config_is_refused_with_the_flag_to_pass():
+    """connect_four.toml runs against the opponent pool (0.25), with the
+    CNN too since A12b: no refusal, no flag to pass."""
+    cfg = TorchConfig.load("configs/connect_four.toml").apply_overrides({"network_type": "cnn"})
+    assert cfg.opponent_pool_fraction > 0.0 and cfg.network_type == "cnn"
+    assert unsupported_config(cfg) is None
+    validate_config(cfg)
 
 
 @pytest.mark.parametrize("overrides,item", [
@@ -270,15 +274,39 @@ def test_plain_connect_four_config_is_refused_with_the_flag_to_pass(tmp_path, ca
     ({"env": "liars_dice", "opponent_pool_fraction": 0.25, "network_type": "cnn"}, "A12b"),
 ])
 def test_unsupported_config_names_the_roadmap_item(overrides, item):
+    """Each refusal names its ROADMAP item. The CNN against the pool (A12,
+    A12b) is no longer refused: on Connect Four it runs, on Liar's Dice
+    (no obs shape) ``validate_config`` refuses it, as JAX's network does."""
     base = dict(env="connect_four", opponent_pool_fraction=0.0)
-    reason = unsupported_config(Config(**{**base, **overrides}))
-    assert reason is not None and f"ROADMAP {item}" in reason
+    cfg = Config(**{**base, **overrides})
+    reason = unsupported_config(cfg)
+    if item.startswith("A12"):
+        assert reason is None
+        port_cfg = TorchConfig(**{**base, **overrides})
+        if cfg.env == "liars_dice":
+            with pytest.raises(ValueError, match="obs_shape"):
+                validate_config(port_cfg)
+        else:
+            validate_config(port_cfg)
+    else:
+        assert reason is not None and f"ROADMAP {item}" in reason
     assert unsupported_config(Config(**base)) is None
     assert unsupported_config(Config(**base, network_type="cnn")) is None
     # CartPole has one seat: the pool fraction does not apply to it; the
     # MLP against the pool is the port's vs-pool path.
     assert unsupported_config(Config(env="cartpole", opponent_pool_fraction=0.25)) is None
     assert unsupported_config(Config(env="connect_four", opponent_pool_fraction=0.25)) is None
+
+
+def test_a_cnn_tower_the_feature_front_cannot_take_is_refused():
+    """A CNN whose flatten passes K7's 512 columns (6 x 7 x 16 + 2 = 674),
+    or whose FC width is not a multiple of 32, is refused against the pool,
+    naming its item; in pure self-play it runs."""
+    for over in ({"conv_channels": [16, 16]}, {"cnn_fc_hidden_size": 48}):
+        cfg = Config(env="connect_four", opponent_pool_fraction=0.25, network_type="cnn", **over)
+        reason = unsupported_config(cfg)
+        assert reason is not None and "ROADMAP A12e" in reason
+        assert unsupported_config(dataclasses.replace(cfg, opponent_pool_fraction=0.0)) is None
 
 
 @pytest.mark.parametrize("overrides", [
