@@ -1,5 +1,6 @@
-// K7 opponent_actor_forward — the policy logits of every pool env's acting
-// opponent: per row, the acting slot's obs normalisation and actor MLP.
+// K7 opponent_actor_forward, its f32 tower over the raw obs — the policy
+// logits of every pool env's acting opponent: per row, the acting slot's
+// obs normalisation and actor MLP.
 //
 // Replaces the XLA fusion of burn_ppo_tpu/ppo/pool_rollout.py
 // opponent_logits (126-139) and the slot selection (170-186) (ROADMAP
@@ -61,49 +62,15 @@
 // the rest). Sums run in another order than cuBLAS's: the logits agree
 // with the plain version to f32 rounding of 512-term dot products.
 //
-// The bf16 tower (opponent_mlp_bf16_kernel, the same body with BF16 set):
-// the counterpart of the bf16 XLA fusion of opponent_logits, where the
-// learner's network runs with compute_dtype bfloat16 (models/core.py:37-43:
-// bf16 operands, an f32 product, the f32 bias). Plain twin: the same
-// opponent_actor_forward_plain on a bf16 stack. The same slot grouping,
-// tiles and clusters; what changes:
-//   * the slot's obs are normalised in f32 and rounded to bf16 as they are
-//     stored; an activation is one bf16 where 3xTF32 keeps a (big, small)
-//     TF32 pair: a quarter of the bytes, stored row-major;
-//   * the weights come as bf16 (rounded once at the rotation) and stream by
-//     cp.async: half the bytes (a head whose width is not a multiple of 8
-//     is copied two bytes at a time);
-//   * one mma.sync m16n8k16 bf16 product with f32 sums where 3xTF32 takes
-//     three, its fragments loaded by ldmatrix (the weights' transposed);
-//   * the bias and activation in f32, rounded to bf16 only as the next
-//     layer's operand; the logits f32.
-// Its bound: the operations at the bf16 tensor cores' 989 TFLOP/s. The
-// products of bf16 values are exact in f32, so the logits agree with the
-// plain version to f32 sums in another order, and to one bf16 ulp where an
-// activation's rounding lands on the other side of a tie.
-//
-// The feature front (opponent_cnn_mlp_kernel, opponent_cnn_mlp_bf16_kernel:
-// the same body with FEAT set; ROADMAP queue B, item B11c): the tail of
-// the CNN opponents' XLA fusion, models/network.py _cnn_features' last
-// relu, flatten and concat (192-197) and the FC tower and head under the
-// vmap of pool_rollout.py opponent_logits. Plain twin:
-// pool_rollout.py opponent_features_forward_plain. The tower's input row
-// of a row of slot k is gathered from the last grouped conv's output (any
-// strides, the K slots' channels side by side, before its relu): column
-// c < H W C' is channel k C' + c % C' at pixel c / C' (JAX's NHWC
-// flatten), relu'd at the load; the columns after it are the raw obs's
-// columns past the spatial slice, normalised by slot k as the raw-obs
-// front normalises. From there it runs as the raw-obs kernel does, f32 or
-// bf16 tower. Its bound: the tower's operations, as the raw-obs kernel's,
-// and the gathered features' bytes (Ep H W C' floats).
+// K7's bf16 tower and its feature front run on the body of
+// csrc/opponent_tower.cuh (csrc/opponent_tower.cu, csrc/opponent_features.cu):
+// weights packed at the rotation, moved by bulk copies on mbarriers.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -125,25 +92,15 @@ struct Params {
   const float* norm_m2;  // [K, D]
   const float* norm_count;  // [K]
   float clip;
-  const void* w[MAX_LAYERS];  // [K, n_in, n_out], f32 (bf16 for the bf16 tower)
+  const float* w[MAX_LAYERS];  // [K, n_in, n_out]
   const float* b[MAX_LAYERS];  // [K, n_out]
   int n_in[MAX_LAYERS], n_out[MAX_LAYERS];
   int depth, act;
   float* out;  // [Ep, A]
   int rows, K;
-  // The raw obs's row stride (its width, also the normalisers'), and the
-  // obs column that the tower's first obs column reads.
-  int obs_stride, obs_off;
-  // The feature front (FEAT): the last conv's output and its strides
-  // (row, channel, h, w), its channels a slot, the width W of its pixels,
-  // and the tower's feature columns H W C' (its obs columns follow).
-  const float* feat;
-  long feat_stride[4];
-  int feat_c, feat_w, feat_hwc;
-  // Elements per activation row: floats (big and small parts) = 16 (mod
-  // 32), or bf16 values = 8 (mod 64) for the bf16 tower.
+  // Floats per activation row (big and small parts) = 16 (mod 32).
   int act_pitch;
-  // Elements per staged weight row: floats = 8 (mod 32), or bf16 = 8 (mod 64).
+  // Floats per staged weight row = 8 (mod 32).
   int w_pitch;
 };
 
@@ -210,32 +167,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The A fragment of a 16 x 16 bf16 tile (row-major, ``pitch`` elements a
-// row): lane l gives the address of row l % 16, columns 8 (l / 16) on.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// The B fragment of a 16 x 8 bf16 tile stored k-major (a row a k, the 8
-// columns contiguous): lanes 0-15 give the addresses of rows 0-15.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
 // The 8-column tiles of a layer's n_out that cluster rank ``rank`` of C
 // computes: columns [lo, lo + 8 * tiles).
 __device__ __forceinline__ void column_slice(int n_out, int rank, int C, int& lo, int& tiles) {
@@ -247,22 +178,20 @@ __device__ __forceinline__ void column_slice(int n_out, int rank, int C, int& lo
 
 // Start the copies of weight chunk ``c`` (KC rows of the block's column
 // slice of one layer, for slot k) into stage ``dst``. A thread takes one
-// 16-byte column unit (4 f32 or 8 bf16) in every rows_per_pass-th row, by
+// 16-byte column unit (4 floats) in every rows_per_pass-th row, by
 // cp.async; for a head whose width is not a multiple of the unit, one
-// element (cp.async of 4 bytes for f32, a plain 2-byte copy for bf16,
-// visible after the barrier that precedes the chunk's use).
-template <bool BF16>
+// element (cp.async of 4 bytes).
 __device__ __forceinline__ void load_chunk(const Params& p, const int* chunk_start, int c, int k,
-                                           int rank, int C, void* dst) {
-  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-  constexpr int VEC = 16 / sizeof(T);
+                                           int rank, int C, float* dst) {
+  using T = float;
+  constexpr int VEC = 4;
   int l = 0;
   while (c >= chunk_start[l + 1]) ++l;
   const int n_in = p.n_in[l], n_out = p.n_out[l];
   int lo, tiles;
   column_slice(n_out, rank, C, lo, tiles);
   const int k0 = (c - chunk_start[l]) * KC;
-  const T* w = static_cast<const T*>(p.w[l]) + static_cast<long>(k) * n_in * n_out;
+  const T* w = p.w[l] + static_cast<long>(k) * n_in * n_out;
   const bool vec = n_out % VEC == 0;
   const int unit = vec ? VEC : 1, per_row = tiles * 8 / unit;
   if (per_row == 0) return;
@@ -273,11 +202,9 @@ __device__ __forceinline__ void load_chunk(const Params& p, const int* chunk_sta
     const int kk = k0 + r;
     const bool ok = kk < n_in && col < n_out;
     const T* src = ok ? w + static_cast<long>(kk) * n_out + col : w;
-    T* d = static_cast<T*>(dst) + r * p.w_pitch + (col - lo);
+    T* d = dst + r * p.w_pitch + (col - lo);
     if (vec) {
       cp_async16(d, src, ok ? 16 : 0);
-    } else if constexpr (BF16) {
-      *reinterpret_cast<uint16_t*>(d) = ok ? *reinterpret_cast<const uint16_t*>(src) : 0;
     } else {
       cp_async4(d, src, ok ? 4 : 0);
     }
@@ -285,11 +212,10 @@ __device__ __forceinline__ void load_chunk(const Params& p, const int* chunk_sta
 }
 
 // R rows per cluster tile, C blocks per cluster, S pipeline stages; NTW
-// 8-column tiles per warp at most (a 512-wide layer split C ways). BF16:
-// the bf16 tower. FEAT: the feature front.
-template <int R, int C, int S, bool BF16, bool FEAT>
+// 8-column tiles per warp at most (a 512-wide layer split C ways).
+template <int R, int C, int S>
 __device__ __forceinline__ void opponent_mlp(const Params& p) {
-  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  using T = float;
   constexpr int MT = R / 16;
   constexpr int NTW = (MAX_WIDTH / 8 / WARPS + C - 1) / C;
   extern __shared__ __align__(16) float smem[];
@@ -392,43 +318,27 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
   }
   const int total = chunk_start[p.depth];
   for (int s = 0; s < S - 1; ++s) {
-    if (s < total) load_chunk<BF16>(p, chunk_start, s, k, rank, C, stages + s * stage_len);
+    if (s < total) load_chunk(p, chunk_start, s, k, rank, C, stages + s * stage_len);
     cp_async_commit();
   }
 
   // 4. Gather and normalise the tile's obs rows once (zeros past the tile
   // and in the padding columns): a warp takes R / WARPS rows, a lane every
-  // 32nd column, all of its loads issued before any is used. With the
-  // feature front, the first feat_hwc columns are the slot's conv
-  // features (relu'd, never normalised), the rest obs columns.
+  // 32nd column, all of its loads issued before any is used.
   {
     constexpr int RPW = R / WARPS, CPL = MAX_WIDTH / 32;
     const int D = p.n_in[0], Dp = (D + KC - 1) / KC * KC;
-    const int hwc = FEAT ? p.feat_hwc : 0;
     const bool normed = p.norm_mean != nullptr && p.norm_count[k] >= 2.0f;
     float mean[CPL], sd[CPL], v[RPW][CPL];
 #pragma unroll
     for (int q = 0; q < RPW; ++q) {
       const int r = warp * RPW + q;
       const long row = r < seg_rows ? s_rows[r] : 0;
-      const float* xr = p.x + row * p.obs_stride + p.obs_off;
+      const float* xr = p.x + row * D;
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        float x = 0.0f;
-        if (r < seg_rows && c < D) {
-          if (FEAT && c < hwc) {
-            const int hw = c / p.feat_c, ch = c - hw * p.feat_c;
-            const int h = hw / p.feat_w, w = hw - h * p.feat_w;
-            x = activate(p.feat[row * p.feat_stride[0] +
-                                static_cast<long>(k * p.feat_c + ch) * p.feat_stride[1] +
-                                h * p.feat_stride[2] + w * p.feat_stride[3]],
-                         1);
-          } else {
-            x = xr[c - hwc];
-          }
-        }
-        v[q][i] = x;
+        v[q][i] = r < seg_rows && c < D ? xr[c] : 0.0f;
       }
     }
     if (normed) {
@@ -436,10 +346,9 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        const bool obs_col = c >= hwc && c < D;
-        const long d = static_cast<long>(k) * p.obs_stride + p.obs_off + (c - hwc);
-        mean[i] = obs_col ? p.norm_mean[d] : 0.0f;
-        sd[i] = obs_col ? fmaxf(sqrtf(p.norm_m2[d] / fmaxf(cnt, 1.0f)), 1e-8f) : 1.0f;
+        const long d = static_cast<long>(k) * D + c;
+        mean[i] = c < D ? p.norm_mean[d] : 0.0f;
+        sd[i] = c < D ? fmaxf(sqrtf(p.norm_m2[d] / fmaxf(cnt, 1.0f)), 1e-8f) : 1.0f;
       }
     }
 #pragma unroll
@@ -450,15 +359,11 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
         const int c = lane + 32 * i;
         if (c < Dp) {
           float x = v[q][i];
-          if (normed && r < seg_rows && c >= hwc && c < D) {
+          if (normed && r < seg_rows && c < D) {
             const float z = (x - mean[i]) / sd[i];
             x = z < -p.clip ? -p.clip : (z > p.clip ? p.clip : z);
           }
-          if constexpr (BF16) {
-            act[r * ap + c] = __float2bfloat16_rn(x);
-          } else {
-            *reinterpret_cast<float2*>(act + r * ap + act_pos(c)) = split2(x);
-          }
+          *reinterpret_cast<float2*>(act + r * ap + act_pos(c)) = split2(x);
         }
       }
     }
@@ -481,81 +386,57 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
     cp_async_wait<S - 2>();
     __syncthreads();
     if (c + S - 1 < total) {
-      load_chunk<BF16>(p, chunk_start, c + S - 1, k, rank, C,
+      load_chunk(p, chunk_start, c + S - 1, k, rank, C,
                        stages + ((c + S - 1) % S) * stage_len);
     }
     cp_async_commit();
 
     const T* ws = stages + (c % S) * stage_len;
     const int kbase = (c - chunk_start[l]) * KC;
-    if constexpr (BF16) {
 #pragma unroll
-      for (int ks = 0; ks < KC; ks += 16) {
-        uint32_t a[MT][4], b[NTW][2];
+    for (int ks = 0; ks < KC; ks += 8) {
+      uint32_t ab[MT][4], as[MT][4], bb[NTW][2], bs[NTW][2];
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          ldmatrix_x4(a[m], act + (m * 16 + (lane & 15)) * ap + kbase + ks + (lane >> 4) * 8);
-        }
+      for (int m = 0; m < MT; ++m) {
+        // (big, small) of columns t and t + 4, rows g and g + 8: split
+        // once when the activation was stored.
+        const float* a = act + (m * 16 + grp) * ap + (kbase + ks) * 2 + 4 * tig;
+        const float4 lo4 = *reinterpret_cast<const float4*>(a);
+        const float4 hi4 = *reinterpret_cast<const float4*>(a + 8 * ap);
+        ab[m][0] = __float_as_uint(lo4.x), as[m][0] = __float_as_uint(lo4.y);
+        ab[m][2] = __float_as_uint(lo4.z), as[m][2] = __float_as_uint(lo4.w);
+        ab[m][1] = __float_as_uint(hi4.x), as[m][1] = __float_as_uint(hi4.y);
+        ab[m][3] = __float_as_uint(hi4.z), as[m][3] = __float_as_uint(hi4.w);
+      }
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (warp + j * WARPS < tiles) {
-            ldmatrix_x2_trans(b[j], ws + (ks + (lane & 15)) * p.w_pitch + (warp + j * WARPS) * 8);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (warp + j * WARPS < tiles) {
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_bf16(acc[m][j], a[m], b[j]);
-          }
+      for (int j = 0; j < NTW; ++j) {
+        if (warp + j * WARPS < tiles) {
+          const float* b = ws + (ks + tig) * p.w_pitch + (warp + j * WARPS) * 8 + grp;
+          split(b[0], bb[j][0], bs[j][0]);
+          split(b[4 * p.w_pitch], bb[j][1], bs[j][1]);
         }
       }
-    } else {
+      // The three products of each tile in three sweeps over the tiles,
+      // so that consecutive mma.sync write different accumulators.
 #pragma unroll
-      for (int ks = 0; ks < KC; ks += 8) {
-        uint32_t ab[MT][4], as[MT][4], bb[NTW][2], bs[NTW][2];
+      for (int j = 0; j < NTW; ++j) {
+        if (warp + j * WARPS < tiles) {
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          // (big, small) of columns t and t + 4, rows g and g + 8: split
-          // once when the activation was stored.
-          const float* a = act + (m * 16 + grp) * ap + (kbase + ks) * 2 + 4 * tig;
-          const float4 lo4 = *reinterpret_cast<const float4*>(a);
-          const float4 hi4 = *reinterpret_cast<const float4*>(a + 8 * ap);
-          ab[m][0] = __float_as_uint(lo4.x), as[m][0] = __float_as_uint(lo4.y);
-          ab[m][2] = __float_as_uint(lo4.z), as[m][2] = __float_as_uint(lo4.w);
-          ab[m][1] = __float_as_uint(hi4.x), as[m][1] = __float_as_uint(hi4.y);
-          ab[m][3] = __float_as_uint(hi4.z), as[m][3] = __float_as_uint(hi4.w);
+          for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], as[m], bb[j]);
         }
+      }
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (warp + j * WARPS < tiles) {
-            const float* b = ws + (ks + tig) * p.w_pitch + (warp + j * WARPS) * 8 + grp;
-            split(b[0], bb[j][0], bs[j][0]);
-            split(b[4 * p.w_pitch], bb[j][1], bs[j][1]);
-          }
+      for (int j = 0; j < NTW; ++j) {
+        if (warp + j * WARPS < tiles) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bs[j]);
         }
-        // The three products of each tile in three sweeps over the tiles,
-        // so that consecutive mma.sync write different accumulators.
+      }
 #pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (warp + j * WARPS < tiles) {
+      for (int j = 0; j < NTW; ++j) {
+        if (warp + j * WARPS < tiles) {
 #pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], as[m], bb[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (warp + j * WARPS < tiles) {
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bs[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < NTW; ++j) {
-          if (warp + j * WARPS < tiles) {
-#pragma unroll
-            for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bb[j]);
-          }
+          for (int m = 0; m < MT; ++m) mma_tf32(acc[m][j], ab[m], bb[j]);
         }
       }
     }
@@ -585,15 +466,6 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
               if (col < n_out) o[col] = v0 + bias[col];
               if (col + 1 < n_out) o[col + 1] = v1 + bias[col + 1];
             }
-          } else if constexpr (BF16) {
-            // The pair rounded to bf16 as the next layer's operand.
-            const __nv_bfloat162 x = __floats2bfloat162_rn(activate(v0 + bias[col], p.act),
-                                                           activate(v1 + bias[col + 1], p.act));
-            __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(act + r * ap + col);
-            *d = x;
-            cg::cluster_group cluster = cg::this_cluster();
-#pragma unroll
-            for (int q = 1; q < C; ++q) *cluster.map_shared_rank(d, (rank + q) % C) = x;
           } else {
             const float2 x0 = split2(activate(v0 + bias[col], p.act));
             const float2 x1 = split2(activate(v1 + bias[col + 1], p.act));
@@ -625,37 +497,16 @@ __device__ __forceinline__ void opponent_mlp(const Params& p) {
 template <int R, int C, int S>
 __global__ void __launch_bounds__(THREADS, 1)
     opponent_mlp_kernel(const __grid_constant__ Params p) {
-  opponent_mlp<R, C, S, false, false>(p);
+  opponent_mlp<R, C, S>(p);
 }
 
-template <int R, int C, int S>
-__global__ void __launch_bounds__(THREADS, 1)
-    opponent_mlp_bf16_kernel(const __grid_constant__ Params p) {
-  opponent_mlp<R, C, S, true, false>(p);
-}
-
-template <int R, int C, int S>
-__global__ void __launch_bounds__(THREADS, 1)
-    opponent_cnn_mlp_kernel(const __grid_constant__ Params p) {
-  opponent_mlp<R, C, S, false, true>(p);
-}
-
-template <int R, int C, int S>
-__global__ void __launch_bounds__(THREADS, 1)
-    opponent_cnn_mlp_bf16_kernel(const __grid_constant__ Params p) {
-  opponent_mlp<R, C, S, true, true>(p);
-}
-
-// The launch of one tiling of one tower: a cluster of C blocks per tile,
-// the grid one cluster per possible tile (some exit at once).
+// The launch of one tiling: a cluster of C blocks per tile, the grid one
+// cluster per possible tile (some exit at once).
 using KernelFn = void (*)(Params);
 
-template <int R, int C, int S, bool BF16, bool FEAT>
+template <int R, int C, int S>
 struct Tiling {
-  static KernelFn kernel() {
-    if (FEAT) return BF16 ? opponent_cnn_mlp_bf16_kernel<R, C, S> : opponent_cnn_mlp_kernel<R, C, S>;
-    return BF16 ? opponent_mlp_bf16_kernel<R, C, S> : opponent_mlp_kernel<R, C, S>;
-  }
+  static KernelFn kernel() { return opponent_mlp_kernel<R, C, S>; }
 
   static cudaLaunchConfig_t config(const Params& p, int smem, cudaStream_t stream,
                                    cudaLaunchAttribute* attr) {
@@ -715,30 +566,21 @@ struct Tiling {
 constexpr int TILINGS[][3] = {{32, 2, 2}, {32, 3, 3}};
 constexpr int NUM_TILINGS = sizeof(TILINGS) / sizeof(TILINGS[0]);
 
-template <bool BF16, bool FEAT>
 int launch_tiling(int tiling, const Params& p, int smem, cudaStream_t s) {
-  return tiling == 0 ? Tiling<32, 2, 2, BF16, FEAT>::launch(p, smem, s)
-                     : Tiling<32, 3, 3, BF16, FEAT>::launch(p, smem, s);
+  return tiling == 0 ? Tiling<32, 2, 2>::launch(p, smem, s) : Tiling<32, 3, 3>::launch(p, smem, s);
 }
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // The activation and weight-stage pitches of a tiling of a tower, and its
 // shared memory in bytes.
-int layout(Params& p, const int* widths, int depth, int tiling, bool bf16) {
+int layout(Params& p, const int* widths, int depth, int tiling) {
   const int R = TILINGS[tiling][0], C = TILINGS[tiling][1], S = TILINGS[tiling][2];
   int widest = round_up(widths[0], KC), slice = 0;
   for (int l = 0; l < depth; ++l) {
     if (l > 0) widest = widths[l] > widest ? widths[l] : widest;
     const int all = (widths[l + 1] + 7) / 8, per = (all + C - 1) / C;
     slice = per * 8 > slice ? per * 8 : slice;
-  }
-  if (bf16) {
-    // 8 (mod 64) bf16 a row: ldmatrix's 8 rows of 16 bytes fall in 8
-    // different bank groups.
-    p.act_pitch = round_up(widest, 64) + 8;
-    p.w_pitch = round_up(slice, 64) + 8;
-    return 2 * (R * p.act_pitch + S * KC * p.w_pitch);
   }
   p.act_pitch = 2 * round_up(widest, 32) + 16;
   p.w_pitch = round_up(slice, 32) + 8;
@@ -750,8 +592,7 @@ int layout(Params& p, const int* widths, int depth, int tiling, bool bf16) {
 // SM each (a cluster that waits for a free GPC doubles the call; blocks
 // that share an SM run at half speed: 3 x tiles within 90% of the SMs),
 // else 2-block clusters. -1 on error.
-int choose_tiling(Params& p, const int* widths, int depth, bool bf16, bool feat,
-                  int* resident = nullptr) {
+int choose_tiling(Params& p, const int* widths, int depth, int* resident = nullptr) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -760,11 +601,8 @@ int choose_tiling(Params& p, const int* widths, int depth, bool bf16, bool feat,
       return -1;
     }
   }
-  const int smem = layout(p, widths, depth, 1, bf16);
-  const int n = feat ? (bf16 ? Tiling<32, 3, 3, true, true>::resident_clusters(p, smem)
-                             : Tiling<32, 3, 3, false, true>::resident_clusters(p, smem))
-                     : (bf16 ? Tiling<32, 3, 3, true, false>::resident_clusters(p, smem)
-                             : Tiling<32, 3, 3, false, false>::resident_clusters(p, smem));
+  const int smem = layout(p, widths, depth, 1);
+  const int n = Tiling<32, 3, 3>::resident_clusters(p, smem);
   if (resident != nullptr) *resident = n;
   if (n < 0) return -1;
   const int tiles = (p.rows + 31) / 32 + (p.K + 1) / 2;
@@ -774,23 +612,26 @@ int choose_tiling(Params& p, const int* widths, int depth, bool bf16, bool feat,
 }  // namespace
 
 // The tiling opp_mlp_forward takes by default for these widths, rows and
-// slots (bf16: the bf16 tower), and in *resident the 3-block clusters the
-// card holds at once.
-extern "C" int opp_mlp_default_tiling(const int* widths, int depth, int rows, int K, int bf16,
+// slots, and in *resident the 3-block clusters the card holds at once.
+extern "C" int opp_mlp_default_tiling(const int* widths, int depth, int rows, int K,
                                       int* resident) {
   Params p = {};
   p.rows = rows;
   p.K = K;
-  return choose_tiling(p, widths, depth, bf16 != 0, false, resident);
+  return choose_tiling(p, widths, depth, resident);
 }
 
-namespace {
-
-// The launch of either front: checks the tower, fills the tower's part of
-// p (the front's fields set by the caller) and launches the tiling.
-int forward(Params& p, const void* const* w, const void* const* b, const int* widths, int depth,
-            int act, int K, int tiling, bool bf16, bool feat, cudaStream_t s) {
-  if (depth < 1 || depth > MAX_LAYERS || K < 1 || K > MAX_SLOTS || p.rows < 0 || act < 0 ||
+// x [rows, widths[0]] f32, slot [rows] i32; widths: depth + 1 entries (obs,
+// hidden..., head); w, b: depth pointers each (host arrays, f32); act: 0 =
+// none, 1 = relu, 2 = tanh. norm_mean, norm_m2, norm_count: all null for
+// no normalisation. tiling: an index of TILINGS, or -1 for
+// choose_tiling's. out: [rows, head] f32.
+extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm_mean,
+                               const void* norm_m2, const void* norm_count, float clip,
+                               const void* const* w, const void* const* b, const int* widths,
+                               int depth, int act, void* out, int rows, int K, int tiling,
+                               void* stream) {
+  if (depth < 1 || depth > MAX_LAYERS || K < 1 || K > MAX_SLOTS || rows < 0 || act < 0 ||
       act > 2 || tiling < -1 || tiling >= NUM_TILINGS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -802,31 +643,7 @@ int forward(Params& p, const void* const* w, const void* const* b, const int* wi
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (p.rows == 0) return 0;
-  for (int l = 0; l < depth; ++l) {
-    p.w[l] = w[l];
-    p.b[l] = static_cast<const float*>(b[l]);
-    p.n_in[l] = widths[l];
-    p.n_out[l] = widths[l + 1];
-  }
-  p.depth = depth;
-  p.act = act;
-  p.K = K;
-  if (tiling < 0) {
-    tiling = choose_tiling(p, widths, depth, bf16, feat);
-    if (tiling < 0) return static_cast<int>(cudaGetLastError());
-  }
-  const int smem = layout(p, widths, depth, tiling, bf16);
-  if (feat) {
-    return bf16 ? launch_tiling<true, true>(tiling, p, smem, s)
-                : launch_tiling<false, true>(tiling, p, smem, s);
-  }
-  return bf16 ? launch_tiling<true, false>(tiling, p, smem, s)
-              : launch_tiling<false, false>(tiling, p, smem, s);
-}
-
-Params front(const void* x, const void* slot, const void* norm_mean, const void* norm_m2,
-             const void* norm_count, float clip, void* out, int rows) {
+  if (rows == 0) return 0;
   Params p = {};
   p.x = static_cast<const float*>(x);
   p.slot = static_cast<const int*>(slot);
@@ -836,54 +653,19 @@ Params front(const void* x, const void* slot, const void* norm_mean, const void*
   p.clip = clip;
   p.out = static_cast<float*>(out);
   p.rows = rows;
-  return p;
-}
-
-}  // namespace
-
-// widths: depth + 1 entries (obs, hidden..., head); w, b: depth pointers
-// each (host arrays; w f32, or bf16 with bf16 set); act: 0 = none, 1 =
-// relu, 2 = tanh. norm_mean, norm_m2, norm_count: all null for no
-// normalisation. tiling: an index of TILINGS, or -1 for choose_tiling's.
-// out: [rows, head] f32.
-extern "C" int opp_mlp_forward(const void* x, const void* slot, const void* norm_mean,
-                               const void* norm_m2, const void* norm_count, float clip,
-                               const void* const* w, const void* const* b, const int* widths,
-                               int depth, int act, void* out, int rows, int K, int tiling,
-                               int bf16, void* stream) {
-  Params p = front(x, slot, norm_mean, norm_m2, norm_count, clip, out, rows);
-  p.obs_stride = widths[0];
-  p.obs_off = 0;
-  return forward(p, w, b, widths, depth, act, K, tiling, bf16 != 0, false,
-                 static_cast<cudaStream_t>(stream));
-}
-
-// The feature front: opp_mlp_forward's arguments, widths[0] the tower's
-// input width feat_h * feat_w * feat_c + (D - spatial), then the last
-// conv's output feat ([rows, K * feat_c, feat_h, feat_w] at the element
-// strides feat_strides: row, channel, h, w; before its relu), and the
-// raw obs x [rows, D]'s spatial width (its extra columns start there; the
-// normalisers are [K, D]).
-extern "C" int opp_mlp_forward_features(const void* x, const void* slot, const void* norm_mean,
-                                        const void* norm_m2, const void* norm_count, float clip,
-                                        const void* const* w, const void* const* b,
-                                        const int* widths, int depth, int act, void* out, int rows,
-                                        int K, int tiling, int bf16, const void* feat,
-                                        const long* feat_strides, int feat_c, int feat_h,
-                                        int feat_w, int spatial, void* stream) {
-  const int hwc = feat_h * feat_w * feat_c;
-  if (feat == nullptr || feat_c < 1 || feat_h < 1 || feat_w < 1 || spatial < 0 ||
-      widths[0] < hwc) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  for (int l = 0; l < depth; ++l) {
+    p.w[l] = static_cast<const float*>(w[l]);
+    p.b[l] = static_cast<const float*>(b[l]);
+    p.n_in[l] = widths[l];
+    p.n_out[l] = widths[l + 1];
   }
-  Params p = front(x, slot, norm_mean, norm_m2, norm_count, clip, out, rows);
-  p.obs_off = spatial;
-  p.obs_stride = spatial + widths[0] - hwc;
-  p.feat = static_cast<const float*>(feat);
-  for (int i = 0; i < 4; ++i) p.feat_stride[i] = feat_strides[i];
-  p.feat_c = feat_c;
-  p.feat_w = feat_w;
-  p.feat_hwc = hwc;
-  return forward(p, w, b, widths, depth, act, K, tiling, bf16 != 0, true,
-                 static_cast<cudaStream_t>(stream));
+  p.depth = depth;
+  p.act = act;
+  p.K = K;
+  if (tiling < 0) {
+    tiling = choose_tiling(p, widths, depth);
+    if (tiling < 0) return static_cast<int>(cudaGetLastError());
+  }
+  const int smem = layout(p, widths, depth, tiling);
+  return launch_tiling(tiling, p, smem, static_cast<cudaStream_t>(stream));
 }

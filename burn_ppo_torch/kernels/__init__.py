@@ -20,7 +20,8 @@ env's step, with K14's sampling front as an option,
 epilogue, and K14),
 ``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
 ``ppo/pool_rollout.py`` (K7, its f32 and its bf16 tower, its feature
-front; K20),
+front; K20; the bf16 tower and the feature front read the stack's
+packed layers, ``ppo/opponent_pack.py``),
 ``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17),
 ``ppo/window.py`` (K18, K19)) and use
 the helpers below.
@@ -96,19 +97,25 @@ SIGNATURES = {
     "obs_norm_update": [_VP] * 5 + [_L, _I, _L, _VP],
     # x, slot, norm mean, m2, count (nullable), clip, host arrays of the
     # layers' weight and bias pointers and of the widths, depth, act, out,
-    # rows, K, tiling, the bf16 tower (weights bf16), stream
-    "opp_mlp_forward": [_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 4 + [_VP],
-    # opp_mlp_forward's arguments up to the stream, then the feature front:
-    # the last conv's output, a host array of its four strides (elements:
-    # row, channel, h, w), its channels a slot, H, W, the obs's spatial
-    # width H W C (its extra columns start there), stream
-    "opp_mlp_forward_features": ([_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 4
-                                 + [_VP, _VP] + [_I] * 4 + [_VP]),
+    # rows, K, tiling, stream: K7's f32 tower
+    "opp_mlp_forward": [_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 3 + [_VP],
+    # the same arguments but the tiling, the weights the packed bf16 layers
+    # (ppo/opponent_pack.py): K7's bf16 tower
+    "opp_tower_forward": [_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 2 + [_VP],
+    # the same arguments up to the stream (the packed f32 or bf16 layers),
+    # then the bf16 tower, the last conv's output (contiguous), its C' H W
+    # floats a slot, the obs's spatial width H W C (its extra columns start
+    # there), stream: K7's feature front
+    "opp_features_forward": ([_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 3
+                             + [_VP, _I, _I, _VP]),
     # x, norm mean, m2, count (nullable), clip, out, rows, D, K, H, W, C,
     # bf16 values, stream
     "opp_cnn_front": [_VP] * 4 + [_F, _VP] + [_I] * 7 + [_VP],
-    # widths, depth, rows, K, the bf16 tower, out: resident 3-block clusters
-    "opp_mlp_default_tiling": [_VP, _I, _I, _I, _I, _VP],
+    # widths, depth, rows, K, out: resident 3-block clusters
+    "opp_mlp_default_tiling": [_VP, _I, _I, _I, _VP],
+    # widths, depth, bf16, the feature front's (else the bf16 tower's),
+    # out [3]: stages, bytes a stage, the input buffers' bytes
+    "opp_tower_layout": [_VP, _I, _I, _I, _VP],
     # logits, values, mask, actions, old_lp, adv, returns, old_values, valid,
     # M, A, eps, lo, hi, clip_value, value_coef, ent_coef (f32 scalar),
     # scratch (f64 [ppo_loss_scratch_len()]), out, dlogits, dvalues, the

@@ -31,23 +31,26 @@ JAX runs the learner's own network over the stacked opponents, so with
 the bf16 compute dtype the opponents' dense layers take bf16 operands
 too: such a stack holds its weights rounded to bf16 once, at the
 rotation (``actor_params(network, "bfloat16")``), and K7 runs a stack of
-bf16 weights through its bf16 tower. Eval's stacked models stay f32.
+bf16 weights through its bf16 tower, which reads the stack's packed
+layers (``OpponentStack.packed``, ``ppo/opponent_pack.py``). Eval's
+stacked models stay f32.
 
 A CNN opponent (``OpponentStack.cnn``) runs in three stages, all K slots
 at once as JAX's vmap does: K20 (``opponent_cnn_front``) writes every
 slot's normalised spatial obs as one tensor of K groups of channels, each
 conv layer is one cuDNN conv with ``groups = K`` (``opponent_convs``),
 and K7's feature front (``opponent_features_forward``) loads each row's
-slot's channels of the last conv, relu'd and flattened in JAX's NHWC
-order, then the row's extra obs columns normalised by its slot, and runs
-the FC tower and the policy head. ``opponent_cnn_forward_plain`` is the
+slot's channels of the last conv, relu'd, in the conv output's NCHW
+order (the packed first FC layer's rows permuted to match JAX's NHWC
+flatten), then the row's extra obs columns normalised by its slot, and
+runs the FC tower and the policy head. ``opponent_cnn_forward_plain`` is the
 JAX formulation from the raw obs, slot by slot.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -57,6 +60,7 @@ from burn_ppo_torch import kernels
 from burn_ppo_torch.envs.base import Environment, EpisodeLog
 from burn_ppo_torch.models.core import BF16, activation_fn, check_compute_dtype, round_bf16
 from burn_ppo_torch.ops.categorical import TINY, masked_sample
+from burn_ppo_torch.ppo.opponent_pack import PackedTower, k_block, nchw_rows, pack_tower
 from burn_ppo_torch.ppo.normalization import (
     ObsNormState,
     PopArtState,
@@ -133,7 +137,13 @@ class OpponentStack:
     holds its conv layers stacked for a grouped conv, the K opponents'
     weights ``[K * C_out, C_in, kh, kw]`` and biases ``[K * C_out]`` per
     layer (slot k's channels ``[k * C_out, (k + 1) * C_out)``), and the
-    obs shape; ``weights`` and ``biases`` are then its FC tower and head."""
+    obs shape; ``weights`` and ``biases`` are then its FC tower and head.
+
+    A stack of bf16 weights and a CNN stack also hold their tower packed
+    for K7's bf16 tower and feature front (``packed``, made from the
+    weights at construction, ``ppo/opponent_pack.py``; a CNN's first FC
+    layer in the conv output's NCHW order): a leaf of the stack, which
+    ``copy_into`` carries with the weights at each rotation."""
 
     weights: List[torch.Tensor]
     biases: List[torch.Tensor]
@@ -142,6 +152,11 @@ class OpponentStack:
     conv_weights: Optional[List[torch.Tensor]] = None
     conv_biases: Optional[List[torch.Tensor]] = None
     obs_shape: Optional[Tuple[int, int, int]] = None
+    packed: Optional[PackedTower] = field(default=None, init=False)
+
+    def __post_init__(self):
+        if self.bf16 or self.cnn:
+            self.packed = pack_tower(self.weights, self.first_rows())
 
     @property
     def bf16(self) -> bool:
@@ -157,6 +172,16 @@ class OpponentStack:
     def num_slots(self) -> int:
         return self.weights[0].shape[0]
 
+    def first_rows(self) -> Optional[torch.Tensor]:
+        """The order in which K7's feature front reads the first FC layer's
+        input rows (``nchw_rows``), or None: a raw-obs tower reads them in
+        order."""
+        if not self.cnn:
+            return None
+        channels = self.conv_weights[-1].shape[0] // self.num_slots
+        return nchw_rows(self.obs_shape, channels, self.weights[0].shape[1],
+                         self.weights[0].device)
+
     @staticmethod
     def of(params: Sequence[ActorParams], norms: Optional[Sequence[ObsNormState]]):
         acts = {p.activation for p in params}
@@ -165,21 +190,21 @@ class OpponentStack:
         if len({p.obs_shape for p in params}) != 1:
             raise ValueError("opponents of mixed towers: CNN and MLP, or other obs shapes")
         depth = len(params[0].weights)
-        stack = OpponentStack(
+        cnn = params[0].obs_shape is not None
+        convs = range(len(params[0].conv_weights)) if cnn else range(0)
+        return OpponentStack(
             weights=[torch.stack([p.weights[i] for p in params]) for i in range(depth)],
             biases=[torch.stack([p.biases[i] for p in params]) for i in range(depth)],
             activation=acts.pop(),
+            norm=None if norms is None else ObsNormState(
+                mean=torch.stack([n.mean for n in norms]), m2=torch.stack([n.m2 for n in norms]),
+                count=torch.stack([n.count for n in norms])),
+            conv_weights=[torch.cat([p.conv_weights[i] for p in params]) for i in convs]
+            if cnn else None,
+            conv_biases=[torch.cat([p.conv_biases[i] for p in params]) for i in convs]
+            if cnn else None,
+            obs_shape=params[0].obs_shape,
         )
-        if params[0].obs_shape is not None:
-            convs = range(len(params[0].conv_weights))
-            stack.conv_weights = [torch.cat([p.conv_weights[i] for p in params]) for i in convs]
-            stack.conv_biases = [torch.cat([p.conv_biases[i] for p in params]) for i in convs]
-            stack.obs_shape = params[0].obs_shape
-        if norms is not None:
-            stack.norm = ObsNormState(mean=torch.stack([n.mean for n in norms]),
-                                      m2=torch.stack([n.m2 for n in norms]),
-                                      count=torch.stack([n.count for n in norms]))
-        return stack
 
 
 def _by_slot(obs: torch.Tensor, norm: Optional[ObsNormState], K: int,
@@ -313,10 +338,11 @@ def opponent_features_forward_plain(feat: torch.Tensor, obs: torch.Tensor, slot:
     return _select(_tower_plain(torch.cat([f, extras], dim=2), stack), slot)
 
 
-# K7's tilings (csrc/opponent_actor.cu TILINGS): rows per cluster tile and
-# blocks per cluster, the blocks of a cluster splitting each layer's
-# columns. By default the kernel takes 32 x 3 when the expected clusters
-# fit on the card at once, a block an SM, else 32 x 2 (PERF.md, B11).
+# K7's tilings of its f32 tower (csrc/opponent_actor.cu TILINGS): rows per
+# cluster tile and blocks per cluster, the blocks of a cluster splitting
+# each layer's columns. By default the kernel takes 32 x 3 when the
+# expected clusters fit on the card at once, a block an SM, else 32 x 2
+# (PERF.md, B11).
 OPPONENT_TILINGS = ((32, 2), (32, 3))
 # What K7 takes: widths of the obs, hidden layers and head; slots.
 _OPP_MAX_WIDTH, _OPP_MAX_HEAD, _OPP_MAX_LAYERS, _OPP_MAX_SLOTS = 512, 64, 4, 128
@@ -359,10 +385,11 @@ def opponent_tower_problems(widths: Sequence[int], num_slots: int) -> List[str]:
 
 
 def _tower_args(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack, D: int,
-                clip: float, tiling: Optional[int], what: str) -> tuple:
-    """K7's arguments up to the stream (its C entries share them), the
+                clip: float, what: str) -> tuple:
+    """K7's arguments up to the tiling (its C entries share them), the
     tower of input width ``D`` checked against what the kernel takes, and
-    the output [Ep, A]."""
+    the output [Ep, A]. A bf16 or CNN stack passes its packed layers, an
+    f32 raw-obs stack its weights."""
     norm = stack.norm
     wdtype = torch.bfloat16 if stack.bf16 else torch.float32
     Ep, obs_dim = obs.shape
@@ -380,20 +407,27 @@ def _tower_args(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack, D: 
     for i, (w, b) in enumerate(zip(stack.weights, stack.biases)):
         kernels.expect(w, f"weights[{i}]", wdtype, (K, widths[i], widths[i + 1]))
         kernels.expect(b, f"biases[{i}]", torch.float32, (K, widths[i + 1]))
+    layers = stack.weights
+    if stack.bf16 or stack.cnn:
+        if stack.packed is None or len(stack.packed.layers) != len(layers):
+            raise ValueError(f"{what}: the stack holds no packed tower of its weights")
+        layers = stack.packed.layers
+        for i, w in enumerate(layers):
+            kb, nt = -(-widths[i] // k_block(wdtype)), -(-widths[i + 1] // 8)
+            kernels.expect(w, f"packed.layers[{i}]", wdtype,
+                           (K, kb, nt, 32, 16 // w.element_size()))
+    for i, w in enumerate(layers):
         if w.data_ptr() % 16:
-            raise ValueError(f"weights[{i}]: the kernel's 16-byte copies need an aligned buffer")
-    tiling = -1 if tiling is None else tiling
-    if not -1 <= tiling < len(OPPONENT_TILINGS):
-        raise ValueError(f"tiling {tiling}: expected an index of {OPPONENT_TILINGS}")
+            raise ValueError(f"layer {i}: the kernel's 16-byte copies need an aligned buffer")
     out = torch.empty(Ep, widths[-1], dtype=torch.float32, device=obs.device)
-    depth = len(stack.weights)
+    depth = len(layers)
     p = kernels.ptr
-    w_ptrs = (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights))
+    w_ptrs = (ctypes.c_void_p * depth)(*(w.data_ptr() for w in layers))
     b_ptrs = (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases))
     norm_ptrs = (None,) * 3 if norm is None else (p(norm.mean), p(norm.m2), p(norm.count))
     args = (p(obs), p(slot), *norm_ptrs, float(clip), w_ptrs, b_ptrs,
             (ctypes.c_int * (depth + 1))(*widths), depth, ACTIVATIONS[stack.activation], p(out),
-            Ep, K, tiling, int(stack.bf16))
+            Ep, K)
     return args, out
 
 
@@ -414,30 +448,41 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
                            clip: float = 10.0, tiling: Optional[int] = None) -> torch.Tensor:
     """Each pool row's policy logits under its acting slot's opponent:
     raw obs [Ep, D], slot [Ep] i32 -> logits [Ep, A]. CPU tensors take the
-    plain version; CUDA tensors launch K7 (``csrc/opponent_actor.cu``: one
-    launch, every layer of a tile of one slot's rows on chip), or raise.
-    The weights' dtype selects the tower: f32 weights 3xTF32 on the tensor
-    cores (``opponent_mlp_kernel``); bf16 weights the bf16 tower
-    (``opponent_mlp_bf16_kernel``: the same slot grouping, tiles and
-    clusters; the normalised obs and the activations held as bf16, the
-    bf16 weights streamed, one ``mma.sync`` m16n8k16 bf16 product a step
-    with f32 sums, f32 bias and activation, f32 logits). ``launches``
-    counts both; the device's kernel names tell them apart. ``tiling``
-    indexes ``OPPONENT_TILINGS`` (default: the kernel's choice).
+    plain version; CUDA tensors launch K7 (one launch, every layer of a
+    tile of one slot's rows on chip), or raise. The weights' dtype selects
+    the tower: f32 weights 3xTF32 on the tensor cores
+    (``csrc/opponent_actor.cu``, ``opponent_mlp_kernel``; ``tiling``
+    indexes ``OPPONENT_TILINGS``); bf16 weights the bf16 tower
+    (``csrc/opponent_tower.cu``, ``opponent_tower_bf16_kernel``: the stack's
+    packed layers moved by bulk copies into a ring of shared-memory
+    stages, the normalised obs and the activations held as bf16, one
+    ``mma.sync`` m16n8k16 bf16 product a step with f32 sums, f32 bias and
+    activation, f32 logits; one tiling, 32 rows and a cluster of 2
+    blocks). ``launches`` counts both; the device's kernel names tell them
+    apart. ``tiling`` None: the kernel's choice; only the f32 tower takes
+    one.
 
     A CNN stack runs K20 (``opponent_cnn_front``), the grouped convs
     (``opponent_convs``) and K7's feature front
     (``opponent_features_forward``), each counted by its own wrapper; this
     wrapper's ``launches`` counts K7's raw-obs launches only."""
+    if tiling is not None and (stack.cnn or stack.bf16):
+        raise ValueError("tiling: only K7's f32 tower over the raw obs offers tilings")
     if stack.cnn:
         feat = opponent_convs(opponent_cnn_front(obs, stack, clip), stack)
-        return opponent_features_forward(feat, obs, slot, stack, clip, tiling)
+        return opponent_features_forward(feat, obs, slot, stack, clip)
     if kernels.on_cpu(obs, slot, *_stack_tensors(stack)):
         return opponent_actor_forward_plain(obs, slot, stack, clip)
-    args, out = _tower_args(obs, slot, stack, obs.shape[1], clip, tiling,
-                            "opponent_actor_forward")
-    err = kernels.library().opp_mlp_forward(*args, kernels.stream(obs.device))
-    kernels.check(err, "opp_mlp_forward")
+    args, out = _tower_args(obs, slot, stack, obs.shape[1], clip, "opponent_actor_forward")
+    if stack.bf16:
+        err = kernels.library().opp_tower_forward(*args, kernels.stream(obs.device))
+        kernels.check(err, "opp_tower_forward")
+    else:
+        tiling = -1 if tiling is None else tiling
+        if not -1 <= tiling < len(OPPONENT_TILINGS):
+            raise ValueError(f"tiling {tiling}: expected an index of {OPPONENT_TILINGS}")
+        err = kernels.library().opp_mlp_forward(*args, tiling, kernels.stream(obs.device))
+        kernels.check(err, "opp_mlp_forward")
     opponent_actor_forward.launches += 1
     return out
 
@@ -479,17 +524,19 @@ kernels.counted(opponent_cnn_front)
 
 
 def opponent_features_forward(feat: torch.Tensor, obs: torch.Tensor, slot: torch.Tensor,
-                              stack: OpponentStack, clip: float = 10.0,
-                              tiling: Optional[int] = None) -> torch.Tensor:
+                              stack: OpponentStack, clip: float = 10.0) -> torch.Tensor:
     """K7 with its feature front: each pool row's logits under its acting
     slot's CNN opponent, from the last conv's output ``feat`` [Ep, K * C,
-    H, W] (any strides; before its relu) and the raw obs [Ep, D]. CPU
-    tensors take ``opponent_features_forward_plain``; CUDA tensors launch
-    K7 (``opponent_cnn_mlp_kernel``, ``opponent_cnn_mlp_bf16_kernel``): a
-    row of slot k loads channels [k C, (k + 1) C) of its ``feat`` row,
-    relu'd, in NHWC order, then its obs columns past the spatial slice
-    normalised by slot k, and runs on as the raw-obs kernel does. Counted
-    apart from ``opponent_actor_forward``."""
+    H, W] (before its relu) and the raw obs [Ep, D]. CPU tensors take
+    ``opponent_features_forward_plain``; CUDA tensors launch
+    ``csrc/opponent_features.cu`` (``opponent_features_kernel``, 3xTF32,
+    or ``opponent_features_bf16_kernel``): one block a tile of 16 of one
+    slot's rows, the slot's packed tower in shared memory; a row of slot k reads
+    channels [k C, (k + 1) C) of its ``feat`` row as one contiguous range
+    (the packed first layer in that NCHW order), relu'd, then its obs
+    columns past the spatial slice normalised by slot k. A ``feat`` that
+    is not contiguous is copied into one first. Counted apart from
+    ``opponent_actor_forward``."""
     if kernels.on_cpu(feat, obs, slot, *_stack_tensors(stack)):
         return opponent_features_forward_plain(feat, obs, slot, stack, clip)
     Ep, D = obs.shape
@@ -502,12 +549,13 @@ def opponent_features_forward(feat: torch.Tensor, obs: torch.Tensor, slot: torch
     if cc != stack.conv_weights[-1].shape[0] // K:
         raise ValueError(f"feat: {cc} channels a slot, the last conv has "
                          f"{stack.conv_weights[-1].shape[0] // K}")
-    args, out = _tower_args(obs, slot, stack, _feature_width(stack, D), clip, tiling,
+    args, out = _tower_args(obs, slot, stack, _feature_width(stack, D), clip,
                             "opponent_features_forward")
-    strides = (ctypes.c_long * 4)(*feat.stride())
-    err = kernels.library().opp_mlp_forward_features(
-        *args, kernels.ptr(feat), strides, cc, H, W, H * W * C, kernels.stream(obs.device))
-    kernels.check(err, "opp_mlp_forward_features")
+    feat = feat.contiguous()
+    err = kernels.library().opp_features_forward(
+        *args, int(stack.bf16), kernels.ptr(feat), cc * H * W, H * W * C,
+        kernels.stream(obs.device))
+    kernels.check(err, "opp_features_forward")
     opponent_features_forward.launches += 1
     return out
 

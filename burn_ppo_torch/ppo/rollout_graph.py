@@ -18,10 +18,10 @@ from update to update, and writes its outputs into one ``RolloutBuffers``:
 * on the vs-pool path, the seating (written back at the end, and copied
   in where the trainer remapped it on the host), the rotation's opponent
   stack, copied into one stack of the padded slot count (K7 takes its
-  layers' pointers as host arrays, fixed at capture; a CNN stack's
-  grouped-conv weights and biases too, which the captured cuDNN convs
-  read), and the reseat's slot bound, the rotation's active count as a
-  0-dim device tensor.
+  layers' pointers as host arrays, fixed at capture, the packed tower's
+  of a bf16 or CNN stack among them; a CNN stack's grouped-conv weights
+  and biases too, which the captured cuDNN convs read), and the reseat's
+  slot bound, the rotation's active count as a 0-dim device tensor.
 
 ``run`` copies in every input that is not already the static one, then
 runs the rollout: eagerly on the CPU (the path the parity tests hold
@@ -91,13 +91,15 @@ def state_leaves(x) -> List[torch.Tensor]:
 
 def _clone(x):
     """The tree with every tensor copied into a contiguous buffer of its
-    own (scratch fields shared)."""
+    own (scratch fields shared; a field the dataclass derives itself, such
+    as ``OpponentStack.packed``, derived anew from the copies)."""
     if isinstance(x, torch.Tensor):
         return x.clone(memory_format=torch.contiguous_format)
     if isinstance(x, list):
         return [_clone(v) for v in x]
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name)) for f in _fields(x)})
+        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name)) for f in _fields(x)
+                                         if f.init})
     return x
 
 

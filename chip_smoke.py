@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K7, K18 and K19, train phases 3,
+    python3 chip_smoke.py --parent DIR   # also time DIR's K7 towers, train phases 3,
                                          # 3d, train steps and the Skull eval chunk in turns
+    python3 chip_smoke.py --parent DIR --only-k7   # K7's checks and turns alone (~80 s),
+                                                   # no result line
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -80,9 +82,9 @@ exits non-zero without the final result line:
      replays of a captured graph, and is timed beside an empty kernel's
      launch (the floor); with --parent, when DIR's kernel sources differ
      from this tree's, the parent commit's K7 (its f32 tower at the four
-     pool shapes, to K7's tolerance), K18 and K19 (bit for bit), built from
-     DIR, checked and timed in turns with this tree's (parent, new, new,
-     parent);
+     pool shapes, bit for bit this tree's; its bf16 tower and its feature
+     front, each to its tolerance), built from DIR, checked and timed in
+     turns with this tree's (parent, new, new, parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
   2. (continued) K18, the update window's pool records (one launch of many
@@ -93,12 +95,14 @@ exits non-zero without the final result line:
      warp, a table an accumulator entry), bit for bit over 8 folds (a KL
      spike, a guard count, an update without an episode); each timed, one
      append or fold, beside an empty kernel's launch (K19 in turns with
-     it); K7's bf16 tower (the stacks' weights rounded to bf16) against
-     its plain version at Connect Four's pool block (Ep = 1024, K = 8, 86
-     -> 512 x2 -> 7, obs norm) and the flagship's (Ep = 1229, 135 -> 256
-     x3 -> 33), every tiling, to 2^-7 (|plain| + max |plain|), timed in
-     turns with K7's f32 tower and with torch.bmm in bf16, its bound the
-     bf16 tensor cores' rate;
+     it); K7's bf16 tower (the stacks' weights rounded to bf16 and packed)
+     against its plain version at Connect Four's pool block (Ep = 1024, K
+     = 8, 86 -> 512 x2 -> 7, obs norm), the flagship's (Ep = 1229, 135 ->
+     256 x3 -> 33) and Liar's Dice MLP's (Ep = 1024, 270 -> 512 x3 -> 49,
+     obs norm, streamed through the ring), by its check with its control
+     (K7's f32 tower on the rounded weights) failing, its device ms in turns
+     with K7's f32 tower, with torch.bmm in bf16 and (--parent) with the
+     parent's bf16 tower, its bound the bf16 tensor cores' rate;
   2a. phase ``popart``: K15, PopArt's update (the masked moments of the
      raw returns, the Welford merge and the value head's rescale, one
      launch with a last-block ticket) against its plain version at the CartPole batch
@@ -317,7 +321,9 @@ exits non-zero without the final result line:
      of K per-slot convs; K7's feature front after them against
      opponent_cnn_forward_plain (each slot's normalisation, convs and
      tower over every row, then the row's slot), f32 to K7's tolerance,
-     the bf16 tower by its check with its control failing; the rollout
+     the bf16 tower by its check with its control failing,
+     its device ms in turns with torch.bmm over the K x Ep rows and
+     (--parent) with the parent's feature front; the rollout
      case ``connect_four_pool_cnn`` graphed bit for bit; phase
      ``selfplay_pool_cnn``: configs/connect_four.toml with --network-type
      cnn through the CLI, 4096 x 64, 10 updates with a checkpoint each
@@ -593,7 +599,7 @@ SOURCES = {
     # K7's bf16 tower (launched by K7's wrapper for a stack of bf16
     # weights): the same fusion with the learner's bf16 dense
     # (models/core.py:37)
-    BF16_TOWER: ("burn_ppo_torch/csrc/opponent_actor.cu", "burn_ppo_tpu/ppo/pool_rollout.py:126"),
+    BF16_TOWER: ("burn_ppo_torch/csrc/opponent_tower.cu", "burn_ppo_tpu/ppo/pool_rollout.py:126"),
     "ppo_loss": ("burn_ppo_torch/csrc/ppo_loss.cu", "burn_ppo_tpu/ppo/update.py:125"),
     "clip_adam": ("burn_ppo_torch/csrc/clip_adam.cu", "burn_ppo_tpu/ppo/update.py:82"),
     "episode_stats": ("burn_ppo_torch/csrc/episode_stats.cu",
@@ -620,9 +626,9 @@ SOURCES = {
     # front; its bf16 tower with the learner's bf16 dense)
     "opponent_cnn_front": ("burn_ppo_torch/csrc/opponent_cnn_front.cu",
                            "burn_ppo_tpu/ppo/pool_rollout.py:132"),
-    "opponent_features_forward": ("burn_ppo_torch/csrc/opponent_actor.cu",
+    "opponent_features_forward": ("burn_ppo_torch/csrc/opponent_features.cu",
                                   "burn_ppo_tpu/models/network.py:195"),
-    CNN_BF16_TOWER: ("burn_ppo_torch/csrc/opponent_actor.cu",
+    CNN_BF16_TOWER: ("burn_ppo_torch/csrc/opponent_features.cu",
                      "burn_ppo_tpu/models/network.py:195"),
 }
 # The env steps with K14's row code as their sampling front (the step
@@ -779,7 +785,7 @@ def bound(bytes_moved: float, flops: float = 0.0, flops64: float = 0.0,
 def kernel_name(mangled: str) -> str:
     """A kernel's name and integer template arguments from its mangled
     name: the shortest length-prefixed identifier that ends in ``kernel``
-    (it may hold digits, as ``opponent_mlp_bf16_kernel``; its length's
+    (it may hold digits, as ``opponent_tower_bf16_kernel``; its length's
     digits may follow a hash's), then ``<...>``."""
     found = []
     for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
@@ -828,17 +834,17 @@ def turns(new, other, who: str = "parent", only: str | None = None,
 
 
 class ParentKernels:
-    """The parent commit's versions of the kernels this tree redesigned or
-    extended (their C entry points as f912ae7 has them), built from a
-    checkout of it into a library of their own (one ``nvcc`` a source, all
-    at once, then one link) and called as its wrappers called them, so that
-    they are timed beside the new kernels in the same process: K7's f32
-    tower (``opp_mlp_forward`` without the bf16 flag), K18 (one block
-    walking the tiles in turn) and K19 (a thread an entry, a loop over a
-    by-value table of fields). Its ptxas lines cover them, beside this
-    tree's."""
+    """The parent commit's versions of the kernels this tree redesigned
+    (their C entry points as 13c39f2 has them), built from a checkout of it
+    into a library of their own (one ``nvcc`` a source, all at once, then
+    one link) and called as its wrappers called them, so that they are
+    timed beside the new kernels in the same process: K7's f32 tower and
+    its bf16 tower (``opp_mlp_forward`` with the bf16 flag, the weights
+    ``[K, in, out]``) and its feature front (``opp_mlp_forward_features``,
+    the conv output at its strides). Its ptxas lines cover them, beside
+    this tree's."""
 
-    SOURCES = ("opponent_actor.cu", "window_records.cu", "window_report.cu")
+    SOURCES = ("opponent_actor.cu",)
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
@@ -857,47 +863,46 @@ class ParentKernels:
         self.ptxas = ptxas_summary("\n".join(logs))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
-        for name, argtypes in (("opp_mlp_forward", [vp] * 5 + [f] + [vp] * 3 + [i, i, vp]
-                                + [i] * 3 + [vp]),
-                               ("window_records", [vp] * 4 + [i] * 4 + [vp] * 5),
-                               ("window_report", [vp] * 3 + [i] + [vp] * 3)):
+        tower = [vp] * 5 + [f] + [vp] * 3 + [i, i, vp] + [i] * 4
+        for name, argtypes in (("opp_mlp_forward", tower + [vp]),
+                               ("opp_mlp_forward_features", tower + [vp, vp] + [i] * 4 + [vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
-    def opponent_forward(self, obs, slot, stack: OpponentStack, clip: float = 10.0):
-        """The parent's K7 (f32 towers only, its default tiling) into a new
-        output."""
-        Ep, D = obs.shape
+    @staticmethod
+    def _tower(obs, slot, stack: OpponentStack, D: int, clip: float) -> tuple:
+        Ep = obs.shape[0]
         widths = [D] + [w.shape[2] for w in stack.weights]
         depth, norm = len(stack.weights), stack.norm
         out = torch.empty(Ep, widths[-1], dtype=torch.float32, device=obs.device)
         p = kernels.ptr
-        kernels.check(self.lib.opp_mlp_forward(
-            p(obs), p(slot), *((None,) * 3 if norm is None else (p(norm.mean), p(norm.m2),
-                                                                  p(norm.count))),
-            float(clip), (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights)),
-            (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases)),
-            (ctypes.c_int * (depth + 1))(*widths), depth, 1 if stack.activation == "relu" else 2,
-            p(out), Ep, stack.num_slots, -1, kernels.stream(obs.device)), "parent K7")
+        args = (p(obs), p(slot), *((None,) * 3 if norm is None else (p(norm.mean), p(norm.m2),
+                                                                      p(norm.count))),
+                float(clip), (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights)),
+                (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases)),
+                (ctypes.c_int * (depth + 1))(*widths), depth,
+                1 if stack.activation == "relu" else 2, p(out), Ep, stack.num_slots, -1,
+                int(stack.bf16))
+        return args, out
+
+    def opponent_forward(self, obs, slot, stack: OpponentStack, clip: float = 10.0):
+        """The parent's K7 over the raw obs (its f32 tower, or its bf16
+        tower for bf16 weights; its default tiling) into a new output."""
+        args, out = self._tower(obs, slot, stack, obs.shape[1], clip)
+        kernels.check(self.lib.opp_mlp_forward(*args, kernels.stream(obs.device)), "parent K7")
         return out
 
-    def window_records(self, book: WindowBook, completed, outcome, seat, slots, L: int) -> None:
-        """The parent's K18: one update's appends to the book's rows."""
-        T, E_ = completed.shape
-        p = kernels.ptr
-        kernels.check(self.lib.window_records(
-            p(completed), p(outcome), p(seat), p(slots), T, E_, L, outcome.shape[-1],
-            p(book.first), p(book.total), p(book.cap), p(book.rows),
-            kernels.stream(completed.device)), "parent K18")
-
-    def window_report(self, book: WindowBook, fields) -> None:
-        """The parent's K19: the fields' pointers, lengths and folds."""
-        n = len(fields)
-        kernels.check(self.lib.window_report(
-            (ctypes.c_void_p * n)(*(t.data_ptr() for t, _ in fields)),
-            (ctypes.c_int * n)(*(t.numel() for t, _ in fields)),
-            (ctypes.c_int * n)(*(op for _, op in fields)), n, kernels.ptr(book.acc),
-            kernels.ptr(book.first), kernels.stream(book.acc.device)), "parent K19")
+    def features_forward(self, feat, obs, slot, stack: OpponentStack, clip: float = 10.0):
+        """The parent's K7 feature front (its default tiling) into a new
+        output: it reads ``feat`` at its strides, the first FC layer in
+        JAX's NHWC row order (the stack's weights as they are)."""
+        H, W, C = stack.obs_shape
+        cc = feat.shape[1] // stack.num_slots
+        args, out = self._tower(obs, slot, stack, H * W * cc + obs.shape[1] - H * W * C, clip)
+        kernels.check(self.lib.opp_mlp_forward_features(
+            *args, kernels.ptr(feat), (ctypes.c_long * 4)(*feat.stride()), cc, H, W, H * W * C,
+            kernels.stream(obs.device)), "parent K7 feature front")
+        return out
 
 
 class EmptyKernel:
@@ -1779,9 +1784,9 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
     the MLP 270 -> 512 x3 -> 49 with obs norm), all relu; and Connect
     Four's at K = 3, relu and tanh. Every tiling is checked and timed at
     the four shapes: |kernel - plain| <= 1e-4 + 1e-4 |plain|. With
-    ``parent``, the parent's K7 (before its bf16 tower) on the same inputs
-    at each shape, to the same tolerance, bit for bit or not, and timed in
-    turns with it."""
+    ``parent``, the parent's K7 f32 tower on the same inputs at each shape,
+    bit for bit this tree's (its code is the parent's), and timed in turns
+    with it."""
     out = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": 0.0,
            "tilings": [f"{r} rows x {c} blocks" for r, c in OPPONENT_TILINGS]}
 
@@ -1813,7 +1818,7 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
         widths = [D] + [w.shape[2] for w in stack.weights]
         resident = ctypes.c_int(0)
         chosen = kernels.library().opp_mlp_default_tiling(
-            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, Ep, 8, 0,
+            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, Ep, 8,
             ctypes.byref(resident))
         entry["default_tiling"] = "{}x{}".format(*OPPONENT_TILINGS[chosen])
         entry["resident_3_block_clusters"] = resident.value
@@ -1849,8 +1854,11 @@ def parent_opponent_turns(parent: "ParentKernels", obs, slot, stack, close) -> d
     timed in turns."""
     mine = opponent_actor_forward(obs, slot, stack)
     theirs = parent.opponent_forward(obs, slot, stack)
+    if not torch.equal(theirs, mine):
+        raise AssertionError(f"K7's f32 tower: not bit for bit the parent's, max abs err "
+                             f"{max_err([(theirs, mine)])}")
     return {"parent_max_abs_err": close(theirs, mine, "the parent's"),
-            "parent_equal_bit_for_bit": bool(torch.equal(theirs, mine)),
+            "parent_equal_bit_for_bit": True,
             "parent_turns": turns(lambda: opponent_actor_forward(obs, slot, stack),
                                   lambda: parent.opponent_forward(obs, slot, stack),
                                   only="opponent_mlp_kernel", other_only="opponent_mlp_kernel")}
@@ -1881,19 +1889,33 @@ def bf16_tower_errors(k: torch.Tensor, p: torch.Tensor) -> dict:
             and float(d.mean()) <= 2.0**-15 * scale}
 
 
-def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor) -> dict:
+def tower_layout(widths, bf16: bool, feat: bool) -> dict:
+    """The new K7 body's shared-memory layout of a tower (the bf16 tower's,
+    or the feature front's with ``feat``): stages, bytes a stage, the input
+    buffers' bytes, the dynamic shared memory."""
+    out = (ctypes.c_int * 3)()
+    smem = kernels.library().opp_tower_layout(
+        (ctypes.c_int * len(widths))(*widths), len(widths) - 1, int(bf16), int(feat), out)
+    return {"stages": out[0], "stage_bytes": out[1], "input_buffer_bytes": out[2],
+            "dynamic_smem_bytes": smem}
+
+
+def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
+                              parent: "ParentKernels | None" = None) -> dict:
     """K7's bf16 tower at the pool blocks of the bf16 training paths, K = 8,
-    each stack's weights rounded to bf16 once: Connect Four's (Ep = 1024,
-    MLP 86 -> 512 x2 -> 7, relu, per-slot obs norm) and the flagship's
-    (Ep = 1229, CTDE actor 135 -> 256 x3 -> 33, relu). Each tiling
-    checked against the plain version on the same bf16 stack
-    (``bf16_tower_errors``), and the control, K7's f32 tower on the same
+    each stack's weights rounded to bf16 once and packed: Connect Four's
+    (Ep = 1024, MLP 86 -> 512 x2 -> 7, relu, per-slot obs norm), the
+    flagship's (Ep = 1229, CTDE actor 135 -> 256 x3 -> 33, relu) and Liar's
+    Dice MLP's (Ep = 1024, 270 -> 512 x3 -> 49, relu, obs norm; 1.37 MB a
+    slot, streamed through the ring). Each checked against the plain
+    version on the same bf16 stack (``bf16_tower_errors``), and the control, K7's f32 tower on the same
     rounded weights, must fail the same check. Timed against the plain
-    version, in turns with K7's f32 tower on the f32 weights and with
-    torch.bmm in bf16 over the K x Ep stacked rows (the library call, K
-    times the work, bf16 out); its bound: the operations at the bf16
-    tensor cores' rate."""
-    out = {"tol": BF16_TOWER_TOL, "max_abs_err": 0.0}
+    version; its device ms in turns with K7's f32 tower on the f32
+    weights, with torch.bmm in bf16 over the K x Ep stacked rows (the
+    library call, K times the work, bf16 out) and, with ``parent``, with
+    the parent's bf16 tower (checked the same way); its bound: the
+    operations at the bf16 tensor cores' rate."""
+    out = {"tol": BF16_TOWER_TOL, "max_abs_err": 0.0, "tiling": "32 rows x 2 blocks"}
 
     def close(k, p, what):
         errs = bf16_tower_errors(k, p)
@@ -1903,7 +1925,8 @@ def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor) -> dict:
         return errs
 
     shapes = (("c4_Ep1024_K8_mlp512x2", connect_four_like(dev, g, EP), 512, 2, 7, True),
-              ("skull_Ep1229_K8_ctde256x3", skull_obs[:EP_SKULL], 256, 3, 33, False))
+              ("skull_Ep1229_K8_ctde256x3", skull_obs[:EP_SKULL], 256, 3, 33, False),
+              ("liars_dice_Ep1024_K8_mlp512x3", ld_obs[:EP_LD], 512, 3, 49, True))
     for name, obs, H, depth, A, normed in shapes:
         obs = obs.contiguous()
         Ep, D = obs.shape
@@ -1928,18 +1951,6 @@ def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor) -> dict:
                  "max_abs_plain": errs["max_abs_plain"],
                  "control_f32_tower_rounded_weights": control}
         widths = [D] + [w.shape[2] for w in stack.weights]
-        resident = ctypes.c_int(0)
-        chosen = kernels.library().opp_mlp_default_tiling(
-            (ctypes.c_int * len(widths))(*widths), len(widths) - 1, Ep, 8, 1,
-            ctypes.byref(resident))
-        entry["default_tiling"] = "{}x{}".format(*OPPONENT_TILINGS[chosen])
-        entry["resident_3_block_clusters"] = resident.value
-        tilings = {}
-        for t, (r, c) in enumerate(OPPONENT_TILINGS):
-            run = (lambda t=t: opponent_actor_forward(obs, slot, stack, tiling=t))
-            errs = close(run(), plain, f"{name} tiling {t}")
-            tilings[f"{r}x{c}"] = {"max_abs_err": errs["max_abs"], "mean_abs_err": errs["mean_abs"],
-                                   "device_ms": device_ms(run)[0], "ms": time_ms(run)}
         xs = [torch.rand(8, Ep, w.shape[1], generator=g, device=dev).to(torch.bfloat16)
               for w in stack.weights]
         bmm_bf16 = (lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)])
@@ -1947,17 +1958,23 @@ def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor) -> dict:
         new = (lambda: opponent_actor_forward(obs, slot, stack))
         entry.update(
             **timed(new, lambda: opponent_actor_forward_plain(obs, slot, stack)),
-            tilings=tilings, library_ms=time_ms(bmm_bf16),
+            layout=tower_layout(widths, True, False), library_ms=time_ms(bmm_bf16),
             f32_tower_turns=turns(new, lambda: opponent_actor_forward(obs, slot, f32),
-                                  who="f32_tower", only="opponent_mlp_bf16_kernel",
+                                  who="f32_tower", only="opponent_tower_bf16_kernel",
                                   other_only="opponent_mlp_kernel"),
             bmm_bf16_turns=turns(new, bmm_bf16, who="bmm_bf16",
-                                 only="opponent_mlp_bf16_kernel"),
+                                 only="opponent_tower_bf16_kernel"),
             # every row through its own slot only, bf16 products at the
             # tensor cores' bf16 rate
             **bound(nbytes(obs, slot, stack.weights, stack.biases, stack.norm) + Ep * A * 4,
                     flops_bf16=2.0 * Ep * macs),
         )
+        if parent is not None:
+            theirs = parent.opponent_forward(obs, slot, stack)
+            entry["parent_errors"] = close(theirs, plain, f"{name}, the parent's bf16 tower")
+            entry["parent_turns"] = turns(new, lambda: parent.opponent_forward(obs, slot, stack),
+                                          only="opponent_tower_bf16_kernel",
+                                          other_only="opponent_mlp_bf16_kernel")
         out[name] = entry
     out["library_call"] = ("torch.bmm in bf16 over the K x Ep stacked rows, one per layer "
                            "(K times the work, bf16 out)")
@@ -2030,7 +2047,7 @@ def conv_macs(stack: OpponentStack) -> int:
     return sum(w.numel() * H * W for w in stack.conv_weights)
 
 
-def check_opponent_cnn(dev, g) -> dict:
+def check_opponent_cnn(dev, g, parent: "ParentKernels | None" = None) -> dict:
     """The CNN opponents' path at Connect Four's pool block (Ep = 1024, K =
     8, obs norm on), f32 and bf16 (the stack stored as a bf16 run stores
     it): K20 bit for bit its plain version; the grouped cuDNN convs against
@@ -2038,10 +2055,11 @@ def check_opponent_cnn(dev, g) -> dict:
     feature front after them against ``opponent_cnn_forward_plain`` (the
     JAX formulation from the raw obs), f32 to 1e-4 + 1e-4 |plain|, the
     bf16 tower by ``bf16_tower_errors`` with its control (the f32 tower on
-    the same rounded weights and features) failing; every tiling; each
-    timed against its plain version, K7's feature front also against
-    torch.bmm over the K x Ep stacked rows (its library call, K times the
-    work), with its bound."""
+    the same rounded weights and features) failing; each
+    timed against its plain version, K7's feature front's device ms also
+    in turns with torch.bmm over the K x Ep stacked rows (its library
+    call, K times the work) and, with ``parent``, with the parent's
+    feature front (checked the same way), with its bound."""
     obs = connect_four_like(dev, g, EP)
     slot = torch.randint(0, 8, (EP,), generator=g, device=dev, dtype=torch.int32)
     slot[:3] = torch.tensor([-1, 8, 40], device=dev, dtype=torch.int32)
@@ -2108,16 +2126,27 @@ def check_opponent_cnn(dev, g) -> dict:
             if not bool(torch.all(d <= 1e-4 + 1e-4 * want.abs())):
                 raise AssertionError(f"K7's feature front f32: max abs err {float(d.max())}")
             entry = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": float(d.max())}
-        tilings = {}
-        for t, (r, c) in enumerate(OPPONENT_TILINGS):
-            run = (lambda t=t: opponent_features_forward(feat, obs, slot, stack, tiling=t))
-            tilings[f"{r}x{c}"] = {"max_abs_err": max_err([(run(), got)]),
-                                   "device_ms": device_ms(run)[0], "ms": time_ms(run)}
         cc, (H, W, C) = feat.shape[1] // 8, stack.obs_shape
         F = H * W * cc + obs.shape[1] - H * W * C
         wdt = torch.bfloat16 if bf16 else torch.float32
         xs = [torch.rand(8, EP, w.shape[1], generator=g, device=dev).to(wdt) for w in stack.weights]
         macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
+        name = "opponent_features_bf16_kernel" if bf16 else "opponent_features_kernel"
+        new = (lambda: opponent_features_forward(feat, obs, slot, stack))
+        bmm = (lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)])
+        if parent is not None:
+            theirs = parent.features_forward(feat, obs, slot, stack)
+            if bf16:
+                entry["parent_errors"] = bf16_tower_errors(theirs, want)
+                ok = entry["parent_errors"]["within"]
+            else:
+                entry["parent_max_abs_err"] = float((theirs - want).abs().max())
+                ok = bool(torch.all((theirs - want).abs() <= 1e-4 + 1e-4 * want.abs()))
+            if not ok:
+                raise AssertionError(f"the parent's feature front {key} off its tolerance")
+            entry["parent_turns"] = turns(
+                new, lambda: parent.features_forward(feat, obs, slot, stack), only=name,
+                other_only="opponent_cnn_mlp_bf16_kernel" if bf16 else "opponent_cnn_mlp_kernel")
         rows_in = int(((slot >= 0) & (slot < 8)).sum())
         # what this run's rows read: their slot's features and extra obs
         # columns, the weights, biases and normalisers, the logits out
@@ -2125,10 +2154,10 @@ def check_opponent_cnn(dev, g) -> dict:
                  + EP * 7 * 4)
         ops = {"flops_bf16" if bf16 else "flops_3xtf32": 2.0 * rows_in * macs}
         entry.update(
-            **timed(lambda: opponent_features_forward(feat, obs, slot, stack),
-                    lambda: opponent_features_forward_plain(feat, obs, slot, stack)),
-            tilings=tilings, feature_width=F,
-            library_ms=time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+            **timed(new, lambda: opponent_features_forward_plain(feat, obs, slot, stack)),
+            layout=tower_layout([F] + [w.shape[2] for w in stack.weights], bf16, True),
+            feature_width=F, library_ms=time_ms(bmm),
+            bmm_turns=turns(new, bmm, who="bmm", only=name),
             library_call="torch.bmm over the K x Ep stacked rows, one per layer (K times the "
                          "work" + (", bf16 out)" if bf16 else ")"),
             **bound(moved, **ops))
@@ -2894,7 +2923,7 @@ ROLLOUT_KERNELS = {
     "obs_norm_apply": "obs_norm_apply_kernel",
     "opponent_actor_forward": "opponent_mlp_kernel",
     "opponent_cnn_front": "opponent_cnn_front_kernel",
-    "opponent_features_forward": "opponent_cnn_mlp_kernel",
+    "opponent_features_forward": "opponent_features_kernel",
     "return_norm_roll": "return_norm_roll_kernel",
     "return_norm_finalize": "return_norm_finalize_kernel",
     "popart_denormalize": "popart_denormalize_kernel",
@@ -2903,7 +2932,7 @@ ROLLOUT_KERNELS = {
 
 # A bf16 run's rollout: K7's launches are its bf16 tower, and its f32
 # tower (no wrapper's count: any launch fails) reads 0.
-BF16_ROLLOUT_KERNELS = {**ROLLOUT_KERNELS, "opponent_actor_forward": "opponent_mlp_bf16_kernel",
+BF16_ROLLOUT_KERNELS = {**ROLLOUT_KERNELS, "opponent_actor_forward": "opponent_tower_bf16_kernel",
                         "opponent_actor_forward's f32 tower": "opponent_mlp_kernel"}
 
 
@@ -5941,19 +5970,16 @@ def records_run(fn, book: WindowBook, logs: list, capacity: int, L: int) -> tupl
     return total, book.rows[:min(total, capacity)].cpu()
 
 
-def check_window_records(dev, g, parent: "ParentKernels | None" = None) -> dict:
+def check_window_records(dev, g) -> dict:
     """K18 against its plain version bit for bit, on one book: two windows
     of 8 appends in a row at the flagship shape (Skull, 4 players, T = 64,
     E = 4096, Ep = 1229, C = 78,656) and a window whose capacity (500
     rows) overflows; one append timed (the first-update flag set, so each
-    call starts the buffer). With ``parent``, the parent's K18 on the same
-    windows (bit for bit) and timed in turns with it."""
+    call starts the buffer)."""
     P, L = 4, E - EP_SKULL
     out = {}
     rows = record_capacity(W_FLAG, T_FLAG, EP_SKULL)
     runs = (("kernel", window_records), ("plain", window_records_plain))
-    if parent is not None:
-        runs += (("parent", parent.window_records),)
     books = {who: WindowBook(dev, P, record_rows=rows) for who, _ in runs}
     for name, rate, capacity in (("flagship_W8", 0.03, rows), ("flagship_W8_again", 0.03, rows),
                                  ("overflow_C500", 0.3, 500)):
@@ -5977,8 +6003,6 @@ def check_window_records(dev, g, parent: "ParentKernels | None" = None) -> dict:
         window_records(books["kernel"], *logs, L)
 
     out.update(timed(new, lambda: window_records_plain(books["plain"], *logs, L)))
-    if parent is not None:
-        out["parent_turns"] = turns(new, lambda: parent.window_records(books["parent"], *logs, L))
     out.update(library_ms=None, games_per_update=games, max_abs_err=0.0,
                empty_kernel_device_ms=device_ms(empty_kernel())[0],
                **bound(T_FLAG * EP_SKULL * 4 + games * (RECORD_BYTES + 2 * P - 1)))
@@ -6004,19 +6028,15 @@ def report_inputs(dev, g, P: int = 4) -> tuple:
     return metrics, stats, sums, out
 
 
-def check_window_report(dev, g, parent: "ParentKernels | None" = None) -> dict:
+def check_window_report(dev, g) -> dict:
     """K19 against its plain version bit for bit over a window of 8 folds
     of fresh outputs (a KL spike in the fourth, a guard count in the
     second, an update with no episode: extrema -inf / +inf); one fold
-    timed, beside an empty kernel's launch (the floor). With ``parent``,
-    the parent's K19 over the same folds (bit for bit) and timed in turns
-    with it and with the empty launch."""
+    timed, beside an empty kernel's launch (the floor)."""
     P = 4
     metrics, stats, sums, out = report_inputs(dev, g, P)
     folds = [("kernel", lambda b, f: window_report(b, f)),
              ("plain", lambda b, f: window_report_plain(b, f))]
-    if parent is not None:
-        folds.append(("parent", lambda b, f: parent.window_report(b, f)))
     books = {who: WindowBook(dev, P) for who, _ in folds}
     for b in books.values():
         b.start()
@@ -6048,8 +6068,6 @@ def check_window_report(dev, g, parent: "ParentKernels | None" = None) -> dict:
     floor = empty_kernel()
     res.update(timed(new, lambda: window_report_plain(books["plain"], fields)),
                empty_kernel_turns=turns(new, floor, who="empty_kernel"))
-    if parent is not None:
-        res["parent_turns"] = turns(new, lambda: parent.window_report(books["parent"], fields))
     res.update(library_ms=None, max_abs_err=0.0, **bound(entries * 4 * 3 + 4))
     return res
 
@@ -6511,15 +6529,58 @@ def bf16_phase(tmp: Path, card_line: str) -> dict:
             "flagship_window": flagship_bf16_window(tmp), "seconds": time.time() - t0}
 
 
+def k7_turns(dev, card_line: str, ptxas: list, parent: "ParentKernels | None") -> None:
+    """``--only-k7``: K7's checks alone, with the parent beside them where
+    it was built: the f32 tower at the four pool shapes (bit for bit the
+    parent's, in turns), the bf16 tower at the three bf16 pool blocks and
+    the feature front in f32 and bf16 (each in turns with the parent's and
+    with torch.bmm, device ms). The Skull and Liar's Dice obs are random
+    rows of their widths (the times depend on the shapes and the slots,
+    not on the values). One JSON line a check, then a summary."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    skull_obs = connect_four_like(dev, g, E, D=135)
+    ld_obs = connect_four_like(dev, g, E, D=LD_OBS)
+    emit("k7_ptxas", card=card_line, ptxas=[ln for ln in ptxas if ln.startswith(
+        ("opponent_tower", "opponent_features", "opponent_mlp"))],
+         parent_ptxas=None if parent is None else parent.ptxas)
+    f32 = check_opponent_actor(dev, g, skull_obs, ld_obs, parent)
+    emit("k7_f32_tower", card=card_line, **f32)
+    bf = check_opponent_actor_bf16(dev, torch.Generator(device=dev).manual_seed(21), skull_obs,
+                                   ld_obs, parent)
+    emit("k7_bf16_tower", card=card_line, **bf)
+    cnn = check_opponent_cnn(dev, torch.Generator(device=dev).manual_seed(22), parent)
+    emit("k7_feature_front", card=card_line, **cnn)
+    who = "" if parent is None else " against the parent's {}"
+    for name in ("c4_Ep1024_K8_mlp512x2", "skull_Ep1229_K8_ctde256x3",
+                 "liars_dice_Ep1024_K8_mlp512x3"):
+        e = bf[name]
+        mine = (e["parent_turns"]["device_ms_turns"] if parent is not None
+                else e["bmm_bf16_turns"]["device_ms_turns"])
+        print(f"bf16 tower {name} ({card_line}): device ms in turns {mine}"
+              + who.format(e.get("parent_turns", {}).get("parent_device_ms"))
+              + f", bmm bf16 {e['bmm_bf16_turns']['bmm_bf16_device_ms']}; bound "
+              f"{e['bound_ms']}", flush=True)
+    for key, row in (("f32", cnn["opponent_features_forward"]["f32"]),
+                     ("bf16", cnn[CNN_BF16_TOWER]["bf16"])):
+        mine = (row["parent_turns"]["device_ms_turns"] if parent is not None
+                else row["bmm_turns"]["device_ms_turns"])
+        print(f"feature front {key} ({card_line}): device ms in turns {mine}"
+              + who.format(row.get("parent_turns", {}).get("parent_device_ms"))
+              + f", bmm {row['bmm_turns']['bmm_device_ms']}; bound {row['bound_ms']}", flush=True)
+
+
 def main(argv: list) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K7, K18 and K19 are built "
+                    help="a checkout of the parent commit: its K7 towers are built "
                          "from it and timed in turns with this tree's, and so are its CartPole "
                          "and Connect Four vs-pool train phases, its train steps and its Skull "
                          "eval chunk")
+    ap.add_argument("--only-k7", action="store_true",
+                    help="build, then run K7's checks alone (with --parent, in turns with the "
+                         "parent's) and stop, without the result line")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
@@ -6534,7 +6595,7 @@ def main(argv: list) -> int:
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    # ParentKernels binds the entry points as f912ae7 has them; a parent
+    # ParentKernels binds the entry points as 13c39f2 has them; a parent
     # whose kernel sources are this tree's has nothing to time against them.
     parent = None
     if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
@@ -6543,6 +6604,9 @@ def main(argv: list) -> int:
          parent_ptxas=None if parent is None else parent.ptxas,
          parent_kernels=None if args.parent is None else
          "built and timed in turns" if parent is not None else "the parent's csrc is this tree's")
+    if args.only_k7:
+        k7_turns(dev, card_line, ptxas, parent)
+        return 0
 
     g = torch.Generator(device=dev).manual_seed(0)
     skull, skull_mask, skull_obs = check_skull(dev, g)
@@ -6593,20 +6657,21 @@ def main(argv: list) -> int:
     checks.update(check_eval_step(dev, torch.Generator(device=dev).manual_seed(17), ptxas))
     # K18 and K19, the update window's records and report, on one of their own.
     g20 = torch.Generator(device=dev).manual_seed(20)
-    checks["window_records"] = {**check_window_records(dev, g20, parent),
+    checks["window_records"] = {**check_window_records(dev, g20),
                                 "ptxas": kernel_ptxas(ptxas, "window_records")}
-    checks["window_report"] = {**check_window_report(dev, g20, parent),
+    checks["window_report"] = {**check_window_report(dev, g20),
                                "ptxas": kernel_ptxas(ptxas, "window_report")}
     # K7's bf16 tower, on a generator of its own.
     checks[BF16_TOWER] = {
-        **check_opponent_actor_bf16(dev, torch.Generator(device=dev).manual_seed(21), skull_obs),
-        "ptxas": kernel_ptxas(ptxas, "opponent_mlp_bf16")}
+        **check_opponent_actor_bf16(dev, torch.Generator(device=dev).manual_seed(21), skull_obs,
+                                    ld_obs, parent),
+        "ptxas": kernel_ptxas(ptxas, "opponent_tower_bf16")}
     # The CNN opponents (A12b): K20, the grouped convs, K7's feature front
     # in both towers, on a generator of their own.
-    checks.update(check_opponent_cnn(dev, torch.Generator(device=dev).manual_seed(22)))
+    checks.update(check_opponent_cnn(dev, torch.Generator(device=dev).manual_seed(22), parent))
     checks["opponent_cnn_front"]["ptxas"] = kernel_ptxas(ptxas, "opponent_cnn_front")
-    checks["opponent_features_forward"]["ptxas"] = kernel_ptxas(ptxas, "opponent_cnn_mlp")
-    checks[CNN_BF16_TOWER]["ptxas"] = kernel_ptxas(ptxas, "opponent_cnn_mlp_bf16")
+    checks["opponent_features_forward"]["ptxas"] = kernel_ptxas(ptxas, "opponent_features")
+    checks[CNN_BF16_TOWER]["ptxas"] = kernel_ptxas(ptxas, "opponent_features_bf16")
     # The env steps with K14's sampling front, on a generator of their own:
     # each beside its step's own checks, its error in the step's.
     fronts = check_sample_steps(dev, torch.Generator(device=dev).manual_seed(19), ptxas)

@@ -290,13 +290,11 @@ def test_train_command_trains_the_cnn_against_the_pool_and_resumes(tmp_path, cap
 def test_cnn_wrappers_launch_their_entry_points_once_each(monkeypatch, bf16):
     """The CNN stack's CUDA route with a stand-in kernel library: K20's
     entry once (rows, obs width, slots, H, W, C, the bf16 flag), the
-    grouped convs, then K7's feature-front entry once (the tower's widths
-    [338, 32, 7], the conv output's pointer and strides, its channels a
-    slot, H, W and the spatial width 84), each on its own counter; K7's
-    raw-obs entry and counter untouched. A tower wider than the kernel's
-    512 columns is refused before K7 launches."""
-    import ctypes
-
+    grouped convs, then K7's feature-front entry once (the stack's packed
+    layers, the tower's widths [338, 32, 7], the conv output's pointer,
+    its C' H W = 336 floats a slot and the spatial width 84), each on its
+    own counter; K7's raw-obs entry and counter untouched. A tower wider
+    than the kernel's 512 columns is refused before K7 launches."""
     from burn_ppo_torch import kernels
     from tests.test_torch_import import _cuda_path_on_cpu
 
@@ -308,16 +306,16 @@ def test_cnn_wrappers_launch_their_entry_points_once_each(monkeypatch, bf16):
     before = [w.launches for w in (opponent_cnn_front, opponent_features_forward,
                                    opponent_actor_forward)]
     out = opponent_actor_forward(obs, slot, stack)
-    assert [name for name, _ in lib.calls] == ["opp_cnn_front", "opp_mlp_forward_features"]
+    assert [name for name, _ in lib.calls] == ["opp_cnn_front", "opp_features_forward"]
     (_, front), (_, feat) = lib.calls
     assert len(front) == len(kernels.SIGNATURES["opp_cnn_front"])
     assert front[0] == obs.data_ptr() and front[1] == stack.norm.mean.data_ptr()
     assert front[6:13] == (16, D, 3, 6, 7, 2, int(bf16))
-    assert len(feat) == len(kernels.SIGNATURES["opp_mlp_forward_features"])
+    assert len(feat) == len(kernels.SIGNATURES["opp_features_forward"])
+    assert list(feat[6]) == [w.data_ptr() for w in stack.packed.layers]
     assert list(feat[8]) == [338, 32, 7] and feat[9] == 2 and feat[11] == out.data_ptr()
-    assert feat[12:16] == (16, 3, -1, int(bf16))
-    assert list(feat[17]) == [24 * 42, 42, 7, 1] and feat[18:22] == (8, 6, 7, 84)
-    assert isinstance(feat[17], ctypes.Array) and out.shape == (16, A)
+    assert feat[12:15] == (16, 3, int(bf16))
+    assert feat[16:18] == (8 * 42, 84) and out.shape == (16, A)
     assert [w.launches for w in (opponent_cnn_front, opponent_features_forward,
                                  opponent_actor_forward)] == [before[0] + 1, before[1] + 1,
                                                               before[2]]

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K20 (K7 with its f32 and its bf16 tower and its
-feature front) against their plain PyTorch versions, on the card.
+feature front, the last two reading the stack's packed layers) against
+their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere. The test suite's conftest
 imports JAX; where JAX is not installed, run them without it:
@@ -2397,26 +2398,83 @@ def bf16_tower_close(k, p) -> bool:
                                              ("skull_ctde256x3", 1229, False),
                                              ("ld_mlp512x3", 1024, True),
                                              ("ld_ctde256x2", 37, False)])
-@pytest.mark.parametrize("tiling", [None, 0, 1])
-def test_opponent_actor_bf16_tower_matches_plain(dev, tower, Ep, normed, tiling):
+def test_opponent_actor_bf16_tower_matches_plain(dev, tower, Ep, normed):
     """K7's bf16 tower against the plain version on the same bf16 stack, at
     the pool shapes (Connect Four Ep = 1024, K = 8, 86 -> 512 x2 -> 7 with
-    obs norm; the flagship's Ep = 1229, 135 -> 256 x3 -> 33), out-of-range
-    slots reading zeros; K7's f32 tower on the same rounded weights, the
-    control, fails the same check."""
+    obs norm; the flagship's Ep = 1229, 135 -> 256 x3 -> 33; Liar's Dice's
+    270 -> 512 x3 -> 49, whose 1.37 MB a slot streams through the ring),
+    out-of-range slots reading zeros; K7's f32 tower on
+    the same rounded weights, the control, fails the same check."""
     g = torch.Generator(device=dev).manual_seed(Ep + len(tower))
     obs, slot, stack = opponent_case(g, dev, tower, "relu" if normed else "tanh", normed, Ep=Ep)
     slot[:3] = torch.tensor([-1, 8, 40], device=dev, dtype=torch.int32)
     stack = bf16_stack(stack)
     before = opponent_actor_forward.launches
-    k = opponent_actor_forward(obs, slot, stack, tiling=tiling)
+    k = opponent_actor_forward(obs, slot, stack)
     torch.cuda.synchronize()
     assert opponent_actor_forward.launches == before + 1
     p = opponent_actor_forward_plain(obs, slot, stack)
     assert torch.equal(k[:3], torch.zeros_like(k[:3]))
     assert bf16_tower_close(k, p), (float((k - p).abs().max()), float((k - p).abs().mean()))
-    control = opponent_actor_forward(obs, slot, f32_stack(stack), tiling=tiling)
+    control = opponent_actor_forward(obs, slot, f32_stack(stack))
     assert not bf16_tower_close(control, p)
+
+
+def tower_edge(g, dev, case):
+    """The slot ids of an edge case of the tiles, and its K and Ep: one
+    slot holding every row; Ep below one tile; K = 1; K = 8 with slots
+    outside [0, K) among them."""
+    K, Ep = {"every_row_one_slot": (8, 1229), "under_a_tile": (8, 20), "K1": (1, 300),
+             "K8_out_of_range": (8, 1024)}[case]
+    slot = torch.randint(0, K, (Ep,), generator=g, device=dev, dtype=torch.int32)
+    if case == "every_row_one_slot":
+        slot.fill_(5)
+    else:
+        slot[:3] = torch.tensor([-1, K, K + 37], device=dev, dtype=torch.int32)
+    return K, Ep, slot
+
+
+@pytest.mark.parametrize("case", ["every_row_one_slot", "under_a_tile", "K1", "K8_out_of_range"])
+def test_opponent_actor_bf16_tower_edges(dev, case):
+    """The bf16 tower (Skull's 135 -> 256 x3 -> 33, tanh, obs norm) at the
+    tiles' edges against the plain version: every row one slot's, Ep
+    under a tile, one slot, slots outside [0, K) reading zeros."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    K, Ep, slot = tower_edge(g, dev, case)
+    obs, _, stack = opponent_case(g, dev, "skull_ctde256x3", "tanh", True, Ep=Ep, K=K)
+    stack = bf16_stack(stack)
+    k = opponent_actor_forward(obs, slot, stack)
+    torch.cuda.synchronize()
+    p = opponent_actor_forward_plain(obs, slot, stack)
+    outside = (slot < 0) | (slot >= K)
+    assert torch.equal(k[outside], torch.zeros_like(k[outside]))
+    assert bf16_tower_close(k, p), (float((k - p).abs().max()), float((k - p).abs().mean()))
+
+
+def replays_equal_eager(fn) -> None:
+    """``fn`` captured into a CUDA graph (after a warm-up on a side
+    stream): two replays, each bit for bit the eager call's output."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_opponent_actor_bf16_tower_replays_equal_the_eager_call_bit_for_bit(dev):
+    g = torch.Generator(device=dev).manual_seed(11)
+    obs, slot, stack = opponent_case(g, dev, "c4_mlp512x2", "relu", True, Ep=1024)
+    stack = bf16_stack(stack)
+    replays_equal_eager(lambda: opponent_actor_forward(obs, slot, stack))
 
 
 def test_opponent_actor_bf16_tower_refuses_f32_weights(dev):
@@ -2524,8 +2582,7 @@ def test_opponent_cnn_front_kernel_equals_plain_bit_for_bit(dev, Ep, K, normed, 
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("tiling", [None, 0, 1])
-def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16, tiling):
+def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16):
     """K20, the grouped convs and K7's feature front against
     ``opponent_cnn_forward_plain`` (each slot's normalisation, convs and
     tower over every row, then the row's slot) at Ep = 1024, K = 8:
@@ -2542,7 +2599,7 @@ def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16, tiling):
     obs, slot, stack = cnn_case(dev, 7 + bf16, 1024, bf16=bf16)
     counts = [w.launches for w in (opponent_cnn_front, opponent_features_forward,
                                    opponent_actor_forward)]
-    k = opponent_actor_forward(obs, slot, stack, tiling=tiling)
+    k = opponent_actor_forward(obs, slot, stack)
     torch.cuda.synchronize()
     assert [w.launches for w in (opponent_cnn_front, opponent_features_forward,
                                  opponent_actor_forward)] == [counts[0] + 1, counts[1] + 1, counts[2]]
@@ -2553,7 +2610,7 @@ def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16, tiling):
         return
     assert bf16_tower_close(k, p), (float((k - p).abs().max()), float((k - p).abs().mean()))
     feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
-    control = opponent_features_forward(feat, obs, slot, f32_stack(stack), tiling=tiling)
+    control = opponent_features_forward(feat, obs, slot, f32_stack(stack))
     assert not bf16_tower_close(control, p)
 
 
@@ -2581,6 +2638,48 @@ def test_opponent_features_kernel_reads_any_feature_strides(dev, Ep):
         torch.cuda.synchronize()
         assert torch.equal(k[:3], torch.zeros_like(k[:3]))
         assert_opponent_close(k, p)
+
+
+@pytest.mark.parametrize("case", ["every_row_one_slot", "under_a_tile", "K1", "K8_out_of_range"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_opponent_features_kernel_edges(dev, case, bf16):
+    """K7's feature front alone at the tiles' edges against its plain
+    version on the same conv output: every row one slot's, Ep under a
+    tile, one slot, slots outside [0, K) reading zeros; f32 to 1e-4 +
+    1e-4 |plain|, bf16 by ``bf16_tower_close``."""
+    from burn_ppo_torch.ppo.pool_rollout import (
+        opponent_cnn_front,
+        opponent_convs,
+        opponent_features_forward,
+        opponent_features_forward_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(len(case) + bf16)
+    K, Ep, slot = tower_edge(g, dev, case)
+    obs, _, stack = cnn_case(dev, len(case), Ep, K=K, bf16=bf16)
+    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    k = opponent_features_forward(feat, obs, slot, stack)
+    torch.cuda.synchronize()
+    p = opponent_features_forward_plain(feat, obs, slot, stack)
+    outside = (slot < 0) | (slot >= K)
+    assert torch.equal(k[outside], torch.zeros_like(k[outside]))
+    if bf16:
+        assert bf16_tower_close(k, p), (float((k - p).abs().max()), float((k - p).abs().mean()))
+    else:
+        assert_opponent_close(k, p)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_opponent_features_kernel_replays_equal_the_eager_call_bit_for_bit(dev, bf16):
+    from burn_ppo_torch.ppo.pool_rollout import (
+        opponent_cnn_front,
+        opponent_convs,
+        opponent_features_forward,
+    )
+
+    obs, slot, stack = cnn_case(dev, 12, 1024, bf16=bf16)
+    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    replays_equal_eager(lambda: opponent_features_forward(feat, obs, slot, stack))
 
 
 def _cnn_pool_case(dev, seed):
