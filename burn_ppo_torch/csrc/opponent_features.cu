@@ -8,11 +8,11 @@
 // head (216-219) under the vmap of ppo/pool_rollout.py opponent_logits;
 // plain twin: burn_ppo_torch/ppo/pool_rollout.py
 // opponent_features_forward_plain.
-// A row of slot k reads channels [k C', (k + 1) C') of its row of the last
-// grouped conv's output: one contiguous range of C' H W floats (the packed
-// first layer's rows are in that NCHW order), relu'd as it is stored;
-// then its obs columns past the spatial slice, normalised by slot k. Its
-// bound: the gathered features' bytes and the tower's operations.
+// A row of slot k reads its row of K20's output, slot k's last conv: one
+// contiguous range of C' H W floats (the packed first layer's rows are in
+// that NCHW order), relu'd as it is stored; then its obs columns past the
+// spatial slice, normalised by slot k. Its bound: the features' bytes and
+// the tower's operations.
 
 #include "opponent_tower.cuh"
 
@@ -36,10 +36,10 @@ using namespace opp_tower;
 
 // opp_tower_forward's arguments up to the stream (the weights packed f32,
 // or bf16 with bf16 set; widths[0] the tower's input width feat_len + D -
-// spatial), then the last conv's output feat (contiguous [rows, K *
-// feat_len], slot k's C' H W floats at k * feat_len, NCHW; before its
-// relu) and the raw obs x [rows, D]'s spatial width (its extra columns
-// start there; the normalisers are [K, D]).
+// spatial), then the last conv's output feat (contiguous [rows,
+// feat_len], each row's own slot's C' H W floats, NCHW; before its relu)
+// and the raw obs x [rows, D]'s spatial width (its extra columns start
+// there; the normalisers are [K, D]).
 extern "C" int opp_features_forward(const void* x, const void* slot, const void* norm_mean,
                                     const void* norm_m2, const void* norm_count, float clip,
                                     const void* const* w, const void* const* b, const int* widths,

@@ -49,12 +49,12 @@
 //     takes what shared memory the activations leave (up to 222 KB in
 //     all), so most towers sit in it whole and the rest stream with many
 //     stages in flight; the head's slice is one copy.
-//   * A short prologue: one pass over the slot ids (each warp a contiguous
-//     range, a lane four rows, __match_any_sync counts per slot), one
-//     block barrier, then every warp names the block's (slot, tile) by
-//     itself; the producer starts the tile's first copies at once, while
-//     the consumers collect its row ids (a ballot scan) and gather its
-//     rows.
+//   * A short prologue (csrc/slot_tiles.cuh, shared with K20): one pass
+//     over the slot ids (each warp a contiguous range, a lane four rows,
+//     __match_any_sync counts per slot), one block barrier, then every
+//     warp names the block's (slot, tile) by itself; the producer starts
+//     the tile's first copies at once, while the consumers collect its row
+//     ids (a shuffle scan) and gather its rows.
 //   * Clusters only for the bf16 tower, whose wide layers the C blocks of
 //     a cluster split by columns: each block stores its slice of a layer's
 //     output into its own next input buffer, then warp 0's lanes push its
@@ -90,13 +90,16 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "slot_tiles.cuh"
+
 namespace opp_tower {
 
 constexpr int CWARPS = 8;  // consumer warps
 constexpr int CTHREADS = CWARPS * 32;
+static_assert(CWARPS == slot_tiles::WARPS, "the consumer warps scan the slots");
 constexpr int THREADS = CTHREADS + 32;  // and one producer warp
 constexpr int MAX_LAYERS = 4;
-constexpr int MAX_SLOTS = 128;
+constexpr int MAX_SLOTS = slot_tiles::MAX_SLOTS;
 constexpr int MAX_WIDTH = 512;
 constexpr int MAX_HEAD = 64;
 constexpr int MAX_ROWS = 32;
@@ -124,8 +127,8 @@ struct Params {
   float* out;  // [rows, head]
   int rows, K;
   int obs_stride, obs_off;  // the tower's first obs column reads obs column obs_off
-  // The feature front: the last conv's output, contiguous [rows, K *
-  // feat_len] (slot k's channels, NCHW, at k * feat_len), before its relu.
+  // The feature front: the last conv's output of each row's own slot
+  // (K20's), contiguous [rows, feat_len] in NCHW order, before its relu.
   const float* feat;
   int feat_len;
   // Dynamic shared memory: the two input buffers (byte offsets; elements
@@ -477,7 +480,7 @@ __device__ __forceinline__ void store_in(void* act, int ap, int r, int c, float 
 // Input buffer 0: the tile's rows (warp w its rows w R / 8 on, a lane every
 // 32nd column), zero past the tile and in the padding columns, every load
 // of a round of four column groups issued before any is used. The feature
-// front's first feat_len columns are the slot's conv features, one
+// front's first feat_len columns are the row's conv features, one
 // contiguous range a row read 16 bytes a lane where aligned, relu'd; the
 // remaining columns obs columns, normalised by slot k (each lane's
 // columns' mean and deviation loaded once).
@@ -500,7 +503,7 @@ __device__ __forceinline__ void gather(const Params& p, int k, int seg, int Dp, 
       float4 v[RPW][GROUPS];
 #pragma unroll
       for (int q = 0; q < RPW; ++q) {
-        const float* src = p.feat + (static_cast<size_t>(rid[q] < 0 ? 0 : rid[q]) * p.K + k) * hw;
+        const float* src = p.feat + static_cast<size_t>(rid[q] < 0 ? 0 : rid[q]) * hw;
 #pragma unroll
         for (int i = 0; i < GROUPS; ++i) {
           const int c = g0 + lane + 32 * i;
@@ -631,75 +634,21 @@ __device__ __forceinline__ void tower(const Params& p) {
   }
   if constexpr (C > 1) cluster_arrive_relaxed();
 
-  // 1. Each consumer warp counts the slots of its contiguous range of rows,
-  // a lane four rows (kept for step 3 where the range is one pass); rows
-  // of a slot outside [0, K) are zeroed, each by one block.
-  const int span = (rows + CWARPS * 128 - 1) / (CWARPS * 128) * 128;
-  const int r_lo = min(rows, warp * span), r_hi = min(rows, r_lo + span);
-  int kept[4] = {-1, -1, -1, -1};
+  // 1. The slots' counts (csrc/slot_tiles.cuh); rows of a slot outside
+  // [0, K) are zeroed, each by one block.
+  slot_tiles::Scan scan = {};
   if (warp < CWARPS) {
-    for (int i = lane; i < MAX_SLOTS; i += 32) s_cnt[warp][i] = 0;
-    __syncwarp();
-    for (int i0 = r_lo; i0 < r_hi; i0 += 128) {
-      int sl[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = i0 + 4 * lane + j;
-        sl[j] = i < r_hi ? __ldg(p.slot + i) : -1;
-        if (i0 == r_lo) kept[j] = sl[j];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = i0 + 4 * lane + j;
-        const bool inside = i < r_hi && sl[j] >= 0 && sl[j] < K;
-        if (i < r_hi && !inside && i % gridDim.x == blockIdx.x) {
-          for (int a = 0; a < A; ++a) p.out[static_cast<size_t>(i) * A + a] = 0.0f;
-        }
-        const unsigned same = __match_any_sync(0xffffffffu, inside ? sl[j] : -1);
-        if (inside && lane == __ffs(same) - 1) atomicAdd(&s_cnt[warp][sl[j]], __popc(same));
-      }
-    }
+    scan = slot_tiles::count_slots(p.slot, rows, K, warp, lane, s_cnt, [&](int i) {
+      for (int a = 0; a < A; ++a) p.out[static_cast<size_t>(i) * A + a] = 0.0f;
+    });
   }
   __syncthreads();
   if (tid == 0) mark(p, 1);
 
-  // 2. Every warp names the block's (slot, tile): lane q owns slots
-  // 4q..4q+3, a scan of their tile counts.
+  // 2. Every warp names the block's (slot, tile).
   int k, rank0, seg;
-  {
-    int tot[4] = {0, 0, 0, 0}, n[4], tiles_q = 0;
-#pragma unroll
-    for (int w = 0; w < CWARPS; ++w) {
-      const int4 c = *reinterpret_cast<const int4*>(&s_cnt[w][4 * lane]);
-      tot[0] += c.x, tot[1] += c.y, tot[2] += c.z, tot[3] += c.w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      n[j] = 4 * lane + j < K ? (tot[j] + R - 1) / R : 0;
-      tiles_q += n[j];
-    }
-    int incl = tiles_q;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += up;
-    }
-    int first = incl - tiles_q, found = -1, fr = 0, fs = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (tile >= first && tile < first + n[j]) {
-        found = 4 * lane + j;
-        fr = (tile - first) * R;
-        fs = min(R, tot[j] - fr);
-      }
-      first += n[j];
-    }
-    const unsigned who = __ballot_sync(0xffffffffu, found >= 0);
-    if (who == 0) return;  // past the last tile: the whole cluster
-    const int src = __ffs(who) - 1;
-    k = __shfl_sync(0xffffffffu, found, src);
-    rank0 = __shfl_sync(0xffffffffu, fr, src);
-    seg = __shfl_sync(0xffffffffu, fs, src);
+  if (!slot_tiles::name_tile(s_cnt, K, R, tile, lane, k, rank0, seg)) {
+    return;  // past the last tile: the whole cluster
   }
 
   if (warp == CWARPS) {
@@ -720,37 +669,7 @@ __device__ __forceinline__ void tower(const Params& p) {
 
   // 3. The tile's row ids: ranks [rank0, rank0 + seg) of slot k, in row
   // order.
-  {
-    int base = 0;
-    for (int w = 0; w < warp; ++w) base += s_cnt[w][k];
-    if (base < rank0 + seg && base + s_cnt[warp][k] > rank0) {
-      for (int i0 = r_lo; i0 < r_hi; i0 += 128) {
-        bool m[4];
-        int cnt = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = i0 + 4 * lane + j;
-          m[j] = i < r_hi && (i0 == r_lo ? kept[j] : __ldg(p.slot + i)) == k;
-          cnt += m[j];
-        }
-        int incl = cnt;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int up = __shfl_up_sync(0xffffffffu, incl, o);
-          if (lane >= o) incl += up;
-        }
-        int rk = base + incl - cnt;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (m[j]) {
-            if (rk >= rank0 && rk < rank0 + seg) s_rows[rk - rank0] = i0 + 4 * lane + j;
-            ++rk;
-          }
-        }
-        base += __shfl_sync(0xffffffffu, incl, 31);
-      }
-    }
-  }
+  slot_tiles::collect_rows(p.slot, scan, s_cnt, k, rank0, seg, warp, lane, s_rows);
   bar_consumers();
   if (tid == 0) mark(p, 3);
 

@@ -20,8 +20,8 @@ env's step, with K14's sampling front as an option,
 epilogue, and K14),
 ``ops/gae.py``, ``ppo/normalization.py`` (K6, K12, K15, K16),
 ``ppo/pool_rollout.py`` (K7, its f32 and its bf16 tower, its feature
-front; K20; the bf16 tower and the feature front read the stack's
-packed layers, ``ppo/opponent_pack.py``),
+front; K20, the CNN opponents' conv front; the bf16 tower and the
+feature front read the stack's packed layers, ``ppo/opponent_pack.py``),
 ``ppo/update.py``, ``ppo/episode_stats.py``, ``eval.py`` (K17),
 ``ppo/window.py`` (K18, K19)) and use
 the helpers below.
@@ -108,9 +108,13 @@ SIGNATURES = {
     # there), stream: K7's feature front
     "opp_features_forward": ([_VP] * 5 + [_F] + [_VP] * 3 + [_I, _I, _VP] + [_I] * 3
                              + [_VP, _I, _I, _VP]),
-    # x, norm mean, m2, count (nullable), clip, out, rows, D, K, H, W, C,
-    # bf16 values, stream
-    "opp_cnn_front": [_VP] * 4 + [_F, _VP] + [_I] * 7 + [_VP],
+    # x, slot, norm mean, m2, count (nullable), clip, host arrays of the
+    # conv layers' stacked weight and bias pointers and of the channels,
+    # depth, kernel size, H, W, D, out, rows, K, bf16 operands, stream: K20
+    "opp_cnn_front": [_VP] * 5 + [_F] + [_VP] * 3 + [_I] * 5 + [_VP] + [_I] * 3 + [_VP],
+    # channels, depth, kernel size, H, W, out [3]: rows a tile, whether
+    # every layer's weights are held at once, floats a row of a buffer
+    "opp_cnn_front_layout": [_VP] + [_I] * 4 + [_VP],
     # widths, depth, rows, K, out: resident 3-block clusters
     "opp_mlp_default_tiling": [_VP, _I, _I, _I, _VP],
     # widths, depth, bf16, the feature front's (else the bf16 tower's),

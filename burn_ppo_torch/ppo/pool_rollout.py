@@ -35,16 +35,16 @@ bf16 weights through its bf16 tower, which reads the stack's packed
 layers (``OpponentStack.packed``, ``ppo/opponent_pack.py``). Eval's
 stacked models stay f32.
 
-A CNN opponent (``OpponentStack.cnn``) runs in three stages, all K slots
-at once as JAX's vmap does: K20 (``opponent_cnn_front``) writes every
-slot's normalised spatial obs as one tensor of K groups of channels, each
-conv layer is one cuDNN conv with ``groups = K`` (``opponent_convs``),
+A CNN opponent (``OpponentStack.cnn``) runs in two launches, each row
+under its own slot only: K20 (``opponent_cnn_front``) normalises a
+row's spatial obs by its slot and runs the slot's whole conv stack on
+chip, writing the last conv's output [Ep, C', H, W] (before its relu),
 and K7's feature front (``opponent_features_forward``) loads each row's
-slot's channels of the last conv, relu'd, in the conv output's NCHW
-order (the packed first FC layer's rows permuted to match JAX's NHWC
-flatten), then the row's extra obs columns normalised by its slot, and
-runs the FC tower and the policy head. ``opponent_cnn_forward_plain`` is the
-JAX formulation from the raw obs, slot by slot.
+features, relu'd, in that NCHW order (the packed first FC layer's rows
+permuted to match JAX's NHWC flatten), then the row's extra obs columns
+normalised by its slot, and runs the FC tower and the policy head.
+``opponent_cnn_forward_plain`` is the JAX formulation from the raw obs:
+every slot's stack over every row, then the selection.
 """
 
 from __future__ import annotations
@@ -134,10 +134,11 @@ class OpponentStack:
     out]`` (f32, or bf16 for the bf16 compute dtype) and f32 biases
     ``[K, out]`` per layer, and the obs normalisers as ``[K, D]`` means
     and M2s and ``[K]`` counts (None: no normalisation). A CNN stack also
-    holds its conv layers stacked for a grouped conv, the K opponents'
-    weights ``[K * C_out, C_in, kh, kw]`` and biases ``[K * C_out]`` per
-    layer (slot k's channels ``[k * C_out, (k + 1) * C_out)``), and the
-    obs shape; ``weights`` and ``biases`` are then its FC tower and head.
+    holds its conv layers, the K opponents' OIHW weights stacked as
+    ``[K * C_out, C_in, kh, kw]`` and biases ``[K * C_out]`` per layer
+    (slot k's at rows ``[k * C_out, (k + 1) * C_out)``, which K20 reads
+    as one block), and the obs shape; ``weights`` and ``biases`` are then
+    its FC tower and head.
 
     A stack of bf16 weights and a CNN stack also hold their tower packed
     for K7's bf16 tower and feature front (``packed``, made from the
@@ -283,17 +284,38 @@ def opponent_cnn_forward_plain(obs: torch.Tensor, slot: torch.Tensor, stack: Opp
     return _select(_tower_plain(torch.stack(feats), stack), slot)
 
 
-def opponent_cnn_front_plain(obs: torch.Tensor, stack: OpponentStack,
-                             clip: float = 10.0) -> torch.Tensor:
-    """Plain PyTorch K20: every slot's normalisation of the spatial slice
-    of the raw obs [Ep, D], as the first conv's input of all K slots,
-    [Ep, K * C, H, W] (slot k's channels ``[k * C, (k + 1) * C)``, the
-    NHWC slice permuted to NCHW); rounded to bf16 values for a bf16
-    stack."""
+def opponent_cnn_front_plain(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack,
+                             clip: float = 10.0, round_between: bool = True) -> torch.Tensor:
+    """Plain PyTorch K20: each row's own slot's normalisation of the
+    spatial slice of the raw obs [Ep, D] and its conv stack (stride-1 SAME
+    convs, relu between them), the last conv's output before its relu,
+    [Ep, C', H, W] f32 in NCHW order; zeros where the slot is outside [0,
+    K). Slot by slot over the rows of each slot. A bf16 stack rounds each
+    conv's input to bf16 (the normalised obs, each relu's output) and takes
+    the f32 conv of the rounded values, as ``opponent_cnn_forward_plain``
+    and JAX's bf16 conv do; ``round_between`` False leaves the relu outputs
+    unrounded (the control of K20's bf16 check)."""
     K, (H, W, C), Ep = stack.num_slots, stack.obs_shape, obs.shape[0]
-    x = _by_slot(obs[:, :H * W * C], _columns(stack.norm, 0, H * W * C), K, clip)
-    x = x.reshape(K, Ep, H, W, C).permute(1, 0, 4, 2, 3).reshape(Ep, K * C, H, W)
-    return x.to(torch.bfloat16).float() if stack.bf16 else x.contiguous()
+    n = H * W * C
+    out = obs.new_zeros(Ep, stack.conv_weights[-1].shape[0] // K, H, W)
+    norm = _columns(stack.norm, 0, n)
+    for k in range(K):
+        rows = slot == k
+        x = obs[rows, :n]
+        if norm is not None:
+            x = _by_slot(x, ObsNormState(mean=norm.mean[k:k + 1], m2=norm.m2[k:k + 1],
+                                         count=norm.count[k:k + 1]), 1, clip)[0]
+        h = x.reshape(-1, H, W, C).permute(0, 3, 1, 2)
+        for i, (w, b) in enumerate(zip(stack.conv_weights, stack.conv_biases)):
+            if i:
+                h = torch.relu(h)
+            if stack.bf16 and (round_between or not i):
+                h = round_bf16(h).float()
+            c_out = w.shape[0] // K
+            h = F.conv2d(h, w[k * c_out:(k + 1) * c_out], b[k * c_out:(k + 1) * c_out],
+                         padding="same")
+        out[rows] = h
+    return out
 
 
 def _columns(norm: Optional[ObsNormState], lo: int, hi: int) -> Optional[ObsNormState]:
@@ -303,37 +325,17 @@ def _columns(norm: Optional[ObsNormState], lo: int, hi: int) -> Optional[ObsNorm
     return ObsNormState(mean=norm.mean[:, lo:hi], m2=norm.m2[:, lo:hi], count=norm.count)
 
 
-def opponent_convs(x: torch.Tensor, stack: OpponentStack) -> torch.Tensor:
-    """The K slots' conv stacks over K20's output [Ep, K * C, H, W]: each
-    layer one cuDNN conv with ``groups = K`` (stride 1, SAME, the bias),
-    relu between layers; returns the last conv's output before its relu,
-    which K7's feature front applies as it loads. A bf16 stack rounds each
-    later conv's input to bf16 after the relu (K20 rounded the first's),
-    and runs the f32 conv of the rounded values, as the learner's card
-    route does (``models/core.py``). The grouped conv beat a loop of K
-    per-slot convs a layer, and channels-last layouts, as a graph replays
-    them at Connect Four's pool block (``PERF.md``, row B22)."""
-    K = stack.num_slots
-    for i, (w, b) in enumerate(zip(stack.conv_weights, stack.conv_biases)):
-        if i:
-            x = torch.relu(x)
-            if stack.bf16:
-                x = round_bf16(x).float()
-        x = F.conv2d(x, w, b, padding="same", groups=K)
-    return x
-
-
 def opponent_features_forward_plain(feat: torch.Tensor, obs: torch.Tensor, slot: torch.Tensor,
                                     stack: OpponentStack, clip: float = 10.0) -> torch.Tensor:
-    """Plain PyTorch K7 with the feature front: for every slot, its
-    channels of the last conv's output ``feat`` [Ep, K * C, H, W] relu'd
-    and flattened in NHWC order (h W C + w C + c), then the obs columns
-    past the spatial slice normalised by the slot; the slot's FC tower and
-    head over every row; each row's acting slot (zeros outside [0, K))."""
+    """Plain PyTorch K7 with the feature front: each row's conv features
+    ``feat`` [Ep, C', H, W] (its own slot's last conv, K20's output)
+    relu'd and flattened in NHWC order (h W C' + w C' + c), then the obs
+    columns past the spatial slice normalised by each slot; every slot's
+    FC tower and head over every row; each row's acting slot (zeros
+    outside [0, K))."""
     K, (H, W, C), Ep = stack.num_slots, stack.obs_shape, obs.shape[0]
     n = H * W * C
-    cc = feat.shape[1] // K
-    f = torch.relu(feat).reshape(Ep, K, cc, H, W).permute(1, 0, 3, 4, 2).reshape(K, Ep, -1)
+    f = torch.relu(feat).permute(0, 2, 3, 1).reshape(1, Ep, -1).expand(K, -1, -1)
     extras = _by_slot(obs[:, n:], _columns(stack.norm, n, obs.shape[1]), K, clip)
     return _select(_tower_plain(torch.cat([f, extras], dim=2), stack), slot)
 
@@ -379,6 +381,35 @@ def opponent_tower_problems(widths: Sequence[int], num_slots: int) -> List[str]:
         problems.append(f"hidden widths {hidden} (multiples of 32 up to {_OPP_MAX_WIDTH})")
     if not 1 <= widths[-1] <= _OPP_MAX_HEAD:
         problems.append(f"head width {widths[-1]} (1 to {_OPP_MAX_HEAD})")
+    if not 1 <= num_slots <= _OPP_MAX_SLOTS:
+        problems.append(f"{num_slots} slots (1 to {_OPP_MAX_SLOTS})")
+    return problems
+
+
+# What K20 takes, for the config-time refusal (csrc/opponent_cnn_front.cu's
+# MAX_ constants; its entries refuse the rest on the device path): conv
+# layers, channels a layer, kernel sizes, cells of the zero-haloed plane
+# (H + ks - 1)(W + ks - 1).
+_CNN_MAX_LAYERS, _CNN_MAX_CHANNELS, _CNN_MAX_KERNEL, _CNN_MAX_PLANE = 4, 32, 5, 256
+
+
+def cnn_front_problems(obs_shape: Sequence[int], channels: Sequence[int], kernel_size: int,
+                       num_slots: int) -> List[str]:
+    """What K20 does not take of a conv stack on an ``obs_shape`` (H, W, C)
+    board: ``channels`` [C, C_1, ..., C_L] (the obs channels, then each
+    layer's outputs), square kernels of ``kernel_size``, ``num_slots``
+    slots; empty where it takes it."""
+    (H, W, _), depth = obs_shape, len(channels) - 1
+    problems = []
+    if not 1 <= depth <= _CNN_MAX_LAYERS:
+        problems.append(f"{depth} conv layers (1 to {_CNN_MAX_LAYERS})")
+    if any(not 1 <= c <= _CNN_MAX_CHANNELS for c in channels):
+        problems.append(f"conv channels {list(channels)} (1 to {_CNN_MAX_CHANNELS})")
+    if not 1 <= kernel_size <= _CNN_MAX_KERNEL:
+        problems.append(f"kernel size {kernel_size} (1 to {_CNN_MAX_KERNEL})")
+    elif (H + kernel_size - 1) * (W + kernel_size - 1) > _CNN_MAX_PLANE:
+        problems.append(f"a {H} x {W} board with {kernel_size} x {kernel_size} kernels (a padded "
+                        f"plane of at most {_CNN_MAX_PLANE} cells)")
     if not 1 <= num_slots <= _OPP_MAX_SLOTS:
         problems.append(f"{num_slots} slots (1 to {_OPP_MAX_SLOTS})")
     return problems
@@ -462,14 +493,13 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
     apart. ``tiling`` None: the kernel's choice; only the f32 tower takes
     one.
 
-    A CNN stack runs K20 (``opponent_cnn_front``), the grouped convs
-    (``opponent_convs``) and K7's feature front
+    A CNN stack runs K20 (``opponent_cnn_front``) and K7's feature front
     (``opponent_features_forward``), each counted by its own wrapper; this
     wrapper's ``launches`` counts K7's raw-obs launches only."""
     if tiling is not None and (stack.cnn or stack.bf16):
         raise ValueError("tiling: only K7's f32 tower over the raw obs offers tilings")
     if stack.cnn:
-        feat = opponent_convs(opponent_cnn_front(obs, stack, clip), stack)
+        feat = opponent_cnn_front(obs, slot, stack, clip)
         return opponent_features_forward(feat, obs, slot, stack, clip)
     if kernels.on_cpu(obs, slot, *_stack_tensors(stack)):
         return opponent_actor_forward_plain(obs, slot, stack, clip)
@@ -490,31 +520,47 @@ def opponent_actor_forward(obs: torch.Tensor, slot: torch.Tensor, stack: Opponen
 kernels.counted(opponent_actor_forward)
 
 
-def opponent_cnn_front(obs: torch.Tensor, stack: OpponentStack, clip: float = 10.0) -> torch.Tensor:
-    """K20: the first conv's input of all K slots of a CNN stack, raw obs
-    [Ep, D] -> [Ep, K * C, H, W] f32 (bf16 values for a bf16 stack). CPU
-    tensors take ``opponent_cnn_front_plain``; CUDA tensors launch
-    ``csrc/opponent_cnn_front.cu`` (one launch, one thread an output
-    element, each slot's normalisation and the NHWC -> NCHW permute folded
-    into the store), or raise."""
+def opponent_cnn_front(obs: torch.Tensor, slot: torch.Tensor, stack: OpponentStack,
+                       clip: float = 10.0) -> torch.Tensor:
+    """K20: each pool row's normalisation and conv stack under its own
+    slot's CNN opponent, raw obs [Ep, D] and slot [Ep] i32 -> the last
+    conv's output [Ep, C', H, W] f32 before its relu (zeros outside [0,
+    K)). CPU tensors take ``opponent_cnn_front_plain``; CUDA tensors
+    launch ``csrc/opponent_cnn_front.cu`` (one launch: a block a tile of
+    one slot's rows, the slot's conv weights in shared memory, the
+    normalised rows and every layer's activations in zero-haloed shared
+    buffers, f32 FFMA products; bf16 operands for a bf16 stack), or
+    raise: the entry refuses a stack past the kernel's limits (those
+    ``cnn_front_problems`` names at config time)."""
     norm = stack.norm
-    if kernels.on_cpu(obs, *_stack_tensors(stack)):
-        return opponent_cnn_front_plain(obs, stack, clip)
+    if kernels.on_cpu(obs, slot, *_stack_tensors(stack)):
+        return opponent_cnn_front_plain(obs, slot, stack, clip)
     Ep, D = obs.shape
     K, (H, W, C) = stack.num_slots, stack.obs_shape
+    ws, bs = stack.conv_weights, stack.conv_biases
+    channels = [C] + [w.shape[0] // K for w in ws]
+    ks = ws[0].shape[2]
     if H * W * C > D:
         raise ValueError(f"opponent_cnn_front: obs shape {stack.obs_shape} past the obs width {D}")
     kernels.expect(obs, "obs", torch.float32, (Ep, D))
+    kernels.expect(slot, "slot", torch.int32, (Ep,))
     if norm is not None:
         kernels.expect(norm.mean, "norm.mean", torch.float32, (K, D))
         kernels.expect(norm.m2, "norm.m2", torch.float32, (K, D))
         kernels.expect(norm.count, "norm.count", torch.float32, (K,))
-    out = torch.empty(Ep, K * C, H, W, dtype=torch.float32, device=obs.device)
-    p = kernels.ptr
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        kernels.expect(w, f"conv_weights[{i}]", torch.float32,
+                       (K * channels[i + 1], channels[i], ks, ks))
+        kernels.expect(b, f"conv_biases[{i}]", torch.float32, (K * channels[i + 1],))
+    out = torch.empty(Ep, channels[-1], H, W, dtype=torch.float32, device=obs.device)
+    p, depth = kernels.ptr, len(ws)
     norm_ptrs = (None,) * 3 if norm is None else (p(norm.mean), p(norm.m2), p(norm.count))
     err = kernels.library().opp_cnn_front(
-        p(obs), *norm_ptrs, float(clip), p(out), Ep, D, K, H, W, C, int(stack.bf16),
-        kernels.stream(obs.device))
+        p(obs), p(slot), *norm_ptrs, float(clip),
+        (ctypes.c_void_p * depth)(*(w.data_ptr() for w in ws)),
+        (ctypes.c_void_p * depth)(*(b.data_ptr() for b in bs)),
+        (ctypes.c_int * (depth + 1))(*channels), depth, ks, H, W, D, p(out), Ep, K,
+        int(stack.bf16), kernels.stream(obs.device))
     kernels.check(err, "opp_cnn_front")
     opponent_cnn_front.launches += 1
     return out
@@ -526,29 +572,24 @@ kernels.counted(opponent_cnn_front)
 def opponent_features_forward(feat: torch.Tensor, obs: torch.Tensor, slot: torch.Tensor,
                               stack: OpponentStack, clip: float = 10.0) -> torch.Tensor:
     """K7 with its feature front: each pool row's logits under its acting
-    slot's CNN opponent, from the last conv's output ``feat`` [Ep, K * C,
-    H, W] (before its relu) and the raw obs [Ep, D]. CPU tensors take
-    ``opponent_features_forward_plain``; CUDA tensors launch
+    slot's CNN opponent, from its slot's last conv output ``feat`` [Ep, C',
+    H, W] (K20's, before its relu) and the raw obs [Ep, D]. CPU tensors
+    take ``opponent_features_forward_plain``; CUDA tensors launch
     ``csrc/opponent_features.cu`` (``opponent_features_kernel``, 3xTF32,
     or ``opponent_features_bf16_kernel``): one block a tile of 16 of one
-    slot's rows, the slot's packed tower in shared memory; a row of slot k reads
-    channels [k C, (k + 1) C) of its ``feat`` row as one contiguous range
-    (the packed first layer in that NCHW order), relu'd, then its obs
-    columns past the spatial slice normalised by slot k. A ``feat`` that
-    is not contiguous is copied into one first. Counted apart from
-    ``opponent_actor_forward``."""
+    slot's rows, the slot's packed tower in shared memory; a row reads its
+    ``feat`` row as one contiguous range (the packed first layer in that
+    NCHW order), relu'd, then its obs columns past the spatial slice
+    normalised by its slot. A ``feat`` that is not contiguous is copied
+    into one first. Counted apart from ``opponent_actor_forward``."""
     if kernels.on_cpu(feat, obs, slot, *_stack_tensors(stack)):
         return opponent_features_forward_plain(feat, obs, slot, stack, clip)
     Ep, D = obs.shape
     K, (H, W, C) = stack.num_slots, stack.obs_shape
-    if feat.dtype != torch.float32 or feat.dim() != 4 or feat.shape[0] != Ep \
-            or feat.shape[1] % K or tuple(feat.shape[2:]) != (H, W):
-        raise ValueError(f"feat: expected f32 [{Ep}, K * C, {H}, {W}] with K = {K}, got "
-                         f"{feat.dtype} {tuple(feat.shape)}")
-    cc = feat.shape[1] // K
-    if cc != stack.conv_weights[-1].shape[0] // K:
-        raise ValueError(f"feat: {cc} channels a slot, the last conv has "
-                         f"{stack.conv_weights[-1].shape[0] // K}")
+    cc = stack.conv_weights[-1].shape[0] // K
+    if feat.dtype != torch.float32 or tuple(feat.shape) != (Ep, cc, H, W):
+        raise ValueError(f"feat: expected f32 [{Ep}, {cc}, {H}, {W}] (the last conv's "
+                         f"channels), got {feat.dtype} {tuple(feat.shape)}")
     args, out = _tower_args(obs, slot, stack, _feature_width(stack, D), clip,
                             "opponent_features_forward")
     feat = feat.contiguous()

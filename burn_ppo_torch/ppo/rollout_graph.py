@@ -19,8 +19,8 @@ from update to update, and writes its outputs into one ``RolloutBuffers``:
   in where the trainer remapped it on the host), the rotation's opponent
   stack, copied into one stack of the padded slot count (K7 takes its
   layers' pointers as host arrays, fixed at capture, the packed tower's
-  of a bf16 or CNN stack among them; a CNN stack's grouped-conv weights
-  and biases too, which the captured cuDNN convs read), and the reseat's
+  of a bf16 or CNN stack among them; K20 a CNN stack's conv weights and
+  biases the same way), and the reseat's
   slot bound, the rotation's active count as a 0-dim device tensor.
 
 ``run`` copies in every input that is not already the static one, then

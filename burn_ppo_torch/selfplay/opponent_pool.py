@@ -12,10 +12,10 @@ checkpoint gives the exploitability metric.
 
 The rotation's K opponents are stacked on the device once per rotation
 (``OpponentStack``: weights ``[K, in, out]``, biases ``[K, out]``, obs
-normalisers ``[K, D]`` / ``[K]``; a CNN's conv layers as grouped-conv
+normalisers ``[K, D]`` / ``[K]``; a CNN's conv layers as stacked OIHW
 weights ``[K * C_out, C_in, kh, kw]`` and biases ``[K * C_out]``) for the
 slot-grouped forward of kernel K7 (ppo/pool_rollout.py; a CNN's behind
-K20 and the grouped convs). An LRU cache keeps recently used checkpoints'
+K20, its conv front). An LRU cache keeps recently used checkpoints'
 actor towers on the device; ``seed_device_cache`` snapshots the live
 learner with a clone, since the update writes its parameters in place.
 """

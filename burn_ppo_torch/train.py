@@ -88,6 +88,7 @@ from burn_ppo_torch.ppo.pool_rollout import (
     OpponentStack,
     PoolSeating,
     cnn_actor_widths,
+    cnn_front_problems,
     opponent_tower_problems,
 )
 from burn_ppo_torch.ppo.rollout import (
@@ -287,9 +288,10 @@ def unsupported_config(cfg: Config) -> Optional[str]:
     if cfg.env != "cartpole" and cfg.opponent_pool_fraction > 0.0 and cfg.network_type == "cnn":
         problems = cnn_opponent_problems(cfg)
         if problems:
-            return ("network_type 'cnn' with the opponent pool: K7's feature front does not "
-                    f"take {', '.join(problems)}: ROADMAP A12e; pass --opponent-pool-fraction 0 "
-                    "for pure self-play with this CNN")
+            return ("network_type 'cnn' with the opponent pool: the CNN opponents' kernels "
+                    f"(K20's conv front, K7's feature front) do not take {', '.join(problems)}: "
+                    "ROADMAP A12e; pass --opponent-pool-fraction 0 for pure self-play with this "
+                    "CNN")
     if cfg.network_type == "ctde" and make_env(cfg.env).spec.privileged_obs_dim is None:
         return (f"network_type 'ctde' needs an env with privileged observations (liars_dice, "
                 f"skull), not {cfg.env!r}; the JAX package cannot build it either")
@@ -299,17 +301,20 @@ def unsupported_config(cfg: Config) -> Optional[str]:
 
 
 def cnn_opponent_problems(cfg: Config) -> list:
-    """What K7's feature front does not take of this config's CNN tower
-    behind its convs, at the pool's slot count (the widths of a CNN whose
-    env has no obs shape are not checked: ``validate_config`` refuses it)."""
+    """What K20 does not take of this config's conv stack and K7's feature
+    front of its CNN tower behind the convs, at the pool's slot count (a
+    CNN whose env has no obs shape is not checked: ``validate_config``
+    refuses it)."""
     spec = make_env(cfg.env).spec
     if spec.obs_shape is None or cfg.num_conv_layers < 1:
         return []
     channels = list(cfg.conv_channels) or [64]
-    last = channels[min(cfg.num_conv_layers, len(channels)) - 1]
-    widths = cnn_actor_widths(spec.obs_shape, spec.obs_dim, last,
+    layers = [channels[min(i, len(channels) - 1)] for i in range(cfg.num_conv_layers)]
+    slots = max(cfg.max_active_opponents, 1)
+    widths = cnn_actor_widths(spec.obs_shape, spec.obs_dim, layers[-1],
                               [cfg.cnn_fc_hidden_size] * cfg.cnn_num_fc_layers, spec.num_actions)
-    return opponent_tower_problems(widths, max(cfg.max_active_opponents, 1))
+    return (cnn_front_problems(spec.obs_shape, [spec.obs_shape[2], *layers], cfg.kernel_size, slots)
+            + opponent_tower_problems(widths, slots))
 
 
 def validate_config(cfg: Config) -> None:

@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch port (burn_ppo_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # also time DIR's K7 towers, train phases 3,
-                                         # 3d, train steps and the Skull eval chunk in turns
-    python3 chip_smoke.py --parent DIR --only-k7   # K7's checks and turns alone (~80 s),
-                                                   # no result line
+    python3 chip_smoke.py --parent DIR   # also time DIR's K7 towers and K20, train
+                                         # phases 3, 3d, train steps and the Skull eval
+                                         # chunk in turns
+    python3 chip_smoke.py --parent DIR --only-k7   # K7's and K20's checks and turns
+                                                   # alone (~90 s), no result line
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero without the final result line:
@@ -83,8 +84,9 @@ exits non-zero without the final result line:
      launch (the floor); with --parent, when DIR's kernel sources differ
      from this tree's, the parent commit's K7 (its f32 tower at the four
      pool shapes, bit for bit this tree's; its bf16 tower and its feature
-     front, each to its tolerance), built from DIR, checked and timed in
-     turns with this tree's (parent, new, new, parent);
+     front, each to its tolerance) and K20 with the grouped convs, built
+     from DIR, checked and timed in turns with this tree's (parent, new,
+     new, parent);
      a kernel time the profiler does not see (no CUDA kernel recorded in
      two tries) is reported as null, never as 0;
   2. (continued) K18, the update window's pool records (one launch of many
@@ -316,21 +318,28 @@ exits non-zero without the final result line:
      fresh opponents (bf16 stacks), every launch counted, K7's bf16 tower
      64 on the device in one profiled rollout replay;
   3s. the CNN against the pool (A12b): in phase 2, K20 (the opponents'
-     conv front) bit for bit its plain version at Ep = 1024, K = 8, obs
-     norm on, f32 and bf16; the grouped cuDNN convs in turns with a loop
-     of K per-slot convs; K7's feature front after them against
-     opponent_cnn_forward_plain (each slot's normalisation, convs and
-     tower over every row, then the row's slot), f32 to K7's tolerance,
-     the bf16 tower by its check with its control failing,
-     its device ms in turns with torch.bmm over the K x Ep rows and
-     (--parent) with the parent's feature front; the rollout
-     case ``connect_four_pool_cnn`` graphed bit for bit; phase
-     ``selfplay_pool_cnn``: configs/connect_four.toml with --network-type
-     cnn through the CLI, 4096 x 64, 10 updates with a checkpoint each
-     (K = 8 at updates 9 and 10), K20 and K7's feature front 64 launches a
-     pool update, the update times on the host's clock, the idle share
-     from phase ``update_idle_share``'s CNN case; and 3 updates of the same
-     with --compute-dtype bfloat16;
+     conv front: each row's normalisation and whole conv stack under its
+     own slot) against its plain version at Ep = 1024, 1023, 1 and
+     0, K = 8, obs norm on and off, f32 (every element within 1e-5 max
+     |plain|) and bf16 (``CNN_FRONT_BF16_TOL``, with its control, a front
+     that skips the rounding between the layers, failing), its layout and
+     bound, a profile of the CNN route showing K20 and K7's feature front
+     as its only kernels, and (--parent) the parent's K20 plus the grouped
+     cuDNN convs in turns with it, eagerly and as graph replays; K7's
+     feature front after it against opponent_cnn_forward_plain (each
+     slot's normalisation, convs and tower over every row, then the row's
+     slot), f32 to K7's tolerance, the bf16 tower by its check with its
+     control failing, its device ms in turns with torch.bmm over the K x Ep
+     rows and (--parent) with the parent's feature front on the parent's
+     conv output; the rollout case ``connect_four_pool_cnn`` graphed bit
+     for bit; phase ``selfplay_pool_cnn``: configs/connect_four.toml with
+     --network-type cnn through the CLI, 4096 x 64, 10 updates with a
+     checkpoint each (K = 8 at updates 9 and 10), K20 and K7's feature
+     front 64 launches a pool update, the update times on the host's
+     clock, the idle share and the rollout graph's split (K20, the
+     feature front, the learner's convs: device ms and launches in one
+     profiled replay) from phase ``update_idle_share``'s CNN case; and 3
+     updates of the same with --compute-dtype bfloat16;
   4. the CartPole learning bar (scripts/validate_cartpole.py settings):
      average return >= 195 within 200k steps, also with --compute-dtype
      bfloat16 (printed beside the f32 bar); then the same with
@@ -451,13 +460,14 @@ from burn_ppo_torch.models.network import ActorCriticNetwork  # noqa: E402
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
     OPPONENT_TILINGS,
     OpponentStack,
+    _feature_width,
+    _tower_args,
     actor_params,
     opponent_actor_forward,
     opponent_actor_forward_plain,
     opponent_cnn_forward_plain,
     opponent_cnn_front,
     opponent_cnn_front_plain,
-    opponent_convs,
     opponent_features_forward,
     opponent_features_forward_plain,
 )
@@ -835,16 +845,19 @@ def turns(new, other, who: str = "parent", only: str | None = None,
 
 class ParentKernels:
     """The parent commit's versions of the kernels this tree redesigned
-    (their C entry points as 13c39f2 has them), built from a checkout of it
-    into a library of their own (one ``nvcc`` a source, all at once, then
-    one link) and called as its wrappers called them, so that they are
-    timed beside the new kernels in the same process: K7's f32 tower and
-    its bf16 tower (``opp_mlp_forward`` with the bf16 flag, the weights
-    ``[K, in, out]``) and its feature front (``opp_mlp_forward_features``,
-    the conv output at its strides). Its ptxas lines cover them, beside
-    this tree's."""
+    or whose header it changed (their C entry points as d19fb64 has them),
+    built from a checkout of it into a library of their own (one ``nvcc``
+    a source, all at once, then one link) and called as its wrappers
+    called them, so that they are timed beside the new kernels in the same
+    process: K7's f32 tower (``opp_mlp_forward``), its bf16 tower
+    (``opp_tower_forward``) and its feature front (``opp_features_forward``
+    on the grouped convs' output, every slot's channels of a row), which
+    take this tree's arguments, and K20 (``opp_cnn_front``: every slot's
+    normalised spatial obs as the grouped convs' input). Its ptxas lines
+    cover them, beside this tree's."""
 
-    SOURCES = ("opponent_actor.cu",)
+    SOURCES = ("opponent_actor.cu", "opponent_tower.cu", "opponent_features.cu",
+               "opponent_cnn_front.cu")
 
     def __init__(self, parent_dir: Path):
         csrc = parent_dir / "burn_ppo_torch" / "csrc"
@@ -863,46 +876,58 @@ class ParentKernels:
         self.ptxas = ptxas_summary("\n".join(logs))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib = ctypes.CDLL(str(out))
-        tower = [vp] * 5 + [f] + [vp] * 3 + [i, i, vp] + [i] * 4
-        for name, argtypes in (("opp_mlp_forward", tower + [vp]),
-                               ("opp_mlp_forward_features", tower + [vp, vp] + [i] * 4 + [vp])):
+        for name, argtypes in (
+                *((n, kernels.SIGNATURES[n]) for n in ("opp_mlp_forward", "opp_tower_forward",
+                                                       "opp_features_forward")),
+                ("opp_cnn_front", [vp] * 4 + [f, vp] + [i] * 7 + [vp])):
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
-    @staticmethod
-    def _tower(obs, slot, stack: OpponentStack, D: int, clip: float) -> tuple:
-        Ep = obs.shape[0]
-        widths = [D] + [w.shape[2] for w in stack.weights]
-        depth, norm = len(stack.weights), stack.norm
-        out = torch.empty(Ep, widths[-1], dtype=torch.float32, device=obs.device)
-        p = kernels.ptr
-        args = (p(obs), p(slot), *((None,) * 3 if norm is None else (p(norm.mean), p(norm.m2),
-                                                                      p(norm.count))),
-                float(clip), (ctypes.c_void_p * depth)(*(w.data_ptr() for w in stack.weights)),
-                (ctypes.c_void_p * depth)(*(b.data_ptr() for b in stack.biases)),
-                (ctypes.c_int * (depth + 1))(*widths), depth,
-                1 if stack.activation == "relu" else 2, p(out), Ep, stack.num_slots, -1,
-                int(stack.bf16))
-        return args, out
-
     def opponent_forward(self, obs, slot, stack: OpponentStack, clip: float = 10.0):
-        """The parent's K7 over the raw obs (its f32 tower, or its bf16
-        tower for bf16 weights; its default tiling) into a new output."""
-        args, out = self._tower(obs, slot, stack, obs.shape[1], clip)
-        kernels.check(self.lib.opp_mlp_forward(*args, kernels.stream(obs.device)), "parent K7")
+        """The parent's K7 over the raw obs (its f32 tower at its default
+        tiling, or its bf16 tower for bf16 weights) into a new output."""
+        args, out = _tower_args(obs, slot, stack, obs.shape[1], clip, "the parent's K7")
+        s = kernels.stream(obs.device)
+        kernels.check(self.lib.opp_tower_forward(*args, s) if stack.bf16
+                      else self.lib.opp_mlp_forward(*args, -1, s), "parent K7")
         return out
+
+    def cnn_front(self, obs, stack: OpponentStack, clip: float = 10.0):
+        """The parent's K20: every slot's normalised spatial obs as the
+        grouped convs' input, [Ep, K C, H, W] (bf16 values for a bf16
+        stack)."""
+        Ep, D = obs.shape
+        K, (H, W, C), norm = stack.num_slots, stack.obs_shape, stack.norm
+        out = torch.empty(Ep, K * C, H, W, dtype=torch.float32, device=obs.device)
+        p = kernels.ptr
+        norm_ptrs = (None,) * 3 if norm is None else (p(norm.mean), p(norm.m2), p(norm.count))
+        kernels.check(self.lib.opp_cnn_front(p(obs), *norm_ptrs, float(clip), p(out), Ep, D, K,
+                                             H, W, C, int(stack.bf16),
+                                             kernels.stream(obs.device)), "parent K20")
+        return out
+
+    def conv_route(self, obs, stack: OpponentStack, clip: float = 10.0):
+        """The parent's conv front: its K20, then the grouped cuDNN convs:
+        every slot's last conv output of every row, [Ep, K C', H, W]."""
+        return grouped_convs(self.cnn_front(obs, stack, clip), stack)
 
     def features_forward(self, feat, obs, slot, stack: OpponentStack, clip: float = 10.0):
-        """The parent's K7 feature front (its default tiling) into a new
-        output: it reads ``feat`` at its strides, the first FC layer in
-        JAX's NHWC row order (the stack's weights as they are)."""
+        """The parent's K7 feature front on ``feat`` [Ep, K C', H, W] (a row
+        of slot k reads channels [k C', (k + 1) C')) into a new output."""
         H, W, C = stack.obs_shape
         cc = feat.shape[1] // stack.num_slots
-        args, out = self._tower(obs, slot, stack, H * W * cc + obs.shape[1] - H * W * C, clip)
-        kernels.check(self.lib.opp_mlp_forward_features(
-            *args, kernels.ptr(feat), (ctypes.c_long * 4)(*feat.stride()), cc, H, W, H * W * C,
+        args, out = _tower_args(obs, slot, stack, _feature_width(stack, obs.shape[1]), clip,
+                                "the parent's feature front")
+        feat = feat.contiguous()
+        kernels.check(self.lib.opp_features_forward(
+            *args, int(stack.bf16), kernels.ptr(feat), cc * H * W, H * W * C,
             kernels.stream(obs.device)), "parent K7 feature front")
         return out
+
+    def cnn_forward(self, obs, slot, stack: OpponentStack, clip: float = 10.0):
+        """The parent's CNN opponents: its K20, the grouped convs, its
+        feature front."""
+        return self.features_forward(self.conv_route(obs, stack, clip), obs, slot, stack, clip)
 
 
 class EmptyKernel:
@@ -1541,6 +1566,8 @@ def check_return_norm_finalize(dev, g) -> dict:
         entry = {
             **timed(kern, lambda w=w: return_norm_finalize_f64_plain(st, samples, rewards, 10.0, w)),
             "library_ms": time_ms(lambda: torch.cumsum(x64, 0)),
+            "library_turns": turns(kern, lambda: torch.cumsum(x64, 0), who="library",
+                                   only="return_norm_finalize"),
             # read samples, rewards (and valid), write the normalized rewards
             # and the stats; ~25 f64 operations per element
             **bound(nbytes(samples, rewards, w) + nbytes(rewards) + 24, flops64=25.0 * N),
@@ -1751,6 +1778,9 @@ def check_obs_norm_update(dev, g) -> dict:
             "into_empty": errs[0], "into_filled": errs[1],
             **timed(new, lambda: obs_norm_update_plain(plain_work, x1)),
             "library_ms": time_ms(lambda: torch.var_mean(x1, dim=0)),
+            # the yardstick's device ms in turns with the kernel's
+            "library_turns": turns(new, lambda: torch.var_mean(x1, dim=0), who="library",
+                                   only="obs_norm_"),
             # read the batch and the state, write the state
             **bound(nbytes(x1) + 3 * x1.shape[1] * 4 * 2, 4.0 * x1.numel()),
         }
@@ -1834,6 +1864,9 @@ def check_opponent_actor(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Tensor,
                     lambda: opponent_actor_forward_plain(obs, slot, stack)),
             tilings=tilings,
             library_ms=time_ms(lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)]),
+            bmm_turns=turns(lambda: opponent_actor_forward(obs, slot, stack),
+                            lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)],
+                            who="bmm", only="opponent_mlp_kernel"),
             **({} if parent is None else parent_opponent_turns(parent, obs, slot, stack, close)),
             # Every row through its own slot only; f32-accurate products on
             # the tensor cores are three TF32 products (bound_ffma_ms: at
@@ -1974,7 +2007,7 @@ def check_opponent_actor_bf16(dev, g, skull_obs: torch.Tensor, ld_obs: torch.Ten
             entry["parent_errors"] = close(theirs, plain, f"{name}, the parent's bf16 tower")
             entry["parent_turns"] = turns(new, lambda: parent.opponent_forward(obs, slot, stack),
                                           only="opponent_tower_bf16_kernel",
-                                          other_only="opponent_mlp_bf16_kernel")
+                                          other_only="opponent_tower_bf16_kernel")
         out[name] = entry
     out["library_call"] = ("torch.bmm in bf16 over the K x Ep stacked rows, one per layer "
                            "(K times the work, bf16 out)")
@@ -2010,19 +2043,18 @@ def cnn_opponents(dev, g, K: int, normed: bool = True, bf16: bool = False) -> Op
     return OpponentStack.of(params, norms)
 
 
-def per_slot_convs(x: torch.Tensor, stack: OpponentStack) -> torch.Tensor:
-    """``opponent_convs`` as a loop of K per-slot cuDNN convs a layer (the
-    alternative to the grouped conv, timed against it)."""
+def grouped_convs(x: torch.Tensor, stack: OpponentStack) -> torch.Tensor:
+    """The parent's conv route after its K20 (cuDNN, one conv a layer with
+    ``groups = K`` over every slot's channels of every row, relu between
+    the layers, bf16 roundings after it for a bf16 stack): the last
+    conv's output [Ep, K C', H, W], timed as the parent's route."""
     K = stack.num_slots
     for i, (w, b) in enumerate(zip(stack.conv_weights, stack.conv_biases)):
         if i:
             x = torch.relu(x)
             if stack.bf16:
                 x = x.to(torch.bfloat16).float()
-        ci, co = x.shape[1] // K, w.shape[0] // K
-        x = torch.cat([torch.nn.functional.conv2d(
-            x[:, k * ci:(k + 1) * ci], w[k * co:(k + 1) * co], b[k * co:(k + 1) * co],
-            padding="same") for k in range(K)], dim=1)
+        x = torch.nn.functional.conv2d(x, w, b, padding="same", groups=K)
     return x
 
 
@@ -2041,66 +2073,183 @@ def graph_replay_ms(fn, reps: int = 20) -> float:
     return time_ms(graph.replay, reps)
 
 
-def conv_macs(stack: OpponentStack) -> int:
-    """Multiply-adds of one row through all K slots' convs."""
-    H, W, _ = stack.obs_shape
-    return sum(w.numel() * H * W for w in stack.conv_weights)
+# K20's bf16 check. Its products are exact (bf16 values) and its f32
+# sums run in another order than cuDNN's, so an inter-layer value may land
+# on the other side of a bf16 rounding (ROADMAP, fault F1) and move the next
+# layer's outputs near it by about an ulp's product.
+CNN_FRONT_F32_TOL = "every |kernel - plain| <= 1e-5 max |plain|"
+CNN_FRONT_BF16_TOL = ("at most 1% of the elements more than 1e-5 max |plain| from plain, every "
+                      "|kernel - plain| <= 2^-7 max |plain|")
+
+
+def cnn_front_errors(k: torch.Tensor, p: torch.Tensor, bf16: bool) -> dict:
+    """K20 against its plain version: the max |kernel - plain|, the share
+    of the elements more than 1e-5 max |plain| apart, and whether they are
+    within ``CNN_FRONT_F32_TOL`` (f32: the order of the 18- and 72-term
+    f32 sums) or ``CNN_FRONT_BF16_TOL``."""
+    d = (k - p).abs()
+    scale = float(p.abs().max()) if p.numel() else 0.0
+    worst = float(d.max()) if d.numel() else 0.0
+    share = float((d > 1e-5 * scale).float().mean()) if d.numel() else 0.0
+    within = (share <= 0.01 and worst <= 2.0**-7 * scale) if bf16 else worst <= 1e-5 * scale
+    return {"max_abs": worst, "max_abs_plain": scale, "share_over_1e-5": share,
+            "within": within}
+
+
+def cnn_front_layout(stack: OpponentStack) -> dict:
+    """K20's shared-memory layout of a stack on its board: rows a tile,
+    floats a row of an activation buffer, the dynamic shared memory (one
+    layer's weights at a time, then the two activation buffers)."""
+    K, (H, W, C) = stack.num_slots, stack.obs_shape
+    ch = [C] + [w.shape[0] // K for w in stack.conv_weights]
+    out = (ctypes.c_int * 2)()
+    smem = kernels.library().opp_cnn_front_layout((ctypes.c_int * len(ch))(*ch), len(ch) - 1,
+                                                  stack.conv_weights[0].shape[2], H, W, out)
+    return {"rows_a_tile": out[0], "floats_a_buffer_row": out[1], "dynamic_smem_bytes": smem}
+
+
+def route_kernels(fn, names: dict, reps: int = 10) -> dict:
+    """One call of ``fn`` with ``torch.nn.functional.conv2d`` made to raise
+    (the route calls no cuDNN conv), then ``reps`` calls under the
+    profiler between two runs of ``LEAD_SPINS`` short device sleeps the
+    host waits out: their device kernels counted by ``names`` (label -> a
+    substring of the kernel's name). A profile in a process that profiled
+    before may lose its first few kernel records (four, two calls of the
+    route, in a full run of this script); the sleeps take that loss. Any other
+    kernel, or a kernel of ``names`` more than ``reps`` times, fails at
+    once; a profile with one under ``reps`` (a launch lost) is taken
+    again, and three such profiles fail. Returns each kernel's launches a
+    call and the profiles taken."""
+    def no_conv(*args, **kw):
+        raise AssertionError("a conv on the CNN opponents' route")
+
+    real = torch.nn.functional.conv2d
+    torch.nn.functional.conv2d = no_conv
+    try:
+        fn()
+    finally:
+        torch.nn.functional.conv2d = real
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    profiles = []
+    while len(profiles) < 3:
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(PROFILE_LEAD_CYCLES // LEAD_SPINS)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(PROFILE_LEAD_CYCLES // LEAD_SPINS)
+            torch.cuda.synchronize()
+        seen = Counter()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and SLEEP_KERNEL not in e.name:
+                seen[next((k for k, sub in names.items() if sub in e.name), e.name[:80])] += 1
+        profiles.append(dict(seen))
+        if any(k not in names for k in seen) or any(seen[k] > reps for k in names):
+            raise AssertionError(f"the route launched other kernels or more than once a call "
+                                 f"({reps} calls): {dict(seen)}")
+        if all(seen[k] == reps for k in names):
+            return {"launches_a_call": {k: seen[k] // reps for k in names}, "calls": reps,
+                    "profiles": len(profiles), "conv2d_called": False}
+    raise AssertionError(f"the route's kernels in {reps} calls, three profiles: {profiles}")
+
+
+LEAD_SPINS = 32
+
+CNN_ROUTE_KERNELS = {"opponent_cnn_front": "opponent_cnn_front_kernel",
+                     "opponent_features_forward": "opponent_features"}
 
 
 def check_opponent_cnn(dev, g, parent: "ParentKernels | None" = None) -> dict:
     """The CNN opponents' path at Connect Four's pool block (Ep = 1024, K =
-    8, obs norm on), f32 and bf16 (the stack stored as a bf16 run stores
-    it): K20 bit for bit its plain version; the grouped cuDNN convs against
-    a loop of K per-slot convs, equal to 1e-5 and timed in turns; K7's
-    feature front after them against ``opponent_cnn_forward_plain`` (the
-    JAX formulation from the raw obs), f32 to 1e-4 + 1e-4 |plain|, the
-    bf16 tower by ``bf16_tower_errors`` with its control (the f32 tower on
-    the same rounded weights and features) failing; each
-    timed against its plain version, K7's feature front's device ms also
-    in turns with torch.bmm over the K x Ep stacked rows (its library
-    call, K times the work) and, with ``parent``, with the parent's
-    feature front (checked the same way), with its bound."""
+    8, the default [8, 8] stack of 3 x 3 kernels), f32 and bf16 (the stack
+    stored as a bf16 run stores it): K20 against its plain version at Ep =
+    1024, 1023, 1 and 0, obs norm on and off (``cnn_front_errors``; bf16
+    with its control, a front that skips the rounding between the layers,
+    failing), timed against its plain version, its layout and bound; the
+    route (``opponent_actor_forward``) profiled: K20 and K7's feature front
+    once each, no other kernel; K7's feature front after K20 against
+    ``opponent_cnn_forward_plain`` (the JAX formulation from the raw obs),
+    f32 to 1e-4 + 1e-4 |plain|, the bf16 tower by ``bf16_tower_errors``
+    with its control (the f32 tower on the same rounded weights and
+    features) failing, its device ms in turns with torch.bmm over the K x
+    Ep stacked rows (its library call, K times the work). With
+    ``parent``: the parent's K20 and grouped cuDNN convs, each row's slot
+    checked against K20 by the same measure and timed in turns with K20
+    (eagerly and as graph replays); the parent's feature front on their
+    output checked the same way and timed in turns with this tree's; the
+    whole route in turns with the parent's."""
     obs = connect_four_like(dev, g, EP)
     slot = torch.randint(0, 8, (EP,), generator=g, device=dev, dtype=torch.int32)
     slot[:3] = torch.tensor([-1, 8, 40], device=dev, dtype=torch.int32)
+    inside = (slot >= 0) & (slot < 8)
+    rows_in = int(inside.sum())
     front, feats, towers = {}, {}, {}
     for bf16 in (False, True):
         key = "bf16" if bf16 else "f32"
         stack = cnn_opponents(dev, g, 8, bf16=bf16)
-        # K20: every slot's normalised spatial obs as the grouped conv's input
-        before = opponent_cnn_front.launches
-        k = opponent_cnn_front(obs, stack)
-        p = opponent_cnn_front_plain(obs, stack)
-        if opponent_cnn_front.launches != before + 1 or not torch.equal(k, p):
-            raise AssertionError(f"opponent_cnn_front {key}: not bit for bit its plain version, "
-                                 f"max abs err {max_err([(k, p)])}")
-        if bf16 and not torch.equal(k, k.to(torch.bfloat16).float()):
-            raise AssertionError("opponent_cnn_front bf16: values that are not bf16")
-        front[key] = {
-            "max_abs_err": 0.0, "equal_bit_for_bit": True, "shape": list(k.shape),
-            **timed(lambda: opponent_cnn_front(obs, stack),
-                    lambda: opponent_cnn_front_plain(obs, stack)),
-            "library_ms": None,
-            # the raw obs and the normalisers read once, the output written once
-            **bound(nbytes(obs, stack.norm) + k.numel() * 4, 6.0 * k.numel()),
-        }
-        # the convs: one grouped conv a layer against K per-slot convs
-        feat = opponent_convs(k, stack)
-        loop = per_slot_convs(k, stack)
-        conv_err = max_err([(feat, loop)])
-        if conv_err > 1e-5 * float(loop.abs().max()):
-            raise AssertionError(f"grouped convs {key} against per-slot convs: {conv_err}")
-        conv = {"max_abs_err": conv_err, "macs": EP * conv_macs(stack),
-                **turns(lambda: opponent_convs(k, stack), lambda: per_slot_convs(k, stack),
-                        who="per_slot_loop"),
-                # as the rollout graph runs them: one graph each, in turns
-                "graph_ms_turns": [], "per_slot_loop_graph_ms": []}
-        for which in ("per_slot_loop_graph_ms", "graph_ms_turns", "graph_ms_turns",
-                      "per_slot_loop_graph_ms"):
-            conv[which].append(graph_replay_ms(
-                (lambda: per_slot_convs(k, stack)) if which.startswith("per_slot")
-                else (lambda: opponent_convs(k, stack))))
-        # K7's feature front after them, against the JAX formulation
+        cases = {}
+        for normed in (True, False):
+            s = stack if normed else dataclasses.replace(stack, norm=None)
+            for Ep in (EP, EP - 1, 1, 0):
+                o, sl = obs[:Ep].contiguous(), slot[:Ep].contiguous()
+                before = opponent_cnn_front.launches
+                k = opponent_cnn_front(o, sl, s)
+                torch.cuda.synchronize()
+                p = opponent_cnn_front_plain(o, sl, s)
+                errs = cnn_front_errors(k, p, bf16)
+                name = f"Ep{Ep}_{'normed' if normed else 'raw'}"
+                if opponent_cnn_front.launches != before + 1 or k.shape != p.shape \
+                        or not errs["within"] or not torch.equal(k[:3], torch.zeros_like(k[:3])):
+                    raise AssertionError(f"opponent_cnn_front {key} {name}: {errs}, shape "
+                                         f"{tuple(k.shape)}; {CNN_FRONT_BF16_TOL if bf16 else ''}")
+                cases[name] = errs
+        k = opponent_cnn_front(obs, slot, stack)
+        p = opponent_cnn_front_plain(obs, slot, stack)
+        entry = {"tol": CNN_FRONT_BF16_TOL if bf16 else CNN_FRONT_F32_TOL, "cases": cases,
+                 "max_abs_err": max(c["max_abs"] for c in cases.values()),
+                 "shape": list(k.shape), "layout": cnn_front_layout(stack)}
+        if bf16:
+            control = cnn_front_errors(
+                opponent_cnn_front_plain(obs, slot, stack, round_between=False), p, True)
+            if control["within"]:
+                raise AssertionError(f"a front without the rounding between the layers passes "
+                                     f"K20's bf16 check: {control}")
+            entry["control_unrounded_between_layers"] = control
+        H, W, _ = stack.obs_shape
+        macs = sum(w.numel() // 8 * H * W for w in stack.conv_weights)
+        new = (lambda: opponent_cnn_front(obs, slot, stack))
+        entry.update(
+            **timed(new, lambda: opponent_cnn_front_plain(obs, slot, stack)),
+            graph_ms=graph_replay_ms(new), macs_a_row=macs, library_ms=None,
+            library_note="no one PyTorch call runs each row's own slot's conv stack",
+            # the rows' spatial obs, the slot ids, the normalisers and the
+            # slots' conv weights read once, the output written once; each
+            # row's own slot's stack, its f32-accurate products at the
+            # 3xTF32 rate as the port's other f32 products (bound_ffma_ms:
+            # at the FFMA rate the kernel uses)
+            **bound(rows_in * 84 * 4 + nbytes(slot, stack.norm, stack.conv_weights,
+                                              stack.conv_biases) + k.numel() * 4,
+                    **{"flops_bf16" if bf16 else "flops_3xtf32": 2.0 * rows_in * macs}))
+        if parent is not None:
+            theirs = parent.conv_route(obs, stack)
+            cc = theirs.shape[1] // 8
+            picked = theirs.view(EP, 8, cc, H, W)[torch.arange(EP, device=dev),
+                                                   slot.clamp(0, 7).long()]
+            perr = cnn_front_errors(picked[inside], p[inside], bf16)
+            if not perr["within"]:
+                raise AssertionError(f"the parent's K20 and grouped convs {key}: {perr}")
+            route = (lambda: parent.conv_route(obs, stack))
+            graphs = {"graph_ms_turns": [], "parent_graph_ms": []}
+            for who in ("parent", "new", "new", "parent"):
+                graphs["parent_graph_ms" if who == "parent" else "graph_ms_turns"].append(
+                    graph_replay_ms(route if who == "parent" else new))
+            entry["parent_k20_and_grouped_convs"] = {
+                "errors": perr, **turns(new, route, only="opponent_cnn_front_kernel"), **graphs}
+        # the whole route: K20, then K7's feature front, against the JAX
+        # formulation; its kernels on the device
         want = opponent_cnn_forward_plain(obs, slot, stack)
         counts = (opponent_cnn_front.launches, opponent_features_forward.launches,
                   opponent_actor_forward.launches)
@@ -2110,6 +2259,9 @@ def check_opponent_cnn(dev, g, parent: "ParentKernels | None" = None) -> dict:
             raise AssertionError("a CNN stack did not launch K20 and K7's feature front once each")
         if not torch.equal(got[:3], torch.zeros_like(got[:3])):
             raise AssertionError("K7's feature front: out-of-range slots not zeros")
+        route_launches = route_kernels(lambda: opponent_actor_forward(obs, slot, stack),
+                                       CNN_ROUTE_KERNELS)
+        feat = k
         if bf16:
             errs = bf16_tower_errors(got, want)
             control = bf16_tower_errors(opponent_features_forward(
@@ -2118,52 +2270,57 @@ def check_opponent_cnn(dev, g, parent: "ParentKernels | None" = None) -> dict:
             if not errs["within"] or control["within"]:
                 raise AssertionError(f"K7's bf16 feature front {errs}, its control {control}; "
                                      f"{BF16_TOWER_TOL}")
-            entry = {"tol": BF16_TOWER_TOL, "max_abs_err": errs["max_abs"],
-                     "mean_abs_err": errs["mean_abs"], "max_abs_plain": errs["max_abs_plain"],
-                     "control_f32_tower_rounded_weights": control}
+            fe = {"tol": BF16_TOWER_TOL, "max_abs_err": errs["max_abs"],
+                  "mean_abs_err": errs["mean_abs"], "max_abs_plain": errs["max_abs_plain"],
+                  "control_f32_tower_rounded_weights": control}
         else:
             d = (got - want).abs()
             if not bool(torch.all(d <= 1e-4 + 1e-4 * want.abs())):
                 raise AssertionError(f"K7's feature front f32: max abs err {float(d.max())}")
-            entry = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": float(d.max())}
-        cc, (H, W, C) = feat.shape[1] // 8, stack.obs_shape
+            fe = {"tol": "1e-4 + 1e-4 * |plain|", "max_abs_err": float(d.max())}
+        cc, (H, W, C) = feat.shape[1], stack.obs_shape
         F = H * W * cc + obs.shape[1] - H * W * C
         wdt = torch.bfloat16 if bf16 else torch.float32
         xs = [torch.rand(8, EP, w.shape[1], generator=g, device=dev).to(wdt) for w in stack.weights]
-        macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
+        tower_macs = sum(w.shape[1] * w.shape[2] for w in stack.weights)
         name = "opponent_features_bf16_kernel" if bf16 else "opponent_features_kernel"
-        new = (lambda: opponent_features_forward(feat, obs, slot, stack))
+        feat_new = (lambda: opponent_features_forward(feat, obs, slot, stack))
         bmm = (lambda: [torch.bmm(x, w) for x, w in zip(xs, stack.weights)])
+        whole_new = (lambda: opponent_actor_forward(obs, slot, stack))
+        whole = {"events_ms": time_ms(whole_new), "device_ms": device_ms(whole_new)[0],
+                 "plain_events_ms": time_ms(lambda: opponent_cnn_forward_plain(obs, slot, stack)),
+                 "kernels_on_the_device": route_launches}
         if parent is not None:
-            theirs = parent.features_forward(feat, obs, slot, stack)
+            theirs_feat = parent.conv_route(obs, stack)
+            theirs = parent.features_forward(theirs_feat, obs, slot, stack)
             if bf16:
-                entry["parent_errors"] = bf16_tower_errors(theirs, want)
-                ok = entry["parent_errors"]["within"]
+                fe["parent_errors"] = bf16_tower_errors(theirs, want)
+                ok = fe["parent_errors"]["within"]
             else:
-                entry["parent_max_abs_err"] = float((theirs - want).abs().max())
+                fe["parent_max_abs_err"] = float((theirs - want).abs().max())
                 ok = bool(torch.all((theirs - want).abs() <= 1e-4 + 1e-4 * want.abs()))
             if not ok:
                 raise AssertionError(f"the parent's feature front {key} off its tolerance")
-            entry["parent_turns"] = turns(
-                new, lambda: parent.features_forward(feat, obs, slot, stack), only=name,
-                other_only="opponent_cnn_mlp_bf16_kernel" if bf16 else "opponent_cnn_mlp_kernel")
-        rows_in = int(((slot >= 0) & (slot < 8)).sum())
-        # what this run's rows read: their slot's features and extra obs
-        # columns, the weights, biases and normalisers, the logits out
+            fe["parent_turns"] = turns(
+                feat_new, lambda: parent.features_forward(theirs_feat, obs, slot, stack),
+                only=name, other_only=name)
+            whole["parent_turns"] = turns(whole_new,
+                                          lambda: parent.cnn_forward(obs, slot, stack))
+        # what this run's rows read: their features and extra obs columns,
+        # the weights, biases and normalisers, the logits out
         moved = (rows_in * F * 4 + nbytes(slot, stack.weights, stack.biases, stack.norm)
                  + EP * 7 * 4)
-        ops = {"flops_bf16" if bf16 else "flops_3xtf32": 2.0 * rows_in * macs}
-        entry.update(
-            **timed(new, lambda: opponent_features_forward_plain(feat, obs, slot, stack)),
+        ops = {"flops_bf16" if bf16 else "flops_3xtf32": 2.0 * rows_in * tower_macs}
+        fe.update(
+            **timed(feat_new, lambda: opponent_features_forward_plain(feat, obs, slot, stack)),
             layout=tower_layout([F] + [w.shape[2] for w in stack.weights], bf16, True),
             feature_width=F, library_ms=time_ms(bmm),
-            bmm_turns=turns(new, bmm, who="bmm", only=name),
+            bmm_turns=turns(feat_new, bmm, who="bmm", only=name),
             library_call="torch.bmm over the K x Ep stacked rows, one per layer (K times the "
                          "work" + (", bf16 out)" if bf16 else ")"),
             **bound(moved, **ops))
-        whole = {"events_ms": time_ms(lambda: opponent_actor_forward(obs, slot, stack)),
-                 "plain_events_ms": time_ms(lambda: opponent_cnn_forward_plain(obs, slot, stack))}
-        (towers if bf16 else feats)[key] = {**entry, "convs": conv, "whole_path": whole}
+        front[key] = entry
+        (towers if bf16 else feats)[key] = {**fe, "whole_path": whole}
     keys = TIMES + ("library_ms", "bound_ms", "bound_by", "max_abs_err")
     return {
         "opponent_cnn_front": {**front, **{k: front["f32"][k] for k in keys}},
@@ -2324,7 +2481,10 @@ def check_clip_adam(dev, g) -> dict:
             lib.grad = grads.clone()
             adam = torch.optim.Adam([lib], lr=1e-6, eps=1e-5, fused=True)
             entry.update(library_ms=time_ms(adam.step), library_call="torch.optim.Adam("
-                         "fused=True).step() (Adam only: no global-norm clip)")
+                         "fused=True).step() (Adam only: no global-norm clip)",
+                         library_turns=turns(
+                             lambda: clip_adam(prm, grads, mu, nu, **kw, partial=partial),
+                             adam.step, who="library", only="clip_adam"))
         if n == 311304:
             out.update(entry)
         else:
@@ -2428,7 +2588,7 @@ ROLLOUT_CASES = (
     # the bf16 compute dtype: the learner's bf16 dense and K7's bf16 tower
     ("connect_four_pool_bf16", "connect_four.toml", T_C4,
      {"normalize_obs": True, "compute_dtype": "bfloat16"}, True),
-    # the CNN against the pool: K20, the grouped convs, K7's feature front
+    # the CNN against the pool: K20, K7's feature front
     ("connect_four_pool_cnn", "connect_four.toml", T_C4,
      {"normalize_obs": True, "network_type": "cnn"}, True),
 )
@@ -2483,13 +2643,11 @@ def rollout_bound(checks: dict, name: str, net, steps: int) -> dict:
             checks["connect_four_step_autoreset"]["bound_ms"], 2 * samples["A7"]["bound_ms"],
             checks["obs_norm_apply"]["bound_ms"],
             checks[BF16_TOWER]["c4_Ep1024_K8_mlp512x2"]["bound_ms"]],
-        # K20, the grouped convs' operations (all K slots over every pool
-        # row) at the f32 rate, and K7's feature front
+        # K20 (each row's own slot's convs) and K7's feature front
         "connect_four_pool_cnn": [
             checks["connect_four_step_autoreset"]["bound_ms"], 2 * samples["A7"]["bound_ms"],
             checks["obs_norm_apply"]["bound_ms"], checks["opponent_cnn_front"]["bound_ms"],
-            2.0 * checks["opponent_features_forward"]["f32"]["convs"]["macs"] / F32_FLOP_PER_S
-            * 1e3, checks["opponent_features_forward"]["bound_ms"]],
+            checks["opponent_features_forward"]["bound_ms"]],
     }[name]
     H, W, _ = net.obs_shape or (1, 1, 1)
     flops = sum(2.0 * E * m.in_features * m.out_features
@@ -3047,13 +3205,61 @@ def idle_share(update, step) -> dict:
                                                                 UPDATE_KERNELS)}
 
 
+# cuDNN's conv kernels by name (not cuBLAS's GEMMs, whose names share
+# "xmma" and "gemm" with them).
+CONV_KERNEL = re.compile(r"conv|cudnn|fprop|implicit|winograd|fft", re.IGNORECASE)
+
+
+def rollout_split(graph, net, obs: torch.Tensor) -> dict:
+    """One profiled replay of a CNN vs-pool rollout graph split by kernel:
+    device ms and launches of K20, K7's feature front, cuDNN's convs and
+    the rest; and the conv kernels of one eager learner forward on the
+    rollout's obs, T of which the replay's convs must be (the opponents
+    run none): more fails; fewer (the profiler lost a launch) profiles
+    the replay again, three times at most, and is reported as it reads."""
+    act = torch.profiler.ProfilerActivity
+
+    def profiled(fn):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            torch.cuda._sleep(PROFILE_LEAD_CYCLES)
+            fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and SLEEP_KERNEL not in e.name]
+
+    with torch.no_grad():
+        net(obs)
+        torch.cuda.synchronize()
+        learner = sum(1 for e in profiled(lambda: net(obs)) if CONV_KERNEL.search(e.name))
+    steps = graph.captured[0].get(WRAPPERS["opponent_cnn_front"], 0)
+    for profiles in range(1, 4):
+        groups: dict = {}
+        for e in profiled(graph.replay):
+            key = ("opponent_cnn_front" if "opponent_cnn_front_kernel" in e.name
+                   else "opponent_features_forward" if "opponent_features" in e.name
+                   else "cudnn_convs" if CONV_KERNEL.search(e.name) else "other")
+            g = groups.setdefault(key, {"launches": 0, "device_ms": 0.0})
+            g["launches"] += 1
+            g["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        convs = groups.get("cudnn_convs", {}).get("launches", 0)
+        if convs > steps * learner:
+            raise AssertionError(f"{convs} conv launches in a CNN vs-pool rollout replay, over "
+                                 f"the learner's {learner} a step times {steps} steps: {groups}")
+        if convs == steps * learner:
+            break
+    return {"groups": groups, "learner_conv_launches_a_forward": learner, "steps": steps,
+            "profiles": profiles, "convs_all_the_learners": convs == steps * learner,
+            "device_ms": sum(g["device_ms"] for g in groups.values())}
+
+
 def update_idle_shares(tmp: Path, card_line: str) -> dict:
     """The device's idle share of one CartPole update (4096 x 128, the
     bench shape) and of one Connect Four update against a pool of 8
     checkpoints (4096 x 64, configs/connect_four.toml with obs norm, K =
     8), with the MLP and with the CNN, through ``Trainer.update``; and in one replay of each update's
     rollout graph and of its update graphs (every minibatch), every kernel's
-    device launches against those the graphs captured. Run in a process
+    device launches against those the graphs captured; the CNN's rollout
+    replay split by kernel (``rollout_split``). Run in a process
     of its own (``phase_in_process``):
     in a process that has profiled phase 2's kernels the profiler drops a
     K6 launch from every profile."""
@@ -3075,6 +3281,10 @@ def update_idle_shares(tmp: Path, card_line: str) -> dict:
                                tr.pool_step if pool else tr.train_step)
         if pool:
             out[name]["rotation"] = len(tr.pool.active)
+        if name.endswith("_cnn"):
+            runner = tr.pool_step.runner
+            out[name]["rollout_split"] = rollout_split(runner.graph, tr.state.network,
+                                                       runner.carry.obs)
     return out
 
 
@@ -3432,8 +3642,8 @@ def selfplay_pool_cnn(tmp: Path, card_line: str, bf16: bool = False) -> dict:
     update: 10 updates, the pool reaching K = 8 at updates 9 and 10 (or,
     with ``bf16``, 3 updates with --compute-dtype bfloat16: K7's feature
     front in its bf16 tower). Per pool update, every step: K20 once, the
-    grouped convs, K7's feature front once, K2 twice (learner, opponents),
-    K7's raw-obs front never. The update times on the host's clock from
+    K7's feature front once, K2 twice (learner, opponents), K7's raw-obs
+    front never. The update times on the host's clock from
     ``perf/sps``."""
     n = CNN_POOL_UPDATES_BF16 if bf16 else POOL_UPDATES
     pool_updates = n - 1
@@ -6530,10 +6740,11 @@ def bf16_phase(tmp: Path, card_line: str) -> dict:
 
 
 def k7_turns(dev, card_line: str, ptxas: list, parent: "ParentKernels | None") -> None:
-    """``--only-k7``: K7's checks alone, with the parent beside them where
-    it was built: the f32 tower at the four pool shapes (bit for bit the
-    parent's, in turns), the bf16 tower at the three bf16 pool blocks and
-    the feature front in f32 and bf16 (each in turns with the parent's and
+    """``--only-k7``: K7's and K20's checks alone, with the parent beside
+    them where it was built: the f32 tower at the four pool shapes (bit for
+    bit the parent's, in turns), the bf16 tower at the three bf16 pool
+    blocks, K20 (in turns with the parent's K20 and grouped convs) and the
+    feature front in f32 and bf16 (each in turns with the parent's and
     with torch.bmm, device ms). The Skull and Liar's Dice obs are random
     rows of their widths (the times depend on the shapes and the slots,
     not on the values). One JSON line a check, then a summary."""
@@ -6541,7 +6752,7 @@ def k7_turns(dev, card_line: str, ptxas: list, parent: "ParentKernels | None") -
     skull_obs = connect_four_like(dev, g, E, D=135)
     ld_obs = connect_four_like(dev, g, E, D=LD_OBS)
     emit("k7_ptxas", card=card_line, ptxas=[ln for ln in ptxas if ln.startswith(
-        ("opponent_tower", "opponent_features", "opponent_mlp"))],
+        ("opponent_tower", "opponent_features", "opponent_mlp", "opponent_cnn_front"))],
          parent_ptxas=None if parent is None else parent.ptxas)
     f32 = check_opponent_actor(dev, g, skull_obs, ld_obs, parent)
     emit("k7_f32_tower", card=card_line, **f32)
@@ -6560,6 +6771,15 @@ def k7_turns(dev, card_line: str, ptxas: list, parent: "ParentKernels | None") -
               + who.format(e.get("parent_turns", {}).get("parent_device_ms"))
               + f", bmm bf16 {e['bmm_bf16_turns']['bmm_bf16_device_ms']}; bound "
               f"{e['bound_ms']}", flush=True)
+    for key, row in cnn["opponent_cnn_front"].items():
+        if key not in ("f32", "bf16"):
+            continue
+        turn = row.get("parent_k20_and_grouped_convs", {})
+        print(f"K20 {key} ({card_line}): device ms {row['device_ms']}, events ms {row['ms']}, "
+              f"graph ms {row['graph_ms']}; in turns {turn.get('device_ms_turns')} against the "
+              f"parent's K20 + grouped convs {turn.get('parent_device_ms')} (graphs "
+              f"{turn.get('graph_ms_turns')} against {turn.get('parent_graph_ms')}); bound "
+              f"{row['bound_ms']}", flush=True)
     for key, row in (("f32", cnn["opponent_features_forward"]["f32"]),
                      ("bf16", cnn[CNN_BF16_TOWER]["bf16"])):
         mine = (row["parent_turns"]["device_ms_turns"] if parent is not None
@@ -6574,13 +6794,13 @@ def main(argv: list) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of burn_ppo_torch on one NVIDIA GPU.")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the parent commit: its K7 towers are built "
+                    help="a checkout of the parent commit: its K7 towers and K20 are built "
                          "from it and timed in turns with this tree's, and so are its CartPole "
                          "and Connect Four vs-pool train phases, its train steps and its Skull "
                          "eval chunk")
     ap.add_argument("--only-k7", action="store_true",
-                    help="build, then run K7's checks alone (with --parent, in turns with the "
-                         "parent's) and stop, without the result line")
+                    help="build, then run K7's and K20's checks alone (with --parent, in turns "
+                         "with the parent's) and stop, without the result line")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     card_line = card()
@@ -6595,7 +6815,7 @@ def main(argv: list) -> int:
     kernels.library()
     log = lib_path.with_suffix(".log")
     ptxas = ptxas_summary(log.read_text()) if log.exists() else []
-    # ParentKernels binds the entry points as 13c39f2 has them; a parent
+    # ParentKernels binds the entry points as d19fb64 has them; a parent
     # whose kernel sources are this tree's has nothing to time against them.
     parent = None
     if args.parent is not None and not same_kernel_sources(args.parent.resolve()):
@@ -6666,8 +6886,8 @@ def main(argv: list) -> int:
         **check_opponent_actor_bf16(dev, torch.Generator(device=dev).manual_seed(21), skull_obs,
                                     ld_obs, parent),
         "ptxas": kernel_ptxas(ptxas, "opponent_tower_bf16")}
-    # The CNN opponents (A12b): K20, the grouped convs, K7's feature front
-    # in both towers, on a generator of their own.
+    # The CNN opponents (A12b): K20 and K7's feature front in both towers,
+    # on a generator of their own.
     checks.update(check_opponent_cnn(dev, torch.Generator(device=dev).manual_seed(22), parent))
     checks["opponent_cnn_front"]["ptxas"] = kernel_ptxas(ptxas, "opponent_cnn_front")
     checks["opponent_features_forward"]["ptxas"] = kernel_ptxas(ptxas, "opponent_features")
@@ -6731,7 +6951,7 @@ def main(argv: list) -> int:
             "selfplay_pool_bf16": selfplay_pool_bf16(Path(d), card_line),
             "selfplay_train_cnn_bf16": selfplay_train(Path(d), card_line, "cnn", CNN_UPDATES,
                                                       BF16_FLAGS),
-            # the CNN against the pool (A12b): K20, the grouped convs and
+            # the CNN against the pool (A12b): K20 and
             # K7's feature front, f32 to K = 8, then bf16
             "selfplay_pool_cnn": selfplay_pool_cnn(Path(d), card_line),
             "selfplay_pool_cnn_bf16": selfplay_pool_cnn(Path(d), card_line, bf16=True),
@@ -6768,6 +6988,10 @@ def main(argv: list) -> int:
               f"(K = 8 at the last two); one update at K = 8 {cnn_idle['update_ms']:.1f} ms, "
               f"device busy {cnn_idle['device_busy_ms']:.1f} ms, idle share "
               f"{cnn_idle['idle_share']:.3f}", flush=True)
+        split = cnn_idle["rollout_split"]
+        print(f"CNN vs-pool rollout replay ({card_line}): {split['device_ms']:.3f} device ms; "
+              + ", ".join(f"{k} {v['launches']} launches {v['device_ms']:.3f} ms"
+                          for k, v in split["groups"].items()), flush=True)
         # The supervised runs go on while phase resume runs.
         supervised = supervisor_start(Path(d))
         emit("resume", **resume_phase(Path(d), card_line))

@@ -4,7 +4,8 @@
 
 On one NVIDIA GPU: the bf16 tower at Connect Four's and Skull's pool
 blocks (Ep = 1024 and 1229, K = 8) and the CNN's feature front in f32 and
-bf16 (Ep = 1024, K = 8), one warm launch each with ``opp_tower_trace``
+bf16 (Ep = 1024, K = 8, on K20's conv output), one warm launch each with
+``opp_tower_trace``
 set: every block records %globaltimer at its phase marks
 (``csrc/opponent_tower.cuh`` TRACE_SLOTS). The kernels are built with
 OPP_TOWER_TRACE defined, into a library of their own (the package's
@@ -31,7 +32,6 @@ from burn_ppo_torch.device import resolve_device  # noqa: E402
 from burn_ppo_torch.ppo.pool_rollout import (  # noqa: E402
     opponent_actor_forward,
     opponent_cnn_front,
-    opponent_convs,
     opponent_features_forward,
 )
 
@@ -118,7 +118,7 @@ def main(argv: list) -> int:
         stack = cs.cnn_opponents(dev, g, 8, bf16=bf16)
         obs = cs.connect_four_like(dev, g, cs.EP)
         slot = torch.randint(0, 8, (cs.EP,), generator=g, device=dev, dtype=torch.int32)
-        feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+        feat = opponent_cnn_front(obs, slot, stack)
         # 16 rows a tile, no cluster (csrc/opponent_features.cu)
         cases.append((f"features_{'bf16' if bf16 else 'f32'}_16", 2, (cs.EP + 15) // 16 + 8,
                       lambda feat=feat, obs=obs, slot=slot, stack=stack:

@@ -1,8 +1,8 @@
 """The CNN against the opponent pool (Connect Four, A12b) of the port
 against the JAX package on the CPU: the CNN opponents' forward
-(``opponent_cnn_forward_plain``, and the staged route through K20's,
-the grouped convs' and K7's feature front's plain versions) against JAX's
-vmap over the stacked opponents and one-hot selection, in f32 and bf16;
+(``opponent_cnn_forward_plain``, and the staged route through K20's and
+K7's feature front's plain versions) against JAX's vmap over the
+stacked opponents and one-hot selection, in f32 and bf16;
 two vs-pool train steps with JAX's random draws replayed; and the
 ``train`` command against the pool, resumed.
 
@@ -129,8 +129,8 @@ def _inputs(seed, Ep=40, n=3):
 @pytest.mark.parametrize("normed", [False, True])
 def test_cnn_opponent_forward_matches_jax(normed):
     """The JAX formulation (``opponent_cnn_forward_plain``) and the staged
-    route the card runs (K20, the grouped convs, K7's feature front, each
-    by its plain version on the CPU) against JAX's vmap at K = 3."""
+    route the card runs (K20, then K7's feature front, each by its plain
+    version on the CPU) against JAX's vmap at K = 3."""
     jps, tnets, norms = _stacks(3, 20 + normed, normed)
     obs, slot = _inputs(normed)
     want = _jax_logits(_jax_cnn(), jps, norms, obs, slot)
@@ -289,12 +289,15 @@ def test_train_command_trains_the_cnn_against_the_pool_and_resumes(tmp_path, cap
 @pytest.mark.parametrize("bf16", [False, True])
 def test_cnn_wrappers_launch_their_entry_points_once_each(monkeypatch, bf16):
     """The CNN stack's CUDA route with a stand-in kernel library: K20's
-    entry once (rows, obs width, slots, H, W, C, the bf16 flag), the
-    grouped convs, then K7's feature-front entry once (the stack's packed
-    layers, the tower's widths [338, 32, 7], the conv output's pointer,
-    its C' H W = 336 floats a slot and the spatial width 84), each on its
-    own counter; K7's raw-obs entry and counter untouched. A tower wider
-    than the kernel's 512 columns is refused before K7 launches."""
+    entry once (obs, slot, the normalisers, each conv layer's stacked
+    weights and biases, the channels [2, 8, 8], depth 2, kernel 3, H, W,
+    the obs width, rows, slots, the bf16 flag), no conv after it, then
+    K7's feature-front entry once on K20's output (the stack's packed
+    layers, the tower's widths [338, 32, 7], its C' H W = 336 floats a row
+    and the spatial width 84), each on its own counter; K7's raw-obs entry
+    and counter untouched. A tower wider than K7's 512 columns is refused
+    before K7 launches; a conv stack K20's entry refuses (past its limits)
+    raises, counts no launch and launches nothing after it."""
     from burn_ppo_torch import kernels
     from tests.test_torch_import import _cuda_path_on_cpu
 
@@ -305,17 +308,25 @@ def test_cnn_wrappers_launch_their_entry_points_once_each(monkeypatch, bf16):
     obs, slot = (torch.from_numpy(x) for x in _inputs(2, Ep=16))
     before = [w.launches for w in (opponent_cnn_front, opponent_features_forward,
                                    opponent_actor_forward)]
+
+    def no_conv(*args, **kw):
+        raise AssertionError("a conv on the CNN opponents' device route")
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", no_conv)
     out = opponent_actor_forward(obs, slot, stack)
     assert [name for name, _ in lib.calls] == ["opp_cnn_front", "opp_features_forward"]
     (_, front), (_, feat) = lib.calls
     assert len(front) == len(kernels.SIGNATURES["opp_cnn_front"])
-    assert front[0] == obs.data_ptr() and front[1] == stack.norm.mean.data_ptr()
-    assert front[6:13] == (16, D, 3, 6, 7, 2, int(bf16))
+    assert front[:3] == (obs.data_ptr(), slot.data_ptr(), stack.norm.mean.data_ptr())
+    assert list(front[6]) == [w.data_ptr() for w in stack.conv_weights]
+    assert list(front[7]) == [b.data_ptr() for b in stack.conv_biases]
+    assert list(front[8]) == [2, 8, 8] and front[9:14] == (2, 3, 6, 7, D)
+    assert front[15:18] == (16, 3, int(bf16))
     assert len(feat) == len(kernels.SIGNATURES["opp_features_forward"])
     assert list(feat[6]) == [w.data_ptr() for w in stack.packed.layers]
     assert list(feat[8]) == [338, 32, 7] and feat[9] == 2 and feat[11] == out.data_ptr()
     assert feat[12:15] == (16, 3, int(bf16))
-    assert feat[16:18] == (8 * 42, 84) and out.shape == (16, A)
+    assert feat[15] == front[14] and feat[16:18] == (8 * 42, 84) and out.shape == (16, A)
     assert [w.launches for w in (opponent_cnn_front, opponent_features_forward,
                                  opponent_actor_forward)] == [before[0] + 1, before[1] + 1,
                                                               before[2]]
@@ -325,3 +336,19 @@ def test_cnn_wrappers_launch_their_entry_points_once_each(monkeypatch, bf16):
     with pytest.raises(ValueError, match="obs width 674"):
         opponent_actor_forward(obs, slot.clamp(0, 1), wide)
     assert [name for name, _ in lib.calls[2:]] == ["opp_cnn_front"]  # K7 not launched
+    deep = OpponentStack.of([actor_params(ActorCriticNetwork(
+        D, A, network_type="cnn", obs_shape=SHAPE, num_conv_layers=2, conv_channels=(40, 8),
+        kernel_size=7, activation="relu", generator=torch.Generator().manual_seed(k)))
+        for k in range(2)], None)
+    counts = [w.launches for w in (opponent_cnn_front, opponent_features_forward)]
+
+    def refused(*args):  # the entry's cudaErrorInvalidValue
+        lib.calls.append(("opp_cnn_front", args))
+        return 1
+
+    lib.opp_cnn_front = refused
+    with pytest.raises(RuntimeError, match="opp_cnn_front"):
+        opponent_actor_forward(obs, slot.clamp(0, 1), deep)
+    assert [name for name, _ in lib.calls[3:]] == ["opp_cnn_front"]  # nothing after it
+    assert list(lib.calls[3][1][8]) == [2, 40, 8] and lib.calls[3][1][10] == 7
+    assert [w.launches for w in (opponent_cnn_front, opponent_features_forward)] == counts

@@ -2525,14 +2525,13 @@ def test_dense_bf16_card_route_keeps_an_f32_output(dev, fan_in, fan_out):
 
 
 # ---------------------------------------------------------------------------
-# The CNN opponents (A12b): K20, the grouped convs and K7's feature front
+# The CNN opponents (A12b): K20, the conv front, and K7's feature front
 # ---------------------------------------------------------------------------
-def cnn_opponents(dev, seed, K=8, normed=True, bf16=False):
-    """K seeded Connect Four CNNs of the default shape (2 -> 8 -> 8, 3 x 3
-    convs, FC 32 relu, head 7), random biases, stacked as the pool stacks
-    them (``actor_params``, ``OpponentStack.of``); obs normalisers with
-    slot 0 at count 0 and slot 1 at count 1 (the identity), the rest
-    merged."""
+def cnn_opponents(dev, seed, K=8, normed=True, bf16=False, channels=(8, 8), kernel=3):
+    """K seeded Connect Four CNNs (by default 2 -> 8 -> 8, 3 x 3 convs, FC
+    32 relu, head 7), random biases, stacked as the pool stacks them
+    (``actor_params``, ``OpponentStack.of``); obs normalisers with slot 0
+    at count 0 and slot 1 at count 1 (the identity), the rest merged."""
     from burn_ppo_torch.models.network import ActorCriticNetwork
     from burn_ppo_torch.ppo.pool_rollout import actor_params
 
@@ -2540,6 +2539,8 @@ def cnn_opponents(dev, seed, K=8, normed=True, bf16=False):
     params = []
     for k in range(K):
         net = ActorCriticNetwork(86, 7, network_type="cnn", obs_shape=(6, 7, 2), activation="relu",
+                                 num_conv_layers=len(channels), conv_channels=channels,
+                                 kernel_size=kernel,
                                  generator=torch.Generator(device=dev).manual_seed(seed * 64 + k))
         with torch.no_grad():
             for m in [*net.conv_layers, *net.fc_layers, net.policy_head]:
@@ -2554,45 +2555,127 @@ def cnn_opponents(dev, seed, K=8, normed=True, bf16=False):
     return OpponentStack.of(params, norms)
 
 
-def cnn_case(dev, seed, Ep, K=8, normed=True, bf16=False):
+def cnn_case(dev, seed, Ep, K=8, normed=True, bf16=False, **stack):
+    """Raw obs, slots (the first three, where Ep holds them, outside [0,
+    K)) and a stack of K CNN opponents."""
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     obs = torch.randn(Ep, 86, generator=g, device=dev) * 2.0 + 0.5
     slot = torch.randint(0, K, (Ep,), generator=g, device=dev, dtype=torch.int32)
-    slot[:3] = torch.tensor([-1, K, 40], device=dev, dtype=torch.int32)
-    return obs, slot, cnn_opponents(dev, seed, K, normed, bf16)
+    slot[:3] = torch.tensor([-1, K, 40], device=dev, dtype=torch.int32)[:Ep]
+    return obs, slot, cnn_opponents(dev, seed, K, normed, bf16, **stack)
 
 
-@pytest.mark.parametrize("Ep,K", [(1024, 8), (37, 3)])
+def cnn_front_close(k, p, bf16) -> bool:
+    """K20 against its plain version: f32, every |kernel - plain| <= 1e-5
+    max |plain| (the order of the f32 sums of a conv output, 18 to 800
+    products); bf16, at most 1% of the elements more than 1e-5 max
+    |plain| apart and every one within 2^-7 max |plain|: the products are
+    exact (bf16 values) but an inter-layer value can land on the other
+    side of a bf16 rounding, one ulp apart, which moves the next layer's
+    outputs near it by about that ulp's product."""
+    if not p.numel():
+        return k.shape == p.shape
+    d, scale = (k - p).abs(), float(p.abs().max())
+    if not bf16:
+        return float(d.max()) <= 1e-5 * scale
+    return float((d > 1e-5 * scale).float().mean()) <= 0.01 and float(d.max()) <= 2.0**-7 * scale
+
+
+@pytest.mark.parametrize("Ep,K", [(1024, 8), (1023, 8), (1, 8), (0, 8), (37, 3)])
 @pytest.mark.parametrize("normed", [True, False])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_opponent_cnn_front_kernel_equals_plain_bit_for_bit(dev, Ep, K, normed, bf16):
-    """K20 at the pool block's shape and a ragged one: every slot's
-    normalisation (identity at counts 0 and 1) of the NHWC spatial slice,
-    stored NCHW as one grouped-conv input; bf16 values for a bf16 stack."""
+def test_opponent_cnn_front_kernel_matches_plain(dev, Ep, K, normed, bf16):
+    """K20 at the pool block's shape, ragged ones and none: each row's own
+    slot's normalisation (identity at counts 0 and 1) and conv stack, the
+    last conv [Ep, 8, 6, 7] before its relu, zeros outside [0, K), by
+    ``cnn_front_close``; in bf16 a front without the rounding between the
+    layers, the control, fails it."""
     from burn_ppo_torch.ppo.pool_rollout import opponent_cnn_front, opponent_cnn_front_plain
 
-    obs, _, stack = cnn_case(dev, Ep + K, Ep, K, normed, bf16)
+    obs, slot, stack = cnn_case(dev, Ep + K, Ep, K, normed, bf16)
     before = opponent_cnn_front.launches
-    k = opponent_cnn_front(obs, stack)
+    k = opponent_cnn_front(obs, slot, stack)
     torch.cuda.synchronize()
     assert opponent_cnn_front.launches == before + 1
-    p = opponent_cnn_front_plain(obs, stack)
-    assert k.shape == (Ep, K * 2, 6, 7) and torch.equal(k, p)
-    assert torch.equal(k, k.to(torch.bfloat16).float()) == bf16
+    p = opponent_cnn_front_plain(obs, slot, stack)
+    assert k.shape == (Ep, 8, 6, 7) and torch.equal(k[:3], torch.zeros_like(k[:3]))
+    assert cnn_front_close(k, p, bf16), float((k - p).abs().max())
+    if bf16 and Ep >= 37:
+        control = opponent_cnn_front_plain(obs, slot, stack, round_between=False)
+        assert not cnn_front_close(control, p, True)
+
+
+@pytest.mark.parametrize("channels,kernel", [((6,), 5), ((16, 4, 8), 3), ((32, 32, 32, 12), 5),
+                                             ((8, 8), 1), ((4, 8), 2), ((8, 8), 4)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_opponent_cnn_front_kernel_takes_other_stacks(dev, channels, kernel, bf16):
+    """K20 on the stacks a config may hold beside the default: one layer of
+    5 x 5 kernels, three of [16, 4, 8], four of up to 32 channels of 5 x 5
+    (the most shared memory a block takes), 1 x 1 and the even
+    kernels 2 x 2 and 4 x 4 (SAME pads one less before than after), each
+    against its plain version at Ep = 1024, K = 8."""
+    from burn_ppo_torch.ppo.pool_rollout import opponent_cnn_front, opponent_cnn_front_plain
+
+    obs, slot, stack = cnn_case(dev, len(channels) + kernel, 1024, bf16=bf16, channels=channels,
+                                kernel=kernel)
+    k = opponent_cnn_front(obs, slot, stack)
+    torch.cuda.synchronize()
+    p = opponent_cnn_front_plain(obs, slot, stack)
+    assert k.shape == (1024, channels[-1], 6, 7)
+    assert cnn_front_close(k, p, bf16), float((k - p).abs().max())
+
+
+def test_opponent_cnn_front_limits_agree_with_the_config_refusal(dev):
+    """K20's entry takes a stack exactly where ``cnn_front_problems`` (the
+    config-time refusal's copy of its limits) finds nothing: its layout
+    on every depth 1-5, channel count 1-33 at each place, kernel 1-6 and
+    two boards; the wrapper's launch on a stack past them raises and
+    launches nothing."""
+    import ctypes
+
+    from burn_ppo_torch import kernels
+    from burn_ppo_torch.ppo.pool_rollout import cnn_front_problems, opponent_cnn_front
+
+    lib, out = kernels.library(), (ctypes.c_int * 2)()
+    cases = 0
+    for (H, W) in ((6, 7), (14, 14)):
+        for depth in range(1, 6):
+            for place in range(depth + 1):
+                for c in (1, 8, 32, 33):
+                    for ks in range(1, 7):
+                        ch = [2] + [8] * depth
+                        ch[place] = c
+                        took = lib.opp_cnn_front_layout((ctypes.c_int * len(ch))(*ch), depth,
+                                                        ks, H, W, out) > 0
+                        assert took == (cnn_front_problems((H, W, 2), ch, ks, 8) == []), (
+                            H, W, ch, ks)
+                        cases += 1
+    assert cases == 2 * 20 * 4 * 6
+    obs, slot, stack = cnn_case(dev, 5, 64, channels=(40, 8), kernel=3)
+    before = opponent_cnn_front.launches
+    with pytest.raises(RuntimeError, match="opp_cnn_front"):
+        opponent_cnn_front(obs, slot, stack)
+    assert opponent_cnn_front.launches == before
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_opponent_cnn_front_kernel_replays_equal_the_eager_call_bit_for_bit(dev, bf16):
+    from burn_ppo_torch.ppo.pool_rollout import opponent_cnn_front
+
+    obs, slot, stack = cnn_case(dev, 13, 1024, bf16=bf16)
+    replays_equal_eager(lambda: opponent_cnn_front(obs, slot, stack))
 
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16):
-    """K20, the grouped convs and K7's feature front against
-    ``opponent_cnn_forward_plain`` (each slot's normalisation, convs and
-    tower over every row, then the row's slot) at Ep = 1024, K = 8:
-    f32 to K7's 1e-4 + 1e-4 |plain|, bf16 by ``bf16_tower_close``, whose
-    control (K7's f32 tower on the same rounded weights and features)
-    fails; out-of-range slots read zeros."""
+    """K20 and K7's feature front against ``opponent_cnn_forward_plain``
+    (each slot's normalisation, convs and tower over every row, then the
+    row's slot) at Ep = 1024, K = 8: f32 to K7's 1e-4 + 1e-4 |plain|, bf16
+    by ``bf16_tower_close``, whose control (K7's f32 tower on the same
+    rounded weights and features) fails; out-of-range slots read zeros."""
     from burn_ppo_torch.ppo.pool_rollout import (
         opponent_cnn_forward_plain,
         opponent_cnn_front,
-        opponent_convs,
         opponent_features_forward,
     )
 
@@ -2609,7 +2692,7 @@ def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16):
         assert_opponent_close(k, p)
         return
     assert bf16_tower_close(k, p), (float((k - p).abs().max()), float((k - p).abs().mean()))
-    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    feat = opponent_cnn_front(obs, slot, stack)
     control = opponent_features_forward(feat, obs, slot, f32_stack(stack))
     assert not bf16_tower_close(control, p)
 
@@ -2617,11 +2700,10 @@ def test_opponent_cnn_forward_matches_the_jax_formulation(dev, bf16):
 @pytest.mark.parametrize("Ep", [37, 1229])
 def test_opponent_features_kernel_reads_any_feature_strides(dev, Ep):
     """K7's feature front alone against its plain version on the same conv
-    output, NCHW and channels-last (the kernel takes the strides), with
-    empty slots and a slot under a tile."""
+    output, NCHW and channels-last (copied into NCHW first), with empty
+    slots and a slot under a tile."""
     from burn_ppo_torch.ppo.pool_rollout import (
         opponent_cnn_front,
-        opponent_convs,
         opponent_features_forward,
         opponent_features_forward_plain,
     )
@@ -2631,7 +2713,7 @@ def test_opponent_features_kernel_reads_any_feature_strides(dev, Ep):
     used = torch.tensor([0, 3, 5, 7], device=dev, dtype=torch.int32)
     slot[3:] = used[torch.randint(0, 4, (Ep - 3,), generator=g, device=dev)]
     slot[3:6] = 2
-    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    feat = opponent_cnn_front(obs, slot, stack)
     p = opponent_features_forward_plain(feat, obs, slot, stack)
     for f in (feat, feat.contiguous(memory_format=torch.channels_last)):
         k = opponent_features_forward(f, obs, slot, stack)
@@ -2649,7 +2731,6 @@ def test_opponent_features_kernel_edges(dev, case, bf16):
     1e-4 |plain|, bf16 by ``bf16_tower_close``."""
     from burn_ppo_torch.ppo.pool_rollout import (
         opponent_cnn_front,
-        opponent_convs,
         opponent_features_forward,
         opponent_features_forward_plain,
     )
@@ -2657,7 +2738,7 @@ def test_opponent_features_kernel_edges(dev, case, bf16):
     g = torch.Generator(device=dev).manual_seed(len(case) + bf16)
     K, Ep, slot = tower_edge(g, dev, case)
     obs, _, stack = cnn_case(dev, len(case), Ep, K=K, bf16=bf16)
-    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    feat = opponent_cnn_front(obs, slot, stack)
     k = opponent_features_forward(feat, obs, slot, stack)
     torch.cuda.synchronize()
     p = opponent_features_forward_plain(feat, obs, slot, stack)
@@ -2671,14 +2752,10 @@ def test_opponent_features_kernel_edges(dev, case, bf16):
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_opponent_features_kernel_replays_equal_the_eager_call_bit_for_bit(dev, bf16):
-    from burn_ppo_torch.ppo.pool_rollout import (
-        opponent_cnn_front,
-        opponent_convs,
-        opponent_features_forward,
-    )
+    from burn_ppo_torch.ppo.pool_rollout import opponent_cnn_front, opponent_features_forward
 
     obs, slot, stack = cnn_case(dev, 12, 1024, bf16=bf16)
-    feat = opponent_convs(opponent_cnn_front(obs, stack), stack)
+    feat = opponent_cnn_front(obs, slot, stack)
     replays_equal_eager(lambda: opponent_features_forward(feat, obs, slot, stack))
 
 
@@ -2697,9 +2774,9 @@ def _cnn_pool_case(dev, seed):
 def test_cnn_vs_pool_graph_replays_equal_the_eager_loop_bit_for_bit(dev):
     """Connect Four's CNN against a padded stack of 4 CNNs, the active count
     1, 2, 4 and a new rotation each rollout: one capture, and each replay
-    equals the eager loop bit for bit (K20, the grouped cuDNN convs and
-    K7's feature front inside the graph), the generator at the same
-    offset; K20 and the feature front counted T a replay."""
+    equals the eager loop bit for bit (K20 and K7's feature front inside
+    the graph), the generator at the same offset; K20 and the feature
+    front counted T a replay."""
     from burn_ppo_torch.ppo.pool_rollout import (
         collect_rollouts_with_opponents,
         opponent_cnn_front,

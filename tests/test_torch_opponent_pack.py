@@ -41,7 +41,6 @@ from burn_ppo_torch.ppo.pool_rollout import (
     actor_params,
     opponent_actor_forward_plain,
     opponent_cnn_front_plain,
-    opponent_convs,
     opponent_features_forward_plain,
 )
 from burn_ppo_torch.ppo.rollout_graph import _clone, copy_into, state_leaves
@@ -189,21 +188,20 @@ def test_plain_tower_from_the_packed_layers_equals_the_stacks(tower, dtype):
     assert torch.equal(want[slot < 0], torch.zeros_like(want[slot < 0]))
 
 
-def _packed_features_plain(feat, obs, stack):
-    """Every slot's tower as the feature front runs it: the slot's
-    channels of ``feat`` relu'd and flattened in NCHW order, the obs
-    columns past the spatial slice, and the packed first layer unpacked
-    in its NCHW row order (the later layers unpacked), f32 products as
-    JAX's dense takes them: [K, Ep, A]."""
+def _packed_features_plain(feats, obs, stack):
+    """Every slot's tower as the feature front runs it: the slot's conv
+    features over every row (``feats[k]``, [Ep, C', H, W]) relu'd and
+    flattened in NCHW order, the obs columns past the spatial slice, and
+    the packed first layer unpacked in its NCHW row order (the later
+    layers unpacked), f32 products as JAX's dense takes them: [K, Ep, A]."""
     K, Ep = stack.num_slots, obs.shape[0]
     widths = [stack.weights[0].shape[1]] + [w.shape[2] for w in stack.weights]
     layers = [unpack_layer(stack.packed.layers[0], widths[0], widths[1])] + unpack_tower(
         stack.packed, widths)[1:]
-    cc = feat.shape[1] // K
     n = SHAPE[0] * SHAPE[1] * SHAPE[2]
     out = []
     for k in range(K):
-        x = torch.cat([torch.relu(feat[:, k * cc:(k + 1) * cc]).reshape(Ep, -1), obs[:, n:]], 1)
+        x = torch.cat([torch.relu(feats[k]).reshape(Ep, -1), obs[:, n:]], 1)
         for i, (w, b) in enumerate(zip(layers, stack.biases)):
             x = x @ w[k].float() + b[k]
             if i < len(layers) - 1:
@@ -215,21 +213,23 @@ def _packed_features_plain(feat, obs, stack):
 def test_nchw_first_layer_on_nchw_features_equals_jax_nhwc():
     """Connect Four's CNN (338 -> 32 -> 7 behind its convs), f32: the
     first FC layer packed in the conv output's NCHW order, applied to each
-    slot's NCHW-flattened conv features (the port's convs, the relu at the
-    load) and the obs columns past the spatial slice, against JAX's
-    ``forward_actor`` (``_cnn_features``' NHWC flatten and the policy head)
-    on the same weights, per slot; and the feature front's plain version
-    (NHWC) on the same stack, each row's slot."""
+    slot's NCHW-flattened conv features (K20's plain version with every
+    row under that slot, the relu at the load) and the obs columns past
+    the spatial slice, against JAX's ``forward_actor`` (``_cnn_features``'
+    NHWC flatten and the policy head) on the same weights, per slot; and
+    the feature front's plain version (NHWC) on the same stack, each row's
+    own slot's features."""
     K = 3
     jnet, jps, nets = _jax_cnns(K, seed=5)
     stack = _cnn_stack(nets)
     obs, slot = _inputs(K, Ep=40, seed=5)
-    feat = opponent_convs(opponent_cnn_front_plain(obs, stack), stack)
-    got = _packed_features_plain(feat, obs, stack)
+    feats = [opponent_cnn_front_plain(obs, torch.full_like(slot, k), stack) for k in range(K)]
+    got = _packed_features_plain(feats, obs, stack)
     for k in range(K):
         want = np.asarray(jnet.forward_actor(jps[k], jnp.asarray(obs.numpy())))
         np.testing.assert_allclose(got[k].numpy(), want, rtol=F32_RTOL, atol=F32_ATOL)
-    plain = opponent_features_forward_plain(feat, obs, slot, stack)
+    plain = opponent_features_forward_plain(opponent_cnn_front_plain(obs, slot, stack), obs, slot,
+                                            stack)
     inside = (slot >= 0) & (slot < K)
     rows = torch.arange(obs.shape[0])
     np.testing.assert_allclose(plain[inside].numpy(),
